@@ -1,7 +1,8 @@
 """PiCLES on PyTorch and CUDA: the WaveGrowth2D step with hand-written
-Hopper kernels (advance, auto-dt, CIC gather) and plain PyTorch versions of
-each.  The JAX package ``picles_tpu`` is the reference it is tested
-against; this package imports no JAX."""
+Hopper kernels (advance, auto-dt, CIC gather, remesh, and the gather with
+the remesh fused) and plain PyTorch versions of each, driven by
+``Simulation`` with stores and checkpoints.  The JAX package ``picles_tpu``
+is the reference it is tested against; this package imports no JAX."""
 
 from .convert import (config_from_jax, grid_from_numpy, settings_from_values,
                       state_from_numpy, state_to_numpy)
@@ -14,17 +15,26 @@ from .models.state import ModelState2D, Particles2D, StepMetrics
 from .models.wave_growth_2d import (ParticleDefaults2D, WaveGrowth2D,
                                     WaveGrowth2DConfig)
 from .ops.advance_cuda import advance_cuda, auto_dt_cuda
-from .ops.pic_cuda import pic_gather
+from .ops.pic_cuda import pic_gather, pic_gather_remesh
+from .ops.remesh import RemeshParams, RemeshResult, remesh_core
+from .ops.remesh_cuda import remesh_cuda
 from .ops.rhs import TermFlags
 from .ops.tsit5 import SolverConfig
+from .simulation.checkpoint import load_checkpoint, save_checkpoint
+from .simulation.simulation import Simulation
+from .simulation.store import (CashStore, EmptyStore, StateStore,
+                               convert_store_to_tuple)
 
 __all__ = [
-    "Boundary", "Grid2D", "GridStats", "IDConstants", "ModelState2D",
-    "ODEParameters", "ODESettings", "ParticleDefaults2D", "Particles2D",
-    "SolverConfig", "StepMetrics", "TermFlags", "WaveGrowth2D",
-    "WaveGrowth2DConfig", "WindKernel", "WindKind", "Winds2D",
-    "advance_cuda", "auto_dt_cuda", "cartesian_box", "cartesian_grid_2d",
-    "config_from_jax", "constant_winds", "grid_from_numpy",
-    "half_domain_winds", "pic_gather", "settings_from_values",
+    "Boundary", "CashStore", "EmptyStore", "Grid2D", "GridStats",
+    "IDConstants", "ModelState2D", "ODEParameters", "ODESettings",
+    "ParticleDefaults2D", "Particles2D", "RemeshParams", "RemeshResult",
+    "Simulation", "SolverConfig", "StateStore", "StepMetrics", "TermFlags",
+    "WaveGrowth2D", "WaveGrowth2DConfig", "WindKernel", "WindKind",
+    "Winds2D", "advance_cuda", "auto_dt_cuda", "cartesian_box",
+    "cartesian_grid_2d", "config_from_jax", "constant_winds",
+    "convert_store_to_tuple", "grid_from_numpy", "half_domain_winds",
+    "load_checkpoint", "pic_gather", "pic_gather_remesh", "remesh_core",
+    "remesh_cuda", "save_checkpoint", "settings_from_values",
     "state_from_numpy", "state_to_numpy", "time_cosine_winds",
 ]

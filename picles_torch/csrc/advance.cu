@@ -59,7 +59,6 @@ struct AutoDtConfig {
 // Packed parameter layout, shared with picles_torch/ops/advance_cuda.py.
 // floats: RHS (14) | wind (7) | ...;  ints: flags | wind kind | has_t_off | ...
 constexpr int N_RHS_F = 14;
-constexpr int N_WIND_F = 7;
 
 static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
                             WindParams& w) {
@@ -68,11 +67,7 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
   rc.m00 = f[9]; rc.m01 = f[10]; rc.m10 = f[11]; rc.m11 = f[12];
   rc.pc = f[13];
   rc.flags = iv[0];
-  const float* g = f + N_RHS_F;
-  w.kind = iv[1];
-  w.has_t_off = iv[2];
-  w.u0 = g[0]; w.v0 = g[1]; w.x_split = g[2]; w.background = g[3];
-  w.two_pi = g[4]; w.period = g[5]; w.t_off = g[6];
+  unpack_wind(f + N_RHS_F, iv + 1, w);
 }
 
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>

@@ -29,9 +29,23 @@
 // one pass over the 6 inputs and one over the 3 outputs (36 bytes a node).
 // Threads run along y, the contiguous axis, so loads and stores coalesce.
 // Staging a tile of the sources in shared memory is left to a later PR.
+//
+// K6: the same deposit with the remesh fused into its output pass.
+//
+// Replaces (TPU kernel): picles_tpu/ops/pic_pallas.py _accum_remesh_kernel
+// (launcher scatter_remesh_fused).  Plain PyTorch version: pic.py
+// scatter_dense, then remesh.py remesh_core.  Each thread sums its node's
+// window with K2's own device function (`gather_node`, so the node planes
+// equal K2's bit for bit) and feeds the three sums straight into the remesh
+// branch table (remesh.cuh `remesh_node`, K5's).  It writes the 3 node
+// planes and the 8 remesh outputs and never reads the node planes back: the
+// separate K5 pass would read them again (12 bytes a node) and launch once
+// more.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "remesh.cuh"
 
 namespace {
 
@@ -48,20 +62,16 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-__global__ void __launch_bounds__(256)
-pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
-                  const float* __restrict__ yr, const float* __restrict__ c0,
-                  const float* __restrict__ c1, const float* __restrict__ c2,
-                  const unsigned char* __restrict__ act,
-                  float* __restrict__ o0, float* __restrict__ o1,
-                  float* __restrict__ o2) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n = (long long)g.nx * g.ny;
-  if (idx >= n) return;
-  const int i = (int)(idx / g.ny);
-  const int j = (int)(idx - (long long)i * g.ny);
-
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+// The deposit at output node (i, j): the sum over its window of sources.
+__device__ __forceinline__ void gather_node(
+    const GatherConfig& g, int i, int j, const float* __restrict__ xr,
+    const float* __restrict__ yr, const float* __restrict__ c0,
+    const float* __restrict__ c1, const float* __restrict__ c2,
+    const unsigned char* __restrict__ act, float& acc0, float& acc1,
+    float& acc2) {
+  acc0 = 0.0f;
+  acc1 = 0.0f;
+  acc2 = 0.0f;
   for (int dy = -g.yl; dy <= g.yh; ++dy) {
     int sj = j - dy;
     if (sj < 0 || sj >= g.ny) {
@@ -97,10 +107,85 @@ pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
     acc1 = acc1 + a1;
     acc2 = acc2 + a2;
   }
+}
+
+__global__ void __launch_bounds__(256)
+pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
+                  const float* __restrict__ yr, const float* __restrict__ c0,
+                  const float* __restrict__ c1, const float* __restrict__ c2,
+                  const unsigned char* __restrict__ act,
+                  float* __restrict__ o0, float* __restrict__ o1,
+                  float* __restrict__ o2) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = (long long)g.nx * g.ny;
+  if (idx >= n) return;
+  const int i = (int)(idx / g.ny);
+  const int j = (int)(idx - (long long)i * g.ny);
+  float acc0, acc1, acc2;
+  gather_node(g, i, j, xr, yr, c0, c1, c2, act, acc0, acc1, acc2);
   o0[idx] = acc0;
   o1[idx] = acc1;
   o2[idx] = acc2;
 }
+
+// Particle planes and masks of K6's remesh half, core-aligned [nx, ny].
+struct RemeshPlanes {
+  const float* clock;
+  const float *lne, *cgx, *cgy, *px, *py, *dt;
+  const unsigned char *on, *act, *bnd;
+  const float* xn;
+  float *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
+  unsigned char* on_o;
+  int* br_o;
+};
+
+__global__ void __launch_bounds__(256)
+pic_gather_remesh_kernel(const GatherConfig g, const picles::RemeshParams r,
+                         const float* __restrict__ xr,
+                         const float* __restrict__ yr,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ c2,
+                         const unsigned char* __restrict__ sact,
+                         const RemeshPlanes q, float* __restrict__ o0,
+                         float* __restrict__ o1, float* __restrict__ o2) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = (long long)g.nx * g.ny;
+  if (idx >= n) return;
+  const int i = (int)(idx / g.ny);
+  const int j = (int)(idx - (long long)i * g.ny);
+  float acc0, acc1, acc2;
+  gather_node(g, i, j, xr, yr, c0, c1, c2, sact, acc0, acc1, acc2);
+  o0[idx] = acc0;
+  o1[idx] = acc1;
+  o2[idx] = acc2;
+  const picles::RemeshOut o = picles::remesh_node(
+      r, *q.clock, acc0, acc1, acc2, q.lne[idx], q.cgx[idx], q.cgy[idx],
+      q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
+      q.bnd[idx] != 0, q.xn[idx]);
+  q.lne_o[idx] = o.lne;
+  q.cgx_o[idx] = o.cgx;
+  q.cgy_o[idx] = o.cgy;
+  q.px_o[idx] = o.px;
+  q.py_o[idx] = o.py;
+  q.dt_o[idx] = o.dt;
+  q.on_o[idx] = o.on ? 1 : 0;
+  q.br_o[idx] = o.branch;
+}
+
+GatherConfig unpack_gather(const float* fparams, const int* iparams) {
+  GatherConfig g;
+  g.nx = iparams[0]; g.ny = iparams[1];
+  g.xl = iparams[2]; g.xh = iparams[3]; g.yl = iparams[4]; g.yh = iparams[5];
+  g.periodic_x = iparams[6]; g.periodic_y = iparams[7];
+  g.x_lo = fparams[0]; g.x_hi = fparams[1];
+  g.y_lo = fparams[2]; g.y_hi = fparams[3];
+  return g;
+}
+
+constexpr int N_GATHER_F = 4;
+constexpr int N_GATHER_I = 8;
+constexpr int THREADS = 256;
 
 }  // namespace
 
@@ -110,20 +195,58 @@ pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
 // Returns cudaGetLastError() after the launch.
 extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
                                  void** ptrs, void* stream) {
-  GatherConfig g;
-  g.nx = iparams[0]; g.ny = iparams[1];
-  g.xl = iparams[2]; g.xh = iparams[3]; g.yl = iparams[4]; g.yh = iparams[5];
-  g.periodic_x = iparams[6]; g.periodic_y = iparams[7];
-  g.x_lo = fparams[0]; g.x_hi = fparams[1];
-  g.y_lo = fparams[2]; g.y_hi = fparams[3];
+  const GatherConfig g = unpack_gather(fparams, iparams);
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  pic_gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  pic_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
       (const float*)ptrs[3], (const float*)ptrs[4],
       (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
       (float*)ptrs[8]);
+  return (int)cudaGetLastError();
+}
+
+// fparams: the gather's (4) | the remesh.cuh layout
+// iparams: the gather's (8) | the remesh.cuh layout
+// ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
+//          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
+//          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
+//          (outputs)
+// Returns cudaGetLastError() after the launch.
+extern "C" int picles_pic_gather_remesh(const float* fparams,
+                                        const int* iparams, void** ptrs,
+                                        void* stream) {
+  const GatherConfig g = unpack_gather(fparams, iparams);
+  picles::RemeshParams r;
+  picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
+  const long long n = (long long)g.nx * g.ny;
+  if (n <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  RemeshPlanes q;
+  q.clock = (const float*)ptrs[6];
+  q.lne = (const float*)ptrs[7];
+  q.cgx = (const float*)ptrs[8];
+  q.cgy = (const float*)ptrs[9];
+  q.px = (const float*)ptrs[10];
+  q.py = (const float*)ptrs[11];
+  q.dt = (const float*)ptrs[12];
+  q.on = (const unsigned char*)ptrs[13];
+  q.act = (const unsigned char*)ptrs[14];
+  q.bnd = (const unsigned char*)ptrs[15];
+  q.xn = (const float*)ptrs[16];
+  q.lne_o = (float*)ptrs[20];
+  q.cgx_o = (float*)ptrs[21];
+  q.cgy_o = (float*)ptrs[22];
+  q.px_o = (float*)ptrs[23];
+  q.py_o = (float*)ptrs[24];
+  q.dt_o = (float*)ptrs[25];
+  q.on_o = (unsigned char*)ptrs[26];
+  q.br_o = (int*)ptrs[27];
+  pic_gather_remesh_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      g, r, (const float*)ptrs[0], (const float*)ptrs[1],
+      (const float*)ptrs[2], (const float*)ptrs[3], (const float*)ptrs[4],
+      (const unsigned char*)ptrs[5], q, (float*)ptrs[17], (float*)ptrs[18],
+      (float*)ptrs[19]);
   return (int)cudaGetLastError();
 }

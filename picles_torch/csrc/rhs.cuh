@@ -49,6 +49,18 @@ struct WindParams {
   float t_off;         // time-cosine cut-off
 };
 
+// Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params):
+// floats u0, v0, x_split, background, two_pi, period, t_off; ints kind,
+// has_t_off.
+constexpr int N_WIND_F = 7;
+
+inline void unpack_wind(const float* g, const int* iv, WindParams& w) {
+  w.kind = iv[0];
+  w.has_t_off = iv[1];
+  w.u0 = g[0]; w.v0 = g[1]; w.x_split = g[2]; w.background = g[3];
+  w.two_pi = g[4]; w.period = g[5]; w.t_off = g[6];
+}
+
 // Term flags (picles_torch/ops/rhs.py TermFlags)
 enum : int {
   TERM_PROPAGATION = 1, TERM_INPUT = 2, TERM_DISSIPATION = 4,

@@ -13,12 +13,15 @@ One model step ``DT``:
 Kernels: the advance runs kernel K1 (``ops/advance_cuda.py``) or its plain
 version ``tsit5.integrate_to``; the deposit kernel K2 (``ops/pic_cuda.py``)
 or ``pic.scatter_dense``; the Hairer dt reset (``dt_reset_mode="auto"``)
-kernel K3 or ``tsit5.auto_dt``.  The remesh is elementwise PyTorch.  Every
-quantity stays on the grid's device and the step never reads it back, so a
-step on the card queues without host round-trips.
+kernel K3 or ``tsit5.auto_dt``.  The remesh is ``remesh.remesh_core`` in
+PyTorch (``remesh_mode="xla"``), kernel K5 (``"pallas"``,
+``ops/remesh_cuda.py``) or kernel K6, the deposit and the remesh in one pass
+(``"fused"``, ``ops/pic_cuda.py``); on CPU tensors the two kernel modes run
+the plain versions, as the JAX package runs its kernels in interpret mode.
+Every quantity stays on the grid's device and the step never reads it back,
+so a step on the card queues without host round-trips.
 
-Not ported yet: layers, per-layer winds, the Pallas/fused remesh tails
-(``remesh_mode="pallas" | "fused"``) and the sharded step's hooks.
+Not ported yet: layers, per-layer winds and the sharded step's hooks.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from ..ops import pic
 from ..ops import transforms as TR
 from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, kernel_wind,
                                 uniform_projection)
+from ..ops.pic_cuda import pic_gather_remesh
+from ..ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT, RemeshParams,
+                          remesh_core, seed_values, winds_at)
+from ..ops.remesh_cuda import remesh_cuda
 from ..ops.rhs import RHSParams, TermFlags, make_rhs_consts, particle_equations
 from ..ops.tsit5 import METHODS, SolverConfig, auto_dt, integrate_to
 from .drivers import StepDrivers
@@ -46,6 +53,7 @@ SQRT2 = math.sqrt(2.0)
 
 ADVANCE_MODES = ("auto", "torch", "cuda")
 SCATTER_MODES = ("auto", "dense", "dense_cuda", "xla")
+REMESH_MODES = ("xla", "pallas", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +76,12 @@ class WaveGrowth2DConfig:
     grid's tensors: the CUDA kernels for CUDA tensors, the plain PyTorch
     versions for CPU tensors.  An explicit mode always wins, and a CUDA mode
     on CPU tensors raises.  ``dt_reset_mode``: "auto" (Hairer estimate on
-    every reset lane) or "carry" (keep the adapted dt).  ``halo``: CIC
-    displacement capacity, an int or ((x_lo, x_hi), (y_lo, y_hi)).
+    every reset lane) or "carry" (keep the adapted dt).  ``remesh_mode``:
+    "xla" (PyTorch), "pallas" (kernel K5) or "fused" (kernel K6, the
+    remesh inside the gather deposit; needs ``scatter_mode`` "auto" or
+    "dense_cuda"); both kernel modes need ``dt_reset_mode="carry"`` and run
+    their plain versions on CPU tensors.  ``halo``: CIC displacement
+    capacity, an int or ((x_lo, x_hi), (y_lo, y_hi)).
     """
 
     periodic_boundary: bool = True
@@ -86,7 +98,9 @@ class WaveGrowth2DConfig:
 
 def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
                   ) -> WaveGrowth2DConfig:
-    """``cfg`` with "auto" kernel modes resolved for tensors on ``device``."""
+    """``cfg`` with "auto" kernel modes resolved for tensors on ``device``,
+    checked.  The remesh modes keep their names: on a CUDA device "pallas"
+    and "fused" run kernels K5 and K6, on the CPU their plain versions."""
     on_cuda = torch.device(device).type == "cuda"
     if cfg.advance_mode not in ADVANCE_MODES:
         raise ValueError(f"advance_mode must be one of {ADVANCE_MODES}, got "
@@ -94,6 +108,18 @@ def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
     if cfg.scatter_mode not in SCATTER_MODES:
         raise ValueError(f"scatter_mode must be one of {SCATTER_MODES}, got "
                          f"{cfg.scatter_mode!r}")
+    if cfg.remesh_mode not in REMESH_MODES:
+        raise ValueError(f"remesh_mode must be one of {REMESH_MODES}, got "
+                         f"{cfg.remesh_mode!r}")
+    if cfg.remesh_mode != "xla" and cfg.dt_reset_mode != "carry":
+        raise ValueError(f'remesh_mode="{cfg.remesh_mode}" requires '
+                         'dt_reset_mode="carry"')
+    if cfg.remesh_mode == "fused" and cfg.scatter_mode not in ("auto",
+                                                               "dense_cuda"):
+        raise ValueError(
+            'remesh_mode="fused" IS the gather deposit (the remesh runs '
+            'inside kernel K6); set scatter_mode="auto" or "dense_cuda", '
+            f"not {cfg.scatter_mode!r}")
     upd = {}
     if cfg.advance_mode == "auto":
         upd["advance_mode"] = "cuda" if on_cuda else "torch"
@@ -120,12 +146,6 @@ class WaveGrowth2D(StepDrivers):
                  flags: TermFlags = TermFlags(),
                  minimal_particle=None, minimal_state=None,
                  config: WaveGrowth2DConfig = WaveGrowth2DConfig()):
-        if config.remesh_mode in ("pallas", "fused"):
-            raise NotImplementedError(
-                f'remesh_mode="{config.remesh_mode}" (TPU kernels K5/K6) is '
-                "not ported yet: ROADMAP item 13")
-        if config.remesh_mode != "xla":
-            raise ValueError(f"unknown remesh_mode {config.remesh_mode!r}")
         if config.layers != 1:
             raise NotImplementedError("layers are not ported yet: ROADMAP "
                                       "item 15")
@@ -186,12 +206,16 @@ class WaveGrowth2D(StepDrivers):
         self.aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
         self.uniform_proj = uniform_projection(grid.proj, grid.pc)
 
-        if self.modes.advance_mode == "cuda":
+        # kernel or plain version of the remesh modes: the device decides,
+        # as it resolves the "auto" modes
+        self._remesh_kernels = (self.device.type == "cuda"
+                                and config.remesh_mode != "xla")
+        if self.modes.advance_mode == "cuda" or self._remesh_kernels:
             kernel_wind(winds)   # raises for winds outside the kernel set
-            if self.uniform_proj is None:
-                raise NotImplementedError(
-                    "per-node projection planes (spherical/tripolar grids) "
-                    "are not in the CUDA advance yet: ROADMAP item 12")
+        if self.modes.advance_mode == "cuda" and self.uniform_proj is None:
+            raise NotImplementedError(
+                "per-node projection planes (spherical/tripolar grids) "
+                "are not in the CUDA advance yet: ROADMAP item 12")
 
         if config.ode_init_type == "mininmal":
             self.defaults: Optional[ParticleDefaults2D] = \
@@ -225,6 +249,23 @@ class WaveGrowth2D(StepDrivers):
                                   and not (self.boundary_defaults is None
                                            and self.defaults is None))
 
+        def triple(d):
+            return None if d is None else (d.lne, d.cg_x, d.cg_y)
+
+        self.remesh_params = RemeshParams(
+            winds=winds, defaults=triple(self.defaults),
+            bdefaults=(triple(self.boundary_defaults)
+                       if self._boundary_differs else "same"),
+            boundary_source=self._boundary_source,
+            timestep=float(ode_settings.timestep),
+            minimal_e=self._minimal_e, minimal_m2=self._minimal_m2,
+            wind_min_squared=float(ode_settings.wind_min_squared),
+            dtmin=float(ode_settings.dtmin),
+            # fixed-substep mode carries the configured dt unclipped; the
+            # Hairer reset replaces it after the remesh
+            clip_dt=(ode_settings.adaptive
+                     and config.dt_reset_mode == "carry"))
+
     def resolved_config(self) -> WaveGrowth2DConfig:
         """``self.config`` with "auto" modes resolved for the grid's device."""
         return self.modes
@@ -234,23 +275,13 @@ class WaveGrowth2D(StepDrivers):
     # ------------------------------------------------------------------
 
     def _winds_at(self, t) -> Tuple[torch.Tensor, torch.Tensor]:
-        g = self.grid
-        u, v = self.winds(g.x, g.y, t)
-        shp = g.x.shape
-        return (torch.broadcast_to(u.to(self.config.dtype), shp),
-                torch.broadcast_to(v.to(self.config.dtype), shp))
+        return winds_at(self.winds, self.grid.x, self.grid.y, t)
 
-    def _reset_values(self, u, v, defaults="model"):
-        """Windsea from local winds when no defaults are set, otherwise the
-        fixed defaults; returns (lne, cgx, cgy) planes."""
-        dtype = self.config.dtype
-        d = self.defaults if defaults == "model" else defaults
-        if d is None:
-            ws = FR.get_initial_windsea(u, v, self.settings.timestep)
-            return (ws.lne.to(dtype), ws.cg_bar_x.to(dtype),
-                    ws.cg_bar_y.to(dtype))
-        return tuple(torch.full(u.shape, val, dtype=dtype, device=u.device)
-                     for val in (d.lne, d.cg_x, d.cg_y))
+    def _reset_values(self, u, v):
+        """The model's reseed: windsea from local winds when no defaults are
+        set, otherwise the fixed defaults; (lne, cgx, cgy) planes."""
+        return seed_values(self.remesh_params.defaults, u, v,
+                           self.settings.timestep)
 
     def init_state(self) -> ModelState2D:
         """Seed one particle per node from the winds at t = 0."""
@@ -271,7 +302,7 @@ class WaveGrowth2D(StepDrivers):
             cgy = torch.where(strong, sea.cg_bar_y, wmin.cg_bar_y).to(cfg.dtype)
             on = strong & ~land
         else:
-            lne, cgx, cgy = self._reset_values(u0, v0, defaults=d)
+            lne, cgx, cgy = self._reset_values(u0, v0)
             on = ~land
 
         e, mx, my = TR.particle_to_node(lne, cgx, cgy)
@@ -359,52 +390,33 @@ class WaveGrowth2D(StepDrivers):
 
         bsrc = boundary if self._boundary_source else torch.zeros_like(boundary)
 
-        # ---------------- DEPOSIT ----------------
+        # ---------------- DEPOSIT + REMESH ----------------
         scatter_on = (on & active & ~failed) | (on & bsrc)
         e, mx, my = TR.particle_to_node(lne, cgx, cgy)
-        (e_n, mx_n, my_n), sc_stats = pic.scatter_channels(
-            px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-            cfg.scatter_mode)
-
-        # ---------------- REMESH ----------------
-        # winds at the pre-tick clock time
-        u_i, v_i = self._winds_at(torch.broadcast_to(ms.time, t.shape))
-        wind2_i = u_i * u_i + v_i * v_i
-
-        m2_n = mx_n * mx_n + my_n * my_n
-        part = active | bsrc
-        gather = (part & ~boundary
-                  & (e_n >= self._minimal_e)
-                  & (m2_n >= self._minimal_m2))
-        wind_ok = wind2_i >= sett.wind_min_squared
-        reseed = part & ~gather & wind_ok
-        go_off = part & ~gather & ~reseed
-
-        lne_g, cgx_g, cgy_g = TR.node_to_particle(e_n, mx_n, my_n)
-        lne_s, cgx_s, cgy_s = self._reset_values(u_i, v_i)
-        if self._boundary_differs:
-            lne_b, cgx_b, cgy_b = self._reset_values(
-                u_i, v_i, defaults=self.boundary_defaults)
-            lne_s = torch.where(boundary, lne_b, lne_s)
-            cgx_s = torch.where(boundary, cgx_b, cgx_s)
-            cgy_s = torch.where(boundary, cgy_b, cgy_s)
-
-        lne = torch.where(gather, lne_g, torch.where(reseed, lne_s, lne))
-        cgx = torch.where(gather, cgx_g, torch.where(reseed, cgx_s, cgx))
-        cgy = torch.where(gather, cgy_g, torch.where(reseed, cgy_s, cgy))
-        px = torch.where(gather | reseed, 0.0, px)
-        py = torch.where(gather | reseed, 0.0, py)
-        on_before_remesh = on
-        on = torch.where(part, gather | reseed, on)
-
-        # dt reset for every lane whose state was replaced
-        was_reset = was_reset_adv | gather | reseed
-        if not sett.adaptive:
-            pass   # fixed-substep mode carries the configured dt unclipped
-        elif cfg.dt_reset_mode == "carry":
-            dt = torch.clamp(dt, sett.dtmin, DT)
+        # the remesh samples the winds at the pre-tick clock time
+        core = (lne, cgx, cgy, px, py, dt, on, active, boundary, grid.x,
+                grid.y, ms.time)
+        if cfg.remesh_mode == "fused" and self._remesh_kernels:
+            node, rm, sc_stats = pic_gather_remesh(
+                px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
+                self.remesh_params, *core)
         else:
-            comps = (lne, cgx, cgy, px, py)
+            node, sc_stats = pic.scatter_channels(
+                px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
+                cfg.scatter_mode)
+            if self._remesh_kernels:
+                rm = remesh_cuda(self.remesh_params,
+                                 tuple(c.contiguous() for c in node), *core)
+            else:
+                rm = remesh_core(self.remesh_params, node, *core)
+        gather = (rm.branch & GATHER_BIT) != 0
+        reseed = (rm.branch & RESEED_BIT) != 0
+
+        # Hairer dt reset for every lane whose state was replaced
+        dt = rm.dt
+        if sett.adaptive and cfg.dt_reset_mode == "auto":
+            was_reset = was_reset_adv | gather | reseed
+            comps = (rm.lne, rm.cgx, rm.cgy, rm.px, rm.py)
             if cfg.advance_mode == "cuda":
                 dt_auto = auto_dt_cuda(self.winds, self.consts, self.flags, t,
                                        comps, grid.x, grid.y,
@@ -421,12 +433,14 @@ class WaveGrowth2D(StepDrivers):
         metrics = self._build_metrics(
             adv=adv, failed=failed, nan_mask=nan_mask, inf_mask=inf_mask,
             emax_mask=emax_mask, relight=relight, gather=gather,
-            reseed=reseed, off=go_off & on_before_remesh,
+            reseed=reseed,
+            # on -> off transitions: `on` is the flag before the remesh
+            off=((rm.branch & OFF_BIT) != 0) & on,
             clamped=sc_stats.clamped, naccept=res.naccept)
 
-        particles = Particles2D(lne=lne, cgx=cgx, cgy=cgy, px=px, py=py,
-                                t=t, dt=dt, on=on)
-        S = torch.stack([e_n, mx_n, my_n], dim=-1)
+        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy, px=rm.px,
+                                py=rm.py, t=t, dt=dt, on=rm.on)
+        S = torch.stack(node, dim=-1)
         return ModelState2D(state=S, particles=particles,
                             time=ms.time + DT,
                             iteration=ms.iteration + 1,

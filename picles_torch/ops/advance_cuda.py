@@ -3,11 +3,10 @@
 Counterpart of ``picles_tpu/ops/advance_pallas.py``.  ``advance_cuda`` runs
 the whole adaptive embedded-RK loop of one model step per particle;
 ``auto_dt_cuda`` Hairer's initial-dt estimate.  Each takes the component
-planes ``[nx, ny]`` (any shape, all alike, contiguous float32):
-
-- tensors on a card launch the kernel, or raise (no fallback);
-- tensors on the CPU run the plain versions, ``tsit5.integrate_to`` and
-  ``tsit5.auto_dt``, on the same arguments.
+planes ``[nx, ny]`` (any shape, all alike, contiguous float32) on a card and
+launches its kernel, or raises: tensors on the CPU are refused.  The plain
+versions are ``tsit5.integrate_to`` and ``tsit5.auto_dt``; the model's
+resolved modes choose between kernel and plain version.
 
 The kernels compile the wind as a ``WindKernel`` descriptor (see
 ``forcing/winds.py``) and take the projection as the 5 uniform scalars
@@ -28,8 +27,8 @@ import numpy as np
 import torch
 
 from ..forcing.winds import WindKernel, Winds2D
-from .rhs import RHSConsts, RHSParams, TermFlags, make_rhs
-from .tsit5 import METHODS, SolverConfig, auto_dt, integrate_to
+from .rhs import RHSConsts, TermFlags
+from .tsit5 import METHODS, SolverConfig
 
 
 class AdvanceResult(NamedTuple):
@@ -62,18 +61,24 @@ def kernel_wind(winds: Winds2D) -> WindKernel:
     return winds.kernel
 
 
+def wind_params(wind: WindKernel) -> Tuple[list, list]:
+    """The wind's packed float and int parameters (``WindParams`` in
+    rhs.cuh, in the order ``unpack_wind`` reads them)."""
+    f = [wind.u0, wind.v0, wind.x_split, wind.background, 2.0 * math.pi,
+         wind.period, 0.0 if wind.t_off is None else wind.t_off]
+    return f, [int(wind.kind), int(wind.t_off is not None)]
+
+
 def _rhs_wind_params(consts: RHSConsts, flags: TermFlags, wind: WindKernel,
                      proj: Sequence[float]) -> Tuple[list, list]:
     """Packed float/int parameters shared by K1 and K3 (the layout of
     ``unpack_rhs_wind`` in advance.cu)."""
     m00, m01, m10, m11, pc = proj
+    wf, wi = wind_params(wind)
     f = [consts.r_g, consts.C_alpha, consts.C_e, consts.C_varphi, consts.g,
          consts.p, consts.n, consts.e_T, consts.r_g * consts.r_g,
-         m00, m01, m10, m11, pc,
-         wind.u0, wind.v0, wind.x_split, wind.background, 2.0 * math.pi,
-         wind.period, 0.0 if wind.t_off is None else wind.t_off]
-    i = [flag_bits(flags), int(wind.kind), int(wind.t_off is not None)]
-    return f, i
+         m00, m01, m10, m11, pc] + wf
+    return f, [flag_bits(flags)] + wi
 
 
 def _tableau_params(method) -> list:
@@ -87,14 +92,6 @@ def _tableau_params(method) -> list:
     return c + a + b + bt
 
 
-def _uniform_aux(xn, yn, proj):
-    m00, m01, m10, m11, pc = proj
-    M = torch.tensor([[m00, m01], [m10, m11]], dtype=xn.dtype,
-                     device=xn.device)
-    return RHSParams(x=xn, y=yn, M=M,
-                     pc=torch.tensor(pc, dtype=xn.dtype, device=xn.device))
-
-
 def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  config: SolverConfig, DT: float,
                  comps: Tuple[torch.Tensor, ...], t: torch.Tensor,
@@ -106,14 +103,6 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     uniform projection scalars.  Inactive lanes pass through with
     ``failed = False`` and ``naccept = 0``; a lane that finishes gets
     ``t = t + DT``."""
-    if t.device.type == "cpu":
-        res = integrate_to(make_rhs(winds.u, winds.v, consts, flags),
-                           torch.stack(comps, dim=-1), t, t + DT, dt,
-                           _uniform_aux(xn, yn, proj), active, config)
-        return AdvanceResult(*(res.z[..., i] for i in range(5)), t=res.t,
-                             dt=res.dt, failed=res.failed,
-                             naccept=res.naccept)
-
     from .cuda_build import (check_planes, check_status, library,
                              pointer_array)
 
@@ -154,12 +143,6 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  order: float = 5.0, max_dt: float = 3600.0) -> torch.Tensor:
     """Hairer's initial-dt estimate per particle (K3); semantics of
     ``tsit5.auto_dt``."""
-    if t.device.type == "cpu":
-        return auto_dt(make_rhs(winds.u, winds.v, consts, flags), t,
-                       torch.stack(comps, dim=-1), _uniform_aux(xn, yn, proj),
-                       abstol=abstol, reltol=reltol, order=order,
-                       max_dt=max_dt)
-
     from .cuda_build import (check_planes, check_status, library,
                              pointer_array)
 

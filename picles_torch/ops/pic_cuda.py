@@ -1,16 +1,20 @@
-"""Wrapper of kernel K2, the boundary-folded CIC deposit as a gather
-(``csrc/pic_gather.cu``).
+"""Wrappers of kernels K2 and K6 (``csrc/pic_gather.cu``).
 
-Counterpart of ``picles_tpu/ops/pic_pallas.py`` ``scatter_core_channels_pallas``:
-three channel planes in, three node planes out, one pass, no atomics.
+- ``pic_gather`` (K2), counterpart of ``picles_tpu/ops/pic_pallas.py``
+  ``scatter_core_channels_pallas``: the boundary-folded CIC deposit as a
+  gather, three channel planes in, three node planes out, one pass, no
+  atomics.  Plain version: ``pic.scatter_dense``.
+- ``pic_gather_remesh`` (K6), counterpart of ``scatter_remesh_fused``: the
+  same deposit with the remesh branch table (K5's) run on each node's sums
+  in the same pass.  Plain version: ``pic.scatter_dense``, then
+  ``remesh.remesh_core``.
 
-- tensors on a card launch the kernel, or raise (no fallback);
-- tensors on the CPU run the plain version, ``pic.scatter_dense``.
-
-The kernel wraps periodic axes and drops open ones by indexing; the
-tripolar seam is not ported yet.  The count of clamped displacements stays
-in PyTorch, with the JAX package's predicate.  ``pic_gather.launches``
-counts kernel launches.
+Tensors on a card launch the kernel, or raise: tensors on the CPU are
+refused, and the model's device chooses between kernel and plain version.
+The kernels wrap periodic axes and drop open ones by indexing; the tripolar
+seam is not ported yet.  The count of clamped displacements stays in
+PyTorch, with the JAX package's predicate.  ``pic_gather.launches`` and
+``pic_gather_remesh.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -22,22 +26,14 @@ import numpy as np
 import torch
 
 from ..grids.base import Boundary, GridStats
-from .pic import ScatterStats, halo_bounds, normalize_halo, scatter_dense
+from .pic import ScatterStats, halo_bounds, normalize_halo
+from .remesh import RemeshParams, RemeshResult
 
 
-def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
-               chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
-               stats: GridStats, halo
-               ) -> Tuple[Tuple[torch.Tensor, ...], ScatterStats]:
-    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of the ``active`` particles
-    at relative positions (xrel, yrel) onto the nodes."""
-    if xrel.device.type == "cpu":
-        S, st = scatter_dense(xrel, yrel, torch.stack(chans, dim=-1), active,
-                              stats, halo)
-        return tuple(S[..., i] for i in range(len(chans))), st
-
-    from .cuda_build import (check_planes, check_status, library,
-                             pointer_array)
+def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
+    """Check the deposit's inputs; returns (device, packed float and int
+    parameters, clamped count)."""
+    from .cuda_build import check_planes
 
     if len(chans) != 3:
         raise ValueError(f"the gather kernel takes 3 channels, got {len(chans)}")
@@ -65,11 +61,23 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     clamped = torch.sum(((xrel < x_lo) | (xrel > x_hi)
                          | (yrel < y_lo) | (yrel > y_hi)) & active
                         ).to(torch.int32)
+    return (dev, [x_lo, x_hi, y_lo, y_hi],
+            [nx, ny, xl, xh, yl, yh, int(px), int(py)], clamped)
 
-    fp = np.asarray([x_lo, x_hi, y_lo, y_hi], dtype=np.float32)
-    ip = np.asarray([nx, ny, xl, xh, yl, yh, int(px), int(py)], dtype=np.int32)
+
+def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
+               chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
+               stats: GridStats, halo
+               ) -> Tuple[Tuple[torch.Tensor, ...], ScatterStats]:
+    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of the ``active`` particles
+    at relative positions (xrel, yrel) onto the nodes (K2)."""
+    from .cuda_build import check_status, library, pointer_array
+
+    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo)
+    fp = np.asarray(f, dtype=np.float32)
+    ip = np.asarray(i, dtype=np.int32)
     outs = [torch.empty_like(xrel) for _ in range(3)]
-    ptrs = pointer_array(ins + outs)
+    ptrs = pointer_array([xrel, yrel, *chans, active] + outs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().picles_pic_gather(fp.ctypes.data, ip.ctypes.data,
@@ -80,3 +88,42 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
 
 
 pic_gather.launches = 0
+
+
+def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
+                      chans: Tuple[torch.Tensor, ...],
+                      scatter_active: torch.Tensor, stats: GridStats, halo,
+                      p: RemeshParams, lne, cgx, cgy, px, py, dt, on, active,
+                      boundary, xn, yn, clock
+                      ) -> Tuple[Tuple[torch.Tensor, ...], RemeshResult,
+                                 ScatterStats]:
+    """The deposit of ``pic_gather`` and the branch table of
+    ``remesh.remesh_core`` on its node planes, in one pass (K6).  Returns
+    ((e, m_x, m_y), RemeshResult, ScatterStats); ``yn`` is not sent to the
+    kernel (no wind family it compiles varies in y)."""
+    from .cuda_build import check_status, library, pointer_array
+    from .remesh_cuda import check_core, remesh_outputs, remesh_params
+
+    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, scatter_active,
+                                       stats, halo)
+    core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
+    if check_core(core, clock, xrel.shape) != dev:
+        raise ValueError(f"the particle planes are on {lne.device}, the "
+                         f"deposit's on {dev}")
+    rf, ri = remesh_params(p)
+    fp = np.asarray(f + rf, dtype=np.float32)
+    ip = np.asarray(i + ri, dtype=np.int32)
+    node = [torch.empty_like(xrel) for _ in range(3)]
+    outs = remesh_outputs(lne)
+    ptrs = pointer_array([xrel, yrel, *chans, scatter_active, clock, *core,
+                          *node, *outs])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().picles_pic_gather_remesh(
+            fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs), stream)
+    check_status(code, "CIC gather + remesh")
+    pic_gather_remesh.launches += 1
+    return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
+
+
+pic_gather_remesh.launches = 0

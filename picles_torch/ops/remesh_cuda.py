@@ -1,0 +1,115 @@
+"""Wrapper of kernel K5, the remesh branch table (``csrc/remesh.cu``).
+
+Counterpart of ``picles_tpu/ops/remesh_pallas.py`` ``remesh_pallas``: the
+node planes after the deposit, the particle planes and the masks in; the
+remeshed particle planes, the ``on`` flag and the branch bitfield out, in
+one pass.  Tensors on a card launch the kernel, or raise: tensors on the
+CPU are refused.  The plain version is ``remesh.remesh_core``; the model's
+device chooses between them.
+
+The model clock enters as a 0-dim float32 tensor on the card, read by the
+kernel, so a step never reads it back to the host.  The winds must carry a
+kernel descriptor (``forcing/winds.py`` ``WindKernel``).
+``remesh_cuda.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import fetch_relations as FR
+from ..core.constants import G_GRAVITY
+from .advance_cuda import kernel_wind, wind_params
+from .remesh import RemeshParams, RemeshResult
+
+SEED_WINDSEA, SEED_FIXED, SEED_SAME = 0, 1, 2
+CORE_NAMES = ("lne", "cgx", "cgy", "px", "py", "dt", "on", "active",
+              "boundary", "xn")
+
+
+def _seed(d) -> Tuple[int, list]:
+    if d is None:
+        return SEED_WINDSEA, [0.0, 0.0, 0.0]
+    return SEED_FIXED, [float(v) for v in d]
+
+
+def remesh_params(p: RemeshParams) -> Tuple[list, list]:
+    """The packed float and int parameters of the branch table (the layout
+    of ``unpack_remesh`` in remesh.cuh).  The windsea constants are those of
+    ``fetch_relations.get_initial_windsea``, in its order of use."""
+    wf, wi = wind_params(kernel_wind(p.winds))
+    windsea = [G_GRAVITY, abs(p.timestep), 0.1,
+               FR.DULOV_A * FR.DULOV_XI_0X, 1.0 / (1.0 - FR.DULOV_Q_X),
+               3.5, -0.33, 0.033, 0.67, 0.31 * G_GRAVITY ** 2, 2.0, math.pi,
+               -4.0, 0.9, 4.0 * math.pi]
+    kind, seed = _seed(p.defaults)
+    if p.bdefaults == "same":
+        bkind, bseed = SEED_SAME, [0.0, 0.0, 0.0]
+    else:
+        bkind, bseed = _seed(p.bdefaults)
+    f = wf + windsea + seed + bseed + [p.minimal_e, p.minimal_m2,
+                                       p.wind_min_squared, p.dtmin,
+                                       p.timestep]
+    i = wi + [kind, bkind, int(p.boundary_source), int(p.clip_dt)]
+    return f, i
+
+
+def check_core(planes: Sequence[torch.Tensor], clock: torch.Tensor,
+               shape) -> torch.device:
+    """The particle planes and masks (``CORE_NAMES``) and the clock, as the
+    kernels take them."""
+    from .cuda_build import check_planes
+
+    f32, b = torch.float32, torch.bool
+    dev = check_planes(planes, CORE_NAMES, [f32] * 6 + [b] * 3 + [f32])
+    if tuple(planes[0].shape) != tuple(shape):
+        raise ValueError(f"particle planes are {tuple(planes[0].shape)}, "
+                         f"the node planes {tuple(shape)}")
+    if clock.device != dev or clock.dtype != f32 or clock.numel() != 1:
+        raise ValueError("the clock must be one float32 value on "
+                         f"{dev}, got {clock.dtype} {tuple(clock.shape)} on "
+                         f"{clock.device}")
+    return dev
+
+
+def remesh_outputs(like: torch.Tensor) -> list:
+    """Empty output planes: lne, cgx, cgy, px, py, dt, on, branch."""
+    outs = [torch.empty_like(like) for _ in range(6)]
+    outs.append(torch.empty(like.shape, dtype=torch.bool, device=like.device))
+    outs.append(torch.empty(like.shape, dtype=torch.int32,
+                            device=like.device))
+    return outs
+
+
+def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
+                active, boundary, xn, yn, clock) -> RemeshResult:
+    """The branch table over ``[nx, ny]`` planes on a card (K5), with the
+    arguments and semantics of ``remesh.remesh_core``.  ``yn`` is not sent
+    to the kernel: no wind family it compiles varies in y."""
+    from .cuda_build import check_planes, check_status, library, pointer_array
+
+    node = tuple(node)
+    dev = check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
+    core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
+    check_core(core, clock, node[0].shape)
+    f, i = remesh_params(p)
+    fp = np.asarray(f, dtype=np.float32)
+    ip = np.asarray(i, dtype=np.int32)
+    outs = remesh_outputs(lne)
+    ptrs = pointer_array([clock, *node, *core, *outs])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().picles_remesh(fp.ctypes.data, ip.ctypes.data,
+                                       ctypes.addressof(ptrs), lne.numel(),
+                                       stream)
+    check_status(code, "remesh")
+    remesh_cuda.launches += 1
+    return RemeshResult(*outs)
+
+
+remesh_cuda.launches = 0

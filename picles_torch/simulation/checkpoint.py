@@ -1,0 +1,86 @@
+"""Checkpoint and resume (PyTorch port of
+``picles_tpu/simulation/checkpoint.py``, npz backend).
+
+A checkpoint is the whole ``ModelState2D`` (node state, particle planes,
+clock, iteration, counters) in one compressed ``.npz`` file, in the JAX
+package's layout: ``__meta__`` holds ``{"version": 2, "kind":
+"ModelState2D", "n_leaves": 22}`` and ``leaf_i`` the i-th leaf in the JAX
+pytree order of ``ModelState2D``.  So a checkpoint written by
+``picles_tpu`` resumes here and the other way round, bit for bit.  The
+orbax backend is not ported (ROADMAP item 17).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from ..models.state import ModelState2D, Particles2D, StepMetrics
+
+_FORMAT_VERSION = 2
+_KIND = "ModelState2D"
+_PARTICLES = [f.name for f in dataclasses.fields(Particles2D)]
+_METRICS = [f.name for f in dataclasses.fields(StepMetrics)]
+
+
+def state_leaves(ms: ModelState2D) -> list:
+    """The tensors of ``ms`` in the JAX pytree order: state, the particle
+    planes, time, iteration, the counters."""
+    return ([ms.state] + [getattr(ms.particles, k) for k in _PARTICLES]
+            + [ms.time, ms.iteration]
+            + [getattr(ms.metrics, k) for k in _METRICS])
+
+
+def _orbax_refused():
+    return NotImplementedError("the orbax checkpoint backend is not ported "
+                               "(ROADMAP item 17); use the npz backend")
+
+
+def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
+    """Write ``ms`` to ``path`` (``.npz`` appended if missing); returns the
+    path written."""
+    if backend == "orbax":
+        raise _orbax_refused()
+    if backend != "npz":
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    leaves = state_leaves(ms)
+    arrays = {f"leaf_{i}": x.detach().cpu().numpy()
+              for i, x in enumerate(leaves)}
+    meta = json.dumps(dict(version=_FORMAT_VERSION, kind=_KIND,
+                           n_leaves=len(leaves)))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, __meta__=np.bytes_(meta), **arrays)
+    return path
+
+
+def load_checkpoint(path: str, device="cpu") -> ModelState2D:
+    """Read a checkpoint written by either package onto ``device``."""
+    if os.path.isdir(path) and os.path.exists(
+            os.path.join(path, "picles_meta.json")):
+        raise _orbax_refused()
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    with np.load(path, allow_pickle=False) as f:
+        meta = json.loads(bytes(f["__meta__"].item()).decode())
+        if meta["version"] != _FORMAT_VERSION:
+            raise ValueError(f"unknown checkpoint version {meta['version']}")
+        if meta["kind"] != _KIND:
+            raise ValueError(f"checkpoint kind {meta['kind']!r}: only "
+                             f"{_KIND} is ported")
+        n = 1 + len(_PARTICLES) + 2 + len(_METRICS)
+        if meta["n_leaves"] != n:
+            raise ValueError(f"{meta['n_leaves']} leaves, a {_KIND} has {n}")
+        leaves = [torch.as_tensor(f[f"leaf_{i}"], device=device)
+                  for i in range(n)]
+    k = 1 + len(_PARTICLES)
+    return ModelState2D(
+        state=leaves[0],
+        particles=Particles2D(*leaves[1:k]),
+        time=leaves[k], iteration=leaves[k + 1],
+        metrics=StepMetrics(*leaves[k + 2:]))

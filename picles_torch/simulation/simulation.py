@@ -1,0 +1,170 @@
+"""Simulation driver (PyTorch port of
+``picles_tpu/simulation/simulation.py``).
+
+``run`` keeps the JAX package's loop semantics: an initial store write, one
+model step per DT until the clock passes ``stop_time``, steps in chunks
+between which the wall-time limit and the callbacks are checked.  The steps
+queue on the model's device; the loop waits for the device only where it
+must: at a chunk end that checks a wall-time limit or runs callbacks, at a
+store push, and once at the end of ``run`` (so ``run_wall_time`` is the
+time of the work, not of its enqueueing).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+
+import numpy as np
+import torch
+
+from .store import CashStore, EmptyStore, StateStore
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+@dataclasses.dataclass
+class Simulation:
+    """Driver state.
+
+    ``callbacks``: name -> callable(sim), called after every chunk; a
+    callback that raises stops the run (``utils.diagnostics.check_nans`` on
+    ``sim.state`` is a NaN checker).
+    """
+
+    model: object
+    dt: float
+    stop_time: float
+    wall_time_limit: float = float("inf")
+    verbose: bool = False
+    store: object = dataclasses.field(default_factory=EmptyStore)
+    state: object = None
+    initialized: bool = False
+    run_wall_time: float = 0.0
+    running: bool = False
+    callbacks: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def create(cls, model, stop_time: float, verbose: bool = False,
+               wall_time_limit: float = float("inf")) -> "Simulation":
+        return cls(model=model, dt=model.settings.timestep,
+                   stop_time=stop_time, verbose=verbose,
+                   wall_time_limit=wall_time_limit)
+
+    # -- initialization ------------------------------------------------
+
+    def initialize(self) -> None:
+        """Seed the particles."""
+        self.state = self.model.init_state()
+        self.initialized = True
+
+    def reset(self) -> None:
+        """Seed anew, zero the wall time and reset the store."""
+        self.initialize()
+        self.run_wall_time = 0.0
+        self.store.reset()
+
+    def pickup(self, path: str) -> None:
+        """Resume from a checkpoint (either package's npz) on the model's
+        device."""
+        from .checkpoint import load_checkpoint
+
+        self.state = load_checkpoint(path, device=self.model.device)
+        self.initialized = True
+
+    def checkpoint(self, path: str) -> str:
+        from .checkpoint import save_checkpoint
+
+        return save_checkpoint(path, self.state)
+
+    def n_steps(self) -> int:
+        """Steps of the loop: it runs while stop_time >= clock time."""
+        return int(np.floor(self.stop_time / self.dt)) + 1
+
+    # -- stores --------------------------------------------------------
+
+    def init_state_store(self, path: str, name: str = "state",
+                         replace: bool = True) -> StateStore:
+        """An HDF5 ``StateStore`` sized for the whole horizon.
+        ``replace=False`` re-attaches an existing file (checkpoint-resume
+        legs): the run loop aligns the write cursor to the resumed state's
+        iteration."""
+        g = self.model.grid
+        nsteps = self.n_steps()
+        coords = dict(
+            time=np.arange(0.0, (nsteps + 1) * self.dt, self.dt)[:nsteps + 1])
+        coords["x"] = g.x[:, 0].cpu().numpy()
+        coords["y"] = g.y[0, :].cpu().numpy()
+        coords["state"] = ["e", "m_x", "m_y"]
+        self.store = StateStore(path, coords, name=name, replace=replace)
+        return self.store
+
+    # -- main loop -----------------------------------------------------
+
+    def run(self, store: bool = False, cash_store: bool = False,
+            chunk_size: int = 0) -> None:
+        """Run to ``stop_time``.
+
+        With a store, every step's state is kept: steps run in chunks of
+        ``chunk_size`` (default 64) through ``step_n_buffered``, whose
+        ``[chunk, nx, ny, 3]`` buffer bounds the device memory for any
+        horizon, and each chunk goes to the store.  Without a store, steps
+        run through ``step_n_quiet``, in one chunk unless a wall-time limit
+        or callbacks need chunk ends (then 64 steps a chunk).
+        """
+        t_wall = _time.time()
+        if not self.initialized:
+            self.initialize()
+
+        if cash_store:
+            self.store = CashStore()
+
+        use_store = store or cash_store
+        if use_store:
+            if isinstance(self.store, StateStore):
+                # a resumed state at iteration k belongs at row k
+                self.store.iteration = int(self.state.iteration)
+            self.store.push(self.state.state)  # initial state write
+
+        remaining = self.n_steps() - int(self.state.iteration)
+        if remaining <= 0:
+            if self.verbose:
+                print("stop_time exceeded, run not executed")
+            return
+
+        needs_chunks = self.wall_time_limit != float("inf") or self.callbacks
+        if use_store:
+            chunk = chunk_size or 64
+        else:
+            chunk = chunk_size or (64 if needs_chunks else remaining)
+        done = 0
+        while done < remaining:
+            n = min(chunk, remaining - done)
+            if use_store:
+                self.state, states = self.model.step_n_buffered(
+                    self.state, n, chunk)
+                states = states[:n]
+                if hasattr(self.store, "push_block"):
+                    self.store.push_block(states)
+                else:
+                    for i in range(n):
+                        self.store.push(states[i])
+            else:
+                self.state = self.model.step_n_quiet(self.state, n)
+                if needs_chunks:
+                    _sync(self.state.state)
+            done += n
+            if self.verbose:
+                print(f"t = {float(self.state.time):.0f} s "
+                      f"({done}/{remaining} steps)")
+            for cb in self.callbacks.values():
+                cb(self)
+            if _time.time() - t_wall > self.wall_time_limit:
+                print("wall time limit reached")
+                break
+
+        _sync(self.state.state)
+        self.run_wall_time += _time.time() - t_wall

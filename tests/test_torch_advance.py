@@ -1,9 +1,9 @@
-"""The port's advance (K1) and auto-dt (K3) wrappers against the JAX
-package's Pallas kernels in interpret mode, on the CPU at 8 x 16.
-
-On CPU tensors the wrappers run the plain versions (``tsit5.integrate_to``
-and ``tsit5.auto_dt``); the CUDA kernels themselves are checked against the
-same plain versions on the card by ``chip_smoke.py``.  Tolerances: rtol
+"""The plain versions of the port's advance (K1) and auto-dt (K3) kernels,
+``tsit5.integrate_to`` and ``tsit5.auto_dt`` with the kernels' uniform
+projection, against the JAX package's Pallas kernels in interpret mode, on
+the CPU at 8 x 16.  The kernel wrappers refuse CPU tensors; the CUDA kernels
+themselves are checked against the same plain versions on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  Tolerances: rtol
 1e-5 in fixed-substep mode and for the Hairer estimate (same float32
 operations; last-ulp differences of the transcendentals), rtol 5e-3 in
 adaptive mode (the error controller may turn an ulp into a different
@@ -34,6 +34,14 @@ torch.set_num_threads(1)
 DT = 600.0
 NX, NY = 8, 16
 PROJ = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+
+
+def _uniform_aux(x, y):
+    """RHSParams of the kernels' uniform projection scalars ``PROJ``."""
+    m00, m01, m10, m11, pc = PROJ
+    return trhs.RHSParams(x=torch.as_tensor(x), y=torch.as_tensor(y),
+                          M=torch.tensor([[m00, m01], [m10, m11]]),
+                          pc=torch.tensor(pc))
 
 
 def _case(seed, wind):
@@ -77,14 +85,14 @@ def test_advance_matches_pallas_interpret(method, adaptive):
                        jnp.asarray(dt), jnp.asarray(active), jnp.asarray(x),
                        jnp.asarray(y), PROJ, jnp.zeros((NX, NY)),
                        interpret=True)
-    p = advance_cuda(twd, tc, trhs.TermFlags(), tcfg, DT,
-                     tuple(torch.as_tensor(c) for c in comps),
-                     torch.as_tensor(t0), torch.as_tensor(dt),
-                     torch.as_tensor(active), torch.as_tensor(x),
-                     torch.as_tensor(y), PROJ)
+    t0_t = torch.as_tensor(t0)
+    p = tts.integrate_to(trhs.make_rhs(twd.u, twd.v, tc, trhs.TermFlags()),
+                         torch.stack([torch.as_tensor(c) for c in comps], -1),
+                         t0_t, t0_t + DT, torch.as_tensor(dt),
+                         _uniform_aux(x, y), torch.as_tensor(active), tcfg)
     rtol, atol = (5e-3, 1e-4) if adaptive else (1e-5, 1e-6)
-    for name in ("lne", "cgx", "cgy", "x", "y"):
-        np.testing.assert_allclose(getattr(p, name).numpy(),
+    for i, name in enumerate(("lne", "cgx", "cgy", "x", "y")):
+        np.testing.assert_allclose(p.z[..., i].numpy(),
                                    np.asarray(getattr(j, name)), rtol=rtol,
                                    atol=atol, err_msg=name)
     np.testing.assert_array_equal(p.t.numpy(), np.asarray(j.t))
@@ -96,7 +104,7 @@ def test_advance_matches_pallas_interpret(method, adaptive):
         np.testing.assert_array_equal(p.dt.numpy(), np.asarray(j.dt))
     # inactive lanes pass through untouched
     off = ~active
-    np.testing.assert_array_equal(p.lne.numpy()[off], comps[0][off])
+    np.testing.assert_array_equal(p.z[..., 0].numpy()[off], comps[0][off])
     assert int(p.naccept.numpy()[off].max()) == 0
 
 
@@ -108,9 +116,10 @@ def test_auto_dt_matches_pallas_interpret(wind):
                        tuple(jnp.asarray(c) for c in comps), jnp.asarray(x),
                        jnp.asarray(y), PROJ, jnp.zeros((NX, NY)), order=5.0,
                        interpret=True)
-    p = auto_dt_cuda(twd, tc, trhs.TermFlags(), torch.as_tensor(t),
-                     tuple(torch.as_tensor(c) for c in comps),
-                     torch.as_tensor(x), torch.as_tensor(y), PROJ, order=5.0)
+    p = tts.auto_dt(trhs.make_rhs(twd.u, twd.v, tc, trhs.TermFlags()),
+                    torch.as_tensor(t),
+                    torch.stack([torch.as_tensor(c) for c in comps], -1),
+                    _uniform_aux(x, y), order=5.0)
     np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-5)
 
 
@@ -122,3 +131,18 @@ def test_kernel_contract_helpers():
                        v=lambda x, y, t: x * 0 + 1.0)
     with pytest.raises(NotImplementedError, match="kernel descriptor"):
         kernel_wind(plain)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The model's modes are the only switch between kernel and plain
+    version: a kernel wrapper given CPU tensors raises."""
+    comps, active, x, y, _, tc, _, twd = _case(2, "constant")
+    cs = tuple(torch.as_tensor(c) for c in comps)
+    t = torch.zeros(NX, NY)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        advance_cuda(twd, tc, trhs.TermFlags(), tts.SolverConfig(), DT, cs, t,
+                     torch.full((NX, NY), 10.0), torch.as_tensor(active),
+                     torch.as_tensor(x), torch.as_tensor(y), PROJ)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        auto_dt_cuda(twd, tc, trhs.TermFlags(), t, cs, torch.as_tensor(x),
+                     torch.as_tensor(y), PROJ)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on a
-card.  Marked ``cuda``: without a CUDA device every test here skips.  On a
+"""The CUDA kernels K1, K2, K3, K5 and K6 against their plain PyTorch
+versions on a card, and a fused Simulation resumed from a checkpoint.  Marked ``cuda``: without a CUDA device every test here skips.  On a
 machine with a card (and no JAX) run them with
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -7,7 +7,8 @@ machine with a card (and no JAX) run them with
 Tolerances: rtol 1e-5 (fixed-substep advance, Hairer estimate, deposit):
 the kernels and the plain versions run the same float32 operations with the
 same CUDA math functions; the deposit sums in another order.  The adaptive
-advance is held by share of lanes (see its test).
+advance is held by share of lanes (see its test).  The remesh (K5, K6):
+bits, flags, dt and positions exact, reseeded values within rtol 4e-7.
 """
 
 import numpy as np
@@ -170,3 +171,130 @@ def test_gather_kernel_matches_plain_and_repeats(dev, periodic):
         pic_gather(xr, yr, chans, act,
                    GridStats(nx=n, ny=n + 5, bx=Boundary.PERIODIC,
                              by=Boundary.TRIPOLAR_NORTH), halo)
+
+
+def _remesh_case(dev, n, boundary_type, adaptive, seed=0):
+    """A non-periodic box with half-domain winds and a perturbed node state:
+    gather, reseed and off all fire.  Returns (model, node, core)."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              cartesian_box, half_domain_winds)
+    from picles_torch.ops.transforms import particle_to_node
+
+    comps, _, _ = _state(dev, n=n, seed=seed)
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n, device=dev)
+    m = WaveGrowth2D(grid, half_domain_winds(10.0, 5.0, 1e3 * (n - 1)),
+                     ODESettings(timestep=600.0, dt=37.5, adaptive=adaptive,
+                                 solver="bosh3"),
+                     config=WaveGrowth2DConfig(periodic_boundary=False,
+                                               boundary_type=boundary_type,
+                                               dt_reset_mode="carry",
+                                               remesh_mode="pallas"))
+    rng = np.random.default_rng(seed + 1)
+
+    def f(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    low = f(np.where(rng.uniform(size=(n, n)) < 0.3,
+                     rng.uniform(0, 1e-4, (n, n)), 1.0))
+    node = tuple((c * low).contiguous()
+                 for c in particle_to_node(*comps[:3]))
+    dt = f(np.exp(rng.uniform(np.log(1e-6), np.log(3000.0), (n, n))))
+    on = torch.as_tensor(rng.uniform(size=(n, n)) < 0.8, device=dev)
+    core = (*comps, dt, on, m.active_mask.contiguous(),
+            m.boundary_mask.contiguous(), grid.x, grid.y,
+            torch.tensor(1800.0, device=dev))
+    return m, node, core
+
+
+def _assert_remesh(k, p, rtol):
+    for f in ("branch", "on", "dt", "px", "py"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    for f in ("lne", "cgx", "cgy"):
+        torch.testing.assert_close(getattr(k, f), getattr(p, f), rtol=rtol,
+                                   atol=0.0)
+
+
+@pytest.mark.parametrize("boundary_type", ["same", "wind_sea", "mininmal"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_remesh_kernel_matches_plain(dev, boundary_type, adaptive):
+    """K5 against remesh_core: bits, on, dt and positions equal; the
+    gathered and reseeded values within 4e-7 (a few ulps of powf/logf)."""
+    from picles_torch.ops.remesh import remesh_core
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+
+    m, node, core = _remesh_case(dev, 96, boundary_type, adaptive)
+    before = remesh_cuda.launches
+    k = remesh_cuda(m.remesh_params, node, *core)
+    assert remesh_cuda.launches == before + 1
+    p = remesh_core(m.remesh_params, node, *core)
+    _assert_remesh(k, p, 4e-7)
+    for bit in (1, 2, 4):
+        assert int(((k.branch & bit) != 0).sum()) > 0, bit
+
+
+def test_fused_kernel_matches_gather_then_remesh(dev):
+    """K6 against K2 + K5 on the same inputs: every output bitwise equal;
+    against scatter_dense + remesh_core: node planes within K2's tolerance
+    and the bits equal; two runs of K6 bitwise equal."""
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.pic import scatter_dense
+    from picles_torch.ops.pic_cuda import pic_gather, pic_gather_remesh
+    from picles_torch.ops.remesh import remesh_core
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+
+    m, _, core = _remesh_case(dev, 96, "wind_sea", True, seed=5)
+    lne, cgx, cgy, px, py = core[:5]
+    chans = TR.particle_to_node(lne, cgx, cgy)
+    sact = (core[6] & core[7]).contiguous()
+    stats, halo = m.grid.stats, ((1, 3), (0, 2))
+    node, rm, st = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                     m.remesh_params, *core)
+    node2, rm2, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                      m.remesh_params, *core)
+    k2, st2 = pic_gather(px, py, chans, sact, stats, halo)
+    k5 = remesh_cuda(m.remesh_params, k2, *core)
+    for a, b, c in zip(node, k2, node2):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for f in rm._fields:
+        assert torch.equal(getattr(rm, f), getattr(k5, f)), f
+        assert torch.equal(getattr(rm, f), getattr(rm2, f)), f
+    assert int(st.clamped) == int(st2.clamped)
+    S, _ = scatter_dense(px, py, torch.stack(chans, -1), sact, stats, halo)
+    for c in range(3):
+        torch.testing.assert_close(node[c], S[..., c], rtol=1e-5,
+                                   atol=1e-6 * float(S[..., c].abs().max()))
+    p = remesh_core(m.remesh_params, tuple(S[..., c] for c in range(3)),
+                    *core)
+    assert torch.equal(rm.branch, p.branch) and torch.equal(rm.on, p.on)
+
+
+def test_fused_simulation_resumes_bitwise(dev, tmp_path):
+    """The flagship's fused configuration at 64^2 through Simulation: K6
+    runs, a mid-run checkpoint resumes to a bitwise-equal end state."""
+    from picles_torch import (ODESettings, Simulation, WaveGrowth2D,
+                              WaveGrowth2DConfig, cartesian_box,
+                              constant_winds)
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+    from picles_torch.simulation.checkpoint import state_leaves
+
+    n = 64
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev)
+    model = WaveGrowth2D(grid, constant_winds(10.0, 10.0),
+                         ODESettings(timestep=600.0, dt=1e-3, solver="bosh3"),
+                         config=WaveGrowth2DConfig(dt_reset_mode="carry",
+                                                   remesh_mode="fused",
+                                                   halo=((0, 3), (0, 3))))
+    before = pic_gather_remesh.launches
+    full = Simulation.create(model, stop_time=10 * 600.0)
+    full.run()
+    assert pic_gather_remesh.launches == before + 11
+    leg = Simulation.create(model, stop_time=5 * 600.0)
+    leg.run()
+    ck = leg.checkpoint(str(tmp_path / "ck"))
+    rest = Simulation.create(model, stop_time=10 * 600.0)
+    rest.pickup(ck)
+    rest.run()
+    for a, b in zip(state_leaves(full.state), state_leaves(rest.state)):
+        assert torch.equal(a, b)
+    assert int(full.state.metrics.n_failed) == 0

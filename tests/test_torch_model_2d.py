@@ -223,7 +223,9 @@ def test_cuda_mode_on_cpu_tensors_raises(modes):
 
 @pytest.mark.parametrize("remesh", ["pallas", "fused"])
 def test_unported_remesh_modes_raise(remesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    """The kernel remesh modes carry the dt (no Hairer reset), as in the
+    JAX package: with the default dt_reset_mode="auto" they raise."""
+    with pytest.raises(ValueError, match='dt_reset_mode="carry"'):
         pt.WaveGrowth2D(_cpu_grid(), pt.constant_winds(10.0, 5.0),
                         pt.ODESettings(),
                         config=pt.WaveGrowth2DConfig(remesh_mode=remesh))

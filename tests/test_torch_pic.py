@@ -111,7 +111,8 @@ def test_periodic_deposit_conserves_mass(halo):
                                        ("open", ((1, 2), (2, 1)))])
 def test_dense_matches_pallas_gather_interpret(kind, halo):
     """The JAX one-pass gather kernel (K2) in interpret mode against the
-    port's plain version, through the port's K2 wrapper on CPU tensors."""
+    port's plain version of K2, ``pic.scatter_dense``; the port's K2 wrapper
+    refuses the CPU tensors."""
     nx = ny = 16
     lo, hi = (-0.2, 3.2) if halo == ((0, 3), (0, 3)) else (-3.2, 3.2)
     xr, yr, ch, act = _inputs(nx, ny, lo, hi, seed=11)
@@ -121,11 +122,13 @@ def test_dense_matches_pallas_gather_interpret(kind, halo):
         jnp.asarray(xr), jnp.asarray(yr),
         tuple(jnp.asarray(c) for c in chans), jnp.asarray(act), js, halo,
         interpret=True)
-    (to, tst) = pic_gather(*_t(xr, yr), tuple(_t(*chans)),
-                           torch.as_tensor(act), ts, halo)
+    to, tst = tpic.scatter_dense(*_t(xr, yr, ch, act), ts, halo)
     for c in range(3):
-        _close(to[c].numpy(), jo[c], f"channel {c}")
+        _close(to[..., c].numpy(), jo[c], f"channel {c}")
     assert int(tst.clamped) == int(jst.clamped)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        pic_gather(*_t(xr, yr), tuple(_t(*chans)), torch.as_tensor(act), ts,
+                   halo)
 
 
 @pytest.mark.parametrize("mode", ["dense", "xla"])
