@@ -6,7 +6,7 @@
 
 Builds the CUDA kernels of ``picles_torch/csrc/`` (nvcc, sm_90a, one
 process per source), checks each against its plain PyTorch version on the
-card, and drives two main paths, each with the launch counters set to 0
+card, and drives three main paths, each with the launch counters set to 0
 just before and read just after:
 
 1. the flagship configuration (1536^2, bosh3, carried dt, halo
@@ -15,7 +15,13 @@ just before and read just after:
 2. the flagship through ``Simulation`` under the three remesh backends
    ("xla", "pallas" with K5, "fused" with K6), then the production run: a
    storeless day (145 steps) of the fused flagship, checkpointed at step 72
-   and resumed bit for bit, and a stored day at 256^2.
+   and resumed bit for bit, and a stored day at 256^2;
+3. the "pallas" flagship through ``ShardedWaveGrowth2D`` on a (1, 1) mesh
+   over NCCL (K1, K4, the self-wrap fold, K5).  Then four ranks of this
+   script on the same card over gloo (a 2 x 2 mesh) hold the collective
+   deposit against the global K2 deposit, the sharded step against the
+   single-device one, and a sharded ``Simulation.run`` with a store and a
+   checkpoint resume.
 
 It matches a small run on the card against the same model on the CPU, and
 times the kernels and the step beside their plain versions.  ``--profile``
@@ -34,6 +40,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -41,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from picles_torch import (Boundary, GridStats, ODEParameters, ODESettings,
                           Simulation, TermFlags, WaveGrowth2D,
@@ -50,12 +59,16 @@ from picles_torch.core import fetch_relations as FR
 from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
 from picles_torch.ops.advance_cuda import advance_cuda, auto_dt_cuda
-from picles_torch.ops.pic import scatter_dense
-from picles_torch.ops.pic_cuda import pic_gather, pic_gather_remesh
+from picles_torch.ops.pic import (normalize_halo, scatter_accumulate_padded,
+                                  scatter_dense)
+from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
+                                       pic_gather_remesh)
 from picles_torch.ops.remesh import remesh_core
 from picles_torch.ops.remesh_cuda import remesh_cuda
 from picles_torch.ops.rhs import RHSParams, make_rhs, make_rhs_consts
 from picles_torch.ops.tsit5 import SolverConfig, auto_dt, integrate_to
+from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
+                                           init_distributed, make_mesh)
 from picles_torch.simulation.checkpoint import state_leaves
 
 FLAG_N = 1536
@@ -169,14 +182,14 @@ def settings(solver: str):
 
 
 def flagship_model(n: int, device, solver="bosh3", dt_reset_mode="carry",
-                   **modes):
+                   halo=((0, 3), (0, 3)), periodic=True, **modes):
     """bench.py's production configuration on the port: 2 km spacing,
     periodic box, constant (10, 10) m/s winds, directional halo."""
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
-                         periodic_boundary=(True, True), device=device)
-    cfg = WaveGrowth2DConfig(periodic_boundary=True,
-                             dt_reset_mode=dt_reset_mode,
-                             halo=((0, 3), (0, 3)), **modes)
+                         periodic_boundary=(periodic, periodic),
+                         device=device)
+    cfg = WaveGrowth2DConfig(periodic_boundary=periodic,
+                             dt_reset_mode=dt_reset_mode, halo=halo, **modes)
     return WaveGrowth2D(grid, constant_winds(10.0, 10.0), settings(solver),
                         config=cfg)
 
@@ -362,7 +375,8 @@ def phase_k2(dev, results):
 
 
 KERNEL_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
-              "K5": remesh_cuda, "K6": pic_gather_remesh}
+              "K4": pic_gather_padded, "K5": remesh_cuda,
+              "K6": pic_gather_remesh}
 
 
 def counters():
@@ -853,6 +867,316 @@ def phase_production(dev, results, timing):
                       f"frame equals the storeless run bitwise")
 
 
+def k4_pair(tag, xr, yr, chans, act, halo):
+    """K4 twice and its plain version on the same inputs: bitwise
+    repeatable, within 1e-6 of each channel's scale; returns the max abs
+    error relative to that scale."""
+    out, st = pic_gather_padded(xr, yr, chans, act, halo)
+    out2, _ = pic_gather_padded(xr, yr, chans, act, halo)
+    P, st_p = scatter_accumulate_padded(xr, yr, torch.stack(chans, dim=-1),
+                                        act, halo)
+    torch.cuda.synchronize()
+    assert out.shape == P.permute(2, 0, 1).shape, (out.shape, P.shape)
+    err = 0.0
+    for c in range(3):
+        scale = float(P[..., c].abs().max())
+        e = assert_close(f"{tag} ch{c}", out[c], P[..., c], 1e-5, 1e-6 * scale)
+        assert e <= 1e-6 * scale, f"{tag} ch{c}: max abs err {e} > 1e-6 x {scale}"
+        assert torch.equal(out[c], out2[c]), f"{tag}: two runs differ"
+        err = max(err, e / scale)
+    assert int(st.clamped) == int(st_p.clamped), \
+        f"{tag}: clamped {int(st.clamped)} vs {int(st_p.clamped)}"
+    log("K4", f"{tag}: max abs err {err:.3e} of the scale, clamped "
+              f"{int(st.clamped)}, bitwise repeatable")
+    return err
+
+
+def phase_k4(dev, flag, s_flag, results):
+    """K4 against scatter_accumulate_padded: the flagship's own deposit at
+    FLAG_N^2 (timed beside the plain version), then at 256^2 with random
+    displacements over the whole halo (and past it, so some clamp)."""
+    core, chans, sact = flagship_deposit_inputs(flag, s_flag)
+    halo = flag.config.halo
+    err = k4_pair(f"{FLAG_N}^2 flagship deposit halo {halo}", core[3],
+                  core[4], chans, sact, halo)
+    rng = np.random.default_rng(4)
+    n = 256
+
+    def plane(fn, *a):
+        return torch.as_tensor(fn(*a, (n, n)).astype(np.float32), device=dev)
+
+    for h in (3, ((0, 3), (0, 3)), ((1, 3), (0, 2))):
+        (xl, xh), (yl, yh) = normalize_halo(h)
+        xr = plane(rng.uniform, -xl - 0.2, xh + 0.2)
+        yr = plane(rng.uniform, -yl - 0.2, yh + 0.2)
+        ch = (plane(rng.uniform, 0.0, 1.0), plane(rng.normal, 0.0, 0.1),
+              plane(rng.normal, 0.0, 0.1))
+        act = torch.as_tensor(rng.uniform(size=(n, n)) < 0.9, device=dev)
+        err = max(err, k4_pair(f"256^2 halo {h}", xr, yr, ch, act, h))
+    results["K4"]["max_abs_err"] = err
+    results["K4"]["ms"] = cuda_time_ms(
+        lambda: pic_gather_padded(core[3], core[4], chans, sact, halo), 20)
+    results["K4"]["plain_ms"] = cuda_time_ms(
+        lambda: scatter_accumulate_padded(core[3], core[4],
+                                          torch.stack(chans, dim=-1), sact,
+                                          halo), 5)
+    log("kernel-time", f"K4: {results['K4']['ms']:.4f} ms, plain "
+                       f"{results['K4']['plain_ms']:.4f} ms")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def assert_states(tag: str, got, want, rtol: float = 2e-3) -> float:
+    """A sharded run's gathered state against the single-device one: node
+    state and particle planes at ``rtol`` (the adaptive controller's
+    envelope, tests/test_sharded.py:50-56), n_active, n_gather, n_failed
+    equal; returns the node state's max abs error."""
+    err = assert_close(f"{tag} state", got.state, want.state, rtol, 1e-10)
+    for k in ("lne", "cgx", "cgy", "px", "py"):
+        assert_close(f"{tag} {k}", getattr(got.particles, k),
+                     getattr(want.particles, k), rtol, 1e-6)
+    mg, mw = got.metrics.as_dict(), want.metrics.as_dict()
+    for k in ("n_active", "n_gather", "n_failed"):
+        assert mg[k] == mw[k], f"{tag}: {k} {mg[k]} vs {mw[k]}"
+    return err
+
+
+def phase_sharded_1x1(dev, results, timing):
+    """This slice's main path: the flagship at FLAG_N^2 through
+    ShardedWaveGrowth2D on a (1, 1) mesh, NCCL at world size 1, with the
+    K5 remesh (K1 -> K4 -> self-wrap fold -> K5), counters reset just
+    before and read just after.  3 steps against the single-device step
+    (K2 in place of K4 and the fold), then 20 steps; then, out of the
+    counted run, both steps in turns, 10 steps at a time, 8 times each
+    (the step is host-bound, so one run of each is noise)."""
+    n = FLAG_N
+    model = flagship_model(n, dev, remesh_mode="pallas")
+    ref = model.step_n_quiet(model.init_state(), 3)
+    init_distributed(0, 1, "nccl", free_port())
+    try:
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        log("sharded-1x1", f"transport: {sh.transport}")
+        reset_counters()
+        ms = sh.step_n_quiet(sh.init_state(), 3)
+        err = assert_states("sharded 1x1 vs single device, 3 steps", ms, ref)
+        ms = sh.step_n_quiet(ms, 20)
+        m = check_state("sharded 1x1", ms, n_failed=0, n_clamped=0)
+        c = counters()
+        assert c["K1"] == c["K4"] == c["K5"] == 23, c
+        assert c["K2"] == 0 and c["K6"] == 0, c
+        runs = {"sharded": [], "single": []}
+        for rep in range(8):
+            for who in (("sharded", "single") if rep % 2 == 0 else
+                        ("single", "sharded")):
+                if who == "single":
+                    ref, t = time_steps(model, ref, 10)
+                else:
+                    ms, t = time_steps(sh, ms, 10)
+                runs[who].append(t)
+    finally:
+        dist.destroy_process_group()
+    ms_step, single = (float(np.median(runs[k])) for k in ("sharded", "single"))
+    results["K4"]["launches"] = c["K4"]
+    timing["sharded_1x1_ms_per_step"] = ms_step
+    timing["sharded_1x1_pushes_per_s"] = n * n / (ms_step / 1e3)
+    timing["single_pallas_ms_per_step"] = single
+    timing["sharded_1x1_turns"] = runs
+    log("sharded-1x1", f"3 steps vs single device: max abs err {err:.3e}, "
+                       f"counters equal; metrics {m}")
+    log("sharded-1x1", f"{n}^2: {ms_step:.3f} ms/step, "
+                       f"{n * n / (ms_step / 1e3):.4e} pushes/s; the "
+                       f"single-device pallas step in turns {single:.3f} "
+                       f"ms/step (medians of 8 x 10 steps each, CUDA events)")
+    log("counters", f"sharded 1x1 path launches {c}")
+
+
+SHARDED_RANKS = 4
+
+
+def phase_sharded_2x2(timing):
+    """Four ranks on the one card over gloo (this script again, with
+    ``--sharded-rank``): each rank runs ``sharded_rank``; a rank that fails
+    or outlives the time limit fails the phase."""
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
+    out = tempfile.mkdtemp(dir=cuda_build.BUILD_ROOT)
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(SHARDED_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+         "--port", str(port), "--rank-dir", out],
+        stdout=f, stderr=subprocess.STDOUT) for r, f in enumerate(logs)]
+    deadline = time.monotonic() + 400
+    try:
+        # a rank that fails leaves the others waiting in a collective:
+        # stop them at once
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if r == 0 or p.returncode != 0:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                for ln in f.read().splitlines():
+                    print(f"  rank {r}| {ln}", flush=True)
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    assert not bad, f"sharded 2x2: ranks failed (rank, code): {bad}"
+    with open(os.path.join(out, "rank0.json")) as f:
+        timing.update(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    log("sharded-2x2", f"4 ranks passed in {time.perf_counter() - t0:.1f} s "
+                       f"wall, processes included")
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host wall ms of ``fn()`` (which ends in a collective, so the ranks
+    move together), synchronised before and after, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_rank(rank: int, port: int, out: str) -> int:
+    """One of the four gloo ranks of phase "sharded-2x2", on the one card:
+    (a) the collective deposit (K4, exchange, folds) against the global K2
+    deposit at FLAG_N^2 for periodic, open and asymmetric halos, and K4
+    alone beside it (the gloo staging cost); (b) 3 sharded flagship steps
+    against the single-device step, then timed steps; (c) at 256^2 a
+    Simulation.run of 6 steps with a CashStore against the single-device
+    run frame by frame (7 frames), and a checkpoint at step 3 resumed bitwise equal
+    to the uninterrupted sharded run.  Rank 0 holds the references and
+    writes the numbers to ``out/rank0.json``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rank, SHARDED_RANKS, "gloo", port, timeout_s=120.0)
+    mesh = make_mesh((2, 2))
+    root = rank == 0
+    res = {}
+    n = FLAG_N
+
+    # (a) the collective deposit in isolation
+    rng = np.random.default_rng(5)
+    for i, (periodic, halo) in enumerate(((True, ((0, 3), (0, 3))),
+                                          (False, 3),
+                                          (True, ((1, 3), (0, 2))))):
+        sh = ShardedWaveGrowth2D(flagship_model(n, dev, halo=halo,
+                                                periodic=periodic), mesh)
+        if root and periodic and halo == ((0, 3), (0, 3)):
+            log("sharded-2x2", f"transport: {sh.transport}")
+        (xl, xh), (yl, yh) = normalize_halo(halo)
+        glob = [rng.uniform(-xl - 0.2, xh + 0.2, (n, n)),
+                rng.uniform(-yl - 0.2, yh + 0.2, (n, n)),
+                rng.uniform(0.0, 1.0, (n, n)), rng.normal(0.0, 0.1, (n, n)),
+                rng.normal(0.0, 0.1, (n, n))]
+        glob = [torch.as_tensor(a.astype(np.float32), device=dev)
+                for a in glob]
+        gact = torch.as_tensor(rng.uniform(size=(n, n)) < 0.9, device=dev)
+        sx, sy = sh._slices
+        xr, yr, *ch = (a[sx, sy].contiguous() for a in glob)
+        act = gact[sx, sy].contiguous()
+        planes, _ = sh._scatter_sharded(xr, yr, tuple(ch), act)
+        S = sh.gather_blocks(torch.stack(planes, dim=-1))
+        tag = f"2x2 deposit {'periodic' if periodic else 'open'} halo {halo}"
+        if root:
+            K, _ = pic_gather(glob[0], glob[1], tuple(glob[2:]), gact,
+                              sh.grid.stats, halo)
+            err = max(assert_close(f"{tag} ch{c}", S[..., c], K[c], 2e-6,
+                                   2e-6) for c in range(3))
+            log("sharded-2x2", f"{tag} vs global K2 at {n}^2: max abs err "
+                               f"{err:.3e}")
+            res[f"deposit_{i}_max_abs_err"] = err
+        if periodic and halo == ((0, 3), (0, 3)):
+            dep = wall_ms(lambda: sh._scatter_sharded(xr, yr, tuple(ch),
+                                                      act), 10)
+            loc = wall_ms(lambda: (sh.accumulate_padded(xr, yr, tuple(ch),
+                                                        act),
+                                   sh.barrier()), 10)
+            res.update(deposit_exchange_ms=dep, deposit_local_ms=loc)
+            if root:
+                log("sharded-2x2", f"{tag}: K4 + exchange + folds "
+                                   f"{dep:.3f} ms, K4 alone (+ barrier) "
+                                   f"{loc:.3f} ms per call (rank 0 wall)")
+
+    # (b) the sharded flagship step
+    model = flagship_model(n, dev, remesh_mode="pallas")
+    sh = ShardedWaveGrowth2D(model, mesh)
+    ms = sh.step_n_quiet(sh.init_state(), 3)
+    whole = sh.gather_state(ms)
+    if root:
+        ref = model.step_n_quiet(model.init_state(), 3)
+        err = assert_states("sharded 2x2 vs single device, 3 steps", whole,
+                            ref)
+        log("sharded-2x2", f"flagship {n}^2, 3 steps vs single device: max "
+                           f"abs err {err:.3e}, counters equal")
+        del ref
+    del whole
+    steps = 10
+    step_ms = wall_ms(lambda: sh.step_n_quiet(ms, steps), 1) / steps
+    m = check_state("sharded 2x2", sh.step(ms), n_failed=0, n_clamped=0)
+    res.update(sharded_2x2_ms_per_step=step_ms,
+               sharded_2x2_pushes_per_s=n * n / (step_ms / 1e3))
+    if root:
+        log("sharded-2x2", f"flagship {n}^2 on 4 ranks sharing the card: "
+                           f"{step_ms:.3f} ms/step over {steps} steps "
+                           f"(rank 0 wall), {n * n / (step_ms / 1e3):.4e} "
+                           f"pushes/s; metrics {m}")
+
+    # (c) Simulation.run: CashStore, checkpoint, resume
+    small = 256
+    sh = ShardedWaveGrowth2D(flagship_model(small, dev, remesh_mode="pallas"),
+                             mesh)
+    stored = Simulation.create(sh, stop_time=5 * DT)
+    stored.run(cash_store=True)
+    full = Simulation.create(sh, stop_time=5 * DT)
+    full.run()
+    leg = Simulation.create(sh, stop_time=2 * DT)
+    leg.run()
+    ck = leg.checkpoint(os.path.join(out, "step3"))
+    rest = Simulation.create(sh, stop_time=5 * DT)
+    rest.pickup(ck)
+    rest.run()
+    a, b = sh.gather_state(full.state), sh.gather_state(rest.state)
+    if root:
+        frames = stored.store.as_array()
+        single = Simulation.create(flagship_model(small, dev,
+                                                  remesh_mode="pallas"),
+                                   stop_time=5 * DT)
+        single.run(cash_store=True)
+        want = single.store.as_array()
+        assert frames.shape == want.shape == (7, small, small, 3), \
+            (frames.shape, want.shape)
+        for i in range(frames.shape[0]):
+            assert_close(f"2x2 Simulation frame {i}", torch.as_tensor(
+                frames[i]), torch.as_tensor(want[i]), 2e-3, 1e-10)
+        for i, (x, y) in enumerate(zip(state_leaves(a), state_leaves(b))):
+            assert torch.equal(x, y), f"resumed 2x2 run differs in leaf {i}"
+        log("sharded-2x2", f"{small}^2 Simulation.run, 6 steps: CashStore "
+                           f"frames match the single-device run; resumed "
+                           f"from the step-3 checkpoint bitwise equal (all "
+                           f"{len(state_leaves(a))} leaves)")
+        with open(os.path.join(out, "rank0.json"), "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def profile_config(tag: str, model, reps: int, steps: int = 10,
                    prof_steps: int = 5) -> dict:
     """Step times of one configuration over ``reps`` x ``steps`` steps (CUDA
@@ -934,8 +1258,9 @@ def profile_config(tag: str, model, reps: int, steps: int = 10,
 
 def phase_profile(path: str) -> None:
     """The step's time split at FLAG_N^2: the configurations with the
-    kernels (traced), the flagship under each kernel remesh backend, and
-    both configurations with the plain versions on the card."""
+    kernels (traced), the flagship under each kernel remesh backend, both
+    configurations with the plain versions on the card, and the pallas
+    flagship through ShardedWaveGrowth2D on a (1, 1) NCCL mesh."""
     n = FLAG_N
     res = {"flagship": profile_config("flagship", flagship_model(n, "cuda"), 7),
            "flagship_pallas": profile_config(
@@ -951,6 +1276,14 @@ def phase_profile(path: str) -> None:
            "default_plain": profile_config(
                "default plain", default_model(n, "cuda", advance_mode="torch",
                                               scatter_mode="dense"), 3)}
+    init_distributed(0, 1, "nccl", free_port())
+    try:
+        res["sharded_1x1_pallas"] = profile_config(
+            "sharded 1x1 pallas", ShardedWaveGrowth2D(
+                flagship_model(n, "cuda", remesh_mode="pallas"),
+                make_mesh((1, 1))), 7)
+    finally:
+        dist.destroy_process_group()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(res, f, indent=1)
@@ -962,11 +1295,17 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="JSON",
                     help="also profile the step at full size and write the "
                          "split of its time to this JSON file")
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # a rank of phase sharded-2x2
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    if args.sharded_rank is not None:
+        return sharded_rank(args.sharded_rank, args.port, args.rank_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -984,6 +1323,9 @@ def main(argv=None) -> int:
         "K3": dict(name="auto_dt", route="cuda",
                    source="picles_torch/csrc/advance.cu",
                    replaces="picles_tpu/ops/advance_pallas.py:200"),
+        "K4": dict(name="pic_gather_padded", route="cuda",
+                   source="picles_torch/csrc/pic_gather.cu",
+                   replaces="picles_tpu/ops/pic_pallas.py:121"),
         "K5": dict(name="remesh", route="cuda",
                    source="picles_torch/csrc/remesh.cu",
                    replaces="picles_tpu/ops/remesh_pallas.py:116"),
@@ -1001,11 +1343,16 @@ def main(argv=None) -> int:
     phase_card_vs_cpu()
     phase_kernel_times(flag, s_flag, default, s_def, results)
     phase_remesh_kernel_times(flag, s_flag, results)
+    phase_k4(dev, flag, s_flag, results)
     phase_twin_timing(timing, 20)
+    del flag, s_flag, default, s_def
+    phase_sharded_1x1(dev, results, timing)
+    phase_sharded_2x2(timing)
     if args.profile:
         phase_profile(args.profile)
 
-    kernels = [dict(results[k]) for k in ("K1", "K2", "K3", "K5", "K6")]
+    kernels = [dict(results[k])
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms")), k

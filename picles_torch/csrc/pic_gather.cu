@@ -30,6 +30,23 @@
 // Threads run along y, the contiguous axis, so loads and stores coalesce.
 // Staging a tile of the sources in shared memory is left to a later PR.
 //
+// K4: the same deposit into the padded accumulator, no fold.
+//
+// Replaces (TPU kernel): picles_tpu/ops/pic_pallas.py _accum_kernel via
+// scatter_padded_channels_pallas (stacked by
+// scatter_accumulate_padded_pallas), the local deposit of every shard of the
+// sharded step.  Plain PyTorch version: picles_torch/ops/pic.py
+// scatter_accumulate_padded.  Padded node (pi, pj) of the
+// [nx+xl+xh, ny+yl+yh] output is core node (pi - xl, pj - yl), which lies
+// up to xl (yl) nodes before and xh (yh) nodes past the block.  With both
+// axes open, K2's `gather_node` sums exactly that node's window: a source
+// outside [0, nx) x [0, ny) is skipped, as the accumulator has no particle
+// there.  So K4 is `gather_node` with periodic_x = periodic_y = 0 over the
+// larger output range; the halo slabs it leaves are what the sharded step
+// exchanges with the neighbouring blocks.  One thread per padded node, no
+// atomics: deterministic.  Memory-bound like K2: about 21 bytes of sources
+// (through L1/L2) and 12 bytes of output a node.
+//
 // K6: the same deposit with the remesh fused into its output pass.
 //
 // Replaces (TPU kernel): picles_tpu/ops/pic_pallas.py _accum_remesh_kernel
@@ -128,6 +145,30 @@ pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
   o2[idx] = acc2;
 }
 
+// g.nx, g.ny are the block's (source) extents; the output is padded.
+__global__ void __launch_bounds__(256)
+pic_gather_padded_kernel(const GatherConfig g, const float* __restrict__ xr,
+                         const float* __restrict__ yr,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ c2,
+                         const unsigned char* __restrict__ act,
+                         float* __restrict__ o0, float* __restrict__ o1,
+                         float* __restrict__ o2) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int npy = g.ny + g.yl + g.yh;
+  const long long n = (long long)(g.nx + g.xl + g.xh) * npy;
+  if (idx >= n) return;
+  const int pi = (int)(idx / npy);
+  const int pj = (int)(idx - (long long)pi * npy);
+  float acc0, acc1, acc2;
+  gather_node(g, pi - g.xl, pj - g.yl, xr, yr, c0, c1, c2, act, acc0, acc1,
+              acc2);
+  o0[idx] = acc0;
+  o1[idx] = acc1;
+  o2[idx] = acc2;
+}
+
 // Particle planes and masks of K6's remesh half, core-aligned [nx, ny].
 struct RemeshPlanes {
   const float* clock;
@@ -200,6 +241,29 @@ extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
   pic_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
+      (const float*)ptrs[3], (const float*)ptrs[4],
+      (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
+      (float*)ptrs[8]);
+  return (int)cudaGetLastError();
+}
+
+// K4.  iparams and fparams as picles_pic_gather's, the periodic flags
+// ignored (both axes open); nx, ny are the block's.
+// ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([nx, ny], inputs) |
+//          o0, o1, o2 ([nx+xl+xh, ny+yl+yh], outputs)
+// Returns cudaGetLastError() after the launch.
+extern "C" int picles_pic_gather_padded(const float* fparams,
+                                        const int* iparams, void** ptrs,
+                                        void* stream) {
+  GatherConfig g = unpack_gather(fparams, iparams);
+  g.periodic_x = 0;
+  g.periodic_y = 0;
+  const long long n =
+      (long long)(g.nx + g.xl + g.xh) * (g.ny + g.yl + g.yh);
+  if (g.nx <= 0 || g.ny <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  pic_gather_padded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
       (const float*)ptrs[3], (const float*)ptrs[4],
       (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],

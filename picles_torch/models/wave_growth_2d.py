@@ -21,14 +21,17 @@ the plain versions, as the JAX package runs its kernels in interpret mode.
 Every quantity stays on the grid's device and the step never reads it back,
 so a step on the card queues without host round-trips.
 
-Not ported yet: layers, per-layer winds and the sharded step's hooks.
+``step_core`` takes the grid planes and masks it steps over, a deposit hook
+and a counter-reduction hook, so ``parallel/sharded.py`` runs the same step
+on one block of a decomposed grid.  Not ported yet: layers and per-layer
+winds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -274,9 +277,6 @@ class WaveGrowth2D(StepDrivers):
     # seeding
     # ------------------------------------------------------------------
 
-    def _winds_at(self, t) -> Tuple[torch.Tensor, torch.Tensor]:
-        return winds_at(self.winds, self.grid.x, self.grid.y, t)
-
     def _reset_values(self, u, v):
         """The model's reseed: windsea from local winds when no defaults are
         set, otherwise the fixed defaults; (lne, cgx, cgy) planes."""
@@ -289,7 +289,7 @@ class WaveGrowth2D(StepDrivers):
         g = self.grid
         dev = self.device
         d = self.defaults
-        u0, v0 = self._winds_at(torch.zeros_like(g.x))
+        u0, v0 = winds_at(self.winds, g.x, g.y, torch.zeros_like(g.x))
         wind_speed = torch.sqrt(u0 * u0 + v0 * v0)
 
         land = g.mask == 0
@@ -331,12 +331,26 @@ class WaveGrowth2D(StepDrivers):
                               self.boundary_mask)
 
     def step_core(self, ms: ModelState2D, grid: Grid2D,
-                  active: torch.Tensor, boundary: torch.Tensor
-                  ) -> ModelState2D:
+                  active: torch.Tensor, boundary: torch.Tensor,
+                  scatter_fn: Optional[Callable] = None,
+                  reduce_counts: Optional[Callable] = None) -> ModelState2D:
+        """The step over explicit (possibly block-local) grid planes and
+        masks.  ``scatter_fn(xrel, yrel, chans, act) -> (planes, stats)``
+        replaces the deposit (the sharded step's exchange); ``reduce_counts
+        (counts, substeps_max) -> (counts, substeps_max)`` reduces the packed
+        int32 counters across blocks (SUM, and MAX for ``substeps_max``).
+        Everything else is elementwise and reads only ``grid``."""
         cfg = self.modes
+        if cfg.remesh_mode == "fused" and scatter_fn is not None:
+            raise ValueError(
+                'remesh_mode="fused" is single-device only: the sharded '
+                "deposit must exchange its halos between the accumulate and "
+                'the remesh. Use remesh_mode="xla" or "pallas" under '
+                "ShardedWaveGrowth2D.")
         sett = self.settings
         DT = float(torch.tensor(sett.timestep, dtype=cfg.dtype))
         P = ms.particles
+        aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 
         # ---------------- ADVANCE ----------------
         adv = P.on & active
@@ -348,7 +362,7 @@ class WaveGrowth2D(StepDrivers):
             res_c = (res.lne, res.cgx, res.cgy, res.x, res.y)
         else:
             res = integrate_to(self.rhs, torch.stack(comps0, dim=-1), P.t,
-                               P.t + DT, P.dt, self.aux, adv, self.solver)
+                               P.t + DT, P.dt, aux, adv, self.solver)
             res_c = tuple(res.z[..., i] for i in range(5))
         failed = res.failed & adv
         lne, cgx, cgy, px, py = (torch.where(adv, rc, c0)
@@ -359,7 +373,7 @@ class WaveGrowth2D(StepDrivers):
 
         # off-particle re-light at the (lagged) end of the step
         off = ~P.on & active
-        u_end, v_end = self._winds_at(P.t + DT)
+        u_end, v_end = winds_at(self.winds, grid.x, grid.y, P.t + DT)
         wind2_end = u_end * u_end + v_end * v_end
         relight = off & (wind2_end >= sett.wind_min_squared)
 
@@ -401,9 +415,12 @@ class WaveGrowth2D(StepDrivers):
                 px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
                 self.remesh_params, *core)
         else:
-            node, sc_stats = pic.scatter_channels(
-                px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-                cfg.scatter_mode)
+            if scatter_fn is None:
+                node, sc_stats = pic.scatter_channels(
+                    px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
+                    cfg.scatter_mode)
+            else:
+                node, sc_stats = scatter_fn(px, py, (e, mx, my), scatter_on)
             if self._remesh_kernels:
                 rm = remesh_cuda(self.remesh_params,
                                  tuple(c.contiguous() for c in node), *core)
@@ -425,15 +442,15 @@ class WaveGrowth2D(StepDrivers):
                                        order=self._rk_order)
             else:
                 dt_auto = auto_dt(self.rhs, t, torch.stack(comps, dim=-1),
-                                  self.aux, abstol=sett.abstol,
+                                  aux, abstol=sett.abstol,
                                   reltol=sett.reltol, order=self._rk_order)
             dt = torch.where(was_reset, torch.clamp(dt_auto, sett.dtmin, DT),
                              dt)
 
         metrics = self._build_metrics(
-            adv=adv, failed=failed, nan_mask=nan_mask, inf_mask=inf_mask,
-            emax_mask=emax_mask, relight=relight, gather=gather,
-            reseed=reseed,
+            reduce_counts, adv=adv, failed=failed, nan_mask=nan_mask,
+            inf_mask=inf_mask, emax_mask=emax_mask, relight=relight,
+            gather=gather, reseed=reseed,
             # on -> off transitions: `on` is the flag before the remesh
             off=((rm.branch & OFF_BIT) != 0) & on,
             clamped=sc_stats.clamped, naccept=res.naccept)
@@ -447,15 +464,17 @@ class WaveGrowth2D(StepDrivers):
                             metrics=metrics)
 
     @staticmethod
-    def _build_metrics(*, adv, failed, nan_mask, inf_mask, emax_mask, relight,
-                       gather, reseed, off, clamped, naccept) -> StepMetrics:
-        def count(x):
-            return torch.sum(x).to(torch.int32)
-
-        return StepMetrics(
-            n_active=count(adv), n_failed=count(failed),
-            n_nan_reset=count(nan_mask), n_inf_reset=count(inf_mask),
-            n_emax_clamp=count(emax_mask), n_relight=count(relight),
-            n_gather=count(gather), n_reseed=count(reseed),
-            n_off=count(off), n_clamped=clamped.to(torch.int32),
-            substeps_max=torch.max(naccept).to(torch.int32))
+    def _build_metrics(reduce_counts, *, adv, failed, nan_mask, inf_mask,
+                       emax_mask, relight, gather, reseed, off, clamped,
+                       naccept) -> StepMetrics:
+        """The counters, packed: the nine mask counts and ``n_clamped`` in
+        one int32 tensor in ``StepMetrics`` order, ``substeps_max`` apart,
+        so a sharded step reduces them in two collectives."""
+        masks = (adv, failed, nan_mask, inf_mask, emax_mask, relight, gather,
+                 reseed, off)
+        counts = torch.stack([torch.sum(m) for m in masks]
+                             + [clamped.to(torch.int64)]).to(torch.int32)
+        smax = torch.max(naccept).to(torch.int32)
+        if reduce_counts is not None:
+            counts, smax = reduce_counts(counts, smax)
+        return StepMetrics(*counts.unbind(), substeps_max=smax)

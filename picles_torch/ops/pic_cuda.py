@@ -1,9 +1,14 @@
-"""Wrappers of kernels K2 and K6 (``csrc/pic_gather.cu``).
+"""Wrappers of kernels K2, K4 and K6 (``csrc/pic_gather.cu``).
 
 - ``pic_gather`` (K2), counterpart of ``picles_tpu/ops/pic_pallas.py``
   ``scatter_core_channels_pallas``: the boundary-folded CIC deposit as a
   gather, three channel planes in, three node planes out, one pass, no
   atomics.  Plain version: ``pic.scatter_dense``.
+- ``pic_gather_padded`` (K4), counterpart of
+  ``scatter_padded_channels_pallas``: the same gather into the padded
+  ``[nx+xl+xh, ny+yl+yh]`` accumulator with no fold, the local deposit of
+  the sharded step (``parallel/sharded.py``).  Plain version:
+  ``pic.scatter_accumulate_padded``.
 - ``pic_gather_remesh`` (K6), counterpart of ``scatter_remesh_fused``: the
   same deposit with the remesh branch table (K5's) run on each node's sums
   in the same pass.  Plain version: ``pic.scatter_dense``, then
@@ -13,8 +18,9 @@ Tensors on a card launch the kernel, or raise: tensors on the CPU are
 refused, and the model's device chooses between kernel and plain version.
 The kernels wrap periodic axes and drop open ones by indexing; the tripolar
 seam is not ported yet.  The count of clamped displacements stays in
-PyTorch, with the JAX package's predicate.  ``pic_gather.launches`` and
-``pic_gather_remesh.launches`` count kernel launches.
+PyTorch, with the JAX package's predicate.  ``pic_gather.launches``,
+``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -30,27 +36,19 @@ from .pic import ScatterStats, halo_bounds, normalize_halo
 from .remesh import RemeshParams, RemeshResult
 
 
-def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
-    """Check the deposit's inputs; returns (device, packed float and int
-    parameters, clamped count)."""
+def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False):
+    """Check the deposit's inputs (``px``/``py``: the axis wraps); returns
+    (device, packed float and int parameters, clamped count)."""
     from .cuda_build import check_planes
 
     if len(chans) != 3:
         raise ValueError(f"the gather kernel takes 3 channels, got {len(chans)}")
-    if Boundary.TRIPOLAR_NORTH in (stats.bx, stats.by):
-        raise NotImplementedError(
-            "the tripolar seam fold is not in the CUDA deposit yet "
-            '(ROADMAP item 12); use scatter_mode="dense"')
     f32 = torch.float32
     ins = [xrel, yrel, *chans, active]
     dev = check_planes(ins, ["xrel", "yrel", "c0", "c1", "c2", "active"],
                        [f32] * 5 + [torch.bool])
     nx, ny = xrel.shape
-    if (stats.nx, stats.ny) != (nx, ny):
-        raise ValueError(f"planes are {nx}x{ny}, the grid {stats.nx}x{stats.ny}")
     (xl, xh), (yl, yh) = normalize_halo(halo)
-    px = stats.bx == Boundary.PERIODIC
-    py = stats.by == Boundary.PERIODIC
     if min(xl, xh, yl, yh) < 0 or (px and max(xl, xh) > nx) \
             or (py and max(yl, yh) > ny):
         raise ValueError(f"halo {((xl, xh), (yl, yh))} does not fit a "
@@ -63,6 +61,21 @@ def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
                         ).to(torch.int32)
     return (dev, [x_lo, x_hi, y_lo, y_hi],
             [nx, ny, xl, xh, yl, yh, int(px), int(py)], clamped)
+
+
+def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
+    """``_deposit_setup`` for the boundary-folded deposit over the grid of
+    ``stats``."""
+    if Boundary.TRIPOLAR_NORTH in (stats.bx, stats.by):
+        raise NotImplementedError(
+            "the tripolar seam fold is not in the CUDA deposit yet "
+            '(ROADMAP item 12); use scatter_mode="dense"')
+    if (stats.nx, stats.ny) != tuple(xrel.shape):
+        raise ValueError(f"planes are {tuple(xrel.shape)}, the grid "
+                         f"{stats.nx}x{stats.ny}")
+    return _deposit_setup(xrel, yrel, chans, active, halo,
+                          stats.bx == Boundary.PERIODIC,
+                          stats.by == Boundary.PERIODIC)
 
 
 def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -88,6 +101,35 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
 
 
 pic_gather.launches = 0
+
+
+def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
+                      chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
+                      halo) -> Tuple[torch.Tensor, ScatterStats]:
+    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of one block into its padded
+    accumulator (K4): returns ``[3, nx+xl+xh, ny+yl+yh]`` (channel first,
+    each plane contiguous; padded node (i, j) is block node (i - xl,
+    j - yl)) and the clamped count.  Takes no ``GridStats``: the planes are
+    a block's and nothing wraps."""
+    from .cuda_build import check_status, library, pointer_array
+
+    dev, f, i, clamped = _deposit_setup(xrel, yrel, chans, active, halo)
+    nx, ny, xl, xh, yl, yh = i[:6]
+    fp = np.asarray(f, dtype=np.float32)
+    ip = np.asarray(i, dtype=np.int32)
+    out = torch.empty((3, nx + xl + xh, ny + yl + yh), dtype=torch.float32,
+                      device=dev)
+    ptrs = pointer_array([xrel, yrel, *chans, active, *out])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().picles_pic_gather_padded(
+            fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs), stream)
+    check_status(code, "padded CIC gather")
+    pic_gather_padded.launches += 1
+    return out, ScatterStats(clamped=clamped)
+
+
+pic_gather_padded.launches = 0
 
 
 def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,

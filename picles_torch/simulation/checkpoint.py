@@ -40,6 +40,11 @@ def _orbax_refused():
                                "(ROADMAP item 17); use the npz backend")
 
 
+def npz_path(path: str) -> str:
+    """``path`` with ``.npz`` appended if missing."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
 def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
     """Write ``ms`` to ``path`` (``.npz`` appended if missing); returns the
     path written."""
@@ -47,8 +52,7 @@ def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
         raise _orbax_refused()
     if backend != "npz":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
-    if not path.endswith(".npz"):
-        path = path + ".npz"
+    path = npz_path(path)
     leaves = state_leaves(ms)
     arrays = {f"leaf_{i}": x.detach().cpu().numpy()
               for i, x in enumerate(leaves)}
@@ -64,9 +68,7 @@ def load_checkpoint(path: str, device="cpu") -> ModelState2D:
     if os.path.isdir(path) and os.path.exists(
             os.path.join(path, "picles_meta.json")):
         raise _orbax_refused()
-    if not path.endswith(".npz"):
-        path = path + ".npz"
-    with np.load(path, allow_pickle=False) as f:
+    with np.load(npz_path(path), allow_pickle=False) as f:
         meta = json.loads(bytes(f["__meta__"].item()).decode())
         if meta["version"] != _FORMAT_VERSION:
             raise ValueError(f"unknown checkpoint version {meta['version']}")

@@ -8,6 +8,11 @@ queue on the model's device; the loop waits for the device only where it
 must: at a chunk end that checks a wall-time limit or runs callbacks, at a
 store push, and once at the end of ``run`` (so ``run_wall_time`` is the
 time of the work, not of its enqueueing).
+
+A sharded model (``parallel/sharded.py``) is driven the same way on every
+rank: each store push gathers the blocks to rank 0, which alone writes the
+store; a checkpoint is written whole by rank 0, and ``pickup`` slices a
+whole checkpoint.
 """
 
 from __future__ import annotations
@@ -72,13 +77,17 @@ class Simulation:
         device."""
         from .checkpoint import load_checkpoint
 
-        self.state = load_checkpoint(path, device=self.model.device)
+        load = getattr(self.model, "load_checkpoint", None)
+        self.state = (load(path) if load is not None
+                      else load_checkpoint(path, device=self.model.device))
         self.initialized = True
 
     def checkpoint(self, path: str) -> str:
         from .checkpoint import save_checkpoint
 
-        return save_checkpoint(path, self.state)
+        save = getattr(self.model, "save_checkpoint", None)
+        return (save(path, self.state) if save is not None
+                else save_checkpoint(path, self.state))
 
     def n_steps(self) -> int:
         """Steps of the loop: it runs while stop_time >= clock time."""
@@ -92,6 +101,9 @@ class Simulation:
         ``replace=False`` re-attaches an existing file (checkpoint-resume
         legs): the run loop aligns the write cursor to the resumed state's
         iteration."""
+        if not getattr(self.model, "is_root", True):
+            self.store = EmptyStore()   # rank 0 writes a sharded run's store
+            return self.store
         g = self.model.grid
         nsteps = self.n_steps()
         coords = dict(
@@ -101,6 +113,23 @@ class Simulation:
         coords["state"] = ["e", "m_x", "m_y"]
         self.store = StateStore(path, coords, name=name, replace=replace)
         return self.store
+
+    def _push(self, t, block: bool = False) -> None:
+        """Push a state (``block``: a stacked ``[n, ...]`` run of states) to
+        the store; a sharded model gathers it to rank 0 first, and only
+        rank 0 pushes."""
+        gather = getattr(self.model, "gather_blocks", None)
+        if gather is not None:
+            t = gather(t, 1 if block else 0)
+            if t is None:
+                return
+        if not block:
+            self.store.push(t)
+        elif hasattr(self.store, "push_block"):
+            self.store.push_block(t)
+        else:
+            for s in t:
+                self.store.push(s)
 
     # -- main loop -----------------------------------------------------
 
@@ -127,7 +156,7 @@ class Simulation:
             if isinstance(self.store, StateStore):
                 # a resumed state at iteration k belongs at row k
                 self.store.iteration = int(self.state.iteration)
-            self.store.push(self.state.state)  # initial state write
+            self._push(self.state.state)  # initial state write
 
         remaining = self.n_steps() - int(self.state.iteration)
         if remaining <= 0:
@@ -146,12 +175,7 @@ class Simulation:
             if use_store:
                 self.state, states = self.model.step_n_buffered(
                     self.state, n, chunk)
-                states = states[:n]
-                if hasattr(self.store, "push_block"):
-                    self.store.push_block(states)
-                else:
-                    for i in range(n):
-                        self.store.push(states[i])
+                self._push(states[:n], block=True)
             else:
                 self.state = self.model.step_n_quiet(self.state, n)
                 if needs_chunks:
@@ -162,7 +186,11 @@ class Simulation:
                       f"({done}/{remaining} steps)")
             for cb in self.callbacks.values():
                 cb(self)
-            if _time.time() - t_wall > self.wall_time_limit:
+            over = _time.time() - t_wall > self.wall_time_limit
+            agree = getattr(self.model, "any_rank", None)
+            if agree is not None and self.wall_time_limit != float("inf"):
+                over = agree(over)   # the ranks of a sharded run stop together
+            if over:
                 print("wall time limit reached")
                 break
 

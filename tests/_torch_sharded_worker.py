@@ -1,0 +1,177 @@
+"""Worker for test_torch_sharded.py: one rank of a gloo process group that
+runs the port's sharded cases (``picles_torch/parallel/sharded.py``) on the
+CPU and leaves their results for the test process to compare with
+``picles_tpu``.
+
+    python _torch_sharded_worker.py <rank> <world_size> <port> <out_dir>
+
+Every rank runs every case in the same order (the cases are collectives);
+rank 0 writes one ``<case>.npz`` a case with the whole (gathered) result.
+A case that raises is written to ``<case>.err`` by the rank that raised,
+which then exits non-zero (the other ranks time out in their next
+collective).
+"""
+
+import os
+import sys
+import traceback
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import picles_torch as pt  # noqa: E402
+from picles_torch.core import fetch_relations as FR  # noqa: E402
+from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,  # noqa: E402
+                                           init_distributed, make_mesh)
+
+DT = 600.0
+NX, NY = 32, 24
+
+# the seven deposit families of tests/test_sharded.py:163-171
+DEPOSIT_CASES = [("periodic", 3), ("periodic", ((0, 3), (0, 3))),
+                 ("nonperiodic", 3), ("nonperiodic", ((1, 3), (0, 2))),
+                 ("tripolar", 3), ("tripolar", ((0, 3), (0, 3))),
+                 ("tripolar", ((2, 3), (1, 3)))]
+STEP_CASES = [(m, p) for p in (True, False) for m in ((8, 1), (4, 2), (2, 4))]
+ASYM_MESHES = [(4, 2), (2, 4)]
+
+
+def settings(adaptive=True, sub=1e-3):
+    ws = FR.MinimalWindsea(10.0, 10.0, DT)
+    return pt.ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
+                          timestep=DT, total_time=6 * 24 * 3600.0, dt=sub,
+                          dtmin=1e-4, force_dtmin=True, adaptive=adaptive)
+
+
+def model(periodic=True, halo=3, sett=None, dtype=torch.float32,
+          tripolar=False, winds=None):
+    """tests/test_sharded.py's ``_model`` on the port (32 x 24 box,
+    constant (10, 5) m/s winds); ``tripolar`` swaps the y boundary for the
+    north seam, as that file's seam tests do."""
+    import dataclasses
+
+    grid = pt.cartesian_box(100e3, NX, 100e3, NY, device="cpu", dtype=dtype,
+                            periodic_boundary=(periodic, periodic))
+    if tripolar:
+        grid = dataclasses.replace(grid, stats=dataclasses.replace(
+            grid.stats, bx=pt.Boundary.PERIODIC,
+            by=pt.Boundary.TRIPOLAR_NORTH))
+    return pt.WaveGrowth2D(grid, winds or pt.constant_winds(10.0, 5.0),
+                           sett or settings(),
+                           config=pt.WaveGrowth2DConfig(
+                               periodic_boundary=periodic, halo=halo,
+                               dtype=dtype))
+
+
+def whole(sharded, ms):
+    """The gathered state as numpy arrays (rank 0), else None."""
+    g = sharded.gather_state(ms)
+    if g is None:
+        return None
+    out = {"state": g.state.numpy(), "time": g.time.numpy(),
+           "iteration": g.iteration.numpy()}
+    out.update({f"p_{k}": getattr(g.particles, k).numpy()
+                for k in pt.convert.PARTICLE_FIELDS})
+    out.update({f"m_{k}": np.asarray(v)
+                for k, v in g.metrics.as_dict().items()})
+    return out
+
+
+def deposit_case(i):
+    boundary, halo = DEPOSIT_CASES[i]
+    m = model(periodic=boundary == "periodic", halo=halo,
+              tripolar=boundary == "tripolar")
+    sh = ShardedWaveGrowth2D(m, make_mesh((4, 2)))
+    rng = np.random.default_rng(42)
+    (xl, xh), (yl, yh) = pt.ops.pic.normalize_halo(halo)
+    xr = rng.uniform(-xl, xh - 0.1, (NX, NY)).astype(np.float32)
+    yr = rng.uniform(-yl, yh - 0.1, (NX, NY)).astype(np.float32)
+    ch = rng.uniform(0.1, 1.0, (NX, NY, 3)).astype(np.float32)
+    act = rng.random((NX, NY)) > 0.1
+    sx, sy = sh._slices
+
+    def blk(a):
+        return torch.as_tensor(np.ascontiguousarray(a[sx, sy]))
+
+    planes, st = sh._scatter_sharded(
+        blk(xr), blk(yr), tuple(blk(ch[..., c]) for c in range(3)), blk(act))
+    S = sh.gather_blocks(torch.stack(planes, dim=-1))
+    if S is None:
+        return None
+    return dict(S=S.numpy(), xr=xr, yr=yr, ch=ch, act=act)
+
+
+def step_run(sh, n=3):
+    ms = sh.init_state()
+    for _ in range(n):
+        ms = sh.step(ms)
+    return whole(sh, ms)
+
+
+def simulation_case(out_dir):
+    """Simulation.run over the sharded model with a CashStore, then a
+    checkpoint, a resume and the uninterrupted run it must equal."""
+    sh = ShardedWaveGrowth2D(model(), make_mesh((4, 2)))
+    sim = pt.Simulation.create(sh, stop_time=1800.0)
+    sim.run(cash_store=True)
+    frames = sim.store.store
+    quiet = pt.Simulation.create(sh, stop_time=1800.0)
+    quiet.run()
+    ck = quiet.checkpoint(os.path.join(out_dir, "sharded_ck"))
+    rest = pt.Simulation.create(sh, stop_time=3600.0)
+    rest.pickup(ck)
+    rest.run()
+    full = pt.Simulation.create(sh, stop_time=3600.0)
+    full.run()
+    parts = {"quiet": whole(sh, quiet.state), "resumed": whole(sh, rest.state),
+             "full": whole(sh, full.state)}
+    if parts["quiet"] is None:
+        if frames:
+            raise AssertionError("a rank other than 0 wrote the store")
+        return None
+    out = dict(frames=np.stack(frames), ck=np.asarray(ck))
+    for tag, d in parts.items():
+        out.update({f"{tag}_{k}": v for k, v in d.items()})
+    return out
+
+
+def main():
+    rank, world, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                                  int(sys.argv[3]), sys.argv[4])
+    torch.set_num_threads(1)
+    init_distributed(rank, world, "gloo", port, timeout_s=120.0)
+    cases = [(f"deposit_{i}", lambda i=i: deposit_case(i))
+             for i in range(len(DEPOSIT_CASES))]
+    cases += [(f"step_{m[0]}x{m[1]}_{'periodic' if p else 'open'}",
+               lambda m=m, p=p: step_run(ShardedWaveGrowth2D(
+                   model(periodic=p), make_mesh(m))))
+              for m, p in STEP_CASES]
+    cases += [(f"asym_{m[0]}x{m[1]}",
+               lambda m=m: step_run(ShardedWaveGrowth2D(
+                   model(halo=((1, 3), (0, 2))), make_mesh(m))))
+              for m in ASYM_MESHES]
+    cases += [("tripolar_fixed", lambda: step_run(ShardedWaveGrowth2D(
+        model(halo=((0, 3), (0, 3)), sett=settings(False, 60.0),
+              tripolar=True), make_mesh((4, 2)))))]
+    cases += [("fixed_f64", lambda: step_run(ShardedWaveGrowth2D(
+        model(sett=settings(False, 60.0), dtype=torch.float64,
+              winds=pt.half_domain_winds(10.0, 5.0, 50e3)),
+        make_mesh((4, 2)))))]
+    cases += [("simulation", lambda: simulation_case(out_dir))]
+    for name, run in cases:
+        try:
+            out = run()
+        except Exception:
+            with open(os.path.join(out_dir, f"{name}.err"), "a") as f:
+                f.write(f"rank {rank}:\n{traceback.format_exc()}")
+            raise
+        if out is not None:
+            np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    print(f"rank {rank}: ok", flush=True)
+
+
+if __name__ == "__main__":
+    main()

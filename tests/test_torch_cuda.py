@@ -1,10 +1,12 @@
-"""The CUDA kernels K1, K2, K3, K5 and K6 against their plain PyTorch
-versions on a card, and a fused Simulation resumed from a checkpoint.  Marked ``cuda``: without a CUDA device every test here skips.  On a
-machine with a card (and no JAX) run them with
+"""The CUDA kernels K1-K6 against their plain PyTorch versions on a card,
+a fused Simulation resumed from a checkpoint, and the sharded step on a
+(1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
+skips but the one that checks the refusal of CPU tensors.  On a machine
+with a card (and no JAX) run them with
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerances: rtol 1e-5 (fixed-substep advance, Hairer estimate, deposit):
+Tolerances: rtol 1e-5 (fixed-substep advance, Hairer estimate, deposits):
 the kernels and the plain versions run the same float32 operations with the
 same CUDA math functions; the deposit sums in another order.  The adaptive
 advance is held by share of lanes (see its test).  The remesh (K5, K6):
@@ -298,3 +300,89 @@ def test_fused_simulation_resumes_bitwise(dev, tmp_path):
     for a, b in zip(state_leaves(full.state), state_leaves(rest.state)):
         assert torch.equal(a, b)
     assert int(full.state.metrics.n_failed) == 0
+
+
+@pytest.mark.parametrize("halo", [3, ((0, 3), (0, 3)), ((1, 3), (0, 2))])
+def test_padded_gather_kernel_matches_plain_and_repeats(dev, halo):
+    """K4 against scatter_accumulate_padded, displacements over the whole
+    halo and past it: within 1e-6 of the scale, two launches bitwise
+    equal, the clamped count exact."""
+    from picles_torch.ops.pic import normalize_halo, scatter_accumulate_padded
+    from picles_torch.ops.pic_cuda import pic_gather_padded
+
+    rng = np.random.default_rng(6)
+    n = 96
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+
+    def f(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    xr = f(rng.uniform(-xl - 0.3, xh + 0.3, (n, n + 5)))
+    yr = f(rng.uniform(-yl - 0.3, yh + 0.3, (n, n + 5)))
+    chans = tuple(f(rng.uniform(0, 1, (n, n + 5))) for _ in range(3))
+    act = torch.as_tensor(rng.uniform(size=(n, n + 5)) < 0.9, device=dev)
+    before = pic_gather_padded.launches
+    (o, st), (o2, _) = (pic_gather_padded(xr, yr, chans, act, halo)
+                        for _ in range(2))
+    assert pic_gather_padded.launches == before + 2
+    P, st_p = scatter_accumulate_padded(xr, yr, torch.stack(chans, -1), act,
+                                        halo)
+    assert o.shape == (3, n + xl + xh, n + 5 + yl + yh)
+    for c in range(3):
+        torch.testing.assert_close(o[c], P[..., c], rtol=1e-5,
+                                   atol=1e-6 * float(P[..., c].abs().max()))
+        assert torch.equal(o[c], o2[c])
+    assert int(st.clamped) == int(st_p.clamped) > 0
+
+
+def test_padded_gather_refuses_cpu_tensors():
+    """The K4 wrapper launches or raises: CPU tensors are refused."""
+    from picles_torch.ops.pic_cuda import pic_gather_padded
+
+    z = torch.zeros((8, 8))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        pic_gather_padded(z, z, (z, z, z), torch.ones((8, 8), dtype=torch.bool),
+                          3)
+
+
+def test_sharded_step_nccl_one_rank_matches_single_device(dev):
+    """The flagship's configuration at 64^2 through ShardedWaveGrowth2D on a
+    (1, 1) mesh over NCCL (K1 -> K4 -> self-wrap fold -> K5) against the
+    single-device step (K2 in place of K4 and the fold): rtol 2e-3, the
+    sharded step's bound (tests/test_sharded.py:50-56), counters equal."""
+    import socket
+
+    import torch.distributed as dist
+
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              cartesian_box, constant_winds)
+    from picles_torch.ops.pic_cuda import pic_gather_padded
+    from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
+                                               init_distributed, make_mesh)
+
+    n = 64
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev)
+    model = WaveGrowth2D(grid, constant_winds(10.0, 10.0),
+                         ODESettings(timestep=600.0, dt=1e-3, solver="bosh3"),
+                         config=WaveGrowth2DConfig(dt_reset_mode="carry",
+                                                   remesh_mode="pallas",
+                                                   halo=((0, 3), (0, 3))))
+    ref = model.step_n_quiet(model.init_state(), 3)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, "nccl", port, timeout_s=60.0)
+    try:
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        assert sh.transport == "nccl, device tensors"
+        before = pic_gather_padded.launches
+        ms = sh.step_n_quiet(sh.init_state(), 3)
+        assert pic_gather_padded.launches == before + 3
+        torch.testing.assert_close(ms.state, ref.state, rtol=2e-3,
+                                   atol=1e-10)
+        got, want = ms.metrics.as_dict(), ref.metrics.as_dict()
+        for k in ("n_active", "n_gather", "n_failed", "n_clamped"):
+            assert got[k] == want[k], k
+    finally:
+        dist.destroy_process_group()
