@@ -24,10 +24,18 @@ just before and read just after:
    checkpoint resume.
 
 It matches a small run on the card against the same model on the CPU, and
-times the kernels and the step beside their plain versions.  ``--profile``
-adds a trace of the step's time at full size for each configuration (step
-times, host enqueue time, device busy time and idle share, device time by
-kernel).
+times the kernels and the step beside their plain versions.  K1, K2, K4 and
+K6 are also held bit for bit against their ``_simple`` baselines (the
+one-thread-per-particle/node kernels they replaced, compiled beside them) on
+every state these phases use, and timed in turns with them (baseline, new,
+new, baseline).  A kernel's time is its own device time from a
+``torch.profiler`` trace (``kernel_ms``), without the wrapper's other device
+work; each kernel's bound is computed from this run's inputs (``bound``).
+``--profile`` adds a trace of the step's time at full size for each
+configuration (step times, host enqueue time, device busy time and idle
+share, device time by kernel).  ``--probe JSON`` runs only the measurements
+behind the kernels' design (ptxas, SASS counts, substep sweeps, K1's lane
+divergence).
 
 Every phase asserts; any failure exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -38,6 +46,7 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -66,7 +75,8 @@ from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
 from picles_torch.ops.remesh import remesh_core
 from picles_torch.ops.remesh_cuda import remesh_cuda
 from picles_torch.ops.rhs import RHSParams, make_rhs, make_rhs_consts
-from picles_torch.ops.tsit5 import SolverConfig, auto_dt, integrate_to
+from picles_torch.ops.tsit5 import (METHODS, SolverConfig, auto_dt,
+                                    integrate_to)
 from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
                                            init_distributed, make_mesh)
 from picles_torch.simulation.checkpoint import state_leaves
@@ -172,6 +182,147 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the kernels' names in a profiler trace: the new kernels and their
+# `_simple` baselines
+KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
+               "K2": "pic_gather_tiled_kernel<",
+               "K2 simple": "pic_gather_simple_kernel(",
+               "K3": "auto_dt_kernel(",
+               "K4": "pic_gather_tiled_kernel<",
+               "K4 simple": "pic_gather_padded_simple_kernel(",
+               "K5": "remesh_kernel(",
+               "K6": "pic_gather_remesh_tiled_kernel<",
+               "K6 simple": "pic_gather_remesh_simple_kernel("}
+
+
+# kernel id -> [launches a trace held, launches timed] of each timing whose
+# traces all missed launches (``kernel_ms``); the kernels line carries it
+SHORT_TRACES: dict = {}
+
+
+def kernel_ms(fn, key: str, reps: int, tries: int = 3) -> float:
+    """Mean device time of one launch of the kernel named by ``key``
+    (KERNEL_KEYS) over ``reps`` calls of ``fn``, from a torch.profiler trace
+    after one warm-up call: the kernel alone, without the wrapper's other
+    device work (the deposit wrappers' clamped count) or the host's.  A
+    trace may miss a launch (once a process has run NCCL and many profiler
+    sessions, one launch a session, seen on the H100): a trace short of
+    ``reps`` launches is taken again, up to ``tries`` times.  If every one
+    is short, the mean is over the launches the last one holds, it is
+    logged and recorded in SHORT_TRACES, and fewer than half fail."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = KERNEL_KEYS[key]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        assert len(ev) <= reps, f"{key}: {len(ev)} of {reps} launches"
+        if len(ev) == reps:
+            break
+        log("kernel-time", f"{key}: the trace holds {len(ev)} of {reps} "
+                           f"launches")
+    else:
+        assert 2 * len(ev) >= reps, \
+            f"{key}: {len(ev)} of {reps} launches in the trace"
+        SHORT_TRACES.setdefault(key.split()[0], []).append([len(ev), reps])
+    return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+
+
+def turns_ms(key: str, simple_fn, new_fn, reps: int):
+    """(simple ms, new ms) of kernel ``key`` (``kernel_ms``), each timed twice
+    in turns, simple, new, new, simple, and the two runs averaged."""
+    s1 = kernel_ms(simple_fn, key + " simple", reps)
+    n1 = kernel_ms(new_fn, key, reps)
+    n2 = kernel_ms(new_fn, key, reps)
+    s2 = kernel_ms(simple_fn, key + " simple", reps)
+    return (s1 + s2) / 2, (n1 + n2) / 2
+
+
+# The least time the card could take for a kernel's work (NVIDIA H100 SXM
+# peak rates at its 700 W limit): each input
+# byte read once and each output byte written once at 3.35 TB/s, or the
+# float operations at 67 TFLOP/s (float32 outside the tensor cores, a
+# transcendental or a division counted as one operation), whichever is
+# longer.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations of one RHS evaluation (rhs.cuh, every term on): 12
+# divisions, 6 transcendentals and square roots, about 84 products, sums,
+# selects and clamps
+RHS_OPS = 102
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's bytes and operations."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def k1_substep_ops(method: str, adaptive: bool) -> int:
+    """Float operations of one K1 substep outside the RHS: the stage and
+    solution sums (dt*a once, then a product and a sum per component), the
+    stage times, and for the adaptive controller the error sums, the scaled
+    norm (8 operations a component), the square root and the step-size
+    update (with powf)."""
+    m = METHODS[method]
+    nz_a = sum(1 for row in m.a for x in row if x != 0.0)
+    nz_b = sum(1 for x in m.b if x != 0.0)
+    ops = 11 * nz_a + 2 * len(m.c) + 11 * nz_b + 13
+    if adaptive:
+        ops += 10 * sum(1 for x in m.bt if x != 0.0) + 5 + 40 + 2 + 15
+    return ops
+
+
+def k1_bound(n: int, method: str, adaptive: bool, live, iters) -> dict:
+    """K1's bound on this run's inputs: 33 bytes in and 33 out a particle;
+    per live particle one RHS evaluation to start, then per substep tried
+    (accepted or rejected) S evaluations and the substep's own operations."""
+    S = len(METHODS[method].b)
+    it = float(iters[live].double().sum())
+    ops = (float(live.sum()) + S * it) * RHS_OPS \
+        + it * k1_substep_ops(method, adaptive)
+    return bound(66.0 * n, ops)
+
+
+def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False) -> dict:
+    """K2/K4/K6 on this run's shapes: per source 5 float planes and the mask
+    (21 bytes) and about 13 operations (clamps, floors, weights, c * m); per
+    output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
+    the remesh's 60 bytes a node in and out (lne, cgx, cgy, px, py, dt, the
+    three masks and x in; six planes, `on` and the branch bits out) and
+    about 60 operations."""
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    cells = (xl + xh + 1) * (yl + yh + 1)
+    nbytes = 21.0 * n_src + 12.0 * n_out + (60.0 * n_out if remesh else 0.0)
+    ops = 13.0 * n_src + 11.0 * cells * n_out + (60.0 * n_out if remesh
+                                                 else 0.0)
+    return bound(nbytes, ops)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits (NaN payloads included), for bitwise comparisons."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else \
+        t.view(torch.int32)
+
+
+def assert_bitwise(what: str, new, simple) -> None:
+    """Every tensor of ``new`` equal to ``simple``'s bit for bit."""
+    for i, (a, b) in enumerate(zip(new, simple)):
+        if not torch.equal(bits(a), bits(b)):
+            d = int((bits(a) != bits(b)).sum())
+            raise AssertionError(f"{what}: output {i} differs from the "
+                                 f"_simple baseline on {d} of {a.numel()}")
 
 
 def settings(solver: str):
@@ -281,6 +432,11 @@ def phase_k1_k3(dev, results):
         dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
         k = advance_cuda(winds, consts, flags, cfg, DT, comps, t, dt, active,
                          grid.x, grid.y, proj)
+        assert_bitwise(f"K1 perturbed 256^2 {wname} {method} adaptive="
+                       f"{adaptive} t0={t0v:g}", k,
+                       advance_cuda(winds, consts, flags, cfg, DT, comps, t,
+                                    dt, active, grid.x, grid.y, proj,
+                                    simple=True))
         rhs = make_rhs(winds.u, winds.v, consts, flags)
         p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT, dt, aux,
                          active, cfg)
@@ -305,7 +461,7 @@ def phase_k1_k3(dev, results):
         nfail = int(k.failed.sum())
         log("K1", f"{tag}: max abs err {max(errs):.3e}, substeps max "
                   f"{int(k.naccept.max())}/{int(p.naccept.max())}, "
-                  f"failed {nfail}{extra}")
+                  f"failed {nfail}{extra}; bitwise equal to _simple")
         if t0v > 0:
             assert nfail == 0, f"{tag}: lanes failed at t = 2^19 s"
 
@@ -326,7 +482,8 @@ def phase_k1_k3(dev, results):
 
 
 def phase_k2(dev, results):
-    """K2 against scatter_dense at 1536^2."""
+    """K2 against scatter_dense and bit for bit against its _simple baseline
+    at 1536^2, both timed in turns at the flagship's halo and at halo 3."""
     rng = np.random.default_rng(1)
     n = FLAG_N
     k2_err = 0.0
@@ -351,6 +508,8 @@ def phase_k2(dev, results):
                                 stats, halo)
         torch.cuda.synchronize()
         tag = f"K2 {'periodic' if periodic else 'open'} halo {halo}"
+        assert_bitwise(tag, o, pic_gather(xr, yr, chans, act, stats, halo,
+                                          simple=True)[0])
         for c in range(3):
             scale = float(S[..., c].abs().max())
             k2_err = max(k2_err, assert_close(f"{tag} ch{c}", o[c], S[..., c],
@@ -364,13 +523,26 @@ def phase_k2(dev, results):
             assert abs(dep - src) <= 1e-5 * abs(src), \
                 f"{tag}: E not conserved ({dep} vs {src})"
         log("K2", f"{tag}: max abs err {k2_err:.3e}, clamped "
-                  f"{int(st.clamped)}, bitwise repeatable")
-        if halo == ((0, 3), (0, 3)):
-            results["K2"]["ms"] = cuda_time_ms(
+                  f"{int(st.clamped)}, bitwise repeatable, bitwise equal to "
+                  f"_simple")
+        if periodic:
+            simple_ms, ms = turns_ms(
+                "K2", lambda: pic_gather(xr, yr, chans, act, stats, halo,
+                                         simple=True),
                 lambda: pic_gather(xr, yr, chans, act, stats, halo), 20)
-            results["K2"]["plain_ms"] = cuda_time_ms(
+            plain_ms = cuda_time_ms(
                 lambda: scatter_dense(xr, yr, torch.stack(chans, dim=-1), act,
                                       stats, halo), 5)
+            b = deposit_bound(n * n, n * n, halo)
+            pre = "" if halo == ((0, 3), (0, 3)) else "halo3_"
+            results["K2"].update({pre + "ms": ms, pre + "simple_ms": simple_ms,
+                                  pre + "plain_ms": plain_ms,
+                                  pre + "bound_ms": b["bound_ms"],
+                                  pre + "bound_by": b["bound_by"]})
+            log("kernel-time", f"K2 halo {halo}: {ms:.4f} ms, _simple "
+                               f"{simple_ms:.4f} ms (in turns), plain "
+                               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+                               f"ms ({b['bound_by']})")
     results["K2"]["max_abs_err"] = k2_err
 
 
@@ -471,7 +643,10 @@ def phase_card_vs_cpu():
 
 def phase_kernel_times(flag, s_flag, default, s_def, results):
     """K1 and K3 at the main path's shape (FLAG_N^2) on its own states: held
-    against their plain versions, then timed beside them."""
+    against their plain versions, K1 bit for bit against its _simple
+    baseline (both methods, adaptive and fixed-substep, at the state's clock
+    and at t0 = 2^19 s), then timed beside them; K2 at halo 3 on the default
+    configuration's deposit against its _simple baseline."""
     P = s_flag.particles
     adv = P.on & flag.active_mask
     comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
@@ -507,8 +682,37 @@ def phase_kernel_times(flag, s_flag, default, s_def, results):
               f"{float(p.dt.max()):.2f} s), naccept equal on every lane "
               f"({int(p.naccept.min())}-{int(p.naccept.max())})")
     results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
-    results["K1"]["ms"] = cuda_time_ms(k1, 10)
-    results["K1"]["plain_ms"] = cuda_time_ms(k1_plain, 2)
+    n = FLAG_N * FLAG_N
+    simple_ms, ms = turns_ms(
+        "K1", lambda: advance_cuda(flag.winds, flag.consts, flag.flags,
+                                   flag.solver, DT, comps, P.t, P.dt, adv,
+                                   g.x, g.y, flag.uniform_proj, simple=True),
+        k1, 10)
+    results["K1"].update(ms=ms, simple_ms=simple_ms,
+                         plain_ms=cuda_time_ms(k1_plain, 2),
+                         **k1_bound(n, flag.solver.method, True, adv,
+                                    p.naccept + p.nreject))
+
+    for tag, model, st in (("flagship", flag, s_flag), ("default", default,
+                                                        s_def)):
+        Q = st.particles
+        qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+        q_adv = Q.on & model.active_mask
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (True, False):
+                cfg = dataclasses.replace(model.solver, method=method,
+                                          adaptive=adaptive)
+                for t in (Q.t, torch.full_like(Q.t, 2.0 ** 19)):
+                    k, ks = (advance_cuda(model.winds, model.consts,
+                                          model.flags, cfg, DT, qc, t, Q.dt,
+                                          q_adv, model.grid.x, model.grid.y,
+                                          model.uniform_proj, simple=simple)
+                             for simple in (False, True))
+                    assert_bitwise(f"K1 {tag} state {method} adaptive="
+                                   f"{adaptive} t0={float(t.max()):g}", k, ks)
+    log("K1", f"{FLAG_N}^2 flagship and default states: bosh3 and tsit5, "
+              f"adaptive and fixed-substep, at the state's clock and at "
+              f"t0 = 2^19 s: bitwise equal to _simple")
 
     Q = s_def.particles
     qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
@@ -541,6 +745,23 @@ def phase_kernel_times(flag, s_flag, default, s_def, results):
                                              k[:5]))]
     share = float((k.naccept == p.naccept).double().mean())
     assert share >= 0.95, f"K1 default state: naccept equal on {share:.4%}"
+
+    def k1d(simple):
+        return advance_cuda(default.winds, default.consts, default.flags,
+                            default.solver, DT, qc, Q.t, Q.dt, q_adv, g.x,
+                            g.y, default.uniform_proj, simple=simple)
+
+    simple_ms, ms = turns_ms("K1", lambda: k1d(True), lambda: k1d(False), 5)
+    b = k1_bound(n, default.solver.method, True, q_adv,
+                 p.naccept + p.nreject)
+    results["K1"].update(default_ms=ms, default_simple_ms=simple_ms,
+                         default_bound_ms=b["bound_ms"],
+                         default_bound_by=b["bound_by"])
+    log("kernel-time", f"K1 default state ({default.solver.method}, "
+                       f"{float((p.naccept + p.nreject)[q_adv].double().mean()):.2f} "
+                       f"substeps tried a lane): {ms:.4f} ms, _simple "
+                       f"{simple_ms:.4f} ms (in turns), bound "
+                       f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     log("K1", f"{FLAG_N}^2 default state (tsit5 adaptive): max abs err "
               f"{max(errs):.3e}; naccept equal on {share:.4%} "
               f"({int(p.naccept.min())}-{int(p.naccept.max())}); dt max abs "
@@ -549,11 +770,25 @@ def phase_kernel_times(flag, s_flag, default, s_def, results):
     err = assert_close("K3 default state", k3(), k3_plain(), 1e-5, 0.0)
     log("K3", f"{FLAG_N}^2 default state: max abs err {err:.3e}")
     results["K3"]["max_abs_err"] = max(results["K3"]["max_abs_err"], err)
-    results["K3"]["ms"] = cuda_time_ms(k3, 20)
-    results["K3"]["plain_ms"] = cuda_time_ms(k3_plain, 5)
-    for k in ("K1", "K2", "K3"):
-        log("kernel-time", f"{k}: {results[k]['ms']:.4f} ms, plain "
-                           f"{results[k]['plain_ms']:.4f} ms")
+    results["K3"].update(ms=kernel_ms(k3, "K3", 20), simple_ms=None,
+                         plain_ms=cuda_time_ms(k3_plain, 5),
+                         **bound(32.0 * n, (2 * RHS_OPS + 60.0) * n))
+
+    core, chans, sact = flagship_deposit_inputs(default, s_def)
+    halo, stats = default.config.halo, default.grid.stats
+    node, _ = pic_gather(core[3], core[4], chans, sact, stats, halo)
+    assert_bitwise(f"K2 default deposit halo {halo}", node,
+                   pic_gather(core[3], core[4], chans, sact, stats, halo,
+                              simple=True)[0])
+    log("K2", f"{FLAG_N}^2 default configuration's deposit, halo {halo}: "
+              f"bitwise equal to _simple")
+    for k in ("K1", "K3"):
+        r = results[k]
+        log("kernel-time", f"{k}: {r['ms']:.4f} ms"
+                           + ("" if r["simple_ms"] is None else
+                              f", _simple {r['simple_ms']:.4f} ms (in turns)")
+                           + f", plain {r['plain_ms']:.4f} ms, bound "
+                             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def phase_twin_timing(timing, steps: int):
@@ -652,6 +887,9 @@ def phase_k5_k6(dev, results):
                                            m.remesh_params, *core)
             nd2, rm2, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
                                             m.remesh_params, *core)
+            nds, rms, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                            m.remesh_params, *core,
+                                            simple=True)
             k2, st2 = pic_gather(px, py, chans, sact, stats, halo)
             k5 = remesh_cuda(m.remesh_params, k2, *core)
             S, st_p = scatter_dense(px, py, torch.stack(chans, -1), sact,
@@ -660,6 +898,7 @@ def phase_k5_k6(dev, results):
                                 tuple(S[..., c] for c in range(3)), *core)
             torch.cuda.synchronize()
             tag = f"K6 {bt} clip_dt={m.remesh_params.clip_dt}"
+            assert_bitwise(tag, (*nd, *rm), (*nds, *rms))
             for a, b, c in zip(nd, k2, nd2):
                 assert torch.equal(a, b), f"{tag}: node plane != K2's"
                 assert torch.equal(a, c), f"{tag}: two runs differ"
@@ -675,9 +914,10 @@ def phase_k5_k6(dev, results):
                     1e-6 * float(S[..., c].abs().max())))
             assert torch.equal(rm.branch, plain.branch), f"{tag}: bits"
             assert torch.equal(rm.on, plain.on), f"{tag}: on"
-            log("K6", f"{tag}: equal to K2 + K5 bitwise, two runs bitwise "
-                      f"equal; node planes vs plain max abs err "
-                      f"{k6_err:.3e}, bits equal; {branch_counts(rm.branch)}")
+            log("K6", f"{tag}: equal to K2 + K5 bitwise and to _simple "
+                      f"bitwise, two runs bitwise equal; node planes vs plain "
+                      f"max abs err {k6_err:.3e}, bits equal; "
+                      f"{branch_counts(rm.branch)}")
     results["K5"]["max_abs_err"] = k5_err
     results["K6"]["max_abs_err"] = k6_err
 
@@ -724,23 +964,38 @@ def phase_remesh_kernel_times(flag, s_flag, results):
               f"values max abs err {err:.3e}")
     log("K6", f"{FLAG_N}^2 flagship: equal to K2 + K5 bitwise; node planes "
               f"vs plain max abs err {err6:.3e}")
+    node_s, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo,
+                           simple=True)
+    assert_bitwise("K2 flagship deposit", node, node_s)
 
     def plain_fused():
         Sp, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
                               g.stats, halo)
         return remesh_core(p, tuple(Sp[..., c] for c in range(3)), *core)
 
-    results["K5"]["ms"] = cuda_time_ms(lambda: remesh_cuda(p, node, *core),
-                                       20)
-    results["K5"]["plain_ms"] = cuda_time_ms(
-        lambda: remesh_core(p, node, *core), 5)
-    results["K6"]["ms"] = cuda_time_ms(
-        lambda: pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
-                                  halo, p, *core), 20)
-    results["K6"]["plain_ms"] = cuda_time_ms(plain_fused, 5)
+    def k6(simple):
+        nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                      halo, p, *core, simple=simple)
+        return (*nd, *rm)
+
+    assert_bitwise("K6 flagship", k6(False), k6(True))
+    n = FLAG_N * FLAG_N
+    results["K5"].update(
+        ms=kernel_ms(lambda: remesh_cuda(p, node, *core), "K5", 20),
+        simple_ms=None,
+        plain_ms=cuda_time_ms(lambda: remesh_core(p, node, *core), 5),
+        **bound(72.0 * n, 60.0 * n))
+    simple_ms, ms = turns_ms("K6", lambda: k6(True), lambda: k6(False), 20)
+    results["K6"].update(ms=ms, simple_ms=simple_ms,
+                         plain_ms=cuda_time_ms(plain_fused, 5),
+                         **deposit_bound(n, n, halo, remesh=True))
     for kk in ("K5", "K6"):
-        log("kernel-time", f"{kk}: {results[kk]['ms']:.4f} ms, plain "
-                           f"{results[kk]['plain_ms']:.4f} ms")
+        r = results[kk]
+        log("kernel-time", f"{kk}: {r['ms']:.4f} ms"
+                           + ("" if r["simple_ms"] is None else
+                              f", _simple {r['simple_ms']:.4f} ms (in turns)")
+                           + f", plain {r['plain_ms']:.4f} ms, bound "
+                             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def run_sim(sim, steps: int) -> float:
@@ -876,6 +1131,8 @@ def k4_pair(tag, xr, yr, chans, act, halo):
     P, st_p = scatter_accumulate_padded(xr, yr, torch.stack(chans, dim=-1),
                                         act, halo)
     torch.cuda.synchronize()
+    assert_bitwise(tag, (out,), (pic_gather_padded(xr, yr, chans, act, halo,
+                                                   simple=True)[0],))
     assert out.shape == P.permute(2, 0, 1).shape, (out.shape, P.shape)
     err = 0.0
     for c in range(3):
@@ -887,7 +1144,8 @@ def k4_pair(tag, xr, yr, chans, act, halo):
     assert int(st.clamped) == int(st_p.clamped), \
         f"{tag}: clamped {int(st.clamped)} vs {int(st_p.clamped)}"
     log("K4", f"{tag}: max abs err {err:.3e} of the scale, clamped "
-              f"{int(st.clamped)}, bitwise repeatable")
+              f"{int(st.clamped)}, bitwise repeatable, bitwise equal to "
+              f"_simple")
     return err
 
 
@@ -914,14 +1172,20 @@ def phase_k4(dev, flag, s_flag, results):
         act = torch.as_tensor(rng.uniform(size=(n, n)) < 0.9, device=dev)
         err = max(err, k4_pair(f"256^2 halo {h}", xr, yr, ch, act, h))
     results["K4"]["max_abs_err"] = err
-    results["K4"]["ms"] = cuda_time_ms(
+    simple_ms, ms = turns_ms(
+        "K4", lambda: pic_gather_padded(core[3], core[4], chans, sact, halo,
+                                        simple=True),
         lambda: pic_gather_padded(core[3], core[4], chans, sact, halo), 20)
-    results["K4"]["plain_ms"] = cuda_time_ms(
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    b = deposit_bound(FLAG_N * FLAG_N, (FLAG_N + xl + xh) * (FLAG_N + yl + yh),
+                      halo)
+    results["K4"].update(ms=ms, simple_ms=simple_ms, **b, plain_ms=cuda_time_ms(
         lambda: scatter_accumulate_padded(core[3], core[4],
                                           torch.stack(chans, dim=-1), sact,
-                                          halo), 5)
-    log("kernel-time", f"K4: {results['K4']['ms']:.4f} ms, plain "
-                       f"{results['K4']['plain_ms']:.4f} ms")
+                                          halo), 5))
+    log("kernel-time", f"K4: {ms:.4f} ms, _simple {simple_ms:.4f} ms (in "
+                       f"turns), plain {results['K4']['plain_ms']:.4f} ms, "
+                       f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
 
 
 def free_port() -> int:
@@ -1221,7 +1485,8 @@ def profile_config(tag: str, model, reps: int, steps: int = 10,
         if n_k1 == prof_steps:
             break
         log("profile", f"{tag}: trace {attempt} holds {n_k1} of "
-                       f"{prof_steps} K1 launches; taken again")
+                       f"{prof_steps} K1 launches ({len(dev)} device ops); "
+                       f"taken again")
     assert n_k1 == prof_steps, f"{tag}: no complete trace in 3 attempts"
     out["trace_attempts"] = attempt
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -1289,12 +1554,175 @@ def phase_profile(path: str) -> None:
         json.dump(res, f, indent=1)
 
 
+def sass_loop_count(sass: str, fn_substr: str) -> dict:
+    """Static SASS instructions of each function whose name holds
+    ``fn_substr`` (``cuobjdump -sass`` output): all, those of its outermost
+    loop (the span of the farthest backward branch), and those of that loop
+    outside the blocks that a forward branch skips and that hold a loop of
+    their own (the time-cosine wind's cosf argument reduction, which the
+    constant and half-domain winds never enter)."""
+    import re
+    out = {}
+    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+    for fsrc in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fsrc.split("\n", 1)[0].strip()
+        if fn_substr not in name:
+            continue
+        code = [(int(m.group(1), 16), m.group(2).strip())
+                for m in ins_re.finditer(fsrc)
+                if not m.group(2).strip().startswith("NOP")]
+        branches = []
+        for a, op in code:
+            m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", op)
+            if m:
+                branches.append((a, int(m.group(1), 16)))
+        back = [(t, a) for a, t in branches if t < a]
+        if not back:
+            out[name] = dict(instructions=len(code))
+            continue
+        lo, hi = max(back, key=lambda ta: ta[1] - ta[0])
+        skipped = [(a + 16, t) for a, t in branches
+                   if lo <= a < t <= hi
+                   and any(a < bt < ba < t for bt, ba in back)]
+        inner = [a for a, _ in code if lo <= a <= hi]
+        outside = [a for a in inner
+                   if not any(s <= a < e for s, e in skipped)]
+        out[name] = dict(instructions=len(code), loop_instructions=len(inner),
+                         loop_without_inner_loop_blocks=len(outside))
+    return out
+
+
+def smi_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+
+
+def phase_probe(path: str) -> None:
+    """The measurements a kernel redesign rests on, each new kernel beside
+    its ``_simple`` baseline (in turns, and held to it bit for bit): ptxas
+    registers; the SASS of K1's substep loop; K1 in fixed-substep mode on
+    the default and flagship seed states at 1, 2, 5 and 10 substeps (per-lane
+    fixed cost and cost per substep) and adaptive from the seed; K1's lane
+    divergence on the perturbed 256^2 state and its time on the perturbed
+    state at FLAG_N^2; K4 and K6 on the flagship's deposit.  Writes
+    everything to ``path`` (and the SASS beside it)."""
+    res = {"device": phase_device()}
+    b = phase_build()
+    res["ptxas"] = b.log
+    for ln in b.log.splitlines():
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
+            print("  ptxas|", ln.strip(), flush=True)
+    cuobj = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobj, "-sass", str(b.path)], capture_output=True,
+                          text=True, check=True).stdout
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(os.path.splitext(path)[0] + "_sass.txt", "w") as f:
+        f.write(sass)
+    res["sass"] = {**sass_loop_count(sass, "advance_kernel"),
+                   **sass_loop_count(sass, "advance_simple_kernel")}
+    for k, v in res["sass"].items():
+        log("probe", f"SASS {k[:60]}: {v}")
+    dev = torch.device("cuda", 0)
+    n = FLAG_N
+    default = default_model(n, dev)
+    flag = flagship_model(n, dev)
+    k1 = {}
+
+    def k1_cases(tag, setup, cfg, comps, t, dt, adv, reps):
+        winds, consts, flags, gx, gy, proj = setup
+
+        def fn(simple):
+            return advance_cuda(winds, consts, flags, cfg, DT, comps, t, dt,
+                                adv, gx, gy, proj, simple=simple)
+        ref = fn(True)
+        assert_bitwise(f"K1 {tag}", fn(False), ref)
+        s_ms, n_ms = turns_ms("K1", lambda: fn(True), lambda: fn(False), reps)
+        out = dict(simple_ms=s_ms, ms=n_ms)
+        log("probe", f"K1 {tag}: simple {s_ms:.4f} ms, new {n_ms:.4f} ms "
+                     f"(bitwise equal)")
+        w = ref.naccept.reshape(-1, 32).double()
+        mean = w.mean(dim=1)
+        keep = mean > 0
+        out["divergence"] = float((w.max(dim=1).values[keep]
+                                   / mean[keep]).mean())
+        out["naccept"] = [int(ref.naccept.min()), int(ref.naccept.max())]
+        out["clocks"] = smi_clocks()
+        k1[tag] = out
+        log("probe", f"K1 {tag}: naccept {out['naccept']}, lane divergence "
+                     f"(mean over warps of max/mean naccept) "
+                     f"{out['divergence']:.4f}")
+        return ref
+
+    for tag, model in (("default", default), ("flagship", flag)):
+        P = model.init_state().particles
+        comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+        adv = P.on & model.active_mask
+        setup = (model.winds, model.consts, model.flags, model.grid.x,
+                 model.grid.y, model.uniform_proj)
+        for method in ("tsit5", "bosh3"):
+            for nsub in (1, 2, 5, 10):
+                cfg = SolverConfig(method=method, adaptive=False)
+                r = k1_cases(f"{tag} {method} fixed {nsub}", setup, cfg,
+                             comps, P.t, torch.full_like(P.t, DT / nsub),
+                             adv, 10)
+                assert int(r.naccept.max()) == nsub
+        k1_cases(f"{tag} {model.solver.method} adaptive from seed", setup,
+                 model.solver, comps, P.t, P.dt, adv, 5)
+
+    # phase_k1_k3's perturbed state, at 256^2 and at FLAG_N^2, where lanes
+    # of a warp take different substep counts
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    for size in (256, n):
+        comps, dt0, active, grid = perturbed_state(size, dev, seed=0)
+        setup = (constant_winds(10.0, 10.0), consts, TermFlags(), grid.x,
+                 grid.y, (float(grid.proj[0, 0, 0, 0]), 0.0, 0.0,
+                          float(grid.proj[0, 0, 1, 1]), 0.0))
+        for method in ("tsit5", "bosh3"):
+            cfg = SolverConfig(method=method, adaptive=True, dtmin=1e-4,
+                               force_dtmin=True)
+            k1_cases(f"perturbed {size}^2 {method} adaptive", setup, cfg,
+                     comps, torch.zeros_like(comps[0]), dt0, active, 5)
+    res["k1"] = k1
+
+    # K4 and K6 on the flagship's deposit
+    s_flag = flag.init_state()
+    core, chans, sact = flagship_deposit_inputs(flag, s_flag)
+    g, halo, p = flag.grid, flag.config.halo, flag.remesh_params
+
+    def k4(simple):
+        return pic_gather_padded(core[3], core[4], chans, sact, halo,
+                                 simple=simple)[:1]
+
+    def k6(simple):
+        nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                      halo, p, *core, simple=simple)
+        return (*nd, *rm)
+    other = {}
+    for name, fn in (("K4", k4), ("K6", k6)):
+        assert_bitwise(f"{name} flagship", fn(False), fn(True))
+        s_ms, n_ms = turns_ms(name, lambda: fn(True), lambda: fn(False), 20)
+        other[name] = dict(simple_ms=s_ms, ms=n_ms)
+        log("probe", f"{name} flagship deposit: simple {s_ms:.4f} ms, new "
+                     f"{n_ms:.4f} ms (bitwise equal)")
+    res["k4_k6"] = other
+    res["clocks_after"] = smi_clocks()
+    with open(path, "w") as f:
+        json.dump(res, f, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
     ap.add_argument("--profile", metavar="JSON",
                     help="also profile the step at full size and write the "
                          "split of its time to this JSON file")
+    ap.add_argument("--probe", metavar="JSON",
+                    help="only build, print ptxas and SASS counts, time K1 "
+                         "per substep, K4 and K6, write them to this JSON "
+                         "file, and stop")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase sharded-2x2
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
@@ -1306,6 +1734,9 @@ def main(argv=None) -> int:
         return 2
     if args.sharded_rank is not None:
         return sharded_rank(args.sharded_rank, args.port, args.rank_dir)
+    if args.probe:
+        phase_probe(args.probe)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1338,6 +1769,10 @@ def main(argv=None) -> int:
     phase_k2(dev, results)
     phase_k5_k6(dev, results)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
+    if args.profile:
+        # before the kernels' in-turns timing: a call that had run a few
+        # dozen profiler sessions lost one K1 launch from every step trace
+        phase_profile(args.profile)
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
     phase_card_vs_cpu()
@@ -1348,14 +1783,14 @@ def main(argv=None) -> int:
     del flag, s_flag, default, s_def
     phase_sharded_1x1(dev, results, timing)
     phase_sharded_2x2(timing)
-    if args.profile:
-        phase_profile(args.profile)
 
-    kernels = [dict(results[k])
+    kernels = [dict(results[k], library_ms=None,
+                    short_traces=SHORT_TRACES.get(k, []))
                for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
-                                    "plain_ms")), k
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "simple_ms")), k
     seconds = time.perf_counter() - t_start
     log("done", f"{seconds:.1f} s in all, build {build.seconds:.1f} s")
     if args.out:

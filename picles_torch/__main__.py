@@ -1,9 +1,10 @@
 """CLI entry point: ``python -m picles_torch --T 2 --DT 10 --Nx 51 --U10 10``.
 
 Runs the JAX package CLI's experiment (a constant-wind 2D box, the same flag
-table) and writes the same HDF5 state store.  The grid goes on the CUDA
-device when there is one, where the kernels run, and on the CPU otherwise;
-the device is printed."""
+table) and writes the same HDF5 state store.  ``--device cuda`` (the
+default) puts the grid on the CUDA device, where the kernels run, and exits
+with an error when there is none; ``--device cpu`` runs the plain PyTorch
+versions on the CPU.  The device is printed."""
 
 from __future__ import annotations
 
@@ -21,14 +22,22 @@ from .utils.cli import arg_settings
 
 
 def main(argv=None) -> int:
-    args = arg_settings().parse_args(argv)
+    ap = arg_settings()
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the model runs: cuda (the kernels; the "
+                         "default) or cpu (the plain PyTorch versions)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("picles_torch: no CUDA device found; pass --device cpu to run "
+              "the plain PyTorch versions on the CPU", file=sys.stderr)
+        return 2
     T = (args.T or 2.0) * 3600.0
     DT = (args.DT or 10.0) * 60.0
     Lx = (args.Lx or 100.0) * 1e3
     Nx = args.Nx or 51
     U10 = args.U10 if args.U10 is not None else 10.0
     out = args.ID or "picles_run"
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

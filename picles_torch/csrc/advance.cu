@@ -8,20 +8,40 @@
 //
 // What bounds them on an H100.  Per particle K1 reads 7 float planes, a
 // mask and the node x (33 bytes) and writes 7 planes plus two flags (33
-// bytes); each substep costs 3 (bosh3) or 6 (tsit5) RHS evaluations of ~40
-// float operations and 5 transcendentals.  At one substep per model step
-// (the flagship's steady state) the 66 bytes and the launch dominate; with
-// several substeps (a fresh seed, tsit5) the arithmetic does.  K3 runs 2
-// RHS evaluations per 36 bytes.  The design follows: one thread per particle
-// keeps the whole state, the FSAL stage vector and the controller in
-// registers (no shared memory, no intermediate device-memory traffic), with
-// threads running along y, the contiguous axis, so the few loads and stores
-// coalesce.  Each thread loops `while (!done && iters < maxiters)` on its
-// own: a live lane of the TPU kernel's tile loop executes every tile
-// iteration too, so the counts are equal, and a quiet lane stops early.
-// Warps whose lanes need different substep counts diverge; that is the
-// cost a later PR can attack (sorting lanes by expected work).
+// bytes); each substep costs 3 (bosh3) or 6 (tsit5) RHS evaluations of
+// about 100 float operations (12 IEEE divisions and 6 precise
+// transcendentals among them) plus the stage sums and the controller.  At
+// one substep per model step (the flagship's steady state) the 66 bytes
+// dominate the bound; with several substeps (tsit5 from a fresh seed) the
+// operations do.  Either way the kernel runs at its instruction rate: the
+// SASS of one substep's loop times the warps, over 132 SMs x 4 schedulers
+// at the SM clock, is the measured time per substep (root PERF.md §6).  The
+// precise divisions and transcendentals that the parity contracts rest on
+// are most of those instructions; fewer instructions is the only lever,
+// and more warps or interleaved lanes are none.
 //
+// The design (`advance_kernel`): one thread per particle keeps the state,
+// the FSAL stage vector and the controller in registers (no shared memory,
+// no intermediate device-memory traffic), threads along y, the contiguous
+// axis, so loads and stores coalesce; and
+// - the bosh3 and tsit5 tableaux are compile-time constants (tableaux.cuh,
+//   which the build writes from picles_torch/ops/tsit5.py METHODS), one
+//   template instance per method: every coefficient folds into its
+//   instruction and the zero terms, with their run-time tests, vanish;
+// - the wind and its wind-only terms (rhs.cuh `WindTerms`) are formed once
+//   per lane for winds that do not vary in t (constant, half-domain); the
+//   time-cosine family samples them per stage;
+// - launch bounds from ptxas's registers: 6 blocks of 128 threads an SM, 5
+//   for adaptive tsit5, with no spills.
+// A lane's substep count depends on its state and a warp runs until its
+// slowest lane is done.  A refill of finished lanes from a per-warp run of
+// particles (the same arithmetic per particle) was measured slower on every
+// state, uniform or not: a refill (a load and the first RHS) runs while the
+// warp's other lanes wait (root PERF.md §6), so there is none.
+// The previous one-particle-per-thread kernel stays compiled as
+// `advance_simple_kernel`, the baseline chip_smoke.py and the card tests
+// hold this one to bit for bit.
+
 // Numerics follow the plain version op for op in float32 (see rhs.cuh).
 // Two literals of the JAX package are float32 identities and appear here as
 // such: `dtmin_eff * (1.0 + 1e-8)` is `dtmin_eff`, and `t_end - 1e-9` is
@@ -32,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "rhs.cuh"
+#include "tableaux.cuh"
 
 namespace picles {
 
@@ -45,9 +66,10 @@ struct Tableau {
 struct AdvanceConfig {
   RHSParams rc;
   WindParams wind;
-  Tableau tab;
+  Tableau tab;  // read by the `_simple` baseline only
   float DT, abstol, reltol, dtmin, neg_inv_order;
   int maxiters;
+  int force_dtmin;
 };
 
 struct AutoDtConfig {
@@ -70,9 +92,172 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
   unpack_wind(f + N_RHS_F, iv + 1, w);
 }
 
+// K1's launch shape: 128 threads a block, and the blocks an SM must hold:
+// 6 (at most 85 registers), as the baseline's registers allowed, but 5 for
+// adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).
+constexpr int K1_THREADS = 128;
+template <class M, bool ADAPTIVE>
+constexpr int K1_MIN_BLOCKS = M::S == 6 && ADAPTIVE ? 5 : 6;
+
+// The state of one particle in flight.
+template <int S>
+struct Lane {
+  float z[5];
+  float k[S + 1][5];
+  float t, t_end, dt, xn;
+  bool active, done, failed;
+  int nacc, iters;
+  WindTerms w0;  // the wind's terms at the start, for winds constant in t
+};
+
+struct AdvancePlanes {
+  const float *lne, *cgx, *cgy, *x, *y, *t, *dt;
+  const unsigned char* act;
+  const float* xn;
+  float *lne_o, *cgx_o, *cgy_o, *x_o, *y_o, *t_o, *dt_o;
+  unsigned char* fail_o;
+  int* nacc_o;
+};
+
+// Load particle i and evaluate its first stage (the FSAL vector).
+template <int S>
+__device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
+                                          const AdvancePlanes& P, long long i,
+                                          Lane<S>& L) {
+  L.z[0] = P.lne[i]; L.z[1] = P.cgx[i]; L.z[2] = P.cgy[i];
+  L.z[3] = P.x[i]; L.z[4] = P.y[i];
+  const float t0 = P.t[i];
+  L.active = P.act[i] != 0;
+  L.xn = P.xn[i];
+  L.t_end = t0 + cfg.DT;
+  L.t = t0;
+  L.dt = jmax(P.dt[i], cfg.dtmin);
+  L.done = !L.active || t0 >= L.t_end;
+  L.failed = false;
+  L.nacc = 0;
+  L.iters = 0;
+  if (!L.done) {
+    L.w0 = wind_terms_at(cfg.wind, L.xn, L.t);
+    rhs_state(cfg.rc, L.z[0], L.z[1], L.z[2], L.w0, L.k[0]);
+  }
+}
+
+// One substep of the per-lane loop (`advance_simple_kernel`'s loop body).
+template <class M, bool ADAPTIVE>
+__device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
+                                        Lane<M::S>& L) {
+  constexpr int S = M::S;
+  const float t = L.t, t_end = L.t_end;
+  const float remaining = t_end - t;
+  const float dtmin_eff =
+      jmax(cfg.dtmin, 4.0f * FLT_EPSILON * jmax(fabsf(t), fabsf(t_end)));
+  const float dt_try = jmin(jmax(L.dt, dtmin_eff), jmax(remaining, dtmin_eff));
+  const bool at_dtmin = dt_try <= dtmin_eff;
+
+#pragma unroll
+  for (int s = 1; s < S; ++s) {
+    float acc[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      acc[c] = L.z[c];
+#pragma unroll
+      for (int j = 0; j < s; ++j)
+        if (M::a(s - 1, j) != 0.0f)
+          acc[c] = acc[c] + dt_try * M::a(s - 1, j) * L.k[j][c];
+    }
+    const WindTerms w =
+        t_free ? L.w0 : wind_terms_at(cfg.wind, L.xn, t + M::c(s - 1) * dt_try);
+    rhs_state(cfg.rc, acc[0], acc[1], acc[2], w, L.k[s]);
+  }
+  float zn[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    zn[c] = L.z[c];
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      if (M::b(j) != 0.0f) zn[c] = zn[c] + dt_try * M::b(j) * L.k[j][c];
+  }
+  const WindTerms wf = t_free ? L.w0 : wind_terms_at(cfg.wind, L.xn, t + dt_try);
+  rhs_state(cfg.rc, zn[0], zn[1], zn[2], wf, L.k[S]);
+
+  bool accept = true;
+  bool newly_failed = false;
+  float dt_next = L.dt;
+  if (ADAPTIVE) {
+    float err_sq = 0.0f;
+    bool finite = true;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      float e = 0.0f;
+#pragma unroll
+      for (int j = 0; j <= S; ++j)
+        if (M::bt(j) != 0.0f) e = e + M::bt(j) * L.k[j][c];
+      e = dt_try * e;
+      const float sc = cfg.abstol + cfg.reltol * jmax(fabsf(L.z[c]), fabsf(zn[c]));
+      const float r = e / sc;
+      err_sq = err_sq + r * r;
+      finite = finite && finitef(zn[c]);
+    }
+    const float enorm = sqrtf(err_sq / 5.0f);
+    finite = finite && finitef(enorm);
+    accept = enorm <= 1.0f && finite;
+    if (cfg.force_dtmin) accept = accept || at_dtmin;
+    newly_failed = at_dtmin && !accept;
+    const float enorm_safe = jmax(enorm, 1e-10f);
+    float q = 0.9f * powf(enorm_safe, cfg.neg_inv_order);
+    if (!finite) q = 0.2f;
+    const float factor = jmin(jmax(q, 0.2f), 10.0f);
+    dt_next = accept ? dt_try * factor
+                     : jmax(dt_try * jmin(jmax(q, 0.2f), 1.0f), dtmin_eff);
+  }
+  if (accept) {
+    L.t = t + dt_try;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      L.z[c] = zn[c];
+      L.k[0][c] = L.k[S][c];
+    }
+    ++L.nacc;
+  }
+  L.dt = dt_next;
+  L.done = L.t >= t_end - 1e-9f || newly_failed;
+  L.failed = L.failed || newly_failed;
+  ++L.iters;
+}
+
+template <int S>
+__device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
+                                           const Lane<S>& L) {
+  const bool failed = L.failed || (!L.done && L.active);
+  P.lne_o[i] = L.z[0];
+  P.cgx_o[i] = L.z[1];
+  P.cgy_o[i] = L.z[2];
+  P.x_o[i] = L.z[3];
+  P.y_o[i] = L.z[4];
+  P.t_o[i] = (L.active && !failed) ? L.t_end : L.t;
+  P.dt_o[i] = L.dt;
+  P.fail_o[i] = failed ? 1 : 0;
+  P.nacc_o[i] = L.nacc;
+}
+
+// K1: one particle per thread.
+template <class M, bool ADAPTIVE>
+__global__ void __launch_bounds__(K1_THREADS, (K1_MIN_BLOCKS<M, ADAPTIVE>))
+advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool t_free = cfg.wind.kind != WIND_TIME_COSINE;
+  Lane<M::S> L;
+  load_lane(cfg, P, i, L);
+  while (!L.done && L.iters < cfg.maxiters) substep<M, ADAPTIVE>(cfg, t_free, L);
+  store_lane(P, i, L);
+}
+
+// The baseline (`_simple`): the previous kernel, one particle per thread,
+// the tableau a run-time parameter.
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>
 __global__ void __launch_bounds__(128)
-advance_kernel(const AdvanceConfig cfg, long long n,
+advance_simple_kernel(const AdvanceConfig cfg, long long n,
                const float* __restrict__ lne_in, const float* __restrict__ cgx_in,
                const float* __restrict__ cgy_in, const float* __restrict__ x_in,
                const float* __restrict__ y_in, const float* __restrict__ t_in,
@@ -235,11 +420,11 @@ auto_dt_kernel(const AutoDtConfig cfg, long long n,
 }
 
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>
-static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
+static void launch_advance_simple(const AdvanceConfig& cfg, long long n, void** p,
                            cudaStream_t stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  advance_kernel<S, ADAPTIVE, FORCE_DTMIN><<<blocks, threads, 0, stream>>>(
+  advance_simple_kernel<S, ADAPTIVE, FORCE_DTMIN><<<blocks, threads, 0, stream>>>(
       cfg, n, (const float*)p[0], (const float*)p[1], (const float*)p[2],
       (const float*)p[3], (const float*)p[4], (const float*)p[5],
       (const float*)p[6], (const unsigned char*)p[7], (const float*)p[8],
@@ -249,29 +434,42 @@ static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
 }
 
 template <int S>
-static void dispatch_flags(const AdvanceConfig& cfg, bool adaptive, bool force,
-                           long long n, void** p, cudaStream_t stream) {
-  if (adaptive && force) launch_advance<S, true, true>(cfg, n, p, stream);
-  else if (adaptive) launch_advance<S, true, false>(cfg, n, p, stream);
-  else if (force) launch_advance<S, false, true>(cfg, n, p, stream);
-  else launch_advance<S, false, false>(cfg, n, p, stream);
+static void dispatch_simple(const AdvanceConfig& cfg, bool adaptive,
+                            bool force, long long n, void** p,
+                            cudaStream_t stream) {
+  if (adaptive && force) launch_advance_simple<S, true, true>(cfg, n, p, stream);
+  else if (adaptive) launch_advance_simple<S, true, false>(cfg, n, p, stream);
+  else if (force) launch_advance_simple<S, false, true>(cfg, n, p, stream);
+  else launch_advance_simple<S, false, false>(cfg, n, p, stream);
 }
 
-}  // namespace picles
+template <class M, bool ADAPTIVE>
+static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
+                           cudaStream_t stream) {
+  AdvancePlanes P;
+  P.lne = (const float*)p[0]; P.cgx = (const float*)p[1];
+  P.cgy = (const float*)p[2]; P.x = (const float*)p[3];
+  P.y = (const float*)p[4]; P.t = (const float*)p[5];
+  P.dt = (const float*)p[6]; P.act = (const unsigned char*)p[7];
+  P.xn = (const float*)p[8];
+  P.lne_o = (float*)p[9]; P.cgx_o = (float*)p[10]; P.cgy_o = (float*)p[11];
+  P.x_o = (float*)p[12]; P.y_o = (float*)p[13]; P.t_o = (float*)p[14];
+  P.dt_o = (float*)p[15]; P.fail_o = (unsigned char*)p[16];
+  P.nacc_o = (int*)p[17];
+  const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
+  advance_kernel<M, ADAPTIVE><<<blocks, K1_THREADS, 0, stream>>>(cfg, n, P);
+}
 
-using namespace picles;
+template <class M>
+static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
+                     void** p, cudaStream_t stream) {
+  if (adaptive) launch_advance<M, true>(cfg, n, p, stream);
+  else launch_advance<M, false>(cfg, n, p, stream);
+}
 
-// fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
-//          tableau c[5], a[5][5], b[6], bt[7]
-// iparams: flags, wind kind, has_t_off, stages (3 or 6), adaptive,
-//          force_dtmin, maxiters
-// ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
-//          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported stage count).
-extern "C" int picles_advance(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, void* stream) {
-  AdvanceConfig cfg;
+// Unpack the advance's parameters (layout below); returns the stage count.
+static int unpack_advance(const float* fparams, const int* iparams,
+                          AdvanceConfig& cfg) {
   unpack_rhs_wind(fparams, iparams, cfg.rc, cfg.wind);
   const float* f = fparams + N_RHS_F + N_WIND_F;
   cfg.DT = f[0]; cfg.abstol = f[1]; cfg.reltol = f[2]; cfg.dtmin = f[3];
@@ -285,14 +483,50 @@ extern "C" int picles_advance(const float* fparams, const int* iparams,
   for (int s = 0; s < 6; ++s) cfg.tab.b[s] = f[s];
   f += 6;
   for (int s = 0; s < 7; ++s) cfg.tab.bt[s] = f[s];
-  const int stages = iparams[3];
-  const bool adaptive = iparams[4] != 0;
-  const bool force = iparams[5] != 0;
+  cfg.force_dtmin = iparams[5] != 0;
   cfg.maxiters = iparams[6];
+  return iparams[3];
+}
+
+}  // namespace picles
+
+using namespace picles;
+
+// fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
+//          tableau c[5], a[5][5], b[6], bt[7]
+// iparams: flags, wind kind, has_t_off, stages (3 or 6), adaptive,
+//          force_dtmin, maxiters
+// ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
+//          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
+// Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
+// wrapper passes only those methods) and ignores the tableau floats, which
+// the `_simple` baseline below reads.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// stage count).
+extern "C" int picles_advance(const float* fparams, const int* iparams,
+                              void** ptrs, long long n, void* stream) {
+  AdvanceConfig cfg;
+  const int stages = unpack_advance(fparams, iparams, cfg);
+  const bool adaptive = iparams[4] != 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  if (stages == 3) dispatch_flags<3>(cfg, adaptive, force, n, ptrs, st);
-  else if (stages == 6) dispatch_flags<6>(cfg, adaptive, force, n, ptrs, st);
+  if (stages == Bosh3::S) dispatch<Bosh3>(cfg, adaptive, n, ptrs, st);
+  else if (stages == Tsit5::S) dispatch<Tsit5>(cfg, adaptive, n, ptrs, st);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The `_simple` baseline (the previous kernel), picles_advance's layout.
+extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
+                                     void** ptrs, long long n, void* stream) {
+  AdvanceConfig cfg;
+  const int stages = unpack_advance(fparams, iparams, cfg);
+  const bool adaptive = iparams[4] != 0;
+  const bool force = cfg.force_dtmin != 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return 0;
+  if (stages == 3) dispatch_simple<3>(cfg, adaptive, force, n, ptrs, st);
+  else if (stages == 6) dispatch_simple<6>(cfg, adaptive, force, n, ptrs, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,4 @@
-// K2: the CIC deposit of (E, m_x, m_y) written as a gather, one thread per
-// output node, no atomics.
+// K2: the CIC deposit of (E, m_x, m_y) written as a gather, no atomics.
 //
 // Replaces (TPU kernel): picles_tpu/ops/pic_pallas.py _accum_kernel ->
 // _gather_accumulate (launcher scatter_core_channels_pallas, inputs from
@@ -16,19 +15,45 @@
 // deterministic and the same bit for bit on every run.
 //
 // Boundary: design (b).  The kernel indexes the source with a wrap (periodic
-// axis) or skips it (open axis) directly, instead of reading the extended
-// input planes that _gather_setup builds; that reads fewer bytes and needs
-// no set-up pass.  A skipped source is exactly the TPU kernel's zero slab:
-// it would add a zero.  The tripolar seam (mirrored ghost particles) is not
-// handled here; the wrapper refuses it.
+// axis) or leaves it out (open axis) directly, instead of reading the
+// extended input planes that _gather_setup builds; that reads fewer bytes
+// and needs no set-up pass.  A source left out is exactly the TPU kernel's
+// zero slab: it adds a zero.  The tripolar seam (mirrored ghost particles)
+// is not handled here; the wrapper refuses it.
 //
-// What bounds it on an H100: memory.  Per node it computes ~10 operations
-// per window cell and reads 5 planes plus the mask (21 bytes) per source;
-// neighbouring threads read neighbouring sources, so the (xl+xh+1)(yl+yh+1)
-// re-reads of each source are served by L1/L2, and device memory sees about
-// one pass over the 6 inputs and one over the 3 outputs (36 bytes a node).
-// Threads run along y, the contiguous axis, so loads and stores coalesce.
-// Staging a tile of the sources in shared memory is left to a later PR.
+// What bounds it on an H100, and the design.  Device memory sees one pass
+// over 5 input planes and the mask and one over the 3 outputs: 33 bytes a
+// node, 23 us at 1536^2 and 3.35 TB/s.  The one-thread-per-node version
+// (`gather_node`, kept as the `_simple` kernels) is far above that, bound
+// by instructions: every thread recomputed the clamp, floor, int conversion
+// and CIC weights of each window cell's source (about 45 instructions a
+// cell, 16 or 49 cells) and read 6 planes a cell through L1.  The tiled
+// window sum below forms each source's terms once per block:
+// - a block owns a TX x 32 tile of output nodes (threads along y, the
+//   contiguous axis; each thread R nodes along x) and stages the tile's
+//   sources, (TX+xl+xh) x (32+yl+yh), in shared memory: `cp.async` copies
+//   the planes in (zero-filled where a source lies off an open axis, which
+//   adds +0.0 to a sum that started at +0.0, the same bits as leaving it
+//   out), then each source's clamp, floor offsets, weights and c_k * m are
+//   computed once (`stage_chunk`);
+// - after a barrier each thread walks its source rows once per dy, from
+//   high to low, forms wy * (c_k * m) once per source and adds wx * (that)
+//   to each of its R nodes whose window holds the source (`sum_chunk`).  For
+//   every node the terms arrive in the per-node loop's order (dy ascending
+//   outermost, dx ascending), with the same roundings; zero-weight terms
+//   are added too, so a non-finite source still reaches its whole window;
+// - no 64-bit division and no 64-bit product per cell: 32-bit tile
+//   coordinates, one 64-bit offset per staged source and per output node;
+// - a halo too large for one tile's shared memory is staged in strips of
+//   dy (the sum's outer loop) and, when one dy still does not fit, in chunks
+//   of source rows walked from high to low, so every halo the wrapper
+//   accepts runs.
+// The width of the window in x is compiled in for the main path's halos (4
+// for the flagship's ((0,3),(0,3)), 7 for halo 3): the walk unrolls and its
+// window tests fold away.  The block's shared memory (32 bytes a source)
+// and registers set the occupancy; TX = 32 (R = 4 nodes a thread, 8 warps)
+// and a 64 KB budget, compiled in, were chosen by a sweep on the card (root
+// PERF.md §6).
 //
 // K4: the same deposit into the padded accumulator, no fold.
 //
@@ -39,25 +64,22 @@
 // scatter_accumulate_padded.  Padded node (pi, pj) of the
 // [nx+xl+xh, ny+yl+yh] output is core node (pi - xl, pj - yl), which lies
 // up to xl (yl) nodes before and xh (yh) nodes past the block.  With both
-// axes open, K2's `gather_node` sums exactly that node's window: a source
-// outside [0, nx) x [0, ny) is skipped, as the accumulator has no particle
-// there.  So K4 is `gather_node` with periodic_x = periodic_y = 0 over the
-// larger output range; the halo slabs it leaves are what the sharded step
-// exchanges with the neighbouring blocks.  One thread per padded node, no
-// atomics: deterministic.  Memory-bound like K2: about 21 bytes of sources
-// (through L1/L2) and 12 bytes of output a node.
+// axes open, K2's window sum adds exactly that node's window: a source
+// outside [0, nx) x [0, ny) adds nothing, as the accumulator has no
+// particle there.  So K4 is K2's tiled window sum with both axes open over
+// the larger output range; the halo slabs it leaves are what the sharded
+// step exchanges with the neighbouring blocks.  Deterministic, no atomics.
 //
 // K6: the same deposit with the remesh fused into its output pass.
 //
 // Replaces (TPU kernel): picles_tpu/ops/pic_pallas.py _accum_remesh_kernel
 // (launcher scatter_remesh_fused).  Plain PyTorch version: pic.py
-// scatter_dense, then remesh.py remesh_core.  Each thread sums its node's
-// window with K2's own device function (`gather_node`, so the node planes
-// equal K2's bit for bit) and feeds the three sums straight into the remesh
-// branch table (remesh.cuh `remesh_node`, K5's).  It writes the 3 node
-// planes and the 8 remesh outputs and never reads the node planes back: the
-// separate K5 pass would read them again (12 bytes a node) and launch once
-// more.
+// scatter_dense, then remesh.py remesh_core.  Each block sums its tile with
+// K2's window sum (so the node planes equal K2's bit for bit) and feeds the
+// three sums of each node straight into the remesh branch table
+// (remesh.cuh `remesh_node`, K5's).  It writes the 3 node planes and the 8
+// remesh outputs and never reads the node planes back: the separate K5 pass
+// would read them again (12 bytes a node) and launch once more.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,6 +100,296 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   if (v != v) return v;
   return fminf(fmaxf(v, lo), hi);
 }
+
+// ---------------------------------------------------------------------------
+// The tiled window sum (K2, K4, K6)
+// ---------------------------------------------------------------------------
+
+constexpr int TY = 32;           // tile columns: one warp along y
+constexpr int R = 4;             // tile rows a thread (output nodes along x)
+constexpr int WARPS = 8;         // warps a block, along x
+constexpr int TX = R * WARPS;    // tile rows
+constexpr int SMEM_BUDGET = 64 * 1024;  // bytes of shared memory a block may take
+
+// How a launch cuts the output into tiles and the window into staged
+// pieces; chosen on the host (plan_sum).
+struct SumPlan {
+  int d;              // dy values one strip stages (yl+yh+1: the whole window)
+  int ux;             // source rows one chunk stages (TX+xl+xh: all of them)
+  int v;              // staged columns, TY + d - 1 (row stride)
+  int ox, oy;         // output extent
+  int off_x, off_y;   // output node (p, q) is grid node (p - off_x, q - off_y)
+  int tiles_y;        // tiles along y
+};
+
+struct Sources {
+  const float *xr, *yr, *c0, *c1, *c2;
+  const unsigned char* act;
+};
+
+// One 4-byte cp.async, zero-filled when `valid` is false (src-size 0).
+__device__ __forceinline__ void copy4_async(float* dst, const float* src,
+                                            bool valid) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+#else
+  *dst = valid ? *src : 0.0f;
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Stage the sources of tile-local rows [lo, hi) (row u is grid row
+// i0 - xh + u) and of w columns (column c is grid column j0 - dy1 + c: the
+// sources the tile's nodes reach with the strip's dy) into shared memory:
+//   a[e] = (wxc, wyc, c0 * m, c1 * m),  b[e] = (c2 * m, fx, fy, -),
+// e = (u - lo) * p.v + c.  Each thread computes the sources it copied.
+__device__ __forceinline__ void stage_chunk(const GatherConfig& g,
+                                           const SumPlan& p, int i0, int j0,
+                                           int lo, int hi, int dy1, int w,
+                                           const Sources& src, float4* sa,
+                                           float4* sb) {
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int count = (hi - lo) * w;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k = tid; k < count; k += nthreads) {
+      const int row = k / w, c = k - row * w;
+      const int e = row * p.v + c;
+      float* a = reinterpret_cast<float*>(sa + e);
+      float* b = reinterpret_cast<float*>(sb + e);
+      if (pass == 0) {
+        int si = i0 - g.xh + lo + row;
+        if (g.periodic_x) si = si < 0 ? si + g.nx : (si >= g.nx ? si - g.nx : si);
+        int sj = j0 - dy1 + c;
+        if (g.periodic_y) sj = sj < 0 ? sj + g.ny : (sj >= g.ny ? sj - g.ny : sj);
+        const bool ok = si >= 0 && si < g.nx && sj >= 0 && sj < g.ny;
+        const long long s = ok ? (long long)si * g.ny + sj : 0;
+        copy4_async(a + 0, src.xr + s, ok);
+        copy4_async(a + 1, src.yr + s, ok);
+        copy4_async(a + 2, src.c0 + s, ok);
+        copy4_async(a + 3, src.c1 + s, ok);
+        copy4_async(b + 0, src.c2 + s, ok);
+        b[3] = (ok && src.act[s]) ? 1.0f : 0.0f;
+      } else {
+        // the per-node loop's arithmetic, once per source
+        const float px = clampf(a[0], g.x_lo, g.x_hi);
+        const float fxf = floorf(px);
+        const float py = clampf(a[1], g.y_lo, g.y_hi);
+        const float fyf = floorf(py);
+        const float m = b[3];
+        sa[e] = make_float4(px - fxf, py - fyf, a[2] * m, a[3] * m);
+        sb[e] = make_float4(b[0] * m, __int_as_float((int)fxf),
+                            __int_as_float((int)fyf), 0.0f);
+      }
+    }
+    if (pass == 0) copy_async_wait_all();  // this thread's own copies
+  }
+}
+
+// Add one staged source's terms for one dy to the thread's R partial sums:
+// walked as row `st` of the thread's rows (node r's dx = st + r + 1 - R - xl),
+// so node r's window holds it when R-1-r <= st <= R-2-r+W (`all`: every
+// node's does).  The per-node loop's weight `(f == d ? wf : 0) + (f == d - 1
+// ? wc : 0)` is formed by selects: the weights are never -0 and a NaN weight
+// comes out of an arithmetic operation (canonical), so adding +0.0 changes
+// no bit and is left out.
+__device__ __forceinline__ void add_source(int st, int W, int xl, int dy,
+                                           const float4& va, const float4& vb,
+                                           bool all, float a[R][3]) {
+  const float wxc = va.x, wxf = 1.0f - wxc;
+  const float wyc = va.y, wyf = 1.0f - wyc;
+  const int fy = __float_as_int(vb.z);
+  const float wy = fy == dy ? wyf : (fy == dy - 1 ? wyc : 0.0f);
+  const float q0 = wy * va.z, q1 = wy * va.w, q2 = wy * vb.x;
+  const int ex = __float_as_int(vb.y) - (st + 1 - R - xl);  // fx - dx(r = 0)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (all || (st >= R - 1 - r && st <= R - 2 - r + W)) {
+      const float wx = ex == r ? wxf : (ex == r - 1 ? wxc : 0.0f);
+      a[r][0] = a[r][0] + wx * q0;
+      a[r][1] = a[r][1] + wx * q1;
+      a[r][2] = a[r][2] + wx * q2;
+    }
+  }
+}
+
+// Walk the staged rows [lo, hi) for each dy of the strip [dy0, dy1]: thread
+// (threadIdx.x, threadIdx.y) owns the R nodes of tile rows R*threadIdx.y + r
+// at tile column threadIdx.x and walks its rows from high to low.  `a` holds
+// a dy's partial sums (reset on the first chunk, added to `acc` on the
+// last).  WX > 0 compiles the window's width xl + xh + 1 in: the walk is
+// unrolled and every window test folds away.
+template <int WX>
+__device__ __forceinline__ void sum_chunk(const GatherConfig& g,
+                                          const SumPlan& p, int lo, int hi,
+                                          int dy0, int dy1, bool first,
+                                          bool last, const float4* sa,
+                                          const float4* sb, float a[R][3],
+                                          float acc[R][3]) {
+  const int W = WX ? WX : g.xl + g.xh + 1;
+  const int base = R * threadIdx.y;
+  const int top = base + R + W - 2;  // the thread's highest row
+  for (int dy = dy0; dy <= dy1; ++dy) {
+    if (first) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r][0] = a[r][1] = a[r][2] = 0.0f;
+    }
+    const int col = threadIdx.x - dy + dy1;
+    if (WX) {
+#pragma unroll
+      for (int st = 0; st < R + WX - 1; ++st) {
+        const int u = top - st;
+        if (u >= lo && u < hi) {
+          const int e = (u - lo) * p.v + col;
+          add_source(st, WX, g.xl, dy, sa[e], sb[e], false, a);
+        }
+      }
+    } else {
+      const int u_hi = min(hi - 1, top), u_lo = max(lo, base);
+      for (int u = u_hi; u >= u_lo; --u) {
+        const int st = top - u;
+        const int e = (u - lo) * p.v + col;
+        add_source(st, W, g.xl, dy, sa[e], sb[e],
+                      st >= R - 1 && st <= W - 1, a);
+      }
+    }
+    if (last) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r][0] = acc[r][0] + a[r][0];
+        acc[r][1] = acc[r][1] + a[r][1];
+        acc[r][2] = acc[r][2] + a[r][2];
+      }
+    }
+  }
+}
+
+// The window sums of the block's tile, whose first node is grid node
+// (i0, j0): strips of dy ascending, chunks of source rows from high to low.
+template <int WX>
+__device__ __forceinline__ void window_sum(const GatherConfig& g,
+                                           const SumPlan& p, int i0, int j0,
+                                           const Sources& src, float4* sa,
+                                           float4* sb, float acc[R][3]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+  float a[R][3];
+  const int rows = TX + g.xl + g.xh;
+  for (int dy0 = -g.yl; dy0 <= g.yh; dy0 += p.d) {
+    const int dy1 = min(dy0 + p.d - 1, g.yh);
+    for (int hi = rows; hi > 0; hi -= p.ux) {
+      const int lo = max(hi - p.ux, 0);
+      __syncthreads();  // the previous piece is no longer read
+      stage_chunk(g, p, i0, j0, lo, hi, dy1, TY + dy1 - dy0, src, sa, sb);
+      __syncthreads();
+      sum_chunk<WX>(g, p, lo, hi, dy0, dy1, hi == rows, lo == 0, sa, sb,
+                       a, acc);
+    }
+  }
+}
+
+__device__ __forceinline__ void tile_origin(const SumPlan& p, int& p0, int& q0) {
+  const int t = blockIdx.x;
+  p0 = (t / p.tiles_y) * TX;
+  q0 = (t % p.tiles_y) * TY;
+}
+
+// K2 (off = 0, output [nx, ny]) and K4 (off = (xl, yl), the padded output).
+template <int WX>
+__global__ void __launch_bounds__(TY * WARPS)
+pic_gather_tiled_kernel(const GatherConfig g, const SumPlan p, const Sources src,
+                        float* __restrict__ o0, float* __restrict__ o1,
+                        float* __restrict__ o2) {
+  extern __shared__ float4 smem[];
+  int p0, q0;
+  tile_origin(p, p0, q0);
+  float acc[R][3];
+  window_sum<WX>(g, p, p0 - p.off_x, q0 - p.off_y, src, smem,
+                    smem + p.ux * p.v, acc);
+  const int q = q0 + threadIdx.x;
+  if (q >= p.oy) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int pi = p0 + R * threadIdx.y + r;
+    if (pi < p.ox) {
+      const long long o = (long long)pi * p.oy + q;
+      o0[o] = acc[r][0];
+      o1[o] = acc[r][1];
+      o2[o] = acc[r][2];
+    }
+  }
+}
+
+// Particle planes and masks of K6's remesh half, core-aligned [nx, ny].
+struct RemeshPlanes {
+  const float* clock;
+  const float *lne, *cgx, *cgy, *px, *py, *dt;
+  const unsigned char *on, *act, *bnd;
+  const float* xn;
+  float *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
+  unsigned char* on_o;
+  int* br_o;
+};
+
+template <int WX>
+__global__ void __launch_bounds__(TY * WARPS)
+pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
+                               const picles::RemeshParams rp,
+                               const Sources src, const RemeshPlanes q,
+                               float* __restrict__ o0, float* __restrict__ o1,
+                               float* __restrict__ o2) {
+  extern __shared__ float4 smem[];
+  int p0, q0;
+  tile_origin(p, p0, q0);
+  float acc[R][3];
+  window_sum<WX>(g, p, p0, q0, src, smem, smem + p.ux * p.v, acc);
+  const int j = q0 + threadIdx.x;
+  if (j >= g.ny) return;
+  // one copy of the branch table, the node's sums picked by selects
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) {
+    const int i = p0 + R * threadIdx.y + r;
+    if (i >= g.nx) break;
+    float s0 = acc[0][0], s1 = acc[0][1], s2 = acc[0][2];
+#pragma unroll
+    for (int k = 1; k < R; ++k) {
+      if (r == k) {
+        s0 = acc[k][0];
+        s1 = acc[k][1];
+        s2 = acc[k][2];
+      }
+    }
+    const long long idx = (long long)i * g.ny + j;
+    o0[idx] = s0;
+    o1[idx] = s1;
+    o2[idx] = s2;
+    const picles::RemeshOut o = picles::remesh_node(
+        rp, *q.clock, s0, s1, s2, q.lne[idx], q.cgx[idx], q.cgy[idx],
+        q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
+        q.bnd[idx] != 0, q.xn[idx]);
+    q.lne_o[idx] = o.lne;
+    q.cgx_o[idx] = o.cgx;
+    q.cgy_o[idx] = o.cgy;
+    q.px_o[idx] = o.px;
+    q.py_o[idx] = o.py;
+    q.dt_o[idx] = o.dt;
+    q.on_o[idx] = o.on ? 1 : 0;
+    q.br_o[idx] = o.branch;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The previous one-thread-per-node kernels, kept as baselines (`_simple`):
+// chip_smoke.py and the card tests hold the tiled kernels to them bit for
+// bit and time both in turns.  No path of the package launches them.
+// ---------------------------------------------------------------------------
 
 // The deposit at output node (i, j): the sum over its window of sources.
 __device__ __forceinline__ void gather_node(
@@ -127,12 +439,14 @@ __device__ __forceinline__ void gather_node(
 }
 
 __global__ void __launch_bounds__(256)
-pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
-                  const float* __restrict__ yr, const float* __restrict__ c0,
-                  const float* __restrict__ c1, const float* __restrict__ c2,
-                  const unsigned char* __restrict__ act,
-                  float* __restrict__ o0, float* __restrict__ o1,
-                  float* __restrict__ o2) {
+pic_gather_simple_kernel(const GatherConfig g, const float* __restrict__ xr,
+                         const float* __restrict__ yr,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ c2,
+                         const unsigned char* __restrict__ act,
+                         float* __restrict__ o0, float* __restrict__ o1,
+                         float* __restrict__ o2) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = (long long)g.nx * g.ny;
   if (idx >= n) return;
@@ -147,14 +461,16 @@ pic_gather_kernel(const GatherConfig g, const float* __restrict__ xr,
 
 // g.nx, g.ny are the block's (source) extents; the output is padded.
 __global__ void __launch_bounds__(256)
-pic_gather_padded_kernel(const GatherConfig g, const float* __restrict__ xr,
-                         const float* __restrict__ yr,
-                         const float* __restrict__ c0,
-                         const float* __restrict__ c1,
-                         const float* __restrict__ c2,
-                         const unsigned char* __restrict__ act,
-                         float* __restrict__ o0, float* __restrict__ o1,
-                         float* __restrict__ o2) {
+pic_gather_padded_simple_kernel(const GatherConfig g,
+                                const float* __restrict__ xr,
+                                const float* __restrict__ yr,
+                                const float* __restrict__ c0,
+                                const float* __restrict__ c1,
+                                const float* __restrict__ c2,
+                                const unsigned char* __restrict__ act,
+                                float* __restrict__ o0,
+                                float* __restrict__ o1,
+                                float* __restrict__ o2) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int npy = g.ny + g.yl + g.yh;
   const long long n = (long long)(g.nx + g.xl + g.xh) * npy;
@@ -169,27 +485,18 @@ pic_gather_padded_kernel(const GatherConfig g, const float* __restrict__ xr,
   o2[idx] = acc2;
 }
 
-// Particle planes and masks of K6's remesh half, core-aligned [nx, ny].
-struct RemeshPlanes {
-  const float* clock;
-  const float *lne, *cgx, *cgy, *px, *py, *dt;
-  const unsigned char *on, *act, *bnd;
-  const float* xn;
-  float *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
-  unsigned char* on_o;
-  int* br_o;
-};
-
 __global__ void __launch_bounds__(256)
-pic_gather_remesh_kernel(const GatherConfig g, const picles::RemeshParams r,
-                         const float* __restrict__ xr,
-                         const float* __restrict__ yr,
-                         const float* __restrict__ c0,
-                         const float* __restrict__ c1,
-                         const float* __restrict__ c2,
-                         const unsigned char* __restrict__ sact,
-                         const RemeshPlanes q, float* __restrict__ o0,
-                         float* __restrict__ o1, float* __restrict__ o2) {
+pic_gather_remesh_simple_kernel(const GatherConfig g,
+                                const picles::RemeshParams r,
+                                const float* __restrict__ xr,
+                                const float* __restrict__ yr,
+                                const float* __restrict__ c0,
+                                const float* __restrict__ c1,
+                                const float* __restrict__ c2,
+                                const unsigned char* __restrict__ sact,
+                                const RemeshPlanes q, float* __restrict__ o0,
+                                float* __restrict__ o1,
+                                float* __restrict__ o2) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = (long long)g.nx * g.ny;
   if (idx >= n) return;
@@ -214,6 +521,10 @@ pic_gather_remesh_kernel(const GatherConfig g, const picles::RemeshParams r,
   q.br_o[idx] = o.branch;
 }
 
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
 GatherConfig unpack_gather(const float* fparams, const int* iparams) {
   GatherConfig g;
   g.nx = iparams[0]; g.ny = iparams[1];
@@ -228,65 +539,89 @@ constexpr int N_GATHER_F = 4;
 constexpr int N_GATHER_I = 8;
 constexpr int THREADS = 256;
 
-}  // namespace
+// The tiling over an [ox, oy] output: the whole window in one piece when it
+// fits the budget, else strips of dy, else chunks of source rows with one dy
+// a strip.
+SumPlan plan_sum(const GatherConfig& g, int ox, int oy, int off_x,
+                 int off_y) {
+  SumPlan p;
+  const long long cap = SMEM_BUDGET / (long long)(2 * sizeof(float4));  // sources
+  const int rows = TX + g.xl + g.xh;
+  const int dys = g.yl + g.yh + 1;
+  if ((long long)rows * (TY + dys - 1) <= cap) {
+    p.d = dys;
+    p.ux = rows;
+  } else if ((long long)rows * TY <= cap) {
+    p.d = (int)(cap / rows - TY + 1);
+    p.ux = rows;
+  } else {
+    p.d = 1;
+    p.ux = (int)(cap / TY);
+  }
+  p.v = TY + p.d - 1;
+  p.ox = ox;
+  p.oy = oy;
+  p.off_x = off_x;
+  p.off_y = off_y;
+  p.tiles_y = (oy + TY - 1) / TY;
+  return p;
+}
 
-// iparams: nx, ny, xl, xh, yl, yh, periodic_x, periodic_y
-// fparams: x_lo, x_hi, y_lo, y_hi
-// ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs)
-// Returns cudaGetLastError() after the launch.
-extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
-                                 void** ptrs, void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
-  const long long n = (long long)g.nx * g.ny;
-  if (n <= 0) return 0;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  pic_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
-      (const float*)ptrs[3], (const float*)ptrs[4],
-      (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
-      (float*)ptrs[8]);
+size_t plan_bytes(const SumPlan& p) {
+  return (size_t)p.ux * p.v * 2 * sizeof(float4);
+}
+
+unsigned plan_blocks(const SumPlan& p) {
+  return (unsigned)(((p.ox + TX - 1) / TX) * (long long)p.tiles_y);
+}
+
+// Launch one tiled kernel instance: sets the dynamic shared-memory limit
+// when the plan takes more than the default 48 KB, and returns the first
+// CUDA error of the attribute or the launch.
+template <typename Kernel, typename... Args>
+int launch_tiled(Kernel kernel, const SumPlan& p, cudaStream_t st,
+                 Args... args) {
+  const size_t bytes = plan_bytes(p);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<plan_blocks(p), dim3(TY, WARPS), bytes, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// K4.  iparams and fparams as picles_pic_gather's, the periodic flags
-// ignored (both axes open); nx, ny are the block's.
-// ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([nx, ny], inputs) |
-//          o0, o1, o2 ([nx+xl+xh, ny+yl+yh], outputs)
-// Returns cudaGetLastError() after the launch.
-extern "C" int picles_pic_gather_padded(const float* fparams,
-                                        const int* iparams, void** ptrs,
-                                        void* stream) {
-  GatherConfig g = unpack_gather(fparams, iparams);
-  g.periodic_x = 0;
-  g.periodic_y = 0;
-  const long long n =
-      (long long)(g.nx + g.xl + g.xh) * (g.ny + g.yl + g.yh);
-  if (g.nx <= 0 || g.ny <= 0) return 0;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  pic_gather_padded_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
-      (const float*)ptrs[3], (const float*)ptrs[4],
-      (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
-      (float*)ptrs[8]);
-  return (int)cudaGetLastError();
+Sources sources(void** ptrs) {
+  Sources s;
+  s.xr = (const float*)ptrs[0];
+  s.yr = (const float*)ptrs[1];
+  s.c0 = (const float*)ptrs[2];
+  s.c1 = (const float*)ptrs[3];
+  s.c2 = (const float*)ptrs[4];
+  s.act = (const unsigned char*)ptrs[5];
+  return s;
 }
 
-// fparams: the gather's (4) | the remesh.cuh layout
-// iparams: the gather's (8) | the remesh.cuh layout
-// ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
-//          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
-//          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs)
-// Returns cudaGetLastError() after the launch.
-extern "C" int picles_pic_gather_remesh(const float* fparams,
-                                        const int* iparams, void** ptrs,
-                                        void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
-  picles::RemeshParams r;
-  picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
-  const long long n = (long long)g.nx * g.ny;
-  if (n <= 0) return 0;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+template <int WX>
+int gather_tiled(const GatherConfig& g, const SumPlan& p, void** ptrs,
+                 cudaStream_t st) {
+  return launch_tiled(pic_gather_tiled_kernel<WX>, p, st, g, p,
+                      sources(ptrs), (float*)ptrs[6], (float*)ptrs[7],
+                      (float*)ptrs[8]);
+}
+
+// The instances compiled: the window widths of the main path's halos
+// compiled in (4: the flagship's ((0,3),(0,3)); 7: the default halo 3), and
+// any other width.
+int gather_dispatch(const GatherConfig& g, const SumPlan& p, void** ptrs,
+                    cudaStream_t st) {
+  const int W = g.xl + g.xh + 1;
+  if (W == 4) return gather_tiled<4>(g, p, ptrs, st);
+  if (W == 7) return gather_tiled<7>(g, p, ptrs, st);
+  return gather_tiled<0>(g, p, ptrs, st);
+}
+
+RemeshPlanes remesh_planes(void** ptrs) {
   RemeshPlanes q;
   q.clock = (const float*)ptrs[6];
   q.lne = (const float*)ptrs[7];
@@ -307,10 +642,119 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
   q.dt_o = (float*)ptrs[25];
   q.on_o = (unsigned char*)ptrs[26];
   q.br_o = (int*)ptrs[27];
-  pic_gather_remesh_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  return q;
+}
+
+template <int WX>
+int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
+                        const picles::RemeshParams& r, void** ptrs,
+                        cudaStream_t st) {
+  return launch_tiled(pic_gather_remesh_tiled_kernel<WX>, p, st, g, p,
+                      r, sources(ptrs), remesh_planes(ptrs), (float*)ptrs[17],
+                      (float*)ptrs[18], (float*)ptrs[19]);
+}
+
+}  // namespace
+
+// iparams: nx, ny, xl, xh, yl, yh, periodic_x, periodic_y
+// fparams: x_lo, x_hi, y_lo, y_hi
+// ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs)
+// Returns the first CUDA error of the launch.
+extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
+                                 void** ptrs, void* stream) {
+  const GatherConfig g = unpack_gather(fparams, iparams);
+  if (g.nx <= 0 || g.ny <= 0) return 0;
+  const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
+  return gather_dispatch(g, p, ptrs, (cudaStream_t)stream);
+}
+
+// K4.  iparams and fparams as picles_pic_gather's, the periodic flags
+// ignored (both axes open); nx, ny are the block's.
+// ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([nx, ny], inputs) |
+//          o0, o1, o2 ([nx+xl+xh, ny+yl+yh], outputs)
+extern "C" int picles_pic_gather_padded(const float* fparams,
+                                        const int* iparams, void** ptrs,
+                                        void* stream) {
+  GatherConfig g = unpack_gather(fparams, iparams);
+  g.periodic_x = 0;
+  g.periodic_y = 0;
+  if (g.nx <= 0 || g.ny <= 0) return 0;
+  const SumPlan p = plan_sum(g, g.nx + g.xl + g.xh, g.ny + g.yl + g.yh, g.xl,
+                             g.yl);
+  return gather_dispatch(g, p, ptrs, (cudaStream_t)stream);
+}
+
+// fparams: the gather's (4) | the remesh.cuh layout
+// iparams: the gather's (8) | the remesh.cuh layout
+// ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
+//          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
+//          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
+//          (outputs)
+extern "C" int picles_pic_gather_remesh(const float* fparams,
+                                        const int* iparams, void** ptrs,
+                                        void* stream) {
+  const GatherConfig g = unpack_gather(fparams, iparams);
+  picles::RemeshParams r;
+  picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
+  if (g.nx <= 0 || g.ny <= 0) return 0;
+  const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int W = g.xl + g.xh + 1;
+  if (W == 4) return gather_remesh_tiled<4>(g, p, r, ptrs, st);
+  if (W == 7) return gather_remesh_tiled<7>(g, p, r, ptrs, st);
+  return gather_remesh_tiled<0>(g, p, r, ptrs, st);
+}
+
+// The `_simple` baselines: the entry points above with the same parameter
+// layouts, one thread per output node.
+extern "C" int picles_pic_gather_simple(const float* fparams,
+                                        const int* iparams, void** ptrs,
+                                        void* stream) {
+  const GatherConfig g = unpack_gather(fparams, iparams);
+  const long long n = (long long)g.nx * g.ny;
+  if (n <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  pic_gather_simple_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
+      (const float*)ptrs[3], (const float*)ptrs[4],
+      (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
+      (float*)ptrs[8]);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int picles_pic_gather_padded_simple(const float* fparams,
+                                               const int* iparams,
+                                               void** ptrs, void* stream) {
+  GatherConfig g = unpack_gather(fparams, iparams);
+  g.periodic_x = 0;
+  g.periodic_y = 0;
+  const long long n =
+      (long long)(g.nx + g.xl + g.xh) * (g.ny + g.yl + g.yh);
+  if (g.nx <= 0 || g.ny <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  pic_gather_padded_simple_kernel<<<blocks, THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+      g, (const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
+      (const float*)ptrs[3], (const float*)ptrs[4],
+      (const unsigned char*)ptrs[5], (float*)ptrs[6], (float*)ptrs[7],
+      (float*)ptrs[8]);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
+                                               const int* iparams,
+                                               void** ptrs, void* stream) {
+  const GatherConfig g = unpack_gather(fparams, iparams);
+  picles::RemeshParams r;
+  picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
+  const long long n = (long long)g.nx * g.ny;
+  if (n <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  pic_gather_remesh_simple_kernel<<<blocks, THREADS, 0,
+                                    (cudaStream_t)stream>>>(
       g, r, (const float*)ptrs[0], (const float*)ptrs[1],
       (const float*)ptrs[2], (const float*)ptrs[3], (const float*)ptrs[4],
-      (const unsigned char*)ptrs[5], q, (float*)ptrs[17], (float*)ptrs[18],
-      (float*)ptrs[19]);
+      (const unsigned char*)ptrs[5], remesh_planes(ptrs), (float*)ptrs[17],
+      (float*)ptrs[18], (float*)ptrs[19]);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Shared device code of the advance (K1) and auto-dt (K3) kernels: the
-// analytic wind samplers and the 2D particle RHS.
+// analytic wind samplers and the 2D particle RHS, split into the terms that
+// depend on the wind alone (`wind_terms_at`) and the rest (`rhs_state`).
 //
 // Replaces the closures that the JAX package's Pallas kernels inline:
 // picles_tpu/ops/rhs.py `rhs_core_2d` and the wind samplers of
@@ -92,12 +93,33 @@ __device__ __forceinline__ void wind_uv(const WindParams& w, float xn, float t,
   }
 }
 
-// picles_tpu/ops/rhs.py rhs_core_2d, one lane.
-__device__ __forceinline__ void rhs_core_2d(const RHSParams& c, float lne,
-                                            float cg_x, float cg_y, float u,
-                                            float v, float out[5]) {
+// The terms of rhs_core_2d that depend on the wind alone: a lane whose wind
+// does not vary in t (the constant and half-domain families) forms them
+// once per model step.
+struct WindTerms {
+  float u, v;
+  float u2;  // u * u + v * v
+  float uv;  // u * v
+  float dv;  // 2 (v * v) - u2
+};
+
+__device__ __forceinline__ WindTerms wind_terms_at(const WindParams& p,
+                                                   float xn, float t) {
+  WindTerms w;
+  wind_uv(p, xn, t, w.u, w.v);
+  w.u2 = w.u * w.u + w.v * w.v;
+  w.uv = w.u * w.v;
+  w.dv = 2.0f * (w.v * w.v) - w.u2;
+  return w;
+}
+
+// picles_tpu/ops/rhs.py rhs_core_2d, one lane: the part that depends on the
+// state, given the wind's terms.
+__device__ __forceinline__ void rhs_state(const RHSParams& c, float lne,
+                                          float cg_x, float cg_y,
+                                          const WindTerms& w, float out[5]) {
+  const float u = w.u, v = w.v, u2 = w.u2;
   const float c2 = cg_x * cg_x + cg_y * cg_y;
-  const float u2 = u * u + v * v;
   const float cgp2_raw = c2 / c.rg2;
 
   const float k_p = c.g / (4.0f * jmax(cgp2_raw, 1e-2f));
@@ -128,8 +150,8 @@ __device__ __forceinline__ void rhs_core_2d(const RHSParams& c, float lne,
     const float prod = u2 * cgp2_raw;
     const float safe = prod == 0.0f ? 1.0f : prod;
     const float val = (2.0f / safe) *
-                      (u * v * (2.0f * (c_gp_y * c_gp_y) - cgp2_raw) -
-                       c_gp_x * c_gp_y * (2.0f * (v * v) - u2));
+                      (w.uv * (2.0f * (c_gp_y * c_gp_y) - cgp2_raw) -
+                       c_gp_x * c_gp_y * w.dv);
     const float sin2 = prod == 0.0f ? 0.0f : val;
     S_dir_t = alpha2 * c.C_varphi * H_p * sin2;
   }
@@ -147,13 +169,13 @@ __device__ __forceinline__ void rhs_core_2d(const RHSParams& c, float lne,
   }
 }
 
-// The RHS at a node of x-coordinate xn, time t, state (lne, cg_x, cg_y).
+// The RHS at a node of x-coordinate xn, time t, state (lne, cg_x, cg_y): the
+// wind's terms, then the state's part, in a row (K3, and K1's `_simple`
+// baseline, evaluate it so at every stage).
 __device__ __forceinline__ void rhs_at(const RHSParams& c, const WindParams& w,
                                        float xn, float t, float lne,
                                        float cg_x, float cg_y, float out[5]) {
-  float u, v;
-  wind_uv(w, xn, t, u, v);
-  rhs_core_2d(c, lne, cg_x, cg_y, u, v, out);
+  rhs_state(c, lne, cg_x, cg_y, wind_terms_at(w, xn, t), out);
 }
 
 }  // namespace picles

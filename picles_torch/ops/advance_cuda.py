@@ -15,6 +15,13 @@ projection planes (spherical and tripolar grids) are not ported yet.
 
 ``advance_cuda.launches`` and ``auto_dt_cuda.launches`` count kernel
 launches (not plain-version calls).
+
+K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
+(``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
+a ``SolverConfig`` naming another method is refused.  ``simple=True``
+launches the previous kernel instead (the tableau a run-time parameter), the
+baseline the card checks hold K1 to bit for bit; no path of the package
+passes it, and its launches are not counted.
 """
 
 from __future__ import annotations
@@ -96,22 +103,26 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  config: SolverConfig, DT: float,
                  comps: Tuple[torch.Tensor, ...], t: torch.Tensor,
                  dt: torch.Tensor, active: torch.Tensor, xn: torch.Tensor,
-                 yn: torch.Tensor, proj: Tuple[float, ...]) -> AdvanceResult:
+                 yn: torch.Tensor, proj: Tuple[float, ...], *,
+                 simple: bool = False) -> AdvanceResult:
     """Advance every active particle over one model step ``DT`` (K1).
 
     ``comps`` = (lne, cgx, cgy, x, y); ``active`` bool; ``proj`` the 5
     uniform projection scalars.  Inactive lanes pass through with
     ``failed = False`` and ``naccept = 0``; a lane that finishes gets
     ``t = t + DT``."""
-    from .cuda_build import (check_planes, check_status, library,
+    from .cuda_build import (K1_METHODS, check_planes, check_status, library,
                              pointer_array)
 
+    if config.method not in K1_METHODS:
+        raise ValueError(f"the advance kernel compiles the tableaux of "
+                         f"{sorted(K1_METHODS)}, not {config.method!r}")
     wind = kernel_wind(winds)
+    method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
     f32 = torch.float32
     dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                              "active", "xn"], [f32] * 7 + [torch.bool, f32])
-    method = METHODS[config.method]
     f, i = _rhs_wind_params(consts, flags, wind, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
     f += _tableau_params(method)
@@ -125,11 +136,13 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     ptrs = pointer_array(ins + outs + [failed, nacc])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_advance(fp.ctypes.data, ip.ctypes.data,
-                                        ctypes.addressof(ptrs),
-                                        t.numel(), stream)
+        fn = (library().picles_advance_simple if simple
+              else library().picles_advance)
+        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                  t.numel(), stream)
     check_status(code, "advance")
-    advance_cuda.launches += 1
+    if not simple:
+        advance_cuda.launches += 1
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 

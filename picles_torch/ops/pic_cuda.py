@@ -21,6 +21,11 @@ seam is not ported yet.  The count of clamped displacements stays in
 PyTorch, with the JAX package's predicate.  ``pic_gather.launches``,
 ``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
 kernel launches.
+
+All three share one tiled window sum (``csrc/pic_gather.cu``, its tiling
+compiled in).  ``simple=True`` launches the previous one-thread-per-node kernel
+instead, the baseline the card checks hold the tiled one to bit for bit; no
+path of the package passes it, and its launches are not counted.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
 
 def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
                chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
-               stats: GridStats, halo
+               stats: GridStats, halo, *, simple: bool = False
                ) -> Tuple[Tuple[torch.Tensor, ...], ScatterStats]:
     """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of the ``active`` particles
     at relative positions (xrel, yrel) onto the nodes (K2)."""
@@ -93,10 +98,13 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     ptrs = pointer_array([xrel, yrel, *chans, active] + outs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_pic_gather(fp.ctypes.data, ip.ctypes.data,
-                                           ctypes.addressof(ptrs), stream)
+        fn = (library().picles_pic_gather_simple if simple
+              else library().picles_pic_gather)
+        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                  stream)
     check_status(code, "CIC gather")
-    pic_gather.launches += 1
+    if not simple:
+        pic_gather.launches += 1
     return tuple(outs), ScatterStats(clamped=clamped)
 
 
@@ -105,7 +113,8 @@ pic_gather.launches = 0
 
 def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
                       chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
-                      halo) -> Tuple[torch.Tensor, ScatterStats]:
+                      halo, *, simple: bool = False
+                      ) -> Tuple[torch.Tensor, ScatterStats]:
     """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of one block into its padded
     accumulator (K4): returns ``[3, nx+xl+xh, ny+yl+yh]`` (channel first,
     each plane contiguous; padded node (i, j) is block node (i - xl,
@@ -122,10 +131,13 @@ def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
     ptrs = pointer_array([xrel, yrel, *chans, active, *out])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_pic_gather_padded(
-            fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs), stream)
+        fn = (library().picles_pic_gather_padded_simple if simple
+              else library().picles_pic_gather_padded)
+        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                  stream)
     check_status(code, "padded CIC gather")
-    pic_gather_padded.launches += 1
+    if not simple:
+        pic_gather_padded.launches += 1
     return out, ScatterStats(clamped=clamped)
 
 
@@ -136,7 +148,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                       chans: Tuple[torch.Tensor, ...],
                       scatter_active: torch.Tensor, stats: GridStats, halo,
                       p: RemeshParams, lne, cgx, cgy, px, py, dt, on, active,
-                      boundary, xn, yn, clock
+                      boundary, xn, yn, clock, *, simple: bool = False
                       ) -> Tuple[Tuple[torch.Tensor, ...], RemeshResult,
                                  ScatterStats]:
     """The deposit of ``pic_gather`` and the branch table of
@@ -161,10 +173,13 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                           *node, *outs])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_pic_gather_remesh(
-            fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs), stream)
+        fn = (library().picles_pic_gather_remesh_simple if simple
+              else library().picles_pic_gather_remesh)
+        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                  stream)
     check_status(code, "CIC gather + remesh")
-    pic_gather_remesh.launches += 1
+    if not simple:
+        pic_gather_remesh.launches += 1
     return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on a card,
-a fused Simulation resumed from a checkpoint, and the sharded step on a
-(1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
+K1, K2, K4 and K6 bit for bit against their ``_simple`` baselines (the
+kernels they replaced), a fused Simulation resumed from a checkpoint, and the
+sharded step on a (1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
 skips but the one that checks the refusal of CPU tensors.  On a machine
 with a card (and no JAX) run them with
 
@@ -386,3 +387,127 @@ def test_sharded_step_nccl_one_rank_matches_single_device(dev):
             assert got[k] == want[k], k
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels against their `_simple` baselines, bit for bit
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t.view(torch.int32)
+
+
+def _assert_bitwise(new, simple):
+    for i, (a, b) in enumerate(zip(new, simple)):
+        assert torch.equal(_bits(a), _bits(b)), i
+
+
+def _deposit_inputs(dev, nx, ny, halo, seed):
+    from picles_torch.ops.pic import normalize_halo
+
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    rng = np.random.default_rng(seed)
+
+    def f(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    xr = f(rng.uniform(-xl - 0.3, xh + 0.3, (nx, ny)))
+    yr = f(rng.uniform(-yl - 0.3, yh + 0.3, (nx, ny)))
+    ch = [f(rng.normal(0, 1, (nx, ny))) for _ in range(3)]
+    ch[0][nx // 2, ny // 3] = float("inf")   # reaches its whole window
+    ch[2][1, ny - 2] = float("nan")
+    act = torch.as_tensor(rng.uniform(size=(nx, ny)) < 0.8, device=dev)
+    return xr, yr, tuple(c.contiguous() for c in ch), act
+
+
+@pytest.mark.parametrize("halo,periodic", [(((0, 3), (0, 3)), True),
+                                           (3, True), (((1, 2), (2, 1)), False),
+                                           (9, False)])
+def test_tiled_deposits_equal_simple_bitwise(dev, halo, periodic):
+    """K2 (twice: repeatable) and K4 on a ragged 45 x 70 grid against the
+    one-thread-per-node kernels; halo 9 is wider than a tile."""
+    from picles_torch import Boundary, GridStats
+    from picles_torch.ops.pic_cuda import pic_gather, pic_gather_padded
+
+    nx, ny = 45, 70
+    b = Boundary.PERIODIC if periodic else Boundary.NONPERIODIC
+    stats = GridStats(nx=nx, ny=ny, bx=b, by=b)
+    xr, yr, ch, act = _deposit_inputs(dev, nx, ny, halo, seed=7)
+    o, st = pic_gather(xr, yr, ch, act, stats, halo)
+    o2, _ = pic_gather(xr, yr, ch, act, stats, halo)
+    s, st_s = pic_gather(xr, yr, ch, act, stats, halo, simple=True)
+    _assert_bitwise(o, s)
+    _assert_bitwise(o, o2)
+    assert int(st.clamped) == int(st_s.clamped)
+    po, _ = pic_gather_padded(xr, yr, ch, act, halo)
+    ps, _ = pic_gather_padded(xr, yr, ch, act, halo, simple=True)
+    _assert_bitwise((po,), (ps,))
+
+
+def test_fused_tiled_equals_simple_bitwise(dev):
+    """K6 on a ragged-tile 45^2 remesh case, three halos: node planes and
+    every remesh output equal to the one-thread-per-node kernel's."""
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+
+    m, _, core = _remesh_case(dev, 45, "wind_sea", True, seed=8)
+    chans = TR.particle_to_node(*core[:3])
+    sact = (core[6] & core[7]).contiguous()
+    for halo in (((0, 3), (0, 3)), 3, ((1, 3), (0, 2))):
+        nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact,
+                                      m.grid.stats, halo, m.remesh_params,
+                                      *core)
+        nds, rms, _ = pic_gather_remesh(core[3], core[4], chans, sact,
+                                        m.grid.stats, halo, m.remesh_params,
+                                        *core, simple=True)
+        _assert_bitwise((*nd, *rm), (*nds, *rms))
+
+
+@pytest.mark.parametrize("method", ["bosh3", "tsit5"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_advance_equals_simple_bitwise(dev, method, adaptive):
+    """K1 (the compiled tableaux, one particle per thread) on a ragged
+    45 x 37 perturbed state against the previous kernel, for
+    a wind constant in t and the time-cosine family, at t0 = 1200 s and
+    2^19 s."""
+    from picles_torch import TermFlags, constant_winds, time_cosine_winds
+    from picles_torch.ops.advance_cuda import advance_cuda
+    from picles_torch.ops.tsit5 import SolverConfig
+
+    comps, active, g = _state(dev, n=45, seed=9)
+    comps = tuple(c[:, :37].contiguous() for c in comps)
+    active = active[:, :37].contiguous()
+    xn, yn = g.x[:, :37].contiguous(), g.y[:, :37].contiguous()
+    rng = np.random.default_rng(10)
+    dt = torch.as_tensor(rng.uniform(10.0, 120.0, (45, 37)).astype(np.float32),
+                         device=dev)
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    cfg = SolverConfig(method=method, adaptive=adaptive)
+    for winds in (constant_winds(10.0, 10.0),
+                  time_cosine_winds(10.0, 5.0, 6 * 3600.0)):
+        for t0 in (1200.0, 2.0 ** 19):
+            t = torch.full_like(dt, t0)
+            args = (winds, _consts(), TermFlags(), cfg, 600.0, comps, t, dt,
+                    active, xn, yn, proj)
+            want = advance_cuda(*args, simple=True)
+            _assert_bitwise(advance_cuda(*args), want)
+
+
+def test_deposit_over_48kb_of_shared_memory(dev):
+    """Halo 5 stages 56 KB a block, above the default 48 KB: the kernel sets
+    the limit, the launch's cudaGetLastError is success (the wrapper raises
+    on any other), nothing fails on the stream, and the result equals the
+    baseline.  Halo 40 exceeds the 64 KB budget: strips of one dy and chunks
+    of rows, equal too."""
+    from picles_torch import Boundary, GridStats
+    from picles_torch.ops.pic_cuda import pic_gather
+
+    stats = GridStats(nx=40, ny=40, bx=Boundary.NONPERIODIC,
+                      by=Boundary.NONPERIODIC)
+    for halo, seed in ((5, 11), (40, 12)):
+        xr, yr, ch, act = _deposit_inputs(dev, 40, 40, halo, seed=seed)
+        o, _ = pic_gather(xr, yr, ch, act, stats, halo)
+        torch.cuda.synchronize()
+        _assert_bitwise(o, pic_gather(xr, yr, ch, act, stats, halo,
+                                      simple=True)[0])

@@ -346,15 +346,18 @@ def test_diagnostics_match_jax():
 
 
 def test_cli_writes_the_jax_cli_store(tmp_path):
-    """``python -m picles_torch`` against ``python -m picles_tpu`` with the
-    same flags: the same store, the port's on the device it names."""
+    """``python -m picles_torch --device cpu`` against ``python -m
+    picles_tpu`` with the same flags: the same store, the port's on the
+    device it names."""
     flags = ["--Nx", "16", "--T", "0.5"]
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                OMP_NUM_THREADS="1")
     outs = {}
-    for pkg in ("picles_torch", "picles_tpu"):
+    for pkg, own in (("picles_torch", ["--device", "cpu"]),
+                     ("picles_tpu", [])):
         d = str(tmp_path / pkg)
-        r = subprocess.run([sys.executable, "-m", pkg, *flags, "--ID", d],
+        r = subprocess.run([sys.executable, "-m", pkg, *flags, *own,
+                            "--ID", d],
                            cwd=str(tmp_path), env=env, capture_output=True,
                            text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-2000:]
@@ -370,3 +373,20 @@ def test_cli_writes_the_jax_cli_store(tmp_path):
                 np.testing.assert_array_equal(a[k][()], b[k][()], err_msg=k)
         assert a["data"].shape == b["data"].shape == (5, 16, 16, 3)
         _close(a["data"][()], b["data"][()], "CLI store")
+
+
+def test_cli_refuses_to_run_without_a_cuda_device(tmp_path):
+    """Without ``--device cpu`` the port's CLI asks for a CUDA device: on a
+    machine with none it exits non-zero, names the missing device and writes
+    no store."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    d = tmp_path / "run"
+    r = subprocess.run([sys.executable, "-m", "picles_torch", "--Nx", "16",
+                        "--T", "0.5", "--ID", str(d)], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "wrote" not in r.stdout
+    assert not d.exists() and list(tmp_path.iterdir()) == []
