@@ -1,10 +1,12 @@
 // K1 advance and K3 auto-dt: the whole adaptive embedded-RK loop of one
-// model step, and Hairer's initial-dt estimate, one thread per particle.
+// model step, and the dt reset to Hairer's initial-dt estimate, one thread
+// per particle.
 //
 // Replaces (TPU kernels):
 //   K1  picles_tpu/ops/advance_pallas.py  _advance_kernel  (launcher advance_pallas)
 //   K3  picles_tpu/ops/advance_pallas.py  _auto_dt_kernel  (launcher auto_dt_pallas)
-// Plain PyTorch versions: picles_torch/ops/tsit5.py integrate_to / auto_dt.
+// Plain PyTorch versions: picles_torch/ops/tsit5.py integrate_to and
+// picles_torch/ops/advance_cuda.py auto_dt_reset (over tsit5.py auto_dt).
 //
 // What bounds them on an H100.  Per particle K1 reads 7 float planes, a
 // mask and the node x (33 bytes) and writes 7 planes plus two flags (33
@@ -41,6 +43,23 @@
 // The previous one-particle-per-thread kernel stays compiled as
 // `advance_simple_kernel`, the baseline chip_smoke.py and the card tests
 // hold this one to bit for bit.
+//
+// K3 (`auto_dt_kernel`) is the model step's Hairer dt reset, fused: per lane
+// `reset ? clamp(estimate, dtmin, DT) : dt`, where the TPU kernel wrote the
+// bare estimate and the step clamped and selected it in two more passes.
+// Per reset lane it reads 21-29 bytes (the mask, the 5 components, the node
+// x and t only where the wind reads them) and writes 4; a lane that is not
+// reset reads its mask and dt and writes dt, and evaluates no RHS.  The
+// estimate is 2 RHS evaluations and 15 IEEE divisions of the norms, a few
+// hundred float operations: on the card it runs at its instruction rate,
+// as K1 does (SASS count against the measured time, root PERF.md §6), so
+// the design cuts instructions and bytes, never bits: the wind's kind and
+// the default term flags compiled in (one instance per wind family, a
+// generic one for any other flag set), the wind's terms formed once for
+// winds constant in t, no load of a plane the wind does not read, and the
+// clamp and select in the same pass.  The previous kernel stays compiled as
+// `auto_dt_simple_kernel`, the baseline that, followed by PyTorch's clamp and
+// select, the new kernel equals bit for bit.
 
 // Numerics follow the plain version op for op in float32 (see rhs.cuh).
 // Two literals of the JAX package are float32 identities and appear here as
@@ -76,6 +95,7 @@ struct AutoDtConfig {
   RHSParams rc;
   WindParams wind;
   float abstol, reltol, inv_order_p1, max_dt;
+  float dtmin, DT;  // the reset's clamp (not read by the `_simple` baseline)
 };
 
 // Packed parameter layout, shared with picles_torch/ops/advance_cuda.py.
@@ -382,8 +402,95 @@ __device__ __forceinline__ float rms5(const float v[5], const float sc[5]) {
   return sqrtf(s / 5.0f);
 }
 
+struct AutoDtPlanes {
+  const float *lne, *cgx, *cgy, *x, *y, *t, *xn, *dt;
+  const unsigned char* reset;
+  float* out;
+};
+
+// K3's compiled instances: a wind kind and a term-flag set, or RUNTIME for
+// the value in AutoDtConfig.  The main instances compile in every term
+// (`TermFlags()`, the set of every configuration chip_smoke.py drives) and
+// one wind family each; any other flag set runs the generic instance.
+constexpr int RUNTIME = -1;
+constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
+                         TERM_PEAK_SHIFT | TERM_DIRECTION;
+// K3's launch shape: 128 threads a block and 10 blocks an SM (at most 48
+// registers a thread; ptxas gives the instances 42-44, no spills).  K3
+// issues one instruction a cycle per scheduler already (root PERF.md §6),
+// so more warps in flight would not shorten it.
+constexpr int K3_THREADS = 128;
+constexpr int K3_MIN_BLOCKS = 10;
+
+// Hairer's estimate of lane i: the `_simple` kernel's arithmetic, operation
+// for operation.  With the kind compiled in, a plane the wind does not read
+// is not loaded (t for winds constant in t, the node x for constant winds),
+// and the wind's terms of a wind constant in t are formed once and serve
+// both RHS evaluations; with the flags compiled in, each term's test folds.
+template <int KIND, int FLAGS>
+__device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
+                                                 const AutoDtPlanes& P,
+                                                 long long i) {
+  RHSParams rc = cfg.rc;
+  WindParams wp = cfg.wind;
+  if (FLAGS != RUNTIME) rc.flags = FLAGS;
+  if (KIND != RUNTIME) wp.kind = KIND;
+  const bool t_free = wp.kind != WIND_TIME_COSINE;
+  const float tiny = 1e-10f;
+  const float z[5] = {P.lne[i], P.cgx[i], P.cgy[i], P.x[i], P.y[i]};
+  const float t = t_free ? 0.0f : P.t[i];
+  const float xn = wp.kind == WIND_CONSTANT ? 0.0f : P.xn[i];
+  float sc[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + fabsf(z[c]) * cfg.reltol;
+  const WindTerms w0 = wind_terms_at(wp, xn, t);
+  float f0[5];
+  rhs_state(rc, z[0], z[1], z[2], w0, f0);
+  const float d0 = rms5(z, sc);
+  const float d1 = rms5(f0, sc);
+  const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : 0.01f * d0 / jmax(d1, tiny);
+
+  float z1[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) z1[c] = z[c] + h0 * f0[c];
+  const WindTerms w1 = t_free ? w0 : wind_terms_at(wp, xn, t + h0);
+  float f1[5];
+  rhs_state(rc, z1[0], z1[1], z1[2], w1, f1);
+  float df[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) df[c] = f1[c] - f0[c];
+  const float d2 = rms5(df, sc) / jmax(h0, tiny);
+
+  const float dmax = jmax(d1, d2);
+  const float h1 = dmax <= 1e-15f ? jmax(h0 * 1e-3f, 1e-6f)
+                                  : powf(0.01f / jmax(dmax, tiny), cfg.inv_order_p1);
+  return jmin(jmin(100.0f * h0, h1), cfg.max_dt);
+}
+
+// K3: the Hairer dt reset of one lane per thread,
+//   out = reset ? clamp(estimate, dtmin, DT) : dt.
+// A lane that is not reset only copies its dt.  The clamp is torch.clamp's
+// on the card (ATen's clamp_scalar kernel): a NaN passes with its own bits,
+// anything else is min(max(v, dtmin), DT).
+template <int KIND, int FLAGS>
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
+auto_dt_kernel(const AutoDtConfig cfg, long long n, const AutoDtPlanes P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float dt;
+  if (P.reset[i]) {
+    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, i);
+    dt = est != est ? est : fminf(fmaxf(est, cfg.dtmin), cfg.DT);
+  } else {
+    dt = P.dt[i];
+  }
+  P.out[i] = dt;
+}
+
+// The baseline (`_simple`): the previous kernel, the bare estimate of every lane,
+// the wind's kind and the term flags tested at run time.
 __global__ void __launch_bounds__(128)
-auto_dt_kernel(const AutoDtConfig cfg, long long n,
+auto_dt_simple_kernel(const AutoDtConfig cfg, long long n,
                const float* __restrict__ lne_in, const float* __restrict__ cgx_in,
                const float* __restrict__ cgy_in, const float* __restrict__ x_in,
                const float* __restrict__ y_in, const float* __restrict__ t_in,
@@ -531,22 +638,61 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   return (int)cudaGetLastError();
 }
 
-// fparams: RHS (14) | wind (7) | abstol, reltol, 1/(order+1), max_dt
-// iparams: flags, wind kind, has_t_off
-// ptrs:    lne, cgx, cgy, x, y, t, node x (inputs) | dt estimate (output)
-extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, void* stream) {
-  AutoDtConfig cfg;
+static void unpack_auto_dt(const float* fparams, const int* iparams,
+                           void** ptrs, AutoDtConfig& cfg, AutoDtPlanes& P) {
   unpack_rhs_wind(fparams, iparams, cfg.rc, cfg.wind);
   const float* f = fparams + N_RHS_F + N_WIND_F;
   cfg.abstol = f[0]; cfg.reltol = f[1]; cfg.inv_order_p1 = f[2];
-  cfg.max_dt = f[3];
+  cfg.max_dt = f[3]; cfg.dtmin = f[4]; cfg.DT = f[5];
+  P.lne = (const float*)ptrs[0]; P.cgx = (const float*)ptrs[1];
+  P.cgy = (const float*)ptrs[2]; P.x = (const float*)ptrs[3];
+  P.y = (const float*)ptrs[4]; P.t = (const float*)ptrs[5];
+  P.xn = (const float*)ptrs[6]; P.dt = (const float*)ptrs[7];
+  P.reset = (const unsigned char*)ptrs[8]; P.out = (float*)ptrs[9];
+}
+
+template <int KIND, int FLAGS>
+static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
+                           const AutoDtPlanes& P, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + K3_THREADS - 1) / K3_THREADS);
+  auto_dt_kernel<KIND, FLAGS><<<blocks, K3_THREADS, 0, stream>>>(cfg, n, P);
+}
+
+// fparams: RHS (14) | wind (7) | abstol, reltol, 1/(order+1), max_dt,
+//          dtmin, DT
+// iparams: flags, wind kind, has_t_off
+// ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
+//          dt (output)
+// Returns cudaGetLastError() after the launch.
+extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
+                              void** ptrs, long long n, void* stream) {
+  AutoDtConfig cfg;
+  AutoDtPlanes P;
+  unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return 0;
+  if (cfg.rc.flags != K3_FLAGS)
+    launch_auto_dt<RUNTIME, RUNTIME>(cfg, n, P, st);
+  else if (cfg.wind.kind == WIND_CONSTANT)
+    launch_auto_dt<WIND_CONSTANT, K3_FLAGS>(cfg, n, P, st);
+  else if (cfg.wind.kind == WIND_HALF_DOMAIN)
+    launch_auto_dt<WIND_HALF_DOMAIN, K3_FLAGS>(cfg, n, P, st);
+  else
+    launch_auto_dt<WIND_TIME_COSINE, K3_FLAGS>(cfg, n, P, st);
+  return (int)cudaGetLastError();
+}
+
+// The `_simple` baseline, picles_auto_dt's layout: writes the bare estimate
+// of every lane to the output (dtmin, DT, dt and was_reset are not read).
+extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
+                                     void** ptrs, long long n, void* stream) {
+  AutoDtConfig cfg;
+  AutoDtPlanes P;
+  unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
   if (n <= 0) return 0;
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  auto_dt_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      cfg, n, (const float*)ptrs[0], (const float*)ptrs[1],
-      (const float*)ptrs[2], (const float*)ptrs[3], (const float*)ptrs[4],
-      (const float*)ptrs[5], (const float*)ptrs[6], (float*)ptrs[7]);
+  auto_dt_simple_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      cfg, n, P.lne, P.cgx, P.cgy, P.x, P.y, P.t, P.xn, P.out);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@ One model step ``DT``:
 Kernels: the advance runs kernel K1 (``ops/advance_cuda.py``) or its plain
 version ``tsit5.integrate_to``; the deposit kernel K2 (``ops/pic_cuda.py``)
 or ``pic.scatter_dense``; the Hairer dt reset (``dt_reset_mode="auto"``)
-kernel K3 or ``tsit5.auto_dt``.  The remesh is ``remesh.remesh_core`` in
+kernel K3, which clamps and selects the estimate too, or its plain version
+``advance_cuda.auto_dt_reset``.  The remesh is ``remesh.remesh_core`` in
 PyTorch (``remesh_mode="xla"``), kernel K5 (``"pallas"``,
 ``ops/remesh_cuda.py``) or kernel K6, the deposit and the remesh in one pass
 (``"fused"``, ``ops/pic_cuda.py``); on CPU tensors the two kernel modes run
@@ -41,14 +42,14 @@ from ..forcing.winds import Winds2D
 from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
-from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, kernel_wind,
-                                uniform_projection)
+from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, auto_dt_reset,
+                                kernel_wind, uniform_projection)
 from ..ops.pic_cuda import pic_gather_remesh
 from ..ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT, RemeshParams,
                           remesh_core, seed_values, winds_at)
 from ..ops.remesh_cuda import remesh_cuda
 from ..ops.rhs import RHSParams, TermFlags, make_rhs_consts, particle_equations
-from ..ops.tsit5 import METHODS, SolverConfig, auto_dt, integrate_to
+from ..ops.tsit5 import METHODS, SolverConfig, integrate_to
 from .drivers import StepDrivers
 from .state import ModelState2D, Particles2D, StepMetrics
 
@@ -429,23 +430,22 @@ class WaveGrowth2D(StepDrivers):
         gather = (rm.branch & GATHER_BIT) != 0
         reseed = (rm.branch & RESEED_BIT) != 0
 
-        # Hairer dt reset for every lane whose state was replaced
+        # Hairer dt reset for every lane whose state was replaced: the
+        # estimate clamped to [dtmin, DT] where reset, the remesh's dt
+        # elsewhere
         dt = rm.dt
         if sett.adaptive and cfg.dt_reset_mode == "auto":
             was_reset = was_reset_adv | gather | reseed
             comps = (rm.lne, rm.cgx, rm.cgy, rm.px, rm.py)
+            tols = dict(abstol=sett.abstol, reltol=sett.reltol,
+                        order=self._rk_order)
             if cfg.advance_mode == "cuda":
-                dt_auto = auto_dt_cuda(self.winds, self.consts, self.flags, t,
-                                       comps, grid.x, grid.y,
-                                       self.uniform_proj, abstol=sett.abstol,
-                                       reltol=sett.reltol,
-                                       order=self._rk_order)
+                dt = auto_dt_cuda(self.winds, self.consts, self.flags, t,
+                                  comps, grid.x, grid.y, self.uniform_proj,
+                                  was_reset, dt, sett.dtmin, DT, **tols)
             else:
-                dt_auto = auto_dt(self.rhs, t, torch.stack(comps, dim=-1),
-                                  aux, abstol=sett.abstol,
-                                  reltol=sett.reltol, order=self._rk_order)
-            dt = torch.where(was_reset, torch.clamp(dt_auto, sett.dtmin, DT),
-                             dt)
+                dt = auto_dt_reset(self.rhs, t, torch.stack(comps, dim=-1),
+                                   aux, was_reset, dt, sett.dtmin, DT, **tols)
 
         metrics = self._build_metrics(
             reduce_counts, adv=adv, failed=failed, nan_mask=nan_mask,

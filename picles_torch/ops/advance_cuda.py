@@ -2,11 +2,13 @@
 
 Counterpart of ``picles_tpu/ops/advance_pallas.py``.  ``advance_cuda`` runs
 the whole adaptive embedded-RK loop of one model step per particle;
-``auto_dt_cuda`` Hairer's initial-dt estimate.  Each takes the component
+``auto_dt_cuda`` the step's dt reset to Hairer's initial-dt estimate, with
+the reset's clamp and select in the same kernel.  Each takes the component
 planes ``[nx, ny]`` (any shape, all alike, contiguous float32) on a card and
 launches its kernel, or raises: tensors on the CPU are refused.  The plain
-versions are ``tsit5.integrate_to`` and ``tsit5.auto_dt``; the model's
-resolved modes choose between kernel and plain version.
+versions are ``tsit5.integrate_to`` and ``auto_dt_reset`` (here, over
+``tsit5.auto_dt``); the model's resolved modes choose between kernel and
+plain version.
 
 The kernels compile the wind as a ``WindKernel`` descriptor (see
 ``forcing/winds.py``) and take the projection as the 5 uniform scalars
@@ -19,9 +21,10 @@ launches (not plain-version calls).
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
 a ``SolverConfig`` naming another method is refused.  ``simple=True``
-launches the previous kernel instead (the tableau a run-time parameter), the
-baseline the card checks hold K1 to bit for bit; no path of the package
-passes it, and its launches are not counted.
+launches the previous kernel instead (K1: the tableau a run-time parameter;
+K3: the bare estimate, then PyTorch's clamp and select), the baseline the
+card checks hold each kernel to bit for bit; no path of the package passes
+it, and its launches are not counted.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 
 from ..forcing.winds import WindKernel, Winds2D
 from .rhs import RHSConsts, TermFlags
-from .tsit5 import METHODS, SolverConfig
+from .tsit5 import METHODS, SolverConfig, auto_dt
 
 
 class AdvanceResult(NamedTuple):
@@ -152,34 +155,62 @@ advance_cuda.launches = 0
 def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  t: torch.Tensor, comps: Tuple[torch.Tensor, ...],
                  xn: torch.Tensor, yn: torch.Tensor, proj: Tuple[float, ...],
-                 *, abstol: float = 1e-4, reltol: float = 1e-3,
-                 order: float = 5.0, max_dt: float = 3600.0) -> torch.Tensor:
-    """Hairer's initial-dt estimate per particle (K3); semantics of
-    ``tsit5.auto_dt``."""
+                 was_reset: torch.Tensor, dt: torch.Tensor, dtmin: float,
+                 DT: float, *, abstol: float = 1e-4, reltol: float = 1e-3,
+                 order: float = 5.0, max_dt: float = 3600.0,
+                 simple: bool = False) -> torch.Tensor:
+    """The step's Hairer dt reset (K3): per lane ``was_reset ?
+    clamp(estimate, dtmin, DT) : dt``, the semantics of ``auto_dt_reset``.
+
+    ``was_reset`` bool; a lane that is not reset keeps its ``dt``, bit for
+    bit.  ``simple=True`` runs the previous kernel (the bare estimate of every
+    lane) followed by PyTorch's clamp and select, the baseline the card
+    checks hold K3 to."""
     from .cuda_build import (check_planes, check_status, library,
                              pointer_array)
 
     wind = kernel_wind(winds)
-    ins = [*comps, t, xn]
-    dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "xn"],
-                       [torch.float32] * 7)
+    ins = [*comps, t, xn, dt, was_reset]
+    f32 = torch.float32
+    dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "xn", "dt",
+                             "was_reset"], [f32] * 8 + [torch.bool])
     f, i = _rhs_wind_params(consts, flags, wind, proj)
-    f += [abstol, reltol, 1.0 / (order + 1.0), max_dt]
+    f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     out = torch.empty_like(t)
     ptrs = pointer_array(ins + [out])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_auto_dt(fp.ctypes.data, ip.ctypes.data,
-                                        ctypes.addressof(ptrs),
-                                        t.numel(), stream)
+        fn = (library().picles_auto_dt_simple if simple
+              else library().picles_auto_dt)
+        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                  t.numel(), stream)
     check_status(code, "auto-dt")
+    if simple:
+        return _clamp_select(out, was_reset, dt, dtmin, DT)
     auto_dt_cuda.launches += 1
     return out
 
 
 auto_dt_cuda.launches = 0
+
+
+def auto_dt_reset(rhs, t: torch.Tensor, z: torch.Tensor, aux,
+                  was_reset: torch.Tensor, dt: torch.Tensor, dtmin: float,
+                  DT: float, *, abstol: float = 1e-4, reltol: float = 1e-3,
+                  order: float = 5.0, max_dt: float = 3600.0) -> torch.Tensor:
+    """Plain version of ``auto_dt_cuda``: ``z`` the stacked components
+    ``[..., 5]``, ``aux`` the RHS's grid input."""
+    est = auto_dt(rhs, t, z, aux, abstol=abstol, reltol=reltol, order=order,
+                  max_dt=max_dt)
+    return _clamp_select(est, was_reset, dt, dtmin, DT)
+
+
+def _clamp_select(est, was_reset, dt, dtmin: float, DT: float):
+    """The reset applied to an estimate in PyTorch, as the JAX step applies
+    it: clamped to [dtmin, DT] where reset, ``dt`` elsewhere."""
+    return torch.where(was_reset, torch.clamp(est, dtmin, DT), dt)
 
 
 def uniform_projection(proj: torch.Tensor, pc: torch.Tensor

@@ -63,8 +63,13 @@ def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
     return path
 
 
-def load_checkpoint(path: str, device="cpu") -> ModelState2D:
-    """Read a checkpoint written by either package onto ``device``."""
+def load_checkpoint(path: str, device="cuda") -> ModelState2D:
+    """Read a checkpoint written by either package onto ``device``: the
+    CUDA device unless the caller names another; raises when a CUDA device
+    is asked for and there is none."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_checkpoint: no CUDA device found; pass "
+                           "device='cpu' to load the state onto the CPU")
     if os.path.isdir(path) and os.path.exists(
             os.path.join(path, "picles_meta.json")):
         raise _orbax_refused()

@@ -27,12 +27,14 @@ from picles_torch.forcing import winds as tw
 from picles_torch.ops import rhs as trhs
 from picles_torch.ops import tsit5 as tts
 from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
-                                           flag_bits, kernel_wind)
+                                           auto_dt_reset, flag_bits,
+                                           kernel_wind)
 
 torch.set_num_threads(1)
 
 DT = 600.0
 NX, NY = 8, 16
+X_SPLIT = 7e3   # half the lanes of the half-domain wind on each side
 PROJ = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
 
 
@@ -63,6 +65,9 @@ def _case(seed, wind):
     tc = trhs.make_rhs_consts(gamma=tid.gamma, constants=tid, params=tp)
     if wind == "constant":
         jwd, twd = jw.constant_winds(10.0, 10.0), tw.constant_winds(10.0, 10.0)
+    elif wind == "half_domain":
+        jwd = jw.half_domain_winds(10.0, 5.0, X_SPLIT, background=2.0)
+        twd = tw.half_domain_winds(10.0, 5.0, X_SPLIT, background=2.0)
     else:
         jwd = jw.time_cosine_winds(10.0, 5.0, 6 * 3600.0)
         twd = tw.time_cosine_winds(10.0, 5.0, 6 * 3600.0)
@@ -123,6 +128,60 @@ def test_auto_dt_matches_pallas_interpret(wind):
     np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-5)
 
 
+def _reset_case(wind, reset, seed):
+    """The dt reset's inputs: ``_case`` plus a reset mask (all, mixed or
+    none) and the remesh's dt; "nan" puts NaN and +-Inf into lne and dt on
+    reset and unreset lanes (a mixed mask)."""
+    case = _case(seed, wind)
+    rng = np.random.default_rng(seed + 100)
+    shape = (NX, NY)
+    was_reset = {"all": np.ones(shape, bool), "none": np.zeros(shape, bool),
+                 "mixed": rng.uniform(size=shape) < 0.5,
+                 "nan": rng.uniform(size=shape) < 0.5}[reset]
+    dt = rng.uniform(1e-3, 900.0, shape).astype(np.float32)
+    if reset == "nan":
+        comps = case[0]
+        for r, c, v in ((0, 1, np.nan), (1, 2, np.inf), (2, 3, -np.inf),
+                        (3, 4, np.nan)):
+            for m in (True, False):
+                i = np.argwhere(was_reset == m)[r + 2 * c]
+                comps[0][tuple(i)] = v
+                dt[tuple(np.argwhere(was_reset == m)[r + c])] = v
+    return case, was_reset, dt
+
+
+@pytest.mark.parametrize("wind", ["constant", "half_domain", "time_cosine"])
+@pytest.mark.parametrize("reset", ["all", "mixed", "none", "nan"])
+def test_auto_dt_reset_matches_pallas_interpret(wind, reset):
+    """The dt reset (the plain version of the fused K3) against the JAX
+    step's ``where(was_reset, clip(auto_dt_pallas(...), dtmin, DT), dt)``:
+    bit for bit on the unreset and the NaN lanes, rtol 1e-5 on the
+    estimate, as ``test_auto_dt_matches_pallas_interpret``."""
+    (comps, _, x, y, jc, tc, jwd, twd), was_reset, dt = _reset_case(
+        wind, reset, 3)
+    t = np.full((NX, NY), 1800.0, np.float32)
+    dtmin, order = 1e-4, 3.0 if wind == "half_domain" else 5.0
+    j_est = auto_dt_pallas(jwd.u, jwd.v, jc, jrhs.TermFlags(), jnp.asarray(t),
+                           tuple(jnp.asarray(c) for c in comps),
+                           jnp.asarray(x), jnp.asarray(y), PROJ,
+                           jnp.zeros((NX, NY)), order=order, interpret=True)
+    j = np.asarray(jnp.where(jnp.asarray(was_reset),
+                             jnp.clip(j_est, dtmin, DT), jnp.asarray(dt)))
+    p = auto_dt_reset(trhs.make_rhs(twd.u, twd.v, tc, trhs.TermFlags()),
+                      torch.as_tensor(t),
+                      torch.stack([torch.as_tensor(c) for c in comps], -1),
+                      _uniform_aux(x, y), torch.as_tensor(was_reset),
+                      torch.as_tensor(dt), dtmin, DT, order=order).numpy()
+    assert p.dtype == np.float32
+    np.testing.assert_array_equal(p[~was_reset], dt[~was_reset])
+    np.testing.assert_array_equal(np.isnan(p), np.isnan(j))
+    nan_lanes = was_reset & np.isnan(j)
+    assert (reset == "nan") == bool(nan_lanes.any())
+    est = was_reset & ~nan_lanes
+    np.testing.assert_allclose(p[est], j[est], rtol=1e-5)
+    assert np.all((p[est] >= np.float32(dtmin)) & (p[est] <= DT))
+
+
 def test_kernel_contract_helpers():
     assert flag_bits(trhs.TermFlags()) == 31
     assert flag_bits(trhs.TermFlags(input=False, direction=False)) == 1 + 4 + 8
@@ -143,6 +202,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         advance_cuda(twd, tc, trhs.TermFlags(), tts.SolverConfig(), DT, cs, t,
                      torch.full((NX, NY), 10.0), torch.as_tensor(active),
                      torch.as_tensor(x), torch.as_tensor(y), PROJ)
-    with pytest.raises(ValueError, match="not a CUDA device"):
-        auto_dt_cuda(twd, tc, trhs.TermFlags(), t, cs, torch.as_tensor(x),
-                     torch.as_tensor(y), PROJ)
+    for simple in (False, True):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            auto_dt_cuda(twd, tc, trhs.TermFlags(), t, cs, torch.as_tensor(x),
+                         torch.as_tensor(y), PROJ, torch.as_tensor(active),
+                         torch.full((NX, NY), 10.0), 1e-4, DT, simple=simple)

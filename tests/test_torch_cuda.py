@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on a card,
-K1, K2, K4 and K6 bit for bit against their ``_simple`` baselines (the
-kernels they replaced), a fused Simulation resumed from a checkpoint, and the
-sharded step on a (1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
+K1, K2, K3, K4 and K6 bit for bit against their ``_simple`` baselines (the
+kernels they replaced; K3's followed by PyTorch's clamp and select), a
+fused Simulation resumed from a checkpoint, and the sharded step on a
+(1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
 skips but the one that checks the refusal of CPU tensors.  On a machine
 with a card (and no JAX) run them with
 
@@ -129,20 +130,50 @@ def test_advance_kernel_matches_plain_adaptive(dev, method):
     assert int(p.naccept.max()) > 1   # the controller did adapt
 
 
-def test_auto_dt_kernel_matches_plain(dev):
-    from picles_torch import TermFlags, constant_winds
-    from picles_torch.ops.advance_cuda import auto_dt_cuda
+def _winds(name, n):
+    from picles_torch import (constant_winds, half_domain_winds,
+                              time_cosine_winds)
+
+    return {"constant": constant_winds(10.0, 10.0),
+            "half_domain": half_domain_winds(10.0, 5.0, 1e3 * (n - 1),
+                                             background=2.0),
+            "time_cosine": time_cosine_winds(10.0, 5.0, 6 * 3600.0)}[name]
+
+
+def _reset_inputs(dev, n, seed):
+    """A half-reset mask (whole warps of 32 unreset lanes along y among
+    single lanes) and the remesh's dt over [1e-3, 900] s."""
+    rng = np.random.default_rng(seed)
+    reset = rng.uniform(size=(n, n)) < 0.5
+    reset[::3, :32] = False
+    dt = rng.uniform(1e-3, 900.0, (n, n)).astype(np.float32)
+    return (torch.as_tensor(reset, device=dev),
+            torch.as_tensor(dt, device=dev))
+
+
+@pytest.mark.parametrize("wind", ["constant", "half_domain", "time_cosine"])
+def test_auto_dt_kernel_matches_plain(dev, wind):
+    """K3, the dt reset, against auto_dt_reset on a half-reset mask: the
+    unreset lanes keep their dt, the estimate within rtol 1e-5."""
+    from picles_torch import TermFlags
+    from picles_torch.ops.advance_cuda import auto_dt_cuda, auto_dt_reset
     from picles_torch.ops.rhs import RHSParams, make_rhs
-    from picles_torch.ops.tsit5 import auto_dt
 
     comps, _, g = _state(dev, seed=1)
-    winds = constant_winds(10.0, 10.0)
+    winds = _winds(wind, 64)
+    reset, dt = _reset_inputs(dev, 64, 2)
     t = torch.full_like(comps[0], 600.0)
     proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
-    k = auto_dt_cuda(winds, _consts(), TermFlags(), t, comps, g.x, g.y, proj)
-    p = auto_dt(make_rhs(winds.u, winds.v, _consts(), TermFlags()), t,
-                torch.stack(comps, -1), RHSParams(g.x, g.y, g.proj, g.pc))
+    before = auto_dt_cuda.launches
+    k = auto_dt_cuda(winds, _consts(), TermFlags(), t, comps, g.x, g.y, proj,
+                     reset, dt, 1e-4, 600.0)
+    assert auto_dt_cuda.launches == before + 1
+    p = auto_dt_reset(make_rhs(winds.u, winds.v, _consts(), TermFlags()), t,
+                      torch.stack(comps, -1),
+                      RHSParams(g.x, g.y, g.proj, g.pc), reset, dt, 1e-4,
+                      600.0)
     torch.testing.assert_close(k, p, rtol=1e-5, atol=0.0)
+    assert torch.equal(k[~reset], dt[~reset])
 
 
 @pytest.mark.parametrize("periodic", [True, False])
@@ -492,6 +523,47 @@ def test_advance_equals_simple_bitwise(dev, method, adaptive):
                     active, xn, yn, proj)
             want = advance_cuda(*args, simple=True)
             _assert_bitwise(advance_cuda(*args), want)
+
+
+@pytest.mark.parametrize("wind,flags", [
+    ("constant", "all"), ("half_domain", "all"), ("time_cosine", "all"),
+    ("constant", "no direction"), ("time_cosine", "no input or peak shift")])
+def test_auto_dt_equals_simple_bitwise(dev, wind, flags):
+    """K3 (the fused reset, the wind's kind and the default flags compiled
+    in; another flag set runs the generic instance) on a ragged 45 x 37
+    state with a half-reset mask and NaN and +-Inf in lne and dt, on reset
+    and unreset lanes, against the previous kernel followed by PyTorch's
+    clamp and select, for both estimate orders and at t0 = 2^19 s."""
+    from picles_torch import TermFlags
+    from picles_torch.ops.advance_cuda import auto_dt_cuda
+
+    comps, _, g = _state(dev, n=45, seed=13)
+    comps = [c[:, :37].clone() for c in comps]
+    reset, dt = _reset_inputs(dev, 45, 14)
+    reset, dt = reset[:, :37].contiguous(), dt[:, :37].clone()
+    for (i, j), v, r in (((4, 5), float("nan"), True),
+                         ((7, 11), float("inf"), True),
+                         ((8, 11), -float("inf"), False)):
+        comps[0][i, j], reset[i, j] = v, r
+    for (i, j), v, r in (((1, 1), float("nan"), True),
+                         ((2, 2), float("inf"), False),
+                         ((4, 4), -float("inf"), False)):
+        dt[i, j], reset[i, j] = v, r
+    xn, yn = g.x[:, :37].contiguous(), g.y[:, :37].contiguous()
+    tf = {"all": TermFlags(), "no direction": TermFlags(direction=False),
+          "no input or peak shift": TermFlags(input=False,
+                                              peak_shift=False)}[flags]
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    for order in (3.0, 5.0):
+        for t0 in (1800.0, 2.0 ** 19):
+            t = torch.full_like(dt, t0)
+            args = (_winds(wind, 45), _consts(), tf, t, tuple(comps), xn, yn,
+                    proj, reset, dt, 1e-4, 600.0)
+            want = auto_dt_cuda(*args, order=order, simple=True)
+            got = auto_dt_cuda(*args, order=order)
+            _assert_bitwise((got,), (want,))
+            assert bool(torch.isnan(got[4, 5]) & torch.isnan(got[7, 11]))
+            assert bool(torch.isinf(got[2, 2]) & torch.isinf(got[4, 4]))
 
 
 def test_deposit_over_48kb_of_shared_memory(dev):

@@ -396,7 +396,7 @@ def test_sharded_checkpoint_loads_everywhere_and_resumes(ranks):
     bit for bit; a single-device port run resumes from it too."""
     r = _result(ranks, "simulation")
     ck = str(r["ck"])
-    got = pt.load_checkpoint(ck)
+    got = pt.load_checkpoint(ck, device="cpu")
     np.testing.assert_array_equal(got.state.numpy(), r["quiet_state"])
     for k in pt.convert.PARTICLE_FIELDS:
         np.testing.assert_array_equal(getattr(got.particles, k).numpy(),

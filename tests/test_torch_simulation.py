@@ -270,11 +270,27 @@ def test_checkpoints_interchange_with_jax(tmp_path):
     back = jck.load_checkpoint(ppath)
     for a, b in zip(tck.state_leaves(tms), _jax_leaves(back)):
         np.testing.assert_array_equal(a.numpy(), b)
-    again = tck.load_checkpoint(ppath)
+    again = tck.load_checkpoint(ppath, device="cpu")
     for a, b in zip(tck.state_leaves(tms), tck.state_leaves(again)):
         assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         tck.save_checkpoint(str(tmp_path / "o"), tms, backend="orbax")
+
+
+def test_load_checkpoint_asks_for_the_card_by_default(tmp_path, monkeypatch):
+    """``load_checkpoint`` loads onto the CUDA device unless the caller names
+    another: on a machine without one it raises, naming ``device='cpu'``,
+    and does not load onto the CPU in its place."""
+    sim = _sim(stop_time=600.0)
+    sim.run()
+    ck = tck.save_checkpoint(str(tmp_path / "ck"), sim.state)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        tck.load_checkpoint(ck)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.load_checkpoint(ck, device="cuda:0")
+    back = tck.load_checkpoint(ck, device="cpu")
+    assert torch.equal(back.state, sim.state.state)
 
 
 def test_simulation_pickup_resumes_bitwise(tmp_path):
