@@ -21,7 +21,18 @@ just before and read just after:
    script on the same card over gloo (a 2 x 2 mesh) hold the collective
    deposit against the global K2 deposit, the sharded step against the
    single-device one, and a sharded ``Simulation.run`` with a store and a
-   checkpoint resume.
+   checkpoint resume;
+4. the gridded configuration: an ERA5-shaped wind record written by this
+   script as a NetCDF-3 file and read back through the port's
+   ``load_gridded_winds_2d``, at 1536^2 with a symmetric halo 3: a
+   storeless day of the fused configuration through ``Simulation.run``
+   (K1 and K6's gridded instances), checkpointed at step 72 and resumed
+   bit for bit, then the default configuration (K1, K2, K3) and the
+   "pallas" remesh (K1, K2, K5).  The gridded instances are held against
+   their plain versions over the same per-step planes at 256^2 (phase
+   "gridded-kernels"), a constant record bit for bit against the
+   constant-wind instances at 1536^2 ("gridded-anchor"), and timed on the
+   gridded states beside their bounds.
 
 It matches a small run on the card against the same model on the CPU, and
 times the kernels and the step beside their plain versions.  K1-K4 and K6
@@ -65,12 +76,14 @@ import torch.distributed as dist
 from picles_torch import (Boundary, GridStats, ODEParameters, ODESettings,
                           Simulation, TermFlags, WaveGrowth2D,
                           WaveGrowth2DConfig, cartesian_box, constant_winds,
-                          half_domain_winds, time_cosine_winds)
+                          half_domain_winds, load_gridded_winds_2d,
+                          time_cosine_winds)
 from picles_torch.core import fetch_relations as FR
 from picles_torch.models import wave_growth_2d as W2D
 from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
-from picles_torch.forcing.winds import WindKind
+from picles_torch.forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
+                                        gridded_kernel, pwl_winds)
 from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
                                            auto_dt_reset, kernel_wind)
 from picles_torch.ops.pic import (normalize_halo, scatter_accumulate_padded,
@@ -299,43 +312,76 @@ def k1_substep_ops(method: str, adaptive: bool) -> int:
     return ops
 
 
-def k1_bound(n: int, method: str, adaptive: bool, live, iters) -> dict:
-    """K1's bound on this run's inputs: 33 bytes in and 33 out a particle;
-    per live particle one RHS evaluation to start, then per substep tried
-    (accepted or rejected) S evaluations and the substep's own operations."""
+def gridded_wind_ops(B: int) -> int:
+    """Float operations of one evaluation of the gridded samplers: a + t s
+    for u and v (4), then per breakpoint t - b and its max once, a product
+    and a sum for each of u and v (6)."""
+    return 4 + 6 * B
+
+
+def k1_bound(n: int, method: str, adaptive: bool, live, iters,
+             n_wf: int = 0) -> dict:
+    """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
+    and a gridded wind's ``n_wf`` planes in (4 bytes each); per live
+    particle one RHS evaluation to start, then per substep tried (accepted
+    or rejected) S evaluations (each with the gridded samplers) and the
+    substep's own operations."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
-    ops = (float(live.sum()) + S * it) * RHS_OPS \
+    rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
+    ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    return bound(66.0 * n, ops)
+    return bound((66.0 + 4.0 * n_wf) * n, ops)
 
 
-def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False) -> dict:
+def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
+                  n_wf: int = 0) -> dict:
     """K2/K4/K6 on this run's shapes: per source 5 float planes and the mask
     (21 bytes) and about 13 operations (clamps, floors, weights, c * m); per
     output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
     the remesh's 60 bytes a node in and out (lne, cgx, cgy, px, py, dt, the
     three masks and x in; six planes, `on` and the branch bits out) and
-    about 60 operations."""
+    about 60 operations; with a gridded wind's ``n_wf`` planes, 4 bytes
+    each in place of the node x, and the samplers' operations."""
     (xl, xh), (yl, yh) = normalize_halo(halo)
     cells = (xl + xh + 1) * (yl + yh + 1)
-    nbytes = 21.0 * n_src + 12.0 * n_out + (60.0 * n_out if remesh else 0.0)
+    wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
+    nbytes = 21.0 * n_src + 12.0 * n_out + ((60.0 + wind) * n_out if remesh
+                                            else 0.0)
     ops = 13.0 * n_src + 11.0 * cells * n_out + (60.0 * n_out if remesh
                                                  else 0.0)
+    if remesh and n_wf:
+        ops += gridded_wind_ops((n_wf - 4) // 3) * n_out
     return bound(nbytes, ops)
+
+
+def remesh_bound(n: int, n_wf: int = 0) -> dict:
+    """K5: 72 bytes a node (43 in, 29 out) and about 60 operations; a
+    gridded wind's ``n_wf`` planes in place of the node x, and the
+    samplers' operations."""
+    wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
+    ops = 60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
+    return bound((72.0 + wind) * n, ops * n)
 
 
 def k3_bound(reset: torch.Tensor, wind) -> dict:
     """K3 on this run's inputs: per lane the mask (1 byte) in and dt out (4);
-    per reset lane the 5 components (20 bytes), the node x unless the wind
-    is constant and t where the wind varies in t (4 each), 2 RHS
-    evaluations, the norms, h0, h1 and the clamp (about 62 operations);
-    per lane that is not reset its dt (4 bytes) and no operation."""
+    per reset lane the 5 components (20 bytes), the node x where an
+    analytic wind reads it, t where the wind varies in t and a gridded
+    wind's 4 + 3B planes (4 bytes each), 2 RHS evaluations (with the
+    gridded samplers), the norms, h0, h1 and the clamp (about 62
+    operations); per lane that is not reset its dt (4 bytes) and no
+    operation."""
     n, r = reset.numel(), int(reset.sum())
-    per_reset = 20.0 + 4.0 * (wind.kind != WindKind.CONSTANT) \
-        + 4.0 * (wind.kind == WindKind.TIME_COSINE)
+    gridded = wind.kind == WindKind.GRIDDED
+    n_wf = 4 + 3 * wind.n_break if gridded else 0
+    per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.HALF_DOMAIN,
+                                            WindKind.TIME_COSINE)) \
+        + 4.0 * (wind.kind in (WindKind.TIME_COSINE, WindKind.GRIDDED)) \
+        + 4.0 * n_wf
+    rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0)
     return bound(5.0 * n + per_reset * r + 4.0 * (n - r),
-                 (2 * RHS_OPS + 62.0) * r)
+                 (2 * rhs + 62.0) * r)
 
 
 def half_reset_mask(shape, device, seed: int) -> torch.Tensor:
@@ -366,34 +412,51 @@ def assert_bitwise(what: str, new, simple) -> None:
                                  f"_simple baseline on {d} of {a.numel()}")
 
 
-def settings(solver: str):
+def settings(solver: str, **tols):
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
     return ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                        timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True, solver=solver)
+                       dtmin=1e-4, force_dtmin=True, solver=solver, **tols)
 
 
 def flagship_model(n: int, device, solver="bosh3", dt_reset_mode="carry",
-                   halo=((0, 3), (0, 3)), periodic=True, **modes):
+                   halo=((0, 3), (0, 3)), periodic=True, winds=None,
+                   tols=None, **modes):
     """bench.py's production configuration on the port: 2 km spacing,
-    periodic box, constant (10, 10) m/s winds, directional halo."""
+    periodic box, constant (10, 10) m/s winds (or ``winds``), directional
+    halo."""
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
                          periodic_boundary=(periodic, periodic),
                          device=device)
     cfg = WaveGrowth2DConfig(periodic_boundary=periodic,
                              dt_reset_mode=dt_reset_mode, halo=halo, **modes)
-    return WaveGrowth2D(grid, constant_winds(10.0, 10.0), settings(solver),
-                        config=cfg)
+    return WaveGrowth2D(grid, winds or constant_winds(10.0, 10.0),
+                        settings(solver, **(tols or {})), config=cfg)
 
 
-def default_model(n: int, device, **modes):
+def default_model(n: int, device, winds=None, tols=None, **modes):
     """The package default (tsit5, Hairer dt reset, halo 3) on the same
     box."""
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
                          periodic_boundary=(True, True), device=device)
-    return WaveGrowth2D(grid, constant_winds(10.0, 10.0), settings("tsit5"),
+    return WaveGrowth2D(grid, winds or constant_winds(10.0, 10.0),
+                        settings("tsit5", **(tols or {})),
                         config=WaveGrowth2DConfig(periodic_boundary=True,
                                                   **modes))
+
+
+def gridded_model(n: int, device, winds, path: str, tols=None):
+    """The gridded configuration (``winds`` a GriddedWinds2D) on the same
+    box: "production" the flagship with the fused remesh (K1, K6),
+    "pallas" with K5 (K1, K2, K5), both bosh3 with the carried dt;
+    "default" tsit5 with the Hairer reset (K1, K2, K3).  The halo is a
+    symmetric 3: gridded winds turn, and the flagship's directional halo
+    would clamp.  ``tols``: other solver tolerances (abstol, reltol)."""
+    if path == "default":
+        return default_model(n, device, winds=winds, tols=tols)
+    return flagship_model(n, device, halo=3, winds=winds, tols=tols,
+                          remesh_mode="fused" if path == "production"
+                          else "pallas")
 
 
 def perturbed_state(n: int, device, seed: int, ny: int = 0):
@@ -1098,7 +1161,8 @@ def flagship_deposit_inputs(flag, s_flag):
     g = flag.grid
     res = advance_cuda(flag.winds, flag.consts, flag.flags, flag.solver, DT,
                        (P.lne, P.cgx, P.cgy, P.px, P.py), P.t, P.dt, adv,
-                       g.x, g.y, flag.uniform_proj)
+                       g.x, g.y, flag.uniform_proj,
+                       wind_fields=flag.wind_fields(g, s_flag.time))
     core = (res.lne, res.cgx, res.cgy, res.x, res.y, res.dt, P.on,
             flag.active_mask, flag.boundary_mask, g.x, g.y, s_flag.time)
     chans = TR.particle_to_node(res.lne, res.cgx, res.cgy)
@@ -1152,7 +1216,7 @@ def phase_remesh_kernel_times(flag, s_flag, results):
         ms=kernel_ms(lambda: remesh_cuda(p, node, *core), "K5", 20),
         simple_ms=None,
         plain_ms=cuda_time_ms(lambda: remesh_core(p, node, *core), 5),
-        **bound(72.0 * n, 60.0 * n))
+        **remesh_bound(n))
     simple_ms, ms = turns_ms("K6", lambda: k6(True), lambda: k6(False), 20)
     results["K6"].update(ms=ms, simple_ms=simple_ms,
                          plain_ms=cuda_time_ms(plain_fused, 5),
@@ -1212,26 +1276,19 @@ def phase_remesh_backends(dev, results, timing):
     log("counters", f"remesh backends path launches {c}")
 
 
-def phase_production(dev, results, timing):
-    """This slice's main path, part 2: the production run.  A storeless day
-    of the fused flagship at FLAG_N^2 through Simulation.run; the same day
-    checkpointed at step 72 and resumed by a fresh Simulation, bitwise equal
-    at the end; a day with a CashStore at 256^2 whose last frame equals the
-    storeless run's final state."""
-    n = FLAG_N
-    model = flagship_model(n, dev, remesh_mode="fused")
+def run_day_resumed(model, tag: str):
+    """A storeless day of ``model`` through Simulation.run; the same day
+    checkpointed at step 72 and resumed by a fresh Simulation, bitwise
+    equal at the end.  Returns (full run, wall s, peak bytes, checkpoint
+    bytes, save s, load s)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
     full = Simulation.create(model, stop_time=DAY)
     t0 = time.perf_counter()
     full.run()
     wall = time.perf_counter() - t0
-    steps = full.n_steps()
-    m = check_state("production day", full.state, n_failed=0, n_clamped=0)
-    assert int(full.state.iteration) == steps == 145
+    assert int(full.state.iteration) == full.n_steps() == 145
     peak = torch.cuda.max_memory_allocated()
-
     leg = Simulation.create(model, stop_time=71 * DT)
     leg.run()
     assert int(leg.state.iteration) == 72
@@ -1248,7 +1305,23 @@ def phase_production(dev, results, timing):
     rest.run()
     for i, (a, b) in enumerate(zip(state_leaves(full.state),
                                    state_leaves(rest.state))):
-        assert torch.equal(a, b), f"resumed run differs in leaf {i}"
+        assert torch.equal(a, b), f"{tag}: resumed run differs in leaf {i}"
+    return full, wall, peak, size, t_save, t_load
+
+
+def phase_production(dev, results, timing):
+    """This slice's main path, part 2: the production run.  A storeless day
+    of the fused flagship at FLAG_N^2 through Simulation.run; the same day
+    checkpointed at step 72 and resumed by a fresh Simulation, bitwise equal
+    at the end; a day with a CashStore at 256^2 whose last frame equals the
+    storeless run's final state."""
+    n = FLAG_N
+    model = flagship_model(n, dev, remesh_mode="fused")
+    reset_counters()
+    full, wall, peak, size, t_save, t_load = run_day_resumed(
+        model, "production day")
+    steps = full.n_steps()
+    m = check_state("production day", full.state, n_failed=0, n_clamped=0)
     c = counters()
     assert c["K6"] == 145 + 72 + 73 and c["K1"] == c["K6"], c
     assert c["K2"] == 0 and c["K5"] == 0, c
@@ -1689,11 +1762,12 @@ def profile_config(tag: str, model, reps: int, steps: int = 10,
     return out
 
 
-def phase_profile(path: str) -> None:
+def phase_profile(path: str, gw) -> None:
     """The step's time split at FLAG_N^2: the configurations with the
-    kernels (traced), the flagship under each kernel remesh backend, both
-    configurations with the plain versions on the card, and the pallas
-    flagship through ShardedWaveGrowth2D on a (1, 1) NCCL mesh."""
+    kernels (traced), the flagship under each kernel remesh backend, the
+    gridded production configuration (record ``gw``), both configurations
+    with the plain versions on the card, and the pallas flagship through
+    ShardedWaveGrowth2D on a (1, 1) NCCL mesh."""
     n = FLAG_N
     res = {"flagship": profile_config("flagship", flagship_model(n, "cuda"), 7),
            "flagship_pallas": profile_config(
@@ -1703,6 +1777,9 @@ def phase_profile(path: str) -> None:
                "flagship fused", flagship_model(n, "cuda",
                                                 remesh_mode="fused"), 7),
            "default": profile_config("default", default_model(n, "cuda"), 7),
+           "gridded": profile_config(
+               "gridded fused", gridded_model(n, "cuda", gw, "production"),
+               7),
            "flagship_plain": profile_config(
                "flagship plain", flagship_model(n, "cuda", advance_mode="torch",
                                                 scatter_mode="dense"), 3),
@@ -1969,6 +2046,692 @@ def phase_probe(path: str) -> None:
         json.dump(res, f, indent=1)
 
 
+# ---------------------------------------------------------------------------
+# gridded (NetCDF) winds
+# ---------------------------------------------------------------------------
+
+# The ERA5-shaped record of the gridded configuration: 110^2 nodes 27.93 km
+# apart (ERA5's 0.25 degree class), so that its wrap period, 110 x 27.93 km,
+# is the periodic box's 1536 x 2 km = 3,072 km; 26 hourly frames (a day of
+# 145 steps stays inside it); a storm crossing the box, a calm region and
+# seeded noise.
+REC_N = 110
+REC_FRAMES = 26
+REC_SEED = 2024
+SQRT2 = float(np.sqrt(2.0))
+# assert_adaptive's rules for the adaptive gridded K1 checks at 256^2.  The
+# window records change sharply at each frame (up to 1 m/s a node), and a
+# lane whose substep straddles a frame time meets a kink in its wind: the
+# controller's accept or reject there turns on the last ulps, so more lanes
+# take another path than over analytic winds (fixed substeps agree within
+# 6e-6 all the same).  Measured on the card: tsit5 with B = 2, 96.45% of
+# the lanes within rtol 5e-3 in lne (99% is the analytic rule), and with
+# B = 1, naccept equal on 96.24% of the active lanes; one lane of 65,536
+# (tsit5, B = 1) ended 1.4e-3 cells apart in x, past the near-zero bound
+# 1e-3.  So at least 95% of the lanes within rtol 5e-3 (90% taking as many
+# substeps), and every lane within 0.1 or 5e-3 absolute.
+GRIDDED_SHARE = 0.95
+GRIDDED_LOOSE_ATOL = 5e-3
+# the gridded kernel entries of the kernels line, and the TPU kernel each
+# extends (the lines where it takes the wind planes)
+GRIDDED_REPLACES = {"K1": "picles_tpu/ops/advance_pallas.py:56",
+                    "K3": "picles_tpu/ops/advance_pallas.py:204",
+                    "K5": "picles_tpu/ops/remesh_pallas.py:124",
+                    "K6": "picles_tpu/ops/pic_pallas.py:417"}
+
+
+def record_winds(seed: int = REC_SEED):
+    """The record's (u, v) as float32 [time, lat, lon] (the CF layout, lat
+    north to south), the node coordinates (m) and the frame times (h): a
+    storm, a Gaussian blob of wind about 600 km across whose direction
+    turns through it, peaking near 15 m/s and crossing the box eastward at
+    8 m/s, over a 4 m/s south-westerly background; a calm region (below
+    sqrt(2) m/s) over about a tenth of the box, drifting westward at 3 m/s,
+    where particles switch off and are reseeded; 0.5 m/s of seeded noise;
+    and a lull (e-folding radius 300 km) over the storm's centre in the
+    first frame only, which the storm fills within the hour.  The
+    particles seeded off in the lull see winds above 2 m/s
+    (``wind_min_squared``) at t + DT, so the first step re-lights them;
+    later re-lights (an off particle samples the wind at its own lagged
+    t + DT) are rare."""
+    L = 2e3 * FLAG_N
+    R = 600e3 * L / 3072e3     # 600 km on the 3,072 km box
+    xs = np.arange(REC_N) * (L / REC_N)
+    ys = xs[::-1].copy()
+    hours = np.arange(REC_FRAMES, dtype=np.float64)
+    T, Y, X = np.meshgrid(hours * 3600.0, ys, xs, indexing="ij")
+
+    def dist(a, b):    # periodic
+        d = np.abs(a - b) % L
+        return np.minimum(d, L - d)
+
+    cx = (0.2 * L + 8.0 * T) % L
+    sx = (X - cx + 0.5 * L) % L - 0.5 * L
+    r2 = dist(X, cx) ** 2 + dist(Y, 0.5 * L) ** 2
+    g = np.exp(-r2 / R ** 2)
+    u = 4.0 * 0.8 + 11.0 * g
+    v = 4.0 * 0.6 + 9.0 * g * np.clip(sx / R, -1.0, 1.0)
+    calm = 1.0 - 0.97 * np.exp(-(dist(X, (0.7 * L - 3.0 * T) % L) ** 2
+                                 + dist(Y, 0.08 * L) ** 2) / (1.45 * R) ** 2)
+    lull = 1.0 - 0.99 * np.exp(-r2 / (0.5 * R) ** 2) * (T == 0.0)
+    rng = np.random.default_rng(seed)
+    u = (u * calm + 0.5 * rng.standard_normal(u.shape) * calm) * lull
+    v = (v * calm + 0.5 * rng.standard_normal(v.shape) * calm) * lull
+    return (u.astype(np.float32), v.astype(np.float32), xs, ys,
+            350_640.0 + hours)
+
+
+def write_record(path: str) -> str:
+    """The record as an ERA5-named NetCDF-3 file (scipy): lon, lat (north
+    to south), time in hours since an epoch, U10N and V10N [time, lat,
+    lon]."""
+    from scipy.io import netcdf_file
+
+    u, v, xs, ys, hours = record_winds()
+    with netcdf_file(path, "w") as f:
+        f.createDimension("time", len(hours))
+        f.createDimension("lat", len(ys))
+        f.createDimension("lon", len(xs))
+        for name, ax in (("lon", xs), ("lat", ys), ("time", hours)):
+            f.createVariable(name, "f8", (name,))[:] = ax
+        f.variables["time"].units = b"hours since 1980-01-01 00:00:00.0"
+        for name, a in (("U10N", u), ("V10N", v)):
+            f.createVariable(name, "f4", ("time", "lat", "lon"))[:] = a
+    return path
+
+
+_RECORD = {}
+
+
+def gridded_record(dev):
+    """The record written to a NetCDF-3 file in the git-ignored build
+    directory and loaded back through the port's loader onto ``dev`` (once
+    a process)."""
+    if dev not in _RECORD:
+        try:
+            import h5py  # noqa: F401
+            h5 = "installed"
+        except ImportError:
+            h5 = "not installed (the scipy NetCDF-3 reader)"
+        os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+            path = write_record(os.path.join(tmp, "era5_like.nc"))
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            gw = load_gridded_winds_2d(
+                path, u_name="U10N", v_name="V10N", x_name="lon",
+                y_name="lat", time_scale=3600.0, relative_time=True,
+                mode="wrap", device=dev)
+            t_load = time.perf_counter() - t0
+        u, _, _, _, _ = record_winds()
+        assert tuple(gw.u_data.shape) == (REC_FRAMES, REC_N, REC_N)
+        assert gw.t0 == 0.0 and gw.dt == 3600.0 and gw.dy > 0
+        assert gw.x_nodes is None and gw.y_nodes is None and \
+            gw.t_nodes is None
+        assert np.array_equal(gw.u_data.cpu().numpy(),
+                              np.transpose(u, (0, 2, 1))[:, :, ::-1])
+        speed = np.hypot(u, record_winds()[1])
+        log("gridded-record", f"{size / 2**20:.2f} MiB NetCDF-3 loaded in "
+                              f"{t_load:.3f} s, h5py {h5}; {REC_FRAMES} "
+                              f"frames of {REC_N}^2, dx {gw.dx:.1f} m, wind "
+                              f"speed {speed.min():.2f}-{speed.max():.2f} "
+                              f"m/s, calm (< sqrt 2) share "
+                              f"{float((speed < SQRT2).mean()):.3f}")
+        _RECORD[dev] = gw
+    return _RECORD[dev]
+
+
+def window_record(n: int, dev, cadence: float, const: bool = False):
+    """A record over an n^2 box for the kernel checks: winds varying
+    sharply between frames at ``cadence`` on a 10^2 grid, calm (below
+    sqrt(2) m/s) over its first three columns so that the remesh switches
+    particles off there; or (``const``)
+    (10, 10) m/s everywhere on nodes 4 grid spacings apart, where every
+    interpolation weight is a multiple of 1/16 and the interpolant is 10
+    exactly."""
+    rng = np.random.default_rng(7)
+    if const:
+        m = n // 4 + 1
+        u = np.full((4, m, m), 10.0, np.float32)
+        v, dx = u.copy(), 8e3
+    else:
+        base = rng.uniform(6.0, 14.0, (40, 1, 1))
+        u = (base + rng.standard_normal((40, 10, 10))).astype(np.float32)
+        v = (0.5 * base + rng.standard_normal((40, 10, 10))).astype(np.float32)
+        u[:, :3], v[:, :3] = 0.05 * u[:, :3], 0.05 * v[:, :3]
+        dx = 2e3 * n / 10
+    return GriddedWinds2D(u_data=torch.as_tensor(u, device=dev),
+                          v_data=torch.as_tensor(v, device=dev), x0=0.0,
+                          dx=dx, y0=0.0, dy=dx, t0=0.0, dt=cadence,
+                          mode="wrap")
+
+
+def kernel_winds(gw, grid, t0):
+    """(the kernel wind, the planes of the window at ``t0`` over ``grid``,
+    the plain versions' wind over the same planes)."""
+    B = gw.n_breakpoints(DT)
+    wf = gw.pallas_pwl_fields(grid.x, grid.y, t0, DT)
+    return Winds2D(u=gw.u, v=gw.v, kernel=gridded_kernel(B)), wf, \
+        pwl_winds(wf)
+
+
+def phase_gridded_kernels(dev, results):
+    """The gridded instances of K1, K3, K5 and K6 against their plain
+    versions over the same planes (``pwl_winds``) at 256^2: a 900 s
+    cadence (B = 1), a 400 s one (B = 2) and a 200 s one (B = 3: the
+    breakpoints past the kernels' register cache, read through the planes'
+    far pointer), the window [1500, 2100] s straddling frames.  K1 in
+    fixed-substep and adaptive mode, bosh3 and tsit5; K3 on a half-reset
+    mask; K5 on a state where every branch fires; K6 against K2 + K5 bit
+    for bit and its node planes against scatter_dense."""
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    flags = TermFlags()
+    n, t0 = 256, 1500.0
+    comps, dt0, active, grid = perturbed_state(n, dev, seed=0)
+    proj = (float(grid.proj[0, 0, 0, 0]), 0.0, 0.0,
+            float(grid.proj[0, 0, 1, 1]), 0.0)
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    t = torch.full_like(comps[0], t0)
+    err = {k: 0.0 for k in ("K1", "K3", "K5", "K6")}
+    for cadence in (900.0, 400.0, 200.0):
+        gw = window_record(n, dev, cadence)
+        kw, wf, pw = kernel_winds(gw, grid, torch.tensor(t0, device=dev))
+        B = kw.kernel.n_break
+        rhs = make_rhs(pw.u, pw.v, consts, flags)
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (False, True):
+                cfg = SolverConfig(method=method, adaptive=adaptive,
+                                   dtmin=1e-4, force_dtmin=True)
+                dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
+                k = advance_cuda(kw, consts, flags, cfg, DT, comps, t, dt,
+                                 active, grid.x, grid.y, proj, wind_fields=wf)
+                p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT,
+                                 dt, aux, active, cfg)
+                torch.cuda.synchronize()
+                tag = (f"K1 gridded B={B} {method} "
+                       f"{'adaptive' if adaptive else 'fixed'}")
+                names = ("lne", "cgx", "cgy", "x", "y")
+                assert torch.equal(k.failed, p.failed), f"{tag}: failed"
+                extra = ""
+                if adaptive:
+                    errs = [assert_adaptive(f"{tag} {nm}", kz, p.z[..., i],
+                                            min_share=GRIDDED_SHARE,
+                                            loose_atol=GRIDDED_LOOSE_ATOL)
+                            for i, (nm, kz) in enumerate(zip(names, k[:5]))]
+                    assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
+                    extra = "; " + assert_controller(
+                        tag, k, p, active, min_share=GRIDDED_SHARE - 0.05)
+                else:
+                    errs = [assert_close(f"{tag} {nm}", kz, p.z[..., i],
+                                         1e-5, 1e-6)
+                            for i, (nm, kz) in enumerate(zip(names, k[:5]))]
+                    assert torch.equal(k.naccept, p.naccept), tag
+                    assert torch.equal(k.dt, p.dt), tag
+                    err["K1"] = max(err["K1"], max(errs))
+                log("gridded-kernels", f"{tag}: max abs err {max(errs):.3e}, "
+                                       f"failed {int(k.failed.sum())}{extra}")
+        reset = half_reset_mask((n, n), dev, seed=20)
+        k = auto_dt_cuda(kw, consts, flags, t, comps, grid.x, grid.y, proj,
+                         reset, dt0, 1e-4, DT, wind_fields=wf)
+        p = auto_dt_reset(rhs, t, torch.stack(comps, dim=-1), aux, reset,
+                          dt0, 1e-4, DT)
+        e3 = assert_close(f"K3 gridded B={B}", k, p, 1e-5, 0.0)
+        assert torch.equal(bits(k[~reset]), bits(dt0[~reset]))
+        # the generic flag set's gridded instance
+        nodir = TermFlags(direction=False)
+        k = auto_dt_cuda(kw, consts, nodir, t, comps, grid.x, grid.y, proj,
+                         reset, dt0, 1e-4, DT, wind_fields=wf)
+        p = auto_dt_reset(make_rhs(pw.u, pw.v, consts, nodir), t,
+                          torch.stack(comps, dim=-1), aux, reset, dt0, 1e-4,
+                          DT)
+        e3 = max(e3, assert_close(f"K3 gridded B={B} generic", k, p, 1e-5,
+                                  0.0))
+        err["K3"] = max(err["K3"], e3)
+        m, node, core = remesh_case(dev, n, "wind_sea", True, seed=11)
+        core = core[:-1] + (torch.tensor(t0, device=dev),)
+        rp = m.remesh_params._replace(winds=kw)
+        k5 = remesh_cuda(rp, node, *core, wind_fields=wf)
+        e5 = assert_remesh(f"K5 gridded B={B}", k5,
+                           remesh_core(rp._replace(winds=pw), node, *core))
+        for bit in (1, 2, 4):
+            assert int(((k5.branch & bit) != 0).sum()) > 0, bit
+        err["K5"] = max(err["K5"], e5)
+        chans = TR.particle_to_node(*core[:3])
+        sact = (core[6] & core[7]).contiguous()
+        halo = ((1, 3), (0, 2))
+        nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact,
+                                      m.grid.stats, halo, rp, *core,
+                                      wind_fields=wf)
+        k2, _ = pic_gather(core[3], core[4], chans, sact, m.grid.stats, halo)
+        k5b = remesh_cuda(rp, k2, *core, wind_fields=wf)
+        S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                             m.grid.stats, halo)
+        torch.cuda.synchronize()
+        assert_bitwise(f"K6 gridded B={B} vs K2 + K5", (*nd, *rm),
+                       (*k2, *k5b))
+        for c in range(3):
+            err["K6"] = max(err["K6"], assert_close(
+                f"K6 gridded B={B} node ch{c}", nd[c], S[..., c], 1e-5,
+                1e-6 * float(S[..., c].abs().max())))
+        log("gridded-kernels", f"B={B}: K3 max abs err {e3:.3e}; K5 "
+                               f"{branch_counts(k5.branch)}, values max abs "
+                               f"err {e5:.3e}; K6 bitwise equal to K2 + K5")
+    for k, e in err.items():
+        results[f"{k} gridded"]["max_abs_err"] = e
+
+
+def phase_gridded_anchor(flag, s_flag, default, s_def):
+    """The constant record at FLAG_N^2 (zero slopes: u = 10 + t 0 = 10
+    exactly): K1 on the flagship state (both methods, both modes), K3 on
+    the default state, K5 and K6 on the flagship's deposit, each gridded
+    instance bit for bit its constant-wind instance."""
+    dev = s_flag.state.device
+    gw = window_record(FLAG_N, dev, 900.0, const=True)
+    g = flag.grid
+    kw, wf, _ = kernel_winds(gw, g, s_flag.time)
+    P = s_flag.particles
+    adv = P.on & flag.active_mask
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    for method in ("bosh3", "tsit5"):
+        for adaptive in (True, False):
+            cfg = dataclasses.replace(flag.solver, method=method,
+                                      adaptive=adaptive)
+            a = advance_cuda(kw, flag.consts, flag.flags, cfg, DT, comps, P.t,
+                             P.dt, adv, g.x, g.y, flag.uniform_proj,
+                             wind_fields=wf)
+            b = advance_cuda(flag.winds, flag.consts, flag.flags, cfg, DT,
+                             comps, P.t, P.dt, adv, g.x, g.y,
+                             flag.uniform_proj)
+            assert_bitwise(f"K1 constant record {method} adaptive="
+                           f"{adaptive}", a, b)
+    Q = s_def.particles
+    qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    kwd, wfd, _ = kernel_winds(gw, default.grid, s_def.time)
+    for reset in (torch.ones_like(Q.on), half_reset_mask(Q.t.shape, dev, 22)):
+        a, b = (auto_dt_cuda(w, default.consts, default.flags, Q.t, qc,
+                             default.grid.x, default.grid.y,
+                             default.uniform_proj, reset, Q.dt,
+                             default.settings.dtmin, DT,
+                             order=default._rk_order, wind_fields=f)
+                for w, f in ((kwd, wfd), (default.winds, ())))
+        assert_bitwise("K3 constant record", (a,), (b,))
+    core, chans, sact = flagship_deposit_inputs(flag, s_flag)
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats,
+                         flag.config.halo)
+    rk = flag.remesh_params._replace(winds=kw)
+    assert_bitwise("K5 constant record",
+                   remesh_cuda(rk, node, *core, wind_fields=wf),
+                   remesh_cuda(flag.remesh_params, node, *core))
+    a = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                          flag.config.halo, rk, *core, wind_fields=wf)
+    b = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                          flag.config.halo, flag.remesh_params, *core)
+    assert_bitwise("K6 constant record", (*a[0], *a[1]), (*b[0], *b[1]))
+    log("gridded-anchor", f"{FLAG_N}^2 constant record ({len(wf)} planes, "
+                          f"slopes 0): K1 (bosh3 and tsit5, adaptive and "
+                          f"fixed), K3 (all and half reset), K5 and K6 "
+                          f"bitwise equal to their constant-wind instances")
+
+
+def device_ops_per_step(model, ms, steps: int = 3):
+    """Device operations (kernels, copies, fills) per step in a
+    torch.profiler trace of ``steps`` steps; returns (ops, state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms = model.step_n_quiet(ms, steps)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / steps, ms
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call of ``fn`` in a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def plane_seconds(model, ms, reps: int = 10) -> dict:
+    """The per-step planes' cost as the step forms them (the record's
+    corners of the nodes kept by the model) and formed afresh (corners
+    and all, as before the model kept them), in turns (afresh, kept, kept,
+    afresh): device ms a call (CUDA events), device ops a call, and host ms
+    a call of the kept form (enqueue, no synchronisation)."""
+    g, gw = model.grid, model.gridded_winds
+    DT_ = float(model.settings.timestep)
+
+    def kept():
+        return model.wind_fields(g, ms.time)
+
+    def fresh():
+        return gw.pallas_pwl_fields(g.x, g.y, ms.time, DT_)
+
+    f1, k1 = cuda_time_ms(fresh, reps), cuda_time_ms(kept, reps)
+    k2, f2 = cuda_time_ms(kept, reps), cuda_time_ms(fresh, reps)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        kept()
+    host_ms = (time.perf_counter() - h0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return dict(device_ms=(k1 + k2) / 2, fresh_device_ms=(f1 + f2) / 2,
+                ops=device_ops(kept), fresh_ops=device_ops(fresh),
+                host_ms=host_ms)
+
+
+def day_branch_counts(model, want) -> dict:
+    """A day of ``model`` step by step from the seed, every counter summed
+    over its steps on the device; its last state must equal ``want`` (the
+    day ``Simulation.run`` ran) bit for bit."""
+    ms = model.init_state()
+    names = [f.name for f in dataclasses.fields(ms.metrics)]
+    total = torch.zeros(len(names), dtype=torch.int64, device=ms.state.device)
+    for _ in range(145):
+        ms = model.step(ms)
+        total += torch.stack([getattr(ms.metrics, k).to(torch.int64)
+                              for k in names])
+    for i, (a, b) in enumerate(zip(state_leaves(ms), state_leaves(want))):
+        assert torch.equal(a, b), f"stepwise day differs in leaf {i}"
+    day = dict(zip(names, total.tolist()))
+    del day["substeps_max"]   # a sum of maxima means nothing
+    return day
+
+
+def phase_gridded_main_path(dev, gw, results, timing):
+    """The gridded configuration at FLAG_N^2 from the NetCDF-3 record, each
+    path with the counters set to 0 just before and read just after: the
+    production day (fused, K1 and K6 once a step, checkpointed at step 72
+    and resumed bit for bit), the default configuration (K1, K2, K3) and
+    the "pallas" remesh (K1, K2, K5), 3 steps each.  Returns the production
+    model and its last state and the default ones, for
+    ``gridded_kernel_times``."""
+    n = FLAG_N
+    prod = gridded_model(n, dev, gw, "production")
+    B = prod._wind_B
+    n_wf = 4 + 3 * B
+    assert B == 1 and prod.resolved_config().advance_mode == "cuda"
+    reset_counters()
+    full, wall, peak, size, t_save, t_load = run_day_resumed(
+        prod, "gridded production day")
+    m = check_state("gridded production day", full.state, n_failed=0,
+                    n_clamped=0)
+    c = counters()
+    assert c["K6"] == 145 + 72 + 73 and c["K1"] == c["K6"], c
+    assert c["K2"] == c["K3"] == c["K5"] == 0, c
+    launches = {"K1": c["K1"], "K6": c["K6"]}
+    log("counters", f"gridded production path launches {c}")
+    day = day_branch_counts(prod, full.state)
+    log("gridded-main", f"the day again step by step, bitwise equal to "
+                        f"Simulation.run's; counters summed over its 145 "
+                        f"steps: {day}")
+    timing.update(gridded_day_wall_s=wall, gridded_day_steps=145,
+                  gridded_day_ms_per_step=wall * 1e3 / 145,
+                  gridded_day_pushes_per_s=n * n * 145 / wall,
+                  gridded_peak_bytes=peak, gridded_checkpoint_bytes=size)
+    log("gridded-main", f"{n}^2 fused, B={B} ({n_wf} planes a step), 1 day "
+                        f"storeless: 145 steps in {wall:.3f} s wall "
+                        f"({wall * 1e3 / 145:.3f} ms/step, "
+                        f"{n * n * 145 / wall:.4e} pushes/s), peak "
+                        f"{peak / 2**30:.3f} GiB; checkpoint at 72 "
+                        f"{size / 2**20:.1f} MiB ({t_save:.2f} s / "
+                        f"{t_load:.2f} s), resumed bitwise equal; metrics {m}")
+    s_prod = full.state
+    ops, _ = device_ops_per_step(prod, s_prod)
+    pl = plane_seconds(prod, s_prod)
+    timing.update(gridded_ops_per_step=ops,
+                  gridded_planes_device_ms=pl["device_ms"],
+                  gridded_planes_fresh_device_ms=pl["fresh_device_ms"],
+                  gridded_planes_ops=pl["ops"],
+                  gridded_planes_fresh_ops=pl["fresh_ops"],
+                  gridded_planes_host_ms=pl["host_ms"],
+                  gridded_day_planes_device_s=pl["device_ms"] * 145 / 1e3)
+    log("gridded-main", f"{ops:.1f} device ops per step; the per-step planes "
+                        f"{pl['device_ms']:.4f} ms of device time in "
+                        f"{pl['ops']} ops ({pl['fresh_device_ms']:.4f} ms in "
+                        f"{pl['fresh_ops']} ops with the corners formed "
+                        f"afresh, in turns), {pl['host_ms']:.4f} ms of host "
+                        f"enqueue a step ({pl['device_ms'] * 145 / 1e3:.3f} "
+                        f"s of device time in the day)")
+
+    states = {}
+    fired = {}
+    for path, steps in (("default", 3), ("pallas", 3)):
+        model = gridded_model(n, dev, gw, path)
+        ms = model.step(model.init_state())
+        mets = [ms.metrics]
+        reset_counters()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            ms = model.step(ms)
+            mets.append(ms.metrics)
+        end.record()
+        torch.cuda.synchronize()
+        ms_step = start.elapsed_time(end) / steps
+        m = check_state(f"gridded {path}", ms, n_failed=0, n_clamped=0)
+        for mt in mets:
+            assert int(mt.n_failed) == 0 and int(mt.n_clamped) == 0, path
+            for k, v in mt.as_dict().items():
+                fired[k] = fired.get(k, 0) + v
+        c = counters()
+        assert c["K1"] == steps, c
+        if path == "default":
+            assert c["K2"] == c["K3"] == steps and c["K5"] == c["K6"] == 0, c
+            launches["K3"] = c["K3"]
+        else:
+            assert c["K2"] == c["K5"] == steps and c["K3"] == c["K6"] == 0, c
+            launches["K5"] = c["K5"]
+        launches["K1"] += c["K1"]
+        log("counters", f"gridded {path} path launches {c}")
+        timing[f"gridded_{path}_ms_per_step"] = ms_step
+        timing[f"gridded_{path}_pushes_per_s"] = n * n / (ms_step / 1e3)
+        log("gridded-main", f"{n}^2 {path}: {ms_step:.3f} ms/step, "
+                            f"{n * n / (ms_step / 1e3):.4e} pushes/s; "
+                            f"metrics {m}")
+        states[path] = (model, ms)
+    log("gridded-main", f"branch counts over the default and pallas runs "
+                        f"(4 steps each from the seed): off {fired['n_off']}, "
+                        f"re-light {fired['n_relight']}, reseed "
+                        f"{fired['n_reseed']}, gather {fired['n_gather']}; "
+                        f"over the production day: off {day['n_off']}, "
+                        f"re-light {day['n_relight']}, reseed "
+                        f"{day['n_reseed']}")
+    # the calm region switches particles off from the seed on and the
+    # remesh reseeds where it has passed; the first frame's lull re-lights
+    # particles in the first step of every path
+    for k in ("n_off", "n_relight", "n_reseed"):
+        assert day[k] > 0, (k, day)
+    for k in ("n_off", "n_relight"):
+        assert fired[k] > 0, (k, fired)
+    for k, v in launches.items():
+        results[f"{k} gridded"]["launches"] = v
+        assert v > 0, k
+    return (prod, s_prod, *states["default"])
+
+
+def gridded_kernel_times(prod, s_prod, default, s_def, results):
+    """The gridded instances at FLAG_N^2 on the gridded states: K1 on the
+    production day's last state (B = 1) and on the default configuration's,
+    K3 on the default state with every lane reset, K5 and K6 on the
+    production state's deposit; each held against its plain version and
+    timed beside it with its bound.  K1, K3 and K5's wrappers launch their
+    kernel and nothing else on the card, so CUDA events time them
+    (``cuda_time_ms``): late in a process a profiler trace can lose launches
+    and misread the rest (a K5 trace of 19 of 20 launches read 0.0389 ms,
+    below the kernel's bound, on the card); K6's wrapper adds the clamped
+    count, so K6 is taken from a trace (``kernel_ms``)."""
+    n = FLAG_N * FLAG_N
+    out = {}
+    for tag, model, st in (("flagship", prod, s_prod),
+                           ("default", default, s_def)):
+        P, g = st.particles, model.grid
+        adv = P.on & model.active_mask
+        comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+        wf = model.wind_fields(g, st.time)
+        pw = pwl_winds(wf)
+        rhs = make_rhs(pw.u, pw.v, model.consts, model.flags)
+
+        def k1():
+            return advance_cuda(model.winds, model.consts, model.flags,
+                                model.solver, DT, comps, P.t, P.dt, adv, g.x,
+                                g.y, model.uniform_proj, wind_fields=wf)
+
+        def k1_plain():
+            return integrate_to(rhs, torch.stack(comps, dim=-1), P.t,
+                                P.t + DT, P.dt, model.aux, adv, model.solver)
+
+        k, p = k1(), k1_plain()
+        assert torch.equal(k.failed, p.failed), f"K1 gridded {tag}: failed"
+        e = max(assert_adaptive(f"K1 gridded {tag} {nm}", kz, p.z[..., i],
+                                loose_atol=GRIDDED_LOOSE_ATOL)
+                for i, (nm, kz) in enumerate(zip(("lne", "cgx", "cgy", "x",
+                                                  "y"), k[:5])))
+        ctl = assert_controller(f"K1 gridded {tag}", k, p, adv)
+        b = k1_bound(n, model.solver.method, True, adv,
+                     p.naccept + p.nreject, n_wf=len(wf))
+        out[f"K1 {tag}"] = dict(ms=cuda_time_ms(k1, 10),
+                                plain_ms=cuda_time_ms(k1_plain, 2),
+                                max_abs_err=e, **b)
+        log("gridded-kernels", f"K1 {tag} state {FLAG_N}^2 "
+                               f"({model.solver.method}): {ctl}")
+        if tag == "default":
+            reset = torch.ones_like(P.on)
+            sett = model.settings
+
+            def k3():
+                return auto_dt_cuda(model.winds, model.consts, model.flags,
+                                    P.t, comps, g.x, g.y, model.uniform_proj,
+                                    reset, P.dt, sett.dtmin, DT,
+                                    abstol=sett.abstol, reltol=sett.reltol,
+                                    order=model._rk_order, wind_fields=wf)
+
+            def k3_plain():
+                return auto_dt_reset(rhs, P.t, torch.stack(comps, dim=-1),
+                                     model.aux, reset, P.dt, sett.dtmin, DT,
+                                     abstol=sett.abstol, reltol=sett.reltol,
+                                     order=model._rk_order)
+
+            e3 = assert_close("K3 gridded default state", k3(), k3_plain(),
+                              1e-5, 0.0)
+            out["K3"] = dict(ms=cuda_time_ms(k3, 20),
+                             plain_ms=cuda_time_ms(k3_plain, 5),
+                             max_abs_err=e3,
+                             **k3_bound(reset, kernel_wind(model.winds)))
+    core, chans, sact = flagship_deposit_inputs(prod, s_prod)
+    wf = prod.wind_fields(prod.grid, s_prod.time)
+    g, halo = prod.grid, prod.config.halo
+    rp = prod.remesh_params
+    prp = rp._replace(winds=pwl_winds(wf))
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    k5 = remesh_cuda(rp, node, *core, wind_fields=wf)
+    e5 = assert_remesh("K5 gridded flagship", k5,
+                       remesh_core(prp, node, *core))
+
+    def plain_fused():
+        Sp, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                              g.stats, halo)
+        return remesh_core(prp, tuple(Sp[..., c] for c in range(3)), *core)
+
+    # K6's remesh tail is K5's over K2's node sums (held just above against
+    # remesh_core), so its outputs are held to K5's bit for bit, and its
+    # node planes to scatter_dense's as the analytic phase holds them
+    nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                  halo, rp, *core, wind_fields=wf)
+    for a, b in zip(nd, node):
+        assert torch.equal(a, b), "K6 gridded: node planes != K2's"
+    for f in rm._fields:
+        assert torch.equal(getattr(rm, f), getattr(k5, f)), \
+            f"K6 gridded flagship: {f} != K2 + K5"
+    S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                         g.stats, halo)
+    e6 = max(assert_close(f"K6 gridded flagship node ch{c}", nd[c], S[..., c],
+                          1e-5, 1e-6 * float(S[..., c].abs().max()))
+             for c in range(3))
+    del S
+    log("K6", f"{FLAG_N}^2 gridded flagship (halo {halo}, B = "
+              f"{prod._wind_B}): remesh outputs equal to K2 + K5 bitwise "
+              f"({branch_counts(rm.branch)}), K5 values vs plain max abs err "
+              f"{e5:.3e}; node planes vs plain max abs err {e6:.3e}")
+    out["K5"] = dict(ms=cuda_time_ms(lambda: remesh_cuda(
+        rp, node, *core, wind_fields=wf), 20),
+        plain_ms=cuda_time_ms(lambda: remesh_core(prp, node, *core), 5),
+        max_abs_err=e5, **remesh_bound(n, len(wf)))
+    out["K6"] = dict(ms=kernel_ms(lambda: pic_gather_remesh(
+        core[3], core[4], chans, sact, g.stats, halo, rp, *core,
+        wind_fields=wf), "K6", 20), plain_ms=cuda_time_ms(plain_fused, 5),
+        max_abs_err=e6, **deposit_bound(n, n, halo, remesh=True,
+                                        n_wf=len(wf)))
+    for key, r in out.items():
+        kk = key.split()[0] + " gridded"
+        if key == "K1 default":
+            results[kk].update({"default_" + f: r[f] for f in
+                                ("ms", "plain_ms", "bound_ms", "bound_by")})
+        else:
+            results[kk].update(ms=r["ms"], plain_ms=r["plain_ms"],
+                               bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+        if not key.startswith("K1"):   # K1's entry: fixed-substep errors
+            results[kk]["max_abs_err"] = max(
+                results[kk].get("max_abs_err", 0.0), r["max_abs_err"])
+        log("kernel-time", f"{key} gridded: {r['ms']:.4f} ms, plain "
+                           f"{r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# The gridded card-vs-CPU check's solver tolerances.  The card's kernels
+# read the planes, the CPU's plain path the interpolant: equal in exact
+# arithmetic, an ulp of wind apart in float32.  At the default abstol 1e-4
+# / reltol 1e-3, young seas from the seed turn that ulp into other substep
+# paths: the plain advance alone, over the interpolant and over the planes
+# of one window on the CPU, differs by 1.8% in lne on the default
+# configuration's first step (bosh3 production 1.9e-4; measured at 64^2).
+# At 1e-7 / 1e-6 the same comparison (with host-compiled kernels standing
+# in for the card's) agrees within 1.2e-5 over 3 steps, so the 5e-3 of
+# phase_card_vs_cpu holds with room to spare.
+CARD_VS_CPU_TOLS = dict(abstol=1e-7, reltol=1e-6)
+
+
+def phase_gridded_card_vs_cpu(gw):
+    """64^2 (the record's corner of 128 km): the gridded production and
+    default models with the kernels on the card (the planes) against the
+    same models on the CPU (the interpolant), 3 steps at the solver
+    tolerances CARD_VS_CPU_TOLS, held at phase_card_vs_cpu's 5e-3; every
+    counter equal but substeps_max, the most substeps a lane took, within
+    2."""
+    for path in ("production", "default"):
+        mg = gridded_model(64, "cuda", gw, path, tols=CARD_VS_CPU_TOLS)
+        mc = gridded_model(64, "cpu", gw, path, tols=CARD_VS_CPU_TOLS)
+        assert mc.resolved_config().advance_mode == "torch"
+        sg, sc = mg.init_state(), mc.init_state()
+        for _ in range(3):
+            sg, sc = mg.step(sg), mc.step(sc)
+        S = sc.state
+        log("gridded-card-vs-cpu", f"{path} 64^2, 3 steps: max abs err "
+                                   f"{max_abs(sg.state.cpu(), S):.3e} of "
+                                   f"{float(S.abs().max()):.3e}")
+        err = assert_close(f"gridded card vs CPU {path}", sg.state.cpu(), S,
+                           5e-3, 1e-6 * float(S.abs().max()))
+        mg_, mc_ = sg.metrics.as_dict(), sc.metrics.as_dict()
+        smax = (mg_.pop("substeps_max"), mc_.pop("substeps_max"))
+        assert mg_ == mc_ and abs(smax[0] - smax[1]) <= 2, \
+            f"gridded card vs CPU {path}: {mg_} {smax[0]} vs {mc_} {smax[1]}"
+        log("gridded-card-vs-cpu", f"{path}: within 5e-3, counters equal, "
+                                   f"substeps_max {smax[0]} vs {smax[1]} "
+                                   f"(max abs err {err:.3e})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -2020,23 +2783,37 @@ def main(argv=None) -> int:
                    source="picles_torch/csrc/pic_gather.cu",
                    replaces="picles_tpu/ops/pic_pallas.py:375"),
     }
+    # the gridded instances: the same kernels with the wind's planes
+    for k in ("K1", "K3", "K5", "K6"):
+        results[f"{k} gridded"] = dict(
+            results[k], name=results[k]["name"] + "_gridded",
+            replaces=GRIDDED_REPLACES[k], simple_ms=None)
     timing = {}
     phase_k1(dev, results)
     phase_k3(dev, results)
     phase_k2(dev, results)
     phase_k5_k6(dev, results)
+    phase_gridded_kernels(dev, results)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
     phase_k3_times(default, s_def, results)
+    gw = gridded_record(dev)
     if args.profile:
         # before the kernels' in-turns timing: a call that had run a few
         # dozen profiler sessions lost one K1 launch from every step trace
-        phase_profile(args.profile)
+        phase_profile(args.profile, gw)
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
+    gridded = phase_gridded_main_path(dev, gw, results, timing)
     phase_card_vs_cpu()
+    phase_gridded_card_vs_cpu(gw)
+    phase_gridded_anchor(flag, s_flag, default, s_def)
     phase_kernel_times(flag, s_flag, default, s_def, results)
     phase_remesh_kernel_times(flag, s_flag, results)
     phase_k4(dev, flag, s_flag, results)
+    # after the analytic instances' timing: each profiler trace a process
+    # runs makes the next one likelier to miss launches
+    gridded_kernel_times(*gridded, results)
+    del gridded
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
     phase_sharded_1x1(dev, results, timing)
@@ -2044,7 +2821,8 @@ def main(argv=None) -> int:
 
     kernels = [dict(results[k], library_ms=None,
                     short_traces=SHORT_TRACES.get(k, []))
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 gridded",
+                         "K3 gridded", "K5 gridded", "K6 gridded")]
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

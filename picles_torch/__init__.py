@@ -1,14 +1,18 @@
 """PiCLES on PyTorch and CUDA: the WaveGrowth2D step with hand-written
 Hopper kernels (advance, auto-dt, CIC gather, remesh, and the gather with
 the remesh fused) and plain PyTorch versions of each, driven by
-``Simulation`` with stores and checkpoints.  The JAX package ``picles_tpu``
+``Simulation`` with stores and checkpoints, forced by analytic winds or a
+gridded (NetCDF) wind record.  The JAX package ``picles_tpu``
 is the reference it is tested against; this package imports no JAX."""
 
-from .convert import (config_from_jax, grid_from_numpy, settings_from_values,
+from .convert import (config_from_jax, flags_from_jax, grid_from_numpy,
+                      gridded_from_jax, settings_from_values,
                       state_from_numpy, state_to_numpy)
 from .core.constants import IDConstants, ODEParameters, ODESettings
-from .forcing.winds import (WindKernel, WindKind, Winds2D, constant_winds,
-                            half_domain_winds, time_cosine_winds)
+from .forcing.winds import (GriddedWinds2D, WindKernel, WindKind, Winds2D,
+                            constant_winds, gridded_samplers,
+                            half_domain_winds, load_gridded_winds_2d,
+                            time_cosine_winds)
 from .grids.base import Boundary, Grid2D, GridStats
 from .grids.cartesian import cartesian_box, cartesian_grid_2d
 from .models.state import ModelState2D, Particles2D, StepMetrics
@@ -27,14 +31,17 @@ from .simulation.store import (CashStore, EmptyStore, StateStore,
 
 __all__ = [
     "Boundary", "CashStore", "EmptyStore", "Grid2D", "GridStats",
-    "IDConstants", "ModelState2D", "ODEParameters", "ODESettings",
+    "GriddedWinds2D", "IDConstants", "ModelState2D", "ODEParameters",
+    "ODESettings",
     "ParticleDefaults2D", "Particles2D", "RemeshParams", "RemeshResult",
     "Simulation", "SolverConfig", "StateStore", "StepMetrics", "TermFlags",
     "WaveGrowth2D", "WaveGrowth2DConfig", "WindKernel", "WindKind",
     "Winds2D", "advance_cuda", "auto_dt_cuda", "cartesian_box",
     "cartesian_grid_2d", "config_from_jax", "constant_winds",
-    "convert_store_to_tuple", "grid_from_numpy", "half_domain_winds",
-    "load_checkpoint", "pic_gather", "pic_gather_remesh", "remesh_core",
+    "convert_store_to_tuple", "flags_from_jax", "grid_from_numpy",
+    "gridded_from_jax", "gridded_samplers", "half_domain_winds",
+    "load_checkpoint", "load_gridded_winds_2d", "pic_gather",
+    "pic_gather_remesh", "remesh_core",
     "remesh_cuda", "save_checkpoint", "settings_from_values",
     "state_from_numpy", "state_to_numpy", "time_cosine_winds",
 ]

@@ -1,10 +1,11 @@
-"""Carry grids, states, parameters and configs across from the JAX package.
+"""Carry grids, states, parameters, configs, term flags and gridded wind
+records across from the JAX package.
 
 The model has no learned weights: what the two packages share is the grid,
-the step state and the static parameters.  These helpers take the JAX
-package's values as numpy arrays and plain attributes (this module imports
-no JAX), so a test can seed both packages with the identical state and
-step them side by side.
+the step state, the static parameters and the forcing.  These helpers take
+the JAX package's values as numpy arrays and plain attributes (this module
+imports no JAX), so a test can seed both packages with the identical state
+and step them side by side.
 """
 
 from __future__ import annotations
@@ -16,14 +17,18 @@ import numpy as np
 import torch
 
 from .core.constants import IDConstants, ODEParameters, ODESettings
+from .forcing.winds import GriddedWinds2D
 from .grids.base import Boundary, Grid2D, GridStats
 from .models.state import ModelState2D, Particles2D, StepMetrics
 from .models.wave_growth_2d import ParticleDefaults2D, WaveGrowth2DConfig
+from .ops.rhs import TermFlags
 
 GRID_FIELDS = ("x", "y", "dx_m", "dy_m", "area", "angle", "mask", "proj", "pc")
 PARTICLE_FIELDS = ("lne", "cgx", "cgy", "px", "py", "t", "dt", "on")
 _MODES = {"pallas": "cuda", "xla": "torch", "auto": "auto",
           "dense_pallas": "dense_cuda", "dense": "dense"}
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
 
 
 def _get(obj: Any, name: str):
@@ -51,18 +56,20 @@ def grid_from_numpy(arrays: Mapping[str, np.ndarray], stats, *, device,
 
 
 def state_from_numpy(state: np.ndarray, particles: Mapping[str, np.ndarray],
-                     time, iteration, *, device) -> ModelState2D:
+                     time, iteration, *, device,
+                     dtype: torch.dtype = torch.float32) -> ModelState2D:
     """A ``ModelState2D`` from the JAX state's leaves as numpy arrays:
     ``state [nx, ny, 3]``, the particle planes (``PARTICLE_FIELDS``), the
-    clock and the iteration.  Counters start at zero."""
-    def t(a, dtype):
-        return torch.as_tensor(np.array(a), device=device).to(dtype)
+    clock and the iteration, the floats as ``dtype`` (the model's).
+    Counters start at zero."""
+    def t(a, dt):
+        return torch.as_tensor(np.array(a), device=device).to(dt)
 
-    parts = {k: t(particles[k], torch.bool if k == "on" else torch.float32)
+    parts = {k: t(particles[k], torch.bool if k == "on" else dtype)
              for k in PARTICLE_FIELDS}
-    return ModelState2D(state=t(state, torch.float32),
+    return ModelState2D(state=t(state, dtype),
                         particles=Particles2D(**parts),
-                        time=t(time, torch.float32),
+                        time=t(time, dtype),
                         iteration=t(iteration, torch.int32),
                         metrics=StepMetrics.zeros(device))
 
@@ -94,18 +101,46 @@ def settings_from_values(ode_settings, ode_params=None, constants=None
     return sett, params, cid
 
 
+def flags_from_jax(flags) -> TermFlags:
+    """The port's ``TermFlags`` from a ``picles_tpu`` ``TermFlags``
+    (attributes or a mapping)."""
+    return TermFlags(**{f.name: bool(_get(flags, f.name))
+                        for f in dataclasses.fields(TermFlags)})
+
+
+def gridded_from_jax(gw, device="cpu") -> GriddedWinds2D:
+    """The port's ``GriddedWinds2D`` on ``device`` from a ``picles_tpu``
+    one (attributes or a mapping): the record's arrays and node tables as
+    float32 tensors (taken as numpy arrays), the axis metadata and the
+    edge modes as they are."""
+    def tensor(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a, dtype=np.float32), device=device)
+
+    return GriddedWinds2D(
+        u_data=tensor(_get(gw, "u_data")), v_data=tensor(_get(gw, "v_data")),
+        **{k: float(_get(gw, k)) for k in ("x0", "dx", "y0", "dy", "t0",
+                                           "dt")},
+        mode=str(_get(gw, "mode")), mode_t=str(_get(gw, "mode_t")),
+        **{k: tensor(_get(gw, k)) for k in ("x_nodes", "y_nodes",
+                                            "t_nodes")})
+
+
 def config_from_jax(cfg) -> WaveGrowth2DConfig:
     """The port's config from a ``picles_tpu`` ``WaveGrowth2DConfig``: the
     Pallas modes map to the CUDA kernels ("pallas" -> "cuda",
-    "dense_pallas" -> "dense_cuda") and "xla" advance to "torch"; TPU block
+    "dense_pallas" -> "dense_cuda") and "xla" advance to "torch"; float32
+    and float64 to their torch types (any other dtype raises); TPU block
     and interpret settings have no counterpart."""
     init = cfg.ode_init_type
     if not isinstance(init, str):
         init = ParticleDefaults2D(float(init.lne), float(init.cg_x),
                                   float(init.cg_y), float(init.x),
                                   float(init.y))
-    if np.dtype(getattr(cfg.dtype, "dtype", cfg.dtype)) != np.float32:
-        raise ValueError(f"only float32 is ported, got {cfg.dtype}")
+    dtype = _DTYPES.get(np.dtype(getattr(cfg.dtype, "dtype", cfg.dtype)))
+    if dtype is None:
+        raise ValueError(f"only float32 and float64 are ported, got "
+                         f"{cfg.dtype}")
     halo = cfg.halo
     if not isinstance(halo, int):
         halo = tuple(tuple(int(v) for v in h) if not isinstance(h, int)
@@ -117,4 +152,4 @@ def config_from_jax(cfg) -> WaveGrowth2DConfig:
         boundary_type=cfg.boundary_type, scatter_mode=scatter,
         advance_mode=_MODES[cfg.advance_mode],
         dt_reset_mode=cfg.dt_reset_mode, remesh_mode=cfg.remesh_mode,
-        halo=halo, layers=int(cfg.layers), dtype=torch.float32)
+        halo=halo, layers=int(cfg.layers), dtype=dtype)

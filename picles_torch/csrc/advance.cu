@@ -33,8 +33,15 @@
 // - the wind and its wind-only terms (rhs.cuh `WindTerms`) are formed once
 //   per lane for winds that do not vary in t (constant, half-domain); the
 //   time-cosine family samples them per stage;
+// - gridded winds (the JAX kernel's `wind_fields`) are their own template
+//   instances: a lane loads its 4 + 3B plane values once (rhs.cuh
+//   `GriddedWind`) and forms the wind's terms per stage from them, in the
+//   operation order of forcing/winds.py `gridded_samplers`.  They add the
+//   planes' bytes, 4 (4 + 3B) a particle, read once: 28 at B = 1, which
+//   takes the bytes a particle moves from 66 to 94;
 // - launch bounds from ptxas's registers: 6 blocks of 128 threads an SM, 5
-//   for adaptive tsit5, with no spills.
+//   for adaptive tsit5, with no spills; the gridded tsit5 instances, whose
+//   lane holds its plane values too, one block less.
 // A lane's substep count depends on its state and a warp runs until its
 // slowest lane is done.  A refill of finished lanes from a per-warp run of
 // particles (the same arithmetic per particle) was measured slower on every
@@ -114,10 +121,14 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
 
 // K1's launch shape: 128 threads a block, and the blocks an SM must hold:
 // 6 (at most 85 registers), as the baseline's registers allowed, but 5 for
-// adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).
+// adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).  A gridded
+// lane holds its plane values too: ptxas gives the bosh3 instances 72 and
+// 80 registers (6 blocks still), tsit5's 92 (5 blocks, at most 102) and
+// adaptive tsit5's 103 (4 blocks, at most 128), none spilling.
 constexpr int K1_THREADS = 128;
-template <class M, bool ADAPTIVE>
-constexpr int K1_MIN_BLOCKS = M::S == 6 && ADAPTIVE ? 5 : 6;
+template <class M, bool ADAPTIVE, bool GRIDDED>
+constexpr int K1_MIN_BLOCKS =
+    M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED ? 1 : 0);
 
 // The state of one particle in flight.
 template <int S>
@@ -127,7 +138,8 @@ struct Lane {
   float t, t_end, dt, xn;
   bool active, done, failed;
   int nacc, iters;
-  WindTerms w0;  // the wind's terms at the start, for winds constant in t
+  WindTerms w0;    // the wind's terms at the start, for winds constant in t
+  GriddedWind g;   // a gridded wind's values at the node (gridded instances)
 };
 
 struct AdvancePlanes {
@@ -139,8 +151,16 @@ struct AdvancePlanes {
   int* nacc_o;
 };
 
+// The wind's terms of lane L at time t: from its gridded planes, or from
+// the analytic wind at its node.
+template <bool GRIDDED, int S>
+__device__ __forceinline__ WindTerms lane_terms(const AdvanceConfig& cfg,
+                                                const Lane<S>& L, float t) {
+  return GRIDDED ? gridded_terms(L.g, t) : wind_terms_at(cfg.wind, L.xn, t);
+}
+
 // Load particle i and evaluate its first stage (the FSAL vector).
-template <int S>
+template <int S, bool GRIDDED>
 __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
                                           const AdvancePlanes& P, long long i,
                                           Lane<S>& L) {
@@ -148,7 +168,7 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   L.z[3] = P.x[i]; L.z[4] = P.y[i];
   const float t0 = P.t[i];
   L.active = P.act[i] != 0;
-  L.xn = P.xn[i];
+  L.xn = GRIDDED ? 0.0f : P.xn[i];
   L.t_end = t0 + cfg.DT;
   L.t = t0;
   L.dt = jmax(P.dt[i], cfg.dtmin);
@@ -157,13 +177,14 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   L.nacc = 0;
   L.iters = 0;
   if (!L.done) {
-    L.w0 = wind_terms_at(cfg.wind, L.xn, L.t);
+    if (GRIDDED) L.g = load_gridded(cfg.wind, i);
+    L.w0 = lane_terms<GRIDDED>(cfg, L, L.t);
     rhs_state(cfg.rc, L.z[0], L.z[1], L.z[2], L.w0, L.k[0]);
   }
 }
 
 // One substep of the per-lane loop (`advance_simple_kernel`'s loop body).
-template <class M, bool ADAPTIVE>
+template <class M, bool ADAPTIVE, bool GRIDDED>
 __device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
                                         Lane<M::S>& L) {
   constexpr int S = M::S;
@@ -186,7 +207,7 @@ __device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
           acc[c] = acc[c] + dt_try * M::a(s - 1, j) * L.k[j][c];
     }
     const WindTerms w =
-        t_free ? L.w0 : wind_terms_at(cfg.wind, L.xn, t + M::c(s - 1) * dt_try);
+        t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + M::c(s - 1) * dt_try);
     rhs_state(cfg.rc, acc[0], acc[1], acc[2], w, L.k[s]);
   }
   float zn[5];
@@ -197,7 +218,7 @@ __device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
     for (int j = 0; j < S; ++j)
       if (M::b(j) != 0.0f) zn[c] = zn[c] + dt_try * M::b(j) * L.k[j][c];
   }
-  const WindTerms wf = t_free ? L.w0 : wind_terms_at(cfg.wind, L.xn, t + dt_try);
+  const WindTerms wf = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + dt_try);
   rhs_state(cfg.rc, zn[0], zn[1], zn[2], wf, L.k[S]);
 
   bool accept = true;
@@ -261,15 +282,17 @@ __device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
 }
 
 // K1: one particle per thread.
-template <class M, bool ADAPTIVE>
-__global__ void __launch_bounds__(K1_THREADS, (K1_MIN_BLOCKS<M, ADAPTIVE>))
+template <class M, bool ADAPTIVE, bool GRIDDED>
+__global__ void __launch_bounds__(K1_THREADS,
+                                  (K1_MIN_BLOCKS<M, ADAPTIVE, GRIDDED>))
 advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const bool t_free = cfg.wind.kind != WIND_TIME_COSINE;
+  const bool t_free = !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
   Lane<M::S> L;
-  load_lane(cfg, P, i, L);
-  while (!L.done && L.iters < cfg.maxiters) substep<M, ADAPTIVE>(cfg, t_free, L);
+  load_lane<M::S, GRIDDED>(cfg, P, i, L);
+  while (!L.done && L.iters < cfg.maxiters)
+    substep<M, ADAPTIVE, GRIDDED>(cfg, t_free, L);
   store_lane(P, i, L);
 }
 
@@ -411,7 +434,8 @@ struct AutoDtPlanes {
 // K3's compiled instances: a wind kind and a term-flag set, or RUNTIME for
 // the value in AutoDtConfig.  The main instances compile in every term
 // (`TermFlags()`, the set of every configuration chip_smoke.py drives) and
-// one wind family each; any other flag set runs the generic instance.
+// one wind family each; any other flag set runs a generic instance, the
+// gridded kind its own (in the analytic one its lane values would spill).
 constexpr int RUNTIME = -1;
 constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
                          TERM_PEAK_SHIFT | TERM_DIRECTION;
@@ -424,9 +448,11 @@ constexpr int K3_MIN_BLOCKS = 10;
 
 // Hairer's estimate of lane i: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
-// is not loaded (t for winds constant in t, the node x for constant winds),
-// and the wind's terms of a wind constant in t are formed once and serve
-// both RHS evaluations; with the flags compiled in, each term's test folds.
+// is not loaded (t for winds constant in t, the node x for constant and
+// gridded winds), and the wind's terms of a wind constant in t are formed
+// once and serve both RHS evaluations; with the flags compiled in, each
+// term's test folds.  A gridded lane loads its plane values once and forms
+// the terms at both times from them.
 template <int KIND, int FLAGS>
 __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
                                                  const AutoDtPlanes& P,
@@ -435,15 +461,19 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
   WindParams wp = cfg.wind;
   if (FLAGS != RUNTIME) rc.flags = FLAGS;
   if (KIND != RUNTIME) wp.kind = KIND;
-  const bool t_free = wp.kind != WIND_TIME_COSINE;
+  const bool gridded = KIND == WIND_GRIDDED;
+  const bool t_free = wp.kind != WIND_TIME_COSINE && !gridded;
   const float tiny = 1e-10f;
   const float z[5] = {P.lne[i], P.cgx[i], P.cgy[i], P.x[i], P.y[i]};
   const float t = t_free ? 0.0f : P.t[i];
-  const float xn = wp.kind == WIND_CONSTANT ? 0.0f : P.xn[i];
+  const float xn =
+      wp.kind == WIND_CONSTANT || gridded ? 0.0f : P.xn[i];
+  GriddedWind g;
+  if (gridded) g = load_gridded(wp, i);
   float sc[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + fabsf(z[c]) * cfg.reltol;
-  const WindTerms w0 = wind_terms_at(wp, xn, t);
+  const WindTerms w0 = gridded ? gridded_terms(g, t) : wind_terms_at(wp, xn, t);
   float f0[5];
   rhs_state(rc, z[0], z[1], z[2], w0, f0);
   const float d0 = rms5(z, sc);
@@ -453,7 +483,9 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
   float z1[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) z1[c] = z[c] + h0 * f0[c];
-  const WindTerms w1 = t_free ? w0 : wind_terms_at(wp, xn, t + h0);
+  const WindTerms w1 = t_free    ? w0
+                       : gridded ? gridded_terms(g, t + h0)
+                                 : wind_terms_at(wp, xn, t + h0);
   float f1[5];
   rhs_state(rc, z1[0], z1[1], z1[2], w1, f1);
   float df[5];
@@ -550,7 +582,7 @@ static void dispatch_simple(const AdvanceConfig& cfg, bool adaptive,
   else launch_advance_simple<S, false, false>(cfg, n, p, stream);
 }
 
-template <class M, bool ADAPTIVE>
+template <class M, bool ADAPTIVE, bool GRIDDED>
 static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
                            cudaStream_t stream) {
   AdvancePlanes P;
@@ -564,15 +596,22 @@ static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
   P.dt_o = (float*)p[15]; P.fail_o = (unsigned char*)p[16];
   P.nacc_o = (int*)p[17];
   const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
-  advance_kernel<M, ADAPTIVE><<<blocks, K1_THREADS, 0, stream>>>(cfg, n, P);
+  advance_kernel<M, ADAPTIVE, GRIDDED>
+      <<<blocks, K1_THREADS, 0, stream>>>(cfg, n, P);
 }
 
 template <class M>
 static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
                      void** p, cudaStream_t stream) {
-  if (adaptive) launch_advance<M, true>(cfg, n, p, stream);
-  else launch_advance<M, false>(cfg, n, p, stream);
+  const bool gridded = cfg.wind.kind == WIND_GRIDDED;
+  if (adaptive && gridded) launch_advance<M, true, true>(cfg, n, p, stream);
+  else if (adaptive) launch_advance<M, true, false>(cfg, n, p, stream);
+  else if (gridded) launch_advance<M, false, true>(cfg, n, p, stream);
+  else launch_advance<M, false, false>(cfg, n, p, stream);
 }
+
+// The advance's own ints after the RHS flags and the wind's ints.
+constexpr int K1_I = 1 + N_WIND_I;
 
 // Unpack the advance's parameters (layout below); returns the stage count.
 static int unpack_advance(const float* fparams, const int* iparams,
@@ -590,9 +629,9 @@ static int unpack_advance(const float* fparams, const int* iparams,
   for (int s = 0; s < 6; ++s) cfg.tab.b[s] = f[s];
   f += 6;
   for (int s = 0; s < 7; ++s) cfg.tab.bt[s] = f[s];
-  cfg.force_dtmin = iparams[5] != 0;
-  cfg.maxiters = iparams[6];
-  return iparams[3];
+  cfg.force_dtmin = iparams[K1_I + 2] != 0;
+  cfg.maxiters = iparams[K1_I + 3];
+  return iparams[K1_I];
 }
 
 }  // namespace picles
@@ -601,21 +640,26 @@ using namespace picles;
 
 // fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
 //          tableau c[5], a[5][5], b[6], bt[7]
-// iparams: flags, wind kind, has_t_off, stages (3 or 6), adaptive,
+// iparams: flags, wind kind, has_t_off, n_wf, stages (3 or 6), adaptive,
 //          force_dtmin, maxiters
 // ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
+//          the n_wf gridded wind planes (inputs; none for analytic winds)
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
 // wrapper passes only those methods) and ignores the tableau floats, which
 // the `_simple` baseline below reads.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// stage count).
+// stage count or planes that `attach_planes` refuses).
+constexpr int K1_PTRS = 18;
+
 extern "C" int picles_advance(const float* fparams, const int* iparams,
                               void** ptrs, long long n, void* stream) {
   AdvanceConfig cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
-  const bool adaptive = iparams[4] != 0;
+  const bool adaptive = iparams[K1_I + 1] != 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (!attach_planes(cfg.wind, iparams[3], ptrs + K1_PTRS))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   if (stages == Bosh3::S) dispatch<Bosh3>(cfg, adaptive, n, ptrs, st);
   else if (stages == Tsit5::S) dispatch<Tsit5>(cfg, adaptive, n, ptrs, st);
@@ -623,14 +667,16 @@ extern "C" int picles_advance(const float* fparams, const int* iparams,
   return (int)cudaGetLastError();
 }
 
-// The `_simple` baseline (the previous kernel), picles_advance's layout.
+// The `_simple` baseline (the previous kernel), picles_advance's layout;
+// analytic winds only (cudaErrorInvalidValue for a gridded one).
 extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AdvanceConfig cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
-  const bool adaptive = iparams[4] != 0;
+  const bool adaptive = iparams[K1_I + 1] != 0;
   const bool force = cfg.force_dtmin != 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (cfg.wind.kind == WIND_GRIDDED) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   if (stages == 3) dispatch_simple<3>(cfg, adaptive, force, n, ptrs, st);
   else if (stages == 6) dispatch_simple<6>(cfg, adaptive, force, n, ptrs, st);
@@ -660,35 +706,46 @@ static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
 
 // fparams: RHS (14) | wind (7) | abstol, reltol, 1/(order+1), max_dt,
 //          dtmin, DT
-// iparams: flags, wind kind, has_t_off
+// iparams: flags, wind kind, has_t_off, n_wf
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
-//          dt (output)
-// Returns cudaGetLastError() after the launch.
+//          dt (output) | the n_wf gridded wind planes (inputs)
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// planes that `attach_planes` refuses).
+constexpr int K3_PTRS = 10;
+
 extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
                               void** ptrs, long long n, void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
   cudaStream_t st = (cudaStream_t)stream;
+  if (!attach_planes(cfg.wind, iparams[3], ptrs + K3_PTRS))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (cfg.rc.flags != K3_FLAGS)
+  if (cfg.rc.flags != K3_FLAGS && cfg.wind.kind == WIND_GRIDDED)
+    launch_auto_dt<WIND_GRIDDED, RUNTIME>(cfg, n, P, st);
+  else if (cfg.rc.flags != K3_FLAGS)
     launch_auto_dt<RUNTIME, RUNTIME>(cfg, n, P, st);
   else if (cfg.wind.kind == WIND_CONSTANT)
     launch_auto_dt<WIND_CONSTANT, K3_FLAGS>(cfg, n, P, st);
   else if (cfg.wind.kind == WIND_HALF_DOMAIN)
     launch_auto_dt<WIND_HALF_DOMAIN, K3_FLAGS>(cfg, n, P, st);
+  else if (cfg.wind.kind == WIND_GRIDDED)
+    launch_auto_dt<WIND_GRIDDED, K3_FLAGS>(cfg, n, P, st);
   else
     launch_auto_dt<WIND_TIME_COSINE, K3_FLAGS>(cfg, n, P, st);
   return (int)cudaGetLastError();
 }
 
 // The `_simple` baseline, picles_auto_dt's layout: writes the bare estimate
-// of every lane to the output (dtmin, DT, dt and was_reset are not read).
+// of every lane to the output (dtmin, DT, dt and was_reset are not read);
+// analytic winds only (cudaErrorInvalidValue for a gridded one).
 extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
+  if (cfg.wind.kind == WIND_GRIDDED) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);

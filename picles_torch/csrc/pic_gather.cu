@@ -79,7 +79,10 @@
 // three sums of each node straight into the remesh branch table
 // (remesh.cuh `remesh_node`, K5's).  It writes the 3 node planes and the 8
 // remesh outputs and never reads the node planes back: the separate K5 pass
-// would read them again (12 bytes a node) and launch once more.
+// would read them again (12 bytes a node) and launch once more.  A gridded
+// wind's planes are read at each output node by the thread that remeshes
+// it (28 bytes a node at B = 1), not staged with the sources: only the
+// node's own values are needed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -338,6 +341,14 @@ struct RemeshPlanes {
   int* br_o;
 };
 
+// The node x the remesh's wind reads: none for a gridded wind, whose node
+// values come from its own planes (rhs.cuh wind_uv_node), read at the node
+// directly and never staged with the deposit's sources.
+__device__ __forceinline__ float node_x(const picles::RemeshParams& r,
+                                        const RemeshPlanes& q, long long idx) {
+  return r.wind.kind == picles::WIND_GRIDDED ? 0.0f : q.xn[idx];
+}
+
 template <int WX>
 __global__ void __launch_bounds__(TY * WARPS)
 pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
@@ -371,9 +382,9 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
     o1[idx] = s1;
     o2[idx] = s2;
     const picles::RemeshOut o = picles::remesh_node(
-        rp, *q.clock, s0, s1, s2, q.lne[idx], q.cgx[idx], q.cgy[idx],
+        rp, *q.clock, idx, s0, s1, s2, q.lne[idx], q.cgx[idx], q.cgy[idx],
         q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
-        q.bnd[idx] != 0, q.xn[idx]);
+        q.bnd[idx] != 0, node_x(rp, q, idx));
     q.lne_o[idx] = o.lne;
     q.cgx_o[idx] = o.cgx;
     q.cgy_o[idx] = o.cgy;
@@ -508,9 +519,9 @@ pic_gather_remesh_simple_kernel(const GatherConfig g,
   o1[idx] = acc1;
   o2[idx] = acc2;
   const picles::RemeshOut o = picles::remesh_node(
-      r, *q.clock, acc0, acc1, acc2, q.lne[idx], q.cgx[idx], q.cgy[idx],
+      r, *q.clock, idx, acc0, acc1, acc2, q.lne[idx], q.cgx[idx], q.cgy[idx],
       q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
-      q.bnd[idx] != 0, q.xn[idx]);
+      q.bnd[idx] != 0, node_x(r, q, idx));
   q.lne_o[idx] = o.lne;
   q.cgx_o[idx] = o.cgx;
   q.cgy_o[idx] = o.cgy;
@@ -689,13 +700,20 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs)
+//          (outputs) | the n_wf gridded wind planes (inputs; none for
+//          analytic winds)
+// cudaErrorInvalidValue for planes that `attach_planes` refuses.
+constexpr int K6_PTRS = 28;
+
 extern "C" int picles_pic_gather_remesh(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
+  if (!picles::attach_planes(r.wind, iparams[N_GATHER_I + 2],
+                             ptrs + K6_PTRS))
+    return (int)cudaErrorInvalidValue;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -706,7 +724,7 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
 }
 
 // The `_simple` baselines: the entry points above with the same parameter
-// layouts, one thread per output node.
+// layouts, one thread per output node; analytic winds only.
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
@@ -747,6 +765,7 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
+  if (r.wind.kind == picles::WIND_GRIDDED) return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);

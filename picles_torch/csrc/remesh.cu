@@ -8,11 +8,13 @@
 // What bounds it on an H100: memory.  Per node it reads the 3 node planes,
 // 6 particle planes, 3 masks and the node x (43 bytes) and writes 6 planes,
 // the flag and the bitfield (29 bytes): 72 bytes, 170 MB at 1536^2, about
-// 51 us at 3.35 TB/s.  The arithmetic is a few dozen operations, plus the
-// windsea (4 powf, 1 logf) on reseeded lanes only.  The design follows: one
-// pass, one thread per node along y (the contiguous axis, so loads and
-// stores coalesce), nothing staged.  The model clock is read from device
-// memory by every thread, so the host never reads it back.
+// 51 us at 3.35 TB/s; a gridded wind adds its 4 + 3B planes (28 bytes at
+// B = 1; the node x is then not needed).  The arithmetic is a few dozen
+// operations, plus the windsea (4 powf, 1 logf) on reseeded lanes only.
+// The design follows: one pass, one thread per node along y (the
+// contiguous axis, so loads and stores coalesce), nothing staged.  The
+// model clock is read from device memory by every thread, so the host
+// never reads it back.
 
 #include <cuda_runtime.h>
 
@@ -38,8 +40,9 @@ remesh_kernel(const picles::RemeshParams r, long long n,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const picles::RemeshOut o = picles::remesh_node(
-      r, *clock, e_n[i], mx_n[i], my_n[i], lne[i], cgx[i], cgy[i], px[i],
-      py[i], dt[i], on[i] != 0, act[i] != 0, bnd[i] != 0, xn[i]);
+      r, *clock, i, e_n[i], mx_n[i], my_n[i], lne[i], cgx[i], cgy[i], px[i],
+      py[i], dt[i], on[i] != 0, act[i] != 0, bnd[i] != 0,
+      r.wind.kind == picles::WIND_GRIDDED ? 0.0f : xn[i]);
   lne_o[i] = o.lne;
   cgx_o[i] = o.cgx;
   cgy_o[i] = o.cgy;
@@ -55,12 +58,16 @@ remesh_kernel(const picles::RemeshParams r, long long n,
 // fparams/iparams: the remesh.cuh layout (unpack_remesh)
 // ptrs: clock (1 float) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
-//       on(u8), branch(i32) (outputs)
-// Returns cudaGetLastError() after the launch.
+//       on(u8), branch(i32) (outputs) | the n_wf gridded wind planes
+//       (inputs; none for analytic winds)
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// planes that `attach_planes` refuses).
 extern "C" int picles_remesh(const float* fparams, const int* iparams,
                              void** ptrs, long long n, void* stream) {
   picles::RemeshParams r;
   picles::unpack_remesh(fparams, iparams, r);
+  if (!picles::attach_planes(r.wind, iparams[2], ptrs + 22))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);

@@ -10,7 +10,8 @@
 // defaults), or switch off; zero the positions of gathered and reseeded
 // particles; clip the carried dt into [dtmin, DT] unless the solver runs
 // fixed substeps; write the `on` flag and the branch bitfield.  The winds
-// are sampled at the model clock with the K1 samplers (rhs.cuh wind_uv).
+// are sampled at the model clock with the K1 samplers (rhs.cuh
+// wind_uv_node: a gridded wind from the node's own planes).
 //
 // Numerics: float32, op for op as PyTorch evaluates the plain version on a
 // card.  PyTorch computes `c / x` for a Python scalar c as reciprocal(x) * c,
@@ -66,10 +67,10 @@ struct RemeshParams {
 // Packed layout, shared with picles_torch/ops/remesh_cuda.py remesh_params.
 // floats: wind (7) | windsea (15) | seed (3) | bseed (3) | minimal_e,
 //         minimal_m2, wind_min_squared, dtmin, timestep;
-// ints:   wind kind, has_t_off | seed_kind, bseed_kind, boundary_source,
-//         clip_dt.
+// ints:   wind kind, has_t_off, n_wf | seed_kind, bseed_kind,
+//         boundary_source, clip_dt.
 constexpr int N_REMESH_F = N_WIND_F + N_WINDSEA_F + 11;
-constexpr int N_REMESH_I = 6;
+constexpr int N_REMESH_I = N_WIND_I + 4;
 
 inline void unpack_remesh(const float* f, const int* iv, RemeshParams& r) {
   unpack_wind(f, iv, r.wind);
@@ -81,8 +82,9 @@ inline void unpack_remesh(const float* f, const int* iv, RemeshParams& r) {
   for (int k = 0; k < 3; ++k) r.bseed[k] = f[3 + k];
   r.minimal_e = f[6]; r.minimal_m2 = f[7]; r.wind_min_squared = f[8];
   r.dtmin = f[9]; r.timestep = f[10];
-  r.seed_kind = iv[2]; r.bseed_kind = iv[3];
-  r.boundary_source = iv[4]; r.clip_dt = iv[5];
+  iv += N_WIND_I;
+  r.seed_kind = iv[0]; r.bseed_kind = iv[1];
+  r.boundary_source = iv[2]; r.clip_dt = iv[3];
 }
 
 // get_initial_windsea(u, v, timestep) -> (lne, cg_bar_x, cg_bar_y)
@@ -110,14 +112,15 @@ struct RemeshOut {
   int branch;
 };
 
-// One node: (e_n, mx_n, my_n) is its deposited state, the rest its particle
-// and masks; `clock` the model time at which the winds are sampled.
+// One node, index i: (e_n, mx_n, my_n) is its deposited state, the rest its
+// particle and masks; `clock` the model time at which the winds are
+// sampled.
 __device__ __forceinline__ RemeshOut remesh_node(
-    const RemeshParams& r, float clock, float e_n, float mx_n, float my_n,
-    float lne, float cgx, float cgy, float px, float py, float dt, bool on,
-    bool active, bool boundary, float xn) {
+    const RemeshParams& r, float clock, long long i, float e_n, float mx_n,
+    float my_n, float lne, float cgx, float cgy, float px, float py,
+    float dt, bool on, bool active, bool boundary, float xn) {
   float u, v;
-  wind_uv(r.wind, xn, clock, u, v);
+  wind_uv_node(r.wind, i, xn, clock, u, v);
   const float wind2 = u * u + v * v;
   const float m2_n = mx_n * mx_n + my_n * my_n;
   const bool part = r.boundary_source ? (active || boundary) : active;

@@ -22,6 +22,14 @@ the plain versions, as the JAX package runs its kernels in interpret mode.
 Every quantity stays on the grid's device and the step never reads it back,
 so a step on the card queues without host round-trips.
 
+Gridded winds (a ``GriddedWinds2D``, or its ``as_winds()``) move to the
+grid's device.  The kernels take them as the exact piecewise-linear-in-t
+planes of each step window (``GriddedWinds2D.pallas_pwl_fields``), formed
+once per step on the device from the grid ``step_core`` is given and the
+clock, and handed to K1, K3 and K5/K6; every plain path (seeding, the
+re-light, the PyTorch remesh and advance) samples the interpolant, as the
+JAX model does.
+
 ``step_core`` takes the grid planes and masks it steps over, a deposit hook
 and a counter-reduction hook, so ``parallel/sharded.py`` runs the same step
 on one block of a decomposed grid.  Not ported yet: layers and per-layer
@@ -38,7 +46,7 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
-from ..forcing.winds import Winds2D
+from ..forcing.winds import GriddedWinds2D, Winds2D, gridded_kernel
 from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
@@ -141,9 +149,10 @@ def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
 
 class WaveGrowth2D(StepDrivers):
     """Model: grid, winds, ODE settings and config; exposes ``init_state``
-    and ``step``.  The device is the grid's."""
+    and ``step``.  The device is the grid's.  ``winds``: a ``Winds2D`` or a
+    ``GriddedWinds2D`` (directly or as its ``as_winds()``)."""
 
-    def __init__(self, grid: Grid2D, winds: Winds2D,
+    def __init__(self, grid: Grid2D, winds,
                  ode_settings: ODESettings,
                  ode_params: Optional[ODEParameters] = None,
                  constants: Optional[IDConstants] = None,
@@ -157,6 +166,20 @@ class WaveGrowth2D(StepDrivers):
             raise ValueError(f"unknown dt_reset_mode {config.dt_reset_mode!r}")
         self.grid = grid
         self.device = grid.device
+        # a gridded record, passed directly or as the bound samplers of its
+        # as_winds(), moves to the grid's device; the kernels read it as B
+        # breakpoints' planes (B from the record's cadence and DT)
+        gw = winds if isinstance(winds, GriddedWinds2D) else getattr(
+            getattr(winds, "u", None), "__self__", None)
+        self.gridded_winds: Optional[GriddedWinds2D] = None
+        self._wind_B = 0
+        self._corners = None   # (grid, its corners), for wind_fields
+        if isinstance(gw, GriddedWinds2D):
+            gw = gw.to(self.device)
+            self.gridded_winds = gw
+            self._wind_B = gw.n_breakpoints(ode_settings.timestep)
+            winds = Winds2D(u=gw.u, v=gw.v,
+                            kernel=gridded_kernel(self._wind_B))
         self.winds = winds
         self.settings = ode_settings
         self.config = config
@@ -274,6 +297,21 @@ class WaveGrowth2D(StepDrivers):
         """``self.config`` with "auto" modes resolved for the grid's device."""
         return self.modes
 
+    def wind_fields(self, grid: Grid2D, clock: torch.Tensor):
+        """The kernels' wind planes of the step window starting at
+        ``clock`` over ``grid``'s nodes: ``pallas_pwl_fields`` of a gridded
+        record (on the device, no read back), none for analytic winds.  The
+        record's spatial corners of the nodes are kept for the last grid
+        seen (the model's own, or a sharded step's block)."""
+        gw = self.gridded_winds
+        if gw is None:
+            return ()
+        if self._corners is None or self._corners[0] is not grid:
+            self._corners = (grid, gw.corners(grid.x, grid.y))
+        return gw.pallas_pwl_fields(grid.x, grid.y, clock,
+                                    float(self.settings.timestep),
+                                    corners=self._corners[1])
+
     # ------------------------------------------------------------------
     # seeding
     # ------------------------------------------------------------------
@@ -353,13 +391,18 @@ class WaveGrowth2D(StepDrivers):
         P = ms.particles
         aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 
+        # a gridded wind's planes of this step, once for every kernel
+        kernels = cfg.advance_mode == "cuda" or self._remesh_kernels
+        wf = self.wind_fields(grid, ms.time) if kernels else ()
+
         # ---------------- ADVANCE ----------------
         adv = P.on & active
         comps0 = (P.lne, P.cgx, P.cgy, P.px, P.py)
         if cfg.advance_mode == "cuda":
             res = advance_cuda(self.winds, self.consts, self.flags,
                                self.solver, DT, comps0, P.t, P.dt, adv,
-                               grid.x, grid.y, self.uniform_proj)
+                               grid.x, grid.y, self.uniform_proj,
+                               wind_fields=wf)
             res_c = (res.lne, res.cgx, res.cgy, res.x, res.y)
         else:
             res = integrate_to(self.rhs, torch.stack(comps0, dim=-1), P.t,
@@ -414,7 +457,7 @@ class WaveGrowth2D(StepDrivers):
         if cfg.remesh_mode == "fused" and self._remesh_kernels:
             node, rm, sc_stats = pic_gather_remesh(
                 px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-                self.remesh_params, *core)
+                self.remesh_params, *core, wind_fields=wf)
         else:
             if scatter_fn is None:
                 node, sc_stats = pic.scatter_channels(
@@ -424,7 +467,8 @@ class WaveGrowth2D(StepDrivers):
                 node, sc_stats = scatter_fn(px, py, (e, mx, my), scatter_on)
             if self._remesh_kernels:
                 rm = remesh_cuda(self.remesh_params,
-                                 tuple(c.contiguous() for c in node), *core)
+                                 tuple(c.contiguous() for c in node), *core,
+                                 wind_fields=wf)
             else:
                 rm = remesh_core(self.remesh_params, node, *core)
         gather = (rm.branch & GATHER_BIT) != 0
@@ -442,7 +486,8 @@ class WaveGrowth2D(StepDrivers):
             if cfg.advance_mode == "cuda":
                 dt = auto_dt_cuda(self.winds, self.consts, self.flags, t,
                                   comps, grid.x, grid.y, self.uniform_proj,
-                                  was_reset, dt, sett.dtmin, DT, **tols)
+                                  was_reset, dt, sett.dtmin, DT,
+                                  wind_fields=wf, **tols)
             else:
                 dt = auto_dt_reset(self.rhs, t, torch.stack(comps, dim=-1),
                                    aux, was_reset, dt, sett.dtmin, DT, **tols)

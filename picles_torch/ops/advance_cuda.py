@@ -12,8 +12,12 @@ plain version.
 
 The kernels compile the wind as a ``WindKernel`` descriptor (see
 ``forcing/winds.py``) and take the projection as the 5 uniform scalars
-``(m00, m01, m10, m11, pc)`` of a regular Cartesian grid.  Per-node
-projection planes (spherical and tripolar grids) are not ported yet.
+``(m00, m01, m10, m11, pc)`` of a regular Cartesian grid.  A gridded wind's
+descriptor carries its breakpoint count B; its values over the model step
+arrive as ``wind_fields``, the ``4 + 3B`` planes of
+``GriddedWinds2D.pallas_pwl_fields``, and the plain versions then run over
+``forcing.winds.pwl_winds`` of the same planes.  Per-node projection planes
+(spherical and tripolar grids) are not ported yet.
 
 ``advance_cuda.launches`` and ``auto_dt_cuda.launches`` count kernel
 launches (not plain-version calls).
@@ -24,7 +28,8 @@ a ``SolverConfig`` naming another method is refused.  ``simple=True``
 launches the previous kernel instead (K1: the tableau a run-time parameter;
 K3: the bare estimate, then PyTorch's clamp and select), the baseline the
 card checks hold each kernel to bit for bit; no path of the package passes
-it, and its launches are not counted.
+it, and its launches are not counted.  Gridded winds have no baseline:
+``simple=True`` with one raises.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..forcing.winds import WindKernel, Winds2D
+from ..forcing.winds import WindKernel, WindKind, Winds2D
 from .rhs import RHSConsts, TermFlags
 from .tsit5 import METHODS, SolverConfig, auto_dt
 
@@ -65,10 +70,16 @@ def kernel_wind(winds: Winds2D) -> WindKernel:
     if winds.kernel is None:
         raise NotImplementedError(
             "these winds carry no kernel descriptor: only constant_winds, "
-            "half_domain_winds and time_cosine_winds run in the CUDA "
-            "kernels (gridded winds are ROADMAP item 11); use "
+            "half_domain_winds, time_cosine_winds and a GriddedWinds2D "
+            'given to the model run in the CUDA kernels; use '
             'advance_mode="torch"')
     return winds.kernel
+
+
+def n_wind_fields(wind: WindKernel) -> int:
+    """The count of per-node planes the wind takes: ``4 + 3B`` for a
+    gridded wind, none for an analytic one."""
+    return 4 + 3 * wind.n_break if wind.kind == WindKind.GRIDDED else 0
 
 
 def wind_params(wind: WindKernel) -> Tuple[list, list]:
@@ -76,7 +87,35 @@ def wind_params(wind: WindKernel) -> Tuple[list, list]:
     rhs.cuh, in the order ``unpack_wind`` reads them)."""
     f = [wind.u0, wind.v0, wind.x_split, wind.background, 2.0 * math.pi,
          wind.period, 0.0 if wind.t_off is None else wind.t_off]
-    return f, [int(wind.kind), int(wind.t_off is not None)]
+    return f, [int(wind.kind), int(wind.t_off is not None),
+               n_wind_fields(wind)]
+
+
+def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
+                like: torch.Tensor, simple: bool = False) -> list:
+    """The wind's planes as the kernels read them (rhs.cuh
+    ``attach_planes``): ``n_wind_fields(wind)`` float32 planes shaped like
+    ``like`` on its device, one after the other in memory, as
+    ``pallas_pwl_fields`` returns them; other planes are refused."""
+    from .cuda_build import check_planes
+
+    n = n_wind_fields(wind)
+    if len(fields) != n:
+        raise ValueError(f"the {wind.kind.name.lower()} wind takes {n} wind "
+                         f"planes, got {len(fields)}")
+    if not n:
+        return []
+    if simple:
+        raise ValueError("gridded winds have no _simple baseline")
+    names = ["t"] + [f"wind plane {k}" for k in range(n)]
+    check_planes([like, *fields], names, [torch.float32] * (n + 1))
+    step = like.numel() * like.element_size()
+    base = fields[0].data_ptr()
+    if any(f.data_ptr() != base + k * step for k, f in enumerate(fields)):
+        raise ValueError("the wind planes must be views of one contiguous "
+                         "[4 + 3B, ...] tensor, as pallas_pwl_fields returns "
+                         "them")
+    return list(fields)
 
 
 def _rhs_wind_params(consts: RHSConsts, flags: TermFlags, wind: WindKernel,
@@ -107,13 +146,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  comps: Tuple[torch.Tensor, ...], t: torch.Tensor,
                  dt: torch.Tensor, active: torch.Tensor, xn: torch.Tensor,
                  yn: torch.Tensor, proj: Tuple[float, ...], *,
+                 wind_fields: Sequence[torch.Tensor] = (),
                  simple: bool = False) -> AdvanceResult:
     """Advance every active particle over one model step ``DT`` (K1).
 
     ``comps`` = (lne, cgx, cgy, x, y); ``active`` bool; ``proj`` the 5
-    uniform projection scalars.  Inactive lanes pass through with
-    ``failed = False`` and ``naccept = 0``; a lane that finishes gets
-    ``t = t + DT``."""
+    uniform projection scalars; ``wind_fields`` a gridded wind's planes of
+    this step.  Inactive lanes pass through with ``failed = False`` and
+    ``naccept = 0``; a lane that finishes gets ``t = t + DT``."""
     from .cuda_build import (K1_METHODS, check_planes, check_status, library,
                              pointer_array)
 
@@ -126,6 +166,7 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     f32 = torch.float32
     dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                              "active", "xn"], [f32] * 7 + [torch.bool, f32])
+    planes = wind_planes(wind, wind_fields, t, simple)
     f, i = _rhs_wind_params(consts, flags, wind, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
     f += _tableau_params(method)
@@ -136,7 +177,7 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     outs = [torch.empty_like(t) for _ in range(7)]
     failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
     nacc = torch.empty(t.shape, dtype=torch.int32, device=dev)
-    ptrs = pointer_array(ins + outs + [failed, nacc])
+    ptrs = pointer_array(ins + outs + [failed, nacc] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_advance_simple if simple
@@ -158,12 +199,14 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  was_reset: torch.Tensor, dt: torch.Tensor, dtmin: float,
                  DT: float, *, abstol: float = 1e-4, reltol: float = 1e-3,
                  order: float = 5.0, max_dt: float = 3600.0,
+                 wind_fields: Sequence[torch.Tensor] = (),
                  simple: bool = False) -> torch.Tensor:
     """The step's Hairer dt reset (K3): per lane ``was_reset ?
     clamp(estimate, dtmin, DT) : dt``, the semantics of ``auto_dt_reset``.
 
     ``was_reset`` bool; a lane that is not reset keeps its ``dt``, bit for
-    bit.  ``simple=True`` runs the previous kernel (the bare estimate of every
+    bit; ``wind_fields`` a gridded wind's planes of this step.
+    ``simple=True`` runs the previous kernel (the bare estimate of every
     lane) followed by PyTorch's clamp and select, the baseline the card
     checks hold K3 to."""
     from .cuda_build import (check_planes, check_status, library,
@@ -174,12 +217,13 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     f32 = torch.float32
     dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "xn", "dt",
                              "was_reset"], [f32] * 8 + [torch.bool])
+    planes = wind_planes(wind, wind_fields, t, simple)
     f, i = _rhs_wind_params(consts, flags, wind, proj)
     f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     out = torch.empty_like(t)
-    ptrs = pointer_array(ins + [out])
+    ptrs = pointer_array(ins + [out] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_auto_dt_simple if simple

@@ -11,7 +11,8 @@
   ``pic.scatter_accumulate_padded``.
 - ``pic_gather_remesh`` (K6), counterpart of ``scatter_remesh_fused``: the
   same deposit with the remesh branch table (K5's) run on each node's sums
-  in the same pass.  Plain version: ``pic.scatter_dense``, then
+  in the same pass, a gridded wind read from its step planes
+  (``wind_fields``).  Plain version: ``pic.scatter_dense``, then
   ``remesh.remesh_core``.
 
 Tensors on a card launch the kernel, or raise: tensors on the CPU are
@@ -31,7 +32,7 @@ path of the package passes it, and its launches are not counted.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,13 +149,17 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                       chans: Tuple[torch.Tensor, ...],
                       scatter_active: torch.Tensor, stats: GridStats, halo,
                       p: RemeshParams, lne, cgx, cgy, px, py, dt, on, active,
-                      boundary, xn, yn, clock, *, simple: bool = False
+                      boundary, xn, yn, clock, *,
+                      wind_fields: Sequence[torch.Tensor] = (),
+                      simple: bool = False
                       ) -> Tuple[Tuple[torch.Tensor, ...], RemeshResult,
                                  ScatterStats]:
     """The deposit of ``pic_gather`` and the branch table of
     ``remesh.remesh_core`` on its node planes, in one pass (K6).  Returns
-    ((e, m_x, m_y), RemeshResult, ScatterStats); ``yn`` is not sent to the
-    kernel (no wind family it compiles varies in y)."""
+    ((e, m_x, m_y), RemeshResult, ScatterStats); ``wind_fields`` a gridded
+    wind's planes of this step; ``yn`` is not sent to the kernel (no
+    analytic wind it compiles varies in y)."""
+    from .advance_cuda import kernel_wind, wind_planes
     from .cuda_build import check_status, library, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
 
@@ -164,13 +169,14 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     if check_core(core, clock, xrel.shape) != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "
                          f"deposit's on {dev}")
+    planes = wind_planes(kernel_wind(p.winds), wind_fields, lne, simple)
     rf, ri = remesh_params(p)
     fp = np.asarray(f + rf, dtype=np.float32)
     ip = np.asarray(i + ri, dtype=np.int32)
     node = [torch.empty_like(xrel) for _ in range(3)]
     outs = remesh_outputs(lne)
     ptrs = pointer_array([xrel, yrel, *chans, scatter_active, clock, *core,
-                          *node, *outs])
+                          *node, *outs, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_pic_gather_remesh_simple if simple

@@ -9,7 +9,9 @@ device chooses between them.
 
 The model clock enters as a 0-dim float32 tensor on the card, read by the
 kernel, so a step never reads it back to the host.  The winds must carry a
-kernel descriptor (``forcing/winds.py`` ``WindKernel``).
+kernel descriptor (``forcing/winds.py`` ``WindKernel``); a gridded wind's
+planes of the step arrive as ``wind_fields`` (``advance_cuda.wind_planes``),
+and the plain version then samples ``forcing.winds.pwl_winds`` of them.
 ``remesh_cuda.launches`` counts kernel launches.
 """
 
@@ -24,7 +26,7 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import G_GRAVITY
-from .advance_cuda import kernel_wind, wind_params
+from .advance_cuda import kernel_wind, wind_params, wind_planes
 from .remesh import RemeshParams, RemeshResult
 
 SEED_WINDSEA, SEED_FIXED, SEED_SAME = 0, 1, 2
@@ -87,21 +89,24 @@ def remesh_outputs(like: torch.Tensor) -> list:
 
 
 def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
-                active, boundary, xn, yn, clock) -> RemeshResult:
+                active, boundary, xn, yn, clock, *,
+                wind_fields: Sequence[torch.Tensor] = ()) -> RemeshResult:
     """The branch table over ``[nx, ny]`` planes on a card (K5), with the
-    arguments and semantics of ``remesh.remesh_core``.  ``yn`` is not sent
-    to the kernel: no wind family it compiles varies in y."""
+    arguments and semantics of ``remesh.remesh_core``; ``wind_fields`` a
+    gridded wind's planes of this step.  ``yn`` is not sent to the kernel:
+    no analytic wind it compiles varies in y."""
     from .cuda_build import check_planes, check_status, library, pointer_array
 
     node = tuple(node)
     dev = check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
     check_core(core, clock, node[0].shape)
+    planes = wind_planes(kernel_wind(p.winds), wind_fields, lne)
     f, i = remesh_params(p)
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     outs = remesh_outputs(lne)
-    ptrs = pointer_array([clock, *node, *core, *outs])
+    ptrs = pointer_array([clock, *node, *core, *outs, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().picles_remesh(fp.ctypes.data, ip.ctypes.data,

@@ -3,8 +3,9 @@
 ``StateStore`` writes the JAX package's HDF5 layout: group ``waves`` with
 dataset ``data`` of shape ``[time, x, y, state]`` (float64), coordinate
 datasets, a ``dims`` attribute and ``var_names = ["e", "m_x", "m_y"]``.
-``CashStore`` keeps host copies of the states in memory; ``EmptyStore`` is
-the no-op default.  Writes happen on the host from copies of the device
+``add_forcing`` adds the group ``forcing`` (float64 fields, their ``dims``
+and coordinates).  ``CashStore`` keeps host copies of the states in memory;
+``EmptyStore`` is the no-op default.  Writes happen on the host from copies of the device
 tensors.  ``h5py`` is imported only when a ``StateStore`` is made, so the
 package imports where it is not installed.
 """
@@ -107,6 +108,25 @@ class StateStore:
         n = arr.shape[0]
         self.data[self.iteration:self.iteration + n, ...] = arr
         self.iteration += n
+
+    def add_forcing(self, forcing: dict, coords: dict) -> None:
+        """Write the forcing fields (numpy arrays or tensors; None is
+        skipped) into group ``forcing`` as float64 datasets, with its
+        ``dims`` attribute and coordinate datasets written once, as the
+        JAX package's ``StateStore.add_forcing`` writes them."""
+        grp = (self.file["forcing"] if "forcing" in self.file
+               else self.file.create_group("forcing"))
+        for name, f in forcing.items():
+            if f is None or name in grp:
+                continue
+            if isinstance(f, torch.Tensor):
+                f = host_copy(f)
+            grp[name] = np.asarray(f, dtype="f8")
+        if "dims" not in grp.attrs:
+            grp.attrs["dims"] = [str(k) for k in coords.keys()]
+            for k, v in coords.items():
+                if k not in grp:
+                    grp[k] = np.asarray(v, dtype="f8")
 
     def reset(self, value: float = 0.0) -> None:
         self.data[...] = value

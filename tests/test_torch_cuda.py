@@ -583,3 +583,172 @@ def test_deposit_over_48kb_of_shared_memory(dev):
         torch.cuda.synchronize()
         _assert_bitwise(o, pic_gather(xr, yr, ch, act, stats, halo,
                                       simple=True)[0])
+
+
+# ---------------------------------------------------------------------------
+# gridded winds: the kernels' gridded instances
+# ---------------------------------------------------------------------------
+
+def _gridded(dev, n, cadence, t0, const=False):
+    """A gridded record over the n^2 box (a 900 s or 400 s cadence, so the
+    window [t0, t0 + 600] straddles frames; or constant (10, 10) m/s at 4
+    grid spacings, whose interpolant is exact) and its kernel wind, planes
+    of the window and the plain version's wind."""
+    from picles_torch.forcing.winds import (GriddedWinds2D, Winds2D,
+                                            gridded_kernel, pwl_winds)
+
+    rng = np.random.default_rng(7)
+    L = 2e3 * (n - 1)
+    if const:
+        u = np.full((30, n // 4 + 1, n // 4 + 1), 10.0, np.float32)
+        v, dx = u.copy(), 8e3
+    else:
+        base = rng.uniform(6.0, 14.0, (60, 1, 1))
+        u = (base + rng.standard_normal((60, 10, 10))).astype(np.float32)
+        v = (0.5 * base + rng.standard_normal((60, 10, 10))).astype(np.float32)
+        dx = L / 9
+    gw = GriddedWinds2D(u_data=torch.as_tensor(u, device=dev),
+                        v_data=torch.as_tensor(v, device=dev), x0=0.0, dx=dx,
+                        y0=0.0, dy=dx, t0=0.0, dt=cadence, mode="wrap")
+    B = gw.n_breakpoints(600.0)
+    xx = torch.arange(n, device=dev, dtype=torch.float32) * 2e3
+    X, Y = torch.meshgrid(xx, xx, indexing="ij")
+    wf = gw.pallas_pwl_fields(X, Y, torch.tensor(t0, device=dev), 600.0)
+    return Winds2D(u=gw.u, v=gw.v, kernel=gridded_kernel(B)), wf, \
+        pwl_winds(wf)
+
+
+@pytest.mark.parametrize("cadence", [900.0, 400.0, 200.0])
+def test_gridded_kernels_match_plain(dev, cadence):
+    """The gridded instances of K1 (fixed-substep at rtol 1e-5, adaptive by
+    share of lanes as above), K3 (rtol 1e-5), K5 and K6 (as their analytic
+    instances) against their plain versions over the same planes; B = 1, 2
+    and 3 (the breakpoints past the kernels' register cache, ``GRID_REG_B``
+    in rhs.cuh, are read through the planes at each evaluation).  Planes
+    that are not views of one tensor are refused."""
+    from picles_torch import TermFlags
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
+                                               auto_dt_reset)
+    from picles_torch.ops.pic_cuda import pic_gather, pic_gather_remesh
+    from picles_torch.ops.remesh import remesh_core
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+    from picles_torch.ops.rhs import RHSParams, make_rhs
+    from picles_torch.ops.tsit5 import SolverConfig, integrate_to
+
+    # B = 3 over [1500, 2100] s: over [500, 1100] s one ulp of a_u alone
+    # moves more than 10% of the plain version's adaptive tsit5 lanes past
+    # rtol 5e-3, over [1500, 2100] s under 1% (test_torch_gridded_winds.py
+    # test_card_b3_window_is_not_a_knife_edge, on the CPU)
+    n, t0 = 64, {900.0: 600.0, 400.0: 500.0, 200.0: 1500.0}[cadence]
+    kw, wf, pw = _gridded(dev, n, cadence, t0)
+    assert len(wf) == 4 + 3 * {900.0: 1, 400.0: 2, 200.0: 3}[cadence]
+    comps, active, g = _state(dev, n=n, seed=3)
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    aux = RHSParams(g.x, g.y, g.proj, g.pc)
+    rhs = make_rhs(pw.u, pw.v, _consts(), TermFlags())
+    t = torch.full_like(comps[0], t0)
+    for method in ("bosh3", "tsit5"):
+        for adaptive in (False, True):
+            cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                               force_dtmin=True)
+            dt = torch.full_like(t, 37.5 if not adaptive else 60.0)
+            k = advance_cuda(kw, _consts(), TermFlags(), cfg, 600.0, comps, t,
+                             dt, active, g.x, g.y, proj, wind_fields=wf)
+            p = integrate_to(rhs, torch.stack(comps, -1), t, t + 600.0, dt,
+                             aux, active, cfg)
+            assert torch.equal(k.failed, p.failed)
+            if adaptive:
+                for i in range(5):
+                    assert _share_close(k[i], p.z[..., i], 5e-3, 1e-4) >= 0.99
+            else:
+                for i in range(5):
+                    torch.testing.assert_close(k[i], p.z[..., i], rtol=1e-5,
+                                               atol=1e-6)
+                assert torch.equal(k.naccept, p.naccept)
+    reset, dt = _reset_inputs(dev, n, 2)
+    k = auto_dt_cuda(kw, _consts(), TermFlags(), t, comps, g.x, g.y, proj,
+                     reset, dt, 1e-4, 600.0, wind_fields=wf)
+    p = auto_dt_reset(rhs, t, torch.stack(comps, -1), aux, reset, dt, 1e-4,
+                      600.0)
+    torch.testing.assert_close(k, p, rtol=1e-5, atol=0.0)
+    nodir = TermFlags(direction=False)   # the generic gridded instance
+    k = auto_dt_cuda(kw, _consts(), nodir, t, comps, g.x, g.y, proj, reset,
+                     dt, 1e-4, 600.0, wind_fields=wf)
+    p = auto_dt_reset(make_rhs(pw.u, pw.v, _consts(), nodir), t,
+                      torch.stack(comps, -1), aux, reset, dt, 1e-4, 600.0)
+    torch.testing.assert_close(k, p, rtol=1e-5, atol=0.0)
+    m, node, core = _remesh_case(dev, n, "wind_sea", True, seed=5)
+    core = core[:-1] + (torch.tensor(t0, device=dev),)
+    rp = m.remesh_params._replace(winds=kw)
+    k5 = remesh_cuda(rp, node, *core, wind_fields=wf)
+    _assert_remesh(k5, remesh_core(rp._replace(winds=pw), node, *core), 4e-7)
+    lne, cgx, cgy, px, py = core[:5]
+    chans = TR.particle_to_node(lne, cgx, cgy)
+    sact = (core[6] & core[7]).contiguous()
+    halo = ((1, 3), (0, 2))
+    nd, rm, _ = pic_gather_remesh(px, py, chans, sact, m.grid.stats, halo, rp,
+                                  *core, wind_fields=wf)
+    k2, _ = pic_gather(px, py, chans, sact, m.grid.stats, halo)
+    k5 = remesh_cuda(rp, k2, *core, wind_fields=wf)
+    for a, b in zip(nd, k2):
+        assert torch.equal(a, b)
+    for f in rm._fields:
+        assert torch.equal(getattr(rm, f), getattr(k5, f)), f
+    with pytest.raises(ValueError, match="no _simple baseline"):
+        advance_cuda(kw, _consts(), TermFlags(), SolverConfig(), 600.0, comps,
+                     t, dt, active, g.x, g.y, proj, wind_fields=wf,
+                     simple=True)
+    spaced = torch.zeros((2 * len(wf),) + tuple(t.shape), device=dev)
+    spaced[::2] = torch.stack(wf)   # each plane contiguous, two apart
+    with pytest.raises(ValueError, match="views of one"):
+        advance_cuda(kw, _consts(), TermFlags(), SolverConfig(), 600.0, comps,
+                     t, dt, active, g.x, g.y, proj,
+                     wind_fields=spaced[::2].unbind(0))
+
+
+def test_gridded_constant_record_equals_constant_wind_bitwise(dev):
+    """A record constant at (10, 10) m/s in space and time has zero slopes,
+    so its planes give u = 10 + t 0 = 10 exactly: K1, K3, K5 and K6's
+    gridded instances equal their constant-wind instances bit for bit."""
+    from picles_torch import TermFlags, constant_winds
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.advance_cuda import advance_cuda, auto_dt_cuda
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+    from picles_torch.ops.tsit5 import SolverConfig
+
+    n, t0 = 64, 1200.0
+    kw, wf, _ = _gridded(dev, n, 900.0, t0, const=True)
+    cw = constant_winds(10.0, 10.0)
+    comps, active, g = _state(dev, n=n, seed=3)
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    t = torch.full_like(comps[0], t0)
+    for method in ("bosh3", "tsit5"):
+        for adaptive in (False, True):
+            cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                               force_dtmin=True)
+            dt = torch.full_like(t, 60.0)
+            a = advance_cuda(kw, _consts(), TermFlags(), cfg, 600.0, comps, t,
+                             dt, active, g.x, g.y, proj, wind_fields=wf)
+            b = advance_cuda(cw, _consts(), TermFlags(), cfg, 600.0, comps, t,
+                             dt, active, g.x, g.y, proj)
+            _assert_bitwise(a, b)
+    reset, dt = _reset_inputs(dev, n, 2)
+    _assert_bitwise(
+        (auto_dt_cuda(kw, _consts(), TermFlags(), t, comps, g.x, g.y, proj,
+                      reset, dt, 1e-4, 600.0, wind_fields=wf),),
+        (auto_dt_cuda(cw, _consts(), TermFlags(), t, comps, g.x, g.y, proj,
+                      reset, dt, 1e-4, 600.0),))
+    m, node, core = _remesh_case(dev, n, "wind_sea", True, seed=5)
+    rk, rc = m.remesh_params._replace(winds=kw), \
+        m.remesh_params._replace(winds=cw)
+    _assert_bitwise(remesh_cuda(rk, node, *core, wind_fields=wf),
+                    remesh_cuda(rc, node, *core))
+    chans = TR.particle_to_node(*core[:3])
+    sact = (core[6] & core[7]).contiguous()
+    a = pic_gather_remesh(core[3], core[4], chans, sact, m.grid.stats, 3, rk,
+                          *core, wind_fields=wf)
+    b = pic_gather_remesh(core[3], core[4], chans, sact, m.grid.stats, 3, rc,
+                          *core)
+    _assert_bitwise((*a[0], *a[1]), (*b[0], *b[1]))

@@ -48,24 +48,27 @@ COUNTERS = ("n_active", "n_failed", "n_nan_reset", "n_inf_reset",
 
 
 def port_of(jm, winds):
-    """The port's model of a JAX model: same grid, parameters and config."""
+    """The port's model of a JAX model: same grid, parameters, term flags
+    and config (the grid in the config's dtype)."""
     g = jm.grid
+    cfg = convert.config_from_jax(jm.config)
     grid = convert.grid_from_numpy(
         {f: np.asarray(getattr(g, f)) for f in convert.GRID_FIELDS}, g.stats,
-        device="cpu")
+        device="cpu", dtype=cfg.dtype)
     sett, params, cid = convert.settings_from_values(jm.settings, jm.params,
                                                      jm.constants)
     tm = pt.WaveGrowth2D(grid, winds, sett, ode_params=params, constants=cid,
-                         config=convert.config_from_jax(jm.config))
+                         flags=convert.flags_from_jax(jm.flags), config=cfg)
     return tm
 
 
-def state_of(jms):
+def state_of(jms, dtype=torch.float32):
     P = jms.particles
     return convert.state_from_numpy(
         np.asarray(jms.state),
         {k: np.asarray(getattr(P, k)) for k in convert.PARTICLE_FIELDS},
-        np.asarray(jms.time), np.asarray(jms.iteration), device="cpu")
+        np.asarray(jms.time), np.asarray(jms.iteration), device="cpu",
+        dtype=dtype)
 
 
 def assert_counters_equal(tms, jms, step):
@@ -331,3 +334,89 @@ def test_boundary_inflow_and_init_modes_match(cfg):
                                       np.asarray(jms.particles.on))
     m = tms.metrics.as_dict()
     assert m["n_reseed"] + m["n_off"] + m["n_nan_reset"] > 0   # not all gather
+
+
+def test_term_flags_carry_over_on_propagation_only_blob():
+    """The propagation-only swell blob of tests/test_land_mask_2d.py:74
+    (every source term off, a land wall): ``port_of`` carries the JAX
+    model's term flags, so 8 steps agree within 1e-5 (3.3e-6 measured; with
+    every term on, the port drifted to 5.4e-5), as the largest difference
+    over the state's largest value; counters and ``on`` equal."""
+    import test_land_mask_2d as tlm
+
+    mask = np.ones((tlm.NX, tlm.NY), bool)
+    mask[30:34, :] = False
+    jm = tlm._model(mask)
+    tm = port_of(jm, pt.constant_winds(0.0, 0.0))
+    assert tm.flags == pt.TermFlags(input=False, dissipation=False,
+                                    peak_shift=False, direction=False)
+    jms = tlm._plant_blob(jm)
+    tms = state_of(jms)
+    jstep = jax.jit(jm.step)
+    for k in range(8):
+        jms, tms = jstep(jms), tm.step(tms)
+        S, J = tms.state.numpy(), np.asarray(jms.state)
+        gap = float(np.abs(S - J).max() / np.abs(J).max())
+        assert gap <= 1e-5, f"step {k}: {gap:.3e} of the state's scale"
+        assert_counters_equal(tms, jms, k)
+        np.testing.assert_array_equal(tms.particles.on.numpy(),
+                                      np.asarray(jms.particles.on))
+    assert int(tms.metrics.n_active) > 0
+
+
+def test_flags_from_jax_takes_attributes_or_mapping():
+    from picles_tpu.ops.rhs import TermFlags as JFlags
+
+    f = JFlags(input=False, direction=False)
+    assert convert.flags_from_jax(f) == pt.TermFlags(input=False,
+                                                     direction=False)
+    assert convert.flags_from_jax(dict(propagation=False, input=True,
+                                       dissipation=True, peak_shift=False,
+                                       direction=True)) == pt.TermFlags(
+        propagation=False, peak_shift=False)
+
+
+def test_config_from_jax_maps_float64_and_refuses_other_dtypes():
+    import jax.numpy as jnp
+
+    assert convert.config_from_jax(JConfig()).dtype == torch.float32
+    cfg = convert.config_from_jax(JConfig(dtype=jnp.float64))
+    assert cfg.dtype == torch.float64
+    assert dataclasses.replace(cfg, dtype=torch.float32) == \
+        convert.config_from_jax(JConfig())
+    with pytest.raises(ValueError, match="float32 and float64"):
+        convert.config_from_jax(JConfig(dtype=jnp.float16))
+
+
+def test_float64_model_matches_jax_float64():
+    """A float64 JAX model (x64 scoped to this test, as
+    tests/test_torch_sharded.py:309) and the port's model built from it
+    through ``config_from_jax``: fixed 60 s substeps over half-domain
+    winds, 3 steps, rtol 2e-5 (the port samples winds in float32 whatever
+    the model's dtype, tests/test_torch_sharded.py:26-30), counters
+    equal."""
+    import jax.numpy as jnp
+
+    ws = jfr.MinimalWindsea(10.0, 10.0, 600.0)
+    sett = JSettings(log_energy_minimum=float(ws.lne), timestep=600.0,
+                     dt=60.0, dtmin=1e-4, adaptive=False)
+    with jax.enable_x64(True):
+        jm = JModel(j_box(100e3, 12, 100e3, 12,
+                          periodic_boundary=(True, True)),
+                    jw.half_domain_winds(10.0, 5.0, x_split=50e3), sett,
+                    config=JConfig(periodic_boundary=True,
+                                   dtype=jnp.float64))
+        tm = port_of(jm, pt.half_domain_winds(10.0, 5.0, x_split=50e3))
+        assert tm.config.dtype == torch.float64
+        jms = jm.init_state()
+        assert np.asarray(jms.state).dtype == np.float64
+        tms = state_of(jms, torch.float64)
+        jstep = jax.jit(jm.step)
+        for k in range(3):
+            jms, tms = jstep(jms), tm.step(tms)
+            assert tms.state.dtype == torch.float64
+            np.testing.assert_allclose(tms.state.numpy(),
+                                       np.asarray(jms.state), rtol=2e-5,
+                                       atol=1e-12, err_msg=f"step {k}")
+            assert_counters_equal(tms, jms, k)
+    assert 0 < int(tms.metrics.n_active) < 144

@@ -381,12 +381,13 @@ def test_remesh_config_errors():
 
 def test_kernel_remesh_refuses_winds_outside_the_kernel_set(monkeypatch):
     """On a CUDA device (faked here) a kernel remesh mode with winds that
-    carry no kernel descriptor raises, naming the gridded-winds item."""
+    carry no kernel descriptor raises, naming the winds the kernels take
+    (gridded records among them)."""
     monkeypatch.setattr(pt.Grid2D, "device", property(
         lambda self: torch.device("cuda", 0)))
     plain = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
                        v=lambda x, y, t: torch.full_like(x, 5.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(NotImplementedError, match="and a GriddedWinds2D"):
         pt.WaveGrowth2D(
             pt.cartesian_box(100e3, 8, 100e3, 8, device="cpu"), plain,
             pt.ODESettings(),
