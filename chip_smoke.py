@@ -32,7 +32,19 @@ just before and read just after:
    their plain versions over the same per-step planes at 256^2 (phase
    "gridded-kernels"), a constant record bit for bit against the
    constant-wind instances at 1536^2 ("gridded-anchor"), and timed on the
-   gridded states beside their bounds.
+   gridded states beside their bounds;
+5. the global tripolar configuration: a quarter-degree synthetic tripolar
+   grid (1440 x 720) with pole masks and a continent, DT = 1200 s, forced
+   by a gridded jet record: a storeless day (72 steps) of the fused
+   configuration through ``Simulation.run`` (K1 with per-node projection
+   planes, K6 with the tripolar seam), checkpointed at step 36 and resumed
+   bit for bit, then the default configuration (K1, K2, K3) and the
+   "pallas" remesh (K1, K2, K5), 4 steps each.  The new branches are held
+   against their plain versions at 256^2 on spherical and tripolar grids
+   (phase "K1 proj"/"K3 proj"; a Cartesian box, plain and rotated, given
+   as planes bit for bit the scalars, "proj-anchor") and at the main
+   path's shape ("K2 tripolar"; "K6 tripolar" bit for bit K2 + K5), and
+   the 1 degree grid (360 x 180) runs on the card against the CPU.
 
 It matches a small run on the card against the same model on the CPU, and
 times the kernels and the step beside their plain versions.  K1-K4 and K6
@@ -75,8 +87,10 @@ import torch.distributed as dist
 
 from picles_torch import (Boundary, GridStats, ODEParameters, ODESettings,
                           Simulation, TermFlags, WaveGrowth2D,
-                          WaveGrowth2DConfig, cartesian_box, constant_winds,
+                          WaveGrowth2DConfig, cartesian_box,
+                          cartesian_grid_2d, constant_winds,
                           half_domain_winds, load_gridded_winds_2d,
+                          spherical_grid_2d, synthetic_tripolar_grid,
                           time_cosine_winds)
 from picles_torch.core import fetch_relations as FR
 from picles_torch.models import wave_growth_2d as W2D
@@ -84,8 +98,11 @@ from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
 from picles_torch.forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
                                         gridded_kernel, pwl_winds)
+from picles_torch.grids.mask import make_boundaries
 from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
-                                           auto_dt_reset, kernel_wind)
+                                           auto_dt_reset, kernel_wind,
+                                           node_projection,
+                                           uniform_projection)
 from picles_torch.ops.pic import (normalize_halo, scatter_accumulate_padded,
                                   scatter_dense)
 from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
@@ -320,18 +337,19 @@ def gridded_wind_ops(B: int) -> int:
 
 
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
-             n_wf: int = 0) -> dict:
+             n_wf: int = 0, proj: bool = False) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
-    and a gridded wind's ``n_wf`` planes in (4 bytes each); per live
-    particle one RHS evaluation to start, then per substep tried (accepted
-    or rejected) S evaluations (each with the gridded samplers) and the
-    substep's own operations."""
+    a gridded wind's ``n_wf`` planes in (4 bytes each) and, with per-node
+    projection planes (``proj``), 5 more (20 bytes); per live particle one
+    RHS evaluation to start, then per substep tried (accepted or rejected)
+    S evaluations (each with the gridded samplers) and the substep's own
+    operations."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    return bound((66.0 + 4.0 * n_wf) * n, ops)
+    return bound((66.0 + 4.0 * n_wf + 20.0 * proj) * n, ops)
 
 
 def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
@@ -364,21 +382,21 @@ def remesh_bound(n: int, n_wf: int = 0) -> dict:
     return bound((72.0 + wind) * n, ops * n)
 
 
-def k3_bound(reset: torch.Tensor, wind) -> dict:
+def k3_bound(reset: torch.Tensor, wind, proj: bool = False) -> dict:
     """K3 on this run's inputs: per lane the mask (1 byte) in and dt out (4);
     per reset lane the 5 components (20 bytes), the node x where an
-    analytic wind reads it, t where the wind varies in t and a gridded
-    wind's 4 + 3B planes (4 bytes each), 2 RHS evaluations (with the
-    gridded samplers), the norms, h0, h1 and the clamp (about 62
-    operations); per lane that is not reset its dt (4 bytes) and no
-    operation."""
+    analytic wind reads it, t where the wind varies in t, a gridded wind's
+    4 + 3B planes (4 bytes each) and per-node projection planes (``proj``,
+    20 bytes), 2 RHS evaluations (with the gridded samplers), the norms,
+    h0, h1 and the clamp (about 62 operations); per lane that is not reset
+    its dt (4 bytes) and no operation."""
     n, r = reset.numel(), int(reset.sum())
     gridded = wind.kind == WindKind.GRIDDED
     n_wf = 4 + 3 * wind.n_break if gridded else 0
     per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.HALF_DOMAIN,
                                             WindKind.TIME_COSINE)) \
         + 4.0 * (wind.kind in (WindKind.TIME_COSINE, WindKind.GRIDDED)) \
-        + 4.0 * n_wf
+        + 4.0 * n_wf + 20.0 * proj
     rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0)
     return bound(5.0 * n + per_reset * r + 4.0 * (n - r),
                  (2 * rhs + 62.0) * r)
@@ -459,14 +477,15 @@ def gridded_model(n: int, device, winds, path: str, tols=None):
                           else "pallas")
 
 
-def perturbed_state(n: int, device, seed: int, ny: int = 0):
+def perturbed_state(n: int, device, seed: int, ny: int = 0, grid=None):
     """Windsea seeds of (10, 10) m/s winds plus a numpy-seeded perturbation
-    on an n x n grid (n x ny with ``ny``); returns (comps, dt, active,
-    grid)."""
+    on an n x n grid (n x ny with ``ny``; ``grid``, of that shape, in place
+    of the periodic 2 km box); returns (comps, dt, active, grid)."""
     rng = np.random.default_rng(seed)
     ny = ny or n
-    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (ny - 1), ny,
-                         periodic_boundary=(True, True), device=device)
+    if grid is None:
+        grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (ny - 1), ny,
+                             periodic_boundary=(True, True), device=device)
     ws = FR.get_initial_windsea(torch.full((n, ny), 10.0, device=device),
                                 torch.full((n, ny), 10.0, device=device), DT)
 
@@ -1159,9 +1178,10 @@ def flagship_deposit_inputs(flag, s_flag):
     P = s_flag.particles
     adv = P.on & flag.active_mask
     g = flag.grid
-    res = advance_cuda(flag.winds, flag.consts, flag.flags, flag.solver, DT,
+    res = advance_cuda(flag.winds, flag.consts, flag.flags, flag.solver,
+                       float(flag.settings.timestep),
                        (P.lne, P.cgx, P.cgy, P.px, P.py), P.t, P.dt, adv,
-                       g.x, g.y, flag.uniform_proj,
+                       g.x, g.y, flag.projection(g),
                        wind_fields=flag.wind_fields(g, s_flag.time))
     core = (res.lne, res.cgx, res.cgy, res.x, res.y, res.dt, P.on,
             flag.active_mask, flag.boundary_mask, g.x, g.y, s_flag.time)
@@ -1276,29 +1296,30 @@ def phase_remesh_backends(dev, results, timing):
     log("counters", f"remesh backends path launches {c}")
 
 
-def run_day_resumed(model, tag: str):
-    """A storeless day of ``model`` through Simulation.run; the same day
-    checkpointed at step 72 and resumed by a fresh Simulation, bitwise
-    equal at the end.  Returns (full run, wall s, peak bytes, checkpoint
-    bytes, save s, load s)."""
+def run_day_resumed(model, tag: str, steps: int = 145, at: int = 72):
+    """A storeless day of ``model`` (``steps`` steps of its DT) through
+    Simulation.run; the same day checkpointed at step ``at`` and resumed by
+    a fresh Simulation, bitwise equal at the end.  Returns (full run, wall
+    s, peak bytes, checkpoint bytes, save s, load s)."""
+    dt = float(model.settings.timestep)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    full = Simulation.create(model, stop_time=DAY)
+    full = Simulation.create(model, stop_time=(steps - 1) * dt)
     t0 = time.perf_counter()
     full.run()
     wall = time.perf_counter() - t0
-    assert int(full.state.iteration) == full.n_steps() == 145
+    assert int(full.state.iteration) == full.n_steps() == steps
     peak = torch.cuda.max_memory_allocated()
-    leg = Simulation.create(model, stop_time=71 * DT)
+    leg = Simulation.create(model, stop_time=(at - 1) * dt)
     leg.run()
-    assert int(leg.state.iteration) == 72
+    assert int(leg.state.iteration) == at
     os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
         t1 = time.perf_counter()
-        path = leg.checkpoint(os.path.join(tmp, "day_step72"))
+        path = leg.checkpoint(os.path.join(tmp, f"day_step{at}"))
         t_save = time.perf_counter() - t1
         size = os.path.getsize(path)
-        rest = Simulation.create(model, stop_time=DAY)
+        rest = Simulation.create(model, stop_time=(steps - 1) * dt)
         t2 = time.perf_counter()
         rest.pickup(path)
         t_load = time.perf_counter() - t2
@@ -1765,8 +1786,9 @@ def profile_config(tag: str, model, reps: int, steps: int = 10,
 def phase_profile(path: str, gw) -> None:
     """The step's time split at FLAG_N^2: the configurations with the
     kernels (traced), the flagship under each kernel remesh backend, the
-    gridded production configuration (record ``gw``), both configurations
-    with the plain versions on the card, and the pallas flagship through
+    gridded production configuration (record ``gw``), the tripolar
+    production configuration (1440 x 720), both configurations with the
+    plain versions on the card, and the pallas flagship through
     ShardedWaveGrowth2D on a (1, 1) NCCL mesh."""
     n = FLAG_N
     res = {"flagship": profile_config("flagship", flagship_model(n, "cuda"), 7),
@@ -1780,6 +1802,10 @@ def phase_profile(path: str, gw) -> None:
            "gridded": profile_config(
                "gridded fused", gridded_model(n, "cuda", gw, "production"),
                7),
+           "tripolar": profile_config(
+               "tripolar fused", tripolar_model(
+                   tripolar_grid("cuda", *TRI_SUPER),
+                   tripolar_record("cuda"), "production"), 7),
            "flagship_plain": profile_config(
                "flagship plain", flagship_model(n, "cuda", advance_mode="torch",
                                                 scatter_mode="dense"), 3),
@@ -2732,6 +2758,602 @@ def phase_gridded_card_vs_cpu(gw):
                                    f"(max abs err {err:.3e})")
 
 
+# ---------------------------------------------------------------------------
+# spherical and tripolar grids: per-node projection planes in K1/K3, the
+# tripolar north seam in K2/K6
+# ---------------------------------------------------------------------------
+
+# The global tripolar configuration: the synthetic supergrid at a quarter
+# degree (2880 x 1440, k = 2: a 1440 x 720 T-grid, 1,036,800 nodes) with
+# the default pole masks and the continent of
+# benchmark/tripolar_global_demo.py, DT = 1200 s, forced by a gridded
+# record of tests/test_tripolar.py's jet (``tripolar_record``)
+TRI_SUPER = (2880, 1440)
+TRI_DT = 1200.0
+TRI_STEPS = 72   # a day of TRI_DT
+# assert_adaptive's and assert_controller's shares for adaptive K1 with
+# projection planes on the perturbed 256^2 curved-grid states.  There the
+# plain version alone, its lne (or cg_x) moved by one ulp, keeps only
+# 98.60-99.47% of the lanes within rtol 5e-3 and takes as many substeps on
+# only 93.70-94.01% of them (time-cosine tsit5; measured on the CPU), and
+# the kernel kept 98.64% and 93.56% on the card (fixed substeps within
+# 4.8e-6).  So at least 97% of the lanes within rtol 5e-3 and 90% taking
+# as many substeps (a safety factor of 0.85 for 0.9 leaves 72-83%).
+PROJ_SHARE = 0.97
+PROJ_COUNT_SHARE = 0.90
+# the new entries of the kernels line: the branch each kernel gains, and
+# the TPU kernel's lines it replaces
+PROJ_REPLACES = {"K1 proj": "picles_tpu/ops/advance_pallas.py:60",
+                 "K3 proj": "picles_tpu/ops/advance_pallas.py:206",
+                 "K2 tripolar": "picles_tpu/ops/pic_pallas.py:306",
+                 "K6 tripolar": "picles_tpu/ops/pic_pallas.py:438"}
+
+
+def tripolar_grid(dev, nx_super: int, ny_super: int):
+    """The synthetic tripolar grid (k = 2) with its pole masks and
+    benchmark/tripolar_global_demo.py's continent (a lon/lat box with a
+    ragged northern edge), cut from the float32 node coordinates as the
+    demo cuts it."""
+    g = synthetic_tripolar_grid(k=2, nx_super=nx_super, ny_super=ny_super,
+                                device=dev)
+    lon, lat = g.x.cpu().numpy(), g.y.cpu().numpy()
+    land = ((lon > 250.0) & (lon < 310.0) & (lat > -40.0)
+            & (lat < 55.0 + 10.0 * np.sin(np.radians(3.0 * lon))))
+    total = make_boundaries((g.mask.cpu().numpy() != 0) & ~land,
+                            Boundary.PERIODIC, Boundary.TRIPOLAR_NORTH)
+    return dataclasses.replace(g, mask=torch.as_tensor(
+        total.astype(np.int32), device=dev))
+
+
+def tripolar_record(dev) -> GriddedWinds2D:
+    """A T03_PIC_tripolar_realistic-like record in memory:
+    tests/test_tripolar.py:116-127's zonal jet at 40N with a time wobble and
+    a meridional part, on a 1 degree lon/lat record (lon 0..360, lat
+    -80..90) with hourly frames over 25 h."""
+    lon = np.linspace(0.0, 360.0, 361)
+    lat = np.linspace(-80.0, 90.0, 171)
+    t = np.arange(26) * 3600.0
+    T, LO, LA = np.meshgrid(t, lon, lat, indexing="ij")
+    u = 12.0 * np.exp(-((LA - 40) / 20.0) ** 2) * (1 + 0.2 * np.sin(T / 4e4))
+    v = 3.0 * np.sin(np.radians(LO)) * np.exp(-((LA - 40) / 25.0) ** 2)
+    return GriddedWinds2D(
+        u_data=torch.as_tensor(u.astype(np.float32), device=dev),
+        v_data=torch.as_tensor(v.astype(np.float32), device=dev), x0=0.0,
+        dx=1.0, y0=-80.0, dy=1.0, t0=0.0, dt=3600.0)
+
+
+def tripolar_model(grid, gw, path: str, tols=None):
+    """The tripolar configuration on ``grid`` forced by ``gw``, with the JAX
+    tripolar tests' settings (DT = 1200 s, dt = 1e-3, dtmin = 1e-4,
+    force_dtmin, the log-energy minimum of a (10, 10) m/s minimal windsea),
+    periodic, halo 3: "production" bosh3 with the carried dt and the fused
+    remesh (K1, K6), "pallas" with K5 (K1, K2, K5), "default"
+    ``WaveGrowth2DConfig()``'s tsit5 with the Hairer reset (K1, K2, K3)."""
+    ws = FR.MinimalWindsea(10.0, 10.0, TRI_DT)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=TRI_DT,
+                       timestep=TRI_DT, total_time=6 * DAY, dt=1e-3,
+                       dtmin=1e-4, force_dtmin=True,
+                       solver="tsit5" if path == "default" else "bosh3",
+                       **(tols or {}))
+    cfg = WaveGrowth2DConfig(periodic_boundary=True, halo=3)
+    if path != "default":
+        cfg = dataclasses.replace(
+            cfg, dt_reset_mode="carry",
+            remesh_mode="fused" if path == "production" else "pallas")
+    return WaveGrowth2D(grid, gw, sett, config=cfg)
+
+
+def one_cell_reach(active: np.ndarray) -> np.ndarray:
+    """The nodes a CIC deposit of displacements under one cell can reach
+    from the ``active`` nodes of a tripolar grid: the 8-neighbourhood, x
+    periodic, with the top row's seam mirror (a ghost row of the top row,
+    x flipped) above it."""
+    nx, ny = active.shape
+    ext = np.concatenate([active, active[(nx - 2 - np.arange(nx)) % nx,
+                                         -1:]], axis=1)
+    reach = np.zeros_like(ext)
+    for dx in (-1, 0, 1):
+        sh = np.roll(ext, dx, axis=0)
+        reach |= sh
+        reach[:, 1:] |= sh[:, :-1]
+        reach[:, :-1] |= sh[:, 1:]
+    return reach[:, :ny]
+
+
+def check_tripolar(tag: str, model, ms) -> dict:
+    """A finite state, no failed lane and no particle on land.  Energy
+    reaches land only where a CIC deposit touches a land node one cell from
+    an active node: at a concave coast corner a particle moving diagonally
+    deposits on the land node between its two land neighbours (land
+    boundary nodes are 4-neighbours of ocean), as picles_tpu's deposit
+    does; that energy is logged and held below 1e-6 of the total.  Returns
+    the counters, with the land energy's share."""
+    m = check_state(tag, ms, n_failed=0)
+    land = model.grid.mask == 0
+    assert not bool(ms.particles.on[land].any()), f"{tag}: a particle on land"
+    e = ms.state[..., 0]
+    e_land = e[land].double()
+    share = float(e_land.abs().sum() / e.double().abs().sum())
+    far = land.cpu().numpy() & ~one_cell_reach(
+        model.active_mask.cpu().numpy()) & (e.cpu().numpy() != 0)
+    assert not far.any(), \
+        f"{tag}: energy on {int(far.sum())} land nodes beyond one cell"
+    assert share < 1e-6, f"{tag}: land holds {share:.3e} of the energy"
+    m["land_energy_share"] = share
+    m["land_nodes_with_energy"] = int((e_land != 0).sum())
+    return m
+
+
+def curved_grids(n: int, dev) -> dict:
+    """An n^2 spherical grid (periodic lon, open lat from 70S to 70N) and an
+    n^2 synthetic tripolar grid."""
+    return {"spherical": spherical_grid_2d(0.0, 360.0 * (n - 1) / n, n,
+                                           -70.0, 70.0, n,
+                                           periodic_boundary=(True, False),
+                                           device=dev),
+            "tripolar": synthetic_tripolar_grid(k=2, nx_super=2 * n,
+                                                ny_super=2 * n, device=dev)}
+
+
+def phase_proj(dev, results):
+    """K1 and K3 with per-node projection planes (``node_projection``)
+    against their plain versions on the perturbed state over 256^2
+    spherical and tripolar grids: fixed substeps within rtol 1e-5, adaptive
+    by share of lanes (``assert_adaptive``, ``assert_controller``), K3
+    within rtol 1e-5 with its unreset lanes' dt kept bit for bit.  Then the
+    anchor: the 256^2 box, and the box rotated by 30 degrees (off-diagonal
+    m01/m10), given as planes equal the same projection given as the 5
+    scalars bit for bit, for K1 (both methods, both modes) and K3 (every
+    lane and half reset), constant and gridded winds, the default and a
+    generic term-flag set."""
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    flags = TermFlags()
+    n = 256
+    err1 = err3 = 0.0
+    names = ("lne", "cgx", "cgy", "x", "y")
+    for kind, g in curved_grids(n, dev).items():
+        assert uniform_projection(g.proj, g.pc) is None, kind
+        planes = node_projection(g.proj, g.pc)
+        comps, dt0, active, _ = perturbed_state(n, dev, seed=30, grid=g)
+        aux = RHSParams(x=g.x, y=g.y, M=g.proj, pc=g.pc)
+        t = torch.full_like(comps[0], 1800.0)
+        for wname, winds in (("constant", constant_winds(10.0, 10.0)),
+                             ("time-cosine",
+                              time_cosine_winds(10.0, 5.0,
+                                                period=6 * 3600.0))):
+            rhs = make_rhs(winds.u, winds.v, consts, flags)
+            for method in ("bosh3", "tsit5"):
+                for adaptive in (False, True):
+                    cfg = SolverConfig(method=method, adaptive=adaptive,
+                                       dtmin=1e-4, force_dtmin=True)
+                    dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
+                    k = advance_cuda(winds, consts, flags, cfg, DT, comps, t,
+                                     dt, active, g.x, g.y, planes)
+                    p = integrate_to(rhs, torch.stack(comps, dim=-1), t,
+                                     t + DT, dt, aux, active, cfg)
+                    torch.cuda.synchronize()
+                    tag = (f"K1 proj {kind} {wname} {method} "
+                           f"{'adaptive' if adaptive else 'fixed'}")
+                    assert torch.equal(k.failed, p.failed), f"{tag}: failed"
+                    extra = ""
+                    if adaptive:
+                        errs = [assert_adaptive(f"{tag} {nm}", kz,
+                                                p.z[..., i],
+                                                min_share=PROJ_SHARE)
+                                for i, (nm, kz) in enumerate(zip(names,
+                                                                 k[:5]))]
+                        assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
+                        extra = "; " + assert_controller(
+                            tag, k, p, active, min_share=PROJ_COUNT_SHARE)
+                    else:
+                        errs = [assert_close(f"{tag} {nm}", kz, p.z[..., i],
+                                             1e-5, 1e-6)
+                                for i, (nm, kz) in enumerate(zip(names,
+                                                                 k[:5]))]
+                        assert torch.equal(k.naccept, p.naccept), tag
+                        assert torch.equal(k.dt, p.dt), tag
+                        err1 = max(err1, max(errs))
+                    log("K1 proj", f"{tag}: max abs err {max(errs):.3e}, "
+                                   f"substeps max {int(k.naccept.max())}"
+                                   f"{extra}")
+            for rname, reset in (("all", torch.ones_like(active)),
+                                 ("half", half_reset_mask((n, n), dev, 31))):
+                k = auto_dt_cuda(winds, consts, flags, t, comps, g.x, g.y,
+                                 planes, reset, dt0, 1e-4, DT)
+                p = auto_dt_reset(rhs, t, torch.stack(comps, dim=-1), aux,
+                                  reset, dt0, 1e-4, DT)
+                tag = f"K3 proj {kind} {wname} {rname} reset"
+                e3 = assert_close(tag, k, p, 1e-5, 0.0)
+                assert torch.equal(bits(k[~reset]), bits(dt0[~reset])), tag
+                err3 = max(err3, e3)
+                log("K3 proj", f"{tag}: max abs err {e3:.3e}")
+    results["K1 proj"]["max_abs_err"] = err1
+    results["K3 proj"]["max_abs_err"] = err3
+
+    comps, dt0, active, box = perturbed_state(n, dev, seed=0)
+    nb = box.nx
+    t0 = 1500.0
+    t = torch.full_like(comps[0], t0)
+    gw = window_record(nb, dev, 900.0)
+    half = half_reset_mask((nb, nb), dev, 32)
+    for angle in (0.0, 30.0):
+        g = box if angle == 0.0 else cartesian_grid_2d(
+            0.0, 2e3 * (nb - 1), nb, 0.0, 2e3 * (nb - 1), nb, angle=angle,
+            periodic_boundary=(True, True), device=dev)
+        scalars = uniform_projection(g.proj, g.pc)
+        assert (scalars[1] != 0.0 and scalars[2] != 0.0) == (angle != 0.0)
+        planes = node_projection(g.proj, g.pc)
+        kw, wf, _ = kernel_winds(gw, g, torch.tensor(t0, device=dev))
+        for fl in (TermFlags(), TermFlags(direction=False, peak_shift=False)):
+            for wname, winds, fields in (("constant",
+                                          constant_winds(10.0, 10.0), ()),
+                                         ("gridded", kw, wf)):
+                for method in ("bosh3", "tsit5"):
+                    for adaptive in (False, True):
+                        cfg = SolverConfig(method=method, adaptive=adaptive,
+                                           dtmin=1e-4, force_dtmin=True)
+                        a, b = (advance_cuda(winds, consts, fl, cfg, DT,
+                                             comps, t, dt0, active, g.x, g.y,
+                                             pr, wind_fields=fields)
+                                for pr in (planes, scalars))
+                        assert_bitwise(f"K1 anchor angle {angle:g} {wname} "
+                                       f"{method} adaptive={adaptive} {fl}",
+                                       a, b)
+                for reset in (torch.ones_like(active), half):
+                    a, b = (auto_dt_cuda(winds, consts, fl, t, comps, g.x,
+                                         g.y, pr, reset, dt0, 1e-4, DT,
+                                         wind_fields=fields)
+                            for pr in (planes, scalars))
+                    assert_bitwise(f"K3 anchor angle {angle:g} {wname} {fl}",
+                                   (a,), (b,))
+    log("proj-anchor", f"{nb}^2 box, angle 0 and 30 degrees (m01 "
+                       f"{scalars[1]:.3e}): K1 (bosh3 and tsit5, adaptive and "
+                       f"fixed) and K3 (all and half reset) with planes "
+                       f"bitwise equal to the scalars, constant and gridded "
+                       f"winds, default and generic term flags")
+
+
+def seam_inputs(dev, nx: int, ny: int, halo, seed: int):
+    """Displacements over the halo and 0.2 past it, the channels (E
+    uniform, the momenta normal), 90% of the particles active."""
+    rng = np.random.default_rng(seed)
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+
+    def plane(fn, *a):
+        return torch.as_tensor(fn(*a, (nx, ny)).astype(np.float32),
+                               device=dev)
+
+    xr = plane(rng.uniform, -xl - 0.2, xh + 0.2)
+    yr = plane(rng.uniform, -yl - 0.2, yh + 0.2)
+    chans = (plane(rng.uniform, 0.0, 1.0), plane(rng.normal, 0.0, 0.1),
+             plane(rng.normal, 0.0, 0.1))
+    act = torch.as_tensor(rng.uniform(size=(nx, ny)) < 0.9, device=dev)
+    return xr, yr, chans, act
+
+
+SEAM_HALOS = (((0, 3), (0, 3)), 3, ((2, 3), (1, 3)))
+
+
+def phase_seam(dev, results):
+    """K2 on the 1440 x 720 tripolar grid's shape with a TRIPOLAR_NORTH y
+    axis against scatter_dense's fold, under the flagship's halo, halo 3
+    and the sharded tests' seam halo ((2,3),(1,3)), displacements past the
+    halo included: within rtol 1e-5 and 1e-6 of each channel's scale, two
+    runs bitwise equal, the clamped count exact, E conserved.  K6 on the
+    256^2 remesh state with the same seam: node planes equal to K2's and
+    remesh outputs equal to K2 + K5, bit for bit."""
+    nx, ny = TRI_SUPER[0] // 2, TRI_SUPER[1] // 2
+    tri = GridStats(nx=nx, ny=ny, bx=Boundary.PERIODIC,
+                    by=Boundary.TRIPOLAR_NORTH)
+    e2 = e6 = 0.0
+    for i, halo in enumerate(SEAM_HALOS):
+        xr, yr, chans, act = seam_inputs(dev, nx, ny, halo, 40 + i)
+        o, st = pic_gather(xr, yr, chans, act, tri, halo)
+        o2, _ = pic_gather(xr, yr, chans, act, tri, halo)
+        S, st_p = scatter_dense(xr, yr, torch.stack(chans, dim=-1), act, tri,
+                                halo)
+        torch.cuda.synchronize()
+        tag = f"K2 tripolar {nx} x {ny} halo {halo}"
+        assert_bitwise(f"{tag} two runs", o, o2)
+        for c in range(3):
+            e2 = max(e2, assert_close(f"{tag} ch{c}", o[c], S[..., c], 1e-5,
+                                      1e-6 * float(S[..., c].abs().max())))
+        assert int(st.clamped) == int(st_p.clamped) > 0, tag
+        # the seam folds every deposit back in: E is conserved but for
+        # what the open south edge drops, part of the sources' in the
+        # bottom yl rows
+        e_src = chans[0].double() * act
+        src, dep = float(e_src.sum()), float(o[0].double().sum())
+        yl = normalize_halo(halo)[1][0]
+        south = float(e_src[:, :yl].sum())
+        assert -1e-6 * src <= src - dep <= south + 1e-6 * src, \
+            (tag, dep, src, south)
+        log("K2 tripolar", f"{tag}: max abs err {e2:.3e}, clamped "
+                           f"{int(st.clamped)}, bitwise repeatable, E "
+                           f"deposited {dep / src:.6f} of the sources'")
+
+    seed = 50
+    for bt in ("same", "wind_sea"):
+        seed += 1
+        m, node, core = remesh_case(dev, 256, bt, True, seed)
+        tri256 = GridStats(nx=256, ny=256, bx=Boundary.PERIODIC,
+                           by=Boundary.TRIPOLAR_NORTH)
+        chans = TR.particle_to_node(*core[:3])
+        sact = (core[6] & core[7]).contiguous()
+        for halo in SEAM_HALOS:
+            nd, rm, st = pic_gather_remesh(core[3], core[4], chans, sact,
+                                           tri256, halo, m.remesh_params,
+                                           *core)
+            k2, st2 = pic_gather(core[3], core[4], chans, sact, tri256, halo)
+            k5 = remesh_cuda(m.remesh_params, k2, *core)
+            S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1),
+                                 sact, tri256, halo)
+            tag = f"K6 tripolar 256^2 {bt} halo {halo}"
+            assert_bitwise(f"{tag} vs K2 + K5", (*nd, *rm), (*k2, *k5))
+            assert int(st.clamped) == int(st2.clamped), tag
+            for c in range(3):
+                e6 = max(e6, assert_close(
+                    f"{tag} node ch{c}", nd[c], S[..., c], 1e-5,
+                    1e-6 * float(S[..., c].abs().max())))
+            log("K6 tripolar", f"{tag}: equal to K2 + K5 bitwise; "
+                               f"{branch_counts(rm.branch)}; node planes vs "
+                               f"plain max abs err {e6:.3e}")
+    results["K2 tripolar"]["max_abs_err"] = e2
+    results["K6 tripolar"]["max_abs_err"] = e6
+
+
+def phase_tripolar_main(dev, results, timing):
+    """This slice's main path: the global tripolar configuration at 1440 x
+    720 through its entry points, each path with the counters set to 0
+    just before and read just after: the production day (72 steps of 1200
+    s through Simulation.run, K1 and K6 once a step, checkpointed at step
+    36 and resumed bit for bit), the default configuration (K1, K2, K3)
+    and the "pallas" remesh (K1, K2, K5), 4 steps each from the seed.
+    Every path: finite, no failed lane, no energy and no particle on land;
+    n_clamped reported.  Returns (grid, record, production model and its
+    last state, default model and its last state)."""
+    grid = tripolar_grid(dev, *TRI_SUPER)
+    gw = tripolar_record(dev)
+    nx, ny = grid.nx, grid.ny
+    n = nx * ny
+    mask = grid.mask
+    log("tripolar-main", f"{nx} x {ny} T-grid ({n} nodes): ocean "
+                         f"{int((mask == 1).sum())}, land "
+                         f"{int((mask == 0).sum())}, land boundary "
+                         f"{int((mask == 2).sum())}; record "
+                         f"{tuple(gw.u_data.shape)} hourly")
+    prod = tripolar_model(grid, gw, "production")
+    rc = prod.resolved_config()
+    assert prod.uniform_proj is None and prod._wind_B == 1
+    assert rc.advance_mode == "cuda" and rc.scatter_mode == "dense_cuda"
+    reset_counters()
+    full, wall, peak, size, t_save, t_load = run_day_resumed(
+        prod, "tripolar production day", steps=TRI_STEPS, at=36)
+    c = counters()
+    m = check_tripolar("tripolar production day", prod, full.state)
+    steps = TRI_STEPS + 36 + (TRI_STEPS - 36)
+    assert c["K6"] == steps and c["K1"] == steps, c
+    assert c["K2"] == c["K3"] == c["K5"] == 0, c
+    launches = {"K1 proj": c["K1"], "K6 tripolar": c["K6"]}
+    log("counters", f"tripolar production path launches {c}")
+    timing.update(tripolar_day_wall_s=wall, tripolar_day_steps=TRI_STEPS,
+                  tripolar_day_ms_per_step=wall * 1e3 / TRI_STEPS,
+                  tripolar_day_pushes_per_s=n * TRI_STEPS / wall,
+                  tripolar_peak_bytes=peak,
+                  tripolar_checkpoint_bytes=size,
+                  tripolar_n_clamped=m["n_clamped"])
+    log("tripolar-main", f"production (bosh3, fused, B = 1), 1 day: "
+                         f"{TRI_STEPS} steps in {wall:.3f} s wall "
+                         f"({wall * 1e3 / TRI_STEPS:.3f} ms/step, "
+                         f"{n * TRI_STEPS / wall:.4e} pushes/s), peak "
+                         f"{peak / 2**30:.3f} GiB; checkpoint at 36 "
+                         f"{size / 2**20:.1f} MiB ({t_save:.2f} s / "
+                         f"{t_load:.2f} s), resumed bitwise equal; metrics "
+                         f"{m}")
+    states = {}
+    for path in ("default", "pallas"):
+        model = tripolar_model(grid, gw, path)
+        reset_counters()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ms = model.init_state()
+        for _ in range(4):
+            ms = model.step(ms)
+        end.record()
+        torch.cuda.synchronize()
+        ms_step = start.elapsed_time(end) / 4
+        c = counters()
+        mt = check_tripolar(f"tripolar {path}", model, ms)
+        assert c["K1"] == c["K2"] == 4, c
+        if path == "default":
+            assert c["K3"] == 4 and c["K5"] == c["K6"] == 0, c
+            launches["K3 proj"] = c["K3"]
+        else:
+            assert c["K5"] == 4 and c["K3"] == c["K6"] == 0, c
+        launches["K1 proj"] += c["K1"]
+        launches["K2 tripolar"] = launches.get("K2 tripolar", 0) + c["K2"]
+        log("counters", f"tripolar {path} path launches {c}")
+        timing[f"tripolar_{path}_ms_per_step"] = ms_step
+        timing[f"tripolar_{path}_n_clamped"] = mt["n_clamped"]
+        log("tripolar-main", f"{path}: {ms_step:.3f} ms/step over 4 steps "
+                             f"from the seed (init included), "
+                             f"{n / (ms_step / 1e3):.4e} pushes/s; metrics "
+                             f"{mt}")
+        states[path] = (model, ms)
+    for k, v in launches.items():
+        results[k]["launches"] = v
+        assert v > 0, k
+    return (grid, gw, prod, full.state, *states["default"])
+
+
+def phase_tripolar_card_vs_cpu():
+    """The 1 degree tripolar grid (720 x 360 supergrid: 360 x 180) with its
+    continent and the record: the production and default models with the
+    kernels on the card against the same models on the CPU, 2 steps at the
+    solver tolerances CARD_VS_CPU_TOLS (the card reads the record's planes,
+    the CPU its interpolant), within 5e-3 and 1e-6 of the state's scale,
+    every counter equal but substeps_max (within 2)."""
+    for path in ("production", "default"):
+        mg, mc = (tripolar_model(tripolar_grid(d, 720, 360),
+                                 tripolar_record(d), path,
+                                 tols=CARD_VS_CPU_TOLS)
+                  for d in ("cuda", "cpu"))
+        assert mc.resolved_config().advance_mode == "torch"
+        sg, sc = mg.init_state(), mc.init_state()
+        for _ in range(2):
+            sg, sc = mg.step(sg), mc.step(sc)
+        S = sc.state
+        err = assert_close(f"tripolar 1 degree card vs CPU {path}",
+                           sg.state.cpu(), S, 5e-3,
+                           1e-6 * float(S.abs().max()))
+        mg_, mc_ = sg.metrics.as_dict(), sc.metrics.as_dict()
+        smax = (mg_.pop("substeps_max"), mc_.pop("substeps_max"))
+        assert mg_ == mc_ and abs(smax[0] - smax[1]) <= 2, \
+            f"tripolar card vs CPU {path}: {mg_} {smax[0]} vs {mc_} {smax[1]}"
+        log("tripolar-card-vs-cpu", f"{path} 360 x 180, 2 steps: max abs err "
+                                    f"{err:.3e} of {float(S.abs().max()):.3e}"
+                                    f", counters equal, substeps_max "
+                                    f"{smax[0]} vs {smax[1]}")
+
+
+def tripolar_kernel_times(grid, gw, prod, s_prod, default, s_def, results):
+    """The four new entries at 1440 x 720 on the main path's own states,
+    each held against its plain version and timed beside it with its bound:
+    K1 with the planes (and the record's B = 1 planes) on the production
+    day's last state, K3 with the planes on the default state with every
+    lane reset (CUDA events: their wrappers launch nothing else), K2 with
+    the seam on the default state's deposit and K6 with the seam on the
+    production state's (profiler traces: their wrappers add the clamped
+    count).  The bytes count the projection's 20 a particle and the ghost
+    rows' sources."""
+    nx, ny = grid.nx, grid.ny
+    n = nx * ny
+    g = grid
+    P = s_prod.particles
+    adv = P.on & prod.active_mask
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    wf = prod.wind_fields(g, s_prod.time)
+    planes = prod.projection(g)
+    pw = pwl_winds(wf)
+    rhs = make_rhs(pw.u, pw.v, prod.consts, prod.flags)
+
+    def k1():
+        return advance_cuda(prod.winds, prod.consts, prod.flags, prod.solver,
+                            TRI_DT, comps, P.t, P.dt, adv, g.x, g.y, planes,
+                            wind_fields=wf)
+
+    def k1_plain():
+        return integrate_to(rhs, torch.stack(comps, dim=-1), P.t,
+                            P.t + TRI_DT, P.dt, prod.aux, adv, prod.solver)
+
+    k, p = k1(), k1_plain()
+    assert torch.equal(k.failed, p.failed), "K1 proj tripolar: failed"
+    e1 = max(assert_adaptive(f"K1 proj tripolar {nm}", kz, p.z[..., i],
+                             min_share=GRIDDED_SHARE,
+                             loose_atol=GRIDDED_LOOSE_ATOL)
+             for i, (nm, kz) in enumerate(zip(("lne", "cgx", "cgy", "x", "y"),
+                                              k[:5])))
+    ctl = assert_controller("K1 proj tripolar", k, p, adv)
+    out = {"K1 proj": dict(ms=cuda_time_ms(k1, 10),
+                           plain_ms=cuda_time_ms(k1_plain, 2),
+                           **k1_bound(n, prod.solver.method, True, adv,
+                                      p.naccept + p.nreject, n_wf=len(wf),
+                                      proj=True))}
+    log("K1 proj", f"{nx} x {ny} tripolar production state (bosh3, B = 1): "
+                   f"max abs err {e1:.3e}; {ctl}")
+
+    Q = s_def.particles
+    qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    wfd = default.wind_fields(g, s_def.time)
+    pwd = pwl_winds(wfd)
+    rhsd = make_rhs(pwd.u, pwd.v, default.consts, default.flags)
+    reset = torch.ones_like(Q.on)
+    sett = default.settings
+
+    def k3():
+        return auto_dt_cuda(default.winds, default.consts, default.flags,
+                            Q.t, qc, g.x, g.y, default.projection(g), reset,
+                            Q.dt, sett.dtmin, TRI_DT, abstol=sett.abstol,
+                            reltol=sett.reltol, order=default._rk_order,
+                            wind_fields=wfd)
+
+    def k3_plain():
+        return auto_dt_reset(rhsd, Q.t, torch.stack(qc, dim=-1), default.aux,
+                             reset, Q.dt, sett.dtmin, TRI_DT,
+                             abstol=sett.abstol, reltol=sett.reltol,
+                             order=default._rk_order)
+
+    e3 = assert_close("K3 proj tripolar default state", k3(), k3_plain(),
+                      1e-5, 0.0)
+    results["K3 proj"]["max_abs_err"] = max(
+        results["K3 proj"].get("max_abs_err", 0.0), e3)
+    out["K3 proj"] = dict(ms=cuda_time_ms(k3, 20),
+                          plain_ms=cuda_time_ms(k3_plain, 5),
+                          **k3_bound(reset, kernel_wind(default.winds),
+                                     proj=True))
+
+    # K2: the default configuration's deposit (halo 3, a 7-wide window)
+    halo = default.config.halo
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    wide = ((max(xl, xh),) * 2, (max(yl, yh),) * 2)
+    ghosts = nx * max(yl, yh)
+    core, chans, sact = flagship_deposit_inputs(default, s_def)
+    node, st = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    S, st_p = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                            g.stats, halo)
+    e2 = max(assert_close(f"K2 tripolar default deposit ch{c}", node[c],
+                          S[..., c], 1e-5, 1e-6 * float(S[..., c].abs().max()))
+             for c in range(3))
+    assert int(st.clamped) == int(st_p.clamped)
+    del S
+    results["K2 tripolar"]["max_abs_err"] = max(
+        results["K2 tripolar"].get("max_abs_err", 0.0), e2)
+    out["K2 tripolar"] = dict(
+        ms=kernel_ms(lambda: pic_gather(core[3], core[4], chans, sact,
+                                        g.stats, halo), "K2", 20),
+        plain_ms=cuda_time_ms(lambda: scatter_dense(
+            core[3], core[4], torch.stack(chans, -1), sact, g.stats, halo),
+            5),
+        **deposit_bound(n + ghosts, n, wide))
+
+    # K6: the production state's deposit and remesh
+    halo = prod.config.halo
+    core, chans, sact = flagship_deposit_inputs(prod, s_prod)
+    rp = prod.remesh_params
+    prp = rp._replace(winds=pw)
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    k5 = remesh_cuda(rp, node, *core, wind_fields=wf)
+    assert_remesh("K5 tripolar production", k5,
+                  remesh_core(prp, node, *core))
+    nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                  halo, rp, *core, wind_fields=wf)
+    assert_bitwise("K6 tripolar production vs K2 + K5", (*nd, *rm),
+                   (*node, *k5))
+
+    def plain_fused():
+        Sp, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                              g.stats, halo)
+        return remesh_core(prp, tuple(Sp[..., c] for c in range(3)), *core)
+
+    out["K6 tripolar"] = dict(
+        ms=kernel_ms(lambda: pic_gather_remesh(
+            core[3], core[4], chans, sact, g.stats, halo, rp, *core,
+            wind_fields=wf), "K6", 20),
+        plain_ms=cuda_time_ms(plain_fused, 5),
+        **deposit_bound(n + ghosts, n, wide, remesh=True, n_wf=len(wf)))
+    log("K6 tripolar", f"{nx} x {ny} production state (halo {halo}): remesh "
+                       f"outputs and node planes equal to K2 + K5 bitwise "
+                       f"({branch_counts(rm.branch)})")
+    for key, r in out.items():
+        results[key].update(r)
+        log("kernel-time", f"{key}: {r['ms']:.4f} ms, plain "
+                           f"{r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -2788,12 +3410,20 @@ def main(argv=None) -> int:
         results[f"{k} gridded"] = dict(
             results[k], name=results[k]["name"] + "_gridded",
             replaces=GRIDDED_REPLACES[k], simple_ms=None)
+    # the branches of spherical and tripolar grids: K1 and K3 with per-node
+    # projection planes, K2 and K6 with the tripolar seam
+    for key, rep in PROJ_REPLACES.items():
+        k, kind = key.split()
+        results[key] = dict(results[k], name=f"{results[k]['name']}_{kind}",
+                            replaces=rep, simple_ms=None)
     timing = {}
     phase_k1(dev, results)
     phase_k3(dev, results)
     phase_k2(dev, results)
     phase_k5_k6(dev, results)
     phase_gridded_kernels(dev, results)
+    phase_proj(dev, results)
+    phase_seam(dev, results)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
     phase_k3_times(default, s_def, results)
     gw = gridded_record(dev)
@@ -2804,8 +3434,10 @@ def main(argv=None) -> int:
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
     gridded = phase_gridded_main_path(dev, gw, results, timing)
+    tripolar = phase_tripolar_main(dev, results, timing)
     phase_card_vs_cpu()
     phase_gridded_card_vs_cpu(gw)
+    phase_tripolar_card_vs_cpu()
     phase_gridded_anchor(flag, s_flag, default, s_def)
     phase_kernel_times(flag, s_flag, default, s_def, results)
     phase_remesh_kernel_times(flag, s_flag, results)
@@ -2814,6 +3446,8 @@ def main(argv=None) -> int:
     # runs makes the next one likelier to miss launches
     gridded_kernel_times(*gridded, results)
     del gridded
+    tripolar_kernel_times(*tripolar, results)
+    del tripolar
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
     phase_sharded_1x1(dev, results, timing)
@@ -2822,7 +3456,9 @@ def main(argv=None) -> int:
     kernels = [dict(results[k], library_ms=None,
                     short_traces=SHORT_TRACES.get(k, []))
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 gridded",
-                         "K3 gridded", "K5 gridded", "K6 gridded")]
+                         "K3 gridded", "K5 gridded", "K6 gridded",
+                         *PROJ_REPLACES)]
+    assert len(kernels) == 14
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

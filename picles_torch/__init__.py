@@ -1,8 +1,9 @@
 """PiCLES on PyTorch and CUDA: the WaveGrowth2D step with hand-written
 Hopper kernels (advance, auto-dt, CIC gather, remesh, and the gather with
 the remesh fused) and plain PyTorch versions of each, driven by
-``Simulation`` with stores and checkpoints, forced by analytic winds or a
-gridded (NetCDF) wind record.  The JAX package ``picles_tpu``
+``Simulation`` with stores and checkpoints, on Cartesian, spherical and
+tripolar (MOM6) grids, forced by analytic winds or a gridded (NetCDF) wind
+record.  The JAX package ``picles_tpu``
 is the reference it is tested against; this package imports no JAX."""
 
 from .convert import (config_from_jax, flags_from_jax, grid_from_numpy,
@@ -15,6 +16,9 @@ from .forcing.winds import (GriddedWinds2D, WindKernel, WindKind, Winds2D,
                             time_cosine_winds)
 from .grids.base import Boundary, Grid2D, GridStats
 from .grids.cartesian import cartesian_box, cartesian_grid_2d
+from .grids.spherical import spherical_grid_2d
+from .grids.tripolar import (load_mom6_grid, mom6_grid_from_supergrid,
+                             synthetic_tripolar_grid)
 from .models.state import ModelState2D, Particles2D, StepMetrics
 from .models.wave_growth_2d import (ParticleDefaults2D, WaveGrowth2D,
                                     WaveGrowth2DConfig)
@@ -40,8 +44,9 @@ __all__ = [
     "cartesian_grid_2d", "config_from_jax", "constant_winds",
     "convert_store_to_tuple", "flags_from_jax", "grid_from_numpy",
     "gridded_from_jax", "gridded_samplers", "half_domain_winds",
-    "load_checkpoint", "load_gridded_winds_2d", "pic_gather",
-    "pic_gather_remesh", "remesh_core",
-    "remesh_cuda", "save_checkpoint", "settings_from_values",
-    "state_from_numpy", "state_to_numpy", "time_cosine_winds",
+    "load_checkpoint", "load_gridded_winds_2d", "load_mom6_grid",
+    "mom6_grid_from_supergrid", "pic_gather", "pic_gather_remesh",
+    "remesh_core", "remesh_cuda", "save_checkpoint", "settings_from_values",
+    "spherical_grid_2d", "state_from_numpy", "state_to_numpy",
+    "synthetic_tripolar_grid", "time_cosine_winds",
 ]

@@ -39,6 +39,14 @@
 //   operation order of forcing/winds.py `gridded_samplers`.  They add the
 //   planes' bytes, 4 (4 + 3B) a particle, read once: 28 at B = 1, which
 //   takes the bytes a particle moves from 66 to 94;
+// - the projection (M and the great-circle coefficient pc) is either the
+//   5 uniform scalars of a regular Cartesian grid or, on spherical and
+//   tripolar grids, 5 per-node planes (the JAX kernel's `uniform is None`
+//   branch).  The choice is made at run time in the lane's prologue (a null
+//   planes pointer means the scalars): a lane reads its own node's 5 values
+//   once, at its home node as the TPU kernel does, into its copy of the RHS
+//   constants (`load_projection`), so no template instance is added.  The
+//   planes add 20 bytes a particle, read once;
 // - launch bounds from ptxas's registers: 6 blocks of 128 threads an SM, 5
 //   for adaptive tsit5, with no spills; the gridded tsit5 instances, whose
 //   lane holds its plane values too, one block less.
@@ -122,9 +130,10 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
 // K1's launch shape: 128 threads a block, and the blocks an SM must hold:
 // 6 (at most 85 registers), as the baseline's registers allowed, but 5 for
 // adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).  A gridded
-// lane holds its plane values too: ptxas gives the bosh3 instances 72 and
-// 80 registers (6 blocks still), tsit5's 92 (5 blocks, at most 102) and
-// adaptive tsit5's 103 (4 blocks, at most 128), none spilling.
+// lane holds its plane values too: ptxas gives the bosh3 instances 78 and
+// 80 registers (6 blocks still), tsit5's 96 (5 blocks, at most 102) and
+// adaptive tsit5's 107 (4 blocks, at most 128), none spilling; the
+// projection's run-time choice costs 0-4 registers an instance.
 constexpr int K1_THREADS = 128;
 template <class M, bool ADAPTIVE, bool GRIDDED>
 constexpr int K1_MIN_BLOCKS =
@@ -149,7 +158,20 @@ struct AdvancePlanes {
   float *lne_o, *cgx_o, *cgy_o, *x_o, *y_o, *t_o, *dt_o;
   unsigned char* fail_o;
   int* nacc_o;
+  const float* proj;  // per-node m00, m01, m10, m11, pc planes, or null
 };
+
+// Node i's projection from the per-node planes (m00, m01, m10, m11, pc, one
+// after the other n floats apart) into a lane's copy of the RHS constants.
+__device__ __forceinline__ void load_projection(RHSParams& rc,
+                                                const float* proj,
+                                                long long n, long long i) {
+  rc.m00 = proj[i];
+  rc.m01 = proj[n + i];
+  rc.m10 = proj[2 * n + i];
+  rc.m11 = proj[3 * n + i];
+  rc.pc = proj[4 * n + i];
+}
 
 // The wind's terms of lane L at time t: from its gridded planes, or from
 // the analytic wind at its node.
@@ -159,11 +181,13 @@ __device__ __forceinline__ WindTerms lane_terms(const AdvanceConfig& cfg,
   return GRIDDED ? gridded_terms(L.g, t) : wind_terms_at(cfg.wind, L.xn, t);
 }
 
-// Load particle i and evaluate its first stage (the FSAL vector).
+// Load particle i (of n), its node's projection where the launch has
+// per-node planes, and evaluate its first stage (the FSAL vector).
 template <int S, bool GRIDDED>
 __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
-                                          const AdvancePlanes& P, long long i,
-                                          Lane<S>& L) {
+                                          RHSParams& rc,
+                                          const AdvancePlanes& P, long long n,
+                                          long long i, Lane<S>& L) {
   L.z[0] = P.lne[i]; L.z[1] = P.cgx[i]; L.z[2] = P.cgy[i];
   L.z[3] = P.x[i]; L.z[4] = P.y[i];
   const float t0 = P.t[i];
@@ -177,15 +201,17 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   L.nacc = 0;
   L.iters = 0;
   if (!L.done) {
+    if (P.proj) load_projection(rc, P.proj, n, i);
     if (GRIDDED) L.g = load_gridded(cfg.wind, i);
     L.w0 = lane_terms<GRIDDED>(cfg, L, L.t);
-    rhs_state(cfg.rc, L.z[0], L.z[1], L.z[2], L.w0, L.k[0]);
+    rhs_state(rc, L.z[0], L.z[1], L.z[2], L.w0, L.k[0]);
   }
 }
 
 // One substep of the per-lane loop (`advance_simple_kernel`'s loop body).
 template <class M, bool ADAPTIVE, bool GRIDDED>
-__device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
+__device__ __forceinline__ void substep(const AdvanceConfig& cfg,
+                                        const RHSParams& rc, bool t_free,
                                         Lane<M::S>& L) {
   constexpr int S = M::S;
   const float t = L.t, t_end = L.t_end;
@@ -208,7 +234,7 @@ __device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
     }
     const WindTerms w =
         t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + M::c(s - 1) * dt_try);
-    rhs_state(cfg.rc, acc[0], acc[1], acc[2], w, L.k[s]);
+    rhs_state(rc, acc[0], acc[1], acc[2], w, L.k[s]);
   }
   float zn[5];
 #pragma unroll
@@ -219,7 +245,7 @@ __device__ __forceinline__ void substep(const AdvanceConfig& cfg, bool t_free,
       if (M::b(j) != 0.0f) zn[c] = zn[c] + dt_try * M::b(j) * L.k[j][c];
   }
   const WindTerms wf = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + dt_try);
-  rhs_state(cfg.rc, zn[0], zn[1], zn[2], wf, L.k[S]);
+  rhs_state(rc, zn[0], zn[1], zn[2], wf, L.k[S]);
 
   bool accept = true;
   bool newly_failed = false;
@@ -289,10 +315,11 @@ advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bool t_free = !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
+  RHSParams rc = cfg.rc;
   Lane<M::S> L;
-  load_lane<M::S, GRIDDED>(cfg, P, i, L);
+  load_lane<M::S, GRIDDED>(cfg, rc, P, n, i, L);
   while (!L.done && L.iters < cfg.maxiters)
-    substep<M, ADAPTIVE, GRIDDED>(cfg, t_free, L);
+    substep<M, ADAPTIVE, GRIDDED>(cfg, rc, t_free, L);
   store_lane(P, i, L);
 }
 
@@ -429,6 +456,7 @@ struct AutoDtPlanes {
   const float *lne, *cgx, *cgy, *x, *y, *t, *xn, *dt;
   const unsigned char* reset;
   float* out;
+  const float* proj;  // per-node m00, m01, m10, m11, pc planes, or null
 };
 
 // K3's compiled instances: a wind kind and a term-flag set, or RUNTIME for
@@ -440,11 +468,15 @@ constexpr int RUNTIME = -1;
 constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
                          TERM_PEAK_SHIFT | TERM_DIRECTION;
 // K3's launch shape: 128 threads a block and 10 blocks an SM (at most 48
-// registers a thread; ptxas gives the instances 42-44, no spills).  K3
-// issues one instruction a cycle per scheduler already (root PERF.md §6),
-// so more warps in flight would not shorten it.
+// registers a thread; ptxas gives the analytic instances 46-48 with the
+// projection's run-time choice, no spills).  K3 issues one instruction a
+// cycle per scheduler already (root PERF.md §6), so more warps in flight
+// would not shorten it.  A gridded lane holds its plane values too, and
+// spilled 64-68 bytes at 48 registers: its instances take 8 blocks (at
+// most 64 registers).
 constexpr int K3_THREADS = 128;
-constexpr int K3_MIN_BLOCKS = 10;
+template <int KIND>
+constexpr int K3_MIN_BLOCKS = KIND == WIND_GRIDDED ? 8 : 10;
 
 // Hairer's estimate of lane i: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
@@ -452,14 +484,16 @@ constexpr int K3_MIN_BLOCKS = 10;
 // gridded winds), and the wind's terms of a wind constant in t are formed
 // once and serve both RHS evaluations; with the flags compiled in, each
 // term's test folds.  A gridded lane loads its plane values once and forms
-// the terms at both times from them.
+// the terms at both times from them.  A launch with per-node projection
+// planes reads lane i's (of n) once.
 template <int KIND, int FLAGS>
 __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
                                                  const AutoDtPlanes& P,
-                                                 long long i) {
+                                                 long long n, long long i) {
   RHSParams rc = cfg.rc;
   WindParams wp = cfg.wind;
   if (FLAGS != RUNTIME) rc.flags = FLAGS;
+  if (P.proj) load_projection(rc, P.proj, n, i);
   if (KIND != RUNTIME) wp.kind = KIND;
   const bool gridded = KIND == WIND_GRIDDED;
   const bool t_free = wp.kind != WIND_TIME_COSINE && !gridded;
@@ -505,13 +539,13 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
 // on the card (ATen's clamp_scalar kernel): a NaN passes with its own bits,
 // anything else is min(max(v, dtmin), DT).
 template <int KIND, int FLAGS>
-__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS<KIND>)
 auto_dt_kernel(const AutoDtConfig cfg, long long n, const AutoDtPlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float dt;
   if (P.reset[i]) {
-    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, i);
+    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, n, i);
     dt = est != est ? est : fminf(fmaxf(est, cfg.dtmin), cfg.DT);
   } else {
     dt = P.dt[i];
@@ -595,6 +629,7 @@ static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
   P.x_o = (float*)p[12]; P.y_o = (float*)p[13]; P.t_o = (float*)p[14];
   P.dt_o = (float*)p[15]; P.fail_o = (unsigned char*)p[16];
   P.nacc_o = (int*)p[17];
+  P.proj = (const float*)p[18];
   const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
   advance_kernel<M, ADAPTIVE, GRIDDED>
       <<<blocks, K1_THREADS, 0, stream>>>(cfg, n, P);
@@ -644,13 +679,15 @@ using namespace picles;
 //          force_dtmin, maxiters
 // ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
-//          the n_wf gridded wind planes (inputs; none for analytic winds)
+//          the per-node projection planes [5, n] (input; null: the RHS's
+//          uniform scalars) | the n_wf gridded wind planes (inputs; none
+//          for analytic winds)
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
 // wrapper passes only those methods) and ignores the tableau floats, which
 // the `_simple` baseline below reads.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // stage count or planes that `attach_planes` refuses).
-constexpr int K1_PTRS = 18;
+constexpr int K1_PTRS = 19;
 
 extern "C" int picles_advance(const float* fparams, const int* iparams,
                               void** ptrs, long long n, void* stream) {
@@ -668,7 +705,8 @@ extern "C" int picles_advance(const float* fparams, const int* iparams,
 }
 
 // The `_simple` baseline (the previous kernel), picles_advance's layout;
-// analytic winds only (cudaErrorInvalidValue for a gridded one).
+// analytic winds and uniform projections only (cudaErrorInvalidValue for a
+// gridded wind or projection planes).
 extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AdvanceConfig cfg;
@@ -676,7 +714,8 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   const bool adaptive = iparams[K1_I + 1] != 0;
   const bool force = cfg.force_dtmin != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cfg.wind.kind == WIND_GRIDDED) return (int)cudaErrorInvalidValue;
+  if (cfg.wind.kind == WIND_GRIDDED || ptrs[18] != nullptr)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   if (stages == 3) dispatch_simple<3>(cfg, adaptive, force, n, ptrs, st);
   else if (stages == 6) dispatch_simple<6>(cfg, adaptive, force, n, ptrs, st);
@@ -695,6 +734,7 @@ static void unpack_auto_dt(const float* fparams, const int* iparams,
   P.y = (const float*)ptrs[4]; P.t = (const float*)ptrs[5];
   P.xn = (const float*)ptrs[6]; P.dt = (const float*)ptrs[7];
   P.reset = (const unsigned char*)ptrs[8]; P.out = (float*)ptrs[9];
+  P.proj = (const float*)ptrs[10];
 }
 
 template <int KIND, int FLAGS>
@@ -708,10 +748,12 @@ static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
 //          dtmin, DT
 // iparams: flags, wind kind, has_t_off, n_wf
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
-//          dt (output) | the n_wf gridded wind planes (inputs)
+//          dt (output) | the per-node projection planes [5, n] (input;
+//          null: the uniform scalars) | the n_wf gridded wind planes
+//          (inputs)
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses).
-constexpr int K3_PTRS = 10;
+constexpr int K3_PTRS = 11;
 
 extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
                               void** ptrs, long long n, void* stream) {
@@ -739,13 +781,15 @@ extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
 
 // The `_simple` baseline, picles_auto_dt's layout: writes the bare estimate
 // of every lane to the output (dtmin, DT, dt and was_reset are not read);
-// analytic winds only (cudaErrorInvalidValue for a gridded one).
+// analytic winds and uniform projections only (cudaErrorInvalidValue for a
+// gridded wind or projection planes).
 extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
-  if (cfg.wind.kind == WIND_GRIDDED) return (int)cudaErrorInvalidValue;
+  if (cfg.wind.kind == WIND_GRIDDED || P.proj != nullptr)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);

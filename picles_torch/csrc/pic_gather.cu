@@ -18,8 +18,21 @@
 // axis) or leaves it out (open axis) directly, instead of reading the
 // extended input planes that _gather_setup builds; that reads fewer bytes
 // and needs no set-up pass.  A source left out is exactly the TPU kernel's
-// zero slab: it adds a zero.  The tripolar seam (mirrored ghost particles)
-// is not handled here; the wrapper refuses it.
+// zero slab: it adds a zero.  The tripolar north seam is indexed the same
+// way: a source column sj >= ny on a TRIPOLAR_NORTH y axis is a ghost of
+// node ((nx - 2 - si) mod nx, 2 ny - 1 - sj), the x index taken after the x
+// wrap (so the corners wrap too), its offsets negated and its channels as
+// they are (_gather_setup's mirrored ghost slabs, pic_pallas.py:346-365).
+// As there, a ghost's offsets are clamped to the declared halo first, then
+// negated, and the window is widened to the symmetric max(lo, hi) on each
+// axis (the wrapper widens it), so a ghost's deposits lie in it.  The TPU
+// kernel clips every offset to that window once more; the only offset it
+// moves is a ghost's of a particle clamped at -lo on an axis whose lo is the
+// wider side (-lo negates to +lo, clipped to lo - 1e-5), whose deposit would
+// then differ from the pad-and-fold deposit by 1e-5 of its weight.  Here
+// there is no second clip: the ghost deposits with weight 1 on +lo, as the
+// fold of pic.py scatter_dense does.  A real source's offsets are clamped to
+// the declared halo once, as in both.
 //
 // What bounds it on an H100, and the design.  Device memory sees one pass
 // over 5 input planes and the mask and one over the 3 outputs: 33 bytes a
@@ -93,9 +106,11 @@ namespace {
 
 struct GatherConfig {
   int nx, ny;
-  int xl, xh, yl, yh;
+  int xl, xh, yl, yh;            // the window (widened on a tripolar grid)
   int periodic_x, periodic_y;
-  float x_lo, x_hi, y_lo, y_hi;  // clamp bounds, float32 as the JAX package forms them
+  int tripolar;                  // the y axis is TRIPOLAR_NORTH
+  float x_lo, x_hi, y_lo, y_hi;  // clamp bounds of the declared halo, float32
+                                 // as the JAX package forms them
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -152,7 +167,9 @@ __device__ __forceinline__ void copy_async_wait_all() {
 // i0 - xh + u) and of w columns (column c is grid column j0 - dy1 + c: the
 // sources the tile's nodes reach with the strip's dy) into shared memory:
 //   a[e] = (wxc, wyc, c0 * m, c1 * m),  b[e] = (c2 * m, fx, fy, -),
-// e = (u - lo) * p.v + c.  Each thread computes the sources it copied.
+// e = (u - lo) * p.v + c.  Each thread computes the sources it copied; the
+// copy pass marks a tripolar ghost in b[e].y, which the compute pass reads
+// and overwrites.
 __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
                                            const SumPlan& p, int i0, int j0,
                                            int lo, int hi, int dy1, int w,
@@ -172,6 +189,11 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
         if (g.periodic_x) si = si < 0 ? si + g.nx : (si >= g.nx ? si - g.nx : si);
         int sj = j0 - dy1 + c;
         if (g.periodic_y) sj = sj < 0 ? sj + g.ny : (sj >= g.ny ? sj - g.ny : sj);
+        const bool ghost = g.tripolar && sj >= g.ny;
+        if (ghost) {  // mirrored through the north seam
+          sj = 2 * g.ny - 1 - sj;
+          if (si >= 0 && si < g.nx) si = si <= g.nx - 2 ? g.nx - 2 - si : g.nx - 1;
+        }
         const bool ok = si >= 0 && si < g.nx && sj >= 0 && sj < g.ny;
         const long long s = ok ? (long long)si * g.ny + sj : 0;
         copy4_async(a + 0, src.xr + s, ok);
@@ -179,12 +201,17 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
         copy4_async(a + 2, src.c0 + s, ok);
         copy4_async(a + 3, src.c1 + s, ok);
         copy4_async(b + 0, src.c2 + s, ok);
+        b[1] = ghost ? 1.0f : 0.0f;
         b[3] = (ok && src.act[s]) ? 1.0f : 0.0f;
       } else {
         // the per-node loop's arithmetic, once per source
-        const float px = clampf(a[0], g.x_lo, g.x_hi);
+        float px = clampf(a[0], g.x_lo, g.x_hi);
+        float py = clampf(a[1], g.y_lo, g.y_hi);
+        if (b[1] != 0.0f) {  // a ghost deposits in mirrored directions
+          px = -px;
+          py = -py;
+        }
         const float fxf = floorf(px);
-        const float py = clampf(a[1], g.y_lo, g.y_hi);
         const float fyf = floorf(py);
         const float m = b[3];
         sa[e] = make_float4(px - fxf, py - fyf, a[2] * m, a[3] * m);
@@ -541,13 +568,14 @@ GatherConfig unpack_gather(const float* fparams, const int* iparams) {
   g.nx = iparams[0]; g.ny = iparams[1];
   g.xl = iparams[2]; g.xh = iparams[3]; g.yl = iparams[4]; g.yh = iparams[5];
   g.periodic_x = iparams[6]; g.periodic_y = iparams[7];
+  g.tripolar = iparams[8];
   g.x_lo = fparams[0]; g.x_hi = fparams[1];
   g.y_lo = fparams[2]; g.y_hi = fparams[3];
   return g;
 }
 
 constexpr int N_GATHER_F = 4;
-constexpr int N_GATHER_I = 8;
+constexpr int N_GATHER_I = 9;
 constexpr int THREADS = 256;
 
 // The tiling over an [ox, oy] output: the whole window in one piece when it
@@ -667,8 +695,9 @@ int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
 
 }  // namespace
 
-// iparams: nx, ny, xl, xh, yl, yh, periodic_x, periodic_y
-// fparams: x_lo, x_hi, y_lo, y_hi
+// iparams: nx, ny, xl, xh, yl, yh (the window), periodic_x, periodic_y,
+//          tripolar (the y axis folds at the north seam)
+// fparams: x_lo, x_hi, y_lo, y_hi (the declared halo's clamp)
 // ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs)
 // Returns the first CUDA error of the launch.
 extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
@@ -679,8 +708,9 @@ extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
   return gather_dispatch(g, p, ptrs, (cudaStream_t)stream);
 }
 
-// K4.  iparams and fparams as picles_pic_gather's, the periodic flags
-// ignored (both axes open); nx, ny are the block's.
+// K4.  iparams and fparams as picles_pic_gather's, the periodic and
+// tripolar flags ignored (both axes open, the seam folded after it); nx, ny
+// are the block's.
 // ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([nx, ny], inputs) |
 //          o0, o1, o2 ([nx+xl+xh, ny+yl+yh], outputs)
 extern "C" int picles_pic_gather_padded(const float* fparams,
@@ -689,6 +719,7 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
   GatherConfig g = unpack_gather(fparams, iparams);
   g.periodic_x = 0;
   g.periodic_y = 0;
+  g.tripolar = 0;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx + g.xl + g.xh, g.ny + g.yl + g.yh, g.xl,
                              g.yl);
@@ -724,11 +755,13 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
 }
 
 // The `_simple` baselines: the entry points above with the same parameter
-// layouts, one thread per output node; analytic winds only.
+// layouts, one thread per output node; analytic winds only, no tripolar
+// seam (cudaErrorInvalidValue).
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
   const GatherConfig g = unpack_gather(fparams, iparams);
+  if (g.tripolar) return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
@@ -765,7 +798,8 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
-  if (r.wind.kind == picles::WIND_GRIDDED) return (int)cudaErrorInvalidValue;
+  if (r.wind.kind == picles::WIND_GRIDDED || g.tripolar)
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);

@@ -99,7 +99,9 @@ enum : int {
 struct RHSParams {
   float r_g, C_alpha, C_e, C_varphi, g, p, n, e_T;
   float rg2;                       // r_g * r_g, formed in float64
-  float m00, m01, m10, m11, pc;    // uniform projection + great-circle coef.
+  // projection M and great-circle coefficient: the launch's uniform
+  // scalars, or a lane's own node values (advance.cu `load_projection`)
+  float m00, m01, m10, m11, pc;
   int flags;
 };
 

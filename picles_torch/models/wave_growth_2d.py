@@ -22,6 +22,11 @@ the plain versions, as the JAX package runs its kernels in interpret mode.
 Every quantity stays on the grid's device and the step never reads it back,
 so a step on the card queues without host round-trips.
 
+On spherical and tripolar grids the projection and the great-circle
+coefficient vary from node to node: the model stacks them once per grid
+into the kernels' planes (``projection``), and on a tripolar grid the
+deposit kernels fold the north seam themselves.
+
 Gridded winds (a ``GriddedWinds2D``, or its ``as_winds()``) move to the
 grid's device.  The kernels take them as the exact piecewise-linear-in-t
 planes of each step window (``GriddedWinds2D.pallas_pwl_fields``), formed
@@ -51,7 +56,8 @@ from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
 from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, auto_dt_reset,
-                                kernel_wind, uniform_projection)
+                                kernel_wind, node_projection,
+                                uniform_projection)
 from ..ops.pic_cuda import pic_gather_remesh
 from ..ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT, RemeshParams,
                           remesh_core, seed_values, winds_at)
@@ -174,6 +180,7 @@ class WaveGrowth2D(StepDrivers):
         self.gridded_winds: Optional[GriddedWinds2D] = None
         self._wind_B = 0
         self._corners = None   # (grid, its corners), for wind_fields
+        self._proj_planes = None   # (grid, its planes), for projection
         if isinstance(gw, GriddedWinds2D):
             gw = gw.to(self.device)
             self.gridded_winds = gw
@@ -239,10 +246,6 @@ class WaveGrowth2D(StepDrivers):
                                 and config.remesh_mode != "xla")
         if self.modes.advance_mode == "cuda" or self._remesh_kernels:
             kernel_wind(winds)   # raises for winds outside the kernel set
-        if self.modes.advance_mode == "cuda" and self.uniform_proj is None:
-            raise NotImplementedError(
-                "per-node projection planes (spherical/tripolar grids) "
-                "are not in the CUDA advance yet: ROADMAP item 12")
 
         if config.ode_init_type == "mininmal":
             self.defaults: Optional[ParticleDefaults2D] = \
@@ -311,6 +314,17 @@ class WaveGrowth2D(StepDrivers):
         return gw.pallas_pwl_fields(grid.x, grid.y, clock,
                                     float(self.settings.timestep),
                                     corners=self._corners[1])
+
+    def projection(self, grid: Grid2D):
+        """The kernels' projection over ``grid``: the 5 uniform scalars of
+        a regular grid, else the grid's per-node planes
+        (``node_projection``), formed once and kept for the last grid seen
+        (the model's own, or a sharded step's block)."""
+        if self.uniform_proj is not None:
+            return self.uniform_proj
+        if self._proj_planes is None or self._proj_planes[0] is not grid:
+            self._proj_planes = (grid, node_projection(grid.proj, grid.pc))
+        return self._proj_planes[1]
 
     # ------------------------------------------------------------------
     # seeding
@@ -394,6 +408,7 @@ class WaveGrowth2D(StepDrivers):
         # a gridded wind's planes of this step, once for every kernel
         kernels = cfg.advance_mode == "cuda" or self._remesh_kernels
         wf = self.wind_fields(grid, ms.time) if kernels else ()
+        proj = self.projection(grid) if cfg.advance_mode == "cuda" else None
 
         # ---------------- ADVANCE ----------------
         adv = P.on & active
@@ -401,8 +416,7 @@ class WaveGrowth2D(StepDrivers):
         if cfg.advance_mode == "cuda":
             res = advance_cuda(self.winds, self.consts, self.flags,
                                self.solver, DT, comps0, P.t, P.dt, adv,
-                               grid.x, grid.y, self.uniform_proj,
-                               wind_fields=wf)
+                               grid.x, grid.y, proj, wind_fields=wf)
             res_c = (res.lne, res.cgx, res.cgy, res.x, res.y)
         else:
             res = integrate_to(self.rhs, torch.stack(comps0, dim=-1), P.t,
@@ -485,7 +499,7 @@ class WaveGrowth2D(StepDrivers):
                         order=self._rk_order)
             if cfg.advance_mode == "cuda":
                 dt = auto_dt_cuda(self.winds, self.consts, self.flags, t,
-                                  comps, grid.x, grid.y, self.uniform_proj,
+                                  comps, grid.x, grid.y, proj,
                                   was_reset, dt, sett.dtmin, DT,
                                   wind_fields=wf, **tols)
             else:

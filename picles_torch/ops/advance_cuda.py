@@ -12,12 +12,14 @@ plain version.
 
 The kernels compile the wind as a ``WindKernel`` descriptor (see
 ``forcing/winds.py``) and take the projection as the 5 uniform scalars
-``(m00, m01, m10, m11, pc)`` of a regular Cartesian grid.  A gridded wind's
-descriptor carries its breakpoint count B; its values over the model step
-arrive as ``wind_fields``, the ``4 + 3B`` planes of
+``(m00, m01, m10, m11, pc)`` of a regular Cartesian grid
+(``uniform_projection``) or, on spherical and tripolar grids, as one
+contiguous ``[5, *shape]`` float32 tensor of per-node planes in the same
+order (``node_projection``); each lane reads its own node's values once.
+A gridded wind's descriptor carries its breakpoint count B; its values over
+the model step arrive as ``wind_fields``, the ``4 + 3B`` planes of
 ``GriddedWinds2D.pallas_pwl_fields``, and the plain versions then run over
-``forcing.winds.pwl_winds`` of the same planes.  Per-node projection planes
-(spherical and tripolar grids) are not ported yet.
+``forcing.winds.pwl_winds`` of the same planes.
 
 ``advance_cuda.launches`` and ``auto_dt_cuda.launches`` count kernel
 launches (not plain-version calls).
@@ -28,15 +30,15 @@ a ``SolverConfig`` naming another method is refused.  ``simple=True``
 launches the previous kernel instead (K1: the tableau a run-time parameter;
 K3: the bare estimate, then PyTorch's clamp and select), the baseline the
 card checks hold each kernel to bit for bit; no path of the package passes
-it, and its launches are not counted.  Gridded winds have no baseline:
-``simple=True`` with one raises.
+it, and its launches are not counted.  Gridded winds and projection planes
+have no baseline: ``simple=True`` with either raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,11 +120,46 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
     return list(fields)
 
 
+Projection = Union[Tuple[float, ...], torch.Tensor]
+
+
+def projection_planes(proj: Projection, like: torch.Tensor,
+                      simple: bool = False) -> Optional[torch.Tensor]:
+    """None for the 5 uniform scalars, else ``proj`` checked as the kernels
+    read it: one contiguous float32 ``[5, *like.shape]`` tensor on
+    ``like``'s device (``node_projection``)."""
+    if not isinstance(proj, torch.Tensor):
+        if len(proj) != 5:
+            raise ValueError(f"the uniform projection is 5 scalars (m00, "
+                             f"m01, m10, m11, pc), got {len(proj)}")
+        return None
+    if simple:
+        raise ValueError("projection planes have no _simple baseline")
+    want = (5,) + tuple(like.shape)
+    if tuple(proj.shape) != want or proj.dtype != torch.float32 \
+            or not proj.is_contiguous() or proj.device != like.device:
+        raise ValueError(f"projection planes must be one contiguous float32 "
+                         f"{want} tensor on {like.device} (node_projection), "
+                         f"got {proj.dtype} {tuple(proj.shape)} on "
+                         f"{proj.device}")
+    return proj
+
+
+def node_projection(proj: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-node projection planes of a grid's ``proj [..., 2,
+    2]`` and ``pc [...]``: (m00, m01, m10, m11, pc) stacked into one
+    contiguous float32 ``[5, ...]`` tensor on their device."""
+    return torch.stack([proj[..., 0, 0], proj[..., 0, 1], proj[..., 1, 0],
+                        proj[..., 1, 1], pc]).to(torch.float32).contiguous()
+
+
 def _rhs_wind_params(consts: RHSConsts, flags: TermFlags, wind: WindKernel,
-                     proj: Sequence[float]) -> Tuple[list, list]:
+                     planes: Optional[torch.Tensor],
+                     proj: Projection) -> Tuple[list, list]:
     """Packed float/int parameters shared by K1 and K3 (the layout of
-    ``unpack_rhs_wind`` in advance.cu)."""
-    m00, m01, m10, m11, pc = proj
+    ``unpack_rhs_wind`` in advance.cu); the scalars are zeros (not read)
+    when the projection comes as planes."""
+    m00, m01, m10, m11, pc = (0.0,) * 5 if planes is not None else proj
     wf, wi = wind_params(wind)
     f = [consts.r_g, consts.C_alpha, consts.C_e, consts.C_varphi, consts.g,
          consts.p, consts.n, consts.e_T, consts.r_g * consts.r_g,
@@ -145,14 +182,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  config: SolverConfig, DT: float,
                  comps: Tuple[torch.Tensor, ...], t: torch.Tensor,
                  dt: torch.Tensor, active: torch.Tensor, xn: torch.Tensor,
-                 yn: torch.Tensor, proj: Tuple[float, ...], *,
+                 yn: torch.Tensor, proj: Projection, *,
                  wind_fields: Sequence[torch.Tensor] = (),
                  simple: bool = False) -> AdvanceResult:
     """Advance every active particle over one model step ``DT`` (K1).
 
     ``comps`` = (lne, cgx, cgy, x, y); ``active`` bool; ``proj`` the 5
-    uniform projection scalars; ``wind_fields`` a gridded wind's planes of
-    this step.  Inactive lanes pass through with ``failed = False`` and
+    uniform projection scalars or the per-node planes (``node_projection``);
+    ``wind_fields`` a gridded wind's planes of this step.  Inactive lanes pass through with ``failed = False`` and
     ``naccept = 0``; a lane that finishes gets ``t = t + DT``."""
     from .cuda_build import (K1_METHODS, check_planes, check_status, library,
                              pointer_array)
@@ -167,7 +204,8 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                              "active", "xn"], [f32] * 7 + [torch.bool, f32])
     planes = wind_planes(wind, wind_fields, t, simple)
-    f, i = _rhs_wind_params(consts, flags, wind, proj)
+    pp = projection_planes(proj, t, simple)
+    f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
     f += _tableau_params(method)
     i += [len(method.b), int(config.adaptive), int(config.force_dtmin),
@@ -177,7 +215,7 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     outs = [torch.empty_like(t) for _ in range(7)]
     failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
     nacc = torch.empty(t.shape, dtype=torch.int32, device=dev)
-    ptrs = pointer_array(ins + outs + [failed, nacc] + planes)
+    ptrs = pointer_array(ins + outs + [failed, nacc, pp] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_advance_simple if simple
@@ -195,7 +233,7 @@ advance_cuda.launches = 0
 
 def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  t: torch.Tensor, comps: Tuple[torch.Tensor, ...],
-                 xn: torch.Tensor, yn: torch.Tensor, proj: Tuple[float, ...],
+                 xn: torch.Tensor, yn: torch.Tensor, proj: Projection,
                  was_reset: torch.Tensor, dt: torch.Tensor, dtmin: float,
                  DT: float, *, abstol: float = 1e-4, reltol: float = 1e-3,
                  order: float = 5.0, max_dt: float = 3600.0,
@@ -205,7 +243,8 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     clamp(estimate, dtmin, DT) : dt``, the semantics of ``auto_dt_reset``.
 
     ``was_reset`` bool; a lane that is not reset keeps its ``dt``, bit for
-    bit; ``wind_fields`` a gridded wind's planes of this step.
+    bit; ``proj`` as ``advance_cuda``'s; ``wind_fields`` a gridded wind's
+    planes of this step.
     ``simple=True`` runs the previous kernel (the bare estimate of every
     lane) followed by PyTorch's clamp and select, the baseline the card
     checks hold K3 to."""
@@ -218,12 +257,13 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "xn", "dt",
                              "was_reset"], [f32] * 8 + [torch.bool])
     planes = wind_planes(wind, wind_fields, t, simple)
-    f, i = _rhs_wind_params(consts, flags, wind, proj)
+    pp = projection_planes(proj, t, simple)
+    f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     out = torch.empty_like(t)
-    ptrs = pointer_array(ins + [out] + planes)
+    ptrs = pointer_array(ins + [out, pp] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_auto_dt_simple if simple

@@ -17,9 +17,16 @@
 
 Tensors on a card launch the kernel, or raise: tensors on the CPU are
 refused, and the model's device chooses between kernel and plain version.
-The kernels wrap periodic axes and drop open ones by indexing; the tripolar
-seam is not ported yet.  The count of clamped displacements stays in
-PyTorch, with the JAX package's predicate.  ``pic_gather.launches``,
+The kernels wrap periodic axes, drop open ones and fold the tripolar north
+seam by indexing: a source past the top row is a mirrored ghost of a top
+row, its offsets (clamped to the declared halo) negated, and on a tripolar
+grid the window widens to the symmetric ``max(lo, hi)`` of each axis, as
+the JAX package's ``_gather_setup`` widens it.  The TPU kernel clips the
+ghosts' offsets to that window once more, which moves the deposit of a
+particle clamped at the wider side's bound by 1e-5 of its weight; the
+kernels here do not, and deposit as ``pic.scatter_dense`` folds
+(``csrc/pic_gather.cu``).  The count of clamped displacements stays in PyTorch, with the JAX
+package's predicate on the declared halo.  ``pic_gather.launches``,
 ``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
 kernel launches.
 
@@ -42,9 +49,12 @@ from .pic import ScatterStats, halo_bounds, normalize_halo
 from .remesh import RemeshParams, RemeshResult
 
 
-def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False):
-    """Check the deposit's inputs (``px``/``py``: the axis wraps); returns
-    (device, packed float and int parameters, clamped count)."""
+def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
+                   tripolar=False):
+    """Check the deposit's inputs (``px``/``py``: the axis wraps;
+    ``tripolar``: the y axis folds at the north seam, and the window is
+    widened); returns (device, packed float and int parameters, clamped
+    count)."""
     from .cuda_build import check_planes
 
     if len(chans) != 3:
@@ -55,8 +65,11 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False):
                        [f32] * 5 + [torch.bool])
     nx, ny = xrel.shape
     (xl, xh), (yl, yh) = normalize_halo(halo)
-    if min(xl, xh, yl, yh) < 0 or (px and max(xl, xh) > nx) \
-            or (py and max(yl, yh) > ny):
+    # the window: the declared halo, or its symmetric widening
+    wx = (max(xl, xh),) * 2 if tripolar else (xl, xh)
+    wy = (max(yl, yh),) * 2 if tripolar else (yl, yh)
+    if min(xl, xh, yl, yh) < 0 or (px and max(wx) > nx) \
+            or ((py or tripolar) and max(wy) > ny):
         raise ValueError(f"halo {((xl, xh), (yl, yh))} does not fit a "
                          f"{nx}x{ny} grid")
 
@@ -66,22 +79,24 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False):
                          | (yrel < y_lo) | (yrel > y_hi)) & active
                         ).to(torch.int32)
     return (dev, [x_lo, x_hi, y_lo, y_hi],
-            [nx, ny, xl, xh, yl, yh, int(px), int(py)], clamped)
+            [nx, ny, *wx, *wy, int(px), int(py), int(tripolar)], clamped)
 
 
-def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo):
+def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo,
+                  simple: bool = False):
     """``_deposit_setup`` for the boundary-folded deposit over the grid of
-    ``stats``."""
-    if Boundary.TRIPOLAR_NORTH in (stats.bx, stats.by):
-        raise NotImplementedError(
-            "the tripolar seam fold is not in the CUDA deposit yet "
-            '(ROADMAP item 12); use scatter_mode="dense"')
+    ``stats`` (the seam on a ``TRIPOLAR_NORTH`` y axis)."""
+    if stats.bx == Boundary.TRIPOLAR_NORTH:
+        raise ValueError("the tripolar seam folds the y axis only")
+    tripolar = stats.by == Boundary.TRIPOLAR_NORTH
+    if tripolar and simple:
+        raise ValueError("the _simple baselines have no tripolar seam")
     if (stats.nx, stats.ny) != tuple(xrel.shape):
         raise ValueError(f"planes are {tuple(xrel.shape)}, the grid "
                          f"{stats.nx}x{stats.ny}")
     return _deposit_setup(xrel, yrel, chans, active, halo,
                           stats.bx == Boundary.PERIODIC,
-                          stats.by == Boundary.PERIODIC)
+                          stats.by == Boundary.PERIODIC, tripolar)
 
 
 def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -92,7 +107,8 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     at relative positions (xrel, yrel) onto the nodes (K2)."""
     from .cuda_build import check_status, library, pointer_array
 
-    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo)
+    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo,
+                                       simple)
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     outs = [torch.empty_like(xrel) for _ in range(3)]
@@ -164,7 +180,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
 
     dev, f, i, clamped = _gather_setup(xrel, yrel, chans, scatter_active,
-                                       stats, halo)
+                                       stats, halo, simple)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
     if check_core(core, clock, xrel.shape) != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "

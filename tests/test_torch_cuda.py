@@ -1,10 +1,12 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on a card,
 K1, K2, K3, K4 and K6 bit for bit against their ``_simple`` baselines (the
 kernels they replaced; K3's followed by PyTorch's clamp and select), a
-fused Simulation resumed from a checkpoint, and the sharded step on a
-(1, 1) NCCL mesh.  Marked ``cuda``: without a CUDA device every test here
-skips but the one that checks the refusal of CPU tensors.  On a machine
-with a card (and no JAX) run them with
+fused Simulation resumed from a checkpoint, the sharded step on a (1, 1)
+NCCL mesh, and the spherical and tripolar grids: K1/K3 with per-node
+projection planes (bit for bit the scalars on a Cartesian box) and K2/K6
+with the tripolar seam.  Marked ``cuda``: without a CUDA device every test
+here skips but the one that checks the refusal of CPU tensors.  On a
+machine with a card (and no JAX) run them with
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
@@ -201,10 +203,18 @@ def test_gather_kernel_matches_plain_and_repeats(dev, periodic):
         torch.testing.assert_close(o[c], S[..., c], rtol=1e-5, atol=1e-6)
         assert torch.equal(o[c], o2[c])
     assert int(st.clamped) == int(st_p.clamped) > 0
-    with pytest.raises(NotImplementedError, match="tripolar"):
-        pic_gather(xr, yr, chans, act,
-                   GridStats(nx=n, ny=n + 5, bx=Boundary.PERIODIC,
-                             by=Boundary.TRIPOLAR_NORTH), halo)
+    # the tripolar north seam on the same inputs: the fold in the kernel
+    tri = GridStats(nx=n, ny=n + 5, bx=Boundary.PERIODIC,
+                    by=Boundary.TRIPOLAR_NORTH)
+    (o, st), (o2, _) = (pic_gather(xr, yr, chans, act, tri, halo)
+                        for _ in range(2))
+    S, st_p = scatter_dense(xr, yr, torch.stack(chans, -1), act, tri, halo)
+    for c in range(3):
+        torch.testing.assert_close(o[c], S[..., c], rtol=1e-5, atol=1e-6)
+        assert torch.equal(o[c], o2[c])
+    assert int(st.clamped) == int(st_p.clamped) > 0
+    with pytest.raises(ValueError, match="no tripolar seam"):
+        pic_gather(xr, yr, chans, act, tri, halo, simple=True)
 
 
 def _remesh_case(dev, n, boundary_type, adaptive, seed=0):
@@ -752,3 +762,202 @@ def test_gridded_constant_record_equals_constant_wind_bitwise(dev):
     b = pic_gather_remesh(core[3], core[4], chans, sact, m.grid.stats, 3, rc,
                           *core)
     _assert_bitwise((*a[0], *a[1]), (*b[0], *b[1]))
+
+
+# ---------------------------------------------------------------------------
+# spherical and tripolar grids: projection planes in K1/K3, the seam in K2/K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("halo", [((0, 3), (0, 3)), 3, ((2, 3), (1, 3))])
+def test_tripolar_seam_deposits(dev, halo):
+    """K2 on a tripolar grid (the window widened to max(lo, hi)) against
+    scatter_dense's fold, displacements over the halo and past it: within
+    rtol 1e-5 and 1e-6 of the channel's scale, two launches bitwise equal,
+    the clamped count exact; K6 on the same grid equal to K2 + K5 bit for
+    bit."""
+    from picles_torch import Boundary, GridStats
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.pic import scatter_dense
+    from picles_torch.ops.pic_cuda import pic_gather, pic_gather_remesh
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+
+    nx, ny = 90, 61
+    tri = GridStats(nx=nx, ny=ny, bx=Boundary.PERIODIC,
+                    by=Boundary.TRIPOLAR_NORTH)
+    xr, yr, ch, act = _deposit_inputs(dev, nx, ny, halo, seed=21)
+    ch = tuple(torch.nan_to_num(c, nan=0.5, posinf=2.0) for c in ch)
+    (o, st), (o2, _) = (pic_gather(xr, yr, ch, act, tri, halo)
+                        for _ in range(2))
+    S, st_p = scatter_dense(xr, yr, torch.stack(ch, -1), act, tri, halo)
+    for c in range(3):
+        torch.testing.assert_close(o[c], S[..., c], rtol=1e-5,
+                                   atol=1e-6 * float(S[..., c].abs().max()))
+    _assert_bitwise(o, o2)
+    assert int(st.clamped) == int(st_p.clamped) > 0
+
+    m, _, core = _remesh_case(dev, 64, "wind_sea", True, seed=22)
+    tri64 = GridStats(nx=64, ny=64, bx=Boundary.PERIODIC,
+                      by=Boundary.TRIPOLAR_NORTH)
+    chans = TR.particle_to_node(*core[:3])
+    sact = (core[6] & core[7]).contiguous()
+    nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, tri64, halo,
+                                  m.remesh_params, *core)
+    k2, _ = pic_gather(core[3], core[4], chans, sact, tri64, halo)
+    _assert_bitwise((*nd, *rm),
+                    (*k2, *remesh_cuda(m.remesh_params, k2, *core)))
+
+
+def _rotated_box(dev, n, angle):
+    from picles_torch import cartesian_grid_2d
+
+    return cartesian_grid_2d(0.0, 2e3 * (n - 1), n, 0.0, 2e3 * (n - 1), n,
+                             angle=angle, periodic_boundary=(True, True),
+                             device=dev)
+
+
+@pytest.mark.parametrize("angle", [0.0, 30.0])
+@pytest.mark.parametrize("flags", ["all", "no direction or peak shift"])
+def test_projection_planes_equal_scalars_bitwise(dev, angle, flags):
+    """A Cartesian box's projection given as per-node planes
+    (``node_projection``) equals the same projection given as the 5 uniform
+    scalars, bit for bit: K1 (bosh3 and tsit5, adaptive and fixed-substep)
+    and K3, for a constant and a gridded wind; the box rotated by 30
+    degrees has off-diagonal m01/m10, and the generic term flags run K3's
+    generic instances."""
+    from picles_torch import TermFlags, constant_winds
+    from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
+                                               node_projection,
+                                               uniform_projection)
+    from picles_torch.ops.tsit5 import SolverConfig
+
+    n, t0 = 64, 1200.0
+    g = _rotated_box(dev, n, angle)
+    scalars = uniform_projection(g.proj, g.pc)
+    assert (scalars[1] != 0.0) == (angle != 0.0)
+    planes = node_projection(g.proj, g.pc)
+    tf = TermFlags() if flags == "all" else TermFlags(direction=False,
+                                                      peak_shift=False)
+    comps, active, _ = _state(dev, n=n, seed=3)
+    t = torch.full_like(comps[0], t0)
+    kw, wf, _ = _gridded(dev, n, 900.0, t0)
+    before = advance_cuda.launches
+    for winds, fields in ((constant_winds(10.0, 10.0), ()), (kw, wf)):
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (False, True):
+                cfg = SolverConfig(method=method, adaptive=adaptive,
+                                   dtmin=1e-4, force_dtmin=True)
+                dt = torch.full_like(t, 60.0)
+                a, b = (advance_cuda(winds, _consts(), tf, cfg, 600.0, comps,
+                                     t, dt, active, g.x, g.y, p,
+                                     wind_fields=fields)
+                        for p in (planes, scalars))
+                _assert_bitwise(a, b)
+        reset, dt = _reset_inputs(dev, n, 2)
+        a, b = (auto_dt_cuda(winds, _consts(), tf, t, comps, g.x, g.y, p,
+                             reset, dt, 1e-4, 600.0, wind_fields=fields)
+                for p in (planes, scalars))
+        _assert_bitwise((a,), (b,))
+    assert advance_cuda.launches == before + 16
+    with pytest.raises(ValueError, match="no _simple baseline"):
+        advance_cuda(constant_winds(10.0, 10.0), _consts(), tf,
+                     SolverConfig(), 600.0, comps, t, dt, active, g.x, g.y,
+                     planes, simple=True)
+    with pytest.raises(ValueError, match="one contiguous float32"):
+        advance_cuda(constant_winds(10.0, 10.0), _consts(), tf,
+                     SolverConfig(), 600.0, comps, t, dt, active, g.x, g.y,
+                     planes[:, :, :32])
+
+
+def _curved_grid(dev, kind, n=64):
+    from picles_torch import spherical_grid_2d, synthetic_tripolar_grid
+
+    if kind == "spherical":
+        return spherical_grid_2d(0.0, 120.0, n, -60.0, 70.0, n,
+                                 periodic_boundary=(True, False), device=dev)
+    return synthetic_tripolar_grid(k=2, nx_super=2 * n, ny_super=2 * n,
+                                   device=dev)
+
+
+@pytest.mark.parametrize("kind", ["spherical", "tripolar"])
+def test_projection_planes_match_plain(dev, kind):
+    """K1 and K3 with a spherical or tripolar grid's per-node planes against
+    their plain versions over the grid's ``proj`` and ``pc``: fixed
+    substeps within rtol 1e-5, adaptive by share of lanes as above, K3
+    within rtol 1e-5."""
+    from picles_torch import TermFlags, constant_winds
+    from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
+                                               auto_dt_reset, node_projection,
+                                               uniform_projection)
+    from picles_torch.ops.rhs import RHSParams, make_rhs
+    from picles_torch.ops.tsit5 import SolverConfig, integrate_to
+
+    n = 64
+    g = _curved_grid(dev, kind, n)
+    assert uniform_projection(g.proj, g.pc) is None
+    planes = node_projection(g.proj, g.pc)
+    comps, active, _ = _state(dev, n=n, seed=5)
+    winds = constant_winds(10.0, 10.0)
+    rhs = make_rhs(winds.u, winds.v, _consts(), TermFlags())
+    aux = RHSParams(g.x, g.y, g.proj, g.pc)
+    t = torch.full_like(comps[0], 1800.0)
+    for method in ("bosh3", "tsit5"):
+        for adaptive in (False, True):
+            cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                               force_dtmin=True)
+            dt = torch.full_like(t, 37.5 if not adaptive else 60.0)
+            k = advance_cuda(winds, _consts(), TermFlags(), cfg, 600.0, comps,
+                             t, dt, active, g.x, g.y, planes)
+            p = integrate_to(rhs, torch.stack(comps, -1), t, t + 600.0, dt,
+                             aux, active, cfg)
+            assert torch.equal(k.failed, p.failed)
+            for i in range(5):
+                if adaptive:
+                    assert _share_close(k[i], p.z[..., i], 5e-3, 1e-4) >= 0.99
+                else:
+                    torch.testing.assert_close(k[i], p.z[..., i], rtol=1e-5,
+                                               atol=1e-6)
+    reset, dt = _reset_inputs(dev, n, 6)
+    k = auto_dt_cuda(winds, _consts(), TermFlags(), t, comps, g.x, g.y,
+                     planes, reset, dt, 1e-4, 600.0)
+    p = auto_dt_reset(rhs, t, torch.stack(comps, -1), aux, reset, dt, 1e-4,
+                      600.0)
+    torch.testing.assert_close(k, p, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("kind", ["spherical", "tripolar"])
+def test_curved_grid_model_on_card_matches_cpu(dev, kind):
+    """WaveGrowth2D on a spherical (open in y) or tripolar grid: the kernel
+    modes on the card (K1 with the planes, K2 with the seam, K3) against the
+    plain versions on the CPU, 3 steps at abstol 1e-7 / reltol 1e-6, within
+    5e-3 and 1e-6 of the state's scale, counters equal (the most substeps a
+    lane took within 2); K1, K2 and K3 each launched once a step."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              constant_winds)
+    from picles_torch.core import fetch_relations as FR
+    from picles_torch.ops.advance_cuda import advance_cuda, auto_dt_cuda
+    from picles_torch.ops.pic_cuda import pic_gather
+
+    ws = FR.MinimalWindsea(10.0, 10.0, 600.0)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), timestep=600.0,
+                       dt=1e-3, dtmin=1e-4, force_dtmin=True, abstol=1e-7,
+                       reltol=1e-6)
+    cfg = WaveGrowth2DConfig(periodic_boundary=kind == "tripolar")
+
+    def model(d):
+        return WaveGrowth2D(_curved_grid(d, kind, 48),
+                            constant_winds(8.0, 8.0), sett, config=cfg)
+
+    mg, mc = model(dev), model("cpu")
+    assert mg.resolved_config().scatter_mode == "dense_cuda"
+    sg, sc = mg.init_state(), mc.init_state()
+    before = (advance_cuda.launches, pic_gather.launches, auto_dt_cuda.launches)
+    for _ in range(3):
+        sg, sc = mg.step(sg), mc.step(sc)
+    assert (advance_cuda.launches, pic_gather.launches,
+            auto_dt_cuda.launches) == tuple(b + 3 for b in before)
+    S = sc.state
+    torch.testing.assert_close(sg.state.cpu(), S, rtol=5e-3,
+                               atol=1e-6 * float(S.abs().max()))
+    got, want = sg.metrics.as_dict(), sc.metrics.as_dict()
+    assert abs(got.pop("substeps_max") - want.pop("substeps_max")) <= 2
+    assert got == want and got["n_failed"] == 0

@@ -13,6 +13,12 @@
   once, as the kernels do (no FMA contraction).  The emulation forms the CIC
   weights by selects, as the tiled kernels do, and the per-node loop by the
   sum of two selects, as the TPU kernel and ``gather_node`` do.
+- The tripolar north seam in the same emulation: a source past the top row
+  is a ghost of the mirrored top row (``stage_chunk``), its offsets
+  clamped to the declared halo and negated, summed over the widened
+  window; tiled and per-node sums equal bit for bit, and both within 1e-5
+  of the plain pad-and-fold deposit ``pic.scatter_dense``, displacements
+  past the halo included.
 """
 
 import dataclasses
@@ -22,10 +28,10 @@ import numpy as np
 import pytest
 import torch
 
-from picles_torch import constant_winds
+from picles_torch import Boundary, GridStats, constant_winds
 from picles_torch.ops import advance_cuda as AC
 from picles_torch.ops import cuda_build as CB
-from picles_torch.ops.pic import halo_bounds, normalize_halo
+from picles_torch.ops.pic import halo_bounds, normalize_halo, scatter_dense
 from picles_torch.ops.tsit5 import METHODS, SolverConfig
 
 F32 = np.float32
@@ -104,6 +110,7 @@ class Case:
     warps: int = 8
     budget: int = 64 * 1024   # bytes of shared memory a block may take
     padded: bool = False      # K4: both axes open, the padded output
+    tripolar: bool = False    # x periodic, y folding at the north seam
 
 
 def _sources(c: Case, seed: int):
@@ -119,15 +126,21 @@ def _sources(c: Case, seed: int):
     return xr, yr, ch, act
 
 
-def _weights(pos, lo, hi):
-    p = np.where(np.isnan(pos), pos, np.minimum(np.maximum(pos, lo), hi))
+def _weights(p):
+    """Floor offset and (floor, ceil) weights of clamped offsets."""
     f = np.floor(p).astype(F32)
     wc = (p - f).astype(F32)
     return f.astype(np.int64), (F32(1.0) - wc).astype(F32), wc
 
 
 def _geometry(c: Case):
+    """The window (widened to the symmetric max(lo, hi) on a tripolar
+    grid), the wrapping axes, the output extent and offset."""
     (xl, xh), (yl, yh) = normalize_halo(c.halo)
+    if c.tripolar:
+        xl = xh = max(xl, xh)
+        yl = yh = max(yl, yh)
+        return xl, xh, yl, yh, True, False, c.nx, c.ny, 0, 0
     px = py = c.periodic and not c.padded
     if c.padded:
         return (xl, xh, yl, yh, px, py, c.nx + xl + xh, c.ny + yl + yh, xl,
@@ -135,23 +148,47 @@ def _geometry(c: Case):
     return xl, xh, yl, yh, px, py, c.nx, c.ny, 0, 0
 
 
-def _source(c, s, v, px, py):
-    """Index a source plane at grid rows/columns (si, sj), wrapped on a
-    periodic axis; returns (values, valid)."""
+def _index(c, s, px, py):
+    """Grid rows/columns (si, sj) wrapped on a periodic axis and, past the
+    top row of a tripolar grid, mirrored through the seam (x after its
+    wrap); returns (si, sj, valid, ghost)."""
     si, sj = s
     if px:
         si = np.where(si < 0, si + c.nx, np.where(si >= c.nx, si - c.nx, si))
     if py:
         sj = np.where(sj < 0, sj + c.ny, np.where(sj >= c.ny, sj - c.ny, sj))
+    ghost = np.zeros(np.shape(sj), bool) | (c.tripolar & (sj >= c.ny))
+    sj = np.where(ghost, 2 * c.ny - 1 - sj, sj)
+    si = np.where(ghost & (si >= 0) & (si < c.nx), (c.nx - 2 - si) % c.nx, si)
     ok = (si >= 0) & (si < c.nx) & (sj >= 0) & (sj < c.ny)
+    return si, sj, ok, ghost
+
+
+def _source(c, s, v, px, py):
+    """Index a source plane at grid rows/columns (si, sj) (``_index``);
+    returns (values, valid)."""
+    si, sj, ok, _ = _index(c, s, px, py)
     return v[np.clip(si, 0, c.nx - 1), np.clip(sj, 0, c.ny - 1)], ok
+
+
+def _offsets(c, s, x, y, px, py):
+    """A source's offsets as the kernel sums them: clamped to the declared
+    halo, a ghost's then negated (no clip to the window after that)."""
+    (xl, xh), (yl, yh) = normalize_halo(c.halo)
+
+    def clip(v, lo, hi):
+        return np.where(np.isnan(v), v,
+                        np.minimum(np.maximum(v, F32(lo)), F32(hi)))
+
+    x, y = clip(x, *halo_bounds(xl, xh)), clip(y, *halo_bounds(yl, yh))
+    g = _index(c, s, px, py)[3]
+    return np.where(g, -x, x), np.where(g, -y, y)
 
 
 def per_node_sum(c: Case, xr, yr, ch, act):
     """``gather_node``: per output node, dy ascending outermost, dx
     ascending, a source off an open axis left out."""
     xl, xh, yl, yh, px, py, ox, oy, offx, offy = _geometry(c)
-    (x_lo, x_hi), (y_lo, y_hi) = halo_bounds(xl, xh), halo_bounds(yl, yh)
     i = np.arange(ox)[:, None] - offx + np.zeros((1, oy), np.int64)
     j = np.arange(oy)[None, :] - offy + np.zeros((ox, 1), np.int64)
     acc = np.zeros((3, ox, oy), F32)
@@ -161,9 +198,10 @@ def per_node_sum(c: Case, xr, yr, ch, act):
             s = (i - dx, j - dy)
             x, ok = _source(c, s, xr, px, py)
             y, _ = _source(c, s, yr, px, py)
+            x, y = _offsets(c, s, x, y, px, py)
             m = np.where(_source(c, s, act, px, py)[0], F32(1), F32(0))
-            fx, wxf, wxc = _weights(x, F32(x_lo), F32(x_hi))
-            fy, wyf, wyc = _weights(y, F32(y_lo), F32(y_hi))
+            fx, wxf, wxc = _weights(x)
+            fy, wyf, wyc = _weights(y)
             wx = (np.where(fx == dx, wxf, F32(0))
                   + np.where(fx == dx - 1, wxc, F32(0))).astype(F32)
             wy = (np.where(fy == dy, wyf, F32(0))
@@ -193,7 +231,6 @@ def tiled_sum(c: Case, xr, yr, ch, act):
     """The tiled window sum, block by block, with the block's threads as
     arrays [warps (threadIdx.y), 32 (threadIdx.x)]."""
     xl, xh, yl, yh, px, py, ox, oy, offx, offy = _geometry(c)
-    (x_lo, x_hi), (y_lo, y_hi) = halo_bounds(xl, xh), halo_bounds(yl, yh)
     R, W = c.R, xl + xh + 1
     tx, d, ux = plan(c, xl, xh, yl, yh)
     rows = tx + xl + xh
@@ -221,10 +258,11 @@ def tiled_sum(c: Case, xr, yr, ch, act):
                     x, ok = _source(c, s, xr, px, py)
                     y = np.where(ok, _source(c, s, yr, px, py)[0], F32(0))
                     x = np.where(ok, x, F32(0))
+                    x, y = _offsets(c, s, x, y, px, py)
                     m = np.where(ok & _source(c, s, act, px, py)[0], F32(1),
                                  F32(0))
-                    fx, _, wxc = _weights(x, F32(x_lo), F32(x_hi))
-                    fy, _, wyc = _weights(y, F32(y_lo), F32(y_hi))
+                    fx, _, wxc = _weights(x)
+                    fy, _, wyc = _weights(y)
                     cm = [np.where(ok, _source(c, s, ch[k], px, py)[0],
                                    F32(0)) * m for k in range(3)]
                     # sum_chunk
@@ -289,6 +327,14 @@ CASES = {
     "padded_asymmetric_chunks": Case(17, 20, ((1, 3), (0, 2)), False, R=2,
                                      warps=2, budget=4 * 32 * 32,
                                      padded=True),
+    # the tripolar seam: the flagship's halo (a 7-wide window), halo 3 and
+    # the sharded tests' seam halo, on ragged grids; strips of dy
+    "tripolar_flagship_halo": Case(40, 45, ((0, 3), (0, 3)), True, R=4,
+                                   warps=2, tripolar=True),
+    "tripolar_halo3": Case(26, 37, 3, True, R=2, warps=4, tripolar=True),
+    "tripolar_seam_halo_strips": Case(22, 35, ((2, 3), (1, 3)), True, R=4,
+                                      warps=2, budget=14 * 32 * 34,
+                                      tripolar=True),
 }
 
 
@@ -301,7 +347,7 @@ def test_tiled_window_sum_equals_per_node_loop_bitwise(name):
         got, tx, d, ux, n_pieces = tiled_sum(c, xr, yr, ch, act)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
         int((got.view(np.uint32) != want.view(np.uint32)).sum())
-    (xl, xh), (yl, yh) = normalize_halo(c.halo)
+    xl, xh, yl, yh = _geometry(c)[:4]
     # the case cuts the window the way its name says
     if "strips" in name:
         assert 1 < d < yl + yh + 1 and ux == tx + xl + xh
@@ -314,3 +360,30 @@ def test_tiled_window_sum_equals_per_node_loop_bitwise(name):
     assert (c.nx + (xl + xh if c.padded else 0)) % tx != 0 or \
         (c.ny + (yl + yh if c.padded else 0)) % TY != 0
     assert not np.isfinite(want).all()
+
+
+@pytest.mark.parametrize("name", sorted(k for k in CASES if "tripolar" in k))
+def test_tripolar_seam_gather_matches_pad_and_fold(name):
+    """The emulated seam gather against ``pic.scatter_dense``'s fold (the
+    north halo rows added onto the top rows with x mirrored) on finite
+    sources: within rtol 1e-5 and 1e-6 of each channel's scale, as the
+    kernels are held on the card; the mirrored rows do receive deposits."""
+    c = CASES[name]
+    xr, yr, ch, act = _sources(c, seed=len(name))
+    ch = np.nan_to_num(ch, nan=0.5, posinf=2.0)
+    got = per_node_sum(c, xr, yr, ch, act)
+    stats = GridStats(nx=c.nx, ny=c.ny, bx=Boundary.PERIODIC,
+                      by=Boundary.TRIPOLAR_NORTH)
+    S, _ = scatter_dense(torch.as_tensor(xr), torch.as_tensor(yr),
+                         torch.as_tensor(np.moveaxis(ch, 0, -1)),
+                         torch.as_tensor(act), stats, c.halo)
+    want = np.moveaxis(S.numpy(), -1, 0)
+    for k in range(3):
+        scale = float(np.abs(want[k]).max())
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                   atol=1e-6 * scale)
+    # without the ghosts the top rows would miss what crosses the seam
+    c0 = dataclasses.replace(c, tripolar=False, periodic=False)
+    (xl, xh), (yl, yh) = normalize_halo(c.halo)
+    assert not np.allclose(per_node_sum(c0, xr, yr, ch, act)[0][:, -yh:],
+                           want[0][:, -yh:], rtol=1e-3)
