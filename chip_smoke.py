@@ -46,6 +46,28 @@ just before and read just after:
    path's shape ("K2 tripolar"; "K6 tripolar" bit for bit K2 + K5), and
    the 1 degree grid (360 x 180) runs on the card against the CPU.
 
+6. the compiled drivers (phase "graphs"): the flagship under the three
+   remesh backends, the default configuration, the gridded fused and
+   default configurations at 1536^2 and the tripolar fused one at 1440 x
+   720 through ``step_n_quiet``, ``step_n``, ``step_n_buffered`` and
+   ``step_jit``, which replay a CUDA graph of the step, bit for bit the
+   eager steps, timed against them in turns, with the capture's time and
+   memory and a trace of its replays;
+7. the CLI's path (phase "cli"): ``python -m picles_torch``'s model and
+   Simulation, built by its ``build_simulation`` at 1536^2 (tsit5, Hairer
+   dt reset: K1, K2, K3) and run with a store as its ``main`` runs them,
+   a CashStore in place of the HDF5 file.
+
+``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
+through it.  A replay launches the kernels without their wrappers, whose
+launch counters tick only when the host calls them: the eager paths count
+with the counters, and each graphed run counts its launches by name in a
+``torch.profiler`` trace of its own ``Simulation.run`` (``traced_run``),
+the counters set to 0 just before (the host calls no kernel there).  Each
+graphed day is run again eagerly, counted and held bit for bit against it.
+Phase "wide-grid" runs K1, K2, K5 and K6 on a 64 x 6000 grid, wider than
+the JAX package's kernels take in VMEM.
+
 It matches a small run on the card against the same model on the CPU, and
 times the kernels and the step beside their plain versions.  K1-K4 and K6
 are also held bit for bit against their ``_simple`` baselines (the
@@ -56,8 +78,8 @@ baseline).  A kernel's time is its own device time from a
 ``torch.profiler`` trace (``kernel_ms``), without the wrapper's other device
 work; each kernel's bound is computed from this run's inputs (``bound``).
 ``--profile`` adds a trace of the step's time at full size for each
-configuration (step times, host enqueue time, device busy time and idle
-share, device time by kernel).  ``--probe JSON`` runs only the measurements
+configuration, eager and graphed (step times, host enqueue time, device
+busy time and idle share, device time by kernel).  ``--probe JSON`` runs only the measurements
 behind the kernels' design (ptxas, SASS counts, substep sweeps, K1's lane
 divergence, K3 in turns with its baseline).
 
@@ -92,8 +114,11 @@ from picles_torch import (Boundary, GridStats, ODEParameters, ODESettings,
                           half_domain_winds, load_gridded_winds_2d,
                           spherical_grid_2d, synthetic_tripolar_grid,
                           time_cosine_winds)
+from picles_torch.__main__ import build_simulation
+from picles_torch.__main__ import parser as cli_parser
 from picles_torch.core import fetch_relations as FR
 from picles_torch.models import wave_growth_2d as W2D
+from picles_torch.models.drivers import WARMUP_STEPS
 from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
 from picles_torch.forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
@@ -113,7 +138,7 @@ from picles_torch.ops.rhs import RHSParams, make_rhs, make_rhs_consts
 from picles_torch.ops.tsit5 import METHODS, SolverConfig, integrate_to
 from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
                                            init_distributed, make_mesh)
-from picles_torch.simulation.checkpoint import state_leaves
+from picles_torch.simulation.store import CashStore
 
 FLAG_N = 1536
 DT = 600.0
@@ -538,7 +563,6 @@ def phase_k1(dev, results):
     comps, dt0, active, grid = perturbed_state(256, dev, seed=0)
     proj = (float(grid.proj[0, 0, 0, 0]), 0.0, 0.0,
             float(grid.proj[0, 0, 1, 1]), 0.0)
-    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
     k1_err = 0.0
     cases = []
     for wname, winds in (("constant", constant_winds(10.0, 10.0)),
@@ -556,42 +580,55 @@ def phase_k1(dev, results):
                            force_dtmin=True)
         t = torch.full_like(comps[0], t0v)
         dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
-        k = advance_cuda(winds, consts, flags, cfg, DT, comps, t, dt, active,
-                         grid.x, grid.y, proj)
-        assert_bitwise(f"K1 perturbed 256^2 {wname} {method} adaptive="
-                       f"{adaptive} t0={t0v:g}", k,
-                       advance_cuda(winds, consts, flags, cfg, DT, comps, t,
-                                    dt, active, grid.x, grid.y, proj,
-                                    simple=True))
-        rhs = make_rhs(winds.u, winds.v, consts, flags)
-        p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT, dt, aux,
-                         active, cfg)
-        torch.cuda.synchronize()
-        tag = f"K1 {wname} {method} {'adaptive' if adaptive else 'fixed'} t0={t0v:g}"
-        names = ("lne", "cgx", "cgy", "x", "y")
-        extra = ""
-        if adaptive:
-            assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
-            errs = [assert_adaptive(f"{tag} {nm}", kz, p.z[..., i])
-                    for i, (nm, kz) in enumerate(zip(names, k[:5]))]
-            assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
-            extra = "; " + assert_controller(tag, k, p, active)
-        else:
-            errs = [assert_close(f"{tag} {nm}", kz, p.z[..., i], 1e-5, 1e-6)
-                    for i, (nm, kz) in enumerate(zip(names, k[:5]))]
-            errs.append(assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0))
-            assert torch.equal(k.dt, p.dt), f"{tag}: dt not carried as given"
-            assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
-            assert torch.equal(k.naccept, p.naccept), f"{tag}: naccept differs"
-            k1_err = max(k1_err, max(errs))
-        nfail = int(k.failed.sum())
-        log("K1", f"{tag}: max abs err {max(errs):.3e}, substeps max "
-                  f"{int(k.naccept.max())}/{int(p.naccept.max())}, "
-                  f"failed {nfail}{extra}; bitwise equal to _simple")
+        err, nfail = check_k1(f"K1 {wname} {method} "
+                              f"{'adaptive' if adaptive else 'fixed'} "
+                              f"t0={t0v:g}", winds, consts, flags, cfg, comps,
+                              t, dt, active, grid, proj)
+        if not adaptive:
+            k1_err = max(k1_err, err)
         if t0v > 0:
-            assert nfail == 0, f"{tag}: lanes failed at t = 2^19 s"
+            assert nfail == 0, f"K1 {wname} {method}: lanes failed at t = " \
+                               f"2^19 s"
 
     results["K1"]["max_abs_err"] = k1_err
+
+
+def check_k1(tag, winds, consts, flags, cfg, comps, t, dt, active, grid,
+             proj):
+    """K1 on these inputs bit for bit its _simple baseline and against
+    integrate_to: fixed substeps within rtol 1e-5 with dt, failed and
+    naccept equal; adaptive by share of lanes (``assert_adaptive``,
+    ``assert_controller``), failed equal.  Returns (max abs err, failed
+    lanes)."""
+    args = (winds, consts, flags, cfg, DT, comps, t, dt, active, grid.x,
+            grid.y, proj)
+    k = advance_cuda(*args)
+    assert_bitwise(tag, k, advance_cuda(*args, simple=True))
+    rhs = make_rhs(winds.u, winds.v, consts, flags)
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT, dt, aux,
+                     active, cfg)
+    torch.cuda.synchronize()
+    names = ("lne", "cgx", "cgy", "x", "y")
+    extra = ""
+    if cfg.adaptive:
+        assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
+        errs = [assert_adaptive(f"{tag} {nm}", kz, p.z[..., i])
+                for i, (nm, kz) in enumerate(zip(names, k[:5]))]
+        assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
+        extra = "; " + assert_controller(tag, k, p, active)
+    else:
+        errs = [assert_close(f"{tag} {nm}", kz, p.z[..., i], 1e-5, 1e-6)
+                for i, (nm, kz) in enumerate(zip(names, k[:5]))]
+        errs.append(assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0))
+        assert torch.equal(k.dt, p.dt), f"{tag}: dt not carried as given"
+        assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
+        assert torch.equal(k.naccept, p.naccept), f"{tag}: naccept differs"
+    nfail = int(k.failed.sum())
+    log("K1", f"{tag}: max abs err {max(errs):.3e}, substeps max "
+              f"{int(k.naccept.max())}/{int(p.naccept.max())}, "
+              f"failed {nfail}{extra}; bitwise equal to _simple")
+    return max(errs), nfail
 
 
 def phase_k3(dev, results):
@@ -700,29 +737,9 @@ def phase_k2(dev, results):
         chans = (plane(rng.uniform, 0.0, 1.0), plane(rng.normal, 0.0, 0.1),
                  plane(rng.normal, 0.0, 0.1))
         act = torch.as_tensor(rng.uniform(size=(n, n)) < 0.9, device=dev)
-        (o, st) = pic_gather(xr, yr, chans, act, stats, halo)
-        (o2, st2) = pic_gather(xr, yr, chans, act, stats, halo)
-        S, st_p = scatter_dense(xr, yr, torch.stack(chans, dim=-1), act,
-                                stats, halo)
-        torch.cuda.synchronize()
-        tag = f"K2 {'periodic' if periodic else 'open'} halo {halo}"
-        assert_bitwise(tag, o, pic_gather(xr, yr, chans, act, stats, halo,
-                                          simple=True)[0])
-        for c in range(3):
-            scale = float(S[..., c].abs().max())
-            k2_err = max(k2_err, assert_close(f"{tag} ch{c}", o[c], S[..., c],
-                                              1e-5, 1e-6 * scale))
-            assert torch.equal(o[c], o2[c]), f"{tag}: two runs differ"
-        assert int(st.clamped) == int(st_p.clamped), \
-            f"{tag}: clamped {int(st.clamped)} vs {int(st_p.clamped)}"
-        if periodic:
-            src = float((chans[0].double() * act).sum())
-            dep = float(o[0].double().sum())
-            assert abs(dep - src) <= 1e-5 * abs(src), \
-                f"{tag}: E not conserved ({dep} vs {src})"
-        log("K2", f"{tag}: max abs err {k2_err:.3e}, clamped "
-                  f"{int(st.clamped)}, bitwise repeatable, bitwise equal to "
-                  f"_simple")
+        k2_err = max(k2_err, check_k2(
+            f"K2 {'periodic' if periodic else 'open'} halo {halo}", xr, yr,
+            chans, act, stats, halo))
         if periodic:
             simple_ms, ms = turns_ms(
                 "K2", lambda: pic_gather(xr, yr, chans, act, stats, halo,
@@ -744,6 +761,35 @@ def phase_k2(dev, results):
     results["K2"]["max_abs_err"] = k2_err
 
 
+def check_k2(tag, xr, yr, chans, act, stats, halo) -> float:
+    """K2 on these inputs bit for bit its _simple baseline and itself (two
+    runs), within rtol 1e-5 of scatter_dense with the clamped count equal,
+    and on a periodic grid conserving E.  Returns the max abs error."""
+    (o, st) = pic_gather(xr, yr, chans, act, stats, halo)
+    (o2, st2) = pic_gather(xr, yr, chans, act, stats, halo)
+    S, st_p = scatter_dense(xr, yr, torch.stack(chans, dim=-1), act, stats,
+                            halo)
+    torch.cuda.synchronize()
+    assert_bitwise(tag, o, pic_gather(xr, yr, chans, act, stats, halo,
+                                      simple=True)[0])
+    err = 0.0
+    for c in range(3):
+        scale = float(S[..., c].abs().max())
+        err = max(err, assert_close(f"{tag} ch{c}", o[c], S[..., c], 1e-5,
+                                    1e-6 * scale))
+        assert torch.equal(o[c], o2[c]), f"{tag}: two runs differ"
+    assert int(st.clamped) == int(st_p.clamped), \
+        f"{tag}: clamped {int(st.clamped)} vs {int(st_p.clamped)}"
+    if stats.bx == Boundary.PERIODIC and stats.by == Boundary.PERIODIC:
+        src = float((chans[0].double() * act).sum())
+        dep = float(o[0].double().sum())
+        assert abs(dep - src) <= 1e-5 * abs(src), \
+            f"{tag}: E not conserved ({dep} vs {src})"
+    log("K2", f"{tag}: max abs err {err:.3e}, clamped {int(st.clamped)}, "
+              f"bitwise repeatable, bitwise equal to _simple")
+    return err
+
+
 KERNEL_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
               "K4": pic_gather_padded, "K5": remesh_cuda,
               "K6": pic_gather_remesh}
@@ -758,16 +804,41 @@ def reset_counters():
         fn.launches = 0
 
 
-def time_steps(model, ms, n_steps: int):
-    """Run ``n_steps`` steps; returns (state, device ms per step)."""
+def eager_steps(model, ms, n: int):
+    """``n`` eager steps, ``model.step`` in a loop: the host launches every
+    kernel through its wrapper, whose launch counter ticks once a step (a
+    replayed graph runs the kernels without the wrappers)."""
+    for _ in range(n):
+        ms = model.step(ms)
+    return ms
+
+
+def drive(model, ms, n: int, eager: bool):
+    """``n`` steps: eager, or through ``step_n_quiet`` (a replayed CUDA
+    graph where the model is graphed)."""
+    return eager_steps(model, ms, n) if eager else model.step_n_quiet(ms, n)
+
+
+def time_steps(model, ms, n_steps: int, eager: bool = False):
+    """Run ``n_steps`` steps (``drive``); returns (state, device ms per
+    step)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    ms = model.step_n_quiet(ms, n_steps)
+    ms = drive(model, ms, n_steps, eager)
     end.record()
     torch.cuda.synchronize()
     return ms, start.elapsed_time(end) / n_steps
+
+
+def assert_state_bitwise(tag: str, got, want) -> None:
+    """Every leaf of two model states equal bit for bit (NaN payloads
+    included), counters too."""
+    for i, (a, b) in enumerate(zip(got.leaves(), want.leaves())):
+        same = torch.equal(bits(a), bits(b)) if a.is_floating_point() \
+            else torch.equal(a, b)
+        assert same, f"{tag}: leaf {i} differs"
 
 
 def check_state(tag: str, ms, **expect):
@@ -780,31 +851,33 @@ def check_state(tag: str, ms, **expect):
 
 def phase_main_path(dev, results, timing):
     """Flagship then default config through WaveGrowth2D, counters reset
-    just before and read just after."""
+    just before and read just after: eager steps (``model.step`` in a
+    loop), so that every step's launches are counted."""
     n = FLAG_N
     flag = flagship_model(n, dev)
     default = default_model(n, dev)
     assert flag.resolved_config().advance_mode == "cuda"
     assert flag.resolved_config().scatter_mode == "dense_cuda"
+    assert flag.graphed and default.graphed
     s_flag, s_def = flag.init_state(), default.init_state()
 
     reset_counters()
-    s_flag = flag.step_n_quiet(s_flag, 4)
+    s_flag = eager_steps(flag, s_flag, 4)
     m = check_state("flagship spin-up", s_flag, n_failed=0, n_clamped=0)
     c0 = counters()
     assert c0["K1"] == 4 and c0["K2"] == 4 and c0["K3"] == 0, c0
     steps = 20
-    s_flag, ms_step = time_steps(flag, s_flag, steps)
+    s_flag, ms_step = time_steps(flag, s_flag, steps, eager=True)
     m = check_state("flagship", s_flag, n_failed=0, n_clamped=0)
     c1 = counters()
     assert c1["K1"] - c0["K1"] == steps and c1["K2"] - c0["K2"] == steps, c1
     timing["flagship_ms_per_step"] = ms_step
     timing["flagship_pushes_per_s"] = n * n / (ms_step / 1e3)
-    log("flagship", f"{n}^2 bosh3 carry: {ms_step:.3f} ms/step, "
+    log("flagship", f"{n}^2 bosh3 carry: {ms_step:.3f} ms/step eager, "
                     f"{n * n / (ms_step / 1e3):.4e} pushes/s; metrics {m}")
 
     d_steps = 3
-    s_def, ms_def = time_steps(default, s_def, d_steps)
+    s_def, ms_def = time_steps(default, s_def, d_steps, eager=True)
     m = check_state("default", s_def, n_failed=0)
     c2 = counters()
     assert c2["K1"] - c1["K1"] == d_steps and c2["K2"] - c1["K2"] == d_steps
@@ -813,7 +886,7 @@ def phase_main_path(dev, results, timing):
         f"{d_steps} steps"
     timing["default_ms_per_step"] = ms_def
     timing["default_pushes_per_s"] = n * n / (ms_def / 1e3)
-    log("default", f"{n}^2 tsit5 auto-dt: {ms_def:.3f} ms/step (first "
+    log("default", f"{n}^2 tsit5 auto-dt: {ms_def:.3f} ms/step eager (first "
                    f"{d_steps} steps from seed), {n * n / (ms_def / 1e3):.4e} "
                    f"pushes/s; metrics {m}")
     for k in ("K1", "K2", "K3"):
@@ -826,15 +899,11 @@ def phase_main_path(dev, results, timing):
     orig = W2D.auto_dt_cuda
     W2D.auto_dt_cuda = functools.partial(orig, simple=True)
     try:
-        s_simple = default.step_n_quiet(default.init_state(), d_steps)
+        s_simple = eager_steps(default, default.init_state(), d_steps)
     finally:
         W2D.auto_dt_cuda = orig
-    for i, (a, b) in enumerate(zip(state_leaves(s_def),
-                                   state_leaves(s_simple))):
-        same = torch.equal(bits(a), bits(b)) if a.is_floating_point() \
-            else torch.equal(a, b)
-        assert same, f"default config, 3 steps: leaf {i} differs from the " \
-                     f"step with K3's _simple + clamp + where"
+    assert_state_bitwise("default config, 3 steps, against the step with "
+                         "K3's _simple + clamp + where", s_def, s_simple)
     log("default", f"{d_steps} steps bitwise equal (dt and every other "
                    f"leaf) to the step with K3's _simple + clamp + where")
     return flag, s_flag, default, s_def
@@ -1056,14 +1125,16 @@ def phase_twin_timing(timing, steps: int):
                        f"{timing['flagship_ms_per_step']:.3f} ms/step")
 
 
-def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int):
-    """A non-periodic n^2 box with half-domain winds and a perturbed node
-    state (a third of the nodes below the minimal state, dt spread over
-    [1e-6, 3000] s): gather, reseed and off all fire.  Returns (model,
-    node planes, the remesh's particle planes, masks, coordinates and
-    clock)."""
-    comps, _, _, _ = perturbed_state(n, dev, seed)
-    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n, device=dev)
+def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int,
+                ny: int = 0):
+    """A non-periodic n^2 box (n x ny with ``ny``) with half-domain winds
+    and a perturbed node state (a third of the nodes below the minimal
+    state, dt spread over [1e-6, 3000] s): gather, reseed and off all fire.
+    Returns (model, node planes, the remesh's particle planes, masks,
+    coordinates and clock)."""
+    ny = ny or n
+    comps, _, _, _ = perturbed_state(n, dev, seed, ny=ny)
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (ny - 1), ny, device=dev)
     sett = ODESettings(log_energy_minimum=settings("bosh3").log_energy_minimum,
                        timestep=DT, dt=37.5, dtmin=1e-4, adaptive=adaptive,
                        solver="bosh3")
@@ -1077,12 +1148,12 @@ def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int):
     def plane(a):
         return torch.as_tensor(a.astype(np.float32), device=dev)
 
-    low = plane(np.where(rng.uniform(size=(n, n)) < 0.3,
-                         rng.uniform(0, 1e-4, (n, n)), 1.0))
+    low = plane(np.where(rng.uniform(size=(n, ny)) < 0.3,
+                         rng.uniform(0, 1e-4, (n, ny)), 1.0))
     node = tuple((c * low).contiguous()
                  for c in TR.particle_to_node(*comps[:3]))
-    dt = plane(np.exp(rng.uniform(np.log(1e-6), np.log(3000.0), (n, n))))
-    on = torch.as_tensor(rng.uniform(size=(n, n)) < 0.8, device=dev)
+    dt = plane(np.exp(rng.uniform(np.log(1e-6), np.log(3000.0), (n, ny))))
+    on = torch.as_tensor(rng.uniform(size=(n, ny)) < 0.8, device=dev)
     core = (*comps, dt, on, m.active_mask.contiguous(),
             m.boundary_mask.contiguous(), grid.x, grid.y,
             torch.tensor(1800.0, device=dev))
@@ -1116,60 +1187,118 @@ def phase_k5_k6(dev, results):
         for adaptive in (True, False):
             seed += 1
             m, node, core = remesh_case(dev, 256, bt, adaptive, seed)
-            k = remesh_cuda(m.remesh_params, node, *core)
-            p = remesh_core(m.remesh_params, node, *core)
-            torch.cuda.synchronize()
-            tag = f"K5 {bt} clip_dt={m.remesh_params.clip_dt}"
-            err = assert_remesh(tag, k, p)
-            same = all(torch.equal(getattr(k, f), getattr(p, f))
-                       for f in ("lne", "cgx", "cgy"))
-            for bit in (1, 2, 4):
-                assert int(((k.branch & bit) != 0).sum()) > 0, (tag, bit)
-            k5_err = max(k5_err, err)
-            log("K5", f"{tag}: {branch_counts(k.branch)}; values max abs err "
-                      f"{err:.3e}{' (bitwise equal)' if same else ''}")
-
-            lne, cgx, cgy, px, py = core[:5]
-            chans = TR.particle_to_node(lne, cgx, cgy)
-            sact = (core[6] & core[7]).contiguous()
-            stats, halo = m.grid.stats, ((1, 3), (0, 2))
-            nd, rm, st = pic_gather_remesh(px, py, chans, sact, stats, halo,
-                                           m.remesh_params, *core)
-            nd2, rm2, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
-                                            m.remesh_params, *core)
-            nds, rms, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
-                                            m.remesh_params, *core,
-                                            simple=True)
-            k2, st2 = pic_gather(px, py, chans, sact, stats, halo)
-            k5 = remesh_cuda(m.remesh_params, k2, *core)
-            S, st_p = scatter_dense(px, py, torch.stack(chans, -1), sact,
-                                    stats, halo)
-            plain = remesh_core(m.remesh_params,
-                                tuple(S[..., c] for c in range(3)), *core)
-            torch.cuda.synchronize()
-            tag = f"K6 {bt} clip_dt={m.remesh_params.clip_dt}"
-            assert_bitwise(tag, (*nd, *rm), (*nds, *rms))
-            for a, b, c in zip(nd, k2, nd2):
-                assert torch.equal(a, b), f"{tag}: node plane != K2's"
-                assert torch.equal(a, c), f"{tag}: two runs differ"
-            for f in rm._fields:
-                assert torch.equal(getattr(rm, f), getattr(k5, f)), \
-                    f"{tag}: {f} != K2 + K5"
-                assert torch.equal(getattr(rm, f), getattr(rm2, f)), \
-                    f"{tag}: two runs differ in {f}"
-            assert int(st.clamped) == int(st2.clamped) == int(st_p.clamped)
-            for c in range(3):
-                k6_err = max(k6_err, assert_close(
-                    f"{tag} node ch{c}", nd[c], S[..., c], 1e-5,
-                    1e-6 * float(S[..., c].abs().max())))
-            assert torch.equal(rm.branch, plain.branch), f"{tag}: bits"
-            assert torch.equal(rm.on, plain.on), f"{tag}: on"
-            log("K6", f"{tag}: equal to K2 + K5 bitwise and to _simple "
-                      f"bitwise, two runs bitwise equal; node planes vs plain "
-                      f"max abs err {k6_err:.3e}, bits equal; "
-                      f"{branch_counts(rm.branch)}")
+            e5, e6 = check_k5_k6(f"{bt} clip_dt={m.remesh_params.clip_dt}",
+                                 m, node, core)
+            k5_err, k6_err = max(k5_err, e5), max(k6_err, e6)
     results["K5"]["max_abs_err"] = k5_err
     results["K6"]["max_abs_err"] = k6_err
+
+
+def check_k5_k6(tag: str, m, node, core, bitwise: bool = False):
+    """K5 against remesh_core (``assert_remesh``, every branch firing;
+    ``bitwise``: its values bit for bit too) and
+    K6 bit for bit K2 + K5, its _simple baseline and itself (two runs), its
+    node planes within rtol 1e-5 of scatter_dense and its branch bits and
+    ``on`` those of remesh_core over them.  Returns the two max abs
+    errors."""
+    k = remesh_cuda(m.remesh_params, node, *core)
+    p = remesh_core(m.remesh_params, node, *core)
+    torch.cuda.synchronize()
+    k5_err = assert_remesh(f"K5 {tag}", k, p)
+    same = all(torch.equal(getattr(k, f), getattr(p, f))
+               for f in ("lne", "cgx", "cgy"))
+    assert same or not bitwise, f"K5 {tag}: values differ from remesh_core"
+    for bit in (1, 2, 4):
+        assert int(((k.branch & bit) != 0).sum()) > 0, (tag, bit)
+    log("K5", f"{tag}: {branch_counts(k.branch)}; values max abs err "
+              f"{k5_err:.3e}{' (bitwise equal)' if same else ''}")
+
+    lne, cgx, cgy, px, py = core[:5]
+    chans = TR.particle_to_node(lne, cgx, cgy)
+    sact = (core[6] & core[7]).contiguous()
+    stats, halo = m.grid.stats, ((1, 3), (0, 2))
+    nd, rm, st = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                   m.remesh_params, *core)
+    nd2, rm2, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                    m.remesh_params, *core)
+    nds, rms, _ = pic_gather_remesh(px, py, chans, sact, stats, halo,
+                                    m.remesh_params, *core, simple=True)
+    k2, st2 = pic_gather(px, py, chans, sact, stats, halo)
+    k5 = remesh_cuda(m.remesh_params, k2, *core)
+    S, st_p = scatter_dense(px, py, torch.stack(chans, -1), sact, stats,
+                            halo)
+    plain = remesh_core(m.remesh_params, tuple(S[..., c] for c in range(3)),
+                        *core)
+    torch.cuda.synchronize()
+    tag = f"K6 {tag}"
+    assert_bitwise(tag, (*nd, *rm), (*nds, *rms))
+    for a, b, c in zip(nd, k2, nd2):
+        assert torch.equal(a, b), f"{tag}: node plane != K2's"
+        assert torch.equal(a, c), f"{tag}: two runs differ"
+    for f in rm._fields:
+        assert torch.equal(getattr(rm, f), getattr(k5, f)), \
+            f"{tag}: {f} != K2 + K5"
+        assert torch.equal(getattr(rm, f), getattr(rm2, f)), \
+            f"{tag}: two runs differ in {f}"
+    assert int(st.clamped) == int(st2.clamped) == int(st_p.clamped)
+    k6_err = max(assert_close(f"{tag} node ch{c}", nd[c], S[..., c], 1e-5,
+                              1e-6 * float(S[..., c].abs().max()))
+                 for c in range(3))
+    assert torch.equal(rm.branch, plain.branch), f"{tag}: bits"
+    assert torch.equal(rm.on, plain.on), f"{tag}: on"
+    log("K6", f"{tag}: equal to K2 + K5 bitwise and to _simple bitwise, two "
+              f"runs bitwise equal; node planes vs plain max abs err "
+              f"{k6_err:.3e}, bits equal; {branch_counts(rm.branch)}")
+    return k5_err, k6_err
+
+
+def phase_wide_grid(dev, results):
+    """K1, K2, K5 and K6 on a 64 x 6000 grid, wider than the JAX package's
+    kernels take in VMEM (K3 runs there in phase "K3"): K1 bit for bit its
+    _simple baseline and against integrate_to (adaptive bosh3 by its share
+    rules, fixed-substep tsit5 within rtol 1e-5); K2 bit for bit its
+    _simple baseline, within rtol 1e-5 of scatter_dense (the flagship's
+    halo, periodic; halo 3, open); K5 bit for bit remesh_core and K6 bit
+    for bit K2 + K5 and its _simple baseline (``check_k5_k6``)."""
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    nx, ny = 64, 6000
+    comps, dt0, active, grid = perturbed_state(nx, dev, seed=40, ny=ny)
+    proj = (float(grid.proj[0, 0, 0, 0]), 0.0, 0.0,
+            float(grid.proj[0, 0, 1, 1]), 0.0)
+    t = torch.full_like(dt0, 1800.0)
+    for method, adaptive in (("bosh3", True), ("tsit5", False)):
+        cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                           force_dtmin=True)
+        dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
+        err, _ = check_k1(f"K1 {nx} x {ny} {method} "
+                          f"{'adaptive' if adaptive else 'fixed'}",
+                          constant_winds(10.0, 10.0), consts, TermFlags(),
+                          cfg, comps, t, dt, active, grid, proj)
+        if not adaptive:
+            results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"],
+                                               err)
+    rng = np.random.default_rng(41)
+    for periodic, halo, (lo, hi) in ((True, ((0, 3), (0, 3)), (-0.2, 3.2)),
+                                     (False, 3, (-3.2, 3.2))):
+        b = Boundary.PERIODIC if periodic else Boundary.NONPERIODIC
+
+        def plane(fn, *a):
+            return torch.as_tensor(fn(*a, (nx, ny)).astype(np.float32),
+                                   device=dev)
+
+        chans = (plane(rng.uniform, 0.0, 1.0), plane(rng.normal, 0.0, 0.1),
+                 plane(rng.normal, 0.0, 0.1))
+        err = check_k2(f"K2 {nx} x {ny} halo {halo}",
+                       plane(rng.uniform, lo, hi), plane(rng.uniform, lo, hi),
+                       chans, torch.as_tensor(rng.uniform(size=(nx, ny)) < 0.9,
+                                              device=dev),
+                       GridStats(nx=nx, ny=ny, bx=b, by=b), halo)
+        results["K2"]["max_abs_err"] = max(results["K2"]["max_abs_err"], err)
+    m, node, core = remesh_case(dev, nx, "wind_sea", True, 42, ny=ny)
+    e5, e6 = check_k5_k6(f"{nx} x {ny}", m, node, core, bitwise=True)
+    for k, e in (("K5", e5), ("K6", e6)):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
 
 
 def flagship_deposit_inputs(flag, s_flag):
@@ -1250,6 +1379,167 @@ def phase_remesh_kernel_times(flag, s_flag, results):
                              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+# The graphed configurations at full width, with the kernel rows (of the
+# kernels line) their replays run
+GRAPH_CONFIGS = {"flagship xla": ("K1", "K2"),
+                 "flagship pallas": ("K1", "K2", "K5"),
+                 "flagship fused": ("K1", "K6"),
+                 "default": ("K1", "K2", "K3"),
+                 "gridded fused": ("K1 gridded", "K6 gridded"),
+                 "gridded default": ("K1 gridded", "K2", "K3 gridded"),
+                 "tripolar fused": ("K1 proj", "K6 tripolar")}
+GRAPH_STEPS = 8       # steps held bit for bit against the eager steps
+TURNS = (7, 10)       # in-turns timing: 7 turns of 10 steps each way
+
+
+def graph_model(name: str, dev, gw):
+    """The model of a GRAPH_CONFIGS entry (``gw``: the gridded record)."""
+    n = FLAG_N
+    if name.startswith("flagship"):
+        return flagship_model(n, dev, remesh_mode=name.split()[1])
+    if name == "default":
+        return default_model(n, dev)
+    if name.startswith("gridded"):
+        return gridded_model(n, dev, gw, "production" if name.endswith(
+            "fused") else "default")
+    return tripolar_model(tripolar_grid(dev, *TRI_SUPER),
+                          tripolar_record(dev), "production")
+
+
+def phase_graphs(dev, gw, results, timing):
+    """The compiled drivers at full width (1536^2; the tripolar grid 1440 x
+    720), for each configuration of GRAPH_CONFIGS: 2 eager steps from the
+    seed, then from that state ``step_n_quiet`` over GRAPH_STEPS steps,
+    ``step_n``'s stack row by row, a ragged ``step_n_buffered`` chunk (5
+    of 8 rows, the rest zero) and ``step_jit`` twice, each bit for bit the
+    eager steps, every leaf (counters included), all from one capture;
+    ``step_jit``'s results alias none of the capture's tensors and the
+    first is intact after the second.  Measured: warm-up and capture time,
+    the memory the capture holds, peak memory graphed against eager, the
+    in-graph state copy (timed eagerly), ms/step graphed and eager in
+    turns (CUDA events), host enqueue a step, and a ``torch.profiler``
+    trace of 5 bare replays (device ops, busy time, idle share; each
+    kernel of the configuration under its name once a replay, counted into
+    its row's ``graph_launches``).  Each capture is freed (and
+    ``torch.cuda.empty_cache()``) before the next configuration."""
+    out = {}
+    for name, rows in GRAPH_CONFIGS.items():
+        model = graph_model(name, dev, gw)
+        assert model.graphed, name
+        ms = eager_steps(model, model.init_state(), 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        eager_steps(model, ms, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - m0
+        eager = [ms]
+        for _ in range(GRAPH_STEPS):
+            eager.append(model.step(eager[-1]))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        g = model._capture(ms)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        # the input and output states stay allocated; the graph's private
+        # pool (its intermediates) stays reserved
+        held = torch.cuda.memory_allocated() - m0
+        pool = torch.cuda.memory_reserved() - r0
+        capture_peak = torch.cuda.max_memory_allocated() - m0
+
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        for n in (1, 3, GRAPH_STEPS):
+            assert_state_bitwise(f"graphs {name}: step_n_quiet({n})",
+                                 model.step_n_quiet(ms, n), eager[n])
+        torch.cuda.synchronize()
+        replay_peak = torch.cuda.max_memory_allocated() - m0
+        fin, stack = model.step_n(ms, GRAPH_STEPS)
+        assert_state_bitwise(f"graphs {name}: step_n", fin, eager[-1])
+        assert_bitwise(f"graphs {name}: step_n's stack", stack,
+                       [e.state for e in eager[1:]])
+        fin, buf = model.step_n_buffered(ms, 5, 8)
+        assert_state_bitwise(f"graphs {name}: step_n_buffered", fin,
+                             eager[5])
+        assert_bitwise(f"graphs {name}: the buffer's rows", buf[:5],
+                       [e.state for e in eager[1:6]])
+        assert buf.shape[0] == 8 and not bool(buf[5:].any()), name
+        f = model.step_jit()
+        s1 = f(ms)
+        kept = s1.clone()
+        s2 = f(s1)
+        assert_state_bitwise(f"graphs {name}: step_jit's first result "
+                             f"after the second call", s1, kept)
+        assert_state_bitwise(f"graphs {name}: step_jit twice", s2, eager[2])
+        bufs = {t.data_ptr() for t in g.state.leaves()
+                + g.out.leaves()}
+        assert not bufs & {t.data_ptr() for t in s1.leaves()
+                           + s2.leaves()}, f"{name}: step_jit aliases"
+        assert model._graph is g, f"{name}: captured more than once"
+        del stack, buf, s1, s2, kept, fin, eager
+
+        copy_ms = cuda_time_ms(lambda: g.state.copy_(g.out), 10)
+        turns = {"eager": [], "graphed": []}
+        s = ms
+        for rep in range(TURNS[0]):
+            for who in (("eager", "graphed") if rep % 2 == 0 else
+                        ("graphed", "eager")):
+                s, t = time_steps(model, s, TURNS[1], eager=who == "eager")
+                turns[who].append(t)
+        check_state(f"graphs {name}", s, n_failed=0)
+        enq = {who: host_enqueue_ms(lambda: drive(model, s, TURNS[1],
+                                                  who == "eager"),
+                                    TURNS[1])[0]
+               for who in ("eager", "graphed")}
+        g.state.copy_(s)
+        keys = {row: KERNEL_KEYS[row.split()[0]] for row in rows}
+
+        def replays():
+            for _ in range(5):
+                g.graph.replay()
+
+        stats, got = trace_window(replays, 5, {k: 5 for k in keys.values()})
+        for row, key in keys.items():
+            results[row]["graph_launches"] = \
+                results[row].get("graph_launches", 0) + got[key]
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        out[name] = dict(
+            ms_per_step=turns, median=med, host_enqueue_ms_per_step=enq,
+            capture_s=capture_s, capture_held_bytes=held,
+            capture_reserved_bytes=pool,
+            capture_peak_bytes=capture_peak, replay_peak_bytes=replay_peak,
+            eager_peak_bytes=eager_peak, state_copy_ms=copy_ms,
+            replay_trace=stats)
+        log("graphs", f"{name}: {GRAPH_STEPS} replays bitwise equal to the "
+                      f"eager steps (step_n_quiet 1/3/{GRAPH_STEPS}, step_n "
+                      f"rows, step_n_buffered 5 of 8, step_jit twice, no "
+                      f"alias); warm-up + capture {capture_s:.3f} s")
+        log("graphs", f"{name}: ms/step median graphed {med['graphed']:.4f} "
+                      f"eager {med['eager']:.4f} ({TURNS[0]} x {TURNS[1]} "
+                      f"steps in turns); host enqueue a step graphed "
+                      f"{enq['graphed']:.4f} eager {enq['eager']:.4f} ms; "
+                      f"state copy {copy_ms:.4f} ms")
+        log("graphs", f"{name}: replay trace: device busy "
+                      f"{stats['device_busy_ms_per_step']:.4f} ms/step, idle "
+                      f"share {stats['idle_share']:.4f}, "
+                      f"{stats['device_ops_per_step']:.1f} device ops a "
+                      f"replay, kernels by name {got}; memory: the capture "
+                      f"holds {held / 2**20:.1f} MiB allocated (its input "
+                      f"and output states); warm-up and capture reserved "
+                      f"{pool / 2**20:.1f} MiB more (the graph's pool among "
+                      f"them; peak {capture_peak / 2**20:.1f} MiB while "
+                      f"made), replays peak {replay_peak / 2**20:.1f} MiB, "
+                      f"eager steps peak {eager_peak / 2**20:.1f} MiB")
+        model.release_graph()
+        del model, g, ms, s
+        torch.cuda.empty_cache()
+    timing["graphs"] = out
+
+
 def run_sim(sim, steps: int) -> float:
     """``sim.run()`` up to ``steps`` steps in all; returns its wall ms per
     step (``run`` waits for the device at its end)."""
@@ -1260,17 +1550,51 @@ def run_sim(sim, steps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / (steps - done)
 
 
+def traced_run(model, stop_time: float, want: dict, state=None, **run_kw):
+    """``Simulation.run(**run_kw)`` of a fresh Simulation of ``model`` to
+    ``stop_time``, from ``state`` (else the seed), under a
+    ``torch.profiler`` trace (``trace_window``, which takes the run again if
+    a trace lost launches), the launch counters set to 0 just before and
+    read just after.  A replayed graph launches its kernels without their
+    wrappers, so the trace counts them by name; the model's capture exists
+    already, so the host calls none.  ``want``: kernel id -> the launches
+    the run makes.  Returns (the Simulation, the trace's counts by kernel
+    id, the trace's stats)."""
+    box = []
+
+    def run():
+        sim = Simulation.create(model, stop_time=stop_time)
+        if state is not None:
+            sim.state, sim.initialized = state, True
+        sim.run(**run_kw)
+        box.append(sim)
+
+    start = 0 if state is None else int(state.iteration)
+    steps = Simulation.create(model, stop_time=stop_time).n_steps() - start
+    reset_counters()
+    stats, got = trace_window(run, steps,
+                              {KERNEL_KEYS[k]: v for k, v in want.items()})
+    host = counters()
+    assert not any(host.values()), f"the host called kernels in replays: {host}"
+    return box[-1], {k: got[KERNEL_KEYS[k]] for k in want}, stats
+
+
 def phase_remesh_backends(dev, results, timing):
     """This slice's main path, part 1: the flagship at FLAG_N^2 through
     Simulation under the three remesh backends, counters reset just before
     and read just after.  3 steps: "pallas" and "fused" within rtol 1e-5 of
-    "xla" with the counters equal; 20 more: n_failed = n_clamped = 0."""
+    "xla" with the counters equal; 20 more: n_failed = n_clamped = 0.
+    ``Simulation.run`` replays one capture a model, so the host called each
+    kernel only in its warm-up and capture; then 3 more steps of each
+    through Simulation.run, traced, with each kernel counted by name
+    (``traced_run``), bit for bit 3 eager steps, also counted."""
     n = FLAG_N
     sims = {rm: Simulation.create(flagship_model(n, dev, remesh_mode=rm),
                                   stop_time=0.0)
             for rm in ("xla", "pallas", "fused")}
     reset_counters()
     for rm, sim in sims.items():
+        assert sim.model.graphed, rm
         run_sim(sim, 3)
     ref = sims["xla"].state
     for rm in ("pallas", "fused"):
@@ -1287,21 +1611,51 @@ def phase_remesh_backends(dev, results, timing):
         timing[f"flagship_{rm}_ms_per_step"] = ms_step
         timing[f"flagship_{rm}_pushes_per_s"] = n * n / (ms_step / 1e3)
         log("backends", f"{n}^2 flagship remesh_mode={rm}: {ms_step:.3f} "
-                        f"ms/step over 20 steps (Simulation.run, wall), "
-                        f"{n * n / (ms_step / 1e3):.4e} pushes/s; metrics {m}")
+                        f"ms/step over 20 steps (Simulation.run, graphed, "
+                        f"wall), {n * n / (ms_step / 1e3):.4e} pushes/s; "
+                        f"metrics {m}")
+    per = WARMUP_STEPS + 1
     c = counters()
-    assert c["K5"] == 23 and c["K6"] == 23, c
-    assert c["K1"] == 69 and c["K2"] == 46, c
-    results["K5"]["launches"] = c["K5"]
-    log("counters", f"remesh backends path launches {c}")
+    assert c == {"K1": 3 * per, "K2": 2 * per, "K3": 0, "K4": 0, "K5": per,
+                 "K6": per}, c
+    log("counters", f"remesh backends through Simulation.run: the host's "
+                    f"calls {c} (warm-up and capture, once a model)")
+    kernels = {"xla": ("K1", "K2"), "pallas": ("K1", "K2", "K5"),
+               "fused": ("K1", "K6")}
+    for rm, sim in sims.items():
+        want = {k: 3 if k in kernels[rm] else 0
+                for k in ("K1", "K2", "K3", "K5", "K6")}
+        traced, got, _ = traced_run(sim.model, 25 * DT, want, state=sim.state)
+        assert got == want, (rm, got)
+        reset_counters()
+        ms = eager_steps(sim.model, sim.state, 3)
+        c = counters()
+        assert c == dict(want, K4=0), (rm, c)
+        assert_state_bitwise(f"flagship {rm}, 3 eager steps against 3 "
+                             f"replays of Simulation.run", ms, traced.state)
+        if rm == "pallas":
+            results["K5"]["launches"] = got["K5"]
+        log("counters", f"remesh backend {rm}, 3 more steps of "
+                        f"Simulation.run: launches by trace {got}; bitwise "
+                        f"equal to 3 eager steps, launches {c}")
 
 
 def run_day_resumed(model, tag: str, steps: int = 145, at: int = 72):
-    """A storeless day of ``model`` (``steps`` steps of its DT) through
-    Simulation.run; the same day checkpointed at step ``at`` and resumed by
-    a fresh Simulation, bitwise equal at the end.  Returns (full run, wall
-    s, peak bytes, checkpoint bytes, save s, load s)."""
+    """A storeless day of ``model`` (a fused configuration: K1 and K6,
+    ``steps`` steps of its DT) through Simulation.run, which replays the
+    model's captured step; the same day checkpointed at step ``at`` and
+    resumed by a fresh Simulation, bitwise equal at the end; the day again
+    through Simulation.run under a trace, which counts its launches
+    (``traced_run``: K1 = K6 = ``steps``, no other kernel), bitwise equal;
+    then the day eagerly (``eager_day``), the witness that the replays are
+    the step.  The counters are set to 0 at the start.  Returns a dict: the
+    full run, its wall s and peak bytes, the checkpoint's bytes and save
+    and load s, the counters after the three untraced runs (the host's
+    calls in the one warm-up and capture), the traced day's launches and
+    stats, and the eager day's counter sums and launches."""
     dt = float(model.settings.timestep)
+    assert model.graphed, tag
+    reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     full = Simulation.create(model, stop_time=(steps - 1) * dt)
@@ -1324,10 +1678,42 @@ def run_day_resumed(model, tag: str, steps: int = 145, at: int = 72):
         rest.pickup(path)
         t_load = time.perf_counter() - t2
     rest.run()
-    for i, (a, b) in enumerate(zip(state_leaves(full.state),
-                                   state_leaves(rest.state))):
-        assert torch.equal(a, b), f"{tag}: resumed run differs in leaf {i}"
-    return full, wall, peak, size, t_save, t_load
+    assert_state_bitwise(f"{tag}: resumed run", rest.state, full.state)
+    graphed = counters()
+    want = {"K1": steps, "K2": 0, "K3": 0, "K5": 0, "K6": steps}
+    traced, launches, stats = traced_run(model, (steps - 1) * dt, want)
+    assert launches == want, f"{tag}: launches by trace {launches}"
+    assert_state_bitwise(f"{tag}: traced run", traced.state, full.state)
+    log("trace", f"{tag} through Simulation.run: launches by trace "
+                 f"{launches}; device busy "
+                 f"{stats['device_busy_ms_per_step']:.4f} ms/step, idle "
+                 f"share {stats['idle_share']:.4f}, "
+                 f"{stats['device_ops_per_step']:.1f} device ops a step")
+    day, eager = eager_day(model, full.state, steps)
+    return dict(full=full, wall=wall, peak=peak, size=size, t_save=t_save,
+                t_load=t_load, graphed_counts=graphed, day=day,
+                launches=launches, trace=stats, eager_launches=eager)
+
+
+def eager_day(model, want, steps: int):
+    """The day again from the seed, ``model.step`` by step, the counters
+    set to 0 just before and read just after, every counter summed over its
+    steps on the device; its last state must equal ``want`` (the day
+    ``Simulation.run`` replayed) bit for bit.  Returns (the counters summed,
+    substeps_max left out; the launches)."""
+    ms = model.init_state()
+    names = [f.name for f in dataclasses.fields(ms.metrics)]
+    total = torch.zeros(len(names), dtype=torch.int64, device=ms.state.device)
+    reset_counters()
+    for _ in range(steps):
+        ms = model.step(ms)
+        total += torch.stack([getattr(ms.metrics, k).to(torch.int64)
+                              for k in names])
+    launches = counters()
+    assert_state_bitwise("the eager day against Simulation.run's", ms, want)
+    day = dict(zip(names, total.tolist()))
+    del day["substeps_max"]   # a sum of maxima means nothing
+    return day, launches
 
 
 def phase_production(dev, results, timing):
@@ -1338,30 +1724,34 @@ def phase_production(dev, results, timing):
     storeless run's final state."""
     n = FLAG_N
     model = flagship_model(n, dev, remesh_mode="fused")
-    reset_counters()
-    full, wall, peak, size, t_save, t_load = run_day_resumed(
-        model, "production day")
+    r = run_day_resumed(model, "production day")
+    full, wall, peak = r["full"], r["wall"], r["peak"]
+    size, t_save, t_load = r["size"], r["t_save"], r["t_load"]
     steps = full.n_steps()
     m = check_state("production day", full.state, n_failed=0, n_clamped=0)
-    c = counters()
-    assert c["K6"] == 145 + 72 + 73 and c["K1"] == c["K6"], c
-    assert c["K2"] == 0 and c["K5"] == 0, c
+    g, c, e = r["graphed_counts"], r["launches"], r["eager_launches"]
+    assert g["K1"] == g["K6"] == WARMUP_STEPS + 1, g
+    assert e["K6"] == 145 and e["K1"] == e["K6"], e
+    assert e["K2"] == 0 and e["K5"] == 0, e
     results["K6"]["launches"] = c["K6"]
-    log("counters", f"production path launches {c}")
+    log("counters", f"production day through Simulation.run: the host's "
+                    f"calls {g}; launches by trace {c}; the day again "
+                    f"eagerly, bitwise equal: launches {e}")
+    timing.update(production_day_trace=r["trace"])
     timing.update(production_wall_s=wall, production_steps=steps,
                   production_steps_per_s=steps / wall,
                   production_peak_bytes=peak,
                   checkpoint_bytes=size, checkpoint_save_s=t_save,
                   checkpoint_load_s=t_load)
-    log("production", f"{n}^2 fused flagship, 1 day storeless: {steps} steps "
-                      f"in {wall:.3f} s wall ({steps / wall:.2f} steps/s, "
+    log("production", f"{n}^2 fused flagship, 1 day storeless (graphed): "
+                      f"{steps} steps in {wall:.3f} s wall ({steps / wall:.2f} steps/s, "
                       f"{n * n * steps / wall:.4e} pushes/s), peak "
                       f"max_memory_allocated {peak / 2**30:.3f} GiB; "
                       f"metrics {m}")
     log("production", f"checkpoint at step 72: {size / 2**20:.1f} MiB npz, "
                       f"saved in {t_save:.2f} s, loaded in {t_load:.2f} s; "
                       f"resumed to step 145 bitwise equal (all "
-                      f"{len(state_leaves(full.state))} leaves)")
+                      f"{len(full.state.leaves())} leaves)")
 
     small = 256
     quiet = Simulation.create(flagship_model(small, dev, remesh_mode="fused"),
@@ -1382,6 +1772,71 @@ def phase_production(dev, results, timing):
     log("production", f"{small}^2 fused flagship, 1 day with a CashStore: "
                       f"{frames.shape[0]} frames in {t_stored:.3f} s; last "
                       f"frame equals the storeless run bitwise")
+
+
+# the CLI's experiment at full width: FLAG_N nodes a side at 2 km, 12 hours
+# of 10-minute steps (73 steps: a chunk of 64 and a ragged one of 9)
+CLI_ARGV = ["--Nx", str(FLAG_N), "--Lx", str(2.0 * (FLAG_N - 1)), "--T",
+            "12", "--DT", "10"]
+
+
+def phase_cli(dev, results, timing):
+    """The CLI's path (``python -m picles_torch``): its model and
+    Simulation built by its own ``build_simulation`` from CLI_ARGV (tsit5
+    with the Hairer dt reset, K1, K2 and K3, in the CLI's non-periodic box)
+    and run as ``main`` runs them, ``run(store=True)``: every step through
+    ``step_n_buffered`` in chunks of 64, each chunk pushed to the store.  A
+    CashStore takes the place of the HDF5 store (its h5py is not on every
+    card machine).  The model is graphed; the host called each kernel only
+    in the one warm-up and capture; the run again under a trace counts its
+    launches (``traced_run``: K1 = K2 = K3 = the steps) and stores the same
+    frames bit for bit; every frame is bit for bit the state of as many
+    eager steps, and the last state every leaf of the eager one."""
+    args = cli_parser().parse_args(CLI_ARGV)
+    sim = build_simulation(args)
+    model = sim.model
+    assert model.graphed and model.resolved_config().advance_mode == "cuda"
+    steps = sim.n_steps()
+    n = model.grid.nx
+    reset_counters()
+    sim.store = CashStore()
+    t0 = time.perf_counter()
+    sim.run(store=True)
+    wall = time.perf_counter() - t0
+    host = counters()
+    assert host["K1"] == host["K2"] == host["K3"] == WARMUP_STEPS + 1, host
+    frames = sim.store.as_array()
+    assert frames.shape == (steps + 1, n, n, 3), frames.shape
+    want = {"K1": steps, "K2": steps, "K3": steps, "K5": 0, "K6": 0}
+    again, launches, stats = traced_run(model, sim.stop_time, want,
+                                        cash_store=True)
+    assert launches == want, f"CLI run: launches by trace {launches}"
+    assert np.array_equal(again.store.as_array().view(np.uint32),
+                          frames.view(np.uint32)), "the traced run's frames"
+    del again
+    reset_counters()
+    ms = model.init_state()
+    for i in range(steps + 1):
+        if i:
+            ms = model.step(ms)
+        got = torch.from_numpy(frames[i]).to(dev)
+        assert torch.equal(bits(got), bits(ms.state)), \
+            f"CLI run: frame {i} differs from {i} eager steps"
+    eager = counters()
+    assert eager["K1"] == eager["K2"] == eager["K3"] == steps, eager
+    assert_state_bitwise("CLI run against the eager steps", sim.state, ms)
+    m = check_state("CLI run", sim.state, n_failed=0)
+    for k in ("K1", "K2", "K3"):
+        results[k]["launches"] += launches[k]
+    timing.update(cli_wall_s=wall, cli_steps=steps, cli_trace=stats)
+    log("cli", f"{' '.join(CLI_ARGV)}: {steps} steps through the graphed "
+               f"step_n_buffered (chunks of 64) into a CashStore in "
+               f"{wall:.3f} s wall (capture included); the host's calls "
+               f"{host}; the run again, traced: launches {launches}, device "
+               f"busy {stats['device_busy_ms_per_step']:.4f} ms/step, idle "
+               f"share {stats['idle_share']:.4f}, frames bitwise equal")
+    log("cli", f"all {steps + 1} frames bitwise the eager steps' states "
+               f"(launches {eager}), the last state every leaf; metrics {m}")
 
 
 def k4_pair(tag, xr, yr, chans, act, halo):
@@ -1485,6 +1940,7 @@ def phase_sharded_1x1(dev, results, timing):
     init_distributed(0, 1, "nccl", free_port())
     try:
         sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        assert model.graphed and not sh.graphed   # the sharded step is eager
         log("sharded-1x1", f"transport: {sh.transport}")
         reset_counters()
         ms = sh.step_n_quiet(sh.init_state(), 3)
@@ -1499,7 +1955,7 @@ def phase_sharded_1x1(dev, results, timing):
             for who in (("sharded", "single") if rep % 2 == 0 else
                         ("single", "sharded")):
                 if who == "single":
-                    ref, t = time_steps(model, ref, 10)
+                    ref, t = time_steps(model, ref, 10, eager=True)
                 else:
                     ms, t = time_steps(sh, ms, 10)
                 runs[who].append(t)
@@ -1515,8 +1971,9 @@ def phase_sharded_1x1(dev, results, timing):
                        f"counters equal; metrics {m}")
     log("sharded-1x1", f"{n}^2: {ms_step:.3f} ms/step, "
                        f"{n * n / (ms_step / 1e3):.4e} pushes/s; the "
-                       f"single-device pallas step in turns {single:.3f} "
-                       f"ms/step (medians of 8 x 10 steps each, CUDA events)")
+                       f"single-device pallas step (eager) in turns "
+                       f"{single:.3f} ms/step (medians of 8 x 10 steps each, "
+                       f"CUDA events)")
     log("counters", f"sharded 1x1 path launches {c}")
 
 
@@ -1691,66 +2148,40 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
         for i in range(frames.shape[0]):
             assert_close(f"2x2 Simulation frame {i}", torch.as_tensor(
                 frames[i]), torch.as_tensor(want[i]), 2e-3, 1e-10)
-        for i, (x, y) in enumerate(zip(state_leaves(a), state_leaves(b))):
+        for i, (x, y) in enumerate(zip(a.leaves(), b.leaves())):
             assert torch.equal(x, y), f"resumed 2x2 run differs in leaf {i}"
         log("sharded-2x2", f"{small}^2 Simulation.run, 6 steps: CashStore "
                            f"frames match the single-device run; resumed "
                            f"from the step-3 checkpoint bitwise equal (all "
-                           f"{len(state_leaves(a))} leaves)")
+                           f"{len(a.leaves())} leaves)")
         with open(os.path.join(out, "rank0.json"), "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
     return 0
 
 
-def profile_config(tag: str, model, reps: int, steps: int = 10,
-                   prof_steps: int = 5) -> dict:
-    """Step times of one configuration over ``reps`` x ``steps`` steps (CUDA
-    events), the host's enqueue time against the wall, and, for kernel
-    configurations, a ``torch.profiler`` trace of ``prof_steps`` steps:
-    device time by kernel, the device's busy time and idle share in the
-    traced window, and launches per step."""
+def trace_window(run, steps: int, want: dict):
+    """A ``torch.profiler`` trace of ``run()`` (``steps`` steps): device
+    busy time (the union of the device ops), idle share of the traced
+    window, device ops and time by name per step.  ``want`` maps
+    KERNEL_KEYS names to the launches a complete trace holds; a trace
+    missing any (late in a process a trace can lose device events) is
+    taken again, up to 3 times.  Returns (stats, the kernels' counts)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ms = model.step_n_quiet(model.init_state(), 4)
-    per_rep = []
-    for _ in range(reps):
-        ms, t = time_steps(model, ms, steps)
-        per_rep.append(t)
-    out = dict(ms_per_step=per_rep, median=float(np.median(per_rep)),
-               metrics=ms.metrics.as_dict())
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    ms = model.step_n_quiet(ms, steps)
-    h1 = time.perf_counter()
-    torch.cuda.synchronize()
-    h2 = time.perf_counter()
-    out["host_enqueue_ms_per_step"] = (h1 - h0) * 1e3 / steps
-    out["host_wall_ms_per_step"] = (h2 - h0) * 1e3 / steps
-    log("profile", f"{tag}: ms/step per rep {[f'{t:.4f}' for t in per_rep]}, "
-                   f"median {out['median']:.4f}; host enqueue "
-                   f"{out['host_enqueue_ms_per_step']:.4f}, wall "
-                   f"{out['host_wall_ms_per_step']:.4f} ms/step")
-    if model.resolved_config().advance_mode != "cuda":
-        return out
-    # K1 launches once per step; a trace that holds fewer of its launches
-    # lost device events (seen once in a call on the H100), so it is taken
-    # again
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            ms = model.step_n_quiet(ms, prof_steps)
+            run()
             torch.cuda.synchronize()
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-        n_k1 = sum("advance_kernel" in e.name for e in dev)
-        if n_k1 == prof_steps:
+        got = {k: sum(k in e.name for e in dev) for k in want}
+        if got == want:
             break
-        log("profile", f"{tag}: trace {attempt} holds {n_k1} of "
-                       f"{prof_steps} K1 launches ({len(dev)} device ops); "
-                       f"taken again")
-    assert n_k1 == prof_steps, f"{tag}: no complete trace in 3 attempts"
-    out["trace_attempts"] = attempt
+        log("trace", f"trace {attempt} holds {got} of {want} launches "
+                     f"({len(dev)} device ops); taken again")
+    assert got == want, f"no complete trace in 3 attempts: {got} of {want}"
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -1766,58 +2197,106 @@ def profile_config(tag: str, model, reps: int, steps: int = 10,
         d, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (d + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    out.update(profiled_steps=prof_steps,
-               device_window_us=window, device_busy_us=busy,
-               device_busy_ms_per_step=busy / 1e3 / prof_steps,
-               idle_share=1.0 - busy / window,
-               device_ops_per_step=len(dev) / prof_steps,
-               by_kernel_us_per_step={k: d / prof_steps
-                                      for k, (d, _) in top})
-    log("profile", f"{tag}: device busy {busy / 1e3 / prof_steps:.4f} "
-                   f"ms/step, idle share {out['idle_share']:.4f} of the "
-                   f"traced window, {len(dev) / prof_steps:.1f} device ops "
-                   f"per step")
-    for k, (d, n) in top:
-        log("profile", f"    {d / prof_steps:9.2f} us/step  n={n:4d}  "
-                       f"{k[:90]}")
+    stats = dict(trace_attempts=attempt, profiled_steps=steps,
+                 device_window_us=window, device_busy_us=busy,
+                 device_busy_ms_per_step=busy / 1e3 / steps,
+                 idle_share=1.0 - busy / window,
+                 device_ops_per_step=len(dev) / steps,
+                 by_kernel_us_per_step={k: d / steps for k, (d, _) in top})
+    return stats, got
+
+
+def host_enqueue_ms(run, steps: int) -> tuple:
+    """(host ms a step to enqueue ``run()``'s ``steps`` steps, host wall ms
+    a step until the device is done)."""
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    run()
+    h1 = time.perf_counter()
+    torch.cuda.synchronize()
+    h2 = time.perf_counter()
+    return (h1 - h0) * 1e3 / steps, (h2 - h0) * 1e3 / steps
+
+
+def profile_config(tag: str, model, reps: int, eager: bool,
+                   steps: int = 10, prof_steps: int = 5) -> dict:
+    """Step times of one configuration over ``reps`` x ``steps`` steps (CUDA
+    events), the host's enqueue time against the wall, and, for kernel
+    configurations, a ``torch.profiler`` trace of ``prof_steps`` steps
+    (``trace_window``, K1 once a step): device time by kernel, the device's
+    busy time and idle share in the traced window, and device ops per step.
+    The steps are eager (``model.step`` in a loop) or go through
+    ``step_n_quiet``, which replays the captured step of a graphed model
+    (``drive``)."""
+    ms = drive(model, model.init_state(), 4, eager)
+    per_rep = []
+    for _ in range(reps):
+        ms, t = time_steps(model, ms, steps, eager)
+        per_rep.append(t)
+    out = dict(ms_per_step=per_rep, median=float(np.median(per_rep)),
+               metrics=ms.metrics.as_dict())
+    out["host_enqueue_ms_per_step"], out["host_wall_ms_per_step"] = \
+        host_enqueue_ms(lambda: drive(model, ms, steps, eager), steps)
+    log("profile", f"{tag}: ms/step per rep {[f'{t:.4f}' for t in per_rep]}, "
+                   f"median {out['median']:.4f}; host enqueue "
+                   f"{out['host_enqueue_ms_per_step']:.4f}, wall "
+                   f"{out['host_wall_ms_per_step']:.4f} ms/step")
+    if model.resolved_config().advance_mode != "cuda":
+        return out
+    stats, _ = trace_window(lambda: drive(model, ms, prof_steps, eager),
+                            prof_steps, {KERNEL_KEYS["K1"]: prof_steps})
+    out.update(stats)
+    log("profile", f"{tag}: device busy "
+                   f"{stats['device_busy_ms_per_step']:.4f} ms/step, idle "
+                   f"share {stats['idle_share']:.4f} of the traced window, "
+                   f"{stats['device_ops_per_step']:.1f} device ops per step")
+    for k, d in stats["by_kernel_us_per_step"].items():
+        log("profile", f"    {d:9.2f} us/step  {k[:90]}")
     return out
 
 
 def phase_profile(path: str, gw) -> None:
     """The step's time split at FLAG_N^2: the configurations with the
-    kernels (traced), the flagship under each kernel remesh backend, the
-    gridded production configuration (record ``gw``), the tripolar
-    production configuration (1440 x 720), both configurations with the
-    plain versions on the card, and the pallas flagship through
-    ShardedWaveGrowth2D on a (1, 1) NCCL mesh."""
+    kernels (traced), each eager and, in the column "<name>_graphed",
+    through the drivers' replayed CUDA graph; the flagship under each
+    kernel remesh backend, the gridded production configuration (record
+    ``gw``), the tripolar production configuration (1440 x 720), both
+    configurations with the plain versions on the card, and the pallas
+    flagship through ShardedWaveGrowth2D on a (1, 1) NCCL mesh.  Each
+    capture is freed before the next configuration."""
     n = FLAG_N
-    res = {"flagship": profile_config("flagship", flagship_model(n, "cuda"), 7),
-           "flagship_pallas": profile_config(
-               "flagship pallas", flagship_model(n, "cuda",
-                                                 remesh_mode="pallas"), 7),
-           "flagship_fused": profile_config(
-               "flagship fused", flagship_model(n, "cuda",
-                                                remesh_mode="fused"), 7),
-           "default": profile_config("default", default_model(n, "cuda"), 7),
-           "gridded": profile_config(
-               "gridded fused", gridded_model(n, "cuda", gw, "production"),
-               7),
-           "tripolar": profile_config(
-               "tripolar fused", tripolar_model(
-                   tripolar_grid("cuda", *TRI_SUPER),
-                   tripolar_record("cuda"), "production"), 7),
-           "flagship_plain": profile_config(
-               "flagship plain", flagship_model(n, "cuda", advance_mode="torch",
-                                                scatter_mode="dense"), 3),
-           "default_plain": profile_config(
-               "default plain", default_model(n, "cuda", advance_mode="torch",
-                                              scatter_mode="dense"), 3)}
+    configs = {
+        "flagship": lambda: flagship_model(n, "cuda"),
+        "flagship_pallas": lambda: flagship_model(n, "cuda",
+                                                  remesh_mode="pallas"),
+        "flagship_fused": lambda: flagship_model(n, "cuda",
+                                                 remesh_mode="fused"),
+        "default": lambda: default_model(n, "cuda"),
+        "gridded": lambda: gridded_model(n, "cuda", gw, "production"),
+        "tripolar": lambda: tripolar_model(
+            tripolar_grid("cuda", *TRI_SUPER), tripolar_record("cuda"),
+            "production"),
+        "flagship_plain": lambda: flagship_model(
+            n, "cuda", advance_mode="torch", scatter_mode="dense"),
+        "default_plain": lambda: default_model(
+            n, "cuda", advance_mode="torch", scatter_mode="dense")}
+    res = {}
+    for key, make in configs.items():
+        model = make()
+        tag = key.replace("_", " ")
+        reps = 3 if key.endswith("plain") else 7
+        res[key] = profile_config(tag, model, reps, eager=True)
+        if model.graphed:
+            res[key + "_graphed"] = profile_config(tag + " graphed", model,
+                                                   reps, eager=False)
+        del model
+        torch.cuda.empty_cache()
     init_distributed(0, 1, "nccl", free_port())
     try:
         res["sharded_1x1_pallas"] = profile_config(
             "sharded 1x1 pallas", ShardedWaveGrowth2D(
                 flagship_model(n, "cuda", remesh_mode="pallas"),
-                make_mesh((1, 1))), 7)
+                make_mesh((1, 1))), 7, eager=True)
     finally:
         dist.destroy_process_group()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2401,13 +2880,13 @@ def phase_gridded_anchor(flag, s_flag, default, s_def):
 
 
 def device_ops_per_step(model, ms, steps: int = 3):
-    """Device operations (kernels, copies, fills) per step in a
+    """Device operations (kernels, copies, fills) per eager step in a
     torch.profiler trace of ``steps`` steps; returns (ops, state)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ms = model.step_n_quiet(ms, steps)
+        ms = eager_steps(model, ms, steps)
         torch.cuda.synchronize()
     n = sum(1 for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -2456,24 +2935,6 @@ def plane_seconds(model, ms, reps: int = 10) -> dict:
                 host_ms=host_ms)
 
 
-def day_branch_counts(model, want) -> dict:
-    """A day of ``model`` step by step from the seed, every counter summed
-    over its steps on the device; its last state must equal ``want`` (the
-    day ``Simulation.run`` ran) bit for bit."""
-    ms = model.init_state()
-    names = [f.name for f in dataclasses.fields(ms.metrics)]
-    total = torch.zeros(len(names), dtype=torch.int64, device=ms.state.device)
-    for _ in range(145):
-        ms = model.step(ms)
-        total += torch.stack([getattr(ms.metrics, k).to(torch.int64)
-                              for k in names])
-    for i, (a, b) in enumerate(zip(state_leaves(ms), state_leaves(want))):
-        assert torch.equal(a, b), f"stepwise day differs in leaf {i}"
-    day = dict(zip(names, total.tolist()))
-    del day["substeps_max"]   # a sum of maxima means nothing
-    return day
-
-
 def phase_gridded_main_path(dev, gw, results, timing):
     """The gridded configuration at FLAG_N^2 from the NetCDF-3 record, each
     path with the counters set to 0 just before and read just after: the
@@ -2487,17 +2948,21 @@ def phase_gridded_main_path(dev, gw, results, timing):
     B = prod._wind_B
     n_wf = 4 + 3 * B
     assert B == 1 and prod.resolved_config().advance_mode == "cuda"
-    reset_counters()
-    full, wall, peak, size, t_save, t_load = run_day_resumed(
-        prod, "gridded production day")
+    r = run_day_resumed(prod, "gridded production day")
+    full, wall, peak = r["full"], r["wall"], r["peak"]
+    size, t_save, t_load = r["size"], r["t_save"], r["t_load"]
     m = check_state("gridded production day", full.state, n_failed=0,
                     n_clamped=0)
-    c = counters()
-    assert c["K6"] == 145 + 72 + 73 and c["K1"] == c["K6"], c
-    assert c["K2"] == c["K3"] == c["K5"] == 0, c
+    g, c, day = r["graphed_counts"], r["launches"], r["day"]
+    e = r["eager_launches"]
+    assert g["K1"] == g["K6"] == WARMUP_STEPS + 1, g
+    assert e["K6"] == 145 and e["K1"] == e["K6"], e
+    assert e["K2"] == e["K3"] == e["K5"] == 0, e
     launches = {"K1": c["K1"], "K6": c["K6"]}
-    log("counters", f"gridded production path launches {c}")
-    day = day_branch_counts(prod, full.state)
+    timing["gridded_day_trace"] = r["trace"]
+    log("counters", f"gridded production day through Simulation.run: the "
+                    f"host's calls {g}; launches by trace {c}; the day again "
+                    f"eagerly: launches {e}")
     log("gridded-main", f"the day again step by step, bitwise equal to "
                         f"Simulation.run's; counters summed over its 145 "
                         f"steps: {day}")
@@ -2506,7 +2971,7 @@ def phase_gridded_main_path(dev, gw, results, timing):
                   gridded_day_pushes_per_s=n * n * 145 / wall,
                   gridded_peak_bytes=peak, gridded_checkpoint_bytes=size)
     log("gridded-main", f"{n}^2 fused, B={B} ({n_wf} planes a step), 1 day "
-                        f"storeless: 145 steps in {wall:.3f} s wall "
+                        f"storeless (graphed): 145 steps in {wall:.3f} s wall "
                         f"({wall * 1e3 / 145:.3f} ms/step, "
                         f"{n * n * 145 / wall:.4e} pushes/s), peak "
                         f"{peak / 2**30:.3f} GiB; checkpoint at 72 "
@@ -3127,23 +3592,27 @@ def phase_tripolar_main(dev, results, timing):
     rc = prod.resolved_config()
     assert prod.uniform_proj is None and prod._wind_B == 1
     assert rc.advance_mode == "cuda" and rc.scatter_mode == "dense_cuda"
-    reset_counters()
-    full, wall, peak, size, t_save, t_load = run_day_resumed(
-        prod, "tripolar production day", steps=TRI_STEPS, at=36)
-    c = counters()
+    r = run_day_resumed(prod, "tripolar production day", steps=TRI_STEPS,
+                        at=36)
+    full, wall, peak = r["full"], r["wall"], r["peak"]
+    size, t_save, t_load = r["size"], r["t_save"], r["t_load"]
+    g, c, e = r["graphed_counts"], r["launches"], r["eager_launches"]
     m = check_tripolar("tripolar production day", prod, full.state)
-    steps = TRI_STEPS + 36 + (TRI_STEPS - 36)
-    assert c["K6"] == steps and c["K1"] == steps, c
-    assert c["K2"] == c["K3"] == c["K5"] == 0, c
+    assert g["K1"] == g["K6"] == WARMUP_STEPS + 1, g
+    assert e["K6"] == TRI_STEPS and e["K1"] == TRI_STEPS, e
+    assert e["K2"] == e["K3"] == e["K5"] == 0, e
     launches = {"K1 proj": c["K1"], "K6 tripolar": c["K6"]}
-    log("counters", f"tripolar production path launches {c}")
+    timing["tripolar_day_trace"] = r["trace"]
+    log("counters", f"tripolar production day through Simulation.run: the "
+                    f"host's calls {g}; launches by trace {c}; the day again "
+                    f"eagerly, bitwise equal: launches {e}")
     timing.update(tripolar_day_wall_s=wall, tripolar_day_steps=TRI_STEPS,
                   tripolar_day_ms_per_step=wall * 1e3 / TRI_STEPS,
                   tripolar_day_pushes_per_s=n * TRI_STEPS / wall,
                   tripolar_peak_bytes=peak,
                   tripolar_checkpoint_bytes=size,
                   tripolar_n_clamped=m["n_clamped"])
-    log("tripolar-main", f"production (bosh3, fused, B = 1), 1 day: "
+    log("tripolar-main", f"production (bosh3, fused, B = 1), 1 day (graphed): "
                          f"{TRI_STEPS} steps in {wall:.3f} s wall "
                          f"({wall * 1e3 / TRI_STEPS:.3f} ms/step, "
                          f"{n * TRI_STEPS / wall:.4e} pushes/s), peak "
@@ -3424,15 +3893,20 @@ def main(argv=None) -> int:
     phase_gridded_kernels(dev, results)
     phase_proj(dev, results)
     phase_seam(dev, results)
+    phase_wide_grid(dev, results)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
     phase_k3_times(default, s_def, results)
     gw = gridded_record(dev)
+    # right after its capture, each graph's trace: late in a process a
+    # trace can miss launches
+    phase_graphs(dev, gw, results, timing)
     if args.profile:
         # before the kernels' in-turns timing: a call that had run a few
         # dozen profiler sessions lost one K1 launch from every step trace
         phase_profile(args.profile, gw)
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
+    phase_cli(dev, results, timing)
     gridded = phase_gridded_main_path(dev, gw, results, timing)
     tripolar = phase_tripolar_main(dev, results, timing)
     phase_card_vs_cpu()
@@ -3463,6 +3937,7 @@ def main(argv=None) -> int:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "simple_ms")), k
+        k.setdefault("graph_launches", 0)   # K4: the sharded step is eager
     seconds = time.perf_counter() - t_start
     log("done", f"{seconds:.1f} s in all, build {build.seconds:.1f} s")
     if args.out:

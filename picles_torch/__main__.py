@@ -21,27 +21,24 @@ from .simulation.simulation import Simulation
 from .utils.cli import arg_settings
 
 
-def main(argv=None) -> int:
+def parser():
+    """The JAX package CLI's flags and ``--device``."""
     ap = arg_settings()
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs: cuda (the kernels; the "
                          "default) or cpu (the plain PyTorch versions)")
-    args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("picles_torch: no CUDA device found; pass --device cpu to run "
-              "the plain PyTorch versions on the CPU", file=sys.stderr)
-        return 2
+    return ap
+
+
+def build_simulation(args) -> Simulation:
+    """The experiment of the parsed flags ``args``: its model on
+    ``args.device`` and a seeded Simulation to the run time."""
     T = (args.T or 2.0) * 3600.0
     DT = (args.DT or 10.0) * 60.0
     Lx = (args.Lx or 100.0) * 1e3
     Nx = args.Nx or 51
     U10 = args.U10 if args.U10 is not None else 10.0
-    out = args.ID or "picles_run"
     device = torch.device(args.device)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
-
     pars, cid, _ = ODEParameters.create(r_g=args.r_g0)
     ws_min = FR.MinimalWindsea(U10, U10, DT)
     sett = ODESettings(log_energy_minimum=float(ws_min.lne), saving_step=DT,
@@ -55,7 +52,21 @@ def main(argv=None) -> int:
                              periodic_boundary=args.periodic))
     sim = Simulation.create(model, stop_time=T, verbose=True)
     sim.initialize()
-    sim.init_state_store(out)
+    return sim
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("picles_torch: no CUDA device found; pass --device cpu to run "
+              "the plain PyTorch versions on the CPU", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    sim = build_simulation(args)
+    sim.init_state_store(args.ID or "picles_run")
     sim.run(store=True)
     sim.store.close()
     print(f"wrote {sim.store.path}; final mean E = "

@@ -28,6 +28,9 @@ U_MIN = 1.0
 def _f32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
+    if isinstance(x, (int, float)):
+        # a fill, not a copy from the host (which a CUDA graph cannot hold)
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 

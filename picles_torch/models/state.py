@@ -3,6 +3,11 @@
 The step state is a dataclass of tensors: the Eulerian node state, the
 particle structure of arrays, the clock, and per-step counters that stay on
 the device (reading them is the caller's choice, never the step's).
+
+Each state class also copies itself: ``clone()`` into new tensors, and
+``copy_(src)`` into its own tensors in place.  A CUDA graph of the step
+(``models/drivers.py``) reads fixed input tensors and writes fixed output
+tensors; these two move a state in and out of them.
 """
 
 from __future__ import annotations
@@ -12,8 +17,33 @@ import dataclasses
 import torch
 
 
+class TensorTree:
+    """Copies of a dataclass whose fields are tensors or such dataclasses."""
+
+    def leaves(self) -> list:
+        """The tensors, depth first in field order (for ``ModelState2D``
+        the JAX package's pytree order)."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out += v.leaves() if isinstance(v, TensorTree) else [v]
+        return out
+
+    def clone(self):
+        """The same state in new tensors, one per field (fields that shared
+        a tensor no longer do)."""
+        return type(self)(*(getattr(self, f.name).clone()
+                            for f in dataclasses.fields(self)))
+
+    def copy_(self, src) -> None:
+        """Copy ``src``'s values into this state's tensors, field by field
+        (shapes and dtypes must match; nothing is reallocated)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(src, f.name))
+
+
 @dataclasses.dataclass(frozen=True)
-class StepMetrics:
+class StepMetrics(TensorTree):
     """Per-step counters, int32 0-dim tensors."""
 
     n_active: torch.Tensor       # particles advanced this step
@@ -40,7 +70,7 @@ class StepMetrics:
 
 
 @dataclasses.dataclass(frozen=True)
-class Particles2D:
+class Particles2D(TensorTree):
     """One particle per grid node, as separate ``[nx, ny]`` planes.
 
     lne, cgx, cgy: log-energy and mean group velocity
@@ -60,7 +90,7 @@ class Particles2D:
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelState2D:
+class ModelState2D(TensorTree):
     """state: ``[nx, ny, 3]`` Eulerian (e, m_x, m_y); time float32 and
     iteration int32, both 0-dim."""
 

@@ -19,8 +19,10 @@ PyTorch (``remesh_mode="xla"``), kernel K5 (``"pallas"``,
 ``ops/remesh_cuda.py``) or kernel K6, the deposit and the remesh in one pass
 (``"fused"``, ``ops/pic_cuda.py``); on CPU tensors the two kernel modes run
 the plain versions, as the JAX package runs its kernels in interpret mode.
-Every quantity stays on the grid's device and the step never reads it back,
-so a step on the card queues without host round-trips.
+Every quantity stays on the grid's device and the step never reads it back
+or copies a host value to it, so a step on the card queues without host
+round-trips, and the drivers capture it in a CUDA graph
+(``models/drivers.py``; ``graphed``).
 
 On spherical and tripolar grids the projection and the great-circle
 coefficient vary from node to node: the model stacks them once per grid
@@ -205,6 +207,8 @@ class WaveGrowth2D(StepDrivers):
 
         DT = ode_settings.timestep
         dtype = config.dtype
+        # the step's DT in the model's dtype, as a host float
+        self._DT = float(torch.tensor(DT, dtype=dtype))
         # the minimal windsea of a (2, 2) m/s wind, as host floats of the
         # float32 values: the remesh compares against them every step
         if minimal_particle is None:
@@ -244,6 +248,10 @@ class WaveGrowth2D(StepDrivers):
         # as it resolves the "auto" modes
         self._remesh_kernels = (self.device.type == "cuda"
                                 and config.remesh_mode != "xla")
+        # the drivers replay a CUDA graph of the step where every kernel of
+        # the advance runs on the card (models/drivers.py)
+        self._graphed = (self.device.type == "cuda"
+                         and self.modes.advance_mode == "cuda")
         if self.modes.advance_mode == "cuda" or self._remesh_kernels:
             kernel_wind(winds)   # raises for winds outside the kernel set
 
@@ -314,6 +322,12 @@ class WaveGrowth2D(StepDrivers):
         return gw.pallas_pwl_fields(grid.x, grid.y, clock,
                                     float(self.settings.timestep),
                                     corners=self._corners[1])
+
+    def graph_keep(self) -> tuple:
+        """The per-grid caches a captured step reads (``wind_fields``'
+        corners, ``projection``'s planes): a sharded step on another grid
+        replaces them, and the capture keeps its own alive."""
+        return (self._corners, self._proj_planes)
 
     def projection(self, grid: Grid2D):
         """The kernels' projection over ``grid``: the 5 uniform scalars of
@@ -401,7 +415,7 @@ class WaveGrowth2D(StepDrivers):
                 'the remesh. Use remesh_mode="xla" or "pallas" under '
                 "ShardedWaveGrowth2D.")
         sett = self.settings
-        DT = float(torch.tensor(sett.timestep, dtype=cfg.dtype))
+        DT = self._DT
         P = ms.particles
         aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 

@@ -27,14 +27,6 @@ _PARTICLES = [f.name for f in dataclasses.fields(Particles2D)]
 _METRICS = [f.name for f in dataclasses.fields(StepMetrics)]
 
 
-def state_leaves(ms: ModelState2D) -> list:
-    """The tensors of ``ms`` in the JAX pytree order: state, the particle
-    planes, time, iteration, the counters."""
-    return ([ms.state] + [getattr(ms.particles, k) for k in _PARTICLES]
-            + [ms.time, ms.iteration]
-            + [getattr(ms.metrics, k) for k in _METRICS])
-
-
 def _orbax_refused():
     return NotImplementedError("the orbax checkpoint backend is not ported "
                                "(ROADMAP item 17); use the npz backend")
@@ -53,7 +45,7 @@ def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
     if backend != "npz":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
     path = npz_path(path)
-    leaves = state_leaves(ms)
+    leaves = ms.leaves()
     arrays = {f"leaf_{i}": x.detach().cpu().numpy()
               for i, x in enumerate(leaves)}
     meta = json.dumps(dict(version=_FORMAT_VERSION, kind=_KIND,

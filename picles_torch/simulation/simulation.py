@@ -7,7 +7,9 @@ between which the wall-time limit and the callbacks are checked.  The steps
 queue on the model's device; the loop waits for the device only where it
 must: at a chunk end that checks a wall-time limit or runs callbacks, at a
 store push, and once at the end of ``run`` (so ``run_wall_time`` is the
-time of the work, not of its enqueueing).
+time of the work, not of its enqueueing).  On the card the model's drivers
+replay a CUDA graph of the step (``models/drivers.py``): the first chunk
+captures it, and every chunk, a shorter last one too, replays it.
 
 A sharded model (``parallel/sharded.py``) is driven the same way on every
 rank: each store push gathers the blocks to rank 0, which alone writes the

@@ -313,14 +313,16 @@ def test_fused_kernel_matches_gather_then_remesh(dev):
 
 
 def test_fused_simulation_resumes_bitwise(dev, tmp_path):
-    """The flagship's fused configuration at 64^2 through Simulation: K6
-    runs, a mid-run checkpoint resumes to a bitwise-equal end state."""
+    """The flagship's fused configuration at 64^2 through Simulation, which
+    replays the captured step: K6 is called by the host only in the
+    capture's warm-up and capture, the day equals the eager steps bit for
+    bit, and a mid-run checkpoint resumes to a bitwise-equal end state."""
     from picles_torch import (ODESettings, Simulation, WaveGrowth2D,
                               WaveGrowth2DConfig, cartesian_box,
                               constant_winds)
+    from picles_torch.models.drivers import WARMUP_STEPS
     from picles_torch.ops.pic_cuda import pic_gather_remesh
-    from picles_torch.simulation.checkpoint import state_leaves
-
+    
     n = 64
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
                          periodic_boundary=(True, True), device=dev)
@@ -329,17 +331,23 @@ def test_fused_simulation_resumes_bitwise(dev, tmp_path):
                          config=WaveGrowth2DConfig(dt_reset_mode="carry",
                                                    remesh_mode="fused",
                                                    halo=((0, 3), (0, 3))))
+    assert model.graphed
     before = pic_gather_remesh.launches
     full = Simulation.create(model, stop_time=10 * 600.0)
     full.run()
-    assert pic_gather_remesh.launches == before + 11
+    assert pic_gather_remesh.launches == before + WARMUP_STEPS + 1
+    ms = model.init_state()
+    for _ in range(11):
+        ms = model.step(ms)
+    assert pic_gather_remesh.launches == before + WARMUP_STEPS + 12
+    _assert_bitwise(full.state.leaves(), ms.leaves())
     leg = Simulation.create(model, stop_time=5 * 600.0)
     leg.run()
     ck = leg.checkpoint(str(tmp_path / "ck"))
     rest = Simulation.create(model, stop_time=10 * 600.0)
     rest.pickup(ck)
     rest.run()
-    for a, b in zip(state_leaves(full.state), state_leaves(rest.state)):
+    for a, b in zip(full.state.leaves(), rest.state.leaves()):
         assert torch.equal(a, b)
     assert int(full.state.metrics.n_failed) == 0
 
@@ -418,6 +426,7 @@ def test_sharded_step_nccl_one_rank_matches_single_device(dev):
     try:
         sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
         assert sh.transport == "nccl, device tensors"
+        assert model.graphed and not sh.graphed   # the sharded step is eager
         before = pic_gather_padded.launches
         ms = sh.step_n_quiet(sh.init_state(), 3)
         assert pic_gather_padded.launches == before + 3
@@ -436,7 +445,9 @@ def test_sharded_step_nccl_one_rank_matches_single_device(dev):
 
 def _bits(t):
     t = t.contiguous()
-    return t.view(torch.uint8) if t.dtype == torch.bool else t.view(torch.int32)
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    return t.view(torch.int32) if t.element_size() == 4 else t
 
 
 def _assert_bitwise(new, simple):
@@ -961,3 +972,196 @@ def test_curved_grid_model_on_card_matches_cpu(dev, kind):
     got, want = sg.metrics.as_dict(), sc.metrics.as_dict()
     assert abs(got.pop("substeps_max") - want.pop("substeps_max")) <= 2
     assert got == want and got["n_failed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the compiled drivers: a captured step replayed against the eager step
+# ---------------------------------------------------------------------------
+
+def _driven_model(dev, path, n=64):
+    """The flagship (bosh3, carried dt, halo ((0,3),(0,3))) with each remesh
+    ("xla", "pallas" with K5, "fused" with K6), the default configuration
+    (tsit5, Hairer reset with K3, halo 3) and "xla-halo5" (the flagship at
+    halo 5: K2 stages 56 KB a block, so its launch sets the kernel's shared
+    memory limit inside the capture too) at n^2."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              cartesian_box, constant_winds)
+    from picles_torch.core import fetch_relations as FR
+
+    ws = FR.MinimalWindsea(10.0, 10.0, 600.0)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), timestep=600.0,
+                       dt=1e-3, dtmin=1e-4, force_dtmin=True,
+                       solver="tsit5" if path == "default" else "bosh3")
+    cfg = WaveGrowth2DConfig(periodic_boundary=True)
+    if path != "default":
+        remesh, _, halo = path.partition("-halo")
+        cfg = WaveGrowth2DConfig(periodic_boundary=True,
+                                 dt_reset_mode="carry",
+                                 halo=int(halo) if halo else ((0, 3), (0, 3)),
+                                 remesh_mode=remesh)
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev)
+    return WaveGrowth2D(grid, constant_winds(10.0, 10.0), sett, config=cfg)
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas", "fused", "default",
+                                  "xla-halo5"])
+def test_graphed_drivers_equal_eager_steps_bitwise(dev, path):
+    """One capture serves every driver: step_n_quiet over 1, 3 and 8 steps,
+    step_n's stack row by row, a ragged step_n_buffered chunk (5 of 8 rows,
+    the rest zero) and step_jit, each bit for bit the eager steps from the
+    same state, every leaf (counters included); step_jit's results alias
+    none of the capture's tensors, and applying it twice leaves the first
+    result intact."""
+    model = _driven_model(dev, path)
+    assert model.graphed
+    ms = model.step(model.init_state())
+    eager = [ms]
+    for _ in range(8):
+        eager.append(model.step(eager[-1]))
+    for n in (1, 3, 8):
+        _assert_bitwise(model.step_n_quiet(ms, n).leaves(), eager[n].leaves())
+    g = model._graph
+    fin, stack = model.step_n(ms, 3)
+    _assert_bitwise(fin.leaves(), eager[3].leaves())
+    _assert_bitwise(stack, [e.state for e in eager[1:4]])
+    fin, buf = model.step_n_buffered(ms, 5, 8)
+    _assert_bitwise(fin.leaves(), eager[5].leaves())
+    _assert_bitwise(buf[:5], [e.state for e in eager[1:6]])
+    assert buf.shape[0] == 8 and not buf[5:].any()
+    f = model.step_jit()
+    s1 = f(ms)
+    kept = s1.clone()
+    s2 = f(s1)
+    _assert_bitwise(s1.leaves(), kept.leaves())
+    _assert_bitwise(s2.leaves(), eager[2].leaves())
+    held = {t.data_ptr() for t in g.state.leaves() + g.out.leaves()}
+    assert not held & {t.data_ptr() for t in s1.leaves() + s2.leaves()}
+    assert model._graph is g   # captured once
+    model.release_graph()
+    assert model._graph is None
+
+
+def test_graphed_simulation_run_chunks_equal_eager(dev):
+    """Simulation.run with a CashStore in chunks of 3 over 8 steps (a
+    ragged last chunk) and without a store: every frame and the end state
+    bit for bit the eager steps."""
+    from picles_torch import Simulation
+    
+    model = _driven_model(dev, "fused")
+    ms = model.init_state()
+    frames = [ms.state]
+    for _ in range(8):
+        ms = model.step(ms)
+        frames.append(ms.state)
+    sim = Simulation.create(model, stop_time=7 * 600.0)
+    sim.run(cash_store=True, chunk_size=3)
+    got = torch.as_tensor(sim.store.as_array())
+    assert got.shape[0] == 9 and got.dtype == torch.float32
+    _assert_bitwise([got[i] for i in range(9)], [f.cpu() for f in frames])
+    quiet = Simulation.create(model, stop_time=7 * 600.0)
+    quiet.run()
+    _assert_bitwise(quiet.state.leaves(), ms.leaves())
+
+
+def test_kernels_on_a_grid_past_the_tpu_vmem_limits(dev):
+    """A 64 x 6000 grid, wider than the JAX package's kernels take in VMEM:
+    K1 (adaptive) against integrate_to by its share rules and bit for bit
+    its _simple baseline; K2 bit for bit its _simple baseline and within
+    rtol 1e-5 of scatter_dense; K5 bit for bit remesh_core (values,
+    branch bits, flags, dt and positions); K6 bit for bit K2 + K5 and its
+    _simple baseline."""
+    from picles_torch import (Boundary, GridStats, ODESettings, TermFlags,
+                              WaveGrowth2D, WaveGrowth2DConfig, cartesian_box,
+                              constant_winds, half_domain_winds)
+    from picles_torch.core import fetch_relations as FR
+    from picles_torch.ops.advance_cuda import advance_cuda
+    from picles_torch.ops.pic import scatter_dense
+    from picles_torch.ops.pic_cuda import pic_gather, pic_gather_remesh
+    from picles_torch.ops.remesh import remesh_core
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+    from picles_torch.ops.rhs import RHSParams, make_rhs
+    from picles_torch.ops.transforms import particle_to_node
+    from picles_torch.ops.tsit5 import SolverConfig, integrate_to
+
+    nx, ny = 64, 6000
+    rng = np.random.default_rng(31)
+
+    def f(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    grid = cartesian_box(2e3 * (nx - 1), nx, 2e3 * (ny - 1), ny,
+                         periodic_boundary=(True, True), device=dev)
+    ws = FR.get_initial_windsea(torch.full((nx, ny), 10.0, device=dev),
+                                torch.full((nx, ny), 10.0, device=dev), 600.0)
+    comps = tuple(c.contiguous() for c in (
+        ws.lne + f(rng.normal(0, 0.05, (nx, ny))),
+        ws.cg_bar_x * f(rng.uniform(0.95, 1.05, (nx, ny))),
+        ws.cg_bar_y * f(rng.uniform(0.95, 1.05, (nx, ny))),
+        f(rng.uniform(-0.3, 0.3, (nx, ny))),
+        f(rng.uniform(-0.3, 0.3, (nx, ny)))))
+    active = torch.as_tensor(rng.uniform(size=(nx, ny)) < 0.9, device=dev)
+    winds = constant_winds(10.0, 10.0)
+    cfg = SolverConfig(method="bosh3", adaptive=True, dtmin=1e-4,
+                       force_dtmin=True)
+    t = torch.full_like(comps[0], 1200.0)
+    dt = f(rng.uniform(10.0, 120.0, (nx, ny)))
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    args = (winds, _consts(), TermFlags(), cfg, 600.0, comps, t, dt, active,
+            grid.x, grid.y, proj)
+    k = advance_cuda(*args)
+    _assert_bitwise(k, advance_cuda(*args, simple=True))
+    p = integrate_to(make_rhs(winds.u, winds.v, _consts(), TermFlags()),
+                     torch.stack(comps, -1), t, t + 600.0, dt,
+                     RHSParams(grid.x, grid.y, grid.proj, grid.pc), active,
+                     cfg)
+    assert torch.equal(k.failed, p.failed)
+    for i in range(5):
+        assert _share_close(k[i], p.z[..., i], 5e-3, 1e-4) >= 0.99, i
+    a = active & ~p.failed
+    assert float((k.naccept[a] == p.naccept[a]).float().mean()) >= 0.95
+
+    for halo, periodic in ((((0, 3), (0, 3)), True), (3, False)):
+        b = Boundary.PERIODIC if periodic else Boundary.NONPERIODIC
+        stats = GridStats(nx=nx, ny=ny, bx=b, by=b)
+        xr, yr, ch, act = _deposit_inputs(dev, nx, ny, halo, seed=32)
+        ch = tuple(torch.nan_to_num(c, nan=0.0, posinf=0.0) for c in ch)
+        o, _ = pic_gather(xr, yr, ch, act, stats, halo)
+        _assert_bitwise(o, pic_gather(xr, yr, ch, act, stats, halo,
+                                      simple=True)[0])
+        S, _ = scatter_dense(xr, yr, torch.stack(ch, -1), act, stats, halo)
+        for c in range(3):
+            torch.testing.assert_close(o[c], S[..., c], rtol=1e-5,
+                                       atol=1e-6 * float(S[..., c].abs().max()))
+
+    m = WaveGrowth2D(cartesian_box(2e3 * (nx - 1), nx, 2e3 * (ny - 1), ny,
+                                   device=dev),
+                     half_domain_winds(10.0, 5.0, 1e3 * (nx - 1)),
+                     ODESettings(timestep=600.0, dt=37.5, solver="bosh3"),
+                     config=WaveGrowth2DConfig(periodic_boundary=False,
+                                               dt_reset_mode="carry",
+                                               remesh_mode="pallas"))
+    low = f(np.where(rng.uniform(size=(nx, ny)) < 0.3,
+                     rng.uniform(0, 1e-4, (nx, ny)), 1.0))
+    node = tuple((c * low).contiguous() for c in particle_to_node(*comps[:3]))
+    core = (*comps, f(np.exp(rng.uniform(np.log(1e-6), np.log(3000.0),
+                                         (nx, ny)))),
+            torch.as_tensor(rng.uniform(size=(nx, ny)) < 0.8, device=dev),
+            m.active_mask.contiguous(), m.boundary_mask.contiguous(),
+            m.grid.x, m.grid.y, torch.tensor(1800.0, device=dev))
+    k5 = remesh_cuda(m.remesh_params, node, *core)
+    _assert_bitwise(k5, remesh_core(m.remesh_params, node, *core))
+    for bit in (1, 2, 4):
+        assert int(((k5.branch & bit) != 0).sum()) > 0, bit
+    chans = particle_to_node(*comps[:3])
+    sact = (core[6] & core[7]).contiguous()
+    halo = ((1, 3), (0, 2))
+    nd, rm, _ = pic_gather_remesh(comps[3], comps[4], chans, sact,
+                                  m.grid.stats, halo, m.remesh_params, *core)
+    nds, rms, _ = pic_gather_remesh(comps[3], comps[4], chans, sact,
+                                    m.grid.stats, halo, m.remesh_params,
+                                    *core, simple=True)
+    _assert_bitwise((*nd, *rm), (*nds, *rms))
+    k2, _ = pic_gather(comps[3], comps[4], chans, sact, m.grid.stats, halo)
+    _assert_bitwise((*nd, *rm),
+                    (*k2, *remesh_cuda(m.remesh_params, k2, *core)))

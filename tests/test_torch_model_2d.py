@@ -47,9 +47,10 @@ COUNTERS = ("n_active", "n_failed", "n_nan_reset", "n_inf_reset",
             "n_clamped", "substeps_max")
 
 
-def port_of(jm, winds):
+def port_of(jm, winds, **kw):
     """The port's model of a JAX model: same grid, parameters, term flags
-    and config (the grid in the config's dtype)."""
+    and config (the grid in the config's dtype); ``kw`` goes to
+    ``WaveGrowth2D`` (``minimal_state`` and the like)."""
     g = jm.grid
     cfg = convert.config_from_jax(jm.config)
     grid = convert.grid_from_numpy(
@@ -58,7 +59,8 @@ def port_of(jm, winds):
     sett, params, cid = convert.settings_from_values(jm.settings, jm.params,
                                                      jm.constants)
     tm = pt.WaveGrowth2D(grid, winds, sett, ode_params=params, constants=cid,
-                         flags=convert.flags_from_jax(jm.flags), config=cfg)
+                         flags=convert.flags_from_jax(jm.flags), config=cfg,
+                         **kw)
     return tm
 
 

@@ -67,7 +67,6 @@ import picles_torch as pt
 from picles_torch.ops import pic as tpic
 from picles_torch.ops.pic_cuda import pic_gather_padded
 from picles_torch.parallel import sharded as tsh
-from picles_torch.simulation.checkpoint import state_leaves
 
 import _torch_sharded_worker as W
 
@@ -325,7 +324,7 @@ def test_world_size_one_equals_single_device(one_rank):
     for _ in range(3):
         ms = sh.step(ms)
     single = _steps(m)
-    for a, b in zip(state_leaves(ms), state_leaves(single)):
+    for a, b in zip(ms.leaves(), single.leaves()):
         assert torch.equal(a, b)
     jref = _steps(_jmodel(halo=((0, 3), (0, 3))))
     np.testing.assert_allclose(ms.state.numpy(), np.asarray(jref.state),

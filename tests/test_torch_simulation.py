@@ -258,7 +258,7 @@ def test_checkpoints_interchange_with_jax(tmp_path):
     jpath = jck.save_checkpoint(str(tmp_path / "jax_ck"), jms)
     sim = _sim(stop_time=3600.0)
     sim.pickup(jpath)
-    for a, b in zip(tck.state_leaves(sim.state), _jax_leaves(jms)):
+    for a, b in zip(sim.state.leaves(), _jax_leaves(jms)):
         assert a.numpy().dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a.numpy(), b)
     tms = sim.model.step_n_quiet(sim.state, 2)
@@ -268,10 +268,10 @@ def test_checkpoints_interchange_with_jax(tmp_path):
 
     ppath = tck.save_checkpoint(str(tmp_path / "torch_ck"), tms)
     back = jck.load_checkpoint(ppath)
-    for a, b in zip(tck.state_leaves(tms), _jax_leaves(back)):
+    for a, b in zip(tms.leaves(), _jax_leaves(back)):
         np.testing.assert_array_equal(a.numpy(), b)
     again = tck.load_checkpoint(ppath, device="cpu")
-    for a, b in zip(tck.state_leaves(tms), tck.state_leaves(again)):
+    for a, b in zip(tms.leaves(), again.leaves()):
         assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         tck.save_checkpoint(str(tmp_path / "o"), tms, backend="orbax")
@@ -328,7 +328,7 @@ def test_fused_simulation_resumes_bitwise(tmp_path):
     c = pt.Simulation.create(model, stop_time=4 * DT)
     c.pickup(ck)
     c.run()
-    for x, y in zip(tck.state_leaves(a.state), tck.state_leaves(c.state)):
+    for x, y in zip(a.state.leaves(), c.state.leaves()):
         assert torch.equal(x, y)
     assert int(c.state.metrics.n_failed) == 0
 
