@@ -56,7 +56,22 @@ just before and read just after:
 7. the CLI's path (phase "cli"): ``python -m picles_torch``'s model and
    Simulation, built by its ``build_simulation`` at 1536^2 (tsit5, Hairer
    dt reset: K1, K2, K3) and run with a store as its ``main`` runs them,
-   a CashStore in place of the HDF5 file.
+   a CashStore in place of the HDF5 file;
+8. layers (phase "layers"): the flagship box at 1536^2 (halo 3: swell
+   travels every way) with 10 swell systems (tests/test_layers.py's seeds)
+   through ``LayeredWaveGrowth2D``
+   under the three remesh backends and the default configuration, each
+   kernel launched once a step for every layer (its second launch
+   dimension), each layer bit for bit its own single-layer model's steps,
+   the replays bit for bit the eager steps; per-layer winds (one model a
+   layer, the gridded record among them); a layered day through
+   ``Simulation.run`` resumed from a checkpoint, and a stored one; the
+   layered (1, 1) NCCL step in phase "sharded-1x1" (batched K4).  Phase
+   "layer-kernels" holds each batched kernel bit for bit against its
+   single-layer launches in every instance (winds, gridded planes,
+   projection planes, the tripolar seam, the padded deposit) at 256^2, and
+   the kernels' timing holds and times them at full width against their
+   ten single launches.
 
 ``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
 through it.  A replay launches the kernels without their wrappers, whose
@@ -264,22 +279,25 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
 SHORT_TRACES: dict = {}
 
 
-def kernel_ms(fn, key: str, reps: int, tries: int = 5) -> float:
+def kernel_ms(fn, key: str, reps: int, tries: int = 5,
+              per_call: int = 1, row: str = "") -> float:
     """Mean device time of one call of ``fn`` in the kernel named by ``key``
     (KERNEL_KEYS; a tuple names every device op of a call, whose means are
-    summed) over ``reps`` calls, from a torch.profiler trace after one
+    summed; ``per_call``: launches of each a call, summed) over ``reps``
+    calls, from a torch.profiler trace after one
     warm-up call: the kernel alone, without the wrapper's other device work
     (the deposit wrappers' clamped count) or the host's.  A trace may miss
     launches (seen on the H100: one a session once a process has run many
     profiler sessions, and now and then most of a session's): a short trace
     is taken again, up to ``tries`` times.  If every one is short, the means
     are over the launches the fullest one holds, which must hold half of
-    each op's, and it is logged and recorded in SHORT_TRACES."""
+    each op's, and it is logged and recorded in SHORT_TRACES under ``row``
+    (by default the kernel's id)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = KERNEL_KEYS[key]
     names = (names,) if isinstance(names, str) else names
-    want = reps * len(names)
+    want = reps * len(names) * per_call
     fn()
     torch.cuda.synchronize()
     best = []
@@ -298,13 +316,15 @@ def kernel_ms(fn, key: str, reps: int, tries: int = 5) -> float:
         log("kernel-time", f"{key}: the trace holds {len(ev)} of {want} "
                            f"launches")
     else:
-        SHORT_TRACES.setdefault(key.split()[0], []).append([len(best), want])
+        SHORT_TRACES.setdefault(row or key.split()[0], []).append(
+            [len(best), want])
     ms = 0.0
     for nm in names:
         us = [e.time_range.elapsed_us() for e in best if nm in e.name]
-        assert 2 * len(us) >= reps, \
-            f"{key}: {len(us)} of {reps} {nm!r} launches in the fullest trace"
-        ms += sum(us) / len(us) / 1e3
+        assert 2 * len(us) >= reps * per_call, \
+            f"{key}: {len(us)} of {reps * per_call} {nm!r} launches in the " \
+            f"fullest trace"
+        ms += sum(us) / len(us) * per_call / 1e3
     return ms
 
 
@@ -362,35 +382,41 @@ def gridded_wind_ops(B: int) -> int:
 
 
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
-             n_wf: int = 0, proj: bool = False) -> dict:
+             n_wf: int = 0, proj: bool = False, layers: int = 1) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
     a gridded wind's ``n_wf`` planes in (4 bytes each) and, with per-node
     projection planes (``proj``), 5 more (20 bytes); per live particle one
     RHS evaluation to start, then per substep tried (accepted or rejected)
     S evaluations (each with the gridded samplers) and the substep's own
-    operations."""
+    operations.  With ``layers`` the ``n`` particles are that many layers of
+    one grid, whose node x and node planes are read once a node."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    return bound((66.0 + 4.0 * n_wf + 20.0 * proj) * n, ops)
+    node = 4.0 + 4.0 * n_wf + 20.0 * proj
+    return bound((62.0 + node / layers) * n, ops)
 
 
 def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
-                  n_wf: int = 0) -> dict:
+                  n_wf: int = 0, layers: int = 1) -> dict:
     """K2/K4/K6 on this run's shapes: per source 5 float planes and the mask
     (21 bytes) and about 13 operations (clamps, floors, weights, c * m); per
     output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
     the remesh's 60 bytes a node in and out (lne, cgx, cgy, px, py, dt, the
     three masks and x in; six planes, `on` and the branch bits out) and
     about 60 operations; with a gridded wind's ``n_wf`` planes, 4 bytes
-    each in place of the node x, and the samplers' operations."""
+    each in place of the node x, and the samplers' operations.  With
+    ``layers`` the sources and outputs are that many layers of one grid,
+    whose masks and node x (or wind planes) the remesh reads once a
+    node."""
     (xl, xh), (yl, yh) = normalize_halo(halo)
     cells = (xl + xh + 1) * (yl + yh + 1)
     wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
-    nbytes = 21.0 * n_src + 12.0 * n_out + ((60.0 + wind) * n_out if remesh
-                                            else 0.0)
+    node = 6.0 + wind   # active, boundary and x (or the wind planes)
+    nbytes = 21.0 * n_src + 12.0 * n_out + (
+        (54.0 + node / layers) * n_out if remesh else 0.0)
     ops = 13.0 * n_src + 11.0 * cells * n_out + (60.0 * n_out if remesh
                                                  else 0.0)
     if remesh and n_wf:
@@ -398,30 +424,37 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     return bound(nbytes, ops)
 
 
-def remesh_bound(n: int, n_wf: int = 0) -> dict:
+def remesh_bound(n: int, n_wf: int = 0, layers: int = 1) -> dict:
     """K5: 72 bytes a node (43 in, 29 out) and about 60 operations; a
     gridded wind's ``n_wf`` planes in place of the node x, and the
-    samplers' operations."""
+    samplers' operations.  With ``layers`` the ``n`` nodes are that many
+    layers of one grid, whose masks and node x (or wind planes) are read
+    once a node."""
     wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
     ops = 60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
-    return bound((72.0 + wind) * n, ops * n)
+    node = 6.0 + wind   # active, boundary and x (or the wind planes)
+    return bound((66.0 + node / layers) * n, ops * n)
 
 
-def k3_bound(reset: torch.Tensor, wind, proj: bool = False) -> dict:
+def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
+             layers: int = 1) -> dict:
     """K3 on this run's inputs: per lane the mask (1 byte) in and dt out (4);
     per reset lane the 5 components (20 bytes), the node x where an
     analytic wind reads it, t where the wind varies in t, a gridded wind's
     4 + 3B planes (4 bytes each) and per-node projection planes (``proj``,
     20 bytes), 2 RHS evaluations (with the gridded samplers), the norms,
     h0, h1 and the clamp (about 62 operations); per lane that is not reset
-    its dt (4 bytes) and no operation."""
+    its dt (4 bytes) and no operation.  With ``layers`` the lanes are that
+    many layers of one grid, whose node x and node planes are read once a
+    node."""
     n, r = reset.numel(), int(reset.sum())
     gridded = wind.kind == WindKind.GRIDDED
     n_wf = 4 + 3 * wind.n_break if gridded else 0
-    per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.HALF_DOMAIN,
-                                            WindKind.TIME_COSINE)) \
-        + 4.0 * (wind.kind in (WindKind.TIME_COSINE, WindKind.GRIDDED)) \
+    node = 4.0 * (wind.kind in (WindKind.HALF_DOMAIN, WindKind.TIME_COSINE)) \
         + 4.0 * n_wf + 20.0 * proj
+    per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.TIME_COSINE,
+                                            WindKind.GRIDDED)) \
+        + node / layers
     rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0)
     return bound(5.0 * n + per_reset * r + 4.0 * (n - r),
                  (2 * rhs + 62.0) * r)
@@ -1698,16 +1731,16 @@ def run_day_resumed(model, tag: str, steps: int = 145, at: int = 72):
 def eager_day(model, want, steps: int):
     """The day again from the seed, ``model.step`` by step, the counters
     set to 0 just before and read just after, every counter summed over its
-    steps on the device; its last state must equal ``want`` (the day
-    ``Simulation.run`` replayed) bit for bit.  Returns (the counters summed,
-    substeps_max left out; the launches)."""
+    steps (and a layered state's layers) on the device; its last state must
+    equal ``want`` (the day ``Simulation.run`` replayed) bit for bit.
+    Returns (the counters summed, substeps_max left out; the launches)."""
     ms = model.init_state()
     names = [f.name for f in dataclasses.fields(ms.metrics)]
     total = torch.zeros(len(names), dtype=torch.int64, device=ms.state.device)
     reset_counters()
     for _ in range(steps):
         ms = model.step(ms)
-        total += torch.stack([getattr(ms.metrics, k).to(torch.int64)
+        total += torch.stack([getattr(ms.metrics, k).to(torch.int64).sum()
                               for k in names])
     launches = counters()
     assert_state_bitwise("the eager day against Simulation.run's", ms, want)
@@ -1926,7 +1959,7 @@ def assert_states(tag: str, got, want, rtol: float = 2e-3) -> float:
     return err
 
 
-def phase_sharded_1x1(dev, results, timing):
+def phase_sharded_1x1(dev, gw, results, timing):
     """This slice's main path: the flagship at FLAG_N^2 through
     ShardedWaveGrowth2D on a (1, 1) mesh, NCCL at world size 1, with the
     K5 remesh (K1 -> K4 -> self-wrap fold -> K5), counters reset just
@@ -1959,6 +1992,8 @@ def phase_sharded_1x1(dev, results, timing):
                 else:
                     ms, t = time_steps(sh, ms, 10)
                 runs[who].append(t)
+        del ms, ref
+        phase_sharded_layers(dev, gw, results, timing)
     finally:
         dist.destroy_process_group()
     ms_step, single = (float(np.median(runs[k])) for k in ("sharded", "single"))
@@ -2160,16 +2195,17 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
     return 0
 
 
-def trace_window(run, steps: int, want: dict):
+def trace_window(run, steps: int, want: dict, attempts: int = 3):
     """A ``torch.profiler`` trace of ``run()`` (``steps`` steps): device
     busy time (the union of the device ops), idle share of the traced
     window, device ops and time by name per step.  ``want`` maps
     KERNEL_KEYS names to the launches a complete trace holds; a trace
     missing any (late in a process a trace can lose device events) is
-    taken again, up to 3 times.  Returns (stats, the kernels' counts)."""
+    taken again, up to ``attempts`` times.  Returns (stats, the kernels'
+    counts)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, 4):
+    for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
@@ -2181,7 +2217,8 @@ def trace_window(run, steps: int, want: dict):
             break
         log("trace", f"trace {attempt} holds {got} of {want} launches "
                      f"({len(dev)} device ops); taken again")
-    assert got == want, f"no complete trace in 3 attempts: {got} of {want}"
+    assert got == want, \
+        f"no complete trace in {attempts} attempts: {got} of {want}"
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -3823,6 +3860,787 @@ def tripolar_kernel_times(grid, gw, prod, s_prod, default, s_def, results):
                            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# layers: several wave systems on one grid (phase "layers")
+# ---------------------------------------------------------------------------
+
+LAYERS = 10          # tests/T06_layers.jl runs layers=10
+KERNEL_LAYERS = 3    # layers of the batched kernels' checks
+# the layered configurations at FLAG_N^2 and the kernel rows each runs
+LAYER_CONFIGS = {"fused": ("K1", "K6"), "pallas": ("K1", "K2", "K5"),
+                 "xla": ("K1", "K2"), "default": ("K1", "K2", "K3")}
+LAYER_STEPS = 4
+LAYER_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+
+
+def swell_defaults(L: int) -> list:
+    """L distinct swell systems, their energies and directions spread out
+    (the seeds of tests/test_layers.py:34-43)."""
+    out = []
+    for k in range(L):
+        ang = 2 * np.pi * k / L
+        cg = 4.0 + 0.5 * k
+        out.append(W2D.ParticleDefaults2D(lne=float(np.log(0.002 * (k + 1))),
+                                          cg_x=float(cg * np.cos(ang)),
+                                          cg_y=float(cg * np.sin(ang))))
+    return out
+
+
+def layer_config_model(name: str, n: int, dev, layers: int = 1):
+    """The flagship under the remesh ``name`` ("fused", "pallas", "xla") or
+    the default configuration ("default"), ``layers`` wave systems.  The
+    halo is a symmetric 3: swell systems travel every way, and the
+    flagship's directional halo would clamp them."""
+    if name == "default":
+        return default_model(n, dev, layers=layers)
+    return flagship_model(n, dev, remesh_mode=name, layers=layers, halo=3)
+
+
+def stacked(parts) -> torch.Tensor:
+    """Per-layer planes as one contiguous ``[L, ...]`` tensor."""
+    return torch.stack(list(parts)).contiguous()
+
+
+def flat(out) -> list:
+    """A wrapper's outputs (tensors, tuples of them, named tuples) as one
+    list of tensors."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in flat(o)]
+
+
+def layered_launch(tag: str, wrapper, batched, single, L: int):
+    """``batched()`` (one launch of ``wrapper``'s kernel over L layers)
+    against ``single(k)`` for each layer k (its own launch of the same
+    kernel): every output, layer by layer, bit for bit.  Returns the
+    batched outputs."""
+    before = wrapper.launches
+    out = batched()
+    assert wrapper.launches == before + 1, \
+        f"{tag}: {wrapper.launches - before} launches for {L} layers"
+    singles = [single(k) for k in range(L)]
+    torch.cuda.synchronize()
+    got = flat(out)
+    for k, s in enumerate(singles):
+        want = flat(s)
+        assert len(got) == len(want), tag
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(bits(a[k]), bits(b)):
+                raise AssertionError(
+                    f"{tag}: output {i} of layer {k} differs from its "
+                    f"single-layer launch on "
+                    f"{int((bits(a[k]) != bits(b)).sum())} of {b.numel()}")
+    log("layer-kernels", f"{tag}: one launch for {L} layers, each layer bit "
+                         f"for bit its own launch")
+    return out
+
+
+def layer_kernel_checks(dev, n: int = 256, L: int = KERNEL_LAYERS) -> dict:
+    """Each kernel's layered launch against L single-layer launches of the
+    same kernel on n^2 grids, bit for bit, in every instance: K1 (bosh3 and
+    tsit5, adaptive) and K3 (half the lanes reset) with constant and
+    time-cosine winds, gridded winds of B = 1 and B = 3 and per-node
+    projection planes (the spherical and tripolar grids); K2 on periodic,
+    open and tripolar grids; K4 at three halos; K5 and K6 with their
+    half-domain and gridded winds under two boundary types, K6 on the
+    tripolar seam too.  The constant instances are held against their plain
+    versions over the layered inputs as the single-layer checks hold them
+    (K1 in fixed-substep mode within rtol 1e-5); returns each kernel's max
+    abs error against its plain version."""
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    flags = TermFlags()
+    t0 = 1500.0
+    clock = torch.tensor(t0, device=dev)
+    err = dict.fromkeys(LAYER_KERNELS, 0.0)
+
+    def layered_state(seed, grid=None):
+        st = [perturbed_state(n, dev, seed=seed + k, grid=grid)
+              for k in range(L)]
+        comps = tuple(stacked(s[0][i] for s in st) for i in range(5))
+        return (comps, stacked(s[1] for s in st), stacked(s[2] for s in st),
+                st[0][3])
+
+    comps, dt0, active, grid = layered_state(60)
+    proj = (float(grid.proj[0, 0, 0, 0]), 0.0, 0.0,
+            float(grid.proj[0, 0, 1, 1]), 0.0)
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    t = torch.full_like(dt0, t0)
+    reset = half_reset_mask((L, n, n), dev, seed=61)
+    instances = [("constant", constant_winds(10.0, 10.0), ()),
+                 ("time-cosine", time_cosine_winds(10.0, 5.0, 6 * 3600.0),
+                  ())]
+    for cadence in (900.0, 200.0):
+        kw, wf, _ = kernel_winds(window_record(n, dev, cadence), grid, clock)
+        instances.append((f"gridded B={kw.kernel.n_break}", kw, wf))
+    cases = [(wname, w, wf, comps, dt0, active, grid, proj)
+             for wname, w, wf in instances]
+    for kind, g in curved_grids(n, dev).items():
+        cs, dts, acts, _ = layered_state(62, grid=g)
+        cases.append((f"{kind} projection planes", constant_winds(10.0, 10.0),
+                      (), cs, dts, acts, g, node_projection(g.proj, g.pc)))
+    for wname, w, wf, cs, dts, acts, g, pj in cases:
+        tt = torch.full_like(dts, t0)
+        for method in ("bosh3", "tsit5"):
+            cfg = SolverConfig(method=method, adaptive=True, dtmin=1e-4,
+                               force_dtmin=True)
+            layered_launch(
+                f"K1 {wname} {method}", advance_cuda,
+                lambda: advance_cuda(w, consts, flags, cfg, DT, cs, tt, dts,
+                                     acts, g.x, g.y, pj, wind_fields=wf),
+                lambda k: advance_cuda(w, consts, flags, cfg, DT,
+                                       tuple(c[k] for c in cs), tt[k],
+                                       dts[k], acts[k], g.x, g.y, pj,
+                                       wind_fields=wf), L)
+        layered_launch(
+            f"K3 {wname}", auto_dt_cuda,
+            lambda: auto_dt_cuda(w, consts, flags, tt, cs, g.x, g.y, pj,
+                                 reset, dts, 1e-4, DT, wind_fields=wf),
+            lambda k: auto_dt_cuda(w, consts, flags, tt[k],
+                                   tuple(c[k] for c in cs), g.x, g.y, pj,
+                                   reset[k], dts[k], 1e-4, DT,
+                                   wind_fields=wf), L)
+
+    # the constant instances against their plain versions, layered
+    winds = constant_winds(10.0, 10.0)
+    rhs = make_rhs(winds.u, winds.v, consts, flags)
+    cfg = SolverConfig(method="tsit5", adaptive=False)
+    dtf = torch.full_like(dt0, 37.5)
+    k = advance_cuda(winds, consts, flags, cfg, DT, comps, t, dtf, active,
+                     grid.x, grid.y, proj)
+    p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT, dtf, aux,
+                     active, cfg)
+    err["K1"] = max(assert_close(f"K1 layered fixed {nm}", kz, p.z[..., i],
+                                 1e-5, 1e-6)
+                    for i, (nm, kz) in enumerate(zip(
+                        ("lne", "cgx", "cgy", "x", "y"), k[:5])))
+    assert torch.equal(k.naccept, p.naccept), "K1 layered: naccept"
+    k = auto_dt_cuda(winds, consts, flags, t, comps, grid.x, grid.y, proj,
+                     reset, dt0, 1e-4, DT)
+    p = auto_dt_reset(rhs, t, torch.stack(comps, dim=-1), aux, reset, dt0,
+                      1e-4, DT)
+    err["K3"] = assert_close("K3 layered", k, p, 1e-5, 0.0)
+
+    # the deposits
+    def layered_sources(halo, seed, nx=n, ny=n):
+        src = [seam_inputs(dev, nx, ny, halo, seed + k) for k in range(L)]
+        return (stacked(s[0] for s in src), stacked(s[1] for s in src),
+                tuple(stacked(s[2][c] for s in src) for c in range(3)),
+                stacked(s[3] for s in src))
+
+    P_, O_, T_ = Boundary.PERIODIC, Boundary.NONPERIODIC, \
+        Boundary.TRIPOLAR_NORTH
+    for bx, by, halo in ((P_, P_, ((0, 3), (0, 3))), (P_, P_, 3),
+                         (O_, O_, ((1, 2), (2, 1))),
+                         *((P_, T_, h) for h in SEAM_HALOS)):
+        stats = GridStats(nx=n, ny=n, bx=bx, by=by)
+        xr, yr, ch, act = layered_sources(halo, 70)
+        tag = f"K2 {bx.name.lower()}/{by.name.lower()} halo {halo}"
+        nodes, st = layered_launch(
+            tag, pic_gather,
+            lambda: pic_gather(xr, yr, ch, act, stats, halo),
+            lambda k: pic_gather(xr[k], yr[k], tuple(c[k] for c in ch),
+                                 act[k], stats, halo), L)
+        S, st_p = scatter_dense(xr, yr, torch.stack(ch, dim=-1), act, stats,
+                                halo)
+        for c in range(3):
+            err["K2"] = max(err["K2"], assert_close(
+                f"{tag} ch{c}", nodes[c], S[..., c], 1e-5,
+                1e-6 * float(S[..., c].abs().max())))
+        assert torch.equal(st.clamped, st_p.clamped), f"{tag}: clamped"
+    for halo in (3, ((0, 3), (0, 3)), ((1, 3), (0, 2))):
+        xr, yr, ch, act = layered_sources(halo, 80)
+
+        def k4(x, y, c, a):
+            out, st = pic_gather_padded(x, y, c, a, halo)
+            return tuple(out.unbind(0)), st
+
+        (o, st) = layered_launch(
+            f"K4 halo {halo}", pic_gather_padded, lambda: k4(xr, yr, ch, act),
+            lambda k: k4(xr[k], yr[k], tuple(c[k] for c in ch), act[k]), L)
+        P, st_p = scatter_accumulate_padded(xr, yr, torch.stack(ch, dim=-1),
+                                            act, halo)
+        for c in range(3):
+            scale = float(P[..., c].abs().max())
+            err["K4"] = max(err["K4"], assert_close(
+                f"K4 layered halo {halo} ch{c}", o[c], P[..., c], 1e-5,
+                1e-6 * scale) / scale)
+        assert torch.equal(st.clamped, st_p.clamped), f"K4 halo {halo}"
+
+    # the remesh, alone (K5) and in the deposit (K6)
+    tri = GridStats(nx=n, ny=n, bx=P_, by=T_)
+    for bt in ("wind_sea", "same"):
+        cs = [remesh_case(dev, n, bt, True, seed=90 + k) for k in range(L)]
+        m = cs[0][0]
+        node = tuple(stacked(c[1][i] for c in cs) for i in range(3))
+        lanes = tuple(stacked(c[2][i] for c in cs) for i in range(7))
+        core = (*lanes, *cs[0][2][7:-1], clock)
+        kw, wf, pw = kernel_winds(window_record(n, dev, 900.0), m.grid, clock)
+        for wname, rp, wfl in (("half-domain", m.remesh_params, ()),
+                               ("gridded B=1",
+                                m.remesh_params._replace(winds=kw), wf)):
+            def single_core(k):
+                return (*(x[k] for x in lanes), *core[7:])
+
+            tag = f"{bt} {wname}"
+            k5 = layered_launch(
+                f"K5 {tag}", remesh_cuda,
+                lambda: remesh_cuda(rp, node, *core, wind_fields=wfl),
+                lambda k: remesh_cuda(rp, tuple(x[k] for x in node),
+                                      *single_core(k), wind_fields=wfl), L)
+            plain_rp = rp if not wfl else rp._replace(winds=pw)
+            err["K5"] = max(err["K5"], assert_remesh(
+                f"K5 layered {tag}", k5, remesh_core(plain_rp, node, *core)))
+            chans = TR.particle_to_node(*lanes[:3])
+            sact = (lanes[6] & core[7]).contiguous()
+            for stats, halo in ((m.grid.stats, ((1, 3), (0, 2))),
+                                (tri, SEAM_HALOS[2])):
+                if stats is tri and wfl:
+                    continue
+                ttag = f"K6 {tag} {'tripolar ' if stats is tri else ''}" \
+                       f"halo {halo}"
+                nd, rm, st = layered_launch(
+                    ttag, pic_gather_remesh,
+                    lambda: pic_gather_remesh(lanes[3], lanes[4], chans, sact,
+                                              stats, halo, rp, *core,
+                                              wind_fields=wfl),
+                    lambda k: pic_gather_remesh(
+                        lanes[3][k], lanes[4][k],
+                        tuple(c[k] for c in chans), sact[k], stats, halo, rp,
+                        *single_core(k), wind_fields=wfl), L)
+                S, _ = scatter_dense(lanes[3], lanes[4],
+                                     torch.stack(chans, -1), sact, stats,
+                                     halo)
+                for c in range(3):
+                    err["K6"] = max(err["K6"], assert_close(
+                        f"{ttag} node ch{c}", nd[c], S[..., c], 1e-5,
+                        1e-6 * float(S[..., c].abs().max())))
+                plain = remesh_core(plain_rp, tuple(S[..., c]
+                                                    for c in range(3)), *core)
+                assert torch.equal(rm.branch, plain.branch), f"{ttag}: bits"
+    return err
+
+
+def phase_layer_kernels(dev, results):
+    """``layer_kernel_checks`` at 256^2 over KERNEL_LAYERS layers: each
+    layered kernel bit for bit its single-layer launches, in every
+    instance; the layered rows' errors against their plain versions."""
+    err = layer_kernel_checks(dev)
+    for k, e in err.items():
+        results[f"{k} layered"]["max_abs_err"] = e
+    log("layer-kernels", f"against the plain versions, layered: max abs err "
+                         f"{err}")
+
+
+def layered_kernel_times(states, results, timing):
+    """Each layered kernel on the full-width layered states of phase
+    "layers" (FLAG_N^2, LAYERS layers): bit for bit its LAYERS single-layer
+    launches, held against its plain version on the same layered inputs
+    (the rules of the single-layer rows at this width: K1 adaptive by share
+    of lanes, K3 within rtol 1e-5, the deposits' node planes within rtol
+    1e-5 of ``scatter_dense`` / ``scatter_accumulate_padded``, K5 and K6's
+    remesh by ``assert_remesh``), and timed against the single launches
+    (``kernel_ms``, the launches of one call summed), beside the plain
+    version's time and the bound of its bytes (the node-shared planes read
+    once a node) and operations.  K1 on the flagship ("xla") and the
+    default states, K2 on the flagship's deposit, K3 on the default state
+    with every lane reset, K4 (padded) and K5 on the "pallas" flagship's,
+    K6 on the fused one's."""
+    L, N = LAYERS, FLAG_N * FLAG_N
+    out = {}
+
+    def record(key, tag, batched, single, plain, b, check, ref=None,
+               reps=10, row=True):
+        wrapper = KERNEL_FNS[key]
+        got = layered_launch(f"{key} {tag} at {FLAG_N}^2", wrapper, batched,
+                             single, L)
+        err = check(f"{key} layered {tag}", got,
+                    plain() if ref is None else ref)
+        del got, ref
+        ms = kernel_ms(batched, key, reps, row=f"{key} layered")
+        singles_ms = kernel_ms(lambda: [single(k) for k in range(L)], key,
+                               reps, per_call=L, row=f"{key} layered")
+        plain_ms = cuda_time_ms(plain, 1)
+        out[f"{key} {tag}"] = dict(ms=ms, singles_ms=singles_ms,
+                                   plain_ms=plain_ms, max_abs_err=err, **b)
+        if row:
+            r = results[f"{key} layered"]
+            r.update(ms=ms, singles_ms=singles_ms, plain_ms=plain_ms, **b)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        log("kernel-time", f"{key} layered ({tag}, L = {L}): against the "
+                           f"plain version max abs err {err:.3e}; {ms:.4f} "
+                           f"ms, {L} single launches {singles_ms:.4f} ms, "
+                           f"plain {plain_ms:.4f} ms, bound "
+                           f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                           f"{b['bound_ms'] / ms:.0%} of it")
+
+    def check_k1(tag, k, p):
+        assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
+        err = max(assert_adaptive(f"{tag} {nm}", kz, p.z[..., i])
+                  for i, (nm, kz) in enumerate(zip(
+                      ("lne", "cgx", "cgy", "x", "y"), k[:5])))
+        share = float((k.naccept == p.naccept).double().mean())
+        assert share >= 0.95, f"{tag}: naccept equal on {share:.4%}"
+        log("layer-kernels", f"{tag}: naccept equal on {share:.4%} of "
+                             f"{k.naccept.numel()} lanes")
+        return err
+
+    def check_nodes(tag, nodes, S, relative=False):
+        e = 0.0
+        for c in range(3):
+            scale = float(S[..., c].abs().max())
+            e = max(e, assert_close(f"{tag} ch{c}", nodes[c], S[..., c],
+                                    1e-5, 1e-6 * scale)
+                    / (scale if relative else 1.0))
+        return e
+
+    def check_deposit(tag, got, ref, relative=False):
+        (nodes, st), (S, st_p) = got, ref
+        assert torch.equal(st.clamped, st_p.clamped), f"{tag}: clamped"
+        return check_nodes(tag, nodes, S, relative)
+
+    for name in ("xla", "default"):
+        model, ms = states[name]
+        P = ms.particles
+        adv = P.on & model.active_mask
+        comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+        g = model.grid
+        args = (model.winds, model.consts, model.flags, model.solver, DT)
+
+        def k1_plain():
+            return integrate_to(model.rhs, torch.stack(comps, dim=-1), P.t,
+                                P.t + DT, P.dt, model.aux, adv, model.solver)
+
+        p = k1_plain()
+        record("K1", "flagship state" if name == "xla" else "default state",
+               lambda: advance_cuda(*args, comps, P.t, P.dt, adv, g.x, g.y,
+                                    model.uniform_proj),
+               lambda k: advance_cuda(*args, tuple(c[k] for c in comps),
+                                      P.t[k], P.dt[k], adv[k], g.x, g.y,
+                                      model.uniform_proj),
+               k1_plain,
+               k1_bound(L * N, model.solver.method, True, adv,
+                        p.naccept + p.nreject, layers=L),
+               check_k1, ref=p, reps=10 if name == "xla" else 3,
+               row=name == "xla")
+        del p
+        if name == "default":
+            every = torch.ones_like(adv)
+            args3 = (model.winds, model.consts, model.flags)
+            tols = dict(abstol=model.settings.abstol,
+                        reltol=model.settings.reltol, order=5.0)
+            record("K3", "every lane reset",
+                   lambda: auto_dt_cuda(*args3, P.t, comps, g.x, g.y,
+                                        model.uniform_proj, every, P.dt,
+                                        1e-4, DT, **tols),
+                   lambda k: auto_dt_cuda(*args3, P.t[k],
+                                          tuple(c[k] for c in comps), g.x,
+                                          g.y, model.uniform_proj, every[k],
+                                          P.dt[k], 1e-4, DT, **tols),
+                   lambda: auto_dt_reset(model.rhs, P.t,
+                                         torch.stack(comps, dim=-1),
+                                         model.aux, every, P.dt, 1e-4, DT,
+                                         **tols),
+                   k3_bound(every, kernel_wind(model.winds), layers=L),
+                   lambda tag, k, p: assert_close(tag, k, p, 1e-5, 0.0))
+    for name, key in (("xla", "K2"), ("pallas", "K4"), ("pallas", "K5"),
+                      ("fused", "K6")):
+        model, ms = states[name]
+        core, chans, sact = flagship_deposit_inputs(model, ms)
+        g, halo, rp = model.grid, model.config.halo, model.remesh_params
+        xr, yr = core[3], core[4]
+
+        def single_core(k):
+            return (*(x[k] for x in core[:7]), *core[7:])
+
+        def one(k):
+            return xr[k], yr[k], tuple(c[k] for c in chans), sact[k]
+
+        dense = torch.stack(chans, dim=-1)
+        if key == "K2":
+            record("K2", "flagship deposit",
+                   lambda: pic_gather(xr, yr, chans, sact, g.stats, halo),
+                   lambda k: pic_gather(*one(k), g.stats, halo),
+                   lambda: scatter_dense(xr, yr, dense, sact, g.stats, halo),
+                   deposit_bound(L * N, L * N, halo, layers=L),
+                   check_deposit)
+        elif key == "K4":
+            (xl, xh), (yl, yh) = normalize_halo(halo)
+
+            def k4(*a):
+                o, st = pic_gather_padded(*a, halo)
+                return tuple(o.unbind(0)), st
+
+            record("K4", "flagship deposit", lambda: k4(xr, yr, chans, sact),
+                   lambda k: k4(*one(k)),
+                   lambda: scatter_accumulate_padded(xr, yr, dense, sact,
+                                                     halo),
+                   deposit_bound(L * N, L * (FLAG_N + xl + xh)
+                                 * (FLAG_N + yl + yh), halo, layers=L),
+                   lambda tag, got, ref: check_deposit(tag, got, ref, True))
+        elif key == "K5":
+            node, _ = pic_gather(xr, yr, chans, sact, g.stats, halo)
+            record("K5", "flagship deposit",
+                   lambda: remesh_cuda(rp, node, *core),
+                   lambda k: remesh_cuda(rp, tuple(x[k] for x in node),
+                                         *single_core(k)),
+                   lambda: remesh_core(rp, node, *core),
+                   remesh_bound(L * N, layers=L), assert_remesh)
+        else:
+            def plain_fused():
+                S, _ = scatter_dense(xr, yr, dense, sact, g.stats, halo)
+                return S, remesh_core(rp, tuple(S[..., c] for c in range(3)),
+                                      *core)
+
+            def check_k6(tag, got, ref):
+                (nodes, rm, _), (S, plain) = got, ref
+                e = check_nodes(f"{tag} node", nodes, S)
+                # the remesh half on the kernel's own node sums; on the
+                # plain ones the branches
+                assert torch.equal(rm.branch, plain.branch), \
+                    f"{tag}: branch differs from the plain version's"
+                return max(e, assert_remesh(f"{tag} remesh", rm,
+                                            remesh_core(rp, nodes, *core)))
+
+            record("K6", "flagship", lambda: pic_gather_remesh(
+                xr, yr, chans, sact, g.stats, halo, rp, *core),
+                lambda k: pic_gather_remesh(*one(k), g.stats, halo, rp,
+                                            *single_core(k)),
+                plain_fused,
+                deposit_bound(L * N, L * N, halo, remesh=True, layers=L),
+                check_k6)
+    timing["layered_kernels"] = out
+
+
+def phase_layers(dev, gw, results, timing):
+    """This slice's main path, layered: the flagship box at FLAG_N^2 (halo
+    3, ``layer_config_model``) with LAYERS swell systems
+    (``swell_defaults``) through
+    ``LayeredWaveGrowth2D``, under each remesh backend and the default
+    configuration (LAYER_CONFIGS).  Per configuration: each layer's seed
+    bit for bit the single-layer model's ``init_state(defaults=d_k)``;
+    LAYER_STEPS eager layered steps with the counters set to 0 just before
+    and read just after (each kernel of the configuration launched once a
+    step, not once a layer); each layer bit for bit LAYER_STEPS steps of
+    the single-layer model; ``step_n_quiet`` over 1 and LAYER_STEPS steps
+    (a replayed CUDA graph) bit for bit the eager steps; a trace of 5 bare
+    replays counting each kernel once a replay; then ms/step graphed and
+    eager at LAYERS layers against the single-layer model's, in turns
+    (CUDA events), host enqueue, device ops, eager peak memory and the
+    capture's memory.  Then per-layer winds (3 layers: constant (10, 10),
+    constant (-8, 4) and the gridded record), each layer bit for bit its
+    own model's steps, replays too; a layered day (the fused flagship, 4
+    layers, 145 steps through Simulation.run, resumed from a step-72
+    checkpoint bit for bit, counted by a trace, and eagerly); a 256^2 day
+    of LAYERS layers with a CashStore whose [time, layer, x, y, state]
+    frames are the eager steps bit for bit.  Returns the layered states
+    the kernel timings use."""
+    n, L = FLAG_N, LAYERS
+    d = swell_defaults(L)
+    out, states = {}, {}
+    for name, rows in LAYER_CONFIGS.items():
+        lay = layer_config_model(name, n, dev, L).as_layered(d)
+        one = layer_config_model(name, n, dev)
+        assert isinstance(lay, W2D.LayeredWaveGrowth2D) and lay.graphed, name
+        ms0 = lay.init_state()
+        for k in range(L):
+            assert_state_bitwise(f"layers {name}: layer {k}'s seed",
+                                 W2D.layer_of(ms0, k),
+                                 one.init_state(defaults=d[k]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        reset_counters()
+        eager = [ms0]
+        for _ in range(LAYER_STEPS):
+            eager.append(lay.step(eager[-1]))
+        c = counters()
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - m0
+        want = {k: LAYER_STEPS if k in rows else 0 for k in KERNEL_FNS}
+        assert c == want, f"layers {name}: launches {c}, want {want}"
+        for k in rows:
+            results[f"{k} layered"]["launches"] += c[k]
+        last = eager[-1]
+        assert bool(torch.isfinite(last.state).all()), name
+        assert last.metrics.n_failed.tolist() == [0] * L, name
+        assert last.metrics.n_clamped.tolist() == [0] * L, name
+        for k in range(L):
+            s = one.init_state(defaults=d[k])
+            for _ in range(LAYER_STEPS):
+                s = one.step(s)
+            assert_state_bitwise(f"layers {name}: layer {k} against "
+                                 f"{LAYER_STEPS} single-layer steps",
+                                 W2D.layer_of(last, k), s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        g = lay._capture(ms0)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() - m0
+        pool = torch.cuda.memory_reserved() - r0
+        for steps in (1, LAYER_STEPS):
+            assert_state_bitwise(f"layers {name}: step_n_quiet({steps})",
+                                 lay.step_n_quiet(ms0, steps), eager[steps])
+        assert lay._graph is g, f"layers {name}: captured more than once"
+
+        def replays():
+            for _ in range(5):
+                g.graph.replay()
+
+        stats, got = trace_window(replays, 5,
+                                  {KERNEL_KEYS[k]: 5 for k in rows}, 6)
+        for k in rows:
+            results[f"{k} layered"]["graph_launches"] = \
+                results[f"{k} layered"].get("graph_launches", 0) \
+                + got[KERNEL_KEYS[k]]
+        del eager
+        # the eager layered step's trace (busy time, idle share)
+        eager_stats, _ = trace_window(lambda: eager_steps(lay, last, 5), 5,
+                                      {KERNEL_KEYS[k]: 5 for k in rows}, 6)
+        turns = {w: [] for w in ("layered graphed", "layered eager",
+                                 "single graphed", "single eager")}
+        # the single-layer model captured before the turns, as the layered
+        # one is
+        st = {"layered": last,
+              "single": one.step_n_quiet(one.init_state(), 1)}
+        for rep in range(TURNS[0]):
+            for who in (list(turns) if rep % 2 == 0 else
+                        list(reversed(turns))):
+                kind, mode = who.split()
+                model = lay if kind == "layered" else one
+                st[kind], t = time_steps(model, st[kind], TURNS[1],
+                                         eager=mode == "eager")
+                turns[who].append(t)
+        med = {w: float(np.median(v)) for w, v in turns.items()}
+        enq = {mode: host_enqueue_ms(lambda: drive(lay, st["layered"],
+                                                   TURNS[1], mode == "eager"),
+                                     TURNS[1])[0]
+               for mode in ("eager", "graphed")}
+        ops, _ = device_ops_per_step(lay, st["layered"], 3)
+        ops1, _ = device_ops_per_step(one, st["single"], 3)
+        out[name] = dict(
+            ms_per_step=turns, median=med, host_enqueue_ms_per_step=enq,
+            pushes_per_s={w: (L if w.startswith("layered") else 1) * n * n
+                          / (v / 1e3) for w, v in med.items()},
+            eager_device_ops_per_step=ops, single_eager_device_ops=ops1,
+            capture_s=capture_s, capture_held_bytes=held,
+            capture_reserved_bytes=pool, eager_peak_bytes=eager_peak,
+            replay_trace=stats, eager_trace=eager_stats)
+        log("layers", f"{name}: {L} layers, seeds and {LAYER_STEPS} eager "
+                      f"steps each layer bit for bit its single-layer "
+                      f"model's; launches {c} (once a step); replays "
+                      f"(step_n_quiet 1/{LAYER_STEPS}) bitwise equal to the "
+                      f"eager steps; trace of 5 replays: {got}, "
+                      f"{stats['device_ops_per_step']:.1f} device ops a "
+                      f"replay, busy {stats['device_busy_ms_per_step']:.4f} "
+                      f"ms, idle share {stats['idle_share']:.4f}; eager "
+                      f"trace busy "
+                      f"{eager_stats['device_busy_ms_per_step']:.4f} ms a "
+                      f"step, idle share {eager_stats['idle_share']:.4f}")
+        log("layers", f"{name}: ms/step median (7 x 10 in turns): "
+                      + ", ".join(f"{w} {v:.4f}" for w, v in med.items())
+                      + f"; pushes/s layered graphed "
+                      f"{out[name]['pushes_per_s']['layered graphed']:.4e}, "
+                      f"single graphed "
+                      f"{out[name]['pushes_per_s']['single graphed']:.4e}; "
+                      f"host enqueue a layered step eager {enq['eager']:.4f} "
+                      f"graphed {enq['graphed']:.4f} ms; eager device ops a "
+                      f"step {ops:.1f} layered, {ops1:.1f} single; eager "
+                      f"peak {eager_peak / 2**20:.1f} MiB; capture "
+                      f"{capture_s:.3f} s, holds {held / 2**20:.1f} MiB, "
+                      f"reserved {pool / 2**20:.1f} MiB more")
+        lay.release_graph()
+        one.release_graph()
+        states[name] = (lay.model, st["layered"])
+        del g, st, lay, one, ms0
+        torch.cuda.empty_cache()
+
+    # per-layer winds: one model a layer
+    winds = [constant_winds(10.0, 10.0), constant_winds(-8.0, 4.0), gw]
+    base = flagship_model(n, dev, halo=3, remesh_mode="fused", layers=3)
+    lay = base.as_layered(per_layer_winds=winds)
+    assert lay.graphed
+    ms0 = lay.init_state()
+    reset_counters()
+    eager = [ms0]
+    for _ in range(LAYER_STEPS):
+        eager.append(lay.step(eager[-1]))
+    c = counters()
+    assert c["K1"] == c["K6"] == 3 * LAYER_STEPS, c
+    for k, w in enumerate(winds):
+        m = flagship_model(n, dev, halo=3, remesh_mode="fused", winds=w)
+        s = m.init_state()
+        for _ in range(LAYER_STEPS):
+            s = m.step(s)
+        assert_state_bitwise(f"per-layer winds: layer {k}",
+                             W2D.layer_of(eager[-1], k), s)
+    assert_state_bitwise("per-layer winds: replays",
+                         lay.step_n_quiet(ms0, LAYER_STEPS), eager[-1])
+    e = eager[-1].state[..., 0]
+    assert not torch.equal(e[0], e[1]) and not torch.equal(e[1], e[2])
+    log("layers", f"per-layer winds (3 layers: constant (10, 10), constant "
+                  f"(-8, 4), the gridded record): {LAYER_STEPS} eager steps, "
+                  f"launches {c} (once a layer a step); each layer bit for "
+                  f"bit its own model's steps; replays bitwise equal")
+    lay.release_graph()
+    del lay, eager, ms0
+    torch.cuda.empty_cache()
+
+    # a layered day through Simulation.run, resumed from a checkpoint
+    lay4 = layer_config_model("fused", n, dev, 4).as_layered(
+        swell_defaults(4))
+    r = run_day_resumed(lay4, "layered day (4 layers)")
+    full = r["full"]
+    assert full.state.metrics.n_failed.tolist() == [0] * 4
+    c, e = r["launches"], r["eager_launches"]
+    assert c == {"K1": 145, "K2": 0, "K3": 0, "K5": 0, "K6": 145}, c
+    # the eager day is the witness of the replays, its launches not the
+    # path's: they must equal the trace's
+    assert {k: e[k] for k in c} == c and e["K4"] == 0, e
+    for k in ("K1", "K6"):
+        results[f"{k} layered"]["launches"] += c[k]
+    out["day_4_layers"] = dict(wall_s=r["wall"], peak_bytes=r["peak"],
+                               checkpoint_bytes=r["size"],
+                               trace=r["trace"], counters=r["day"])
+    log("layers", f"layered day, 4 layers at {n}^2 (fused): 145 steps in "
+                  f"{r['wall']:.3f} s through Simulation.run (graphed), "
+                  f"{4 * n * n * 145 / r['wall']:.4e} pushes/s; resumed "
+                  f"from step 72 ({r['size'] / 2**20:.1f} MiB) bit for bit; "
+                  f"launches by trace {r['launches']}; the day again "
+                  f"eagerly, bitwise equal, launches {r['eager_launches']}; "
+                  f"counters summed {r['day']}")
+    lay4.release_graph()
+    del lay4, r, full
+    torch.cuda.empty_cache()
+
+    small = 256
+    lay = layer_config_model("fused", small, dev, L).as_layered(d)
+    stored = Simulation.create(lay, stop_time=DAY)
+    t0 = time.perf_counter()
+    stored.run(cash_store=True)
+    t_stored = time.perf_counter() - t0
+    frames = stored.store.as_array()
+    assert frames.shape == (146, L, small, small, 3), frames.shape
+    ms = lay.init_state()
+    assert np.array_equal(frames[0], ms.state.cpu().numpy())
+    for i in range(1, 146):
+        ms = lay.step(ms)
+        assert np.array_equal(frames[i], ms.state.cpu().numpy()), \
+            f"stored layered day: frame {i} differs from the eager step"
+    out["stored_256_layers_wall_s"] = t_stored
+    log("layers", f"{small}^2, {L} layers, 1 day with a CashStore: "
+                  f"{frames.shape} frames ([time, layer, x, y, state]) in "
+                  f"{t_stored:.3f} s, each bit for bit the eager step's")
+    lay.release_graph()
+    timing["layers"] = out
+    return states
+
+
+def phase_sharded_layers(dev, gw, results, timing) -> None:
+    """Inside phase "sharded-1x1"'s process group (one NCCL rank): the
+    "pallas" flagship at FLAG_N^2 with 4 swell layers through
+    ``ShardedWaveGrowth2D`` (K1, the layered K4, the self-wrap fold, K5,
+    each launched once a step) for 3 steps, with the flagship's halo
+    ((0,3),(0,3)) and with halo 3: every layer bit for bit the same layer
+    through the sharded single-layer model (the layered K4 and exchange),
+    and against the single-device layered step at ``assert_states``'
+    bound; then the gridded "pallas" configuration (halo 3) through the
+    same (1, 1) mesh against the single-device step alike.  Whether each
+    equals the single-device step bit for bit is logged and recorded: K4
+    and the fold add a wrapped node's own-block and wrapped terms apart,
+    where K2 adds them per dy, so with sources wrapping in from both sides
+    the sums can part by an ulp.  The witness of that cause: the gridded
+    and the layered configurations with the plain deposit on both sides
+    (one sum order), where the sharded step is the single-device step bit
+    for bit."""
+    n, L = FLAG_N, 4
+    d = swell_defaults(L)
+    out = {}
+    for tag, halo in (("flagship halo", ((0, 3), (0, 3))), ("halo 3", 3)):
+        model = flagship_model(n, dev, remesh_mode="pallas", layers=L,
+                               halo=halo)
+        one = flagship_model(n, dev, remesh_mode="pallas", halo=halo)
+        ms0 = model.init_state_layers(d)
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        sh1 = ShardedWaveGrowth2D(one, make_mesh((1, 1)))
+        assert sh.layers == L
+        reset_counters()
+        ms = sh.shard_state(ms0)
+        for _ in range(3):
+            ms = sh.step(ms)
+        c = counters()
+        assert c["K1"] == c["K4"] == c["K5"] == 3 and c["K2"] == 0, c
+        results["K4 layered"]["launches"] += c["K4"]
+        for k in range(L):
+            s = sh1.shard_state(one.init_state(defaults=d[k]))
+            for _ in range(3):
+                s = sh1.step(s)
+            assert_state_bitwise(f"sharded layers, {tag}: layer {k} against "
+                                 f"the single-layer sharded steps",
+                                 W2D.layer_of(ms, k), s)
+        ref = ms0
+        for _ in range(3):
+            ref = model.step_layers(ref)
+        err = assert_states(f"sharded layers, {tag}, vs single device", ms,
+                            ref)
+        same = all(torch.equal(bits(a), bits(b)) for a, b in
+                   zip(ms.leaves(), ref.leaves()))
+        out[tag] = dict(max_abs_err=err, bitwise=same,
+                        n_clamped=ms.metrics.n_clamped.tolist())
+        log("sharded-1x1", f"{L} layers at {n}^2, {tag}: launches {c} (once "
+                           f"a step); each layer bit for bit its single-layer "
+                           f"sharded steps; against the single-device "
+                           f"layered step max abs err {err:.3e}, bit for "
+                           f"bit: {same}; n_clamped {out[tag]['n_clamped']}")
+        del model, one, ms0, sh, sh1, ms, ref
+    gm = gridded_model(n, dev, gw, "pallas")
+    shg = ShardedWaveGrowth2D(gm, make_mesh((1, 1)))
+    a, b = shg.init_state(), gm.init_state()
+    for _ in range(3):
+        a, b = shg.step(a), gm.step(b)
+    err = assert_states("sharded gridded vs single device", a, b)
+    same = all(torch.equal(bits(x), bits(y)) for x, y in
+               zip(a.leaves(), b.leaves()))
+    check_state("sharded gridded", a, n_failed=0)
+    out["gridded"] = dict(max_abs_err=err, bitwise=same)
+    log("sharded-1x1", f"gridded pallas at {n}^2 (halo 3), 3 steps: against "
+                       f"the single-device step max abs err {err:.3e}, bit "
+                       f"for bit: {same}")
+    del gm, shg, a, b
+    # the witness of the cause: with the plain deposit on both sides
+    # (scatter_mode="dense": the padded accumulate, then the x and y folds,
+    # in one order) the sharded step is the single-device step bit for bit,
+    # so the block-local planes (the gridded winds' too) are right and the
+    # deposit's sum order is all that parts the kernel runs
+    for tag, m in (("gridded", flagship_model(n, dev, halo=3, winds=gw,
+                                              remesh_mode="pallas",
+                                              scatter_mode="dense")),
+                   (f"{L} layers", flagship_model(n, dev, halo=3, layers=L,
+                                                  remesh_mode="pallas",
+                                                  scatter_mode="dense"))):
+        sh = ShardedWaveGrowth2D(m, make_mesh((1, 1)))
+        b = m.init_state_layers(d) if m.config.layers > 1 else m.init_state()
+        a = sh.shard_state(b)
+        reset_counters()
+        for _ in range(3):
+            a, b = sh.step(a), m.step(b)
+        c = counters()
+        assert c["K1"] == 6 and c["K5"] == 6 and c["K2"] == c["K4"] == 0, c
+        assert_state_bitwise(f"sharded {tag}, plain deposit, against the "
+                             f"single-device step", a, b)
+        log("sharded-1x1", f"{tag} pallas at {n}^2 (halo 3), the plain "
+                           f"deposit on both sides (scatter_mode=\"dense\"), "
+                           f"3 steps: the sharded step bit for bit the "
+                           f"single-device step; launches {c}")
+        out[f"{tag} plain deposit"] = dict(bitwise=True)
+        del m, sh, a, b
+    timing["sharded_1x1_layers"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -3885,6 +4703,11 @@ def main(argv=None) -> int:
         k, kind = key.split()
         results[key] = dict(results[k], name=f"{results[k]['name']}_{kind}",
                             replaces=rep, simple_ms=None)
+    # the layered launches: the same kernels over a layer dimension
+    for k in LAYER_KERNELS:
+        results[f"{k} layered"] = dict(
+            results[k], name=results[k]["name"] + "_layered", simple_ms=None,
+            launches=0)
     timing = {}
     phase_k1(dev, results)
     phase_k3(dev, results)
@@ -3894,12 +4717,14 @@ def main(argv=None) -> int:
     phase_proj(dev, results)
     phase_seam(dev, results)
     phase_wide_grid(dev, results)
+    phase_layer_kernels(dev, results)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
     phase_k3_times(default, s_def, results)
     gw = gridded_record(dev)
     # right after its capture, each graph's trace: late in a process a
     # trace can miss launches
     phase_graphs(dev, gw, results, timing)
+    layered = phase_layers(dev, gw, results, timing)
     if args.profile:
         # before the kernels' in-turns timing: a call that had run a few
         # dozen profiler sessions lost one K1 launch from every step trace
@@ -3922,17 +4747,20 @@ def main(argv=None) -> int:
     del gridded
     tripolar_kernel_times(*tripolar, results)
     del tripolar
+    layered_kernel_times(layered, results, timing)
+    del layered
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
-    phase_sharded_1x1(dev, results, timing)
+    phase_sharded_1x1(dev, gw, results, timing)
     phase_sharded_2x2(timing)
 
     kernels = [dict(results[k], library_ms=None,
                     short_traces=SHORT_TRACES.get(k, []))
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 gridded",
                          "K3 gridded", "K5 gridded", "K6 gridded",
-                         *PROJ_REPLACES)]
-    assert len(kernels) == 14
+                         *PROJ_REPLACES,
+                         *(f"{k} layered" for k in LAYER_KERNELS))]
+    assert len(kernels) == 20
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

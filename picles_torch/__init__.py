@@ -3,8 +3,9 @@ Hopper kernels (advance, auto-dt, CIC gather, remesh, and the gather with
 the remesh fused) and plain PyTorch versions of each, driven by
 ``Simulation`` with stores and checkpoints, on Cartesian, spherical and
 tripolar (MOM6) grids, forced by analytic winds or a gridded (NetCDF) wind
-record.  The JAX package ``picles_tpu``
-is the reference it is tested against; this package imports no JAX."""
+record, with one wave system or several layered on one grid.  The JAX
+package ``picles_tpu`` is the reference it is tested against; this package
+imports no JAX."""
 
 from .convert import (config_from_jax, flags_from_jax, grid_from_numpy,
                       gridded_from_jax, settings_from_values,
@@ -20,8 +21,8 @@ from .grids.spherical import spherical_grid_2d
 from .grids.tripolar import (load_mom6_grid, mom6_grid_from_supergrid,
                              synthetic_tripolar_grid)
 from .models.state import ModelState2D, Particles2D, StepMetrics
-from .models.wave_growth_2d import (ParticleDefaults2D, WaveGrowth2D,
-                                    WaveGrowth2DConfig)
+from .models.wave_growth_2d import (LayeredWaveGrowth2D, ParticleDefaults2D,
+                                    WaveGrowth2D, WaveGrowth2DConfig)
 from .ops.advance_cuda import advance_cuda, auto_dt_cuda
 from .ops.pic_cuda import pic_gather, pic_gather_remesh
 from .ops.remesh import RemeshParams, RemeshResult, remesh_core
@@ -35,7 +36,8 @@ from .simulation.store import (CashStore, EmptyStore, StateStore,
 
 __all__ = [
     "Boundary", "CashStore", "EmptyStore", "Grid2D", "GridStats",
-    "GriddedWinds2D", "IDConstants", "ModelState2D", "ODEParameters",
+    "GriddedWinds2D", "IDConstants", "LayeredWaveGrowth2D", "ModelState2D",
+    "ODEParameters",
     "ODESettings",
     "ParticleDefaults2D", "Particles2D", "RemeshParams", "RemeshResult",
     "Simulation", "SolverConfig", "StateStore", "StepMetrics", "TermFlags",

@@ -11,7 +11,7 @@ and step them side by side.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,27 +57,37 @@ def grid_from_numpy(arrays: Mapping[str, np.ndarray], stats, *, device,
 
 def state_from_numpy(state: np.ndarray, particles: Mapping[str, np.ndarray],
                      time, iteration, *, device,
-                     dtype: torch.dtype = torch.float32) -> ModelState2D:
+                     dtype: torch.dtype = torch.float32,
+                     metrics: Optional[Mapping[str, Any]] = None
+                     ) -> ModelState2D:
     """A ``ModelState2D`` from the JAX state's leaves as numpy arrays:
-    ``state [nx, ny, 3]``, the particle planes (``PARTICLE_FIELDS``), the
-    clock and the iteration, the floats as ``dtype`` (the model's).
-    Counters start at zero."""
+    ``state [nx, ny, 3]`` (``[L, nx, ny, 3]`` layered), the particle planes
+    (``PARTICLE_FIELDS``, ``[L, nx, ny]`` layered), the clock and the
+    iteration, the floats as ``dtype`` (the model's).  ``metrics``: the
+    counters by name (ints, or ``[L]`` sequences layered, as
+    ``state_to_numpy`` gives them); they start at zero without it."""
     def t(a, dt):
         return torch.as_tensor(np.array(a), device=device).to(dt)
 
     parts = {k: t(particles[k], torch.bool if k == "on" else dtype)
              for k in PARTICLE_FIELDS}
+    layers = state.shape[0] if np.ndim(state) == 4 else None
+    if metrics is None:
+        counters = StepMetrics.zeros(device, layers)
+    else:
+        counters = StepMetrics(**{f.name: t(metrics[f.name], torch.int32)
+                                  for f in dataclasses.fields(StepMetrics)})
     return ModelState2D(state=t(state, dtype),
                         particles=Particles2D(**parts),
                         time=t(time, dtype),
                         iteration=t(iteration, torch.int32),
-                        metrics=StepMetrics.zeros(device))
+                        metrics=counters)
 
 
 def state_to_numpy(ms: ModelState2D) -> dict:
     """The reverse of ``state_from_numpy``: a dict of numpy arrays with keys
     ``state``, ``time``, ``iteration``, the particle planes, and
-    ``metrics`` (a dict of ints)."""
+    ``metrics`` (a dict of ints, of ``[L]`` lists for a layered state)."""
     out = {k: getattr(ms.particles, k).cpu().numpy() for k in PARTICLE_FIELDS}
     out.update(state=ms.state.cpu().numpy(), time=ms.time.cpu().numpy(),
                iteration=ms.iteration.cpu().numpy(),

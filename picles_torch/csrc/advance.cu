@@ -47,6 +47,12 @@
 //   once, at its home node as the TPU kernel does, into its copy of the RHS
 //   constants (`load_projection`), so no template instance is added.  The
 //   planes add 20 bytes a particle, read once;
+// - layers (several wave systems on one grid) are the launch's second grid
+//   dimension: blockIdx.y is the layer, and a lane's own planes are read and
+//   written at layer * n + node, while the planes every layer shares (the
+//   node x, the projection planes, the gridded wind planes) are read at the
+//   node.  So a layered step launches once, each layer's lanes run the
+//   single-layer arithmetic, and nothing shared is copied per layer;
 // - launch bounds from ptxas's registers: 6 blocks of 128 threads an SM, 5
 //   for adaptive tsit5, with no spills; the gridded tsit5 instances, whose
 //   lane holds its plane values too, one block less.
@@ -181,21 +187,23 @@ __device__ __forceinline__ WindTerms lane_terms(const AdvanceConfig& cfg,
   return GRIDDED ? gridded_terms(L.g, t) : wind_terms_at(cfg.wind, L.xn, t);
 }
 
-// Load particle i (of n), its node's projection where the launch has
-// per-node planes, and evaluate its first stage (the FSAL vector).
+// Load lane k, the particle of node i (of n) in its layer, its node's
+// projection where the launch has per-node planes, and evaluate its first
+// stage (the FSAL vector).
 template <int S, bool GRIDDED>
 __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
                                           RHSParams& rc,
                                           const AdvancePlanes& P, long long n,
-                                          long long i, Lane<S>& L) {
-  L.z[0] = P.lne[i]; L.z[1] = P.cgx[i]; L.z[2] = P.cgy[i];
-  L.z[3] = P.x[i]; L.z[4] = P.y[i];
-  const float t0 = P.t[i];
-  L.active = P.act[i] != 0;
+                                          long long i, long long k,
+                                          Lane<S>& L) {
+  L.z[0] = P.lne[k]; L.z[1] = P.cgx[k]; L.z[2] = P.cgy[k];
+  L.z[3] = P.x[k]; L.z[4] = P.y[k];
+  const float t0 = P.t[k];
+  L.active = P.act[k] != 0;
   L.xn = GRIDDED ? 0.0f : P.xn[i];
   L.t_end = t0 + cfg.DT;
   L.t = t0;
-  L.dt = jmax(P.dt[i], cfg.dtmin);
+  L.dt = jmax(P.dt[k], cfg.dtmin);
   L.done = !L.active || t0 >= L.t_end;
   L.failed = false;
   L.nacc = 0;
@@ -307,20 +315,21 @@ __device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
   P.nacc_o[i] = L.nacc;
 }
 
-// K1: one particle per thread.
+// K1: one particle per thread; node i of layer blockIdx.y.
 template <class M, bool ADAPTIVE, bool GRIDDED>
 __global__ void __launch_bounds__(K1_THREADS,
                                   (K1_MIN_BLOCKS<M, ADAPTIVE, GRIDDED>))
 advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long k = (long long)blockIdx.y * n + i;
   const bool t_free = !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
   RHSParams rc = cfg.rc;
   Lane<M::S> L;
-  load_lane<M::S, GRIDDED>(cfg, rc, P, n, i, L);
+  load_lane<M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
   while (!L.done && L.iters < cfg.maxiters)
     substep<M, ADAPTIVE, GRIDDED>(cfg, rc, t_free, L);
-  store_lane(P, i, L);
+  store_lane(P, k, L);
 }
 
 // The baseline (`_simple`): the previous kernel, one particle per thread,
@@ -478,18 +487,20 @@ constexpr int K3_THREADS = 128;
 template <int KIND>
 constexpr int K3_MIN_BLOCKS = KIND == WIND_GRIDDED ? 8 : 10;
 
-// Hairer's estimate of lane i: the `_simple` kernel's arithmetic, operation
+// Hairer's estimate of lane k: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
 // is not loaded (t for winds constant in t, the node x for constant and
 // gridded winds), and the wind's terms of a wind constant in t are formed
 // once and serve both RHS evaluations; with the flags compiled in, each
 // term's test folds.  A gridded lane loads its plane values once and forms
-// the terms at both times from them.  A launch with per-node projection
-// planes reads lane i's (of n) once.
+// the terms at both times from them.  Lane k is the particle of node i (of
+// n) in its layer: its own planes are read at k, the node x and the
+// per-node projection and wind planes at i, once.
 template <int KIND, int FLAGS>
 __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
                                                  const AutoDtPlanes& P,
-                                                 long long n, long long i) {
+                                                 long long n, long long i,
+                                                 long long k) {
   RHSParams rc = cfg.rc;
   WindParams wp = cfg.wind;
   if (FLAGS != RUNTIME) rc.flags = FLAGS;
@@ -498,8 +509,8 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
   const bool gridded = KIND == WIND_GRIDDED;
   const bool t_free = wp.kind != WIND_TIME_COSINE && !gridded;
   const float tiny = 1e-10f;
-  const float z[5] = {P.lne[i], P.cgx[i], P.cgy[i], P.x[i], P.y[i]};
-  const float t = t_free ? 0.0f : P.t[i];
+  const float z[5] = {P.lne[k], P.cgx[k], P.cgy[k], P.x[k], P.y[k]};
+  const float t = t_free ? 0.0f : P.t[k];
   const float xn =
       wp.kind == WIND_CONSTANT || gridded ? 0.0f : P.xn[i];
   GriddedWind g;
@@ -537,20 +548,21 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
 //   out = reset ? clamp(estimate, dtmin, DT) : dt.
 // A lane that is not reset only copies its dt.  The clamp is torch.clamp's
 // on the card (ATen's clamp_scalar kernel): a NaN passes with its own bits,
-// anything else is min(max(v, dtmin), DT).
+// anything else is min(max(v, dtmin), DT).  Node i of layer blockIdx.y.
 template <int KIND, int FLAGS>
 __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS<KIND>)
 auto_dt_kernel(const AutoDtConfig cfg, long long n, const AutoDtPlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long k = (long long)blockIdx.y * n + i;
   float dt;
-  if (P.reset[i]) {
-    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, n, i);
+  if (P.reset[k]) {
+    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, n, i, k);
     dt = est != est ? est : fminf(fmaxf(est, cfg.dtmin), cfg.DT);
   } else {
-    dt = P.dt[i];
+    dt = P.dt[k];
   }
-  P.out[i] = dt;
+  P.out[k] = dt;
 }
 
 // The baseline (`_simple`): the previous kernel, the bare estimate of every lane,
@@ -617,8 +629,8 @@ static void dispatch_simple(const AdvanceConfig& cfg, bool adaptive,
 }
 
 template <class M, bool ADAPTIVE, bool GRIDDED>
-static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
-                           cudaStream_t stream) {
+static void launch_advance(const AdvanceConfig& cfg, long long n,
+                           unsigned layers, void** p, cudaStream_t stream) {
   AdvancePlanes P;
   P.lne = (const float*)p[0]; P.cgx = (const float*)p[1];
   P.cgy = (const float*)p[2]; P.x = (const float*)p[3];
@@ -632,17 +644,21 @@ static void launch_advance(const AdvanceConfig& cfg, long long n, void** p,
   P.proj = (const float*)p[18];
   const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
   advance_kernel<M, ADAPTIVE, GRIDDED>
-      <<<blocks, K1_THREADS, 0, stream>>>(cfg, n, P);
+      <<<dim3(blocks, layers), K1_THREADS, 0, stream>>>(cfg, n, P);
 }
 
 template <class M>
 static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
-                     void** p, cudaStream_t stream) {
+                     unsigned layers, void** p, cudaStream_t stream) {
   const bool gridded = cfg.wind.kind == WIND_GRIDDED;
-  if (adaptive && gridded) launch_advance<M, true, true>(cfg, n, p, stream);
-  else if (adaptive) launch_advance<M, true, false>(cfg, n, p, stream);
-  else if (gridded) launch_advance<M, false, true>(cfg, n, p, stream);
-  else launch_advance<M, false, false>(cfg, n, p, stream);
+  if (adaptive && gridded)
+    launch_advance<M, true, true>(cfg, n, layers, p, stream);
+  else if (adaptive)
+    launch_advance<M, true, false>(cfg, n, layers, p, stream);
+  else if (gridded)
+    launch_advance<M, false, true>(cfg, n, layers, p, stream);
+  else
+    launch_advance<M, false, false>(cfg, n, layers, p, stream);
 }
 
 // The advance's own ints after the RHS flags and the wind's ints.
@@ -682,24 +698,30 @@ using namespace picles;
 //          the per-node projection planes [5, n] (input; null: the RHS's
 //          uniform scalars) | the n_wf gridded wind planes (inputs; none
 //          for analytic winds)
+// n:       nodes; layers: the particle planes are [layers, n] (layer-major)
+//          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
 // wrapper passes only those methods) and ignores the tableau floats, which
 // the `_simple` baseline below reads.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// stage count or planes that `attach_planes` refuses).
+// stage count, planes that `attach_planes` refuses or a layer count outside
+// [1, MAX_LAYERS]).
 constexpr int K1_PTRS = 19;
 
 extern "C" int picles_advance(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, void* stream) {
+                              void** ptrs, long long n, long long layers,
+                              void* stream) {
   AdvanceConfig cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
   const bool adaptive = iparams[K1_I + 1] != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!attach_planes(cfg.wind, iparams[3], ptrs + K1_PTRS))
+  if (!attach_planes(cfg.wind, iparams[3], ptrs + K1_PTRS) ||
+      bad_layers(layers))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (stages == Bosh3::S) dispatch<Bosh3>(cfg, adaptive, n, ptrs, st);
-  else if (stages == Tsit5::S) dispatch<Tsit5>(cfg, adaptive, n, ptrs, st);
+  const unsigned ly = (unsigned)layers;
+  if (stages == Bosh3::S) dispatch<Bosh3>(cfg, adaptive, n, ly, ptrs, st);
+  else if (stages == Tsit5::S) dispatch<Tsit5>(cfg, adaptive, n, ly, ptrs, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -739,9 +761,11 @@ static void unpack_auto_dt(const float* fparams, const int* iparams,
 
 template <int KIND, int FLAGS>
 static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
-                           const AutoDtPlanes& P, cudaStream_t stream) {
+                           unsigned layers, const AutoDtPlanes& P,
+                           cudaStream_t stream) {
   const unsigned blocks = (unsigned)((n + K3_THREADS - 1) / K3_THREADS);
-  auto_dt_kernel<KIND, FLAGS><<<blocks, K3_THREADS, 0, stream>>>(cfg, n, P);
+  auto_dt_kernel<KIND, FLAGS>
+      <<<dim3(blocks, layers), K3_THREADS, 0, stream>>>(cfg, n, P);
 }
 
 // fparams: RHS (14) | wind (7) | abstol, reltol, 1/(order+1), max_dt,
@@ -751,31 +775,37 @@ static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
 //          dt (output) | the per-node projection planes [5, n] (input;
 //          null: the uniform scalars) | the n_wf gridded wind planes
 //          (inputs)
+// n, layers: as picles_advance's (dt, was_reset and the output are lane
+// planes, the node x and the projection and wind planes shared).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// planes that `attach_planes` refuses).
+// planes that `attach_planes` refuses or a layer count outside
+// [1, MAX_LAYERS]).
 constexpr int K3_PTRS = 11;
 
 extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, void* stream) {
+                              void** ptrs, long long n, long long layers,
+                              void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
   cudaStream_t st = (cudaStream_t)stream;
-  if (!attach_planes(cfg.wind, iparams[3], ptrs + K3_PTRS))
+  if (!attach_planes(cfg.wind, iparams[3], ptrs + K3_PTRS) ||
+      bad_layers(layers))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
+  const unsigned ly = (unsigned)layers;
   if (cfg.rc.flags != K3_FLAGS && cfg.wind.kind == WIND_GRIDDED)
-    launch_auto_dt<WIND_GRIDDED, RUNTIME>(cfg, n, P, st);
+    launch_auto_dt<WIND_GRIDDED, RUNTIME>(cfg, n, ly, P, st);
   else if (cfg.rc.flags != K3_FLAGS)
-    launch_auto_dt<RUNTIME, RUNTIME>(cfg, n, P, st);
+    launch_auto_dt<RUNTIME, RUNTIME>(cfg, n, ly, P, st);
   else if (cfg.wind.kind == WIND_CONSTANT)
-    launch_auto_dt<WIND_CONSTANT, K3_FLAGS>(cfg, n, P, st);
+    launch_auto_dt<WIND_CONSTANT, K3_FLAGS>(cfg, n, ly, P, st);
   else if (cfg.wind.kind == WIND_HALF_DOMAIN)
-    launch_auto_dt<WIND_HALF_DOMAIN, K3_FLAGS>(cfg, n, P, st);
+    launch_auto_dt<WIND_HALF_DOMAIN, K3_FLAGS>(cfg, n, ly, P, st);
   else if (cfg.wind.kind == WIND_GRIDDED)
-    launch_auto_dt<WIND_GRIDDED, K3_FLAGS>(cfg, n, P, st);
+    launch_auto_dt<WIND_GRIDDED, K3_FLAGS>(cfg, n, ly, P, st);
   else
-    launch_auto_dt<WIND_TIME_COSINE, K3_FLAGS>(cfg, n, P, st);
+    launch_auto_dt<WIND_TIME_COSINE, K3_FLAGS>(cfg, n, ly, P, st);
   return (int)cudaGetLastError();
 }
 

@@ -67,6 +67,12 @@
 // and registers set the occupancy; TX = 32 (R = 4 nodes a thread, 8 warps)
 // and a 64 KB budget, compiled in, were chosen by a sweep on the card (root
 // PERF.md §6).
+// Layers (several wave systems on one grid) are the launch's second grid
+// dimension: blockIdx.y is the layer, whose sources are read at layer * nx
+// * ny + node and whose outputs are written at layer * ox * oy + node.  The
+// staging, the seam's ghosts and the order of the sums do not depend on the
+// layer, so each layer's deposit is its single-layer deposit bit for bit,
+// from one launch.
 //
 // K4: the same deposit into the padded accumulator, no fold.
 //
@@ -95,7 +101,8 @@
 // would read them again (12 bytes a node) and launch once more.  A gridded
 // wind's planes are read at each output node by the thread that remeshes
 // it (28 bytes a node at B = 1), not staged with the sources: only the
-// node's own values are needed.
+// node's own values are needed.  A layer's particle planes are offset as
+// its sources are; the masks, the node x and the wind planes are shared.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -109,6 +116,7 @@ struct GatherConfig {
   int xl, xh, yl, yh;            // the window (widened on a tripolar grid)
   int periodic_x, periodic_y;
   int tripolar;                  // the y axis is TRIPOLAR_NORTH
+  int layers;                    // layers of the source and output planes
   float x_lo, x_hi, y_lo, y_hi;  // clamp bounds of the declared halo, float32
                                  // as the JAX package forms them
 };
@@ -165,7 +173,8 @@ __device__ __forceinline__ void copy_async_wait_all() {
 
 // Stage the sources of tile-local rows [lo, hi) (row u is grid row
 // i0 - xh + u) and of w columns (column c is grid column j0 - dy1 + c: the
-// sources the tile's nodes reach with the strip's dy) into shared memory:
+// sources the tile's nodes reach with the strip's dy), of the layer whose
+// planes start `base` floats in, into shared memory:
 //   a[e] = (wxc, wyc, c0 * m, c1 * m),  b[e] = (c2 * m, fx, fy, -),
 // e = (u - lo) * p.v + c.  Each thread computes the sources it copied; the
 // copy pass marks a tripolar ghost in b[e].y, which the compute pass reads
@@ -173,8 +182,8 @@ __device__ __forceinline__ void copy_async_wait_all() {
 __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
                                            const SumPlan& p, int i0, int j0,
                                            int lo, int hi, int dy1, int w,
-                                           const Sources& src, float4* sa,
-                                           float4* sb) {
+                                           const Sources& src, long long base,
+                                           float4* sa, float4* sb) {
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int count = (hi - lo) * w;
@@ -195,7 +204,7 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
           if (si >= 0 && si < g.nx) si = si <= g.nx - 2 ? g.nx - 2 - si : g.nx - 1;
         }
         const bool ok = si >= 0 && si < g.nx && sj >= 0 && sj < g.ny;
-        const long long s = ok ? (long long)si * g.ny + sj : 0;
+        const long long s = ok ? base + (long long)si * g.ny + sj : 0;
         copy4_async(a + 0, src.xr + s, ok);
         copy4_async(a + 1, src.yr + s, ok);
         copy4_async(a + 2, src.c0 + s, ok);
@@ -302,12 +311,14 @@ __device__ __forceinline__ void sum_chunk(const GatherConfig& g,
 }
 
 // The window sums of the block's tile, whose first node is grid node
-// (i0, j0): strips of dy ascending, chunks of source rows from high to low.
+// (i0, j0), over the sources of the layer at `base`: strips of dy
+// ascending, chunks of source rows from high to low.
 template <int WX>
 __device__ __forceinline__ void window_sum(const GatherConfig& g,
                                            const SumPlan& p, int i0, int j0,
-                                           const Sources& src, float4* sa,
-                                           float4* sb, float acc[R][3]) {
+                                           const Sources& src, long long base,
+                                           float4* sa, float4* sb,
+                                           float acc[R][3]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
   float a[R][3];
@@ -317,7 +328,8 @@ __device__ __forceinline__ void window_sum(const GatherConfig& g,
     for (int hi = rows; hi > 0; hi -= p.ux) {
       const int lo = max(hi - p.ux, 0);
       __syncthreads();  // the previous piece is no longer read
-      stage_chunk(g, p, i0, j0, lo, hi, dy1, TY + dy1 - dy0, src, sa, sb);
+      stage_chunk(g, p, i0, j0, lo, hi, dy1, TY + dy1 - dy0, src, base, sa,
+                  sb);
       __syncthreads();
       sum_chunk<WX>(g, p, lo, hi, dy0, dy1, hi == rows, lo == 0, sa, sb,
                        a, acc);
@@ -325,10 +337,17 @@ __device__ __forceinline__ void window_sum(const GatherConfig& g,
   }
 }
 
-__device__ __forceinline__ void tile_origin(const SumPlan& p, int& p0, int& q0) {
+// The block's tile (first output node (p0, q0)) and its layer: the
+// offsets of the layer's sources (nx * ny a layer) and outputs (ox * oy).
+__device__ __forceinline__ void tile_origin(const GatherConfig& g,
+                                            const SumPlan& p, int& p0,
+                                            int& q0, long long& src_off,
+                                            long long& out_off) {
   const int t = blockIdx.x;
   p0 = (t / p.tiles_y) * TX;
   q0 = (t % p.tiles_y) * TY;
+  src_off = (long long)blockIdx.y * g.nx * g.ny;
+  out_off = (long long)blockIdx.y * p.ox * p.oy;
 }
 
 // K2 (off = 0, output [nx, ny]) and K4 (off = (xl, yl), the padded output).
@@ -339,17 +358,18 @@ pic_gather_tiled_kernel(const GatherConfig g, const SumPlan p, const Sources src
                         float* __restrict__ o2) {
   extern __shared__ float4 smem[];
   int p0, q0;
-  tile_origin(p, p0, q0);
+  long long src_off, out_off;
+  tile_origin(g, p, p0, q0, src_off, out_off);
   float acc[R][3];
-  window_sum<WX>(g, p, p0 - p.off_x, q0 - p.off_y, src, smem,
-                    smem + p.ux * p.v, acc);
+  window_sum<WX>(g, p, p0 - p.off_x, q0 - p.off_y, src, src_off, smem,
+                 smem + p.ux * p.v, acc);
   const int q = q0 + threadIdx.x;
   if (q >= p.oy) return;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int pi = p0 + R * threadIdx.y + r;
     if (pi < p.ox) {
-      const long long o = (long long)pi * p.oy + q;
+      const long long o = out_off + (long long)pi * p.oy + q;
       o0[o] = acc[r][0];
       o1[o] = acc[r][1];
       o2[o] = acc[r][2];
@@ -357,7 +377,8 @@ pic_gather_tiled_kernel(const GatherConfig g, const SumPlan p, const Sources src
   }
 }
 
-// Particle planes and masks of K6's remesh half, core-aligned [nx, ny].
+// Particle planes and masks of K6's remesh half, core-aligned [nx, ny]
+// (the particle planes [layers, nx, ny]).
 struct RemeshPlanes {
   const float* clock;
   const float *lne, *cgx, *cgy, *px, *py, *dt;
@@ -385,9 +406,10 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
                                float* __restrict__ o2) {
   extern __shared__ float4 smem[];
   int p0, q0;
-  tile_origin(p, p0, q0);
+  long long lo, out_off;
+  tile_origin(g, p, p0, q0, lo, out_off);
   float acc[R][3];
-  window_sum<WX>(g, p, p0, q0, src, smem, smem + p.ux * p.v, acc);
+  window_sum<WX>(g, p, p0, q0, src, lo, smem, smem + p.ux * p.v, acc);
   const int j = q0 + threadIdx.x;
   if (j >= g.ny) return;
   // one copy of the branch table, the node's sums picked by selects
@@ -404,22 +426,23 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
         s2 = acc[k][2];
       }
     }
-    const long long idx = (long long)i * g.ny + j;
-    o0[idx] = s0;
-    o1[idx] = s1;
-    o2[idx] = s2;
+    const long long idx = (long long)i * g.ny + j;  // the node
+    const long long k = lo + idx;                    // its layer's particle
+    o0[k] = s0;
+    o1[k] = s1;
+    o2[k] = s2;
     const picles::RemeshOut o = picles::remesh_node(
-        rp, *q.clock, idx, s0, s1, s2, q.lne[idx], q.cgx[idx], q.cgy[idx],
-        q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
-        q.bnd[idx] != 0, node_x(rp, q, idx));
-    q.lne_o[idx] = o.lne;
-    q.cgx_o[idx] = o.cgx;
-    q.cgy_o[idx] = o.cgy;
-    q.px_o[idx] = o.px;
-    q.py_o[idx] = o.py;
-    q.dt_o[idx] = o.dt;
-    q.on_o[idx] = o.on ? 1 : 0;
-    q.br_o[idx] = o.branch;
+        rp, *q.clock, idx, s0, s1, s2, q.lne[k], q.cgx[k], q.cgy[k], q.px[k],
+        q.py[k], q.dt[k], q.on[k] != 0, q.act[idx] != 0, q.bnd[idx] != 0,
+        node_x(rp, q, idx));
+    q.lne_o[k] = o.lne;
+    q.cgx_o[k] = o.cgx;
+    q.cgy_o[k] = o.cgy;
+    q.px_o[k] = o.px;
+    q.py_o[k] = o.py;
+    q.dt_o[k] = o.dt;
+    q.on_o[k] = o.on ? 1 : 0;
+    q.br_o[k] = o.branch;
   }
 }
 
@@ -569,13 +592,14 @@ GatherConfig unpack_gather(const float* fparams, const int* iparams) {
   g.xl = iparams[2]; g.xh = iparams[3]; g.yl = iparams[4]; g.yh = iparams[5];
   g.periodic_x = iparams[6]; g.periodic_y = iparams[7];
   g.tripolar = iparams[8];
+  g.layers = iparams[9];
   g.x_lo = fparams[0]; g.x_hi = fparams[1];
   g.y_lo = fparams[2]; g.y_hi = fparams[3];
   return g;
 }
 
 constexpr int N_GATHER_F = 4;
-constexpr int N_GATHER_I = 9;
+constexpr int N_GATHER_I = 10;
 constexpr int THREADS = 256;
 
 // The tiling over an [ox, oy] output: the whole window in one piece when it
@@ -614,11 +638,12 @@ unsigned plan_blocks(const SumPlan& p) {
   return (unsigned)(((p.ox + TX - 1) / TX) * (long long)p.tiles_y);
 }
 
-// Launch one tiled kernel instance: sets the dynamic shared-memory limit
-// when the plan takes more than the default 48 KB, and returns the first
-// CUDA error of the attribute or the launch.
+// Launch one tiled kernel instance, the plan's tiles times `layers`
+// blocks: sets the dynamic shared-memory limit when the plan takes more than
+// the default 48 KB, and returns the first CUDA error of the attribute or
+// the launch.
 template <typename Kernel, typename... Args>
-int launch_tiled(Kernel kernel, const SumPlan& p, cudaStream_t st,
+int launch_tiled(Kernel kernel, const SumPlan& p, int layers, cudaStream_t st,
                  Args... args) {
   const size_t bytes = plan_bytes(p);
   if (bytes > 48 * 1024) {
@@ -626,7 +651,8 @@ int launch_tiled(Kernel kernel, const SumPlan& p, cudaStream_t st,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<plan_blocks(p), dim3(TY, WARPS), bytes, st>>>(args...);
+  kernel<<<dim3(plan_blocks(p), (unsigned)layers), dim3(TY, WARPS), bytes,
+           st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -644,7 +670,7 @@ Sources sources(void** ptrs) {
 template <int WX>
 int gather_tiled(const GatherConfig& g, const SumPlan& p, void** ptrs,
                  cudaStream_t st) {
-  return launch_tiled(pic_gather_tiled_kernel<WX>, p, st, g, p,
+  return launch_tiled(pic_gather_tiled_kernel<WX>, p, g.layers, st, g, p,
                       sources(ptrs), (float*)ptrs[6], (float*)ptrs[7],
                       (float*)ptrs[8]);
 }
@@ -688,7 +714,8 @@ template <int WX>
 int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
                         const picles::RemeshParams& r, void** ptrs,
                         cudaStream_t st) {
-  return launch_tiled(pic_gather_remesh_tiled_kernel<WX>, p, st, g, p,
+  return launch_tiled(pic_gather_remesh_tiled_kernel<WX>, p, g.layers, st,
+                      g, p,
                       r, sources(ptrs), remesh_planes(ptrs), (float*)ptrs[17],
                       (float*)ptrs[18], (float*)ptrs[19]);
 }
@@ -696,13 +723,16 @@ int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
 }  // namespace
 
 // iparams: nx, ny, xl, xh, yl, yh (the window), periodic_x, periodic_y,
-//          tripolar (the y axis folds at the north seam)
+//          tripolar (the y axis folds at the north seam), layers
 // fparams: x_lo, x_hi, y_lo, y_hi (the declared halo's clamp)
-// ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs)
-// Returns the first CUDA error of the launch.
+// ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs),
+//          each [layers, nx, ny]
+// Returns the first CUDA error of the launch (cudaErrorInvalidValue for a
+// layer count outside [1, MAX_LAYERS]).
 extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
                                  void** ptrs, void* stream) {
   const GatherConfig g = unpack_gather(fparams, iparams);
+  if (picles::bad_layers(g.layers)) return (int)cudaErrorInvalidValue;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
   return gather_dispatch(g, p, ptrs, (cudaStream_t)stream);
@@ -711,8 +741,8 @@ extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
 // K4.  iparams and fparams as picles_pic_gather's, the periodic and
 // tripolar flags ignored (both axes open, the seam folded after it); nx, ny
 // are the block's.
-// ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([nx, ny], inputs) |
-//          o0, o1, o2 ([nx+xl+xh, ny+yl+yh], outputs)
+// ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([layers, nx, ny], inputs) |
+//          o0, o1, o2 ([layers, nx+xl+xh, ny+yl+yh], outputs)
 extern "C" int picles_pic_gather_padded(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
@@ -720,6 +750,7 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
   g.periodic_x = 0;
   g.periodic_y = 0;
   g.tripolar = 0;
+  if (picles::bad_layers(g.layers)) return (int)cudaErrorInvalidValue;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx + g.xl + g.xh, g.ny + g.yl + g.yh, g.xl,
                              g.yl);
@@ -727,13 +758,16 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
 }
 
 // fparams: the gather's (4) | the remesh.cuh layout
-// iparams: the gather's (8) | the remesh.cuh layout
+// iparams: the gather's (10) | the remesh.cuh layout
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
 //          (outputs) | the n_wf gridded wind planes (inputs; none for
-//          analytic winds)
-// cudaErrorInvalidValue for planes that `attach_planes` refuses.
+//          analytic winds).  The deposit's planes and the particle planes
+//          are [layers, nx, ny]; active, boundary, xn and the wind planes
+//          [nx, ny], shared.
+// cudaErrorInvalidValue for planes that `attach_planes` refuses or a layer
+// count outside [1, MAX_LAYERS].
 constexpr int K6_PTRS = 28;
 
 extern "C" int picles_pic_gather_remesh(const float* fparams,
@@ -743,7 +777,7 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
   if (!picles::attach_planes(r.wind, iparams[N_GATHER_I + 2],
-                             ptrs + K6_PTRS))
+                             ptrs + K6_PTRS) || picles::bad_layers(g.layers))
     return (int)cudaErrorInvalidValue;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
@@ -755,13 +789,13 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
 }
 
 // The `_simple` baselines: the entry points above with the same parameter
-// layouts, one thread per output node; analytic winds only, no tripolar
-// seam (cudaErrorInvalidValue).
+// layouts, one thread per output node; analytic winds only, one layer, no
+// tripolar seam (cudaErrorInvalidValue).
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
   const GatherConfig g = unpack_gather(fparams, iparams);
-  if (g.tripolar) return (int)cudaErrorInvalidValue;
+  if (g.tripolar || g.layers != 1) return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
@@ -779,6 +813,7 @@ extern "C" int picles_pic_gather_padded_simple(const float* fparams,
   GatherConfig g = unpack_gather(fparams, iparams);
   g.periodic_x = 0;
   g.periodic_y = 0;
+  if (g.layers != 1) return (int)cudaErrorInvalidValue;
   const long long n =
       (long long)(g.nx + g.xl + g.xh) * (g.ny + g.yl + g.yh);
   if (g.nx <= 0 || g.ny <= 0) return 0;
@@ -798,7 +833,7 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
-  if (r.wind.kind == picles::WIND_GRIDDED || g.tripolar)
+  if (r.wind.kind == picles::WIND_GRIDDED || g.tripolar || g.layers != 1)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;

@@ -14,7 +14,10 @@
 // The design follows: one pass, one thread per node along y (the
 // contiguous axis, so loads and stores coalesce), nothing staged.  The
 // model clock is read from device memory by every thread, so the host
-// never reads it back.
+// never reads it back.  Layers are the launch's second grid dimension
+// (blockIdx.y): a node's particle and deposit planes are read and written
+// at layer * n + node, the masks, the node x and a gridded wind's planes,
+// which every layer shares, at the node.
 
 #include <cuda_runtime.h>
 
@@ -39,18 +42,19 @@ remesh_kernel(const picles::RemeshParams r, long long n,
               int* __restrict__ br_o) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long k = (long long)blockIdx.y * n + i;
   const picles::RemeshOut o = picles::remesh_node(
-      r, *clock, i, e_n[i], mx_n[i], my_n[i], lne[i], cgx[i], cgy[i], px[i],
-      py[i], dt[i], on[i] != 0, act[i] != 0, bnd[i] != 0,
+      r, *clock, i, e_n[k], mx_n[k], my_n[k], lne[k], cgx[k], cgy[k], px[k],
+      py[k], dt[k], on[k] != 0, act[i] != 0, bnd[i] != 0,
       r.wind.kind == picles::WIND_GRIDDED ? 0.0f : xn[i]);
-  lne_o[i] = o.lne;
-  cgx_o[i] = o.cgx;
-  cgy_o[i] = o.cgy;
-  px_o[i] = o.px;
-  py_o[i] = o.py;
-  dt_o[i] = o.dt;
-  on_o[i] = o.on ? 1 : 0;
-  br_o[i] = o.branch;
+  lne_o[k] = o.lne;
+  cgx_o[k] = o.cgx;
+  cgy_o[k] = o.cgy;
+  px_o[k] = o.px;
+  py_o[k] = o.py;
+  dt_o[k] = o.dt;
+  on_o[k] = o.on ? 1 : 0;
+  br_o[k] = o.branch;
 }
 
 }  // namespace
@@ -60,19 +64,26 @@ remesh_kernel(const picles::RemeshParams r, long long n,
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
 //       on(u8), branch(i32) (outputs) | the n_wf gridded wind planes
 //       (inputs; none for analytic winds)
+// n:    nodes; layers: the node state, particle and output planes are
+//       [layers, n] (layer-major), active, boundary, xn and the wind
+//       planes [n], shared
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// planes that `attach_planes` refuses).
+// planes that `attach_planes` refuses or a layer count outside
+// [1, MAX_LAYERS]).
 extern "C" int picles_remesh(const float* fparams, const int* iparams,
-                             void** ptrs, long long n, void* stream) {
+                             void** ptrs, long long n, long long layers,
+                             void* stream) {
   picles::RemeshParams r;
   picles::unpack_remesh(fparams, iparams, r);
-  if (!picles::attach_planes(r.wind, iparams[2], ptrs + 22))
+  if (!picles::attach_planes(r.wind, iparams[2], ptrs + 22) ||
+      picles::bad_layers(layers))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   const float* const* in = (const float* const*)ptrs;
-  remesh_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  remesh_kernel<<<dim3(blocks, (unsigned)layers), threads, 0,
+                  (cudaStream_t)stream>>>(
       r, n, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
       in[9], (const unsigned char*)ptrs[10], (const unsigned char*)ptrs[11],
       (const unsigned char*)ptrs[12], in[13], (float*)ptrs[14],

@@ -112,9 +112,9 @@ struct RemeshOut {
   int branch;
 };
 
-// One node, index i: (e_n, mx_n, my_n) is its deposited state, the rest its
-// particle and masks; `clock` the model time at which the winds are
-// sampled.
+// One node, index i in the planes every layer shares (a gridded wind's):
+// (e_n, mx_n, my_n) is its deposited state, the rest its particle and
+// masks; `clock` the model time at which the winds are sampled.
 __device__ __forceinline__ RemeshOut remesh_node(
     const RemeshParams& r, float clock, long long i, float e_n, float mx_n,
     float my_n, float lne, float cgx, float cgy, float px, float py,

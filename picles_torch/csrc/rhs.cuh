@@ -24,6 +24,14 @@
 
 namespace picles {
 
+// The layers one launch takes (its gridDim.y), as
+// picles_torch/ops/cuda_build.py MAX_LAYERS; the C entry points refuse any
+// other count.
+constexpr long long MAX_LAYERS = 65535;
+inline bool bad_layers(long long layers) {
+  return layers < 1 || layers > MAX_LAYERS;
+}
+
 // max/min that propagate NaN like jnp.maximum and torch.maximum (fmaxf and
 // fminf return the other operand), so a NaN lane stays NaN for the guards.
 __device__ __forceinline__ float jmax(float a, float b) {

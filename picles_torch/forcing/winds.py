@@ -402,10 +402,12 @@ def load_gridded_winds_2d(path: str, *, u_name: str = "u10",
                           mode: str = "nearest", mode_t: str = "clamp",
                           time_scale: float = 1.0,
                           relative_time: bool = False,
-                          device="cpu") -> GriddedWinds2D:
+                          device="cuda") -> GriddedWinds2D:
     """Load (t, x, y) wind fields from a NetCDF file (NetCDF-4 through h5py,
     NetCDF-3 through scipy, ``utils.io.read_netcdf_vars``) into a
-    ``GriddedWinds2D`` on ``device``.
+    ``GriddedWinds2D`` on ``device``: the CUDA device unless the caller
+    names another; raises when a CUDA device is asked for and there is
+    none.
 
     Data stored ``[t, y, x]`` (the CF convention) is transposed to
     ``[t, x, y]``; a strictly decreasing spatial axis (ERA5's latitude,
@@ -416,6 +418,11 @@ def load_gridded_winds_2d(path: str, *, u_name: str = "u10",
     time_scale=3600.0, relative_time=True`` for seconds since the first
     frame.  Epoch-scale times warn, as float32 sampling quantizes them."""
     from ..utils.io import read_netcdf_vars
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_gridded_winds_2d: no CUDA device found; "
+                           "pass device='cpu' to load the record onto the "
+                           "CPU")
 
     v = read_netcdf_vars(path, [u_name, v_name, x_name, y_name, t_name])
     xs, ys, ts = (np.asarray(v[x_name], np.float64),

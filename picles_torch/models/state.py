@@ -13,6 +13,7 @@ tensors; these two move a state in and out of them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -44,7 +45,8 @@ class TensorTree:
 
 @dataclasses.dataclass(frozen=True)
 class StepMetrics(TensorTree):
-    """Per-step counters, int32 0-dim tensors."""
+    """Per-step counters, int32 0-dim tensors; a layered state (several
+    wave systems on one grid) counts each layer apart, ``[L]`` each."""
 
     n_active: torch.Tensor       # particles advanced this step
     n_failed: torch.Tensor       # ODE failures
@@ -59,14 +61,20 @@ class StepMetrics(TensorTree):
     substeps_max: torch.Tensor   # max accepted ODE substeps over the batch
 
     @classmethod
-    def zeros(cls, device) -> "StepMetrics":
-        z = torch.zeros((), dtype=torch.int32, device=device)
+    def zeros(cls, device, layers: Optional[int] = None) -> "StepMetrics":
+        """Zero counters: 0-dim, or ``[layers]`` for a layered state."""
+        shape = () if layers is None else (layers,)
+        z = torch.zeros(shape, dtype=torch.int32, device=device)
         return cls(*([z] * len(dataclasses.fields(cls))))
 
     def as_dict(self) -> dict:
-        """Counters as Python ints (reads the device)."""
-        return {f.name: int(getattr(self, f.name))
-                for f in dataclasses.fields(self)}
+        """Counters as Python ints, lists of them for ``[L]`` counters
+        (reads the device)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = v.tolist() if v.dim() else int(v)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +100,9 @@ class Particles2D(TensorTree):
 @dataclasses.dataclass(frozen=True)
 class ModelState2D(TensorTree):
     """state: ``[nx, ny, 3]`` Eulerian (e, m_x, m_y); time float32 and
-    iteration int32, both 0-dim."""
+    iteration int32, both 0-dim.  A layered state (``config.layers`` wave
+    systems on one grid, one clock) puts a leading ``[L]`` axis on the node
+    state, the particle planes and the counters."""
 
     state: torch.Tensor
     particles: Particles2D

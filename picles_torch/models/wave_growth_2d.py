@@ -39,8 +39,17 @@ JAX model does.
 
 ``step_core`` takes the grid planes and masks it steps over, a deposit hook
 and a counter-reduction hook, so ``parallel/sharded.py`` runs the same step
-on one block of a decomposed grid.  Not ported yet: layers and per-layer
-winds.
+on one block of a decomposed grid.
+
+Layers (``config.layers``, the reference's fourth State dimension: several
+wave systems, swell partitions beside the wind sea, each a full particle
+system on one grid with one clock) put a leading ``[L]`` axis on the node
+state, the particle planes and the counters (``init_state_layers``,
+``step_layers``).  The same ``step_core`` steps them: the grid planes, the
+masks and a gridded wind's planes stay ``[nx, ny]`` and broadcast, each
+kernel launches once for every layer (its layer dimension), and the
+counters reduce over each layer's plane.  ``LayeredWaveGrowth2D``
+(``as_layered``) is the driver-facing view, also with one wind a layer.
 """
 
 from __future__ import annotations
@@ -158,7 +167,11 @@ def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
 class WaveGrowth2D(StepDrivers):
     """Model: grid, winds, ODE settings and config; exposes ``init_state``
     and ``step``.  The device is the grid's.  ``winds``: a ``Winds2D`` or a
-    ``GriddedWinds2D`` (directly or as its ``as_winds()``)."""
+    ``GriddedWinds2D`` (directly or as its ``as_winds()``).  ``rhs``: a
+    right-hand side ``rhs(t, z, aux)`` in place of the one the winds and
+    term flags give (``ops/rhs.py`` ``particle_equations``); it runs on the
+    plain advance only (``advance_mode="torch"``), as K1 compiles its
+    right-hand side from the wind's descriptor and the flags."""
 
     def __init__(self, grid: Grid2D, winds,
                  ode_settings: ODESettings,
@@ -166,10 +179,10 @@ class WaveGrowth2D(StepDrivers):
                  constants: Optional[IDConstants] = None,
                  flags: TermFlags = TermFlags(),
                  minimal_particle=None, minimal_state=None,
-                 config: WaveGrowth2DConfig = WaveGrowth2DConfig()):
-        if config.layers != 1:
-            raise NotImplementedError("layers are not ported yet: ROADMAP "
-                                      "item 15")
+                 config: WaveGrowth2DConfig = WaveGrowth2DConfig(),
+                 rhs: Optional[Callable] = None):
+        if config.layers < 1:
+            raise ValueError(f"layers must be at least 1, got {config.layers}")
         if config.dt_reset_mode not in ("auto", "carry"):
             raise ValueError(f"unknown dt_reset_mode {config.dt_reset_mode!r}")
         self.grid = grid
@@ -192,6 +205,13 @@ class WaveGrowth2D(StepDrivers):
         self.winds = winds
         self.settings = ode_settings
         self.config = config
+        self._rhs_override = rhs is not None
+        if self._rhs_override and (config.advance_mode == "cuda" or (
+                config.advance_mode == "auto" and self.device.type == "cuda")):
+            raise ValueError(
+                "a custom `rhs` runs on the plain advance only: kernel K1 "
+                "compiles its right-hand side from the wind's descriptor and "
+                'the TermFlags; pass advance_mode="torch"')
         self.modes = resolve_modes(config, self.device)
         if ode_params is None:
             ode_params, constants, _ = ODEParameters.create()
@@ -201,7 +221,7 @@ class WaveGrowth2D(StepDrivers):
         self.consts = make_rhs_consts(gamma=self.constants.gamma,
                                       constants=self.constants,
                                       params=self.params)
-        self.rhs = particle_equations(
+        self.rhs = rhs if rhs is not None else particle_equations(
             winds.u, winds.v, gamma=self.constants.gamma, params=self.params,
             constants=self.constants, flags=flags)
 
@@ -287,9 +307,8 @@ class WaveGrowth2D(StepDrivers):
                                   and not (self.boundary_defaults is None
                                            and self.defaults is None))
 
-        def triple(d):
-            return None if d is None else (d.lne, d.cg_x, d.cg_y)
-
+        # every layer reseeds with the model's defaults, whatever it was
+        # seeded with (as JAX's vmapped step closes over them)
         self.remesh_params = RemeshParams(
             winds=winds, defaults=triple(self.defaults),
             bdefaults=(triple(self.boundary_defaults)
@@ -344,18 +363,24 @@ class WaveGrowth2D(StepDrivers):
     # seeding
     # ------------------------------------------------------------------
 
-    def _reset_values(self, u, v):
-        """The model's reseed: windsea from local winds when no defaults are
-        set, otherwise the fixed defaults; (lne, cgx, cgy) planes."""
-        return seed_values(self.remesh_params.defaults, u, v,
-                           self.settings.timestep)
+    def _reset_values(self, u, v, defaults="model"):
+        """The reseed: windsea from local winds when no defaults are set,
+        otherwise the fixed defaults; (lne, cgx, cgy) planes.  ``defaults``:
+        "model" (the model's own), None (windsea) or a
+        ``ParticleDefaults2D``."""
+        d = (self.remesh_params.defaults if defaults == "model"
+             else triple(defaults))
+        return seed_values(d, u, v, self.settings.timestep)
 
-    def init_state(self) -> ModelState2D:
-        """Seed one particle per node from the winds at t = 0."""
+    def init_state(self, defaults="model") -> ModelState2D:
+        """Seed one particle per node from the winds at t = 0.
+        ``defaults``: "model" seeds as the configuration says
+        (``ode_init_type``); None (windsea) or a ``ParticleDefaults2D``
+        overrides it (the per-layer seeding of ``init_state_layers``)."""
         cfg = self.config
         g = self.grid
         dev = self.device
-        d = self.defaults
+        d = self.defaults if defaults == "model" else defaults
         u0, v0 = winds_at(self.winds, g.x, g.y, torch.zeros_like(g.x))
         wind_speed = torch.sqrt(u0 * u0 + v0 * v0)
 
@@ -369,7 +394,7 @@ class WaveGrowth2D(StepDrivers):
             cgy = torch.where(strong, sea.cg_bar_y, wmin.cg_bar_y).to(cfg.dtype)
             on = strong & ~land
         else:
-            lne, cgx, cgy = self._reset_values(u0, v0)
+            lne, cgx, cgy = self._reset_values(u0, v0, defaults=d)
             on = ~land
 
         e, mx, my = TR.particle_to_node(lne, cgx, cgy)
@@ -396,6 +421,60 @@ class WaveGrowth2D(StepDrivers):
         """One DT: advance -> deposit -> remesh -> tick."""
         return self.step_core(ms, self.grid, self.active_mask,
                               self.boundary_mask)
+
+    # ------------------------------------------------------------------
+    # layers
+    # ------------------------------------------------------------------
+
+    def init_state_layers(self, per_layer_defaults=None) -> ModelState2D:
+        """Seed ``config.layers`` wave systems along a leading axis, the
+        counters ``[L]`` too.  ``per_layer_defaults``: one
+        ``ParticleDefaults2D``, None (windsea) or "model" a layer, each
+        layer seeded with its own; without it every layer is a copy of
+        ``init_state()``.  Every layer reseeds with the model's defaults."""
+        L = self.config.layers
+        if per_layer_defaults is None:
+            return stack_layers([self.init_state()] * L)
+        if len(per_layer_defaults) != L:
+            raise ValueError(f"need {L} per-layer defaults, "
+                             f"got {len(per_layer_defaults)}")
+        return stack_layers([self.init_state(defaults=d)
+                             for d in per_layer_defaults])
+
+    def step_layers(self, ms: ModelState2D) -> ModelState2D:
+        """One DT of every layer of a layered state (shared clock; the
+        counters ``[L]`` in and out): the same step, each kernel launched
+        once for all layers."""
+        if ms.state.dim() != 4 or ms.state.shape[0] != self.config.layers:
+            raise ValueError(f"a layered state is [{self.config.layers}, nx, "
+                             f"ny, 3], got {tuple(ms.state.shape)}")
+        return self.step(ms)
+
+    def with_winds(self, winds) -> "WaveGrowth2D":
+        """A model sharing this one's grid, settings, constants and config,
+        forced by other winds (per-layer winds)."""
+        if self._rhs_override:
+            raise ValueError(
+                "with_winds cannot rebuild a model constructed with a "
+                "custom `rhs` (the override closes over its own winds); "
+                "build the per-layer models explicitly instead.")
+        return WaveGrowth2D(self.grid, winds, self.settings,
+                            ode_params=self.params, constants=self.constants,
+                            flags=self.flags,
+                            minimal_particle=self.minimal_particle,
+                            minimal_state=self.minimal_state,
+                            config=self.config)
+
+    def as_layered(self, per_layer_defaults=None,
+                   per_layer_winds=None) -> "LayeredWaveGrowth2D":
+        """The driver-facing layered view: ``Simulation`` and the stores
+        run it as they run a model and store ``[time, layer, x, y,
+        state]``."""
+        return LayeredWaveGrowth2D(self, per_layer_defaults, per_layer_winds)
+
+    def fields(self, ms: ModelState2D) -> dict:
+        """The model's output fields (the reference's ``fields(model)``)."""
+        return dict(State=ms.state)
 
     def step_core(self, ms: ModelState2D, grid: Grid2D,
                   active: torch.Tensor, boundary: torch.Tensor,
@@ -541,13 +620,99 @@ class WaveGrowth2D(StepDrivers):
                        emax_mask, relight, gather, reseed, off, clamped,
                        naccept) -> StepMetrics:
         """The counters, packed: the nine mask counts and ``n_clamped`` in
-        one int32 tensor in ``StepMetrics`` order, ``substeps_max`` apart,
+        one int32 tensor in ``StepMetrics`` order (``[10]``, ``[L, 10]``
+        layered: each mask reduced over its plane), ``substeps_max`` apart,
         so a sharded step reduces them in two collectives."""
         masks = (adv, failed, nan_mask, inf_mask, emax_mask, relight, gather,
                  reseed, off)
-        counts = torch.stack([torch.sum(m) for m in masks]
-                             + [clamped.to(torch.int64)]).to(torch.int32)
-        smax = torch.max(naccept).to(torch.int32)
+        plane = (-2, -1)
+        counts = torch.stack([torch.sum(m, dim=plane) for m in masks]
+                             + [clamped.to(torch.int64)], dim=-1
+                             ).to(torch.int32)
+        smax = torch.amax(naccept, dim=plane).to(torch.int32)
         if reduce_counts is not None:
             counts, smax = reduce_counts(counts, smax)
-        return StepMetrics(*counts.unbind(), substeps_max=smax)
+        return StepMetrics(*counts.unbind(-1), substeps_max=smax)
+
+
+def triple(d):
+    """A ``ParticleDefaults2D``'s (lne, cg_x, cg_y), None for windsea."""
+    return None if d is None else (d.lne, d.cg_x, d.cg_y)
+
+
+def layer_of(ms: ModelState2D, i: int) -> ModelState2D:
+    """Layer ``i`` of a layered state, as a single-layer state (views)."""
+    return ModelState2D(
+        state=ms.state[i],
+        particles=Particles2D(*(x[i] for x in ms.particles.leaves())),
+        time=ms.time, iteration=ms.iteration,
+        metrics=StepMetrics(*(x[i] for x in ms.metrics.leaves())))
+
+
+def stack_layers(parts) -> ModelState2D:
+    """Single-layer states stacked into one layered state (their clock
+    and iteration are the first's)."""
+    def stack(cls, trees):
+        return cls(*(torch.stack(xs) for xs in
+                     zip(*(t.leaves() for t in trees))))
+
+    return ModelState2D(
+        state=torch.stack([p.state for p in parts]),
+        particles=stack(Particles2D, [p.particles for p in parts]),
+        time=parts[0].time, iteration=parts[0].iteration,
+        metrics=stack(StepMetrics, [p.metrics for p in parts]))
+
+
+class LayeredWaveGrowth2D(StepDrivers):
+    """The driver-facing surface of a ``WaveGrowth2D`` with ``config.layers
+    > 1`` (the reference's 4D State): ``init_state``, ``step`` and
+    ``fields`` over ``[L, nx, ny, 3]`` states, so ``Simulation`` and its
+    stores run it as they run a model and store ``[time, layer, x, y,
+    state]``.
+
+    ``per_layer_defaults`` seeds each layer (``init_state_layers``).  With
+    ``per_layer_winds`` (one wind a layer) each layer is stepped by its own
+    model variant (``with_winds``) on its slice of the state and the
+    results are stacked: each kernel then launches once a layer.  The
+    drivers replay one CUDA graph of the layered step where the models are
+    graphed (``models/drivers.py``)."""
+
+    def __init__(self, model: WaveGrowth2D, per_layer_defaults=None,
+                 per_layer_winds=None):
+        self.model = model
+        self.per_layer_defaults = per_layer_defaults
+        self.settings = model.settings
+        self.grid = model.grid
+        self.device = model.device
+        self.layers = model.config.layers
+        if per_layer_winds is not None:
+            if len(per_layer_winds) != self.layers:
+                raise ValueError(f"need {self.layers} per-layer winds, "
+                                 f"got {len(per_layer_winds)}")
+            self.layer_models = [model.with_winds(w) for w in per_layer_winds]
+        else:
+            self.layer_models = None
+        self._graphed = all(m.graphed for m in self._models())
+
+    def _models(self) -> list:
+        return self.layer_models or [self.model]
+
+    def graph_keep(self) -> tuple:
+        """Every layer model's caches (``WaveGrowth2D.graph_keep``)."""
+        return tuple(m.graph_keep() for m in self._models())
+
+    def init_state(self) -> ModelState2D:
+        if self.layer_models is not None:
+            defaults = self.per_layer_defaults or ["model"] * self.layers
+            return stack_layers([m.init_state(defaults=d)
+                                 for m, d in zip(self.layer_models, defaults)])
+        return self.model.init_state_layers(self.per_layer_defaults)
+
+    def step(self, ms: ModelState2D) -> ModelState2D:
+        if self.layer_models is not None:
+            return stack_layers([m.step(layer_of(ms, i))
+                                 for i, m in enumerate(self.layer_models)])
+        return self.model.step_layers(ms)
+
+    def fields(self, ms: ModelState2D) -> dict:
+        return dict(State=ms.state)

@@ -3,9 +3,14 @@
 Counterpart of ``picles_tpu/ops/advance_pallas.py``.  ``advance_cuda`` runs
 the whole adaptive embedded-RK loop of one model step per particle;
 ``auto_dt_cuda`` the step's dt reset to Hairer's initial-dt estimate, with
-the reset's clamp and select in the same kernel.  Each takes the component
-planes ``[nx, ny]`` (any shape, all alike, contiguous float32) on a card and
-launches its kernel, or raises: tensors on the CPU are refused.  The plain
+the reset's clamp and select in the same kernel.  Each takes the particle
+planes (contiguous float32, all alike) and the node x (any shape: ``[nx,
+ny]`` on a grid) on a card and launches its kernel, or raises: tensors on
+the CPU are refused.  The particle planes are shaped like the node x, or
+``[L, *xn.shape]`` for L layers (wave systems on one grid): one launch
+then steps every layer, each lane reading the node x, the projection and
+the wind planes of its node, which the layers share and which are never
+copied per layer.  The plain
 versions are ``tsit5.integrate_to`` and ``auto_dt_reset`` (here, over
 ``tsit5.auto_dt``); the model's resolved modes choose between kernel and
 plain version.
@@ -97,8 +102,8 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
                 like: torch.Tensor, simple: bool = False) -> list:
     """The wind's planes as the kernels read them (rhs.cuh
     ``attach_planes``): ``n_wind_fields(wind)`` float32 planes shaped like
-    ``like`` on its device, one after the other in memory, as
-    ``pallas_pwl_fields`` returns them; other planes are refused."""
+    the node plane ``like`` on its device, one after the other in memory,
+    as ``pallas_pwl_fields`` returns them; other planes are refused."""
     from .cuda_build import check_planes
 
     n = n_wind_fields(wind)
@@ -109,7 +114,7 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
         return []
     if simple:
         raise ValueError("gridded winds have no _simple baseline")
-    names = ["t"] + [f"wind plane {k}" for k in range(n)]
+    names = ["xn"] + [f"wind plane {k}" for k in range(n)]
     check_planes([like, *fields], names, [torch.float32] * (n + 1))
     step = like.numel() * like.element_size()
     base = fields[0].data_ptr()
@@ -126,8 +131,8 @@ Projection = Union[Tuple[float, ...], torch.Tensor]
 def projection_planes(proj: Projection, like: torch.Tensor,
                       simple: bool = False) -> Optional[torch.Tensor]:
     """None for the 5 uniform scalars, else ``proj`` checked as the kernels
-    read it: one contiguous float32 ``[5, *like.shape]`` tensor on
-    ``like``'s device (``node_projection``)."""
+    read it: one contiguous float32 ``[5, *like.shape]`` tensor on the
+    device of the node plane ``like`` (``node_projection``)."""
     if not isinstance(proj, torch.Tensor):
         if len(proj) != 5:
             raise ValueError(f"the uniform projection is 5 scalars (m00, "
@@ -187,12 +192,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  simple: bool = False) -> AdvanceResult:
     """Advance every active particle over one model step ``DT`` (K1).
 
-    ``comps`` = (lne, cgx, cgy, x, y); ``active`` bool; ``proj`` the 5
-    uniform projection scalars or the per-node planes (``node_projection``);
-    ``wind_fields`` a gridded wind's planes of this step.  Inactive lanes pass through with ``failed = False`` and
+    ``comps`` = (lne, cgx, cgy, x, y), ``t``, ``dt`` and ``active`` (bool)
+    the particle planes, shaped like ``xn`` or ``[L, *xn.shape]``; ``proj``
+    the 5 uniform projection scalars or the per-node planes
+    (``node_projection``); ``wind_fields`` a gridded wind's planes of this
+    step.  Inactive lanes pass through with ``failed = False`` and
     ``naccept = 0``; a lane that finishes gets ``t = t + DT``."""
-    from .cuda_build import (K1_METHODS, check_planes, check_status, library,
-                             pointer_array)
+    from .cuda_build import (K1_METHODS, check_layered, check_status,
+                             library, pointer_array)
 
     if config.method not in K1_METHODS:
         raise ValueError(f"the advance kernel compiles the tableaux of "
@@ -201,10 +208,11 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
     f32 = torch.float32
-    dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "dt",
-                             "active", "xn"], [f32] * 7 + [torch.bool, f32])
-    planes = wind_planes(wind, wind_fields, t, simple)
-    pp = projection_planes(proj, t, simple)
+    dev, L = check_layered(ins[:8], ["lne", "cgx", "cgy", "x", "y", "t", "dt",
+                                     "active"], [f32] * 7 + [torch.bool],
+                           [xn], ["xn"], [f32], simple)
+    planes = wind_planes(wind, wind_fields, xn, simple)
+    pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
     f += _tableau_params(method)
@@ -218,10 +226,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     ptrs = pointer_array(ins + outs + [failed, nacc, pp] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = (library().picles_advance_simple if simple
-              else library().picles_advance)
-        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
-                  t.numel(), stream)
+        if simple:
+            code = library().picles_advance_simple(
+                fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                xn.numel(), stream)
+        else:
+            code = library().picles_advance(
+                fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                xn.numel(), L, stream)
     check_status(code, "advance")
     if not simple:
         advance_cuda.launches += 1
@@ -243,21 +255,24 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     clamp(estimate, dtmin, DT) : dt``, the semantics of ``auto_dt_reset``.
 
     ``was_reset`` bool; a lane that is not reset keeps its ``dt``, bit for
-    bit; ``proj`` as ``advance_cuda``'s; ``wind_fields`` a gridded wind's
-    planes of this step.
+    bit; the particle planes (``t``, ``comps``, ``was_reset``, ``dt``) and
+    ``proj`` as ``advance_cuda``'s; ``wind_fields`` a gridded wind's planes
+    of this step.
     ``simple=True`` runs the previous kernel (the bare estimate of every
     lane) followed by PyTorch's clamp and select, the baseline the card
     checks hold K3 to."""
-    from .cuda_build import (check_planes, check_status, library,
+    from .cuda_build import (check_layered, check_status, library,
                              pointer_array)
 
     wind = kernel_wind(winds)
     ins = [*comps, t, xn, dt, was_reset]
     f32 = torch.float32
-    dev = check_planes(ins, ["lne", "cgx", "cgy", "x", "y", "t", "xn", "dt",
-                             "was_reset"], [f32] * 8 + [torch.bool])
-    planes = wind_planes(wind, wind_fields, t, simple)
-    pp = projection_planes(proj, t, simple)
+    dev, L = check_layered([*comps, t, dt, was_reset],
+                           ["lne", "cgx", "cgy", "x", "y", "t", "dt",
+                            "was_reset"], [f32] * 7 + [torch.bool],
+                           [xn], ["xn"], [f32], simple)
+    planes = wind_planes(wind, wind_fields, xn, simple)
+    pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
     fp = np.asarray(f, dtype=np.float32)
@@ -266,10 +281,14 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     ptrs = pointer_array(ins + [out, pp] + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = (library().picles_auto_dt_simple if simple
-              else library().picles_auto_dt)
-        code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
-                  t.numel(), stream)
+        if simple:
+            code = library().picles_auto_dt_simple(
+                fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                xn.numel(), stream)
+        else:
+            code = library().picles_auto_dt(
+                fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+                xn.numel(), L, stream)
     check_status(code, "auto-dt")
     if simple:
         return _clamp_select(out, was_reset, dt, dtmin, DT)

@@ -9,6 +9,11 @@ non-periodic drop, tripolar north-seam flip.  No scatter, deterministic.
 
 ``scatter_xla`` is the index-arithmetic oracle (no halo bound), kept under
 the JAX package's mode name.
+
+Every function takes a leading layer axis (``[L, nx, ny]`` planes, ``[L,
+nx, ny, C]`` charges, several wave systems on one grid) and deposits each
+layer as it deposits one: the elementwise sums broadcast over it, the
+oracle loops over it, and the clamped count is one a layer.
 """
 
 from __future__ import annotations
@@ -62,9 +67,9 @@ def _weight_planes(fi, w_floor, w_ceil, lo: int, hi: int):
 
 
 def scatter_accumulate_padded(xrel, yrel, charge, active, halo):
-    """Accumulate CIC contributions into ``[nx+xl+xh, ny+yl+yh, C]``;
+    """Accumulate CIC contributions into ``[..., nx+xl+xh, ny+yl+yh, C]``;
     ``active`` zeroes particles that do not deposit."""
-    nx, ny, C = charge.shape
+    *lead, nx, ny, C = charge.shape
     (xl, xh), (yl, yh) = normalize_halo(halo)
     fx, wxf, wxc, cx_cl = cic_weights(xrel, (xl, xh))
     fy, wyf, wyc, cy_cl = cic_weights(yrel, (yl, yh))
@@ -73,57 +78,61 @@ def scatter_accumulate_padded(xrel, yrel, charge, active, halo):
     Wx = _weight_planes(fx, wxf, wxc, xl, xh)
     Wy = _weight_planes(fy, wyf, wyc, yl, yh)
 
-    P = torch.zeros((nx + xl + xh, ny + yl + yh, C), dtype=charge.dtype,
-                    device=charge.device)
+    P = torch.zeros((*lead, nx + xl + xh, ny + yl + yh, C),
+                    dtype=charge.dtype, device=charge.device)
     for ix, ox in enumerate(range(-xl, xh + 1)):
         for iy, oy in enumerate(range(-yl, yh + 1)):
             w = Wx[ix] * Wy[iy]
-            P[xl + ox:xl + ox + nx, yl + oy:yl + oy + ny, :] += w[..., None] * ch
-    clamped = torch.sum((cx_cl | cy_cl) & active).to(torch.int32)
+            P[..., xl + ox:xl + ox + nx, yl + oy:yl + oy + ny, :] += (
+                w[..., None] * ch)
+    clamped = torch.sum((cx_cl | cy_cl) & active, dim=(-2, -1)
+                        ).to(torch.int32)
     return P, ScatterStats(clamped=clamped)
 
 
 def fold_padded_x(P, bx: Boundary, halo):
     """Fold the x halo slabs of a padded array: periodic wrap or drop."""
     (xl, xh), _ = normalize_halo(halo)
-    nx = P.shape[0] - xl - xh
-    core = P[xl:xl + nx].clone()
+    nx = P.shape[-3] - xl - xh
+    core = P[..., xl:xl + nx, :, :].clone()
     if bx == Boundary.PERIODIC:
         if xl:
-            core[nx - xl:] += P[:xl]
+            core[..., nx - xl:, :, :] += P[..., :xl, :, :]
         if xh:
-            core[:xh] += P[xl + nx:]
+            core[..., :xh, :, :] += P[..., xl + nx:, :, :]
     elif bx != Boundary.NONPERIODIC:
         raise ValueError("tripolar fold applies to the y axis only")
     return core
 
 
 def _tripolar_flip_x(row):
-    """x' = (nx - 2 - x) mod nx: reverse, then roll by -1."""
-    return torch.roll(torch.flip(row, dims=(0,)), -1, dims=0)
+    """x' = (nx - 2 - x) mod nx of a ``[..., nx, C]`` row: reverse, then
+    roll by -1."""
+    return torch.roll(torch.flip(row, dims=(-2,)), -1, dims=-2)
 
 
 def fold_padded_y(Q, by: Boundary, halo):
     """Fold the y halo slabs: periodic wrap, drop, or tripolar north fold."""
     _, (yl, yh) = normalize_halo(halo)
-    ny = Q.shape[1] - yl - yh
-    core = Q[:, yl:yl + ny].clone()
+    ny = Q.shape[-2] - yl - yh
+    core = Q[..., yl:yl + ny, :].clone()
     if by == Boundary.PERIODIC:
         if yl:
-            core[:, ny - yl:] += Q[:, :yl]
+            core[..., ny - yl:, :] += Q[..., :yl, :]
         if yh:
-            core[:, :yh] += Q[:, yl + ny:]
+            core[..., :yh, :] += Q[..., yl + ny:, :]
     elif by == Boundary.TRIPOLAR_NORTH:
         # south halo dropped; north halo row ny + k folds onto ny - 1 - k
         # with x flipped
         for k in range(yh):
-            core[:, ny - 1 - k] += _tripolar_flip_x(Q[:, yl + ny + k])
+            core[..., ny - 1 - k, :] += _tripolar_flip_x(
+                Q[..., yl + ny + k, :])
     return core
 
 
 def scatter_dense(xrel, yrel, charge, active, stats: GridStats, halo):
     """Full dense scatter (plain version of K2): accumulate padded, fold x
-    then y.  ``charge`` is ``[nx, ny, C]``."""
+    then y.  ``charge`` is ``[nx, ny, C]`` or ``[L, nx, ny, C]``."""
     P, st = scatter_accumulate_padded(xrel, yrel, charge, active, halo)
     Q = fold_padded_x(P, stats.bx, halo)
     return fold_padded_y(Q, stats.by, halo), st
@@ -133,6 +142,12 @@ def scatter_xla(xrel, yrel, charge, active, stats: GridStats, halo=0):
     """Index-arithmetic scatter-add oracle, no halo bound (``halo`` is
     accepted for signature parity).  On a card ``index_add_`` sums in no
     fixed order, so this oracle is not bitwise reproducible there."""
+    if charge.dim() == 4:   # layers, one after the other
+        outs = [scatter_xla(*a, stats, halo)
+                for a in zip(xrel, yrel, charge, active)]
+        return (torch.stack([o[0] for o in outs]),
+                ScatterStats(clamped=torch.stack([o[1].clamped
+                                                  for o in outs])))
     nx, ny, C = charge.shape
     dev = charge.device
     ii = torch.arange(nx, device=dev, dtype=torch.int64)[:, None]

@@ -17,6 +17,10 @@
 
 Tensors on a card launch the kernel, or raise: tensors on the CPU are
 refused, and the model's device chooses between kernel and plain version.
+The source planes may carry a leading layer axis ``[L, nx, ny]`` (wave
+systems on one grid): one launch deposits every layer, each layer's sums
+bit for bit its own single-layer deposit, and the clamped count is then one
+a layer (``[L]``).  K6's masks and node x are ``[nx, ny]``, shared.
 The kernels wrap periodic axes, drop open ones and fold the tripolar north
 seam by indexing: a source past the top row is a mirrored ghost of a top
 row, its offsets (clamped to the declared halo) negated, and on a tripolar
@@ -50,20 +54,20 @@ from .remesh import RemeshParams, RemeshResult
 
 
 def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
-                   tripolar=False):
+                   tripolar=False, simple=False):
     """Check the deposit's inputs (``px``/``py``: the axis wraps;
     ``tripolar``: the y axis folds at the north seam, and the window is
     widened); returns (device, packed float and int parameters, clamped
-    count)."""
-    from .cuda_build import check_planes
+    count, a 0-dim tensor or one a layer)."""
+    from .cuda_build import check_layered
 
     if len(chans) != 3:
         raise ValueError(f"the gather kernel takes 3 channels, got {len(chans)}")
     f32 = torch.float32
-    ins = [xrel, yrel, *chans, active]
-    dev = check_planes(ins, ["xrel", "yrel", "c0", "c1", "c2", "active"],
-                       [f32] * 5 + [torch.bool])
-    nx, ny = xrel.shape
+    dev, L = check_layered([xrel, yrel, *chans, active],
+                           ["xrel", "yrel", "c0", "c1", "c2", "active"],
+                           [f32] * 5 + [torch.bool], (), (), (), simple)
+    nx, ny = xrel.shape[-2:]
     (xl, xh), (yl, yh) = normalize_halo(halo)
     # the window: the declared halo, or its symmetric widening
     wx = (max(xl, xh),) * 2 if tripolar else (xl, xh)
@@ -76,10 +80,10 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
     x_lo, x_hi = halo_bounds(xl, xh)
     y_lo, y_hi = halo_bounds(yl, yh)
     clamped = torch.sum(((xrel < x_lo) | (xrel > x_hi)
-                         | (yrel < y_lo) | (yrel > y_hi)) & active
-                        ).to(torch.int32)
+                         | (yrel < y_lo) | (yrel > y_hi)) & active,
+                        dim=(-2, -1)).to(torch.int32)
     return (dev, [x_lo, x_hi, y_lo, y_hi],
-            [nx, ny, *wx, *wy, int(px), int(py), int(tripolar)], clamped)
+            [nx, ny, *wx, *wy, int(px), int(py), int(tripolar), L], clamped)
 
 
 def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo,
@@ -91,20 +95,21 @@ def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo,
     tripolar = stats.by == Boundary.TRIPOLAR_NORTH
     if tripolar and simple:
         raise ValueError("the _simple baselines have no tripolar seam")
-    if (stats.nx, stats.ny) != tuple(xrel.shape):
+    if (stats.nx, stats.ny) != tuple(xrel.shape[-2:]):
         raise ValueError(f"planes are {tuple(xrel.shape)}, the grid "
                          f"{stats.nx}x{stats.ny}")
     return _deposit_setup(xrel, yrel, chans, active, halo,
                           stats.bx == Boundary.PERIODIC,
-                          stats.by == Boundary.PERIODIC, tripolar)
+                          stats.by == Boundary.PERIODIC, tripolar, simple)
 
 
 def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
                chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
                stats: GridStats, halo, *, simple: bool = False
                ) -> Tuple[Tuple[torch.Tensor, ...], ScatterStats]:
-    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of the ``active`` particles
-    at relative positions (xrel, yrel) onto the nodes (K2)."""
+    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` (or ``[L, nx, ny]``) of the
+    ``active`` particles at relative positions (xrel, yrel) onto the nodes
+    (K2)."""
     from .cuda_build import check_status, library, pointer_array
 
     dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo,
@@ -132,19 +137,21 @@ def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
                       chans: Tuple[torch.Tensor, ...], active: torch.Tensor,
                       halo, *, simple: bool = False
                       ) -> Tuple[torch.Tensor, ScatterStats]:
-    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` of one block into its padded
-    accumulator (K4): returns ``[3, nx+xl+xh, ny+yl+yh]`` (channel first,
-    each plane contiguous; padded node (i, j) is block node (i - xl,
-    j - yl)) and the clamped count.  Takes no ``GridStats``: the planes are
-    a block's and nothing wraps."""
+    """Deposit (E, m_x, m_y) planes ``[nx, ny]`` (or ``[L, nx, ny]``) of
+    one block into its padded accumulator (K4): returns ``[3, nx+xl+xh,
+    ny+yl+yh]`` (``[3, L, ...]``; channel first, each channel contiguous;
+    padded node (i, j) is block node (i - xl, j - yl)) and the clamped
+    count.  Takes no ``GridStats``: the planes are a block's and nothing
+    wraps."""
     from .cuda_build import check_status, library, pointer_array
 
-    dev, f, i, clamped = _deposit_setup(xrel, yrel, chans, active, halo)
+    dev, f, i, clamped = _deposit_setup(xrel, yrel, chans, active, halo,
+                                        simple=simple)
     nx, ny, xl, xh, yl, yh = i[:6]
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
-    out = torch.empty((3, nx + xl + xh, ny + yl + yh), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((3, *xrel.shape[:-2], nx + xl + xh, ny + yl + yh),
+                      dtype=torch.float32, device=dev)
     ptrs = pointer_array([xrel, yrel, *chans, active, *out])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -172,9 +179,11 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                                  ScatterStats]:
     """The deposit of ``pic_gather`` and the branch table of
     ``remesh.remesh_core`` on its node planes, in one pass (K6).  Returns
-    ((e, m_x, m_y), RemeshResult, ScatterStats); ``wind_fields`` a gridded
-    wind's planes of this step; ``yn`` is not sent to the kernel (no
-    analytic wind it compiles varies in y)."""
+    ((e, m_x, m_y), RemeshResult, ScatterStats); the deposit's and the
+    particle planes ``[nx, ny]`` or ``[L, nx, ny]``, ``active``,
+    ``boundary`` and ``xn`` ``[nx, ny]``; ``wind_fields`` a gridded wind's
+    planes of this step; ``yn`` is not sent to the kernel (no analytic wind
+    it compiles varies in y)."""
     from .advance_cuda import kernel_wind, wind_planes
     from .cuda_build import check_status, library, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
@@ -182,10 +191,10 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     dev, f, i, clamped = _gather_setup(xrel, yrel, chans, scatter_active,
                                        stats, halo, simple)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
-    if check_core(core, clock, xrel.shape) != dev:
+    if check_core(core, clock, xrel.shape, simple)[0] != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "
                          f"deposit's on {dev}")
-    planes = wind_planes(kernel_wind(p.winds), wind_fields, lne, simple)
+    planes = wind_planes(kernel_wind(p.winds), wind_fields, xn, simple)
     rf, ri = remesh_params(p)
     fp = np.asarray(f + rf, dtype=np.float32)
     ip = np.asarray(i + ri, dtype=np.int32)

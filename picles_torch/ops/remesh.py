@@ -70,11 +70,13 @@ class RemeshResult(NamedTuple):
 
 
 def winds_at(winds: Winds2D, xn, yn, clock) -> Tuple[torch.Tensor, ...]:
-    """(u, v) float32 planes of ``xn``'s shape at the 0-dim clock."""
-    t = torch.broadcast_to(clock, xn.shape)
-    u, v = winds(xn, yn, t)
-    return (torch.broadcast_to(u.to(torch.float32), xn.shape),
-            torch.broadcast_to(v.to(torch.float32), xn.shape))
+    """(u, v) float32 planes at the clock: a 0-dim model time (planes of
+    ``xn``'s shape), or one time a particle (``[L, *xn.shape]`` for layers,
+    each value the one its node gives at its time)."""
+    shape = torch.broadcast_shapes(xn.shape, clock.shape)
+    u, v = winds(xn, yn, torch.broadcast_to(clock, shape))
+    return (torch.broadcast_to(u.to(torch.float32), shape),
+            torch.broadcast_to(v.to(torch.float32), shape))
 
 
 def seed_values(defaults: Defaults, u, v, timestep: float):
@@ -91,7 +93,9 @@ def remesh_core(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
                 active, boundary, xn, yn, clock) -> RemeshResult:
     """The branch table on ``[nx, ny]`` planes.  ``node`` = (e, m_x, m_y)
     after the deposit; ``on``/``active``/``boundary`` bool; ``clock`` the
-    0-dim model time at which the winds are sampled."""
+    0-dim model time at which the winds are sampled.  ``node`` and the
+    particle planes may be ``[L, nx, ny]`` (layers): the masks and the winds
+    broadcast over them."""
     e_n, mx_n, my_n = node
     u, v = winds_at(p.winds, xn, yn, clock)
     wind2 = u * u + v * v

@@ -3,9 +3,11 @@
 Counterpart of ``picles_tpu/ops/remesh_pallas.py`` ``remesh_pallas``: the
 node planes after the deposit, the particle planes and the masks in; the
 remeshed particle planes, the ``on`` flag and the branch bitfield out, in
-one pass.  Tensors on a card launch the kernel, or raise: tensors on the
-CPU are refused.  The plain version is ``remesh.remesh_core``; the model's
-device chooses between them.
+one pass.  The deposit's and the particle planes may carry a leading layer
+axis ``[L, nx, ny]`` over masks and node x ``[nx, ny]``, which every layer
+shares: one launch remeshes every layer.  Tensors on a card launch the
+kernel, or raise: tensors on the CPU are refused.  The plain version is
+``remesh.remesh_core``; the model's device chooses between them.
 
 The model clock enters as a 0-dim float32 tensor on the card, read by the
 kernel, so a step never reads it back to the host.  The winds must carry a
@@ -62,13 +64,15 @@ def remesh_params(p: RemeshParams) -> Tuple[list, list]:
 
 
 def check_core(planes: Sequence[torch.Tensor], clock: torch.Tensor,
-               shape) -> torch.device:
-    """The particle planes and masks (``CORE_NAMES``) and the clock, as the
-    kernels take them."""
-    from .cuda_build import check_planes
+               shape, simple: bool = False) -> Tuple[torch.device, int]:
+    """The particle planes (``CORE_NAMES[:7]``, shaped ``shape``: the node
+    state's), the masks and the node x (``[nx, ny]``, shared by the layers)
+    and the clock, as the kernels take them; returns (device, layers)."""
+    from .cuda_build import check_layered
 
     f32, b = torch.float32, torch.bool
-    dev = check_planes(planes, CORE_NAMES, [f32] * 6 + [b] * 3 + [f32])
+    dev, L = check_layered(planes[:7], CORE_NAMES[:7], [f32] * 6 + [b],
+                           planes[7:], CORE_NAMES[7:], [b, b, f32], simple)
     if tuple(planes[0].shape) != tuple(shape):
         raise ValueError(f"particle planes are {tuple(planes[0].shape)}, "
                          f"the node planes {tuple(shape)}")
@@ -76,7 +80,7 @@ def check_core(planes: Sequence[torch.Tensor], clock: torch.Tensor,
         raise ValueError("the clock must be one float32 value on "
                          f"{dev}, got {clock.dtype} {tuple(clock.shape)} on "
                          f"{clock.device}")
-    return dev
+    return dev, L
 
 
 def remesh_outputs(like: torch.Tensor) -> list:
@@ -91,17 +95,18 @@ def remesh_outputs(like: torch.Tensor) -> list:
 def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
                 active, boundary, xn, yn, clock, *,
                 wind_fields: Sequence[torch.Tensor] = ()) -> RemeshResult:
-    """The branch table over ``[nx, ny]`` planes on a card (K5), with the
-    arguments and semantics of ``remesh.remesh_core``; ``wind_fields`` a
+    """The branch table on a card (K5), with the arguments and semantics of
+    ``remesh.remesh_core``: ``node`` and the particle planes ``[nx, ny]`` or
+    ``[L, nx, ny]``, the masks and ``xn`` ``[nx, ny]``; ``wind_fields`` a
     gridded wind's planes of this step.  ``yn`` is not sent to the kernel:
     no analytic wind it compiles varies in y."""
     from .cuda_build import check_planes, check_status, library, pointer_array
 
     node = tuple(node)
-    dev = check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
+    check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
-    check_core(core, clock, node[0].shape)
-    planes = wind_planes(kernel_wind(p.winds), wind_fields, lne)
+    dev, L = check_core(core, clock, node[0].shape)
+    planes = wind_planes(kernel_wind(p.winds), wind_fields, xn)
     f, i = remesh_params(p)
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
@@ -110,7 +115,7 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().picles_remesh(fp.ctypes.data, ip.ctypes.data,
-                                       ctypes.addressof(ptrs), lne.numel(),
+                                       ctypes.addressof(ptrs), xn.numel(), L,
                                        stream)
     check_status(code, "remesh")
     remesh_cuda.launches += 1

@@ -28,8 +28,12 @@ staged through host memory explicitly; that is how several ranks share one
 card.  The process group is the caller's (``init_distributed``, the
 counterpart of ``jax.distributed.initialize``).
 
-Not ported: layered models (``WaveGrowth2D`` refuses them, ROADMAP item
-15).
+A layered model (``config.layers > 1``) is cut the same way: its planes
+are ``[L, nx_b, ny_b]`` a rank, every layer shares the mesh, K4 deposits
+every layer in one launch, each exchange moves all L layers' slabs in one
+message a direction, and the counters ``[L, 10]`` and ``[L]`` reduce in the
+same two all-reduces.  Per-layer winds (``LayeredWaveGrowth2D`` with
+``per_layer_winds``) run on one device only.
 """
 
 from __future__ import annotations
@@ -131,14 +135,15 @@ def slice_grid(grid: Grid2D, sx: slice, sy: slice) -> Grid2D:
 
 def slice_state(ms: ModelState2D, sx: slice, sy: slice, device
                 ) -> ModelState2D:
-    """The block of every plane of ``ms`` on ``device``, contiguous; the
-    clock, iteration and counters whole (the counterpart of
-    ``state_specs``)."""
+    """The block of every plane of ``ms`` (its last two axes; the node
+    state's two before the channels) on ``device``, contiguous; a layered
+    state keeps its leading ``[L]``; the clock, iteration and counters
+    whole (the counterpart of ``state_specs``)."""
     def cut(t):
-        return t[sx, sy].to(device).contiguous()
+        return t[..., sx, sy].to(device).contiguous()
 
     return ModelState2D(
-        state=cut(ms.state),
+        state=ms.state[..., sx, sy, :].to(device).contiguous(),
         particles=Particles2D(**{k: cut(getattr(ms.particles, k))
                                  for k in _PLANES}),
         time=ms.time.to(device), iteration=ms.iteration.to(device),
@@ -165,8 +170,15 @@ class ShardedWaveGrowth2D(StepDrivers):
 
     def __init__(self, model, mesh: Mesh):
         if not hasattr(model, "step_core"):
-            raise TypeError("ShardedWaveGrowth2D wraps a WaveGrowth2D model")
+            raise TypeError(
+                "ShardedWaveGrowth2D wraps a WaveGrowth2D model; for a "
+                "LayeredWaveGrowth2D adapter pass its `.model` (layers "
+                "shard with it when config.layers > 1). Per-layer winds are "
+                "single-device only (each layer has its own model).")
         self.model = model
+        # a layered model's planes are [L, nx_b, ny_b] a rank
+        self.layers = model.config.layers
+        self._layered = self.layers > 1
         self.mesh = mesh
         self.nx_dev, self.ny_dev = mesh.shape
         g = model.grid
@@ -233,9 +245,12 @@ class ShardedWaveGrowth2D(StepDrivers):
         return self.model.resolved_config()
 
     def init_state(self) -> ModelState2D:
-        """Every rank seeds the whole grid, as the model does, and keeps its
-        block (the counterpart of ``make_array_from_callback``)."""
-        return self.shard_state(self.model.init_state())
+        """Every rank seeds the whole grid, as the model does (every layer
+        of a layered model), and keeps its block (the counterpart of
+        ``make_array_from_callback``)."""
+        return self.shard_state(self.model.init_state_layers()
+                                if self._layered else
+                                self.model.init_state())
 
     def shard_state(self, ms: ModelState2D) -> ModelState2D:
         """This rank's block of a whole state, on the model's device."""
@@ -291,8 +306,9 @@ class ShardedWaveGrowth2D(StepDrivers):
         return None if buf is None else self._unwire(buf)
 
     def _reduce_counts(self, counts: torch.Tensor, smax: torch.Tensor):
-        """The packed counters summed and ``substeps_max`` maximised over
-        the ranks."""
+        """The packed counters (``[10]``, or ``[L, 10]`` layered) summed and
+        ``substeps_max`` (0-dim or ``[L]``) maximised over the ranks, every
+        layer in the same two all-reduces."""
         c, m = self._wire(counts), self._wire(smax)
         dist.all_reduce(c, op=dist.ReduceOp.SUM, group=self.mesh.group)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.mesh.group)
@@ -302,50 +318,52 @@ class ShardedWaveGrowth2D(StepDrivers):
 
     def accumulate_padded(self, xrel, yrel, chans, act):
         """The block's padded accumulator ``[3, nx_b+xl+xh, ny_b+yl+yh]``
-        and its clamped count: K4 under ``scatter_mode="dense_cuda"``,
-        otherwise its plain version."""
+        (``[3, L, ...]`` layered) and its clamped count: K4 under
+        ``scatter_mode="dense_cuda"``, otherwise its plain version."""
         if self._kernel:
             from ..ops.pic_cuda import pic_gather_padded
 
             return pic_gather_padded(xrel, yrel, chans, act, self.halo)
         P, st = pic.scatter_accumulate_padded(
             xrel, yrel, torch.stack(chans, dim=-1), act, self.halo)
-        return P.permute(2, 0, 1), st
+        return P.movedim(-1, 0), st
 
     def _scatter_sharded(self, xrel, yrel, chans, act):
         """Local deposit, halo exchange and boundary folds; returns the
         block's three node planes and the local clamped count.  The low
         slab (width x_lo) belongs to the previous block's tail, the high
-        one (x_hi) to the next block's head."""
+        one (x_hi) to the next block's head.  The planes are the block's
+        last two axes; a layered block's slabs carry every layer, so each
+        direction is one message."""
         (xl, xh), (yl, yh) = self.halo
         st = self.model.grid.stats
         P, stats = self.accumulate_padded(xrel, yrel, chans, act)
-        nxl, nyl = xrel.shape
+        nxl, nyl = xrel.shape[-2:]
 
         # x, on the padded planes' full y extent
         wrap_x = st.bx in (Boundary.PERIODIC, Boundary.TRIPOLAR_NORTH)
-        Q = P[:, xl:xl + nxl]
+        Q = P[..., xl:xl + nxl, :]
         if xl:
-            r = self._shift(P[:, :xl], 0, False, wrap_x)
+            r = self._shift(P[..., :xl, :], 0, False, wrap_x)
             if r is not None:
-                Q[:, nxl - xl:] += r
+                Q[..., nxl - xl:, :] += r
         if xh:
-            r = self._shift(P[:, xl + nxl:], 0, True, wrap_x)
+            r = self._shift(P[..., xl + nxl:, :], 0, True, wrap_x)
             if r is not None:
-                Q[:, :xh] += r
+                Q[..., :xh, :] += r
 
         # y, on the x-folded rows, corners included
         wrap_y = st.by == Boundary.PERIODIC
-        S = Q[:, :, yl:yl + nyl]
-        top = Q[:, :, yl + nyl:]
+        S = Q[..., yl:yl + nyl]
+        top = Q[..., yl + nyl:]
         if yl:
-            r = self._shift(Q[:, :, :yl], 1, False, wrap_y)
+            r = self._shift(Q[..., :yl], 1, False, wrap_y)
             if r is not None:
-                S[:, :, nyl - yl:] += r
+                S[..., nyl - yl:] += r
         if yh:
             r = self._shift(top, 1, True, wrap_y)
             if r is not None:
-                S[:, :, :yh] += r
+                S[..., :yh] += r
         if st.by == Boundary.TRIPOLAR_NORTH and self.iy == self.ny_dev - 1:
             self._fold_seam(S, top)
         return tuple(S[c].contiguous() for c in range(S.shape[0])), stats
@@ -360,13 +378,13 @@ class ShardedWaveGrowth2D(StepDrivers):
             w = self._wire(top)
             parts = [torch.empty_like(w) for _ in range(self.nx_dev)]
             dist.all_gather(parts, w, group=self._seam_group)
-            full = self._unwire(torch.cat(parts, dim=1))
-        nxl, nyl = S.shape[1], S.shape[2]
+            full = self._unwire(torch.cat(parts, dim=-2))
+        nxl, nyl = S.shape[-2:]
         x0 = self.ix * nxl
-        for k in range(top.shape[2]):
-            row = full[:, :, k]
-            folded = torch.roll(torch.flip(row, dims=(1,)), -1, dims=1)
-            S[:, :, nyl - 1 - k] += folded[:, x0:x0 + nxl]
+        for k in range(top.shape[-1]):
+            row = full[..., k]
+            folded = torch.roll(torch.flip(row, dims=(-1,)), -1, dims=-1)
+            S[..., nyl - 1 - k] += folded[..., x0:x0 + nxl]
 
     # -- whole fields on rank 0 ------------------------------------------
 
@@ -374,7 +392,10 @@ class ShardedWaveGrowth2D(StepDrivers):
                       ) -> Optional[torch.Tensor]:
         """``t``, a block's tensor whose dims ``axis`` and ``axis + 1`` are
         the block's x and y, whole on rank 0 (on the model's device); None
-        on the other ranks.  A collective: every rank calls it."""
+        on the other ranks.  A layered model's tensors carry the layer axis
+        just before x, which ``axis`` does not count.  A collective: every
+        rank calls it."""
+        axis += int(self._layered)
         w = self._wire(t)
         parts: Optional[List[torch.Tensor]] = (
             [torch.empty_like(w) for _ in range(self.mesh.size)]

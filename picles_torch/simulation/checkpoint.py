@@ -6,8 +6,10 @@ clock, iteration, counters) in one compressed ``.npz`` file, in the JAX
 package's layout: ``__meta__`` holds ``{"version": 2, "kind":
 "ModelState2D", "n_leaves": 22}`` and ``leaf_i`` the i-th leaf in the JAX
 pytree order of ``ModelState2D``.  So a checkpoint written by
-``picles_tpu`` resumes here and the other way round, bit for bit.  The
-orbax backend is not ported (ROADMAP item 17).
+``picles_tpu`` resumes here and the other way round, bit for bit.  A
+layered state's leaves carry their leading ``[L]`` axis, counters too, in
+both packages' files alike.  The orbax backend is not ported (ROADMAP item
+17).
 """
 
 from __future__ import annotations

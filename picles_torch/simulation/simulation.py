@@ -99,10 +99,11 @@ class Simulation:
 
     def init_state_store(self, path: str, name: str = "state",
                          replace: bool = True) -> StateStore:
-        """An HDF5 ``StateStore`` sized for the whole horizon.
-        ``replace=False`` re-attaches an existing file (checkpoint-resume
-        legs): the run loop aligns the write cursor to the resumed state's
-        iteration."""
+        """An HDF5 ``StateStore`` sized for the whole horizon: ``[time, x,
+        y, state]``, or ``[time, layer, x, y, state]`` for a layered model
+        (``model.layers > 1``).  ``replace=False`` re-attaches an existing
+        file (checkpoint-resume legs): the run loop aligns the write cursor
+        to the resumed state's iteration."""
         if not getattr(self.model, "is_root", True):
             self.store = EmptyStore()   # rank 0 writes a sharded run's store
             return self.store
@@ -110,6 +111,9 @@ class Simulation:
         nsteps = self.n_steps()
         coords = dict(
             time=np.arange(0.0, (nsteps + 1) * self.dt, self.dt)[:nsteps + 1])
+        layers = getattr(self.model, "layers", 1)
+        if layers > 1:
+            coords["layer"] = np.arange(layers, dtype=float)
         coords["x"] = g.x[:, 0].cpu().numpy()
         coords["y"] = g.y[0, :].cpu().numpy()
         coords["state"] = ["e", "m_x", "m_y"]
@@ -141,8 +145,9 @@ class Simulation:
 
         With a store, every step's state is kept: steps run in chunks of
         ``chunk_size`` (default 64) through ``step_n_buffered``, whose
-        ``[chunk, nx, ny, 3]`` buffer bounds the device memory for any
-        horizon, and each chunk goes to the store.  Without a store, steps
+        ``[chunk, nx, ny, 3]`` buffer (``[chunk, L, nx, ny, 3]`` layered)
+        bounds the device memory for any horizon, and each chunk goes to the
+        store.  Without a store, steps
         run through ``step_n_quiet``, in one chunk unless a wall-time limit
         or callbacks need chunk ends (then 64 steps a chunk).
         """

@@ -1,7 +1,9 @@
 """Output stores (PyTorch port of ``picles_tpu/simulation/store.py``).
 
 ``StateStore`` writes the JAX package's HDF5 layout: group ``waves`` with
-dataset ``data`` of shape ``[time, x, y, state]`` (float64), coordinate
+dataset ``data`` of shape ``[time, x, y, state]`` (``[time, layer, x, y,
+state]`` for a layered model; the frames pushed are then ``[L, x, y,
+state]``) (float64), coordinate
 datasets, a ``dims`` attribute and ``var_names = ["e", "m_x", "m_y"]``.
 ``add_forcing`` adds the group ``forcing`` (float64 fields, their ``dims``
 and coordinates).  ``CashStore`` keeps host copies of the states in memory;

@@ -36,23 +36,30 @@ DEPOSIT_CASES = [("periodic", 3), ("periodic", ((0, 3), (0, 3))),
                  ("tripolar", ((2, 3), (1, 3)))]
 STEP_CASES = [(m, p) for p in (True, False) for m in ((8, 1), (4, 2), (2, 4))]
 ASYM_MESHES = [(4, 2), (2, 4)]
+# the gridded (NetCDF-like) record under the "pallas" and "xla" remeshes
+GRIDDED_REMESH = ("pallas", "xla")
+LAYERS = 3
+LAYERED_N = 16
 
 
-def settings(adaptive=True, sub=1e-3):
+def settings(adaptive=True, sub=1e-3, **tols):
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
     return pt.ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                           timestep=DT, total_time=6 * 24 * 3600.0, dt=sub,
-                          dtmin=1e-4, force_dtmin=True, adaptive=adaptive)
+                          dtmin=1e-4, force_dtmin=True, adaptive=adaptive,
+                          **tols)
 
 
 def model(periodic=True, halo=3, sett=None, dtype=torch.float32,
-          tripolar=False, winds=None):
+          tripolar=False, winds=None, n=(NX, NY), **cfg):
     """tests/test_sharded.py's ``_model`` on the port (32 x 24 box,
     constant (10, 5) m/s winds); ``tripolar`` swaps the y boundary for the
-    north seam, as that file's seam tests do."""
+    north seam, as that file's seam tests do; ``cfg`` more config
+    entries (``layers``, the remesh)."""
     import dataclasses
 
-    grid = pt.cartesian_box(100e3, NX, 100e3, NY, device="cpu", dtype=dtype,
+    grid = pt.cartesian_box(100e3, n[0], 100e3, n[1], device="cpu",
+                            dtype=dtype,
                             periodic_boundary=(periodic, periodic))
     if tripolar:
         grid = dataclasses.replace(grid, stats=dataclasses.replace(
@@ -62,7 +69,59 @@ def model(periodic=True, halo=3, sett=None, dtype=torch.float32,
                            sett or settings(),
                            config=pt.WaveGrowth2DConfig(
                                periodic_boundary=periodic, halo=halo,
-                               dtype=dtype))
+                               dtype=dtype, **cfg))
+
+
+# the solver tolerances of the gridded tests (tests/test_torch_gridded_winds
+# .py ``_settings``): at the defaults the young seas of a record leave the
+# controller at the edge of accepting
+GRIDDED_TOLS = dict(abstol=1e-7, reltol=1e-6)
+
+
+def storm_record():
+    """A storm that crosses the 100 km box in x and turns through a full
+    circle in 6 h over a (6, 4) m/s background, on a 12 x 10 node record
+    (periodic, hourly frames): its winds change across every block edge
+    of a (4, 2) mesh.  Returns (u, v, the axis keywords) as numpy arrays
+    and floats, for either package's ``GriddedWinds2D``."""
+    nt, nxw, nyw = 7, 12, 10
+    t = np.arange(nt) * 3600.0
+    x = np.arange(nxw) * (100e3 / nxw)
+    y = np.arange(nyw) * (100e3 / nyw)
+    T, X, Y = np.meshgrid(t, x, y, indexing="ij")
+    xc = 10e3 + 80e3 * T / t[-1]
+    g = np.exp(-(((X - xc) / 25e3) ** 2 + ((Y - 50e3) / 30e3) ** 2))
+    phi = 2.0 * np.pi * T / t[-1]
+    u = (6.0 + 10.0 * g * np.cos(phi)).astype(np.float32)
+    v = (4.0 + 10.0 * g * np.sin(phi)).astype(np.float32)
+    return u, v, dict(x0=0.0, dx=float(x[1]), y0=0.0, dy=float(y[1]),
+                      t0=0.0, dt=3600.0, mode="wrap")
+
+
+def gridded_model(remesh):
+    u, v, kw = storm_record()
+    gw = pt.GriddedWinds2D(u_data=torch.as_tensor(u),
+                           v_data=torch.as_tensor(v), **kw)
+    return model(winds=gw, sett=settings(**GRIDDED_TOLS),
+                 dt_reset_mode="carry", remesh_mode=remesh)
+
+
+def swell_defaults(L):
+    """tests/test_layers.py's ``_swell_defaults``: L distinct swell
+    systems."""
+    out = []
+    for k in range(L):
+        ang = 2 * np.pi * k / L
+        cg = 4.0 + 0.5 * k
+        out.append(pt.ParticleDefaults2D(lne=float(np.log(0.002 * (k + 1))),
+                                         cg_x=float(cg * np.cos(ang)),
+                                         cg_y=float(cg * np.sin(ang))))
+    return out
+
+
+def layered_model():
+    """tests/test_layers.py's ``_model(3, n=16)`` on the port."""
+    return model(n=(LAYERED_N, LAYERED_N), layers=LAYERS)
 
 
 def whole(sharded, ms):
@@ -103,11 +162,19 @@ def deposit_case(i):
     return dict(S=S.numpy(), xr=xr, yr=yr, ch=ch, act=act)
 
 
-def step_run(sh, n=3):
-    ms = sh.init_state()
+def step_run(sh, n=3, ms=None):
+    ms = sh.init_state() if ms is None else ms
     for _ in range(n):
         ms = sh.step(ms)
     return whole(sh, ms)
+
+
+def layered_run():
+    """Two layered steps of the swell systems over a (4, 2) mesh."""
+    m = layered_model()
+    sh = ShardedWaveGrowth2D(m, make_mesh((4, 2)))
+    return step_run(sh, 2, sh.shard_state(
+        m.init_state_layers(swell_defaults(LAYERS))))
 
 
 def simulation_case(out_dir):
@@ -159,6 +226,10 @@ def main():
         model(sett=settings(False, 60.0), dtype=torch.float64,
               winds=pt.half_domain_winds(10.0, 5.0, 50e3)),
         make_mesh((4, 2)))))]
+    cases += [(f"gridded_{r}", lambda r=r: step_run(ShardedWaveGrowth2D(
+        gridded_model(r), make_mesh((4, 2)))))
+              for r in GRIDDED_REMESH]
+    cases += [("layered", layered_run)]
     cases += [("simulation", lambda: simulation_case(out_dir))]
     for name, run in cases:
         try:

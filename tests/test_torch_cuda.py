@@ -1165,3 +1165,65 @@ def test_kernels_on_a_grid_past_the_tpu_vmem_limits(dev):
     k2, _ = pic_gather(comps[3], comps[4], chans, sact, m.grid.stats, halo)
     _assert_bitwise((*nd, *rm),
                     (*k2, *remesh_cuda(m.remesh_params, k2, *core)))
+
+
+# ---------------------------------------------------------------------------
+# layers: one launch of each kernel for every layer
+# ---------------------------------------------------------------------------
+
+def test_layered_kernels_equal_single_layer_launches_bitwise(dev):
+    """Each kernel launched once over 3 layers at 64^2 equals its three
+    single-layer launches bit for bit, in every instance (constant,
+    time-cosine and gridded winds of B = 1 and 3, projection planes,
+    periodic, open and tripolar deposits, the padded one, the remesh alone
+    and fused), and its plain version over the layered inputs
+    (``chip_smoke.layer_kernel_checks``, which its phase "layer-kernels"
+    runs at 256^2)."""
+    err = _chip_smoke().layer_kernel_checks(dev, n=64, L=3)
+    assert set(err) == {"K1", "K2", "K3", "K4", "K5", "K6"}
+
+
+def _chip_smoke():
+    """The repo root's ``chip_smoke`` module (its checks and seeds)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas", "fused", "default"])
+def test_layered_step_equals_single_layer_steps_bitwise(dev, path):
+    """Three swell systems at 64^2: each layer of 3 layered steps (each
+    kernel launched once a step) bit for bit 3 steps of the single-layer
+    model seeded alike, and the graphed drivers' replays bit for bit the
+    eager layered steps."""
+    import dataclasses
+
+    from picles_torch import WaveGrowth2D
+    from picles_torch.models.wave_growth_2d import layer_of
+    from picles_torch.ops.advance_cuda import advance_cuda
+
+    one = _driven_model(dev, path)
+    model = WaveGrowth2D(one.grid, one.winds, one.settings,
+                         config=dataclasses.replace(one.config, layers=3))
+    d = _chip_smoke().swell_defaults(3)
+    lay = model.as_layered(d)
+    assert lay.graphed
+    ms0 = lay.init_state()
+    eager = [ms0]
+    before = advance_cuda.launches
+    for _ in range(3):
+        eager.append(lay.step(eager[-1]))
+    assert advance_cuda.launches == before + 3
+    for k in range(3):
+        s = one.init_state(defaults=d[k])
+        for _ in range(3):
+            s = one.step(s)
+        _assert_bitwise(layer_of(eager[-1], k).leaves(), s.leaves())
+    for n in (1, 3):
+        _assert_bitwise(lay.step_n_quiet(ms0, n).leaves(), eager[n].leaves())
+    assert eager[-1].metrics.n_failed.tolist() == [0, 0, 0]

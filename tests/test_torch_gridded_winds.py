@@ -764,7 +764,8 @@ def test_loader_matches_jax(tmp_path, fmt, names, kind, kw):
     v = rng.uniform(-4.0, 4.0, (nt, ny_, nx_)).astype(np.float32)
     path = str(tmp_path / f"winds_{fmt}.nc")
     _write(path, fmt, names, (xs, ys, ts), u, v)
-    jg, tg = j_load(path, **kw), pt.load_gridded_winds_2d(path, **kw)
+    jg, tg = j_load(path, **kw), pt.load_gridded_winds_2d(
+        path, device="cpu", **kw)
     for k in ("x0", "dx", "y0", "dy", "t0", "dt", "mode", "mode_t"):
         assert getattr(tg, k) == getattr(jg, k), k
     for k in ("u_data", "v_data", "x_nodes", "y_nodes", "t_nodes"):
@@ -794,10 +795,27 @@ def test_loader_without_h5py_reads_netcdf3(tmp_path, monkeypatch):
         import h5py  # noqa: F401
     gw = pt.load_gridded_winds_2d(path, u_name="U10N", v_name="V10N",
                                   x_name="lon", y_name="lat",
-                                  time_scale=3600.0, relative_time=True)
+                                  time_scale=3600.0, relative_time=True,
+                                  device="cpu")
     np.testing.assert_array_equal(gw.u_data.numpy(),
                                   np.transpose(u, (0, 2, 1))[:, :, ::-1])
     assert gw.dt == 3600.0 and gw.dy == 1e4
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "
+                    "without a CUDA device")
+def test_loader_defaults_to_the_card(tmp_path):
+    """Without ``device`` the loader asks for the CUDA device, as
+    ``load_checkpoint`` does, and raises where there is none, naming the
+    CPU's way out."""
+    path = str(tmp_path / "era5.nc")
+    u = np.ones((3, 4, 5), np.float32)
+    _write(path, "nc3", ("lon", "lat", "time", "U10N", "V10N"),
+           (np.linspace(0, 4e4, 5), np.linspace(0, 3e4, 4), np.arange(3.0)),
+           u, u)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.load_gridded_winds_2d(path, u_name="U10N", v_name="V10N",
+                                 x_name="lon", y_name="lat")
 
 
 def test_store_add_forcing_matches_jax(tmp_path):
