@@ -17,11 +17,15 @@ just before and read just after:
    storeless day (145 steps) of the fused flagship, checkpointed at step 72
    and resumed bit for bit, and a stored day at 256^2;
 3. the "pallas" flagship through ``ShardedWaveGrowth2D`` on a (1, 1) mesh
-   over NCCL (K1, K4, the self-wrap fold, K5).  Then four ranks of this
+   over NCCL (K1, K4, the self-wrap fold, K5), and in the same process
+   group the global tripolar configuration (phase "sharded-tripolar":
+   1440 x 720, K1 with projection and wind planes, K4, the self-wrap and
+   seam folds, K5 or K3).  Then four ranks of this
    script on the same card over gloo (a 2 x 2 mesh) hold the collective
    deposit against the global K2 deposit, the sharded step against the
-   single-device one, and a sharded ``Simulation.run`` with a store and a
-   checkpoint resume;
+   single-device one, a sharded ``Simulation.run`` with a store and a
+   checkpoint resume, and the tripolar configuration at 360 x 180 with the
+   seam across two top blocks;
 4. the gridded configuration: an ERA5-shaped wind record written by this
    script as a NetCDF-3 file and read back through the port's
    ``load_gridded_winds_2d``, at 1536^2 with a symmetric halo 3: a
@@ -73,6 +77,12 @@ just before and read just after:
    the kernels' timing holds and times them at full width against their
    ten single launches.
 
+9. the 1D growth model (phase "1d"; no kernel in either package, plain
+   PyTorch on the card): two model days of the B01 configurations through
+   ``Simulation.run`` (onto the Dulov curve, the collapse across wind
+   speeds), a checkpoint resumed bit for bit, the card against the CPU,
+   and the deterministic sign-merge deposit on 2^20 lanes.
+
 ``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
 through it.  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
@@ -123,10 +133,12 @@ import torch
 import torch.distributed as dist
 
 from picles_torch import (Boundary, GridStats, ODEParameters, ODESettings,
-                          Simulation, TermFlags, WaveGrowth2D,
+                          Simulation, TermFlags, WaveGrowth1D,
+                          WaveGrowth1DConfig, WaveGrowth2D,
                           WaveGrowth2DConfig, cartesian_box,
                           cartesian_grid_2d, constant_winds,
-                          half_domain_winds, load_gridded_winds_2d,
+                          constant_winds_1d, half_domain_winds,
+                          load_gridded_winds_2d, one_d_grid,
                           spherical_grid_2d, synthetic_tripolar_grid,
                           time_cosine_winds)
 from picles_torch.__main__ import build_simulation
@@ -143,7 +155,8 @@ from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
                                            auto_dt_reset, kernel_wind,
                                            node_projection,
                                            uniform_projection)
-from picles_torch.ops.pic import (normalize_halo, scatter_accumulate_padded,
+from picles_torch.ops.pic import (normalize_halo, scatter_1d_add,
+                                  scatter_1d_merge, scatter_accumulate_padded,
                                   scatter_dense)
 from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
                                        pic_gather_remesh)
@@ -1993,11 +2006,12 @@ def phase_sharded_1x1(dev, gw, results, timing):
                     ms, t = time_steps(sh, ms, 10)
                 runs[who].append(t)
         del ms, ref
+        results["K4"]["launches"] = c["K4"]
         phase_sharded_layers(dev, gw, results, timing)
+        phase_sharded_tripolar(dev, results, timing)
     finally:
         dist.destroy_process_group()
     ms_step, single = (float(np.median(runs[k])) for k in ("sharded", "single"))
-    results["K4"]["launches"] = c["K4"]
     timing["sharded_1x1_ms_per_step"] = ms_step
     timing["sharded_1x1_pushes_per_s"] = n * n / (ms_step / 1e3)
     timing["single_pallas_ms_per_step"] = single
@@ -2078,8 +2092,11 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
     against the single-device step, then timed steps; (c) at 256^2 a
     Simulation.run of 6 steps with a CashStore against the single-device
     run frame by frame (7 frames), and a checkpoint at step 3 resumed bitwise equal
-    to the uninterrupted sharded run.  Rank 0 holds the references and
-    writes the numbers to ``out/rank0.json``."""
+    to the uninterrupted sharded run; (d) the tripolar configuration at 360
+    x 180 ("pallas" and "default", the solver tolerances
+    ``SHARDED_TRI_TOLS``), 4 steps against the single-device step, the
+    seam folded across the two top blocks.  Rank 0 holds the references
+    and writes the numbers to ``out/rank0.json``."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2189,6 +2206,33 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
                            f"frames match the single-device run; resumed "
                            f"from the step-3 checkpoint bitwise equal (all "
                            f"{len(a.leaves())} leaves)")
+    del a, b, stored, full, leg, rest
+
+    # (d) the tripolar configuration at 1 degree (360 x 180): the seam
+    # fold all-gathers the top halo across the two top blocks
+    tgrid = tripolar_grid(dev, 720, 360)
+    tgw = tripolar_record(dev)
+    for path in SHARDED_TRI_PATHS:
+        tm = tripolar_model(tgrid, tgw, path, tols=SHARDED_TRI_TOLS)
+        tsh = ShardedWaveGrowth2D(tm, mesh)
+        assert tsh._seam_group is not None
+        t0 = time.perf_counter()
+        ms = eager_steps(tsh, tsh.init_state(), 4)
+        whole = tsh.gather_state(ms)
+        wall = time.perf_counter() - t0
+        if root:
+            ref = eager_steps(tm, tm.init_state(), 4)
+            err = assert_states(f"2x2 tripolar {path} vs single device, 4 "
+                                f"steps", whole, ref)
+            m = check_tripolar(f"2x2 tripolar {path}", tm, whole)
+            res[f"tripolar_{path}_max_abs_err"] = err
+            res[f"tripolar_{path}_4_steps_wall_s"] = wall
+            log("sharded-2x2", f"tripolar {path} {tgrid.nx} x {tgrid.ny} on "
+                               f"a (2, 2) mesh, the seam across two top "
+                               f"blocks: 4 steps vs single device max abs "
+                               f"err {err:.3e}, counters equal; metrics "
+                               f"{m}; {wall:.2f} s wall with the gather")
+    if root:
         with open(os.path.join(out, "rank0.json"), "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
@@ -3324,20 +3368,21 @@ def tripolar_record(dev) -> GriddedWinds2D:
         dx=1.0, y0=-80.0, dy=1.0, t0=0.0, dt=3600.0)
 
 
-def tripolar_model(grid, gw, path: str, tols=None):
+def tripolar_model(grid, gw, path: str, tols=None, **cfg_kw):
     """The tripolar configuration on ``grid`` forced by ``gw``, with the JAX
     tripolar tests' settings (DT = 1200 s, dt = 1e-3, dtmin = 1e-4,
     force_dtmin, the log-energy minimum of a (10, 10) m/s minimal windsea),
     periodic, halo 3: "production" bosh3 with the carried dt and the fused
     remesh (K1, K6), "pallas" with K5 (K1, K2, K5), "default"
-    ``WaveGrowth2DConfig()``'s tsit5 with the Hairer reset (K1, K2, K3)."""
+    ``WaveGrowth2DConfig()``'s tsit5 with the Hairer reset (K1, K2, K3);
+    ``cfg_kw`` more config entries (``scatter_mode``)."""
     ws = FR.MinimalWindsea(10.0, 10.0, TRI_DT)
     sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=TRI_DT,
                        timestep=TRI_DT, total_time=6 * DAY, dt=1e-3,
                        dtmin=1e-4, force_dtmin=True,
                        solver="tsit5" if path == "default" else "bosh3",
                        **(tols or {}))
-    cfg = WaveGrowth2DConfig(periodic_boundary=True, halo=3)
+    cfg = WaveGrowth2DConfig(periodic_boundary=True, halo=3, **cfg_kw)
     if path != "default":
         cfg = dataclasses.replace(
             cfg, dt_reset_mode="carry",
@@ -4641,6 +4686,323 @@ def phase_sharded_layers(dev, gw, results, timing) -> None:
     timing["sharded_1x1_layers"] = out
 
 
+# ---------------------------------------------------------------------------
+# the 1D growth model (no kernel: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+# the B01 regression configurations (tests/test_model_1d_b01.py, after the
+# reference's B01_1D_regtest_wave_growth.jl): 31 nodes over 500 km at 10
+# m/s, and the collapse at 5, 10 and 20 m/s on 21 nodes over 1000 km
+# (U/10)^2; two model days of DT = 600 s
+B01_STEPS = 288
+B01_CHECKPOINT = 144
+G_ACC = 9.81
+DEPOSIT_1D_LANES = 2 ** 20
+DEPOSIT_1D_NODES = 4096
+
+
+def b01_model(dev, U10: float = 10.0, nx: int = 31, Lx: float = 500e3,
+              tols=None) -> WaveGrowth1D:
+    """tests/test_model_1d_b01.py's ``_model``: open ends, the log-energy
+    minimum of the 1D minimal windsea, dt = 1e-3, dtmin = 1e-4."""
+    ws = FR.MinimalWindsea_1d(U10, DT)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
+                       timestep=DT, total_time=2 * DAY, dt=1e-3, dtmin=1e-4,
+                       force_dtmin=True, **(tols or {}))
+    return WaveGrowth1D(one_d_grid(0.0, Lx, nx, periodic=False, device=dev),
+                        constant_winds_1d(U10), sett,
+                        config=WaveGrowth1DConfig(periodic_boundary=False))
+
+
+def dulov_energy(t: float, U10: float) -> float:
+    """The duration-limited JONSWAP energy through the Dulov tau -> fetch
+    map, in float64."""
+    tau = G_ACC * t / U10
+    Xt = (tau / (FR.DULOV_A * FR.DULOV_XI_0X)) ** (1.0 / (1.0 - FR.DULOV_Q_X))
+    fm = 3.5 * (G_ACC / U10) * Xt ** (-0.33)
+    aj = 0.033 * (fm * U10 / G_ACC) ** 0.67
+    return 0.31 * G_ACC ** 2 * aj * (fm * 2 * np.pi) ** (-4)
+
+
+def b01_day(model, steps: int = B01_STEPS):
+    """``steps`` steps through ``Simulation.run`` with a CashStore; returns
+    (the simulation, its frames, its wall seconds)."""
+    sim = Simulation.create(model, stop_time=(steps - 1) * DT)
+    sim.run(cash_store=True)
+    frames = sim.store.as_array()
+    assert frames.shape == (steps + 1, model.grid.nx, 3), frames.shape
+    assert np.isfinite(frames).all()
+    return sim, frames, sim.run_wall_time
+
+
+def deposit_1d_check(dev, periodic: bool) -> dict:
+    """The sign-merge deposit of ``DEPOSIT_1D_LANES`` random lanes (both
+    momentum signs, positions past both ends) over ``DEPOSIT_1D_NODES``
+    nodes: two runs bit for bit, each sign group's additive deposit within
+    1e-6 of the node's absolute sum of a float64 numpy sum of the same
+    weights, and the merge their selection, bit for bit; the merge's time
+    (CUDA events, the mean of 10 calls)."""
+    rng = np.random.default_rng(17 + int(periodic))
+    N, nx, dx = DEPOSIT_1D_LANES, DEPOSIT_1D_NODES, 1000.0
+    L = dx * (nx - 1)
+    x = rng.uniform(-0.1 * L, 1.1 * L, N).astype(np.float32)
+    e = rng.uniform(0.1, 1.0, N).astype(np.float32)
+    m = (np.where(rng.random(N) < 0.5, -1.0, 1.0)
+         * rng.uniform(0.01, 0.1, N)).astype(np.float32)
+    ch = np.stack([e, m, np.zeros_like(e)], axis=-1)
+    act = rng.random(N) > 0.1
+    X, C, A = (torch.as_tensor(a, device=dev) for a in (x, ch, act))
+    S = scatter_1d_merge(X, C, A, 0.0, dx, nx, periodic)
+    assert torch.equal(bits(S), bits(scatter_1d_merge(X, C, A, 0.0, dx, nx,
+                                                      periodic))), \
+        "1D deposit: two runs differ"
+    # the float64 sum of the port's float32 weights, per sign group
+    xn = (x - np.float32(0.0)) / np.float32(dx)
+    fl = np.floor(xn)
+    wc = xn - fl
+    f = fl.astype(np.int64)
+    pos = m >= 0
+    worst = 0.0
+    groups = []
+    for grp in (pos, ~pos):
+        ref = np.zeros((nx, 3))
+        mag = np.zeros((nx, 3))
+        for c, w in ((0, np.float32(1.0) - wc), (1, wc)):
+            g = f + c
+            w = w * (act & grp)
+            if periodic:
+                g = np.mod(g, nx)
+            else:
+                w = np.where((g >= 0) & (g < nx), w, 0.0)
+                g = np.clip(g, 0, nx - 1)
+            q = w[:, None].astype(np.float64) * ch
+            for j in range(3):
+                ref[:, j] += np.bincount(g, weights=q[:, j], minlength=nx)
+                mag[:, j] += np.bincount(g, weights=np.abs(q[:, j]),
+                                         minlength=nx)
+        got = scatter_1d_add(X, C, A & torch.as_tensor(grp, device=dev), 0.0,
+                             dx, nx, periodic)
+        err = np.abs(got.double().cpu().numpy() - ref)
+        bad = err > 1e-6 * mag
+        assert not bad.any(), \
+            f"1D deposit: {int(bad.sum())} sums beyond 1e-6 of float64"
+        worst = max(worst, float((err / np.where(mag > 0, mag, 1.0)).max()))
+        groups.append(got)
+    # the merge: at each node the sign group of the larger |momentum|
+    take = groups[0][:, 1].abs() >= groups[1][:, 1].abs()
+    assert torch.equal(bits(S), bits(torch.where(take[:, None], *groups)))
+    assert bool(take.any()) and not bool(take.all())
+    return dict(rel_err=worst, ms=cuda_time_ms(
+        lambda: scatter_1d_merge(X, C, A, 0.0, dx, nx, periodic), 10))
+
+
+def phase_1d(dev, timing) -> None:
+    """Phase "1d": the 1D growth model on the card (plain PyTorch; the
+    model has no kernel in either package), the counters set to 0 just
+    before and read just after (all 0).  Two model days (288 steps) of each
+    B01 configuration through ``Simulation.run`` with a CashStore: the
+    centre node onto the Dulov curve (ratios falling at 4, 8, 12 h, the
+    last within 0.7-1.6) and E g^2/U^4 at g t/U = 30000 collapsing within
+    25% across 5, 10 and 20 m/s, as tests/test_model_1d_b01.py asserts;
+    a checkpoint at step 144 resumed bit for bit to the day's end; the card
+    against the CPU on the B01 grid at abstol 1e-7 / reltol 1e-6 over 12
+    steps within 1e-4 of the state's scale, the counters equal (the most
+    substeps of a lane within 2); the sign-merge deposit, deterministic,
+    periodic and open (``deposit_1d_check``)."""
+    out = {}
+    reset_counters()
+    model = b01_model(dev)
+    assert not model.graphed
+    sim, frames, wall = b01_day(model)
+    ratios = [float(frames[k, 15, 0]) / dulov_energy(k * DT, 10.0)
+              for k in (24, 48, 72)]
+    assert all(r1 > r2 for r1, r2 in zip(ratios, ratios[1:])), ratios
+    assert 0.7 < ratios[-1] < 1.6, ratios
+    m = check_state("1d B01", sim.state, n_failed=0)
+    day2 = float(frames[-1, 15, 0]) / dulov_energy(B01_STEPS * DT, 10.0)
+    out.update(b01_ratios=ratios, b01_ratio_day2=day2, b01_wall_s=wall,
+               b01_ms_per_step=wall * 1e3 / B01_STEPS, b01_metrics=m)
+    log("1d", f"B01 31 nodes / 500 km, 10 m/s: {B01_STEPS} steps through "
+              f"Simulation.run (CashStore) in {wall:.3f} s wall "
+              f"({wall * 1e3 / B01_STEPS:.3f} ms/step); E / E_Dulov at 4, 8, "
+              f"12 h {[round(r, 4) for r in ratios]}, at 48 h {day2:.4f}; "
+              f"metrics {m}")
+    etils, walls = [], []
+    for U in (5.0, 10.0, 20.0):
+        mu = b01_model(dev, U, nx=21, Lx=1000e3 * (U / 10.0) ** 2)
+        su, fu, w = b01_day(mu)
+        n = int(round(30000.0 * U / G_ACC / DT))
+        etils.append(float(fu[n, 10, 0]) * G_ACC ** 2 / U ** 4)
+        walls.append(w)
+        check_state(f"1d collapse {U}", su.state, n_failed=0)
+    etils = np.array(etils)
+    spread = np.abs(etils / etils.mean() - 1.0)
+    assert np.all(spread < 0.25), etils
+    c = counters()
+    assert not any(c.values()), f"the 1D path launched a kernel: {c}"
+    out.update(collapse_etilde=etils.tolist(), collapse_wall_s=walls)
+    log("1d", f"collapse at g t/U = 30000 (5, 10, 20 m/s, 21 nodes, "
+              f"{B01_STEPS} steps each, {sum(walls):.3f} s wall): E g^2/U^4 "
+              f"{etils.tolist()}, spread {spread.max():.4f} of the mean; "
+              f"launches {c}")
+
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
+    tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_ROOT)
+    leg = Simulation.create(model, stop_time=(B01_CHECKPOINT - 1) * DT)
+    leg.run()
+    assert int(leg.state.iteration) == B01_CHECKPOINT
+    ck = leg.checkpoint(os.path.join(tmp, "b01"))
+    rest = Simulation.create(model, stop_time=(B01_STEPS - 1) * DT)
+    rest.pickup(ck)
+    assert rest.state.state.is_cuda
+    rest.run()
+    assert_state_bitwise("1d B01 resumed from step 144", rest.state,
+                         sim.state)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("1d", f"checkpoint at step {B01_CHECKPOINT} resumed to step "
+              f"{B01_STEPS}: bit for bit the uninterrupted run")
+
+    mg = b01_model(dev, tols=CARD_VS_CPU_TOLS)
+    mc = b01_model("cpu", tols=CARD_VS_CPU_TOLS)
+    sg, sc = mg.init_state(), mc.init_state()
+    gap = 0.0
+    for k in range(12):
+        sg, sc = mg.step(sg), mc.step(sc)
+        S = sc.state
+        gap = max(gap, max_abs(sg.state.cpu(), S) / float(S.abs().max()))
+        assert torch.equal(sg.particles.on.cpu(), sc.particles.on), k
+        a, b = sg.metrics.as_dict(), sc.metrics.as_dict()
+        smax = (a.pop("substeps_max"), b.pop("substeps_max"))
+        assert a == b and abs(smax[0] - smax[1]) <= 2, (k, a, b, smax)
+    assert gap <= 1e-4, gap
+    out["card_vs_cpu_gap"] = gap
+    log("1d", f"card vs CPU, B01 grid at abstol 1e-7 / reltol 1e-6, 12 "
+              f"steps: max gap {gap:.3e} of the state's scale, on and the "
+              f"counters equal")
+
+    for periodic in (True, False):
+        d = deposit_1d_check(dev, periodic)
+        out[f"deposit_{'periodic' if periodic else 'open'}"] = d
+        log("1d", f"sign-merge deposit, {DEPOSIT_1D_LANES} lanes over "
+                  f"{DEPOSIT_1D_NODES} nodes, periodic={periodic}: two runs "
+                  f"bit for bit; worst sum {d['rel_err']:.3e} of its absolute "
+                  f"sum off float64; {d['ms']:.3f} ms a call")
+    timing["1d"] = out
+
+
+# the sharded tripolar step's solver tolerances: K4 and the seam fold sum
+# a node's terms in another order than K2, and at reltol 1e-3 the
+# controller turns that ulp into other substep paths past assert_states'
+# 2e-3 (tests/test_torch_sharded.py measures 1.3e-2 on the CPU)
+SHARDED_TRI_TOLS = dict(abstol=1e-7, reltol=1e-6)
+SHARDED_TRI_PATHS = {"pallas": "K5", "default": "K3"}
+
+
+def k4_tripolar(model, ms) -> dict:
+    """K4 on the tripolar configuration's own deposit (one advance of the
+    sharded state ``ms``, as a step makes it): against its plain version
+    and ``_simple`` (``k4_pair``), timed by CUDA events (the wrapper's
+    clamped count included) beside the plain version and its bound."""
+    core, chans, act = flagship_deposit_inputs(model, ms)
+    halo = model.config.halo
+    err = k4_pair("tripolar deposit", core[3], core[4], chans, act, halo)
+    ms_k = cuda_time_ms(lambda: pic_gather_padded(core[3], core[4], chans,
+                                                  act, halo), 20)
+    plain = cuda_time_ms(lambda: scatter_accumulate_padded(
+        core[3], core[4], torch.stack(chans, dim=-1), act, halo), 5)
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    nx, ny = model.grid.nx, model.grid.ny
+    b = deposit_bound(nx * ny, (nx + xl + xh) * (ny + yl + yh), halo)
+    log("kernel-time", f"K4 on the tripolar deposit ({nx} x {ny}, halo "
+                       f"{halo}): {ms_k:.4f} ms (CUDA events), plain "
+                       f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                       f"({b['bound_by']}); max abs err {err:.3e} of the "
+                       f"scale")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=plain, **b)
+
+
+def phase_sharded_tripolar(dev, results, timing) -> None:
+    """Phase "sharded-tripolar", inside phase "sharded-1x1"'s process group
+    (one NCCL rank): the global tripolar configuration (1440 x 720, DT =
+    1200 s, halo 3, the gridded jet record, B = 1) through
+    ``ShardedWaveGrowth2D`` on a (1, 1) mesh: K1 with the gridded planes
+    and the projection planes -> K4 -> the self-wrap fold and the seam fold
+    -> K5 gridded ("pallas"), or K3 with the projection planes and the
+    PyTorch remesh ("default").  Each path, the counters set to 0 just
+    before the sharded run and read just after: 3 steps at the solver
+    tolerances ``SHARDED_TRI_TOLS`` against the single-device step at
+    ``assert_states``' rtol 2e-3, then 20 more steps (no failed lane, the
+    land checks of ``check_tripolar``), K1 == K4 == K5 (or K3) == 23 and
+    no K2 or K6.  At the path's own tolerances with the plain deposit on
+    both sides (``scatter_mode="dense"``) 3 steps bit for bit the
+    single-device ones: the block planes (projection, winds, seam) are the
+    grid's, and only the sum order of K4 and the folds parts the kernel
+    runs.  Then both steps in turns, 8 times 10 steps each (CUDA
+    events), and K4 on the "pallas" path's deposit (``k4_tripolar``)."""
+    grid = tripolar_grid(dev, *TRI_SUPER)
+    gw = tripolar_record(dev)
+    n = grid.nx * grid.ny
+    steps = 3 + 20
+    out = {}
+    for path, kern in SHARDED_TRI_PATHS.items():
+        model = tripolar_model(grid, gw, path, tols=SHARDED_TRI_TOLS)
+        assert model.uniform_proj is None and model._wind_B == 1
+        ref = eager_steps(model, model.init_state(), 3)
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        reset_counters()
+        ms = eager_steps(sh, sh.init_state(), 3)
+        err = assert_states(f"sharded tripolar {path} vs single device, 3 "
+                            f"steps", ms, ref)
+        ms = eager_steps(sh, ms, steps - 3)
+        c = counters()
+        m = check_tripolar(f"sharded tripolar {path}", model, ms)
+        other = "K3" if kern == "K5" else "K5"
+        assert c["K1"] == c["K4"] == c[kern] == steps, c
+        assert c["K2"] == c["K6"] == c[other] == 0, c
+        results["K1 proj"]["launches"] += c["K1"]
+        results["K4"]["launches"] += c["K4"]
+        results["K3 proj" if kern == "K3" else "K5 gridded"]["launches"] += \
+            c[kern]
+        log("counters", f"sharded tripolar {path} path launches {c}")
+
+        md = tripolar_model(grid, gw, path, scatter_mode="dense")
+        shd = ShardedWaveGrowth2D(md, make_mesh((1, 1)))
+        a, b = shd.init_state(), md.init_state()
+        for _ in range(3):
+            a, b = shd.step(a), md.step(b)
+        assert_state_bitwise(f"sharded tripolar {path}, plain deposit, "
+                             f"against the single-device step", a, b)
+        del md, shd, a, b
+
+        runs = {"sharded": [], "single": []}
+        for rep in range(8):
+            for who in (("sharded", "single") if rep % 2 == 0 else
+                        ("single", "sharded")):
+                if who == "single":
+                    ref, t = time_steps(model, ref, 10, eager=True)
+                else:
+                    ms, t = time_steps(sh, ms, 10)
+                runs[who].append(t)
+        ms_step, single = (float(np.median(runs[k]))
+                           for k in ("sharded", "single"))
+        out[path] = dict(max_abs_err=err, launches=c, metrics=m,
+                         ms_per_step=ms_step, single_ms_per_step=single,
+                         pushes_per_s=n / (ms_step / 1e3), turns=runs,
+                         plain_deposit_bitwise=True)
+        if path == "pallas":
+            out["K4 tripolar"] = k4_tripolar(model, ms)
+        log("sharded-tripolar", f"{path} at {grid.nx} x {grid.ny}: 3 steps "
+                                f"vs single device max abs err {err:.3e}, "
+                                f"counters equal; {steps} steps, metrics "
+                                f"{m}; the plain deposit on both sides bit "
+                                f"for bit; {ms_step:.3f} ms/step sharded "
+                                f"(1, 1) against {single:.3f} single-device "
+                                f"eager (medians of 8 x 10 steps, CUDA "
+                                f"events)")
+        del model, sh, ms, ref
+    timing["sharded_tripolar"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -4751,6 +5113,7 @@ def main(argv=None) -> int:
     del layered
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
+    phase_1d(dev, timing)
     phase_sharded_1x1(dev, gw, results, timing)
     phase_sharded_2x2(timing)
 

@@ -1,5 +1,5 @@
 """Carry grids, states, parameters, configs, term flags and gridded wind
-records across from the JAX package.
+records across from the JAX package, 2D and 1D.
 
 The model has no learned weights: what the two packages share is the grid,
 the step state, the static parameters and the forcing.  These helpers take
@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from .core.constants import IDConstants, ODEParameters, ODESettings
-from .forcing.winds import GriddedWinds2D
-from .grids.base import Boundary, Grid2D, GridStats
-from .models.state import ModelState2D, Particles2D, StepMetrics
+from .forcing.winds import GriddedWinds1D, GriddedWinds2D
+from .grids.base import Boundary, Grid1D, Grid2D, GridStats
+from .models.state import (ModelState1D, ModelState2D, Particles1D,
+                           Particles2D, StepMetrics)
+from .models.wave_growth_1d import ParticleDefaults1D, WaveGrowth1DConfig
 from .models.wave_growth_2d import ParticleDefaults2D, WaveGrowth2DConfig
 from .ops.rhs import TermFlags
 
@@ -39,12 +41,31 @@ def _from_fields(cls, obj):
     return cls(**{f.name: _get(obj, f.name) for f in dataclasses.fields(cls)})
 
 
+def _stats(stats) -> GridStats:
+    st = {f.name: _get(stats, f.name) for f in dataclasses.fields(GridStats)}
+    st["bx"], st["by"] = Boundary(int(st["bx"])), Boundary(int(st["by"]))
+    return GridStats(**st)
+
+
+def _dtype(dt) -> torch.dtype:
+    """The torch dtype of a JAX config's float32 or float64 (others
+    raise)."""
+    out = _DTYPES.get(np.dtype(getattr(dt, "dtype", dt)))
+    if out is None:
+        raise ValueError(f"only float32 and float64 are ported, got {dt}")
+    return out
+
+
+def _counters(metrics, device) -> StepMetrics:
+    return StepMetrics(**{f.name: torch.as_tensor(
+        np.array(metrics[f.name]), device=device).to(torch.int32)
+        for f in dataclasses.fields(StepMetrics)})
+
+
 def grid_from_numpy(arrays: Mapping[str, np.ndarray], stats, *, device,
                     dtype: torch.dtype = torch.float32) -> Grid2D:
     """A ``Grid2D`` from the JAX grid's leaves (``GRID_FIELDS``, numpy) and
     its ``GridStats`` (attributes or a mapping)."""
-    st = {f.name: _get(stats, f.name) for f in dataclasses.fields(GridStats)}
-    st["bx"], st["by"] = Boundary(int(st["bx"])), Boundary(int(st["by"]))
     planes = {}
     for name in GRID_FIELDS:
         a = np.array(arrays[name])   # a writable copy
@@ -52,7 +73,7 @@ def grid_from_numpy(arrays: Mapping[str, np.ndarray], stats, *, device,
             a.astype(np.int32) if name == "mask" else a, device=device)
         if name != "mask":
             planes[name] = planes[name].to(dtype)
-    return Grid2D(**planes, stats=GridStats(**st))
+    return Grid2D(**planes, stats=_stats(stats))
 
 
 def state_from_numpy(state: np.ndarray, particles: Mapping[str, np.ndarray],
@@ -72,11 +93,8 @@ def state_from_numpy(state: np.ndarray, particles: Mapping[str, np.ndarray],
     parts = {k: t(particles[k], torch.bool if k == "on" else dtype)
              for k in PARTICLE_FIELDS}
     layers = state.shape[0] if np.ndim(state) == 4 else None
-    if metrics is None:
-        counters = StepMetrics.zeros(device, layers)
-    else:
-        counters = StepMetrics(**{f.name: t(metrics[f.name], torch.int32)
-                                  for f in dataclasses.fields(StepMetrics)})
+    counters = (StepMetrics.zeros(device, layers) if metrics is None
+                else _counters(metrics, device))
     return ModelState2D(state=t(state, dtype),
                         particles=Particles2D(**parts),
                         time=t(time, dtype),
@@ -118,7 +136,7 @@ def flags_from_jax(flags) -> TermFlags:
                         for f in dataclasses.fields(TermFlags)})
 
 
-def gridded_from_jax(gw, device="cpu") -> GriddedWinds2D:
+def gridded_from_jax(gw, *, device) -> GriddedWinds2D:
     """The port's ``GriddedWinds2D`` on ``device`` from a ``picles_tpu``
     one (attributes or a mapping): the record's arrays and node tables as
     float32 tensors (taken as numpy arrays), the axis metadata and the
@@ -147,10 +165,7 @@ def config_from_jax(cfg) -> WaveGrowth2DConfig:
         init = ParticleDefaults2D(float(init.lne), float(init.cg_x),
                                   float(init.cg_y), float(init.x),
                                   float(init.y))
-    dtype = _DTYPES.get(np.dtype(getattr(cfg.dtype, "dtype", cfg.dtype)))
-    if dtype is None:
-        raise ValueError(f"only float32 and float64 are ported, got "
-                         f"{cfg.dtype}")
+    dtype = _dtype(cfg.dtype)
     halo = cfg.halo
     if not isinstance(halo, int):
         halo = tuple(tuple(int(v) for v in h) if not isinstance(h, int)
@@ -163,3 +178,72 @@ def config_from_jax(cfg) -> WaveGrowth2DConfig:
         advance_mode=_MODES[cfg.advance_mode],
         dt_reset_mode=cfg.dt_reset_mode, remesh_mode=cfg.remesh_mode,
         halo=halo, layers=int(cfg.layers), dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# the 1D model
+# ---------------------------------------------------------------------------
+
+def grid1d_from_numpy(x: np.ndarray, stats, *, device,
+                      dtype: torch.dtype = torch.float32) -> Grid1D:
+    """A ``Grid1D`` from the JAX grid's node positions ``x [nx]`` (numpy)
+    and its ``GridStats`` (attributes or a mapping)."""
+    return Grid1D(x=torch.as_tensor(np.array(x), device=device).to(dtype),
+                  stats=_stats(stats))
+
+
+def state1d_from_numpy(state: np.ndarray, particles: Mapping[str, np.ndarray],
+                       time, iteration, *, device,
+                       dtype: torch.dtype = torch.float32,
+                       metrics: Optional[Mapping[str, Any]] = None
+                       ) -> ModelState1D:
+    """A ``ModelState1D`` from the JAX state's leaves as numpy arrays:
+    ``state [nx, 3]``, the particles' ``z [nx, 3]``, ``t``, ``dt`` and
+    ``on``, the clock and the iteration, the floats as ``dtype``.
+    ``metrics``: the counters by name; they start at zero without it."""
+    def t(a, dt):
+        return torch.as_tensor(np.array(a), device=device).to(dt)
+
+    parts = Particles1D(z=t(particles["z"], dtype), t=t(particles["t"], dtype),
+                        dt=t(particles["dt"], dtype),
+                        on=t(particles["on"], torch.bool))
+    return ModelState1D(
+        state=t(state, dtype), particles=parts, time=t(time, dtype),
+        iteration=t(iteration, torch.int32),
+        metrics=(StepMetrics.zeros(device) if metrics is None
+                 else _counters(metrics, device)))
+
+
+def state1d_to_numpy(ms: ModelState1D) -> dict:
+    """The reverse of ``state1d_from_numpy``: numpy arrays under ``state``,
+    ``z``, ``t``, ``dt``, ``on``, ``time`` and ``iteration``, and
+    ``metrics`` (a dict of ints)."""
+    out = {k: getattr(ms.particles, k).cpu().numpy()
+           for k in ("z", "t", "dt", "on")}
+    out.update(state=ms.state.cpu().numpy(), time=ms.time.cpu().numpy(),
+               iteration=ms.iteration.cpu().numpy(),
+               metrics=ms.metrics.as_dict())
+    return out
+
+
+def config1d_from_jax(cfg) -> WaveGrowth1DConfig:
+    """The port's ``WaveGrowth1DConfig`` from a ``picles_tpu`` one."""
+    init = cfg.ode_init_type
+    if not isinstance(init, str):
+        init = ParticleDefaults1D(float(init.lne), float(init.cg_x),
+                                  float(init.x))
+    return WaveGrowth1DConfig(
+        periodic_boundary=bool(cfg.periodic_boundary), ode_init_type=init,
+        boundary_type=cfg.boundary_type, merge_rule=bool(cfg.merge_rule),
+        dtype=_dtype(cfg.dtype))
+
+
+def gridded1d_from_jax(gw, *, device) -> GriddedWinds1D:
+    """The port's ``GriddedWinds1D`` on ``device`` from a ``picles_tpu``
+    one (attributes or a mapping): the record as a float32 tensor, the
+    axes and the edge modes as they are."""
+    return GriddedWinds1D(
+        u_data=torch.as_tensor(np.array(_get(gw, "u_data"), dtype=np.float32),
+                               device=device),
+        **{k: float(_get(gw, k)) for k in ("x0", "dx", "t0", "dt")},
+        mode=str(_get(gw, "mode")), mode_t=str(_get(gw, "mode_t")))

@@ -128,3 +128,17 @@ def MinimalState(U10, V10, time_scale):
     """[minimal energy, minimal momentum^2] of the minimal windsea."""
     ws = MinimalWindsea(U10, V10, time_scale)
     return torch.stack([ws.E, ws.m_x * ws.m_x + ws.m_y * ws.m_y], dim=-1)
+
+
+def get_initial_windsea_1d(U10, time_scale) -> WindSea:
+    """The 1D windsea of a signed wind ``U10`` along x: ``get_initial_windsea
+    (U10, 0, time_scale)``, so ``cg_bar_x`` and ``m_x`` carry U10's sign and
+    ``cg_bar_y = m_y = 0``."""
+    U10 = _f32(U10)
+    return get_initial_windsea(U10, torch.zeros_like(U10), time_scale)
+
+
+def MinimalWindsea_1d(U10, time_scale) -> WindSea:
+    """The 1D windsea of a 1 m/s wind with U10's sign (+1 where U10 is 0)."""
+    U10 = _f32(U10)
+    return get_initial_windsea_1d(_nonzero_sign(U10) * U_MIN, time_scale)

@@ -18,6 +18,9 @@ of ``gridded_samplers``.  The model builds the descriptor (kind
 A ``Winds2D`` without a descriptor (any other callable) runs only on the
 plain PyTorch path, and the CUDA modes refuse it.  The samplers compute in
 float32 with the JAX package's operation order.
+
+The 1D model's winds (``Winds1D``: ``u(x, t)``, a ``GriddedWinds1D``
+record) run on its plain path only: the 1D model has no kernel.
 """
 
 from __future__ import annotations
@@ -474,3 +477,106 @@ def load_gridded_winds_2d(path: str, *, u_name: str = "u10",
                           x0=x0, dx=dx, y0=y0, dy=dy, t0=t0, dt=dt,
                           mode=mode, mode_t=mode_t, x_nodes=x_nodes,
                           y_nodes=y_nodes, t_nodes=t_nodes)
+
+
+# ---------------------------------------------------------------------------
+# 1D winds
+# ---------------------------------------------------------------------------
+
+class Winds1D(NamedTuple):
+    """The 1D model's wind ``u(x, t)`` (signed, along x)."""
+
+    u: Callable
+
+    def __call__(self, x, t):
+        return self.u(x, t)
+
+
+def _f32_on(a, device) -> torch.Tensor:
+    """``a`` as a float32 tensor (a tensor keeps its device)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32)
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def constant_winds_1d(U10: float) -> Winds1D:
+    """A uniform steady 1D wind."""
+    return Winds1D(u=lambda x, t: torch.full_like(torch.as_tensor(x), U10,
+                                                  dtype=torch.float32))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GriddedWinds1D:
+    """Bilinear interpolation of gridded (x, t) wind data ``u_data [nx,
+    nt]`` (a float32 tensor), the port of ``picles_tpu``'s
+    ``GriddedWinds1D``.  Each axis has its own edge mode: ``mode`` covers
+    space ("wrap" periodic, "nearest" clamped), ``mode_t`` time ("clamp"
+    holds the last frame, "wrap" loops the record).  ``u`` pre-folds each
+    axis by its mode, then interpolates as ``map_coordinates(order=1,
+    mode="wrap")``, so on a wrapped axis the interval [n - 1, n) runs
+    against sample 0."""
+
+    u_data: torch.Tensor
+    x0: float
+    dx: float
+    t0: float
+    dt: float
+    mode: str = "wrap"
+    mode_t: str = "clamp"
+
+    @property
+    def device(self) -> torch.device:
+        return self.u_data.device
+
+    def to(self, device) -> "GriddedWinds1D":
+        return dataclasses.replace(self, u_data=self.u_data.to(device))
+
+    def u(self, x, t):
+        nxw, ntw = self.u_data.shape
+        dev = self.device
+        xi = _div(_f32_on(x, dev) - self.x0, self.dx)
+        ti = _div(_f32_on(t, dev) - self.t0, self.dt)
+        xi = torch.remainder(xi, nxw) if self.mode == "wrap" \
+            else torch.clamp(xi, 0.0, nxw - 1.0)
+        ti = torch.remainder(ti, ntw) if self.mode_t == "wrap" \
+            else torch.clamp(ti, 0.0, ntw - 1.0)
+        xi, ti = torch.broadcast_tensors(xi, ti)
+        flat = self.u_data.reshape(-1)
+        out = None
+        for ix, wx in _linear(xi, nxw):
+            for it, wt in _linear(ti, ntw):
+                c = (wx * wt) * flat.take(ix * ntw + it)
+                out = c if out is None else out + c
+        return out.to(torch.float32)
+
+    def as_winds(self) -> Winds1D:
+        return Winds1D(u=self.u)
+
+
+def idealized_wind_grid_1d(u_func, Lx: float, T: float, dx: float,
+                           dt: float, *, device) -> GriddedWinds1D:
+    """An analytic wind ``u_func(x, t)`` sampled on the record's nodes
+    (x from 0 to Lx every dx, t from 0 to T every dt)."""
+    xi = np.arange(0, Lx + dx / 2, dx)
+    ti = np.arange(0, T + dt / 2, dt)
+    data = np.asarray([[float(u_func(x, t)) for t in ti] for x in xi],
+                      dtype=np.float32)
+    return GriddedWinds1D(u_data=torch.as_tensor(data, device=device),
+                          x0=0.0, dx=dx, t0=0.0, dt=dt)
+
+
+def slopped_blob(x, t, U10, V, T, x_scale, t_scale, x0=300e3):
+    """A Gaussian wind blob moving at speed V, peaking at time T / 2: 0.5 +
+    U10 exp(-((x - (x0 + t V)) / x_scale)^2) exp(-((t - T/2) / t_scale)^2)."""
+    x = _f32_on(x, None)
+    if isinstance(t, torch.Tensor):
+        t = t.to(torch.float32)
+        b = _div(t - T / 2, t_scale)
+        b = -(b * b)
+    else:
+        # a host time stays a Python float, as JAX keeps it until it
+        # meets an array
+        b = torch.full((), -(((t - T / 2) / t_scale) ** 2),
+                       dtype=torch.float32, device=x.device)
+    a = _div(x - (x0 + t * V), x_scale)
+    return 0.5 + U10 * (torch.exp(-(a * a)) * torch.exp(b))

@@ -1,8 +1,9 @@
 """Grid data model (PyTorch port of ``picles_tpu/grids/base.py``).
 
-One dataclass of dense per-node tensors for every grid family, plus a
+One dataclass of dense per-node tensors for every 2D grid family, plus a
 hashable static ``GridStats``.  Every plane is ``[nx, ny]``, contiguous
-along y; ``proj`` is ``[nx, ny, 2, 2]``.
+along y; ``proj`` is ``[nx, ny, 2, 2]``.  ``Grid1D`` is the 1D model's
+regular grid of absolute node positions.
 
 Mask convention: 0 land, 1 ocean, 2 land boundary, 3 grid boundary.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
 
 
@@ -83,3 +85,33 @@ class Grid2D:
         if periodic_boundary:
             return self.mask == 2
         return self.mask >= 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid1D:
+    """The 1D model's grid: node positions ``x [nx]`` in meters (particle
+    positions are absolute too) and its ``GridStats``."""
+
+    x: torch.Tensor
+    stats: GridStats = None
+
+    @property
+    def nx(self) -> int:
+        return self.stats.nx
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+
+def one_d_grid(xmin: float, xmax: float, nx: int, periodic: bool = False, *,
+               device, dtype: torch.dtype = torch.float32) -> Grid1D:
+    """A regular 1D grid of ``nx`` nodes from ``xmin`` to ``xmax`` (both
+    ends are nodes), x periodic or open."""
+    dx = (xmax - xmin) / (nx - 1)
+    stats = GridStats(nx=nx, ny=1,
+                      bx=Boundary.PERIODIC if periodic else Boundary.NONPERIODIC,
+                      by=Boundary.NONPERIODIC, xmin=xmin, xmax=xmax, dx=dx,
+                      kind="regular1d")
+    return Grid1D(x=torch.as_tensor(np.linspace(xmin, xmax, nx),
+                                    device=device).to(dtype), stats=stats)

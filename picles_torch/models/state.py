@@ -1,4 +1,4 @@
-"""Model state (PyTorch port of ``picles_tpu/models/state.py``, 2D).
+"""Model state (PyTorch port of ``picles_tpu/models/state.py``).
 
 The step state is a dataclass of tensors: the Eulerian node state, the
 particle structure of arrays, the clock, and per-step counters that stay on
@@ -106,6 +106,30 @@ class ModelState2D(TensorTree):
 
     state: torch.Tensor
     particles: Particles2D
+    time: torch.Tensor
+    iteration: torch.Tensor
+    metrics: StepMetrics
+
+
+@dataclasses.dataclass(frozen=True)
+class Particles1D(TensorTree):
+    """The 1D model's particles, one per node: ``z [nx, 3]`` = (lne, cg_x,
+    x) with x absolute in meters, the clock ``t`` and next sub-step ``dt``
+    ``[nx]``, and ``on`` (bool)."""
+
+    z: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    on: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelState1D(TensorTree):
+    """state: ``[nx, 3]`` Eulerian (e, m_x, 0); time float32 and iteration
+    int32, both 0-dim; the leaves in the JAX package's pytree order."""
+
+    state: torch.Tensor
+    particles: Particles1D
     time: torch.Tensor
     iteration: torch.Tensor
     metrics: StepMetrics

@@ -209,3 +209,82 @@ def scatter_channels(xrel, yrel, chans: Tuple[torch.Tensor, ...], active,
     else:
         raise ValueError(f"unknown scatter mode {mode!r}")
     return tuple(S[..., i] for i in range(len(chans))), st
+
+
+# ---------------------------------------------------------------------------
+# 1D deposit from absolute positions
+# ---------------------------------------------------------------------------
+
+def segment_sum(keys: torch.Tensor, vals: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """``S[k] = sum(vals[i] for keys[i] == k)`` for k in [0, n), ``vals
+    [M, C]``, with no atomics: the rows are sorted by key (stably), each
+    run of one key is summed by a segmented inclusive scan (Hillis-Steele,
+    ceil(log2 M) rounds of shifted adds, each within its run), and each
+    run's last row is its sum.  So the order of every sum is fixed by the
+    keys' order alone, and two runs on any device agree bit for bit.
+    Every key lies in [0, n)."""
+    M, C = vals.shape
+    order = torch.argsort(keys, stable=True)
+    k = keys[order]
+    x = vals[order]
+    s = 1
+    while s < M:
+        same = (k[s:] == k[:-s])[:, None]
+        x[s:] += torch.where(same, x[:-s], 0.0)
+        s *= 2
+    last = torch.ones_like(k, dtype=torch.bool)
+    last[:-1] = k[1:] != k[:-1]
+    # every row but its run's last lands in a spill row n, cut off
+    idx = torch.where(last, k, n)
+    S = torch.zeros((n + 1, C), dtype=vals.dtype, device=vals.device)
+    S.scatter_(0, idx[:, None].expand(M, C), x)
+    return S[:n]
+
+
+def scatter_1d_add(xabs: torch.Tensor, charge: torch.Tensor,
+                   active: torch.Tensor, xmin: float, dx: float, nx: int,
+                   periodic: bool) -> torch.Tensor:
+    """Additive 1D CIC deposit of ``charge [..., C]`` from absolute
+    positions ``xabs [...]`` onto ``[nx, C]`` nodes at ``xmin + i dx``:
+    each particle puts (1 - w, w) of its charge on nodes (floor, floor +
+    1) of ``(x - xmin) / dx``, wrapped when ``periodic``, dropped past an
+    open edge; inactive particles deposit 0 times their charge.  The sums
+    are ``segment_sum``'s: deterministic on the card (the JAX package's
+    ``S.at[g].add`` sums in lane order; an ``index_add_`` on the card would
+    sum in no fixed order)."""
+    C = charge.shape[-1]
+    xn = (xabs - xmin) / torch.full((), dx, dtype=xabs.dtype,
+                                    device=xabs.device)
+    fl = torch.floor(xn)
+    f = fl.to(torch.int64)
+    wc = xn - fl
+    act = active.to(charge.dtype)
+    keys, vals = [], []
+    for c in (0, 1):
+        g = f + c
+        w = (1.0 - wc if c == 0 else wc) * act
+        if periodic:
+            g = torch.remainder(g, nx)
+        else:
+            w = torch.where((g >= 0) & (g < nx), w, 0.0)
+            g = torch.clamp(g, 0, nx - 1)
+        keys.append(g.reshape(-1))
+        vals.append((w[..., None] * charge).reshape(-1, C))
+    return segment_sum(torch.cat(keys), torch.cat(vals), nx)
+
+
+def scatter_1d_merge(xabs: torch.Tensor, charge: torch.Tensor,
+                     active: torch.Tensor, xmin: float, dx: float, nx: int,
+                     periodic: bool) -> torch.Tensor:
+    """1D CIC deposit with the sign-merge rule: the contributions of each
+    momentum sign (``charge[..., 1] >= 0`` or not) are summed apart, and at
+    each node the group with the larger |momentum| wins (the JAX package's
+    deterministic form of the reference's sequential merge; for a field of
+    one sign it is the additive deposit)."""
+    pos = charge[..., 1] >= 0
+    S_pos = scatter_1d_add(xabs, charge, active & pos, xmin, dx, nx, periodic)
+    S_neg = scatter_1d_add(xabs, charge, active & ~pos, xmin, dx, nx,
+                           periodic)
+    take_pos = torch.abs(S_pos[..., 1]) >= torch.abs(S_neg[..., 1])
+    return torch.where(take_pos[..., None], S_pos, S_neg)

@@ -1,5 +1,6 @@
-"""Particle-wave ODE right-hand side (PyTorch port of ``picles_tpu/ops/rhs.py``,
-2D).
+"""Particle-wave ODE right-hand sides (PyTorch port of
+``picles_tpu/ops/rhs.py``): the 2D one, and the 1D model's
+(``particle_equations_1d``, plain PyTorch only).
 
 ``rhs_core_2d`` is the plain version of the device function ``rhs_core_2d``
 in ``picles_torch/csrc/rhs.cuh``; the two keep the same guarded forms and
@@ -160,5 +161,57 @@ def make_rhs(u_wind: Callable, v_wind: Callable, consts: RHSConsts,
                           aux.M[..., 1, 0], aux.M[..., 1, 1],
                           aux.pc, consts, flags)
         return torch.stack(out, dim=-1)
+
+    return rhs
+
+
+def particle_equations_1d(u_wind: Callable, *, gamma: float = 0.88,
+                          q: float = -0.25,
+                          constants: Optional[IDConstants] = None,
+                          params: Optional[ODEParameters] = None,
+                          flags: TermFlags = TermFlags()) -> Callable:
+    """Build the 1D RHS ``rhs(t, z, aux) -> dz`` over ``z[..., 3] = [lne,
+    cg_x, x]`` (x absolute, in meters).  ``aux``: the node positions where
+    the wind is sampled (a tensor, or an object with ``.x``, such as a
+    ``Grid1D``).
+
+    The 1D closures differ from ``rhs_core_2d``'s: no direction terms, the
+    wave age alpha = |u| / (2 |c_gp|) (clamped at 500, not its square at
+    500^2) feeds the H and Delta windows, dissipation is written
+    exp(n lne) (k_p / e_T)^(2n), and dx = cg_x.  The constants are
+    ``make_rhs_consts``'."""
+    c = make_rhs_consts(gamma=gamma, q=q, constants=constants, params=params)
+
+    def rhs(t, z, aux):
+        lne, cg_x = z[..., 0], z[..., 1]
+        x_node = aux.x if hasattr(aux, "x") else aux
+        u = torch.broadcast_to(u_wind(x_node, t).to(lne.dtype), lne.shape)
+
+        c_gp = torch.abs(cg_x) / c.r_g
+        k_p = c.g / (4.0 * torch.clamp(c_gp * c_gp, min=1e-2))
+        omega_p = c.g / (2.0 * torch.clamp(torch.abs(c_gp), min=0.1))
+        a = torch.abs(u) / (2.0 * c_gp)
+        alpha = torch.where(a > 500.0, 500.0, a)
+        H_p = 0.5 * (1.0 + torch.tanh(c.p * (alpha - ALPHA_THRESH)))
+        ax = torch.abs(10.0 * (alpha - ALPHA_THRESH))
+        ex = torch.exp(-ax)
+        sech = 2.0 * ex / (1.0 + ex * ex)
+        Delta_p = 1.0 - 1.25 * (sech * sech)
+
+        I_t = c.C_e * H_p * (alpha * alpha) if flags.input else 0.0
+        if flags.dissipation:
+            D_t = torch.exp(c.n * lne) * (k_p / c.e_T) ** (2.0 * c.n)
+        else:
+            D_t = 0.0
+        if flags.peak_shift:
+            k_p2 = k_p * k_p
+            S_cg_t = c.C_alpha * Delta_p * (k_p2 * k_p2) * torch.exp(2.0 * lne)
+        else:
+            S_cg_t = 0.0
+
+        dlne = omega_p * c.r_g * S_cg_t + omega_p * (I_t - D_t)
+        dcg_x = -cg_x * omega_p * c.r_g * S_cg_t
+        dx = cg_x if flags.propagation else torch.zeros_like(cg_x)
+        return torch.stack(torch.broadcast_tensors(dlne, dcg_x, dx), dim=-1)
 
     return rhs

@@ -1,12 +1,13 @@
 """Checkpoint and resume (PyTorch port of
 ``picles_tpu/simulation/checkpoint.py``, npz backend).
 
-A checkpoint is the whole ``ModelState2D`` (node state, particle planes,
-clock, iteration, counters) in one compressed ``.npz`` file, in the JAX
-package's layout: ``__meta__`` holds ``{"version": 2, "kind":
-"ModelState2D", "n_leaves": 22}`` and ``leaf_i`` the i-th leaf in the JAX
-pytree order of ``ModelState2D``.  So a checkpoint written by
-``picles_tpu`` resumes here and the other way round, bit for bit.  A
+A checkpoint is the whole model state (node state, particles, clock,
+iteration, counters) in one compressed ``.npz`` file, in the JAX package's
+layout: ``__meta__`` holds ``{"version": 2, "kind": ..., "n_leaves": ...}``
+and ``leaf_i`` the i-th leaf in the JAX pytree order of the state.  The
+kinds are ``ModelState2D`` (22 leaves) and ``ModelState1D`` (18: state, z,
+t, dt, on, time, iteration and the 11 counters).  So a checkpoint written
+by ``picles_tpu`` resumes here and the other way round, bit for bit.  A
 layered state's leaves carry their leading ``[L]`` axis, counters too, in
 both packages' files alike.  The orbax backend is not ported (ROADMAP item
 17).
@@ -21,12 +22,14 @@ import os
 import numpy as np
 import torch
 
-from ..models.state import ModelState2D, Particles2D, StepMetrics
+from ..models.state import (ModelState1D, ModelState2D, Particles1D,
+                            Particles2D, StepMetrics)
 
 _FORMAT_VERSION = 2
-_KIND = "ModelState2D"
-_PARTICLES = [f.name for f in dataclasses.fields(Particles2D)]
-_METRICS = [f.name for f in dataclasses.fields(StepMetrics)]
+# kind -> (state class, particle class)
+_KINDS = {"ModelState2D": (ModelState2D, Particles2D),
+          "ModelState1D": (ModelState1D, Particles1D)}
+_N_METRICS = len(dataclasses.fields(StepMetrics))
 
 
 def _orbax_refused():
@@ -39,9 +42,9 @@ def npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
-    """Write ``ms`` to ``path`` (``.npz`` appended if missing); returns the
-    path written."""
+def save_checkpoint(path: str, ms, backend: str = "npz") -> str:
+    """Write ``ms`` (a ``ModelState2D`` or ``ModelState1D``) to ``path``
+    (``.npz`` appended if missing); returns the path written."""
     if backend == "orbax":
         raise _orbax_refused()
     if backend != "npz":
@@ -50,17 +53,20 @@ def save_checkpoint(path: str, ms: ModelState2D, backend: str = "npz") -> str:
     leaves = ms.leaves()
     arrays = {f"leaf_{i}": x.detach().cpu().numpy()
               for i, x in enumerate(leaves)}
-    meta = json.dumps(dict(version=_FORMAT_VERSION, kind=_KIND,
+    kind = type(ms).__name__
+    if kind not in _KINDS:
+        raise TypeError(f"cannot checkpoint a {kind}")
+    meta = json.dumps(dict(version=_FORMAT_VERSION, kind=kind,
                            n_leaves=len(leaves)))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(path, __meta__=np.bytes_(meta), **arrays)
     return path
 
 
-def load_checkpoint(path: str, device="cuda") -> ModelState2D:
+def load_checkpoint(path: str, device="cuda"):
     """Read a checkpoint written by either package onto ``device``: the
     CUDA device unless the caller names another; raises when a CUDA device
-    is asked for and there is none."""
+    is asked for and there is none.  Returns the state of the file's kind."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_checkpoint: no CUDA device found; pass "
                            "device='cpu' to load the state onto the CPU")
@@ -71,17 +77,19 @@ def load_checkpoint(path: str, device="cuda") -> ModelState2D:
         meta = json.loads(bytes(f["__meta__"].item()).decode())
         if meta["version"] != _FORMAT_VERSION:
             raise ValueError(f"unknown checkpoint version {meta['version']}")
-        if meta["kind"] != _KIND:
+        if meta["kind"] not in _KINDS:
             raise ValueError(f"checkpoint kind {meta['kind']!r}: only "
-                             f"{_KIND} is ported")
-        n = 1 + len(_PARTICLES) + 2 + len(_METRICS)
+                             f"{sorted(_KINDS)} are ported")
+        state_cls, parts_cls = _KINDS[meta["kind"]]
+        k = 1 + len(dataclasses.fields(parts_cls))
+        n = k + 2 + _N_METRICS
         if meta["n_leaves"] != n:
-            raise ValueError(f"{meta['n_leaves']} leaves, a {_KIND} has {n}")
+            raise ValueError(f"{meta['n_leaves']} leaves, a {meta['kind']} "
+                             f"has {n}")
         leaves = [torch.as_tensor(f[f"leaf_{i}"], device=device)
                   for i in range(n)]
-    k = 1 + len(_PARTICLES)
-    return ModelState2D(
+    return state_cls(
         state=leaves[0],
-        particles=Particles2D(*leaves[1:k]),
+        particles=parts_cls(*leaves[1:k]),
         time=leaves[k], iteration=leaves[k + 1],
         metrics=StepMetrics(*leaves[k + 2:]))

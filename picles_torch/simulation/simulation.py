@@ -100,8 +100,8 @@ class Simulation:
     def init_state_store(self, path: str, name: str = "state",
                          replace: bool = True) -> StateStore:
         """An HDF5 ``StateStore`` sized for the whole horizon: ``[time, x,
-        y, state]``, or ``[time, layer, x, y, state]`` for a layered model
-        (``model.layers > 1``).  ``replace=False`` re-attaches an existing
+        y, state]``, ``[time, layer, x, y, state]`` for a layered model
+        (``model.layers > 1``), ``[time, x, state]`` for the 1D model.  ``replace=False`` re-attaches an existing
         file (checkpoint-resume legs): the run loop aligns the write cursor
         to the resumed state's iteration."""
         if not getattr(self.model, "is_root", True):
@@ -114,8 +114,11 @@ class Simulation:
         layers = getattr(self.model, "layers", 1)
         if layers > 1:
             coords["layer"] = np.arange(layers, dtype=float)
-        coords["x"] = g.x[:, 0].cpu().numpy()
-        coords["y"] = g.y[0, :].cpu().numpy()
+        if g.x.dim() == 2:
+            coords["x"] = g.x[:, 0].cpu().numpy()
+            coords["y"] = g.y[0, :].cpu().numpy()
+        else:
+            coords["x"] = g.x.cpu().numpy()
         coords["state"] = ["e", "m_x", "m_y"]
         self.store = StateStore(path, coords, name=name, replace=replace)
         return self.store

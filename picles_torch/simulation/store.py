@@ -2,8 +2,8 @@
 
 ``StateStore`` writes the JAX package's HDF5 layout: group ``waves`` with
 dataset ``data`` of shape ``[time, x, y, state]`` (``[time, layer, x, y,
-state]`` for a layered model; the frames pushed are then ``[L, x, y,
-state]``) (float64), coordinate
+state]`` for a layered model, the frames pushed then ``[L, x, y, state]``;
+``[time, x, state]`` for the 1D model) (float64), coordinate
 datasets, a ``dims`` attribute and ``var_names = ["e", "m_x", "m_y"]``.
 ``add_forcing`` adds the group ``forcing`` (float64 fields, their ``dims``
 and coordinates).  ``CashStore`` keeps host copies of the states in memory;

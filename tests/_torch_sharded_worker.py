@@ -40,6 +40,18 @@ ASYM_MESHES = [(4, 2), (2, 4)]
 GRIDDED_REMESH = ("pallas", "xla")
 LAYERS = 3
 LAYERED_N = 16
+# the synthetic tripolar grid (64 x 48 supergrid, 32 x 24 nodes) with its
+# metrics scaled by 1/100, so that particles cross cells and the seam in a
+# step; ocean but for three land nodes on the top row, two of them the
+# seam mirrors (x' = nx - 2 - x) of ocean nodes
+TRI_SCALE = 1.0 / 100.0
+TRI_LAND_X = (5, 6, 20)
+TRI_HALOS = {"h03": ((0, 3), (0, 3)), "h3": 3}
+TRI_STEPS = 4
+# fixed substeps of 20 s: at 60 s the young sea of this northward wind
+# diverges on every lane, and every lane's NaN guard reseeds it (on this
+# grid and on the Cartesian box alike), which no comparison could fault
+TRI_SUB = 20.0
 
 
 def settings(adaptive=True, sub=1e-3, **tols):
@@ -104,6 +116,55 @@ def gridded_model(remesh):
                            v_data=torch.as_tensor(v), **kw)
     return model(winds=gw, sett=settings(**GRIDDED_TOLS),
                  dt_reset_mode="carry", remesh_mode=remesh)
+
+
+def spherical_model():
+    """tests/test_sharded.py:393-419's spherical grid (periodic lon, open
+    lat) with constant (10, 5) m/s winds and fixed substeps of 60 s."""
+    grid = pt.spherical_grid_2d(0.0, 40.0, NX, 30.0, 60.0, NY, device="cpu",
+                                periodic_boundary=(True, False))
+    return pt.WaveGrowth2D(grid, pt.constant_winds(10.0, 5.0),
+                           settings(False, 60.0),
+                           config=pt.WaveGrowth2DConfig(
+                               periodic_boundary=False))
+
+
+def tripolar_supergrid():
+    """The synthetic supergrid's arrays, metrics scaled by ``TRI_SCALE``
+    (numpy, for either package's ``mom6_grid_from_supergrid``)."""
+    from picles_torch.grids.tripolar import synthetic_tripolar_supergrid
+
+    X, Y, dx, dy, area, ang = synthetic_tripolar_supergrid()
+    s = TRI_SCALE
+    return X, Y, dx * s, dy * s, area * s * s, ang
+
+
+def tripolar_mask():
+    """The ocean mask: explicit, because the pole masking measures cell
+    size and would mask every node of a scaled grid."""
+    m = np.ones((NX, NY), dtype=bool)
+    m[list(TRI_LAND_X), -1] = False
+    return m
+
+
+def tripolar_model(halo, sett):
+    """The scaled tripolar grid under a northward (2, 10) m/s wind, as
+    tests/test_full_step_oracle.py's seam oracle forces it."""
+    grid = pt.mom6_grid_from_supergrid(*tripolar_supergrid(), k=2,
+                                       device="cpu", mask=tripolar_mask())
+    return pt.WaveGrowth2D(grid, pt.constant_winds(2.0, 10.0), sett,
+                           config=pt.WaveGrowth2DConfig(
+                               periodic_boundary=True, halo=halo))
+
+
+def tripolar_run(halo, sett, fold=True):
+    """``TRI_STEPS`` steps of the tripolar model over a (4, 2) mesh;
+    ``fold=False`` leaves the seam fold out (a witness that it moves
+    energy)."""
+    sh = ShardedWaveGrowth2D(tripolar_model(halo, sett), make_mesh((4, 2)))
+    if not fold:
+        sh._fold_seam = lambda S, top: None
+    return step_run(sh, TRI_STEPS)
 
 
 def swell_defaults(L):
@@ -229,6 +290,15 @@ def main():
     cases += [(f"gridded_{r}", lambda r=r: step_run(ShardedWaveGrowth2D(
         gridded_model(r), make_mesh((4, 2)))))
               for r in GRIDDED_REMESH]
+    cases += [("sphere_fixed", lambda: step_run(ShardedWaveGrowth2D(
+        spherical_model(), make_mesh((4, 2)))))]
+    cases += [(f"tripolar_grid_{tag}",
+               lambda h=h: tripolar_run(h, settings(False, TRI_SUB)))
+              for tag, h in TRI_HALOS.items()]
+    cases += [("tripolar_grid_nofold", lambda: tripolar_run(
+        TRI_HALOS["h03"], settings(False, TRI_SUB), fold=False))]
+    cases += [("tripolar_adaptive", lambda: tripolar_run(
+        TRI_HALOS["h03"], settings(**GRIDDED_TOLS)))]
     cases += [("layered", layered_run)]
     cases += [("simulation", lambda: simulation_case(out_dir))]
     for name, run in cases:

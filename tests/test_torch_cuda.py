@@ -2,9 +2,11 @@
 K1, K2, K3, K4 and K6 bit for bit against their ``_simple`` baselines (the
 kernels they replaced; K3's followed by PyTorch's clamp and select), a
 fused Simulation resumed from a checkpoint, the sharded step on a (1, 1)
-NCCL mesh, and the spherical and tripolar grids: K1/K3 with per-node
-projection planes (bit for bit the scalars on a Cartesian box) and K2/K6
-with the tripolar seam.  Marked ``cuda``: without a CUDA device every test
+NCCL mesh (on a tripolar grid too), the spherical and tripolar grids:
+K1/K3 with per-node projection planes (bit for bit the scalars on a
+Cartesian box) and K2/K6 with the tripolar seam; and the 1D model (plain
+PyTorch) on the card against the CPU, its deposit deterministic.  Marked
+``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
 
@@ -1227,3 +1229,126 @@ def test_layered_step_equals_single_layer_steps_bitwise(dev, path):
     for n in (1, 3):
         _assert_bitwise(lay.step_n_quiet(ms0, n).leaves(), eager[n].leaves())
     assert eager[-1].metrics.n_failed.tolist() == [0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the sharded step on a tripolar grid, and the 1D model, on the card
+# ---------------------------------------------------------------------------
+
+
+def _scaled_tripolar_model(dev, **cfg):
+    """The scaled synthetic tripolar grid of tests/_torch_sharded_worker.py
+    (32 x 24 nodes, metrics over 100, land on the top row) on ``dev``
+    under a northward wind, halo 3, the carried dt and the K5 remesh, at
+    abstol 1e-7 / reltol 1e-6."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              constant_winds, mom6_grid_from_supergrid)
+    from picles_torch.grids.tripolar import synthetic_tripolar_supergrid
+
+    X, Y, dx, dy, area, ang = synthetic_tripolar_supergrid()
+    s = 1.0 / 100.0
+    mask = np.ones((32, 24), dtype=bool)
+    mask[[5, 6, 20], -1] = False
+    grid = mom6_grid_from_supergrid(X, Y, dx * s, dy * s, area * s * s, ang,
+                                    k=2, device=dev, mask=mask)
+    kw = dict(dt_reset_mode="carry", remesh_mode="pallas", halo=3)
+    kw.update(cfg)
+    return WaveGrowth2D(grid, constant_winds(2.0, 10.0),
+                        ODESettings(timestep=600.0, dt=1e-3, abstol=1e-7,
+                                    reltol=1e-6),
+                        config=WaveGrowth2DConfig(periodic_boundary=True,
+                                                  **kw))
+
+
+def test_sharded_tripolar_nccl_one_rank_matches_single_device(dev):
+    """The scaled tripolar grid through ShardedWaveGrowth2D on a (1, 1)
+    NCCL mesh (K1 with projection planes -> K4 -> the self-wrap and seam
+    folds -> K5), 4 steps: within rtol 2e-3 of the single-device step, the
+    counters equal; with the plain deposit on both sides, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from picles_torch.ops.pic_cuda import pic_gather_padded
+    from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
+                                               init_distributed, make_mesh)
+
+    model = _scaled_tripolar_model(dev)
+    assert model.uniform_proj is None
+    ref = model.step_n_quiet(model.init_state(), 4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, "nccl", port, timeout_s=60.0)
+    try:
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        before = pic_gather_padded.launches
+        ms = sh.step_n_quiet(sh.init_state(), 4)
+        assert pic_gather_padded.launches == before + 4
+        torch.testing.assert_close(ms.state, ref.state, rtol=2e-3,
+                                   atol=1e-10)
+        got, want = ms.metrics.as_dict(), ref.metrics.as_dict()
+        for k in ("n_active", "n_gather", "n_failed", "n_clamped"):
+            assert got[k] == want[k], k
+        plain = _scaled_tripolar_model(dev, scatter_mode="dense")
+        shp = ShardedWaveGrowth2D(plain, make_mesh((1, 1)))
+        a, b = shp.init_state(), plain.init_state()
+        for _ in range(4):
+            a, b = shp.step(a), plain.step(b)
+        _assert_bitwise(a.leaves(), b.leaves())
+    finally:
+        dist.destroy_process_group()
+
+
+def _b01_model(device, **tols):
+    from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
+                              constant_winds_1d, one_d_grid)
+
+    return WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device=device),
+                        constant_winds_1d(10.0),
+                        ODESettings(timestep=600.0, dt=1e-3, **tols),
+                        config=WaveGrowth1DConfig(periodic_boundary=False))
+
+
+def test_model_1d_on_card_matches_cpu_and_repeats(dev):
+    """The B01 grid at abstol 1e-7 / reltol 1e-6, 12 steps on the card:
+    within 1e-4 of the CPU run's scale, ``on`` and the counters equal (the
+    most substeps of a lane within 2), and a second card run bit for bit
+    the first (the deposit sums without atomics)."""
+    tols = dict(abstol=1e-7, reltol=1e-6)
+    mg, mc = _b01_model(dev, **tols), _b01_model("cpu", **tols)
+    assert not mg.graphed
+    a, _ = mg.step_n(mg.init_state(), 12)
+    b, _ = mc.step_n(mc.init_state(), 12)
+    scale = float(b.state.abs().max())
+    torch.testing.assert_close(a.state.cpu(), b.state, rtol=0,
+                               atol=1e-4 * scale)
+    assert torch.equal(a.particles.on.cpu(), b.particles.on)
+    ga, gb = a.metrics.as_dict(), b.metrics.as_dict()
+    assert abs(ga.pop("substeps_max") - gb.pop("substeps_max")) <= 2
+    assert ga == gb
+    again, _ = mg.step_n(mg.init_state(), 12)
+    _assert_bitwise(again.leaves(), a.leaves())
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_deposit_1d_on_card_is_deterministic(dev, periodic):
+    """The sign-merge deposit of 2^16 random lanes over 512 nodes on the
+    card: two runs bit for bit, within 1e-6 of the CPU's per-node scale."""
+    from picles_torch.ops.pic import scatter_1d_merge
+
+    rng = np.random.default_rng(3)
+    n, nx, dx = 2 ** 16, 512, 1000.0
+    x = rng.uniform(-50e3, 560e3, n).astype(np.float32)
+    ch = np.stack([rng.uniform(0.1, 1.0, n),
+                   np.where(rng.random(n) < 0.5, -1.0, 1.0)
+                   * rng.uniform(0.01, 0.1, n), np.zeros(n)],
+                  axis=-1).astype(np.float32)
+    act = rng.random(n) > 0.1
+    args = [torch.as_tensor(a) for a in (x, ch, act)]
+    cpu = scatter_1d_merge(*args, 0.0, dx, nx, periodic)
+    g1 = scatter_1d_merge(*(a.to(dev) for a in args), 0.0, dx, nx, periodic)
+    g2 = scatter_1d_merge(*(a.to(dev) for a in args), 0.0, dx, nx, periodic)
+    assert torch.equal(g1, g2)
+    torch.testing.assert_close(g1.cpu(), cpu, rtol=0,
+                               atol=1e-6 * float(cpu.abs().max()))

@@ -698,12 +698,15 @@ def test_short_record_matches_extended():
 def test_convert_gridded_from_jax():
     jg, _ = _record(2, x0=1.0, dx=2.0, y0=3.0, dy=4.0, t0=5.0, dt=6.0,
                     mode="wrap", mode_t="wrap", **_tables())
-    tg = convert.gridded_from_jax(jg)
+    tg = convert.gridded_from_jax(jg, device="cpu")
     for k in ("x0", "dx", "y0", "dy", "t0", "dt", "mode", "mode_t"):
         assert getattr(tg, k) == getattr(jg, k), k
     for k in ("u_data", "v_data", "x_nodes", "y_nodes", "t_nodes"):
         np.testing.assert_array_equal(getattr(tg, k).numpy(),
                                       np.asarray(getattr(jg, k)))
+    # the device is named by the caller, as every constructor takes it
+    with pytest.raises(TypeError):
+        convert.gridded_from_jax(jg)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,18 @@ Tolerances:
   amplifies ulps) and 2e-5 in float64 (6.3e-6 measured: the port evaluates
   the winds in float32 whatever the model's dtype, so its float64 is no
   twin of JAX's);
+- the spherical grid (per-node projection planes, the open-y drop) with
+  fixed substeps: the port's single-device step at rtol 2e-6 / atol 1e-9
+  (tests/test_sharded.py:415), JAX's sharded step at rtol 5e-5;
+- the synthetic tripolar grid (metrics scaled by 1/100, land on the top
+  row, the seam fold spread over the top row of blocks): fixed substeps at
+  rtol 1e-5 against the port's single-device step and 5e-5 against JAX's
+  sharded step (1.3e-6 of the state's scale measured against the
+  single-device step: the deposit sums a block edge's terms in another
+  order); the adaptive controller at abstol 1e-7 / reltol 1e-6 at rtol
+  2e-3 and 5e-3 (1.7e-6 measured; at the default reltol 1e-3 the
+  controller turns those last-ulp differences into other substep paths,
+  1.3e-2 of the scale and 2.0e-2 element by element over 4 steps);
 - the world-size-1 step equals the single-device step bit for bit: the
   self-wrap adds the slabs in ``fold_padded_x/y``'s order;
 - checkpoints and the resumed run bit for bit.
@@ -430,6 +442,111 @@ def test_world_size_one_gridded_equals_single_device(one_rank, remesh):
     sh = tsh.ShardedWaveGrowth2D(m, one_rank)
     ms, single = sh.init_state(), m.init_state()
     for _ in range(3):
+        ms, single = sh.step(ms), m.step(single)
+    for a, b in zip(ms.leaves(), single.leaves()):
+        assert torch.equal(a, b)
+    assert int(ms.metrics.n_gather) > 0
+
+
+# ---------------------------------------------------------------------------
+# spherical and tripolar grids
+# ---------------------------------------------------------------------------
+
+
+def _jax_sphere():
+    """The worker's spherical model in the JAX package."""
+    from picles_tpu.grids.spherical import spherical_grid_2d as j_sphere
+
+    grid = j_sphere(0.0, 40.0, W.NX, 30.0, 60.0, W.NY,
+                    periodic_boundary=(True, False))
+    return JModel(grid, j_constant(10.0, 5.0), _jsettings(False, 60.0),
+                  config=JConfig(periodic_boundary=False))
+
+
+def _jax_tripolar(halo, sett):
+    """The worker's scaled tripolar model in the JAX package, from the same
+    supergrid arrays and mask."""
+    from picles_tpu.grids.tripolar import mom6_grid_from_supergrid as j_mom6
+
+    grid = j_mom6(*W.tripolar_supergrid(), 2, mask=W.tripolar_mask())
+    return JModel(grid, j_constant(2.0, 10.0), sett,
+                  config=JConfig(periodic_boundary=True, halo=halo))
+
+
+def test_sharded_spherical_fixed_substep(ranks):
+    """tests/test_sharded.py:393-419 on the port: per-node projection
+    planes cut per block, the open-y drop, fixed substeps, mesh (4, 2), 3
+    steps."""
+    r = _result(ranks, "sphere_fixed")
+    single = W.spherical_model()
+    assert single.uniform_proj is None   # per-node planes
+    _check(r, _steps(single), 2e-6, atol=1e-9, what="port")
+    _check(r, _jax_sharded(_jax_sphere(), (4, 2)), 5e-5, what="JAX sharded")
+    assert int(r["m_n_gather"]) > 0
+
+
+@pytest.mark.parametrize("tag", list(W.TRI_HALOS))
+def test_sharded_tripolar_grid_fixed_substep(ranks, tag):
+    """The scaled synthetic tripolar grid over a (4, 2) mesh, fixed
+    substeps (20 s), 4 steps: per-block projection planes, the seam fold
+    spread over the top row of blocks (a gather along x), land on the top
+    row; the port's single-device step at rtol 1e-5 and JAX's sharded step
+    at rtol 5e-5, no lane reseeded by a guard, the land nodes off the
+    active set.  Halo 3 clamps no displacement; the (0, 3) x halo clamps
+    the westward lanes of the rotated rows (10) as JAX's does."""
+    r = _result(ranks, f"tripolar_grid_{tag}")
+    halo = W.TRI_HALOS[tag]
+    single = W.tripolar_model(halo, W.settings(False, W.TRI_SUB))
+    assert single.grid.stats.by == pt.Boundary.TRIPOLAR_NORTH
+    _check(r, _steps(single, W.TRI_STEPS), 1e-5, what="port")
+    jms = _jax_sharded(_jax_tripolar(halo, _jsettings(False, W.TRI_SUB)),
+                       (4, 2), W.TRI_STEPS)
+    _check(r, jms, 5e-5, what="JAX sharded")
+    for k in ("n_failed", "n_nan_reset", "n_inf_reset"):
+        assert int(r[f"m_{k}"]) == 0, k
+    assert int(r["m_n_clamped"]) == int(jms.metrics.n_clamped)
+    if tag == "h3":
+        assert int(r["m_n_clamped"]) == 0
+    land = list(W.TRI_LAND_X)
+    assert not single.active_mask[land, -1].any()
+    assert int(r["m_n_active"]) == int(single.active_mask.sum())
+
+
+def test_tripolar_seam_fold_moves_energy(ranks):
+    """The witness that the seam cases test the fold: the same run with the
+    fold left out holds other energy on the top row."""
+    r = _result(ranks, "tripolar_grid_h03")
+    nf = _result(ranks, "tripolar_grid_nofold")
+    top, top_nf = r["state"][:, -1, 0], nf["state"][:, -1, 0]
+    assert np.abs(top - top_nf).max() > 0.1 * np.abs(top).max()
+    # below the rows the fold and its effects reach, nothing changes
+    np.testing.assert_array_equal(r["state"][:, :W.NY - 4 * W.TRI_STEPS],
+                                  nf["state"][:, :W.NY - 4 * W.TRI_STEPS])
+
+
+def test_sharded_tripolar_grid_adaptive(ranks):
+    """The scaled tripolar grid under the adaptive controller at abstol
+    1e-7 / reltol 1e-6, 4 steps: the port's single-device step at rtol 2e-3
+    and JAX's sharded step at rtol 5e-3, the counters equal."""
+    r = _result(ranks, "tripolar_adaptive")
+    halo = W.TRI_HALOS["h03"]
+    _check(r, _steps(W.tripolar_model(halo, W.settings(**W.GRIDDED_TOLS)),
+                     W.TRI_STEPS), 2e-3, what="port")
+    jms = _jax_sharded(_jax_tripolar(halo, _jsettings(**W.GRIDDED_TOLS)),
+                       (4, 2), W.TRI_STEPS)
+    _check(r, jms, 5e-3, what="JAX sharded")
+    assert int(r["m_n_failed"]) == 0 and int(r["m_n_nan_reset"]) == 0
+    # westward lanes of the rotated rows meet the (0, 3) x halo's floor
+    assert int(r["m_n_clamped"]) == int(jms.metrics.n_clamped)
+
+
+def test_world_size_one_tripolar_equals_single_device(one_rank):
+    """The scaled tripolar grid on a (1, 1) mesh (the seam fold on the one
+    block's own top halo): bit for bit the single-device step, adaptive."""
+    m = W.tripolar_model(W.TRI_HALOS["h03"], W.settings(**W.GRIDDED_TOLS))
+    sh = tsh.ShardedWaveGrowth2D(m, one_rank)
+    ms, single = sh.init_state(), m.init_state()
+    for _ in range(W.TRI_STEPS):
         ms, single = sh.step(ms), m.step(single)
     for a, b in zip(ms.leaves(), single.leaves()):
         assert torch.equal(a, b)

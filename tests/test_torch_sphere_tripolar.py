@@ -420,7 +420,7 @@ def test_tripolar_gridded_realistic_like_winds():
     tg = pt.synthetic_tripolar_grid(k=2, device="cpu")
     jm = JModel(jg, gw.as_winds(), _forced_settings(1200.0),
                 config=JConfig(periodic_boundary=True, halo=3))
-    tm = port_model(jm, tg, convert.gridded_from_jax(gw))
+    tm = port_model(jm, tg, convert.gridded_from_jax(gw, device="cpu"))
     _, tms = step_both(jm, tm, jm.init_state(), 6, 1e-4, smax_slack=1)
     e, mask, lat = tms.state[..., 0].numpy(), tg.mask.numpy(), tg.y.numpy()
     jet = (lat > 20) & (lat < 55) & (mask == 1)
