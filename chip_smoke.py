@@ -83,6 +83,23 @@ just before and read just after:
    speeds), a checkpoint resumed bit for bit, the card against the CPU,
    and the deterministic sign-merge deposit on 2^20 lanes.
 
+10. a wind given as a steady callable (the node kind of K1, K3, K5 and
+    K6: its two node planes): phase "node-winds" holds
+    ``Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0), ...)`` bit for
+    bit against ``constant_winds(10, 10)`` at 1536^2 under the flagship
+    ``xla``, ``pallas`` and ``fused`` and the default configurations, and
+    the global demo's two-jet callable bit for bit against a two-frame
+    record of its planes at 1440 x 720; phase "global-jet" runs
+    benchmark/tripolar_global_demo.py's configuration at 1440 x 720
+    through ``Simulation.run`` (a graphed day of the fused path resumed
+    from step 36, no energy on land, ms/step graphed and eager for the
+    fused, "pallas" and default paths, against the plain advance the
+    callable had before), its (1, 1) NCCL sharded step (inside
+    "sharded-1x1") and the 2 x 2 gloo leg at 360 x 180; the node kind's
+    kernels are held against their plain versions on the jet's states and
+    timed; phase "examples" runs ``picles_torch/examples/example_00..05``
+    at full size.
+
 ``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
 through it.  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
@@ -149,7 +166,8 @@ from picles_torch.models.drivers import WARMUP_STEPS
 from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
 from picles_torch.forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
-                                        gridded_kernel, pwl_winds)
+                                        gridded_kernel, node_plane_winds,
+                                        pwl_winds)
 from picles_torch.grids.mask import make_boundaries
 from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
                                            auto_dt_reset, kernel_wind,
@@ -397,18 +415,20 @@ def gridded_wind_ops(B: int) -> int:
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
              n_wf: int = 0, proj: bool = False, layers: int = 1) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
-    a gridded wind's ``n_wf`` planes in (4 bytes each) and, with per-node
-    projection planes (``proj``), 5 more (20 bytes); per live particle one
-    RHS evaluation to start, then per substep tried (accepted or rejected)
-    S evaluations (each with the gridded samplers) and the substep's own
+    the node x (4 bytes, which only an analytic wind reads) or a wind's
+    ``n_wf`` planes in (4 bytes each: 4 + 3B gridded, 2 of the node kind)
+    and, with per-node projection planes (``proj``), 5 more (20 bytes); per
+    live particle one RHS evaluation to start, then per substep
+    tried (accepted or rejected) S evaluations (each with the gridded
+    samplers; the node kind's pair is loaded once) and the substep's own
     operations.  With ``layers`` the ``n`` particles are that many layers of
     one grid, whose node x and node planes are read once a node."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
-    rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
+    rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    node = 4.0 + 4.0 * n_wf + 20.0 * proj
+    node = 4.0 * (n_wf == 0) + 4.0 * n_wf + 20.0 * proj
     return bound((62.0 + node / layers) * n, ops)
 
 
@@ -419,8 +439,8 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
     the remesh's 60 bytes a node in and out (lne, cgx, cgy, px, py, dt, the
     three masks and x in; six planes, `on` and the branch bits out) and
-    about 60 operations; with a gridded wind's ``n_wf`` planes, 4 bytes
-    each in place of the node x, and the samplers' operations.  With
+    about 60 operations; with a wind's ``n_wf`` planes, 4 bytes each in
+    place of the node x, and a gridded wind's samplers' operations.  With
     ``layers`` the sources and outputs are that many layers of one grid,
     whose masks and node x (or wind planes) the remesh reads once a
     node."""
@@ -432,19 +452,19 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
         (54.0 + node / layers) * n_out if remesh else 0.0)
     ops = 13.0 * n_src + 11.0 * cells * n_out + (60.0 * n_out if remesh
                                                  else 0.0)
-    if remesh and n_wf:
+    if remesh and n_wf > 2:
         ops += gridded_wind_ops((n_wf - 4) // 3) * n_out
     return bound(nbytes, ops)
 
 
 def remesh_bound(n: int, n_wf: int = 0, layers: int = 1) -> dict:
     """K5: 72 bytes a node (43 in, 29 out) and about 60 operations; a
-    gridded wind's ``n_wf`` planes in place of the node x, and the
+    wind's ``n_wf`` planes in place of the node x, and a gridded wind's
     samplers' operations.  With ``layers`` the ``n`` nodes are that many
     layers of one grid, whose masks and node x (or wind planes) are read
     once a node."""
     wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
-    ops = 60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf else 0)
+    ops = 60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0)
     node = 6.0 + wind   # active, boundary and x (or the wind planes)
     return bound((66.0 + node / layers) * n, ops * n)
 
@@ -454,7 +474,8 @@ def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
     """K3 on this run's inputs: per lane the mask (1 byte) in and dt out (4);
     per reset lane the 5 components (20 bytes), the node x where an
     analytic wind reads it, t where the wind varies in t, a gridded wind's
-    4 + 3B planes (4 bytes each) and per-node projection planes (``proj``,
+    4 + 3B planes or the node kind's 2 (4 bytes each) and per-node
+    projection planes (``proj``,
     20 bytes), 2 RHS evaluations (with the gridded samplers), the norms,
     h0, h1 and the clamp (about 62 operations); per lane that is not reset
     its dt (4 bytes) and no operation.  With ``layers`` the lanes are that
@@ -462,7 +483,8 @@ def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
     node."""
     n, r = reset.numel(), int(reset.sum())
     gridded = wind.kind == WindKind.GRIDDED
-    n_wf = 4 + 3 * wind.n_break if gridded else 0
+    n_wf = (4 + 3 * wind.n_break if gridded else
+            2 if wind.kind == WindKind.NODE else 0)
     node = 4.0 * (wind.kind in (WindKind.HALF_DOMAIN, WindKind.TIME_COSINE)) \
         + 4.0 * n_wf + 20.0 * proj
     per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.TIME_COSINE,
@@ -2009,6 +2031,7 @@ def phase_sharded_1x1(dev, gw, results, timing):
         results["K4"]["launches"] = c["K4"]
         phase_sharded_layers(dev, gw, results, timing)
         phase_sharded_tripolar(dev, results, timing)
+        phase_sharded_jet(dev, results, timing)
     finally:
         dist.destroy_process_group()
     ms_step, single = (float(np.median(runs[k])) for k in ("sharded", "single"))
@@ -2232,6 +2255,28 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
                                f"blocks: 4 steps vs single device max abs "
                                f"err {err:.3e}, counters equal; metrics "
                                f"{m}; {wall:.2f} s wall with the gather")
+
+    # (e) the global jet at 1 degree ("pallas"): each block forms its own
+    # node planes from the callable
+    jm = jet_model(tgrid, "pallas", tols=SHARDED_TRI_TOLS)
+    jsh = ShardedWaveGrowth2D(jm, mesh)
+    ms = eager_steps(jsh, jsh.init_state(), 3)
+    sx, sy = jsh._slices
+    assert jm._node_planes[0] is jsh.local_grid
+    assert torch.equal(jm._node_planes[1],
+                       jet_model(tgrid, "pallas").node_planes(tgrid)[
+                           :, sx, sy])
+    whole = jsh.gather_state(ms)
+    if root:
+        ref = eager_steps(jm, jm.init_state(), 3)
+        err = assert_states("2x2 jet pallas vs single device, 3 steps",
+                            whole, ref)
+        m = check_tripolar("2x2 jet pallas", jm, whole)
+        res["jet_pallas_max_abs_err"] = err
+        log("sharded-2x2", f"global jet pallas {tgrid.nx} x {tgrid.ny} on a "
+                           f"(2, 2) mesh, each block's node planes its own "
+                           f"slice of the jet: 3 steps vs single device max "
+                           f"abs err {err:.3e}, counters equal; metrics {m}")
     if root:
         with open(os.path.join(out, "rank0.json"), "w") as f:
             json.dump(res, f)
@@ -5003,6 +5048,573 @@ def phase_sharded_tripolar(dev, results, timing) -> None:
     timing["sharded_tripolar"] = out
 
 
+# ---------------------------------------------------------------------------
+# a steady callable as the wind: the node kind (phases "node-winds",
+# "global-jet", "examples")
+# ---------------------------------------------------------------------------
+
+# the new entries of the kernels line: the TPU kernels' lines that sample
+# the callable wind, which the node kind replaces
+NODE_REPLACES = {"K1 node": "picles_tpu/ops/advance_pallas.py:78",
+                 "K3 node": "picles_tpu/ops/advance_pallas.py:219",
+                 "K5 node": "picles_tpu/ops/remesh_pallas.py:60",
+                 "K6 node": "picles_tpu/ops/pic_pallas.py:398"}
+NODE_STEPS = 3
+NODE_CONFIGS = {"flagship xla": ("K1", "K2"),
+                "flagship pallas": ("K1", "K2", "K5"),
+                "flagship fused": ("K1", "K6"),
+                "default": ("K1", "K2", "K3")}
+JET_PATHS = {"fused": ("K1", "K6"), "pallas": ("K1", "K2", "K5"),
+             "default": ("K1", "K2", "K3")}
+JET_STEPS = 72       # a day of TRI_DT
+JET_PLAIN_STEPS = 10
+
+
+def steady_constant(U10: float = 10.0, V10: float = 10.0) -> Winds2D:
+    """``constant_winds(U10, V10)``'s samplers as a plain callable, with no
+    kernel descriptor: the model takes it as the node kind."""
+    return Winds2D(u=lambda x, y, t: torch.full_like(x, U10),
+                   v=lambda x, y, t: torch.full_like(x, V10))
+
+
+def jet_u(x, y, t):
+    """benchmark/tripolar_global_demo.py:63-67's two zonal jets."""
+    return (12.0 * torch.exp(-(((y - 40.0) / 18.0) ** 2))
+            + 9.0 * torch.exp(-(((y + 45.0) / 15.0) ** 2)))
+
+
+def jet_v(x, y, t):
+    return torch.zeros_like(x)
+
+
+def jet_model(grid, path: str, winds=None, tols=None, **cfg_kw):
+    """benchmark/tripolar_global_demo.py:60-80's configuration on ``grid``:
+    the two jets as the plain callable ``Winds2D(u=jet_u, v=jet_v)`` (or
+    ``winds``), DT = 1200 s, the settings' tsit5 with dt = 1e-3, dtmin =
+    1e-4, force_dtmin, the log-energy minimum of a (10, 10) m/s minimal
+    windsea, periodic, halo 3; "fused" and "pallas" carry the dt and run the
+    remesh kernel (K1 and K6; K1, K2 and K5), "default" is the package's
+    config (K1, K2 and K3 on the reset lanes); ``cfg_kw`` more config
+    entries (``advance_mode``, ``remesh_mode``)."""
+    ws = FR.MinimalWindsea(10.0, 10.0, TRI_DT)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=TRI_DT,
+                       timestep=TRI_DT, total_time=DAY, dt=1e-3, dtmin=1e-4,
+                       force_dtmin=True, **(tols or {}))
+    cfg = dict(periodic_boundary=True, halo=3)
+    if path != "default":
+        cfg.update(dt_reset_mode="carry", remesh_mode=path)
+    cfg.update(cfg_kw)
+    return WaveGrowth2D(grid, winds or Winds2D(u=jet_u, v=jet_v), sett,
+                        config=WaveGrowth2DConfig(**cfg))
+
+
+def node_record(model, grid):
+    """A ``GriddedWinds2D`` record of two identical frames of ``model``'s
+    node planes over ``grid``, and the grid sampled by it: the record is
+    laid over the node indices (x0 = y0 = 0, dx = dy = 1) and its frames
+    sit at t = -3600 and 0 s (hourly), and the grid's copy has the node
+    indices for x and y.  Its interpolant at a node is then the node's own
+    sample exactly at every t >= 0 (the spatial weights are 1 and 0, the
+    time index clamps to the last frame), and the kernels read it as B = 1
+    planes with zero slopes: u = s + t 0 + 0 max(t - b, 0) = s.  The grid's
+    x and y enter the step only where the winds are sampled."""
+    planes = model.node_planes(grid)
+    frames = torch.stack([planes, planes], dim=1)     # [u/v, frame, nx, ny]
+    gw = GriddedWinds2D(u_data=frames[0].contiguous(),
+                        v_data=frames[1].contiguous(), x0=0.0, dx=1.0,
+                        y0=0.0, dy=1.0, t0=-3600.0, dt=3600.0)
+    nx, ny, dev = grid.nx, grid.ny, grid.device
+    ix = torch.arange(nx, dtype=torch.float32, device=dev)
+    iy = torch.arange(ny, dtype=torch.float32, device=dev)
+    return gw, dataclasses.replace(
+        grid, x=ix[:, None].expand(nx, ny).contiguous(),
+        y=iy[None, :].expand(nx, ny).contiguous())
+
+
+def node_step_checks(dev, n: int, tri_grid) -> dict:
+    """The node kind against the kinds it must equal, bit for bit, from the
+    seed, ``NODE_STEPS`` eager steps each, the counters set to 0 just
+    before each node-kind run and read just after: (a) at n^2 the
+    flagship (``xla``, ``pallas``, ``fused``) and default configurations
+    forced by ``steady_constant()`` against the same models forced by
+    ``constant_winds(10, 10)``: the kernels are the same, only the wind's
+    kind differs; (b) on ``tri_grid`` the jet configurations (``fused``,
+    ``pallas``, default) against the same configurations forced by the
+    jet's ``node_record`` (K1, K3, K5 and K6's gridded instances).  Returns
+    the node-kind runs' launches by kernel id."""
+    launches = {}
+
+    def tally(c):
+        for k in ("K1", "K3", "K5", "K6"):
+            launches[k] = launches.get(k, 0) + c[k]
+
+    for name, kerns in NODE_CONFIGS.items():
+        pair = []
+        for winds in (constant_winds(10.0, 10.0), steady_constant()):
+            if name == "default":
+                m = default_model(n, dev, winds=winds)
+            else:
+                m = flagship_model(n, dev, winds=winds,
+                                   remesh_mode=name.split()[1])
+            reset_counters()
+            pair.append(eager_steps(m, m.init_state(), NODE_STEPS))
+        c = counters()
+        assert m.winds.kernel.kind == WindKind.NODE, name
+        assert all(c[k] == NODE_STEPS for k in kerns), (name, c)
+        tally(c)
+        assert_state_bitwise(f"node kind vs constant winds, {name}", *pair)
+        check_state(f"node kind {name}", pair[1], n_failed=0, n_clamped=0)
+        log("node-winds", f"{n}^2 {name}: steady_constant() (the node kind) "
+                          f"bit for bit constant_winds(10, 10) over "
+                          f"{NODE_STEPS} steps; launches {c}")
+    for path, kerns in JET_PATHS.items():
+        jm = jet_model(tri_grid, path)
+        assert jm.winds.kernel.kind == WindKind.NODE, path
+        gw, igrid = node_record(jm, tri_grid)
+        rm = jet_model(igrid, path, winds=gw)
+        assert rm._wind_B == 1, rm._wind_B
+        a = eager_steps(rm, rm.init_state(), NODE_STEPS)
+        reset_counters()
+        b = eager_steps(jm, jm.init_state(), NODE_STEPS)
+        c = counters()
+        assert all(c[k] == NODE_STEPS for k in kerns), (path, c)
+        tally(c)
+        assert_state_bitwise(f"jet (node kind) vs its record, {path}", b, a)
+        check_state(f"jet {path}", b, n_failed=0, n_clamped=0)
+        log("node-winds", f"{tri_grid.nx} x {tri_grid.ny} jet {path}: the "
+                          f"callable (node kind) bit for bit its two-frame "
+                          f"record (gridded, B = 1) over {NODE_STEPS} steps; "
+                          f"launches {c}")
+        del jm, rm, a, b, gw, igrid
+    return launches
+
+
+def phase_node_winds(dev, results):
+    """Phase "node-winds": ``node_step_checks`` at FLAG_N^2 and on the
+    quarter-degree tripolar grid."""
+    t0 = time.perf_counter()
+    launches = node_step_checks(dev, FLAG_N, tripolar_grid(dev, *TRI_SUPER))
+    for k, v in launches.items():
+        results[f"{k} node"]["launches"] += v
+    log("node-winds", f"done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_global_jet(dev, results, timing):
+    """Phase "global-jet", this slice's main path: the global tripolar jet
+    (benchmark/tripolar_global_demo.py's configuration, ``jet_model``) at
+    1440 x 720 through its entry points.  The fused day (72 steps of 1200
+    s) through ``Simulation.run``, graphed, checkpointed at step 36 and
+    resumed bit for bit, its launches counted in a trace (K1 = K6 = 72),
+    the day again eagerly (``run_day_resumed``); finite, no failed or
+    clamped lane, and the land holds no energy.  Then for ``fused``,
+    ``pallas`` and default ms/step graphed and eager (medians of 3 x 10
+    steps, CUDA events) with their launches (``pallas`` and default also by
+    name in a trace of 3 steps of ``Simulation.run``: K1 with K2 and K5,
+    or with K2 and K3), and the fused configuration on
+    the plain advance (``advance_mode="torch"`` with the PyTorch remesh:
+    the only path a callable had on the card before) in turns with the
+    fused kernels' eager step, 10 steps each way.  Returns (grid, the fused
+    model and its day's last state, the default model and its state)."""
+    grid = tripolar_grid(dev, *TRI_SUPER)
+    n = grid.nx * grid.ny
+    prod = jet_model(grid, "fused")
+    assert prod.graphed and prod.winds.kernel.kind == WindKind.NODE
+    assert prod.uniform_proj is None
+    planes = prod.node_planes(grid)
+    assert any(c is not None and c[1] is planes for c in prod.graph_keep())
+    r = run_day_resumed(prod, "global jet day", steps=JET_STEPS, at=36)
+    full = r["full"].state
+    m = check_tripolar("global jet day", prod, full)
+    assert m["n_clamped"] == 0 and r["day"]["n_clamped"] == 0, m
+    assert r["day"]["n_failed"] == 0, r["day"]
+    e = full.state[..., 0]
+    land = (grid.mask == 0)
+    land_e = float(e[land].double().abs().sum())
+    # the demo's own check (benchmark/tripolar_global_demo.py:113-116)
+    assert land_e == 0.0, f"global jet day: land energy {land_e:.3e}"
+    g, c, ec = r["graphed_counts"], r["launches"], r["eager_launches"]
+    assert c["K1"] == c["K6"] == JET_STEPS and ec["K1"] == ec["K6"] == \
+        JET_STEPS, (c, ec)
+    results["K1 node"]["launches"] += c["K1"]
+    results["K6 node"]["launches"] += c["K6"]
+    timing.update(global_jet_day_wall_s=r["wall"],
+                  global_jet_day_ms_per_step=r["wall"] * 1e3 / JET_STEPS,
+                  global_jet_day_pushes_per_s=n * JET_STEPS / r["wall"],
+                  global_jet_peak_bytes=r["peak"],
+                  global_jet_checkpoint_bytes=r["size"],
+                  global_jet_day_trace=r["trace"],
+                  global_jet_day_counters=r["day"],
+                  global_jet_land_energy=land_e,
+                  global_jet_land_share=m["land_energy_share"])
+    log("global-jet", f"{grid.nx} x {grid.ny} fused day through "
+                      f"Simulation.run (graphed): {JET_STEPS} steps in "
+                      f"{r['wall']:.3f} s wall "
+                      f"({r['wall'] * 1e3 / JET_STEPS:.3f} ms/step, "
+                      f"{n * JET_STEPS / r['wall']:.4e} pushes/s), peak "
+                      f"{r['peak'] / 2**30:.3f} GiB; resumed from step 36 "
+                      f"bit for bit; launches by trace {c}, the host's "
+                      f"{g}, the eager day's {ec} (bit for bit); device busy "
+                      f"{r['trace']['device_busy_ms_per_step']:.4f} ms/step, "
+                      f"idle share {r['trace']['idle_share']:.4f}; land "
+                      f"energy {land_e:.3e} (share "
+                      f"{m['land_energy_share']:.3e} on "
+                      f"{m['land_nodes_with_energy']} nodes); the day's "
+                      f"counters {r['day']}")
+    del r
+    states = {"fused": full}
+    models = {"fused": prod}
+    for path, kerns in JET_PATHS.items():
+        model = models[path] if path in models else jet_model(grid, path)
+        ms = states[path] if path in states else model.init_state()
+        reset_counters()
+        ms = eager_steps(model, ms, 2)
+        c = counters()
+        assert all(c[k] == 2 for k in kerns), (path, c)
+        assert sum(c.values()) == 2 * len(kerns), (path, c)
+        for k in kerns:
+            if f"{k} node" in results:
+                results[f"{k} node"]["launches"] += c[k]
+        ms, _ = time_steps(model, ms, 3)     # the capture
+        runs = {"graphed": [], "eager": []}
+        for _ in range(3):
+            for how in ("graphed", "eager"):
+                ms, t = time_steps(model, ms, 10, eager=how == "eager")
+                runs[how].append(t)
+        mt = check_tripolar(f"global jet {path}", model, ms)
+        med = {k: float(np.median(v)) for k, v in runs.items()}
+        timing[f"global_jet_{path}_ms_per_step"] = med
+        traced = ""
+        if path != "fused":    # the fused day was traced above
+            want = {k: 3 if k in kerns else 0
+                    for k in ("K1", "K2", "K3", "K5", "K6")}
+            sim, got, _ = traced_run(
+                model, (int(ms.iteration) + 2) * TRI_DT, want, state=ms)
+            assert got == want, (path, got)
+            ms = sim.state
+            for k in kerns:
+                if f"{k} node" in results:
+                    results[f"{k} node"]["launches"] += got[k]
+            traced = f"; 3 steps of Simulation.run, launches by trace {got}"
+        log("global-jet", f"{path}: {med['graphed']:.3f} ms/step graphed, "
+                          f"{med['eager']:.3f} eager (medians of 3 x 10 "
+                          f"steps, CUDA events); 2 eager steps launched "
+                          f"{c}{traced}; metrics {mt}")
+        states[path], models[path] = ms, model
+    plain = jet_model(grid, "fused", advance_mode="torch", remesh_mode="xla")
+    assert not plain.graphed and plain.winds.kernel is None
+    sp, sk = states["fused"], states["fused"]
+    runs = {"plain": [], "kernels": []}
+    for who in ("kernels", "plain", "plain", "kernels"):
+        if who == "plain":
+            sp, t = time_steps(plain, sp, JET_PLAIN_STEPS // 2, eager=True)
+        else:
+            sk, t = time_steps(prod, sk, JET_PLAIN_STEPS // 2, eager=True)
+        runs[who].append(t)
+    check_tripolar("global jet on the plain advance", plain, sp)
+    med = {k: float(np.mean(v)) for k, v in runs.items()}
+    timing["global_jet_plain_vs_kernels_ms_per_step"] = med
+    log("global-jet", f"the fused configuration on the plain advance "
+                      f"(advance_mode=\"torch\", the PyTorch remesh): "
+                      f"{med['plain']:.3f} ms/step against the kernels' "
+                      f"eager {med['kernels']:.3f} (means of 2 x "
+                      f"{JET_PLAIN_STEPS // 2} steps each, in turns, CUDA "
+                      f"events): "
+                      f"{med['plain'] / med['kernels']:.1f} x")
+    return grid, prod, states["fused"], models["default"], states["default"]
+
+
+def node_kernel_times(grid, prod, s_prod, default, s_def, results, timing):
+    """The node kind's four entries at 1440 x 720 on the global jet's own
+    states, each held against its plain version over ``node_plane_winds``
+    of the same planes and timed beside it with its bound: K1 on the fused
+    day's last state (by share of lanes, ``assert_adaptive`` and
+    ``assert_controller``), K3 on the default state with every lane reset
+    (within rtol 1e-5), K5 and K6 on the fused state's deposit
+    (``assert_remesh``; K6 bit for bit K2 + K5).  K1 and K3 by CUDA events
+    (their wrappers launch nothing else), K5 and K6 from profiler traces.
+    The bytes count the node pair's 8 a particle.  Then the same four
+    calls through the gridded instances over the jet's ``node_record``
+    (``node_vs_record``)."""
+    nx, ny = grid.nx, grid.ny
+    n = nx * ny
+    g = grid
+    P = s_prod.particles
+    adv = P.on & prod.active_mask
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    wf = prod.wind_fields(g, s_prod.time)
+    assert len(wf) == 2
+    nw = node_plane_winds(*wf)
+    planes = prod.projection(g)
+    rhs = make_rhs(nw.u, nw.v, prod.consts, prod.flags)
+
+    def k1():
+        return advance_cuda(prod.winds, prod.consts, prod.flags, prod.solver,
+                            TRI_DT, comps, P.t, P.dt, adv, g.x, g.y, planes,
+                            wind_fields=wf)
+
+    def k1_plain():
+        return integrate_to(rhs, torch.stack(comps, dim=-1), P.t,
+                            P.t + TRI_DT, P.dt, prod.aux, adv, prod.solver)
+
+    k, p = k1(), k1_plain()
+    assert torch.equal(k.failed, p.failed), "K1 node: failed"
+    e1 = max(assert_adaptive(f"K1 node jet {nm}", kz, p.z[..., i],
+                             min_share=GRIDDED_SHARE,
+                             loose_atol=GRIDDED_LOOSE_ATOL)
+             for i, (nm, kz) in enumerate(zip(("lne", "cgx", "cgy", "x", "y"),
+                                              k[:5])))
+    ctl = assert_controller("K1 node jet", k, p, adv)
+    out = {"K1 node": dict(max_abs_err=e1, ms=cuda_time_ms(k1, 10),
+                           plain_ms=cuda_time_ms(k1_plain, 2),
+                           **k1_bound(n, prod.solver.method, True, adv,
+                                      p.naccept + p.nreject, n_wf=2,
+                                      proj=True))}
+    log("K1 node", f"{nx} x {ny} global jet day's state "
+                   f"({prod.solver.method}): max abs err {e1:.3e}; {ctl}")
+
+    Q = s_def.particles
+    qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    wfd = default.wind_fields(g, s_def.time)
+    nwd = node_plane_winds(*wfd)
+    rhsd = make_rhs(nwd.u, nwd.v, default.consts, default.flags)
+    reset = torch.ones_like(Q.on)
+    sett = default.settings
+
+    def k3():
+        return auto_dt_cuda(default.winds, default.consts, default.flags,
+                            Q.t, qc, g.x, g.y, default.projection(g), reset,
+                            Q.dt, sett.dtmin, TRI_DT, abstol=sett.abstol,
+                            reltol=sett.reltol, order=default._rk_order,
+                            wind_fields=wfd)
+
+    def k3_plain():
+        return auto_dt_reset(rhsd, Q.t, torch.stack(qc, dim=-1), default.aux,
+                             reset, Q.dt, sett.dtmin, TRI_DT,
+                             abstol=sett.abstol, reltol=sett.reltol,
+                             order=default._rk_order)
+
+    e3 = assert_close("K3 node jet default state", k3(), k3_plain(), 1e-5,
+                      0.0)
+    out["K3 node"] = dict(max_abs_err=e3, ms=cuda_time_ms(k3, 20),
+                          plain_ms=cuda_time_ms(k3_plain, 5),
+                          **k3_bound(reset, kernel_wind(default.winds),
+                                     proj=True))
+
+    halo = prod.config.halo
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    wide = ((max(xl, xh),) * 2, (max(yl, yh),) * 2)
+    ghosts = nx * max(yl, yh)
+    core, chans, sact = flagship_deposit_inputs(prod, s_prod)
+    rp = prod.remesh_params
+    prp = rp._replace(winds=nw)
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    k5 = remesh_cuda(rp, node, *core, wind_fields=wf)
+    e5 = assert_remesh("K5 node jet", k5, remesh_core(prp, node, *core))
+    nd, rm, _ = pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                  halo, rp, *core, wind_fields=wf)
+    assert_bitwise("K6 node jet vs K2 + K5", (*nd, *rm), (*node, *k5))
+
+    def plain_fused():
+        Sp, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                              g.stats, halo)
+        return remesh_core(prp, tuple(Sp[..., c] for c in range(3)), *core)
+
+    S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                         g.stats, halo)
+    e6 = max([e5] + [assert_close(f"K6 node jet deposit ch{c}", nd[c],
+                                  S[..., c], 1e-5,
+                                  1e-6 * float(S[..., c].abs().max()))
+                     for c in range(3)])
+    del S
+    out["K5 node"] = dict(
+        max_abs_err=e5,
+        ms=kernel_ms(lambda: remesh_cuda(rp, node, *core, wind_fields=wf),
+                     "K5", 20),
+        plain_ms=cuda_time_ms(lambda: remesh_core(prp, node, *core), 5),
+        **remesh_bound(n, n_wf=2))
+    out["K6 node"] = dict(
+        max_abs_err=e6,
+        ms=kernel_ms(lambda: pic_gather_remesh(
+            core[3], core[4], chans, sact, g.stats, halo, rp, *core,
+            wind_fields=wf), "K6", 20),
+        plain_ms=cuda_time_ms(plain_fused, 5),
+        **deposit_bound(n + ghosts, n, wide, remesh=True, n_wf=2))
+    log("K6 node", f"{nx} x {ny} global jet state (halo {halo}): remesh "
+                   f"outputs and node planes equal to K2 + K5 bitwise "
+                   f"({branch_counts(rm.branch)})")
+    for key, r in out.items():
+        results[key].update(r)
+        log("kernel-time", f"{key}: {r['ms']:.4f} ms, plain "
+                           f"{r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    rec, igrid = node_record(prod, g)
+    rprod = jet_model(igrid, "fused", winds=rec)
+    rdef = jet_model(igrid, "default", winds=rec)
+    rwf = rprod.wind_fields(igrid, s_prod.time)
+    rwfd = rdef.wind_fields(igrid, s_def.time)
+    assert len(rwf) == len(rwfd) == 7, (len(rwf), len(rwfd))
+    rrp = rprod.remesh_params
+    pairs = {
+        "K1": (k1, lambda: advance_cuda(
+            rprod.winds, prod.consts, prod.flags, prod.solver, TRI_DT, comps,
+            P.t, P.dt, adv, igrid.x, igrid.y, planes, wind_fields=rwf),
+            cuda_time_ms, 10,
+            k1_bound(n, prod.solver.method, True, adv, p.naccept + p.nreject,
+                     n_wf=7, proj=True)),
+        "K3": (k3, lambda: auto_dt_cuda(
+            rdef.winds, default.consts, default.flags, Q.t, qc, igrid.x,
+            igrid.y, default.projection(g), reset, Q.dt, sett.dtmin, TRI_DT,
+            abstol=sett.abstol, reltol=sett.reltol, order=default._rk_order,
+            wind_fields=rwfd), cuda_time_ms, 20,
+            k3_bound(reset, kernel_wind(rdef.winds), proj=True)),
+        "K5": (lambda: remesh_cuda(rp, node, *core, wind_fields=wf),
+               lambda: remesh_cuda(rrp, node, *core, wind_fields=rwf),
+               functools.partial(kernel_ms, key="K5"), 20,
+               remesh_bound(n, n_wf=7)),
+        "K6": (lambda: pic_gather_remesh(
+            core[3], core[4], chans, sact, g.stats, halo, rp, *core,
+            wind_fields=wf)[:2],
+               lambda: pic_gather_remesh(
+            core[3], core[4], chans, sact, g.stats, halo, rrp, *core,
+            wind_fields=rwf)[:2],
+               functools.partial(kernel_ms, key="K6"), 20,
+               deposit_bound(n + ghosts, n, wide, remesh=True, n_wf=7)),
+    }
+    cmp = {}
+    for kid, (node_fn, rec_fn, timer, reps, rb) in pairs.items():
+        a, b = node_fn(), rec_fn()
+        if kid == "K6":
+            a, b = (*a[0], *a[1]), (*b[0], *b[1])
+        elif kid == "K3":
+            a, b = (a,), (b,)
+        assert_bitwise(f"{kid} node vs its record's gridded instance", a, b)
+        t = {"node": [], "record": []}
+        for who in ("node", "record", "record", "node"):
+            t[who].append(timer(node_fn if who == "node" else rec_fn,
+                                reps=reps))
+        nb = results[f"{kid} node"]
+        cmp[kid] = dict(node_ms=float(np.mean(t["node"])),
+                        record_ms=float(np.mean(t["record"])),
+                        node_bound_ms=nb["bound_ms"],
+                        record_bound_ms=rb["bound_ms"])
+        log("node-vs-record", f"{kid}: node {cmp[kid]['node_ms']:.4f} ms "
+                              f"(bound {nb['bound_ms']:.4f}), the record's "
+                              f"gridded instance (B = 1) "
+                              f"{cmp[kid]['record_ms']:.4f} ms (bound "
+                              f"{rb['bound_ms']:.4f}); outputs bit for bit; "
+                              f"means of 2 in turns")
+    timing["node_vs_record"] = cmp
+
+
+def phase_sharded_jet(dev, results, timing) -> None:
+    """Inside phase "sharded-1x1"'s process group (one NCCL rank): the
+    global jet ("pallas": K1 with the node planes and the projection
+    planes -> K4 -> the self-wrap and seam folds -> K5 with the node planes)
+    through ``ShardedWaveGrowth2D`` on a (1, 1) mesh at the solver
+    tolerances ``SHARDED_TRI_TOLS``, 3 steps against the single-device
+    step at ``assert_states``' rtol 2e-3, the counters set to 0 just before
+    and read just after (K1 == K4 == K5 == 3); the block's node planes are
+    the grid's."""
+    grid = tripolar_grid(dev, *TRI_SUPER)
+    model = jet_model(grid, "pallas", tols=SHARDED_TRI_TOLS)
+    ref = eager_steps(model, model.init_state(), 3)
+    sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+    reset_counters()
+    ms = eager_steps(sh, sh.init_state(), 3)
+    c = counters()
+    assert torch.equal(model.node_planes(sh.local_grid),
+                       model.node_planes(grid))
+    err = assert_states("sharded jet pallas vs single device, 3 steps", ms,
+                        ref)
+    m = check_tripolar("sharded jet", model, ms)
+    assert c["K1"] == c["K4"] == c["K5"] == 3, c
+    assert c["K2"] == c["K3"] == c["K6"] == 0, c
+    results["K1 node"]["launches"] += c["K1"]
+    results["K5 node"]["launches"] += c["K5"]
+    results["K4"]["launches"] += c["K4"]
+    timing["sharded_jet_max_abs_err"] = err
+    log("sharded-jet", f"global jet pallas {grid.nx} x {grid.ny} on a (1, 1) "
+                       f"NCCL mesh: 3 steps vs single device max abs err "
+                       f"{err:.3e}, counters equal; launches {c}; metrics "
+                       f"{m}")
+
+
+def run_example(name: str, *argv):
+    """``picles_torch/examples/<name>`` in this process at its full size
+    (no PICLES_SMOKE) on the card, with no outdir; returns its globals."""
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [name, "--device", "cuda", *argv]
+    os.environ.pop("PICLES_SMOKE", None)
+    try:
+        return runpy.run_path(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "picles_torch",
+            "examples", name), run_name="example")
+    finally:
+        sys.argv = saved
+
+
+def phase_examples(timing) -> None:
+    """Phase "examples": the port's examples 00-05 on the card at their
+    full sizes, asserting what tests/test_examples.py asserts of the JAX
+    examples, the counters set to 0 just before each and read just after
+    (a graphed Simulation.run calls each kernel in its warm-up and capture
+    only).  No outdir is given: the figures of examples 00-02, example
+    03's HDF5 store and movie are not written (this machine has neither
+    matplotlib nor h5py); example 03 keeps its checkpoint in a temporary
+    directory.  Example 04 runs one NCCL rank in this process, example 05
+    two gloo ranks sharing the card as processes."""
+    out = {}
+
+    def run(name, *argv):
+        reset_counters()
+        t0 = time.perf_counter()
+        g = run_example(name, *argv)
+        out[name] = dict(wall_s=time.perf_counter() - t0, launches=counters())
+        log("examples", f"{name}: {out[name]['wall_s']:.1f} s wall, "
+                        f"launches {out[name]['launches']}")
+        return g
+
+    g = run("example_00_minimal.py")
+    states = g["states"]
+    assert np.all(np.isfinite(states)) and states[-1, ..., 0].mean() > 0
+    assert g["sim"].n_steps() == len(states) - 1
+    g = run("example_01_sphere_swell.py")
+    e_last = g["snaps"][-1][..., 0]
+    assert np.all(np.isfinite(e_last)) and e_last.sum() > 0
+    assert int(g["ms"].metrics.n_failed) == 0
+    x = g["grid"].x.cpu().numpy()[:, 0]
+    assert x[11] < g["com_lon"] < x[40], g["com_lon"]
+    g = run("example_02_tripolar_global.py")
+    assert g["model"].winds.kernel.kind == WindKind.NODE
+    e, mask = g["e"], g["grid"].mask.cpu().numpy()
+    assert np.all(np.isfinite(e)) and e[mask == 1].max() > 0
+    assert abs(float(e[mask == 0].sum())) <= 1e-10
+    g = run("example_03_checkpoint_restart.py")
+    assert np.array_equal(g["final_a"], g["final_b"])
+    g = run("example_04_sharded.py")
+    assert np.all(np.isfinite(g["states"])) and g["n_failed"] == 0
+    assert g["MESH"] == (1, 1) and g["transport"] == "nccl, device tensors"
+    assert g["rel"] < 2e-3
+    out["example_04_sharded.py"]["rel"] = g["rel"]
+    g = run("example_05_multiprocess.py")
+    assert np.isfinite(g["field"]).all() and g["n_active"] == 32 * 32
+    assert g["field"][..., 0].mean() > 0
+    for name, kerns in (("example_00_minimal.py", ("K1", "K2", "K3")),
+                        ("example_01_sphere_swell.py", ("K1", "K2", "K3")),
+                        ("example_02_tripolar_global.py", ("K1", "K2", "K3")),
+                        ("example_03_checkpoint_restart.py",
+                         ("K1", "K2", "K3")),
+                        ("example_04_sharded.py", ("K1", "K4", "K3"))):
+        c = out[name]["launches"]
+        assert all(c[k] > 0 for k in kerns), (name, c)
+    timing["examples"] = out
+    log("examples", "left out without an outdir: examples 00-02's figures, "
+                    "example 03's HDF5 store and movie")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -5065,6 +5677,11 @@ def main(argv=None) -> int:
         k, kind = key.split()
         results[key] = dict(results[k], name=f"{results[k]['name']}_{kind}",
                             replaces=rep, simple_ms=None)
+    # the node kind: a steady callable's two node planes in K1, K3, K5, K6
+    for key, rep in NODE_REPLACES.items():
+        k = key.split()[0]
+        results[key] = dict(results[k], name=results[k]["name"] + "_node",
+                            replaces=rep, simple_ms=None, launches=0)
     # the layered launches: the same kernels over a layer dimension
     for k in LAYER_KERNELS:
         results[f"{k} layered"] = dict(
@@ -5096,6 +5713,8 @@ def main(argv=None) -> int:
     phase_cli(dev, results, timing)
     gridded = phase_gridded_main_path(dev, gw, results, timing)
     tripolar = phase_tripolar_main(dev, results, timing)
+    phase_node_winds(dev, results)
+    jet = phase_global_jet(dev, results, timing)
     phase_card_vs_cpu()
     phase_gridded_card_vs_cpu(gw)
     phase_tripolar_card_vs_cpu()
@@ -5109,6 +5728,8 @@ def main(argv=None) -> int:
     del gridded
     tripolar_kernel_times(*tripolar, results)
     del tripolar
+    node_kernel_times(*jet, results, timing)
+    del jet
     layered_kernel_times(layered, results, timing)
     del layered
     phase_twin_timing(timing, 20)
@@ -5116,14 +5737,16 @@ def main(argv=None) -> int:
     phase_1d(dev, timing)
     phase_sharded_1x1(dev, gw, results, timing)
     phase_sharded_2x2(timing)
+    phase_examples(timing)
 
     kernels = [dict(results[k], library_ms=None,
                     short_traces=SHORT_TRACES.get(k, []))
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 gridded",
                          "K3 gridded", "K5 gridded", "K6 gridded",
                          *PROJ_REPLACES,
-                         *(f"{k} layered" for k in LAYER_KERNELS))]
-    assert len(kernels) == 20
+                         *(f"{k} layered" for k in LAYER_KERNELS),
+                         *NODE_REPLACES)]
+    assert len(kernels) == 24
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

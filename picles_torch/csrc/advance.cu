@@ -31,8 +31,12 @@
 //   template instance per method: every coefficient folds into its
 //   instruction and the zero terms, with their run-time tests, vanish;
 // - the wind and its wind-only terms (rhs.cuh `WindTerms`) are formed once
-//   per lane for winds that do not vary in t (constant, half-domain); the
-//   time-cosine family samples them per stage;
+//   per lane for winds that do not vary in t (constant, half-domain, and a
+//   steady closure given as its two node planes, `WIND_NODE`: a lane loads
+//   its node's pair once, 8 bytes a particle, and not the node x, chosen at
+//   run time in the lane's prologue, so no template instance is added); the
+//   time-cosine
+//   family samples them per stage;
 // - gridded winds (the JAX kernel's `wind_fields`) are their own template
 //   instances: a lane loads its 4 + 3B plane values once (rhs.cuh
 //   `GriddedWind`) and forms the wind's terms per stage from them, in the
@@ -76,9 +80,10 @@
 // as K1 does (SASS count against the measured time, root PERF.md §6), so
 // the design cuts instructions and bytes, never bits: the wind's kind and
 // the default term flags compiled in (one instance per wind family, a
-// generic one for any other flag set), the wind's terms formed once for
-// winds constant in t, no load of a plane the wind does not read, and the
-// clamp and select in the same pass.  The previous kernel stays compiled as
+// generic one for any other flag set; the node kind, a steady closure's
+// two node planes, runs in the constant instance, chosen at run time), the
+// wind's terms formed once for winds constant in t, no load of a plane the
+// wind does not read, and the clamp and select in the same pass.  The previous kernel stays compiled as
 // `auto_dt_simple_kernel`, the baseline that, followed by PyTorch's clamp and
 // select, the new kernel equals bit for bit.
 
@@ -200,7 +205,7 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   L.z[3] = P.x[k]; L.z[4] = P.y[k];
   const float t0 = P.t[k];
   L.active = P.act[k] != 0;
-  L.xn = GRIDDED ? 0.0f : P.xn[i];
+  L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? 0.0f : P.xn[i];
   L.t_end = t0 + cfg.DT;
   L.t = t0;
   L.dt = jmax(P.dt[k], cfg.dtmin);
@@ -211,7 +216,9 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   if (!L.done) {
     if (P.proj) load_projection(rc, P.proj, n, i);
     if (GRIDDED) L.g = load_gridded(cfg.wind, i);
-    L.w0 = lane_terms<GRIDDED>(cfg, L, L.t);
+    L.w0 = !GRIDDED && cfg.wind.kind == WIND_NODE
+               ? node_terms(cfg.wind, i)
+               : lane_terms<GRIDDED>(cfg, L, L.t);
     rhs_state(rc, L.z[0], L.z[1], L.z[2], L.w0, L.k[0]);
   }
 }
@@ -489,11 +496,13 @@ constexpr int K3_MIN_BLOCKS = KIND == WIND_GRIDDED ? 8 : 10;
 
 // Hairer's estimate of lane k: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
-// is not loaded (t for winds constant in t, the node x for constant and
-// gridded winds), and the wind's terms of a wind constant in t are formed
-// once and serve both RHS evaluations; with the flags compiled in, each
-// term's test folds.  A gridded lane loads its plane values once and forms
-// the terms at both times from them.  Lane k is the particle of node i (of
+// is not loaded (t for winds constant in t, the node x for constant, node
+// and gridded winds), and the wind's terms of a wind constant in t are
+// formed once and serve both RHS evaluations; with the flags compiled in,
+// each term's test folds.  A gridded lane loads its plane values once and
+// forms the terms at both times from them; a node-kind lane (in the
+// constant and generic instances, a run-time choice) loads its node's pair
+// once.  Lane k is the particle of node i (of
 // n) in its layer: its own planes are read at k, the node x and the
 // per-node projection and wind planes at i, once.
 template <int KIND, int FLAGS>
@@ -505,20 +514,24 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
   WindParams wp = cfg.wind;
   if (FLAGS != RUNTIME) rc.flags = FLAGS;
   if (P.proj) load_projection(rc, P.proj, n, i);
+  const bool node = (KIND == RUNTIME || KIND == WIND_CONSTANT) &&
+                    cfg.wind.kind == WIND_NODE;
   if (KIND != RUNTIME) wp.kind = KIND;
   const bool gridded = KIND == WIND_GRIDDED;
-  const bool t_free = wp.kind != WIND_TIME_COSINE && !gridded;
+  const bool t_free = node || (wp.kind != WIND_TIME_COSINE && !gridded);
   const float tiny = 1e-10f;
   const float z[5] = {P.lne[k], P.cgx[k], P.cgy[k], P.x[k], P.y[k]};
   const float t = t_free ? 0.0f : P.t[k];
   const float xn =
-      wp.kind == WIND_CONSTANT || gridded ? 0.0f : P.xn[i];
+      wp.kind == WIND_CONSTANT || gridded || node ? 0.0f : P.xn[i];
   GriddedWind g;
   if (gridded) g = load_gridded(wp, i);
   float sc[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + fabsf(z[c]) * cfg.reltol;
-  const WindTerms w0 = gridded ? gridded_terms(g, t) : wind_terms_at(wp, xn, t);
+  const WindTerms w0 = gridded ? gridded_terms(g, t)
+                       : node  ? node_terms(wp, i)
+                               : wind_terms_at(wp, xn, t);
   float f0[5];
   rhs_state(rc, z[0], z[1], z[2], w0, f0);
   const float d0 = rms5(z, sc);
@@ -696,8 +709,8 @@ using namespace picles;
 // ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
 //          the per-node projection planes [5, n] (input; null: the RHS's
-//          uniform scalars) | the n_wf gridded wind planes (inputs; none
-//          for analytic winds)
+//          uniform scalars) | the n_wf wind planes (inputs: 4 + 3B
+//          gridded, u and v of the node kind, none for analytic winds)
 // n:       nodes; layers: the particle planes are [layers, n] (layer-major)
 //          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
@@ -728,7 +741,7 @@ extern "C" int picles_advance(const float* fparams, const int* iparams,
 
 // The `_simple` baseline (the previous kernel), picles_advance's layout;
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
-// gridded wind or projection planes).
+// gridded or node wind or projection planes).
 extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AdvanceConfig cfg;
@@ -736,7 +749,7 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   const bool adaptive = iparams[K1_I + 1] != 0;
   const bool force = cfg.force_dtmin != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cfg.wind.kind == WIND_GRIDDED || ptrs[18] != nullptr)
+  if (planar_wind(cfg.wind.kind) || ptrs[18] != nullptr)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   if (stages == 3) dispatch_simple<3>(cfg, adaptive, force, n, ptrs, st);
@@ -773,8 +786,8 @@ static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
 // iparams: flags, wind kind, has_t_off, n_wf
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
 //          dt (output) | the per-node projection planes [5, n] (input;
-//          null: the uniform scalars) | the n_wf gridded wind planes
-//          (inputs)
+//          null: the uniform scalars) | the n_wf wind planes (inputs:
+//          gridded or node)
 // n, layers: as picles_advance's (dt, was_reset and the output are lane
 // planes, the node x and the projection and wind planes shared).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
@@ -798,7 +811,7 @@ extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
     launch_auto_dt<WIND_GRIDDED, RUNTIME>(cfg, n, ly, P, st);
   else if (cfg.rc.flags != K3_FLAGS)
     launch_auto_dt<RUNTIME, RUNTIME>(cfg, n, ly, P, st);
-  else if (cfg.wind.kind == WIND_CONSTANT)
+  else if (cfg.wind.kind == WIND_CONSTANT || cfg.wind.kind == WIND_NODE)
     launch_auto_dt<WIND_CONSTANT, K3_FLAGS>(cfg, n, ly, P, st);
   else if (cfg.wind.kind == WIND_HALF_DOMAIN)
     launch_auto_dt<WIND_HALF_DOMAIN, K3_FLAGS>(cfg, n, ly, P, st);
@@ -812,13 +825,13 @@ extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
 // The `_simple` baseline, picles_auto_dt's layout: writes the bare estimate
 // of every lane to the output (dtmin, DT, dt and was_reset are not read);
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
-// gridded wind or projection planes).
+// gridded or node wind or projection planes).
 extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
-  if (cfg.wind.kind == WIND_GRIDDED || P.proj != nullptr)
+  if (planar_wind(cfg.wind.kind) || P.proj != nullptr)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 128;

@@ -389,12 +389,12 @@ struct RemeshPlanes {
   int* br_o;
 };
 
-// The node x the remesh's wind reads: none for a gridded wind, whose node
-// values come from its own planes (rhs.cuh wind_uv_node), read at the node
-// directly and never staged with the deposit's sources.
+// The node x the remesh's wind reads: none for a gridded or node wind,
+// whose node values come from its own planes (rhs.cuh wind_uv_node), read
+// at the node directly and never staged with the deposit's sources.
 __device__ __forceinline__ float node_x(const picles::RemeshParams& r,
                                         const RemeshPlanes& q, long long idx) {
-  return r.wind.kind == picles::WIND_GRIDDED ? 0.0f : q.xn[idx];
+  return !picles::planar_wind(r.wind.kind) ? q.xn[idx] : 0.0f;
 }
 
 template <int WX>
@@ -762,8 +762,8 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs) | the n_wf gridded wind planes (inputs; none for
-//          analytic winds).  The deposit's planes and the particle planes
+//          (outputs) | the n_wf wind planes (inputs: 4 + 3B gridded, u
+//          and v of the node kind, none for analytic winds).  The deposit's planes and the particle planes
 //          are [layers, nx, ny]; active, boundary, xn and the wind planes
 //          [nx, ny], shared.
 // cudaErrorInvalidValue for planes that `attach_planes` refuses or a layer
@@ -789,8 +789,8 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
 }
 
 // The `_simple` baselines: the entry points above with the same parameter
-// layouts, one thread per output node; analytic winds only, one layer, no
-// tripolar seam (cudaErrorInvalidValue).
+// layouts, one thread per output node; analytic winds only (no gridded or
+// node planes), one layer, no tripolar seam (cudaErrorInvalidValue).
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
@@ -833,7 +833,7 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
-  if (r.wind.kind == picles::WIND_GRIDDED || g.tripolar || g.layers != 1)
+  if (picles::planar_wind(r.wind.kind) || g.tripolar || g.layers != 1)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;

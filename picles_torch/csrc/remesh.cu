@@ -9,7 +9,8 @@
 // 6 particle planes, 3 masks and the node x (43 bytes) and writes 6 planes,
 // the flag and the bitfield (29 bytes): 72 bytes, 170 MB at 1536^2, about
 // 51 us at 3.35 TB/s; a gridded wind adds its 4 + 3B planes (28 bytes at
-// B = 1; the node x is then not needed).  The arithmetic is a few dozen
+// B = 1; the node x is then not needed), the node kind (a steady closure)
+// its two node planes (8 bytes, the node x not needed either).  The arithmetic is a few dozen
 // operations, plus the windsea (4 powf, 1 logf) on reseeded lanes only.
 // The design follows: one pass, one thread per node along y (the
 // contiguous axis, so loads and stores coalesce), nothing staged.  The
@@ -46,7 +47,7 @@ remesh_kernel(const picles::RemeshParams r, long long n,
   const picles::RemeshOut o = picles::remesh_node(
       r, *clock, i, e_n[k], mx_n[k], my_n[k], lne[k], cgx[k], cgy[k], px[k],
       py[k], dt[k], on[k] != 0, act[i] != 0, bnd[i] != 0,
-      r.wind.kind == picles::WIND_GRIDDED ? 0.0f : xn[i]);
+      !picles::planar_wind(r.wind.kind) ? xn[i] : 0.0f);
   lne_o[k] = o.lne;
   cgx_o[k] = o.cgx;
   cgy_o[k] = o.cgy;
@@ -62,8 +63,8 @@ remesh_kernel(const picles::RemeshParams r, long long n,
 // fparams/iparams: the remesh.cuh layout (unpack_remesh)
 // ptrs: clock (1 float) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
-//       on(u8), branch(i32) (outputs) | the n_wf gridded wind planes
-//       (inputs; none for analytic winds)
+//       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs:
+//       4 + 3B gridded, u and v of the node kind, none for analytic winds)
 // n:    nodes; layers: the node state, particle and output planes are
 //       [layers, n] (layer-major), active, boundary, xn and the wind
 //       planes [n], shared

@@ -5,10 +5,12 @@
 // Replaces the closures that the JAX package's Pallas kernels inline:
 // picles_tpu/ops/rhs.py `rhs_core_2d` and the wind samplers of
 // picles_tpu/forcing/winds.py (`constant_winds`, `half_domain_winds`,
-// `time_cosine_winds`, `gridded_pallas_samplers`).  A CUDA kernel cannot
-// take a Python closure, so the wind is a kind plus float parameters
-// (picles_torch/forcing/winds.py `WindKernel` builds them) and, for gridded
-// winds, the per-node planes of one model step (`GriddedWind`).
+// `time_cosine_winds`, `gridded_pallas_samplers`, and any other closure
+// that is steady in t).  A CUDA kernel cannot take a Python closure, so the
+// wind is a kind plus float parameters (picles_torch/forcing/winds.py
+// `WindKernel` builds them) and, for gridded winds, the per-node planes of
+// one model step (`GriddedWind`); a steady closure, which the kernels read
+// at the node only, is its two node planes (`WIND_NODE`, `node_uv`).
 //
 // Numerics: every operation is float32 in the order the JAX package and the
 // plain PyTorch version (picles_torch/ops/rhs.py) use, squares as products,
@@ -48,8 +50,14 @@ __device__ __forceinline__ bool finitef(float a) {
 
 enum WindKind : int {
   WIND_CONSTANT = 0, WIND_HALF_DOMAIN = 1, WIND_TIME_COSINE = 2,
-  WIND_GRIDDED = 3
+  WIND_GRIDDED = 3, WIND_NODE = 4
 };
+
+// Whether the wind's values arrive as planes (gridded, node): the
+// `_simple` baselines do not take them, and no kernel reads the node x.
+__host__ __device__ inline bool planar_wind(int kind) {
+  return kind == WIND_GRIDDED || kind == WIND_NODE;
+}
 
 struct WindParams {
   int kind;
@@ -61,14 +69,16 @@ struct WindParams {
   float period;        // time-cosine period
   float t_off;         // time-cosine cut-off
   int n_break;         // gridded: breakpoints B (4 + 3B planes), else 0
-  const float* wf;     // gridded: plane 0 (a_u) of the launch's planes
-  long long wf_stride; // gridded: floats from one plane to the next
+  const float* wf;     // gridded: plane 0 (a_u) of the launch's planes;
+                       // node: the u plane
+  long long wf_stride; // floats from one plane to the next (gridded, node)
 };
 
 // Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params):
 // floats u0, v0, x_split, background, two_pi, period, t_off; ints kind,
-// has_t_off, n_wf (the count of gridded planes, 4 + 3B, else 0).  The
-// planes themselves follow each kernel's own pointers (`attach_planes`).
+// has_t_off, n_wf (the count of planes: 4 + 3B gridded, 2 node, else 0).
+// The planes themselves follow each kernel's own pointers
+// (`attach_planes`).
 constexpr int N_WIND_F = 7;
 constexpr int N_WIND_I = 3;
 
@@ -82,11 +92,17 @@ inline void unpack_wind(const float* g, const int* iv, WindParams& w) {
   w.wf_stride = 0;
 }
 
-// The gridded planes of a launch: n_wf pointers, one plane after the other
+// The wind planes of a launch: n_wf pointers, one plane after the other
 // at one stride (the wrapper passes views of one [n_wf, ...] tensor).
-// Returns false (the launch is refused) for a count that is not 4 + 3B or
-// planes that are not evenly spaced.
+// Returns false (the launch is refused) for a count that is not 4 + 3B
+// (gridded) or 2 (node), or planes that are not evenly spaced.
 inline bool attach_planes(WindParams& w, int n_wf, void* const* planes) {
+  if (w.kind == WIND_NODE) {
+    if (n_wf != 2) return false;
+    w.wf = (const float*)planes[0];
+    w.wf_stride = (const float*)planes[1] - w.wf;
+    return w.wf_stride != 0;
+  }
   if (w.kind != WIND_GRIDDED) return n_wf == 0;
   if (n_wf < 7 || (n_wf - 4) % 3 != 0) return false;
   const float* base = (const float*)planes[0];
@@ -195,19 +211,29 @@ __device__ __forceinline__ void gridded_uv(const GriddedWind& g, float t,
   }
 }
 
+// A steady wind given as its node planes (forcing/winds.py
+// `node_plane_winds`): the pair (u, v) of node i, whatever the time.
+__device__ __forceinline__ void node_uv(const WindParams& w, long long i,
+                                        float& u, float& v) {
+  u = w.wf[i];
+  v = w.wf[i + w.wf_stride];
+}
+
 // u, v of any kind at node i (x-coordinate xn) and time t: the remesh's
-// sampler, which reads a gridded node's planes directly.
+// sampler, which reads a gridded or node wind's planes directly.
 __device__ __forceinline__ void wind_uv_node(const WindParams& w, long long i,
                                              float xn, float t, float& u,
                                              float& v) {
   if (w.kind == WIND_GRIDDED)
     gridded_uv(load_gridded(w, i), t, u, v);
+  else if (w.kind == WIND_NODE)
+    node_uv(w, i, u, v);
   else
     wind_uv(w, xn, t, u, v);
 }
 
 // The terms of rhs_core_2d that depend on the wind alone: a lane whose wind
-// does not vary in t (the constant and half-domain families) forms them
+// does not vary in t (the constant, half-domain and node kinds) forms them
 // once per model step.
 struct WindTerms {
   float u, v;
@@ -230,6 +256,14 @@ __device__ __forceinline__ WindTerms wind_terms_at(const WindParams& p,
                                                    float xn, float t) {
   float u, v;
   wind_uv(p, xn, t, u, v);
+  return terms_of(u, v);
+}
+
+// The node kind's terms at node i (constant in t).
+__device__ __forceinline__ WindTerms node_terms(const WindParams& p,
+                                                long long i) {
+  float u, v;
+  node_uv(p, i, u, v);
   return terms_of(u, v);
 }
 

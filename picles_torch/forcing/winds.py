@@ -15,9 +15,16 @@ kernels take it as ``4 + 3B`` per-node planes
 of ``gridded_samplers``.  The model builds the descriptor (kind
 ``GRIDDED`` and B) and the planes once per step.
 
-A ``Winds2D`` without a descriptor (any other callable) runs only on the
-plain PyTorch path, and the CUDA modes refuse it.  The samplers compute in
-float32 with the JAX package's operation order.
+A ``Winds2D`` without a descriptor (any other callable, as the JAX
+examples write them: ``Winds2D(u=u, v=v)``) runs in the kernels when it is
+steady: the model calls it once on the nodes with a probe time under a
+``TorchFunctionMode`` that records whether the time reaches any torch
+operation (``steady_node_planes``).  The kernels read a wind sampled at
+the node, so a steady callable is exactly its two node planes: kind
+``NODE`` (``node_kernel``), the planes passed with every launch, and
+``node_plane_winds`` their plain version.  A callable that reads its time
+runs only on the plain PyTorch path, and the CUDA modes refuse it.  The
+samplers compute in float32 with the JAX package's operation order.
 
 The 1D model's winds (``Winds1D``: ``u(x, t)``, a ``GriddedWinds1D``
 record) run on its plain path only: the 1D model has no kernel.
@@ -33,6 +40,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_flatten
 
 
 class WindKind(enum.IntEnum):
@@ -42,13 +51,15 @@ class WindKind(enum.IntEnum):
     HALF_DOMAIN = 1
     TIME_COSINE = 2
     GRIDDED = 3
+    NODE = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class WindKernel:
     """Kernel-side description of a wind.  A gridded wind carries no
     parameters but its breakpoint count ``n_break``: its values arrive as
-    ``4 + 3 * n_break`` planes with each launch."""
+    ``4 + 3 * n_break`` planes with each launch; a steady wind of kind
+    ``NODE`` none: its values arrive as its two node planes (u, v)."""
 
     kind: WindKind
     u0: float
@@ -107,6 +118,63 @@ def time_cosine_winds(U10: float, V10: float, period: float,
                    v=lambda x, y, t: V10 * amp(t) + 0.0 * x,
                    kernel=WindKernel(WindKind.TIME_COSINE, U10, V10,
                                      period=period, t_off=t_off))
+
+
+# ---------------------------------------------------------------------------
+# steady callables: the node kind
+# ---------------------------------------------------------------------------
+
+class _TimeProbe(TorchFunctionMode):
+    """Records whether the probe time ``t`` enters any torch operation
+    (arithmetic, comparisons, ``float(t)``, ``t.item()``, ``t.cpu()`` and
+    numpy's ``__array__`` all dispatch through the mode).  A tensor derived
+    from ``t`` comes out of such an operation, so the first one decides."""
+
+    def __init__(self, t: torch.Tensor):
+        super().__init__()
+        self.t = t
+        self.read = False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not self.read:
+            self.read = any(a is self.t for a in tree_flatten((args, kwargs))[0])
+        return func(*args, **kwargs)
+
+
+def steady_node_planes(winds: "Winds2D", x: torch.Tensor,
+                       y: torch.Tensor) -> Optional[torch.Tensor]:
+    """The wind's (u, v) at the nodes ``(x, y)`` as one contiguous float32
+    ``[2, *x.shape]`` tensor (the kernels' node planes), or None when the
+    callable reads its time: ``u`` and ``v`` are called once with a 0-dim
+    probe time under ``_TimeProbe``.  A callable in which the time enters no
+    torch operation is steady, whatever host state it reads (the Pallas
+    kernels of the JAX package trace the closure once and bake that state
+    in too)."""
+    t = torch.zeros((), dtype=torch.float32, device=x.device)
+    with _TimeProbe(t) as probe:
+        u = winds.u(x, y, t)
+        v = winds.v(x, y, t)
+    if probe.read:
+        return None
+    return torch.stack([torch.broadcast_to(
+        torch.as_tensor(c, device=x.device).to(torch.float32), x.shape)
+        for c in (u, v)]).contiguous()
+
+
+def node_kernel() -> "WindKernel":
+    """The descriptor of a steady wind given as its node planes."""
+    return WindKernel(WindKind.NODE, 0.0, 0.0)
+
+
+def node_plane_winds(u_plane: torch.Tensor, v_plane: torch.Tensor
+                     ) -> "Winds2D":
+    """The plain version of the node kind: a steady wind whose samplers
+    return the node planes ``u_plane`` and ``v_plane`` whatever the time, so
+    it is sampled at the nodes the planes belong to, as the kernels' plain
+    versions sample it (as ``pwl_winds`` does for a gridded window)."""
+    return Winds2D(u=lambda x, y, t: u_plane, v=lambda x, y, t: v_plane,
+                   kernel=node_kernel())
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,15 @@ coefficient vary from node to node: the model stacks them once per grid
 into the kernels' planes (``projection``), and on a tripolar grid the
 deposit kernels fold the north seam themselves.
 
+A ``Winds2D`` without a kernel descriptor (a callable written as the JAX
+examples write it) runs on the kernels when it is steady: where the model
+runs a kernel, it calls ``u`` and ``v`` once at construction under a probe
+of their time (``forcing.winds.steady_node_planes``); a steady callable
+becomes the node kind, whose two node planes (u, v) are formed once per
+grid (``wind_fields``) and handed to K1, K3 and K5/K6, while every plain
+path goes on calling the callable.  A callable that reads its time is
+refused by the kernel modes (``advance_mode="torch"`` runs it).
+
 Gridded winds (a ``GriddedWinds2D``, or its ``as_winds()``) move to the
 grid's device.  The kernels take them as the exact piecewise-linear-in-t
 planes of each step window (``GriddedWinds2D.pallas_pwl_fields``), formed
@@ -62,7 +71,8 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
-from ..forcing.winds import GriddedWinds2D, Winds2D, gridded_kernel
+from ..forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
+                             gridded_kernel, node_kernel, steady_node_planes)
 from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
@@ -196,6 +206,7 @@ class WaveGrowth2D(StepDrivers):
         self._wind_B = 0
         self._corners = None   # (grid, its corners), for wind_fields
         self._proj_planes = None   # (grid, its planes), for projection
+        self._node_planes = None   # (grid, its wind planes), node kind
         if isinstance(gw, GriddedWinds2D):
             gw = gw.to(self.device)
             self.gridded_winds = gw
@@ -273,7 +284,14 @@ class WaveGrowth2D(StepDrivers):
         self._graphed = (self.device.type == "cuda"
                          and self.modes.advance_mode == "cuda")
         if self.modes.advance_mode == "cuda" or self._remesh_kernels:
-            kernel_wind(winds)   # raises for winds outside the kernel set
+            if winds.kernel is None:
+                # a steady callable runs on the kernels as its node planes
+                planes = steady_node_planes(winds, grid.x, grid.y)
+                if planes is not None:
+                    winds = winds._replace(kernel=node_kernel())
+                    self.winds = winds
+                    self._node_planes = (grid, planes)
+            kernel_wind(winds)   # raises for a callable that reads t
 
         if config.ode_init_type == "mininmal":
             self.defaults: Optional[ParticleDefaults2D] = \
@@ -330,9 +348,13 @@ class WaveGrowth2D(StepDrivers):
     def wind_fields(self, grid: Grid2D, clock: torch.Tensor):
         """The kernels' wind planes of the step window starting at
         ``clock`` over ``grid``'s nodes: ``pallas_pwl_fields`` of a gridded
-        record (on the device, no read back), none for analytic winds.  The
-        record's spatial corners of the nodes are kept for the last grid
-        seen (the model's own, or a sharded step's block)."""
+        record (on the device, no read back), a steady callable's node
+        planes (``node_planes``), none for analytic winds.  The record's
+        spatial corners of the nodes are kept for the last grid seen (the
+        model's own, or a sharded step's block)."""
+        if self.winds.kernel is not None and \
+                self.winds.kernel.kind == WindKind.NODE:
+            return self.node_planes(grid).unbind(0)
         gw = self.gridded_winds
         if gw is None:
             return ()
@@ -344,9 +366,23 @@ class WaveGrowth2D(StepDrivers):
 
     def graph_keep(self) -> tuple:
         """The per-grid caches a captured step reads (``wind_fields``'
-        corners, ``projection``'s planes): a sharded step on another grid
-        replaces them, and the capture keeps its own alive."""
-        return (self._corners, self._proj_planes)
+        corners and node planes, ``projection``'s planes): a sharded step
+        on another grid replaces them, and the capture keeps its own
+        alive."""
+        return (self._corners, self._node_planes, self._proj_planes)
+
+    def node_planes(self, grid: Grid2D) -> torch.Tensor:
+        """A steady callable's (u, v) at ``grid``'s nodes, one contiguous
+        float32 ``[2, nx, ny]`` tensor, formed once and kept for the last
+        grid seen (the model's own, from the construction's probe, or a
+        sharded step's block)."""
+        if self._node_planes is None or self._node_planes[0] is not grid:
+            planes = steady_node_planes(self.winds, grid.x, grid.y)
+            if planes is None:
+                raise ValueError("the winds read their time t on this grid; "
+                                 "they were steady on the model's own")
+            self._node_planes = (grid, planes)
+        return self._node_planes[1]
 
     def projection(self, grid: Grid2D):
         """The kernels' projection over ``grid``: the 5 uniform scalars of

@@ -24,7 +24,10 @@ order (``node_projection``); each lane reads its own node's values once.
 A gridded wind's descriptor carries its breakpoint count B; its values over
 the model step arrive as ``wind_fields``, the ``4 + 3B`` planes of
 ``GriddedWinds2D.pallas_pwl_fields``, and the plain versions then run over
-``forcing.winds.pwl_winds`` of the same planes.
+``forcing.winds.pwl_winds`` of the same planes.  A steady callable (kind
+``NODE``) arrives as its two node planes (u, v; ``WaveGrowth2D.wind_fields``
+forms them once per grid), and the plain versions run over
+``forcing.winds.node_plane_winds`` of them.
 
 ``advance_cuda.launches`` and ``auto_dt_cuda.launches`` count kernel
 launches (not plain-version calls).
@@ -35,8 +38,8 @@ a ``SolverConfig`` naming another method is refused.  ``simple=True``
 launches the previous kernel instead (K1: the tableau a run-time parameter;
 K3: the bare estimate, then PyTorch's clamp and select), the baseline the
 card checks hold each kernel to bit for bit; no path of the package passes
-it, and its launches are not counted.  Gridded winds and projection planes
-have no baseline: ``simple=True`` with either raises.
+it, and its launches are not counted.  Gridded and node winds and
+projection planes have no baseline: ``simple=True`` with any raises.
 """
 
 from __future__ import annotations
@@ -72,21 +75,27 @@ def flag_bits(flags: TermFlags) -> int:
 
 
 def kernel_wind(winds: Winds2D) -> WindKernel:
-    """The wind's kernel descriptor, or raise: any other sampler runs only
-    on the plain PyTorch path."""
+    """The wind's kernel descriptor, or raise: a callable that reads its
+    time runs only on the plain PyTorch path (the model gives a steady one
+    the node kind's descriptor)."""
     if winds.kernel is None:
         raise NotImplementedError(
-            "these winds carry no kernel descriptor: only constant_winds, "
-            "half_domain_winds, time_cosine_winds and a GriddedWinds2D "
-            'given to the model run in the CUDA kernels; use '
-            'advance_mode="torch"')
+            "these winds carry no kernel descriptor: the CUDA kernels run "
+            "constant_winds, half_domain_winds, time_cosine_winds, a "
+            "steady callable (the model takes it as its node planes) and a "
+            "GriddedWinds2D given to the model; winds that read their time "
+            "t (t enters a torch operation in u(x, y, t) or v(x, y, t)) run "
+            'with advance_mode="torch" and remesh_mode="xla", or as a '
+            "GriddedWinds2D record")
     return winds.kernel
 
 
 def n_wind_fields(wind: WindKernel) -> int:
     """The count of per-node planes the wind takes: ``4 + 3B`` for a
-    gridded wind, none for an analytic one."""
-    return 4 + 3 * wind.n_break if wind.kind == WindKind.GRIDDED else 0
+    gridded wind, 2 (u, v) for the node kind, none for an analytic one."""
+    if wind.kind == WindKind.GRIDDED:
+        return 4 + 3 * wind.n_break
+    return 2 if wind.kind == WindKind.NODE else 0
 
 
 def wind_params(wind: WindKernel) -> Tuple[list, list]:
@@ -103,7 +112,8 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
     """The wind's planes as the kernels read them (rhs.cuh
     ``attach_planes``): ``n_wind_fields(wind)`` float32 planes shaped like
     the node plane ``like`` on its device, one after the other in memory,
-    as ``pallas_pwl_fields`` returns them; other planes are refused."""
+    as ``pallas_pwl_fields`` (and ``steady_node_planes``) return them;
+    other planes are refused."""
     from .cuda_build import check_planes
 
     n = n_wind_fields(wind)
@@ -113,15 +123,16 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
     if not n:
         return []
     if simple:
-        raise ValueError("gridded winds have no _simple baseline")
+        raise ValueError(f"{wind.kind.name.lower()} winds have no _simple "
+                         "baseline")
     names = ["xn"] + [f"wind plane {k}" for k in range(n)]
     check_planes([like, *fields], names, [torch.float32] * (n + 1))
     step = like.numel() * like.element_size()
     base = fields[0].data_ptr()
     if any(f.data_ptr() != base + k * step for k, f in enumerate(fields)):
-        raise ValueError("the wind planes must be views of one contiguous "
-                         "[4 + 3B, ...] tensor, as pallas_pwl_fields returns "
-                         "them")
+        raise ValueError(f"the wind planes must be views of one contiguous "
+                         f"[{n}, ...] tensor, as pallas_pwl_fields and "
+                         f"steady_node_planes return them")
     return list(fields)
 
 

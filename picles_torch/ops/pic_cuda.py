@@ -11,9 +11,9 @@
   ``pic.scatter_accumulate_padded``.
 - ``pic_gather_remesh`` (K6), counterpart of ``scatter_remesh_fused``: the
   same deposit with the remesh branch table (K5's) run on each node's sums
-  in the same pass, a gridded wind read from its step planes
-  (``wind_fields``).  Plain version: ``pic.scatter_dense``, then
-  ``remesh.remesh_core``.
+  in the same pass, a gridded wind read from its step planes, a steady
+  callable from its two node planes (``wind_fields``).  Plain version:
+  ``pic.scatter_dense``, then ``remesh.remesh_core``.
 
 Tensors on a card launch the kernel, or raise: tensors on the CPU are
 refused, and the model's device chooses between kernel and plain version.
@@ -182,8 +182,8 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     ((e, m_x, m_y), RemeshResult, ScatterStats); the deposit's and the
     particle planes ``[nx, ny]`` or ``[L, nx, ny]``, ``active``,
     ``boundary`` and ``xn`` ``[nx, ny]``; ``wind_fields`` a gridded wind's
-    planes of this step; ``yn`` is not sent to the kernel (no analytic wind
-    it compiles varies in y)."""
+    planes of this step or a steady callable's node planes; ``yn`` is not
+    sent to the kernel (no analytic wind it compiles varies in y)."""
     from .advance_cuda import kernel_wind, wind_planes
     from .cuda_build import check_status, library, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params

@@ -12,8 +12,9 @@ kernel, or raise: tensors on the CPU are refused.  The plain version is
 The model clock enters as a 0-dim float32 tensor on the card, read by the
 kernel, so a step never reads it back to the host.  The winds must carry a
 kernel descriptor (``forcing/winds.py`` ``WindKernel``); a gridded wind's
-planes of the step arrive as ``wind_fields`` (``advance_cuda.wind_planes``),
-and the plain version then samples ``forcing.winds.pwl_winds`` of them.
+planes of the step, or a steady callable's two node planes, arrive as
+``wind_fields`` (``advance_cuda.wind_planes``), and the plain version then
+samples ``forcing.winds.pwl_winds`` (``node_plane_winds``) of them.
 ``remesh_cuda.launches`` counts kernel launches.
 """
 
@@ -98,7 +99,8 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     """The branch table on a card (K5), with the arguments and semantics of
     ``remesh.remesh_core``: ``node`` and the particle planes ``[nx, ny]`` or
     ``[L, nx, ny]``, the masks and ``xn`` ``[nx, ny]``; ``wind_fields`` a
-    gridded wind's planes of this step.  ``yn`` is not sent to the kernel:
+    gridded wind's planes of this step or a steady callable's node
+    planes.  ``yn`` is not sent to the kernel:
     no analytic wind it compiles varies in y."""
     from .cuda_build import check_planes, check_status, library, pointer_array
 

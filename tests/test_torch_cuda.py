@@ -4,8 +4,10 @@ kernels they replaced; K3's followed by PyTorch's clamp and select), a
 fused Simulation resumed from a checkpoint, the sharded step on a (1, 1)
 NCCL mesh (on a tripolar grid too), the spherical and tripolar grids:
 K1/K3 with per-node projection planes (bit for bit the scalars on a
-Cartesian box) and K2/K6 with the tripolar seam; and the 1D model (plain
-PyTorch) on the card against the CPU, its deposit deterministic.  Marked
+Cartesian box) and K2/K6 with the tripolar seam; the 1D model (plain
+PyTorch) on the card against the CPU, its deposit deterministic; and a
+steady wind callable (the node kind of K1, K3, K5 and K6) bit for bit the
+constant winds and a constant record.  Marked
 ``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
@@ -1352,3 +1354,91 @@ def test_deposit_1d_on_card_is_deterministic(dev, periodic):
     assert torch.equal(g1, g2)
     torch.testing.assert_close(g1.cpu(), cpu, rtol=0,
                                atol=1e-6 * float(cpu.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# a steady callable as the wind: the node kind of K1, K3, K5 and K6
+# ---------------------------------------------------------------------------
+
+
+def test_node_kind_equals_constant_winds_and_constant_record_bitwise(dev):
+    """(10, 10) m/s everywhere given as its two node planes (the node kind,
+    the planes of a steady callable): K1 (both methods, both modes), K3,
+    K5 and K6 equal their constant-wind instances, and their gridded
+    instances over a constant record, bit for bit."""
+    from picles_torch import TermFlags, constant_winds, node_plane_winds
+    from picles_torch.ops import transforms as TR
+    from picles_torch.ops.advance_cuda import advance_cuda, auto_dt_cuda
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+    from picles_torch.ops.remesh_cuda import remesh_cuda
+    from picles_torch.ops.tsit5 import SolverConfig
+
+    n, t0 = 64, 1200.0
+    kw, wf, _ = _gridded(dev, n, 900.0, t0, const=True)
+    cw = constant_winds(10.0, 10.0)
+    node = torch.full((2, n, n), 10.0, device=dev)
+    nw, nf = node_plane_winds(*node), node.unbind(0)
+    winds = ((nw, nf), (cw, ()), (kw, wf))
+    comps, active, g = _state(dev, n=n, seed=3)
+    proj = (1.0 / 2e3, 0.0, 0.0, 1.0 / 2e3, 0.0)
+    t = torch.full_like(comps[0], t0)
+    before = advance_cuda.launches
+    for method in ("bosh3", "tsit5"):
+        for adaptive in (False, True):
+            cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                               force_dtmin=True)
+            dt = torch.full_like(t, 60.0)
+            a, b, c = (advance_cuda(w, _consts(), TermFlags(), cfg, 600.0,
+                                    comps, t, dt, active, g.x, g.y, proj,
+                                    wind_fields=f) for w, f in winds)
+            _assert_bitwise(a, b)
+            _assert_bitwise(a, c)
+    assert advance_cuda.launches == before + 12
+    reset, dt = _reset_inputs(dev, n, 2)
+    a, b, c = (auto_dt_cuda(w, _consts(), TermFlags(), t, comps, g.x, g.y,
+                            proj, reset, dt, 1e-4, 600.0, wind_fields=f)
+               for w, f in winds)
+    _assert_bitwise((a,), (b,))
+    _assert_bitwise((a,), (c,))
+    m, nodes, core = _remesh_case(dev, n, "wind_sea", True, seed=5)
+    rk = [m.remesh_params._replace(winds=w) for w, _ in winds]
+    a, b, c = (remesh_cuda(r, nodes, *core, wind_fields=f)
+               for r, (_, f) in zip(rk, winds))
+    _assert_bitwise(a, b)
+    _assert_bitwise(a, c)
+    chans = TR.particle_to_node(*core[:3])
+    sact = (core[6] & core[7]).contiguous()
+    a, b, c = (pic_gather_remesh(core[3], core[4], chans, sact, m.grid.stats,
+                                 3, r, *core, wind_fields=f)
+               for r, (_, f) in zip(rk, winds))
+    _assert_bitwise((*a[0], *a[1]), (*b[0], *b[1]))
+    _assert_bitwise((*a[0], *a[1]), (*c[0], *c[1]))
+
+
+def test_node_kind_steps_like_constant_winds_and_the_jets_record(dev):
+    """``chip_smoke.node_step_checks`` at 64^2 and on a 64 x 32 tripolar
+    grid with its continent: a steady constant callable steps bit for bit
+    like ``constant_winds`` under the four configurations, and the global
+    demo's two jets bit for bit like a two-frame record of their planes
+    (the gridded instances) under the three jet paths."""
+    cs = _chip_smoke()
+    launches = cs.node_step_checks(dev, 64, cs.tripolar_grid(dev, 128, 64))
+    assert all(launches[k] > 0 for k in ("K1", "K3", "K5", "K6")), launches
+
+
+def test_time_dependent_callable_raises_on_the_kernel_modes(dev):
+    """A callable that reads its time is refused by the kernel modes and
+    runs on the plain advance with the PyTorch remesh."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              Winds2D, cartesian_box)
+
+    g = cartesian_box(2e3 * 15, 16, 2e3 * 15, 16, device=dev)
+    w = Winds2D(u=lambda x, y, t: torch.where(t > 3600.0, 0.0, 10.0) + 0 * x,
+                v=lambda x, y, t: torch.zeros_like(x))
+    with pytest.raises(NotImplementedError, match="read their time"):
+        WaveGrowth2D(g, w, ODESettings())
+    m = WaveGrowth2D(g, w, ODESettings(),
+                     config=WaveGrowth2DConfig(advance_mode="torch"))
+    assert m.winds.kernel is None and not m.graphed
+    ms = m.step(m.init_state())
+    assert bool(torch.isfinite(ms.state).all())

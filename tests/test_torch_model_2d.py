@@ -238,16 +238,25 @@ def test_unported_remesh_modes_raise(remesh):
 
 def test_wind_outside_kernel_contract_raises_under_cuda(monkeypatch):
     """Modes resolved to the kernels (as on a card): a sampler without a
-    kernel descriptor is refused, never sent to the plain path."""
+    kernel descriptor that reads its time is refused, never sent to the
+    plain path; a steady one becomes the node kind, its node planes the
+    sampler's values."""
     def cuda_modes(cfg, device):
         return dataclasses.replace(cfg, advance_mode="cuda",
                                    scatter_mode="dense_cuda")
 
     monkeypatch.setattr(twg, "resolve_modes", cuda_modes)
-    plain = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
+    timed = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0) + 0.0 * t,
                        v=lambda x, y, t: torch.full_like(x, 5.0))
     with pytest.raises(NotImplementedError, match="kernel descriptor"):
-        pt.WaveGrowth2D(_cpu_grid(), plain, pt.ODESettings())
+        pt.WaveGrowth2D(_cpu_grid(), timed, pt.ODESettings())
+    steady = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
+                        v=lambda x, y, t: torch.full_like(x, 5.0))
+    m = pt.WaveGrowth2D(_cpu_grid(), steady, pt.ODESettings())
+    assert m.winds.kernel.kind == pt.WindKind.NODE
+    u, v = m.wind_fields(m.grid, torch.zeros(()))
+    assert torch.equal(u, torch.full_like(m.grid.x, 10.0))
+    assert torch.equal(v, torch.full_like(m.grid.x, 5.0))
     m = pt.WaveGrowth2D(_cpu_grid(), pt.constant_winds(10.0, 5.0),
                         pt.ODESettings())
     assert m.resolved_config().advance_mode == "cuda"

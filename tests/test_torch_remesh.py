@@ -381,18 +381,28 @@ def test_remesh_config_errors():
 
 def test_kernel_remesh_refuses_winds_outside_the_kernel_set(monkeypatch):
     """On a CUDA device (faked here) a kernel remesh mode with winds that
-    carry no kernel descriptor raises, naming the winds the kernels take
-    (gridded records among them)."""
+    carry no kernel descriptor and read their time raises, naming the winds
+    the kernels take (gridded records among them); a steady callable is
+    taken as the node kind."""
     monkeypatch.setattr(pt.Grid2D, "device", property(
         lambda self: torch.device("cuda", 0)))
-    plain = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
+    timed = pt.Winds2D(u=lambda x, y, t: torch.where(t > 3600.0, 0.0, 10.0)
+                       + 0.0 * x,
                        v=lambda x, y, t: torch.full_like(x, 5.0))
-    with pytest.raises(NotImplementedError, match="and a GriddedWinds2D"):
-        pt.WaveGrowth2D(
-            pt.cartesian_box(100e3, 8, 100e3, 8, device="cpu"), plain,
+    steady = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
+                        v=lambda x, y, t: torch.full_like(x, 5.0))
+
+    def model(winds):
+        return pt.WaveGrowth2D(
+            pt.cartesian_box(100e3, 8, 100e3, 8, device="cpu"), winds,
             pt.ODESettings(),
             config=pt.WaveGrowth2DConfig(periodic_boundary=False,
                                          advance_mode="torch",
                                          scatter_mode="dense",
                                          dt_reset_mode="carry",
                                          remesh_mode="pallas"))
+
+    with pytest.raises(NotImplementedError, match="and a GriddedWinds2D"):
+        model(timed)
+    m = model(steady)
+    assert m.remesh_params.winds.kernel.kind == pt.WindKind.NODE
