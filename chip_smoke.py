@@ -100,6 +100,19 @@ just before and read just after:
     timed; phase "examples" runs ``picles_torch/examples/example_00..05``
     at full size.
 
+11. the modules ported last (phase "rest"): the fetch relations of both
+    windsea types on 1536^2 planes on the card against the CPU; the
+    deposit's ``scatter(mode="dense_cuda")`` at 1536^2 (K2, bit for bit
+    ``pic_gather``) and ``merge_2d_angle``; ``record_trajectories`` on the
+    fused flagship at 1536^2, whose history is ``step_n``'s bit for bit
+    and whose sub-DT windows are K1 launches counted by trace (a 256^2
+    crop held against the plain ``integrate_to``), timed at K = 1 and K =
+    4 in turns with the graphed step; ``StepTimer`` and ``profile_trace``
+    around graphed steps; and the B02 regression (three resolutions and a
+    DT refinement of the gridded non-periodic box through
+    ``Simulation.run`` on K1, K2 and K3, counted by trace) with its
+    assertions, against the CPU at one resolution.
+
 ``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
 through it.  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
@@ -5615,6 +5628,493 @@ def phase_examples(timing) -> None:
                     "example 03's HDF5 store and movie")
 
 
+
+# ---------------------------------------------------------------------------
+# phase "rest": the modules ported last (fetch relations, the deposit's
+# dispatcher and merge rule, trajectories, diagnostics, the B02 regression)
+# ---------------------------------------------------------------------------
+
+# the fetch relations held card against CPU: (name, argument planes)
+REST_FETCH = (("X_tilde", "XU"), ("t_tilde", "tU"), ("E_tilde", "EU"),
+              ("f_p_tilde", "fU"), ("X_tilde_from_tau", "T"),
+              ("tau_from_X_tilde", "x"), ("min_fetch", "x"),
+              ("c_p_fetch", "xU"), ("H_s_fetch", "xU"), ("E_fetch", "xU"),
+              ("E_fetch_tilde", "x"), ("X_tilde_time_and_fetch", "tUX"),
+              ("f_m_from_X_tilde", "Ux"), ("alpha_j", "Uf"),
+              ("E_JONSWAP", "fa"), ("f_m_from_X", "UX"),
+              ("X_tilde_j_U_freq", "Uf"), ("X_j_U_freq", "Uf"),
+              ("X_tilde_j_U_tau", "Ut"), ("tau_j", "UX"),
+              ("f_m_given_U_tau", "Ut"), ("c_g_U_tau", "Ut"), ("E_j", "Ut"),
+              ("PMParameters", "U"), ("JONSWAP_omega", "UpW"),
+              ("JONSWAP_frequency", "UPf"), ("PMSpectrum", "Uf"))
+REST_SEEDS = ("get_initial_windsea", "MinimalWindsea", "MinimalParticle",
+              "MinimalState", "get_initial_windsea_particle_state",
+              "get_initial_windsea_1d", "MinimalWindsea_1d")
+REST_SPECTRA = ("JONSWAP_omega", "JONSWAP_frequency", "PMSpectrum")
+REST_STEPS = 4         # record_trajectories' steps at 1536^2
+REST_K = 4             # sub-windows a step at saving_step = DT / 4
+REST_CROP = 256        # the fixed-substep check of the sub-window advance
+# the graphed fused flagship step as root PERF.md section 5 records it (H100
+# 80GB HBM3, 700 W, 7 x 10 steps)
+GRAPHED_FLAGSHIP_MS = 1.5144
+# tests/test_b02_resolution_convergence.py's box, horizon and sizes
+B02_L = 200e3
+B02_T = 4 * 3600.0
+B02_SIZES = (11, 16, 23)
+
+
+def fetch_planes(dev, seed: int = 12) -> dict:
+    """Seeded float32 planes at 1536^2 for the fetch relations, keyed by
+    the letters of REST_FETCH: U wind speed, X fetch (m), x non-dim fetch,
+    t and T durations (s, non-dim), E energy, f frequency (Hz), a the
+    JONSWAP alpha, p/P a peak (angular, Hz) as a Python number, W angular
+    frequency; u and v wind components with exact zeros."""
+    rng = np.random.default_rng(seed)
+    n = (FLAG_N, FLAG_N)
+
+    def uni(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, n).astype(np.float32),
+                               device=dev)
+
+    def logu(lo, hi):
+        return torch.as_tensor(np.exp(rng.uniform(np.log(lo), np.log(hi), n)
+                                      ).astype(np.float32), device=dev)
+
+    U, f = uni(1.0, 30.0), uni(0.04, 0.6)
+    u, v = uni(-25.0, 25.0), uni(-25.0, 25.0)
+    u[0, :4], v[0, :4] = 0.0, 0.0
+    return dict(U=U, X=logu(1e2, 1e6), x=logu(10.0, 1e6),
+                t=uni(600.0, 2 * DAY), T=logu(10.0, 1e6), E=uni(1e-3, 20.0),
+                f=f, a=uni(1e-3, 3e-2), p=2 * np.pi * 0.12, P=0.12,
+                W=2 * np.pi * f, u=u, v=v)
+
+
+def spectral_exponent(name: str, args) -> torch.Tensor:
+    """|x| of a spectrum's exp(-x) (float64, on the CPU)."""
+    U = args[0].double()
+    if name == "PMSpectrum":
+        return 1.25 * (0.879 * G_ACC / U / (2 * np.pi * args[1].double())) ** 4
+    wp, w = args[1], args[2].double()
+    if name == "JONSWAP_frequency":
+        wp, w = 2 * np.pi * wp, 2 * np.pi * w
+    return 1.25 * (wp / w) ** 4
+
+
+def leaves_of(out) -> list:
+    """(leaf, is a log energy) of a fetch relation's output: a tensor, a
+    dict, a WindSea or a stacked particle [lne, cg_x, cg_y, 0, 0]."""
+    if isinstance(out, dict):
+        return [(out[k], False) for k in sorted(out)]
+    if hasattr(out, "_fields"):
+        return [(getattr(out, k), k == "lne") for k in out._fields]
+    return [(out, False)]
+
+
+# the fetch relations of up to four chained powers (the seeds' E and f_m,
+# E_j): CUDA's powf is within 2 ulp, the CPU's within 1, and each power
+# multiplies the error of its argument by its exponent (E ~ X^1.1 ~ f_m^-3.33
+# in a seed): 1.63e-6 measured on the card (E of the JONSWAP seed)
+REST_CHAINED_RTOL = 3e-6
+
+
+def check_fetch(dev) -> dict:
+    """(a) Each fetch relation, and each windsea seed of both types, on the
+    1536^2 planes on the card against the same function on their CPU
+    copies: within rtol 1e-6, REST_CHAINED_RTOL for the chained powers of
+    the seeds and E_j; the spectra within rtol 1e-6 (1 + x), x the
+    magnitude of their exp(-x), which multiplies a relative error of x by
+    x; a log energy's error relative to max(|lne|, 1), as the absolute
+    error of a log is the relative error of its argument (lne near 0,
+    where E is near 1, holds E's ulps).  Returns each function's max
+    relative error (the spectra's over 1 + x)."""
+    planes = fetch_planes(dev)
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in planes.items()}
+    worst, bad = {}, {}
+    cases = [(name, keys, {}) for name, keys in REST_FETCH]
+    cases += [(name, "uT" if name.endswith("_1d") else "uvT",
+               {"type": kind})
+              for name in REST_SEEDS for kind in ("JONSWAP", "PM")]
+    for name, keys, kw in cases:
+        tag = f"{name}({kw['type']})" if kw else name
+        fn = getattr(FR, name)
+        # the seeds take a duration scale in seconds as a number
+        card_args = [planes[k] if k != "T" or not kw else 3600.0
+                     for k in keys]
+        cpu_args = [cpu[k] if k != "T" or not kw else 3600.0 for k in keys]
+        got, want = fn(*card_args, **kw), fn(*cpu_args, **kw)
+        if name in ("MinimalParticle", "get_initial_windsea_particle_state"):
+            got, want = (got.unbind(-1), want.unbind(-1))
+            pairs = zip(got, want, (True, False, False, False, False))
+        else:
+            pairs = ((g, w, lg) for (g, lg), (w, _) in
+                     zip(leaves_of(got), leaves_of(want)))
+        err = 0.0
+        for g, w, is_log in pairs:
+            assert g.device.type == "cuda" and g.dtype == w.dtype, tag
+            g, w = g.cpu().double(), w.double()
+            scale = w.abs().clamp(min=1.0) if is_log else w.abs()
+            rel = (g - w).abs() / scale.clamp(min=1e-30)
+            rel = torch.where(g == w, 0.0, rel)
+            if name in REST_SPECTRA:
+                rel = rel / (1.0 + spectral_exponent(name, cpu_args))
+            err = max(err, float(rel.max()))
+        worst[tag] = err
+        rtol = REST_CHAINED_RTOL if kw or name == "E_j" else 1e-6
+        if not err <= rtol:
+            bad[tag] = (err, rtol)
+    log("rest", "(a) max rel err card against CPU at "
+                f"{FLAG_N}^2 (spectra over 1 + x): "
+                + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    assert not bad, f"fetch relations beyond their rtol: {bad}"
+    return worst
+
+
+def check_scatter_and_merge(dev) -> dict:
+    """(b) ``pic.scatter(mode="dense_cuda")`` (and "dense_pallas") at
+    1536^2, halo 3, periodic: two launches of K2 counted by trace, each bit
+    for bit ``pic_gather``, within K2's rtol 1e-5 (atol 1e-6 of the scale)
+    of ``mode="dense"``, the clamped count equal; and ``merge_2d_angle`` on
+    the card against the CPU."""
+    from picles_torch.ops.pic import merge_2d_angle, scatter as pic_scatter
+
+    rng = np.random.default_rng(5)
+    n = FLAG_N
+    stats = GridStats(nx=n, ny=n, bx=Boundary.PERIODIC, by=Boundary.PERIODIC)
+
+    def plane(fn, *a):
+        return torch.as_tensor(fn(*a, (n, n)).astype(np.float32), device=dev)
+
+    xr, yr = plane(rng.uniform, -3.2, 3.2), plane(rng.uniform, -3.2, 3.2)
+    charge = torch.stack([plane(rng.uniform, 0.0, 1.0),
+                          plane(rng.normal, 0.0, 0.1),
+                          plane(rng.normal, 0.0, 0.1)], dim=-1)
+    act = torch.as_tensor(rng.uniform(size=(n, n)) < 0.9, device=dev)
+    box = {}
+
+    def run():
+        box["cuda"] = pic_scatter(xr, yr, charge, act, stats, 3,
+                                  mode="dense_cuda")
+        box["pallas"] = pic_scatter(xr, yr, charge, act, stats, 3,
+                                    mode="dense_pallas")
+
+    reset_counters()
+    tstats, got = trace_window(run, 1, {KERNEL_KEYS["K2"]: 2})
+    host = counters()
+    assert host["K2"] == 2 * tstats["trace_attempts"], host
+    ref, rst = pic_gather(xr, yr,
+                          tuple(c.contiguous() for c in charge.unbind(-1)),
+                          act, stats, 3)
+    P, pst = scatter_dense(xr, yr, charge, act, stats, 3)
+    err = 0.0
+    for mode, (S, st) in box.items():
+        assert_bitwise(f"scatter({mode}) against pic_gather",
+                       S.unbind(-1), ref)
+        assert int(st.clamped) == int(rst.clamped) == int(pst.clamped)
+        for c in range(3):
+            err = max(err, assert_close(
+                f"scatter({mode}) ch{c} against dense", S[..., c], P[..., c],
+                1e-5, 1e-6 * float(P[..., c].abs().max())))
+    g = torch.as_tensor(rng.normal(0.0, 1.0, (n, n, 3)).astype(np.float32))
+    c = torch.as_tensor(rng.normal(0.0, 1.0, (n, n, 3)).astype(np.float32))
+    g[..., 0], c[..., 0] = g[..., 0].abs(), c[..., 0].abs()
+    g[:8, :, 1:] = 0.0
+    m_card = merge_2d_angle(g.to(dev), c.to(dev)).cpu()
+    m_cpu = merge_2d_angle(g, c)
+    merge_err = assert_close("merge_2d_angle card against CPU", m_card,
+                             m_cpu, 1e-6, 0.0)
+    merge_bitwise = torch.equal(bits(m_card), bits(m_cpu))
+    log("rest", f"(b) scatter dense_cuda/dense_pallas at {n}^2 halo 3: K2 "
+                f"traced {got[KERNEL_KEYS['K2']]} launches, bit for bit "
+                f"pic_gather, max abs err {err:.3e} against dense, clamped "
+                f"{int(rst.clamped)}; merge_2d_angle card vs CPU max abs err "
+                f"{merge_err:.3e}, bit for bit: {merge_bitwise}")
+    return dict(k2_traced=got[KERNEL_KEYS["K2"]], k2_host=host["K2"],
+                scatter_max_abs_err=err, merge_max_abs_err=merge_err,
+                merge_bitwise=merge_bitwise)
+
+
+def record(model, ms, n: int, K: int):
+    from picles_torch.utils.particle_tools import record_trajectories
+
+    return record_trajectories(model, ms, n, saving_step=DT / K)
+
+
+def check_trajectories(dev) -> dict:
+    """(c) ``record_trajectories`` on the fused flagship at 1536^2,
+    REST_STEPS steps from the seed: at K = 1 the history (each row a copy
+    of the graph's replayed state) bit for bit ``step_n``'s; at K = 4 a
+    trace holds 4 more K1 launches a step (REST_STEPS (1 + 4) K1, REST_STEPS
+    K6) and the history equals K = 1's; on a 256^2 crop in fixed-substep
+    mode the sub-window advance (4 launches of K1 a step) within K1's 5e-6
+    of the plain ``integrate_to`` on the card.  ms/step at K = 1 and K = 4
+    and of the graphed step (``step_n_quiet``) in turns."""
+    from picles_torch.utils.particle_tools import particle_z
+
+    model = flagship_model(FLAG_N, dev, remesh_mode="fused")
+    assert model.graphed
+    ms = model.init_state()
+    reset_counters()
+    final, h1 = record(model, ms, REST_STEPS, 1)
+    c1 = counters()
+    assert c1["K1"] == c1["K6"] == WARMUP_STEPS + 1, c1   # warm-up, capture
+    ref, states = model.step_n(ms, REST_STEPS)
+    assert torch.equal(bits(h1["state"]), bits(states)), \
+        "K = 1 history differs from step_n"
+    assert_state_bitwise("K = 1 final state against step_n", final, ref)
+    assert torch.equal(bits(h1["z"][-1]), bits(particle_z(ref.particles)))
+    assert "z_fine" not in h1
+    box = []
+
+    def run():
+        box.append(record(model, ms, REST_STEPS, REST_K))
+
+    reset_counters()
+    _, got = trace_window(run, REST_STEPS,
+                          {KERNEL_KEYS["K1"]: REST_STEPS * (1 + REST_K),
+                           KERNEL_KEYS["K6"]: REST_STEPS})
+    host = counters()
+    assert host["K1"] == REST_STEPS * REST_K * len(box) and \
+        host["K6"] == 0, host
+    f4, h4 = box[-1]
+    assert torch.equal(bits(h4["state"]), bits(states))
+    assert h4["z_fine"].shape == (REST_STEPS * REST_K, FLAG_N, FLAG_N, 5)
+    t_fine = h4["t_fine"][:, 0, 0].cpu().numpy()
+    assert np.allclose(t_fine, DT / REST_K * np.arange(1, REST_STEPS
+                                                       * REST_K + 1)), t_fine
+    del box, h1, h4, f4, final, states
+
+    # the sub-window advance against the plain integrator, fixed substeps
+    crop = WaveGrowth2D(
+        cartesian_box(2e3 * (REST_CROP - 1), REST_CROP, 2e3 * (REST_CROP - 1),
+                      REST_CROP, periodic_boundary=(True, True), device=dev),
+        constant_winds(10.0, 10.0),
+        dataclasses.replace(settings("bosh3"), dt=30.0, adaptive=False),
+        config=WaveGrowth2DConfig(periodic_boundary=True,
+                                  dt_reset_mode="carry",
+                                  halo=((0, 3), (0, 3)), remesh_mode="fused"))
+    s0 = crop.step(crop.init_state())
+    _, hc = record(crop, s0, 1, REST_K)
+    P = s0.particles
+    z, t, dt = particle_z(P), P.t, P.dt
+    active = P.on & crop.active_mask
+    crop_err = 0.0
+    for k in range(REST_K):
+        r = integrate_to(crop.rhs, z, t, t + DT / REST_K, dt, crop.aux,
+                         active, crop.solver)
+        z, t, dt = r.z, r.t, r.dt
+        crop_err = max(crop_err, assert_close(
+            f"sub-window {k} against integrate_to", hc["z_fine"][k], z, 1e-5,
+            5e-6))
+        assert_close(f"sub-window {k} t", hc["t_fine"][k], t, 1e-6, 0.0)
+
+    # ms/step in turns: K = 1, K = 4, the graphed step; then reversed
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / REST_STEPS
+
+    runs = {"K=1": lambda: record(model, ms, REST_STEPS, 1),
+            "K=4": lambda: record(model, ms, REST_STEPS, REST_K),
+            "graphed step": lambda: model.step_n_quiet(ms, REST_STEPS)}
+    ms_step = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            ms_step[k].append(timed(runs[k]))
+    ms_step = {k: sum(v) / len(v) for k, v in ms_step.items()}
+    model.release_graph()
+    log("rest", f"(c) record_trajectories, fused flagship {FLAG_N}^2, "
+                f"{REST_STEPS} steps: K = 1 bit for bit step_n; K = 4 traced "
+                f"{got[KERNEL_KEYS['K1']]} K1 and {got[KERNEL_KEYS['K6']]} "
+                f"K6 launches; {REST_CROP}^2 fixed-substep sub-windows within "
+                f"{crop_err:.3e} of integrate_to; ms/step (means of 2 in "
+                f"turns) K = 1 {ms_step['K=1']:.4f}, K = 4 "
+                f"{ms_step['K=4']:.4f}, graphed step "
+                f"{ms_step['graphed step']:.4f} (PERF.md: {GRAPHED_FLAGSHIP_MS})")
+    return dict(k1_traced=got[KERNEL_KEYS["K1"]],
+                k6_traced=got[KERNEL_KEYS["K6"]], k1_host=host["K1"],
+                crop_max_abs_err=crop_err, ms_per_step=ms_step,
+                graphed_flagship_ms_recorded=GRAPHED_FLAGSHIP_MS)
+
+
+def check_diagnostics(dev) -> dict:
+    """(d) ``StepTimer`` and ``profile_trace`` around 10 graphed steps of
+    the fused flagship (``step_jit``): StepTimer's median (wall, to the
+    card's synchronize) beside the CUDA-event median of the same calls;
+    the Chrome trace written into its directory names K1 and K6."""
+    from picles_torch.utils.diagnostics import StepTimer, profile_trace
+
+    model = flagship_model(FLAG_N, dev, remesh_mode="fused")
+    step = model.step_jit()
+    ms = step(model.init_state())
+    timer = StepTimer()
+    for _ in range(10):
+        with timer.measure(sync_on=ms.state):
+            ms = step(ms)
+    ev = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ms = step(ms)
+        b.record()
+        torch.cuda.synchronize()
+        ev.append(a.elapsed_time(b))
+    timer_ms = timer.summary()["p50_s"] * 1e3
+    event_ms = float(np.median(ev))
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        logdir = os.path.join(tmp, "trace")
+        with profile_trace(logdir):
+            for _ in range(10):
+                ms = step(ms)
+        files = os.listdir(logdir)
+        assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
+        with open(os.path.join(logdir, files[0])) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    k1 = sum(KERNEL_KEYS["K1"] in nm for nm in names)
+    k6 = sum(KERNEL_KEYS["K6"] in nm for nm in names)
+    assert k1 > 0 and k6 > 0, (k1, k6)
+    model.release_graph()
+    log("rest", f"(d) 10 graphed fused flagship steps (step_jit): StepTimer "
+                f"median {timer_ms:.4f} ms, CUDA-event median {event_ms:.4f} "
+                f"ms; profile_trace wrote {files[0]} naming K1 {k1} and K6 "
+                f"{k6} times")
+    return dict(step_timer_median_ms=timer_ms, cuda_event_median_ms=event_ms,
+                trace_k1=k1, trace_k6=k6)
+
+
+def write_b02_winds(path: str) -> str:
+    """tests/test_b02_resolution_convergence.py's wind file (a Gaussian
+    blob moving +x over 2 T), as NetCDF-3 (scipy) in place of h5py."""
+    from scipy.io import netcdf_file
+
+    nt, nyw, nxw = 9, 12, 12
+    ts = np.linspace(0, 2 * B02_T, nt)
+    xs = np.linspace(0, B02_L, nxw)
+    ys = np.linspace(0, B02_L, nyw)
+    Tg, Yg, Xg = np.meshgrid(ts, ys, xs, indexing="ij")
+    x0 = 0.25 * B02_L + 6.0 * Tg
+    u = 2.0 + 10.0 * np.exp(-(((Xg - x0) / (0.3 * B02_L)) ** 2
+                              + ((Yg - 0.5 * B02_L) / (0.4 * B02_L)) ** 2))
+    with netcdf_file(path, "w") as f:
+        for name, ax in (("time", ts), ("latitude", ys), ("longitude", xs)):
+            f.createDimension(name, len(ax))
+            f.createVariable(name, "f8", (name,))[:] = ax
+        for name, a in (("u10", u), ("v10", 0.3 * u)):
+            f.createVariable(name, "f4", ("time", "latitude", "longitude")
+                             )[:] = a.astype(np.float32)
+    return path
+
+
+def b02_model(gw, nx: int, dt: float, device):
+    ws = FR.MinimalWindsea(10.0, 10.0, dt)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=dt,
+                       timestep=dt, total_time=B02_T, dt=1e-3, dtmin=1e-4,
+                       force_dtmin=True)
+    grid = cartesian_box(B02_L, nx, B02_L, nx, periodic_boundary=(False, False),
+                         device=device)
+    return WaveGrowth2D(grid, gw, sett,
+                        config=WaveGrowth2DConfig(periodic_boundary=False))
+
+
+def b02_hs(sim) -> np.ndarray:
+    e = sim.store.store[-1][..., 0]
+    assert np.all(np.isfinite(sim.store.as_array()))
+    return 4.0 * np.sqrt(np.maximum(e, 0.0))
+
+
+def check_b02(dev) -> dict:
+    """(e) The B02 regression through the kernels: the three resolutions
+    at DT and nx = 16 at DT / 2, each through ``Simulation.run`` with a
+    CashStore on the graphed gridded step (K1, K2 and K3's gridded
+    instances, counted by trace), the JAX test's assertions on the final
+    Hs fields; and nx = 16 at DT run on the CPU (the plain versions), its
+    field against the card's."""
+    from scipy.interpolate import RegularGridInterpolator
+
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        path = write_b02_winds(os.path.join(tmp, "b02_winds.nc"))
+        gw = load_gridded_winds_2d(path, device=dev)
+        gw_cpu = load_gridded_winds_2d(path, device="cpu")
+    fields, traced = {}, {}
+    want = ("K1", "K2", "K3")
+    for nx, dt in [(n, DT) for n in B02_SIZES] + [(16, DT / 2)]:
+        m = b02_model(gw, nx, dt, dev)
+        assert m.graphed and m.resolved_config().scatter_mode == "dense_cuda"
+        m._capture(m.init_state())
+        steps = Simulation.create(m, stop_time=B02_T).n_steps()
+        sim, got, _ = traced_run(m, B02_T, {k: steps for k in want},
+                                 cash_store=True)
+        traced[f"{nx}@{dt:g}"] = got
+        assert int(sim.state.metrics.n_failed) == 0
+        fields[(nx, dt)] = b02_hs(sim)
+        m.release_graph()
+    probe = np.linspace(0.15 * B02_L, 0.85 * B02_L, 25)
+    PX, PY = np.meshgrid(probe, probe, indexing="ij")
+    pts = np.stack([PX.ravel(), PY.ravel()], -1)
+    hs_p = {nx: RegularGridInterpolator(
+        (np.linspace(0, B02_L, nx),) * 2, fields[(nx, DT)])(pts)
+        for nx in B02_SIZES}
+    norm = np.abs(hs_p[B02_SIZES[-1]]).max()
+    assert norm > 0.5, norm
+    errs = [float(np.sqrt(np.mean((hs_p[a] - hs_p[b]) ** 2)) / norm)
+            for a, b in zip(B02_SIZES[:-1], B02_SIZES[1:])]
+    assert errs[1] < errs[0], errs
+    assert errs[-1] < 0.03, errs
+    a, b = fields[(16, DT)], fields[(16, DT / 2)]
+    dt_err = float(np.sqrt(np.mean((a - b) ** 2)) / np.abs(a).max())
+    assert dt_err < 0.04, dt_err
+    sim = Simulation.create(b02_model(gw_cpu, 16, DT, "cpu"),
+                            stop_time=B02_T)
+    sim.run(cash_store=True)
+    cpu = b02_hs(sim)
+    card_cpu_max = float(np.abs(a - cpu).max())
+    card_cpu_rms = float(np.sqrt(np.mean((a - cpu) ** 2)) / np.abs(cpu).max())
+    assert card_cpu_rms < 0.04, card_cpu_rms   # the DT refinement's bound
+    log("rest", f"(e) B02 on the card: successive RMS differences "
+                f"{errs[0]:.4f}, {errs[1]:.4f}; DT refinement {dt_err:.4f}; "
+                f"nx = 16 card against CPU: max abs Hs difference "
+                f"{card_cpu_max:.3e} m, normalized RMS {card_cpu_rms:.3e}; "
+                f"launches by trace {traced}")
+    return dict(errs=errs, dt_err=dt_err, card_cpu_max_abs_hs=card_cpu_max,
+                card_cpu_rms=card_cpu_rms, traced=traced)
+
+
+def phase_rest(dev, results, timing) -> None:
+    """Phase "rest": (a)-(e) above.  K1, K2 and K3 run here on paths of
+    their own (the sub-window advance, the dispatcher's deposit, the B02
+    gridded steps), each path's launches counted by trace (the host's
+    counters set to 0 just before); the counts go into the kernels line as
+    ``rest_launches``."""
+    t0 = time.perf_counter()
+    out = dict(fetch_max_rel_err=check_fetch(dev))
+    out["scatter"] = check_scatter_and_merge(dev)
+    out["trajectories"] = check_trajectories(dev)
+    out["diagnostics"] = check_diagnostics(dev)
+    out["b02"] = check_b02(dev)
+    b02 = out["b02"]["traced"].values()
+    rest = {"K1": out["trajectories"]["k1_traced"]
+            + sum(g["K1"] for g in b02),
+            "K2": out["scatter"]["k2_traced"] + sum(g["K2"] for g in b02),
+            "K3": sum(g["K3"] for g in b02)}
+    for k, v in rest.items():
+        assert v > 0, f"{k} was not launched in phase rest"
+        results[k]["rest_launches"] = v
+    out["seconds"] = time.perf_counter() - t0
+    timing["rest"] = out
+    log("rest", "not run on the card: the orbax checkpoint backend (needs "
+                "tensorstore) and the DataFrame converters (need pandas), "
+                "which this machine lacks; no check counts them")
+    log("rest", f"launches by trace {rest}; {out['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -5708,6 +6208,7 @@ def main(argv=None) -> int:
         # before the kernels' in-turns timing: a call that had run a few
         # dozen profiler sessions lost one K1 launch from every step trace
         phase_profile(args.profile, gw)
+    phase_rest(dev, results, timing)
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
     phase_cli(dev, results, timing)

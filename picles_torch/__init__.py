@@ -49,6 +49,8 @@ from .simulation.simulation import Simulation
 from .simulation.store import (CashStore, EmptyStore, StateStore,
                                convert_store_to_tuple)
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Boundary", "CashStore", "EmptyStore", "FetchRelations", "Grid1D",
     "Grid2D", "GridStats", "GriddedWinds1D", "GriddedWinds2D", "IDConstants",

@@ -35,7 +35,7 @@ import torch
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
 from ..forcing.winds import GriddedWinds1D
-from ..grids.base import Grid1D
+from ..grids.base import Grid1D, one_d_grid  # noqa: F401  (JAX's home of it)
 from ..ops import pic
 from ..ops import transforms as TR
 from ..ops.rhs import TermFlags, particle_equations_1d

@@ -41,6 +41,12 @@ def normalize_halo(halo) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     return ((int(hx[0]), int(hx[1])), (int(hy[0]), int(hy[1])))
 
 
+def halo_max(halo) -> int:
+    """The widest of a halo's four bounds."""
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    return max(xl, xh, yl, yh)
+
+
 def halo_bounds(lo: int, hi: int) -> Tuple[float, float]:
     """The clamp range ``[-lo, hi - 1e-5]`` of one axis, as the JAX package
     forms it (in float64, then rounded to float32 where it meets a plane)."""
@@ -190,6 +196,34 @@ def scatter_xla(xrel, yrel, charge, active, stats: GridStats, halo=0):
                                              device=dev)))
 
 
+def scatter(xrel, yrel, charge, active, stats: GridStats, halo,
+            mode: str = "dense"):
+    """Deposit a stacked charge ``[nx, ny, C]`` (``[L, nx, ny, C]``);
+    returns (node state ``[..., C]``, stats).
+
+    ``mode``: "dense" (the plain pad-and-fold version), "dense_cuda"
+    (kernel K2, ``pic_cuda.pic_gather``: three channels, CUDA tensors; it
+    raises on the CPU) or "xla" (the oracle); the JAX package's
+    "dense_pallas" names K2 too."""
+    from ..convert import _MODES
+
+    if mode == "dense_pallas":
+        mode = _MODES[mode]
+    if mode == "dense_cuda":
+        from .pic_cuda import pic_gather
+
+        # the kernel reads contiguous channel planes
+        planes, st = pic_gather(xrel, yrel,
+                                tuple(c.contiguous() for c in charge.unbind(-1)),
+                                active, stats, halo)
+        return torch.stack(planes, dim=-1), st
+    if mode == "dense":
+        return scatter_dense(xrel, yrel, charge, active, stats, halo)
+    if mode == "xla":
+        return scatter_xla(xrel, yrel, charge, active, stats, halo)
+    raise ValueError(f"unknown scatter mode {mode!r}")
+
+
 def scatter_channels(xrel, yrel, chans: Tuple[torch.Tensor, ...], active,
                      stats: GridStats, halo, mode: str = "dense"):
     """Deposit per-channel ``[nx, ny]`` planes; returns (planes, stats).
@@ -272,6 +306,27 @@ def scatter_1d_add(xabs: torch.Tensor, charge: torch.Tensor,
         keys.append(g.reshape(-1))
         vals.append((w[..., None] * charge).reshape(-1, C))
     return segment_sum(torch.cat(keys), torch.cat(vals), nx)
+
+
+def merge_2d_angle(grid_point: torch.Tensor,
+                   charge: torch.Tensor) -> torch.Tensor:
+    """The angle-based 2D merge rule, elementwise over ``[..., 3]`` (e,
+    m_x, m_y): add where the momenta are within 60 degrees of each other
+    (or either is 0), else keep the side with more energy.  No deposit
+    uses it (the 2D deposit adds), as in the JAX package, which corrects
+    the Julia source's cos-angle numerator and its dead replace branch."""
+    gE, gx, gy = grid_point[..., 0], grid_point[..., 1], grid_point[..., 2]
+    cE, cx, cy = charge[..., 0], charge[..., 1], charge[..., 2]
+    gn = torch.sqrt(gx ** 2 + gy ** 2)
+    cn = torch.sqrt(cx ** 2 + cy ** 2)
+    denom = gn * cn
+    cos_t = torch.where(denom == 0, 1.0,
+                        (gx * cx + gy * cy)
+                        / torch.where(denom == 0, 1.0, denom))
+    add = cos_t >= 0.5
+    keep_grid = ~add & (gE - cE > 0)
+    return torch.where(add[..., None], grid_point + charge,
+                       torch.where(keep_grid[..., None], grid_point, charge))
 
 
 def scatter_1d_merge(xabs: torch.Tensor, charge: torch.Tensor,

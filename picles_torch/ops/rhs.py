@@ -1,6 +1,11 @@
 """Particle-wave ODE right-hand sides (PyTorch port of
-``picles_tpu/ops/rhs.py``): the 2D one, and the 1D model's
-(``particle_equations_1d``, plain PyTorch only).
+``picles_tpu/ops/rhs.py``): the 2D one, the 1D model's
+(``particle_equations_1d``, plain PyTorch only), the constant-velocity ray
+tracer (``particle_rays``) and the source-term helpers (``speed`` ...
+``S_dir``), each the closure of the Kudryavtsev et al. (2021) terms as the
+JAX package writes it.  ``rhs_core_2d`` does not call the helpers: it
+forms the same terms with fewer transcendentals (squared norms, the
+wave-age clamp on alpha^2), in the order of operations the kernels share.
 
 ``rhs_core_2d`` is the plain version of the device function ``rhs_core_2d``
 in ``picles_torch/csrc/rhs.cuh``; the two keep the same guarded forms and
@@ -31,6 +36,74 @@ class RHSParams(NamedTuple):
     y: torch.Tensor
     M: torch.Tensor
     pc: torch.Tensor
+
+
+def speed(cx, cy):
+    return torch.sqrt(cx ** 2 + cy ** 2)
+
+
+def alpha_p(u, v, cx, cy):
+    """Projected wave age: (u cx + v cy) / (2 max(|c|, 1e-4)^2)."""
+    return (u * cx + v * cy) / (2.0 * torch.clamp(speed(cx, cy), min=1e-4) ** 2)
+
+
+def alpha_func(u_speed, c_gp_speed):
+    """Wave age u / (2 c_gp), clamped at 500."""
+    a = u_speed / (2.0 * c_gp_speed)
+    return torch.where(a > 500.0, 500.0, a)
+
+
+def sin2_a_min_b(ux, uy, cx, cy):
+    """sin(2 (phi_u - phi_c)) from the components; 0 where either vector
+    is 0."""
+    denom = speed(ux, uy) * speed(cx, cy)
+    safe = torch.where(denom == 0, 1.0, denom)
+    val = (2.0 / safe ** 2) * (ux * uy * (2.0 * cy ** 2 - speed(cx, cy) ** 2)
+                               - cx * cy * (2.0 * uy ** 2 - speed(ux, uy) ** 2))
+    return torch.where(denom == 0, 0.0, val)
+
+
+def H_beta(alpha, p):
+    """Input window 0.5 (1 + tanh(p (alpha - 0.85)))."""
+    return 0.5 * (1.0 + torch.tanh(p * (alpha - ALPHA_THRESH)))
+
+
+def Delta_beta(alpha):
+    """Peak-shift window 1 - 1.25 sech^2(10 (alpha - 0.85)), sech written
+    through exp (stable for large arguments)."""
+    ax = torch.abs(10.0 * (alpha - ALPHA_THRESH))
+    e = torch.exp(-ax)
+    sech = 2.0 * e / (1.0 + e * e)
+    return 1.0 - 1.25 * sech ** 2
+
+
+def c_g_conversions(c_bar, r_g, g):
+    """(c_gp, k_p, omega_p) from the mean group speed."""
+    c_gp = c_bar / r_g
+    k_p = g / (4.0 * torch.clamp(c_gp ** 2, min=1e-2))
+    omega_p = g / (2.0 * torch.clamp(torch.abs(c_gp), min=0.1))
+    return c_gp, k_p, omega_p
+
+
+def I_tilde(alpha, H_p, C_e):
+    """Wind input C_e H_p alpha^2."""
+    return C_e * H_p * alpha ** 2
+
+
+def D_tilde_lne(lne, k_p, e_T, n):
+    """Dissipation exp(n lne) (k_p / e_T)^(2n)."""
+    return torch.exp(n * lne) * (k_p / e_T) ** (2.0 * n)
+
+
+def S_cg(lne, Delta_p, k_p, C_alpha):
+    """Peak downshift C_alpha Delta_p k_p^4 e^(2 lne)."""
+    return C_alpha * Delta_p * k_p ** 4 * torch.exp(2.0 * lne)
+
+
+def S_dir(u, v, cx, cy, C_varphi, H_p):
+    """Peak-direction shift alpha^2 C_varphi H_p sin(2 (phi_u - phi_c))."""
+    return (alpha_func(speed(u, v), speed(cx, cy)) ** 2
+            * C_varphi * H_p * sin2_a_min_b(u, v, cx, cy))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,5 +286,16 @@ def particle_equations_1d(u_wind: Callable, *, gamma: float = 0.88,
         dcg_x = -cg_x * omega_p * c.r_g * S_cg_t
         dx = cg_x if flags.propagation else torch.zeros_like(cg_x)
         return torch.stack(torch.broadcast_tensors(dlne, dcg_x, dx), dim=-1)
+
+    return rhs
+
+
+def particle_rays() -> Callable:
+    """The constant-velocity ray tracer ``rhs(t, z, aux) -> dz`` over
+    ``z[..., 3] = [lne, cg_x, x]``: dlne = dcg_x = 0, dx = cg_x."""
+
+    def rhs(t, z, aux):
+        zero = torch.zeros_like(z[..., 0])
+        return torch.stack([zero, zero, z[..., 1]], dim=-1)
 
     return rhs

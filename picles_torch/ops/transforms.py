@@ -33,6 +33,13 @@ def node_to_particle(e, m_x, m_y):
     return torch.log(e_safe), cg_x, cg_y
 
 
+def group_velocity_from_state(state):
+    """(cg_x, cg_y) of a node state ``[..., 3]`` = (e, m_x, m_y)."""
+    _, cg_x, cg_y = node_to_particle(state[..., 0], state[..., 1],
+                                     state[..., 2])
+    return cg_x, cg_y
+
+
 def particle_to_node_1d(lne, cg_x):
     """1D (E, m_x) from (lne, cg_x): m_x = E / (2 cg_x)."""
     e = torch.exp(lne)

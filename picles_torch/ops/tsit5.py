@@ -105,6 +105,14 @@ def _rms(x):
     return torch.sqrt(s / x.shape[-1])
 
 
+def _error_norm(err, z0, z1, abstol, reltol):
+    """The scaled RMS norm of an error estimate over the last axis, as
+    the JAX package writes it (``torch.mean``; the integrator's loop sums
+    in order, ``_rms``)."""
+    sc = abstol + reltol * torch.maximum(torch.abs(z0), torch.abs(z1))
+    return torch.sqrt(torch.mean((err / sc) ** 2, dim=-1))
+
+
 def rk_step(method: RKMethod, rhs: Callable, t, z, dt, aux, k1=None):
     """One embedded-RK step for all lanes: (z_new, error_estimate, k_fsal)."""
     dt_ = dt[..., None]
@@ -127,6 +135,11 @@ def rk_step(method: RKMethod, rhs: Callable, t, z, dt, aux, k1=None):
         if bti != 0.0:
             err = err + bti * ki
     return z_new, dt_ * err, ks[-1]
+
+
+def tsit5_step(rhs: Callable, t, z, dt, aux, k1=None):
+    """One Tsit5 step (``rk_step`` with the Tsit5 tableau)."""
+    return rk_step(TSIT5, rhs, t, z, dt, aux, k1=k1)
 
 
 def auto_dt(rhs: Callable, t, z, aux, *, abstol: float = 1e-4,

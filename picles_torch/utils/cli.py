@@ -1,9 +1,12 @@
-"""Command-line flags (PyTorch port of ``picles_tpu/utils/cli.py``
-``arg_settings``)."""
+"""Command-line flags and the standard initialization (PyTorch port of
+``picles_tpu/utils/cli.py``)."""
 
 from __future__ import annotations
 
 import argparse
+
+from ..core import fetch_relations as FR
+from ..core.constants import IDConstants, ODEParameters, ScgConstants
 
 
 def arg_settings() -> argparse.ArgumentParser:
@@ -25,3 +28,26 @@ def arg_settings() -> argparse.ArgumentParser:
                    help="periodic boundary condition")
     p.add_argument("--parset", type=str, help="set/group of experiments")
     return p
+
+
+def init_standard(uscale: float, vscale: float, DT: float,
+                  r_g0: float = 0.85, *, device="cuda"):
+    """The standard initialization: returns (the particle defaults of the
+    windsea, the ODE parameters, the windsea as float32 0-dim tensors on
+    ``device``, the ID constants).
+
+    As in the JAX package (and the Julia source it follows), the windsea
+    is that of a DT/2 duration, and the parameters set ``C_varphi`` to
+    the constants' ``c_beta`` (sic), so that the two packages agree."""
+    from ..models.wave_growth_2d import ParticleDefaults2D
+
+    const_id = IDConstants.create(r_g=r_g0)
+    const_scg = ScgConstants()
+    pars = ODEParameters(r_g=r_g0, C_alpha=const_scg.C_alpha,
+                         C_varphi=const_id.c_beta, C_e=const_id.C_e, g=9.81)
+    windsea_min = FR.get_initial_windsea(FR._f32(uscale, device),
+                                         FR._f32(vscale, device), DT / 2)
+    particle_state = ParticleDefaults2D(float(windsea_min.lne),
+                                        float(windsea_min.cg_bar_x),
+                                        float(windsea_min.cg_bar_y), 0.0, 0.0)
+    return particle_state, pars, windsea_min, const_id

@@ -1442,3 +1442,122 @@ def test_time_dependent_callable_raises_on_the_kernel_modes(dev):
     assert m.winds.kernel is None and not m.graphed
     ms = m.step(m.init_state())
     assert bool(torch.isfinite(ms.state).all())
+
+
+def test_scatter_dense_cuda_is_pic_gather_bitwise(dev):
+    """``pic.scatter(mode="dense_cuda")`` (and JAX's name for it,
+    "dense_pallas") deposits through K2: bit for bit ``pic_gather`` on the
+    same inputs at 64^2 (halo 3, open and periodic axes), and within the
+    deposit's rtol 1e-5 of ``mode="dense"``; K2's counter ticks once a
+    call."""
+    from picles_torch.grids.base import Boundary, GridStats
+    from picles_torch.ops import pic
+    from picles_torch.ops.pic_cuda import pic_gather
+
+    n = 64
+    xr, yr, chans, act = _deposit_inputs(dev, n, n, 3, 31)
+    charge = torch.stack(chans, dim=-1)
+    for bx, by in ((Boundary.PERIODIC, Boundary.PERIODIC),
+                   (Boundary.NONPERIODIC, Boundary.PERIODIC)):
+        st = GridStats(nx=n, ny=n, bx=bx, by=by)
+        ref, rst = pic_gather(xr, yr, chans, act, st, 3)
+        for mode in ("dense_cuda", "dense_pallas"):
+            before = pic_gather.launches
+            S, sst = pic.scatter(xr, yr, charge, act, st, 3, mode=mode)
+            assert pic_gather.launches == before + 1
+            assert torch.equal(_bits(S), _bits(torch.stack(ref, dim=-1)))
+            assert int(sst.clamped) == int(rst.clamped)
+        P, _ = pic.scatter(xr, yr, charge, act, st, 3, mode="dense")
+        for c in range(3):   # the inputs hold an inf and a NaN
+            fin = P[..., c][P[..., c].isfinite()]
+            torch.testing.assert_close(S[..., c], P[..., c], rtol=1e-5,
+                                       atol=1e-6 * float(fin.abs().max()),
+                                       equal_nan=True)
+
+
+def test_scatter_dense_cuda_refuses_cpu_tensors():
+    """``scatter(mode="dense_cuda")`` launches K2 or raises: on CPU tensors
+    it raises, and never deposits with the plain version."""
+    from picles_torch.grids.base import Boundary, GridStats
+    from picles_torch.ops import pic
+
+    z = torch.zeros((8, 8))
+    st = GridStats(nx=8, ny=8, bx=Boundary.PERIODIC, by=Boundary.PERIODIC)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        pic.scatter(z, z, torch.zeros((8, 8, 3)),
+                    torch.ones((8, 8), dtype=torch.bool), st, 3,
+                    mode="dense_cuda")
+
+
+def test_record_trajectories_sub_dt_through_k1(dev):
+    """``record_trajectories`` on the graphed flagship at 64^2 in
+    fixed-substep mode with K = 4: each step's 4 sub-windows are 4 launches
+    of K1 (DT / 4 each), their states within rtol 1e-5 of the plain
+    ``integrate_to`` over the same windows (atol 5e-6, K1's fixed-substep
+    agreement; clocks at rtol 1e-6); the per-step history (the
+    graph's replays, each row a copy) bit for bit ``step_n``'s states."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              cartesian_box, constant_winds)
+    from picles_torch.core import fetch_relations as FR
+    from picles_torch.ops.advance_cuda import advance_cuda
+    from picles_torch.ops.tsit5 import integrate_to
+    from picles_torch.utils.particle_tools import (particle_z,
+                                                   record_trajectories)
+
+    n = 64
+    ws = FR.MinimalWindsea(10.0, 10.0, 600.0)
+    sett = ODESettings(log_energy_minimum=float(ws.lne), timestep=600.0,
+                       saving_step=150.0, dt=30.0, dtmin=1e-4,
+                       force_dtmin=True, adaptive=False, solver="bosh3")
+    cfg = WaveGrowth2DConfig(periodic_boundary=True, dt_reset_mode="carry",
+                             halo=((0, 3), (0, 3)), remesh_mode="fused")
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev)
+    model = WaveGrowth2D(grid, constant_winds(10.0, 10.0), sett, config=cfg)
+    assert model.graphed
+    ms = model.init_state()
+    ref, states = model.step_n(ms, 3)
+    before = advance_cuda.launches
+    final, h = record_trajectories(model, ms, 3)
+    assert advance_cuda.launches - before == 3 * 4   # the replays count 0
+    assert torch.equal(_bits(h["state"]), _bits(states))
+    _assert_bitwise(final.leaves(), ref.leaves())
+    assert h["z_fine"].shape == (12, n, n, 5)
+
+    # the first step's windows against the plain integrator
+    P = ms.particles
+    z, t, dt = particle_z(P), P.t, P.dt
+    active = P.on & model.active_mask
+    for k in range(4):
+        r = integrate_to(model.rhs, z, t, t + 150.0, dt, model.aux, active,
+                         model.solver)
+        z, t, dt = r.z, r.t, r.dt
+        torch.testing.assert_close(h["z_fine"][k], z, rtol=1e-5,
+                                   atol=5e-6)
+        torch.testing.assert_close(h["t_fine"][k], t, rtol=1e-6, atol=0)
+
+
+def test_step_timer_synchronizes_the_card(dev, monkeypatch):
+    """``StepTimer.measure(sync_on=...)`` waits for the card of a CUDA
+    tensor (``torch.cuda.synchronize`` on its device) before the clock
+    stops; a queued kernel is done when the block's time is taken."""
+    from picles_torch.utils.diagnostics import StepTimer
+
+    seen = []
+    orig = torch.cuda.synchronize
+
+    def spy(device=None):
+        seen.append(device)
+        return orig(device)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", spy)
+    x = torch.ones((2048, 2048), device=dev)
+    timer = StepTimer()
+    with timer.measure(sync_on=x):
+        torch.cuda._sleep(50_000_000)
+        y = x @ x
+    assert seen == [x.device]
+    done = torch.cuda.Event()
+    done.record()
+    assert done.query() and float(y[0, 0]) == 2048.0
+    assert timer.summary()["n"] == 1

@@ -251,7 +251,8 @@ def _jax_leaves(ms):
 
 def test_checkpoints_interchange_with_jax(tmp_path):
     """A JAX-written npz resumes in the port to the JAX resumed state, and a
-    port-written one loads in JAX leaf for leaf."""
+    port-written one loads in JAX leaf for leaf, as does a port-written
+    orbax directory (tests/test_torch_orbax.py holds both directions)."""
     jm = _jsim().model
     jstep = jax.jit(jm.step)
     jms = jstep(jstep(jm.init_state()))
@@ -273,8 +274,9 @@ def test_checkpoints_interchange_with_jax(tmp_path):
     again = tck.load_checkpoint(ppath, device="cpu")
     for a, b in zip(tms.leaves(), again.leaves()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tck.save_checkpoint(str(tmp_path / "o"), tms, backend="orbax")
+    opath = tck.save_checkpoint(str(tmp_path / "o"), tms, backend="orbax")
+    for a, b in zip(tms.leaves(), _jax_leaves(jck.load_checkpoint(opath))):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_load_checkpoint_asks_for_the_card_by_default(tmp_path, monkeypatch):
