@@ -17,11 +17,16 @@ just before and read just after:
    storeless day (145 steps) of the fused flagship, checkpointed at step 72
    and resumed bit for bit, and a stored day at 256^2;
 3. the "pallas" flagship through ``ShardedWaveGrowth2D`` on a (1, 1) mesh
-   over NCCL (K1, K4, the self-wrap fold, K5), and in the same process
-   group the global tripolar configuration (phase "sharded-tripolar":
-   1440 x 720, K1 with projection and wind planes, K4, the self-wrap and
-   seam folds, K5 or K3).  Then four ranks of this
-   script on the same card over gloo (a 2 x 2 mesh) hold the collective
+   over NCCL (K1, K4, the self-wrap fold, K5, the counters' all-reduces),
+   whose drivers and ``Simulation.run`` replay a CUDA graph of the sharded
+   step, bit for bit its eager steps, timed in turns with the eager
+   sharded step and the graphed single-device step; in the same process
+   group, graphed alike, the layered step, the global tripolar
+   configuration (phase "sharded-tripolar": 1440 x 720, K1 with
+   projection and wind planes, K4, the self-wrap and seam folds, K5 or K3)
+   and the global jet.  Then four ranks of this
+   script on the same card over gloo (a 2 x 2 mesh; eager, staged through
+   host memory) hold the collective
    deposit against the global K2 deposit, the sharded step against the
    single-device one, a sharded ``Simulation.run`` with a store and a
    checkpoint resume, and the tripolar configuration at 360 x 180 with the
@@ -77,11 +82,16 @@ just before and read just after:
    the kernels' timing holds and times them at full width against their
    ten single launches.
 
-9. the 1D growth model (phase "1d"; no kernel in either package, plain
-   PyTorch on the card): two model days of the B01 configurations through
-   ``Simulation.run`` (onto the Dulov curve, the collapse across wind
-   speeds), a checkpoint resumed bit for bit, the card against the CPU,
-   and the deterministic sign-merge deposit on 2^20 lanes.
+9. the 1D growth model (phase "1d"): kernel K7, the 1D advance (the
+   port's own kernel; the JAX package runs the loop as a lax.while_loop),
+   held against its plain version on B01's state and a 2^20-lane probe
+   (node and gridded winds, bosh3 and tsit5, fixed substeps and adaptive),
+   timed beside its bound; two model days of the B01 configurations
+   through ``Simulation.run``, graphed (onto the Dulov curve, the collapse
+   across wind speeds), the eager K7 day bit for bit the graphed one, the
+   graphed day against the plain eager day in turns, a checkpoint resumed
+   bit for bit, the card against the CPU, and the deterministic sign-merge
+   deposit on 2^20 lanes.
 
 10. a wind given as a steady callable (the node kind of K1, K3, K5 and
     K6: its two node planes): phase "node-winds" holds
@@ -113,7 +123,7 @@ just before and read just after:
     ``Simulation.run`` on K1, K2 and K3, counted by trace) with its
     assertions, against the CPU at one resolution.
 
-``Simulation.run`` replays the graph too, so paths 2, 4, 5 and 7 run
+``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7 and 9 run
 through it.  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
 with the counters, and each graphed run counts its launches by name in a
@@ -132,9 +142,10 @@ these phases use, and timed in turns with them (baseline, new, new,
 baseline).  A kernel's time is its own device time from a
 ``torch.profiler`` trace (``kernel_ms``), without the wrapper's other device
 work; each kernel's bound is computed from this run's inputs (``bound``).
-``--profile`` adds a trace of the step's time at full size for each
+``--profile`` traces the step's time at full size for each
 configuration, eager and graphed (step times, host enqueue time, device
-busy time and idle share, device time by kernel).  ``--probe JSON`` runs only the measurements
+busy time and idle share, device time by kernel), in a process of its own
+after the build: late in a process a trace can miss launches.  ``--probe JSON`` runs only the measurements
 behind the kernels' design (ptxas, SASS counts, substep sweeps, K1's lane
 divergence, K3 in turns with its baseline).
 
@@ -178,12 +189,14 @@ from picles_torch.models import wave_growth_2d as W2D
 from picles_torch.models.drivers import WARMUP_STEPS
 from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
-from picles_torch.forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
+from picles_torch.forcing.winds import (GriddedWinds1D, GriddedWinds2D,
+                                        WindKind, Winds1D, Winds2D,
                                         gridded_kernel, node_plane_winds,
                                         pwl_winds)
 from picles_torch.grids.mask import make_boundaries
-from picles_torch.ops.advance_cuda import (advance_cuda, auto_dt_cuda,
-                                           auto_dt_reset, kernel_wind,
+from picles_torch.ops.advance_cuda import (advance_1d, advance_cuda,
+                                           auto_dt_cuda, auto_dt_reset,
+                                           kernel_wind,
                                            node_projection,
                                            uniform_projection)
 from picles_torch.ops.pic import (normalize_halo, scatter_1d_add,
@@ -193,7 +206,8 @@ from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
                                        pic_gather_remesh)
 from picles_torch.ops.remesh import remesh_core
 from picles_torch.ops.remesh_cuda import remesh_cuda
-from picles_torch.ops.rhs import RHSParams, make_rhs, make_rhs_consts
+from picles_torch.ops.rhs import (RHSParams, make_rhs, make_rhs_consts,
+                                  particle_equations_1d)
 from picles_torch.ops.tsit5 import METHODS, SolverConfig, integrate_to
 from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
                                            init_distributed, make_mesh)
@@ -315,7 +329,8 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K4 simple": "pic_gather_padded_simple_kernel(",
                "K5": "remesh_kernel(",
                "K6": "pic_gather_remesh_tiled_kernel<",
-               "K6 simple": "pic_gather_remesh_simple_kernel("}
+               "K6 simple": "pic_gather_remesh_simple_kernel(",
+               "K7": "advance_1d_kernel<"}
 
 
 # kernel id -> [launches a trace held, launches timed] of each timing whose
@@ -403,18 +418,21 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if tb >= to else "operations")
 
 
-def k1_substep_ops(method: str, adaptive: bool) -> int:
-    """Float operations of one K1 substep outside the RHS: the stage and
-    solution sums (dt*a once, then a product and a sum per component), the
-    stage times, and for the adaptive controller the error sums, the scaled
-    norm (8 operations a component), the square root and the step-size
-    update (with powf)."""
+def k1_substep_ops(method: str, adaptive: bool, comps: int = 5) -> int:
+    """Float operations of one substep of the embedded-RK loop outside the
+    RHS (K1: 5 components, K7: 3): the stage and solution sums (dt*a once,
+    then a product and a sum per component), the stage times, and for the
+    adaptive controller the error sums (a product and a sum per component),
+    dt times the error, the scaled norm (8 operations a component), the
+    square root and the step-size update (with powf)."""
     m = METHODS[method]
     nz_a = sum(1 for row in m.a for x in row if x != 0.0)
     nz_b = sum(1 for x in m.b if x != 0.0)
-    ops = 11 * nz_a + 2 * len(m.c) + 11 * nz_b + 13
+    per = 1 + 2 * comps
+    ops = per * nz_a + 2 * len(m.c) + per * nz_b + 13
     if adaptive:
-        ops += 10 * sum(1 for x in m.bt if x != 0.0) + 5 + 40 + 2 + 15
+        ops += (2 * comps * sum(1 for x in m.bt if x != 0.0) + comps
+                + 8 * comps + 2 + 15)
     return ops
 
 
@@ -443,6 +461,31 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
         + it * k1_substep_ops(method, adaptive)
     node = 4.0 * (n_wf == 0) + 4.0 * n_wf + 20.0 * proj
     return bound((62.0 + node / layers) * n, ops)
+
+
+# float operations of one 1D RHS evaluation (rhs.cuh rhs_1d, every term
+# on): 8 divisions, 5 transcendentals (tanhf, 3 expf, powf), about 46
+# products, sums, selects and clamps; and of one read of a 1D wind record
+# (rhs.cuh gridded_u_1d: both axes folded, the index pairs and weights,
+# four weighted samples summed)
+RHS1D_OPS = 59
+WIND1D_OPS = 27
+
+
+def k7_bound(n: int, method: str, adaptive: bool, live, iters,
+             record_bytes: int = 0) -> dict:
+    """K7's bound on this run's inputs: 25 bytes in (z, t, dt, active, and
+    the node's wind plane or its x) and 25 out a particle, a record's
+    bytes once; per live particle one RHS evaluation to start, then per
+    substep tried (accepted or rejected) S evaluations (each with a read of
+    the record where the wind is one) and the substep's own operations
+    over 3 components."""
+    S = len(METHODS[method].b)
+    it = float(iters[live].double().sum())
+    rhs = RHS1D_OPS + (WIND1D_OPS if record_bytes else 0)
+    ops = (float(live.sum()) + S * it) * rhs \
+        + it * k1_substep_ops(method, adaptive, comps=3)
+    return bound(50.0 * n + record_bytes, ops)
 
 
 def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
@@ -873,7 +916,7 @@ def check_k2(tag, xr, yr, chans, act, stats, halo) -> float:
 
 KERNEL_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
               "K4": pic_gather_padded, "K5": remesh_cuda,
-              "K6": pic_gather_remesh}
+              "K6": pic_gather_remesh, "K7": advance_1d}
 
 
 def counters():
@@ -1698,7 +1741,7 @@ def phase_remesh_backends(dev, results, timing):
     per = WARMUP_STEPS + 1
     c = counters()
     assert c == {"K1": 3 * per, "K2": 2 * per, "K3": 0, "K4": 0, "K5": per,
-                 "K6": per}, c
+                 "K6": per, "K7": 0}, c
     log("counters", f"remesh backends through Simulation.run: the host's "
                     f"calls {c} (warm-up and capture, once a model)")
     kernels = {"xla": ("K1", "K2"), "pallas": ("K1", "K2", "K5"),
@@ -1711,7 +1754,7 @@ def phase_remesh_backends(dev, results, timing):
         reset_counters()
         ms = eager_steps(sim.model, sim.state, 3)
         c = counters()
-        assert c == dict(want, K4=0), (rm, c)
+        assert c == dict(want, K4=0, K7=0), (rm, c)
         assert_state_bitwise(f"flagship {rm}, 3 eager steps against 3 "
                              f"replays of Simulation.run", ms, traced.state)
         if rm == "pallas":
@@ -2007,59 +2050,136 @@ def assert_states(tag: str, got, want, rtol: float = 2e-3) -> float:
     return err
 
 
+SHARDED_GRAPH_STEPS = 5   # steps a graphed sharded step is held bit for bit
+SHARDED_TURNS = (8, 10)   # in-turns timing: 8 turns of 10 steps each way
+
+
+def sharded_graph_check(tag: str, sh, ms, rows: dict, results) -> dict:
+    """The sharded step ``sh`` (over NCCL, graphed) from ``ms``:
+    ``step_n_quiet``, ``step_n``'s rows and ``step_jit`` twice bit for bit
+    its eager steps over SHARDED_GRAPH_STEPS steps (the eager steps, the
+    warm-up and the capture counted by the launch counters, set to 0 just
+    before and read just after: each kernel of ``rows`` SHARDED_GRAPH_STEPS
+    + WARMUP_STEPS + 1 times), then the same steps through
+    ``Simulation.run`` under a trace (``traced_run``: the capture exists,
+    so the host calls no kernel), bit for bit too, with each kernel of
+    ``rows`` (kernels line row -> kernel id) counted by name into its row's
+    ``graph_launches`` and ``launches``.  Returns the counters, the
+    trace's counts and its stats."""
+    n = SHARDED_GRAPH_STEPS
+    assert sh.graphed, tag
+    reset_counters()
+    eager = [ms]
+    for _ in range(n):
+        eager.append(sh.step(eager[-1]))
+    assert_state_bitwise(f"{tag}: step_n_quiet({n}) graphed",
+                         sh.step_n_quiet(ms, n), eager[-1])
+    fin, stack = sh.step_n(ms, n)
+    assert_state_bitwise(f"{tag}: step_n graphed", fin, eager[-1])
+    assert_bitwise(f"{tag}: step_n's stack", stack,
+                   [e.state for e in eager[1:]])
+    f = sh.step_jit()
+    assert_state_bitwise(f"{tag}: step_jit twice", f(f(ms)), eager[2])
+    c = counters()
+    for row, k in rows.items():
+        assert c[k] == n + WARMUP_STEPS + 1, (tag, c)
+        results[row]["launches"] += c[k]
+    DTm = float(sh.settings.timestep)
+    it0 = int(ms.iteration)
+    sim, got, stats = traced_run(sh, (it0 + n - 1) * DTm,
+                                 {k: n for k in set(rows.values())}, state=ms)
+    assert_state_bitwise(f"{tag}: Simulation.run graphed", sim.state,
+                         eager[-1])
+    for row, k in rows.items():
+        results[row]["graph_launches"] = \
+            results[row].get("graph_launches", 0) + got[k]
+        results[row]["launches"] += got[k]
+    log("sharded-graph", f"{tag}: graphed replays bit for bit {n} eager "
+                         f"steps (step_n_quiet, step_n rows, step_jit, "
+                         f"Simulation.run); launches by trace {got}; replay "
+                         f"trace: idle share {stats['idle_share']:.4f}, "
+                         f"{stats['device_ops_per_step']:.1f} device ops a "
+                         f"step; the host's calls {c}")
+    return dict(launches=c, launches_by_trace=got, trace=stats)
+
+
 def phase_sharded_1x1(dev, gw, results, timing):
     """This slice's main path: the flagship at FLAG_N^2 through
     ShardedWaveGrowth2D on a (1, 1) mesh, NCCL at world size 1, with the
-    K5 remesh (K1 -> K4 -> self-wrap fold -> K5), counters reset just
-    before and read just after.  3 steps against the single-device step
-    (K2 in place of K4 and the fold), then 20 steps; then, out of the
-    counted run, both steps in turns, 10 steps at a time, 8 times each
-    (the step is host-bound, so one run of each is noise)."""
+    K5 remesh (K1 -> K4 -> self-wrap fold -> K5, the counters' two
+    all-reduces), graphed.  3 eager steps, the counters reset just before
+    and read just after, against the single-device step (K2 in place of K4
+    and the fold); the graphed step bit for bit its eager steps
+    (``sharded_graph_check``: the drivers and ``Simulation.run``, counted
+    by trace), then 20 steps through ``Simulation.run`` (graphed, traced);
+    then, out of the counted runs, the graphed sharded step, the eager
+    sharded step and the graphed single-device step in turns, 10 steps at
+    a time, 8 times each (CUDA events)."""
     n = FLAG_N
     model = flagship_model(n, dev, remesh_mode="pallas")
     ref = model.step_n_quiet(model.init_state(), 3)
     init_distributed(0, 1, "nccl", free_port())
     try:
         sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
-        assert model.graphed and not sh.graphed   # the sharded step is eager
-        log("sharded-1x1", f"transport: {sh.transport}")
+        assert model.graphed and sh.graphed   # both replay a CUDA graph
+        log("sharded-1x1", f"transport: {sh.transport}; graphed")
         reset_counters()
-        ms = sh.step_n_quiet(sh.init_state(), 3)
+        ms = eager_steps(sh, sh.init_state(), 3)
         err = assert_states("sharded 1x1 vs single device, 3 steps", ms, ref)
-        ms = sh.step_n_quiet(ms, 20)
-        m = check_state("sharded 1x1", ms, n_failed=0, n_clamped=0)
         c = counters()
-        assert c["K1"] == c["K4"] == c["K5"] == 23, c
+        assert c["K1"] == c["K4"] == c["K5"] == 3, c
         assert c["K2"] == 0 and c["K6"] == 0, c
-        runs = {"sharded": [], "single": []}
-        for rep in range(8):
-            for who in (("sharded", "single") if rep % 2 == 0 else
-                        ("single", "sharded")):
-                if who == "single":
-                    ref, t = time_steps(model, ref, 10, eager=True)
-                else:
-                    ms, t = time_steps(sh, ms, 10)
-                runs[who].append(t)
-        del ms, ref
         results["K4"]["launches"] = c["K4"]
+        rows = {"K1": "K1", "K4": "K4", "K5": "K5"}
+        graph = sharded_graph_check("sharded 1x1 pallas", sh, ms, rows,
+                                    results)
+        sim, got, _ = traced_run(sh, (3 + 20 - 1) * DT,
+                                 {"K1": 20, "K4": 20, "K5": 20}, state=ms)
+        ms = sim.state
+        m = check_state("sharded 1x1", ms, n_failed=0, n_clamped=0)
+        for k in rows:
+            results[k]["graph_launches"] = \
+                results[k].get("graph_launches", 0) + got[k]
+            results[k]["launches"] += got[k]
+        runs = {"sharded graphed": [], "sharded eager": [],
+                "single graphed": []}
+        order = list(runs)
+        for rep in range(SHARDED_TURNS[0]):
+            for who in order[rep % 3:] + order[:rep % 3]:
+                if who == "single graphed":
+                    ref, t = time_steps(model, ref, SHARDED_TURNS[1])
+                else:
+                    ms, t = time_steps(sh, ms, SHARDED_TURNS[1],
+                                       eager=who == "sharded eager")
+                runs[who].append(t)
+        sh.release_graph()
+        model.release_graph()
+        del ms, ref, sim
+        torch.cuda.empty_cache()
         phase_sharded_layers(dev, gw, results, timing)
         phase_sharded_tripolar(dev, results, timing)
         phase_sharded_jet(dev, results, timing)
     finally:
         dist.destroy_process_group()
-    ms_step, single = (float(np.median(runs[k])) for k in ("sharded", "single"))
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    ms_step = med["sharded graphed"]
     timing["sharded_1x1_ms_per_step"] = ms_step
     timing["sharded_1x1_pushes_per_s"] = n * n / (ms_step / 1e3)
-    timing["single_pallas_ms_per_step"] = single
+    timing["sharded_1x1_eager_ms_per_step"] = med["sharded eager"]
+    timing["single_pallas_graphed_ms_per_step"] = med["single graphed"]
     timing["sharded_1x1_turns"] = runs
+    timing["sharded_1x1_graph"] = graph
     log("sharded-1x1", f"3 steps vs single device: max abs err {err:.3e}, "
-                       f"counters equal; metrics {m}")
-    log("sharded-1x1", f"{n}^2: {ms_step:.3f} ms/step, "
-                       f"{n * n / (ms_step / 1e3):.4e} pushes/s; the "
-                       f"single-device pallas step (eager) in turns "
-                       f"{single:.3f} ms/step (medians of 8 x 10 steps each, "
-                       f"CUDA events)")
-    log("counters", f"sharded 1x1 path launches {c}")
+                       f"counters equal; 20 graphed steps through "
+                       f"Simulation.run, launches by trace {got}; metrics "
+                       f"{m}")
+    log("sharded-1x1", f"{n}^2: graphed {ms_step:.4f} ms/step "
+                       f"({n * n / (ms_step / 1e3):.4e} pushes/s), eager "
+                       f"{med['sharded eager']:.4f}, the single-device "
+                       f"pallas step graphed {med['single graphed']:.4f} "
+                       f"(medians of {SHARDED_TURNS[0]} x "
+                       f"{SHARDED_TURNS[1]} steps each in turns, CUDA "
+                       f"events)")
 
 
 SHARDED_RANKS = 4
@@ -2185,9 +2305,11 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
                                    f"{dep:.3f} ms, K4 alone (+ barrier) "
                                    f"{loc:.3f} ms per call (rank 0 wall)")
 
-    # (b) the sharded flagship step
+    # (b) the sharded flagship step (gloo stages through host memory: the
+    # drivers loop)
     model = flagship_model(n, dev, remesh_mode="pallas")
     sh = ShardedWaveGrowth2D(model, mesh)
+    assert model.graphed and not sh.graphed, "a gloo sharded step graphed"
     ms = sh.step_n_quiet(sh.init_state(), 3)
     whole = sh.gather_state(ms)
     if root:
@@ -2401,8 +2523,8 @@ def phase_profile(path: str, gw) -> None:
     kernel remesh backend, the gridded production configuration (record
     ``gw``), the tripolar production configuration (1440 x 720), both
     configurations with the plain versions on the card, and the pallas
-    flagship through ShardedWaveGrowth2D on a (1, 1) NCCL mesh.  Each
-    capture is freed before the next configuration."""
+    flagship through ShardedWaveGrowth2D on a (1, 1) NCCL mesh, eager and
+    graphed.  Each capture is freed before the next configuration."""
     n = FLAG_N
     configs = {
         "flagship": lambda: flagship_model(n, "cuda"),
@@ -2432,15 +2554,37 @@ def phase_profile(path: str, gw) -> None:
         torch.cuda.empty_cache()
     init_distributed(0, 1, "nccl", free_port())
     try:
+        sh = ShardedWaveGrowth2D(
+            flagship_model(n, "cuda", remesh_mode="pallas"),
+            make_mesh((1, 1)))
+        assert sh.graphed
         res["sharded_1x1_pallas"] = profile_config(
-            "sharded 1x1 pallas", ShardedWaveGrowth2D(
-                flagship_model(n, "cuda", remesh_mode="pallas"),
-                make_mesh((1, 1))), 7, eager=True)
+            "sharded 1x1 pallas", sh, 7, eager=True)
+        res["sharded_1x1_pallas_graphed"] = profile_config(
+            "sharded 1x1 pallas graphed", sh, 7, eager=False)
+        sh.release_graph()
+        del sh
     finally:
         dist.destroy_process_group()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(res, f, indent=1)
+
+
+def phase_profile_process(path: str) -> None:
+    """``phase_profile`` in a process of its own (the script with
+    ``--profile-child``), started after the build and waited for: a
+    process that has run NCCL and a few dozen profiler sessions can miss
+    launches in a trace (one of 5 K1 launches in every step trace after
+    the graphs and layers phases; every K1 launch of a later kernel trace
+    after the profile), so the profile and the other phases' traces never
+    share a process.  Raises if the process fails."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    code = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--profile-child", path]).returncode
+    if code != 0:
+        raise RuntimeError(f"the profile process exited with {code}")
 
 
 def sass_loop_count(sass: str, fn_substr: str) -> dict:
@@ -4692,7 +4836,11 @@ def phase_sharded_layers(dev, gw, results, timing) -> None:
                             ref)
         same = all(torch.equal(bits(a), bits(b)) for a, b in
                    zip(ms.leaves(), ref.leaves()))
-        out[tag] = dict(max_abs_err=err, bitwise=same,
+        graph = sharded_graph_check(
+            f"sharded {L} layers, {tag}", sh, ms,
+            {f"{k} layered": k for k in ("K1", "K4", "K5")}, results)
+        sh.release_graph()
+        out[tag] = dict(max_abs_err=err, bitwise=same, graph=graph,
                         n_clamped=ms.metrics.n_clamped.tolist())
         log("sharded-1x1", f"{L} layers at {n}^2, {tag}: launches {c} (once "
                            f"a step); each layer bit for bit its single-layer "
@@ -4745,7 +4893,7 @@ def phase_sharded_layers(dev, gw, results, timing) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the 1D growth model (no kernel: plain PyTorch on the card)
+# the 1D growth model: kernel K7 and the graphed step
 # ---------------------------------------------------------------------------
 
 # the B01 regression configurations (tests/test_model_1d_b01.py, after the
@@ -4854,24 +5002,283 @@ def deposit_1d_check(dev, periodic: bool) -> dict:
         lambda: scatter_1d_merge(X, C, A, 0.0, dx, nx, periodic), 10))
 
 
-def phase_1d(dev, timing) -> None:
-    """Phase "1d": the 1D growth model on the card (plain PyTorch; the
-    model has no kernel in either package), the counters set to 0 just
-    before and read just after (all 0).  Two model days (288 steps) of each
-    B01 configuration through ``Simulation.run`` with a CashStore: the
-    centre node onto the Dulov curve (ratios falling at 4, 8, 12 h, the
-    last within 0.7-1.6) and E g^2/U^4 at g t/U = 30000 collapsing within
-    25% across 5, 10 and 20 m/s, as tests/test_model_1d_b01.py asserts;
-    a checkpoint at step 144 resumed bit for bit to the day's end; the card
-    against the CPU on the B01 grid at abstol 1e-7 / reltol 1e-6 over 12
-    steps within 1e-4 of the state's scale, the counters equal (the most
+K7_PROBE_LANES = 2 ** 20
+# B01 on 2^16 nodes after 12 steps: the fixed-substep check at size, and
+# tsit5's witness (``k7_witness``)
+K7_WIDE_NODES = 2 ** 16
+# fixed substeps: 30 a model step (at 37.5 s an ulp grew to 4e-4 on B01's
+# youngest lane under a record's wind, on the card and in a host build
+# against the CPU)
+K7_FIXED_DT = 20.0
+K7_SHARE = 0.99          # adaptive: lanes within rtol 5e-3
+K7_ABS = 5e-6            # fixed substeps: lne and cg_x
+K7_X_RTOL = 1e-6         # fixed substeps: x, absolute in meters
+K7_TRACED_STEPS = 12
+B01_TURNS = 2            # plain, graphed, graphed, plain
+
+
+def k7_record(dev, L: float = 500e3) -> GriddedWinds1D:
+    """A 1D record over [0, L] and 15 h that varies in x and t (23 nodes,
+    30 half-hourly frames), for K7's gridded kind."""
+    rng = np.random.default_rng(9)
+    return GriddedWinds1D(u_data=torch.as_tensor(
+        rng.uniform(6.0, 12.0, (23, 30)).astype(np.float32), device=dev),
+        x0=-10e3, dx=L / 20.0, t0=0.0, dt=1800.0)
+
+
+def k7_wind(x: torch.Tensor) -> torch.Tensor:
+    """The probe's steady wind along x: 10 +- 4 m/s over a 200 km wave."""
+    return (10.0 + 4.0 * torch.sin(x * (2.0 * np.pi / 200e3))).to(
+        torch.float32)
+
+
+def k7_probe(dev, n: int = K7_PROBE_LANES, L: float = 500e3):
+    """K7's probe of ``n`` lanes over [0, L] (x sorted, uniform): each lane
+    the windsea of its local wind (``k7_wind``) perturbed in lne (sigma
+    0.05) and cg_x (+-5%), at t = 0, 1 h or 1 day, dt over [1e-3, 300] s,
+    90% active.  Its winds: the node plane (``k7_wind`` at the lanes), and
+    a record of the same wind on 23 nodes every 25 km, with a 0.5 m/s tide
+    over 6 h in 60 half-hourly frames.  Returns (z, t, dt, active, x,
+    plane, record)."""
+    rng = np.random.default_rng(31)
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    x = f(np.sort(rng.uniform(0.0, L, n)))
+    plane = k7_wind(x).contiguous()
+    ws = FR.get_initial_windsea_1d(plane, DT)
+    z = torch.stack([ws.lne + f(rng.normal(0.0, 0.05, n)),
+                     ws.cg_bar_x * f(rng.uniform(0.95, 1.05, n)), x],
+                    dim=-1).contiguous()
+    t = f(rng.choice([0.0, 3600.0, 86400.0], n))
+    dt = f(rng.uniform(1e-3, 300.0, n))
+    act = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+    xr = f(np.arange(23) * (L / 20.0) - 10e3)
+    tide = 0.5 * np.sin(2.0 * np.pi * np.arange(60) * 1800.0 / 21600.0)
+    rec = GriddedWinds1D(u_data=(k7_wind(xr)[:, None] + f(tide)[None, :])
+                         .contiguous(), x0=-10e3, dx=L / 20.0, t0=0.0,
+                         dt=1800.0)
+    return z, t, dt, act, x, plane, rec
+
+
+def k7_case(tag: str, model, wind, winds, method: str, adaptive: bool, z, t,
+            dt, act, x) -> dict:
+    """K7 (``advance_1d``) against its plain version (``integrate_to`` over
+    ``particle_equations_1d`` of the callable ``winds``) on the card, on
+    the same inputs: fixed substeps of K7_FIXED_DT s with lne and cg_x
+    within K7_ABS abs, x within K7_X_RTOL, t, dt, failed and naccept equal;
+    adaptive by share of lanes (``assert_adaptive``, ``assert_controller``),
+    failed and the end time equal.  The launch is not counted."""
+    cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                       force_dtmin=True)
+    if not adaptive:
+        dt = torch.full_like(dt, K7_FIXED_DT)
+    launches = advance_1d.launches
+    k = advance_1d(wind, model.consts, TermFlags(), cfg, DT, z, t, dt, act,
+                   x)
+    advance_1d.launches = launches
+    rhs = particle_equations_1d(winds.u, gamma=model.constants.gamma,
+                                params=model.params, constants=model.constants)
+    p = integrate_to(rhs, z, t, t + DT, dt, x, act, cfg)
+    torch.cuda.synchronize()
+    if adaptive:
+        assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
+        errs = [assert_adaptive(f"{tag} {nm}", k.z[:, c], p.z[:, c])
+                for c, nm in enumerate(("lne", "cg_x", "x"))]
+        assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
+        extra = (assert_controller(tag, k, p, act) if z.shape[0] >= 4096
+                 else f"naccept equal on {int((k.naccept == p.naccept).sum())}"
+                      f" of {z.shape[0]} lanes")
+        err = max(errs[:2])
+    else:
+        err = max(assert_close(f"{tag} {nm}", k.z[:, c], p.z[:, c], 0.0,
+                               K7_ABS) for c, nm in ((0, "lne"), (1, "cg_x")))
+        xe = assert_close(f"{tag} x", k.z[:, 2], p.z[:, 2], K7_X_RTOL, 0.0)
+        for nm in ("t", "dt", "failed", "naccept"):
+            assert torch.equal(getattr(k, nm), getattr(p, nm)), \
+                f"{tag}: {nm} differs"
+        extra = f"x max abs err {xe:.3e} m"
+    log("K7", f"{tag}: max abs err (lne, cg_x) {err:.3e}, substeps max "
+              f"{int(k.naccept.max())}/{int(p.naccept.max())}, failed "
+              f"{int(k.failed.sum())}; {extra}")
+    return dict(err=err, k=k, p=p, cfg=cfg, rhs=rhs, dt=dt)
+
+
+def k7_witness(model, rec, z, t, dt, act, x) -> dict:
+    """tsit5 under the record ``rec`` on B01's state at K7_WIDE_NODES nodes,
+    where the float32 problem itself parts lanes: fresh seas reseeded for
+    B01's 10 m/s under a record that blows harder there.  Fixed substeps of
+    K7_FIXED_DT s and adaptive: K7 against its plain version; the plain
+    version against itself with z one ulp up (``torch.nextafter``); both
+    against the plain version in float64.  With fixed substeps K7 must be
+    no farther from the float64 run than twice the float32 plain version,
+    plus K7_ABS (a wrong read of the record parts every lane from it);
+    the rest is logged.  Launches are not counted."""
+    rhs = particle_equations_1d(rec.u, gamma=model.constants.gamma,
+                                params=model.params, constants=model.constants)
+    z_up = torch.nextafter(z, torch.full_like(z, float("inf")))
+
+    def lane_err(a, b):
+        return (a.z[:, :2].double() - b.z[:, :2].double()).abs().amax(-1)
+
+    def share(a, b):
+        return float(torch.isclose(a.z[:, :2].double(), b.z[:, :2].double(),
+                                   rtol=5e-3, atol=1e-4).all(-1).double()
+                     .mean())
+
+    out = {}
+    for adaptive in (False, True):
+        cfg = SolverConfig(method="tsit5", adaptive=adaptive, dtmin=1e-4,
+                           force_dtmin=True)
+        d = dt if adaptive else torch.full_like(dt, K7_FIXED_DT)
+        launches = advance_1d.launches
+        k = advance_1d(rec, model.consts, TermFlags(), cfg, DT, z, t, d, act,
+                       x)
+        advance_1d.launches = launches
+        p = integrate_to(rhs, z, t, t + DT, d, x, act, cfg)
+        pu = integrate_to(rhs, z_up, t, t + DT, d, x, act, cfg)
+        q = integrate_to(rhs, z.double(), t.double(), t.double() + DT,
+                         d.double(), x.double(), act, cfg)
+        e_kp, e_self = lane_err(k, p), lane_err(pu, p)
+        r = dict(k_plain_max=float(e_kp.max()),
+                 k_plain_lanes=int((e_kp > K7_ABS).sum()),
+                 self_max=float(e_self.max()),
+                 self_lanes=int((e_self > K7_ABS).sum()),
+                 k_f64_max=float(lane_err(k, q).max()),
+                 plain_f64_max=float(lane_err(p, q).max()),
+                 share_k_plain=share(k, p), share_self=share(pu, p),
+                 share_k_f64=share(k, q), share_plain_f64=share(p, q))
+        mode = "adaptive" if adaptive else "fixed"
+        log("K7", f"witness, B01 {z.shape[0]} lanes, tsit5 {mode}, record: "
+                  f"K7 vs plain max {r['k_plain_max']:.3e} "
+                  f"({r['k_plain_lanes']} lanes beyond {K7_ABS}, "
+                  f"{r['share_k_plain']:.4%} within rtol 5e-3); plain vs "
+                  f"plain with z one ulp up max {r['self_max']:.3e} "
+                  f"({r['self_lanes']} lanes, {r['share_self']:.4%}); from "
+                  f"float64: K7 {r['k_f64_max']:.3e} "
+                  f"({r['share_k_f64']:.4%}), plain {r['plain_f64_max']:.3e} "
+                  f"({r['share_plain_f64']:.4%})")
+        if not adaptive:
+            assert r["k_f64_max"] <= 2.0 * r["plain_f64_max"] + K7_ABS, r
+        out[mode] = r
+    return out
+
+
+def phase_k7(dev, model, state, results) -> dict:
+    """K7 against its plain version on the card, the node kind and the
+    gridded kind, bosh3 and tsit5 (``k7_case``): fixed substeps and
+    adaptive on the B01 model's state (``state``, 31 lanes; the record
+    ``k7_record``); adaptive on the 2^20-lane probe (``k7_probe``: its
+    young seas are stiff for any fixed substep that is not tiny).  On B01
+    at K7_WIDE_NODES nodes after 12 steps: bosh3 with fixed substeps, node
+    and gridded, within K7_ABS (the record's read is tsit5's too), and
+    tsit5's witness (``k7_witness``: there the plain version parts from
+    itself under a one-ulp change of its input as far as K7 parts from
+    it).  Then, on the probe with the node kind, adaptive tsit5 (B01's
+    solver), K7's device time (``kernel_ms``) beside its plain version's
+    (CUDA events) and its bound from this run's substeps (``k7_bound``)."""
+    P = state.particles
+    b01 = (P.z.contiguous(), P.t, P.dt, P.on & ~model.boundary_mask,
+           model.grid.x)
+    probe = k7_probe(dev)
+    out, worst = {}, 0.0
+    for sname, (z, t, dt, act, x), plane, rec, modes in (
+            ("B01", b01, model._node_plane, k7_record(dev), (False, True)),
+            ("probe", probe[:5], probe[5], probe[6], (True,))):
+        for kind in ("node", "gridded"):
+            wind = plane if kind == "node" else rec
+            winds = (Winds1D(u=lambda xx, tt, _p=plane: _p)
+                     if kind == "node" else rec.as_winds())
+            for method in ("bosh3", "tsit5"):
+                for adaptive in modes:
+                    tag = (f"K7 {sname} {kind} {method} "
+                           f"{'adaptive' if adaptive else 'fixed'}")
+                    r = k7_case(tag, model, wind, winds, method, adaptive, z,
+                                t, dt, act, x)
+                    if not adaptive:
+                        worst = max(worst, r["err"])
+                    out[tag] = r["err"]
+                    if tag == "K7 probe node tsit5 adaptive":
+                        timed = r
+    mw = b01_model(dev, nx=K7_WIDE_NODES)
+    pw = eager_steps(mw, mw.init_state(), 12).particles
+    wide = (pw.z.contiguous(), pw.t, pw.dt, pw.on & ~mw.boundary_mask,
+            mw.grid.x)
+    rec = k7_record(dev)
+    for kind in ("node", "gridded"):
+        wind = mw._node_plane if kind == "node" else rec
+        winds = (Winds1D(u=lambda xx, tt, _p=wind: _p) if kind == "node"
+                 else rec.as_winds())
+        tag = f"K7 B01x{K7_WIDE_NODES} {kind} bosh3 fixed"
+        r = k7_case(tag, mw, wind, winds, "bosh3", False, *wide)
+        worst = max(worst, r["err"])
+        out[tag] = r["err"]
+    witness = k7_witness(mw, rec, *wide)
+    del mw, pw, wide
+    z, t, dt, act, x, plane, rec = probe
+    r = timed
+    cfg, rhs = r["cfg"], r["rhs"]
+    launches = advance_1d.launches
+    ms_k = kernel_ms(lambda: advance_1d(plane, model.consts, TermFlags(), cfg,
+                                        DT, z, t, dt, act, x), "K7", 10)
+    advance_1d.launches = launches
+    plain = cuda_time_ms(lambda: integrate_to(rhs, z, t, t + DT, dt, x, act,
+                                              cfg), 3)
+    p = r["p"]
+    b = k7_bound(z.shape[0], "tsit5", True, act, p.naccept + p.nreject)
+    results["K7"].update(max_abs_err=worst, ms=ms_k, plain_ms=plain, **b)
+    gb = k7_bound(z.shape[0], "tsit5", True, act, p.naccept + p.nreject,
+                  record_bytes=rec.u_data.numel() * 4)
+    log("K7", f"probe {z.shape[0]} lanes, node kind, adaptive tsit5: "
+              f"{ms_k:.4f} ms (device, trace), plain {plain:.4f} ms (CUDA "
+              f"events), bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+              f"substeps a live lane mean "
+              f"{float(p.naccept[act].float().mean()):.2f}, max "
+              f"{int(p.naccept.max())}; the gridded kind's bound on these "
+              f"substeps {gb['bound_ms']:.4f} ms")
+    return dict(cases=out, witness=witness, probe_ms=ms_k,
+                probe_plain_ms=plain, bound=b, gridded_bound=gb)
+
+
+def b01_plain_model(dev, U10: float = 10.0) -> WaveGrowth1D:
+    """B01 (``b01_model``) with the plain advance asked for
+    (``advance_mode="torch"``): eager, on the card."""
+    m = b01_model(dev, U10)
+    return WaveGrowth1D(m.grid, m.winds, m.settings, config=m.config,
+                        advance_mode="torch")
+
+
+def phase_1d(dev, results, timing) -> None:
+    """Phase "1d": the 1D growth model on the card.  On B01 the advance is
+    kernel K7 and the drivers replay a CUDA graph of the step
+    (``model.graphed``).  K7 against its plain version (``phase_k7``).
+    The counters set to 0 just before and read just after the main path:
+    two model days (288 steps) of each B01 configuration through
+    ``Simulation.run`` with a CashStore (graphed: the host calls K7 in the
+    warm-up and the capture): the centre node onto the Dulov curve (ratios
+    falling at 4, 8, 12 h, the last within 0.7-1.6) and E g^2/U^4 at g t/U
+    = 30000 collapsing within 25% across 5, 10 and 20 m/s, as
+    tests/test_model_1d_b01.py asserts; the B01 day run again eagerly
+    (``model.step`` in a loop, K7 counted once a step), bit for bit the
+    graphed day, frames included; 12 more steps through ``Simulation.run``
+    under a trace (K7 by name).  Then the graphed day's wall time against
+    the plain eager day's (``advance_mode="torch"``: the plain
+    ``integrate_to``), in turns; a checkpoint at step 144 resumed bit
+    for bit to the day's end; the card (K7) against the CPU (the plain
+    advance) on the B01 grid at abstol 1e-7 / reltol 1e-6 over 12 steps
+    within 1e-4 of the state's scale, the counters equal (the most
     substeps of a lane within 2); the sign-merge deposit, deterministic,
     periodic and open (``deposit_1d_check``)."""
     out = {}
-    reset_counters()
     model = b01_model(dev)
-    assert not model.graphed
+    assert model.graphed and model.advance_mode == "cuda", \
+        (model.graphed, model.advance_mode)
+    out["k7"] = phase_k7(dev, model, eager_steps(model, model.init_state(),
+                                                 24), results)
+    reset_counters()
     sim, frames, wall = b01_day(model)
+    c_day = counters()
     ratios = [float(frames[k, 15, 0]) / dulov_energy(k * DT, 10.0)
               for k in (24, 48, 72)]
     assert all(r1 > r2 for r1, r2 in zip(ratios, ratios[1:])), ratios
@@ -4881,28 +5288,79 @@ def phase_1d(dev, timing) -> None:
     out.update(b01_ratios=ratios, b01_ratio_day2=day2, b01_wall_s=wall,
                b01_ms_per_step=wall * 1e3 / B01_STEPS, b01_metrics=m)
     log("1d", f"B01 31 nodes / 500 km, 10 m/s: {B01_STEPS} steps through "
-              f"Simulation.run (CashStore) in {wall:.3f} s wall "
+              f"Simulation.run (CashStore, graphed, K7) in {wall:.3f} s wall "
               f"({wall * 1e3 / B01_STEPS:.3f} ms/step); E / E_Dulov at 4, 8, "
               f"12 h {[round(r, 4) for r in ratios]}, at 48 h {day2:.4f}; "
-              f"metrics {m}")
+              f"metrics {m}; the host's calls {c_day}")
     etils, walls = [], []
     for U in (5.0, 10.0, 20.0):
         mu = b01_model(dev, U, nx=21, Lx=1000e3 * (U / 10.0) ** 2)
+        assert mu.graphed
         su, fu, w = b01_day(mu)
         n = int(round(30000.0 * U / G_ACC / DT))
         etils.append(float(fu[n, 10, 0]) * G_ACC ** 2 / U ** 4)
         walls.append(w)
         check_state(f"1d collapse {U}", su.state, n_failed=0)
+        mu.release_graph()
     etils = np.array(etils)
     spread = np.abs(etils / etils.mean() - 1.0)
     assert np.all(spread < 0.25), etils
     c = counters()
-    assert not any(c.values()), f"the 1D path launched a kernel: {c}"
+    per = WARMUP_STEPS + 1
+    assert c == dict({k: 0 for k in KERNEL_FNS}, K7=4 * per), c
     out.update(collapse_etilde=etils.tolist(), collapse_wall_s=walls)
     log("1d", f"collapse at g t/U = 30000 (5, 10, 20 m/s, 21 nodes, "
-              f"{B01_STEPS} steps each, {sum(walls):.3f} s wall): E g^2/U^4 "
-              f"{etils.tolist()}, spread {spread.max():.4f} of the mean; "
-              f"launches {c}")
+              f"{B01_STEPS} steps each, {sum(walls):.3f} s wall, graphed): "
+              f"E g^2/U^4 {etils.tolist()}, spread {spread.max():.4f} of the "
+              f"mean; the host's calls {c} (warm-up and capture, once a "
+              f"model)")
+
+    # the eager K7 day, bit for bit the graphed one, and a traced run
+    reset_counters()
+    es = model.init_state()
+    for k in range(B01_STEPS):
+        es = model.step(es)
+        assert torch.equal(bits(es.state),
+                           bits(torch.as_tensor(frames[k + 1], device=dev))), \
+            f"1d B01: the eager step {k + 1} differs from the graphed day"
+    c_eager = counters()
+    assert c_eager == dict({k: 0 for k in KERNEL_FNS}, K7=B01_STEPS), c_eager
+    assert_state_bitwise("1d B01: the eager K7 day against the graphed day",
+                         es, sim.state)
+    traced, got, stats = traced_run(
+        model, (B01_STEPS + K7_TRACED_STEPS - 1) * DT,
+        {"K7": K7_TRACED_STEPS}, state=sim.state)
+    results["K7"]["launches"] = c["K7"] + c_eager["K7"] + got["K7"]
+    results["K7"]["graph_launches"] = got["K7"]
+    out.update(eager_day_launches=c_eager, traced=stats)
+    log("1d", f"the eager K7 day: bit for bit the graphed day (every frame, "
+              f"the final state), launches {c_eager}; {K7_TRACED_STEPS} "
+              f"more steps of Simulation.run, launches by trace {got}, idle "
+              f"share {stats['idle_share']:.4f}, "
+              f"{stats['device_ops_per_step']:.1f} device ops a step")
+    del traced, es
+
+    # the graphed day against the plain eager day, in turns
+    plain = b01_plain_model(dev)
+    assert not plain.graphed and plain.advance_mode == "torch"
+    turns = {"plain eager": [], "graphed": []}
+    for rep in range(2 * B01_TURNS):
+        who = ("plain eager", "graphed", "graphed", "plain eager")[rep % 4]
+        s_, f_, w_ = b01_day(plain if who == "plain eager" else model)
+        turns[who].append(w_)
+        if who == "plain eager":
+            pr = [float(f_[k, 15, 0]) / dulov_energy(k * DT, 10.0)
+                  for k in (24, 48, 72)]
+            assert all(r1 > r2 for r1, r2 in zip(pr, pr[1:])), pr
+            assert 0.7 < pr[-1] < 1.6, pr
+            out["b01_plain_ratios"] = pr
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    out.update(b01_day_turns_s=turns, b01_day_median_s=med)
+    log("1d", f"the B01 day ({B01_STEPS} steps, Simulation.run, CashStore) "
+              f"in turns: graphed (K7) {turns['graphed']} s, plain eager "
+              f"{turns['plain eager']} s (medians {med['graphed']:.3f} / "
+              f"{med['plain eager']:.3f} s); the plain day's ratios "
+              f"{[round(r, 4) for r in out['b01_plain_ratios']]}")
 
     os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
     tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_ROOT)
@@ -4918,10 +5376,12 @@ def phase_1d(dev, timing) -> None:
                          sim.state)
     shutil.rmtree(tmp, ignore_errors=True)
     log("1d", f"checkpoint at step {B01_CHECKPOINT} resumed to step "
-              f"{B01_STEPS}: bit for bit the uninterrupted run")
+              f"{B01_STEPS} (graphed): bit for bit the uninterrupted run")
+    model.release_graph()
 
     mg = b01_model(dev, tols=CARD_VS_CPU_TOLS)
     mc = b01_model("cpu", tols=CARD_VS_CPU_TOLS)
+    assert mg.advance_mode == "cuda" and mc.advance_mode == "torch"
     sg, sc = mg.init_state(), mc.init_state()
     gap = 0.0
     for k in range(12):
@@ -4934,9 +5394,9 @@ def phase_1d(dev, timing) -> None:
         assert a == b and abs(smax[0] - smax[1]) <= 2, (k, a, b, smax)
     assert gap <= 1e-4, gap
     out["card_vs_cpu_gap"] = gap
-    log("1d", f"card vs CPU, B01 grid at abstol 1e-7 / reltol 1e-6, 12 "
-              f"steps: max gap {gap:.3e} of the state's scale, on and the "
-              f"counters equal")
+    log("1d", f"card (K7) vs CPU (plain), B01 grid at abstol 1e-7 / reltol "
+              f"1e-6, 12 steps: max gap {gap:.3e} of the state's scale, on "
+              f"and the counters equal")
 
     for periodic in (True, False):
         d = deposit_1d_check(dev, periodic)
@@ -4991,12 +5451,14 @@ def phase_sharded_tripolar(dev, results, timing) -> None:
     tolerances ``SHARDED_TRI_TOLS`` against the single-device step at
     ``assert_states``' rtol 2e-3, then 20 more steps (no failed lane, the
     land checks of ``check_tripolar``), K1 == K4 == K5 (or K3) == 23 and
-    no K2 or K6.  At the path's own tolerances with the plain deposit on
-    both sides (``scatter_mode="dense"``) 3 steps bit for bit the
-    single-device ones: the block planes (projection, winds, seam) are the
-    grid's, and only the sum order of K4 and the folds parts the kernel
-    runs.  Then both steps in turns, 8 times 10 steps each (CUDA
-    events), and K4 on the "pallas" path's deposit (``k4_tripolar``)."""
+    no K2 or K6; the graphed sharded step bit for bit its eager steps
+    (``sharded_graph_check``).  At the path's own tolerances with the
+    plain deposit on both sides (``scatter_mode="dense"``) 3 steps bit
+    for bit the single-device ones: the block planes (projection, winds,
+    seam) are the grid's, and only the sum order of K4 and the folds parts
+    the kernel runs.  Then the sharded step graphed and eager and the
+    single-device step graphed in turns, 8 times 10 steps each (CUDA events), and K4 on
+    the "pallas" path's deposit (``k4_tripolar``)."""
     grid = tripolar_grid(dev, *TRI_SUPER)
     gw = tripolar_record(dev)
     n = grid.nx * grid.ny
@@ -5032,31 +5494,42 @@ def phase_sharded_tripolar(dev, results, timing) -> None:
                              f"against the single-device step", a, b)
         del md, shd, a, b
 
-        runs = {"sharded": [], "single": []}
-        for rep in range(8):
-            for who in (("sharded", "single") if rep % 2 == 0 else
-                        ("single", "sharded")):
-                if who == "single":
-                    ref, t = time_steps(model, ref, 10, eager=True)
+        graph = sharded_graph_check(
+            f"sharded tripolar {path}", sh, ms,
+            {"K1 proj": "K1", "K4": "K4",
+             ("K3 proj" if kern == "K3" else "K5 gridded"): kern}, results)
+        runs = {"sharded graphed": [], "sharded eager": [],
+                "single graphed": []}
+        order = list(runs)
+        for rep in range(SHARDED_TURNS[0]):
+            for who in order[rep % 3:] + order[:rep % 3]:
+                if who == "single graphed":
+                    ref, t = time_steps(model, ref, SHARDED_TURNS[1])
                 else:
-                    ms, t = time_steps(sh, ms, 10)
+                    ms, t = time_steps(sh, ms, SHARDED_TURNS[1],
+                                       eager=who == "sharded eager")
                 runs[who].append(t)
-        ms_step, single = (float(np.median(runs[k]))
-                           for k in ("sharded", "single"))
+        med = {k: float(np.median(v)) for k, v in runs.items()}
+        ms_step, single = med["sharded graphed"], med["single graphed"]
         out[path] = dict(max_abs_err=err, launches=c, metrics=m,
                          ms_per_step=ms_step, single_ms_per_step=single,
+                         eager_ms_per_step=med["sharded eager"],
                          pushes_per_s=n / (ms_step / 1e3), turns=runs,
-                         plain_deposit_bitwise=True)
+                         graph=graph, plain_deposit_bitwise=True)
         if path == "pallas":
             out["K4 tripolar"] = k4_tripolar(model, ms)
         log("sharded-tripolar", f"{path} at {grid.nx} x {grid.ny}: 3 steps "
                                 f"vs single device max abs err {err:.3e}, "
                                 f"counters equal; {steps} steps, metrics "
                                 f"{m}; the plain deposit on both sides bit "
-                                f"for bit; {ms_step:.3f} ms/step sharded "
-                                f"(1, 1) against {single:.3f} single-device "
-                                f"eager (medians of 8 x 10 steps, CUDA "
-                                f"events)")
+                                f"for bit; graphed {ms_step:.4f} ms/step "
+                                f"sharded (1, 1), eager "
+                                f"{med['sharded eager']:.4f}, the single-"
+                                f"device step graphed {single:.4f} (medians "
+                                f"of {SHARDED_TURNS[0]} x {SHARDED_TURNS[1]} "
+                                f"steps in turns, CUDA events)")
+        sh.release_graph()
+        model.release_graph()
         del model, sh, ms, ref
     timing["sharded_tripolar"] = out
 
@@ -5528,7 +6001,8 @@ def phase_sharded_jet(dev, results, timing) -> None:
     tolerances ``SHARDED_TRI_TOLS``, 3 steps against the single-device
     step at ``assert_states``' rtol 2e-3, the counters set to 0 just before
     and read just after (K1 == K4 == K5 == 3); the block's node planes are
-    the grid's."""
+    the grid's; the graphed sharded step bit for bit its eager steps
+    (``sharded_graph_check``)."""
     grid = tripolar_grid(dev, *TRI_SUPER)
     model = jet_model(grid, "pallas", tols=SHARDED_TRI_TOLS)
     ref = eager_steps(model, model.init_state(), 3)
@@ -5546,7 +6020,12 @@ def phase_sharded_jet(dev, results, timing) -> None:
     results["K1 node"]["launches"] += c["K1"]
     results["K5 node"]["launches"] += c["K5"]
     results["K4"]["launches"] += c["K4"]
+    graph = sharded_graph_check("sharded jet pallas", sh, ms,
+                                {"K1 node": "K1", "K4": "K4",
+                                 "K5 node": "K5"}, results)
+    sh.release_graph()
     timing["sharded_jet_max_abs_err"] = err
+    timing["sharded_jet_graph"] = graph
     log("sharded-jet", f"global jet pallas {grid.nx} x {grid.ny} on a (1, 1) "
                        f"NCCL mesh: 3 steps vs single device max abs err "
                        f"{err:.3e}, counters equal; launches {c}; metrics "
@@ -6127,6 +6606,8 @@ def main(argv=None) -> int:
                          "JSON file, and stop")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of phase sharded-2x2
+    ap.add_argument("--profile-child", metavar="JSON",
+                    help=argparse.SUPPRESS)   # phase_profile's process
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -6141,6 +6622,10 @@ def main(argv=None) -> int:
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.profile_child:
+        phase_profile(args.profile_child, gridded_record(
+            torch.device("cuda", 0)))
+        return 0
     t_start = time.perf_counter()
 
     name, smi = phase_device()
@@ -6165,6 +6650,13 @@ def main(argv=None) -> int:
         "K6": dict(name="pic_gather_remesh", route="cuda",
                    source="picles_torch/csrc/pic_gather.cu",
                    replaces="picles_tpu/ops/pic_pallas.py:375"),
+        # the port's own kernel: the JAX package's 1D advance is a
+        # lax.while_loop outside Pallas
+        "K7": dict(name="advance_1d", route="cuda",
+                   source="picles_torch/csrc/advance_1d.cu",
+                   replaces="the port's own; no pl.pallas_call "
+                            "(picles_tpu/ops/tsit5.py:278 lax.while_loop)",
+                   simple_ms=None, launches=0),
     }
     # the gridded instances: the same kernels with the wind's planes
     for k in ("K1", "K3", "K5", "K6"):
@@ -6188,6 +6680,8 @@ def main(argv=None) -> int:
             results[k], name=results[k]["name"] + "_layered", simple_ms=None,
             launches=0)
     timing = {}
+    if args.profile:
+        phase_profile_process(args.profile)
     phase_k1(dev, results)
     phase_k3(dev, results)
     phase_k2(dev, results)
@@ -6204,10 +6698,6 @@ def main(argv=None) -> int:
     # trace can miss launches
     phase_graphs(dev, gw, results, timing)
     layered = phase_layers(dev, gw, results, timing)
-    if args.profile:
-        # before the kernels' in-turns timing: a call that had run a few
-        # dozen profiler sessions lost one K1 launch from every step trace
-        phase_profile(args.profile, gw)
     phase_rest(dev, results, timing)
     phase_remesh_backends(dev, results, timing)
     phase_production(dev, results, timing)
@@ -6235,7 +6725,7 @@ def main(argv=None) -> int:
     del layered
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
-    phase_1d(dev, timing)
+    phase_1d(dev, results, timing)
     phase_sharded_1x1(dev, gw, results, timing)
     phase_sharded_2x2(timing)
     phase_examples(timing)
@@ -6246,13 +6736,13 @@ def main(argv=None) -> int:
                          "K3 gridded", "K5 gridded", "K6 gridded",
                          *PROJ_REPLACES,
                          *(f"{k} layered" for k in LAYER_KERNELS),
-                         *NODE_REPLACES)]
-    assert len(kernels) == 24
+                         *NODE_REPLACES, "K7")]
+    assert len(kernels) == 25
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "simple_ms")), k
-        k.setdefault("graph_launches", 0)   # K4: the sharded step is eager
+        k.setdefault("graph_launches", 0)
     seconds = time.perf_counter() - t_start
     log("done", f"{seconds:.1f} s in all, build {build.seconds:.1f} s")
     if args.out:

@@ -96,6 +96,7 @@
 #include <cfloat>
 #include <cuda_runtime.h>
 
+#include "embedded_rk.cuh"
 #include "rhs.cuh"
 #include "tableaux.cuh"
 
@@ -150,14 +151,11 @@ template <class M, bool ADAPTIVE, bool GRIDDED>
 constexpr int K1_MIN_BLOCKS =
     M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED ? 1 : 0);
 
-// The state of one particle in flight.
+// The state of one particle in flight: the embedded-RK lane of its 5
+// components (embedded_rk.cuh) and its wind.
 template <int S>
-struct Lane {
-  float z[5];
-  float k[S + 1][5];
-  float t, t_end, dt, xn;
-  bool active, done, failed;
-  int nacc, iters;
+struct Lane : RKLane<5, S> {
+  float xn;
   WindTerms w0;    // the wind's terms at the start, for winds constant in t
   GriddedWind g;   // a gridded wind's values at the node (gridded instances)
 };
@@ -223,100 +221,32 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   }
 }
 
-// One substep of the per-lane loop (`advance_simple_kernel`'s loop body).
+// One substep of the per-lane loop (`advance_simple_kernel`'s loop body):
+// embedded_rk.cuh's substep over the 2D RHS, whose wind's terms come from
+// the lane's start where they do not vary in t (`t_free`).
 template <class M, bool ADAPTIVE, bool GRIDDED>
 __device__ __forceinline__ void substep(const AdvanceConfig& cfg,
                                         const RHSParams& rc, bool t_free,
                                         Lane<M::S>& L) {
-  constexpr int S = M::S;
-  const float t = L.t, t_end = L.t_end;
-  const float remaining = t_end - t;
-  const float dtmin_eff =
-      jmax(cfg.dtmin, 4.0f * FLT_EPSILON * jmax(fabsf(t), fabsf(t_end)));
-  const float dt_try = jmin(jmax(L.dt, dtmin_eff), jmax(remaining, dtmin_eff));
-  const bool at_dtmin = dt_try <= dtmin_eff;
-
-#pragma unroll
-  for (int s = 1; s < S; ++s) {
-    float acc[5];
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      acc[c] = L.z[c];
-#pragma unroll
-      for (int j = 0; j < s; ++j)
-        if (M::a(s - 1, j) != 0.0f)
-          acc[c] = acc[c] + dt_try * M::a(s - 1, j) * L.k[j][c];
-    }
-    const WindTerms w =
-        t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + M::c(s - 1) * dt_try);
-    rhs_state(rc, acc[0], acc[1], acc[2], w, L.k[s]);
-  }
-  float zn[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    zn[c] = L.z[c];
-#pragma unroll
-    for (int j = 0; j < S; ++j)
-      if (M::b(j) != 0.0f) zn[c] = zn[c] + dt_try * M::b(j) * L.k[j][c];
-  }
-  const WindTerms wf = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t + dt_try);
-  rhs_state(rc, zn[0], zn[1], zn[2], wf, L.k[S]);
-
-  bool accept = true;
-  bool newly_failed = false;
-  float dt_next = L.dt;
-  if (ADAPTIVE) {
-    float err_sq = 0.0f;
-    bool finite = true;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      float e = 0.0f;
-#pragma unroll
-      for (int j = 0; j <= S; ++j)
-        if (M::bt(j) != 0.0f) e = e + M::bt(j) * L.k[j][c];
-      e = dt_try * e;
-      const float sc = cfg.abstol + cfg.reltol * jmax(fabsf(L.z[c]), fabsf(zn[c]));
-      const float r = e / sc;
-      err_sq = err_sq + r * r;
-      finite = finite && finitef(zn[c]);
-    }
-    const float enorm = sqrtf(err_sq / 5.0f);
-    finite = finite && finitef(enorm);
-    accept = enorm <= 1.0f && finite;
-    if (cfg.force_dtmin) accept = accept || at_dtmin;
-    newly_failed = at_dtmin && !accept;
-    const float enorm_safe = jmax(enorm, 1e-10f);
-    float q = 0.9f * powf(enorm_safe, cfg.neg_inv_order);
-    if (!finite) q = 0.2f;
-    const float factor = jmin(jmax(q, 0.2f), 10.0f);
-    dt_next = accept ? dt_try * factor
-                     : jmax(dt_try * jmin(jmax(q, 0.2f), 1.0f), dtmin_eff);
-  }
-  if (accept) {
-    L.t = t + dt_try;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      L.z[c] = zn[c];
-      L.k[0][c] = L.k[S][c];
-    }
-    ++L.nacc;
-  }
-  L.dt = dt_next;
-  L.done = L.t >= t_end - 1e-9f || newly_failed;
-  L.failed = L.failed || newly_failed;
-  ++L.iters;
+  const RKControl cp{cfg.dtmin, cfg.abstol, cfg.reltol, cfg.neg_inv_order,
+                     cfg.force_dtmin != 0};
+  rk_substep<M, 5, ADAPTIVE>(
+      cp, L, [&](float t, const float* z, float* out) {
+        const WindTerms w = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t);
+        rhs_state(rc, z[0], z[1], z[2], w, out);
+      });
 }
 
 template <int S>
 __device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
                                            const Lane<S>& L) {
-  const bool failed = L.failed || (!L.done && L.active);
+  const bool failed = rk_failed(L);
   P.lne_o[i] = L.z[0];
   P.cgx_o[i] = L.z[1];
   P.cgy_o[i] = L.z[2];
   P.x_o[i] = L.z[3];
   P.y_o[i] = L.z[4];
-  P.t_o[i] = (L.active && !failed) ? L.t_end : L.t;
+  P.t_o[i] = rk_clock(L, failed);
   P.dt_o[i] = L.dt;
   P.fail_o[i] = failed ? 1 : 0;
   P.nacc_o[i] = L.nacc;

@@ -339,4 +339,103 @@ __device__ __forceinline__ void rhs_at(const RHSParams& c, const WindParams& w,
   rhs_state(c, lne, cg_x, cg_y, wind_terms_at(w, xn, t), out);
 }
 
+// ---------------------------------------------------------------------------
+// The 1D model (K7, advance_1d.cu): picles_torch/ops/rhs.py
+// particle_equations_1d and the 1D wind record (forcing/winds.py
+// GriddedWinds1D.u), in the float32 operations PyTorch runs for them on a
+// card: a division by a Python scalar c is a product with 1 / c (ATen's
+// division by a host scalar), c / x is (1 / x) * c (Tensor.__rtruediv__),
+// a division by a 0-dim tensor (winds.py `_div`) and x / y are divisions.
+// ---------------------------------------------------------------------------
+
+struct RHS1DParams {
+  float r_g, C_alpha, C_e, g, p, n, e_T;
+  float two_n;  // 2 n, formed in float64
+  int flags;
+};
+
+// The 1D RHS of (lne, cg_x, x) under the signed wind u at the lane's node:
+// alpha = |u| / (2 |c_gp|) clamped at 500 feeds the H and Delta windows,
+// dissipation is exp(n lne) (k_p / e_T)^(2n), no direction terms, and
+// dx = cg_x.
+__device__ __forceinline__ void rhs_1d(const RHS1DParams& c, float lne,
+                                       float cg_x, float u, float out[3]) {
+  const float c_gp = fabsf(cg_x) * (1.0f / c.r_g);
+  const float k_p = (1.0f / (4.0f * jmax(c_gp * c_gp, 1e-2f))) * c.g;
+  const float omega_p = (1.0f / (2.0f * jmax(fabsf(c_gp), 0.1f))) * c.g;
+  const float a = fabsf(u) / (2.0f * c_gp);
+  const float alpha = a > 500.0f ? 500.0f : a;
+  const float H_p = 0.5f * (1.0f + tanhf((alpha - 0.85f) * c.p));
+  const float ax = fabsf((alpha - 0.85f) * 10.0f);
+  const float ex = expf(-ax);
+  const float sech = (2.0f * ex) / (1.0f + ex * ex);
+  const float Delta_p = 1.0f - 1.25f * (sech * sech);
+
+  const float I_t = (c.flags & TERM_INPUT) ? (H_p * c.C_e) * (alpha * alpha)
+                                           : 0.0f;
+  const float D_t = (c.flags & TERM_DISSIPATION)
+                        ? expf(lne * c.n) * powf(k_p * (1.0f / c.e_T), c.two_n)
+                        : 0.0f;
+  float S_cg_t = 0.0f;
+  if (c.flags & TERM_PEAK_SHIFT) {
+    const float k_p2 = k_p * k_p;
+    S_cg_t = ((Delta_p * c.C_alpha) * (k_p2 * k_p2)) * expf(lne * 2.0f);
+  }
+  out[0] = (omega_p * c.r_g) * S_cg_t + omega_p * (I_t - D_t);
+  out[1] = ((-cg_x * omega_p) * c.r_g) * S_cg_t;
+  out[2] = (c.flags & TERM_PROPAGATION) ? cg_x : 0.0f;
+}
+
+// A 1D wind record u_data [nx, nt] (x0, dx, t0, dt as float32; each axis
+// wrapped or clamped), GriddedWinds1D.u's bilinear interpolant.
+struct Gridded1D {
+  const float* data;
+  int nx, nt;
+  float x0, dx, t0, dt;
+  bool wrap_x, wrap_t;
+};
+
+// One axis' coordinate, pre-folded by its mode: torch.remainder (fmod, then
+// the divisor added where the signs differ) or torch.clamp to [0, n - 1].
+__device__ __forceinline__ float fold_axis(float c, float c0, float dc, int n,
+                                           bool wrap) {
+  const float i = (c - c0) / dc;
+  const float nf = (float)n;
+  if (!wrap) return jmin(jmax(i, 0.0f), nf - 1.0f);
+  float m = fmodf(i, nf);
+  if (m != 0.0f && ((nf < 0.0f) != (m < 0.0f))) m = m + nf;
+  return m;
+}
+
+// winds.py `_linear`: the two (index, weight) pairs of one axis, indices
+// taken modulo n as torch.remainder takes an int64 (always in [0, n)).
+__device__ __forceinline__ void linear_pairs(float c, int n, long long idx[2],
+                                             float w[2]) {
+  const float lower = floorf(c);
+  const float upper = c - lower;
+  const long long i = (long long)lower;
+  for (int k = 0; k < 2; ++k) {
+    long long r = (i + k) % n;
+    if (r != 0 && (r < 0) != (n < 0)) r += n;
+    idx[k] = r;
+  }
+  w[0] = 1.0f - upper;
+  w[1] = upper;
+}
+
+// u(x, t): the four terms (wx wt) u[ix, it] summed in GriddedWinds1D.u's
+// order, (x lo, t lo), (x lo, t hi), (x hi, t lo), (x hi, t hi).
+__device__ __forceinline__ float gridded_u_1d(const Gridded1D& g, float x,
+                                              float t) {
+  long long ix[2], it[2];
+  float wx[2], wt[2];
+  linear_pairs(fold_axis(x, g.x0, g.dx, g.nx, g.wrap_x), g.nx, ix, wx);
+  linear_pairs(fold_axis(t, g.t0, g.dt, g.nt, g.wrap_t), g.nt, it, wt);
+  float out = (wx[0] * wt[0]) * g.data[ix[0] * g.nt + it[0]];
+  out = out + (wx[0] * wt[1]) * g.data[ix[0] * g.nt + it[1]];
+  out = out + (wx[1] * wt[0]) * g.data[ix[1] * g.nt + it[0]];
+  out = out + (wx[1] * wt[1]) * g.data[ix[1] * g.nt + it[1]];
+  return out;
+}
+
 }  // namespace picles

@@ -26,8 +26,11 @@ the node, so a steady callable is exactly its two node planes: kind
 runs only on the plain PyTorch path, and the CUDA modes refuse it.  The
 samplers compute in float32 with the JAX package's operation order.
 
-The 1D model's winds (``Winds1D``: ``u(x, t)``, a ``GriddedWinds1D``
-record) run on its plain path only: the 1D model has no kernel.
+The 1D model's winds (``Winds1D``: ``u(x, t)``) reach its advance kernel K7
+in two kinds: a steady callable as its one node plane ``[nx]``
+(``steady_node_plane_1d``, the same probe), and a ``GriddedWinds1D``
+record as itself (``u_data`` and its axes).  A 1D callable that reads its
+time runs on the plain path only.
 """
 
 from __future__ import annotations
@@ -142,6 +145,19 @@ class _TimeProbe(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def _steady_at(x: torch.Tensor, *samplers) -> Optional[list]:
+    """Each sampler called once with a 0-dim probe time under
+    ``_TimeProbe``: None when any reads the time, else their values as
+    float32 planes shaped like the nodes ``x``."""
+    t = torch.zeros((), dtype=torch.float32, device=x.device)
+    with _TimeProbe(t) as probe:
+        out = [f(t) for f in samplers]
+    if probe.read:
+        return None
+    return [torch.broadcast_to(torch.as_tensor(c, device=x.device).to(
+        torch.float32), x.shape) for c in out]
+
+
 def steady_node_planes(winds: "Winds2D", x: torch.Tensor,
                        y: torch.Tensor) -> Optional[torch.Tensor]:
     """The wind's (u, v) at the nodes ``(x, y)`` as one contiguous float32
@@ -151,15 +167,9 @@ def steady_node_planes(winds: "Winds2D", x: torch.Tensor,
     torch operation is steady, whatever host state it reads (the Pallas
     kernels of the JAX package trace the closure once and bake that state
     in too)."""
-    t = torch.zeros((), dtype=torch.float32, device=x.device)
-    with _TimeProbe(t) as probe:
-        u = winds.u(x, y, t)
-        v = winds.v(x, y, t)
-    if probe.read:
-        return None
-    return torch.stack([torch.broadcast_to(
-        torch.as_tensor(c, device=x.device).to(torch.float32), x.shape)
-        for c in (u, v)]).contiguous()
+    planes = _steady_at(x, lambda t: winds.u(x, y, t),
+                        lambda t: winds.v(x, y, t))
+    return None if planes is None else torch.stack(planes).contiguous()
 
 
 def node_kernel() -> "WindKernel":
@@ -571,6 +581,16 @@ def constant_winds_1d(U10: float) -> Winds1D:
     """A uniform steady 1D wind."""
     return Winds1D(u=lambda x, t: torch.full_like(torch.as_tensor(x), U10,
                                                   dtype=torch.float32))
+
+
+def steady_node_plane_1d(winds: Winds1D,
+                         x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The 1D form of ``steady_node_planes``: the wind ``u`` at the nodes
+    ``x`` as one contiguous float32 plane shaped like ``x``, or None when
+    the callable reads its time (``u`` is called once with a 0-dim probe
+    time under ``_TimeProbe``)."""
+    planes = _steady_at(x, lambda t: winds.u(x, t))
+    return None if planes is None else planes[0].contiguous()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

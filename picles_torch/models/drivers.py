@@ -14,24 +14,39 @@ step:
 - ``step_n_quiet(ms, n)``: ``ms`` is copied into the graph's input state
   once, the graph replays ``n`` times, and the result is cloned out once;
 - ``step_n_buffered(ms, n, capacity)``: the same, each step's Eulerian
-  state copied into row i of a ``[capacity, nx, ny, 3]`` buffer after its
-  replay; rows past ``n`` stay zero, and a shorter chunk replays fewer
+  state copied into row i of a ``[capacity, *state.shape]`` buffer after
+  its replay; rows past ``n`` stay zero, and a shorter chunk replays fewer
   times (it never captures again);
 - ``step_n(ms, n)``: ``step_n_buffered`` with ``capacity = n``;
 - ``step_jit()``: a callable ``ms -> ms`` (one replay) whose results are
   clones, so they never alias the graph's buffers: ``f(f(s0))`` leaves the
   first result intact, as JAX's immutable arrays do.
 
-``graphed`` is read from the model's configuration when it is built
-(``WaveGrowth2D``): true on a CUDA device with the advance resolved to
-kernel K1; ``ShardedWaveGrowth2D`` keeps this mixin's false.  Elsewhere
-the drivers run ``self.step`` in a Python loop, for these reasons: the
-CPU has no graphs; the plain advance (``tsit5.integrate_to``) tests on
-the host whether its loop is done, once an iteration, which a replay
-cannot repeat; and ``ShardedWaveGrowth2D`` steps through collectives
-(NCCL, gloo), whose capture is not ported.  A capture or a replay that fails raises: the
-drivers never fall back to the loop.  ``model.step`` in a loop is always
-the eager step.
+``graphed`` is fixed when the model is built: true for a ``WaveGrowth2D``
+on a CUDA device with the advance resolved to kernel K1, for a
+``WaveGrowth1D`` whose advance is kernel K7 (a CUDA device, float32 and a
+node or gridded wind), and for a ``ShardedWaveGrowth2D`` over NCCL whose
+wrapped model is graphed.  Elsewhere the drivers run ``self.step`` in a
+Python loop, for these reasons: the CPU has no graphs; the plain advance
+(``tsit5.integrate_to``: the CPU's, and on the card only where the caller
+asks for ``advance_mode="torch"``, as a float64 1D model or a 1D wind
+callable that reads its time must) tests on the host whether its loop is
+done, once an iteration, which a replay cannot repeat; and a sharded step
+over gloo stages every message through host memory.  A capture or a
+replay that fails raises: the drivers never fall back to the loop.
+``model.step`` in a loop is always the eager step.
+
+A step that issues collectives (the sharded step over NCCL) is captured
+the same way on every rank, since every rank calls the same drivers in the
+same order: the warm-up steps run each collective eagerly first, so
+NCCL's communicator exists before the capture, and the ranks meet at
+``capture_sync()`` (a barrier) before any of them captures.  Every capture
+runs in the thread-local error mode: NCCL's watchdog thread polls the
+events of the work it tracks, a call that a capture in the global mode
+forbids to every thread of the process (a step without collectives
+captures the same graph in either mode).
+PyTorch does not hand the watchdog the work of a captured collective,
+whose ``wait()`` stays a wait of the current stream on NCCL's.
 
 A capture holds one copy of the model state (the graph's input state),
 the graph's private memory pool (every intermediate of one step and its
@@ -77,9 +92,10 @@ class StepGraph:
             for _ in range(WARMUP_STEPS):
                 model.step(self.state)
         torch.cuda.current_stream(dev).wait_stream(side)
+        model.capture_sync()
         self.keep = model.graph_keep()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = model.step(self.state)
             self.state.copy_(self.out)
 
@@ -100,6 +116,10 @@ class StepDrivers:
         """What a captured step reads besides the model's attributes and
         its input state, kept alive by the capture."""
         return ()
+
+    def capture_sync(self) -> None:
+        """Called between the warm-up and the capture; a step that issues
+        collectives makes every rank meet here."""
 
     def release_graph(self) -> None:
         """Drop the capture: its memory goes back to PyTorch's caching

@@ -14,14 +14,25 @@ It differs from the 2D model in these ways:
 - the e-max guard resets the whole particle to the windsea, where the 2D
   model clamps lne only.
 
-The 1D model has no kernel, here or in the JAX package: the advance is the
-plain ``tsit5.integrate_to``, the dt reset the plain ``auto_dt``, and the
-step runs on the grid's device in PyTorch ops.  The deposit sums without
-atomics (``pic.segment_sum``), so the step is deterministic on the card.
-The integrator tests on the host whether its loop is done, once an
-iteration, so the step cannot be captured in a CUDA graph: ``graphed`` is
-false and the drivers (``step_n`` and the rest, ``models/drivers.py``) run
-the step in a Python loop, on the card as on the CPU.
+The advance is kernel K7 (``ops/advance_cuda.advance_1d``, the port's own
+kernel: the JAX package runs this loop as a device-side ``lax.while_loop``
+outside Pallas) on a CUDA device, with float32 and a wind K7 reads: a
+steady callable (its node plane, ``forcing.winds.steady_node_plane_1d``,
+probed once at construction; ``constant_winds_1d`` is one) or a
+``GriddedWinds1D`` record, which the model keeps.  Then every other stage
+of the step (the guards, the sign-merge deposit ``pic.segment_sum``, the
+remesh, the plain Hairer ``auto_dt``, the counters) is PyTorch on the
+device that never reads it back, and ``graphed`` is true: the drivers
+(``step_n`` and the rest, ``models/drivers.py``) replay a CUDA graph of the
+step.  On a CUDA device a float64 config or a wind callable that reads its
+time raises, as the 2D model's kernel modes refuse such a callable: K7
+takes neither, and the plain advance runs there only when the caller asks
+for it with ``advance_mode="torch"`` (a constructor keyword, since the JAX
+config has no mode field).  The plain advance is ``tsit5.integrate_to``,
+which tests on the host whether its loop is done, once an iteration, so
+the drivers loop over ``step``; it is the CPU's advance.  ``advance_mode``
+("cuda" or "torch", ``resolve_advance_1d``) says which was chosen.  The
+deposit sums without atomics, so the step is deterministic on the card.
 """
 
 from __future__ import annotations
@@ -34,11 +45,13 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
-from ..forcing.winds import GriddedWinds1D
+from ..forcing.winds import (GriddedWinds1D, WindKind,
+                             steady_node_plane_1d)
 from ..grids.base import Grid1D, one_d_grid  # noqa: F401  (JAX's home of it)
 from ..ops import pic
 from ..ops import transforms as TR
-from ..ops.rhs import TermFlags, particle_equations_1d
+from ..ops.advance_cuda import advance_1d
+from ..ops.rhs import TermFlags, make_rhs_consts, particle_equations_1d
 from ..ops.tsit5 import METHODS, SolverConfig, auto_dt, integrate_to
 from .drivers import StepDrivers
 from .state import ModelState1D, Particles1D, StepMetrics
@@ -67,10 +80,45 @@ class WaveGrowth1DConfig:
     dtype: torch.dtype = torch.float32
 
 
+ADVANCE_MODES_1D = ("auto", "cuda", "torch")
+
+
+def resolve_advance_1d(device, dtype: torch.dtype,
+                       wind_kind: Optional[WindKind],
+                       advance_mode: str = "auto") -> str:
+    """The 1D model's advance for tensors on ``device``: "cuda" (kernel K7)
+    or "torch" (the plain ``integrate_to``).  "auto" is K7 on a CUDA device
+    and the plain advance on the CPU; "torch" is the plain advance on
+    either.  K7 takes float32 and a wind of the node or gridded kind, and
+    on a CUDA device anything else raises, naming ``advance_mode="torch"``:
+    float64, and a wind that reads its time (``wind_kind`` None)."""
+    if advance_mode not in ADVANCE_MODES_1D:
+        raise ValueError(f"advance_mode must be one of {ADVANCE_MODES_1D}, "
+                         f"got {advance_mode!r}")
+    on_cuda = torch.device(device).type == "cuda"
+    if advance_mode == "torch" or (advance_mode == "auto" and not on_cuda):
+        return "torch"
+    if not on_cuda:
+        raise ValueError(f'advance_mode="cuda" names kernel K7, but the '
+                         f"grid's tensors are on {device}")
+    if dtype != torch.float32:
+        raise ValueError(f"kernel K7 computes in float32, not {dtype}; pass "
+                         f'advance_mode="torch" for the plain advance')
+    if wind_kind not in (WindKind.NODE, WindKind.GRIDDED):
+        raise NotImplementedError(
+            "these winds read their time t (t enters a torch operation in "
+            "u(x, t)): kernel K7 runs a steady callable (its node plane) and "
+            "a GriddedWinds1D record; winds that read their time run with "
+            'advance_mode="torch", or as a GriddedWinds1D record')
+    return "cuda"
+
+
 class WaveGrowth1D(StepDrivers):
     """The 1D model: grid, wind ``u(x, t)`` (a ``Winds1D`` or a
     ``GriddedWinds1D``, moved to the grid's device), ODE settings and
     config; exposes ``init_state`` and ``step``.  The device is the grid's.
+    ``advance_mode``: "auto" | "cuda" | "torch" (``resolve_advance_1d``);
+    the resolved mode and ``graphed`` are fixed when the model is built.
     """
 
     def __init__(self, grid: Grid1D, winds, ode_settings: ODESettings,
@@ -78,15 +126,18 @@ class WaveGrowth1D(StepDrivers):
                  constants: Optional[IDConstants] = None,
                  flags: TermFlags = TermFlags(),
                  minimal_particle=None, minimal_state=None,
-                 config: WaveGrowth1DConfig = WaveGrowth1DConfig()):
+                 config: WaveGrowth1DConfig = WaveGrowth1DConfig(),
+                 advance_mode: str = "auto"):
         self.grid = grid
         self.device = grid.device
         # a gridded record, passed directly or as its as_winds()' bound
         # sampler, moves to the grid's device
         gw = winds if isinstance(winds, GriddedWinds1D) else getattr(
             getattr(winds, "u", None), "__self__", None)
+        self.gridded_winds: Optional[GriddedWinds1D] = None
         if isinstance(gw, GriddedWinds1D):
-            winds = gw.to(self.device).as_winds()
+            self.gridded_winds = gw.to(self.device)
+            winds = self.gridded_winds.as_winds()
         self.winds = winds
         self.settings = ode_settings
         self.config = config
@@ -122,6 +173,23 @@ class WaveGrowth1D(StepDrivers):
                                    adaptive=ode_settings.adaptive)
         self._rk_order = METHODS[ode_settings.solver].order
 
+        # the advance (resolve_advance_1d), and K7's wind: the record or a
+        # steady callable's node plane (probed only where K7 may run)
+        self._node_plane: Optional[torch.Tensor] = None
+        kind = None
+        if self.gridded_winds is not None:
+            kind = WindKind.GRIDDED
+        elif advance_mode != "torch" and \
+                torch.device(self.device).type == "cuda":
+            self._node_plane = steady_node_plane_1d(winds, grid.x)
+            kind = None if self._node_plane is None else WindKind.NODE
+        self._advance_mode = resolve_advance_1d(self.device, config.dtype,
+                                                kind, advance_mode)
+        self._graphed = self._advance_mode == "cuda"
+        self.consts = make_rhs_consts(gamma=self.constants.gamma,
+                                      params=self.params,
+                                      constants=self.constants)
+
         bnd = torch.zeros(grid.nx, dtype=torch.bool, device=self.device)
         if not config.periodic_boundary:
             bnd[0] = bnd[-1] = True
@@ -156,6 +224,16 @@ class WaveGrowth1D(StepDrivers):
             raise ValueError("boundary_type must be 'wind_sea', 'mininmal' "
                              "or 'same'")
 
+    @property
+    def advance_mode(self) -> str:
+        """"cuda" where the advance is kernel K7, else "torch"
+        (``resolve_advance_1d``)."""
+        return self._advance_mode
+
+    def graph_keep(self) -> tuple:
+        """K7's wind: the node plane or the record."""
+        return (self._node_plane, self.gridded_winds)
+
     # ------------------------------------------------------------------
 
     def _wind(self, x, t) -> torch.Tensor:
@@ -163,6 +241,29 @@ class WaveGrowth1D(StepDrivers):
         shape, in the model's dtype."""
         return torch.broadcast_to(self.winds.u(x, t).to(self.config.dtype),
                                   x.shape)
+
+    def _node_wind(self, t) -> torch.Tensor:
+        """The wind at the grid's nodes at time(s) ``t``: on K7's path a
+        steady callable's node plane (its values there at any time), else
+        ``_wind``."""
+        if self._node_plane is not None:
+            return self._node_plane
+        return self._wind(self.grid.x, t)
+
+    def advance(self, z, t, dt, active, span: float):
+        """The particles ``(z, t, dt)`` advanced over ``span`` seconds on
+        the ``active`` lanes (the step's advance over DT, and the
+        sub-windows of ``utils.particle_tools.record_trajectories``): K7
+        where ``advance_mode`` is "cuda", else the plain loop.  Returns
+        (z, t, dt, failed, naccept)."""
+        if self._advance_mode == "cuda":
+            wind = (self.gridded_winds if self.gridded_winds is not None
+                    else self._node_plane)
+            return advance_1d(wind, self.consts, self.flags, self.solver,
+                              span, z.contiguous(), t, dt, active,
+                              self.grid.x)
+        return integrate_to(self.rhs, z, t, t + span, dt, self.grid.x,
+                            active, self.solver)
 
     def _reset_values(self, u, x_node) -> torch.Tensor:
         """The reseed ``[nx, 3]``: the signed windsea of the local wind, or
@@ -224,8 +325,7 @@ class WaveGrowth1D(StepDrivers):
 
         # advance the lanes that are on and not boundary lanes
         adv = P.on & ~boundary
-        res = integrate_to(self.rhs, P.z, P.t, P.t + DT, P.dt, x_node, adv,
-                           self.solver)
+        res = self.advance(P.z, P.t, P.dt, adv, DT)
         failed = res.failed & adv
         z = torch.where(adv[..., None], res.z, P.z)
         t = torch.where(adv, res.t, P.t)
@@ -235,7 +335,7 @@ class WaveGrowth1D(StepDrivers):
 
         # off lanes re-light in the wind at the (lagged) end of the step
         off = ~P.on & ~boundary
-        u_end = self._wind(x_node, P.t + DT)
+        u_end = self._node_wind(P.t + DT)
         relight = off & (u_end * u_end >= sett.wind_min_squared)
         z = torch.where(relight[..., None], self._reset_values(u_end, x_node),
                         z)
@@ -259,7 +359,7 @@ class WaveGrowth1D(StepDrivers):
                     cfg.periodic_boundary)
 
         # remesh: gather, reseed or off, the wind at the pre-tick clock
-        u_i = self._wind(x_node, torch.broadcast_to(ms.time, t.shape))
+        u_i = self._node_wind(torch.broadcast_to(ms.time, t.shape))
         e_n, m_n = S[..., 0], S[..., 1]
         gather = (~boundary & (e_n >= self._minimal_e)
                   & (m_n * m_n >= self._minimal_m2))

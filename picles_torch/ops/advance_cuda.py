@@ -1,4 +1,5 @@
-"""Wrappers of kernels K1 (advance) and K3 (auto-dt), ``csrc/advance.cu``.
+"""Wrappers of kernels K1 (advance) and K3 (auto-dt), ``csrc/advance.cu``,
+and K7 (the 1D advance), ``csrc/advance_1d.cu``.
 
 Counterpart of ``picles_tpu/ops/advance_pallas.py``.  ``advance_cuda`` runs
 the whole adaptive embedded-RK loop of one model step per particle;
@@ -29,8 +30,15 @@ the model step arrive as ``wind_fields``, the ``4 + 3B`` planes of
 forms them once per grid), and the plain versions run over
 ``forcing.winds.node_plane_winds`` of them.
 
-``advance_cuda.launches`` and ``auto_dt_cuda.launches`` count kernel
-launches (not plain-version calls).
+``advance_1d`` runs the 1D model's whole embedded-RK loop of one step per
+particle (K7, the port's own kernel: the JAX package runs that loop as a
+``lax.while_loop`` outside Pallas).  Its wind is a steady callable's node
+plane ``[nx]`` or a ``GriddedWinds1D`` record, read at the lane's node.
+Its plain version is ``tsit5.integrate_to`` with
+``rhs.particle_equations_1d``, which the 1D model runs on the CPU.
+
+``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
+``advance_1d.launches`` count kernel launches (not plain-version calls).
 
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
@@ -51,7 +59,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..forcing.winds import WindKernel, WindKind, Winds2D
+from ..forcing.winds import GriddedWinds1D, WindKernel, WindKind, Winds2D
 from .rhs import RHSConsts, TermFlags
 from .tsit5 import METHODS, SolverConfig, auto_dt
 
@@ -308,6 +316,83 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
 
 
 auto_dt_cuda.launches = 0
+
+
+class Advance1DResult(NamedTuple):
+    z: torch.Tensor        # [nx, 3] (lne, cg_x, x)
+    t: torch.Tensor
+    dt: torch.Tensor
+    failed: torch.Tensor   # bool
+    naccept: torch.Tensor  # int32
+
+
+def advance_1d(wind: Union[torch.Tensor, GriddedWinds1D], consts: RHSConsts,
+               flags: TermFlags, config: SolverConfig, DT: float,
+               z: torch.Tensor, t: torch.Tensor, dt: torch.Tensor,
+               active: torch.Tensor, xn: torch.Tensor) -> Advance1DResult:
+    """Advance every active 1D particle over one model step ``DT`` (K7).
+
+    ``z [nx, 3]`` (lne, cg_x, x), ``t``, ``dt`` (float32) and ``active``
+    (bool) ``[nx]``, contiguous on one card, ``xn`` the node x ``[nx]``;
+    ``wind`` the node plane ``[nx]`` (float32) or a ``GriddedWinds1D``
+    record on the same card; ``consts`` those of
+    ``particle_equations_1d`` (``make_rhs_consts``).  Inactive lanes pass
+    through with ``failed = False`` and ``naccept = 0``; a lane that
+    finishes gets ``t = t + DT``.  CPU tensors are refused: the plain
+    version is ``tsit5.integrate_to`` over ``particle_equations_1d``."""
+    from .cuda_build import (K1_METHODS, check_planes, check_status, library,
+                             pointer_array)
+
+    if config.method not in K1_METHODS:
+        raise ValueError(f"the 1D advance kernel compiles the tableaux of "
+                         f"{sorted(K1_METHODS)}, not {config.method!r}")
+    f32 = torch.float32
+    node = not isinstance(wind, GriddedWinds1D)
+    dev = check_planes([t, dt, active, xn] + [wind] * node,
+                       ["t", "dt", "active", "xn", "the node wind plane"],
+                       [f32, f32, torch.bool, f32, f32])
+    n = t.numel()
+    if t.dim() != 1 or tuple(z.shape) != (n, 3) or z.dtype != f32 \
+            or not z.is_contiguous() or z.device != dev:
+        raise ValueError(f"z must be one contiguous float32 [{n}, 3] tensor "
+                         f"on {dev}, got {z.dtype} {tuple(z.shape)} on "
+                         f"{z.device}")
+    if node:
+        data = wind
+        grid, gf = [int(WindKind.NODE), 1, 1, 0, 0], [0.0, 1.0, 0.0, 1.0]
+    else:
+        data = wind.u_data
+        if data.dim() != 2 or data.dtype != f32 or not data.is_contiguous() \
+                or data.device != dev or data.numel() == 0:
+            raise ValueError(f"the record's u_data must be one contiguous "
+                             f"float32 [nx_w, nt_w] tensor on {dev}")
+        grid = [int(WindKind.GRIDDED), *data.shape,
+                int(wind.mode == "wrap"), int(wind.mode_t == "wrap")]
+        gf = [wind.x0, wind.dx, wind.t0, wind.dt]
+    method = METHODS[config.method]
+    f = [consts.r_g, consts.C_alpha, consts.C_e, consts.g, consts.p,
+         consts.n, consts.e_T, 2.0 * consts.n, DT, config.abstol,
+         config.reltol, config.dtmin, -1.0 / method.order, *gf]
+    i = [flag_bits(flags), *grid, len(method.b), int(config.adaptive),
+         int(config.force_dtmin), int(config.maxiters)]
+    fp = np.asarray(f, dtype=np.float32)
+    ip = np.asarray(i, dtype=np.int32)
+    z_o = torch.empty_like(z)
+    t_o, dt_o = torch.empty_like(t), torch.empty_like(dt)
+    failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
+    nacc = torch.empty(t.shape, dtype=torch.int32, device=dev)
+    ptrs = pointer_array([z, t, dt, active, xn, z_o, t_o, dt_o, failed, nacc,
+                          data])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().picles_advance_1d(fp.ctypes.data, ip.ctypes.data,
+                                           ctypes.addressof(ptrs), n, stream)
+    check_status(code, "1D advance")
+    advance_1d.launches += 1
+    return Advance1DResult(z_o, t_o, dt_o, failed, nacc)
+
+
+advance_1d.launches = 0
 
 
 def auto_dt_reset(rhs, t: torch.Tensor, z: torch.Tensor, aux,

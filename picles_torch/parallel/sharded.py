@@ -28,6 +28,14 @@ staged through host memory explicitly; that is how several ranks share one
 card.  The process group is the caller's (``init_distributed``, the
 counterpart of ``jax.distributed.initialize``).
 
+Under NCCL the drivers (``step_n``, ``step_n_buffered``, ``step_n_quiet``,
+``step_jit``, so ``Simulation.run``) replay a CUDA graph of the sharded step
+where the wrapped model is graphed, as the JAX package jits its
+``shard_map``: the capture holds the kernels, the slab exchange and the
+folds, the seam's all-gather and the two all-reduces of the counters
+(``models/drivers.py`` says how the ranks capture together).  Under gloo
+the step stages through host memory, and the drivers loop.
+
 A layered model (``config.layers > 1``) is cut the same way: its planes
 are ``[L, nx_b, ny_b]`` a rank, every layer shares the mesh, K4 deposits
 every layer in one launch, each exchange moves all L layers' slabs in one
@@ -204,6 +212,9 @@ class ShardedWaveGrowth2D(StepDrivers):
         self.transport = (f"{self.backend}, staged through host memory"
                           if self._staged else
                           f"{self.backend}, device tensors")
+        # the drivers replay a CUDA graph of the step over NCCL
+        # (models/drivers.py)
+        self._graphed = self.backend == "nccl" and model.graphed
         self._kernel = model.resolved_config().scatter_mode == "dense_cuda"
         sx, sy = block_slices(mesh.shape, g.nx, g.ny, self.ix, self.iy)
         self._slices = (sx, sy)
@@ -243,6 +254,16 @@ class ShardedWaveGrowth2D(StepDrivers):
 
     def resolved_config(self):
         return self.model.resolved_config()
+
+    def graph_keep(self) -> tuple:
+        """The block's grid planes and masks, and the wrapped model's
+        per-grid caches of them (``WaveGrowth2D.graph_keep``)."""
+        return (self.local_grid, self.local_active, self.local_boundary,
+                self.model.graph_keep())
+
+    def capture_sync(self) -> None:
+        """Every rank meets here between its warm-up and its capture."""
+        self.barrier()
 
     def init_state(self) -> ModelState2D:
         """Every rank seeds the whole grid, as the model does (every layer
@@ -428,7 +449,12 @@ class ShardedWaveGrowth2D(StepDrivers):
         return bool(t.item())
 
     def barrier(self) -> None:
-        dist.barrier(group=self.mesh.group)
+        if self.backend == "nccl":
+            idx = self.device.index
+            dist.barrier(group=self.mesh.group, device_ids=[
+                torch.cuda.current_device() if idx is None else idx])
+        else:
+            dist.barrier(group=self.mesh.group)
 
     def save_checkpoint(self, path: str, ms: ModelState2D) -> str:
         """Rank 0 writes the whole state in the single-device layout (so it

@@ -86,8 +86,10 @@ def _shadow_2d(model: WaveGrowth2D, K: int) -> Callable:
 
 
 def _shadow_1d(model: WaveGrowth1D, K: int) -> Callable:
-    """The 1D model's sub-window advance (no kernel: ``integrate_to``), on
-    the lanes its step advances (``on`` and not a boundary lane)."""
+    """The 1D model's sub-window advance: K windows of DT / K, each one
+    launch of K7 where the model advances with it, else the plain
+    ``integrate_to`` (``WaveGrowth1D.advance``), on the lanes its step
+    advances (``on`` and not a boundary lane)."""
     h = float(torch.tensor(model.settings.timestep / K,
                            dtype=model.config.dtype))
 
@@ -97,8 +99,7 @@ def _shadow_1d(model: WaveGrowth1D, K: int) -> Callable:
         z, t, dt = P.z, P.t, P.dt
         zs, ts = [], []
         for _ in range(K):
-            r = integrate_to(model.rhs, z, t, t + h, dt, model.grid.x,
-                             active, model.solver)
+            r = model.advance(z, t, dt, active, h)
             z, t, dt = r.z, r.t, r.dt
             zs.append(z)
             ts.append(t)
@@ -140,8 +141,9 @@ def record_trajectories(model, ms, n_steps: int, saving_step=None):
     ``saving_step`` (by default ``model.settings.saving_step``) shorter
     than DT also keeps the raw ODE history inside each step: before the
     step, a copy of its particles is advanced over K = round(DT /
-    saving_step) windows of DT / K (K launches of K1 where the model
-    advances with it, else the plain ``integrate_to``; the guards and the
+    saving_step) windows of DT / K (K launches of K1, or of K7 for the 1D
+    model, where the model advances with it, else the plain
+    ``integrate_to``; the guards and the
     remesh are per-DT events and do not enter a window), and the dict
     gains ``z_fine [n * K, ...]`` and ``t_fine`` at the window ends."""
     DT = float(model.settings.timestep)

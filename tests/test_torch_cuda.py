@@ -4,8 +4,10 @@ kernels they replaced; K3's followed by PyTorch's clamp and select), a
 fused Simulation resumed from a checkpoint, the sharded step on a (1, 1)
 NCCL mesh (on a tripolar grid too), the spherical and tripolar grids:
 K1/K3 with per-node projection planes (bit for bit the scalars on a
-Cartesian box) and K2/K6 with the tripolar seam; the 1D model (plain
-PyTorch) on the card against the CPU, its deposit deterministic; and a
+Cartesian box) and K2/K6 with the tripolar seam; kernel K7 (the 1D
+advance) against its plain version, the graphed 1D model against its
+eager K7 steps and against the CPU, its deposit deterministic; the (1, 1)
+NCCL sharded step graphed against its eager steps; and a
 steady wind callable (the node kind of K1, K3, K5 and K6) bit for bit the
 constant winds and a constant record.  Marked
 ``cuda``: without a CUDA device every test
@@ -410,6 +412,7 @@ def test_sharded_step_nccl_one_rank_matches_single_device(dev):
 
     from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
                               cartesian_box, constant_winds)
+    from picles_torch.models.drivers import WARMUP_STEPS
     from picles_torch.ops.pic_cuda import pic_gather_padded
     from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
                                                init_distributed, make_mesh)
@@ -430,10 +433,11 @@ def test_sharded_step_nccl_one_rank_matches_single_device(dev):
     try:
         sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
         assert sh.transport == "nccl, device tensors"
-        assert model.graphed and not sh.graphed   # the sharded step is eager
+        assert model.graphed and sh.graphed   # replays a graph over NCCL
         before = pic_gather_padded.launches
         ms = sh.step_n_quiet(sh.init_state(), 3)
-        assert pic_gather_padded.launches == before + 3
+        # the warm-up steps and the capture call K4; replays do not
+        assert pic_gather_padded.launches == before + WARMUP_STEPS + 1
         torch.testing.assert_close(ms.state, ref.state, rtol=2e-3,
                                    atol=1e-10)
         got, want = ms.metrics.as_dict(), ref.metrics.as_dict()
@@ -1271,6 +1275,7 @@ def test_sharded_tripolar_nccl_one_rank_matches_single_device(dev):
 
     import torch.distributed as dist
 
+    from picles_torch.models.drivers import WARMUP_STEPS
     from picles_torch.ops.pic_cuda import pic_gather_padded
     from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
                                                init_distributed, make_mesh)
@@ -1284,9 +1289,10 @@ def test_sharded_tripolar_nccl_one_rank_matches_single_device(dev):
     init_distributed(0, 1, "nccl", port, timeout_s=60.0)
     try:
         sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        assert sh.graphed
         before = pic_gather_padded.launches
         ms = sh.step_n_quiet(sh.init_state(), 4)
-        assert pic_gather_padded.launches == before + 4
+        assert pic_gather_padded.launches == before + WARMUP_STEPS + 1
         torch.testing.assert_close(ms.state, ref.state, rtol=2e-3,
                                    atol=1e-10)
         got, want = ms.metrics.as_dict(), ref.metrics.as_dict()
@@ -1302,24 +1308,26 @@ def test_sharded_tripolar_nccl_one_rank_matches_single_device(dev):
         dist.destroy_process_group()
 
 
-def _b01_model(device, **tols):
+def _b01_model(device, nx=31, **tols):
     from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
                               constant_winds_1d, one_d_grid)
 
-    return WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device=device),
+    return WaveGrowth1D(one_d_grid(0.0, 500e3, nx, device=device),
                         constant_winds_1d(10.0),
                         ODESettings(timestep=600.0, dt=1e-3, **tols),
                         config=WaveGrowth1DConfig(periodic_boundary=False))
 
 
 def test_model_1d_on_card_matches_cpu_and_repeats(dev):
-    """The B01 grid at abstol 1e-7 / reltol 1e-6, 12 steps on the card:
-    within 1e-4 of the CPU run's scale, ``on`` and the counters equal (the
-    most substeps of a lane within 2), and a second card run bit for bit
-    the first (the deposit sums without atomics)."""
+    """The B01 grid at abstol 1e-7 / reltol 1e-6, 12 steps on the card
+    (kernel K7, graphed) against the CPU (the plain advance, eager): within
+    1e-4 of the CPU run's scale, ``on`` and the counters equal (the most
+    substeps of a lane within 2), and a second card run bit for bit the
+    first (the deposit sums without atomics)."""
     tols = dict(abstol=1e-7, reltol=1e-6)
     mg, mc = _b01_model(dev, **tols), _b01_model("cpu", **tols)
-    assert not mg.graphed
+    assert mg.graphed and mg.advance_mode == "cuda"
+    assert not mc.graphed and mc.advance_mode == "torch"
     a, _ = mg.step_n(mg.init_state(), 12)
     b, _ = mc.step_n(mc.init_state(), 12)
     scale = float(b.state.abs().max())
@@ -1331,6 +1339,40 @@ def test_model_1d_on_card_matches_cpu_and_repeats(dev):
     assert ga == gb
     again, _ = mg.step_n(mg.init_state(), 12)
     _assert_bitwise(again.leaves(), a.leaves())
+
+
+def test_model_1d_on_card_runs_the_plain_advance_only_when_asked(dev):
+    """On the card a wind callable that reads its time and a float64 config
+    raise, naming ``advance_mode="torch"``; with it the plain advance runs
+    eagerly (``graphed`` false, K7 never launched), 6 steps within 1e-4 of
+    the CPU run's scale at abstol 1e-7 / reltol 1e-6, ``on`` equal."""
+    from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
+                              Winds1D, one_d_grid)
+    from picles_torch.ops.advance_cuda import advance_1d
+
+    def timed(x, t):
+        return torch.full_like(x, 10.0) + 0.0 * t
+
+    sett = ODESettings(timestep=600.0, dt=1e-3, abstol=1e-7, reltol=1e-6)
+    grid = one_d_grid(0.0, 500e3, 31, device=dev)
+    open_ = WaveGrowth1DConfig(periodic_boundary=False)
+    with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
+        WaveGrowth1D(grid, Winds1D(u=timed), sett, config=open_)
+    with pytest.raises(ValueError, match='advance_mode="torch"'):
+        WaveGrowth1D(grid, Winds1D(u=timed), sett, config=WaveGrowth1DConfig(
+            periodic_boundary=False, dtype=torch.float64))
+    mg = WaveGrowth1D(grid, Winds1D(u=timed), sett, config=open_,
+                      advance_mode="torch")
+    mc = WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device="cpu"),
+                      Winds1D(u=timed), sett, config=open_)
+    assert (mg.advance_mode, mg.graphed) == ("torch", False)
+    before = advance_1d.launches
+    a = mg.step_n_quiet(mg.init_state(), 6)
+    b = mc.step_n_quiet(mc.init_state(), 6)
+    assert advance_1d.launches == before
+    torch.testing.assert_close(a.state.cpu(), b.state, rtol=0,
+                               atol=1e-4 * float(b.state.abs().max()))
+    assert torch.equal(a.particles.on.cpu(), b.particles.on)
 
 
 @pytest.mark.parametrize("periodic", [True, False])
@@ -1354,6 +1396,194 @@ def test_deposit_1d_on_card_is_deterministic(dev, periodic):
     assert torch.equal(g1, g2)
     torch.testing.assert_close(g1.cpu(), cpu, rtol=0,
                                atol=1e-6 * float(cpu.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K7, the 1D advance, and the graphed 1D step
+# ---------------------------------------------------------------------------
+
+def _k7_inputs(dev, nx=1024, steps=12):
+    """The B01 configuration on ``nx`` nodes after ``steps`` plain steps on
+    the CPU (young seas up the fetch, older ones down it), its particles,
+    active lanes and node x on the card."""
+    m = _b01_model("cpu", nx=nx)
+    ms = m.step_n_quiet(m.init_state(), steps)
+    P = ms.particles
+    adv = P.on & ~m.boundary_mask
+    return m, [a.to(dev).contiguous() for a in (P.z, P.t, P.dt, adv,
+                                                 m.grid.x)]
+
+
+def _k7_wind(kind, dev, x):
+    """K7's wind and its plain version's callable: a node plane (a smooth
+    profile) or a record that varies in x and t (30 half-hourly frames)."""
+    from picles_torch import GriddedWinds1D, Winds1D
+
+    if kind == "node":
+        plane = (7.0 + 3.0 * torch.sin(x / 80e3)).to(torch.float32)
+        return plane.contiguous(), Winds1D(u=lambda xx, t: plane)
+    rng = np.random.default_rng(9)
+    rec = GriddedWinds1D(u_data=torch.as_tensor(
+        rng.uniform(6.0, 12.0, (23, 30)).astype(np.float32), device=dev),
+        x0=-10e3, dx=25e3, t0=0.0, dt=1800.0)
+    return rec, rec.as_winds()
+
+
+def _k7_pair(dev, method, kind, adaptive, fixed_dt=20.0):
+    from picles_torch import TermFlags
+    from picles_torch.ops.advance_cuda import advance_1d
+    from picles_torch.ops.rhs import particle_equations_1d
+    from picles_torch.ops.tsit5 import SolverConfig, integrate_to
+
+    m, (z, t, dt, adv, x) = _k7_inputs(dev)
+    wind, winds = _k7_wind(kind, dev, x)
+    cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                       force_dtmin=True)
+    if not adaptive:
+        dt = torch.full_like(dt, fixed_dt)
+    before = advance_1d.launches
+    k = advance_1d(wind, m.consts, TermFlags(), cfg, 600.0, z, t, dt, adv, x)
+    assert advance_1d.launches == before + 1
+    rhs = particle_equations_1d(winds.u, gamma=m.constants.gamma,
+                                params=m.params, constants=m.constants)
+    p = integrate_to(rhs, z, t, t + 600.0, dt, x, adv, cfg)
+    return k, p, adv
+
+
+@pytest.mark.parametrize("kind", ["node", "gridded"])
+@pytest.mark.parametrize("method", ["bosh3", "tsit5"])
+def test_advance_1d_kernel_matches_plain_fixed_substep(dev, method, kind):
+    """Fixed substeps of 20 s: lne and cg_x within 5e-6 abs, x (absolute,
+    in meters: an ulp at 500 km is 0.03 m) within rtol 1e-6; t, dt, failed
+    and naccept equal.  (At 37.5 s an ulp grew to 4e-4 on the youngest
+    lane under the record's wind, on the card and in a host build of K7
+    against the CPU's plain version alike: the plain version parts from
+    itself as far under a one-ulp change of its input; chip_smoke.py
+    ``k7_witness``.)"""
+    k, p, _ = _k7_pair(dev, method, kind, adaptive=False)
+    torch.testing.assert_close(k.z[:, :2], p.z[:, :2], rtol=0, atol=5e-6)
+    torch.testing.assert_close(k.z[:, 2], p.z[:, 2], rtol=1e-6, atol=0)
+    for a, b in ((k.t, p.t), (k.dt, p.dt), (k.failed, p.failed),
+                 (k.naccept, p.naccept)):
+        assert torch.equal(a, b)
+    assert int(k.naccept.max()) == 30
+
+
+@pytest.mark.parametrize("kind", ["node", "gridded"])
+@pytest.mark.parametrize("method", ["bosh3", "tsit5"])
+def test_advance_1d_kernel_matches_plain_adaptive(dev, method, kind):
+    """Adaptive, as K1 is held
+    (``test_advance_kernel_matches_plain_adaptive``): under 1% of the lanes
+    beyond rtol 5e-3 in any component; at least 95%
+    of the active lanes take as many substeps; the mean of log(dt_kernel /
+    dt_plain) within 1e-2 of 0; ``failed`` and the end time equal."""
+    k, p, adv = _k7_pair(dev, method, kind, adaptive=True)
+    assert torch.equal(k.failed, p.failed)
+    torch.testing.assert_close(k.t, p.t, rtol=1e-6, atol=0.0)
+    for c in range(3):
+        assert _share_close(k.z[:, c], p.z[:, c], 5e-3, 1e-4) >= 0.99, c
+    a = adv & ~p.failed
+    assert float((k.naccept[a] == p.naccept[a]).float().mean()) >= 0.95
+    bias = float(torch.log(k.dt[a].double() / p.dt[a].double()).mean())
+    assert abs(bias) <= 1e-2, bias
+    assert int(p.naccept.max()) > 1
+
+
+def test_advance_1d_refuses_cpu_tensors():
+    from picles_torch import TermFlags
+    from picles_torch.ops.advance_cuda import advance_1d
+    from picles_torch.ops.rhs import make_rhs_consts
+    from picles_torch.ops.tsit5 import SolverConfig
+
+    n = 8
+    z = torch.zeros((n, 3))
+    v = torch.zeros(n)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        advance_1d(v, make_rhs_consts(), TermFlags(), SolverConfig(), 600.0,
+                   z, v, v, torch.ones(n, dtype=torch.bool), v)
+
+
+@pytest.mark.parametrize("kind", ["node", "gridded"])
+def test_graphed_1d_step_equals_eager_k7_steps_bitwise(dev, kind):
+    """The B01 model on the card (K7, graphed): step_n_quiet, step_n's
+    rows, a ragged step_n_buffered chunk and step_jit twice, bit for bit
+    the eager K7 steps over 12 steps."""
+    from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
+                              constant_winds_1d, one_d_grid)
+
+    grid = one_d_grid(0.0, 500e3, 31, device=dev)
+    winds = (constant_winds_1d(10.0) if kind == "node"
+             else _k7_wind("gridded", dev, grid.x)[0])
+    m = WaveGrowth1D(grid, winds, ODESettings(timestep=600.0, dt=1e-3),
+                     config=WaveGrowth1DConfig(periodic_boundary=False))
+    assert m.graphed and m.advance_mode == "cuda"
+    ms = m.init_state()
+    eager = [ms]
+    for _ in range(12):
+        eager.append(m.step(eager[-1]))
+    _assert_bitwise(m.step_n_quiet(ms, 12).leaves(), eager[-1].leaves())
+    fin, stack = m.step_n(ms, 12)
+    _assert_bitwise(fin.leaves(), eager[-1].leaves())
+    _assert_bitwise(list(stack), [e.state for e in eager[1:]])
+    fin, buf = m.step_n_buffered(ms, 5, 8)
+    _assert_bitwise(list(buf[:5]), [e.state for e in eager[1:6]])
+    assert not bool(buf[5:].any())
+    f = m.step_jit()
+    s1 = f(ms)
+    kept = s1.clone()
+    s2 = f(s1)
+    _assert_bitwise(s1.leaves(), kept.leaves())
+    _assert_bitwise(s2.leaves(), eager[2].leaves())
+    assert int(eager[-1].metrics.n_failed) == 0
+
+
+@pytest.mark.parametrize("path", ["pallas", "default"])
+def test_sharded_nccl_graphed_step_equals_eager_steps_bitwise(dev, path):
+    """The (1, 1) NCCL sharded step at 64^2 graphed (the flagship's
+    "pallas" remesh: K1, K4, the fold, K5, the counters' all-reduces; the
+    default configuration with K3): step_n_quiet, step_n's rows and
+    step_jit bit for bit its eager steps over 5 steps."""
+    import socket
+
+    import torch.distributed as dist
+
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              cartesian_box, constant_winds)
+    from picles_torch.parallel.sharded import (ShardedWaveGrowth2D,
+                                               init_distributed, make_mesh)
+
+    n = 64
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev)
+    if path == "pallas":
+        sett = ODESettings(timestep=600.0, dt=1e-3, solver="bosh3")
+        cfg = WaveGrowth2DConfig(dt_reset_mode="carry", remesh_mode="pallas",
+                                 halo=((0, 3), (0, 3)))
+    else:
+        sett = ODESettings(timestep=600.0, dt=1e-3)
+        cfg = WaveGrowth2DConfig(periodic_boundary=True)
+    model = WaveGrowth2D(grid, constant_winds(10.0, 10.0), sett, config=cfg)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, "nccl", port, timeout_s=60.0)
+    try:
+        sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+        assert sh.graphed
+        ms = sh.init_state()
+        eager = [ms]
+        for _ in range(5):
+            eager.append(sh.step(eager[-1]))
+        _assert_bitwise(sh.step_n_quiet(ms, 5).leaves(), eager[-1].leaves())
+        fin, stack = sh.step_n(ms, 5)
+        _assert_bitwise(fin.leaves(), eager[-1].leaves())
+        _assert_bitwise(list(stack), [e.state for e in eager[1:]])
+        s2 = sh.step_jit()(sh.step_jit()(ms))
+        _assert_bitwise(s2.leaves(), eager[2].leaves())
+        assert int(eager[-1].metrics.n_failed) == 0
+        sh.release_graph()
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -1534,6 +1764,48 @@ def test_record_trajectories_sub_dt_through_k1(dev):
         z, t, dt = r.z, r.t, r.dt
         torch.testing.assert_close(h["z_fine"][k], z, rtol=1e-5,
                                    atol=5e-6)
+        torch.testing.assert_close(h["t_fine"][k], t, rtol=1e-6, atol=0)
+
+
+def test_record_trajectories_1d_sub_dt_through_k7(dev):
+    """``record_trajectories`` on the graphed B01 model in fixed-substep
+    mode (20 s) with K = 4: each step's 4 sub-windows are 4 launches of K7
+    (DT / 4 each), the first step's windows within 5e-6 abs of the plain
+    ``integrate_to`` over the same windows in lne and cg_x (K7's
+    fixed-substep agreement; x at rtol 1e-6, clocks at rtol 1e-6); the
+    per-step history bit for bit ``step_n``'s states."""
+    from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
+                              constant_winds_1d, one_d_grid)
+    from picles_torch.ops.advance_cuda import advance_1d
+    from picles_torch.ops.tsit5 import integrate_to
+    from picles_torch.utils.particle_tools import record_trajectories
+
+    m = WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device=dev),
+                     constant_winds_1d(10.0),
+                     ODESettings(timestep=600.0, saving_step=150.0, dt=20.0,
+                                 adaptive=False),
+                     config=WaveGrowth1DConfig(periodic_boundary=False))
+    assert m.graphed and m.advance_mode == "cuda"
+    ms = m.step_n_quiet(m.init_state(), 6)
+    ref, states = m.step_n(ms, 3)
+    before = advance_1d.launches
+    final, h = record_trajectories(m, ms, 3)
+    assert advance_1d.launches - before == 3 * 4   # the replays count 0
+    assert torch.equal(_bits(h["state"]), _bits(states))
+    _assert_bitwise(final.leaves(), ref.leaves())
+    assert h["z_fine"].shape == (12, 31, 3)
+
+    P = ms.particles
+    z, t, dt = P.z, P.t, P.dt
+    active = P.on & ~m.boundary_mask
+    for k in range(4):
+        r = integrate_to(m.rhs, z, t, t + 150.0, dt, m.grid.x, active,
+                         m.solver)
+        z, t, dt = r.z, r.t, r.dt
+        torch.testing.assert_close(h["z_fine"][k][:, :2], z[:, :2], rtol=0,
+                                   atol=5e-6)
+        torch.testing.assert_close(h["z_fine"][k][:, 2], z[:, 2], rtol=1e-6,
+                                   atol=0)
         torch.testing.assert_close(h["t_fine"][k], t, rtol=1e-6, atol=0)
 
 
