@@ -123,8 +123,30 @@ just before and read just after:
     ``Simulation.run`` on K1, K2 and K3, counted by trace) with its
     assertions, against the CPU at one resolution.
 
-``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7 and 9 run
-through it.  A replay launches the kernels without their wrappers, whose
+12. wind callables that read their time (phase "traced-winds": the traced
+    kind of K1, K3, K5 and K6, each callable traced and compiled into a
+    library of its own): the five libraries built at once; (a) each
+    emitted function alone on 2^20 points bit for bit the callable run by
+    torch on the card (the pulse and the returning wind of
+    tests/test_growing_decaying_winds.py, ``time_cosine_winds`` stripped
+    of its descriptor, example 02's jet, and ``every_op_winds``, every
+    operation the tracer takes); (b) the traced kernels against their
+    plain versions at 1536^2 across the switch times (lanes that step
+    over the pulse's stop against the plain version's own one-ulp
+    witness), example 02's jet traced bit for bit its node kind, the
+    stripped time-cosine against its descriptor; (c) the pulse's fused,
+    default and open-box days
+    through ``Simulation.run``, graphed, bit for bit their eager days, no
+    failed or clamped lane, the open box's upwind nodes off once the wind
+    stops, against the plain eager advance in turns, and the returning
+    wind re-lighting calm nodes; (d) 4 layers of the pulse and its (1, 1)
+    NCCL sharded step (inside "sharded-1x1"), replays bit for bit the
+    eager steps; (e) each traced kernel bit for bit and in turns with the
+    same kernel forced by ``constant_winds(12, 0)``, beside its bound and
+    its plain version (K1, K3 and K5 by CUDA events).
+
+``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7, 9 and 12
+run through it.  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
 with the counters, and each graphed run counts its launches by name in a
 ``torch.profiler`` trace of its own ``Simulation.run`` (``traced_run``),
@@ -168,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -191,8 +214,9 @@ from picles_torch.ops import cuda_build
 from picles_torch.ops import transforms as TR
 from picles_torch.forcing.winds import (GriddedWinds1D, GriddedWinds2D,
                                         WindKind, Winds1D, Winds2D,
-                                        gridded_kernel, node_plane_winds,
-                                        pwl_winds)
+                                        gridded_kernel, node_kernel,
+                                        node_plane_winds, pwl_winds,
+                                        steady_node_planes, traced_kernel)
 from picles_torch.grids.mask import make_boundaries
 from picles_torch.ops.advance_cuda import (advance_1d, advance_cuda,
                                            auto_dt_cuda, auto_dt_reset,
@@ -318,7 +342,10 @@ def cuda_time_ms(fn, reps: int) -> float:
 
 # the kernels' names in a profiler trace: the new kernels and their
 # `_simple` baselines; K3's baseline is three device ops, the previous
-# kernel and PyTorch's clamp and select, which the new kernel replaces
+# kernel and PyTorch's clamp and select, which the new kernel replaces; a
+# traced wind's library compiles the same kernels in a namespace `traced`
+# (rhs.cuh PICLES_KERNELS_BEGIN), which only the traced keys name
+# (``kernel_named``)
 KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K2": "pic_gather_tiled_kernel<",
                "K2 simple": "pic_gather_simple_kernel(",
@@ -330,7 +357,18 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K5": "remesh_kernel(",
                "K6": "pic_gather_remesh_tiled_kernel<",
                "K6 simple": "pic_gather_remesh_simple_kernel(",
-               "K7": "advance_1d_kernel<"}
+               "K7": "advance_1d_kernel<",
+               "K1 traced": "traced::advance_kernel<",
+               "K3 traced": "traced::auto_dt_kernel<",
+               "K5 traced": "traced::remesh_kernel(",
+               "K6 traced": "traced::pic_gather_remesh_tiled_kernel<"}
+
+
+def kernel_named(key: str, name: str) -> bool:
+    """Whether the device op ``name`` is a launch of the kernel that
+    ``key`` (a KERNEL_KEYS name) names: a key without ``traced::`` names
+    none of a traced library's kernels."""
+    return key in name and ("traced::" in name) == key.startswith("traced::")
 
 
 # kernel id -> [launches a trace held, launches timed] of each timing whose
@@ -367,7 +405,7 @@ def kernel_ms(fn, key: str, reps: int, tries: int = 5,
             torch.cuda.synchronize()
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(nm in e.name for nm in names)]
+              and any(kernel_named(nm, e.name) for nm in names)]
         assert len(ev) <= want, f"{key}: {len(ev)} of {want} launches"
         best = ev if len(ev) > len(best) else best
         if len(ev) == want:
@@ -379,7 +417,8 @@ def kernel_ms(fn, key: str, reps: int, tries: int = 5,
             [len(best), want])
     ms = 0.0
     for nm in names:
-        us = [e.time_range.elapsed_us() for e in best if nm in e.name]
+        us = [e.time_range.elapsed_us() for e in best
+              if kernel_named(nm, e.name)]
         assert 2 * len(us) >= reps * per_call, \
             f"{key}: {len(us)} of {reps * per_call} {nm!r} launches in the " \
             f"fullest trace"
@@ -444,7 +483,8 @@ def gridded_wind_ops(B: int) -> int:
 
 
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
-             n_wf: int = 0, proj: bool = False, layers: int = 1) -> dict:
+             n_wf: int = 0, proj: bool = False, layers: int = 1,
+             traced_ops: int = 0) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
     the node x (4 bytes, which only an analytic wind reads) or a wind's
     ``n_wf`` planes in (4 bytes each: 4 + 3B gridded, 2 of the node kind)
@@ -453,13 +493,17 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
     tried (accepted or rejected) S evaluations (each with the gridded
     samplers; the node kind's pair is loaded once) and the substep's own
     operations.  With ``layers`` the ``n`` particles are that many layers of
-    one grid, whose node x and node planes are read once a node."""
+    one grid, whose node x and node planes are read once a node.  A traced
+    wind (``traced_ops`` operations an evaluation) reads the node x and y
+    (8 bytes)."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
-    rhs = RHS_OPS + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0)
+    rhs = RHS_OPS + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
+                                  if n_wf > 2 else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    node = 4.0 * (n_wf == 0) + 4.0 * n_wf + 20.0 * proj
+    node = 4.0 * (n_wf == 0) + 4.0 * n_wf + 20.0 * proj + 4.0 * (
+        traced_ops > 0)
     return bound((62.0 + node / layers) * n, ops)
 
 
@@ -488,8 +532,28 @@ def k7_bound(n: int, method: str, adaptive: bool, live, iters,
     return bound(50.0 * n + record_bytes, ops)
 
 
+def remesh_branch_bytes(branch: torch.Tensor, wind_bytes: float) -> float:
+    """The bytes the branch table must move at one layer's nodes, by the
+    branch each node took in this run (``branch``, the kernel's output:
+    remesh.cuh GATHER_BIT, RESEED_BIT, OFF_BIT, 0 outside the particle
+    set): at every node its two masks and dt in (a gathered or reseeded
+    node's dt is clipped, the others' kept) and its 29 bytes out; outside
+    the particle set the particle (lne, cgx, cgy, px, py, on: 21 bytes),
+    which it keeps; an off node its particle's five planes (20 bytes); a
+    node that does not gather its wind (``wind_bytes``), whose strength
+    decides reseed or off.  A gathered node's particle is overwritten, its
+    wind not needed."""
+    b = branch.reshape(-1)
+    n = b.numel()
+    outside = int((b == 0).sum())
+    off = int(((b & 4) != 0).sum())
+    no_gather = int(((b & 1) == 0).sum()) - outside
+    return 35.0 * n + 21.0 * outside + 20.0 * off + wind_bytes * no_gather
+
+
 def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
-                  n_wf: int = 0, layers: int = 1) -> dict:
+                  n_wf: int = 0, layers: int = 1, traced_ops: int = 0,
+                  branch: torch.Tensor = None) -> dict:
     """K2/K4/K6 on this run's shapes: per source 5 float planes and the mask
     (21 bytes) and about 13 operations (clamps, floors, weights, c * m); per
     output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
@@ -499,10 +563,15 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     place of the node x, and a gridded wind's samplers' operations.  With
     ``layers`` the sources and outputs are that many layers of one grid,
     whose masks and node x (or wind planes) the remesh reads once a
-    node."""
+    node.  A traced wind (``traced_ops`` operations, ``n_wf`` = 1: the
+    node y) reads the node x too.  With this run's ``branch`` (one layer)
+    the remesh's bytes are those its branches need
+    (``remesh_branch_bytes``), and the wind's operations count only at the
+    nodes that do not gather."""
     (xl, xh), (yl, yh) = normalize_halo(halo)
     cells = (xl + xh + 1) * (yl + yh + 1)
     wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
+    wind += 4.0 * (traced_ops > 0)
     node = 6.0 + wind   # active, boundary and x (or the wind planes)
     nbytes = 21.0 * n_src + 12.0 * n_out + (
         (54.0 + node / layers) * n_out if remesh else 0.0)
@@ -510,18 +579,42 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
                                                  else 0.0)
     if remesh and n_wf > 2:
         ops += gridded_wind_ops((n_wf - 4) // 3) * n_out
+    if remesh:
+        ops += traced_ops * n_out
+    if remesh and branch is not None:
+        assert layers == 1 and n_wf <= 2
+        need = int(((branch & 1) == 0).sum())
+        nbytes = 21.0 * n_src + 12.0 * n_out + remesh_branch_bytes(
+            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0))
+        ops += traced_ops * (need - n_out)
     return bound(nbytes, ops)
 
 
-def remesh_bound(n: int, n_wf: int = 0, layers: int = 1) -> dict:
+def remesh_bound(n: int, n_wf: int = 0, layers: int = 1,
+                 traced_ops: int = 0, branch: torch.Tensor = None) -> dict:
     """K5: 72 bytes a node (43 in, 29 out) and about 60 operations; a
     wind's ``n_wf`` planes in place of the node x, and a gridded wind's
     samplers' operations.  With ``layers`` the ``n`` nodes are that many
     layers of one grid, whose masks and node x (or wind planes) are read
-    once a node."""
+    once a node.  A traced wind (``traced_ops`` operations, ``n_wf`` = 1:
+    the node y) reads the node x too.  With this run's ``branch`` (one
+    layer) the bytes are those its branches need (``remesh_branch_bytes``,
+    and the deposited state, 12 bytes, at the nodes of the particle set),
+    and the wind's operations count only at the nodes that do not
+    gather."""
     wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
-    ops = 60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0)
+    wind += 4.0 * (traced_ops > 0)
+    ops = 60.0 + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
+                               if n_wf > 2 else 0)
     node = 6.0 + wind   # active, boundary and x (or the wind planes)
+    if branch is not None:
+        assert layers == 1 and n_wf <= 2
+        inside = int((branch != 0).sum())
+        need = int(((branch & 1) == 0).sum())
+        return bound(4.0 + 12.0 * inside + remesh_branch_bytes(
+            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0)),
+            (60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0))
+            * n + traced_ops * need)
     return bound((66.0 + node / layers) * n, ops * n)
 
 
@@ -536,17 +629,21 @@ def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
     h0, h1 and the clamp (about 62 operations); per lane that is not reset
     its dt (4 bytes) and no operation.  With ``layers`` the lanes are that
     many layers of one grid, whose node x and node planes are read once a
-    node."""
+    node.  A traced wind reads the node x and y and t, and runs its
+    operations an evaluation."""
     n, r = reset.numel(), int(reset.sum())
     gridded = wind.kind == WindKind.GRIDDED
+    traced = wind.kind == WindKind.TRACED
     n_wf = (4 + 3 * wind.n_break if gridded else
             2 if wind.kind == WindKind.NODE else 0)
     node = 4.0 * (wind.kind in (WindKind.HALF_DOMAIN, WindKind.TIME_COSINE)) \
-        + 4.0 * n_wf + 20.0 * proj
+        + 4.0 * n_wf + 20.0 * proj + 8.0 * traced
     per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.TIME_COSINE,
-                                            WindKind.GRIDDED)) \
+                                            WindKind.GRIDDED,
+                                            WindKind.TRACED)) \
         + node / layers
-    rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0)
+    rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0) + (
+        len(wind.traced.ops) if traced else 0)
     return bound(5.0 * n + per_reset * r + 4.0 * (n - r),
                  (2 * rhs + 62.0) * r)
 
@@ -718,41 +815,155 @@ def phase_k1(dev, results):
 
 
 def check_k1(tag, winds, consts, flags, cfg, comps, t, dt, active, grid,
-             proj):
-    """K1 on these inputs bit for bit its _simple baseline and against
-    integrate_to: fixed substeps within rtol 1e-5 with dt, failed and
-    naccept equal; adaptive by share of lanes (``assert_adaptive``,
-    ``assert_controller``), failed equal.  Returns (max abs err, failed
+             proj, baseline: bool = True, witness=None,
+             loose_atol: float = 1e-3, stats: dict = None):
+    """K1 on these inputs bit for bit its _simple baseline (``baseline``:
+    a traced wind has none) and against integrate_to: fixed substeps within
+    rtol 1e-5 with dt, failed and naccept equal; adaptive by share of lanes
+    (``assert_adaptive``, ``assert_controller``), failed equal.
+    ``witness`` (a lane mask) names lanes whose plain version is
+    ill-conditioned: their values are held by ``witness_check`` against
+    the plain version run again with every component one ulp up (the
+    witness, run here), the others as above.  ``loose_atol`` is
+    ``assert_adaptive``'s near-zero bound; above its 1e-3 the witness
+    runs too, and ``near_zero_check`` holds the lanes between the two
+    bounds to the witness's count.  ``stats``: a dict that takes the
+    witness's readings under ``tag``.  Returns (max abs err, failed
     lanes)."""
     args = (winds, consts, flags, cfg, DT, comps, t, dt, active, grid.x,
             grid.y, proj)
     k = advance_cuda(*args)
-    assert_bitwise(tag, k, advance_cuda(*args, simple=True))
+    if baseline:
+        assert_bitwise(tag, k, advance_cuda(*args, simple=True))
     rhs = make_rhs(winds.u, winds.v, consts, flags)
     aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
-    p = integrate_to(rhs, torch.stack(comps, dim=-1), t, t + DT, dt, aux,
-                     active, cfg)
+    z = torch.stack(comps, dim=-1)
+    p = integrate_to(rhs, z, t, t + DT, dt, aux, active, cfg)
+    near_zero = cfg.adaptive and loose_atol > 1e-3
+    pu = None
+    if witness is not None or near_zero:
+        pu = integrate_to(rhs, torch.nextafter(z, torch.full_like(
+            z, float("inf"))), t, t + DT, dt, aux, active, cfg)
     torch.cuda.synchronize()
     names = ("lne", "cgx", "cgy", "x", "y")
     extra = ""
+    ok = torch.ones_like(active) if witness is None else ~witness
+    mode = "adaptive" if cfg.adaptive else "fixed"
+    w = {}
     if cfg.adaptive:
         assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
-        errs = [assert_adaptive(f"{tag} {nm}", kz, p.z[..., i])
+        errs = [assert_adaptive(f"{tag} {nm}", kz[ok], p.z[..., i][ok],
+                                loose_atol=loose_atol)
                 for i, (nm, kz) in enumerate(zip(names, k[:5]))]
         assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0)
-        extra = "; " + assert_controller(tag, k, p, active)
+        extra = "; " + assert_controller(tag, k, p, active & ok)
+        if near_zero:
+            w.update(near_zero_check(tag, k, p, pu, ok & active))
+            extra += (f"; beyond rtol 0.1 / atol 1e-3 of the plain version "
+                      f"on {w['lanes']} lanes: K1 {w['kernel_beyond']}, the "
+                      f"witness {w['witness_beyond']}, none beyond "
+                      f"{loose_atol:g}")
     else:
-        errs = [assert_close(f"{tag} {nm}", kz, p.z[..., i], 1e-5, 1e-6)
+        errs = [assert_close(f"{tag} {nm}", kz[ok], p.z[..., i][ok], 1e-5,
+                             1e-6)
                 for i, (nm, kz) in enumerate(zip(names, k[:5]))]
         errs.append(assert_close(f"{tag} t", k.t, p.t, 1e-6, 0.0))
         assert torch.equal(k.dt, p.dt), f"{tag}: dt not carried as given"
         assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
         assert torch.equal(k.naccept, p.naccept), f"{tag}: naccept differs"
+    if witness is not None:
+        rtol, atol = WITNESS_TOLS[mode]
+        w.update(witness_check(tag, k, p, pu, witness, rtol, atol,
+                               WITNESS_MARGIN[mode]))
+        extra += "; " + w["summary"]
+    if stats is not None and w:
+        stats[tag] = w
     nfail = int(k.failed.sum())
     log("K1", f"{tag}: max abs err {max(errs):.3e}, substeps max "
               f"{int(k.naccept.max())}/{int(p.naccept.max())}, "
-              f"failed {nfail}{extra}; bitwise equal to _simple")
+              f"failed {nfail}{extra}"
+              f"{'; bitwise equal to _simple' if baseline else ''}")
     return max(errs), nfail
+
+
+def near_zero_check(tag, k, p, pu, lanes) -> dict:
+    """Adaptive lanes held at a near-zero bound looser than
+    ``assert_adaptive``'s 1e-3: on ``lanes``, the count of lanes on which
+    K1 parts from the plain version ``p`` beyond rtol 0.1 / atol 1e-3 may
+    be at most twice the count on which the witness ``pu`` (the plain
+    version run with every component one ulp up) parts from it, plus 3
+    (counting noise).  On the H100 at 1536^2 (the stripped time-cosine,
+    tsit5 adaptive) K1 parted from the plain version on 12 lanes, the
+    witness on 10, the witness one ulp down on 11 and a float64 run on 11,
+    and none beyond 5e-3.  Returns the counts."""
+    def beyond(a):
+        return int((~torch.isclose(a[lanes], p.z[lanes], rtol=0.1, atol=1e-3,
+                                   equal_nan=True)).any(-1).sum())
+
+    r = dict(lanes=int(lanes.sum()),
+             kernel_beyond=beyond(torch.stack(list(k[:5]), dim=-1)),
+             witness_beyond=beyond(pu.z))
+    assert r["kernel_beyond"] <= 2 * r["witness_beyond"] + 3, \
+        f"{tag}: K1 parts from the plain version beyond rtol 0.1 / atol " \
+        f"1e-3 on {r['kernel_beyond']} lanes, the witness on " \
+        f"{r['witness_beyond']}"
+    return r
+
+
+# the lanes of K1 that step over a wind's stop (``witness_check``): the
+# tolerances of a lane's agreement with the plain version, and how far
+# K1's share of agreeing lanes may fall below the witness's (the plain
+# version against itself one ulp up, in the same run).  On the H100 at
+# 1536^2 the witness kept 98.99% (fixed) and 88.82% (adaptive) of the
+# crossing lanes, K1 98.91% and 89.30%: the margins are about five times
+# the fixed gap and four times the adaptive one, and widen to three
+# binomial deviations of the witness's share on a small sample
+WITNESS_TOLS = {"fixed": (1e-5, 1e-6), "adaptive": (5e-3, 1e-4)}
+WITNESS_MARGIN = {"fixed": 0.005, "adaptive": 0.02}
+
+
+def witness_check(tag, k, p, pu, lanes, rtol: float, atol: float,
+                  margin: float) -> dict:
+    """On ``lanes``, where the plain version ``p`` is ill-conditioned
+    (tsit5 substeps across a wind that stops): the lanes on which the
+    plain version diverges (a component not finite, or lne below -50) are
+    K1's (``k``) too, and of the others the share that agree within
+    ``rtol`` and ``atol`` in every component is no more than ``margin``
+    (or three binomial deviations of the witness's share, if more) below
+    the witness's: ``pu``, the plain version run with every component of
+    its input one ulp up, read the same way.  Returns the readings and a
+    summary for the log."""
+    kz = torch.stack(list(k[:5]), dim=-1)[lanes]
+    pz, uz = p.z[lanes], pu.z[lanes]
+
+    def diverged(z):
+        return ~torch.isfinite(z).all(-1) | (z[..., 0] < -50.0)
+
+    def share(a, b):
+        near = ((a - b).abs() <= atol + rtol * b.abs()).all(-1)
+        return float(near.double().mean()) if near.numel() else 1.0
+
+    dk, dp, du = diverged(kz), diverged(pz), diverged(uz)
+    assert torch.equal(dk, dp), \
+        f"{tag}: K1 diverges on {int(dk.sum())} lanes, the plain version " \
+        f"on {int(dp.sum())} ({int((dk != dp).sum())} differ)"
+    keep = ~dp & ~du
+    ws = share(uz[keep], pz[keep])
+    dev3 = 3.0 * (ws * (1.0 - ws) / max(int(keep.sum()), 1)) ** 0.5
+    r = dict(lanes=int(lanes.sum()), diverged=int(dp.sum()),
+             witness_diverged_differ=int((du != dp).sum()),
+             share=share(kz[~dp], pz[~dp]), witness_share=ws, rtol=rtol,
+             min_share=ws - max(margin, dev3))
+    assert r["share"] >= r["min_share"], \
+        f"{tag}: {r['share']:.4%} of the lanes crossing the stop within " \
+        f"rtol {rtol:g}, the witness {ws:.4%} (need {r['min_share']:.4%})"
+    r["summary"] = (f"{r['lanes']} lanes step over the stop: "
+                    f"{r['diverged']} diverge in both, {r['share']:.4%} of "
+                    f"the others within rtol {rtol:g} (need "
+                    f"{r['min_share']:.4%}); the witness (the plain "
+                    f"version one ulp up) {ws:.4%}, its diverged lanes "
+                    f"differ on {r['witness_diverged_differ']}")
+    return r
 
 
 def phase_k3(dev, results):
@@ -919,13 +1130,26 @@ KERNEL_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
               "K6": pic_gather_remesh, "K7": advance_1d}
 
 
+# the wrappers whose traced instances count apart (``traced_launches``)
+TRACED_FNS = {"K1 traced": advance_cuda, "K3 traced": auto_dt_cuda,
+              "K5 traced": remesh_cuda, "K6 traced": pic_gather_remesh}
+
+
 def counters():
     return {k: fn.launches for k, fn in KERNEL_FNS.items()}
+
+
+def all_counters():
+    """``counters()`` and the traced instances' (``TRACED_FNS``)."""
+    return {**counters(),
+            **{k: fn.traced_launches for k, fn in TRACED_FNS.items()}}
 
 
 def reset_counters():
     for fn in KERNEL_FNS.values():
         fn.launches = 0
+    for fn in TRACED_FNS.values():
+        fn.traced_launches = 0
 
 
 def eager_steps(model, ms, n: int):
@@ -1698,7 +1922,7 @@ def traced_run(model, stop_time: float, want: dict, state=None, **run_kw):
     reset_counters()
     stats, got = trace_window(run, steps,
                               {KERNEL_KEYS[k]: v for k, v in want.items()})
-    host = counters()
+    host = all_counters()
     assert not any(host.values()), f"the host called kernels in replays: {host}"
     return box[-1], {k: got[KERNEL_KEYS[k]] for k in want}, stats
 
@@ -1833,7 +2057,7 @@ def eager_day(model, want, steps: int):
         ms = model.step(ms)
         total += torch.stack([getattr(ms.metrics, k).to(torch.int64).sum()
                               for k in names])
-    launches = counters()
+    launches = all_counters()
     assert_state_bitwise("the eager day against Simulation.run's", ms, want)
     day = dict(zip(names, total.tolist()))
     del day["substeps_max"]   # a sum of maxima means nothing
@@ -2080,7 +2304,7 @@ def sharded_graph_check(tag: str, sh, ms, rows: dict, results) -> dict:
                    [e.state for e in eager[1:]])
     f = sh.step_jit()
     assert_state_bitwise(f"{tag}: step_jit twice", f(f(ms)), eager[2])
-    c = counters()
+    c = all_counters()
     for row, k in rows.items():
         assert c[k] == n + WARMUP_STEPS + 1, (tag, c)
         results[row]["launches"] += c[k]
@@ -2159,6 +2383,7 @@ def phase_sharded_1x1(dev, gw, results, timing):
         phase_sharded_layers(dev, gw, results, timing)
         phase_sharded_tripolar(dev, results, timing)
         phase_sharded_jet(dev, results, timing)
+        phase_sharded_pulse(dev, results, timing)
     finally:
         dist.destroy_process_group()
     med = {k: float(np.median(v)) for k, v in runs.items()}
@@ -2436,7 +2661,7 @@ def trace_window(run, steps: int, want: dict, attempts: int = 3):
             torch.cuda.synchronize()
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-        got = {k: sum(k in e.name for e in dev) for k in want}
+        got = {k: sum(kernel_named(k, e.name) for e in dev) for k in want}
         if got == want:
             break
         log("trace", f"trace {attempt} holds {got} of {want} launches "
@@ -6456,8 +6681,8 @@ def check_diagnostics(dev) -> dict:
         assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
         with open(os.path.join(logdir, files[0])) as f:
             names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
-    k1 = sum(KERNEL_KEYS["K1"] in nm for nm in names)
-    k6 = sum(KERNEL_KEYS["K6"] in nm for nm in names)
+    k1 = sum(kernel_named(KERNEL_KEYS["K1"], nm) for nm in names)
+    k6 = sum(kernel_named(KERNEL_KEYS["K6"], nm) for nm in names)
     assert k1 > 0 and k6 > 0, (k1, k6)
     model.release_graph()
     log("rest", f"(d) 10 graphed fused flagship steps (step_jit): StepTimer "
@@ -6594,6 +6819,705 @@ def phase_rest(dev, results, timing) -> None:
     log("rest", f"launches by trace {rest}; {out['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# wind callables that read their time: the traced kind (phase
+# "traced-winds")
+# ---------------------------------------------------------------------------
+
+TRACED_REPLACES = {"K1 traced": "picles_tpu/ops/advance_pallas.py:79",
+                   "K3 traced": "picles_tpu/ops/advance_pallas.py:219",
+                   "K5 traced": "picles_tpu/ops/remesh_pallas.py:60",
+                   "K6 traced": "picles_tpu/ops/pic_pallas.py:398"}
+TRACED_SWITCHES = (0.0, 3600.0, 7200.0, 9000.0)
+TRACED_PROBE_POINTS = 1 << 20
+PULSE_STEPS = 144      # a day of DT
+PULSE_PLAIN_STEPS = 12
+RETURN_STEPS = 12
+PULSE_LAYERS = 4
+# the pulse's configurations: fused (the flagship: bosh3, carried dt, halo
+# ((0,3),(0,3))), default (tsit5, the Hairer reset K3 on re-lit lanes,
+# halo 3), and the fused flagship on an open box, whose upwind nodes go
+# off once the wind stops; the kernels (their rows) each launches a step
+PULSE_PATHS = {"fused": ("K1 traced", "K6 traced"),
+               "default": ("K1 traced", "K2", "K3 traced"),
+               "fused open": ("K1 traced", "K6 traced")}
+
+
+def pulse_winds(U: float = 12.0, t_on: float = 0.0,
+                t_off: float = 2 * 3600.0) -> Winds2D:
+    """tests/test_growing_decaying_winds.py:16-26's pulse in torch: U from
+    ``t_on`` to ``t_off``, then calm (a callable that reads its time: the
+    traced kind)."""
+    def u(x, y, t):
+        t = torch.as_tensor(t)
+        return torch.where((t >= t_on) & (t < t_off), U, 0.0) + 0.0 * x
+
+    return Winds2D(u=u, v=lambda x, y, t: torch.zeros_like(x))
+
+
+def returning_winds() -> Winds2D:
+    """tests/test_growing_decaying_winds.py:70-74's returning wind: calm
+    until 1 h, then 12 m/s."""
+    return Winds2D(u=lambda x, y, t: torch.where(torch.as_tensor(t) >= 3600.0,
+                                                 12.0, 0.0) + 0.0 * x,
+                   v=lambda x, y, t: torch.zeros_like(x))
+
+
+def ex02_jet_u(x, y, t):
+    """picles_torch/examples/example_02_tripolar_global.py's zonal jet."""
+    return 12.0 * torch.exp(-(((y - 40.0) / 20.0) ** 2))
+
+
+def every_op_u(x, y, t):
+    """The NaN half of ``every_op_winds``: minimum, maximum and clamp
+    (both bounds, one, ``clamp_min``, ``clamp_max``) with a NaN operand in
+    either place (log and sqrt of negative numbers below x = 1e5 and
+    2e5), selected by ``ne``; NaN below x = 1e5."""
+    a = x * 1e-5
+    b = y / 30.0
+    lo = torch.log(a - 1.0)
+    sq = torch.sqrt(a - 2.0)
+    both = torch.minimum(lo, sq) + torch.maximum(sq, b) \
+        + torch.clamp_min(sq, 0.2)
+    one = torch.clamp(lo, -1.0, 0.5) + torch.maximum(b, lo) \
+        + torch.minimum(lo, b)
+    finite = torch.clamp(b, min=-1.0) + torch.clamp(b, max=1.0) \
+        + torch.clamp_max(a, 2.5)
+    return torch.where(both != both, one, both) + finite
+
+
+def every_op_v(x, y, t):
+    """The finite half of ``every_op_winds``: the transcendentals, each
+    exponent the emitter writes apart (2, 3, 0.5, -1, 1, 0 and a general
+    one), divisions by a host scalar, by a device value and of a host
+    scalar, ``reciprocal``, ``rsub``, ``neg``, the comparisons and the
+    logical operations, a bool cast and the fills."""
+    a = x * 1e-5
+    b = y / 30.0
+    h = t / 3600.0
+    c = a + 2.0
+    w = torch.sin(h) + torch.cos(b) + torch.tanh(a - 1.5) + torch.exp(-a) \
+        + torch.log(a + 1.5) + torch.sqrt(torch.abs(b))
+    p = b ** 2 + 0.1 * b ** 3 + torch.abs(b) ** 0.5 + c ** -1 + c ** 1.7 \
+        + b ** 1 + b ** 0
+    r = 3.0 / c - torch.reciprocal(c) + torch.rsub(a, 1.0) - (-b) \
+        + h / (b * b + 1.0) + torch.div(b, c)
+    on = ((h >= 1.0) & (h < 3.0)) | (~(b > 0.5) ^ (a <= 1.0))
+    same = torch.logical_and(torch.eq(b, b), torch.ne(a, 1.5))
+    odd = torch.logical_xor(torch.logical_or(on, b < 0.0),
+                            torch.logical_not(same))
+    f = torch.full_like(x, 0.25) * on.float() + torch.zeros_like(x) \
+        + torch.ones_like(x) * torch.where(odd, 1.0, -1.0)
+    return w + p + r + f
+
+
+def every_op_winds() -> Winds2D:
+    """A synthetic wind whose graph holds every operation the tracer
+    takes (``wind_trace.OPS``), with NaN operands reaching minimum, maximum
+    and clamp: the check that the emitter writes each as ATen's CUDA
+    kernels compute it.  Not a physical wind."""
+    return Winds2D(u=every_op_u, v=every_op_v)
+
+
+def traced_callables() -> dict:
+    """The callables of the phase: the pulse, the returning wind,
+    ``time_cosine_winds(10, 5, 6 h, t_off=9000)`` stripped of its
+    descriptor, example 02's jet (steady: the model gives it the node
+    kind, so it is forced through the tracer at the wrappers) and the
+    synthetic ``every_op_winds``."""
+    cos = time_cosine_winds(10.0, 5.0, 6 * 3600.0, t_off=9000.0)
+    return {"pulse": pulse_winds(), "returning": returning_winds(),
+            "time_cosine stripped": Winds2D(u=cos.u, v=cos.v),
+            "example 02 jet": Winds2D(u=ex02_jet_u, v=jet_v),
+            "every op": every_op_winds()}
+
+
+def traced_build(dev, winds: dict) -> dict:
+    """Each callable traced on the card and its library built, all at
+    once (a thread a library, nvcc's processes in parallel), then loaded;
+    the pulse's and the time-cosine's sources compiled to PTX and checked
+    for float64 (``unexpected_double_ops``).  Returns name -> descriptor,
+    and the build's wall seconds."""
+    kerns = {k: traced_kernel(w, dev) for k, w in winds.items()}
+    assert all(k.kind == WindKind.TRACED for k in kerns.values())
+    srcs = [k.traced.source for k in kerns.values()]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(srcs) + 2) as ex:
+        builds = list(ex.map(cuda_build.build_traced, srcs))
+        bad = list(ex.map(cuda_build.unexpected_double_ops,
+                          [kerns["pulse"].traced.source,
+                           kerns["time_cosine stripped"].traced.source]))
+    wall = time.perf_counter() - t0
+    for s in srcs:
+        cuda_build.traced_library(s)
+    assert not any(bad), f"float64 in the traced kernels: {bad}"
+    regs = sorted({ln.split(":", 1)[1].strip()
+                   for b in builds for ln in b.log.splitlines()
+                   if "registers" in ln})
+    log("traced-winds", f"{len(srcs)} traced libraries built in {wall:.1f} "
+                        f"s (each {[round(b.seconds, 1) for b in builds]} "
+                        f"s); ptxas: {' | '.join(regs)}; no float64 beyond "
+                        f"cosf's argument reduction")
+    return kerns, wall
+
+
+def traced_probe_check(dev, winds: dict, kerns: dict, n: int) -> dict:
+    """(a) The emitted function alone (``picles_traced_probe``) on ``n``
+    points (x, y, t), t exactly at each switch time and its float32
+    neighbours among them, x and y infinite or NaN at a few, bit for bit
+    (NaN's bits too) the callable run by torch on the card, and the
+    tracer's plain evaluator bit for bit too.  Returns name -> the emitted
+    function's operation count."""
+    rng = np.random.default_rng(41)
+    xs = rng.uniform(-1e5, 3.1e6, n).astype(np.float32)
+    ys = rng.uniform(-90.0, 90.0, n).astype(np.float32)
+    # the last points: zeros of either sign, the NaN thresholds of
+    # ``every_op_u``, infinities and NaN
+    xs[-7:] = [0.0, -0.0, 1e5, 2e5, np.inf, -np.inf, np.nan]
+    ys[-7:] = [0.0, -0.0, 45.0, -90.0, np.nan, np.inf, -np.inf]
+    x = torch.as_tensor(xs, device=dev)
+    y = torch.as_tensor(ys, device=dev)
+    t = rng.uniform(0.0, 2e4, n).astype(np.float32)
+    sw = np.array(TRACED_SWITCHES, np.float32)
+    near = np.concatenate([sw, np.nextafter(sw, np.float32(-1e9)),
+                           np.nextafter(sw, np.float32(1e9))])
+    t[:near.size] = near
+    t[near.size:near.size + 4096] = np.repeat(sw, 1024)
+    t = torch.as_tensor(t, device=dev)
+    out = {}
+    for name, w in winds.items():
+        tr = kerns[name].traced
+        lib = cuda_build.traced_library(tr.source)
+        u, v = torch.empty_like(x), torch.empty_like(x)
+        with torch.cuda.device(dev):
+            code = lib.picles_traced_probe(
+                x.data_ptr(), y.data_ptr(), t.data_ptr(), u.data_ptr(),
+                v.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check_status(code, "traced probe")
+        want = [torch.broadcast_to(f(x, y, t), x.shape) for f in (w.u, w.v)]
+        for what, got in (("the emitted function", (u, v)),
+                          ("the plain evaluator", tr.evaluate(x, y, t))):
+            for c, a, b in zip("uv", got, want):
+                d = int((bits(a) != bits(b.contiguous())).sum())
+                assert d == 0, f"traced {name}: {what}'s {c} differs from " \
+                               f"the callable on {d} of {n} points"
+        out[name] = len(tr.ops)
+        log("traced-winds", f"(a) {name}: the emitted function "
+                            f"({len(tr.ops)} operations) and the plain "
+                            f"evaluator bit for bit the callable on {n} "
+                            f"points, the switch times among them")
+    return out
+
+
+def traced_step_state(dev, n: int, winds, steps: int):
+    """The fused flagship forced by ``winds`` after ``steps`` eager steps:
+    (model, state)."""
+    m = flagship_model(n, dev, winds=winds, remesh_mode="fused")
+    return m, eager_steps(m, m.init_state(), steps)
+
+
+def traced_kernel_checks(dev, n: int, winds: dict, kerns: dict,
+                         results: dict, timing: dict,
+                         only=("K1", "K3", "K5", "K6")) -> dict:
+    """(b) K1, K3, K5 and K6 (those of ``only``) in the traced kind at n^2
+    against their plain versions (the model's plain paths over the
+    callable, which the plain evaluator equals bit for bit): K1 on a
+    perturbed state whose lanes start between 0 and 12000 s (across the
+    switch times), the pulse and the stripped time-cosine, bosh3 and
+    tsit5, fixed substeps within rtol 1e-5 (dt, failed and naccept equal)
+    and adaptive by share of lanes (``check_k1``; the pulse's tsit5 lanes
+    that step over a switch by ``witness_check``, their readings into
+    ``timing["traced_witness"]``); K3 within rtol 1e-5 with
+    every lane and half the lanes reset; K5 and K6 on the pulse's fused
+    flagship deposit, a band of rows deposited empty, at the clock (wind
+    on: the band reseeds) and at 7200 s (calm: it goes off), K5 by
+    ``assert_remesh``, K6 bit for bit K2 + K5.  Example 02's jet, traced at
+    the wrappers on node y in degrees, bit for bit its node kind in each
+    kernel (K1 bosh3 adaptive and tsit5 fixed); K1 and K3 of the stripped
+    time-cosine against the ``TIME_COSINE`` descriptor on the same state,
+    the gap logged.  Returns the max abs errors by kernel id."""
+    params, cid, _ = ODEParameters.create()
+    consts = make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+    flags = TermFlags()
+    comps, dt0, active, grid = perturbed_state(n, dev, seed=31)
+    proj = uniform_projection(grid.proj, grid.pc)
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    rng = np.random.default_rng(32)
+    t0 = torch.as_tensor(rng.uniform(0.0, 1.2e4, (n, n)).astype(np.float32),
+                         device=dev)
+    k = min(1024, n * n // 4)
+    t0.view(-1)[:4 * k] = torch.as_tensor(np.repeat(np.array(
+        TRACED_SWITCHES, np.float32) - DT / 2, k), device=dev)
+    errs = {}
+    # example 02's jet on node y in degrees: traced, and its node kind
+    jw = winds["example 02 jet"]
+    yd = torch.linspace(-80.0, 80.0, n, device=dev)[None, :].expand(
+        n, n).contiguous()
+    wf = tuple(steady_node_planes(jw, grid.x, yd).unbind(0))
+    wt = jw._replace(kernel=kerns["example 02 jet"])
+    wn = jw._replace(kernel=node_kernel())
+    cos_t = winds["time_cosine stripped"]._replace(
+        kernel=kerns["time_cosine stripped"])
+    cos_d = time_cosine_winds(10.0, 5.0, 6 * 3600.0, t_off=9000.0)
+    if "K1" in only:
+        errs["K1"] = 0.0
+        for wname in ("pulse", "time_cosine stripped"):
+            w = winds[wname]._replace(kernel=kerns[wname])
+            for method in ("bosh3", "tsit5"):
+                for adaptive in (False, True):
+                    cfg = SolverConfig(method=method, adaptive=adaptive,
+                                       dtmin=1e-4, force_dtmin=True)
+                    dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
+                    # tsit5 substeps across the pulse's switches: the plain
+                    # version is ill-conditioned there (fixed substeps
+                    # diverge on 15,897 of 120,166 crossing lanes at 1536^2
+                    # on an H100, in the plain version, in K1 and in the
+                    # witness alike), so those lanes are held by
+                    # ``witness_check`` beside the witness; adaptive lanes
+                    # by the gridded winds' near-zero bound, 5e-3, beside
+                    # the witness (``near_zero_check``: the float32 problem
+                    # parts as many lanes beyond 1e-3 as K1 does)
+                    cross = None
+                    if wname == "pulse" and method == "tsit5":
+                        cross = torch.zeros_like(active)
+                        for sw in (0.0, 7200.0):
+                            cross |= (t0 < sw) & (t0 + DT > sw)
+                    err, _ = check_k1(
+                        f"K1 traced {wname} {method} "
+                        f"{'adaptive' if adaptive else 'fixed'}", w, consts,
+                        flags, cfg, comps, t0, dt, active, grid, proj,
+                        baseline=False, witness=cross,
+                        loose_atol=GRIDDED_LOOSE_ATOL,
+                        stats=timing.setdefault("traced_witness", {}))
+                    if not adaptive:
+                        errs["K1"] = max(errs["K1"], err)
+        for method, adaptive in (("bosh3", True), ("tsit5", False)):
+            cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                               force_dtmin=True)
+            dt = dt0 if adaptive else torch.full_like(dt0, 37.5)
+            args = (consts, flags, cfg, DT, comps, t0, dt, active, grid.x,
+                    yd, proj)
+            assert_bitwise(f"K1 jet traced vs node kind {method}",
+                           advance_cuda(wt, *args),
+                           advance_cuda(wn, *args, wind_fields=wf))
+        cfg = SolverConfig(method="tsit5", adaptive=False, dtmin=1e-4,
+                           force_dtmin=True)
+        args = (consts, flags, cfg, DT, comps, t0,
+                torch.full_like(dt0, 37.5), active, grid.x, grid.y, proj)
+        ka, kb = advance_cuda(cos_t, *args), advance_cuda(cos_d, *args)
+        names = ("lne", "cgx", "cgy", "x", "y")
+        gap = {nm: max_abs(a, b) for nm, a, b in zip(names, ka[:5], kb[:5])}
+        same = float(torch.stack([torch.eq(a, b) for a, b in
+                                  zip(ka[:5], kb[:5])]).all(0).double()
+                     .mean())
+        for i, nm in enumerate(names):
+            assert_close(f"K1 time-cosine traced vs descriptor {nm}", ka[i],
+                         kb[i], 1e-4, 1e-5)
+        timing["traced_vs_time_cosine_k1"] = dict(max_abs=gap,
+                                                  lanes_equal=same)
+        log("K1 traced", f"{n}^2, lanes from 0 to 12000 s: fixed substeps "
+                         f"within rtol 1e-5 (max abs err {errs['K1']:.3e}), "
+                         f"adaptive by share of lanes; the jet bit for bit "
+                         f"its node kind; the stripped time-cosine (t * 2pi "
+                         f"times the float32 reciprocal of the period, as "
+                         f"torch on the card) against the TIME_COSINE "
+                         f"descriptor (t * 2pi / period), tsit5 fixed: "
+                         f"{same:.4%} of lanes bit for bit, max abs gaps "
+                         f"{gap}")
+    if "K3" in only:
+        errs["K3"] = 0.0
+        for wname in ("pulse", "time_cosine stripped"):
+            w = winds[wname]._replace(kernel=kerns[wname])
+            rhs = make_rhs(w.u, w.v, consts, flags)
+            for tag, reset in (("all", torch.ones_like(active)),
+                               ("half", half_reset_mask((n, n), dev,
+                                                        seed=33))):
+                k3 = auto_dt_cuda(w, consts, flags, t0, comps, grid.x,
+                                  grid.y, proj, reset, dt0, 1e-4, DT)
+                p = auto_dt_reset(rhs, t0, torch.stack(comps, dim=-1), aux,
+                                  reset, dt0, 1e-4, DT)
+                errs["K3"] = max(errs["K3"], assert_close(
+                    f"K3 traced {wname} {tag} reset", k3, p, 1e-5, 0.0))
+        reset = half_reset_mask((n, n), dev, seed=34)
+        a3 = (consts, flags, t0, comps, grid.x, yd, proj, reset, dt0, 1e-4,
+              DT)
+        assert_bitwise("K3 jet traced vs node kind", (auto_dt_cuda(wt, *a3),),
+                       (auto_dt_cuda(wn, *a3, wind_fields=wf),))
+        reset = torch.ones_like(active)
+        a3 = (consts, flags, t0, comps, grid.x, grid.y, proj, reset, dt0,
+              1e-4, DT)
+        gap = assert_close("K3 time-cosine traced vs descriptor",
+                           auto_dt_cuda(cos_t, *a3), auto_dt_cuda(cos_d, *a3),
+                           1e-4, 0.0)
+        timing["traced_vs_time_cosine_k3"] = dict(max_abs=gap)
+        log("K3 traced", f"{n}^2: within rtol 1e-5 of the plain version "
+                         f"(max abs err {errs['K3']:.3e}); the jet bit for "
+                         f"bit its node kind; the stripped time-cosine "
+                         f"against the TIME_COSINE descriptor: max abs gap "
+                         f"{gap:.3e}")
+    if "K5" in only or "K6" in only:
+        pm, ps = traced_step_state(dev, n, winds["pulse"], 2)
+        assert pm.winds.kernel.kind == WindKind.TRACED
+        core, chans, sact = flagship_deposit_inputs(pm, ps)
+        # no energy deposited from the first third of the rows: their
+        # nodes fail the gather and reseed from the wind (at the clock,
+        # the pulse on) or go off (at 7200 s, calm)
+        band = torch.arange(n, device=dev)[:, None] < n // 3
+        chans = tuple(torch.where(band, 0.0, c) for c in chans)
+        rp = pm.remesh_params
+        prp = rp._replace(winds=winds["pulse"])
+        ga = (core[3], core[4], chans, sact, pm.grid.stats, pm.config.halo)
+        node, _ = pic_gather(*ga)
+        S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                             pm.grid.stats, pm.config.halo)
+        errs["K5"] = 0.0
+        e2 = max(assert_close(f"K2 of the pulse ch{c}", node[c], S[..., c],
+                              1e-5, 1e-6 * float(S[..., c].abs().max()))
+                 for c in range(3))
+        for clock in (ps.time, torch.full((), 7200.0, device=dev)):
+            cc = (*core[:-1], clock)
+            k5 = remesh_cuda(rp, node, *cc)
+            errs["K5"] = max(errs["K5"], assert_remesh(
+                f"K5 traced pulse at {float(clock):g} s", k5,
+                remesh_core(prp, node, *cc)))
+            nd, rm, _ = pic_gather_remesh(*ga, rp, *cc)
+            assert_bitwise(f"K6 traced pulse at {float(clock):g} s vs "
+                           f"K2 + K5", (*nd, *rm), (*node, *k5))
+            br = branch_counts(k5.branch)
+            assert (" reseed 0 " in br) == (float(clock) >= 7200.0) and \
+                (" off 0" in br) != (float(clock) >= 7200.0), br
+            log("K5 traced", f"pulse at the clock {float(clock):g} s: {br}; "
+                             f"K6 bit for bit K2 + K5")
+        errs["K6"] = max(errs["K5"], e2)
+        cd = (*core[:10], yd, core[11])
+        rt, rn = rp._replace(winds=wt), rp._replace(winds=wn)
+        assert_bitwise("K5 jet traced vs node kind",
+                       remesh_cuda(rt, node, *cd),
+                       remesh_cuda(rn, node, *cd, wind_fields=wf))
+        a, b = (pic_gather_remesh(*ga, rt, *cd),
+                pic_gather_remesh(*ga, rn, *cd, wind_fields=wf))
+        assert_bitwise("K6 jet traced vs node kind", (*a[0], *a[1]),
+                       (*b[0], *b[1]))
+        log("K6 traced", "the jet traced bit for bit its node kind in K5 "
+                         "and K6")
+    for k, e in errs.items():
+        results[f"{k} traced"]["max_abs_err"] = e
+    return errs
+
+
+def pulse_model(path: str, n: int, dev, winds=None, **modes):
+    """The pulse (or ``winds``) under ``path`` of PULSE_PATHS at n^2."""
+    winds = winds or pulse_winds()
+    if path == "default":
+        return default_model(n, dev, winds=winds, **modes)
+    return flagship_model(n, dev, winds=winds, remesh_mode="fused",
+                          periodic=path == "fused", **modes)
+
+
+def pulse_main_path(dev, n: int, results, timing) -> None:
+    """(c) The pulse at n^2 under PULSE_PATHS: a day of PULSE_STEPS steps
+    through ``Simulation.run``, graphed, its launches counted by name in a
+    trace (``traced_run``), then the day eagerly (``eager_day``: bit for
+    bit the graphed day, the counters summed: no failed and no clamped
+    lane; the open box's upwind nodes go off once the wind stops), finite;
+    ms a step graphed against the eager plain advance
+    (``advance_mode="torch"``) of the same configuration, PULSE_PLAIN_STEPS
+    steps each, in turns.  Then the returning wind (calm until 1 h) on the
+    fused flagship, RETURN_STEPS eager steps with the counters set to 0
+    just before and read just after: the calm nodes re-light."""
+    out = {}
+    for path, kerns in PULSE_PATHS.items():
+        m = pulse_model(path, n, dev)
+        assert m.winds.kernel.kind == WindKind.TRACED and m.graphed, path
+        m.step_n_quiet(m.init_state(), 1)   # the capture, out of the trace
+        want = {k: PULSE_STEPS for k in kerns}
+        sim, got, stats = traced_run(m, (PULSE_STEPS - 1) * DT, want)
+        assert got == want, f"pulse {path}: launches by trace {got}"
+        day, eager = eager_day(m, sim.state, PULSE_STEPS)
+        check_state(f"pulse {path}", sim.state)
+        assert day["n_failed"] == 0 and day["n_clamped"] == 0, (path, day)
+        for row in kerns:
+            assert eager[row] == PULSE_STEPS, (path, eager)
+            results[row]["launches"] += eager[row]
+            results[row]["graph_launches"] = \
+                results[row].get("graph_launches", 0) + got[row]
+        if path == "fused open":
+            assert day["n_off"] > 0, f"pulse {path}: no node went off"
+        plain = pulse_model(path, n, dev, advance_mode="torch")
+        assert not plain.graphed
+        s_g = m.step_n_quiet(m.init_state(), PULSE_PLAIN_STEPS)
+        s_p = eager_steps(plain, plain.init_state(), PULSE_PLAIN_STEPS)
+        t = {"graphed": [], "plain": []}
+        for who in ("plain", "graphed", "graphed", "plain"):
+            if who == "graphed":
+                s_g, ms = time_steps(m, s_g, PULSE_PLAIN_STEPS)
+            else:
+                s_p, ms = time_steps(plain, s_p, PULSE_PLAIN_STEPS,
+                                     eager=True)
+            t[who].append(ms)
+        out[path] = dict(day=day, launches_by_trace=got,
+                         eager_launches={k: eager[k] for k in eager
+                                         if eager[k]},
+                         idle_share=stats["idle_share"],
+                         device_busy_ms_per_step=stats[
+                             "device_busy_ms_per_step"],
+                         graphed_ms_per_step=float(np.mean(t["graphed"])),
+                         plain_eager_ms_per_step=float(np.mean(t["plain"])))
+        m.release_graph()
+        log("traced-winds", f"(c) pulse {path} {n}^2: a day through "
+                            f"Simulation.run graphed, launches by trace "
+                            f"{got}, bit for bit the eager day; counters "
+                            f"summed {day}; graphed "
+                            f"{out[path]['graphed_ms_per_step']:.4f} ms/step "
+                            f"against the plain eager advance "
+                            f"{out[path]['plain_eager_ms_per_step']:.4f} "
+                            f"ms/step (means of 2 x {PULSE_PLAIN_STEPS} "
+                            f"steps in turns); idle share "
+                            f"{stats['idle_share']:.4f}")
+        del m, plain, sim, s_g, s_p
+    rm = pulse_model("fused", n, dev, winds=returning_winds())
+    ms = rm.init_state()
+    assert not bool(ms.particles.on.any())
+    reset_counters()
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(RETURN_STEPS):
+        ms = rm.step(ms)
+        total += ms.metrics.n_reseed.to(torch.int64) + \
+            ms.metrics.n_relight.to(torch.int64)
+    c = all_counters()
+    assert c["K1 traced"] == c["K6 traced"] == RETURN_STEPS, c
+    results["K1 traced"]["launches"] += c["K1 traced"]
+    results["K6 traced"]["launches"] += c["K6 traced"]
+    check_state("returning wind", ms, n_failed=0, n_clamped=0)
+    assert int(total) > 0 and bool(ms.particles.on.all()), int(total)
+    out["returning"] = dict(relit=int(total), launches=c)
+    log("traced-winds", f"(c) the returning wind, {RETURN_STEPS} eager "
+                        f"steps: {int(total)} nodes re-lit, every node on "
+                        f"at the end; launches {c}")
+    # K5 traced on the main path: the pulse with the "pallas" remesh
+    pm = flagship_model(n, dev, winds=pulse_winds(), remesh_mode="pallas")
+    reset_counters()
+    ms = eager_steps(pm, pm.init_state(), 3)
+    c = all_counters()
+    assert c["K1 traced"] == c["K2"] == c["K5 traced"] == 3, c
+    check_state("pulse pallas", ms, n_failed=0, n_clamped=0)
+    results["K1 traced"]["launches"] += c["K1 traced"]
+    results["K5 traced"]["launches"] += c["K5 traced"]
+    timing["traced_pulse"] = out
+
+
+def pulse_layered_check(dev, n: int, results) -> None:
+    """(d) PULSE_LAYERS layers of the pulse (the fused flagship, halo 3)
+    through ``LayeredWaveGrowth2D``: 3 eager steps with the counters set to
+    0 just before and read just after (K1 and K6 once a step), bit for bit
+    ``step_n_quiet``'s replays."""
+    m = flagship_model(n, dev, winds=pulse_winds(), remesh_mode="fused",
+                       layers=PULSE_LAYERS, halo=3).as_layered()
+    assert m.graphed
+    ms0 = m.init_state()
+    reset_counters()
+    eager = eager_steps(m, ms0, 3)
+    c = all_counters()
+    assert c["K1 traced"] == c["K6 traced"] == 3, c
+    assert_state_bitwise("layered pulse: step_n_quiet(3) graphed",
+                         m.step_n_quiet(ms0, 3), eager)
+    for k in ("K1", "K6"):
+        results[f"{k} traced"]["launches"] += c[f"{k} traced"]
+    m.release_graph()
+    log("traced-winds", f"(d) {PULSE_LAYERS} layers of the pulse at {n}^2: "
+                        f"3 replays bit for bit 3 eager steps; launches {c}")
+
+
+def phase_sharded_pulse(dev, results, timing) -> None:
+    """(d) Inside phase "sharded-1x1"'s process group (one NCCL rank): the
+    pulse's "pallas" flagship through ``ShardedWaveGrowth2D`` on a (1, 1)
+    mesh (K1 traced -> K4 -> the self-wrap fold -> K5 traced), 3 eager
+    steps against the single-device step at ``assert_states``' rtol, the
+    counters set to 0 just before and read just after; the graphed sharded
+    step bit for bit its eager steps (``sharded_graph_check``)."""
+    model = flagship_model(FLAG_N, dev, winds=pulse_winds(),
+                           remesh_mode="pallas")
+    ref = eager_steps(model, model.init_state(), 3)
+    sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+    reset_counters()
+    ms = eager_steps(sh, sh.init_state(), 3)
+    c = all_counters()
+    err = assert_states("sharded pulse pallas vs single device, 3 steps", ms,
+                        ref)
+    assert c["K1 traced"] == c["K4"] == c["K5 traced"] == 3, c
+    for k in ("K1", "K5"):
+        results[f"{k} traced"]["launches"] += c[f"{k} traced"]
+    results["K4"]["launches"] += c["K4"]
+    graph = sharded_graph_check("sharded pulse pallas", sh, ms,
+                                {"K1 traced": "K1 traced", "K4": "K4",
+                                 "K5 traced": "K5 traced"}, results)
+    sh.release_graph()
+    timing["sharded_pulse_max_abs_err"] = err
+    timing["sharded_pulse_graph"] = graph
+    log("sharded-pulse", f"the pulse on a (1, 1) NCCL mesh: 3 steps vs "
+                         f"single device max abs err {err:.3e}; launches {c}")
+
+
+def traced_kernel_times(dev, n: int, winds: dict, kerns: dict,
+                        results: dict, timing: dict) -> None:
+    """(e) Each traced kernel's time at n^2 beside its bound and its plain
+    version's time, on the pulse's fused flagship state at 3600 s (the
+    wind on): there the pulse's u and v are 12 and 0 at every node, so each
+    traced kernel is bit for bit the same kernel forced by
+    ``constant_winds(12, 0)`` (the anchor), and the two are timed in turns
+    (traced, constant, constant, traced).  K1, K3 (every lane reset, on
+    the default configuration's state) and K5 by CUDA events (their
+    wrappers launch nothing else), K6 from profiler traces (its wrapper
+    also sums the clamped count), each traced row's short traces on its
+    row.  The traced kinds read the node x and y (8 bytes a particle) and
+    run the traced wind's operations per evaluation; the remesh's bytes
+    are those of the branches this state takes (``remesh_branch_bytes``:
+    every node gathers, so it needs neither its wind nor its particle)."""
+    w = winds["pulse"]._replace(kernel=kerns["pulse"])
+    ops = len(kerns["pulse"].traced.ops)
+    const = constant_winds(12.0, 0.0)
+    pm, ps = traced_step_state(dev, n, winds["pulse"], 6)
+    assert float(ps.time) == 3600.0
+    P = ps.particles
+    adv = P.on & pm.active_mask
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    g = pm.grid
+    proj = pm.projection(g)
+    rhs = make_rhs(w.u, w.v, pm.consts, pm.flags)
+
+    def k1(winds):
+        return lambda: advance_cuda(winds, pm.consts, pm.flags, pm.solver,
+                                    DT, comps, P.t, P.dt, adv, g.x, g.y,
+                                    proj)
+
+    def k1_plain():
+        return integrate_to(rhs, torch.stack(comps, dim=-1), P.t, P.t + DT,
+                            P.dt, pm.aux, adv, pm.solver)
+
+    assert_bitwise("K1 traced pulse (on) vs constant_winds(12, 0)",
+                   k1(w)(), k1(const)())
+    p = k1_plain()
+    out = {"K1 traced": dict(plain_ms=cuda_time_ms(k1_plain, 2), **k1_bound(
+        n * n, pm.solver.method, pm.solver.adaptive, adv,
+        p.naccept + p.nreject, traced_ops=ops))}
+    # kernel id -> traced call, constant call, their timers, calls a timing
+    pairs = {"K1 traced": (k1(w), k1(const), cuda_time_ms, cuda_time_ms,
+                           10)}
+
+    dm = pulse_model("default", n, dev)
+    ds = eager_steps(dm, dm.init_state(), 6)
+    Q = ds.particles
+    qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    reset = torch.ones_like(Q.on)
+    sett = dm.settings
+    rhsd = make_rhs(dm.winds.u, dm.winds.v, dm.consts, dm.flags)
+
+    gd = dm.grid
+
+    def k3(winds):
+        return lambda: auto_dt_cuda(winds, dm.consts, dm.flags, Q.t, qc,
+                                    gd.x, gd.y, dm.projection(gd), reset,
+                                    Q.dt, sett.dtmin, DT, abstol=sett.abstol,
+                                    reltol=sett.reltol, order=dm._rk_order)
+
+    def k3_plain():
+        return auto_dt_reset(rhsd, Q.t, torch.stack(qc, dim=-1), dm.aux,
+                             reset, Q.dt, sett.dtmin, DT, abstol=sett.abstol,
+                             reltol=sett.reltol, order=dm._rk_order)
+
+    wd = dm.winds
+    assert_bitwise("K3 traced pulse (on) vs constant_winds(12, 0)",
+                   (k3(wd)(),), (k3(const)(),))
+    out["K3 traced"] = dict(plain_ms=cuda_time_ms(k3_plain, 5),
+                            **k3_bound(reset, kernel_wind(wd)))
+    pairs["K3 traced"] = (k3(wd), k3(const), cuda_time_ms, cuda_time_ms, 20)
+
+    core, chans, sact = flagship_deposit_inputs(pm, ps)
+    rp = pm.remesh_params
+    rc = rp._replace(winds=const)
+    prp = rp._replace(winds=winds["pulse"])
+    halo = pm.config.halo
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    k5 = remesh_cuda(rp, node, *core)
+    assert_bitwise("K5 traced pulse (on) vs constant_winds(12, 0)", k5,
+                   remesh_cuda(rc, node, *core))
+    log("kernel-time", f"K5 traced: the pulse's state at 3600 s: "
+                       f"{branch_counts(k5.branch)}")
+    a = pic_gather_remesh(core[3], core[4], chans, sact, g.stats, halo, rp,
+                          *core)
+    b = pic_gather_remesh(core[3], core[4], chans, sact, g.stats, halo, rc,
+                          *core)
+    assert_bitwise("K6 traced pulse (on) vs constant_winds(12, 0)",
+                   (*a[0], *a[1]), (*b[0], *b[1]))
+
+    def plain_fused():
+        Sp, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                              g.stats, halo)
+        return remesh_core(prp, tuple(Sp[..., c] for c in range(3)), *core)
+
+    out["K5 traced"] = dict(
+        plain_ms=cuda_time_ms(lambda: remesh_core(prp, node, *core), 5),
+        **remesh_bound(n * n, n_wf=1, traced_ops=ops, branch=k5.branch))
+    out["K6 traced"] = dict(plain_ms=cuda_time_ms(plain_fused, 5),
+                            **deposit_bound(n * n, n * n, halo, remesh=True,
+                                            n_wf=1, traced_ops=ops,
+                                            branch=a[1].branch))
+    pairs["K5 traced"] = (lambda: remesh_cuda(rp, node, *core),
+                          lambda: remesh_cuda(rc, node, *core),
+                          cuda_time_ms, cuda_time_ms, 20)
+    pairs["K6 traced"] = (
+        lambda: pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                  halo, rp, *core),
+        lambda: pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                  halo, rc, *core),
+        functools.partial(kernel_ms, key="K6 traced", row="K6 traced"),
+        functools.partial(kernel_ms, key="K6"), 20)
+    anchor = {}
+    for key, (traced_fn, const_fn, timer, const_timer, reps) in \
+            pairs.items():
+        t = {"traced": [], "constant": []}
+        for who in ("traced", "constant", "constant", "traced"):
+            if who == "traced":
+                t[who].append(timer(traced_fn, reps=reps))
+            else:
+                t[who].append(const_timer(const_fn, reps=reps))
+        out[key]["ms"] = float(np.mean(t["traced"]))
+        anchor[key] = dict(traced_ms=out[key]["ms"],
+                           constant_ms=float(np.mean(t["constant"])))
+    for key, r in out.items():
+        results[key].update(r)
+        log("kernel-time", f"{key}: {r['ms']:.4f} ms (constant (12, 0) "
+                           f"{anchor[key]['constant_ms']:.4f} ms, bit for "
+                           f"bit), plain {r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    timing["traced_vs_constant"] = anchor
+
+
+def phase_traced_winds(dev, results, timing) -> None:
+    """Phase "traced-winds": wind callables that read their time, traced
+    and compiled into K1, K3, K5 and K6 (the traced kind): the libraries'
+    build, (a) the emitted functions alone, (b) the traced kernels against
+    their plain versions and anchors, (c) the pulse's main path at
+    FLAG_N^2, (d) 4 layers of the pulse (the (1, 1) NCCL pulse runs inside
+    "sharded-1x1", ``phase_sharded_pulse``), (e) the kernels' times."""
+    t0 = time.perf_counter()
+    winds = traced_callables()
+    kerns, build_s = traced_build(dev, winds)
+    again = WaveGrowth2D(cartesian_box(2e3, 2, 2e3, 2, device=dev),
+                         pulse_winds(), settings("bosh3"))
+    assert again.winds.kernel.traced.digest == kerns["pulse"].traced.digest
+    assert cuda_build.build_traced(kerns["pulse"].traced.source).seconds == 0
+    ops = traced_probe_check(dev, winds, kerns, TRACED_PROBE_POINTS)
+    traced_kernel_checks(dev, FLAG_N, winds, kerns, results, timing)
+    pulse_main_path(dev, FLAG_N, results, timing)
+    pulse_layered_check(dev, FLAG_N, results)
+    traced_kernel_times(dev, FLAG_N, winds, kerns, results, timing)
+    timing["traced_build_seconds"] = build_s
+    timing["traced_ops"] = ops
+    log("traced-winds", f"done in {time.perf_counter() - t0:.1f} s (the "
+                        f"traced libraries' build {build_s:.1f} s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -6674,6 +7598,12 @@ def main(argv=None) -> int:
         k = key.split()[0]
         results[key] = dict(results[k], name=results[k]["name"] + "_node",
                             replaces=rep, simple_ms=None, launches=0)
+    # the traced kind: a callable that reads its time, compiled into a
+    # library of its own
+    for key, rep in TRACED_REPLACES.items():
+        k = key.split()[0]
+        results[key] = dict(results[k], name=results[k]["name"] + "_traced",
+                            replaces=rep, simple_ms=None, launches=0)
     # the layered launches: the same kernels over a layer dimension
     for k in LAYER_KERNELS:
         results[f"{k} layered"] = dict(
@@ -6706,6 +7636,7 @@ def main(argv=None) -> int:
     tripolar = phase_tripolar_main(dev, results, timing)
     phase_node_winds(dev, results)
     jet = phase_global_jet(dev, results, timing)
+    phase_traced_winds(dev, results, timing)
     phase_card_vs_cpu()
     phase_gridded_card_vs_cpu(gw)
     phase_tripolar_card_vs_cpu()
@@ -6736,8 +7667,8 @@ def main(argv=None) -> int:
                          "K3 gridded", "K5 gridded", "K6 gridded",
                          *PROJ_REPLACES,
                          *(f"{k} layered" for k in LAYER_KERNELS),
-                         *NODE_REPLACES, "K7")]
-    assert len(kernels) == 25
+                         *NODE_REPLACES, "K7", *TRACED_REPLACES)]
+    assert len(kernels) == 29
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

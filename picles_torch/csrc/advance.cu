@@ -37,6 +37,12 @@
 //   run time in the lane's prologue, so no template instance is added); the
 //   time-cosine
 //   family samples them per stage;
+// - a traced wind (a closure that reads its time, rhs.cuh `WIND_TRACED`)
+//   is compiled into a library of its own (PICLES_TRACED_WIND), which holds
+//   only its instances: a lane loads its node's x and y once (the y plane is
+//   the launch's one wind plane, 4 more bytes a particle) and calls the
+//   emitted `traced_wind` at every stage time, as the JAX kernel calls the
+//   closure; its instances take one block an SM less, as the gridded ones;
 // - gridded winds (the JAX kernel's `wind_fields`) are their own template
 //   instances: a lane loads its 4 + 3B plane values once (rhs.cuh
 //   `GriddedWind`) and forms the wind's terms per stage from them, in the
@@ -101,6 +107,7 @@
 #include "tableaux.cuh"
 
 namespace picles {
+PICLES_KERNELS_BEGIN
 
 struct Tableau {
   float c[5];
@@ -149,13 +156,14 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
 constexpr int K1_THREADS = 128;
 template <class M, bool ADAPTIVE, bool GRIDDED>
 constexpr int K1_MIN_BLOCKS =
-    M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED ? 1 : 0);
+    M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED || TRACED_LIB ? 1 : 0);
 
 // The state of one particle in flight: the embedded-RK lane of its 5
 // components (embedded_rk.cuh) and its wind.
 template <int S>
 struct Lane : RKLane<5, S> {
   float xn;
+  float yn;        // the node y (a traced wind's lanes)
   WindTerms w0;    // the wind's terms at the start, for winds constant in t
   GriddedWind g;   // a gridded wind's values at the node (gridded instances)
 };
@@ -182,12 +190,14 @@ __device__ __forceinline__ void load_projection(RHSParams& rc,
   rc.pc = proj[4 * n + i];
 }
 
-// The wind's terms of lane L at time t: from its gridded planes, or from
-// the analytic wind at its node.
+// The wind's terms of lane L at time t: the traced wind at its node, or
+// from its gridded planes, or from the analytic wind at its node.
 template <bool GRIDDED, int S>
 __device__ __forceinline__ WindTerms lane_terms(const AdvanceConfig& cfg,
                                                 const Lane<S>& L, float t) {
-  return GRIDDED ? gridded_terms(L.g, t) : wind_terms_at(cfg.wind, L.xn, t);
+  return TRACED_LIB ? traced_terms(L.xn, L.yn, t)
+         : GRIDDED  ? gridded_terms(L.g, t)
+                    : wind_terms_at(cfg.wind, L.xn, t);
 }
 
 // Load lane k, the particle of node i (of n) in its layer, its node's
@@ -204,6 +214,7 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
   const float t0 = P.t[k];
   L.active = P.act[k] != 0;
   L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? 0.0f : P.xn[i];
+  L.yn = TRACED_LIB ? cfg.wind.wf[i] : 0.0f;
   L.t_end = t0 + cfg.DT;
   L.t = t0;
   L.dt = jmax(P.dt[k], cfg.dtmin);
@@ -260,7 +271,8 @@ advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long k = (long long)blockIdx.y * n + i;
-  const bool t_free = !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
+  const bool t_free =
+      !TRACED_LIB && !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
   RHSParams rc = cfg.rc;
   Lane<M::S> L;
   load_lane<M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
@@ -410,6 +422,8 @@ struct AutoDtPlanes {
 // (`TermFlags()`, the set of every configuration chip_smoke.py drives) and
 // one wind family each; any other flag set runs a generic instance, the
 // gridded kind its own (in the analytic one its lane values would spill).
+// A traced library compiles only the traced kind's two (its flags and a
+// generic set), which read the node x and y and t of each reset lane.
 constexpr int RUNTIME = -1;
 constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
                          TERM_PEAK_SHIFT | TERM_DIRECTION;
@@ -422,7 +436,8 @@ constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
 // most 64 registers).
 constexpr int K3_THREADS = 128;
 template <int KIND>
-constexpr int K3_MIN_BLOCKS = KIND == WIND_GRIDDED ? 8 : 10;
+constexpr int K3_MIN_BLOCKS =
+    KIND == WIND_GRIDDED || KIND == WIND_TRACED ? 8 : 10;
 
 // Hairer's estimate of lane k: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
@@ -448,20 +463,24 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
                     cfg.wind.kind == WIND_NODE;
   if (KIND != RUNTIME) wp.kind = KIND;
   const bool gridded = KIND == WIND_GRIDDED;
-  const bool t_free = node || (wp.kind != WIND_TIME_COSINE && !gridded);
+  const bool traced = KIND == WIND_TRACED;
+  const bool t_free =
+      node || (wp.kind != WIND_TIME_COSINE && !gridded && !traced);
   const float tiny = 1e-10f;
   const float z[5] = {P.lne[k], P.cgx[k], P.cgy[k], P.x[k], P.y[k]};
   const float t = t_free ? 0.0f : P.t[k];
   const float xn =
       wp.kind == WIND_CONSTANT || gridded || node ? 0.0f : P.xn[i];
+  const float yn = traced ? wp.wf[i] : 0.0f;
   GriddedWind g;
   if (gridded) g = load_gridded(wp, i);
   float sc[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + fabsf(z[c]) * cfg.reltol;
-  const WindTerms w0 = gridded ? gridded_terms(g, t)
-                       : node  ? node_terms(wp, i)
-                               : wind_terms_at(wp, xn, t);
+  const WindTerms w0 = traced  ? traced_terms(xn, yn, t)
+                       : gridded ? gridded_terms(g, t)
+                       : node    ? node_terms(wp, i)
+                                 : wind_terms_at(wp, xn, t);
   float f0[5];
   rhs_state(rc, z[0], z[1], z[2], w0, f0);
   const float d0 = rms5(z, sc);
@@ -472,6 +491,7 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
 #pragma unroll
   for (int c = 0; c < 5; ++c) z1[c] = z[c] + h0 * f0[c];
   const WindTerms w1 = t_free    ? w0
+                       : traced  ? traced_terms(xn, yn, t + h0)
                        : gridded ? gridded_terms(g, t + h0)
                                  : wind_terms_at(wp, xn, t + h0);
   float f1[5];
@@ -508,6 +528,7 @@ auto_dt_kernel(const AutoDtConfig cfg, long long n, const AutoDtPlanes P) {
   P.out[k] = dt;
 }
 
+#ifndef PICLES_TRACED_WIND
 // The baseline (`_simple`): the previous kernel, the bare estimate of every lane,
 // the wind's kind and the term flags tested at run time.
 __global__ void __launch_bounds__(128)
@@ -546,6 +567,7 @@ auto_dt_simple_kernel(const AutoDtConfig cfg, long long n,
                                   : powf(0.01f / jmax(dmax, tiny), cfg.inv_order_p1);
   out[i] = jmin(jmin(100.0f * h0, h1), cfg.max_dt);
 }
+#endif  // PICLES_TRACED_WIND
 
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>
 static void launch_advance_simple(const AdvanceConfig& cfg, long long n, void** p,
@@ -594,7 +616,12 @@ template <class M>
 static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
                      unsigned layers, void** p, cudaStream_t stream) {
   const bool gridded = cfg.wind.kind == WIND_GRIDDED;
-  if (adaptive && gridded)
+  if constexpr (TRACED_LIB) {
+    if (adaptive)
+      launch_advance<M, true, false>(cfg, n, layers, p, stream);
+    else
+      launch_advance<M, false, false>(cfg, n, layers, p, stream);
+  } else if (adaptive && gridded)
     launch_advance<M, true, true>(cfg, n, layers, p, stream);
   else if (adaptive)
     launch_advance<M, true, false>(cfg, n, layers, p, stream);
@@ -628,9 +655,11 @@ static int unpack_advance(const float* fparams, const int* iparams,
   return iparams[K1_I];
 }
 
+PICLES_KERNELS_END
 }  // namespace picles
 
 using namespace picles;
+PICLES_USING_KERNELS
 
 // fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
 //          tableau c[5], a[5][5], b[6], bt[7]
@@ -640,7 +669,8 @@ using namespace picles;
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
 //          the per-node projection planes [5, n] (input; null: the RHS's
 //          uniform scalars) | the n_wf wind planes (inputs: 4 + 3B
-//          gridded, u and v of the node kind, none for analytic winds)
+//          gridded, u and v of the node kind, the node y of the traced
+//          kind, none for analytic winds)
 // n:       nodes; layers: the particle planes are [layers, n] (layer-major)
 //          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
@@ -648,12 +678,14 @@ using namespace picles;
 // the `_simple` baseline below reads.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // stage count, planes that `attach_planes` refuses or a layer count outside
-// [1, MAX_LAYERS]).
+// [1, MAX_LAYERS]).  A traced library's entry point is
+// `picles_advance_traced`, the same layout, its wind the traced kind.
 constexpr int K1_PTRS = 19;
 
-extern "C" int picles_advance(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, long long layers,
-                              void* stream) {
+extern "C" int PICLES_ENTRY(picles_advance)(const float* fparams,
+                                            const int* iparams, void** ptrs,
+                                            long long n, long long layers,
+                                            void* stream) {
   AdvanceConfig cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
   const bool adaptive = iparams[K1_I + 1] != 0;
@@ -669,9 +701,10 @@ extern "C" int picles_advance(const float* fparams, const int* iparams,
   return (int)cudaGetLastError();
 }
 
+#ifndef PICLES_TRACED_WIND
 // The `_simple` baseline (the previous kernel), picles_advance's layout;
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
-// gridded or node wind or projection planes).
+// gridded, node or traced wind or projection planes).
 extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AdvanceConfig cfg;
@@ -679,7 +712,8 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   const bool adaptive = iparams[K1_I + 1] != 0;
   const bool force = cfg.force_dtmin != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (planar_wind(cfg.wind.kind) || ptrs[18] != nullptr)
+  if (planar_wind(cfg.wind.kind) ||
+      cfg.wind.kind == WIND_TRACED || ptrs[18] != nullptr)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   if (stages == 3) dispatch_simple<3>(cfg, adaptive, force, n, ptrs, st);
@@ -687,6 +721,7 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
+#endif  // PICLES_TRACED_WIND
 
 static void unpack_auto_dt(const float* fparams, const int* iparams,
                            void** ptrs, AutoDtConfig& cfg, AutoDtPlanes& P) {
@@ -717,17 +752,19 @@ static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
 //          dt (output) | the per-node projection planes [5, n] (input;
 //          null: the uniform scalars) | the n_wf wind planes (inputs:
-//          gridded or node)
+//          gridded, node, or the node y of the traced kind)
 // n, layers: as picles_advance's (dt, was_reset and the output are lane
 // planes, the node x and the projection and wind planes shared).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
-// [1, MAX_LAYERS]).
+// [1, MAX_LAYERS]).  A traced library's entry point is
+// `picles_auto_dt_traced`, the same layout.
 constexpr int K3_PTRS = 11;
 
-extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
-                              void** ptrs, long long n, long long layers,
-                              void* stream) {
+extern "C" int PICLES_ENTRY(picles_auto_dt)(const float* fparams,
+                                            const int* iparams, void** ptrs,
+                                            long long n, long long layers,
+                                            void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
@@ -737,6 +774,12 @@ extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const unsigned ly = (unsigned)layers;
+#ifdef PICLES_TRACED_WIND
+  if (cfg.rc.flags != K3_FLAGS)
+    launch_auto_dt<WIND_TRACED, RUNTIME>(cfg, n, ly, P, st);
+  else
+    launch_auto_dt<WIND_TRACED, K3_FLAGS>(cfg, n, ly, P, st);
+#else
   if (cfg.rc.flags != K3_FLAGS && cfg.wind.kind == WIND_GRIDDED)
     launch_auto_dt<WIND_GRIDDED, RUNTIME>(cfg, n, ly, P, st);
   else if (cfg.rc.flags != K3_FLAGS)
@@ -749,19 +792,22 @@ extern "C" int picles_auto_dt(const float* fparams, const int* iparams,
     launch_auto_dt<WIND_GRIDDED, K3_FLAGS>(cfg, n, ly, P, st);
   else
     launch_auto_dt<WIND_TIME_COSINE, K3_FLAGS>(cfg, n, ly, P, st);
+#endif
   return (int)cudaGetLastError();
 }
 
 // The `_simple` baseline, picles_auto_dt's layout: writes the bare estimate
 // of every lane to the output (dtmin, DT, dt and was_reset are not read);
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
-// gridded or node wind or projection planes).
+// gridded, node or traced wind or projection planes).
+#ifndef PICLES_TRACED_WIND
 extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
   AutoDtConfig cfg;
   AutoDtPlanes P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
-  if (planar_wind(cfg.wind.kind) || P.proj != nullptr)
+  if (planar_wind(cfg.wind.kind) ||
+      cfg.wind.kind == WIND_TRACED || P.proj != nullptr)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 128;
@@ -770,3 +816,4 @@ extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
       cfg, n, P.lne, P.cgx, P.cgy, P.x, P.y, P.t, P.xn, P.out);
   return (int)cudaGetLastError();
 }
+#endif  // PICLES_TRACED_WIND

@@ -103,6 +103,10 @@
 // it (28 bytes a node at B = 1), not staged with the sources: only the
 // node's own values are needed.  A layer's particle planes are offset as
 // its sources are; the masks, the node x and the wind planes are shared.
+// A traced wind's K6 (PICLES_TRACED_WIND: its library compiles only this
+// entry point of the file, `picles_pic_gather_remesh_traced`) reads the
+// node y plane there too (4 bytes a node) and calls the emitted
+// `traced_wind` at the clock.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,6 +114,7 @@
 #include "remesh.cuh"
 
 namespace {
+PICLES_KERNELS_BEGIN
 
 struct GatherConfig {
   int nx, ny;
@@ -446,6 +451,7 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
   }
 }
 
+#ifndef PICLES_TRACED_WIND
 // ---------------------------------------------------------------------------
 // The previous one-thread-per-node kernels, kept as baselines (`_simple`):
 // chip_smoke.py and the card tests hold the tiled kernels to them bit for
@@ -581,6 +587,7 @@ pic_gather_remesh_simple_kernel(const GatherConfig g,
   q.on_o[idx] = o.on ? 1 : 0;
   q.br_o[idx] = o.branch;
 }
+#endif  // PICLES_TRACED_WIND
 
 // ---------------------------------------------------------------------------
 // Host side
@@ -667,6 +674,7 @@ Sources sources(void** ptrs) {
   return s;
 }
 
+#ifndef PICLES_TRACED_WIND
 template <int WX>
 int gather_tiled(const GatherConfig& g, const SumPlan& p, void** ptrs,
                  cudaStream_t st) {
@@ -685,6 +693,7 @@ int gather_dispatch(const GatherConfig& g, const SumPlan& p, void** ptrs,
   if (W == 7) return gather_tiled<7>(g, p, ptrs, st);
   return gather_tiled<0>(g, p, ptrs, st);
 }
+#endif  // PICLES_TRACED_WIND
 
 RemeshPlanes remesh_planes(void** ptrs) {
   RemeshPlanes q;
@@ -720,8 +729,12 @@ int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
                       (float*)ptrs[18], (float*)ptrs[19]);
 }
 
+PICLES_KERNELS_END
 }  // namespace
 
+PICLES_USING_KERNELS
+
+#ifndef PICLES_TRACED_WIND
 // iparams: nx, ny, xl, xh, yl, yh (the window), periodic_x, periodic_y,
 //          tripolar (the y axis folds at the north seam), layers
 // fparams: x_lo, x_hi, y_lo, y_hi (the declared halo's clamp)
@@ -756,6 +769,7 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
                              g.yl);
   return gather_dispatch(g, p, ptrs, (cudaStream_t)stream);
 }
+#endif  // PICLES_TRACED_WIND
 
 // fparams: the gather's (4) | the remesh.cuh layout
 // iparams: the gather's (10) | the remesh.cuh layout
@@ -763,16 +777,19 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
 //          (outputs) | the n_wf wind planes (inputs: 4 + 3B gridded, u
-//          and v of the node kind, none for analytic winds).  The deposit's planes and the particle planes
+//          and v of the node kind, the node y of the traced kind, none for
+//          analytic winds).  The deposit's planes and the particle planes
 //          are [layers, nx, ny]; active, boundary, xn and the wind planes
 //          [nx, ny], shared.
 // cudaErrorInvalidValue for planes that `attach_planes` refuses or a layer
-// count outside [1, MAX_LAYERS].
+// count outside [1, MAX_LAYERS].  A traced library's entry point is
+// `picles_pic_gather_remesh_traced`, the same layout.
 constexpr int K6_PTRS = 28;
 
-extern "C" int picles_pic_gather_remesh(const float* fparams,
-                                        const int* iparams, void** ptrs,
-                                        void* stream) {
+extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(const float* fparams,
+                                                      const int* iparams,
+                                                      void** ptrs,
+                                                      void* stream) {
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
@@ -788,9 +805,11 @@ extern "C" int picles_pic_gather_remesh(const float* fparams,
   return gather_remesh_tiled<0>(g, p, r, ptrs, st);
 }
 
+#ifndef PICLES_TRACED_WIND
 // The `_simple` baselines: the entry points above with the same parameter
-// layouts, one thread per output node; analytic winds only (no gridded or
-// node planes), one layer, no tripolar seam (cudaErrorInvalidValue).
+// layouts, one thread per output node; analytic winds only (no gridded,
+// node or traced wind), one layer, no tripolar seam
+// (cudaErrorInvalidValue).
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
@@ -833,7 +852,8 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
   const GatherConfig g = unpack_gather(fparams, iparams);
   picles::RemeshParams r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
-  if (picles::planar_wind(r.wind.kind) || g.tripolar || g.layers != 1)
+  if (picles::planar_wind(r.wind.kind) ||
+      r.wind.kind == picles::WIND_TRACED || g.tripolar || g.layers != 1)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
@@ -846,3 +866,4 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
       (float*)ptrs[18], (float*)ptrs[19]);
   return (int)cudaGetLastError();
 }
+#endif  // PICLES_TRACED_WIND

@@ -18,13 +18,18 @@
 // never reads it back.  Layers are the launch's second grid dimension
 // (blockIdx.y): a node's particle and deposit planes are read and written
 // at layer * n + node, the masks, the node x and a gridded wind's planes,
-// which every layer shares, at the node.
+// which every layer shares, at the node.  A traced wind (rhs.cuh
+// `WIND_TRACED`) is compiled into a library of its own (PICLES_TRACED_WIND):
+// its remesh reads the node x and the node y plane (4 more bytes a node)
+// and calls the emitted `traced_wind` at the clock; that library also holds
+// `picles_traced_probe`, the emitted function alone over arrays of points.
 
 #include <cuda_runtime.h>
 
 #include "remesh.cuh"
 
 namespace {
+PICLES_KERNELS_BEGIN
 
 __global__ void __launch_bounds__(256)
 remesh_kernel(const picles::RemeshParams r, long long n,
@@ -58,22 +63,28 @@ remesh_kernel(const picles::RemeshParams r, long long n,
   br_o[k] = o.branch;
 }
 
+PICLES_KERNELS_END
 }  // namespace
+
+PICLES_USING_KERNELS
 
 // fparams/iparams: the remesh.cuh layout (unpack_remesh)
 // ptrs: clock (1 float) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
 //       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs:
-//       4 + 3B gridded, u and v of the node kind, none for analytic winds)
+//       4 + 3B gridded, u and v of the node kind, the node y of the traced
+//       kind, none for analytic winds)
 // n:    nodes; layers: the node state, particle and output planes are
 //       [layers, n] (layer-major), active, boundary, xn and the wind
 //       planes [n], shared
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
-// [1, MAX_LAYERS]).
-extern "C" int picles_remesh(const float* fparams, const int* iparams,
-                             void** ptrs, long long n, long long layers,
-                             void* stream) {
+// [1, MAX_LAYERS]).  A traced library's entry point is
+// `picles_remesh_traced`, the same layout.
+extern "C" int PICLES_ENTRY(picles_remesh)(const float* fparams,
+                                           const int* iparams, void** ptrs,
+                                           long long n, long long layers,
+                                           void* stream) {
   picles::RemeshParams r;
   picles::unpack_remesh(fparams, iparams, r);
   if (!picles::attach_planes(r.wind, iparams[2], ptrs + 22) ||
@@ -92,3 +103,33 @@ extern "C" int picles_remesh(const float* fparams, const int* iparams,
       (float*)ptrs[19], (unsigned char*)ptrs[20], (int*)ptrs[21]);
   return (int)cudaGetLastError();
 }
+
+#ifdef PICLES_TRACED_WIND
+namespace {
+PICLES_KERNELS_BEGIN
+
+__global__ void __launch_bounds__(256)
+traced_probe_kernel(long long n, const float* __restrict__ x,
+                    const float* __restrict__ y, const float* __restrict__ t,
+                    float* __restrict__ u, float* __restrict__ v) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  picles::traced_wind(x[i], y[i], t[i], u[i], v[i]);
+}
+
+PICLES_KERNELS_END
+}  // namespace
+
+// The traced wind alone: u[i], v[i] = traced_wind(x[i], y[i], t[i]) for
+// i < n, every pointer a float32 array on the card (the check of the
+// emitted function against the callable).  Returns cudaGetLastError().
+extern "C" int picles_traced_probe(const float* x, const float* y,
+                                   const float* t, float* u, float* v,
+                                   long long n, void* stream) {
+  if (n <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  traced_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(n, x, y, t,
+                                                                u, v);
+  return (int)cudaGetLastError();
+}
+#endif

@@ -10,7 +10,10 @@
 // wind is a kind plus float parameters (picles_torch/forcing/winds.py
 // `WindKernel` builds them) and, for gridded winds, the per-node planes of
 // one model step (`GriddedWind`); a steady closure, which the kernels read
-// at the node only, is its two node planes (`WIND_NODE`, `node_uv`).
+// at the node only, is its two node planes (`WIND_NODE`, `node_uv`); a
+// closure that reads its time is traced into a device function,
+// `traced_wind(x, y, t, u, v)` (picles_torch/forcing/wind_trace.py), which
+// a library of its own compiles (`WIND_TRACED`, below).
 //
 // Numerics: every operation is float32 in the order the JAX package and the
 // plain PyTorch version (picles_torch/ops/rhs.py) use, squares as products,
@@ -23,6 +26,10 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifdef PICLES_TRACED_WIND
+#include "traced_wind.cuh"  // picles::traced_wind of one callable
+#endif
 
 namespace picles {
 
@@ -50,8 +57,42 @@ __device__ __forceinline__ bool finitef(float a) {
 
 enum WindKind : int {
   WIND_CONSTANT = 0, WIND_HALF_DOMAIN = 1, WIND_TIME_COSINE = 2,
-  WIND_GRIDDED = 3, WIND_NODE = 4
+  WIND_GRIDDED = 3, WIND_NODE = 4, WIND_TRACED = 5
 };
+
+// The traced wind.  picles_torch/ops/cuda_build.py `traced_library`
+// compiles advance.cu, remesh.cu and pic_gather.cu once more for each traced
+// callable, with PICLES_TRACED_WIND defined and the emitted
+// `traced_wind.cuh` on the include path: that library holds only the traced
+// instances of K1, K3, K5 and K6 (entry points `..._traced`), whose lanes
+// read the node x and y and call `traced_wind` at every stage time.  The
+// kernels' own library compiles no traced code: there `traced_wind` is a
+// stub that no kernel calls (every call sits in a branch that
+// `TRACED_LIB` folds away), and `attach_planes` refuses the kind.
+//
+// A traced library's kernels sit in a namespace `traced` inside their
+// file's own (PICLES_KERNELS_BEGIN / _END around a file's kernels,
+// PICLES_USING_KERNELS before its entry points), so a profiler trace tells
+// them from the kernels' own library: picles::traced::advance_kernel<...>
+// against picles::advance_kernel<...>.
+#ifdef PICLES_TRACED_WIND
+constexpr bool TRACED_LIB = true;
+#define PICLES_ENTRY(name) name##_traced
+#define PICLES_KERNELS_BEGIN namespace traced {
+#define PICLES_KERNELS_END }
+#define PICLES_USING_KERNELS using namespace traced;
+#else
+#define PICLES_ENTRY(name) name
+#define PICLES_KERNELS_BEGIN
+#define PICLES_KERNELS_END
+#define PICLES_USING_KERNELS
+constexpr bool TRACED_LIB = false;
+__device__ __forceinline__ void traced_wind(float, float, float, float& u,
+                                            float& v) {
+  u = 0.0f;
+  v = 0.0f;
+}
+#endif
 
 // Whether the wind's values arrive as planes (gridded, node): the
 // `_simple` baselines do not take them, and no kernel reads the node x.
@@ -70,13 +111,14 @@ struct WindParams {
   float t_off;         // time-cosine cut-off
   int n_break;         // gridded: breakpoints B (4 + 3B planes), else 0
   const float* wf;     // gridded: plane 0 (a_u) of the launch's planes;
-                       // node: the u plane
+                       // node: the u plane; traced: the node y plane
   long long wf_stride; // floats from one plane to the next (gridded, node)
 };
 
 // Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params):
 // floats u0, v0, x_split, background, two_pi, period, t_off; ints kind,
-// has_t_off, n_wf (the count of planes: 4 + 3B gridded, 2 node, else 0).
+// has_t_off, n_wf (the count of planes: 4 + 3B gridded, 2 node, 1 traced
+// (the node y), else 0).
 // The planes themselves follow each kernel's own pointers
 // (`attach_planes`).
 constexpr int N_WIND_F = 7;
@@ -95,8 +137,15 @@ inline void unpack_wind(const float* g, const int* iv, WindParams& w) {
 // The wind planes of a launch: n_wf pointers, one plane after the other
 // at one stride (the wrapper passes views of one [n_wf, ...] tensor).
 // Returns false (the launch is refused) for a count that is not 4 + 3B
-// (gridded) or 2 (node), or planes that are not evenly spaced.
+// (gridded), 2 (node) or 1 (traced), planes that are not evenly spaced, the
+// traced kind in the kernels' library or another kind in a traced one.
 inline bool attach_planes(WindParams& w, int n_wf, void* const* planes) {
+  if ((w.kind == WIND_TRACED) != TRACED_LIB) return false;
+  if (w.kind == WIND_TRACED) {
+    if (n_wf != 1) return false;
+    w.wf = (const float*)planes[0];
+    return true;
+  }
   if (w.kind == WIND_NODE) {
     if (n_wf != 2) return false;
     w.wf = (const float*)planes[0];
@@ -220,11 +269,14 @@ __device__ __forceinline__ void node_uv(const WindParams& w, long long i,
 }
 
 // u, v of any kind at node i (x-coordinate xn) and time t: the remesh's
-// sampler, which reads a gridded or node wind's planes directly.
+// sampler, which reads a gridded or node wind's planes directly (in a traced
+// library, the traced wind at the node's x and y).
 __device__ __forceinline__ void wind_uv_node(const WindParams& w, long long i,
                                              float xn, float t, float& u,
                                              float& v) {
-  if (w.kind == WIND_GRIDDED)
+  if (TRACED_LIB)
+    traced_wind(xn, w.wf[i], t, u, v);
+  else if (w.kind == WIND_GRIDDED)
     gridded_uv(load_gridded(w, i), t, u, v);
   else if (w.kind == WIND_NODE)
     node_uv(w, i, u, v);
@@ -271,6 +323,14 @@ __device__ __forceinline__ WindTerms gridded_terms(const GriddedWind& g,
                                                    float t) {
   float u, v;
   gridded_uv(g, t, u, v);
+  return terms_of(u, v);
+}
+
+// The traced wind's terms at the node (xn, yn) and time t.
+__device__ __forceinline__ WindTerms traced_terms(float xn, float yn,
+                                                  float t) {
+  float u, v;
+  traced_wind(xn, yn, t, u, v);
   return terms_of(u, v);
 }
 

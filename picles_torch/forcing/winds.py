@@ -16,21 +16,27 @@ of ``gridded_samplers``.  The model builds the descriptor (kind
 ``GRIDDED`` and B) and the planes once per step.
 
 A ``Winds2D`` without a descriptor (any other callable, as the JAX
-examples write them: ``Winds2D(u=u, v=v)``) runs in the kernels when it is
-steady: the model calls it once on the nodes with a probe time under a
-``TorchFunctionMode`` that records whether the time reaches any torch
-operation (``steady_node_planes``).  The kernels read a wind sampled at
-the node, so a steady callable is exactly its two node planes: kind
-``NODE`` (``node_kernel``), the planes passed with every launch, and
-``node_plane_winds`` their plain version.  A callable that reads its time
-runs only on the plain PyTorch path, and the CUDA modes refuse it.  The
-samplers compute in float32 with the JAX package's operation order.
+examples write them: ``Winds2D(u=u, v=v)``) runs in the kernels too.  The
+model tries two ways, in order.  A steady callable (the model calls it once
+on the nodes with a probe time under a ``TorchFunctionMode`` that records
+whether the time reaches any torch operation, ``steady_node_planes``) is
+exactly its two node planes, since the kernels read a wind sampled at the
+node: kind ``NODE`` (``node_kernel``), the planes passed with every launch,
+and ``node_plane_winds`` their plain version.  A callable that reads its
+time is traced (``forcing/wind_trace.py``): kind ``TRACED``
+(``traced_kernel``), its operations compiled into a library of the
+kernels' traced instances, the node y passed with every launch, and
+``TracedWind.winds`` its plain version.  A callable the tracer cannot
+lower (a value read on the host, an indexed captured tensor, a reduction,
+float64; ``wind_trace``'s docstring) raises, naming the operation; it runs
+with ``advance_mode="torch"``.  The samplers compute in float32 with the
+JAX package's operation order.
 
 The 1D model's winds (``Winds1D``: ``u(x, t)``) reach its advance kernel K7
 in two kinds: a steady callable as its one node plane ``[nx]``
 (``steady_node_plane_1d``, the same probe), and a ``GriddedWinds1D``
 record as itself (``u_data`` and its axes).  A 1D callable that reads its
-time runs on the plain path only.
+time runs on the plain path only (K7 has no traced kind yet).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten
 
+from .wind_trace import TracedWind, trace_winds
+
 
 class WindKind(enum.IntEnum):
     """Wind families the kernels compile (``WindKind`` in ``rhs.cuh``)."""
@@ -55,6 +63,7 @@ class WindKind(enum.IntEnum):
     TIME_COSINE = 2
     GRIDDED = 3
     NODE = 4
+    TRACED = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +71,9 @@ class WindKernel:
     """Kernel-side description of a wind.  A gridded wind carries no
     parameters but its breakpoint count ``n_break``: its values arrive as
     ``4 + 3 * n_break`` planes with each launch; a steady wind of kind
-    ``NODE`` none: its values arrive as its two node planes (u, v)."""
+    ``NODE`` none: its values arrive as its two node planes (u, v); a wind
+    of kind ``TRACED`` its ``traced`` graph, compiled into a library of its
+    own (``ops/cuda_build.py`` ``traced_library``)."""
 
     kind: WindKind
     u0: float
@@ -72,6 +83,7 @@ class WindKernel:
     period: float = 1.0
     t_off: Optional[float] = None
     n_break: int = 0
+    traced: Optional[TracedWind] = None
 
 
 class Winds2D(NamedTuple):
@@ -185,6 +197,16 @@ def node_plane_winds(u_plane: torch.Tensor, v_plane: torch.Tensor
     versions sample it (as ``pwl_winds`` does for a gridded window)."""
     return Winds2D(u=lambda x, y, t: u_plane, v=lambda x, y, t: v_plane,
                    kernel=node_kernel())
+
+
+def traced_kernel(winds: "Winds2D", device="cpu") -> "WindKernel":
+    """The descriptor of a callable traced on ``device`` (kind ``TRACED``,
+    ``forcing/wind_trace.py``); raises ``NotImplementedError`` for a
+    callable the tracer cannot lower.  Each call traces anew (the model
+    traces once, at construction); the same emitted source loads the same
+    library (``ops/cuda_build.py`` ``traced_library``)."""
+    return WindKernel(WindKind.TRACED, 0.0, 0.0,
+                      traced=trace_winds(winds.u, winds.v, device))
 
 
 # ---------------------------------------------------------------------------

@@ -30,13 +30,18 @@ into the kernels' planes (``projection``), and on a tripolar grid the
 deposit kernels fold the north seam themselves.
 
 A ``Winds2D`` without a kernel descriptor (a callable written as the JAX
-examples write it) runs on the kernels when it is steady: where the model
-runs a kernel, it calls ``u`` and ``v`` once at construction under a probe
-of their time (``forcing.winds.steady_node_planes``); a steady callable
-becomes the node kind, whose two node planes (u, v) are formed once per
-grid (``wind_fields``) and handed to K1, K3 and K5/K6, while every plain
-path goes on calling the callable.  A callable that reads its time is
-refused by the kernel modes (``advance_mode="torch"`` runs it).
+examples write it) runs on the kernels too.  Where the model runs a kernel,
+it tries at construction, in order: the steady probe, which calls ``u``
+and ``v`` once under a probe of their time
+(``forcing.winds.steady_node_planes``): a steady callable becomes the node
+kind, whose two node planes (u, v) are formed once per grid
+(``wind_fields``) and handed to K1, K3 and K5/K6; else the tracer
+(``forcing/wind_trace.py``): a callable that reads its time becomes the
+traced kind, compiled into a library of the kernels' traced instances at
+its first launch, which read the node x and y and evaluate it at every
+stage time.  A callable the tracer cannot lower raises, naming the
+operation (``advance_mode="torch"`` runs it).  Every plain path (seeding,
+the re-light, the PyTorch remesh and advance) goes on calling the callable.
 
 Gridded winds (a ``GriddedWinds2D``, or its ``as_winds()``) move to the
 grid's device.  The kernels take them as the exact piecewise-linear-in-t
@@ -72,12 +77,13 @@ import torch
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
 from ..forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
-                             gridded_kernel, node_kernel, steady_node_planes)
+                             gridded_kernel, node_kernel, steady_node_planes,
+                             traced_kernel)
 from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
 from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, auto_dt_reset,
-                                kernel_wind, node_projection,
+                                kernel_library, node_projection,
                                 uniform_projection)
 from ..ops.pic_cuda import pic_gather_remesh
 from ..ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT, RemeshParams,
@@ -283,15 +289,18 @@ class WaveGrowth2D(StepDrivers):
         # the advance runs on the card (models/drivers.py)
         self._graphed = (self.device.type == "cuda"
                          and self.modes.advance_mode == "cuda")
-        if self.modes.advance_mode == "cuda" or self._remesh_kernels:
-            if winds.kernel is None:
-                # a steady callable runs on the kernels as its node planes
-                planes = steady_node_planes(winds, grid.x, grid.y)
-                if planes is not None:
-                    winds = winds._replace(kernel=node_kernel())
-                    self.winds = winds
-                    self._node_planes = (grid, planes)
-            kernel_wind(winds)   # raises for a callable that reads t
+        if (self.modes.advance_mode == "cuda" or self._remesh_kernels) \
+                and winds.kernel is None:
+            # a steady callable runs on the kernels as its node planes, one
+            # that reads its time as its traced graph (or raises)
+            planes = steady_node_planes(winds, grid.x, grid.y)
+            if planes is not None:
+                winds = winds._replace(kernel=node_kernel())
+                self._node_planes = (grid, planes)
+            else:
+                winds = winds._replace(
+                    kernel=traced_kernel(winds, grid.x.device))
+            self.winds = winds
 
         if config.ode_init_type == "mininmal":
             self.defaults: Optional[ParticleDefaults2D] = \
@@ -368,8 +377,12 @@ class WaveGrowth2D(StepDrivers):
         """The per-grid caches a captured step reads (``wind_fields``'
         corners and node planes, ``projection``'s planes): a sharded step
         on another grid replaces them, and the capture keeps its own
-        alive."""
-        return (self._corners, self._node_planes, self._proj_planes)
+        alive; on a card, a traced wind's library too."""
+        kern = self.winds.kernel
+        lib = (kernel_library(kern)[0] if self.device.type == "cuda"
+               and kern is not None and kern.kind == WindKind.TRACED
+               else None)
+        return (self._corners, self._node_planes, self._proj_planes, lib)
 
     def node_planes(self, grid: Grid2D) -> torch.Tensor:
         """A steady callable's (u, v) at ``grid``'s nodes, one contiguous

@@ -28,7 +28,11 @@ the model step arrive as ``wind_fields``, the ``4 + 3B`` planes of
 ``forcing.winds.pwl_winds`` of the same planes.  A steady callable (kind
 ``NODE``) arrives as its two node planes (u, v; ``WaveGrowth2D.wind_fields``
 forms them once per grid), and the plain versions run over
-``forcing.winds.node_plane_winds`` of them.
+``forcing.winds.node_plane_winds`` of them.  A callable that reads its time
+is traced (kind ``TRACED``, ``forcing/wind_trace.py``): the wrappers
+launch the entry points of that wind's own library
+(``cuda_build.traced_library``), pass the node y plane as its one wind
+plane, and its plain versions run over ``TracedWind.winds``.
 
 ``advance_1d`` runs the 1D model's whole embedded-RK loop of one step per
 particle (K7, the port's own kernel: the JAX package runs that loop as a
@@ -38,7 +42,9 @@ Its plain version is ``tsit5.integrate_to`` with
 ``rhs.particle_equations_1d``, which the 1D model runs on the CPU.
 
 ``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
-``advance_1d.launches`` count kernel launches (not plain-version calls).
+``advance_1d.launches`` count kernel launches (not plain-version calls);
+``advance_cuda.traced_launches`` and ``auto_dt_cuda.traced_launches`` the
+launches of the traced instances.
 
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
@@ -47,7 +53,8 @@ launches the previous kernel instead (K1: the tableau a run-time parameter;
 K3: the bare estimate, then PyTorch's clamp and select), the baseline the
 card checks hold each kernel to bit for bit; no path of the package passes
 it, and its launches are not counted.  Gridded and node winds and
-projection planes have no baseline: ``simple=True`` with any raises.
+projection planes have no baseline: ``simple=True`` with any raises, as
+with a traced wind.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..forcing.winds import GriddedWinds1D, WindKernel, WindKind, Winds2D
+from ..forcing.winds import (GriddedWinds1D, WindKernel, WindKind, Winds2D,
+                             traced_kernel)
 from .rhs import RHSConsts, TermFlags
 from .tsit5 import METHODS, SolverConfig, auto_dt
 
@@ -82,28 +90,35 @@ def flag_bits(flags: TermFlags) -> int:
             + 8 * flags.peak_shift + 16 * flags.direction)
 
 
-def kernel_wind(winds: Winds2D) -> WindKernel:
-    """The wind's kernel descriptor, or raise: a callable that reads its
-    time runs only on the plain PyTorch path (the model gives a steady one
-    the node kind's descriptor)."""
+def kernel_wind(winds: Winds2D, device="cpu") -> WindKernel:
+    """The wind's kernel descriptor: its own, or for a callable without one
+    the traced kind's, traced on ``device`` (``forcing.winds.traced_kernel``;
+    the model gives a steady callable the node kind's descriptor instead).
+    Raises ``NotImplementedError`` for a callable the tracer cannot
+    lower."""
     if winds.kernel is None:
-        raise NotImplementedError(
-            "these winds carry no kernel descriptor: the CUDA kernels run "
-            "constant_winds, half_domain_winds, time_cosine_winds, a "
-            "steady callable (the model takes it as its node planes) and a "
-            "GriddedWinds2D given to the model; winds that read their time "
-            "t (t enters a torch operation in u(x, y, t) or v(x, y, t)) run "
-            'with advance_mode="torch" and remesh_mode="xla", or as a '
-            "GriddedWinds2D record")
+        return traced_kernel(winds, device)
     return winds.kernel
 
 
 def n_wind_fields(wind: WindKernel) -> int:
     """The count of per-node planes the wind takes: ``4 + 3B`` for a
-    gridded wind, 2 (u, v) for the node kind, none for an analytic one."""
+    gridded wind, 2 (u, v) for the node kind, 1 (the node y) for the
+    traced kind, none for an analytic one."""
     if wind.kind == WindKind.GRIDDED:
         return 4 + 3 * wind.n_break
-    return 2 if wind.kind == WindKind.NODE else 0
+    return {WindKind.NODE: 2, WindKind.TRACED: 1}.get(wind.kind, 0)
+
+
+def kernel_library(wind: WindKernel) -> Tuple[ctypes.CDLL, str]:
+    """The loaded library whose entry points run ``wind`` and the suffix of
+    their names: a traced wind's own (``cuda_build.traced_library``, built
+    at its first launch), else the kernels' library."""
+    from .cuda_build import library, traced_library
+
+    if wind.kind == WindKind.TRACED:
+        return traced_library(wind.traced.source), "_traced"
+    return library(), ""
 
 
 def wind_params(wind: WindKernel) -> Tuple[list, list]:
@@ -116,14 +131,24 @@ def wind_params(wind: WindKernel) -> Tuple[list, list]:
 
 
 def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
-                like: torch.Tensor, simple: bool = False) -> list:
+                like: torch.Tensor, simple: bool = False,
+                yn: Optional[torch.Tensor] = None) -> list:
     """The wind's planes as the kernels read them (rhs.cuh
     ``attach_planes``): ``n_wind_fields(wind)`` float32 planes shaped like
     the node plane ``like`` on its device, one after the other in memory,
     as ``pallas_pwl_fields`` (and ``steady_node_planes``) return them;
-    other planes are refused."""
+    other planes are refused.  A traced wind's one plane is the node y
+    ``yn`` (``fields`` empty)."""
     from .cuda_build import check_planes
 
+    if wind.kind == WindKind.TRACED:
+        if fields:
+            raise ValueError("a traced wind takes no wind planes: its "
+                             "kernels read the node y")
+        if simple:
+            raise ValueError("traced winds have no _simple baseline")
+        check_planes([like, yn], ["xn", "yn"], [torch.float32] * 2)
+        return [yn]
     n = n_wind_fields(wind)
     if len(fields) != n:
         raise ValueError(f"the {wind.kind.name.lower()} wind takes {n} wind "
@@ -223,14 +248,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     if config.method not in K1_METHODS:
         raise ValueError(f"the advance kernel compiles the tableaux of "
                          f"{sorted(K1_METHODS)}, not {config.method!r}")
-    wind = kernel_wind(winds)
+    wind = kernel_wind(winds, xn.device)
     method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
     f32 = torch.float32
     dev, L = check_layered(ins[:8], ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                                      "active"], [f32] * 7 + [torch.bool],
                            [xn], ["xn"], [f32], simple)
-    planes = wind_planes(wind, wind_fields, xn, simple)
+    planes = wind_planes(wind, wind_fields, xn, simple, yn)
     pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
@@ -250,16 +275,21 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), stream)
         else:
-            code = library().picles_advance(
+            lib, sfx = kernel_library(wind)
+            code = getattr(lib, "picles_advance" + sfx)(
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), L, stream)
     check_status(code, "advance")
     if not simple:
-        advance_cuda.launches += 1
+        if wind.kind == WindKind.TRACED:
+            advance_cuda.traced_launches += 1
+        else:
+            advance_cuda.launches += 1
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 
 advance_cuda.launches = 0
+advance_cuda.traced_launches = 0
 
 
 def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
@@ -283,14 +313,14 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     from .cuda_build import (check_layered, check_status, library,
                              pointer_array)
 
-    wind = kernel_wind(winds)
+    wind = kernel_wind(winds, xn.device)
     ins = [*comps, t, xn, dt, was_reset]
     f32 = torch.float32
     dev, L = check_layered([*comps, t, dt, was_reset],
                            ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                             "was_reset"], [f32] * 7 + [torch.bool],
                            [xn], ["xn"], [f32], simple)
-    planes = wind_planes(wind, wind_fields, xn, simple)
+    planes = wind_planes(wind, wind_fields, xn, simple, yn)
     pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
@@ -305,17 +335,22 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), stream)
         else:
-            code = library().picles_auto_dt(
+            lib, sfx = kernel_library(wind)
+            code = getattr(lib, "picles_auto_dt" + sfx)(
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), L, stream)
     check_status(code, "auto-dt")
     if simple:
         return _clamp_select(out, was_reset, dt, dtmin, DT)
-    auto_dt_cuda.launches += 1
+    if wind.kind == WindKind.TRACED:
+        auto_dt_cuda.traced_launches += 1
+    else:
+        auto_dt_cuda.launches += 1
     return out
 
 
 auto_dt_cuda.launches = 0
+auto_dt_cuda.traced_launches = 0
 
 
 class Advance1DResult(NamedTuple):

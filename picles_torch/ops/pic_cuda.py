@@ -12,8 +12,10 @@
 - ``pic_gather_remesh`` (K6), counterpart of ``scatter_remesh_fused``: the
   same deposit with the remesh branch table (K5's) run on each node's sums
   in the same pass, a gridded wind read from its step planes, a steady
-  callable from its two node planes (``wind_fields``).  Plain version:
-  ``pic.scatter_dense``, then ``remesh.remesh_core``.
+  callable from its two node planes (``wind_fields``), a traced one (a
+  callable that reads its time) by its own library's entry point at the
+  node's x and y.  Plain version: ``pic.scatter_dense``, then
+  ``remesh.remesh_core``.
 
 Tensors on a card launch the kernel, or raise: tensors on the CPU are
 refused, and the model's device chooses between kernel and plain version.
@@ -32,7 +34,8 @@ kernels here do not, and deposit as ``pic.scatter_dense`` folds
 (``csrc/pic_gather.cu``).  The count of clamped displacements stays in PyTorch, with the JAX
 package's predicate on the declared halo.  ``pic_gather.launches``,
 ``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
-kernel launches.
+kernel launches, ``pic_gather_remesh.traced_launches`` those of K6's traced
+instance.
 
 All three share one tiled window sum (``csrc/pic_gather.cu``, its tiling
 compiled in).  ``simple=True`` launches the previous one-thread-per-node kernel
@@ -182,9 +185,11 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     ((e, m_x, m_y), RemeshResult, ScatterStats); the deposit's and the
     particle planes ``[nx, ny]`` or ``[L, nx, ny]``, ``active``,
     ``boundary`` and ``xn`` ``[nx, ny]``; ``wind_fields`` a gridded wind's
-    planes of this step or a steady callable's node planes; ``yn`` is not
-    sent to the kernel (no analytic wind it compiles varies in y)."""
-    from .advance_cuda import kernel_wind, wind_planes
+    planes of this step or a steady callable's node planes; ``yn`` is sent
+    to the kernel for a traced wind only (no analytic wind it compiles
+    varies in y)."""
+    from ..forcing.winds import WindKind
+    from .advance_cuda import kernel_library, kernel_wind, wind_planes
     from .cuda_build import check_status, library, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
 
@@ -194,8 +199,9 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     if check_core(core, clock, xrel.shape, simple)[0] != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "
                          f"deposit's on {dev}")
-    planes = wind_planes(kernel_wind(p.winds), wind_fields, xn, simple)
-    rf, ri = remesh_params(p)
+    wind = kernel_wind(p.winds, dev)
+    planes = wind_planes(wind, wind_fields, xn, simple, yn)
+    rf, ri = remesh_params(p, dev)
     fp = np.asarray(f + rf, dtype=np.float32)
     ip = np.asarray(i + ri, dtype=np.int32)
     node = [torch.empty_like(xrel) for _ in range(3)]
@@ -204,14 +210,21 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                           *node, *outs, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = (library().picles_pic_gather_remesh_simple if simple
-              else library().picles_pic_gather_remesh)
+        if simple:
+            fn = library().picles_pic_gather_remesh_simple
+        else:
+            lib, sfx = kernel_library(wind)
+            fn = getattr(lib, "picles_pic_gather_remesh" + sfx)
         code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                   stream)
     check_status(code, "CIC gather + remesh")
     if not simple:
-        pic_gather_remesh.launches += 1
+        if wind.kind == WindKind.TRACED:
+            pic_gather_remesh.traced_launches += 1
+        else:
+            pic_gather_remesh.launches += 1
     return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
 
 
 pic_gather_remesh.launches = 0
+pic_gather_remesh.traced_launches = 0

@@ -14,8 +14,12 @@ kernel, so a step never reads it back to the host.  The winds must carry a
 kernel descriptor (``forcing/winds.py`` ``WindKernel``); a gridded wind's
 planes of the step, or a steady callable's two node planes, arrive as
 ``wind_fields`` (``advance_cuda.wind_planes``), and the plain version then
-samples ``forcing.winds.pwl_winds`` (``node_plane_winds``) of them.
-``remesh_cuda.launches`` counts kernel launches.
+samples ``forcing.winds.pwl_winds`` (``node_plane_winds``) of them.  A
+traced wind (a callable that reads its time, kind ``TRACED``) runs the
+entry point of its own library (``advance_cuda.kernel_library``), which
+reads the node y plane as well, and its plain version samples
+``TracedWind.winds``.  ``remesh_cuda.launches`` counts kernel launches,
+``remesh_cuda.traced_launches`` those of the traced instance.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import G_GRAVITY
-from .advance_cuda import kernel_wind, wind_params, wind_planes
+from ..forcing.winds import WindKind
+from .advance_cuda import (kernel_library, kernel_wind, wind_params,
+                           wind_planes)
 from .remesh import RemeshParams, RemeshResult
 
 SEED_WINDSEA, SEED_FIXED, SEED_SAME = 0, 1, 2
@@ -43,11 +49,12 @@ def _seed(d) -> Tuple[int, list]:
     return SEED_FIXED, [float(v) for v in d]
 
 
-def remesh_params(p: RemeshParams) -> Tuple[list, list]:
+def remesh_params(p: RemeshParams, device="cpu") -> Tuple[list, list]:
     """The packed float and int parameters of the branch table (the layout
     of ``unpack_remesh`` in remesh.cuh).  The windsea constants are those of
-    ``fetch_relations.get_initial_windsea``, in its order of use."""
-    wf, wi = wind_params(kernel_wind(p.winds))
+    ``fetch_relations.get_initial_windsea``, in its order of use; a
+    callable without a descriptor is traced on ``device``."""
+    wf, wi = wind_params(kernel_wind(p.winds, device))
     windsea = [G_GRAVITY, abs(p.timestep), 0.1,
                FR.DULOV_A * FR.DULOV_XI_0X, 1.0 / (1.0 - FR.DULOV_Q_X),
                3.5, -0.33, 0.033, 0.67, 0.31 * G_GRAVITY ** 2, 2.0, math.pi,
@@ -100,28 +107,34 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     ``remesh.remesh_core``: ``node`` and the particle planes ``[nx, ny]`` or
     ``[L, nx, ny]``, the masks and ``xn`` ``[nx, ny]``; ``wind_fields`` a
     gridded wind's planes of this step or a steady callable's node
-    planes.  ``yn`` is not sent to the kernel:
-    no analytic wind it compiles varies in y."""
-    from .cuda_build import check_planes, check_status, library, pointer_array
+    planes.  ``yn`` is sent to the kernel for a traced wind only (no
+    analytic wind it compiles varies in y)."""
+    from .cuda_build import check_planes, check_status, pointer_array
 
     node = tuple(node)
     check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
     dev, L = check_core(core, clock, node[0].shape)
-    planes = wind_planes(kernel_wind(p.winds), wind_fields, xn)
-    f, i = remesh_params(p)
+    wind = kernel_wind(p.winds, dev)
+    planes = wind_planes(wind, wind_fields, xn, yn=yn)
+    f, i = remesh_params(p, dev)
     fp = np.asarray(f, dtype=np.float32)
     ip = np.asarray(i, dtype=np.int32)
     outs = remesh_outputs(lne)
     ptrs = pointer_array([clock, *node, *core, *outs, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_remesh(fp.ctypes.data, ip.ctypes.data,
-                                       ctypes.addressof(ptrs), xn.numel(), L,
-                                       stream)
+        lib, sfx = kernel_library(wind)
+        code = getattr(lib, "picles_remesh" + sfx)(
+            fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
+            xn.numel(), L, stream)
     check_status(code, "remesh")
-    remesh_cuda.launches += 1
+    if wind.kind == WindKind.TRACED:
+        remesh_cuda.traced_launches += 1
+    else:
+        remesh_cuda.launches += 1
     return RemeshResult(*outs)
 
 
 remesh_cuda.launches = 0
+remesh_cuda.traced_launches = 0

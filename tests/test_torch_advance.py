@@ -186,10 +186,15 @@ def test_kernel_contract_helpers():
     assert flag_bits(trhs.TermFlags()) == 31
     assert flag_bits(trhs.TermFlags(input=False, direction=False)) == 1 + 4 + 8
     assert kernel_wind(tw.half_domain_winds(1.0, 2.0, 3.0)).x_split == 3.0
+    # a callable without a descriptor is traced (the model gives a steady
+    # one the node kind first); one the tracer cannot lower is refused
     plain = tw.Winds2D(u=lambda x, y, t: x * 0 + 1.0,
                        v=lambda x, y, t: x * 0 + 1.0)
-    with pytest.raises(NotImplementedError, match="kernel descriptor"):
-        kernel_wind(plain)
+    assert kernel_wind(plain).kind == tw.WindKind.TRACED
+    host = tw.Winds2D(u=lambda x, y, t: x * 0 + float(t),
+                      v=lambda x, y, t: x * 0 + 1.0)
+    with pytest.raises(NotImplementedError, match="_local_scalar_dense"):
+        kernel_wind(host)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

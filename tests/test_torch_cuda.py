@@ -9,7 +9,9 @@ advance) against its plain version, the graphed 1D model against its
 eager K7 steps and against the CPU, its deposit deterministic; the (1, 1)
 NCCL sharded step graphed against its eager steps; and a
 steady wind callable (the node kind of K1, K3, K5 and K6) bit for bit the
-constant winds and a constant record.  Marked
+constant winds and a constant record; a callable that reads its time (the
+traced kind: its emitted function, and K1, K3, K5 and K6 each against its
+plain version).  Marked
 ``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
@@ -1657,21 +1659,61 @@ def test_node_kind_steps_like_constant_winds_and_the_jets_record(dev):
 
 
 def test_time_dependent_callable_raises_on_the_kernel_modes(dev):
-    """A callable that reads its time is refused by the kernel modes and
-    runs on the plain advance with the PyTorch remesh."""
+    """A callable that reads its time runs on the kernel modes as the
+    traced kind (K1, K2, K3 launched, graphed replays bit for bit the eager
+    steps); one the tracer cannot lower (``float(t)``) is refused; the
+    plain advance still takes the first."""
     from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
-                              Winds2D, cartesian_box)
+                              WindKind, Winds2D, cartesian_box)
+    from picles_torch.ops.advance_cuda import advance_cuda, auto_dt_cuda
 
+    cs = _chip_smoke()
     g = cartesian_box(2e3 * 15, 16, 2e3 * 15, 16, device=dev)
     w = Winds2D(u=lambda x, y, t: torch.where(t > 3600.0, 0.0, 10.0) + 0 * x,
                 v=lambda x, y, t: torch.zeros_like(x))
-    with pytest.raises(NotImplementedError, match="read their time"):
-        WaveGrowth2D(g, w, ODESettings())
-    m = WaveGrowth2D(g, w, ODESettings(),
+    m = WaveGrowth2D(g, w, ODESettings())
+    assert m.winds.kernel.kind == WindKind.TRACED and m.graphed
+    cs.reset_counters()
+    eager = cs.eager_steps(m, m.init_state(), 8)
+    assert advance_cuda.traced_launches == auto_dt_cuda.traced_launches == 8
+    cs.assert_state_bitwise("traced graphed", m.step_n_quiet(
+        m.init_state(), 8), eager)
+    assert bool(torch.isfinite(eager.state).all())
+    host = Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0 + float(t)),
+                   v=lambda x, y, t: torch.zeros_like(x))
+    with pytest.raises(NotImplementedError, match="_local_scalar_dense"):
+        WaveGrowth2D(g, host, ODESettings())
+    p = WaveGrowth2D(g, w, ODESettings(),
                      config=WaveGrowth2DConfig(advance_mode="torch"))
-    assert m.winds.kernel is None and not m.graphed
-    ms = m.step(m.init_state())
+    assert p.winds.kernel is None and not p.graphed
+    ms = p.step(p.init_state())
     assert bool(torch.isfinite(ms.state).all())
+
+
+def _traced(dev):
+    cs = _chip_smoke()
+    winds = cs.traced_callables()
+    kerns, _ = cs.traced_build(dev, winds)
+    return cs, winds, kerns
+
+
+def test_traced_probe_matches_the_callable(dev):
+    """The emitted function alone (``picles_traced_probe``) bit for bit the
+    callables run by torch on the card, at the switch times too."""
+    cs, winds, kerns = _traced(dev)
+    ops = cs.traced_probe_check(dev, winds, kerns, 1 << 16)
+    assert all(v > 0 for v in ops.values())
+
+
+@pytest.mark.parametrize("kid", ["K1", "K3", "K5", "K6"])
+def test_traced_kernel_matches_plain(dev, kid):
+    """Each traced kernel at 64^2 against its plain version, and example
+    02's jet traced bit for bit its node kind (``traced_kernel_checks``)."""
+    cs, winds, kerns = _traced(dev)
+    results = {f"{k} traced": {} for k in ("K1", "K3", "K5", "K6")}
+    errs = cs.traced_kernel_checks(dev, 64, winds, kerns, results, {},
+                                   only=(kid,))
+    assert errs[kid] < 1e-3, errs
 
 
 def test_scatter_dense_cuda_is_pic_gather_bitwise(dev):

@@ -238,9 +238,10 @@ def test_unported_remesh_modes_raise(remesh):
 
 def test_wind_outside_kernel_contract_raises_under_cuda(monkeypatch):
     """Modes resolved to the kernels (as on a card): a sampler without a
-    kernel descriptor that reads its time is refused, never sent to the
-    plain path; a steady one becomes the node kind, its node planes the
-    sampler's values."""
+    kernel descriptor that reads its time becomes the traced kind, and one
+    the tracer cannot lower is refused, never sent to the plain path; a
+    steady one becomes the node kind, its node planes the sampler's
+    values."""
     def cuda_modes(cfg, device):
         return dataclasses.replace(cfg, advance_mode="cuda",
                                    scatter_mode="dense_cuda")
@@ -248,8 +249,13 @@ def test_wind_outside_kernel_contract_raises_under_cuda(monkeypatch):
     monkeypatch.setattr(twg, "resolve_modes", cuda_modes)
     timed = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0) + 0.0 * t,
                        v=lambda x, y, t: torch.full_like(x, 5.0))
-    with pytest.raises(NotImplementedError, match="kernel descriptor"):
-        pt.WaveGrowth2D(_cpu_grid(), timed, pt.ODESettings())
+    m = pt.WaveGrowth2D(_cpu_grid(), timed, pt.ODESettings())
+    assert m.winds.kernel.kind == pt.WindKind.TRACED
+    assert m.wind_fields(m.grid, torch.zeros(())) == ()
+    host = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0 + t.item()),
+                      v=lambda x, y, t: torch.full_like(x, 5.0))
+    with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
+        pt.WaveGrowth2D(_cpu_grid(), host, pt.ODESettings())
     steady = pt.Winds2D(u=lambda x, y, t: torch.full_like(x, 10.0),
                         v=lambda x, y, t: torch.full_like(x, 5.0))
     m = pt.WaveGrowth2D(_cpu_grid(), steady, pt.ODESettings())

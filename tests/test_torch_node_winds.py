@@ -258,10 +258,19 @@ def test_model_forms_node_planes_once_per_grid(monkeypatch):
     bp = m.node_planes(block)
     assert torch.equal(bp, planes[:, 16:32, 0:12])
     assert m.node_planes(block) is bp
-    with pytest.raises(NotImplementedError, match="read their time"):
-        pt.WaveGrowth2D(g, pt.Winds2D(u=_growing_decaying_u, v=t_calm),
-                        pt.ODESettings(),
-                        config=pt.WaveGrowth2DConfig(periodic_boundary=True))
+    # a callable that reads its time is traced; an indexed captured table
+    # (a record in disguise) is refused
+    timed = pt.WaveGrowth2D(g, pt.Winds2D(u=_growing_decaying_u, v=t_calm),
+                            pt.ODESettings(),
+                            config=pt.WaveGrowth2DConfig(
+                                periodic_boundary=True))
+    assert timed.winds.kernel.kind == pt.WindKind.TRACED
+    table = torch.arange(24.0)
+    with pytest.raises(NotImplementedError, match="aten op"):
+        pt.WaveGrowth2D(g, pt.Winds2D(
+            u=lambda x, y, t: 0.0 * x + table[(t / 3600.0).to(torch.int64)],
+            v=t_calm), pt.ODESettings(),
+            config=pt.WaveGrowth2DConfig(periodic_boundary=True))
 
 
 def _free_port() -> int:

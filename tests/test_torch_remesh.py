@@ -380,10 +380,11 @@ def test_remesh_config_errors():
 
 
 def test_kernel_remesh_refuses_winds_outside_the_kernel_set(monkeypatch):
-    """On a CUDA device (faked here) a kernel remesh mode with winds that
-    carry no kernel descriptor and read their time raises, naming the winds
-    the kernels take (gridded records among them); a steady callable is
-    taken as the node kind."""
+    """On a CUDA device (faked here) a kernel remesh mode takes winds that
+    carry no kernel descriptor and read their time as the traced kind, and
+    refuses one the tracer cannot lower, naming the operation and the
+    winds the kernels take (gridded records among them); a steady callable
+    is taken as the node kind."""
     monkeypatch.setattr(pt.Grid2D, "device", property(
         lambda self: torch.device("cuda", 0)))
     timed = pt.Winds2D(u=lambda x, y, t: torch.where(t > 3600.0, 0.0, 10.0)
@@ -402,7 +403,11 @@ def test_kernel_remesh_refuses_winds_outside_the_kernel_set(monkeypatch):
                                          dt_reset_mode="carry",
                                          remesh_mode="pallas"))
 
-    with pytest.raises(NotImplementedError, match="and a GriddedWinds2D"):
-        model(timed)
+    assert model(timed).remesh_params.winds.kernel.kind == \
+        pt.WindKind.TRACED
+    summed = pt.Winds2D(u=lambda x, y, t: 0.0 * x + (x * t).sum(),
+                        v=lambda x, y, t: torch.full_like(x, 5.0))
+    with pytest.raises(NotImplementedError, match="aten.sum"):
+        model(summed)
     m = model(steady)
     assert m.remesh_params.winds.kernel.kind == pt.WindKind.NODE
