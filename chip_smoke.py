@@ -85,13 +85,20 @@ just before and read just after:
 9. the 1D growth model (phase "1d"): kernel K7, the 1D advance (the
    port's own kernel; the JAX package runs the loop as a lax.while_loop),
    held against its plain version on B01's state and a 2^20-lane probe
-   (node and gridded winds, bosh3 and tsit5, fixed substeps and adaptive),
-   timed beside its bound; two model days of the B01 configurations
-   through ``Simulation.run``, graphed (onto the Dulov curve, the collapse
-   across wind speeds), the eager K7 day bit for bit the graphed one, the
-   graphed day against the plain eager day in turns, a checkpoint resumed
-   bit for bit, the card against the CPU, and the deterministic sign-merge
-   deposit on 2^20 lanes.
+   (node, gridded and traced winds, bosh3 and tsit5, fixed substeps and
+   adaptive) and bit for bit against its ``_simple`` baseline (the kernel
+   it replaced) on every state, timed in turns with it beside its bound;
+   the traced kind (a 1D callable that reads its time, compiled into a
+   library of its own): each emitted function bit for bit its callable on
+   2^20 points, the 1D pulse bit for bit the node kind before its stop;
+   two model days of the B01 configurations through ``Simulation.run``,
+   graphed (onto the Dulov curve, the collapse across wind speeds), the
+   eager K7 day bit for bit the graphed one, the graphed day against the
+   plain eager day in turns, a checkpoint resumed bit for bit, the card
+   against the CPU; B01 under a moving storm (``slopped_blob``, K7's
+   traced kind) two days graphed, bit for bit its eager days, against its
+   plain eager day in turns, and ``record_trajectories`` under it; and the
+   deterministic sign-merge deposit on 2^20 lanes.
 
 10. a wind given as a steady callable (the node kind of K1, K3, K5 and
     K6: its two node planes): phase "node-winds" holds
@@ -141,7 +148,10 @@ just before and read just after:
     stops, against the plain eager advance in turns, and the returning
     wind re-lighting calm nodes; (d) 4 layers of the pulse and its (1, 1)
     NCCL sharded step (inside "sharded-1x1"), replays bit for bit the
-    eager steps; (e) each traced kernel bit for bit and in turns with the
+    eager steps; (f) the pulse on the 1440 x 720 tripolar grid: the
+    steps before its stop bit for bit ``constant_winds(12, 0)``'s (fused
+    and default paths) and a fused day graphed with no failed or clamped
+    lane; (e) each traced kernel bit for bit and in turns with the
     same kernel forced by ``constant_winds(12, 0)``, beside its bound and
     its plain version (K1, K3 and K5 by CUDA events).
 
@@ -168,8 +178,8 @@ work; each kernel's bound is computed from this run's inputs (``bound``).
 configuration, eager and graphed (step times, host enqueue time, device
 busy time and idle share, device time by kernel), in a process of its own
 after the build: late in a process a trace can miss launches.  ``--probe JSON`` runs only the measurements
-behind the kernels' design (ptxas, SASS counts, substep sweeps, K1's lane
-divergence, K3 in turns with its baseline).
+behind the kernels' design (ptxas, SASS counts, substep sweeps, K1's and
+K7's lane divergence, K3 and K7 in turns with their baselines).
 
 Every phase asserts; any failure exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -216,7 +226,9 @@ from picles_torch.forcing.winds import (GriddedWinds1D, GriddedWinds2D,
                                         WindKind, Winds1D, Winds2D,
                                         gridded_kernel, node_kernel,
                                         node_plane_winds, pwl_winds,
-                                        steady_node_planes, traced_kernel)
+                                        slopped_blob, steady_node_plane_1d,
+                                        steady_node_planes, traced_kernel,
+                                        traced_kernel_1d)
 from picles_torch.grids.mask import make_boundaries
 from picles_torch.ops.advance_cuda import (advance_1d, advance_cuda,
                                            auto_dt_cuda, auto_dt_reset,
@@ -358,6 +370,9 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K6": "pic_gather_remesh_tiled_kernel<",
                "K6 simple": "pic_gather_remesh_simple_kernel(",
                "K7": "advance_1d_kernel<",
+               "K7 simple": "advance_1d_simple_kernel<",
+               "K7 traced": "traced::advance_1d_kernel<",
+               "K7 traced simple": "traced::advance_1d_simple_kernel<",
                "K1 traced": "traced::advance_kernel<",
                "K3 traced": "traced::auto_dt_kernel<",
                "K5 traced": "traced::remesh_kernel(",
@@ -508,25 +523,27 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
 
 
 # float operations of one 1D RHS evaluation (rhs.cuh rhs_1d, every term
-# on): 8 divisions, 5 transcendentals (tanhf, 3 expf, powf), about 46
-# products, sums, selects and clamps; and of one read of a 1D wind record
-# (rhs.cuh gridded_u_1d: both axes folded, the index pairs and weights,
-# four weighted samples summed)
-RHS1D_OPS = 59
+# on; 1 / r_g and 1 / e_T come from the host): 4 divisions (k_p's,
+# omega_p's, alpha's and the sech's), 5 transcendentals (tanhf, 3 expf,
+# powf) and 46 products, sums, absolute values, clamps and selects (the
+# two negations are operand modifiers, not counted); and of one read of a
+# 1D wind record (rhs.cuh gridded_u_1d: both axes folded, the index pairs
+# and weights, four weighted samples summed)
+RHS1D_OPS = 55
 WIND1D_OPS = 27
 
 
 def k7_bound(n: int, method: str, adaptive: bool, live, iters,
-             record_bytes: int = 0) -> dict:
+             record_bytes: int = 0, traced_ops: int = 0) -> dict:
     """K7's bound on this run's inputs: 25 bytes in (z, t, dt, active, and
     the node's wind plane or its x) and 25 out a particle, a record's
     bytes once; per live particle one RHS evaluation to start, then per
     substep tried (accepted or rejected) S evaluations (each with a read of
-    the record where the wind is one) and the substep's own operations
-    over 3 components."""
+    the record where the wind is one, or the traced wind's ``traced_ops``
+    operations) and the substep's own operations over 3 components."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
-    rhs = RHS1D_OPS + (WIND1D_OPS if record_bytes else 0)
+    rhs = RHS1D_OPS + (WIND1D_OPS if record_bytes else 0) + traced_ops
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive, comps=3)
     return bound(50.0 * n + record_bytes, ops)
@@ -1132,7 +1149,8 @@ KERNEL_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
 
 # the wrappers whose traced instances count apart (``traced_launches``)
 TRACED_FNS = {"K1 traced": advance_cuda, "K3 traced": auto_dt_cuda,
-              "K5 traced": remesh_cuda, "K6 traced": pic_gather_remesh}
+              "K5 traced": remesh_cuda, "K6 traced": pic_gather_remesh,
+              "K7 traced": advance_1d}
 
 
 def counters():
@@ -2812,6 +2830,63 @@ def phase_profile_process(path: str) -> None:
         raise RuntimeError(f"the profile process exited with {code}")
 
 
+def phase_1d_traces(path: str) -> None:
+    """The 1D days' replays under a trace, in a process of their own
+    (``phase_1d_traces_process``): late in a long process a trace of 12
+    replays held 11 K7 launches, in every attempt, on an H100.  For
+    B01 (the node kind, K7) and the storm (``b01_storm_model``, K7 traced):
+    the two graphed days (``b01_day``), then K7_TRACED_STEPS more steps of
+    ``Simulation.run`` under a trace (``traced_run``: every launch by
+    name, the host's counters 0), bit for bit as many eager steps, counted.
+    Writes each kernel's launches by trace and eager and the trace's stats
+    (idle share, device ops a step) to ``path``."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for key, make in (("K7", b01_model), ("K7 traced", b01_storm_model)):
+        model = make(dev)
+        assert model.graphed and model.advance_mode == "cuda", key
+        sim, _, _ = b01_day(model)
+        traced, got, stats = traced_run(
+            model, (B01_STEPS + K7_TRACED_STEPS - 1) * DT,
+            {key: K7_TRACED_STEPS}, state=sim.state)
+        reset_counters()
+        assert_state_bitwise(f"1d {key}: the traced replays against as "
+                             f"many eager steps", traced.state,
+                             eager_steps(model, sim.state, K7_TRACED_STEPS))
+        eager = all_counters()[key]
+        assert eager == K7_TRACED_STEPS, (key, eager)
+        out[key] = dict(stats, by_trace=got[key], eager=eager)
+        model.release_graph()
+        del model, sim, traced
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_1d_traces_process() -> dict:
+    """``phase_1d_traces`` in a process of its own (the script with
+    ``--trace-1d-child``), started after the build and waited for, as
+    ``phase_profile_process`` is; returns what it wrote.  Raises if the
+    process fails."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        path = os.path.join(tmp, "traces_1d.json")
+        code = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--trace-1d-child", path]).returncode
+        if code != 0:
+            raise RuntimeError(f"the 1D traces' process exited with {code}")
+        with open(path) as f:
+            out = json.load(f)
+    for key, r in out.items():
+        log("1d", f"{key}: {K7_TRACED_STEPS} replays of the B01 day's end "
+                  f"in a process of their own, launches by trace "
+                  f"{r['by_trace']}, bit for bit {r['eager']} eager steps; "
+                  f"idle share {r['idle_share']:.4f}, "
+                  f"{r['device_ops_per_step']:.1f} device ops a step")
+    return out
+
+
 def sass_loop_count(sass: str, fn_substr: str) -> dict:
     """Static SASS instructions of each function whose name holds
     ``fn_substr`` (``cuobjdump -sass`` output): all, those of its outermost
@@ -2941,6 +3016,109 @@ def probe_k3(default, sass: dict) -> dict:
     return out
 
 
+def probe_k7(sass: dict) -> dict:
+    """K7's design measurements on the 2^20-lane probe (``k7_probe``):
+    the SASS of one substep (the outermost loop of each instance, of the
+    new kernel and of ``_simple``; the storm's traced library's too) turned
+    into the time a warp's instructions take to issue (count x warps /
+    (132 SMs x 4 schedulers x the SM clock)); fixed substeps of DT / m, m =
+    1, 2, 5, 10, 30, each bit for bit ``_simple`` and timed (``kernel_ms``),
+    the cost a substep the slope; adaptive tsit5 and bosh3 under the node
+    kind and tsit5 under the storm in turns with ``_simple``; and the lanes'
+    divergence (``warp_divergence``: the slowest lane of a warp over the
+    warp's mean, from the plain version's substeps tried and from K7's
+    accepted ones) on the probe and on B01 at K7_WIDE_NODES nodes after 12
+    steps."""
+    dev = torch.device("cuda", 0)
+    storm_k = traced_kernel_1d(Winds1D(u=storm_u), dev)
+    tb = cuda_build.build_traced(storm_k.traced)
+    for ln in tb.log.splitlines():
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
+            print("  ptxas (the storm's K7)|", ln.strip(), flush=True)
+    cuobj = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    tsass = subprocess.run([cuobj, "-sass", str(tb.path)],
+                           capture_output=True, text=True, check=True).stdout
+    counts = {**sass_loop_count(sass, "advance_1d_kernel"),
+              **sass_loop_count(sass, "advance_1d_simple_kernel"),
+              **{"traced " + k: v for k, v in
+                 sass_loop_count(tsass, "advance_1d").items()}}
+    clocks = smi_clocks()
+    mhz = float(clocks.split(",")[1].split()[0])
+    model = b01_model(dev)
+    z, t, dt, act, x, plane, rec = k7_probe(dev)
+    warps = z.shape[0] / 32
+    out = {"sass": counts, "clocks": clocks,
+           "issue_ms_a_substep": {
+               k: v.get("loop_instructions", 0) * warps
+               / (132 * 4 * mhz * 1e6) * 1e3 for k, v in counts.items()}}
+    for k, v in counts.items():
+        log("probe", f"K7 SASS {k[:72]}: {v}")
+    sweep = {}
+    for method in ("tsit5", "bosh3"):
+        for m in (1, 2, 5, 10, 30):
+            cfg = SolverConfig(method=method, adaptive=False)
+            d = torch.full_like(dt, DT / m)
+            a = (plane, model, cfg, z, t, d, act, x)
+            assert_bitwise(f"K7 probe {method} fixed {m}", k7_launch(*a),
+                           k7_launch(*a, simple=True))
+            sweep[f"{method} {m}"] = kernel_ms(lambda: k7_launch(*a), "K7",
+                                               10)
+        per = (sweep[f"{method} 30"] - sweep[f"{method} 1"]) / 29
+        sweep[f"{method} ms a substep"] = per
+        times = [round(sweep[f"{method} {m}"], 4) for m in (1, 2, 5, 10, 30)]
+        log("probe", f"K7 {method} fixed substeps 1/2/5/10/30: {times} ms; "
+                     f"{per:.5f} ms a substep")
+    out["fixed_sweep"] = sweep
+    turns, div = {}, {}
+    for tag, wind, method in (("node tsit5", plane, "tsit5"),
+                              ("node bosh3", plane, "bosh3"),
+                              ("storm tsit5", storm_k, "tsit5")):
+        cfg = SolverConfig(method=method, adaptive=True, dtmin=1e-4,
+                           force_dtmin=True)
+        a = (wind, model, cfg, z, t, dt, act, x)
+        k = k7_launch(*a)
+        assert_bitwise(f"K7 probe {tag} adaptive", k,
+                       k7_launch(*a, simple=True))
+        key = "K7 traced" if wind is storm_k else "K7"
+        s_ms, n_ms = turns_ms(key, lambda: k7_launch(*a, simple=True),
+                              lambda: k7_launch(*a), 10)
+        u = storm_u if wind is storm_k else (lambda xx, tt: plane)
+        rhs = particle_equations_1d(u, gamma=model.constants.gamma,
+                                    params=model.params,
+                                    constants=model.constants)
+        p = integrate_to(rhs, z, t, t + DT, dt, x, act, cfg)
+        it = p.naccept + p.nreject
+        turns[tag] = dict(simple_ms=s_ms, ms=n_ms, clocks=smi_clocks())
+        div[f"probe {tag}"] = dict(
+            plain=warp_divergence(it), k7=warp_divergence(k.naccept),
+            warp_max_mean=float(it.reshape(-1, 32).max(1).values.double()
+                                .mean()),
+            live_mean=float(it[act].double().mean()))
+        log("probe", f"K7 probe {tag} adaptive: _simple {s_ms:.4f} ms, new "
+                     f"{n_ms:.4f} ms (bit for bit); divergence "
+                     f"{div[f'probe {tag}']}")
+    mw = b01_model(dev, nx=K7_WIDE_NODES)
+    pw = eager_steps(mw, mw.init_state(), 12).particles
+    wide = (pw.z.contiguous(), pw.t, pw.dt, pw.on & ~mw.boundary_mask,
+            mw.grid.x)
+    cfg = SolverConfig(method="tsit5", adaptive=True, dtmin=1e-4,
+                       force_dtmin=True)
+    k = k7_launch(mw._node_plane, mw, cfg, *wide)
+    rhs = particle_equations_1d(lambda xx, tt: mw._node_plane,
+                                gamma=mw.constants.gamma, params=mw.params,
+                                constants=mw.constants)
+    p = integrate_to(rhs, wide[0], wide[1], wide[1] + DT, wide[2], wide[4],
+                     wide[3], cfg)
+    it = p.naccept + p.nreject
+    div[f"B01x{K7_WIDE_NODES} node tsit5"] = dict(
+        plain=warp_divergence(it), k7=warp_divergence(k.naccept),
+        live_mean=float(it[wide[3]].double().mean()))
+    log("probe", f"K7 B01x{K7_WIDE_NODES} node tsit5 adaptive: divergence "
+                 f"{div[f'B01x{K7_WIDE_NODES} node tsit5']}")
+    out.update(turns=turns, divergence=div)
+    return out
+
+
 def phase_probe(path: str) -> None:
     """The measurements a kernel redesign rests on, each new kernel beside
     its ``_simple`` baseline (in turns, and held to it bit for bit): ptxas
@@ -2949,8 +3127,9 @@ def phase_probe(path: str) -> None:
     the default and flagship seed states at 1, 2, 5 and 10 substeps (per-lane
     fixed cost and cost per substep) and adaptive from the seed; K1's lane
     divergence on the perturbed 256^2 state and its time on the perturbed
-    state at FLAG_N^2; K4 and K6 on the flagship's deposit.  Writes
-    everything to ``path`` (and the SASS beside it)."""
+    state at FLAG_N^2; K4 and K6 on the flagship's deposit; K7's
+    (``probe_k7``).  Writes everything to ``path`` (and the SASS beside
+    it)."""
     res = {"device": phase_device()}
     b = phase_build()
     res["ptxas"] = b.log
@@ -2963,6 +3142,7 @@ def phase_probe(path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(os.path.splitext(path)[0] + "_sass.txt", "w") as f:
         f.write(sass)
+    res["k7"] = probe_k7(sass)
     res["sass"] = {**sass_loop_count(sass, "advance_kernel"),
                    **sass_loop_count(sass, "advance_simple_kernel"),
                    **sass_path_count(sass, "auto_dt_kernel"),
@@ -3817,44 +3997,82 @@ def tripolar_model(grid, gw, path: str, tols=None, **cfg_kw):
     return WaveGrowth2D(grid, gw, sett, config=cfg)
 
 
-def one_cell_reach(active: np.ndarray) -> np.ndarray:
-    """The nodes a CIC deposit of displacements under one cell can reach
-    from the ``active`` nodes of a tripolar grid: the 8-neighbourhood, x
-    periodic, with the top row's seam mirror (a ghost row of the top row,
-    x flipped) above it."""
+def cell_reach(active: np.ndarray, cells: int = 1) -> np.ndarray:
+    """The nodes a CIC deposit of displacements under ``cells`` cells can
+    reach from the ``active`` nodes of a tripolar grid: the
+    8-neighbourhood, x periodic, with the top row's seam mirror (a ghost
+    row of the top row, x flipped) above it, grown ``cells`` times."""
     nx, ny = active.shape
-    ext = np.concatenate([active, active[(nx - 2 - np.arange(nx)) % nx,
-                                         -1:]], axis=1)
-    reach = np.zeros_like(ext)
-    for dx in (-1, 0, 1):
-        sh = np.roll(ext, dx, axis=0)
-        reach |= sh
-        reach[:, 1:] |= sh[:, :-1]
-        reach[:, :-1] |= sh[:, 1:]
-    return reach[:, :ny]
+    reach = active
+    for _ in range(cells):
+        ext = np.concatenate([reach, reach[(nx - 2 - np.arange(nx)) % nx,
+                                           -1:]], axis=1)
+        grown = np.zeros_like(ext)
+        for dx in (-1, 0, 1):
+            sh = np.roll(ext, dx, axis=0)
+            grown |= sh
+            grown[:, 1:] |= sh[:, :-1]
+            grown[:, :-1] |= sh[:, 1:]
+        reach = grown[:, :ny]
+    return reach
 
 
-def check_tripolar(tag: str, model, ms) -> dict:
+def check_tripolar(tag: str, model, ms, dt: float = None) -> dict:
     """A finite state, no failed lane and no particle on land.  Energy
     reaches land only where a CIC deposit touches a land node one cell from
     an active node: at a concave coast corner a particle moving diagonally
     deposits on the land node between its two land neighbours (land
     boundary nodes are 4-neighbours of ocean), as picles_tpu's deposit
-    does; that energy is logged and held below 1e-6 of the total.  Returns
-    the counters, with the land energy's share."""
+    does; that energy is logged and held below 1e-6 of the total.
+
+    With the step ``dt``, where a step crosses more than a cell the rule is
+    the halo's: at the active nodes whose cell is narrower (min(dx, dy))
+    than the fastest particle of the state travels in a step (|cg| dt), a
+    particle can move up to the halo's cells (beyond it the deposit clamps
+    and counts), so its deposit reaches land nodes that far.  The energy on
+    land within that reach of such a node is a property of the
+    configuration's CFL number that picles_tpu's step shares
+    (tests/test_torch_traced_winds.py
+    ``test_pulse_crossing_polar_cells_matches_jax_on_land``): it is logged
+    (``cfl_*``) and exempt from both rules; every other land node is held to
+    them.  Returns the counters, with the land energy's share."""
     m = check_state(tag, ms, n_failed=0)
     land = model.grid.mask == 0
     assert not bool(ms.particles.on[land].any()), f"{tag}: a particle on land"
     e = ms.state[..., 0]
-    e_land = e[land].double()
-    share = float(e_land.abs().sum() / e.double().abs().sum())
-    far = land.cpu().numpy() & ~one_cell_reach(
-        model.active_mask.cpu().numpy()) & (e.cpu().numpy() != 0)
+    land_np, e_np = land.cpu().numpy(), e.cpu().numpy()
+    active = model.active_mask.cpu().numpy()
+    exempt = np.zeros_like(land_np)
+    if dt is not None:
+        P = ms.particles
+        on = P.on & model.active_mask
+        v = float(torch.hypot(P.cgx, P.cgy)[on].max())
+        width = torch.minimum(model.grid.dx_m, model.grid.dy_m).cpu().numpy()
+        crossing = active & (width < v * dt)
+        halo = max(max(p) for p in normalize_halo(model.config.halo))
+        exempt = land_np & cell_reach(crossing, halo)
+        lat = model.grid.y.cpu().numpy()
+        beyond = exempt & ~cell_reach(active) & (e_np != 0)
+        band = (lat >= lat[beyond].min()) & (lat <= lat[beyond].max()) \
+            if beyond.any() else np.zeros_like(active)
+        m.update(cfl_speed=v, cfl_step_m=v * dt,
+                 cfl_crossing_nodes=int(crossing.sum()),
+                 cfl_land_share=float(np.abs(e_np[exempt]).sum()
+                                      / np.abs(e_np).astype(np.float64).sum()),
+                 cfl_far_nodes=int(beyond.sum()),
+                 cfl_far_lat=[float(lat[beyond].min()),
+                              float(lat[beyond].max())] if beyond.any()
+                 else [],
+                 cfl_band_min_width_m=float(width[band & active].min())
+                 if (band & active).any() else None)
+    held = land & torch.as_tensor(~exempt, device=land.device)
+    share = float(e[held].double().abs().sum() / e.double().abs().sum())
+    far = land_np & ~exempt & ~cell_reach(active) & (e_np != 0)
     assert not far.any(), \
         f"{tag}: energy on {int(far.sum())} land nodes beyond one cell"
     assert share < 1e-6, f"{tag}: land holds {share:.3e} of the energy"
     m["land_energy_share"] = share
-    m["land_nodes_with_energy"] = int((e_land != 0).sum())
+    m["land_nodes_with_energy"] = int((e[land] != 0).sum())
     return m
 
 
@@ -5242,6 +5460,100 @@ K7_TRACED_STEPS = 12
 B01_TURNS = 2            # plain, graphed, graphed, plain
 
 
+# K7's traced kind: the moving Gaussian storm of the Julia source's
+# WindEmulator.jl:50-52 (picles_tpu/forcing/winds.py:438 slopped_blob),
+# 15 m/s at its peak at 3 h, 80 km wide, passing over B01's 500 km from
+# 100 km at 10 m/s; and the 1D pulse (12 m/s until PULSE_1D_STOP, then
+# calm: tests/test_growing_decaying_winds.py:16-26 in 1D)
+B01_STORM = dict(U10=15.0, V=10.0, T=6 * 3600.0, x_scale=80e3,
+                 t_scale=7200.0, x0=100e3)
+PULSE_1D_STOP = 7200.0
+TRACED_1D_SWITCHES = (0.0, 3600.0, PULSE_1D_STOP, 10800.0)
+REC_1D_STEPS = 3         # record_trajectories' steps under the storm
+
+
+def storm_u(x, t):
+    """``slopped_blob`` with B01_STORM."""
+    return slopped_blob(x, t, **B01_STORM)
+
+
+def pulse_1d_u(x, t):
+    """The 1D pulse: 12 m/s from 0 to PULSE_1D_STOP, then calm."""
+    t = torch.as_tensor(t)
+    return torch.where((t >= 0.0) & (t < PULSE_1D_STOP), 12.0, 0.0) + 0.0 * x
+
+
+def traced_1d_callables() -> dict:
+    return {"slopped_blob": Winds1D(u=storm_u), "pulse": Winds1D(u=pulse_1d_u)}
+
+
+def traced_1d_build(dev, winds: dict):
+    """Each 1D callable traced on the card and its library (K7's traced
+    instances, ``cuda_build.traced_library_1d``) built, all at once, then
+    loaded; the storm's source compiled to PTX and checked for float64.
+    Returns (name -> descriptor, the build's wall seconds)."""
+    kerns = {k: traced_kernel_1d(w, dev) for k, w in winds.items()}
+    assert all(k.kind == WindKind.TRACED and k.traced.one_d
+               for k in kerns.values())
+    traced = [k.traced for k in kerns.values()]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(traced) + 1) as ex:
+        builds = list(ex.map(cuda_build.build_traced, traced))
+        bad = ex.submit(cuda_build.unexpected_double_ops,
+                        kerns["slopped_blob"].traced).result()
+    wall = time.perf_counter() - t0
+    for tr in traced:
+        cuda_build.traced_library_1d(tr)
+    assert not bad, f"float64 in K7's traced instances: {bad}"
+    regs = [ln.strip() for b in builds for ln in b.log.splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("1d", f"{len(traced)} traced 1D libraries built in {wall:.1f} s (each "
+              f"{[round(b.seconds, 1) for b in builds]} s); ptxas: "
+              f"{' | '.join(sorted(set(regs)))}")
+    return kerns, wall
+
+
+def traced_probe_1d_check(dev, winds: dict, kerns: dict, n: int) -> dict:
+    """Each emitted 1D function alone (``picles_traced_probe_1d``) on ``n``
+    points (x, t), t exactly at each switch time and its float32
+    neighbours among them, x zero of either sign, infinite or NaN at a few,
+    bit for bit (NaN's bits too) the callable run by torch on the card, and
+    the tracer's plain evaluator bit for bit too.  Returns name -> the
+    emitted function's operation count."""
+    rng = np.random.default_rng(43)
+    xs = rng.uniform(-1e5, 6e5, n).astype(np.float32)
+    xs[-5:] = [0.0, -0.0, np.inf, -np.inf, np.nan]
+    ts = rng.uniform(0.0, 3e4, n).astype(np.float32)
+    sw = np.array(TRACED_1D_SWITCHES, np.float32)
+    near = np.concatenate([sw, np.nextafter(sw, np.float32(-1e9)),
+                           np.nextafter(sw, np.float32(1e9))])
+    ts[:near.size] = near
+    ts[near.size:near.size + 4096] = np.repeat(sw, 1024)
+    x = torch.as_tensor(xs, device=dev)
+    t = torch.as_tensor(ts, device=dev)
+    out = {}
+    for name, w in winds.items():
+        tr = kerns[name].traced
+        lib = cuda_build.traced_library_1d(tr)
+        u = torch.empty_like(x)
+        with torch.cuda.device(dev):
+            code = lib.picles_traced_probe_1d(
+                x.data_ptr(), t.data_ptr(), u.data_ptr(), n,
+                torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check_status(code, "traced 1D probe")
+        want = torch.broadcast_to(w.u(x, t), x.shape).contiguous()
+        for what, got in (("the emitted function", u),
+                          ("the plain evaluator", tr.evaluate(x, t)[0])):
+            d = int((bits(got) != bits(want)).sum())
+            assert d == 0, f"traced 1D {name}: {what} differs from the " \
+                           f"callable on {d} of {n} points"
+        out[name] = len(tr.ops)
+        log("1d", f"{name}: the emitted traced_wind_1d ({len(tr.ops)} "
+                  f"operations) and the plain evaluator bit for bit the "
+                  f"callable on {n} points, the switch times among them")
+    return out
+
+
 def k7_record(dev, L: float = 500e3) -> GriddedWinds1D:
     """A 1D record over [0, L] and 15 h that varies in x and t (23 nodes,
     30 half-hourly frames), for K7's gridded kind."""
@@ -5287,22 +5599,35 @@ def k7_probe(dev, n: int = K7_PROBE_LANES, L: float = 500e3):
     return z, t, dt, act, x, plane, rec
 
 
+def k7_launch(wind, model, cfg, z, t, dt, act, x, simple: bool = False):
+    """One K7 call (``advance_1d``), its launch not counted."""
+    counts = (advance_1d.launches, advance_1d.traced_launches)
+    out = advance_1d(wind, model.consts, TermFlags(), cfg, DT, z, t, dt, act,
+                     x, simple=simple)
+    advance_1d.launches, advance_1d.traced_launches = counts
+    return out
+
+
 def k7_case(tag: str, model, wind, winds, method: str, adaptive: bool, z, t,
-            dt, act, x) -> dict:
-    """K7 (``advance_1d``) against its plain version (``integrate_to`` over
+            dt, act, x, witness: bool = False) -> dict:
+    """K7 (``advance_1d``) bit for bit its ``_simple`` baseline (the
+    previous kernel) and against its plain version (``integrate_to`` over
     ``particle_equations_1d`` of the callable ``winds``) on the card, on
     the same inputs: fixed substeps of K7_FIXED_DT s with lne and cg_x
     within K7_ABS abs, x within K7_X_RTOL, t, dt, failed and naccept equal;
     adaptive by share of lanes (``assert_adaptive``, ``assert_controller``),
-    failed and the end time equal.  The launch is not counted."""
+    failed and the end time equal.  With ``witness`` (the traced kind,
+    whose wind moves across the lanes), fixed substeps beyond K7_ABS are
+    held by ``k7_witness``'s rule where the float32 problem parts lanes:
+    K7 no farther from the plain version run in float64 than twice the
+    float32 plain version, plus K7_ABS.  The launches are not counted."""
     cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
                        force_dtmin=True)
     if not adaptive:
         dt = torch.full_like(dt, K7_FIXED_DT)
-    launches = advance_1d.launches
-    k = advance_1d(wind, model.consts, TermFlags(), cfg, DT, z, t, dt, act,
-                   x)
-    advance_1d.launches = launches
+    k = k7_launch(wind, model, cfg, z, t, dt, act, x)
+    assert_bitwise(f"{tag}: K7 against _simple", k,
+                   k7_launch(wind, model, cfg, z, t, dt, act, x, simple=True))
     rhs = particle_equations_1d(winds.u, gamma=model.constants.gamma,
                                 params=model.params, constants=model.constants)
     p = integrate_to(rhs, z, t, t + DT, dt, x, act, cfg)
@@ -5317,16 +5642,34 @@ def k7_case(tag: str, model, wind, winds, method: str, adaptive: bool, z, t,
                       f" of {z.shape[0]} lanes")
         err = max(errs[:2])
     else:
-        err = max(assert_close(f"{tag} {nm}", k.z[:, c], p.z[:, c], 0.0,
-                               K7_ABS) for c, nm in ((0, "lne"), (1, "cg_x")))
+        err = max(max_abs(k.z[:, c], p.z[:, c]) for c in (0, 1))
+        if witness and err > K7_ABS:
+            q = integrate_to(rhs, z.double(), t.double(), t.double() + DT,
+                             dt.double(), x.double(), act, cfg)
+
+            def far(a):
+                return float((a.z[:, :2].double() - q.z[:, :2]).abs().max())
+            k64, p64 = far(k), far(p)
+            beyond = int(((k.z[:, :2] - p.z[:, :2]).abs() > K7_ABS)
+                         .any(-1).sum())
+            assert k64 <= 2.0 * p64 + K7_ABS, (tag, err, k64, p64)
+            extra = (f"{beyond} lanes beyond {K7_ABS} of the plain version, "
+                     f"held by the witness rule: from float64 K7 "
+                     f"{k64:.3e}, plain {p64:.3e}")
+        else:
+            err = max(assert_close(f"{tag} {nm}", k.z[:, c], p.z[:, c], 0.0,
+                                   K7_ABS) for c, nm in ((0, "lne"),
+                                                         (1, "cg_x")))
+            extra = ""
         xe = assert_close(f"{tag} x", k.z[:, 2], p.z[:, 2], K7_X_RTOL, 0.0)
         for nm in ("t", "dt", "failed", "naccept"):
             assert torch.equal(getattr(k, nm), getattr(p, nm)), \
                 f"{tag}: {nm} differs"
-        extra = f"x max abs err {xe:.3e} m"
-    log("K7", f"{tag}: max abs err (lne, cg_x) {err:.3e}, substeps max "
-              f"{int(k.naccept.max())}/{int(p.naccept.max())}, failed "
-              f"{int(k.failed.sum())}; {extra}")
+        extra = f"x max abs err {xe:.3e} m {extra}"
+    log("K7", f"{tag}: bit for bit _simple; max abs err (lne, cg_x) "
+              f"{err:.3e}, substeps max {int(k.naccept.max())}/"
+              f"{int(p.naccept.max())}, failed {int(k.failed.sum())}; "
+              f"{extra}")
     return dict(err=err, k=k, p=p, cfg=cfg, rhs=rhs, dt=dt)
 
 
@@ -5339,7 +5682,8 @@ def k7_witness(model, rec, z, t, dt, act, x) -> dict:
     against the plain version in float64.  With fixed substeps K7 must be
     no farther from the float64 run than twice the float32 plain version,
     plus K7_ABS (a wrong read of the record parts every lane from it);
-    the rest is logged.  Launches are not counted."""
+    the rest is logged.  K7 is bit for bit its ``_simple`` baseline.
+    Launches are not counted."""
     rhs = particle_equations_1d(rec.u, gamma=model.constants.gamma,
                                 params=model.params, constants=model.constants)
     z_up = torch.nextafter(z, torch.full_like(z, float("inf")))
@@ -5357,10 +5701,10 @@ def k7_witness(model, rec, z, t, dt, act, x) -> dict:
         cfg = SolverConfig(method="tsit5", adaptive=adaptive, dtmin=1e-4,
                            force_dtmin=True)
         d = dt if adaptive else torch.full_like(dt, K7_FIXED_DT)
-        launches = advance_1d.launches
-        k = advance_1d(rec, model.consts, TermFlags(), cfg, DT, z, t, d, act,
-                       x)
-        advance_1d.launches = launches
+        k = k7_launch(rec, model, cfg, z, t, d, act, x)
+        assert_bitwise(f"K7 witness {adaptive}: K7 against _simple", k,
+                       k7_launch(rec, model, cfg, z, t, d, act, x,
+                                 simple=True))
         p = integrate_to(rhs, z, t, t + DT, d, x, act, cfg)
         pu = integrate_to(rhs, z_up, t, t + DT, d, x, act, cfg)
         q = integrate_to(rhs, z.double(), t.double(), t.double() + DT,
@@ -5390,80 +5734,336 @@ def k7_witness(model, rec, z, t, dt, act, x) -> dict:
     return out
 
 
-def phase_k7(dev, model, state, results) -> dict:
-    """K7 against its plain version on the card, the node kind and the
-    gridded kind, bosh3 and tsit5 (``k7_case``): fixed substeps and
-    adaptive on the B01 model's state (``state``, 31 lanes; the record
-    ``k7_record``); adaptive on the 2^20-lane probe (``k7_probe``: its
-    young seas are stiff for any fixed substep that is not tiny).  On B01
-    at K7_WIDE_NODES nodes after 12 steps: bosh3 with fixed substeps, node
-    and gridded, within K7_ABS (the record's read is tsit5's too), and
-    tsit5's witness (``k7_witness``: there the plain version parts from
-    itself under a one-ulp change of its input as far as K7 parts from
-    it).  Then, on the probe with the node kind, adaptive tsit5 (B01's
-    solver), K7's device time (``kernel_ms``) beside its plain version's
-    (CUDA events) and its bound from this run's substeps (``k7_bound``)."""
+def warp_divergence(iters: torch.Tensor) -> float:
+    """The mean over warps (32 lanes in order, those with any work) of the
+    slowest lane's substeps over the warp's mean: how much longer a warp
+    runs than its lanes' work needs."""
+    w = iters.reshape(-1, 32).double()
+    mean = w.mean(dim=1)
+    keep = mean > 0
+    return float((w.max(dim=1).values[keep] / mean[keep]).mean())
+
+
+def k7_pulse_anchor(dev, model, kern, probe) -> dict:
+    """Before the 1D pulse's stop its wind is 12 m/s at every node and
+    stage time, so traced K7 (the pulse's library) must equal the node kind
+    of ``constant_winds_1d(12)`` (its node plane) bit for bit: on B01's
+    state at 3600 s (6 steps from the seed: every stage time of the step
+    before 7200 s) and on the probe's lanes started at t = 0, bosh3 and
+    tsit5, fixed substeps and adaptive.  Returns the lanes compared."""
+    st = eager_steps(model, model.init_state(), 6).particles
+    assert float(st.t.max()) <= PULSE_1D_STOP - DT, float(st.t.max())
+    z, t, dt, act, x = probe[:5]
+    cases = {"B01 at 3600 s": (st.z.contiguous(), st.t, st.dt,
+                               st.on & ~model.boundary_mask, model.grid.x),
+             "probe at 0 s": (z, torch.zeros_like(t), dt, act, x)}
+    lanes = 0
+    for name, (z, t, dt, act, x) in cases.items():
+        plane = steady_node_plane_1d(constant_winds_1d(12.0), x)
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (False, True):
+                cfg = SolverConfig(method=method, adaptive=adaptive,
+                                   dtmin=1e-4, force_dtmin=True)
+                d = dt if adaptive else torch.full_like(dt, K7_FIXED_DT)
+                assert_bitwise(
+                    f"K7 traced pulse vs constant_winds_1d(12), {name}, "
+                    f"{method} {'adaptive' if adaptive else 'fixed'}",
+                    k7_launch(kern, model, cfg, z, t, d, act, x),
+                    k7_launch(plane, model, cfg, z, t, d, act, x))
+        lanes += int(act.sum())
+    log("K7", f"the 1D pulse traced before its stop bit for bit the node "
+              f"kind of constant_winds_1d(12) ({', '.join(cases)}: "
+              f"{lanes} active lanes, bosh3 and tsit5, fixed and adaptive)")
+    return dict(lanes=lanes)
+
+
+def phase_k7(dev, model, state, kerns, winds, results) -> dict:
+    """K7 against its plain version on the card and bit for bit its
+    ``_simple`` baseline (``k7_case``): the node, gridded and traced
+    kinds (the traced wind ``slopped_blob``, B01_STORM), bosh3 and tsit5:
+    fixed substeps and adaptive on the B01 model's state (``state``, 31
+    lanes; the record ``k7_record``); adaptive on the 2^20-lane probe
+    (``k7_probe``: its young seas are stiff for any fixed substep that is
+    not tiny).  On B01 at K7_WIDE_NODES nodes after 12 steps: bosh3 with
+    fixed substeps, each kind, within K7_ABS (the traced kind by
+    ``k7_case``'s witness rule where the float32 problem parts lanes), every
+    kind, method and mode bit for bit ``_simple``, and tsit5's witness
+    (``k7_witness``: there the plain version parts from itself under a
+    one-ulp change of its input as far as K7 parts from it).  The 1D pulse
+    traced bit for bit the node kind before its stop
+    (``k7_pulse_anchor``).  Then, on the probe, adaptive tsit5 (B01's
+    solver): K7 in turns with ``_simple`` (baseline, new, new, baseline,
+    by CUDA events) under the node kind and under the storm (the traced
+    row, which is also timed in turns with the node kind), each beside
+    its plain version and its bound from this run's substeps
+    (``k7_bound``); B01 at K7_WIDE_NODES likewise; and the lanes'
+    divergence (``warp_divergence``) of each.  ``--probe`` times the same
+    rows by their traces (``probe_k7``), early in a process of its own."""
     P = state.particles
     b01 = (P.z.contiguous(), P.t, P.dt, P.on & ~model.boundary_mask,
            model.grid.x)
     probe = k7_probe(dev)
-    out, worst = {}, 0.0
+    storm, storm_k = winds["slopped_blob"], kerns["slopped_blob"]
+    out, worst, worst_t, timed = {}, 0.0, 0.0, {}
     for sname, (z, t, dt, act, x), plane, rec, modes in (
             ("B01", b01, model._node_plane, k7_record(dev), (False, True)),
             ("probe", probe[:5], probe[5], probe[6], (True,))):
-        for kind in ("node", "gridded"):
-            wind = plane if kind == "node" else rec
-            winds = (Winds1D(u=lambda xx, tt, _p=plane: _p)
-                     if kind == "node" else rec.as_winds())
+        for kind in ("node", "gridded", "traced"):
+            wind = {"node": plane, "gridded": rec, "traced": storm_k}[kind]
+            winds_ = {"node": Winds1D(u=lambda xx, tt, _p=plane: _p),
+                      "gridded": rec.as_winds(), "traced": storm}[kind]
             for method in ("bosh3", "tsit5"):
                 for adaptive in modes:
                     tag = (f"K7 {sname} {kind} {method} "
                            f"{'adaptive' if adaptive else 'fixed'}")
-                    r = k7_case(tag, model, wind, winds, method, adaptive, z,
-                                t, dt, act, x)
-                    if not adaptive:
+                    r = k7_case(tag, model, wind, winds_, method, adaptive,
+                                z, t, dt, act, x, witness=kind == "traced")
+                    if not adaptive and kind == "traced":
+                        worst_t = max(worst_t, r["err"])
+                    elif not adaptive:
                         worst = max(worst, r["err"])
                     out[tag] = r["err"]
-                    if tag == "K7 probe node tsit5 adaptive":
-                        timed = r
+                    if sname == "probe" and method == "tsit5":
+                        timed[kind] = r
     mw = b01_model(dev, nx=K7_WIDE_NODES)
     pw = eager_steps(mw, mw.init_state(), 12).particles
     wide = (pw.z.contiguous(), pw.t, pw.dt, pw.on & ~mw.boundary_mask,
             mw.grid.x)
     rec = k7_record(dev)
-    for kind in ("node", "gridded"):
-        wind = mw._node_plane if kind == "node" else rec
-        winds = (Winds1D(u=lambda xx, tt, _p=wind: _p) if kind == "node"
-                 else rec.as_winds())
+    for kind in ("node", "gridded", "traced"):
+        wind = {"node": mw._node_plane, "gridded": rec,
+                "traced": storm_k}[kind]
+        winds_ = {"node": Winds1D(u=lambda xx, tt, _p=wind: _p),
+                  "gridded": rec.as_winds(), "traced": storm}[kind]
         tag = f"K7 B01x{K7_WIDE_NODES} {kind} bosh3 fixed"
-        r = k7_case(tag, mw, wind, winds, "bosh3", False, *wide)
-        worst = max(worst, r["err"])
+        r = k7_case(tag, mw, wind, winds_, "bosh3", False, *wide,
+                    witness=kind == "traced")
+        if kind == "traced":
+            worst_t = max(worst_t, r["err"])
+        else:
+            worst = max(worst, r["err"])
         out[tag] = r["err"]
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (False, True):
+                cfg = SolverConfig(method=method, adaptive=adaptive,
+                                   dtmin=1e-4, force_dtmin=True)
+                d = wide[2] if adaptive else torch.full_like(wide[2],
+                                                             K7_FIXED_DT)
+                a = (cfg, wide[0], wide[1], d, *wide[3:])
+                assert_bitwise(f"K7 B01x{K7_WIDE_NODES} {kind} {method} "
+                               f"{adaptive}: K7 against _simple",
+                               k7_launch(wind, mw, *a),
+                               k7_launch(wind, mw, *a, simple=True))
+    log("K7", f"B01 at {K7_WIDE_NODES} nodes: K7 bit for bit _simple in "
+              f"every kind, method and mode")
     witness = k7_witness(mw, rec, *wide)
-    del mw, pw, wide
+    # B01 at K7_WIDE_NODES, node kind, adaptive tsit5: in turns with the
+    # baseline, and its lanes' divergence
+    cfg = SolverConfig(method="tsit5", adaptive=True, dtmin=1e-4,
+                       force_dtmin=True)
+    wa = (mw._node_plane, mw, cfg, *wide)
+    rhs_w = particle_equations_1d(
+        lambda xx, tt, _p=mw._node_plane: _p, gamma=mw.constants.gamma,
+        params=mw.params, constants=mw.constants)
+    pw_ = integrate_to(rhs_w, wide[0], wide[1], wide[1] + DT, wide[2],
+                       wide[4], wide[3], cfg)
+    turns = [cuda_time_ms(lambda: k7_launch(*wa, simple=s), 10)
+             for s in (True, False, False, True)]
+    wide_t = dict(simple_ms=(turns[0] + turns[3]) / 2,
+                  ms=(turns[1] + turns[2]) / 2,
+                  divergence=warp_divergence(pw_.naccept + pw_.nreject),
+                  divergence_k7_naccept=warp_divergence(
+                      k7_launch(*wa).naccept))
+    del mw, pw, wide, wa, pw_
+    anchor = k7_pulse_anchor(dev, model, kerns["pulse"], probe)
     z, t, dt, act, x, plane, rec = probe
-    r = timed
-    cfg, rhs = r["cfg"], r["rhs"]
-    launches = advance_1d.launches
-    ms_k = kernel_ms(lambda: advance_1d(plane, model.consts, TermFlags(), cfg,
-                                        DT, z, t, dt, act, x), "K7", 10)
-    advance_1d.launches = launches
-    plain = cuda_time_ms(lambda: integrate_to(rhs, z, t, t + DT, dt, x, act,
-                                              cfg), 3)
-    p = r["p"]
-    b = k7_bound(z.shape[0], "tsit5", True, act, p.naccept + p.nreject)
-    results["K7"].update(max_abs_err=worst, ms=ms_k, plain_ms=plain, **b)
-    gb = k7_bound(z.shape[0], "tsit5", True, act, p.naccept + p.nreject,
-                  record_bytes=rec.u_data.numel() * 4)
-    log("K7", f"probe {z.shape[0]} lanes, node kind, adaptive tsit5: "
-              f"{ms_k:.4f} ms (device, trace), plain {plain:.4f} ms (CUDA "
-              f"events), bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-              f"substeps a live lane mean "
-              f"{float(p.naccept[act].float().mean()):.2f}, max "
-              f"{int(p.naccept.max())}; the gridded kind's bound on these "
-              f"substeps {gb['bound_ms']:.4f} ms")
-    return dict(cases=out, witness=witness, probe_ms=ms_k,
-                probe_plain_ms=plain, bound=b, gridded_bound=gb)
+
+    def row(kind, wind):
+        """The probe's adaptive tsit5 under ``wind``: K7 and ``_simple``
+        in turns (baseline, new, new, baseline; CUDA events: the wrapper
+        launches nothing else, and late in the process a trace's device
+        times can fall short, as one did on the H100 at 0.5121 ms against
+        0.6870 by events), the plain version, the bound and the lanes'
+        divergence."""
+        r = timed[kind]
+        cfg, rhs, p = r["cfg"], r["rhs"], r["p"]
+        args = (wind, model, cfg, z, t, dt, act, x)
+        ts = [cuda_time_ms(lambda: k7_launch(*args, simple=s), 10)
+              for s in (True, False, False, True)]
+        s_ms, n_ms = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+        plain = cuda_time_ms(lambda: integrate_to(rhs, z, t, t + DT, dt, x,
+                                                  act, cfg), 3)
+        it = p.naccept + p.nreject
+        b = k7_bound(z.shape[0], "tsit5", True, act, it, traced_ops=len(
+            wind.traced.ops) if kind == "traced" else 0)
+        return dict(ms=n_ms, simple_ms=s_ms, plain_ms=plain, **b,
+                    divergence=warp_divergence(it),
+                    divergence_k7_naccept=warp_divergence(r["k"].naccept),
+                    substeps_live_mean=float(p.naccept[act].float().mean()))
+    node = row("node", plane)
+    traced = row("traced", storm_k)
+    # the traced row in turns with the node kind (CUDA events): traced,
+    # node, node, traced
+    cfg = timed["traced"]["cfg"]
+    vs = [cuda_time_ms(lambda: k7_launch(w, model, cfg, z, t, dt, act, x),
+                       10) for w in (storm_k, plane, plane, storm_k)]
+    traced.update(node_ms=(vs[1] + vs[2]) / 2, traced_events_ms=(
+        vs[0] + vs[3]) / 2)
+    # the traced kind's own cost: the 1D pulse from t = 0 on the probe is
+    # bit for bit the node kind of constant_winds_1d(12) (the same
+    # substeps), timed in turns with it (CUDA events)
+    twelve = steady_node_plane_1d(constant_winds_1d(12.0), x)
+    z0 = torch.zeros_like(t)
+    vs = [cuda_time_ms(lambda: k7_launch(w, model, cfg, z, z0, dt, act, x),
+                       10) for w in (kerns["pulse"], twelve, twelve,
+                                     kerns["pulse"])]
+    traced.update(pulse_ms=(vs[0] + vs[3]) / 2,
+                  constant_12_ms=(vs[1] + vs[2]) / 2)
+    rec_b = k7_bound(z.shape[0], "tsit5", True, act,
+                     timed["node"]["p"].naccept + timed["node"]["p"].nreject,
+                     record_bytes=rec.u_data.numel() * 4)
+    for key, r, err in (("K7", node, worst), ("K7 traced", traced, worst_t)):
+        results[key].update(max_abs_err=err, **{
+            k: r[k] for k in ("ms", "simple_ms", "plain_ms", "bound_ms",
+                              "bound_by")})
+        log("K7", f"{key}, probe {z.shape[0]} lanes, adaptive tsit5: "
+                  f"{r['ms']:.4f} ms against _simple {r['simple_ms']:.4f} ms "
+                  f"in turns (CUDA events), plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); substeps a live lane mean "
+                  f"{r['substeps_live_mean']:.2f}; lane divergence "
+                  f"{r['divergence']:.4f} (K7's naccept "
+                  f"{r['divergence_k7_naccept']:.4f})")
+    log("K7", f"K7 traced {traced['traced_events_ms']:.4f} ms against the "
+              f"node kind {traced['node_ms']:.4f} ms on the probe, in turns "
+              f"(CUDA events); the 1D pulse from t = 0 "
+              f"{traced['pulse_ms']:.4f} ms against constant_winds_1d(12)'s "
+              f"node kind {traced['constant_12_ms']:.4f} ms (bit for bit, in "
+              f"turns); B01 at {K7_WIDE_NODES} nodes, node kind, "
+              f"adaptive tsit5: {wide_t['ms']:.4f} ms against _simple "
+              f"{wide_t['simple_ms']:.4f} ms in turns (CUDA events), lane "
+              f"divergence {wide_t['divergence']:.4f}; the gridded kind's "
+              f"bound on the probe's substeps {rec_b['bound_ms']:.4f} ms")
+    return dict(cases=out, witness=witness, probe=node, probe_traced=traced,
+                wide=wide_t, pulse_anchor=anchor, gridded_bound=rec_b)
+
+
+def b01_storm_model(dev, advance_mode: str = "auto",
+                    **sett_kw) -> WaveGrowth1D:
+    """B01 (``b01_model``) under the storm ``Winds1D(u=storm_u)``, a
+    callable that reads its time (traced at construction on a card);
+    ``sett_kw`` replaces settings."""
+    m = b01_model(dev)
+    return WaveGrowth1D(m.grid, Winds1D(u=storm_u),
+                        dataclasses.replace(m.settings, **sett_kw),
+                        config=m.config, advance_mode=advance_mode)
+
+
+def phase_1d_storm(dev, results, traces: dict) -> dict:
+    """B01 under the storm (K7's traced kind), the counters set to 0 just
+    before and read just after each run: the model builds with
+    ``advance_mode == "cuda"`` and ``graphed`` without being asked; two
+    days (B01_STEPS steps) through ``Simulation.run`` with a CashStore,
+    graphed (the host calls K7 traced in the warm-up and the capture), the
+    waves grown by the storm and finite; the same days eagerly, every frame
+    bit for bit, no failed lane (summed over the steps), K7 traced once a
+    step; the replays' trace of ``traces`` (``phase_1d_traces``, in a
+    process of its own); the graphed day's wall against the plain eager
+    day's (``advance_mode="torch"``), in turns; ``record_trajectories``
+    at K = REST_K sub-windows of REC_1D_STEPS steps from the storm's peak,
+    its history bit for bit ``step_n``'s, K7 traced REST_K times a step,
+    the first sub-window against the plain ``integrate_to`` by share of
+    lanes (``assert_adaptive``)."""
+    out = {}
+    sm = b01_storm_model(dev)
+    assert sm.advance_mode == "cuda" and sm.graphed, \
+        (sm.advance_mode, sm.graphed)
+    assert sm._traced is not None and sm._node_plane is None
+    per = WARMUP_STEPS + 1
+    reset_counters()
+    sim, frames, wall = b01_day(sm)
+    c = all_counters()
+    assert c["K7 traced"] == per and c["K7"] == 0, c
+    peak = float(frames[:, :, 0].max())
+    assert peak > float(frames[0, :, 0].max()), peak
+    reset_counters()
+    es = sm.init_state()
+    failed = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(B01_STEPS):
+        es = sm.step(es)
+        failed += es.metrics.n_failed.to(torch.int64)
+        assert torch.equal(bits(es.state),
+                           bits(torch.as_tensor(frames[k + 1], device=dev))), \
+            f"1d storm: the eager step {k + 1} differs from the graphed day"
+    c_eager = all_counters()
+    assert c_eager["K7 traced"] == B01_STEPS and c_eager["K7"] == 0, c_eager
+    assert int(failed) == 0, int(failed)
+    assert_state_bitwise("1d storm: the eager K7 day against the graphed "
+                         "day", es, sim.state)
+    tr = traces["K7 traced"]
+    log("1d", f"the storm (slopped_blob {B01_STORM}) on B01: two days "
+              f"through Simulation.run graphed (K7 traced) in {wall:.3f} s "
+              f"wall, the eager day bit for bit every frame, no failed lane; "
+              f"peak E {peak:.4e}; launches: warm-up and capture "
+              f"{c['K7 traced']}, eager {c_eager['K7 traced']}; in the "
+              f"traces' process {K7_TRACED_STEPS} replays by trace "
+              f"{tr['by_trace']} (bit for bit {tr['eager']} eager steps), "
+              f"idle share {tr['idle_share']:.4f}, "
+              f"{tr['device_ops_per_step']:.1f} device ops a step")
+    plain = b01_storm_model(dev, advance_mode="torch")
+    assert not plain.graphed and plain.advance_mode == "torch"
+    turns = {"plain eager": [], "graphed": []}
+    for who in ("plain eager", "graphed", "graphed", "plain eager"):
+        _, f_, w_ = b01_day(plain if who == "plain eager" else sm)
+        turns[who].append(w_)
+        if who == "plain eager":
+            gap = float(np.abs(f_ - frames).max() / np.abs(frames).max())
+            out["plain_day_gap"] = gap
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log("1d", f"the storm's B01 day ({B01_STEPS} steps) in turns: graphed "
+              f"(K7 traced) {turns['graphed']} s, plain eager "
+              f"{turns['plain eager']} s (medians {med['graphed']:.3f} / "
+              f"{med['plain eager']:.3f} s); the plain day's frames within "
+              f"{out['plain_day_gap']:.3e} of the graphed day's scale")
+    # record_trajectories under the storm, from the storm's peak
+    ms = sm.step_n_quiet(sm.init_state(), 18)
+    reset_counters()
+    final, h = record(sm, ms, REC_1D_STEPS, REST_K)
+    c_rec = all_counters()
+    assert c_rec["K7 traced"] == REC_1D_STEPS * REST_K, c_rec
+    ref, states = sm.step_n(ms, REC_1D_STEPS)
+    assert torch.equal(bits(h["state"]), bits(states)), \
+        "1d storm: record_trajectories' history differs from step_n"
+    assert_state_bitwise("1d storm: record_trajectories' final state",
+                         final, ref)
+    assert h["z_fine"].shape == (REC_1D_STEPS * REST_K, sm.grid.nx, 3)
+    # the first sub-window against the plain integrate_to from the same
+    # state (adaptive: by share of lanes; fixed substeps are unstable for
+    # the young seas the storm meets, on the plain version too)
+    P = ms.particles
+    active = P.on & ~sm.boundary_mask
+    r = integrate_to(sm.rhs, P.z, P.t, P.t + DT / REST_K, P.dt, sm.grid.x,
+                     active, sm.solver)
+    sub_err = max(assert_adaptive(f"1d storm sub-window 0 {nm}",
+                                  h["z_fine"][0][:, c], r.z[:, c])
+                  for c, nm in ((0, "lne"), (1, "cg_x")))
+    assert_close("1d storm sub-window 0 t", h["t_fine"][0], r.t, 1e-6, 0.0)
+    sm.release_graph()
+    log("1d", f"record_trajectories under the storm, K = {REST_K}: "
+              f"{REC_1D_STEPS} steps, the history bit for bit step_n's, "
+              f"launches {c_rec['K7 traced']}; the first sub-window within "
+              f"{sub_err:.3e} of integrate_to ({int(active.sum())} lanes)")
+    results["K7 traced"]["launches"] += (c["K7 traced"] + c_eager["K7 traced"]
+                                         + tr["by_trace"] + tr["eager"]
+                                         + c_rec["K7 traced"])
+    results["K7 traced"]["graph_launches"] = tr["by_trace"]
+    out.update(day_wall_s=wall, day_turns_s=turns, day_median_s=med,
+               launches=dict(capture=c["K7 traced"],
+                             eager=c_eager["K7 traced"],
+                             by_trace=tr["by_trace"],
+                             record=c_rec["K7 traced"]),
+               traced=tr, peak_energy=peak, sub_window_err=sub_err)
+    return out
 
 
 def b01_plain_model(dev, U10: float = 10.0) -> WaveGrowth1D:
@@ -5474,11 +6074,13 @@ def b01_plain_model(dev, U10: float = 10.0) -> WaveGrowth1D:
                         advance_mode="torch")
 
 
-def phase_1d(dev, results, timing) -> None:
+def phase_1d(dev, results, timing, traces: dict) -> None:
     """Phase "1d": the 1D growth model on the card.  On B01 the advance is
     kernel K7 and the drivers replay a CUDA graph of the step
-    (``model.graphed``).  K7 against its plain version (``phase_k7``).
-    The counters set to 0 just before and read just after the main path:
+    (``model.graphed``).  First the traced kind's two libraries are built
+    and each emitted function checked alone (``traced_1d_build``,
+    ``traced_probe_1d_check``).  The counters set to 0 just before and
+    read just after the main path:
     two model days (288 steps) of each B01 configuration through
     ``Simulation.run`` with a CashStore (graphed: the host calls K7 in the
     warm-up and the capture): the centre node onto the Dulov curve (ratios
@@ -5486,21 +6088,28 @@ def phase_1d(dev, results, timing) -> None:
     = 30000 collapsing within 25% across 5, 10 and 20 m/s, as
     tests/test_model_1d_b01.py asserts; the B01 day run again eagerly
     (``model.step`` in a loop, K7 counted once a step), bit for bit the
-    graphed day, frames included; 12 more steps through ``Simulation.run``
-    under a trace (K7 by name).  Then the graphed day's wall time against
-    the plain eager day's (``advance_mode="torch"``: the plain
+    graphed day, frames included; the trace of 12 more steps through
+    ``Simulation.run`` (K7 by name), bit for bit as many eager steps, of
+    ``traces`` (``phase_1d_traces``, in a process of its own).  Then the
+    graphed day's wall time against the plain eager day's (``advance_mode="torch"``: the plain
     ``integrate_to``), in turns; a checkpoint at step 144 resumed bit
     for bit to the day's end; the card (K7) against the CPU (the plain
     advance) on the B01 grid at abstol 1e-7 / reltol 1e-6 over 12 steps
     within 1e-4 of the state's scale, the counters equal (the most
-    substeps of a lane within 2); the sign-merge deposit, deterministic,
-    periodic and open (``deposit_1d_check``)."""
+    substeps of a lane within 2); B01 under the storm (K7's traced kind,
+    ``phase_1d_storm``); K7 against its plain version and its ``_simple``
+    baseline, and its times (``phase_k7``); the
+    sign-merge deposit, deterministic, periodic and open
+    (``deposit_1d_check``)."""
     out = {}
     model = b01_model(dev)
     assert model.graphed and model.advance_mode == "cuda", \
         (model.graphed, model.advance_mode)
-    out["k7"] = phase_k7(dev, model, eager_steps(model, model.init_state(),
-                                                 24), results)
+    winds1d = traced_1d_callables()
+    kerns1d, build_s = traced_1d_build(dev, winds1d)
+    out["traced_1d_build_seconds"] = build_s
+    out["traced_1d_ops"] = traced_probe_1d_check(dev, winds1d, kerns1d,
+                                                 TRACED_PROBE_POINTS)
     reset_counters()
     sim, frames, wall = b01_day(model)
     c_day = counters()
@@ -5552,18 +6161,19 @@ def phase_1d(dev, results, timing) -> None:
     assert c_eager == dict({k: 0 for k in KERNEL_FNS}, K7=B01_STEPS), c_eager
     assert_state_bitwise("1d B01: the eager K7 day against the graphed day",
                          es, sim.state)
-    traced, got, stats = traced_run(
-        model, (B01_STEPS + K7_TRACED_STEPS - 1) * DT,
-        {"K7": K7_TRACED_STEPS}, state=sim.state)
-    results["K7"]["launches"] = c["K7"] + c_eager["K7"] + got["K7"]
-    results["K7"]["graph_launches"] = got["K7"]
-    out.update(eager_day_launches=c_eager, traced=stats)
+    tr = traces["K7"]
+    results["K7"]["launches"] = (c["K7"] + c_eager["K7"] + tr["by_trace"]
+                                 + tr["eager"])
+    results["K7"]["graph_launches"] = tr["by_trace"]
+    out.update(eager_day_launches=c_eager, traced=tr)
     log("1d", f"the eager K7 day: bit for bit the graphed day (every frame, "
-              f"the final state), launches {c_eager}; {K7_TRACED_STEPS} "
-              f"more steps of Simulation.run, launches by trace {got}, idle "
-              f"share {stats['idle_share']:.4f}, "
-              f"{stats['device_ops_per_step']:.1f} device ops a step")
-    del traced, es
+              f"the final state), launches {c_eager}; in the traces' "
+              f"process {K7_TRACED_STEPS} more steps of Simulation.run, "
+              f"launches by trace {tr['by_trace']} (bit for bit "
+              f"{tr['eager']} eager steps), idle share "
+              f"{tr['idle_share']:.4f}, {tr['device_ops_per_step']:.1f} "
+              f"device ops a step")
+    del es
 
     # the graphed day against the plain eager day, in turns
     plain = b01_plain_model(dev)
@@ -5622,6 +6232,11 @@ def phase_1d(dev, results, timing) -> None:
     log("1d", f"card (K7) vs CPU (plain), B01 grid at abstol 1e-7 / reltol "
               f"1e-6, 12 steps: max gap {gap:.3e} of the state's scale, on "
               f"and the counters equal")
+
+    out["storm"] = phase_1d_storm(dev, results, traces)
+    out["k7"] = phase_k7(dev, model, eager_steps(model, model.init_state(),
+                                                 24), kerns1d, winds1d,
+                         results)
 
     for periodic in (True, False):
         d = deposit_1d_check(dev, periodic)
@@ -6940,21 +7555,21 @@ def traced_build(dev, winds: dict) -> dict:
     and the build's wall seconds."""
     kerns = {k: traced_kernel(w, dev) for k, w in winds.items()}
     assert all(k.kind == WindKind.TRACED for k in kerns.values())
-    srcs = [k.traced.source for k in kerns.values()]
+    traced = [k.traced for k in kerns.values()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(srcs) + 2) as ex:
-        builds = list(ex.map(cuda_build.build_traced, srcs))
+    with ThreadPoolExecutor(len(traced) + 2) as ex:
+        builds = list(ex.map(cuda_build.build_traced, traced))
         bad = list(ex.map(cuda_build.unexpected_double_ops,
-                          [kerns["pulse"].traced.source,
-                           kerns["time_cosine stripped"].traced.source]))
+                          [kerns["pulse"].traced,
+                           kerns["time_cosine stripped"].traced]))
     wall = time.perf_counter() - t0
-    for s in srcs:
-        cuda_build.traced_library(s)
+    for tr in traced:
+        cuda_build.traced_library(tr)
     assert not any(bad), f"float64 in the traced kernels: {bad}"
     regs = sorted({ln.split(":", 1)[1].strip()
                    for b in builds for ln in b.log.splitlines()
                    if "registers" in ln})
-    log("traced-winds", f"{len(srcs)} traced libraries built in {wall:.1f} "
+    log("traced-winds", f"{len(traced)} traced libraries built in {wall:.1f} "
                         f"s (each {[round(b.seconds, 1) for b in builds]} "
                         f"s); ptxas: {' | '.join(regs)}; no float64 beyond "
                         f"cosf's argument reduction")
@@ -6987,7 +7602,7 @@ def traced_probe_check(dev, winds: dict, kerns: dict, n: int) -> dict:
     out = {}
     for name, w in winds.items():
         tr = kerns[name].traced
-        lib = cuda_build.traced_library(tr.source)
+        lib = cuda_build.traced_library(tr)
         u, v = torch.empty_like(x), torch.empty_like(x)
         with torch.cuda.device(dev):
             code = lib.picles_traced_probe(
@@ -7328,6 +7943,80 @@ def pulse_layered_check(dev, n: int, results) -> None:
                         f"3 replays bit for bit 3 eager steps; launches {c}")
 
 
+# steps of TRI_DT from the seed whose stage times all fall before the
+# pulse's stop (7200 s): the sixth step's last stage samples the wind at
+# 7200 s, where it is calm
+PULSE_TRI_ANCHOR_STEPS = 5
+
+
+def pulse_tripolar_check(dev, results, timing) -> None:
+    """(f) The pulse on the global tripolar configuration (1440 x 720:
+    per-node projection planes, the pole masks and the continent, the seam
+    folded in K6; DT = TRI_DT), with the counters set to 0 just before and
+    read just after each run: the production (fused) and default paths
+    from the seed, PULSE_TRI_ANCHOR_STEPS eager steps, each bit for bit the
+    same configuration forced by ``constant_winds(12, 0)`` (before the
+    stop the pulse is (12, 0) at every node and stage time); then the
+    production day (TRI_STEPS steps through ``Simulation.run``), graphed,
+    its launches by trace (``traced_run``), bit for bit its eager day
+    (``eager_day``), no failed and no clamped lane summed over the day;
+    each state held to ``check_tripolar`` with the step: unlike the
+    tripolar main path's jet, which is calm near the grid's poles, the
+    pulse blows over the grid's narrowest cells (2 km near its top rows),
+    which its swell crosses in less than a step, so energy there reaches
+    land nodes beyond one cell, as picles_tpu's step puts it there."""
+    grid = tripolar_grid(dev, *TRI_SUPER)
+    out = {}
+    for path, rows in (("production", ("K1 traced", "K6 traced")),
+                       ("default", ("K1 traced", "K2", "K3 traced"))):
+        mp = tripolar_model(grid, pulse_winds(), path)
+        assert mp.winds.kernel.kind == WindKind.TRACED and mp.graphed, path
+        assert mp.uniform_proj is None
+        reset_counters()
+        sp = eager_steps(mp, mp.init_state(), PULSE_TRI_ANCHOR_STEPS)
+        c = all_counters()
+        mc = tripolar_model(grid, constant_winds(12.0, 0.0), path)
+        sc = eager_steps(mc, mc.init_state(), PULSE_TRI_ANCHOR_STEPS)
+        assert_state_bitwise(f"tripolar pulse {path}: {PULSE_TRI_ANCHOR_STEPS}"
+                             f" steps against constant_winds(12, 0)", sp, sc)
+        for r in rows:
+            assert c[r] == PULSE_TRI_ANCHOR_STEPS, (path, c)
+            results["K2 tripolar" if r == "K2" else r]["launches"] += c[r]
+        out[path] = check_tripolar(f"tripolar pulse {path}", mp, sp,
+                                   dt=TRI_DT)
+        log("traced-winds", f"(f) the pulse on the {grid.nx} x {grid.ny} "
+                            f"tripolar grid, {path}: {PULSE_TRI_ANCHOR_STEPS}"
+                            f" steps bit for bit constant_winds(12, 0); "
+                            f"launches {c}; {out[path]}")
+        del mp, mc, sp, sc
+    mp = tripolar_model(grid, pulse_winds(), "production")
+    reset_counters()
+    mp.step_n_quiet(mp.init_state(), 1)   # the capture, out of the trace
+    cap = all_counters()
+    want = {"K1 traced": TRI_STEPS, "K6 traced": TRI_STEPS}
+    sim, got, stats = traced_run(mp, (TRI_STEPS - 1) * TRI_DT, want)
+    assert got == want, f"tripolar pulse day: launches by trace {got}"
+    day, eager = eager_day(mp, sim.state, TRI_STEPS)
+    m = check_tripolar("tripolar pulse day", mp, sim.state, dt=TRI_DT)
+    log("traced-winds", f"(f) the pulse's production day on the tripolar "
+                        f"grid: counters summed {day}; {m}")
+    assert day["n_failed"] == 0 and day["n_clamped"] == 0, day
+    for r in want:
+        assert eager[r] == TRI_STEPS, eager
+        results[r]["launches"] += cap[r] + eager[r]
+        results[r]["graph_launches"] = \
+            results[r].get("graph_launches", 0) + got[r]
+    mp.release_graph()
+    out["day"] = dict(counters=day, launches_by_trace=got, metrics=m,
+                      idle_share=stats["idle_share"])
+    timing["traced_pulse_tripolar"] = out
+    log("traced-winds", f"(f) the pulse's production day on the tripolar "
+                        f"grid ({TRI_STEPS} steps of {TRI_DT:g} s) through "
+                        f"Simulation.run graphed: launches by trace {got}, "
+                        f"bit for bit the eager day, no failed or clamped "
+                        f"lane")
+
+
 def phase_sharded_pulse(dev, results, timing) -> None:
     """(d) Inside phase "sharded-1x1"'s process group (one NCCL rank): the
     pulse's "pallas" flagship through ``ShardedWaveGrowth2D`` on a (1, 1)
@@ -7499,18 +8188,20 @@ def phase_traced_winds(dev, results, timing) -> None:
     build, (a) the emitted functions alone, (b) the traced kernels against
     their plain versions and anchors, (c) the pulse's main path at
     FLAG_N^2, (d) 4 layers of the pulse (the (1, 1) NCCL pulse runs inside
-    "sharded-1x1", ``phase_sharded_pulse``), (e) the kernels' times."""
+    "sharded-1x1", ``phase_sharded_pulse``), (f) the pulse on the global
+    tripolar grid, (e) the kernels' times."""
     t0 = time.perf_counter()
     winds = traced_callables()
     kerns, build_s = traced_build(dev, winds)
     again = WaveGrowth2D(cartesian_box(2e3, 2, 2e3, 2, device=dev),
                          pulse_winds(), settings("bosh3"))
     assert again.winds.kernel.traced.digest == kerns["pulse"].traced.digest
-    assert cuda_build.build_traced(kerns["pulse"].traced.source).seconds == 0
+    assert cuda_build.build_traced(kerns["pulse"].traced).seconds == 0
     ops = traced_probe_check(dev, winds, kerns, TRACED_PROBE_POINTS)
     traced_kernel_checks(dev, FLAG_N, winds, kerns, results, timing)
     pulse_main_path(dev, FLAG_N, results, timing)
     pulse_layered_check(dev, FLAG_N, results)
+    pulse_tripolar_check(dev, results, timing)
     traced_kernel_times(dev, FLAG_N, winds, kerns, results, timing)
     timing["traced_build_seconds"] = build_s
     timing["traced_ops"] = ops
@@ -7532,6 +8223,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # a rank of phase sharded-2x2
     ap.add_argument("--profile-child", metavar="JSON",
                     help=argparse.SUPPRESS)   # phase_profile's process
+    ap.add_argument("--trace-1d-child", metavar="JSON",
+                    help=argparse.SUPPRESS)   # phase_1d_traces' process
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -7549,6 +8242,9 @@ def main(argv=None) -> int:
     if args.profile_child:
         phase_profile(args.profile_child, gridded_record(
             torch.device("cuda", 0)))
+        return 0
+    if args.trace_1d_child:
+        phase_1d_traces(args.trace_1d_child)
         return 0
     t_start = time.perf_counter()
 
@@ -7582,6 +8278,13 @@ def main(argv=None) -> int:
                             "(picles_tpu/ops/tsit5.py:278 lax.while_loop)",
                    simple_ms=None, launches=0),
     }
+    # K7's traced kind: a 1D callable that reads its time, compiled into a
+    # library of its own
+    results["K7 traced"] = dict(results["K7"], name="advance_1d_traced",
+                                replaces="the port's own; no pl.pallas_call "
+                                         "(picles_tpu/ops/tsit5.py:217 "
+                                         "lax.while_loop, u(x, t) read at "
+                                         "each stage time)")
     # the gridded instances: the same kernels with the wind's planes
     for k in ("K1", "K3", "K5", "K6"):
         results[f"{k} gridded"] = dict(
@@ -7610,6 +8313,7 @@ def main(argv=None) -> int:
             results[k], name=results[k]["name"] + "_layered", simple_ms=None,
             launches=0)
     timing = {}
+    traces_1d = phase_1d_traces_process()
     if args.profile:
         phase_profile_process(args.profile)
     phase_k1(dev, results)
@@ -7656,10 +8360,10 @@ def main(argv=None) -> int:
     del layered
     phase_twin_timing(timing, 20)
     del flag, s_flag, default, s_def
-    phase_1d(dev, results, timing)
     phase_sharded_1x1(dev, gw, results, timing)
     phase_sharded_2x2(timing)
     phase_examples(timing)
+    phase_1d(dev, results, timing, traces_1d)
 
     kernels = [dict(results[k], library_ms=None,
                     short_traces=SHORT_TRACES.get(k, []))
@@ -7667,8 +8371,9 @@ def main(argv=None) -> int:
                          "K3 gridded", "K5 gridded", "K6 gridded",
                          *PROJ_REPLACES,
                          *(f"{k} layered" for k in LAYER_KERNELS),
-                         *NODE_REPLACES, "K7", *TRACED_REPLACES)]
-    assert len(kernels) == 29
+                         *NODE_REPLACES, "K7", *TRACED_REPLACES,
+                         "K7 traced")]
+    assert len(kernels) == 30
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

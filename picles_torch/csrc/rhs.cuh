@@ -28,7 +28,9 @@
 #include <math.h>
 
 #ifdef PICLES_TRACED_WIND
-#include "traced_wind.cuh"  // picles::traced_wind of one callable
+// picles::traced_wind of one callable, or under PICLES_TRACED_WIND_1D
+// picles::traced_wind_1d of one 1D callable
+#include "traced_wind.cuh"
 #endif
 
 namespace picles {
@@ -65,10 +67,14 @@ enum WindKind : int {
 // callable, with PICLES_TRACED_WIND defined and the emitted
 // `traced_wind.cuh` on the include path: that library holds only the traced
 // instances of K1, K3, K5 and K6 (entry points `..._traced`), whose lanes
-// read the node x and y and call `traced_wind` at every stage time.  The
-// kernels' own library compiles no traced code: there `traced_wind` is a
-// stub that no kernel calls (every call sits in a branch that
-// `TRACED_LIB` folds away), and `attach_planes` refuses the kind.
+// read the node x and y and call `traced_wind` at every stage time.  A 1D
+// callable's library (`traced_library_1d`) compiles advance_1d.cu alone
+// with PICLES_TRACED_WIND_1D defined too: K7's traced instances, whose
+// lanes call `traced_wind_1d(xn, t)`.  The kernels' own library compiles no
+// traced code: there `traced_wind` and `traced_wind_1d` are stubs that no
+// kernel calls (every call sits in a branch that `TRACED_LIB` or a
+// template's wind kind folds away), and `attach_planes` and K7's entry
+// point refuse the kind.
 //
 // A traced library's kernels sit in a namespace `traced` inside their
 // file's own (PICLES_KERNELS_BEGIN / _END around a file's kernels,
@@ -87,10 +93,17 @@ constexpr bool TRACED_LIB = true;
 #define PICLES_KERNELS_END
 #define PICLES_USING_KERNELS
 constexpr bool TRACED_LIB = false;
+#endif
+#if !defined(PICLES_TRACED_WIND) || defined(PICLES_TRACED_WIND_1D)
 __device__ __forceinline__ void traced_wind(float, float, float, float& u,
                                             float& v) {
   u = 0.0f;
   v = 0.0f;
+}
+#endif
+#ifndef PICLES_TRACED_WIND_1D
+__device__ __forceinline__ float traced_wind_1d(float, float) {
+  return 0.0f;
 }
 #endif
 
@@ -406,21 +419,34 @@ __device__ __forceinline__ void rhs_at(const RHSParams& c, const WindParams& w,
 // card: a division by a Python scalar c is a product with 1 / c (ATen's
 // division by a host scalar), c / x is (1 / x) * c (Tensor.__rtruediv__),
 // a division by a 0-dim tensor (winds.py `_div`) and x / y are divisions.
+// The two reciprocals of a host scalar, 1 / r_g and 1 / e_T, depend on the
+// launch only: the host forms them as float32 quotients
+// (ops/advance_cuda.py `k7_reciprocals`), the same bits as the card's IEEE
+// division, so no evaluation divides by a constant, and the term flags
+// arrive as a compile-time constant in K7's compiled instances.
 // ---------------------------------------------------------------------------
 
 struct RHS1DParams {
   float r_g, C_alpha, C_e, g, p, n, e_T;
-  float two_n;  // 2 n, formed in float64
+  float two_n;             // 2 n, formed in float64
+  float inv_r_g, inv_e_T;  // float32(1) / float32(r_g), / float32(e_T)
   int flags;
 };
+
+// The term bits the 1D RHS reads (the direction bit it ignores), and K7's
+// compiled set: all of them, TermFlags()'s.
+constexpr int TERMS_1D =
+    TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION | TERM_PEAK_SHIFT;
 
 // The 1D RHS of (lne, cg_x, x) under the signed wind u at the lane's node:
 // alpha = |u| / (2 |c_gp|) clamped at 500 feeds the H and Delta windows,
 // dissipation is exp(n lne) (k_p / e_T)^(2n), no direction terms, and
-// dx = cg_x.
-__device__ __forceinline__ void rhs_1d(const RHS1DParams& c, float lne,
-                                       float cg_x, float u, float out[3]) {
-  const float c_gp = fabsf(cg_x) * (1.0f / c.r_g);
+// dx = cg_x.  `flags`: the term bits, a compile-time constant in K7's
+// compiled instances (each test folds) or c.flags.
+__device__ __forceinline__ void rhs_1d(const RHS1DParams& c, int flags,
+                                       float lne, float cg_x, float u,
+                                       float out[3]) {
+  const float c_gp = fabsf(cg_x) * c.inv_r_g;
   const float k_p = (1.0f / (4.0f * jmax(c_gp * c_gp, 1e-2f))) * c.g;
   const float omega_p = (1.0f / (2.0f * jmax(fabsf(c_gp), 0.1f))) * c.g;
   const float a = fabsf(u) / (2.0f * c_gp);
@@ -431,19 +457,19 @@ __device__ __forceinline__ void rhs_1d(const RHS1DParams& c, float lne,
   const float sech = (2.0f * ex) / (1.0f + ex * ex);
   const float Delta_p = 1.0f - 1.25f * (sech * sech);
 
-  const float I_t = (c.flags & TERM_INPUT) ? (H_p * c.C_e) * (alpha * alpha)
-                                           : 0.0f;
-  const float D_t = (c.flags & TERM_DISSIPATION)
-                        ? expf(lne * c.n) * powf(k_p * (1.0f / c.e_T), c.two_n)
+  const float I_t = (flags & TERM_INPUT) ? (H_p * c.C_e) * (alpha * alpha)
+                                         : 0.0f;
+  const float D_t = (flags & TERM_DISSIPATION)
+                        ? expf(lne * c.n) * powf(k_p * c.inv_e_T, c.two_n)
                         : 0.0f;
   float S_cg_t = 0.0f;
-  if (c.flags & TERM_PEAK_SHIFT) {
+  if (flags & TERM_PEAK_SHIFT) {
     const float k_p2 = k_p * k_p;
     S_cg_t = ((Delta_p * c.C_alpha) * (k_p2 * k_p2)) * expf(lne * 2.0f);
   }
   out[0] = (omega_p * c.r_g) * S_cg_t + omega_p * (I_t - D_t);
   out[1] = ((-cg_x * omega_p) * c.r_g) * S_cg_t;
-  out[2] = (c.flags & TERM_PROPAGATION) ? cg_x : 0.0f;
+  out[2] = (flags & TERM_PROPAGATION) ? cg_x : 0.0f;
 }
 
 // A 1D wind record u_data [nx, nt] (x0, dx, t0, dt as float32; each axis

@@ -2,22 +2,27 @@
 
 The Pallas kernels of the JAX package inline whatever wind closure the model
 holds: JAX traces ``u(x, y, t)`` and ``v(x, y, t)`` into each kernel's body,
-where they are evaluated at every stage time.  A CUDA kernel is compiled
-before its launch, so the port does the same in three steps:
+where they are evaluated at every stage time, and the 1D model's jitted loop
+evaluates ``u(x, t)`` likewise.  A CUDA kernel is compiled before its
+launch, so the port does the same in three steps:
 
 1. ``trace_winds`` traces the two samplers once with ``make_fx`` on float32
    placeholders (``x`` and ``y`` of shape ``[n]``, ``t`` 0-dim) and lowers
    the aten graph to a short list of elementwise operations (``Op``), the
-   ``TracedWind``;
+   ``TracedWind``; ``trace_winds_1d`` traces the 1D sampler ``u(x, t)`` the
+   same way, through the same lowering;
 2. ``TracedWind.source`` emits that list as one CUDA device function,
-   ``picles::traced_wind(x, y, t, u, v)`` (``traced_wind.cuh``);
-3. ``ops/cuda_build.py`` ``traced_library`` compiles that function into the
-   traced instances of K1, K3, K5 and K6 (wind kind ``TRACED``), a library
-   of each traced wind's own.
+   ``picles::traced_wind(x, y, t, u, v)``, or for a 1D sampler
+   ``picles::traced_wind_1d(x, t)`` returning u (``traced_wind.cuh``);
+3. ``ops/cuda_build.py`` ``traced_library`` compiles the 2D function into
+   the traced instances of K1, K3, K5 and K6, and ``traced_library_1d`` the
+   1D one into those of K7 (wind kind ``TRACED``), a library of each traced
+   wind's own.
 
 ``TracedWind.evaluate`` is the plain version: the same list run as torch
 operations in the same order, bit for bit the callable on the device it
-runs on (``TracedWind.winds`` wraps it as a ``Winds2D``).
+runs on (``TracedWind.winds`` wraps it as a ``Winds2D``, or a ``Winds1D``
+for a 1D sampler).
 
 What the tracer takes: the operations of ``OPS`` on float32 and bool
 values, literals (Python numbers, and captured tensors of one element), and
@@ -27,8 +32,8 @@ aten operation and ``advance_mode="torch"``: a value read on the host
 ``_local_scalar_dense``), an indexed captured tensor (a record in
 disguise), a reduction, a shape change, any float64 or integer value, a
 clamp with a NaN bound, and any operation not listed.  Such a wind runs
-with ``advance_mode="torch"`` and ``remesh_mode="xla"``, or as a
-``GriddedWinds2D`` record.
+with ``advance_mode="torch"`` (and in 2D ``remesh_mode="xla"``), or as a
+``GriddedWinds2D`` or ``GriddedWinds1D`` record.
 
 The emitter writes each operation as PyTorch's CUDA kernels compute it,
 not as the Python text reads: a division by a host scalar (a Python number,
@@ -79,7 +84,9 @@ _FILL = {"full_like": None, "zeros_like": 0.0, "ones_like": 1.0}
 # the exponents ATen's CUDA pow computes through a double or rsqrt
 _POW_REFUSED = (-2.0, -0.5)
 
+# the samplers' inputs: u(x, y, t) and v(x, y, t), or the 1D u(x, t)
 INPUTS = ("x", "y", "t")
+INPUTS_1D = ("x", "t")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +106,9 @@ Arg = Union[int, Lit]
 
 @dataclasses.dataclass(frozen=True)
 class Op:
-    """One elementwise operation: its operands are values (``int``: 0, 1,
-    2 the inputs x, y, t, then the results of the operations before it in
-    order) or literals."""
+    """One elementwise operation: its operands are values (``int``: the
+    inputs in order (x, y, t, or x, t in 1D), then the results of the
+    operations before it in order) or literals."""
 
     name: str
     args: Tuple[Arg, ...]
@@ -111,11 +118,11 @@ class Op:
 def _refuse(what: str, op: str) -> NotImplementedError:
     return NotImplementedError(
         f"the wind callable cannot be traced into the CUDA kernels: {what} "
-        f"(aten op {op}).  The kernels take u(x, y, t) and v(x, y, t) built "
-        f"from elementwise float32 operations (forcing/wind_trace.py OPS) "
-        f"and constants; run this wind with advance_mode=\"torch\" and "
-        f"remesh_mode=\"xla\" (the plain step), or as a GriddedWinds2D "
-        f"record")
+        f"(aten op {op}).  The kernels take u(x, y, t) and v(x, y, t), or "
+        f"the 1D u(x, t), built from elementwise float32 operations "
+        f"(forcing/wind_trace.py OPS) and constants; run this wind with "
+        f"advance_mode=\"torch\" (in 2D with remesh_mode=\"xla\": the plain "
+        f"step), or as a GriddedWinds2D or GriddedWinds1D record")
 
 
 def _hex(v: float) -> str:
@@ -134,20 +141,27 @@ def _hex(v: float) -> str:
 @dataclasses.dataclass(frozen=True)
 class TracedWind:
     """A wind callable lowered to elementwise operations: ``ops`` in order,
-    ``outputs`` the values (or literals) of u and v."""
+    ``outputs`` the values (or literals) of u and v, or of the 1D u alone
+    (``inputs`` ``INPUTS_1D``)."""
 
     ops: Tuple[Op, ...]
-    outputs: Tuple[Arg, Arg]
+    outputs: Tuple[Arg, ...]
+    inputs: Tuple[str, ...] = INPUTS
+
+    @property
+    def one_d(self) -> bool:
+        """Whether this is a 1D sampler ``u(x, t)``."""
+        return self.inputs == INPUTS_1D
 
     # -- the plain version -------------------------------------------------
 
-    def evaluate(self, x: torch.Tensor, y: torch.Tensor, t
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(u, v) at ``(x, y, t)``: the operations run as torch operations
-        in order, on ``x``'s device."""
-        dev = x.device
-        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-        vals = [x, y, t]
+    def evaluate(self, *coords) -> Tuple[torch.Tensor, ...]:
+        """(u, v) at ``(x, y, t)``, or (u,) of a 1D sampler at ``(x, t)``:
+        the operations run as torch operations in order, on ``x``'s
+        device."""
+        dev = coords[0].device
+        t = torch.as_tensor(coords[-1], dtype=torch.float32, device=dev)
+        vals = [*coords[:-1], t]
 
         def get(a):
             if isinstance(a, int):
@@ -165,9 +179,11 @@ class TracedWind:
 
     def winds(self):
         """The plain version as a ``Winds2D`` (samplers ``u`` and ``v`` of
-        ``evaluate``)."""
-        from .winds import Winds2D
+        ``evaluate``), or a ``Winds1D`` of a 1D sampler."""
+        from .winds import Winds1D, Winds2D
 
+        if self.one_d:
+            return Winds1D(u=lambda x, t: self.evaluate(x, t)[0])
         return Winds2D(u=lambda x, y, t: self.evaluate(x, y, t)[0],
                        v=lambda x, y, t: self.evaluate(x, y, t)[1])
 
@@ -176,8 +192,9 @@ class TracedWind:
     @functools.cached_property
     def source(self) -> str:
         """``traced_wind.cuh``: the device function ``picles::traced_wind(x,
-        y, t, u, v)``, one ``const`` a value in order."""
-        names = list(INPUTS)
+        y, t, u, v)``, or ``picles::traced_wind_1d(x, t)`` returning u, one
+        ``const`` a value in order."""
+        names = list(self.inputs)
 
         def ref(a) -> str:
             if isinstance(a, int):
@@ -193,20 +210,29 @@ class TracedWind:
             lines.append(f"  const {'bool' if boolean else 'float'} {name} = "
                          f"{_emit(op, ref)};")
             names.append(name)
-        u, v = (ref(o) for o in self.outputs)
+        outs = [ref(o) for o in self.outputs]
+        if self.one_d:
+            what, head, tail = (
+                "u of one traced 1D wind callable at (x, t)",
+                "__device__ __forceinline__ float traced_wind_1d(float x, "
+                "float t) {", [f"  return {outs[0]};"])
+        else:
+            what, head, tail = (
+                "u and v of one traced wind callable at (x, y, t)",
+                "__device__ __forceinline__ void traced_wind(float x, float "
+                "y, float t, float& u, float& v) {",
+                [f"  u = {outs[0]};", f"  v = {outs[1]};"])
         return "\n".join([
-            "// u and v of one traced wind callable at (x, y, t): the",
+            f"// {what}: the",
             "// elementwise operations of its graph in order, each as",
             "// PyTorch's CUDA kernels compute it.  Written by",
             "// picles_torch/forcing/wind_trace.py.",
             "#pragma once",
             "#include <math.h>",
             "namespace picles {",
-            "__device__ __forceinline__ void traced_wind(float x, float y, "
-            "float t, float& u, float& v) {",
+            head,
             *lines,
-            f"  u = {u};",
-            f"  v = {v};",
+            *tail,
             "}",
             "}  // namespace picles",
             ""])
@@ -354,7 +380,8 @@ def _check_value(node, op: str) -> None:
                       f"see one node a lane)", op)
 
 
-def _lower(gm: torch.fx.GraphModule, trace_dev: torch.device) -> TracedWind:
+def _lower(gm: torch.fx.GraphModule, trace_dev: torch.device,
+           inputs: Tuple[str, ...]) -> TracedWind:
     env = {}
     ops = []
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
@@ -369,7 +396,7 @@ def _lower(gm: torch.fx.GraphModule, trace_dev: torch.device) -> TracedWind:
 
     def emit(name, args, param=()):
         ops.append(Op(name, tuple(args), tuple(param)))
-        return len(INPUTS) + len(ops) - 1
+        return len(inputs) + len(ops) - 1
 
     out = None
     for node in gm.graph.nodes:
@@ -471,7 +498,7 @@ def _lower(gm: torch.fx.GraphModule, trace_dev: torch.device) -> TracedWind:
         raise _refuse("an operation the kernels do not compile (reductions, "
                       "shape changes, indexing and others)", opname)
     outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
-    if len(outs) != 2:
+    if len(outs) != len(inputs) - 1:
         raise _refuse("samplers that do not return one tensor each", "output")
     lowered = []
     for o in outs:
@@ -482,7 +509,23 @@ def _lower(gm: torch.fx.GraphModule, trace_dev: torch.device) -> TracedWind:
             raise _refuse(f"a sampler that returns {o.meta['val'].dtype}",
                           "output")
         lowered.append(env[o])
-    return TracedWind(tuple(ops), tuple(lowered))
+    return TracedWind(tuple(ops), tuple(lowered), tuple(inputs))
+
+
+def _trace(fn, placeholders, dev) -> TracedWind:
+    """``fn`` (the samplers, returning a tuple) traced by ``make_fx`` on
+    the float32 ``placeholders`` (x, y, t or x, t) and lowered."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    try:
+        gm = make_fx(fn)(*placeholders)
+    except RuntimeError as e:
+        if "_local_scalar_dense" in str(e):
+            raise _refuse("a value read on the host (float(t), t.item() or "
+                          "a Python branch on t)",
+                          "aten._local_scalar_dense") from e
+        raise
+    return _lower(gm, dev, INPUTS if len(placeholders) == 3 else INPUTS_1D)
 
 
 def trace_winds(u: Callable, v: Callable, device="cpu") -> TracedWind:
@@ -490,23 +533,20 @@ def trace_winds(u: Callable, v: Callable, device="cpu") -> TracedWind:
     (float32 placeholders: ``x``, ``y`` of shape ``[4]``, ``t`` 0-dim) and
     lower them (module docstring); raises ``NotImplementedError`` naming
     the first operation the kernels cannot take."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-
     dev = torch.device(device)
     x = torch.zeros(4, dtype=torch.float32, device=dev)
     y = torch.zeros(4, dtype=torch.float32, device=dev)
     t = torch.zeros((), dtype=torch.float32, device=dev)
+    # through a lambda: make_fx counts defaulted parameters as inputs
+    return _trace(lambda x, y, t: (u(x, y, t), v(x, y, t)), (x, y, t), dev)
 
-    def both(x, y, t):
-        return u(x, y, t), v(x, y, t)
 
-    try:
-        # through a lambda: make_fx counts defaulted parameters as inputs
-        gm = make_fx(lambda x, y, t: both(x, y, t))(x, y, t)
-    except RuntimeError as e:
-        if "_local_scalar_dense" in str(e):
-            raise _refuse("a value read on the host (float(t), t.item() or "
-                          "a Python branch on t)",
-                          "aten._local_scalar_dense") from e
-        raise
-    return _lower(gm, dev)
+def trace_winds_1d(u: Callable, device="cpu") -> TracedWind:
+    """Trace the 1D sampler ``u(x, t)`` on ``device`` (float32
+    placeholders: ``x`` of shape ``[4]``, ``t`` 0-dim) and lower it as
+    ``trace_winds`` lowers a 2D pair, with the same refusals; its
+    ``source`` is ``traced_wind_1d(x, t)``."""
+    dev = torch.device(device)
+    x = torch.zeros(4, dtype=torch.float32, device=dev)
+    t = torch.zeros((), dtype=torch.float32, device=dev)
+    return _trace(lambda x, t: (u(x, t),), (x, t), dev)

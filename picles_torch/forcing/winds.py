@@ -33,10 +33,12 @@ with ``advance_mode="torch"``.  The samplers compute in float32 with the
 JAX package's operation order.
 
 The 1D model's winds (``Winds1D``: ``u(x, t)``) reach its advance kernel K7
-in two kinds: a steady callable as its one node plane ``[nx]``
-(``steady_node_plane_1d``, the same probe), and a ``GriddedWinds1D``
-record as itself (``u_data`` and its axes).  A 1D callable that reads its
-time runs on the plain path only (K7 has no traced kind yet).
+in three kinds: a steady callable as its one node plane ``[nx]``
+(``steady_node_plane_1d``, the same probe, tried first), a callable that
+reads its time as its traced graph (``traced_kernel_1d``: kind ``TRACED``,
+``traced_wind_1d(x, t)`` compiled into a library of K7's traced instances;
+the tracer's refusals raise as in 2D), and a ``GriddedWinds1D`` record as
+itself (``u_data`` and its axes).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten
 
-from .wind_trace import TracedWind, trace_winds
+from .wind_trace import TracedWind, trace_winds, trace_winds_1d
 
 
 class WindKind(enum.IntEnum):
@@ -597,6 +599,15 @@ def _f32_on(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(torch.float32)
     return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def traced_kernel_1d(winds: Winds1D, device="cpu") -> WindKernel:
+    """The descriptor of a 1D callable traced on ``device`` (kind
+    ``TRACED``, its ``traced`` graph a 1D sampler, ``trace_winds_1d``),
+    as ``traced_kernel`` is for a ``Winds2D``; raises
+    ``NotImplementedError`` for a callable the tracer cannot lower."""
+    return WindKernel(WindKind.TRACED, 0.0, 0.0,
+                      traced=trace_winds_1d(winds.u, device))
 
 
 def constant_winds_1d(U10: float) -> Winds1D:

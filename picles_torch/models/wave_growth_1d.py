@@ -16,23 +16,27 @@ It differs from the 2D model in these ways:
 
 The advance is kernel K7 (``ops/advance_cuda.advance_1d``, the port's own
 kernel: the JAX package runs this loop as a device-side ``lax.while_loop``
-outside Pallas) on a CUDA device, with float32 and a wind K7 reads: a
-steady callable (its node plane, ``forcing.winds.steady_node_plane_1d``,
-probed once at construction; ``constant_winds_1d`` is one) or a
+outside Pallas) on a CUDA device, with float32 and any wind the JAX model
+takes: a steady callable (its node plane,
+``forcing.winds.steady_node_plane_1d``, probed once at construction;
+``constant_winds_1d`` is one), a callable that reads its time (traced once
+at construction, ``forcing.winds.traced_kernel_1d``, into a library of
+K7's traced instances built at its first launch; one the tracer cannot
+lower raises, naming the operation and ``advance_mode="torch"``) or a
 ``GriddedWinds1D`` record, which the model keeps.  Then every other stage
 of the step (the guards, the sign-merge deposit ``pic.segment_sum``, the
-remesh, the plain Hairer ``auto_dt``, the counters) is PyTorch on the
-device that never reads it back, and ``graphed`` is true: the drivers
-(``step_n`` and the rest, ``models/drivers.py``) replay a CUDA graph of the
-step.  On a CUDA device a float64 config or a wind callable that reads its
-time raises, as the 2D model's kernel modes refuse such a callable: K7
-takes neither, and the plain advance runs there only when the caller asks
-for it with ``advance_mode="torch"`` (a constructor keyword, since the JAX
-config has no mode field).  The plain advance is ``tsit5.integrate_to``,
-which tests on the host whether its loop is done, once an iteration, so
-the drivers loop over ``step``; it is the CPU's advance.  ``advance_mode``
-("cuda" or "torch", ``resolve_advance_1d``) says which was chosen.  The
-deposit sums without atomics, so the step is deterministic on the card.
+remesh, the plain Hairer ``auto_dt``, the counters; each evaluates the
+callable itself in torch on the device) is PyTorch on the device that
+never reads it back, and ``graphed`` is true: the drivers (``step_n`` and
+the rest, ``models/drivers.py``) replay a CUDA graph of the step.  On a
+CUDA device a float64 config raises: K7 computes in float32, and the plain
+advance runs there only when the caller asks for it with
+``advance_mode="torch"`` (a constructor keyword, since the JAX config has
+no mode field).  The plain advance is ``tsit5.integrate_to``, which tests
+on the host whether its loop is done, once an iteration, so the drivers
+loop over ``step``; it is the CPU's advance.  ``advance_mode`` ("cuda" or
+"torch", ``resolve_advance_1d``) says which was chosen.  The deposit sums
+without atomics, so the step is deterministic on the card.
 """
 
 from __future__ import annotations
@@ -45,12 +49,12 @@ import torch
 
 from ..core import fetch_relations as FR
 from ..core.constants import IDConstants, ODEParameters, ODESettings
-from ..forcing.winds import (GriddedWinds1D, WindKind,
-                             steady_node_plane_1d)
+from ..forcing.winds import (GriddedWinds1D, WindKernel, WindKind,
+                             steady_node_plane_1d, traced_kernel_1d)
 from ..grids.base import Grid1D, one_d_grid  # noqa: F401  (JAX's home of it)
 from ..ops import pic
 from ..ops import transforms as TR
-from ..ops.advance_cuda import advance_1d
+from ..ops.advance_cuda import advance_1d, kernel_library_1d
 from ..ops.rhs import TermFlags, make_rhs_consts, particle_equations_1d
 from ..ops.tsit5 import METHODS, SolverConfig, auto_dt, integrate_to
 from .drivers import StepDrivers
@@ -89,9 +93,10 @@ def resolve_advance_1d(device, dtype: torch.dtype,
     """The 1D model's advance for tensors on ``device``: "cuda" (kernel K7)
     or "torch" (the plain ``integrate_to``).  "auto" is K7 on a CUDA device
     and the plain advance on the CPU; "torch" is the plain advance on
-    either.  K7 takes float32 and a wind of the node or gridded kind, and
-    on a CUDA device anything else raises, naming ``advance_mode="torch"``:
-    float64, and a wind that reads its time (``wind_kind`` None)."""
+    either.  K7 takes float32 and a wind of the node, gridded or traced
+    kind (every wind the model takes: a callable the tracer refuses raises
+    before this); on a CUDA device float64 raises, naming
+    ``advance_mode="torch"``."""
     if advance_mode not in ADVANCE_MODES_1D:
         raise ValueError(f"advance_mode must be one of {ADVANCE_MODES_1D}, "
                          f"got {advance_mode!r}")
@@ -104,12 +109,9 @@ def resolve_advance_1d(device, dtype: torch.dtype,
     if dtype != torch.float32:
         raise ValueError(f"kernel K7 computes in float32, not {dtype}; pass "
                          f'advance_mode="torch" for the plain advance')
-    if wind_kind not in (WindKind.NODE, WindKind.GRIDDED):
-        raise NotImplementedError(
-            "these winds read their time t (t enters a torch operation in "
-            "u(x, t)): kernel K7 runs a steady callable (its node plane) and "
-            "a GriddedWinds1D record; winds that read their time run with "
-            'advance_mode="torch", or as a GriddedWinds1D record')
+    if wind_kind not in (WindKind.NODE, WindKind.GRIDDED, WindKind.TRACED):
+        raise ValueError(f"kernel K7 takes a wind of the node, gridded or "
+                         f"traced kind, not {wind_kind!r}")
     return "cuda"
 
 
@@ -173,16 +175,22 @@ class WaveGrowth1D(StepDrivers):
                                    adaptive=ode_settings.adaptive)
         self._rk_order = METHODS[ode_settings.solver].order
 
-        # the advance (resolve_advance_1d), and K7's wind: the record or a
-        # steady callable's node plane (probed only where K7 may run)
+        # the advance (resolve_advance_1d), and K7's wind: the record, a
+        # steady callable's node plane or a callable's traced graph (probed
+        # and traced only where K7 may run, the steady probe first)
         self._node_plane: Optional[torch.Tensor] = None
+        self._traced: Optional[WindKernel] = None
         kind = None
         if self.gridded_winds is not None:
             kind = WindKind.GRIDDED
-        elif advance_mode != "torch" and \
+        elif advance_mode != "torch" and dtype == torch.float32 and \
                 torch.device(self.device).type == "cuda":
             self._node_plane = steady_node_plane_1d(winds, grid.x)
-            kind = None if self._node_plane is None else WindKind.NODE
+            if self._node_plane is not None:
+                kind = WindKind.NODE
+            else:
+                self._traced = traced_kernel_1d(winds, self.device)
+                kind = WindKind.TRACED
         self._advance_mode = resolve_advance_1d(self.device, config.dtype,
                                                 kind, advance_mode)
         self._graphed = self._advance_mode == "cuda"
@@ -231,8 +239,11 @@ class WaveGrowth1D(StepDrivers):
         return self._advance_mode
 
     def graph_keep(self) -> tuple:
-        """K7's wind: the node plane or the record."""
-        return (self._node_plane, self.gridded_winds)
+        """K7's wind: the node plane, the record, or the traced wind and
+        its library (built by the warm-up's launches)."""
+        lib = (kernel_library_1d(self._traced)[0]
+               if self._traced is not None else None)
+        return (self._node_plane, self.gridded_winds, self._traced, lib)
 
     # ------------------------------------------------------------------
 
@@ -258,6 +269,7 @@ class WaveGrowth1D(StepDrivers):
         (z, t, dt, failed, naccept)."""
         if self._advance_mode == "cuda":
             wind = (self.gridded_winds if self.gridded_winds is not None
+                    else self._traced if self._traced is not None
                     else self._node_plane)
             return advance_1d(wind, self.consts, self.flags, self.solver,
                               span, z.contiguous(), t, dt, active,

@@ -37,14 +37,18 @@ plane, and its plain versions run over ``TracedWind.winds``.
 ``advance_1d`` runs the 1D model's whole embedded-RK loop of one step per
 particle (K7, the port's own kernel: the JAX package runs that loop as a
 ``lax.while_loop`` outside Pallas).  Its wind is a steady callable's node
-plane ``[nx]`` or a ``GriddedWinds1D`` record, read at the lane's node.
-Its plain version is ``tsit5.integrate_to`` with
-``rhs.particle_equations_1d``, which the 1D model runs on the CPU.
+plane ``[nx]``, a ``GriddedWinds1D`` record, or a 1D callable that reads
+its time as its traced descriptor (``forcing.winds.traced_kernel_1d``: the
+wrapper launches that wind's own library, ``cuda_build.traced_library_1d``,
+and counts ``advance_1d.traced_launches``), read at the lane's node.  Its
+plain version is ``tsit5.integrate_to`` with ``rhs.particle_equations_1d``
+(for the traced kind over ``TracedWind.winds``), which the 1D model runs on
+the CPU.
 
 ``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
 ``advance_1d.launches`` count kernel launches (not plain-version calls);
-``advance_cuda.traced_launches`` and ``auto_dt_cuda.traced_launches`` the
-launches of the traced instances.
+``advance_cuda.traced_launches``, ``auto_dt_cuda.traced_launches`` and
+``advance_1d.traced_launches`` the launches of the traced instances.
 
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
@@ -54,7 +58,8 @@ K3: the bare estimate, then PyTorch's clamp and select), the baseline the
 card checks hold each kernel to bit for bit; no path of the package passes
 it, and its launches are not counted.  Gridded and node winds and
 projection planes have no baseline: ``simple=True`` with any raises, as
-with a traced wind.
+with a traced wind.  K7's baseline (``advance_1d(..., simple=True)``) is
+the previous kernel, compiled beside it for every wind kind.
 """
 
 from __future__ import annotations
@@ -117,7 +122,7 @@ def kernel_library(wind: WindKernel) -> Tuple[ctypes.CDLL, str]:
     from .cuda_build import library, traced_library
 
     if wind.kind == WindKind.TRACED:
-        return traced_library(wind.traced.source), "_traced"
+        return traced_library(wind.traced), "_traced"
     return library(), ""
 
 
@@ -361,28 +366,85 @@ class Advance1DResult(NamedTuple):
     naccept: torch.Tensor  # int32
 
 
-def advance_1d(wind: Union[torch.Tensor, GriddedWinds1D], consts: RHSConsts,
-               flags: TermFlags, config: SolverConfig, DT: float,
-               z: torch.Tensor, t: torch.Tensor, dt: torch.Tensor,
-               active: torch.Tensor, xn: torch.Tensor) -> Advance1DResult:
+Wind1D = Union[torch.Tensor, GriddedWinds1D, WindKernel]
+
+
+def k7_reciprocals(consts: RHSConsts) -> Tuple[float, float]:
+    """1 / r_g and 1 / e_T as K7 takes them: float32 quotients of the
+    float32 constants, the bits the card's IEEE division gives."""
+    one = np.float32(1.0)
+    return (float(one / np.float32(consts.r_g)),
+            float(one / np.float32(consts.e_T)))
+
+
+def k7_params(consts: RHSConsts, flags: TermFlags, config: SolverConfig,
+              DT: float, kind: WindKind, record: Optional[GriddedWinds1D]
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """K7's packed float32 and int32 parameters (the layout of
+    ``advance_1d_entry`` in advance_1d.cu): the 1D RHS constants, the
+    controller, the record's axes (zeros but for a gridded wind) and the
+    host's reciprocals (``k7_reciprocals``); the flags, the wind kind, the
+    record's shape and edge modes, the method's stage count and the
+    controller's switches."""
+    method = METHODS[config.method]
+    if record is None:
+        grid, gf = [1, 1, 0, 0], [0.0, 1.0, 0.0, 1.0]
+    else:
+        grid = [*record.u_data.shape, int(record.mode == "wrap"),
+                int(record.mode_t == "wrap")]
+        gf = [record.x0, record.dx, record.t0, record.dt]
+    f = [consts.r_g, consts.C_alpha, consts.C_e, consts.g, consts.p,
+         consts.n, consts.e_T, 2.0 * consts.n, DT, config.abstol,
+         config.reltol, config.dtmin, -1.0 / method.order, *gf,
+         *k7_reciprocals(consts)]
+    i = [flag_bits(flags), int(kind), *grid, len(method.b),
+         int(config.adaptive), int(config.force_dtmin), int(config.maxiters)]
+    return np.asarray(f, dtype=np.float32), np.asarray(i, dtype=np.int32)
+
+
+def kernel_library_1d(wind: Wind1D) -> Tuple[ctypes.CDLL, str]:
+    """The loaded library whose ``picles_advance_1d`` entry points run
+    ``wind`` and their names' suffix: a traced 1D wind's own
+    (``cuda_build.traced_library_1d``, built at its first launch), else the
+    kernels' library."""
+    from .cuda_build import library, traced_library_1d
+
+    if isinstance(wind, WindKernel):
+        return traced_library_1d(wind.traced), "_traced"
+    return library(), ""
+
+
+def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
+               config: SolverConfig, DT: float, z: torch.Tensor,
+               t: torch.Tensor, dt: torch.Tensor, active: torch.Tensor,
+               xn: torch.Tensor, *, simple: bool = False) -> Advance1DResult:
     """Advance every active 1D particle over one model step ``DT`` (K7).
 
     ``z [nx, 3]`` (lne, cg_x, x), ``t``, ``dt`` (float32) and ``active``
     (bool) ``[nx]``, contiguous on one card, ``xn`` the node x ``[nx]``;
-    ``wind`` the node plane ``[nx]`` (float32) or a ``GriddedWinds1D``
-    record on the same card; ``consts`` those of
-    ``particle_equations_1d`` (``make_rhs_consts``).  Inactive lanes pass
-    through with ``failed = False`` and ``naccept = 0``; a lane that
-    finishes gets ``t = t + DT``.  CPU tensors are refused: the plain
-    version is ``tsit5.integrate_to`` over ``particle_equations_1d``."""
-    from .cuda_build import (K1_METHODS, check_planes, check_status, library,
+    ``wind`` the node plane ``[nx]`` (float32), a ``GriddedWinds1D``
+    record on the same card, or a traced 1D wind's descriptor
+    (``traced_kernel_1d``: kind ``TRACED``, the lanes read the node x);
+    ``consts`` those of ``particle_equations_1d`` (``make_rhs_consts``).
+    Inactive lanes pass through with ``failed = False`` and ``naccept =
+    0``; a lane that finishes gets ``t = t + DT``.  CPU tensors are
+    refused: the plain version is ``tsit5.integrate_to`` over
+    ``particle_equations_1d``.  ``simple=True`` launches the previous
+    kernel, the baseline (not counted)."""
+    from .cuda_build import (K1_METHODS, check_planes, check_status,
                              pointer_array)
 
     if config.method not in K1_METHODS:
         raise ValueError(f"the 1D advance kernel compiles the tableaux of "
                          f"{sorted(K1_METHODS)}, not {config.method!r}")
     f32 = torch.float32
-    node = not isinstance(wind, GriddedWinds1D)
+    traced = isinstance(wind, WindKernel)
+    if traced and (wind.kind != WindKind.TRACED or wind.traced is None
+                   or not wind.traced.one_d):
+        raise ValueError("K7 takes a node plane, a GriddedWinds1D record or "
+                         "a traced 1D wind (traced_kernel_1d), not a "
+                         f"{wind.kind.name.lower()} descriptor")
+    node = not traced and not isinstance(wind, GriddedWinds1D)
     dev = check_planes([t, dt, active, xn] + [wind] * node,
                        ["t", "dt", "active", "xn", "the node wind plane"],
                        [f32, f32, torch.bool, f32, f32])
@@ -392,26 +454,17 @@ def advance_1d(wind: Union[torch.Tensor, GriddedWinds1D], consts: RHSConsts,
         raise ValueError(f"z must be one contiguous float32 [{n}, 3] tensor "
                          f"on {dev}, got {z.dtype} {tuple(z.shape)} on "
                          f"{z.device}")
-    if node:
-        data = wind
-        grid, gf = [int(WindKind.NODE), 1, 1, 0, 0], [0.0, 1.0, 0.0, 1.0]
-    else:
-        data = wind.u_data
+    record = wind if isinstance(wind, GriddedWinds1D) else None
+    if record is not None:
+        data = record.u_data
         if data.dim() != 2 or data.dtype != f32 or not data.is_contiguous() \
                 or data.device != dev or data.numel() == 0:
             raise ValueError(f"the record's u_data must be one contiguous "
                              f"float32 [nx_w, nt_w] tensor on {dev}")
-        grid = [int(WindKind.GRIDDED), *data.shape,
-                int(wind.mode == "wrap"), int(wind.mode_t == "wrap")]
-        gf = [wind.x0, wind.dx, wind.t0, wind.dt]
-    method = METHODS[config.method]
-    f = [consts.r_g, consts.C_alpha, consts.C_e, consts.g, consts.p,
-         consts.n, consts.e_T, 2.0 * consts.n, DT, config.abstol,
-         config.reltol, config.dtmin, -1.0 / method.order, *gf]
-    i = [flag_bits(flags), *grid, len(method.b), int(config.adaptive),
-         int(config.force_dtmin), int(config.maxiters)]
-    fp = np.asarray(f, dtype=np.float32)
-    ip = np.asarray(i, dtype=np.int32)
+    kind = (WindKind.TRACED if traced else WindKind.NODE if node
+            else WindKind.GRIDDED)
+    data = None if traced else wind if node else record.u_data
+    fp, ip = k7_params(consts, flags, config, DT, kind, record)
     z_o = torch.empty_like(z)
     t_o, dt_o = torch.empty_like(t), torch.empty_like(dt)
     failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
@@ -420,14 +473,21 @@ def advance_1d(wind: Union[torch.Tensor, GriddedWinds1D], consts: RHSConsts,
                           data])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().picles_advance_1d(fp.ctypes.data, ip.ctypes.data,
-                                           ctypes.addressof(ptrs), n, stream)
+        lib, sfx = kernel_library_1d(wind)
+        entry = "picles_advance_1d" + ("_simple" if simple else "") + sfx
+        code = getattr(lib, entry)(fp.ctypes.data, ip.ctypes.data,
+                                   ctypes.addressof(ptrs), n, stream)
     check_status(code, "1D advance")
-    advance_1d.launches += 1
+    if not simple:
+        if traced:
+            advance_1d.traced_launches += 1
+        else:
+            advance_1d.launches += 1
     return Advance1DResult(z_o, t_o, dt_o, failed, nacc)
 
 
 advance_1d.launches = 0
+advance_1d.traced_launches = 0
 
 
 def auto_dt_reset(rhs, t: torch.Tensor, z: torch.Tensor, aux,

@@ -11,7 +11,10 @@ NCCL sharded step graphed against its eager steps; and a
 steady wind callable (the node kind of K1, K3, K5 and K6) bit for bit the
 constant winds and a constant record; a callable that reads its time (the
 traced kind: its emitted function, and K1, K3, K5 and K6 each against its
-plain version).  Marked
+plain version; the pulse on a tripolar grid bit for bit the constant
+winds); K7's traced kind (a 1D callable that reads its time: its emitted
+function, K7 against its plain version, the graphed 1D step) and K7 bit
+for bit its ``_simple`` baseline in every kind.  Marked
 ``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
@@ -1344,22 +1347,39 @@ def test_model_1d_on_card_matches_cpu_and_repeats(dev):
 
 
 def test_model_1d_on_card_runs_the_plain_advance_only_when_asked(dev):
-    """On the card a wind callable that reads its time and a float64 config
-    raise, naming ``advance_mode="torch"``; with it the plain advance runs
-    eagerly (``graphed`` false, K7 never launched), 6 steps within 1e-4 of
-    the CPU run's scale at abstol 1e-7 / reltol 1e-6, ``on`` equal."""
+    """On the card a wind callable that reads its time runs on K7's traced
+    kind, graphed, without being asked (6 graphed steps bit for bit 6
+    eager ones, K7 traced once an eager step); a callable the tracer
+    refuses (``float(t)``) and a float64 config raise, naming
+    ``advance_mode="torch"``; with it the plain advance runs eagerly
+    (``graphed`` false, K7 never launched), 6 steps within 1e-4 of the CPU
+    run's scale at abstol 1e-7 / reltol 1e-6, ``on`` equal."""
     from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
-                              Winds1D, one_d_grid)
+                              WindKind, Winds1D, one_d_grid)
     from picles_torch.ops.advance_cuda import advance_1d
 
     def timed(x, t):
         return torch.full_like(x, 10.0) + 0.0 * t
 
+    def host(x, t):
+        return torch.full_like(x, 10.0 + float(t))
+
     sett = ODESettings(timestep=600.0, dt=1e-3, abstol=1e-7, reltol=1e-6)
     grid = one_d_grid(0.0, 500e3, 31, device=dev)
     open_ = WaveGrowth1DConfig(periodic_boundary=False)
+    k7 = WaveGrowth1D(grid, Winds1D(u=timed), sett, config=open_)
+    assert (k7.advance_mode, k7.graphed) == ("cuda", True)
+    assert k7._traced.kind == WindKind.TRACED
+    before = (advance_1d.launches, advance_1d.traced_launches)
+    eager = k7.init_state()
+    for _ in range(6):
+        eager = k7.step(eager)
+    assert (advance_1d.launches, advance_1d.traced_launches) == \
+        (before[0], before[1] + 6)
+    _assert_bitwise(k7.step_n_quiet(k7.init_state(), 6).leaves(),
+                    eager.leaves())
     with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
-        WaveGrowth1D(grid, Winds1D(u=timed), sett, config=open_)
+        WaveGrowth1D(grid, Winds1D(u=host), sett, config=open_)
     with pytest.raises(ValueError, match='advance_mode="torch"'):
         WaveGrowth1D(grid, Winds1D(u=timed), sett, config=WaveGrowth1DConfig(
             periodic_boundary=False, dtype=torch.float64))
@@ -1368,10 +1388,10 @@ def test_model_1d_on_card_runs_the_plain_advance_only_when_asked(dev):
     mc = WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device="cpu"),
                       Winds1D(u=timed), sett, config=open_)
     assert (mg.advance_mode, mg.graphed) == ("torch", False)
-    before = advance_1d.launches
+    before = (advance_1d.launches, advance_1d.traced_launches)
     a = mg.step_n_quiet(mg.init_state(), 6)
     b = mc.step_n_quiet(mc.init_state(), 6)
-    assert advance_1d.launches == before
+    assert (advance_1d.launches, advance_1d.traced_launches) == before
     torch.testing.assert_close(a.state.cpu(), b.state, rtol=0,
                                atol=1e-4 * float(b.state.abs().max()))
     assert torch.equal(a.particles.on.cpu(), b.particles.on)
@@ -1416,11 +1436,24 @@ def _k7_inputs(dev, nx=1024, steps=12):
                                                  m.grid.x)]
 
 
+def _storm(x, t):
+    """The moving storm (``slopped_blob``) over B01's 500 km."""
+    from picles_torch.forcing.winds import slopped_blob
+
+    return slopped_blob(x, t, 15.0, 10.0, 6 * 3600.0, 80e3, 7200.0,
+                        x0=100e3)
+
+
 def _k7_wind(kind, dev, x):
     """K7's wind and its plain version's callable: a node plane (a smooth
-    profile) or a record that varies in x and t (30 half-hourly frames)."""
+    profile), a record that varies in x and t (30 half-hourly frames), or
+    the storm traced (K7's traced kind, a library of its own)."""
     from picles_torch import GriddedWinds1D, Winds1D
+    from picles_torch.forcing.winds import traced_kernel_1d
 
+    if kind == "traced":
+        w = Winds1D(u=_storm)
+        return traced_kernel_1d(w, dev), w
     if kind == "node":
         plane = (7.0 + 3.0 * torch.sin(x / 80e3)).to(torch.float32)
         return plane.contiguous(), Winds1D(u=lambda xx, t: plane)
@@ -1443,19 +1476,23 @@ def _k7_pair(dev, method, kind, adaptive, fixed_dt=20.0):
                        force_dtmin=True)
     if not adaptive:
         dt = torch.full_like(dt, fixed_dt)
-    before = advance_1d.launches
+    before = advance_1d.launches + advance_1d.traced_launches
     k = advance_1d(wind, m.consts, TermFlags(), cfg, 600.0, z, t, dt, adv, x)
-    assert advance_1d.launches == before + 1
+    assert advance_1d.launches + advance_1d.traced_launches == before + 1
+    s = advance_1d(wind, m.consts, TermFlags(), cfg, 600.0, z, t, dt, adv, x,
+                   simple=True)
+    assert advance_1d.launches + advance_1d.traced_launches == before + 1
+    _assert_bitwise(k, s)
     rhs = particle_equations_1d(winds.u, gamma=m.constants.gamma,
                                 params=m.params, constants=m.constants)
     p = integrate_to(rhs, z, t, t + 600.0, dt, x, adv, cfg)
     return k, p, adv
 
 
-@pytest.mark.parametrize("kind", ["node", "gridded"])
+@pytest.mark.parametrize("kind", ["node", "gridded", "traced"])
 @pytest.mark.parametrize("method", ["bosh3", "tsit5"])
 def test_advance_1d_kernel_matches_plain_fixed_substep(dev, method, kind):
-    """Fixed substeps of 20 s: lne and cg_x within 5e-6 abs, x (absolute,
+    """Bit for bit its ``_simple`` baseline; fixed substeps of 20 s: lne and cg_x within 5e-6 abs, x (absolute,
     in meters: an ulp at 500 km is 0.03 m) within rtol 1e-6; t, dt, failed
     and naccept equal.  (At 37.5 s an ulp grew to 4e-4 on the youngest
     lane under the record's wind, on the card and in a host build of K7
@@ -1471,10 +1508,10 @@ def test_advance_1d_kernel_matches_plain_fixed_substep(dev, method, kind):
     assert int(k.naccept.max()) == 30
 
 
-@pytest.mark.parametrize("kind", ["node", "gridded"])
+@pytest.mark.parametrize("kind", ["node", "gridded", "traced"])
 @pytest.mark.parametrize("method", ["bosh3", "tsit5"])
 def test_advance_1d_kernel_matches_plain_adaptive(dev, method, kind):
-    """Adaptive, as K1 is held
+    """Bit for bit its ``_simple`` baseline; adaptive, as K1 is held
     (``test_advance_kernel_matches_plain_adaptive``): under 1% of the lanes
     beyond rtol 5e-3 in any component; at least 95%
     of the active lanes take as many substeps; the mean of log(dt_kernel /
@@ -1491,6 +1528,18 @@ def test_advance_1d_kernel_matches_plain_adaptive(dev, method, kind):
     assert int(p.naccept.max()) > 1
 
 
+def test_traced_probe_1d_matches_the_callable(dev):
+    """Each emitted ``traced_wind_1d`` alone (``picles_traced_probe_1d``)
+    bit for bit its callable run by torch on the card (the storm and the
+    1D pulse), at the switch times too (``chip_smoke.py``
+    ``traced_probe_1d_check``)."""
+    cs = _chip_smoke()
+    winds = cs.traced_1d_callables()
+    kerns, _ = cs.traced_1d_build(dev, winds)
+    ops = cs.traced_probe_1d_check(dev, winds, kerns, 1 << 16)
+    assert all(v > 0 for v in ops.values())
+
+
 def test_advance_1d_refuses_cpu_tensors():
     from picles_torch import TermFlags
     from picles_torch.ops.advance_cuda import advance_1d
@@ -1505,16 +1554,18 @@ def test_advance_1d_refuses_cpu_tensors():
                    z, v, v, torch.ones(n, dtype=torch.bool), v)
 
 
-@pytest.mark.parametrize("kind", ["node", "gridded"])
+@pytest.mark.parametrize("kind", ["node", "gridded", "traced"])
 def test_graphed_1d_step_equals_eager_k7_steps_bitwise(dev, kind):
-    """The B01 model on the card (K7, graphed): step_n_quiet, step_n's
+    """The B01 model on the card (K7, graphed; the traced kind under the
+    storm, a callable the model traces itself): step_n_quiet, step_n's
     rows, a ragged step_n_buffered chunk and step_jit twice, bit for bit
     the eager K7 steps over 12 steps."""
     from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
-                              constant_winds_1d, one_d_grid)
+                              Winds1D, constant_winds_1d, one_d_grid)
 
     grid = one_d_grid(0.0, 500e3, 31, device=dev)
     winds = (constant_winds_1d(10.0) if kind == "node"
+             else Winds1D(u=_storm) if kind == "traced"
              else _k7_wind("gridded", dev, grid.x)[0])
     m = WaveGrowth1D(grid, winds, ODESettings(timestep=600.0, dt=1e-3),
                      config=WaveGrowth1DConfig(periodic_boundary=False))
@@ -1688,6 +1739,30 @@ def test_time_dependent_callable_raises_on_the_kernel_modes(dev):
     assert p.winds.kernel is None and not p.graphed
     ms = p.step(p.init_state())
     assert bool(torch.isfinite(ms.state).all())
+
+
+@pytest.mark.parametrize("path", ["production", "default"])
+def test_traced_pulse_on_a_tripolar_grid_equals_constant_winds(dev, path):
+    """The pulse (the traced kind) on a 64 x 32 tripolar grid with the
+    continent (per-node projection planes, the seam fold), DT 1200 s: the
+    steps before its stop bit for bit ``constant_winds(12, 0)``'s, eager
+    and graphed (``chip_smoke.py`` ``pulse_tripolar_check`` at 1440 x
+    720)."""
+    from picles_torch import WindKind, constant_winds
+
+    cs = _chip_smoke()
+    grid = cs.tripolar_grid(dev, 128, 64)
+    n = cs.PULSE_TRI_ANCHOR_STEPS
+    mp = cs.tripolar_model(grid, cs.pulse_winds(), path)
+    mc = cs.tripolar_model(grid, constant_winds(12.0, 0.0), path)
+    assert mp.winds.kernel.kind == WindKind.TRACED and mp.graphed
+    assert mp.uniform_proj is None
+    a = cs.eager_steps(mp, mp.init_state(), n)
+    cs.assert_state_bitwise("tripolar pulse", a,
+                            cs.eager_steps(mc, mc.init_state(), n))
+    cs.assert_state_bitwise("tripolar pulse graphed",
+                            mp.step_n_quiet(mp.init_state(), n), a)
+    assert int(a.metrics.n_failed) == 0
 
 
 def _traced(dev):

@@ -10,9 +10,10 @@ Here, where no kernel runs, the tests hold what the card's path rests on:
   ``constant_winds_1d`` and of a steady closure is JAX's ``u(x_node, t)``,
   and the model keeps the record it is given, its samples JAX's;
 - the rule (``resolve_advance_1d``) for a CUDA device, computed without one:
-  K7 for float32 and a node or gridded wind; a callable that reads its time
-  and float64 raise there unless the caller asks for ``advance_mode="torch"``
-  (then the plain loop); the plain loop on the CPU;
+  K7 for float32 and a node, gridded or traced wind (a callable that reads
+  its time is traced); float64 raises there unless the caller asks for
+  ``advance_mode="torch"`` (then the plain loop); the plain loop on the
+  CPU;
 - no transfer between host and device in the step outside the advance
   (``HostTraffic``, tests/test_torch_graphs.py), with the advance swapped
   for its precomputed result, nor in the sign-merge deposit;
@@ -32,7 +33,8 @@ from picles_tpu.forcing import winds as jwinds
 
 import picles_torch as pt
 from picles_torch import convert
-from picles_torch.forcing.winds import WindKind, steady_node_plane_1d
+from picles_torch.forcing.winds import (WindKind, steady_node_plane_1d,
+                                        traced_kernel_1d)
 from picles_torch.models.wave_growth_1d import resolve_advance_1d
 from picles_torch.ops import pic as tpic
 from test_torch_graphs import HostTraffic
@@ -103,32 +105,34 @@ def test_model_keeps_the_record_and_its_samples_equal_jax():
 
 def test_resolution_rule_for_a_card():
     """The rule for a CUDA device, from the probe's result on the CPU: K7
-    where it runs; what it cannot take raises and names the way out, which
-    then resolves to the plain advance; the CPU's advance is the plain
-    one."""
+    where it runs, a callable that reads its time as the traced kind (the
+    model traces it: ``traced_kernel_1d``); float64 raises and names the
+    way out, which then resolves to the plain advance; the CPU's advance is
+    the plain one."""
     x = torch.linspace(0.0, 500e3, 31)
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     f32, f64 = torch.float32, torch.float64
 
     def kind(w):
-        return None if steady_node_plane_1d(w, x) is None else WindKind.NODE
+        if steady_node_plane_1d(w, x) is not None:
+            return WindKind.NODE
+        return traced_kernel_1d(w).kind
 
     moving = pt.Winds1D(u=lambda x, t: 10.0 + 0.0 * torch.as_tensor(t) * x)
     blob = pt.Winds1D(u=lambda x, t: pt.forcing.winds.slopped_blob(
         x, t, 15.0, 10.0, 6 * 3600.0, 80e3, 7200.0))
     assert kind(pt.constant_winds_1d(10.0)) == WindKind.NODE
     assert kind(pt.Winds1D(u=_steady)) == WindKind.NODE
-    assert kind(moving) is None and kind(blob) is None
+    assert kind(moving) == WindKind.TRACED and kind(blob) == WindKind.TRACED
     for mode in ("auto", "cuda"):
-        assert resolve_advance_1d(cuda, f32, WindKind.NODE, mode) == "cuda"
-        assert resolve_advance_1d(cuda, f32, WindKind.GRIDDED, mode) == "cuda"
-        with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
-            resolve_advance_1d(cuda, f32, kind(moving), mode)
-        for wk in (WindKind.NODE, WindKind.GRIDDED, None):
+        for wk in (WindKind.NODE, WindKind.GRIDDED, kind(moving)):
+            assert resolve_advance_1d(cuda, f32, wk, mode) == "cuda"
+        for wk in (WindKind.NODE, WindKind.GRIDDED, WindKind.TRACED, None):
             with pytest.raises(ValueError, match='advance_mode="torch"'):
                 resolve_advance_1d(cuda, f64, wk, mode)
     for dtype, wk in ((f32, kind(moving)), (f64, WindKind.NODE),
-                      (f64, WindKind.GRIDDED), (f32, WindKind.NODE)):
+                      (f64, WindKind.GRIDDED), (f32, WindKind.NODE),
+                      (f64, WindKind.TRACED)):
         assert resolve_advance_1d(cuda, dtype, wk, "torch") == "torch"
         assert resolve_advance_1d(cpu, dtype, wk) == "torch"
         assert resolve_advance_1d(cpu, dtype, wk, "torch") == "torch"

@@ -19,6 +19,13 @@
   window; tiled and per-node sums equal bit for bit, and both within 1e-5
   of the plain pad-and-fold deposit ``pic.scatter_dense``, displacements
   past the halo included.
+- K7's launch constants (``csrc/advance_1d.cu``): the reciprocals of r_g
+  and e_T, which the kernel takes from the host in place of an IEEE
+  division at every RHS evaluation, are bit for bit ``np.float32(1) /
+  np.float32(c)`` of ``make_rhs_consts``' parameters (for several gamma
+  and q), and the parameter vector ``advance_1d`` passes carries them,
+  float32, at the places the kernel's entry point reads (17 and 18),
+  beside the constants it still reads.
 """
 
 import dataclasses
@@ -31,7 +38,9 @@ import torch
 from picles_torch import Boundary, GridStats, constant_winds
 from picles_torch.ops import advance_cuda as AC
 from picles_torch.ops import cuda_build as CB
+from picles_torch.forcing.winds import WindKind
 from picles_torch.ops.pic import halo_bounds, normalize_halo, scatter_dense
+from picles_torch.ops.rhs import TermFlags, make_rhs_consts
 from picles_torch.ops.tsit5 import METHODS, SolverConfig
 
 F32 = np.float32
@@ -387,3 +396,31 @@ def test_tripolar_seam_gather_matches_pad_and_fold(name):
     (xl, xh), (yl, yh) = normalize_halo(c.halo)
     assert not np.allclose(per_node_sum(c0, xr, yr, ch, act)[0][:, -yh:],
                            want[0][:, -yh:], rtol=1e-3)
+
+
+@pytest.mark.parametrize("gamma,q", [(0.88, -0.25), (0.85, -0.25),
+                                     (0.88, -0.3)])
+def test_k7_host_reciprocals_equal_the_card_division_bitwise(gamma, q):
+    """K7 takes 1 / r_g and 1 / e_T from the host: float32 quotients of the
+    float32 constants, as the card's IEEE division rounds them, at the
+    float32 parameters 17 and 18 the entry point reads; the constants
+    themselves stay at 0 and 6."""
+    c = make_rhs_consts(gamma=gamma, q=q)
+    inv_rg, inv_eT = AC.k7_reciprocals(c)
+    for got, v in ((inv_rg, c.r_g), (inv_eT, c.e_T)):
+        want = np.float32(1.0) / np.float32(v)
+        assert np.float32(got).view(np.int32) == want.view(np.int32)
+    for kind in (WindKind.NODE, WindKind.TRACED):
+        for method in ("bosh3", "tsit5"):
+            fp, ip = AC.k7_params(c, TermFlags(), SolverConfig(method=method),
+                                  600.0, kind, None)
+            assert fp.dtype == np.float32 and fp.size == 19
+            assert fp[17].view(np.int32) == (np.float32(1.0) / np.float32(
+                c.r_g)).view(np.int32)
+            assert fp[18].view(np.int32) == (np.float32(1.0) / np.float32(
+                c.e_T)).view(np.int32)
+            assert (fp[0], fp[6]) == (np.float32(c.r_g), np.float32(c.e_T))
+            assert ip[1] == int(kind) and ip[6] == len(METHODS[method].b)
+            # the default flags select K7's compiled instance (every term
+            # the 1D RHS reads: bits 1, 2, 4, 8)
+            assert ip[0] & 15 == 15

@@ -25,6 +25,15 @@
   1e-4 of the state's largest value, every counter equal through the
   on/off cycle but the most substeps a lane took, within 3 (``SMAX_SLACK``),
   no guard fired.
+- The pulse on a small synthetic tripolar grid (32 x 16, its per-node
+  projection planes and the seam fold), DT 1200 s, the fused remesh: the
+  port's plain step over the traced wind's plain version against JAX's
+  interpret-mode Pallas step through the wind's stop, 8 steps at the same
+  tolerances.
+- The pulse on a 128 x 16 tripolar grid with land under the seam, at a DT
+  under a polar cell a step and at one that crosses two: energy reaches
+  land beyond one cell of the ocean only in the second, on the same nodes
+  in JAX's step and the port's.
 - A (1, 1) gloo sharded step with the pulse equals the single-device step
   bit for bit.
 """
@@ -47,6 +56,7 @@ import torch.distributed as dist
 from picles_tpu.core import fetch_relations as jfr
 from picles_tpu.core.constants import ODESettings as JSettings
 from picles_tpu.forcing import winds as jw
+from picles_tpu.grids import tripolar as jtri
 from picles_tpu.grids.cartesian import cartesian_box as j_box
 from picles_tpu.models.wave_growth_2d import WaveGrowth2D as JModel
 from picles_tpu.models.wave_growth_2d import WaveGrowth2DConfig as JConfig
@@ -57,6 +67,7 @@ from picles_torch import convert
 from picles_torch.forcing import wind_trace as wt
 from picles_torch.forcing import winds as tw
 from picles_torch.forcing.winds import slopped_blob
+from picles_torch.grids import tripolar as ttri
 from picles_torch.models import wave_growth_2d as twg
 from picles_torch.parallel import sharded as tsh
 from test_torch_model_2d import COUNTERS, state_of
@@ -330,31 +341,34 @@ def test_wrappers_refuse_cpu_tensors_and_planes_for_a_traced_wind():
 
 # -- the growing/decaying-wind configurations against JAX's Pallas step -------
 
-def _settings():
+def _settings(DT=DT):
     ws = jfr.MinimalWindsea(12.0, 0.0, DT)
     return JSettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                      timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
                      dtmin=1e-4, force_dtmin=True, abstol=1e-7, reltol=1e-6)
 
 
-def _pair(n, j_winds, t_winds, remesh):
+def _pair(n, j_winds, t_winds, remesh, grids=None, DT=DT, halo=None):
     """JAX's model with its Pallas kernels in interpret mode, and the port's
-    plain step over the traced wind's plain version."""
-    jm = JModel(j_box(100e3, n, 100e3, n, periodic_boundary=(True, True)),
-                j_winds, _settings(),
+    plain step over the traced wind's plain version: on n x n periodic
+    boxes, or on ``grids`` (JAX's and the port's)."""
+    jg, tg = grids or (
+        j_box(100e3, n, 100e3, n, periodic_boundary=(True, True)),
+        pt.cartesian_box(100e3, n, 100e3, n, periodic_boundary=(True, True),
+                         device="cpu"))
+    extra = {} if halo is None else dict(halo=halo)
+    jm = JModel(jg, j_winds, _settings(DT),
                 config=JConfig(periodic_boundary=True, advance_mode="pallas",
                                scatter_mode="dense_pallas",
                                dt_reset_mode="carry", remesh_mode=remesh,
-                               pallas_interpret=True))
+                               pallas_interpret=True, **extra))
     sett, params, cid = convert.settings_from_values(jm.settings, jm.params,
                                                      jm.constants)
-    grid = pt.cartesian_box(100e3, n, 100e3, n,
-                            periodic_boundary=(True, True), device="cpu")
     traced = tw.traced_kernel(t_winds).traced
-    tm = pt.WaveGrowth2D(grid, traced.winds(), sett, ode_params=params,
+    tm = pt.WaveGrowth2D(tg, traced.winds(), sett, ode_params=params,
                          constants=cid, config=pt.WaveGrowth2DConfig(
                              periodic_boundary=True, dt_reset_mode="carry",
-                             remesh_mode=remesh))
+                             remesh_mode=remesh, **extra))
     assert tm.resolved_config().advance_mode == "torch"
     return jm, tm
 
@@ -386,7 +400,7 @@ def _step_both(jm, tm, steps, peak_step=0):
                               np.asarray(jms.particles.on)), f"on at step {k}"
         if k == peak_step:
             peak = float(tms.state[..., 0].mean())
-    return tms, sums, peak
+    return tms, sums, peak, jms
 
 
 @pytest.mark.parametrize("remesh", ["pallas", "fused"])
@@ -394,7 +408,7 @@ def test_pulse_matches_jax_pallas_kernels(remesh):
     """The pulse, 2 h of wind then 2 h of calm: 24 steps; the waves
     dissipate once the wind stops (no node switches off in 2 h)."""
     jm, tm = _pair(17, tgd._pulse_winds(), pulse_winds(), remesh)
-    tms, sums, peak = _step_both(jm, tm, 24, peak_step=11)
+    tms, sums, peak, _ = _step_both(jm, tm, 24, peak_step=11)
     assert sums["n_gather"] > 0
     assert float(tms.state[..., 0].mean()) < peak
 
@@ -410,9 +424,87 @@ def test_returning_wind_matches_jax_pallas_kernels():
         jnp.asarray(x)))
     jm, tm = _pair(13, jwinds, pt.Winds2D(u=returning_u, v=calm), "pallas")
     assert not bool(tm.init_state().particles.on.any())
-    tms, sums, _ = _step_both(jm, tm, 12)
+    tms, sums, _, _ = _step_both(jm, tm, 12)
     assert sums["n_reseed"] > 0 and bool(tms.particles.on.any())
 
+
+def test_pulse_on_a_tripolar_grid_matches_jax_pallas_kernels():
+    """The pulse on the synthetic tripolar grid (32 x 16: per-node
+    projection planes, the pole masks, the seam fold in the deposit), DT
+    1200 s, halo 3, the fused remesh: 8 steps through the wind's stop at
+    7200 s, each within 1e-4 of JAX's state scale, ``on`` and the counters
+    equal but the most substeps a lane took (``SMAX_SLACK``), no guard
+    fired, and land stays off."""
+    grids = (jtri.synthetic_tripolar_grid(k=2, nx_super=64, ny_super=32),
+             pt.synthetic_tripolar_grid(k=2, nx_super=64, ny_super=32,
+                                        device="cpu"))
+    jm, tm = _pair(0, tgd._pulse_winds(), pulse_winds(), "fused",
+                   grids=grids, DT=1200.0, halo=3)
+    assert tm.uniform_proj is None
+    tms, sums, _, _ = _step_both(jm, tm, 8)
+    land = grids[1].mask.numpy() == 0
+    assert sums["n_gather"] > 0 and not tms.particles.on.numpy()[land].any()
+
+
+
+def _cell_reach(active, cells):
+    """The nodes within ``cells`` cells (8-neighbourhood, x periodic, the
+    top row's seam mirror above it) of the ``active`` nodes."""
+    nx, ny = active.shape
+    reach = active
+    for _ in range(cells):
+        ext = np.concatenate([reach, reach[(nx - 2 - np.arange(nx)) % nx,
+                                           -1:]], axis=1)
+        grown = np.zeros_like(ext)
+        for dx in (-1, 0, 1):
+            sh = np.roll(ext, dx, axis=0)
+            grown |= sh
+            grown[:, 1:] |= sh[:, :-1]
+            grown[:, :-1] |= sh[:, 1:]
+        reach = grown[:, :ny]
+    return reach
+
+
+@pytest.mark.parametrize("DT", [1200.0, 3600.0])
+def test_pulse_crossing_polar_cells_matches_jax_on_land(DT):
+    """Energy on land beyond one cell of the ocean is a CFL property that
+    JAX's step shares.  The synthetic tripolar grid at 128 x 16 (its top
+    row's cells 5.5 km wide) with a land patch four rows deep under the
+    seam (columns 40-86, mirror-symmetric), the pulse, halo 3, the fused
+    remesh, 4 steps: at DT 1200 s the swell crosses under a cell a step and
+    no land node beyond one cell of an active node holds energy; at DT 3600
+    s it crosses about two of the top row's cells, and JAX's
+    interpret-mode Pallas step and the port's both put energy on the same
+    land nodes beyond one cell, all within the halo's reach of the nodes
+    whose cells a step crosses, the states within 1e-4 of JAX's scale."""
+    nx, ny = 128, 16
+    m = np.ones((nx, ny), dtype=np.int32)
+    m[40:87, ny - 4:] = 0
+    grids = (jtri.mom6_grid_from_supergrid(
+                 *jtri.synthetic_tripolar_supergrid(2 * nx, 2 * ny), 2,
+                 mask=m),
+             pt.mom6_grid_from_supergrid(
+                 *ttri.synthetic_tripolar_supergrid(2 * nx, 2 * ny), 2,
+                 device="cpu", mask=m))
+    jm, tm = _pair(0, tgd._pulse_winds(), pulse_winds(), "fused",
+                   grids=grids, DT=DT, halo=3)
+    tms, _, _, jms = _step_both(jm, tm, 4)
+    g = grids[1]
+    land = g.mask.numpy() == 0
+    active = tm.active_mask.numpy()
+    P = tms.particles
+    v = float(torch.hypot(P.cgx, P.cgy)[P.on & tm.active_mask].max())
+    crossing = active & (np.minimum(g.dx_m.numpy(), g.dy_m.numpy()) < v * DT)
+    beyond = land & ~_cell_reach(active, 1)
+    far_t = beyond & (tms.state.numpy()[..., 0] != 0)
+    far_j = beyond & (np.asarray(jms.state)[..., 0] != 0)
+    assert np.array_equal(far_t, far_j)
+    assert not tms.particles.on.numpy()[land].any()
+    if DT == 1200.0:
+        assert not crossing.any() and not far_t.any()
+    else:
+        assert crossing.any() and far_t.any()
+        assert not (far_t & ~_cell_reach(crossing, 3)).any()
 
 # -- the sharded step ---------------------------------------------------------
 
