@@ -155,8 +155,25 @@ just before and read just after:
     same kernel forced by ``constant_winds(12, 0)``, beside its bound and
     its plain version (K1, K3 and K5 by CUDA events).
 
+13. float64 (phase "float64": K1-K6's double instances, the same CUDA
+    templates in double, a library of their own built beside the kernels'):
+    each against its float64 plain version at 256^2 in every branch
+    (``f64_kernel_checks``); the flagship under the fused and "pallas"
+    remeshes and the default configuration in float64 at 1536^2 on
+    float64 grids, 3 eager steps counted, the graphed steps bit for bit
+    them, their replays counted by trace; each double instance on those
+    states within 1e-12 (K1 fixed, K3) or 1e-13 (the deposits) of its
+    plain version and timed in turns with its float32 instance; the
+    graphed steps float64 against float32 in turns; the double gather under
+    each shared-memory budget; a float64 card run against the CPU's within
+    1e-10 (all in a process of its own, ``--float64-child``, so that its
+    traces add to no late-process count); the float64 "pallas" flagship's
+    (1, 1) NCCL sharded step (K1, K4, K5) inside "sharded-1x1".  Phase "build" checks the float
+    instances' PTX for float64 and the double instances' for narrowing to
+    float32.
+
 ``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7, 9 and 12
-run through it.  A replay launches the kernels without their wrappers, whose
+run through it (13 through the drivers).  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
 with the counters, and each graphed run counts its launches by name in a
 ``torch.profiler`` trace of its own ``Simulation.run`` (``traced_run``),
@@ -193,6 +210,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import shutil
 import socket
@@ -356,7 +374,8 @@ def cuda_time_ms(fn, reps: int) -> float:
 # `_simple` baselines; K3's baseline is three device ops, the previous
 # kernel and PyTorch's clamp and select, which the new kernel replaces; a
 # traced wind's library compiles the same kernels in a namespace `traced`
-# (rhs.cuh PICLES_KERNELS_BEGIN), which only the traced keys name
+# and the float64 library their double instances in a namespace `f64`
+# (rhs.cuh PICLES_KERNELS_BEGIN), which only the traced and f64 keys name
 # (``kernel_named``)
 KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K2": "pic_gather_tiled_kernel<",
@@ -366,7 +385,7 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K3 simple only": "auto_dt_simple_kernel(",
                "K4": "pic_gather_tiled_kernel<",
                "K4 simple": "pic_gather_padded_simple_kernel(",
-               "K5": "remesh_kernel(",
+               "K5": "remesh_kernel<",
                "K6": "pic_gather_remesh_tiled_kernel<",
                "K6 simple": "pic_gather_remesh_simple_kernel(",
                "K7": "advance_1d_kernel<",
@@ -375,15 +394,24 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K7 traced simple": "traced::advance_1d_simple_kernel<",
                "K1 traced": "traced::advance_kernel<",
                "K3 traced": "traced::auto_dt_kernel<",
-               "K5 traced": "traced::remesh_kernel(",
-               "K6 traced": "traced::pic_gather_remesh_tiled_kernel<"}
+               "K5 traced": "traced::remesh_kernel<",
+               "K6 traced": "traced::pic_gather_remesh_tiled_kernel<",
+               "K1 f64": "f64::advance_kernel<",
+               "K2 f64": "f64::pic_gather_tiled_kernel<",
+               "K3 f64": "f64::auto_dt_kernel<",
+               "K4 f64": "f64::pic_gather_tiled_kernel<",
+               "K5 f64": "f64::remesh_kernel<",
+               "K6 f64": "f64::pic_gather_remesh_tiled_kernel<"}
 
 
 def kernel_named(key: str, name: str) -> bool:
     """Whether the device op ``name`` is a launch of the kernel that
     ``key`` (a KERNEL_KEYS name) names: a key without ``traced::`` names
-    none of a traced library's kernels."""
-    return key in name and ("traced::" in name) == key.startswith("traced::")
+    none of a traced library's kernels, one without ``f64::`` none of the
+    float64 library's."""
+    return (key in name
+            and ("traced::" in name) == key.startswith("traced::")
+            and ("f64::" in name) == key.startswith("f64::"))
 
 
 # kernel id -> [launches a trace held, launches timed] of each timing whose
@@ -400,11 +428,15 @@ def kernel_ms(fn, key: str, reps: int, tries: int = 5,
     warm-up call: the kernel alone, without the wrapper's other device work
     (the deposit wrappers' clamped count) or the host's.  A trace may miss
     launches (seen on the H100: one a session once a process has run many
-    profiler sessions, and now and then most of a session's): a short trace
-    is taken again, up to ``tries`` times.  If every one is short, the means
-    are over the launches the fullest one holds, which must hold half of
-    each op's, and it is logged and recorded in SHORT_TRACES under ``row``
-    (by default the kernel's id)."""
+    profiler sessions, and now and then all of a session's), so each trace
+    opens with ``trace_head`` and pads the launches with the host idle on
+    both sides (``trace_pad_s``), and a short trace is taken again, up to
+    ``tries`` times, with more idle.  If every one is short,
+    the means are over the launches the fullest one holds where it holds
+    half of each op's, else the time is the whole call's by CUDA events
+    (``cuda_time_ms``: the kernel and the wrapper's other device work); it
+    is logged and recorded in SHORT_TRACES under ``row`` (by default the
+    kernel's id) as [launches held, launches timed, how it was timed]."""
     from torch.profiler import ProfilerActivity, profile
 
     names = KERNEL_KEYS[key]
@@ -413,32 +445,74 @@ def kernel_ms(fn, key: str, reps: int, tries: int = 5,
     fn()
     torch.cuda.synchronize()
     best = []
-    for _ in range(tries):
+    for attempt in range(tries):
+        pad = trace_pad_s(attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(kernel_named(nm, e.name) for nm in names)]
+            time.sleep(pad)
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = [e for e in dev if any(kernel_named(nm, e.name) for nm in names)]
         assert len(ev) <= want, f"{key}: {len(ev)} of {want} launches"
         best = ev if len(ev) > len(best) else best
         if len(ev) == want:
+            if attempt:
+                log("kernel-time", f"{key}: trace {attempt + 1} (host idle "
+                                   f"{pad:.2f} s each side) holds all "
+                                   f"{want} launches")
             break
-        log("kernel-time", f"{key}: the trace holds {len(ev)} of {want} "
-                           f"launches")
+        log("kernel-time", f"{key}: trace {attempt + 1} (host idle "
+                           f"{pad:.2f} s each side) holds {len(ev)} of "
+                           f"{want} launches; {trace_head_held(dev)}")
+    us = {nm: [e.time_range.elapsed_us() for e in best
+               if kernel_named(nm, e.name)] for nm in names}
+    if len(best) == want:
+        timed_by = None
+    elif all(2 * len(u) >= reps * per_call for u in us.values()):
+        timed_by = "fullest trace"
     else:
+        timed_by = "cuda events"
+    if timed_by:
         SHORT_TRACES.setdefault(row or key.split()[0], []).append(
-            [len(best), want])
-    ms = 0.0
-    for nm in names:
-        us = [e.time_range.elapsed_us() for e in best
-              if kernel_named(nm, e.name)]
-        assert 2 * len(us) >= reps * per_call, \
-            f"{key}: {len(us)} of {reps * per_call} {nm!r} launches in the " \
-            f"fullest trace"
-        ms += sum(us) / len(us) * per_call / 1e3
-    return ms
+            [len(best), want, timed_by])
+    if timed_by == "cuda events":
+        ms = cuda_time_ms(fn, reps)
+        log("kernel-time", f"{key}: no trace held half its launches; "
+                           f"{ms:.4f} ms a call by CUDA events")
+        return ms
+    return sum(sum(u) / len(u) * per_call / 1e3 for u in us.values())
+
+
+def trace_pad_s(attempt: int) -> float:
+    """Seconds the host idles on each side of a trace's launches
+    (``attempt`` counted from 0): 0.05 s, doubled at each retry.  Late in
+    a process an unpadded trace lost the device events at the start of
+    its window, often all of them (H100, 700 W; PERF.md, PR 16)."""
+    return 0.05 * 2 ** attempt
+
+
+# the device op that opens every timing trace (``trace_head``): PyTorch's
+# spin kernel, which no traced run launches; left out of every count
+TRACE_HEAD = "spin_kernel"
+
+
+def trace_head(pad: float) -> None:
+    """The head of a profiler trace's window, before the launches it
+    times: one short spin kernel, run to its end (a trace can lose the
+    first device op of its window), then the host idle ``pad`` s."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(pad)
+
+
+def trace_head_held(dev: list) -> str:
+    """Whether a trace's device ops hold its head (``trace_head``), and
+    how many ops it holds: logged with a short trace."""
+    held = any(TRACE_HEAD in e.name for e in dev)
+    return f"head {'held' if held else 'lost'}, {len(dev)} device ops"
 
 
 def turns_ms(key: str, simple_fn, new_fn, reps: int):
@@ -459,15 +533,22 @@ def turns_ms(key: str, simple_fn, new_fn, reps: int):
 # longer.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the float64 instances' operations (phase "float64"): 34 TFLOP/s, float64
+# outside the tensor cores, half the float32 rate (NVIDIA H100 SXM
+# datasheet)
+FP64_OPS_PER_S = 34e12
 # float operations of one RHS evaluation (rhs.cuh, every term on): 12
 # divisions, 6 transcendentals and square roots, about 84 products, sums,
 # selects and clamps
 RHS_OPS = 102
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """``bound_ms`` and ``bound_by`` of a kernel's bytes and operations."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, real: int = 4) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's bytes and operations, the
+    operations at the rate of the lanes' type (``real`` bytes: float32 or,
+    with 8, float64)."""
+    rate = FP64_OPS_PER_S if real == 8 else FP32_OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -499,7 +580,7 @@ def gridded_wind_ops(B: int) -> int:
 
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
              n_wf: int = 0, proj: bool = False, layers: int = 1,
-             traced_ops: int = 0) -> dict:
+             traced_ops: int = 0, real: int = 4) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
     the node x (4 bytes, which only an analytic wind reads) or a wind's
     ``n_wf`` planes in (4 bytes each: 4 + 3B gridded, 2 of the node kind)
@@ -510,16 +591,18 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
     operations.  With ``layers`` the ``n`` particles are that many layers of
     one grid, whose node x and node planes are read once a node.  A traced
     wind (``traced_ops`` operations an evaluation) reads the node x and y
-    (8 bytes)."""
+    (8 bytes).  ``real``: the bytes of a lane value (8 for the float64
+    instances: the 14 lane planes, the node x and the projection planes
+    twice as wide, the masks, counts and float32 wind planes not)."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS_OPS + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
                                   if n_wf > 2 else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    node = 4.0 * (n_wf == 0) + 4.0 * n_wf + 20.0 * proj + 4.0 * (
+    node = real * (n_wf == 0) + 4.0 * n_wf + 5.0 * real * proj + 4.0 * (
         traced_ops > 0)
-    return bound((62.0 + node / layers) * n, ops)
+    return bound((14.0 * real + 6.0 + node / layers) * n, ops, real)
 
 
 # float operations of one 1D RHS evaluation (rhs.cuh rhs_1d, every term
@@ -549,7 +632,8 @@ def k7_bound(n: int, method: str, adaptive: bool, live, iters,
     return bound(50.0 * n + record_bytes, ops)
 
 
-def remesh_branch_bytes(branch: torch.Tensor, wind_bytes: float) -> float:
+def remesh_branch_bytes(branch: torch.Tensor, wind_bytes: float,
+                        real: int = 4) -> float:
     """The bytes the branch table must move at one layer's nodes, by the
     branch each node took in this run (``branch``, the kernel's output:
     remesh.cuh GATHER_BIT, RESEED_BIT, OFF_BIT, 0 outside the particle
@@ -559,18 +643,20 @@ def remesh_branch_bytes(branch: torch.Tensor, wind_bytes: float) -> float:
     which it keeps; an off node its particle's five planes (20 bytes); a
     node that does not gather its wind (``wind_bytes``), whose strength
     decides reseed or off.  A gathered node's particle is overwritten, its
-    wind not needed."""
+    wind not needed.  ``real``: the bytes of a lane value (8: float64, the
+    particle planes and dt twice as wide)."""
     b = branch.reshape(-1)
     n = b.numel()
     outside = int((b == 0).sum())
     off = int(((b & 4) != 0).sum())
     no_gather = int(((b & 1) == 0).sum()) - outside
-    return 35.0 * n + 21.0 * outside + 20.0 * off + wind_bytes * no_gather
+    return ((7.0 * real + 7.0) * n + (5.0 * real + 1.0) * outside
+            + 5.0 * real * off + wind_bytes * no_gather)
 
 
 def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
                   n_wf: int = 0, layers: int = 1, traced_ops: int = 0,
-                  branch: torch.Tensor = None) -> dict:
+                  branch: torch.Tensor = None, real: int = 4) -> dict:
     """K2/K4/K6 on this run's shapes: per source 5 float planes and the mask
     (21 bytes) and about 13 operations (clamps, floors, weights, c * m); per
     output node 3 floats (12 bytes) and 11 operations a window cell; K6 adds
@@ -584,14 +670,16 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     node y) reads the node x too.  With this run's ``branch`` (one layer)
     the remesh's bytes are those its branches need
     (``remesh_branch_bytes``), and the wind's operations count only at the
-    nodes that do not gather."""
+    nodes that do not gather.  ``real``: the bytes of a lane value (8:
+    float64, every plane but the masks, the branch and the float32 wind
+    planes twice as wide)."""
     (xl, xh), (yl, yh) = normalize_halo(halo)
     cells = (xl + xh + 1) * (yl + yh + 1)
-    wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
+    wind = (4.0 * n_wf - real) if n_wf else 0.0
     wind += 4.0 * (traced_ops > 0)
-    node = 6.0 + wind   # active, boundary and x (or the wind planes)
-    nbytes = 21.0 * n_src + 12.0 * n_out + (
-        (54.0 + node / layers) * n_out if remesh else 0.0)
+    node = 2.0 + real + wind   # active, boundary and x (or the wind planes)
+    nbytes = (5.0 * real + 1.0) * n_src + 3.0 * real * n_out + (
+        (12.0 * real + 6.0 + node / layers) * n_out if remesh else 0.0)
     ops = 13.0 * n_src + 11.0 * cells * n_out + (60.0 * n_out if remesh
                                                  else 0.0)
     if remesh and n_wf > 2:
@@ -601,14 +689,16 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     if remesh and branch is not None:
         assert layers == 1 and n_wf <= 2
         need = int(((branch & 1) == 0).sum())
-        nbytes = 21.0 * n_src + 12.0 * n_out + remesh_branch_bytes(
-            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0))
+        nbytes = (5.0 * real + 1.0) * n_src + 3.0 * real * n_out \
+            + remesh_branch_bytes(branch, 4.0 * n_wf + 4.0 * (traced_ops > 0),
+                                  real)
         ops += traced_ops * (need - n_out)
-    return bound(nbytes, ops)
+    return bound(nbytes, ops, real)
 
 
 def remesh_bound(n: int, n_wf: int = 0, layers: int = 1,
-                 traced_ops: int = 0, branch: torch.Tensor = None) -> dict:
+                 traced_ops: int = 0, branch: torch.Tensor = None,
+                 real: int = 4) -> dict:
     """K5: 72 bytes a node (43 in, 29 out) and about 60 operations; a
     wind's ``n_wf`` planes in place of the node x, and a gridded wind's
     samplers' operations.  With ``layers`` the ``n`` nodes are that many
@@ -618,25 +708,25 @@ def remesh_bound(n: int, n_wf: int = 0, layers: int = 1,
     layer) the bytes are those its branches need (``remesh_branch_bytes``,
     and the deposited state, 12 bytes, at the nodes of the particle set),
     and the wind's operations count only at the nodes that do not
-    gather."""
-    wind = (4.0 * n_wf - 4.0) if n_wf else 0.0
+    gather.  ``real``: the bytes of a lane value (8: float64)."""
+    wind = (4.0 * n_wf - real) if n_wf else 0.0
     wind += 4.0 * (traced_ops > 0)
     ops = 60.0 + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
                                if n_wf > 2 else 0)
-    node = 6.0 + wind   # active, boundary and x (or the wind planes)
+    node = 2.0 + real + wind   # active, boundary and x (or the wind planes)
     if branch is not None:
         assert layers == 1 and n_wf <= 2
         inside = int((branch != 0).sum())
         need = int(((branch & 1) == 0).sum())
-        return bound(4.0 + 12.0 * inside + remesh_branch_bytes(
-            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0)),
+        return bound(real + 3.0 * real * inside + remesh_branch_bytes(
+            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0), real),
             (60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0))
-            * n + traced_ops * need)
-    return bound((66.0 + node / layers) * n, ops * n)
+            * n + traced_ops * need, real)
+    return bound((15.0 * real + 6.0 + node / layers) * n, ops * n, real)
 
 
 def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
-             layers: int = 1) -> dict:
+             layers: int = 1, real: int = 4) -> dict:
     """K3 on this run's inputs: per lane the mask (1 byte) in and dt out (4);
     per reset lane the 5 components (20 bytes), the node x where an
     analytic wind reads it, t where the wind varies in t, a gridded wind's
@@ -647,22 +737,24 @@ def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
     its dt (4 bytes) and no operation.  With ``layers`` the lanes are that
     many layers of one grid, whose node x and node planes are read once a
     node.  A traced wind reads the node x and y and t, and runs its
-    operations an evaluation."""
+    operations an evaluation.  ``real``: the bytes of a lane value (8:
+    float64)."""
     n, r = reset.numel(), int(reset.sum())
     gridded = wind.kind == WindKind.GRIDDED
     traced = wind.kind == WindKind.TRACED
     n_wf = (4 + 3 * wind.n_break if gridded else
             2 if wind.kind == WindKind.NODE else 0)
-    node = 4.0 * (wind.kind in (WindKind.HALF_DOMAIN, WindKind.TIME_COSINE)) \
-        + 4.0 * n_wf + 20.0 * proj + 8.0 * traced
-    per_reset = 20.0 + 4.0 * (wind.kind in (WindKind.TIME_COSINE,
-                                            WindKind.GRIDDED,
-                                            WindKind.TRACED)) \
+    node = real * (wind.kind in (WindKind.HALF_DOMAIN,
+                                 WindKind.TIME_COSINE)) \
+        + 4.0 * n_wf + 5.0 * real * proj + 8.0 * traced
+    per_reset = 5.0 * real + real * (wind.kind in (WindKind.TIME_COSINE,
+                                                   WindKind.GRIDDED,
+                                                   WindKind.TRACED)) \
         + node / layers
     rhs = RHS_OPS + (gridded_wind_ops(wind.n_break) if gridded else 0) + (
         len(wind.traced.ops) if traced else 0)
-    return bound(5.0 * n + per_reset * r + 4.0 * (n - r),
-                 (2 * rhs + 62.0) * r)
+    return bound((1.0 + real) * n + per_reset * r + real * (n - r),
+                 (2 * rhs + 62.0) * r, real)
 
 
 def half_reset_mask(shape, device, seed: int) -> torch.Tensor:
@@ -677,11 +769,13 @@ def half_reset_mask(shape, device, seed: int) -> torch.Tensor:
     return torch.as_tensor(m, device=device)
 
 
+# the integer type of each dtype's bits
+BIT_TYPES = {torch.bool: torch.uint8, torch.float64: torch.int64}
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     """A tensor's bits (NaN payloads included), for bitwise comparisons."""
-    t = t.contiguous()
-    return t.view(torch.uint8) if t.dtype == torch.bool else \
-        t.view(torch.int32)
+    return t.contiguous().view(BIT_TYPES.get(t.dtype, torch.int32))
 
 
 def assert_bitwise(what: str, new, simple) -> None:
@@ -702,28 +796,31 @@ def settings(solver: str, **tols):
 
 def flagship_model(n: int, device, solver="bosh3", dt_reset_mode="carry",
                    halo=((0, 3), (0, 3)), periodic=True, winds=None,
-                   tols=None, **modes):
+                   tols=None, dtype=torch.float32, **modes):
     """bench.py's production configuration on the port: 2 km spacing,
     periodic box, constant (10, 10) m/s winds (or ``winds``), directional
-    halo."""
+    halo; the grid and the model in ``dtype``."""
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
                          periodic_boundary=(periodic, periodic),
-                         device=device)
+                         device=device, dtype=dtype)
     cfg = WaveGrowth2DConfig(periodic_boundary=periodic,
-                             dt_reset_mode=dt_reset_mode, halo=halo, **modes)
+                             dt_reset_mode=dt_reset_mode, halo=halo,
+                             dtype=dtype, **modes)
     return WaveGrowth2D(grid, winds or constant_winds(10.0, 10.0),
                         settings(solver, **(tols or {})), config=cfg)
 
 
-def default_model(n: int, device, winds=None, tols=None, **modes):
+def default_model(n: int, device, winds=None, tols=None,
+                  dtype=torch.float32, **modes):
     """The package default (tsit5, Hairer dt reset, halo 3) on the same
-    box."""
+    box, in ``dtype``."""
     grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
-                         periodic_boundary=(True, True), device=device)
+                         periodic_boundary=(True, True), device=device,
+                         dtype=dtype)
     return WaveGrowth2D(grid, winds or constant_winds(10.0, 10.0),
                         settings("tsit5", **(tols or {})),
                         config=WaveGrowth2DConfig(periodic_boundary=True,
-                                                  **modes))
+                                                  dtype=dtype, **modes))
 
 
 def gridded_model(n: int, device, winds, path: str, tols=None):
@@ -777,18 +874,71 @@ def phase_device():
     return name, smi
 
 
+def ptxas_entries(log_text: str) -> list:
+    """(entry, registers, spill store bytes, spill load bytes) of each
+    kernel instance in a ptxas -v log."""
+    out, props = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            out.append([ln.split("'")[1], 0, 0, 0])
+        elif "Function properties for" in ln:
+            props = ln.split("for", 1)[1].strip()
+        elif out and props == out[-1][0] and "spill stores" in ln:
+            w = ln.replace(",", " ").split()
+            out[-1][2] = int(w[w.index("stores") - 3])
+            out[-1][3] = int(w[w.index("loads") - 3])
+        elif out and "Used" in ln and "registers" in ln:
+            w = ln.split()
+            out[-1][1] = int(w[w.index("registers,") - 1]
+                             if "registers," in w
+                             else w[w.index("registers") - 1])
+    return out
+
+
 def phase_build():
-    res = cuda_build.build()
+    """The kernels' library and the float64 library, built at once (one
+    nvcc a source), then both PTX checks at once: the float instances hold
+    no float64 line but the cosf argument reduction
+    (``unexpected_double_ops``), the double instances no narrowing to
+    float32 but the time-cosine amplitude's and libdevice's double tanh's
+    (``narrowing_summary``).  Logs the
+    double instances' registers and spills."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        fut = ex.submit(cuda_build.build_f64)
+        res = cuda_build.build()
+        res64 = fut.result()
+    seconds = time.perf_counter() - t0
     cuda_build.library()
+    cuda_build.library_f64()
     lines = res.log.splitlines()
     regs = sorted({ln.split(":", 1)[1].strip() for ln in lines
                    if "registers" in ln})
     n_double = sum("double precision" in ln for ln in lines)
-    bad = cuda_build.unexpected_double_ops()
-    log("build", f"{res.seconds:.1f} s ({res.path.parent.name}); ptxas: "
-                 f"{' | '.join(regs)}; float64 PTX lines: {n_double} "
-                 f"warned, all in the cosf argument reduction")
+    with ThreadPoolExecutor(2) as ex:
+        fut = ex.submit(cuda_build.narrowing_summary)
+        bad = cuda_build.unexpected_double_ops()
+        narrowing = fut.result()
+    narrow = narrowing["other"]
+    log("build", f"{seconds:.1f} s, both libraries ({res.path.parent.name}, "
+                 f"{res64.path.parent.name}); ptxas: {' | '.join(regs)}; "
+                 f"float64 PTX lines: {n_double} warned, all in the cosf "
+                 f"argument reduction")
     assert not bad, f"float64 in the kernels' own code: {bad[:5]}"
+    ents = ptxas_entries(res64.log)
+    spills = [e for e in ents if e[2] or e[3]]
+    log("build", f"float64 library: {len(ents)} instances, registers "
+                 f"{min(e[1] for e in ents)}-{max(e[1] for e in ents)}, "
+                 f"{len(spills)} spilling: {spills}; PTX: float64 -> "
+                 f"float32 conversions {narrowing['amplitude']} in "
+                 f"{cuda_build.F64_NARROWING_FUNC}, {narrowing['tanh']} "
+                 f"libdevice's double tanh exponent estimates, "
+                 f"{len(narrow)} elsewhere")
+    for e in ents:
+        log("build", f"  f64 {e[0][:96]}: {e[1]} registers, spill "
+                     f"stores {e[2]} B, loads {e[3]} B")
+    assert not narrow, f"narrowing in the double instances: {narrow[:5]}"
+    res = res._replace(seconds=seconds, log=res.log + res64.log)
     return res
 
 
@@ -1492,15 +1642,17 @@ def phase_twin_timing(timing, steps: int):
 
 
 def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int,
-                ny: int = 0):
+                ny: int = 0, dtype=torch.float32):
     """A non-periodic n^2 box (n x ny with ``ny``) with half-domain winds
     and a perturbed node state (a third of the nodes below the minimal
     state, dt spread over [1e-6, 3000] s): gather, reseed and off all fire.
     Returns (model, node planes, the remesh's particle planes, masks,
-    coordinates and clock)."""
+    coordinates and clock), in ``dtype`` (the float32 values widened)."""
     ny = ny or n
     comps, _, _, _ = perturbed_state(n, dev, seed, ny=ny)
-    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (ny - 1), ny, device=dev)
+    comps = tuple(c.to(dtype) for c in comps)
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (ny - 1), ny, device=dev,
+                         dtype=dtype)
     sett = ODESettings(log_energy_minimum=settings("bosh3").log_energy_minimum,
                        timestep=DT, dt=37.5, dtmin=1e-4, adaptive=adaptive,
                        solver="bosh3")
@@ -1508,11 +1660,12 @@ def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int,
                      config=WaveGrowth2DConfig(periodic_boundary=False,
                                                boundary_type=boundary_type,
                                                dt_reset_mode="carry",
-                                               remesh_mode="pallas"))
+                                               remesh_mode="pallas",
+                                               dtype=dtype))
     rng = np.random.default_rng(seed + 1)
 
     def plane(a):
-        return torch.as_tensor(a.astype(np.float32), device=dev)
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(dtype)
 
     low = plane(np.where(rng.uniform(size=(n, ny)) < 0.3,
                          rng.uniform(0, 1e-4, (n, ny)), 1.0))
@@ -1522,7 +1675,7 @@ def remesh_case(dev, n: int, boundary_type: str, adaptive: bool, seed: int,
     on = torch.as_tensor(rng.uniform(size=(n, ny)) < 0.8, device=dev)
     core = (*comps, dt, on, m.active_mask.contiguous(),
             m.boundary_mask.contiguous(), grid.x, grid.y,
-            torch.tensor(1800.0, device=dev))
+            torch.full((), 1800.0, device=dev, dtype=dtype))
     return m, node, core
 
 
@@ -2402,6 +2555,7 @@ def phase_sharded_1x1(dev, gw, results, timing):
         phase_sharded_tripolar(dev, results, timing)
         phase_sharded_jet(dev, results, timing)
         phase_sharded_pulse(dev, results, timing)
+        phase_sharded_f64(dev, results)
     finally:
         dist.destroy_process_group()
     med = {k: float(np.median(v)) for k, v in runs.items()}
@@ -2662,30 +2816,40 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
     return 0
 
 
-def trace_window(run, steps: int, want: dict, attempts: int = 3):
+def trace_window(run, steps: int, want: dict, attempts: int = 4):
     """A ``torch.profiler`` trace of ``run()`` (``steps`` steps): device
     busy time (the union of the device ops), idle share of the traced
     window, device ops and time by name per step.  ``want`` maps
     KERNEL_KEYS names to the launches a complete trace holds; a trace
     missing any (late in a process a trace can lose device events) is
-    taken again, up to ``attempts`` times.  Returns (stats, the kernels'
-    counts)."""
+    taken again, up to ``attempts`` times.  Each trace opens with
+    ``trace_head`` (its spin kernel left out of the stats) and pads the run
+    with the host idle on both sides (``trace_pad_s``).  Returns (stats,
+    the kernels' counts)."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
+        pad = trace_pad_s(attempt - 1)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            trace_head(pad)
             run()
             torch.cuda.synchronize()
+            time.sleep(pad)
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+        head = trace_head_held(dev)
+        dev = [e for e in dev if TRACE_HEAD not in e.name]
         got = {k: sum(kernel_named(k, e.name) for e in dev) for k in want}
         if got == want:
             break
-        log("trace", f"trace {attempt} holds {got} of {want} launches "
-                     f"({len(dev)} device ops); taken again")
+        log("trace", f"trace {attempt} (host idle {pad:.2f} s each side) "
+                     f"holds {got} of {want} launches; {head}; taken again")
     assert got == want, \
         f"no complete trace in {attempts} attempts: {got} of {want}"
+    if attempt > 1:
+        log("trace", f"trace {attempt} (host idle {pad:.2f} s each side) "
+                     f"holds all {want} launches")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -3574,11 +3738,10 @@ def device_ops_per_step(model, ms, steps: int = 3):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_head(trace_pad_s(0))
         ms = eager_steps(model, ms, steps)
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n / steps, ms
+    return device_op_count(prof) / steps, ms
 
 
 def device_ops(fn) -> int:
@@ -3589,10 +3752,17 @@ def device_ops(fn) -> int:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_head(trace_pad_s(0))
         fn()
         torch.cuda.synchronize()
+    return device_op_count(prof)
+
+
+def device_op_count(prof) -> int:
+    """Device operations in a trace, its head (``trace_head``) left out."""
     return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and TRACE_HEAD not in e.name)
 
 
 def plane_seconds(model, ms, reps: int = 10) -> dict:
@@ -8209,6 +8379,833 @@ def phase_traced_winds(dev, results, timing) -> None:
                         f"traced libraries' build {build_s:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# float64 (phase "float64"): the double instances of K1-K6
+# ---------------------------------------------------------------------------
+
+F64 = torch.float64
+# The double instances against their float64 plain versions on the card, of
+# each plane's scale: K1 in fixed substeps and K3 (the same operations in
+# float64; the card's and ATen's exp, log, pow and tanh may part in the last
+# ulp); the deposit's node planes (K2, K4, K6: the same sums in another
+# order); the remesh's gathered and reseeded values (K5, K6; bits, flags,
+# dt and positions exact).  The adaptive advance by ``assert_controller``.
+F64_RTOL = 1e-12
+F64_DEPOSIT_RTOL = 1e-13
+F64_REMESH_RTOL = 1e-13
+# a float64 model on the card against the same model on the CPU, 3 steps:
+# the node state and the particle planes within this of their scale, the
+# counters equal (ROADMAP §3's card test); the carried dt, the controller's
+# proposal, whose error estimate cancels, within F64_CARD_CPU_DT_RTOL
+F64_CARD_CPU_RTOL = 1e-10
+F64_CARD_CPU_DT_RTOL = 1e-8
+F64_CARD_CPU_N = 128
+F64_STEPS = 3
+# the float64 rows of the kernels line: the TPU kernel each double instance
+# replaces, in its float64 branch (each takes its dtype from its inputs)
+F64_REPLACES = {
+    "K1": "picles_tpu/ops/advance_pallas.py:50 (float64: the dtype of its "
+          "inputs, :296 and :374; winds cast to it, :81-82; the clock floor "
+          "in its epsilon, :105-108)",
+    "K2": "picles_tpu/ops/pic_pallas.py:91 (float64: the dtype of its "
+          "inputs, :173)",
+    "K3": "picles_tpu/ops/advance_pallas.py:200 (float64: the dtype of its "
+          "inputs, :374; winds cast to it, :221-222)",
+    "K4": "picles_tpu/ops/pic_pallas.py:121 (float64: the dtype of its "
+          "inputs, :262)",
+    "K5": "picles_tpu/ops/remesh_pallas.py:116 (float64: the dtype of its "
+          "inputs, :188; winds cast to it, :62-63)",
+    "K6": "picles_tpu/ops/pic_pallas.py:375 (float64: the dtype of its "
+          "inputs, :462)",
+}
+F64_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
+           "K4": pic_gather_padded, "K5": remesh_cuda,
+           "K6": pic_gather_remesh}
+
+
+def time_cosine_divided(U10: float, V10: float, period: float,
+                        t_off: float = None) -> Winds2D:
+    """``time_cosine_winds``' sampler with its period divided as the JAX
+    package and the kernels divide it: by a 0-dim tensor, an IEEE division
+    on the card too.  ATen multiplies a float32 plane by a host scalar's
+    float32 reciprocal there, which rounds the amplitude one float32 ulp
+    off in some lanes; a float64 advance carries that at 1e-6 of its scale
+    (on the CPU ATen divides)."""
+    def amp(t):
+        t32 = torch.as_tensor(t, dtype=torch.float32)
+        a = torch.cos(2.0 * math.pi * t32 / torch.full(
+            (), period, dtype=torch.float32, device=t32.device))
+        if t_off is not None:
+            a = torch.where(torch.as_tensor(t) > t_off, 0.0, a)
+        return a
+
+    return Winds2D(u=lambda x, y, t: U10 * amp(t) + 0.0 * x,
+                   v=lambda x, y, t: V10 * amp(t) + 0.0 * x)
+
+
+def f64_counters() -> dict:
+    return {f"{k} f64": fn.f64_launches for k, fn in F64_FNS.items()}
+
+
+def reset_f64_counters() -> None:
+    for fn in F64_FNS.values():
+        fn.f64_launches = 0
+
+
+def f64_scale_err(tag: str, a, b, rtol: float) -> float:
+    """max |a - b| over max |b| of two float64 planes (NaN where both are
+    NaN counts as equal), held to ``rtol``; returns it."""
+    assert a.dtype == b.dtype == F64, f"{tag}: {a.dtype} vs {b.dtype}"
+    assert a.shape == b.shape, f"{tag}: {a.shape} vs {b.shape}"
+    scale = float(torch.nan_to_num(b.abs(), nan=0.0, posinf=0.0).max())
+    err = max_abs(a, b) / (scale or 1.0)
+    assert err <= rtol, f"{tag}: {err:.3e} of the scale (bound {rtol:g})"
+    return err
+
+
+def f64_consts():
+    params, cid, _ = ODEParameters.create()
+    return make_rhs_consts(gamma=cid.gamma, constants=cid, params=params)
+
+
+def f64_k1_check(tag, winds, consts, flags, cfg, comps, t, dt, active, grid,
+                 proj, plain_winds=None, wind_fields=()):
+    """K1's double instance against ``integrate_to`` in float64 on the same
+    inputs (``plain_winds``: the plain version's wind where it differs, a
+    gridded or node wind's planes): fixed substeps each component and t
+    within F64_RTOL of its scale, dt, failed and naccept equal; adaptive by
+    ``assert_adaptive`` and ``assert_controller``, failed equal.  Returns
+    (the components' max scaled error, the kernel's and the plain
+    version's results)."""
+    k = advance_cuda(winds, consts, flags, cfg, DT, comps, t, dt, active,
+                     grid.x, grid.y, proj, wind_fields=wind_fields)
+    pw = plain_winds or winds
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    p = integrate_to(make_rhs(pw.u, pw.v, consts, flags),
+                     torch.stack(comps, dim=-1), t, t + DT, dt, aux, active,
+                     cfg)
+    torch.cuda.synchronize()
+    assert k.lne.dtype == F64 and k.t.dtype == F64, k.lne.dtype
+    assert torch.equal(k.failed, p.failed), f"{tag}: failed differs"
+    names = ("lne", "cgx", "cgy", "x", "y")
+    if cfg.adaptive:
+        for i, (nm, kz) in enumerate(zip(names, k[:5])):
+            assert_adaptive(f"{tag} {nm}", kz, p.z[..., i])
+        extra = assert_controller(tag, k, p, active)
+        scale = [float(p.z[..., i].abs().max()) or 1.0 for i in range(5)]
+        err = max(max_abs(kz, p.z[..., i]) / scale[i]
+                  for i, kz in enumerate(k[:5]))
+    else:
+        err = max(f64_scale_err(f"{tag} {nm}", kz, p.z[..., i], F64_RTOL)
+                  for i, (nm, kz) in enumerate(zip(names, k[:5])))
+        f64_scale_err(f"{tag} t", k.t, p.t, F64_RTOL)
+        assert torch.equal(k.dt, p.dt), f"{tag}: dt not carried as given"
+        assert torch.equal(k.naccept, p.naccept), f"{tag}: naccept differs"
+        extra = "naccept equal"
+    log("float64", f"{tag}: max err {err:.3e} of the scale, failed "
+                   f"{int(k.failed.sum())}/{int(p.failed.sum())}; {extra}")
+    return err, k, p
+
+
+def f64_k3_check(tag, winds, consts, flags, comps, t, dt, reset, grid, proj,
+                 plain_winds=None, wind_fields=()) -> float:
+    """K3's double instance against ``auto_dt_reset`` in float64: within
+    F64_RTOL of the scale, the unreset lanes' dt bit for bit."""
+    k = auto_dt_cuda(winds, consts, flags, t, comps, grid.x, grid.y, proj,
+                     reset, dt, 1e-4, DT, wind_fields=wind_fields)
+    pw = plain_winds or winds
+    aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
+    p = auto_dt_reset(make_rhs(pw.u, pw.v, consts, flags), t,
+                      torch.stack(comps, dim=-1), aux, reset, dt, 1e-4, DT)
+    torch.cuda.synchronize()
+    err = f64_scale_err(tag, k, p, F64_RTOL)
+    assert torch.equal(bits(k[~reset]), bits(dt[~reset])), \
+        f"{tag}: an unreset lane's dt changed"
+    log("float64", f"{tag}: max err {err:.3e} of the scale, "
+                   f"{int(reset.sum())} lanes reset")
+    return err
+
+
+def f64_k2_check(tag, xr, yr, chans, act, stats, halo) -> float:
+    """K2's double instance twice (bit for bit) and ``scatter_dense`` in
+    float64: each channel within F64_DEPOSIT_RTOL of its scale, the
+    clamped count equal."""
+    o, st = pic_gather(xr, yr, chans, act, stats, halo)
+    o2, _ = pic_gather(xr, yr, chans, act, stats, halo)
+    S, st_p = scatter_dense(xr, yr, torch.stack(chans, dim=-1), act, stats,
+                            halo)
+    torch.cuda.synchronize()
+    err = max(f64_scale_err(f"{tag} ch{c}", o[c], S[..., c],
+                            F64_DEPOSIT_RTOL) for c in range(3))
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(o, o2)), \
+        f"{tag}: two runs differ"
+    assert int(st.clamped) == int(st_p.clamped), f"{tag}: clamped"
+    log("float64", f"{tag}: max err {err:.3e} of the scale, clamped "
+                   f"{int(st.clamped)}, two runs bit for bit")
+    return err
+
+
+def f64_k4_check(tag, xr, yr, chans, act, halo) -> float:
+    """K4's double instance twice (bit for bit) and
+    ``scatter_accumulate_padded`` in float64, within F64_DEPOSIT_RTOL."""
+    out, st = pic_gather_padded(xr, yr, chans, act, halo)
+    out2, _ = pic_gather_padded(xr, yr, chans, act, halo)
+    P, st_p = scatter_accumulate_padded(xr, yr, torch.stack(chans, dim=-1),
+                                        act, halo)
+    torch.cuda.synchronize()
+    assert out.dtype == F64 and torch.equal(bits(out), bits(out2)), \
+        f"{tag}: two runs differ"
+    err = max(f64_scale_err(f"{tag} ch{c}", out[c], P[..., c],
+                            F64_DEPOSIT_RTOL) for c in range(3))
+    assert int(st.clamped) == int(st_p.clamped), f"{tag}: clamped"
+    log("float64", f"{tag}: max err {err:.3e} of the scale, two runs bit "
+                   f"for bit")
+    return err
+
+
+def f64_remesh_values(tag, k, p) -> float:
+    """``assert_remesh`` in float64: bits, flags, dt and positions equal,
+    the values within F64_REMESH_RTOL."""
+    for f in ("branch", "on", "dt", "px", "py"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert torch.equal(a, b), \
+            f"{tag}: {f} differs on {int((a != b).sum())} lanes"
+    return max(assert_close(f"{tag} {f}", getattr(k, f), getattr(p, f),
+                            F64_REMESH_RTOL, 0.0)
+               for f in ("lne", "cgx", "cgy"))
+
+
+def f64_k5_k6_check(tag, m, node, core, stats=None, halo=((1, 3), (0, 2)),
+                    wind_fields=(), plain_params=None):
+    """K5's double instance against ``remesh_core`` in float64
+    (``f64_remesh_values``) and K6's twice (bit for bit), bit for bit K2 +
+    K5's, its node planes within F64_DEPOSIT_RTOL of ``scatter_dense`` and
+    its bits and ``on`` those of ``remesh_core`` over them.  ``stats``: the
+    deposit's grid (the model's by default); ``plain_params``: the plain
+    version's remesh parameters where its wind differs (a gridded or node
+    wind's planes).  Returns the two errors."""
+    rp = m.remesh_params
+    pp = plain_params or rp
+    k = remesh_cuda(rp, node, *core, wind_fields=wind_fields)
+    p = remesh_core(pp, node, *core)
+    torch.cuda.synchronize()
+    e5 = f64_remesh_values(f"K5 {tag}", k, p)
+    lne, cgx, cgy, px, py = core[:5]
+    chans = TR.particle_to_node(lne, cgx, cgy)
+    sact = (core[6] & core[7]).contiguous()
+    stats = stats or m.grid.stats
+    nd, rm, st = pic_gather_remesh(px, py, chans, sact, stats, halo, rp,
+                                   *core, wind_fields=wind_fields)
+    nd2, rm2, _ = pic_gather_remesh(px, py, chans, sact, stats, halo, rp,
+                                    *core, wind_fields=wind_fields)
+    k2, _ = pic_gather(px, py, chans, sact, stats, halo)
+    k5 = remesh_cuda(rp, k2, *core, wind_fields=wind_fields)
+    S, st_p = scatter_dense(px, py, torch.stack(chans, -1), sact, stats, halo)
+    plain = remesh_core(pp, tuple(S[..., c] for c in range(3)), *core)
+    torch.cuda.synchronize()
+    for a, b, c in zip(nd, k2, nd2):
+        assert torch.equal(bits(a), bits(b)), f"K6 {tag}: node plane != K2's"
+        assert torch.equal(bits(a), bits(c)), f"K6 {tag}: two runs differ"
+    for f in rm._fields:
+        for other, what in ((k5, "K2 + K5"), (rm2, "a second run")):
+            a, b = getattr(rm, f), getattr(other, f)
+            same = torch.equal(bits(a), bits(b)) if a.is_floating_point() \
+                else torch.equal(a, b)
+            assert same, f"K6 {tag}: {f} differs from {what}"
+    e6 = max(f64_scale_err(f"K6 {tag} node ch{c}", nd[c], S[..., c],
+                           F64_DEPOSIT_RTOL) for c in range(3))
+    assert torch.equal(rm.branch, plain.branch), f"K6 {tag}: bits"
+    assert torch.equal(rm.on, plain.on), f"K6 {tag}: on"
+    assert int(st.clamped) == int(st_p.clamped), f"K6 {tag}: clamped"
+    log("float64", f"K5/K6 {tag}: {branch_counts(k.branch)}; K5 values "
+                   f"max err {e5:.3e}; K6 = K2 + K5 bit for bit, two runs "
+                   f"bit for bit, node planes max err {e6:.3e} of the scale")
+    return e5, e6
+
+
+def f64_kernel_checks(dev, n: int) -> dict:
+    """Every branch of the double instances against its float64 plain
+    version at n^2: K1 (fixed substeps, tsit5; adaptive, bosh3) and K3
+    under constant, half-domain and time-cosine winds (its cut-off inside
+    the step), a steady callable's node planes and a gridded record (B =
+    1); K1 and K3 with per-node projection planes (a float64 spherical
+    grid); K2 and K6 across the tripolar seam; K1, K2 and K5 over 2 layers
+    (``blockIdx.y``), bit for bit each layer's own launch; K5 and K6 where
+    gather, reseed and off fire, under each boundary type.  Returns the
+    max errors by kernel."""
+    consts, flags = f64_consts(), TermFlags()
+    c32, dt32, active, _ = perturbed_state(n, dev, seed=16)
+    comps = tuple(c.to(F64).contiguous() for c in c32)
+    dt0 = dt32.to(F64)
+    grid = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                         periodic_boundary=(True, True), device=dev,
+                         dtype=F64)
+    proj = uniform_projection(grid.proj, grid.pc)
+    t = torch.full_like(comps[0], 1500.0)
+    reset = half_reset_mask((n, n), dev, seed=16)
+    err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0.0)
+    fixed = SolverConfig(method="tsit5", adaptive=False, dtmin=1e-4)
+    adapt = SolverConfig(method="bosh3", adaptive=True, dtmin=1e-4)
+    steady = Winds2D(u=lambda x, y, t: 10.0 + 2.0 * torch.sin(y / 3e4),
+                     v=lambda x, y, t: 4.0 + 0.0 * x)
+    planes = steady_node_planes(steady, grid.x, grid.y)
+    gw, wf, pwl = kernel_winds(window_record(n, dev, 900.0), grid, 1500.0)
+    cases = [
+        ("constant", constant_winds(10.0, 10.0), None, ()),
+        ("half-domain", half_domain_winds(10.0, 5.0, 1e3 * (n - 1)), None,
+         ()),
+        ("time-cosine", time_cosine_winds(10.0, 5.0, period=6 * 3600.0,
+                                          t_off=1800.0),
+         time_cosine_divided(10.0, 5.0, 6 * 3600.0, t_off=1800.0), ()),
+        ("node", steady._replace(kernel=node_kernel()),
+         node_plane_winds(planes[0], planes[1]), tuple(planes.unbind(0))),
+        ("gridded", gw, pwl, tuple(wf)),
+    ]
+    for wname, winds, plain, fields in cases:
+        for cfg, dt in ((fixed, torch.full_like(dt0, 37.5)), (adapt, dt0)):
+            mode = "adaptive" if cfg.adaptive else "fixed"
+            e, k, _ = f64_k1_check(f"K1 f64 {wname} {cfg.method} {mode}",
+                                   winds, consts, flags, cfg, comps, t, dt,
+                                   active, grid, proj, plain, fields)
+            err["K1"] = max(err["K1"], e if not cfg.adaptive else 0.0)
+            if wname == "constant" and cfg.adaptive:
+                moved = k   # the deposits' input: advanced positions
+        err["K3"] = max(err["K3"], f64_k3_check(
+            f"K3 f64 {wname}", winds, consts, flags, comps, t, dt0, reset,
+            grid, proj, plain, fields))
+    # per-node projection planes: a float64 spherical grid
+    sph = spherical_grid_2d(0.0, 360.0 * (n - 1) / n, n, -70.0, 70.0, n,
+                            periodic_boundary=(True, False), device=dev,
+                            dtype=F64)
+    sproj = node_projection(sph.proj, sph.pc, F64)
+    assert sproj.dtype == F64
+    winds = constant_winds(10.0, 10.0)
+    e, _, _ = f64_k1_check("K1 f64 spherical planes tsit5 fixed", winds,
+                           consts, flags, fixed, comps, t,
+                           torch.full_like(dt0, 37.5), active, sph, sproj)
+    err["K1"] = max(err["K1"], e)
+    err["K3"] = max(err["K3"], f64_k3_check(
+        "K3 f64 spherical planes", winds, consts, flags, comps, t, dt0,
+        reset, sph, sproj))
+    # layers: two layers in one launch, each bit for bit its own launch
+    L = 2
+    c2 = tuple(torch.stack([c, c * (1.0 + 1e-3 * (i + 1))]).contiguous()
+               for i, c in enumerate(comps))
+    lay = lambda a: torch.stack([a, a]).contiguous()   # noqa: E731
+    args = (winds, consts, flags, fixed, DT)
+    kb = advance_cuda(*args, c2, lay(t), lay(torch.full_like(dt0, 37.5)),
+                      lay(active), grid.x, grid.y, proj)
+    for i in range(L):
+        ks = advance_cuda(*args, tuple(c[i].contiguous() for c in c2), t,
+                          torch.full_like(dt0, 37.5), active, grid.x, grid.y,
+                          proj)
+        assert_bitwise(f"K1 f64 layer {i}", tuple(x[i] for x in kb), ks)
+    # deposits: the state's positions after the constant wind's advance
+    k = moved
+    chans = TR.particle_to_node(k.lne, k.cgx, k.cgy)
+    for halo in (((0, 3), (0, 3)), 3):
+        err["K2"] = max(err["K2"], f64_k2_check(
+            f"K2 f64 halo {halo}", k.x, k.y, chans, active, grid.stats,
+            halo))
+    err["K4"] = max(err["K4"], f64_k4_check(
+        "K4 f64 halo ((0,3),(0,3))", k.x, k.y, chans, active,
+        ((0, 3), (0, 3))))
+    kb2, _ = pic_gather(lay(k.x), lay(k.y), tuple(lay(c) for c in chans),
+                        lay(active), grid.stats, 3)
+    ks2, _ = pic_gather(k.x, k.y, chans, active, grid.stats, 3)
+    assert_bitwise("K2 f64 layers", tuple(x[0] for x in kb2), ks2)
+    assert_bitwise("K2 f64 layers", tuple(x[1] for x in kb2), ks2)
+    # the tripolar seam
+    tri = synthetic_tripolar_grid(k=2, nx_super=2 * n, ny_super=2 * n,
+                                  device=dev, dtype=F64)
+    assert tri.stats.by == Boundary.TRIPOLAR_NORTH
+    for halo in (3, ((0, 3), (0, 3))):
+        err["K2"] = max(err["K2"], f64_k2_check(
+            f"K2 f64 tripolar halo {halo}", k.x, k.y, chans, active,
+            tri.stats, halo))
+    # the remesh: every branch under each boundary type, the seam, layers
+    seed = 40
+    for bt in ("same", "wind_sea", "mininmal"):
+        for adaptive in (True, False):
+            seed += 1
+            m, node, core = remesh_case(dev, n, bt, adaptive, seed,
+                                        dtype=F64)
+            e5, e6 = f64_k5_k6_check(
+                f"f64 {bt} clip_dt={m.remesh_params.clip_dt}", m, node, core)
+            err["K5"], err["K6"] = max(err["K5"], e5), max(err["K6"], e6)
+    m, node, core = remesh_case(dev, n, "same", True, 50, dtype=F64)
+    e5, e6 = f64_k5_k6_check("f64 tripolar seam", m, node, core,
+                             stats=tri.stats, halo=3)
+    err["K5"], err["K6"] = max(err["K5"], e5), max(err["K6"], e6)
+    kl = remesh_cuda(m.remesh_params, tuple(lay(c) for c in node),
+                     *(lay(c) for c in core[:7]), *core[7:])
+    k0 = remesh_cuda(m.remesh_params, node, *core)
+    for i in range(L):
+        assert_bitwise(f"K5 f64 layer {i}", tuple(x[i] for x in kl), k0)
+    # the remesh's gridded and node winds
+    for wname, winds, plain, fields in cases[3:]:
+        m, node, core = remesh_case(dev, n, "same", True, 60, dtype=F64)
+        pw = m.remesh_params._replace(winds=plain)
+        m.remesh_params = m.remesh_params._replace(winds=winds)
+        e5, e6 = f64_k5_k6_check(f"f64 {wname} wind", m, node, core,
+                                 wind_fields=fields, plain_params=pw)
+        err["K5"], err["K6"] = max(err["K5"], e5), max(err["K6"], e6)
+    return err
+
+
+def f64_turns(f32_fn, f64_fn, reps: int):
+    """(float32 ms, float64 ms) of one call each, by CUDA events
+    (``cuda_time_ms``), in turns: float32, float64, float64, float32, the
+    two runs of each averaged."""
+    a1 = cuda_time_ms(f32_fn, reps)
+    b1 = cuda_time_ms(f64_fn, reps)
+    b2 = cuda_time_ms(f64_fn, reps)
+    a2 = cuda_time_ms(f32_fn, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def f64_row(results, key, f32_fn, f64_fn, plain_fn, b, reps=10,
+            plain_reps=2) -> None:
+    """Time kernel ``key``'s double instance in turns with its float32
+    instance on the same inputs cast to float32 (CUDA events: ``events_ms``
+    and ``f32_events_ms``), and its float64 plain version; record them
+    beside its bound ``b`` (``bound`` with the lanes' bytes doubled and the
+    float64 rate).  The deposit wrappers (K2, K4, K6) count the clamped
+    displacements beside their kernel, so their ``ms`` and ``f32_ms`` are
+    the kernels' own device times from traces (``kernel_ms``), taken in
+    turns too; the others' are the events'."""
+    f32_ev, ev = f64_turns(f32_fn, f64_fn, reps)
+    row = dict(events_ms=ev, f32_events_ms=f32_ev, ms=ev, f32_ms=f32_ev)
+    if key in ("K2", "K4", "K6"):
+        s1 = kernel_ms(f32_fn, key, reps)
+        n1 = kernel_ms(f64_fn, f"{key} f64", reps)
+        n2 = kernel_ms(f64_fn, f"{key} f64", reps)
+        s2 = kernel_ms(f32_fn, key, reps)
+        row.update(ms=(n1 + n2) / 2, f32_ms=(s1 + s2) / 2)
+    ms, f32_ms = row["ms"], row["f32_ms"]
+    plain_ms = cuda_time_ms(plain_fn, plain_reps)
+    results[f"{key} f64"].update(plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                                 bound_by=b["bound_by"], **row)
+    log("kernel-time", f"{key} f64: {ms:.4f} ms, its float32 instance "
+                       f"{f32_ms:.4f} ms ({ms / f32_ms:.2f}x; CUDA events "
+                       f"in turns {ev:.4f} / {f32_ev:.4f}), plain float64 "
+                       f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                       f"({b['bound_by']}, {b['bound_ms'] / ms:.0%})")
+
+
+# the double gather's shared-memory budgets measured (bytes a block): the
+# float32 instances' 64 KB, and up to the card's 227 KB a block
+F64_BUDGETS = (64 * 1024, 96 * 1024, 128 * 1024, 160 * 1024)
+
+
+def f64_budget_sweep(xr, yr, chans, act, stats, halos) -> dict:
+    """K2's double instance under each budget of F64_BUDGETS
+    (``picles_gather_budget_f64``), at each halo: bit for bit the same
+    sums under every budget (the order of the sums is the plan's own), the
+    device time by CUDA events (two passes, each budget in turn).  Leaves
+    the compiled budget (pic_gather.cu SMEM_BUDGET_F64) in place.
+    Returns ms by budget and halo."""
+    lib = cuda_build.library_f64()
+    default = lib.picles_gather_budget_f64(0)
+    out, ref = {}, {}
+    try:
+        for _ in range(2):
+            for b in F64_BUDGETS:
+                lib.picles_gather_budget_f64(b)
+                for halo in halos:
+                    o, _ = pic_gather(xr, yr, chans, act, stats, halo)
+                    key = str(halo)
+                    if key in ref:
+                        assert all(torch.equal(bits(x), bits(y))
+                                   for x, y in zip(o, ref[key])), \
+                            f"K2 f64 budget {b}: sums differ"
+                    ref.setdefault(key, o)
+                    out.setdefault(f"{b // 1024} KB {key}", []).append(
+                        cuda_time_ms(lambda: pic_gather(xr, yr, chans, act,
+                                                        stats, halo), 20))
+    finally:
+        lib.picles_gather_budget_f64(default)
+    log("float64", "K2 f64 by the shared-memory budget a block (ms, CUDA "
+                   "events, two passes; sums bit for bit alike): " +
+        "; ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}" for k, v in out.items()))
+    return out
+
+
+def f64_main_models(n: int, dev) -> dict:
+    """The float64 main path's models at n^2 on float64 grids: the
+    flagship under the fused remesh (K1, K6) and the "pallas" one (K1, K2,
+    K5), and the default configuration (K1, K2, K3)."""
+    return {"flagship fused": flagship_model(n, dev, dtype=F64,
+                                             remesh_mode="fused"),
+            "default": default_model(n, dev, dtype=F64),
+            "flagship pallas": flagship_model(n, dev, dtype=F64,
+                                              remesh_mode="pallas")}
+
+
+# the double instances a float64 step of each main-path model launches
+F64_STEP_KERNELS = {"flagship fused": ("K1", "K6"),
+                    "default": ("K1", "K2", "K3"),
+                    "flagship pallas": ("K1", "K2", "K5")}
+
+
+def f64_card_vs_cpu(dev, n: int = F64_CARD_CPU_N) -> dict:
+    """The float64 fused flagship and default models at n^2: 3 graphed
+    steps on the card against 3 steps of the same models on the CPU (the
+    plain versions): the node state and the particle planes within
+    F64_CARD_CPU_RTOL of their scale, the carried dt within
+    F64_CARD_CPU_DT_RTOL, every counter equal.  Returns the errors."""
+    out = {}
+    for name in ("flagship fused", "default"):
+        mg = f64_main_models(n, dev)[name]
+        mc = f64_main_models(n, "cpu")[name]
+        assert mg.graphed and not mc.graphed
+        sg = mg.step_n_quiet(mg.init_state(), F64_STEPS)
+        sc = mc.init_state()
+        for _ in range(F64_STEPS):
+            sc = mc.step(sc)
+        mg.release_graph()
+        e = max(f64_scale_err(f"card vs CPU float64 {name} state ch{c}",
+                              sg.state[..., c].cpu(), sc.state[..., c],
+                              F64_CARD_CPU_RTOL) for c in range(3))
+        for f in ("lne", "cgx", "cgy", "px", "py"):
+            e = max(e, f64_scale_err(
+                f"card vs CPU float64 {name} {f}",
+                getattr(sg.particles, f).cpu(), getattr(sc.particles, f),
+                F64_CARD_CPU_RTOL))
+        e_dt = f64_scale_err(f"card vs CPU float64 {name} dt",
+                             sg.particles.dt.cpu(), sc.particles.dt,
+                             F64_CARD_CPU_DT_RTOL)
+        mg_, mc_ = sg.metrics.as_dict(), sc.metrics.as_dict()
+        assert mg_ == mc_, f"card vs CPU float64 {name}: {mg_} vs {mc_}"
+        out[name] = dict(err=e, dt_err=e_dt)
+        log("float64", f"card (graphed) vs CPU, {name} {n}^2, {F64_STEPS} "
+                       f"steps: max err {e:.3e} of the scale, dt "
+                       f"{e_dt:.3e}, counters equal {mg_}")
+    return out
+
+
+def phase_float64(dev, results, timing) -> None:
+    """The double instances of K1-K6 (the float64 library), then the
+    float64 main path (phase "float64").
+
+    (a) ``f64_kernel_checks`` at 256^2: every branch against its float64
+    plain version.  (b) The float64 models at FLAG_N^2 on float64 grids
+    (``f64_main_models``): 3 eager steps of each, the counters set to 0
+    just before and read just after (every double instance of the path
+    launched, no float32 one), no failed or clamped lane; the graphed step
+    (``step_n_quiet``) bit for bit the eager steps, its replays' launches
+    counted by trace.  (c) On those states each double instance against
+    its float64 plain version: K1 in fixed substeps within F64_RTOL and
+    adaptive by ``assert_controller`` with failed equal, K3 within
+    F64_RTOL, K2 (both halos), K4 and K6's node planes within
+    F64_DEPOSIT_RTOL and bit for bit across two launches, K5 and K6's
+    remesh by ``f64_remesh_values``; then each timed in turns with its
+    float32 instance (CUDA events) beside its plain version and its bound.
+    (d) The graphed flagship and default steps, float64 against float32 in
+    turns; the double gather under each shared-memory budget
+    (``f64_budget_sweep``); the card against the CPU
+    (``f64_card_vs_cpu``)."""
+    t_phase = time.perf_counter()
+    err = f64_kernel_checks(dev, 256)
+    n = FLAG_N
+    models = f64_main_models(n, dev)
+    for name, m in models.items():
+        cfg = m.resolved_config()
+        assert (cfg.advance_mode, cfg.scatter_mode) == ("cuda",
+                                                        "dense_cuda"), cfg
+        assert m.graphed and m.config.dtype == F64, name
+    reset_counters()
+    reset_f64_counters()
+    states = {}
+    for name, m in models.items():
+        s = m.init_state()
+        for _ in range(F64_STEPS):
+            s = m.step(s)
+            check_state(f"float64 {name}", s, n_failed=0, n_clamped=0)
+        assert s.state.dtype == F64
+        states[name] = s
+    c, c32 = f64_counters(), all_counters()
+    assert not any(c32.values()), f"float32 instances launched: {c32}"
+    for k in ("K1", "K2", "K3", "K5", "K6"):
+        want = F64_STEPS * sum(k in ks for ks in F64_STEP_KERNELS.values())
+        assert c[f"{k} f64"] == want, (k, c)
+        results[f"{k} f64"]["launches"] += c[f"{k} f64"]
+    log("float64", f"main path, {F64_STEPS} eager steps of each model at "
+                   f"{n}^2: launches {c}")
+    graphs = {}
+    for name, m in models.items():
+        g = m.step_n_quiet(m.init_state(), F64_STEPS)
+        assert_state_bitwise(f"float64 {name} graphed vs eager", g,
+                             states[name])
+        want = {KERNEL_KEYS[f"{k} f64"]: 2 for k in F64_STEP_KERNELS[name]}
+        reset_counters()
+        reset_f64_counters()
+        stats, got = trace_window(lambda: m.step_n_quiet(g, 2), 2, want)
+        assert not any(f64_counters().values()), "the host launched kernels"
+        for k in F64_STEP_KERNELS[name]:
+            r = results[f"{k} f64"]
+            r["graph_launches"] = r.get("graph_launches", 0) + 2
+            r["launches"] += 2
+        graphs[name] = dict(idle_share=stats["idle_share"],
+                            device_ops_per_step=stats["device_ops_per_step"])
+    log("float64", f"graphed steps bit for bit the eager ones; replays by "
+                   f"trace {graphs}")
+
+    # (c) each double instance on the main path's states
+    consts, flags = f64_consts(), TermFlags()
+    flag, default = models["flagship fused"], models["default"]
+    sf, sd = states["flagship fused"], states["default"]
+    P, Q = sf.particles, sd.particles
+    adv_f = P.on & flag.active_mask
+    adv_d = Q.on & default.active_mask
+    cf = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    cd = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    gf, gd = flag.grid, default.grid
+    e_fix, _, _ = f64_k1_check(
+        f"K1 f64 flagship {n}^2 state fixed", flag.winds, consts, flags,
+        dataclasses.replace(flag.solver, adaptive=False), cf, P.t,
+        torch.full_like(P.dt, 37.5), adv_f, gf, flag.uniform_proj)
+    _, kf, pf = f64_k1_check(
+        f"K1 f64 flagship {n}^2 state adaptive", flag.winds, consts, flags,
+        flag.solver, cf, P.t, P.dt, adv_f, gf, flag.uniform_proj)
+    e_fix_d, _, _ = f64_k1_check(
+        f"K1 f64 default {n}^2 state fixed", default.winds, consts, flags,
+        dataclasses.replace(default.solver, adaptive=False), cd, Q.t,
+        torch.full_like(Q.dt, 37.5), adv_d, gd, default.uniform_proj)
+    _, kd, pd = f64_k1_check(
+        f"K1 f64 default {n}^2 state adaptive", default.winds, consts, flags,
+        default.solver, cd, Q.t, Q.dt, adv_d, gd, default.uniform_proj)
+    err["K1"] = max(err["K1"], e_fix, e_fix_d)
+    reset = half_reset_mask((n, n), dev, seed=17)
+    err["K3"] = max(err["K3"], f64_k3_check(
+        f"K3 f64 default {n}^2 state", default.winds, consts, flags, cd,
+        Q.t, Q.dt, reset, gd, default.uniform_proj))
+    halo_f = flag.config.halo
+    chf = TR.particle_to_node(kf.lne, kf.cgx, kf.cgy)
+    chd = TR.particle_to_node(kd.lne, kd.cgx, kd.cgy)
+    err["K2"] = max(err["K2"], f64_k2_check(
+        f"K2 f64 flagship {n}^2 halo {halo_f}", kf.x, kf.y, chf, adv_f,
+        gf.stats, halo_f), f64_k2_check(
+        f"K2 f64 default {n}^2 halo 3", kd.x, kd.y, chd, adv_d, gd.stats, 3))
+    err["K4"] = max(err["K4"], f64_k4_check(
+        f"K4 f64 flagship {n}^2", kf.x, kf.y, chf, adv_f, halo_f))
+    node, _ = pic_gather(kf.x, kf.y, chf, adv_f, gf.stats, halo_f)
+    core = (kf.lne, kf.cgx, kf.cgy, kf.x, kf.y, kf.dt, P.on,
+            flag.active_mask, flag.boundary_mask, gf.x, gf.y, sf.time)
+    e5, e6 = f64_k5_k6_check(f"f64 flagship {n}^2 state", flag, node, core,
+                             halo=halo_f)
+    err["K5"], err["K6"] = max(err["K5"], e5), max(err["K6"], e6)
+    for k, e in err.items():
+        results[f"{k} f64"]["max_abs_err"] = e
+
+    # timing: each double instance in turns with its float32 instance on
+    # the same values cast to float32
+    f32 = {name: m for name, m in zip(
+        ("flagship fused", "default"),
+        (flagship_model(n, dev, remesh_mode="fused"), default_model(n, dev)))}
+    flag32, def32 = f32["flagship fused"], f32["default"]
+
+    def down(xs):
+        return tuple(x.float().contiguous() if x.is_floating_point() else x
+                     for x in xs)
+
+    cf32, cd32 = down(cf), down(cd)
+    Pt32, Pdt32, Qt32, Qdt32 = down((P.t, P.dt, Q.t, Q.dt))
+    f64_row(results, "K1",
+            lambda: advance_cuda(flag32.winds, flag32.consts, flags,
+                                 flag32.solver, DT, cf32, Pt32, Pdt32, adv_f,
+                                 flag32.grid.x, flag32.grid.y,
+                                 flag32.uniform_proj),
+            lambda: advance_cuda(flag.winds, consts, flags, flag.solver, DT,
+                                 cf, P.t, P.dt, adv_f, gf.x, gf.y,
+                                 flag.uniform_proj),
+            lambda: integrate_to(flag.rhs, torch.stack(cf, dim=-1), P.t,
+                                 P.t + DT, P.dt, flag.aux, adv_f,
+                                 flag.solver),
+            k1_bound(n * n, flag.solver.method, True, adv_f,
+                     pf.naccept + pf.nreject, real=8))
+    results["K1 f64"]["default_state"] = dict(zip(
+        ("f32_ms", "ms"), f64_turns(
+            lambda: advance_cuda(def32.winds, def32.consts, flags,
+                                 def32.solver, DT, cd32, Qt32, Qdt32, adv_d,
+                                 def32.grid.x, def32.grid.y,
+                                 def32.uniform_proj),
+            lambda: advance_cuda(default.winds, consts, flags,
+                                 default.solver, DT, cd, Q.t, Q.dt, adv_d,
+                                 gd.x, gd.y, default.uniform_proj), 5)))
+    results["K1 f64"]["default_state"].update(k1_bound(
+        n * n, default.solver.method, True, adv_d, pd.naccept + pd.nreject,
+        real=8), plain_ms=cuda_time_ms(
+            lambda: integrate_to(default.rhs, torch.stack(cd, dim=-1), Q.t,
+                                 Q.t + DT, Q.dt, default.aux, adv_d,
+                                 default.solver), 1))
+    log("kernel-time", f"K1 f64 default state: "
+                       f"{results['K1 f64']['default_state']}")
+    chd32 = down(chd)
+    kdx32, kdy32 = down((kd.x, kd.y))
+    f64_row(results, "K2",
+            lambda: pic_gather(kdx32, kdy32, chd32, adv_d, gd.stats, 3),
+            lambda: pic_gather(kd.x, kd.y, chd, adv_d, gd.stats, 3),
+            lambda: scatter_dense(kd.x, kd.y, torch.stack(chd, dim=-1),
+                                  adv_d, gd.stats, 3),
+            deposit_bound(n * n, n * n, 3, real=8), reps=20, plain_reps=3)
+    f64_row(results, "K3",
+            lambda: auto_dt_cuda(def32.winds, def32.consts, flags, Qt32,
+                                 cd32, def32.grid.x, def32.grid.y,
+                                 def32.uniform_proj, reset, Qdt32, 1e-4, DT),
+            lambda: auto_dt_cuda(default.winds, consts, flags, Q.t, cd,
+                                 gd.x, gd.y, default.uniform_proj, reset,
+                                 Q.dt, 1e-4, DT),
+            lambda: auto_dt_reset(default.rhs, Q.t, torch.stack(cd, dim=-1),
+                                  default.aux, reset, Q.dt, 1e-4, DT),
+            k3_bound(reset, kernel_wind(default.winds), real=8), reps=20,
+            plain_reps=3)
+    chf32 = down(chf)
+    kfx32, kfy32 = down((kf.x, kf.y))
+    (xl, xh), (yl, yh) = normalize_halo(halo_f)
+    f64_row(results, "K4",
+            lambda: pic_gather_padded(kfx32, kfy32, chf32, adv_f, halo_f),
+            lambda: pic_gather_padded(kf.x, kf.y, chf, adv_f, halo_f),
+            lambda: scatter_accumulate_padded(kf.x, kf.y,
+                                              torch.stack(chf, dim=-1), adv_f,
+                                              halo_f),
+            deposit_bound(n * n, (n + xl + xh) * (n + yl + yh), halo_f,
+                          real=8), reps=20, plain_reps=3)
+    node32 = down(node)
+    core32 = down(core[:6]) + core[6:9] + down(core[9:])
+    k5 = remesh_cuda(flag.remesh_params, node, *core)
+    f64_row(results, "K5",
+            lambda: remesh_cuda(flag32.remesh_params, node32, *core32),
+            lambda: remesh_cuda(flag.remesh_params, node, *core),
+            lambda: remesh_core(flag.remesh_params, node, *core),
+            remesh_bound(n * n, branch=k5.branch, real=8), reps=20,
+            plain_reps=3)
+    sact = (P.on & flag.active_mask).contiguous()
+
+    def k6(m, c, ch, cr):
+        return pic_gather_remesh(c[3], c[4], ch, sact, m.grid.stats, halo_f,
+                                 m.remesh_params, *cr)
+
+    def k6_plain():
+        S, _ = scatter_dense(kf.x, kf.y, torch.stack(chf, dim=-1), sact,
+                             gf.stats, halo_f)
+        return remesh_core(flag.remesh_params,
+                           tuple(S[..., i] for i in range(3)), *core)
+
+    f64_row(results, "K6", lambda: k6(flag32, core32, chf32, core32),
+            lambda: k6(flag, core, chf, core), k6_plain,
+            deposit_bound(n * n, n * n, halo_f, remesh=True,
+                          branch=k5.branch, real=8), reps=20, plain_reps=3)
+
+    # (d) the graphed steps, float64 against float32 in turns
+    steps = {}
+    for name in ("flagship fused", "default"):
+        m64, m32 = models[name], f32[name]
+        s64, s32 = states[name], m32.step_n_quiet(m32.init_state(), 3)
+        runs = {"float32": [], "float64": []}
+        for rep in range(4):
+            for who in (("float32", "float64") if rep % 2 == 0
+                        else ("float64", "float32")):
+                if who == "float64":
+                    s64, t = time_steps(m64, s64, 10)
+                else:
+                    s32, t = time_steps(m32, s32, 10)
+                runs[who].append(t)
+        check_state(f"float64 {name} timed", s64, n_failed=0, n_clamped=0)
+        steps[name] = {k: float(np.median(v)) for k, v in runs.items()}
+        steps[name]["turns"] = runs
+        m32.release_graph()
+        log("float64", f"{name} {n}^2 graphed: float64 "
+                       f"{steps[name]['float64']:.4f} ms/step, float32 "
+                       f"{steps[name]['float32']:.4f} (medians of 4 x 10 "
+                       f"steps in turns, CUDA events)")
+    for m in models.values():
+        m.release_graph()
+    del f32, flag32, def32
+    torch.cuda.empty_cache()
+    timing["float64_gather_budget"] = f64_budget_sweep(
+        kd.x, kd.y, chd, adv_d, gd.stats, (((0, 3), (0, 3)), 3))
+    timing["float64_graphed_ms_per_step"] = steps
+    timing["float64_replays"] = graphs
+    timing["float64_card_vs_cpu"] = f64_card_vs_cpu(dev)
+    timing["float64_phase_seconds"] = time.perf_counter() - t_phase
+    log("float64", f"done in {timing['float64_phase_seconds']:.1f} s")
+
+
+def phase_float64_child(path: str) -> None:
+    """``phase_float64`` in a process of its own (the script with
+    ``--float64-child``, ``phase_float64_process``): its profiler sessions
+    (the replays' traces, the deposit rows' kernel times) then add to no
+    count of the main process's, where late in a process a trace loses
+    launches.  Writes the double instances' rows, the timing and any short
+    traces to ``path``."""
+    dev = torch.device("cuda", 0)
+    results = {f"{k} f64": dict(launches=0) for k in F64_REPLACES}
+    timing = {}
+    phase_float64(dev, results, timing)
+    with open(path, "w") as f:
+        json.dump(dict(results=results, timing=timing,
+                       short_traces=SHORT_TRACES), f)
+
+
+def phase_float64_process(results, timing) -> None:
+    """``phase_float64_child`` in a process of its own, started after the
+    build and waited for; its rows (launches added) and timing merged into
+    ``results`` and ``timing``.  Raises if the process fails."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)   # git-ignored
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        path = os.path.join(tmp, "float64.json")
+        code = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--float64-child", path]).returncode
+        if code != 0:
+            raise RuntimeError(f"the float64 phase's process exited with "
+                               f"{code}")
+        with open(path) as f:
+            out = json.load(f)
+    for key, row in out["results"].items():
+        results[key]["launches"] += row.pop("launches")
+        results[key].update(row)
+    timing.update(out["timing"])
+    for key, short in out["short_traces"].items():
+        SHORT_TRACES.setdefault(key, []).extend(short)
+
+
+def phase_sharded_f64(dev, results) -> None:
+    """The float64 "pallas" flagship through ``ShardedWaveGrowth2D`` on the
+    (1, 1) NCCL mesh (inside phase "sharded-1x1"'s process group): K1, K4
+    (the padded deposit's double instance) and K5, 3 eager steps, the
+    counters set to 0 just before and read just after, against the float64
+    single-device step at ``assert_states``' bound; the graphed sharded
+    step bit for bit its eager steps."""
+    n = FLAG_N
+    model = flagship_model(n, dev, dtype=F64, remesh_mode="pallas")
+    ref = eager_steps(model, model.init_state(), 3)
+    sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+    assert sh.graphed
+    reset_counters()
+    reset_f64_counters()
+    ms = eager_steps(sh, sh.init_state(), 3)
+    c, c32 = f64_counters(), all_counters()
+    assert not any(c32.values()), c32
+    assert c["K1 f64"] == c["K4 f64"] == c["K5 f64"] == 3, c
+    assert c["K2 f64"] == c["K6 f64"] == c["K3 f64"] == 0, c
+    for k in ("K1", "K4", "K5"):
+        results[f"{k} f64"]["launches"] += c[f"{k} f64"]
+    err = assert_states("sharded 1x1 float64 vs single device, 3 steps", ms,
+                        ref)
+    g = sh.step_n_quiet(sh.init_state(), 3)
+    assert_state_bitwise("sharded 1x1 float64 graphed vs eager", g, ms)
+    check_state("sharded 1x1 float64", ms, n_failed=0, n_clamped=0)
+    sh.release_graph()
+    model.release_graph()
+    log("sharded-1x1", f"float64: 3 eager steps (K1 {c['K1 f64']}, K4 "
+                       f"{c['K4 f64']}, K5 {c['K5 f64']} launches) vs the "
+                       f"single device max abs err {err:.3e}; the graphed "
+                       f"step bit for bit")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
@@ -8225,6 +9222,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # phase_profile's process
     ap.add_argument("--trace-1d-child", metavar="JSON",
                     help=argparse.SUPPRESS)   # phase_1d_traces' process
+    ap.add_argument("--float64-child", metavar="JSON",
+                    help=argparse.SUPPRESS)   # phase_float64's process
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -8245,6 +9244,9 @@ def main(argv=None) -> int:
         return 0
     if args.trace_1d_child:
         phase_1d_traces(args.trace_1d_child)
+        return 0
+    if args.float64_child:
+        phase_float64_child(args.float64_child)
         return 0
     t_start = time.perf_counter()
 
@@ -8312,8 +9314,15 @@ def main(argv=None) -> int:
         results[f"{k} layered"] = dict(
             results[k], name=results[k]["name"] + "_layered", simple_ms=None,
             launches=0)
+    # the double instances: the same templates in float64, a library of
+    # their own
+    for k, rep in F64_REPLACES.items():
+        results[f"{k} f64"] = dict(results[k], name=results[k]["name"] +
+                                   "_f64", replaces=rep, simple_ms=None,
+                                   launches=0)
     timing = {}
     traces_1d = phase_1d_traces_process()
+    phase_float64_process(results, timing)
     if args.profile:
         phase_profile_process(args.profile)
     phase_k1(dev, results)
@@ -8372,8 +9381,8 @@ def main(argv=None) -> int:
                          *PROJ_REPLACES,
                          *(f"{k} layered" for k in LAYER_KERNELS),
                          *NODE_REPLACES, "K7", *TRACED_REPLACES,
-                         "K7 traced")]
-    assert len(kernels) == 30
+                         "K7 traced", *(f"{k} f64" for k in F64_REPLACES))]
+    assert len(kernels) == 36
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

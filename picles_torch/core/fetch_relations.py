@@ -4,10 +4,13 @@ Counterpart of ``picles_tpu/core/fetch_relations.py``: the
 non-dimensionalizations, the Dulov time/fetch law, the static fetch laws,
 the windsea seeds (JONSWAP or Pierson-Moskowitz), and the JONSWAP and PM
 helpers with the JAX package's documented fixes of the Julia source.
-Everything is elementwise and computed in float32, as the JAX package computes it (``jnp.result_type(float)`` with
-x64 off): Python inputs and float64 arrays are cast to float32 first, and
-the constants enter as Python scalars, which PyTorch rounds to float32.
-A tensor input keeps its device, so the model's reseeds stay on the card.
+Everything is elementwise, in the dtype the JAX package computes it in
+(``jnp.result_type(float)``): float32, as with x64 off, unless a tensor
+input is float64 or the caller passes ``dtype=torch.float64``, as a float64
+JAX model runs with x64 on.  Python numbers and arrays are cast to that
+dtype first, and the constants enter as Python scalars, which PyTorch
+rounds to it.  A tensor input keeps its device, so the model's reseeds
+stay on the card.
 """
 
 from __future__ import annotations
@@ -27,13 +30,27 @@ DULOV_XI_0X = 2.4097
 U_MIN = 1.0
 
 
-def _f32(x, device=None) -> torch.Tensor:
+def _dtype(dtype, *xs) -> torch.dtype:
+    """``dtype`` where given, else float64 where a tensor input is float64,
+    else float32."""
+    if dtype is not None:
+        return dtype
+    wide = any(isinstance(x, torch.Tensor) and x.dtype == torch.float64
+               for x in xs)
+    return torch.float64 if wide else torch.float32
+
+
+def _real(x, dtype, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(torch.float32)
+        return x.to(dtype)
     if isinstance(x, (int, float)):
         # a fill, not a copy from the host (which a CUDA graph cannot hold)
-        return torch.full((), float(x), dtype=torch.float32, device=device)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+        return torch.full((), float(x), dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return _real(x, torch.float32, device)
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +114,9 @@ def E_JONSWAP(f_m, alpha_j_):
 # static fetch laws
 # ---------------------------------------------------------------------------
 
-def min_fetch(X_tilde_, X_t_0: float = 2.2e4):
-    return torch.clamp(_f32(X_tilde_) / X_t_0, max=1.0)
+def min_fetch(X_tilde_, X_t_0: float = 2.2e4, *, dtype=None):
+    return torch.clamp(_real(X_tilde_, _dtype(dtype, X_tilde_)) / X_t_0,
+                       max=1.0)
 
 
 def c_p_fetch(X_tilde_, U10, X_t_0: float = 2.2e4):
@@ -117,11 +135,12 @@ def E_fetch_tilde(X_tilde_, X_t_0: float = 2.2e4):
     return 4.23e-3 * min_fetch(X_tilde_, X_t_0)
 
 
-def X_tilde_time_and_fetch(t, U10, X):
+def X_tilde_time_and_fetch(t, U10, X, *, dtype=None):
     """Duration- or fetch-limited non-dimensional fetch (Python numbers in,
-a float32 tensor out)."""
-    Tt = _f32(t_tilde(t, U10))
-    Xt = _f32(X_tilde(X, U10), Tt.device)
+a tensor of ``dtype``, float32 by default, out)."""
+    dtype = _dtype(dtype, t, U10, X)
+    Tt = _real(t_tilde(t, U10), dtype)
+    Xt = _real(X_tilde(X, U10), dtype, Tt.device)
     return torch.where(Tt < 1e5, torch.minimum(Xt, X_tilde_from_tau(Tt)), Xt)
 
 
@@ -143,17 +162,18 @@ class WindSea(NamedTuple):
     m_y: torch.Tensor
 
 
-def get_initial_windsea(U10, V10, time_scale,
-                        type: str = "JONSWAP") -> WindSea:
+def get_initial_windsea(U10, V10, time_scale, type: str = "JONSWAP", *,
+                        dtype=None) -> WindSea:
     """Initial windsea from wind components and a duration scale; the wind
     speed is floored at 0.1 m/s.  ``type`` selects the JONSWAP or the
-    Pierson-Moskowitz ("PM") seed."""
-    U10 = _f32(U10)
-    V10 = _f32(V10, U10.device)
+    Pierson-Moskowitz ("PM") seed.  ``dtype``: as the module says."""
+    dtype = _dtype(dtype, U10, V10, time_scale)
+    U10 = _real(U10, dtype)
+    V10 = _real(V10, dtype, U10.device)
     U_amp = torch.sqrt(U10 * U10 + V10 * V10)
     U_amp = torch.where(U_amp < 0.1, 0.1, U_amp)
 
-    time_scale = torch.abs(_f32(time_scale, U10.device))
+    time_scale = torch.abs(_real(time_scale, dtype, U10.device))
     tau = G_GRAVITY * time_scale / U_amp
 
     X_tilde_ = X_tilde_from_tau(tau)
@@ -185,58 +205,66 @@ def get_initial_windsea(U10, V10, time_scale,
 
 
 def get_initial_windsea_particle_state(U10, V10, time_scale,
-                                       type: str = "JONSWAP"):
+                                       type: str = "JONSWAP", *, dtype=None):
     """[lne, cg_x, cg_y, 0, 0] of the initial windsea, stacked along a
     trailing axis."""
-    ws = get_initial_windsea(U10, V10, time_scale, type)
+    ws = get_initial_windsea(U10, V10, time_scale, type, dtype=dtype)
     zero = torch.zeros_like(ws.lne)
     return torch.stack([ws.lne, ws.cg_bar_x, ws.cg_bar_y, zero, zero], dim=-1)
 
 
 def _nonzero_sign(x):
     """sign(x) but +1 at x == 0 (the JAX package's deterministic stand-in
-    for the Julia source's random sign)."""
-    return torch.where(x < 0, -1.0, 1.0)
+    for the Julia source's random sign), in x's dtype."""
+    return torch.where(x < 0, -1.0, 1.0).to(x.dtype)
 
 
-def MinimalWindsea(U10, V10, time_scale, type: str = "JONSWAP") -> WindSea:
+def MinimalWindsea(U10, V10, time_scale, type: str = "JONSWAP", *,
+                   dtype=None) -> WindSea:
     """Windsea of a |U| = 1 m/s wind in the direction of (U10, V10)."""
-    U10 = _f32(U10)
-    V10 = _f32(V10, U10.device)
+    dtype = _dtype(dtype, U10, V10, time_scale)
+    U10 = _real(U10, dtype)
+    V10 = _real(V10, dtype, U10.device)
     U10 = torch.where(U10 == 0, _nonzero_sign(U10), U10)
     V10 = torch.where(V10 == 0, _nonzero_sign(V10), V10)
     Uamp = torch.sqrt(U10 * U10 + V10 * V10)
     return get_initial_windsea(U_MIN * U10 / Uamp, U_MIN * V10 / Uamp,
-                               time_scale, type)
+                               time_scale, type, dtype=dtype)
 
 
-def MinimalParticle(U10, V10, time_scale, type: str = "JONSWAP"):
+def MinimalParticle(U10, V10, time_scale, type: str = "JONSWAP", *,
+                    dtype=None):
     """[lne, cg_x, cg_y, 0, 0] of the minimal windsea."""
-    ws = MinimalWindsea(U10, V10, time_scale, type)
+    ws = MinimalWindsea(U10, V10, time_scale, type, dtype=dtype)
     zero = torch.zeros_like(ws.lne)
     return torch.stack([ws.lne, ws.cg_bar_x, ws.cg_bar_y, zero, zero], dim=-1)
 
 
-def MinimalState(U10, V10, time_scale, type: str = "JONSWAP"):
+def MinimalState(U10, V10, time_scale, type: str = "JONSWAP", *,
+                 dtype=None):
     """[minimal energy, minimal momentum^2] of the minimal windsea."""
-    ws = MinimalWindsea(U10, V10, time_scale, type)
+    ws = MinimalWindsea(U10, V10, time_scale, type, dtype=dtype)
     return torch.stack([ws.E, ws.m_x * ws.m_x + ws.m_y * ws.m_y], dim=-1)
 
 
-def get_initial_windsea_1d(U10, time_scale,
-                           type: str = "JONSWAP") -> WindSea:
+def get_initial_windsea_1d(U10, time_scale, type: str = "JONSWAP", *,
+                           dtype=None) -> WindSea:
     """The 1D windsea of a signed wind ``U10`` along x: ``get_initial_windsea
     (U10, 0, time_scale)``, so ``cg_bar_x`` and ``m_x`` carry U10's sign and
     ``cg_bar_y = m_y = 0``."""
-    U10 = _f32(U10)
-    return get_initial_windsea(U10, torch.zeros_like(U10), time_scale, type)
+    dtype = _dtype(dtype, U10, time_scale)
+    U10 = _real(U10, dtype)
+    return get_initial_windsea(U10, torch.zeros_like(U10), time_scale, type,
+                               dtype=dtype)
 
 
-def MinimalWindsea_1d(U10, time_scale, type: str = "JONSWAP") -> WindSea:
+def MinimalWindsea_1d(U10, time_scale, type: str = "JONSWAP", *,
+                      dtype=None) -> WindSea:
     """The 1D windsea of a 1 m/s wind with U10's sign (+1 where U10 is 0)."""
-    U10 = _f32(U10)
+    dtype = _dtype(dtype, U10, time_scale)
+    U10 = _real(U10, dtype)
     return get_initial_windsea_1d(_nonzero_sign(U10) * U_MIN, time_scale,
-                                  type)
+                                  type, dtype=dtype)
 
 
 def PMParameters(U10):
@@ -310,29 +338,31 @@ def E_j(U10, tau):
     return E_JONSWAP(f_max, alpha_j(U10, f_max))
 
 
-def JONSWAP_omega(U10, omega_p, omega):
+def JONSWAP_omega(U10, omega_p, omega, *, dtype=None):
     """JONSWAP spectral density S(omega) with the 3.3^Gamma peak
     enhancement; ``alpha_j`` takes the peak in Hz, omega_p / 2 pi (the
     Julia source reads an undefined global U and passes omega_p)."""
-    omega = _f32(omega)
+    omega = _real(omega, _dtype(dtype, U10, omega_p, omega))
     a_j = alpha_j(U10, omega_p / (2.0 * math.pi))
     S = (2.0 * math.pi * a_j * G_GRAVITY ** 2) / omega ** 5 \
         * torch.exp(-(5.0 / 4.0) * (omega_p / omega) ** 4)
-    sigma = torch.where(omega > omega_p, 0.09, 0.07)
+    sigma = torch.where(omega > omega_p, 0.09, 0.07).to(omega.dtype)
     Gamma_j = torch.exp(-(omega - omega_p) ** 2
                         / (2.0 * sigma ** 2 * omega_p ** 2))
     return S * 3.3 ** Gamma_j
 
 
-def JONSWAP_frequency(U10, f_p, freq):
+def JONSWAP_frequency(U10, f_p, freq, *, dtype=None):
     """JONSWAP spectral density over frequency (Hz)."""
+    dtype = _dtype(dtype, U10, f_p, freq)
     return JONSWAP_omega(U10, 2.0 * math.pi * f_p,
-                         2.0 * math.pi * _f32(freq)) * 2.0 * math.pi
+                         2.0 * math.pi * _real(freq, dtype),
+                         dtype=dtype) * 2.0 * math.pi
 
 
-def PMSpectrum(U10, f):
+def PMSpectrum(U10, f, *, dtype=None):
     """Pierson-Moskowitz spectrum S(f) (Massel eq. 3.79-3.80)."""
-    f = _f32(f)
+    f = _real(f, _dtype(dtype, U10, f))
     wp = 0.879 * G_GRAVITY / U10
     w = 2.0 * math.pi * f
     sigma = 0.04 * G_GRAVITY / wp ** 2

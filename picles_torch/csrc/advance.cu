@@ -93,14 +93,26 @@
 // `auto_dt_simple_kernel`, the baseline that, followed by PyTorch's clamp and
 // select, the new kernel equals bit for bit.
 
-// Numerics follow the plain version op for op in float32 (see rhs.cuh).
-// Two literals of the JAX package are float32 identities and appear here as
-// such: `dtmin_eff * (1.0 + 1e-8)` is `dtmin_eff`, and `t_end - 1e-9` is
-// `t_end - 1e-9f`.  The build disables FMA contraction (-fmad=false) so a
-// product-then-sum rounds twice, as it does in the plain version.
+// Numerics follow the plain version op for op in the lanes' scalar type
+// (see rhs.cuh): float32 in the kernels' own library, float64 in the float64
+// library (PICLES_F64), whose instances are these same templates with T =
+// double.  `dtmin_eff * (1.0 + 1e-8)` and `t_end - 1e-9` are written as the
+// JAX package writes them (embedded_rk.cuh).  The build disables FMA
+// contraction (-fmad=false) so a product-then-sum rounds twice, as it does
+// in the plain version.
+//
+// The double instances: the same arithmetic with every lane value, packed
+// parameter and literal a double, the wind planes (gridded, node) read as
+// float32 and widened, and the projection planes, the node x and the clock
+// read as doubles, as JAX's float64 kernel has them.  A lane holds twice
+// the registers, so their launch bounds ask fewer blocks an SM
+// (`K1_MIN_BLOCKS`, `K3_MIN_BLOCKS`); the `_simple` baselines have no
+// double instance.
 
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "embedded_rk.cuh"
 #include "rhs.cuh"
@@ -116,28 +128,32 @@ struct Tableau {
   float bt[7];
 };
 
+template <class T>
 struct AdvanceConfig {
-  RHSParams rc;
-  WindParams wind;
+  RHSParams<T> rc;
+  WindParams<T> wind;
   Tableau tab;  // read by the `_simple` baseline only
-  float DT, abstol, reltol, dtmin, neg_inv_order;
+  T DT, abstol, reltol, dtmin, neg_inv_order;
   int maxiters;
   int force_dtmin;
 };
 
+template <class T>
 struct AutoDtConfig {
-  RHSParams rc;
-  WindParams wind;
-  float abstol, reltol, inv_order_p1, max_dt;
-  float dtmin, DT;  // the reset's clamp (not read by the `_simple` baseline)
+  RHSParams<T> rc;
+  WindParams<T> wind;
+  T abstol, reltol, inv_order_p1, max_dt;
+  T dtmin, DT;  // the reset's clamp (not read by the `_simple` baseline)
 };
 
-// Packed parameter layout, shared with picles_torch/ops/advance_cuda.py.
+// Packed parameter layout, shared with picles_torch/ops/advance_cuda.py, of
+// T each (float32 or float64 by the library).
 // floats: RHS (14) | wind (7) | ...;  ints: flags | wind kind | has_t_off | ...
 constexpr int N_RHS_F = 14;
 
-static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
-                            WindParams& w) {
+template <class T>
+static void unpack_rhs_wind(const T* f, const int* iv, RHSParams<T>& rc,
+                            WindParams<T>& w) {
   rc.r_g = f[0]; rc.C_alpha = f[1]; rc.C_e = f[2]; rc.C_varphi = f[3];
   rc.g = f[4]; rc.p = f[5]; rc.n = f[6]; rc.e_T = f[7]; rc.rg2 = f[8];
   rc.m00 = f[9]; rc.m01 = f[10]; rc.m10 = f[11]; rc.m11 = f[12];
@@ -146,43 +162,52 @@ static void unpack_rhs_wind(const float* f, const int* iv, RHSParams& rc,
   unpack_wind(f + N_RHS_F, iv + 1, w);
 }
 
-// K1's launch shape: 128 threads a block, and the blocks an SM must hold:
-// 6 (at most 85 registers), as the baseline's registers allowed, but 5 for
-// adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).  A gridded
-// lane holds its plane values too: ptxas gives the bosh3 instances 78 and
-// 80 registers (6 blocks still), tsit5's 96 (5 blocks, at most 102) and
-// adaptive tsit5's 107 (4 blocks, at most 128), none spilling; the
-// projection's run-time choice costs 0-4 registers an instance.
+// K1's launch shape: 128 threads a block, and the blocks an SM must hold.
+// float: 6 (at most 85 registers), as the baseline's registers allowed, but
+// 5 for adaptive tsit5, which spills at 85 (ptxas, root PERF.md §6).  A
+// gridded lane holds its plane values too: ptxas gives the bosh3 instances
+// 78 and 80 registers (6 blocks still), tsit5's 96 (5 blocks, at most 102)
+// and adaptive tsit5's 107 (4 blocks, at most 128), none spilling; the
+// projection's run-time choice costs 0-4 registers an instance.  double: a
+// lane's state, stages and controller take twice the registers: bosh3 4
+// blocks (at most 128), 3 gridded; tsit5 3 (at most 168), 2 adaptive or
+// gridded (at most 255).  ptxas gives bosh3 126 and 128 (adaptive, which
+// spills 4 bytes), gridded 136 and 152; tsit5 162 and 182, gridded 172
+// and 190 (chip_smoke.py phase "build" prints them, root PERF.md §6).
 constexpr int K1_THREADS = 128;
-template <class M, bool ADAPTIVE, bool GRIDDED>
+template <class T, class M, bool ADAPTIVE, bool GRIDDED>
 constexpr int K1_MIN_BLOCKS =
-    M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED || TRACED_LIB ? 1 : 0);
+    std::is_same<T, float>::value
+        ? (M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED || TRACED_LIB ? 1 : 0))
+        : (M::S != 6 ? (GRIDDED ? 3 : 4) : (ADAPTIVE || GRIDDED ? 2 : 3));
 
 // The state of one particle in flight: the embedded-RK lane of its 5
 // components (embedded_rk.cuh) and its wind.
-template <int S>
-struct Lane : RKLane<5, S> {
-  float xn;
-  float yn;        // the node y (a traced wind's lanes)
-  WindTerms w0;    // the wind's terms at the start, for winds constant in t
-  GriddedWind g;   // a gridded wind's values at the node (gridded instances)
+template <class T, int S>
+struct Lane : RKLane<T, 5, S> {
+  T xn;
+  T yn;              // the node y (a traced wind's lanes)
+  WindTerms<T> w0;   // the wind's terms at the start, for winds constant in t
+  GriddedWind<T> g;  // a gridded wind's values at the node (gridded instances)
 };
 
+template <class T>
 struct AdvancePlanes {
-  const float *lne, *cgx, *cgy, *x, *y, *t, *dt;
+  const T *lne, *cgx, *cgy, *x, *y, *t, *dt;
   const unsigned char* act;
-  const float* xn;
-  float *lne_o, *cgx_o, *cgy_o, *x_o, *y_o, *t_o, *dt_o;
+  const T* xn;
+  T *lne_o, *cgx_o, *cgy_o, *x_o, *y_o, *t_o, *dt_o;
   unsigned char* fail_o;
   int* nacc_o;
-  const float* proj;  // per-node m00, m01, m10, m11, pc planes, or null
+  const T* proj;  // per-node m00, m01, m10, m11, pc planes, or null
 };
 
 // Node i's projection from the per-node planes (m00, m01, m10, m11, pc, one
-// after the other n floats apart) into a lane's copy of the RHS constants.
-__device__ __forceinline__ void load_projection(RHSParams& rc,
-                                                const float* proj,
-                                                long long n, long long i) {
+// after the other n values apart) into a lane's copy of the RHS constants.
+template <class T>
+__device__ __forceinline__ void load_projection(RHSParams<T>& rc,
+                                                const T* proj, long long n,
+                                                long long i) {
   rc.m00 = proj[i];
   rc.m01 = proj[n + i];
   rc.m10 = proj[2 * n + i];
@@ -192,29 +217,29 @@ __device__ __forceinline__ void load_projection(RHSParams& rc,
 
 // The wind's terms of lane L at time t: the traced wind at its node, or
 // from its gridded planes, or from the analytic wind at its node.
-template <bool GRIDDED, int S>
-__device__ __forceinline__ WindTerms lane_terms(const AdvanceConfig& cfg,
-                                                const Lane<S>& L, float t) {
-  return TRACED_LIB ? traced_terms(L.xn, L.yn, t)
-         : GRIDDED  ? gridded_terms(L.g, t)
-                    : wind_terms_at(cfg.wind, L.xn, t);
+template <bool GRIDDED, class T, int S>
+__device__ __forceinline__ WindTerms<T> lane_terms(const AdvanceConfig<T>& cfg,
+                                                   const Lane<T, S>& L, T t) {
+  if constexpr (TRACED_LIB) return traced_terms(L.xn, L.yn, t);
+  else if constexpr (GRIDDED) return gridded_terms(L.g, t);
+  else return wind_terms_at(cfg.wind, L.xn, t);
 }
 
 // Load lane k, the particle of node i (of n) in its layer, its node's
 // projection where the launch has per-node planes, and evaluate its first
 // stage (the FSAL vector).
-template <int S, bool GRIDDED>
-__device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
-                                          RHSParams& rc,
-                                          const AdvancePlanes& P, long long n,
-                                          long long i, long long k,
-                                          Lane<S>& L) {
+template <class T, int S, bool GRIDDED>
+__device__ __forceinline__ void load_lane(const AdvanceConfig<T>& cfg,
+                                          RHSParams<T>& rc,
+                                          const AdvancePlanes<T>& P,
+                                          long long n, long long i,
+                                          long long k, Lane<T, S>& L) {
   L.z[0] = P.lne[k]; L.z[1] = P.cgx[k]; L.z[2] = P.cgy[k];
   L.z[3] = P.x[k]; L.z[4] = P.y[k];
-  const float t0 = P.t[k];
+  const T t0 = P.t[k];
   L.active = P.act[k] != 0;
-  L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? 0.0f : P.xn[i];
-  L.yn = TRACED_LIB ? cfg.wind.wf[i] : 0.0f;
+  L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? T(0) : P.xn[i];
+  L.yn = TRACED_LIB ? T(cfg.wind.wf[i]) : T(0);
   L.t_end = t0 + cfg.DT;
   L.t = t0;
   L.dt = jmax(P.dt[k], cfg.dtmin);
@@ -235,22 +260,22 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig& cfg,
 // One substep of the per-lane loop (`advance_simple_kernel`'s loop body):
 // embedded_rk.cuh's substep over the 2D RHS, whose wind's terms come from
 // the lane's start where they do not vary in t (`t_free`).
-template <class M, bool ADAPTIVE, bool GRIDDED>
-__device__ __forceinline__ void substep(const AdvanceConfig& cfg,
-                                        const RHSParams& rc, bool t_free,
-                                        Lane<M::S>& L) {
-  const RKControl cp{cfg.dtmin, cfg.abstol, cfg.reltol, cfg.neg_inv_order,
-                     cfg.force_dtmin != 0};
-  rk_substep<M, 5, ADAPTIVE>(
-      cp, L, [&](float t, const float* z, float* out) {
-        const WindTerms w = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t);
+template <class M, bool ADAPTIVE, bool GRIDDED, class T>
+__device__ __forceinline__ void substep(const AdvanceConfig<T>& cfg,
+                                        const RHSParams<T>& rc, bool t_free,
+                                        Lane<T, M::S>& L) {
+  const RKControl<T> cp{cfg.dtmin, cfg.abstol, cfg.reltol, cfg.neg_inv_order,
+                        cfg.force_dtmin != 0};
+  rk_substep<M, T, 5, ADAPTIVE>(
+      cp, L, [&](T t, const T* z, T* out) {
+        const WindTerms<T> w = t_free ? L.w0 : lane_terms<GRIDDED>(cfg, L, t);
         rhs_state(rc, z[0], z[1], z[2], w, out);
       });
 }
 
-template <int S>
-__device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
-                                           const Lane<S>& L) {
+template <class T, int S>
+__device__ __forceinline__ void store_lane(const AdvancePlanes<T>& P,
+                                           long long i, const Lane<T, S>& L) {
   const bool failed = rk_failed(L);
   P.lne_o[i] = L.z[0];
   P.cgx_o[i] = L.z[1];
@@ -264,28 +289,30 @@ __device__ __forceinline__ void store_lane(const AdvancePlanes& P, long long i,
 }
 
 // K1: one particle per thread; node i of layer blockIdx.y.
-template <class M, bool ADAPTIVE, bool GRIDDED>
+template <class T, class M, bool ADAPTIVE, bool GRIDDED>
 __global__ void __launch_bounds__(K1_THREADS,
-                                  (K1_MIN_BLOCKS<M, ADAPTIVE, GRIDDED>))
-advance_kernel(const AdvanceConfig cfg, long long n, const AdvancePlanes P) {
+                                  (K1_MIN_BLOCKS<T, M, ADAPTIVE, GRIDDED>))
+advance_kernel(const AdvanceConfig<T> cfg, long long n,
+               const AdvancePlanes<T> P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long k = (long long)blockIdx.y * n + i;
   const bool t_free =
       !TRACED_LIB && !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
-  RHSParams rc = cfg.rc;
-  Lane<M::S> L;
-  load_lane<M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
+  RHSParams<T> rc = cfg.rc;
+  Lane<T, M::S> L;
+  load_lane<T, M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
   while (!L.done && L.iters < cfg.maxiters)
     substep<M, ADAPTIVE, GRIDDED>(cfg, rc, t_free, L);
   store_lane(P, k, L);
 }
 
+#ifdef PICLES_MAIN_LIB
 // The baseline (`_simple`): the previous kernel, one particle per thread,
-// the tableau a run-time parameter.
+// the tableau a run-time parameter; float only.
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>
 __global__ void __launch_bounds__(128)
-advance_simple_kernel(const AdvanceConfig cfg, long long n,
+advance_simple_kernel(const AdvanceConfig<float> cfg, long long n,
                const float* __restrict__ lne_in, const float* __restrict__ cgx_in,
                const float* __restrict__ cgy_in, const float* __restrict__ x_in,
                const float* __restrict__ y_in, const float* __restrict__ t_in,
@@ -399,22 +426,25 @@ advance_simple_kernel(const AdvanceConfig cfg, long long n,
   fail_o[i] = failed ? 1 : 0;
   nacc_o[i] = nacc;
 }
+#endif  // PICLES_MAIN_LIB
 
-__device__ __forceinline__ float rms5(const float v[5], const float sc[5]) {
-  float s = 0.0f;
+template <class T>
+__device__ __forceinline__ T rms5(const T v[5], const T sc[5]) {
+  T s = T(0);
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
-    const float r = v[c] / sc[c];
+    const T r = v[c] / sc[c];
     s = s + r * r;
   }
-  return sqrtf(s / 5.0f);
+  return xsqrt(s / T(5));
 }
 
+template <class T>
 struct AutoDtPlanes {
-  const float *lne, *cgx, *cgy, *x, *y, *t, *xn, *dt;
+  const T *lne, *cgx, *cgy, *x, *y, *t, *xn, *dt;
   const unsigned char* reset;
-  float* out;
-  const float* proj;  // per-node m00, m01, m10, m11, pc planes, or null
+  T* out;
+  const T* proj;  // per-node m00, m01, m10, m11, pc planes, or null
 };
 
 // K3's compiled instances: a wind kind and a term-flag set, or RUNTIME for
@@ -427,17 +457,20 @@ struct AutoDtPlanes {
 constexpr int RUNTIME = -1;
 constexpr int K3_FLAGS = TERM_PROPAGATION | TERM_INPUT | TERM_DISSIPATION |
                          TERM_PEAK_SHIFT | TERM_DIRECTION;
-// K3's launch shape: 128 threads a block and 10 blocks an SM (at most 48
-// registers a thread; ptxas gives the analytic instances 46-48 with the
-// projection's run-time choice, no spills).  K3 issues one instruction a
+// K3's launch shape: 128 threads a block and, in float, 10 blocks an SM (at
+// most 48 registers a thread; ptxas gives the analytic instances 46-48 with
+// the projection's run-time choice, no spills).  K3 issues one instruction a
 // cycle per scheduler already (root PERF.md §6), so more warps in flight
 // would not shorten it.  A gridded lane holds its plane values too, and
 // spilled 64-68 bytes at 48 registers: its instances take 8 blocks (at
-// most 64 registers).
+// most 64 registers).  double: twice the registers, 5 blocks (at most
+// 102; ptxas gives 92-98), 4 gridded or traced (at most 128; 100).
 constexpr int K3_THREADS = 128;
-template <int KIND>
+template <class T, int KIND>
 constexpr int K3_MIN_BLOCKS =
-    KIND == WIND_GRIDDED || KIND == WIND_TRACED ? 8 : 10;
+    std::is_same<T, float>::value
+        ? (KIND == WIND_GRIDDED || KIND == WIND_TRACED ? 8 : 10)
+        : (KIND == WIND_GRIDDED || KIND == WIND_TRACED ? 4 : 5);
 
 // Hairer's estimate of lane k: the `_simple` kernel's arithmetic, operation
 // for operation.  With the kind compiled in, a plane the wind does not read
@@ -450,61 +483,65 @@ constexpr int K3_MIN_BLOCKS =
 // once.  Lane k is the particle of node i (of
 // n) in its layer: its own planes are read at k, the node x and the
 // per-node projection and wind planes at i, once.
-template <int KIND, int FLAGS>
-__device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
-                                                 const AutoDtPlanes& P,
-                                                 long long n, long long i,
-                                                 long long k) {
-  RHSParams rc = cfg.rc;
-  WindParams wp = cfg.wind;
+template <class T, int KIND, int FLAGS>
+__device__ __forceinline__ T hairer_estimate(const AutoDtConfig<T>& cfg,
+                                             const AutoDtPlanes<T>& P,
+                                             long long n, long long i,
+                                             long long k) {
+  RHSParams<T> rc = cfg.rc;
+  WindParams<T> wp = cfg.wind;
   if (FLAGS != RUNTIME) rc.flags = FLAGS;
   if (P.proj) load_projection(rc, P.proj, n, i);
   const bool node = (KIND == RUNTIME || KIND == WIND_CONSTANT) &&
                     cfg.wind.kind == WIND_NODE;
   if (KIND != RUNTIME) wp.kind = KIND;
-  const bool gridded = KIND == WIND_GRIDDED;
-  const bool traced = KIND == WIND_TRACED;
+  constexpr bool gridded = KIND == WIND_GRIDDED;
+  constexpr bool traced = KIND == WIND_TRACED;
   const bool t_free =
       node || (wp.kind != WIND_TIME_COSINE && !gridded && !traced);
-  const float tiny = 1e-10f;
-  const float z[5] = {P.lne[k], P.cgx[k], P.cgy[k], P.x[k], P.y[k]};
-  const float t = t_free ? 0.0f : P.t[k];
-  const float xn =
-      wp.kind == WIND_CONSTANT || gridded || node ? 0.0f : P.xn[i];
-  const float yn = traced ? wp.wf[i] : 0.0f;
-  GriddedWind g;
+  const T tiny = T(1e-10);
+  const T z[5] = {P.lne[k], P.cgx[k], P.cgy[k], P.x[k], P.y[k]};
+  const T t = t_free ? T(0) : P.t[k];
+  const T xn =
+      wp.kind == WIND_CONSTANT || gridded || node ? T(0) : P.xn[i];
+  const T yn = traced ? T(wp.wf[i]) : T(0);
+  GriddedWind<T> g;
   if (gridded) g = load_gridded(wp, i);
-  float sc[5];
+  T sc[5];
 #pragma unroll
-  for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + fabsf(z[c]) * cfg.reltol;
-  const WindTerms w0 = traced  ? traced_terms(xn, yn, t)
-                       : gridded ? gridded_terms(g, t)
-                       : node    ? node_terms(wp, i)
-                                 : wind_terms_at(wp, xn, t);
-  float f0[5];
+  for (int c = 0; c < 5; ++c) sc[c] = cfg.abstol + xabs(z[c]) * cfg.reltol;
+  WindTerms<T> w0;
+  if constexpr (traced) w0 = traced_terms(xn, yn, t);
+  else if constexpr (gridded) w0 = gridded_terms(g, t);
+  else w0 = node ? node_terms(wp, i) : wind_terms_at(wp, xn, t);
+  T f0[5];
   rhs_state(rc, z[0], z[1], z[2], w0, f0);
-  const float d0 = rms5(z, sc);
-  const float d1 = rms5(f0, sc);
-  const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : 0.01f * d0 / jmax(d1, tiny);
+  const T d0 = rms5(z, sc);
+  const T d1 = rms5(f0, sc);
+  const T h0 = (d0 < T(1e-5) || d1 < T(1e-5)) ? T(1e-6)
+                                              : T(0.01) * d0 / jmax(d1, tiny);
 
-  float z1[5];
+  T z1[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) z1[c] = z[c] + h0 * f0[c];
-  const WindTerms w1 = t_free    ? w0
-                       : traced  ? traced_terms(xn, yn, t + h0)
-                       : gridded ? gridded_terms(g, t + h0)
-                                 : wind_terms_at(wp, xn, t + h0);
-  float f1[5];
+  WindTerms<T> w1 = w0;
+  if (!t_free) {
+    if constexpr (traced) w1 = traced_terms(xn, yn, t + h0);
+    else if constexpr (gridded) w1 = gridded_terms(g, t + h0);
+    else w1 = wind_terms_at(wp, xn, t + h0);
+  }
+  T f1[5];
   rhs_state(rc, z1[0], z1[1], z1[2], w1, f1);
-  float df[5];
+  T df[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) df[c] = f1[c] - f0[c];
-  const float d2 = rms5(df, sc) / jmax(h0, tiny);
+  const T d2 = rms5(df, sc) / jmax(h0, tiny);
 
-  const float dmax = jmax(d1, d2);
-  const float h1 = dmax <= 1e-15f ? jmax(h0 * 1e-3f, 1e-6f)
-                                  : powf(0.01f / jmax(dmax, tiny), cfg.inv_order_p1);
-  return jmin(jmin(100.0f * h0, h1), cfg.max_dt);
+  const T dmax = jmax(d1, d2);
+  const T h1 = dmax <= T(1e-15) ? jmax(h0 * T(1e-3), T(1e-6))
+                                : xpow(T(0.01) / jmax(dmax, tiny),
+                                       cfg.inv_order_p1);
+  return jmin(jmin(T(100) * h0, h1), cfg.max_dt);
 }
 
 // K3: the Hairer dt reset of one lane per thread,
@@ -512,27 +549,28 @@ __device__ __forceinline__ float hairer_estimate(const AutoDtConfig& cfg,
 // A lane that is not reset only copies its dt.  The clamp is torch.clamp's
 // on the card (ATen's clamp_scalar kernel): a NaN passes with its own bits,
 // anything else is min(max(v, dtmin), DT).  Node i of layer blockIdx.y.
-template <int KIND, int FLAGS>
-__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS<KIND>)
-auto_dt_kernel(const AutoDtConfig cfg, long long n, const AutoDtPlanes P) {
+template <class T, int KIND, int FLAGS>
+__global__ void __launch_bounds__(K3_THREADS, (K3_MIN_BLOCKS<T, KIND>))
+auto_dt_kernel(const AutoDtConfig<T> cfg, long long n,
+               const AutoDtPlanes<T> P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long k = (long long)blockIdx.y * n + i;
-  float dt;
+  T dt;
   if (P.reset[k]) {
-    const float est = hairer_estimate<KIND, FLAGS>(cfg, P, n, i, k);
-    dt = est != est ? est : fminf(fmaxf(est, cfg.dtmin), cfg.DT);
+    const T est = hairer_estimate<T, KIND, FLAGS>(cfg, P, n, i, k);
+    dt = est != est ? est : xfmin(xfmax(est, cfg.dtmin), cfg.DT);
   } else {
     dt = P.dt[k];
   }
   P.out[k] = dt;
 }
 
-#ifndef PICLES_TRACED_WIND
+#ifdef PICLES_MAIN_LIB
 // The baseline (`_simple`): the previous kernel, the bare estimate of every lane,
-// the wind's kind and the term flags tested at run time.
+// the wind's kind and the term flags tested at run time; float only.
 __global__ void __launch_bounds__(128)
-auto_dt_simple_kernel(const AutoDtConfig cfg, long long n,
+auto_dt_simple_kernel(const AutoDtConfig<float> cfg, long long n,
                const float* __restrict__ lne_in, const float* __restrict__ cgx_in,
                const float* __restrict__ cgy_in, const float* __restrict__ x_in,
                const float* __restrict__ y_in, const float* __restrict__ t_in,
@@ -567,11 +605,10 @@ auto_dt_simple_kernel(const AutoDtConfig cfg, long long n,
                                   : powf(0.01f / jmax(dmax, tiny), cfg.inv_order_p1);
   out[i] = jmin(jmin(100.0f * h0, h1), cfg.max_dt);
 }
-#endif  // PICLES_TRACED_WIND
 
 template <int S, bool ADAPTIVE, bool FORCE_DTMIN>
-static void launch_advance_simple(const AdvanceConfig& cfg, long long n, void** p,
-                           cudaStream_t stream) {
+static void launch_advance_simple(const AdvanceConfig<float>& cfg, long long n,
+                                  void** p, cudaStream_t stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   advance_simple_kernel<S, ADAPTIVE, FORCE_DTMIN><<<blocks, threads, 0, stream>>>(
@@ -584,7 +621,7 @@ static void launch_advance_simple(const AdvanceConfig& cfg, long long n, void** 
 }
 
 template <int S>
-static void dispatch_simple(const AdvanceConfig& cfg, bool adaptive,
+static void dispatch_simple(const AdvanceConfig<float>& cfg, bool adaptive,
                             bool force, long long n, void** p,
                             cudaStream_t stream) {
   if (adaptive && force) launch_advance_simple<S, true, true>(cfg, n, p, stream);
@@ -592,28 +629,29 @@ static void dispatch_simple(const AdvanceConfig& cfg, bool adaptive,
   else if (force) launch_advance_simple<S, false, true>(cfg, n, p, stream);
   else launch_advance_simple<S, false, false>(cfg, n, p, stream);
 }
+#endif  // PICLES_MAIN_LIB
 
-template <class M, bool ADAPTIVE, bool GRIDDED>
-static void launch_advance(const AdvanceConfig& cfg, long long n,
+template <class M, bool ADAPTIVE, bool GRIDDED, class T>
+static void launch_advance(const AdvanceConfig<T>& cfg, long long n,
                            unsigned layers, void** p, cudaStream_t stream) {
-  AdvancePlanes P;
-  P.lne = (const float*)p[0]; P.cgx = (const float*)p[1];
-  P.cgy = (const float*)p[2]; P.x = (const float*)p[3];
-  P.y = (const float*)p[4]; P.t = (const float*)p[5];
-  P.dt = (const float*)p[6]; P.act = (const unsigned char*)p[7];
-  P.xn = (const float*)p[8];
-  P.lne_o = (float*)p[9]; P.cgx_o = (float*)p[10]; P.cgy_o = (float*)p[11];
-  P.x_o = (float*)p[12]; P.y_o = (float*)p[13]; P.t_o = (float*)p[14];
-  P.dt_o = (float*)p[15]; P.fail_o = (unsigned char*)p[16];
+  AdvancePlanes<T> P;
+  P.lne = (const T*)p[0]; P.cgx = (const T*)p[1];
+  P.cgy = (const T*)p[2]; P.x = (const T*)p[3];
+  P.y = (const T*)p[4]; P.t = (const T*)p[5];
+  P.dt = (const T*)p[6]; P.act = (const unsigned char*)p[7];
+  P.xn = (const T*)p[8];
+  P.lne_o = (T*)p[9]; P.cgx_o = (T*)p[10]; P.cgy_o = (T*)p[11];
+  P.x_o = (T*)p[12]; P.y_o = (T*)p[13]; P.t_o = (T*)p[14];
+  P.dt_o = (T*)p[15]; P.fail_o = (unsigned char*)p[16];
   P.nacc_o = (int*)p[17];
-  P.proj = (const float*)p[18];
+  P.proj = (const T*)p[18];
   const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
-  advance_kernel<M, ADAPTIVE, GRIDDED>
+  advance_kernel<T, M, ADAPTIVE, GRIDDED>
       <<<dim3(blocks, layers), K1_THREADS, 0, stream>>>(cfg, n, P);
 }
 
-template <class M>
-static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
+template <class M, class T>
+static void dispatch(const AdvanceConfig<T>& cfg, bool adaptive, long long n,
                      unsigned layers, void** p, cudaStream_t stream) {
   const bool gridded = cfg.wind.kind == WIND_GRIDDED;
   if constexpr (TRACED_LIB) {
@@ -635,21 +673,22 @@ static void dispatch(const AdvanceConfig& cfg, bool adaptive, long long n,
 constexpr int K1_I = 1 + N_WIND_I;
 
 // Unpack the advance's parameters (layout below); returns the stage count.
-static int unpack_advance(const float* fparams, const int* iparams,
-                          AdvanceConfig& cfg) {
+template <class T>
+static int unpack_advance(const T* fparams, const int* iparams,
+                          AdvanceConfig<T>& cfg) {
   unpack_rhs_wind(fparams, iparams, cfg.rc, cfg.wind);
-  const float* f = fparams + N_RHS_F + N_WIND_F;
+  const T* f = fparams + N_RHS_F + N_WIND_F;
   cfg.DT = f[0]; cfg.abstol = f[1]; cfg.reltol = f[2]; cfg.dtmin = f[3];
   cfg.neg_inv_order = f[4];
   f += 5;
-  for (int s = 0; s < 5; ++s) cfg.tab.c[s] = f[s];
+  for (int s = 0; s < 5; ++s) cfg.tab.c[s] = (float)f[s];
   f += 5;
   for (int s = 0; s < 5; ++s)
-    for (int j = 0; j < 5; ++j) cfg.tab.a[s][j] = f[5 * s + j];
+    for (int j = 0; j < 5; ++j) cfg.tab.a[s][j] = (float)f[5 * s + j];
   f += 25;
-  for (int s = 0; s < 6; ++s) cfg.tab.b[s] = f[s];
+  for (int s = 0; s < 6; ++s) cfg.tab.b[s] = (float)f[s];
   f += 6;
-  for (int s = 0; s < 7; ++s) cfg.tab.bt[s] = f[s];
+  for (int s = 0; s < 7; ++s) cfg.tab.bt[s] = (float)f[s];
   cfg.force_dtmin = iparams[K1_I + 2] != 0;
   cfg.maxiters = iparams[K1_I + 3];
   return iparams[K1_I];
@@ -662,15 +701,16 @@ using namespace picles;
 PICLES_USING_KERNELS
 
 // fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
-//          tableau c[5], a[5][5], b[6], bt[7]
+//          tableau c[5], a[5][5], b[6], bt[7]  (real_t: float, or double in
+//          the float64 library)
 // iparams: flags, wind kind, has_t_off, n_wf, stages (3 or 6), adaptive,
 //          force_dtmin, maxiters
 // ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
 //          the per-node projection planes [5, n] (input; null: the RHS's
-//          uniform scalars) | the n_wf wind planes (inputs: 4 + 3B
+//          uniform scalars) | the n_wf wind planes (inputs, float32: 4 + 3B
 //          gridded, u and v of the node kind, the node y of the traced
-//          kind, none for analytic winds)
+//          kind, none for analytic winds); every other plane real_t
 // n:       nodes; layers: the particle planes are [layers, n] (layer-major)
 //          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
@@ -679,14 +719,15 @@ PICLES_USING_KERNELS
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // stage count, planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_advance_traced`, the same layout, its wind the traced kind.
+// `picles_advance_traced`, the float64 library's `picles_advance_f64`, the
+// same layout.
 constexpr int K1_PTRS = 19;
 
-extern "C" int PICLES_ENTRY(picles_advance)(const float* fparams,
+extern "C" int PICLES_ENTRY(picles_advance)(const real_t* fparams,
                                             const int* iparams, void** ptrs,
                                             long long n, long long layers,
                                             void* stream) {
-  AdvanceConfig cfg;
+  AdvanceConfig<real_t> cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
   const bool adaptive = iparams[K1_I + 1] != 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -701,13 +742,13 @@ extern "C" int PICLES_ENTRY(picles_advance)(const float* fparams,
   return (int)cudaGetLastError();
 }
 
-#ifndef PICLES_TRACED_WIND
+#ifdef PICLES_MAIN_LIB
 // The `_simple` baseline (the previous kernel), picles_advance's layout;
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
 // gridded, node or traced wind or projection planes).
 extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
-  AdvanceConfig cfg;
+  AdvanceConfig<float> cfg;
   const int stages = unpack_advance(fparams, iparams, cfg);
   const bool adaptive = iparams[K1_I + 1] != 0;
   const bool force = cfg.force_dtmin != 0;
@@ -721,52 +762,54 @@ extern "C" int picles_advance_simple(const float* fparams, const int* iparams,
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
-#endif  // PICLES_TRACED_WIND
+#endif  // PICLES_MAIN_LIB
 
-static void unpack_auto_dt(const float* fparams, const int* iparams,
-                           void** ptrs, AutoDtConfig& cfg, AutoDtPlanes& P) {
+template <class T>
+static void unpack_auto_dt(const T* fparams, const int* iparams, void** ptrs,
+                           AutoDtConfig<T>& cfg, AutoDtPlanes<T>& P) {
   unpack_rhs_wind(fparams, iparams, cfg.rc, cfg.wind);
-  const float* f = fparams + N_RHS_F + N_WIND_F;
+  const T* f = fparams + N_RHS_F + N_WIND_F;
   cfg.abstol = f[0]; cfg.reltol = f[1]; cfg.inv_order_p1 = f[2];
   cfg.max_dt = f[3]; cfg.dtmin = f[4]; cfg.DT = f[5];
-  P.lne = (const float*)ptrs[0]; P.cgx = (const float*)ptrs[1];
-  P.cgy = (const float*)ptrs[2]; P.x = (const float*)ptrs[3];
-  P.y = (const float*)ptrs[4]; P.t = (const float*)ptrs[5];
-  P.xn = (const float*)ptrs[6]; P.dt = (const float*)ptrs[7];
-  P.reset = (const unsigned char*)ptrs[8]; P.out = (float*)ptrs[9];
-  P.proj = (const float*)ptrs[10];
+  P.lne = (const T*)ptrs[0]; P.cgx = (const T*)ptrs[1];
+  P.cgy = (const T*)ptrs[2]; P.x = (const T*)ptrs[3];
+  P.y = (const T*)ptrs[4]; P.t = (const T*)ptrs[5];
+  P.xn = (const T*)ptrs[6]; P.dt = (const T*)ptrs[7];
+  P.reset = (const unsigned char*)ptrs[8]; P.out = (T*)ptrs[9];
+  P.proj = (const T*)ptrs[10];
 }
 
-template <int KIND, int FLAGS>
-static void launch_auto_dt(const AutoDtConfig& cfg, long long n,
-                           unsigned layers, const AutoDtPlanes& P,
+template <int KIND, int FLAGS, class T>
+static void launch_auto_dt(const AutoDtConfig<T>& cfg, long long n,
+                           unsigned layers, const AutoDtPlanes<T>& P,
                            cudaStream_t stream) {
   const unsigned blocks = (unsigned)((n + K3_THREADS - 1) / K3_THREADS);
-  auto_dt_kernel<KIND, FLAGS>
+  auto_dt_kernel<T, KIND, FLAGS>
       <<<dim3(blocks, layers), K3_THREADS, 0, stream>>>(cfg, n, P);
 }
 
 // fparams: RHS (14) | wind (7) | abstol, reltol, 1/(order+1), max_dt,
-//          dtmin, DT
+//          dtmin, DT  (real_t)
 // iparams: flags, wind kind, has_t_off, n_wf
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
 //          dt (output) | the per-node projection planes [5, n] (input;
-//          null: the uniform scalars) | the n_wf wind planes (inputs:
-//          gridded, node, or the node y of the traced kind)
+//          null: the uniform scalars) | the n_wf wind planes (inputs,
+//          float32: gridded, node, or the node y of the traced kind)
 // n, layers: as picles_advance's (dt, was_reset and the output are lane
 // planes, the node x and the projection and wind planes shared).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_auto_dt_traced`, the same layout.
+// `picles_auto_dt_traced`, the float64 library's `picles_auto_dt_f64`, the
+// same layout.
 constexpr int K3_PTRS = 11;
 
-extern "C" int PICLES_ENTRY(picles_auto_dt)(const float* fparams,
+extern "C" int PICLES_ENTRY(picles_auto_dt)(const real_t* fparams,
                                             const int* iparams, void** ptrs,
                                             long long n, long long layers,
                                             void* stream) {
-  AutoDtConfig cfg;
-  AutoDtPlanes P;
+  AutoDtConfig<real_t> cfg;
+  AutoDtPlanes<real_t> P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
   cudaStream_t st = (cudaStream_t)stream;
   if (!attach_planes(cfg.wind, iparams[3], ptrs + K3_PTRS) ||
@@ -800,11 +843,11 @@ extern "C" int PICLES_ENTRY(picles_auto_dt)(const float* fparams,
 // of every lane to the output (dtmin, DT, dt and was_reset are not read);
 // analytic winds and uniform projections only (cudaErrorInvalidValue for a
 // gridded, node or traced wind or projection planes).
-#ifndef PICLES_TRACED_WIND
+#ifdef PICLES_MAIN_LIB
 extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
                                      void** ptrs, long long n, void* stream) {
-  AutoDtConfig cfg;
-  AutoDtPlanes P;
+  AutoDtConfig<float> cfg;
+  AutoDtPlanes<float> P;
   unpack_auto_dt(fparams, iparams, ptrs, cfg, P);
   if (planar_wind(cfg.wind.kind) ||
       cfg.wind.kind == WIND_TRACED || P.proj != nullptr)
@@ -816,4 +859,4 @@ extern "C" int picles_auto_dt_simple(const float* fparams, const int* iparams,
       cfg, n, P.lne, P.cgx, P.cgy, P.x, P.y, P.t, P.xn, P.out);
   return (int)cudaGetLastError();
 }
-#endif  // PICLES_TRACED_WIND
+#endif  // PICLES_MAIN_LIB

@@ -90,7 +90,7 @@ PICLES_KERNELS_BEGIN
 
 struct Advance1DConfig {
   RHS1DParams rc;
-  RKControl ctl;
+  RKControl<float> ctl;
   Gridded1D grid;   // the gridded kind's record (data set per launch)
   float DT;
   int maxiters;
@@ -136,7 +136,7 @@ __device__ __forceinline__ void run_lane_1d(const Advance1DConfig& cfg,
                                             long long i, bool reads_x,
                                             bool reads_plane,
                                             const RHSOF& rhs_of) {
-  RKLane<3, M::S> L;
+  RKLane<float, 3, M::S> L;
 #pragma unroll
   for (int c = 0; c < 3; ++c) L.z[c] = P.z[3 * i + c];
   const float t0 = P.t[i];
@@ -154,7 +154,7 @@ __device__ __forceinline__ void run_lane_1d(const Advance1DConfig& cfg,
     const auto rhs = rhs_of(xn, u0);
     rhs(t0, L.z, L.k[0]);
     while (!L.done && L.iters < cfg.maxiters)
-      rk_substep<M, 3, ADAPTIVE>(cfg.ctl, L, rhs);
+      rk_substep<M, float, 3, ADAPTIVE>(cfg.ctl, L, rhs);
   }
   const bool failed = rk_failed(L);
 #pragma unroll
@@ -302,7 +302,7 @@ static int advance_1d_entry(const float* f, const int* iv, void** ptrs,
   cfg.rc = RHS1DParams{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
                        f[17], f[18], iv[0]};
   cfg.DT = f[8];
-  cfg.ctl = RKControl{f[11], f[9], f[10], f[12], iv[8] != 0};
+  cfg.ctl = RKControl<float>{f[11], f[9], f[10], f[12], iv[8] != 0};
   cfg.maxiters = iv[9];
   const int kind = iv[1];
   Advance1DPlanes P;

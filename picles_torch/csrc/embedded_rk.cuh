@@ -18,101 +18,132 @@
 //   dtmin_eff.
 //
 // The right-hand side is the caller's: a functor `rhs(t, z, out)` of the
-// stage time and the D stage components.  The two literals of the JAX
-// package that are float32 identities appear as such:
-// `dtmin_eff * (1.0 + 1e-8)` is `dtmin_eff`, `t_end - 1e-9` is
-// `t_end - 1e-9f`.  -fmad=false keeps every product and sum apart.
+// stage time and the D stage components.  Every quantity is of the lanes'
+// scalar type T (float for K7 and K1's float instances, double for K1's
+// double ones): the tableau's coefficients as T (`coef`: the header's
+// float32 values, or for double the exact float64 ones of METHODS), the
+// floor's eps T's own, every literal T(...), as the JAX package's weak
+// Python constants take the lanes' dtype.  `dtmin_eff * (1.0 + 1e-8)` and
+// `t_end - 1e-9` are written as the JAX package writes them; in float32 the
+// first is dtmin_eff itself.  -fmad=false keeps every product and sum
+// apart.
 
 #pragma once
 
 #include <cfloat>
 #include <math.h>
 
+#include <type_traits>
+
 #include "rhs.cuh"
 
 namespace picles {
 
+// Tableau M's coefficients as T: tableaux.cuh's float32 values for float,
+// its float64 ones (the `...64` functions, METHODS' exact values) for
+// double.  Every index is a constant in the unrolled loops, so each folds.
+template <class M, class T>
+struct Coef {
+  __device__ static __forceinline__ T c(int i) {
+    if constexpr (std::is_same<T, float>::value) return M::c(i);
+    else return M::c64(i);
+  }
+  __device__ static __forceinline__ T a(int i, int j) {
+    if constexpr (std::is_same<T, float>::value) return M::a(i, j);
+    else return M::a64(i, j);
+  }
+  __device__ static __forceinline__ T b(int i) {
+    if constexpr (std::is_same<T, float>::value) return M::b(i);
+    else return M::b64(i);
+  }
+  __device__ static __forceinline__ T bt(int i) {
+    if constexpr (std::is_same<T, float>::value) return M::bt(i);
+    else return M::bt64(i);
+  }
+};
+
 // One lane in flight: its D components, the S + 1 stage vectors (k[0] the
 // FSAL stage of (t, z), k[S] the new one), clock, step and flags.
-template <int D, int S>
+template <class T, int D, int S>
 struct RKLane {
-  float z[D];
-  float k[S + 1][D];
-  float t, t_end, dt;
+  T z[D];
+  T k[S + 1][D];
+  T t, t_end, dt;
   bool active, done, failed;
   int nacc, iters;
 };
 
+template <class T>
 struct RKControl {
-  float dtmin, abstol, reltol, neg_inv_order;  // -1 / order
+  T dtmin, abstol, reltol, neg_inv_order;  // -1 / order
   bool force_dtmin;
 };
 
-template <class M, int D, bool ADAPTIVE, class RHS>
-__device__ __forceinline__ void rk_substep(const RKControl& cp,
-                                           RKLane<D, M::S>& L,
+template <class M, class T, int D, bool ADAPTIVE, class RHS>
+__device__ __forceinline__ void rk_substep(const RKControl<T>& cp,
+                                           RKLane<T, D, M::S>& L,
                                            const RHS& rhs) {
   constexpr int S = M::S;
-  const float t = L.t, t_end = L.t_end;
-  const float remaining = t_end - t;
-  const float dtmin_eff =
-      jmax(cp.dtmin, 4.0f * FLT_EPSILON * jmax(fabsf(t), fabsf(t_end)));
-  const float dt_try = jmin(jmax(L.dt, dtmin_eff), jmax(remaining, dtmin_eff));
-  const bool at_dtmin = dt_try <= dtmin_eff;
+  using K = Coef<M, T>;
+  const T t = L.t, t_end = L.t_end;
+  const T remaining = t_end - t;
+  const T dtmin_eff =
+      jmax(cp.dtmin, T(4) * eps_of<T>() * jmax(xabs(t), xabs(t_end)));
+  const T dt_try = jmin(jmax(L.dt, dtmin_eff), jmax(remaining, dtmin_eff));
+  const bool at_dtmin = dt_try <= dtmin_eff * T(1.0 + 1e-8);
 
 #pragma unroll
   for (int s = 1; s < S; ++s) {
-    float acc[D];
+    T acc[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
       acc[c] = L.z[c];
 #pragma unroll
       for (int j = 0; j < s; ++j)
-        if (M::a(s - 1, j) != 0.0f)
-          acc[c] = acc[c] + dt_try * M::a(s - 1, j) * L.k[j][c];
+        if (K::a(s - 1, j) != T(0))
+          acc[c] = acc[c] + dt_try * K::a(s - 1, j) * L.k[j][c];
     }
-    rhs(t + M::c(s - 1) * dt_try, acc, L.k[s]);
+    rhs(t + K::c(s - 1) * dt_try, acc, L.k[s]);
   }
-  float zn[D];
+  T zn[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) {
     zn[c] = L.z[c];
 #pragma unroll
     for (int j = 0; j < S; ++j)
-      if (M::b(j) != 0.0f) zn[c] = zn[c] + dt_try * M::b(j) * L.k[j][c];
+      if (K::b(j) != T(0)) zn[c] = zn[c] + dt_try * K::b(j) * L.k[j][c];
   }
   rhs(t + dt_try, zn, L.k[S]);
 
   bool accept = true;
   bool newly_failed = false;
-  float dt_next = L.dt;
+  T dt_next = L.dt;
   if (ADAPTIVE) {
-    float err_sq = 0.0f;
+    T err_sq = T(0);
     bool finite = true;
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      float e = 0.0f;
+      T e = T(0);
 #pragma unroll
       for (int j = 0; j <= S; ++j)
-        if (M::bt(j) != 0.0f) e = e + M::bt(j) * L.k[j][c];
+        if (K::bt(j) != T(0)) e = e + K::bt(j) * L.k[j][c];
       e = dt_try * e;
-      const float sc =
-          cp.abstol + cp.reltol * jmax(fabsf(L.z[c]), fabsf(zn[c]));
-      const float r = e / sc;
+      const T sc = cp.abstol + cp.reltol * jmax(xabs(L.z[c]), xabs(zn[c]));
+      const T r = e / sc;
       err_sq = err_sq + r * r;
       finite = finite && finitef(zn[c]);
     }
-    const float enorm = sqrtf(err_sq / (float)D);
+    const T enorm = xsqrt(err_sq / T(D));
     finite = finite && finitef(enorm);
-    accept = enorm <= 1.0f && finite;
+    accept = enorm <= T(1) && finite;
     if (cp.force_dtmin) accept = accept || at_dtmin;
     newly_failed = at_dtmin && !accept;
-    const float enorm_safe = jmax(enorm, 1e-10f);
-    float q = 0.9f * powf(enorm_safe, cp.neg_inv_order);
-    if (!finite) q = 0.2f;
-    const float factor = jmin(jmax(q, 0.2f), 10.0f);
+    const T enorm_safe = jmax(enorm, T(1e-10));
+    T q = T(0.9) * xpow(enorm_safe, cp.neg_inv_order);
+    if (!finite) q = T(0.2);
+    const T factor = jmin(jmax(q, T(0.2)), T(10));
     dt_next = accept ? dt_try * factor
-                     : jmax(dt_try * jmin(jmax(q, 0.2f), 1.0f), dtmin_eff);
+                     : jmax(dt_try * jmin(jmax(q, T(0.2)), T(1)), dtmin_eff);
   }
   if (accept) {
     L.t = t + dt_try;
@@ -124,20 +155,20 @@ __device__ __forceinline__ void rk_substep(const RKControl& cp,
     ++L.nacc;
   }
   L.dt = dt_next;
-  L.done = L.t >= t_end - 1e-9f || newly_failed;
+  L.done = L.t >= t_end - T(1e-9) || newly_failed;
   L.failed = L.failed || newly_failed;
   ++L.iters;
 }
 
 // integrate_to's ending: a lane still live after maxiters failed.
-template <int D, int S>
-__device__ __forceinline__ bool rk_failed(const RKLane<D, S>& L) {
+template <class T, int D, int S>
+__device__ __forceinline__ bool rk_failed(const RKLane<T, D, S>& L) {
   return L.failed || (!L.done && L.active);
 }
 
 // The clock a finished lane stores: snapped onto t_end unless it failed.
-template <int D, int S>
-__device__ __forceinline__ float rk_clock(const RKLane<D, S>& L, bool failed) {
+template <class T, int D, int S>
+__device__ __forceinline__ T rk_clock(const RKLane<T, D, S>& L, bool failed) {
   return (L.active && !failed) ? L.t_end : L.t;
 }
 

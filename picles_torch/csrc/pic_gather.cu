@@ -67,6 +67,15 @@
 // and registers set the occupancy; TX = 32 (R = 4 nodes a thread, 8 warps)
 // and a 64 KB budget, compiled in, were chosen by a sweep on the card (root
 // PERF.md §6).
+// The same templates run in float64 (the float64 library, PICLES_F64, T =
+// double): a staged source is then 64 bytes (two 32-byte quads of doubles,
+// `Quad<T>`), its planes copied with 8-byte `cp.async`, the floor offsets
+// kept in a double's low word, and the sums and the remesh in double.  The
+// float32 budget of 64 KB would cut the main path's windows into strips of
+// one dy, restaging each source once a dy, so the double instances take a
+// budget of their own (`SMEM_BUDGET_F64`, up to the card's 227 KB a block),
+// in which those windows stage in one piece; the order of every sum is the
+// float instances' and does not depend on the plan.
 // Layers (several wave systems on one grid) are the launch's second grid
 // dimension: blockIdx.y is the layer, whose sources are read at layer * nx
 // * ny + node and whose outputs are written at layer * ox * oy + node.  The
@@ -111,25 +120,33 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "remesh.cuh"
 
 namespace {
 PICLES_KERNELS_BEGIN
 
+using picles::xfloor;
+using picles::xfmax;
+using picles::xfmin;
+
+template <class T>
 struct GatherConfig {
   int nx, ny;
   int xl, xh, yl, yh;            // the window (widened on a tripolar grid)
   int periodic_x, periodic_y;
   int tripolar;                  // the y axis is TRIPOLAR_NORTH
   int layers;                    // layers of the source and output planes
-  float x_lo, x_hi, y_lo, y_hi;  // clamp bounds of the declared halo, float32
+  T x_lo, x_hi, y_lo, y_hi;      // clamp bounds of the declared halo, in T
                                  // as the JAX package forms them
 };
 
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+template <class T>
+__device__ __forceinline__ T clampf(T v, T lo, T hi) {
   // jnp.clip: min(max(v, lo), hi), NaN propagating
   if (v != v) return v;
-  return fminf(fmaxf(v, lo), hi);
+  return xfmin(xfmax(v, lo), hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -141,6 +158,36 @@ constexpr int R = 4;             // tile rows a thread (output nodes along x)
 constexpr int WARPS = 8;         // warps a block, along x
 constexpr int TX = R * WARPS;    // tile rows
 constexpr int SMEM_BUDGET = 64 * 1024;  // bytes of shared memory a block may take
+// the double instances' budget (see the head of this file); the float64
+// library's `picles_gather_budget_f64` sets another for a measurement
+constexpr int SMEM_BUDGET_F64 = 128 * 1024;
+constexpr int SMEM_MAX = 227 * 1024;    // the card's most a block may take
+
+// Four staged values of one source: float4 (16 bytes), or for double a
+// 32-byte quad of doubles.
+struct alignas(16) DoubleQuad {
+  double x, y, z, w;
+};
+template <class T>
+using Quad = typename std::conditional<std::is_same<T, float>::value, float4,
+                                       DoubleQuad>::type;
+__device__ __forceinline__ float4 make_quad(float a, float b, float c,
+                                            float d) {
+  return make_float4(a, b, c, d);
+}
+__device__ __forceinline__ DoubleQuad make_quad(double a, double b, double c,
+                                                double d) {
+  return DoubleQuad{a, b, c, d};
+}
+// An int kept in a staged value's bits (its low word for a double).
+__device__ __forceinline__ float int_in(float, int i) {
+  return __int_as_float(i);
+}
+__device__ __forceinline__ double int_in(double, int i) {
+  return __hiloint2double(0, i);
+}
+__device__ __forceinline__ int int_of(float v) { return __float_as_int(v); }
+__device__ __forceinline__ int int_of(double v) { return __double2loint(v); }
 
 // How a launch cuts the output into tiles and the window into staged
 // pieces; chosen on the host (plan_sum).
@@ -153,20 +200,26 @@ struct SumPlan {
   int tiles_y;        // tiles along y
 };
 
+template <class T>
 struct Sources {
-  const float *xr, *yr, *c0, *c1, *c2;
+  const T *xr, *yr, *c0, *c1, *c2;
   const unsigned char* act;
 };
 
-// One 4-byte cp.async, zero-filled when `valid` is false (src-size 0).
-__device__ __forceinline__ void copy4_async(float* dst, const float* src,
-                                            bool valid) {
+// One cp.async of a T (4 or 8 bytes), zero-filled when `valid` is false
+// (src-size 0).
+template <class T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, bool valid) {
 #if defined(__CUDA_ARCH__)
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 4 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 8 : 0));
 #else
-  *dst = valid ? *src : 0.0f;
+  *dst = valid ? *src : T(0);
 #endif
 }
 
@@ -179,16 +232,18 @@ __device__ __forceinline__ void copy_async_wait_all() {
 // Stage the sources of tile-local rows [lo, hi) (row u is grid row
 // i0 - xh + u) and of w columns (column c is grid column j0 - dy1 + c: the
 // sources the tile's nodes reach with the strip's dy), of the layer whose
-// planes start `base` floats in, into shared memory:
+// planes start `base` values in, into shared memory:
 //   a[e] = (wxc, wyc, c0 * m, c1 * m),  b[e] = (c2 * m, fx, fy, -),
 // e = (u - lo) * p.v + c.  Each thread computes the sources it copied; the
 // copy pass marks a tripolar ghost in b[e].y, which the compute pass reads
 // and overwrites.
-__device__ __forceinline__ void stage_chunk(const GatherConfig& g,
+template <class T>
+__device__ __forceinline__ void stage_chunk(const GatherConfig<T>& g,
                                            const SumPlan& p, int i0, int j0,
                                            int lo, int hi, int dy1, int w,
-                                           const Sources& src, long long base,
-                                           float4* sa, float4* sb) {
+                                           const Sources<T>& src,
+                                           long long base, Quad<T>* sa,
+                                           Quad<T>* sb) {
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int count = (hi - lo) * w;
@@ -196,8 +251,8 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
     for (int k = tid; k < count; k += nthreads) {
       const int row = k / w, c = k - row * w;
       const int e = row * p.v + c;
-      float* a = reinterpret_cast<float*>(sa + e);
-      float* b = reinterpret_cast<float*>(sb + e);
+      T* a = reinterpret_cast<T*>(sa + e);
+      T* b = reinterpret_cast<T*>(sb + e);
       if (pass == 0) {
         int si = i0 - g.xh + lo + row;
         if (g.periodic_x) si = si < 0 ? si + g.nx : (si >= g.nx ? si - g.nx : si);
@@ -210,27 +265,27 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
         }
         const bool ok = si >= 0 && si < g.nx && sj >= 0 && sj < g.ny;
         const long long s = ok ? base + (long long)si * g.ny + sj : 0;
-        copy4_async(a + 0, src.xr + s, ok);
-        copy4_async(a + 1, src.yr + s, ok);
-        copy4_async(a + 2, src.c0 + s, ok);
-        copy4_async(a + 3, src.c1 + s, ok);
-        copy4_async(b + 0, src.c2 + s, ok);
-        b[1] = ghost ? 1.0f : 0.0f;
-        b[3] = (ok && src.act[s]) ? 1.0f : 0.0f;
+        copy_async(a + 0, src.xr + s, ok);
+        copy_async(a + 1, src.yr + s, ok);
+        copy_async(a + 2, src.c0 + s, ok);
+        copy_async(a + 3, src.c1 + s, ok);
+        copy_async(b + 0, src.c2 + s, ok);
+        b[1] = ghost ? T(1) : T(0);
+        b[3] = (ok && src.act[s]) ? T(1) : T(0);
       } else {
         // the per-node loop's arithmetic, once per source
-        float px = clampf(a[0], g.x_lo, g.x_hi);
-        float py = clampf(a[1], g.y_lo, g.y_hi);
-        if (b[1] != 0.0f) {  // a ghost deposits in mirrored directions
+        T px = clampf(a[0], g.x_lo, g.x_hi);
+        T py = clampf(a[1], g.y_lo, g.y_hi);
+        if (b[1] != T(0)) {  // a ghost deposits in mirrored directions
           px = -px;
           py = -py;
         }
-        const float fxf = floorf(px);
-        const float fyf = floorf(py);
-        const float m = b[3];
-        sa[e] = make_float4(px - fxf, py - fyf, a[2] * m, a[3] * m);
-        sb[e] = make_float4(b[0] * m, __int_as_float((int)fxf),
-                            __int_as_float((int)fyf), 0.0f);
+        const T fxf = xfloor(px);
+        const T fyf = xfloor(py);
+        const T m = b[3];
+        sa[e] = make_quad(px - fxf, py - fyf, a[2] * m, a[3] * m);
+        sb[e] = make_quad(b[0] * m, int_in(m, (int)fxf), int_in(m, (int)fyf),
+                          T(0));
       }
     }
     if (pass == 0) copy_async_wait_all();  // this thread's own copies
@@ -244,19 +299,21 @@ __device__ __forceinline__ void stage_chunk(const GatherConfig& g,
 // ? wc : 0)` is formed by selects: the weights are never -0 and a NaN weight
 // comes out of an arithmetic operation (canonical), so adding +0.0 changes
 // no bit and is left out.
+template <class T>
 __device__ __forceinline__ void add_source(int st, int W, int xl, int dy,
-                                           const float4& va, const float4& vb,
-                                           bool all, float a[R][3]) {
-  const float wxc = va.x, wxf = 1.0f - wxc;
-  const float wyc = va.y, wyf = 1.0f - wyc;
-  const int fy = __float_as_int(vb.z);
-  const float wy = fy == dy ? wyf : (fy == dy - 1 ? wyc : 0.0f);
-  const float q0 = wy * va.z, q1 = wy * va.w, q2 = wy * vb.x;
-  const int ex = __float_as_int(vb.y) - (st + 1 - R - xl);  // fx - dx(r = 0)
+                                           const Quad<T>& va,
+                                           const Quad<T>& vb, bool all,
+                                           T a[R][3]) {
+  const T wxc = va.x, wxf = T(1) - wxc;
+  const T wyc = va.y, wyf = T(1) - wyc;
+  const int fy = int_of(vb.z);
+  const T wy = fy == dy ? wyf : (fy == dy - 1 ? wyc : T(0));
+  const T q0 = wy * va.z, q1 = wy * va.w, q2 = wy * vb.x;
+  const int ex = int_of(vb.y) - (st + 1 - R - xl);  // fx - dx(r = 0)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (all || (st >= R - 1 - r && st <= R - 2 - r + W)) {
-      const float wx = ex == r ? wxf : (ex == r - 1 ? wxc : 0.0f);
+      const T wx = ex == r ? wxf : (ex == r - 1 ? wxc : T(0));
       a[r][0] = a[r][0] + wx * q0;
       a[r][1] = a[r][1] + wx * q1;
       a[r][2] = a[r][2] + wx * q2;
@@ -270,20 +327,20 @@ __device__ __forceinline__ void add_source(int st, int W, int xl, int dy,
 // a dy's partial sums (reset on the first chunk, added to `acc` on the
 // last).  WX > 0 compiles the window's width xl + xh + 1 in: the walk is
 // unrolled and every window test folds away.
-template <int WX>
-__device__ __forceinline__ void sum_chunk(const GatherConfig& g,
+template <int WX, class T>
+__device__ __forceinline__ void sum_chunk(const GatherConfig<T>& g,
                                           const SumPlan& p, int lo, int hi,
                                           int dy0, int dy1, bool first,
-                                          bool last, const float4* sa,
-                                          const float4* sb, float a[R][3],
-                                          float acc[R][3]) {
+                                          bool last, const Quad<T>* sa,
+                                          const Quad<T>* sb, T a[R][3],
+                                          T acc[R][3]) {
   const int W = WX ? WX : g.xl + g.xh + 1;
   const int base = R * threadIdx.y;
   const int top = base + R + W - 2;  // the thread's highest row
   for (int dy = dy0; dy <= dy1; ++dy) {
     if (first) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) a[r][0] = a[r][1] = a[r][2] = 0.0f;
+      for (int r = 0; r < R; ++r) a[r][0] = a[r][1] = a[r][2] = T(0);
     }
     const int col = threadIdx.x - dy + dy1;
     if (WX) {
@@ -292,7 +349,7 @@ __device__ __forceinline__ void sum_chunk(const GatherConfig& g,
         const int u = top - st;
         if (u >= lo && u < hi) {
           const int e = (u - lo) * p.v + col;
-          add_source(st, WX, g.xl, dy, sa[e], sb[e], false, a);
+          add_source<T>(st, WX, g.xl, dy, sa[e], sb[e], false, a);
         }
       }
     } else {
@@ -300,7 +357,7 @@ __device__ __forceinline__ void sum_chunk(const GatherConfig& g,
       for (int u = u_hi; u >= u_lo; --u) {
         const int st = top - u;
         const int e = (u - lo) * p.v + col;
-        add_source(st, W, g.xl, dy, sa[e], sb[e],
+        add_source<T>(st, W, g.xl, dy, sa[e], sb[e],
                       st >= R - 1 && st <= W - 1, a);
       }
     }
@@ -318,15 +375,15 @@ __device__ __forceinline__ void sum_chunk(const GatherConfig& g,
 // The window sums of the block's tile, whose first node is grid node
 // (i0, j0), over the sources of the layer at `base`: strips of dy
 // ascending, chunks of source rows from high to low.
-template <int WX>
-__device__ __forceinline__ void window_sum(const GatherConfig& g,
+template <int WX, class T>
+__device__ __forceinline__ void window_sum(const GatherConfig<T>& g,
                                            const SumPlan& p, int i0, int j0,
-                                           const Sources& src, long long base,
-                                           float4* sa, float4* sb,
-                                           float acc[R][3]) {
+                                           const Sources<T>& src,
+                                           long long base, Quad<T>* sa,
+                                           Quad<T>* sb, T acc[R][3]) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
-  float a[R][3];
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = T(0);
+  T a[R][3];
   const int rows = TX + g.xl + g.xh;
   for (int dy0 = -g.yl; dy0 <= g.yh; dy0 += p.d) {
     const int dy1 = min(dy0 + p.d - 1, g.yh);
@@ -337,14 +394,18 @@ __device__ __forceinline__ void window_sum(const GatherConfig& g,
                   sb);
       __syncthreads();
       sum_chunk<WX>(g, p, lo, hi, dy0, dy1, hi == rows, lo == 0, sa, sb,
-                       a, acc);
+                    a, acc);
     }
   }
 }
 
+// The block's dynamic shared memory: the plan's two arrays of quads.
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
 // The block's tile (first output node (p0, q0)) and its layer: the
 // offsets of the layer's sources (nx * ny a layer) and outputs (ox * oy).
-__device__ __forceinline__ void tile_origin(const GatherConfig& g,
+template <class T>
+__device__ __forceinline__ void tile_origin(const GatherConfig<T>& g,
                                             const SumPlan& p, int& p0,
                                             int& q0, long long& src_off,
                                             long long& out_off) {
@@ -356,16 +417,16 @@ __device__ __forceinline__ void tile_origin(const GatherConfig& g,
 }
 
 // K2 (off = 0, output [nx, ny]) and K4 (off = (xl, yl), the padded output).
-template <int WX>
+template <int WX, class T>
 __global__ void __launch_bounds__(TY * WARPS)
-pic_gather_tiled_kernel(const GatherConfig g, const SumPlan p, const Sources src,
-                        float* __restrict__ o0, float* __restrict__ o1,
-                        float* __restrict__ o2) {
-  extern __shared__ float4 smem[];
+pic_gather_tiled_kernel(const GatherConfig<T> g, const SumPlan p,
+                        const Sources<T> src, T* __restrict__ o0,
+                        T* __restrict__ o1, T* __restrict__ o2) {
+  Quad<T>* smem = reinterpret_cast<Quad<T>*>(smem_raw);
   int p0, q0;
   long long src_off, out_off;
   tile_origin(g, p, p0, q0, src_off, out_off);
-  float acc[R][3];
+  T acc[R][3];
   window_sum<WX>(g, p, p0 - p.off_x, q0 - p.off_y, src, src_off, smem,
                  smem + p.ux * p.v, acc);
   const int q = q0 + threadIdx.x;
@@ -384,12 +445,13 @@ pic_gather_tiled_kernel(const GatherConfig g, const SumPlan p, const Sources src
 
 // Particle planes and masks of K6's remesh half, core-aligned [nx, ny]
 // (the particle planes [layers, nx, ny]).
+template <class T>
 struct RemeshPlanes {
-  const float* clock;
-  const float *lne, *cgx, *cgy, *px, *py, *dt;
+  const T* clock;
+  const T *lne, *cgx, *cgy, *px, *py, *dt;
   const unsigned char *on, *act, *bnd;
-  const float* xn;
-  float *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
+  const T* xn;
+  T *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
   unsigned char* on_o;
   int* br_o;
 };
@@ -397,23 +459,24 @@ struct RemeshPlanes {
 // The node x the remesh's wind reads: none for a gridded or node wind,
 // whose node values come from its own planes (rhs.cuh wind_uv_node), read
 // at the node directly and never staged with the deposit's sources.
-__device__ __forceinline__ float node_x(const picles::RemeshParams& r,
-                                        const RemeshPlanes& q, long long idx) {
-  return !picles::planar_wind(r.wind.kind) ? q.xn[idx] : 0.0f;
+template <class T>
+__device__ __forceinline__ T node_x(const picles::RemeshParams<T>& r,
+                                    const RemeshPlanes<T>& q, long long idx) {
+  return !picles::planar_wind(r.wind.kind) ? q.xn[idx] : T(0);
 }
 
-template <int WX>
+template <int WX, class T>
 __global__ void __launch_bounds__(TY * WARPS)
-pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
-                               const picles::RemeshParams rp,
-                               const Sources src, const RemeshPlanes q,
-                               float* __restrict__ o0, float* __restrict__ o1,
-                               float* __restrict__ o2) {
-  extern __shared__ float4 smem[];
+pic_gather_remesh_tiled_kernel(const GatherConfig<T> g, const SumPlan p,
+                               const picles::RemeshParams<T> rp,
+                               const Sources<T> src, const RemeshPlanes<T> q,
+                               T* __restrict__ o0, T* __restrict__ o1,
+                               T* __restrict__ o2) {
+  Quad<T>* smem = reinterpret_cast<Quad<T>*>(smem_raw);
   int p0, q0;
   long long lo, out_off;
   tile_origin(g, p, p0, q0, lo, out_off);
-  float acc[R][3];
+  T acc[R][3];
   window_sum<WX>(g, p, p0, q0, src, lo, smem, smem + p.ux * p.v, acc);
   const int j = q0 + threadIdx.x;
   if (j >= g.ny) return;
@@ -422,7 +485,7 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
   for (int r = 0; r < R; ++r) {
     const int i = p0 + R * threadIdx.y + r;
     if (i >= g.nx) break;
-    float s0 = acc[0][0], s1 = acc[0][1], s2 = acc[0][2];
+    T s0 = acc[0][0], s1 = acc[0][1], s2 = acc[0][2];
 #pragma unroll
     for (int k = 1; k < R; ++k) {
       if (r == k) {
@@ -436,7 +499,7 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
     o0[k] = s0;
     o1[k] = s1;
     o2[k] = s2;
-    const picles::RemeshOut o = picles::remesh_node(
+    const picles::RemeshOut<T> o = picles::remesh_node(
         rp, *q.clock, idx, s0, s1, s2, q.lne[k], q.cgx[k], q.cgy[k], q.px[k],
         q.py[k], q.dt[k], q.on[k] != 0, q.act[idx] != 0, q.bnd[idx] != 0,
         node_x(rp, q, idx));
@@ -451,16 +514,17 @@ pic_gather_remesh_tiled_kernel(const GatherConfig g, const SumPlan p,
   }
 }
 
-#ifndef PICLES_TRACED_WIND
+#ifdef PICLES_MAIN_LIB
 // ---------------------------------------------------------------------------
 // The previous one-thread-per-node kernels, kept as baselines (`_simple`):
 // chip_smoke.py and the card tests hold the tiled kernels to them bit for
-// bit and time both in turns.  No path of the package launches them.
+// bit and time both in turns.  No path of the package launches them; float
+// only.
 // ---------------------------------------------------------------------------
 
 // The deposit at output node (i, j): the sum over its window of sources.
 __device__ __forceinline__ void gather_node(
-    const GatherConfig& g, int i, int j, const float* __restrict__ xr,
+    const GatherConfig<float>& g, int i, int j, const float* __restrict__ xr,
     const float* __restrict__ yr, const float* __restrict__ c0,
     const float* __restrict__ c1, const float* __restrict__ c2,
     const unsigned char* __restrict__ act, float& acc0, float& acc1,
@@ -506,7 +570,7 @@ __device__ __forceinline__ void gather_node(
 }
 
 __global__ void __launch_bounds__(256)
-pic_gather_simple_kernel(const GatherConfig g, const float* __restrict__ xr,
+pic_gather_simple_kernel(const GatherConfig<float> g, const float* __restrict__ xr,
                          const float* __restrict__ yr,
                          const float* __restrict__ c0,
                          const float* __restrict__ c1,
@@ -528,7 +592,7 @@ pic_gather_simple_kernel(const GatherConfig g, const float* __restrict__ xr,
 
 // g.nx, g.ny are the block's (source) extents; the output is padded.
 __global__ void __launch_bounds__(256)
-pic_gather_padded_simple_kernel(const GatherConfig g,
+pic_gather_padded_simple_kernel(const GatherConfig<float> g,
                                 const float* __restrict__ xr,
                                 const float* __restrict__ yr,
                                 const float* __restrict__ c0,
@@ -553,15 +617,16 @@ pic_gather_padded_simple_kernel(const GatherConfig g,
 }
 
 __global__ void __launch_bounds__(256)
-pic_gather_remesh_simple_kernel(const GatherConfig g,
-                                const picles::RemeshParams r,
+pic_gather_remesh_simple_kernel(const GatherConfig<float> g,
+                                const picles::RemeshParams<float> r,
                                 const float* __restrict__ xr,
                                 const float* __restrict__ yr,
                                 const float* __restrict__ c0,
                                 const float* __restrict__ c1,
                                 const float* __restrict__ c2,
                                 const unsigned char* __restrict__ sact,
-                                const RemeshPlanes q, float* __restrict__ o0,
+                                const RemeshPlanes<float> q,
+                                float* __restrict__ o0,
                                 float* __restrict__ o1,
                                 float* __restrict__ o2) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -574,7 +639,7 @@ pic_gather_remesh_simple_kernel(const GatherConfig g,
   o0[idx] = acc0;
   o1[idx] = acc1;
   o2[idx] = acc2;
-  const picles::RemeshOut o = picles::remesh_node(
+  const picles::RemeshOut<float> o = picles::remesh_node(
       r, *q.clock, idx, acc0, acc1, acc2, q.lne[idx], q.cgx[idx], q.cgy[idx],
       q.px[idx], q.py[idx], q.dt[idx], q.on[idx] != 0, q.act[idx] != 0,
       q.bnd[idx] != 0, node_x(r, q, idx));
@@ -587,14 +652,15 @@ pic_gather_remesh_simple_kernel(const GatherConfig g,
   q.on_o[idx] = o.on ? 1 : 0;
   q.br_o[idx] = o.branch;
 }
-#endif  // PICLES_TRACED_WIND
+#endif  // PICLES_MAIN_LIB
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-GatherConfig unpack_gather(const float* fparams, const int* iparams) {
-  GatherConfig g;
+template <class T>
+GatherConfig<T> unpack_gather(const T* fparams, const int* iparams) {
+  GatherConfig<T> g;
   g.nx = iparams[0]; g.ny = iparams[1];
   g.xl = iparams[2]; g.xh = iparams[3]; g.yl = iparams[4]; g.yh = iparams[5];
   g.periodic_x = iparams[6]; g.periodic_y = iparams[7];
@@ -609,13 +675,24 @@ constexpr int N_GATHER_F = 4;
 constexpr int N_GATHER_I = 10;
 constexpr int THREADS = 256;
 
+// The shared memory a plan of T may take: SMEM_BUDGET for float,
+// `budget_f64` (SMEM_BUDGET_F64 unless `picles_gather_budget_f64` set
+// another) for double.
+int budget_f64 = SMEM_BUDGET_F64;
+template <class T>
+int smem_budget() {
+  return std::is_same<T, float>::value ? SMEM_BUDGET : budget_f64;
+}
+
 // The tiling over an [ox, oy] output: the whole window in one piece when it
 // fits the budget, else strips of dy, else chunks of source rows with one dy
 // a strip.
-SumPlan plan_sum(const GatherConfig& g, int ox, int oy, int off_x,
+template <class T>
+SumPlan plan_sum(const GatherConfig<T>& g, int ox, int oy, int off_x,
                  int off_y) {
   SumPlan p;
-  const long long cap = SMEM_BUDGET / (long long)(2 * sizeof(float4));  // sources
+  const long long cap =
+      smem_budget<T>() / (long long)(2 * sizeof(Quad<T>));  // sources
   const int rows = TX + g.xl + g.xh;
   const int dys = g.yl + g.yh + 1;
   if ((long long)rows * (TY + dys - 1) <= cap) {
@@ -637,22 +714,23 @@ SumPlan plan_sum(const GatherConfig& g, int ox, int oy, int off_x,
   return p;
 }
 
+template <class T>
 size_t plan_bytes(const SumPlan& p) {
-  return (size_t)p.ux * p.v * 2 * sizeof(float4);
+  return (size_t)p.ux * p.v * 2 * sizeof(Quad<T>);
 }
 
 unsigned plan_blocks(const SumPlan& p) {
   return (unsigned)(((p.ox + TX - 1) / TX) * (long long)p.tiles_y);
 }
 
-// Launch one tiled kernel instance, the plan's tiles times `layers`
+// Launch one tiled kernel instance of T, the plan's tiles times `layers`
 // blocks: sets the dynamic shared-memory limit when the plan takes more than
 // the default 48 KB, and returns the first CUDA error of the attribute or
 // the launch.
-template <typename Kernel, typename... Args>
+template <class T, typename Kernel, typename... Args>
 int launch_tiled(Kernel kernel, const SumPlan& p, int layers, cudaStream_t st,
                  Args... args) {
-  const size_t bytes = plan_bytes(p);
+  const size_t bytes = plan_bytes<T>(p);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -663,30 +741,32 @@ int launch_tiled(Kernel kernel, const SumPlan& p, int layers, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-Sources sources(void** ptrs) {
-  Sources s;
-  s.xr = (const float*)ptrs[0];
-  s.yr = (const float*)ptrs[1];
-  s.c0 = (const float*)ptrs[2];
-  s.c1 = (const float*)ptrs[3];
-  s.c2 = (const float*)ptrs[4];
+template <class T>
+Sources<T> sources(void** ptrs) {
+  Sources<T> s;
+  s.xr = (const T*)ptrs[0];
+  s.yr = (const T*)ptrs[1];
+  s.c0 = (const T*)ptrs[2];
+  s.c1 = (const T*)ptrs[3];
+  s.c2 = (const T*)ptrs[4];
   s.act = (const unsigned char*)ptrs[5];
   return s;
 }
 
 #ifndef PICLES_TRACED_WIND
-template <int WX>
-int gather_tiled(const GatherConfig& g, const SumPlan& p, void** ptrs,
+template <int WX, class T>
+int gather_tiled(const GatherConfig<T>& g, const SumPlan& p, void** ptrs,
                  cudaStream_t st) {
-  return launch_tiled(pic_gather_tiled_kernel<WX>, p, g.layers, st, g, p,
-                      sources(ptrs), (float*)ptrs[6], (float*)ptrs[7],
-                      (float*)ptrs[8]);
+  return launch_tiled<T>(pic_gather_tiled_kernel<WX, T>, p, g.layers, st, g,
+                         p, sources<T>(ptrs), (T*)ptrs[6], (T*)ptrs[7],
+                         (T*)ptrs[8]);
 }
 
 // The instances compiled: the window widths of the main path's halos
 // compiled in (4: the flagship's ((0,3),(0,3)); 7: the default halo 3), and
 // any other width.
-int gather_dispatch(const GatherConfig& g, const SumPlan& p, void** ptrs,
+template <class T>
+int gather_dispatch(const GatherConfig<T>& g, const SumPlan& p, void** ptrs,
                     cudaStream_t st) {
   const int W = g.xl + g.xh + 1;
   if (W == 4) return gather_tiled<4>(g, p, ptrs, st);
@@ -695,38 +775,39 @@ int gather_dispatch(const GatherConfig& g, const SumPlan& p, void** ptrs,
 }
 #endif  // PICLES_TRACED_WIND
 
-RemeshPlanes remesh_planes(void** ptrs) {
-  RemeshPlanes q;
-  q.clock = (const float*)ptrs[6];
-  q.lne = (const float*)ptrs[7];
-  q.cgx = (const float*)ptrs[8];
-  q.cgy = (const float*)ptrs[9];
-  q.px = (const float*)ptrs[10];
-  q.py = (const float*)ptrs[11];
-  q.dt = (const float*)ptrs[12];
+template <class T>
+RemeshPlanes<T> remesh_planes(void** ptrs) {
+  RemeshPlanes<T> q;
+  q.clock = (const T*)ptrs[6];
+  q.lne = (const T*)ptrs[7];
+  q.cgx = (const T*)ptrs[8];
+  q.cgy = (const T*)ptrs[9];
+  q.px = (const T*)ptrs[10];
+  q.py = (const T*)ptrs[11];
+  q.dt = (const T*)ptrs[12];
   q.on = (const unsigned char*)ptrs[13];
   q.act = (const unsigned char*)ptrs[14];
   q.bnd = (const unsigned char*)ptrs[15];
-  q.xn = (const float*)ptrs[16];
-  q.lne_o = (float*)ptrs[20];
-  q.cgx_o = (float*)ptrs[21];
-  q.cgy_o = (float*)ptrs[22];
-  q.px_o = (float*)ptrs[23];
-  q.py_o = (float*)ptrs[24];
-  q.dt_o = (float*)ptrs[25];
+  q.xn = (const T*)ptrs[16];
+  q.lne_o = (T*)ptrs[20];
+  q.cgx_o = (T*)ptrs[21];
+  q.cgy_o = (T*)ptrs[22];
+  q.px_o = (T*)ptrs[23];
+  q.py_o = (T*)ptrs[24];
+  q.dt_o = (T*)ptrs[25];
   q.on_o = (unsigned char*)ptrs[26];
   q.br_o = (int*)ptrs[27];
   return q;
 }
 
-template <int WX>
-int gather_remesh_tiled(const GatherConfig& g, const SumPlan& p,
-                        const picles::RemeshParams& r, void** ptrs,
+template <int WX, class T>
+int gather_remesh_tiled(const GatherConfig<T>& g, const SumPlan& p,
+                        const picles::RemeshParams<T>& r, void** ptrs,
                         cudaStream_t st) {
-  return launch_tiled(pic_gather_remesh_tiled_kernel<WX>, p, g.layers, st,
-                      g, p,
-                      r, sources(ptrs), remesh_planes(ptrs), (float*)ptrs[17],
-                      (float*)ptrs[18], (float*)ptrs[19]);
+  return launch_tiled<T>(pic_gather_remesh_tiled_kernel<WX, T>, p, g.layers,
+                         st, g, p, r, sources<T>(ptrs),
+                         remesh_planes<T>(ptrs), (T*)ptrs[17], (T*)ptrs[18],
+                         (T*)ptrs[19]);
 }
 
 PICLES_KERNELS_END
@@ -737,14 +818,16 @@ PICLES_USING_KERNELS
 #ifndef PICLES_TRACED_WIND
 // iparams: nx, ny, xl, xh, yl, yh (the window), periodic_x, periodic_y,
 //          tripolar (the y axis folds at the north seam), layers
-// fparams: x_lo, x_hi, y_lo, y_hi (the declared halo's clamp)
+// fparams: x_lo, x_hi, y_lo, y_hi (the declared halo's clamp; real_t)
 // ptrs:    xrel, yrel, c0, c1, c2, active(u8) (inputs) | o0, o1, o2 (outputs),
-//          each [layers, nx, ny]
+//          each [layers, nx, ny], real_t
 // Returns the first CUDA error of the launch (cudaErrorInvalidValue for a
-// layer count outside [1, MAX_LAYERS]).
-extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
-                                 void** ptrs, void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
+// layer count outside [1, MAX_LAYERS]).  The float64 library's entry point
+// is `picles_pic_gather_f64`, the same layout.
+extern "C" int PICLES_ENTRY(picles_pic_gather)(
+    const picles::real_t* fparams, const int* iparams, void** ptrs,
+    void* stream) {
+  const GatherConfig<picles::real_t> g = unpack_gather(fparams, iparams);
   if (picles::bad_layers(g.layers)) return (int)cudaErrorInvalidValue;
   if (g.nx <= 0 || g.ny <= 0) return 0;
   const SumPlan p = plan_sum(g, g.nx, g.ny, 0, 0);
@@ -756,10 +839,11 @@ extern "C" int picles_pic_gather(const float* fparams, const int* iparams,
 // are the block's.
 // ptrs:    xrel, yrel, c0, c1, c2, active(u8) ([layers, nx, ny], inputs) |
 //          o0, o1, o2 ([layers, nx+xl+xh, ny+yl+yh], outputs)
-extern "C" int picles_pic_gather_padded(const float* fparams,
-                                        const int* iparams, void** ptrs,
-                                        void* stream) {
-  GatherConfig g = unpack_gather(fparams, iparams);
+// The float64 library's entry point is `picles_pic_gather_padded_f64`.
+extern "C" int PICLES_ENTRY(picles_pic_gather_padded)(
+    const picles::real_t* fparams, const int* iparams, void** ptrs,
+    void* stream) {
+  GatherConfig<picles::real_t> g = unpack_gather(fparams, iparams);
   g.periodic_x = 0;
   g.periodic_y = 0;
   g.tripolar = 0;
@@ -771,27 +855,43 @@ extern "C" int picles_pic_gather_padded(const float* fparams,
 }
 #endif  // PICLES_TRACED_WIND
 
-// fparams: the gather's (4) | the remesh.cuh layout
+#ifdef PICLES_F64
+// The shared memory a double plan may take, in bytes (the window sums of
+// K2, K4 and K6 in this library; at least one staged row of 32 sources, at
+// most the card's 227 KB a block), for a measurement of the budget's
+// choice; 0 keeps it.  Returns the budget before the call.  The sums'
+// order, and so their bits, does not depend on it.
+extern "C" int picles_gather_budget_f64(int bytes) {
+  const int before = budget_f64;
+  if (bytes >= TY * 2 * (int)sizeof(Quad<double>) && bytes <= SMEM_MAX)
+    budget_f64 = bytes;
+  return before;
+}
+#endif
+
+// fparams: the gather's (4) | the remesh.cuh layout (real_t)
 // iparams: the gather's (10) | the remesh.cuh layout
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs) | the n_wf wind planes (inputs: 4 + 3B gridded, u
-//          and v of the node kind, the node y of the traced kind, none for
-//          analytic winds).  The deposit's planes and the particle planes
-//          are [layers, nx, ny]; active, boundary, xn and the wind planes
-//          [nx, ny], shared.
+//          (outputs) | the n_wf wind planes (inputs, float32: 4 + 3B
+//          gridded, u and v of the node kind, the node y of the traced
+//          kind, none for analytic winds).  The deposit's planes and the
+//          particle planes are [layers, nx, ny]; active, boundary, xn and
+//          the wind planes [nx, ny], shared; every plane but the masks, the
+//          branch and the wind planes real_t.
 // cudaErrorInvalidValue for planes that `attach_planes` refuses or a layer
 // count outside [1, MAX_LAYERS].  A traced library's entry point is
-// `picles_pic_gather_remesh_traced`, the same layout.
+// `picles_pic_gather_remesh_traced`, the float64 library's
+// `picles_pic_gather_remesh_f64`, the same layout.
 constexpr int K6_PTRS = 28;
 
-extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(const float* fparams,
-                                                      const int* iparams,
-                                                      void** ptrs,
-                                                      void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
-  picles::RemeshParams r;
+extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(
+    const picles::real_t* fparams, const int* iparams, void** ptrs,
+    void* stream) {
+  using T = picles::real_t;
+  const GatherConfig<T> g = unpack_gather(fparams, iparams);
+  picles::RemeshParams<T> r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
   if (!picles::attach_planes(r.wind, iparams[N_GATHER_I + 2],
                              ptrs + K6_PTRS) || picles::bad_layers(g.layers))
@@ -805,7 +905,7 @@ extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(const float* fparams,
   return gather_remesh_tiled<0>(g, p, r, ptrs, st);
 }
 
-#ifndef PICLES_TRACED_WIND
+#ifdef PICLES_MAIN_LIB
 // The `_simple` baselines: the entry points above with the same parameter
 // layouts, one thread per output node; analytic winds only (no gridded,
 // node or traced wind), one layer, no tripolar seam
@@ -813,7 +913,7 @@ extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(const float* fparams,
 extern "C" int picles_pic_gather_simple(const float* fparams,
                                         const int* iparams, void** ptrs,
                                         void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
+  const GatherConfig<float> g = unpack_gather(fparams, iparams);
   if (g.tripolar || g.layers != 1) return (int)cudaErrorInvalidValue;
   const long long n = (long long)g.nx * g.ny;
   if (n <= 0) return 0;
@@ -829,7 +929,7 @@ extern "C" int picles_pic_gather_simple(const float* fparams,
 extern "C" int picles_pic_gather_padded_simple(const float* fparams,
                                                const int* iparams,
                                                void** ptrs, void* stream) {
-  GatherConfig g = unpack_gather(fparams, iparams);
+  GatherConfig<float> g = unpack_gather(fparams, iparams);
   g.periodic_x = 0;
   g.periodic_y = 0;
   if (g.layers != 1) return (int)cudaErrorInvalidValue;
@@ -849,8 +949,8 @@ extern "C" int picles_pic_gather_padded_simple(const float* fparams,
 extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
                                                const int* iparams,
                                                void** ptrs, void* stream) {
-  const GatherConfig g = unpack_gather(fparams, iparams);
-  picles::RemeshParams r;
+  const GatherConfig<float> g = unpack_gather(fparams, iparams);
+  picles::RemeshParams<float> r;
   picles::unpack_remesh(fparams + N_GATHER_F, iparams + N_GATHER_I, r);
   if (picles::planar_wind(r.wind.kind) ||
       r.wind.kind == picles::WIND_TRACED || g.tripolar || g.layers != 1)
@@ -862,8 +962,8 @@ extern "C" int picles_pic_gather_remesh_simple(const float* fparams,
                                     (cudaStream_t)stream>>>(
       g, r, (const float*)ptrs[0], (const float*)ptrs[1],
       (const float*)ptrs[2], (const float*)ptrs[3], (const float*)ptrs[4],
-      (const unsigned char*)ptrs[5], remesh_planes(ptrs), (float*)ptrs[17],
-      (float*)ptrs[18], (float*)ptrs[19]);
+      (const unsigned char*)ptrs[5], remesh_planes<float>(ptrs),
+      (float*)ptrs[17], (float*)ptrs[18], (float*)ptrs[19]);
   return (int)cudaGetLastError();
 }
-#endif  // PICLES_TRACED_WIND
+#endif  // PICLES_MAIN_LIB

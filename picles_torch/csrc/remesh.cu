@@ -5,6 +5,10 @@
 // picles_torch/ops/remesh.py remesh_core.  The branch table itself is
 // remesh.cuh `remesh_node`, which K6 (pic_gather.cu) runs too.
 //
+// The same template runs in float64 (the float64 library, PICLES_F64): each
+// plane but the masks, the branch and the float32 wind planes twice the
+// bytes.
+//
 // What bounds it on an H100: memory.  Per node it reads the 3 node planes,
 // 6 particle planes, 3 masks and the node x (43 bytes) and writes 6 planes,
 // the flag and the bitfield (29 bytes): 72 bytes, 170 MB at 1536^2, about
@@ -31,28 +35,32 @@
 namespace {
 PICLES_KERNELS_BEGIN
 
+// One node a thread; T the lanes' scalar type (float, or double in the
+// float64 library: every plane but the masks, the branch and the float32
+// wind planes is then double).
+template <class T>
 __global__ void __launch_bounds__(256)
-remesh_kernel(const picles::RemeshParams r, long long n,
-              const float* __restrict__ clock, const float* __restrict__ e_n,
-              const float* __restrict__ mx_n, const float* __restrict__ my_n,
-              const float* __restrict__ lne, const float* __restrict__ cgx,
-              const float* __restrict__ cgy, const float* __restrict__ px,
-              const float* __restrict__ py, const float* __restrict__ dt,
+remesh_kernel(const picles::RemeshParams<T> r, long long n,
+              const T* __restrict__ clock, const T* __restrict__ e_n,
+              const T* __restrict__ mx_n, const T* __restrict__ my_n,
+              const T* __restrict__ lne, const T* __restrict__ cgx,
+              const T* __restrict__ cgy, const T* __restrict__ px,
+              const T* __restrict__ py, const T* __restrict__ dt,
               const unsigned char* __restrict__ on,
               const unsigned char* __restrict__ act,
               const unsigned char* __restrict__ bnd,
-              const float* __restrict__ xn, float* __restrict__ lne_o,
-              float* __restrict__ cgx_o, float* __restrict__ cgy_o,
-              float* __restrict__ px_o, float* __restrict__ py_o,
-              float* __restrict__ dt_o, unsigned char* __restrict__ on_o,
+              const T* __restrict__ xn, T* __restrict__ lne_o,
+              T* __restrict__ cgx_o, T* __restrict__ cgy_o,
+              T* __restrict__ px_o, T* __restrict__ py_o,
+              T* __restrict__ dt_o, unsigned char* __restrict__ on_o,
               int* __restrict__ br_o) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long k = (long long)blockIdx.y * n + i;
-  const picles::RemeshOut o = picles::remesh_node(
+  const picles::RemeshOut<T> o = picles::remesh_node(
       r, *clock, i, e_n[k], mx_n[k], my_n[k], lne[k], cgx[k], cgy[k], px[k],
       py[k], dt[k], on[k] != 0, act[i] != 0, bnd[i] != 0,
-      !picles::planar_wind(r.wind.kind) ? xn[i] : 0.0f);
+      !picles::planar_wind(r.wind.kind) ? xn[i] : T(0));
   lne_o[k] = o.lne;
   cgx_o[k] = o.cgx;
   cgy_o[k] = o.cgy;
@@ -68,24 +76,27 @@ PICLES_KERNELS_END
 
 PICLES_USING_KERNELS
 
-// fparams/iparams: the remesh.cuh layout (unpack_remesh)
-// ptrs: clock (1 float) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
+// fparams/iparams: the remesh.cuh layout (unpack_remesh; real_t)
+// ptrs: clock (1 value) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
-//       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs:
-//       4 + 3B gridded, u and v of the node kind, the node y of the traced
-//       kind, none for analytic winds)
+//       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs,
+//       float32: 4 + 3B gridded, u and v of the node kind, the node y of
+//       the traced kind, none for analytic winds); every other plane
+//       real_t
 // n:    nodes; layers: the node state, particle and output planes are
 //       [layers, n] (layer-major), active, boundary, xn and the wind
 //       planes [n], shared
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_remesh_traced`, the same layout.
-extern "C" int PICLES_ENTRY(picles_remesh)(const float* fparams,
+// `picles_remesh_traced`, the float64 library's `picles_remesh_f64`, the
+// same layout.
+extern "C" int PICLES_ENTRY(picles_remesh)(const picles::real_t* fparams,
                                            const int* iparams, void** ptrs,
                                            long long n, long long layers,
                                            void* stream) {
-  picles::RemeshParams r;
+  using T = picles::real_t;
+  picles::RemeshParams<T> r;
   picles::unpack_remesh(fparams, iparams, r);
   if (!picles::attach_planes(r.wind, iparams[2], ptrs + 22) ||
       picles::bad_layers(layers))
@@ -93,14 +104,14 @@ extern "C" int PICLES_ENTRY(picles_remesh)(const float* fparams,
   if (n <= 0) return 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  const float* const* in = (const float* const*)ptrs;
-  remesh_kernel<<<dim3(blocks, (unsigned)layers), threads, 0,
-                  (cudaStream_t)stream>>>(
+  const T* const* in = (const T* const*)ptrs;
+  remesh_kernel<T><<<dim3(blocks, (unsigned)layers), threads, 0,
+                     (cudaStream_t)stream>>>(
       r, n, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
       in[9], (const unsigned char*)ptrs[10], (const unsigned char*)ptrs[11],
-      (const unsigned char*)ptrs[12], in[13], (float*)ptrs[14],
-      (float*)ptrs[15], (float*)ptrs[16], (float*)ptrs[17], (float*)ptrs[18],
-      (float*)ptrs[19], (unsigned char*)ptrs[20], (int*)ptrs[21]);
+      (const unsigned char*)ptrs[12], in[13], (T*)ptrs[14],
+      (T*)ptrs[15], (T*)ptrs[16], (T*)ptrs[17], (T*)ptrs[18],
+      (T*)ptrs[19], (unsigned char*)ptrs[20], (int*)ptrs[21]);
   return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,16 @@
 // are sampled at the model clock with the K1 samplers (rhs.cuh
 // wind_uv_node: a gridded wind from the node's own planes).
 //
-// Numerics: float32, op for op as PyTorch evaluates the plain version on a
-// card.  PyTorch computes `c / x` for a Python scalar c as reciprocal(x) * c,
-// and `x / c` on a card as x * (1 / c); the windsea below is written so.  Its
-// constants come from the host (picles_torch/ops/remesh_cuda.py), rounded
-// once from the Python values, as PyTorch rounds them; precise powf/logf
-// (no fast math) and no FMA contraction (-fmad=false).
+// Numerics: the lanes' scalar type T (float, or double in the float64
+// library), op for op as PyTorch evaluates the plain version on a card.
+// PyTorch computes `c / x` for a Python scalar c as reciprocal(x) * c, and
+// `x / c` on a card as x * (1 / c), the reciprocal formed in T; the windsea
+// below is written so.  Its constants come from the host
+// (picles_torch/ops/remesh_cuda.py), rounded once from the Python values to
+// T, as PyTorch rounds them; precise pow and log of T (no fast math) and no
+// FMA contraction (-fmad=false).  The windsea is the fetch relations'
+// arithmetic in T (picles_torch/core/fetch_relations.py computes in the
+// model's dtype, as the JAX package does with x64 on).
 
 #pragma once
 
@@ -33,31 +37,33 @@ enum : int { GATHER_BIT = 1, RESEED_BIT = 2, OFF_BIT = 4 };
 enum : int { SEED_WINDSEA = 0, SEED_FIXED = 1, SEED_SAME = 2 };
 
 // picles_torch/core/fetch_relations.py get_initial_windsea, its constants
+template <class T>
 struct WindseaConsts {
-  float g;            // G_GRAVITY
-  float time_scale;   // |timestep|
-  float min_amp;      // wind-speed floor 0.1
-  float tau_den;      // DULOV_A * DULOV_XI_0X
-  float x_exp;        // 1 / (1 - DULOV_Q_X)
-  float fgp;          // 3.5
-  float fm_exp;       // -0.33
-  float alpha_c;      // 0.033
-  float alpha_exp;    // 0.67
-  float e_c;          // 0.31 * G_GRAVITY ** 2
-  float two;          // 2.0
-  float pi;           // pi
-  float e_exp;        // -4.0
-  float t_c;          // 0.9
-  float four_pi;      // 4 pi
+  T g;            // G_GRAVITY
+  T time_scale;   // |timestep|
+  T min_amp;      // wind-speed floor 0.1
+  T tau_den;      // DULOV_A * DULOV_XI_0X
+  T x_exp;        // 1 / (1 - DULOV_Q_X)
+  T fgp;          // 3.5
+  T fm_exp;       // -0.33
+  T alpha_c;      // 0.033
+  T alpha_exp;    // 0.67
+  T e_c;          // 0.31 * G_GRAVITY ** 2
+  T two;          // 2.0
+  T pi;           // pi
+  T e_exp;        // -4.0
+  T t_c;          // 0.9
+  T four_pi;      // 4 pi
 };
 constexpr int N_WINDSEA_F = 15;
 
+template <class T>
 struct RemeshParams {
-  WindParams wind;
-  WindseaConsts ws;
-  float seed[3];    // fixed (lne, cgx, cgy) when seed_kind == SEED_FIXED
-  float bseed[3];   // boundary nodes' fixed values when bseed_kind == SEED_FIXED
-  float minimal_e, minimal_m2, wind_min_squared, dtmin, timestep;
+  WindParams<T> wind;
+  WindseaConsts<T> ws;
+  T seed[3];    // fixed (lne, cgx, cgy) when seed_kind == SEED_FIXED
+  T bseed[3];   // boundary nodes' fixed values when bseed_kind == SEED_FIXED
+  T minimal_e, minimal_m2, wind_min_squared, dtmin, timestep;
   int seed_kind;    // SEED_WINDSEA | SEED_FIXED
   int bseed_kind;   // SEED_WINDSEA | SEED_FIXED | SEED_SAME (as the interior)
   int boundary_source;
@@ -65,18 +71,19 @@ struct RemeshParams {
 };
 
 // Packed layout, shared with picles_torch/ops/remesh_cuda.py remesh_params.
-// floats: wind (7) | windsea (15) | seed (3) | bseed (3) | minimal_e,
+// floats (T): wind (7) | windsea (15) | seed (3) | bseed (3) | minimal_e,
 //         minimal_m2, wind_min_squared, dtmin, timestep;
 // ints:   wind kind, has_t_off, n_wf | seed_kind, bseed_kind,
 //         boundary_source, clip_dt.
 constexpr int N_REMESH_F = N_WIND_F + N_WINDSEA_F + 11;
 constexpr int N_REMESH_I = N_WIND_I + 4;
 
-inline void unpack_remesh(const float* f, const int* iv, RemeshParams& r) {
+template <class T>
+inline void unpack_remesh(const T* f, const int* iv, RemeshParams<T>& r) {
   unpack_wind(f, iv, r.wind);
   f += N_WIND_F;
-  r.ws = WindseaConsts{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
-                       f[8], f[9], f[10], f[11], f[12], f[13], f[14]};
+  r.ws = WindseaConsts<T>{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
+                          f[8], f[9], f[10], f[11], f[12], f[13], f[14]};
   f += N_WINDSEA_F;
   for (int k = 0; k < 3; ++k) r.seed[k] = f[k];
   for (int k = 0; k < 3; ++k) r.bseed[k] = f[3 + k];
@@ -88,26 +95,27 @@ inline void unpack_remesh(const float* f, const int* iv, RemeshParams& r) {
 }
 
 // get_initial_windsea(u, v, timestep) -> (lne, cg_bar_x, cg_bar_y)
-__device__ __forceinline__ void windsea(const WindseaConsts& c, float u,
-                                        float v, float& lne, float& cgx,
-                                        float& cgy) {
-  float amp = sqrtf(u * u + v * v);
+template <class T>
+__device__ __forceinline__ void windsea(const WindseaConsts<T>& c, T u, T v,
+                                        T& lne, T& cgx, T& cgy) {
+  T amp = xsqrt(u * u + v * v);
   amp = amp < c.min_amp ? c.min_amp : amp;
-  const float tau = (c.g * c.time_scale) / amp;
-  const float xt = powf(tau * (1.0f / c.tau_den), c.x_exp);
-  const float f_m = (((1.0f / amp) * c.g) * c.fgp) * powf(xt, c.fm_exp);
-  const float alpha = powf((f_m * amp) * (1.0f / c.g), c.alpha_exp) * c.alpha_c;
-  const float e = (alpha * c.e_c) * powf((f_m * c.two) * c.pi, c.e_exp);
-  const float f_peak = (f_m * c.g) / amp;
-  const float t_bar = (1.0f / f_peak) * c.t_c;
-  const float cg_amp = (t_bar * c.g) * (1.0f / c.four_pi);
+  const T tau = (c.g * c.time_scale) / amp;
+  const T xt = xpow(tau * (T(1) / c.tau_den), c.x_exp);
+  const T f_m = (((T(1) / amp) * c.g) * c.fgp) * xpow(xt, c.fm_exp);
+  const T alpha = xpow((f_m * amp) * (T(1) / c.g), c.alpha_exp) * c.alpha_c;
+  const T e = (alpha * c.e_c) * xpow((f_m * c.two) * c.pi, c.e_exp);
+  const T f_peak = (f_m * c.g) / amp;
+  const T t_bar = (T(1) / f_peak) * c.t_c;
+  const T cg_amp = (t_bar * c.g) * (T(1) / c.four_pi);
   cgx = (cg_amp * u) / amp;
   cgy = (cg_amp * v) / amp;
-  lne = logf(e);
+  lne = xlog(e);
 }
 
+template <class T>
 struct RemeshOut {
-  float lne, cgx, cgy, px, py, dt;
+  T lne, cgx, cgy, px, py, dt;
   bool on;
   int branch;
 };
@@ -115,32 +123,33 @@ struct RemeshOut {
 // One node, index i in the planes every layer shares (a gridded wind's):
 // (e_n, mx_n, my_n) is its deposited state, the rest its particle and
 // masks; `clock` the model time at which the winds are sampled.
-__device__ __forceinline__ RemeshOut remesh_node(
-    const RemeshParams& r, float clock, long long i, float e_n, float mx_n,
-    float my_n, float lne, float cgx, float cgy, float px, float py,
-    float dt, bool on, bool active, bool boundary, float xn) {
-  float u, v;
+template <class T>
+__device__ __forceinline__ RemeshOut<T> remesh_node(
+    const RemeshParams<T>& r, T clock, long long i, T e_n, T mx_n, T my_n,
+    T lne, T cgx, T cgy, T px, T py, T dt, bool on, bool active,
+    bool boundary, T xn) {
+  T u, v;
   wind_uv_node(r.wind, i, xn, clock, u, v);
-  const float wind2 = u * u + v * v;
-  const float m2_n = mx_n * mx_n + my_n * my_n;
+  const T wind2 = u * u + v * v;
+  const T m2_n = mx_n * mx_n + my_n * my_n;
   const bool part = r.boundary_source ? (active || boundary) : active;
   const bool gather = part && !boundary && e_n >= r.minimal_e &&
                       m2_n >= r.minimal_m2;
   const bool reseed = part && !gather && wind2 >= r.wind_min_squared;
   const bool off = part && !gather && !reseed;
 
-  RemeshOut o{lne, cgx, cgy, px, py, dt, on, 0};
+  RemeshOut<T> o{lne, cgx, cgy, px, py, dt, on, 0};
   if (gather) {
     // transforms.node_to_particle, with its 1e-30 floors
-    const float m2 = jmax(m2_n, 1e-30f);
-    const float e_safe = jmax(e_n, 1e-30f);
-    o.cgx = (mx_n * e_safe) / (2.0f * m2);
-    o.cgy = (my_n * e_safe) / (2.0f * m2);
-    o.lne = logf(e_safe);
+    const T m2 = jmax(m2_n, T(1e-30));
+    const T e_safe = jmax(e_n, T(1e-30));
+    o.cgx = (mx_n * e_safe) / (T(2) * m2);
+    o.cgy = (my_n * e_safe) / (T(2) * m2);
+    o.lne = xlog(e_safe);
   } else if (reseed) {
     const bool own = boundary && r.bseed_kind != SEED_SAME;
     const int kind = own ? r.bseed_kind : r.seed_kind;
-    const float* fixed = own ? r.bseed : r.seed;
+    const T* fixed = own ? r.bseed : r.seed;
     if (kind == SEED_WINDSEA) {
       windsea(r.ws, u, v, o.lne, o.cgx, o.cgy);
     } else {
@@ -150,8 +159,8 @@ __device__ __forceinline__ RemeshOut remesh_node(
     }
   }
   if (gather || reseed) {
-    o.px = 0.0f;
-    o.py = 0.0f;
+    o.px = T(0);
+    o.py = T(0);
   }
   // torch.clamp(dt, dtmin, timestep): NaN stays NaN
   if (r.clip_dt) o.dt = jmin(jmax(dt, r.dtmin), r.timestep);

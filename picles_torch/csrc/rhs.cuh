@@ -15,17 +15,28 @@
 // `traced_wind(x, y, t, u, v)` (picles_torch/forcing/wind_trace.py), which
 // a library of its own compiles (`WIND_TRACED`, below).
 //
-// Numerics: every operation is float32 in the order the JAX package and the
-// plain PyTorch version (picles_torch/ops/rhs.py) use, squares as products,
-// precise expf/logf/tanhf/sqrtf/cosf (no fast-math intrinsics).  Every
-// literal carries the `f` suffix, and the build asks ptxas to warn on any
-// double-precision use.  Constants that the JAX package forms in float64
-// (such as r_g * r_g) arrive precomputed from Python, rounded once.
+// Numerics: every operation is in the lanes' scalar type T (float or
+// double, below) in the order the JAX package and the plain PyTorch version
+// (picles_torch/ops/rhs.py) use, squares as products, precise exp, log,
+// tanh, sqrt and pow of T (no fast-math intrinsics): the overloads `xexp`
+// ... `xpow` call expf ... powf for float and exp ... pow for double, and a
+// call that mixes the two types does not compile.  Every
+// literal is written T(...), a double literal rounded once to T (for float
+// the same bits as the `f` literal), and the build asks ptxas to warn on
+// any double-precision use.  Constants that the JAX package forms in
+// float64 (such as r_g * r_g) arrive precomputed from Python, rounded once
+// to T.  The winds' own values stay what the samplers give, float32: the
+// gridded and node planes are float32 and the double instances widen them
+// where JAX's kernel casts them to the lanes' dtype; the time-cosine
+// amplitude is float32 arithmetic on float32(t) in both packages.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cfloat>
+#include <type_traits>
 
 #ifdef PICLES_TRACED_WIND
 // picles::traced_wind of one callable, or under PICLES_TRACED_WIND_1D
@@ -43,19 +54,103 @@ inline bool bad_layers(long long layers) {
   return layers < 1 || layers > MAX_LAYERS;
 }
 
+// ---------------------------------------------------------------------------
+// The scalar type.  K1-K6 are templates over their lanes' scalar type T,
+// float or double.  A library compiles one: the kernels' own library and a
+// traced wind's `float`, the float64 library (PICLES_F64,
+// picles_torch/ops/cuda_build.py `library_f64`) `double`, its entry points
+// suffixed `_f64` and its kernels in a namespace `f64`
+// (PICLES_KERNELS_BEGIN below), so a profiler trace tells them apart.  K7
+// (advance_1d.cu) computes in float only.
+// ---------------------------------------------------------------------------
+#if defined(PICLES_F64) && defined(PICLES_TRACED_WIND)
+#error "a traced wind's library compiles float instances only"
+#endif
+#ifdef PICLES_F64
+using real_t = double;
+#else
+using real_t = float;
+#endif
+// The kernels' own library: the only one that compiles the `_simple`
+// baselines
+#if !defined(PICLES_F64) && !defined(PICLES_TRACED_WIND)
+#define PICLES_MAIN_LIB 1
+#endif
+
+// The precise math of each type: float calls the float32 functions, double
+// the float64 ones.  The generic templates are deleted, so a call with
+// another type or with the two types mixed (a float literal beside a double,
+// which would widen silently) does not compile.
+#define PICLES_MATH1(name, f32, f64)                                      \
+  __device__ __forceinline__ float name(float a) { return f32(a); }      \
+  __device__ __forceinline__ double name(double a) { return f64(a); }    \
+  template <class A> A name(A) = delete;
+#define PICLES_MATH2(name, f32, f64)                                      \
+  __device__ __forceinline__ float name(float a, float b) {              \
+    return f32(a, b);                                                     \
+  }                                                                       \
+  __device__ __forceinline__ double name(double a, double b) {           \
+    return f64(a, b);                                                     \
+  }                                                                       \
+  template <class A, class B> A name(A, B) = delete;
+PICLES_MATH1(xexp, expf, exp)
+PICLES_MATH1(xlog, logf, log)
+PICLES_MATH1(xtanh, tanhf, tanh)
+PICLES_MATH1(xsqrt, sqrtf, sqrt)
+PICLES_MATH1(xabs, fabsf, fabs)
+PICLES_MATH1(xfloor, floorf, floor)
+PICLES_MATH2(xpow, powf, pow)
+PICLES_MATH2(xfmax, fmaxf, fmax)
+PICLES_MATH2(xfmin, fminf, fmin)
+#undef PICLES_MATH1
+#undef PICLES_MATH2
+
+// The canonical quiet NaN and the infinity of each type.
+__device__ __forceinline__ float qnan_of(float) {
+  return __int_as_float(0x7fc00000);
+}
+__device__ __forceinline__ double qnan_of(double) {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+__device__ __forceinline__ float inf_of(float) {
+  return __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ double inf_of(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// The machine epsilon of T (the dt floor's 4 eps)
+template <class T>
+__host__ __device__ constexpr T eps_of() {
+  return std::is_same<T, float>::value ? T(FLT_EPSILON) : T(DBL_EPSILON);
+}
+
 // max/min that propagate NaN like jnp.maximum and torch.maximum (fmaxf and
 // fminf return the other operand), so a NaN lane stays NaN for the guards.
 __device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  return (a != a || b != b) ? qnan_of(a) : fmaxf(a, b);
 }
+__device__ __forceinline__ double jmax(double a, double b) {
+  return (a != a || b != b) ? qnan_of(a) : fmax(a, b);
+}
+template <class A, class B> A jmax(A, B) = delete;
 __device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  return (a != a || b != b) ? qnan_of(a) : fminf(a, b);
 }
+__device__ __forceinline__ double jmin(double a, double b) {
+  return (a != a || b != b) ? qnan_of(a) : fmin(a, b);
+}
+template <class A, class B> A jmin(A, B) = delete;
 
-// isfinite without a detour through double (the C++ overloads may widen)
+// isfinite without a detour through another type (the C++ overloads may
+// widen)
 __device__ __forceinline__ bool finitef(float a) {
-  return fabsf(a) < __int_as_float(0x7f800000);
+  return fabsf(a) < inf_of(a);
 }
+__device__ __forceinline__ bool finitef(double a) {
+  return fabs(a) < inf_of(a);
+}
+template <class A> bool finitef(A) = delete;
 
 enum WindKind : int {
   WIND_CONSTANT = 0, WIND_HALF_DOMAIN = 1, WIND_TIME_COSINE = 2,
@@ -87,6 +182,12 @@ constexpr bool TRACED_LIB = true;
 #define PICLES_KERNELS_BEGIN namespace traced {
 #define PICLES_KERNELS_END }
 #define PICLES_USING_KERNELS using namespace traced;
+#elif defined(PICLES_F64)
+#define PICLES_ENTRY(name) name##_f64
+#define PICLES_KERNELS_BEGIN namespace f64 {
+#define PICLES_KERNELS_END }
+#define PICLES_USING_KERNELS using namespace f64;
+constexpr bool TRACED_LIB = false;
 #else
 #define PICLES_ENTRY(name) name
 #define PICLES_KERNELS_BEGIN
@@ -113,23 +214,25 @@ __host__ __device__ inline bool planar_wind(int kind) {
   return kind == WIND_GRIDDED || kind == WIND_NODE;
 }
 
+template <class T>
 struct WindParams {
   int kind;
   int has_t_off;
-  float u0, v0;        // U10, V10
-  float x_split;       // half-domain switch position
-  float background;    // half-domain value beyond x_split
+  T u0, v0;            // U10, V10 as the samplers give them (float32 values)
+  T x_split;           // half-domain switch position
+  T background;        // half-domain value beyond x_split (a float32 value)
+  T t_off;             // time-cosine cut-off, against the unnarrowed clock
   float two_pi;        // float32(2 pi)
-  float period;        // time-cosine period
-  float t_off;         // time-cosine cut-off
+  float period;        // time-cosine period, float32
+  float u0f, v0f;      // U10, V10 as the time-cosine's float32 operands
   int n_break;         // gridded: breakpoints B (4 + 3B planes), else 0
   const float* wf;     // gridded: plane 0 (a_u) of the launch's planes;
                        // node: the u plane; traced: the node y plane
   long long wf_stride; // floats from one plane to the next (gridded, node)
 };
 
-// Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params):
-// floats u0, v0, x_split, background, two_pi, period, t_off; ints kind,
+// Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params), T
+// each: u0, v0, x_split, background, two_pi, period, t_off; ints kind,
 // has_t_off, n_wf (the count of planes: 4 + 3B gridded, 2 node, 1 traced
 // (the node y), else 0).
 // The planes themselves follow each kernel's own pointers
@@ -137,12 +240,17 @@ struct WindParams {
 constexpr int N_WIND_F = 7;
 constexpr int N_WIND_I = 3;
 
-inline void unpack_wind(const float* g, const int* iv, WindParams& w) {
+template <class T>
+inline void unpack_wind(const T* g, const int* iv, WindParams<T>& w) {
   w.kind = iv[0];
   w.has_t_off = iv[1];
   w.n_break = iv[2] >= 4 ? (iv[2] - 4) / 3 : 0;
   w.u0 = g[0]; w.v0 = g[1]; w.x_split = g[2]; w.background = g[3];
-  w.two_pi = g[4]; w.period = g[5]; w.t_off = g[6];
+  w.t_off = g[6];
+  // the time-cosine's float32 operands, narrowed here on the host (the
+  // wrapper packs them as float32 values)
+  w.two_pi = (float)g[4]; w.period = (float)g[5];
+  w.u0f = (float)g[0]; w.v0f = (float)g[1];
   w.wf = nullptr;
   w.wf_stride = 0;
 }
@@ -152,7 +260,8 @@ inline void unpack_wind(const float* g, const int* iv, WindParams& w) {
 // Returns false (the launch is refused) for a count that is not 4 + 3B
 // (gridded), 2 (node) or 1 (traced), planes that are not evenly spaced, the
 // traced kind in the kernels' library or another kind in a traced one.
-inline bool attach_planes(WindParams& w, int n_wf, void* const* planes) {
+template <class T>
+inline bool attach_planes(WindParams<T>& w, int n_wf, void* const* planes) {
   if ((w.kind == WIND_TRACED) != TRACED_LIB) return false;
   if (w.kind == WIND_TRACED) {
     if (n_wf != 1) return false;
@@ -182,19 +291,40 @@ enum : int {
   TERM_PEAK_SHIFT = 8, TERM_DIRECTION = 16
 };
 
+template <class T>
 struct RHSParams {
-  float r_g, C_alpha, C_e, C_varphi, g, p, n, e_T;
-  float rg2;                       // r_g * r_g, formed in float64
+  T r_g, C_alpha, C_e, C_varphi, g, p, n, e_T;
+  T rg2;                           // r_g * r_g, formed in float64
   // projection M and great-circle coefficient: the launch's uniform
   // scalars, or a lane's own node values (advance.cu `load_projection`)
-  float m00, m01, m10, m11, pc;
+  T m00, m01, m10, m11, pc;
   int flags;
 };
 
+// The time-cosine amplitude, cos(2 pi t / period) in float32 on float32(t)
+// as both packages' samplers compute it.  A double instance calls it out of
+// line (`cosine_amplitude_f64`): the narrowing of its clock and cosf's own
+// float64 argument reduction then sit in that one PTX function, which the
+// build's check of the double instances (cuda_build.narrowing_summary) passes
+// over by name (beside libdevice's double tanh, whose exponent estimate
+// rounds in float32).
+__device__ __forceinline__ float cosine_amplitude(float two_pi, float period,
+                                                  float t) {
+  return cosf(two_pi * t / period);
+}
+static __device__ __noinline__ float cosine_amplitude_f64(float two_pi,
+                                                          float period,
+                                                          double t) {
+  return cosine_amplitude(two_pi, period, (float)t);
+}
+
 // u, v of an analytic wind at a node of x-coordinate xn and time t (no
-// family varies in y).
-__device__ __forceinline__ void wind_uv(const WindParams& w, float xn, float t,
-                                        float& u, float& v) {
+// family varies in y).  The time-cosine family is float32 arithmetic (its
+// sampler narrows t), widened to T at the end as JAX casts the sampler's
+// value to the lanes' dtype; its cut-off compares the clock itself.
+template <class T>
+__device__ __forceinline__ void wind_uv(const WindParams<T>& w, T xn, T t,
+                                        T& u, T& v) {
   if (w.kind == WIND_CONSTANT) {
     u = w.u0;
     v = w.v0;
@@ -203,47 +333,54 @@ __device__ __forceinline__ void wind_uv(const WindParams& w, float xn, float t,
     u = in ? w.u0 : w.background;
     v = in ? w.v0 : w.background;
   } else {
-    float a = cosf(w.two_pi * t / w.period);
+    float a;
+    if constexpr (std::is_same<T, float>::value)
+      a = cosine_amplitude(w.two_pi, w.period, t);
+    else
+      a = cosine_amplitude_f64(w.two_pi, w.period, t);
     if (w.has_t_off && t > w.t_off) a = 0.0f;
-    u = w.u0 * a + 0.0f * xn;
-    v = w.v0 * a + 0.0f * xn;
+    u = T(w.u0f * a) + T(0) * xn;
+    v = T(w.v0f * a) + T(0) * xn;
   }
 }
 
 // Gridded winds (picles_torch/forcing/winds.py GriddedWinds2D
 // .pallas_pwl_fields): over one model step the wind at a node is
 //   u(t) = a_u + t s_u + sum_k ds_u_k max(t - b_k, 0)   (v alike),
-// planes a_u, s_u, a_v, s_v, then ds_u_k, ds_v_k, b_k for k < B.  A lane
-// loads its values once: the first GRID_REG_B breakpoints' into registers
+// planes a_u, s_u, a_v, s_v, then ds_u_k, ds_v_k, b_k for k < B, float32.
+// A lane loads its values once, widened to T (JAX's kernel casts the planes
+// to the lanes' dtype): the first GRID_REG_B breakpoints' into registers
 // (B = 1 on a DT that the record's cadence covers, 2 for one up to twice
 // the cadence); the planes of any further breakpoint are read at each
 // evaluation, so every B runs.
 constexpr int GRID_REG_B = 2;
 
+template <class T>
 struct GriddedWind {
-  float a_u, s_u, a_v, s_v;
-  float ds_u[GRID_REG_B], ds_v[GRID_REG_B], b[GRID_REG_B];
+  T a_u, s_u, a_v, s_v;
+  T ds_u[GRID_REG_B], ds_v[GRID_REG_B], b[GRID_REG_B];
   int nb;
   const float* far;  // plane 4 + 3 GRID_REG_B at the node (B > GRID_REG_B)
   long long stride;
 };
 
-__device__ __forceinline__ GriddedWind load_gridded(const WindParams& w,
-                                                    long long i) {
-  GriddedWind g;
+template <class T>
+__device__ __forceinline__ GriddedWind<T> load_gridded(const WindParams<T>& w,
+                                                       long long i) {
+  GriddedWind<T> g;
   const long long s = w.wf_stride;
   const float* p = w.wf + i;
-  g.a_u = p[0];
-  g.s_u = p[s];
-  g.a_v = p[2 * s];
-  g.s_v = p[3 * s];
+  g.a_u = T(p[0]);
+  g.s_u = T(p[s]);
+  g.a_v = T(p[2 * s]);
+  g.s_v = T(p[3 * s]);
   g.nb = w.n_break;
 #pragma unroll
   for (int k = 0; k < GRID_REG_B; ++k) {
     const bool in = k < g.nb;
-    g.ds_u[k] = in ? p[(4 + 3 * k) * s] : 0.0f;
-    g.ds_v[k] = in ? p[(5 + 3 * k) * s] : 0.0f;
-    g.b[k] = in ? p[(6 + 3 * k) * s] : 0.0f;
+    g.ds_u[k] = in ? T(p[(4 + 3 * k) * s]) : T(0);
+    g.ds_v[k] = in ? T(p[(5 + 3 * k) * s]) : T(0);
+    g.b[k] = in ? T(p[(6 + 3 * k) * s]) : T(0);
   }
   g.far = p + (4 + 3 * GRID_REG_B) * s;
   g.stride = s;
@@ -253,42 +390,54 @@ __device__ __forceinline__ GriddedWind load_gridded(const WindParams& w,
 // gridded_samplers' operations: a + t s, then + ds_k max(t - b_k, 0) in k
 // order, the max propagating NaN (jmax).  -fmad=false keeps each product
 // and sum apart.
-__device__ __forceinline__ void gridded_uv(const GriddedWind& g, float t,
-                                           float& u, float& v) {
+template <class T>
+__device__ __forceinline__ void gridded_uv(const GriddedWind<T>& g, T t, T& u,
+                                           T& v) {
   u = g.a_u + t * g.s_u;
   v = g.a_v + t * g.s_v;
 #pragma unroll
   for (int k = 0; k < GRID_REG_B; ++k) {
     if (k < g.nb) {
-      const float r = jmax(t - g.b[k], 0.0f);
+      const T r = jmax(t - g.b[k], T(0));
       u = u + g.ds_u[k] * r;
       v = v + g.ds_v[k] * r;
     }
   }
   for (int k = GRID_REG_B; k < g.nb; ++k) {
     const float* q = g.far + 3 * (k - GRID_REG_B) * g.stride;
-    const float r = jmax(t - q[2 * g.stride], 0.0f);
-    u = u + q[0] * r;
-    v = v + q[g.stride] * r;
+    const T r = jmax(t - T(q[2 * g.stride]), T(0));
+    u = u + T(q[0]) * r;
+    v = v + T(q[g.stride]) * r;
   }
 }
 
 // A steady wind given as its node planes (forcing/winds.py
 // `node_plane_winds`): the pair (u, v) of node i, whatever the time.
-__device__ __forceinline__ void node_uv(const WindParams& w, long long i,
-                                        float& u, float& v) {
-  u = w.wf[i];
-  v = w.wf[i + w.wf_stride];
+template <class T>
+__device__ __forceinline__ void node_uv(const WindParams<T>& w, long long i,
+                                        T& u, T& v) {
+  u = T(w.wf[i]);
+  v = T(w.wf[i + w.wf_stride]);
+}
+
+// The traced wind (float instances only: PICLES_F64 refuses it) at the node
+// (xn, yn) and time t.
+template <class T>
+__device__ __forceinline__ void traced_uv(T xn, T yn, T t, T& u, T& v) {
+  static_assert(std::is_same<T, float>::value,
+                "the traced wind runs in float instances only");
+  traced_wind(xn, yn, t, u, v);
 }
 
 // u, v of any kind at node i (x-coordinate xn) and time t: the remesh's
 // sampler, which reads a gridded or node wind's planes directly (in a traced
 // library, the traced wind at the node's x and y).
-__device__ __forceinline__ void wind_uv_node(const WindParams& w, long long i,
-                                             float xn, float t, float& u,
-                                             float& v) {
-  if (TRACED_LIB)
-    traced_wind(xn, w.wf[i], t, u, v);
+template <class T>
+__device__ __forceinline__ void wind_uv_node(const WindParams<T>& w,
+                                             long long i, T xn, T t, T& u,
+                                             T& v) {
+  if constexpr (TRACED_LIB)
+    traced_uv(xn, T(w.wf[i]), t, u, v);
   else if (w.kind == WIND_GRIDDED)
     gridded_uv(load_gridded(w, i), t, u, v);
   else if (w.kind == WIND_NODE)
@@ -300,96 +449,102 @@ __device__ __forceinline__ void wind_uv_node(const WindParams& w, long long i,
 // The terms of rhs_core_2d that depend on the wind alone: a lane whose wind
 // does not vary in t (the constant, half-domain and node kinds) forms them
 // once per model step.
+template <class T>
 struct WindTerms {
-  float u, v;
-  float u2;  // u * u + v * v
-  float uv;  // u * v
-  float dv;  // 2 (v * v) - u2
+  T u, v;
+  T u2;  // u * u + v * v
+  T uv;  // u * v
+  T dv;  // 2 (v * v) - u2
 };
 
-__device__ __forceinline__ WindTerms terms_of(float u, float v) {
-  WindTerms w;
+template <class T>
+__device__ __forceinline__ WindTerms<T> terms_of(T u, T v) {
+  WindTerms<T> w;
   w.u = u;
   w.v = v;
   w.u2 = u * u + v * v;
   w.uv = u * v;
-  w.dv = 2.0f * (v * v) - w.u2;
+  w.dv = T(2) * (v * v) - w.u2;
   return w;
 }
 
-__device__ __forceinline__ WindTerms wind_terms_at(const WindParams& p,
-                                                   float xn, float t) {
-  float u, v;
+template <class T>
+__device__ __forceinline__ WindTerms<T> wind_terms_at(const WindParams<T>& p,
+                                                      T xn, T t) {
+  T u, v;
   wind_uv(p, xn, t, u, v);
   return terms_of(u, v);
 }
 
 // The node kind's terms at node i (constant in t).
-__device__ __forceinline__ WindTerms node_terms(const WindParams& p,
-                                                long long i) {
-  float u, v;
+template <class T>
+__device__ __forceinline__ WindTerms<T> node_terms(const WindParams<T>& p,
+                                                   long long i) {
+  T u, v;
   node_uv(p, i, u, v);
   return terms_of(u, v);
 }
 
-__device__ __forceinline__ WindTerms gridded_terms(const GriddedWind& g,
-                                                   float t) {
-  float u, v;
+template <class T>
+__device__ __forceinline__ WindTerms<T> gridded_terms(const GriddedWind<T>& g,
+                                                      T t) {
+  T u, v;
   gridded_uv(g, t, u, v);
   return terms_of(u, v);
 }
 
 // The traced wind's terms at the node (xn, yn) and time t.
-__device__ __forceinline__ WindTerms traced_terms(float xn, float yn,
-                                                  float t) {
-  float u, v;
-  traced_wind(xn, yn, t, u, v);
+template <class T>
+__device__ __forceinline__ WindTerms<T> traced_terms(T xn, T yn, T t) {
+  T u, v;
+  traced_uv(xn, yn, t, u, v);
   return terms_of(u, v);
 }
 
 // picles_tpu/ops/rhs.py rhs_core_2d, one lane: the part that depends on the
 // state, given the wind's terms.
-__device__ __forceinline__ void rhs_state(const RHSParams& c, float lne,
-                                          float cg_x, float cg_y,
-                                          const WindTerms& w, float out[5]) {
-  const float u = w.u, v = w.v, u2 = w.u2;
-  const float c2 = cg_x * cg_x + cg_y * cg_y;
-  const float cgp2_raw = c2 / c.rg2;
+template <class T>
+__device__ __forceinline__ void rhs_state(const RHSParams<T>& c, T lne,
+                                          T cg_x, T cg_y,
+                                          const WindTerms<T>& w, T out[5]) {
+  const T u = w.u, v = w.v, u2 = w.u2;
+  const T c2 = cg_x * cg_x + cg_y * cg_y;
+  const T cgp2_raw = c2 / c.rg2;
 
-  const float k_p = c.g / (4.0f * jmax(cgp2_raw, 1e-2f));
-  const float omega_p = c.g / (2.0f * jmax(sqrtf(c2) / c.r_g, 0.1f));
-  const float c_gp_x = cg_x / c.r_g;
-  const float c_gp_y = cg_y / c.r_g;
+  const T k_p = c.g / (T(4) * jmax(cgp2_raw, T(1e-2)));
+  const T omega_p = c.g / (T(2) * jmax(xsqrt(c2) / c.r_g, T(0.1)));
+  const T c_gp_x = cg_x / c.r_g;
+  const T c_gp_y = cg_y / c.r_g;
 
-  const float ar = u2 / (4.0f * cgp2_raw);
-  const float alpha2 = ar > 250000.0f ? 250000.0f : ar;
-  const float a_p = (u * c_gp_x + v * c_gp_y) / (2.0f * jmax(cgp2_raw, 1e-8f));
-  const float H_p = 0.5f * (1.0f + tanhf(c.p * (a_p - 0.85f)));
-  const float ax = fabsf(10.0f * (a_p - 0.85f));
-  const float ex = expf(-ax);
-  const float sech = 2.0f * ex / (1.0f + ex * ex);
-  const float Delta_p = 1.0f - 1.25f * (sech * sech);
+  const T ar = u2 / (T(4) * cgp2_raw);
+  const T alpha2 = ar > T(250000) ? T(250000) : ar;
+  const T a_p = (u * c_gp_x + v * c_gp_y) / (T(2) * jmax(cgp2_raw, T(1e-8)));
+  const T H_p = T(0.5) * (T(1) + xtanh(c.p * (a_p - T(0.85))));
+  const T ax = xabs(T(10) * (a_p - T(0.85)));
+  const T ex = xexp(-ax);
+  const T sech = T(2) * ex / (T(1) + ex * ex);
+  const T Delta_p = T(1) - T(1.25) * (sech * sech);
 
-  const float I_t = (c.flags & TERM_INPUT) ? c.C_e * H_p * alpha2 : 0.0f;
-  const float D_t = (c.flags & TERM_DISSIPATION)
-                        ? expf(c.n * (lne + 2.0f * logf(k_p / c.e_T)))
-                        : 0.0f;
-  float S_cg_t = 0.0f;
+  const T I_t = (c.flags & TERM_INPUT) ? c.C_e * H_p * alpha2 : T(0);
+  const T D_t = (c.flags & TERM_DISSIPATION)
+                    ? xexp(c.n * (lne + T(2) * xlog(k_p / c.e_T)))
+                    : T(0);
+  T S_cg_t = T(0);
   if (c.flags & TERM_PEAK_SHIFT) {
-    const float k_p2 = k_p * k_p;
-    S_cg_t = c.C_alpha * Delta_p * (k_p2 * k_p2) * expf(2.0f * lne);
+    const T k_p2 = k_p * k_p;
+    S_cg_t = c.C_alpha * Delta_p * (k_p2 * k_p2) * xexp(T(2) * lne);
   }
-  float S_dir_t = 0.0f;
+  T S_dir_t = T(0);
   if (c.flags & TERM_DIRECTION) {
-    const float prod = u2 * cgp2_raw;
-    const float safe = prod == 0.0f ? 1.0f : prod;
-    const float val = (2.0f / safe) *
-                      (w.uv * (2.0f * (c_gp_y * c_gp_y) - cgp2_raw) -
-                       c_gp_x * c_gp_y * w.dv);
-    const float sin2 = prod == 0.0f ? 0.0f : val;
+    const T prod = u2 * cgp2_raw;
+    const T safe = prod == T(0) ? T(1) : prod;
+    const T val = (T(2) / safe) *
+                  (w.uv * (T(2) * (c_gp_y * c_gp_y) - cgp2_raw) -
+                   c_gp_x * c_gp_y * w.dv);
+    const T sin2 = prod == T(0) ? T(0) : val;
     S_dir_t = alpha2 * c.C_varphi * H_p * sin2;
   }
-  const float S_sphere_t = c.pc * cg_x;
+  const T S_sphere_t = c.pc * cg_x;
 
   out[0] = omega_p * c.r_g * S_cg_t + omega_p * (I_t - D_t);
   out[1] = -cg_x * omega_p * c.r_g * S_cg_t + cg_y * S_dir_t + cg_y * S_sphere_t;
@@ -398,17 +553,18 @@ __device__ __forceinline__ void rhs_state(const RHSParams& c, float lne,
     out[3] = c.m00 * cg_x + c.m01 * cg_y;
     out[4] = c.m10 * cg_x + c.m11 * cg_y;
   } else {
-    out[3] = 0.0f;
-    out[4] = 0.0f;
+    out[3] = T(0);
+    out[4] = T(0);
   }
 }
 
 // The RHS at a node of x-coordinate xn, time t, state (lne, cg_x, cg_y): the
 // wind's terms, then the state's part, in a row (K3, and K1's `_simple`
 // baseline, evaluate it so at every stage).
-__device__ __forceinline__ void rhs_at(const RHSParams& c, const WindParams& w,
-                                       float xn, float t, float lne,
-                                       float cg_x, float cg_y, float out[5]) {
+template <class T>
+__device__ __forceinline__ void rhs_at(const RHSParams<T>& c,
+                                       const WindParams<T>& w, T xn, T t,
+                                       T lne, T cg_x, T cg_y, T out[5]) {
   rhs_state(c, lne, cg_x, cg_y, wind_terms_at(w, xn, t), out);
 }
 

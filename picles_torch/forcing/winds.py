@@ -122,13 +122,14 @@ def half_domain_winds(U10: float, V10: float, x_split: float,
 
 def time_cosine_winds(U10: float, V10: float, period: float,
                       t_off: Optional[float] = None) -> Winds2D:
-    """Growing/decaying winds: amplitude cos(2 pi t / period), optionally
-    zeroed after ``t_off``."""
+    """Growing/decaying winds: amplitude cos(2 pi t / period) in float32 on
+    float32(t), optionally zeroed after ``t_off`` (the cut-off compares t
+    itself, as the JAX sampler does)."""
     def amp(t):
-        t = torch.as_tensor(t, dtype=torch.float32)
-        a = torch.cos(2.0 * math.pi * t / period)
+        a = torch.cos(2.0 * math.pi * torch.as_tensor(t, dtype=torch.float32)
+                      / period)
         if t_off is not None:
-            a = torch.where(t > t_off, 0.0, a)
+            a = torch.where(torch.as_tensor(t) > t_off, 0.0, a)
         return a
 
     return Winds2D(u=lambda x, y, t: U10 * amp(t) + 0.0 * x,

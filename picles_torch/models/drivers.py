@@ -23,16 +23,17 @@ step:
   first result intact, as JAX's immutable arrays do.
 
 ``graphed`` is fixed when the model is built: true for a ``WaveGrowth2D``
-on a CUDA device with the advance resolved to kernel K1, for a
-``WaveGrowth1D`` whose advance is kernel K7 (a CUDA device, float32 and a
-node or gridded wind), and for a ``ShardedWaveGrowth2D`` over NCCL whose
-wrapped model is graphed.  Elsewhere the drivers run ``self.step`` in a
-Python loop, for these reasons: the CPU has no graphs; the plain advance
+on a CUDA device with the advance resolved to kernel K1 (float32 or
+float64, each with instances of its own), for a ``WaveGrowth1D`` whose
+advance is kernel K7 (a CUDA device, float32 and a node, gridded or traced
+wind), and for a ``ShardedWaveGrowth2D`` over NCCL whose wrapped model is
+graphed.  Elsewhere the drivers run ``self.step`` in a Python loop, for
+these reasons: the CPU has no graphs; the plain advance
 (``tsit5.integrate_to``: the CPU's, and on the card only where the caller
-asks for ``advance_mode="torch"``, as a float64 1D model or a 1D wind
-callable that reads its time must) tests on the host whether its loop is
-done, once an iteration, which a replay cannot repeat; and a sharded step
-over gloo stages every message through host memory.  A capture or a
+asks for ``advance_mode="torch"``, as a float64 1D model, or a float64 2D
+model whose wind callable reads its time, must) tests on the host whether
+its loop is done, once an iteration, which a replay cannot repeat; and a
+sharded step over gloo stages every message through host memory.  A capture or a
 replay that fails raises: the drivers never fall back to the loop.
 ``model.step`` in a loop is always the eager step.
 

@@ -157,11 +157,11 @@ class WaveGrowth1D(StepDrivers):
         dtype = config.dtype
         # the step's DT in the model's dtype, as a host float
         self._DT = float(torch.tensor(DT, dtype=dtype))
-        # the minimal windsea of a (2, 0) m/s wind
+        # the minimal windsea of a (2, 0) m/s wind, in the model's dtype
         if minimal_particle is None:
-            minimal_particle = FR.MinimalParticle(2.0, 0.0, DT)
+            minimal_particle = FR.MinimalParticle(2.0, 0.0, DT, dtype=dtype)
         if minimal_state is None:
-            minimal_state = FR.MinimalState(2.0, 0.0, DT)
+            minimal_state = FR.MinimalState(2.0, 0.0, DT, dtype=dtype)
         self.minimal_particle = torch.as_tensor(minimal_particle, dtype=dtype)
         self.minimal_state = torch.as_tensor(minimal_state, dtype=dtype)
         self._minimal_e = float(self.minimal_state[0])
@@ -281,7 +281,8 @@ class WaveGrowth1D(StepDrivers):
         """The reseed ``[nx, 3]``: the signed windsea of the local wind, or
         the fixed defaults; the position is the node's."""
         if self.defaults is None:
-            ws = FR.get_initial_windsea_1d(u, self.settings.timestep)
+            ws = FR.get_initial_windsea_1d(u, self.settings.timestep,
+                                           dtype=self.config.dtype)
             z = torch.stack([ws.lne, ws.cg_bar_x, x_node], dim=-1)
         else:
             d = self.defaults
@@ -299,10 +300,11 @@ class WaveGrowth1D(StepDrivers):
         u0 = self._wind(x, torch.zeros_like(x))
         if self.defaults is None:
             strong = torch.abs(u0) > SQRT2
-            ws = FR.get_initial_windsea_1d(u0, self.settings.timestep)
+            ws = FR.get_initial_windsea_1d(u0, self.settings.timestep,
+                                           dtype=cfg.dtype)
             z_sea = torch.stack([ws.lne, ws.cg_bar_x, x], dim=-1)
             mp = FR.MinimalParticle(u0, torch.zeros_like(u0),
-                                    self.settings.timestep)
+                                    self.settings.timestep, dtype=cfg.dtype)
             z_min = torch.stack([mp[..., 0], mp[..., 1], x], dim=-1)
             z = torch.where(strong[..., None], z_sea, z_min).to(cfg.dtype)
             on = strong

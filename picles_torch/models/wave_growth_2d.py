@@ -51,6 +51,17 @@ clock, and handed to K1, K3 and K5/K6; every plain path (seeding, the
 re-light, the PyTorch remesh and advance) samples the interpolant, as the
 JAX model does.
 
+The model's dtype (``config.dtype``, float32 or float64) is that of every
+particle and node plane, of the seeding and of the remesh's windsea
+(``core/fetch_relations.py`` computes in it, as the JAX package does with
+x64 on), and picks the kernels' instances: each of K1-K6 has a float64
+instance (the same CUDA template, ``csrc/rhs.cuh``), which reads the grid's
+planes (node x, projection) in float64, so a float64 model on the kernels
+takes a float64 grid, as JAX builds it under x64.  The winds' own values
+stay float32, as both packages' samplers give them.  A wind callable that
+reads its time (the traced kind) runs in float32 only: a float64 model with
+one is refused at construction on a card, naming the plain modes.
+
 ``step_core`` takes the grid planes and masks it steps over, a deposit hook
 and a counter-reduction hook, so ``parallel/sharded.py`` runs the same step
 on one block of a decomposed grid.
@@ -97,6 +108,11 @@ from .state import ModelState2D, Particles2D, StepMetrics
 SQRT2 = math.sqrt(2.0)
 
 ADVANCE_MODES = ("auto", "torch", "cuda")
+# the dtypes a model computes in, each with kernel instances of its own
+KERNEL_DTYPES = (torch.float32, torch.float64)
+# the modes that run no kernel, which a wind without a float64 kernel needs
+PLAIN_MODES = ('advance_mode="torch", scatter_mode="dense" and '
+               'remesh_mode="xla"')
 SCATTER_MODES = ("auto", "dense", "dense_cuda", "xla")
 REMESH_MODES = ("xla", "pallas", "fused")
 
@@ -145,8 +161,13 @@ def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
                   ) -> WaveGrowth2DConfig:
     """``cfg`` with "auto" kernel modes resolved for tensors on ``device``,
     checked.  The remesh modes keep their names: on a CUDA device "pallas"
-    and "fused" run kernels K5 and K6, on the CPU their plain versions."""
+    and "fused" run kernels K5 and K6, on the CPU their plain versions.
+    The kernels have float32 and float64 instances: ``cfg.dtype`` float64
+    resolves as float32 does, to its float64 instances."""
     on_cuda = torch.device(device).type == "cuda"
+    if cfg.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"dtype must be one of {KERNEL_DTYPES}, got "
+                         f"{cfg.dtype}")
     if cfg.advance_mode not in ADVANCE_MODES:
         raise ValueError(f"advance_mode must be one of {ADVANCE_MODES}, got "
                          f"{cfg.advance_mode!r}")
@@ -246,12 +267,12 @@ class WaveGrowth2D(StepDrivers):
         dtype = config.dtype
         # the step's DT in the model's dtype, as a host float
         self._DT = float(torch.tensor(DT, dtype=dtype))
-        # the minimal windsea of a (2, 2) m/s wind, as host floats of the
-        # float32 values: the remesh compares against them every step
+        # the minimal windsea of a (2, 2) m/s wind in the model's dtype, as
+        # host floats: the remesh compares against them every step
         if minimal_particle is None:
-            minimal_particle = FR.MinimalParticle(2.0, 2.0, DT)
+            minimal_particle = FR.MinimalParticle(2.0, 2.0, DT, dtype=dtype)
         if minimal_state is None:
-            minimal_state = FR.MinimalState(2.0, 2.0, DT)
+            minimal_state = FR.MinimalState(2.0, 2.0, DT, dtype=dtype)
         self.minimal_particle = torch.as_tensor(minimal_particle, dtype=dtype)
         self.minimal_state = torch.as_tensor(minimal_state, dtype=dtype)
         self._minimal_e = float(self.minimal_state[0])
@@ -298,9 +319,19 @@ class WaveGrowth2D(StepDrivers):
                 winds = winds._replace(kernel=node_kernel())
                 self._node_planes = (grid, planes)
             else:
+                self._refuse_float64_traced()
                 winds = winds._replace(
                     kernel=traced_kernel(winds, grid.x.device))
             self.winds = winds
+        if (self.modes.advance_mode == "cuda" or self._remesh_kernels):
+            if winds.kernel.kind == WindKind.TRACED:
+                self._refuse_float64_traced()
+            if grid.x.dtype != dtype:
+                raise ValueError(
+                    f"the kernels read the grid's planes in the model's "
+                    f"dtype {dtype}, but the grid's are {grid.x.dtype}: "
+                    f"build the grid with dtype={dtype} (as JAX builds it "
+                    f"under its x64 setting), or pass {PLAIN_MODES}")
 
         if config.ode_init_type == "mininmal":
             self.defaults: Optional[ParticleDefaults2D] = \
@@ -320,7 +351,7 @@ class WaveGrowth2D(StepDrivers):
             self.boundary_defaults: Optional[ParticleDefaults2D] = None
             self._boundary_source = True
         elif config.boundary_type == "mininmal":
-            bws = FR.MinimalWindsea(1.0, 1.0, 5 * 60.0)
+            bws = FR.MinimalWindsea(1.0, 1.0, 5 * 60.0, dtype=config.dtype)
             self.boundary_defaults = ParticleDefaults2D(
                 float(bws.lne), float(bws.cg_bar_x), float(bws.cg_bar_y))
             self._boundary_source = True
@@ -349,6 +380,15 @@ class WaveGrowth2D(StepDrivers):
             # Hairer reset replaces it after the remesh
             clip_dt=(ode_settings.adaptive
                      and config.dt_reset_mode == "carry"))
+
+    def _refuse_float64_traced(self) -> None:
+        """A wind callable that reads its time runs on the kernels as the
+        traced kind, whose emitted function computes in float32 only."""
+        if self.config.dtype == torch.float64:
+            raise ValueError(
+                "a float64 model cannot run a wind callable that reads its "
+                "time on the kernels: the traced kind's emitted function "
+                f"computes in float32; pass {PLAIN_MODES}")
 
     def resolved_config(self) -> WaveGrowth2DConfig:
         """``self.config`` with "auto" modes resolved for the grid's device."""
@@ -405,7 +445,8 @@ class WaveGrowth2D(StepDrivers):
         if self.uniform_proj is not None:
             return self.uniform_proj
         if self._proj_planes is None or self._proj_planes[0] is not grid:
-            self._proj_planes = (grid, node_projection(grid.proj, grid.pc))
+            self._proj_planes = (grid, node_projection(grid.proj, grid.pc,
+                                                       self.config.dtype))
         return self._proj_planes[1]
 
     # ------------------------------------------------------------------
@@ -430,7 +471,8 @@ class WaveGrowth2D(StepDrivers):
         g = self.grid
         dev = self.device
         d = self.defaults if defaults == "model" else defaults
-        u0, v0 = winds_at(self.winds, g.x, g.y, torch.zeros_like(g.x))
+        u0, v0 = winds_at(self.winds, g.x, g.y, torch.zeros_like(g.x),
+                          cfg.dtype)
         wind_speed = torch.sqrt(u0 * u0 + v0 * v0)
 
         land = g.mask == 0
@@ -573,7 +615,8 @@ class WaveGrowth2D(StepDrivers):
 
         # off-particle re-light at the (lagged) end of the step
         off = ~P.on & active
-        u_end, v_end = winds_at(self.winds, grid.x, grid.y, P.t + DT)
+        u_end, v_end = winds_at(self.winds, grid.x, grid.y, P.t + DT,
+                                cfg.dtype)
         wind2_end = u_end * u_end + v_end * v_end
         relight = off & (wind2_end >= sett.wind_min_squared)
 

@@ -45,10 +45,20 @@ plain version is ``tsit5.integrate_to`` with ``rhs.particle_equations_1d``
 (for the traced kind over ``TracedWind.winds``), which the 1D model runs on
 the CPU.
 
+K1 and K3 have a float32 and a float64 instance (the same templates,
+``csrc/rhs.cuh``), chosen by the lanes' dtype: float64 lanes launch the
+float64 library's entry points (``cuda_build.library_f64``), with the
+particle planes, the node x, the projection planes and the packed
+parameters in float64 and the wind planes float32, as the samplers give
+them.  A plane of another dtype raises, naming it: nothing is cast.  A
+traced wind runs in float32 only.
+
 ``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
-``advance_1d.launches`` count kernel launches (not plain-version calls);
-``advance_cuda.traced_launches``, ``auto_dt_cuda.traced_launches`` and
-``advance_1d.traced_launches`` the launches of the traced instances.
+``advance_1d.launches`` count kernel launches (not plain-version calls) of
+the float32 instances; ``advance_cuda.traced_launches``,
+``auto_dt_cuda.traced_launches`` and ``advance_1d.traced_launches`` the
+launches of the traced instances; ``advance_cuda.f64_launches`` and
+``auto_dt_cuda.f64_launches`` those of the float64 instances.
 
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
@@ -115,22 +125,40 @@ def n_wind_fields(wind: WindKernel) -> int:
     return {WindKind.NODE: 2, WindKind.TRACED: 1}.get(wind.kind, 0)
 
 
-def kernel_library(wind: WindKernel) -> Tuple[ctypes.CDLL, str]:
-    """The loaded library whose entry points run ``wind`` and the suffix of
-    their names: a traced wind's own (``cuda_build.traced_library``, built
-    at its first launch), else the kernels' library."""
-    from .cuda_build import library, traced_library
+def kernel_library(wind: WindKernel, dtype=torch.float32
+                   ) -> Tuple[ctypes.CDLL, str]:
+    """The loaded library whose entry points run ``wind`` on lanes of
+    ``dtype`` and the suffix of their names: a traced wind's own
+    (``cuda_build.traced_library``, built at its first launch; float32
+    only), the float64 library for float64 lanes, else the kernels'
+    library."""
+    from .cuda_build import library, library_f64, traced_library
 
     if wind.kind == WindKind.TRACED:
+        if dtype != torch.float32:
+            raise TypeError("a traced wind's kernels compute in float32, "
+                            f"not {dtype}")
         return traced_library(wind.traced), "_traced"
+    if dtype == torch.float64:
+        return library_f64(), "_f64"
     return library(), ""
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
 
 
 def wind_params(wind: WindKernel) -> Tuple[list, list]:
     """The wind's packed float and int parameters (``WindParams`` in
-    rhs.cuh, in the order ``unpack_wind`` reads them)."""
-    f = [wind.u0, wind.v0, wind.x_split, wind.background, 2.0 * math.pi,
-         wind.period, 0.0 if wind.t_off is None else wind.t_off]
+    rhs.cuh, in the order ``unpack_wind`` reads them).  The samplers' own
+    values (U10, V10, the background, and the time-cosine's 2 pi and
+    period, whose amplitude is float32 arithmetic) are float32 values in
+    any instance, as the samplers give them; the switch position and the
+    cut-off are compared with the node x and the clock in the lanes'
+    dtype."""
+    f = [_f32(wind.u0), _f32(wind.v0), wind.x_split, _f32(wind.background),
+         _f32(2.0 * math.pi), _f32(wind.period),
+         0.0 if wind.t_off is None else wind.t_off]
     return f, [int(wind.kind), int(wind.t_off is not None),
                n_wind_fields(wind)]
 
@@ -139,11 +167,11 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
                 like: torch.Tensor, simple: bool = False,
                 yn: Optional[torch.Tensor] = None) -> list:
     """The wind's planes as the kernels read them (rhs.cuh
-    ``attach_planes``): ``n_wind_fields(wind)`` float32 planes shaped like
-    the node plane ``like`` on its device, one after the other in memory,
-    as ``pallas_pwl_fields`` (and ``steady_node_planes``) return them;
-    other planes are refused.  A traced wind's one plane is the node y
-    ``yn`` (``fields`` empty)."""
+    ``attach_planes``): ``n_wind_fields(wind)`` float32 planes (in either
+    instance) shaped like the node plane ``like`` on its device, one after
+    the other in memory, as ``pallas_pwl_fields`` (and
+    ``steady_node_planes``) return them; other planes are refused.  A
+    traced wind's one plane is the node y ``yn`` (``fields`` empty)."""
     from .cuda_build import check_planes
 
     if wind.kind == WindKind.TRACED:
@@ -164,8 +192,8 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
         raise ValueError(f"{wind.kind.name.lower()} winds have no _simple "
                          "baseline")
     names = ["xn"] + [f"wind plane {k}" for k in range(n)]
-    check_planes([like, *fields], names, [torch.float32] * (n + 1))
-    step = like.numel() * like.element_size()
+    check_planes([like, *fields], names, [like.dtype] + [torch.float32] * n)
+    step = like.numel() * fields[0].element_size()
     base = fields[0].data_ptr()
     if any(f.data_ptr() != base + k * step for k, f in enumerate(fields)):
         raise ValueError(f"the wind planes must be views of one contiguous "
@@ -180,8 +208,8 @@ Projection = Union[Tuple[float, ...], torch.Tensor]
 def projection_planes(proj: Projection, like: torch.Tensor,
                       simple: bool = False) -> Optional[torch.Tensor]:
     """None for the 5 uniform scalars, else ``proj`` checked as the kernels
-    read it: one contiguous float32 ``[5, *like.shape]`` tensor on the
-    device of the node plane ``like`` (``node_projection``)."""
+    read it: one contiguous ``[5, *like.shape]`` tensor of the node plane
+    ``like``'s dtype (the lanes') on its device (``node_projection``)."""
     if not isinstance(proj, torch.Tensor):
         if len(proj) != 5:
             raise ValueError(f"the uniform projection is 5 scalars (m00, "
@@ -190,21 +218,25 @@ def projection_planes(proj: Projection, like: torch.Tensor,
     if simple:
         raise ValueError("projection planes have no _simple baseline")
     want = (5,) + tuple(like.shape)
-    if tuple(proj.shape) != want or proj.dtype != torch.float32 \
+    if tuple(proj.shape) != want or proj.dtype != like.dtype \
             or not proj.is_contiguous() or proj.device != like.device:
-        raise ValueError(f"projection planes must be one contiguous float32 "
+        real = str(like.dtype).replace("torch.", "")
+        raise ValueError(f"projection planes must be one contiguous {real} "
                          f"{want} tensor on {like.device} (node_projection), "
                          f"got {proj.dtype} {tuple(proj.shape)} on "
                          f"{proj.device}")
     return proj
 
 
-def node_projection(proj: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+def node_projection(proj: torch.Tensor, pc: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernels' per-node projection planes of a grid's ``proj [..., 2,
     2]`` and ``pc [...]``: (m00, m01, m10, m11, pc) stacked into one
-    contiguous float32 ``[5, ...]`` tensor on their device."""
+    contiguous ``[5, ...]`` tensor of the lanes' ``dtype`` on their device
+    (float64 lanes: the grid's values, as JAX's float64 step multiplies
+    them)."""
     return torch.stack([proj[..., 0, 0], proj[..., 0, 1], proj[..., 1, 0],
-                        proj[..., 1, 1], pc]).to(torch.float32).contiguous()
+                        proj[..., 1, 1], pc]).to(dtype).contiguous()
 
 
 def _rhs_wind_params(consts: RHSConsts, flags: TermFlags, wind: WindKernel,
@@ -248,7 +280,7 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     step.  Inactive lanes pass through with ``failed = False`` and
     ``naccept = 0``; a lane that finishes gets ``t = t + DT``."""
     from .cuda_build import (K1_METHODS, check_layered, check_status,
-                             library, pointer_array)
+                             library, packed, pointer_array)
 
     if config.method not in K1_METHODS:
         raise ValueError(f"the advance kernel compiles the tableaux of "
@@ -256,10 +288,10 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     wind = kernel_wind(winds, xn.device)
     method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
-    f32 = torch.float32
+    real = _lanes_dtype(comps[0], simple)
     dev, L = check_layered(ins[:8], ["lne", "cgx", "cgy", "x", "y", "t", "dt",
-                                     "active"], [f32] * 7 + [torch.bool],
-                           [xn], ["xn"], [f32], simple)
+                                     "active"], [real] * 7 + [torch.bool],
+                           [xn], ["xn"], [real], simple)
     planes = wind_planes(wind, wind_fields, xn, simple, yn)
     pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
@@ -267,7 +299,7 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     f += _tableau_params(method)
     i += [len(method.b), int(config.adaptive), int(config.force_dtmin),
           int(config.maxiters)]
-    fp = np.asarray(f, dtype=np.float32)
+    fp = packed(f, real)
     ip = np.asarray(i, dtype=np.int32)
     outs = [torch.empty_like(t) for _ in range(7)]
     failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
@@ -280,21 +312,41 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), stream)
         else:
-            lib, sfx = kernel_library(wind)
+            lib, sfx = kernel_library(wind, real)
             code = getattr(lib, "picles_advance" + sfx)(
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), L, stream)
     check_status(code, "advance")
     if not simple:
-        if wind.kind == WindKind.TRACED:
-            advance_cuda.traced_launches += 1
-        else:
-            advance_cuda.launches += 1
+        _count(advance_cuda, wind, real)
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 
 advance_cuda.launches = 0
 advance_cuda.traced_launches = 0
+advance_cuda.f64_launches = 0
+
+
+def _lanes_dtype(lanes: torch.Tensor, simple: bool) -> torch.dtype:
+    """The instance a launch runs: its lanes' dtype (float32 or float64;
+    the ``_simple`` baselines are float32 only)."""
+    from .cuda_build import real_dtype
+
+    real = real_dtype(lanes)
+    if simple and real != torch.float32:
+        raise ValueError(f"the _simple baselines compute in float32, not "
+                         f"{real}")
+    return real
+
+
+def _count(wrapper, wind: WindKernel, real: torch.dtype) -> None:
+    """Add one to the wrapper's count of the instance that launched."""
+    if wind.kind == WindKind.TRACED:
+        wrapper.traced_launches += 1
+    elif real == torch.float64:
+        wrapper.f64_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
@@ -315,21 +367,21 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     ``simple=True`` runs the previous kernel (the bare estimate of every
     lane) followed by PyTorch's clamp and select, the baseline the card
     checks hold K3 to."""
-    from .cuda_build import (check_layered, check_status, library,
+    from .cuda_build import (check_layered, check_status, library, packed,
                              pointer_array)
 
     wind = kernel_wind(winds, xn.device)
     ins = [*comps, t, xn, dt, was_reset]
-    f32 = torch.float32
+    real = _lanes_dtype(comps[0], simple)
     dev, L = check_layered([*comps, t, dt, was_reset],
                            ["lne", "cgx", "cgy", "x", "y", "t", "dt",
-                            "was_reset"], [f32] * 7 + [torch.bool],
-                           [xn], ["xn"], [f32], simple)
+                            "was_reset"], [real] * 7 + [torch.bool],
+                           [xn], ["xn"], [real], simple)
     planes = wind_planes(wind, wind_fields, xn, simple, yn)
     pp = projection_planes(proj, xn, simple)
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [abstol, reltol, 1.0 / (order + 1.0), max_dt, dtmin, DT]
-    fp = np.asarray(f, dtype=np.float32)
+    fp = packed(f, real)
     ip = np.asarray(i, dtype=np.int32)
     out = torch.empty_like(t)
     ptrs = pointer_array(ins + [out, pp] + planes)
@@ -340,22 +392,20 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), stream)
         else:
-            lib, sfx = kernel_library(wind)
+            lib, sfx = kernel_library(wind, real)
             code = getattr(lib, "picles_auto_dt" + sfx)(
                 fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                 xn.numel(), L, stream)
     check_status(code, "auto-dt")
     if simple:
         return _clamp_select(out, was_reset, dt, dtmin, DT)
-    if wind.kind == WindKind.TRACED:
-        auto_dt_cuda.traced_launches += 1
-    else:
-        auto_dt_cuda.launches += 1
+    _count(auto_dt_cuda, wind, real)
     return out
 
 
 auto_dt_cuda.launches = 0
 auto_dt_cuda.traced_launches = 0
+auto_dt_cuda.f64_launches = 0
 
 
 class Advance1DResult(NamedTuple):

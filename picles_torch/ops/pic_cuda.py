@@ -38,7 +38,13 @@ kernel launches, ``pic_gather_remesh.traced_launches`` those of K6's traced
 instance.
 
 All three share one tiled window sum (``csrc/pic_gather.cu``, its tiling
-compiled in).  ``simple=True`` launches the previous one-thread-per-node kernel
+compiled in), with a float32 and a float64 instance chosen by the planes'
+dtype (float64: the float64 library's entry points,
+``cuda_build.library_f64``; every plane but the masks and the float32 wind
+planes, and the packed parameters, in float64; a plane of another dtype
+raises, naming it).  ``pic_gather.f64_launches``,
+``pic_gather_padded.f64_launches`` and ``pic_gather_remesh.f64_launches``
+count the float64 instances' launches, ``launches`` the float32 ones.  ``simple=True`` launches the previous one-thread-per-node kernel
 instead, the baseline the card checks hold the tiled one to bit for bit; no
 path of the package passes it, and its launches are not counted.
 """
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from ..grids.base import Boundary, GridStats
+from .advance_cuda import _lanes_dtype
 from .pic import ScatterStats, halo_bounds, normalize_halo
 from .remesh import RemeshParams, RemeshResult
 
@@ -66,10 +73,10 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
 
     if len(chans) != 3:
         raise ValueError(f"the gather kernel takes 3 channels, got {len(chans)}")
-    f32 = torch.float32
+    real = _lanes_dtype(xrel, simple)
     dev, L = check_layered([xrel, yrel, *chans, active],
                            ["xrel", "yrel", "c0", "c1", "c2", "active"],
-                           [f32] * 5 + [torch.bool], (), (), (), simple)
+                           [real] * 5 + [torch.bool], (), (), (), simple)
     nx, ny = xrel.shape[-2:]
     (xl, xh), (yl, yh) = normalize_halo(halo)
     # the window: the declared halo, or its symmetric widening
@@ -113,27 +120,28 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     """Deposit (E, m_x, m_y) planes ``[nx, ny]`` (or ``[L, nx, ny]``) of the
     ``active`` particles at relative positions (xrel, yrel) onto the nodes
     (K2)."""
-    from .cuda_build import check_status, library, pointer_array
+    from .cuda_build import check_status, library, packed, pointer_array
 
     dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo,
                                        simple)
-    fp = np.asarray(f, dtype=np.float32)
+    fp = packed(f, xrel.dtype)
     ip = np.asarray(i, dtype=np.int32)
     outs = [torch.empty_like(xrel) for _ in range(3)]
     ptrs = pointer_array([xrel, yrel, *chans, active] + outs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_pic_gather_simple if simple
-              else library().picles_pic_gather)
+              else _entry("picles_pic_gather", xrel.dtype))
         code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                   stream)
     check_status(code, "CIC gather")
     if not simple:
-        pic_gather.launches += 1
+        _count(pic_gather, xrel.dtype)
     return tuple(outs), ScatterStats(clamped=clamped)
 
 
 pic_gather.launches = 0
+pic_gather.f64_launches = 0
 
 
 def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -146,29 +154,30 @@ def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
     padded node (i, j) is block node (i - xl, j - yl)) and the clamped
     count.  Takes no ``GridStats``: the planes are a block's and nothing
     wraps."""
-    from .cuda_build import check_status, library, pointer_array
+    from .cuda_build import check_status, library, packed, pointer_array
 
     dev, f, i, clamped = _deposit_setup(xrel, yrel, chans, active, halo,
                                         simple=simple)
     nx, ny, xl, xh, yl, yh = i[:6]
-    fp = np.asarray(f, dtype=np.float32)
+    fp = packed(f, xrel.dtype)
     ip = np.asarray(i, dtype=np.int32)
     out = torch.empty((3, *xrel.shape[:-2], nx + xl + xh, ny + yl + yh),
-                      dtype=torch.float32, device=dev)
+                      dtype=xrel.dtype, device=dev)
     ptrs = pointer_array([xrel, yrel, *chans, active, *out])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = (library().picles_pic_gather_padded_simple if simple
-              else library().picles_pic_gather_padded)
+              else _entry("picles_pic_gather_padded", xrel.dtype))
         code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                   stream)
     check_status(code, "padded CIC gather")
     if not simple:
-        pic_gather_padded.launches += 1
+        _count(pic_gather_padded, xrel.dtype)
     return out, ScatterStats(clamped=clamped)
 
 
 pic_gather_padded.launches = 0
+pic_gather_padded.f64_launches = 0
 
 
 def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -190,7 +199,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     varies in y)."""
     from ..forcing.winds import WindKind
     from .advance_cuda import kernel_library, kernel_wind, wind_planes
-    from .cuda_build import check_status, library, pointer_array
+    from .cuda_build import check_status, library, packed, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
 
     dev, f, i, clamped = _gather_setup(xrel, yrel, chans, scatter_active,
@@ -202,7 +211,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     wind = kernel_wind(p.winds, dev)
     planes = wind_planes(wind, wind_fields, xn, simple, yn)
     rf, ri = remesh_params(p, dev)
-    fp = np.asarray(f + rf, dtype=np.float32)
+    fp = packed(f + rf, xrel.dtype)
     ip = np.asarray(i + ri, dtype=np.int32)
     node = [torch.empty_like(xrel) for _ in range(3)]
     outs = remesh_outputs(lne)
@@ -213,7 +222,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
         if simple:
             fn = library().picles_pic_gather_remesh_simple
         else:
-            lib, sfx = kernel_library(wind)
+            lib, sfx = kernel_library(wind, xrel.dtype)
             fn = getattr(lib, "picles_pic_gather_remesh" + sfx)
         code = fn(fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
                   stream)
@@ -222,9 +231,26 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
         if wind.kind == WindKind.TRACED:
             pic_gather_remesh.traced_launches += 1
         else:
-            pic_gather_remesh.launches += 1
+            _count(pic_gather_remesh, xrel.dtype)
     return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
 
 
 pic_gather_remesh.launches = 0
 pic_gather_remesh.traced_launches = 0
+pic_gather_remesh.f64_launches = 0
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The deposit entry point ``name`` of the instance of ``dtype``."""
+    from .cuda_build import library, library_f64
+
+    if dtype == torch.float64:
+        return getattr(library_f64(), name + "_f64")
+    return getattr(library(), name)
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    if dtype == torch.float64:
+        wrapper.f64_launches += 1
+    else:
+        wrapper.launches += 1

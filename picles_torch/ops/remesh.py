@@ -69,23 +69,25 @@ class RemeshResult(NamedTuple):
     branch: torch.Tensor   # int32 bitfield (GATHER/RESEED/OFF bits)
 
 
-def winds_at(winds: Winds2D, xn, yn, clock) -> Tuple[torch.Tensor, ...]:
-    """(u, v) float32 planes at the clock: a 0-dim model time (planes of
+def winds_at(winds: Winds2D, xn, yn, clock,
+             dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, ...]:
+    """(u, v) planes at the clock, cast to the model's ``dtype`` as the JAX
+    model casts them to ``cfg.dtype``: a 0-dim model time (planes of
     ``xn``'s shape), or one time a particle (``[L, *xn.shape]`` for layers,
     each value the one its node gives at its time)."""
     shape = torch.broadcast_shapes(xn.shape, clock.shape)
     u, v = winds(xn, yn, torch.broadcast_to(clock, shape))
-    return (torch.broadcast_to(u.to(torch.float32), shape),
-            torch.broadcast_to(v.to(torch.float32), shape))
+    return (torch.broadcast_to(u.to(dtype), shape),
+            torch.broadcast_to(v.to(dtype), shape))
 
 
 def seed_values(defaults: Defaults, u, v, timestep: float):
-    """(lne, cgx, cgy) planes: the windsea of (u, v) over ``timestep`` when
-    ``defaults`` is None, else the fixed values."""
+    """(lne, cgx, cgy) planes in u's dtype: the windsea of (u, v) over
+    ``timestep`` when ``defaults`` is None, else the fixed values."""
     if defaults is None:
-        ws = FR.get_initial_windsea(u, v, timestep)
+        ws = FR.get_initial_windsea(u, v, timestep, dtype=u.dtype)
         return ws.lne, ws.cg_bar_x, ws.cg_bar_y
-    return tuple(torch.full(u.shape, val, dtype=torch.float32,
+    return tuple(torch.full(u.shape, val, dtype=u.dtype,
                             device=u.device) for val in defaults)
 
 
@@ -97,7 +99,7 @@ def remesh_core(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     particle planes may be ``[L, nx, ny]`` (layers): the masks and the winds
     broadcast over them."""
     e_n, mx_n, my_n = node
-    u, v = winds_at(p.winds, xn, yn, clock)
+    u, v = winds_at(p.winds, xn, yn, clock, lne.dtype)
     wind2 = u * u + v * v
     m2_n = mx_n * mx_n + my_n * my_n
     part = (active | boundary) if p.boundary_source else active

@@ -18,7 +18,11 @@ samples ``forcing.winds.pwl_winds`` (``node_plane_winds``) of them.  A
 traced wind (a callable that reads its time, kind ``TRACED``) runs the
 entry point of its own library (``advance_cuda.kernel_library``), which
 reads the node y plane as well, and its plain version samples
-``TracedWind.winds``.  ``remesh_cuda.launches`` counts kernel launches,
+``TracedWind.winds``.  K5 has a float32 and a float64 instance (the same template), chosen by the
+planes' dtype: float64 planes, clock and node x launch the float64
+library's ``picles_remesh_f64``, the wind planes float32 in either.
+``remesh_cuda.launches`` counts the float32 instance's launches,
+``remesh_cuda.f64_launches`` the float64 one's,
 ``remesh_cuda.traced_launches`` those of the traced instance.
 """
 
@@ -34,7 +38,7 @@ import torch
 from ..core import fetch_relations as FR
 from ..core.constants import G_GRAVITY
 from ..forcing.winds import WindKind
-from .advance_cuda import (kernel_library, kernel_wind, wind_params,
+from .advance_cuda import (_count, kernel_library, kernel_wind, wind_params,
                            wind_planes)
 from .remesh import RemeshParams, RemeshResult
 
@@ -76,16 +80,17 @@ def check_core(planes: Sequence[torch.Tensor], clock: torch.Tensor,
     """The particle planes (``CORE_NAMES[:7]``, shaped ``shape``: the node
     state's), the masks and the node x (``[nx, ny]``, shared by the layers)
     and the clock, as the kernels take them; returns (device, layers)."""
+    from .advance_cuda import _lanes_dtype
     from .cuda_build import check_layered
 
-    f32, b = torch.float32, torch.bool
-    dev, L = check_layered(planes[:7], CORE_NAMES[:7], [f32] * 6 + [b],
-                           planes[7:], CORE_NAMES[7:], [b, b, f32], simple)
+    real, b = _lanes_dtype(planes[0], simple), torch.bool
+    dev, L = check_layered(planes[:7], CORE_NAMES[:7], [real] * 6 + [b],
+                           planes[7:], CORE_NAMES[7:], [b, b, real], simple)
     if tuple(planes[0].shape) != tuple(shape):
         raise ValueError(f"particle planes are {tuple(planes[0].shape)}, "
                          f"the node planes {tuple(shape)}")
-    if clock.device != dev or clock.dtype != f32 or clock.numel() != 1:
-        raise ValueError("the clock must be one float32 value on "
+    if clock.device != dev or clock.dtype != real or clock.numel() != 1:
+        raise ValueError(f"the clock must be one {real} value on "
                          f"{dev}, got {clock.dtype} {tuple(clock.shape)} on "
                          f"{clock.device}")
     return dev, L
@@ -109,32 +114,30 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     gridded wind's planes of this step or a steady callable's node
     planes.  ``yn`` is sent to the kernel for a traced wind only (no
     analytic wind it compiles varies in y)."""
-    from .cuda_build import check_planes, check_status, pointer_array
+    from .cuda_build import check_planes, check_status, packed, pointer_array
 
     node = tuple(node)
-    check_planes(node, ("e", "m_x", "m_y"), [torch.float32] * 3)
+    check_planes(node, ("e", "m_x", "m_y"), [lne.dtype] * 3)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
     dev, L = check_core(core, clock, node[0].shape)
     wind = kernel_wind(p.winds, dev)
     planes = wind_planes(wind, wind_fields, xn, yn=yn)
     f, i = remesh_params(p, dev)
-    fp = np.asarray(f, dtype=np.float32)
+    fp = packed(f, lne.dtype)
     ip = np.asarray(i, dtype=np.int32)
     outs = remesh_outputs(lne)
     ptrs = pointer_array([clock, *node, *core, *outs, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, sfx = kernel_library(wind)
+        lib, sfx = kernel_library(wind, lne.dtype)
         code = getattr(lib, "picles_remesh" + sfx)(
             fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
             xn.numel(), L, stream)
     check_status(code, "remesh")
-    if wind.kind == WindKind.TRACED:
-        remesh_cuda.traced_launches += 1
-    else:
-        remesh_cuda.launches += 1
+    _count(remesh_cuda, wind, lne.dtype)
     return RemeshResult(*outs)
 
 
 remesh_cuda.launches = 0
 remesh_cuda.traced_launches = 0
+remesh_cuda.f64_launches = 0

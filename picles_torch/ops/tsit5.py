@@ -192,8 +192,8 @@ def integrate_to(rhs: Callable, z0: torch.Tensor, t0: torch.Tensor,
             min=config.dtmin)
         dt_try = torch.minimum(torch.maximum(dt, dtmin_eff),
                                torch.maximum(remaining, dtmin_eff))
-        # dtmin_eff * (1.0 + 1e-8) is dtmin_eff in float32
-        at_dtmin = dt_try <= dtmin_eff
+        # as the JAX package writes it (in float32 the product is dtmin_eff)
+        at_dtmin = dt_try <= dtmin_eff * (1.0 + 1e-8)
 
         z_new, err, k_fsal = rk_step(method, rhs, t, z, dt_try, aux, k1=k1)
         if config.adaptive:

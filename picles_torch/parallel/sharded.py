@@ -8,7 +8,8 @@ stage of the step is elementwise on the block but the CIC deposit, whose
 traffic between blocks is exactly the halo slabs of the padded accumulator:
 
 - each rank deposits its block into ``[nx_b+xl+xh, ny_b+yl+yh]`` (kernel K4,
-  ``ops/pic_cuda.pic_gather_padded``, on a card; its plain version
+  ``ops/pic_cuda.pic_gather_padded``, on a card: its float32 or float64
+  instance by the model's dtype; its plain version
   ``pic.scatter_accumulate_padded`` on the CPU);
 - the x slabs go one step along the mesh's x ring and are added to the
   neighbour's core rows, then the y slabs are cut from the x-folded planes

@@ -1950,3 +1950,76 @@ def test_step_timer_synchronizes_the_card(dev, monkeypatch):
     done.record()
     assert done.query() and float(y[0, 0]) == 2048.0
     assert timer.summary()["n"] == 1
+
+
+# ---------------------------------------------------------------------------
+# float64: the double instances of K1-K6
+# ---------------------------------------------------------------------------
+
+
+def test_float64_kernels_match_plain(dev):
+    """``chip_smoke.f64_kernel_checks`` at 64^2: each double instance
+    against its float64 plain version on the card, every branch: K1 in
+    fixed substeps within 1e-12 of each component's scale and adaptive by
+    share of lanes, K3 within 1e-12, under constant, half-domain and
+    time-cosine winds, a steady callable's node planes and a gridded
+    record, with per-node projection planes and over two layers; K2, K4
+    and K6's node planes within 1e-13 and bit for bit across two launches,
+    across the tripolar seam too; K5 and K6's remesh with every branch
+    firing, bits, flags, dt and positions exact."""
+    cs = _chip_smoke()
+    err = cs.f64_kernel_checks(dev, 64)
+    assert err["K1"] <= 1e-12 and err["K3"] <= 1e-12, err
+    assert max(err["K2"], err["K4"], err["K6"]) <= 1e-13, err
+
+
+def test_float64_model_graphed_on_card_matches_cpu(dev):
+    """A float64 fused flagship and a float64 default model ("auto" modes:
+    the double instances, graphed) at 64^2, three graphed steps against the
+    same models on the CPU within 1e-10 of the state's scale, every counter
+    equal (``chip_smoke.f64_card_vs_cpu``); their eager steps launch only
+    the double instances, and replay bit for bit."""
+    import picles_torch.ops.advance_cuda as AC
+
+    cs = _chip_smoke()
+    out = cs.f64_card_vs_cpu(dev, 64)
+    assert all(v["err"] <= 1e-10 for v in out.values()), out
+    m = cs.f64_main_models(64, dev)["default"]
+    cs.reset_counters()
+    cs.reset_f64_counters()
+    eager = cs.eager_steps(m, m.init_state(), 3)
+    assert AC.advance_cuda.f64_launches == AC.auto_dt_cuda.f64_launches == 3
+    assert not any(cs.all_counters().values())
+    cs.assert_state_bitwise("float64 graphed", m.step_n_quiet(
+        m.init_state(), 3), eager)
+
+
+def test_float64_traced_wind_refused_on_card(dev):
+    """On a card a float64 model whose wind callable reads its time is
+    refused at construction, naming the plain modes; with them it runs."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              Winds2D, cartesian_box)
+
+    g = cartesian_box(2e3 * 15, 16, 2e3 * 15, 16, device=dev,
+                      dtype=torch.float64, periodic_boundary=(True, True))
+    w = Winds2D(u=lambda x, y, t: 10.0 + 0.0 * x + t / 3600.0,
+                v=lambda x, y, t: torch.zeros_like(x))
+    with pytest.raises(ValueError, match='advance_mode="torch"'):
+        WaveGrowth2D(g, w, ODESettings(),
+                     config=WaveGrowth2DConfig(dtype=torch.float64))
+    p = WaveGrowth2D(g, w, ODESettings(), config=WaveGrowth2DConfig(
+        dtype=torch.float64, advance_mode="torch", scatter_mode="dense"))
+    ms = p.step(p.init_state())
+    assert ms.state.dtype == torch.float64 and not p.graphed
+    assert bool(torch.isfinite(ms.state).all())
+
+
+def test_ptx_checks_of_both_instances(dev):
+    """The float instances' PTX holds no float64 line but the cosf argument
+    reduction; the double instances' no narrowing to float32 but in the
+    time-cosine amplitude's own function (needs nvcc)."""
+    from picles_torch.ops import cuda_build
+
+    assert cuda_build.unexpected_double_ops() == []
+    narrowing = cuda_build.narrowing_summary()
+    assert narrowing["other"] == [] and narrowing["amplitude"] > 0

@@ -25,9 +25,9 @@ Tolerances:
   crosses a block edge is added after the exchange): rtol 1e-5 in float32
   (1.4e-6 measured), 1e-13 in float64 (1.1e-15 measured); against JAX's
   sharded step rtol 5e-5 in float32 (1.4e-5 measured: young-sea growth
-  amplifies ulps) and 2e-5 in float64 (6.3e-6 measured: the port evaluates
-  the winds in float32 whatever the model's dtype, so its float64 is no
-  twin of JAX's);
+  amplifies ulps) and 1e-12 in float64 (the two libraries' float64 pow,
+  exp and log in the last ulp: the port's fetch relations, seeding and
+  remesh compute in the model's dtype, as JAX's do with x64 on);
 - the spherical grid (per-node projection planes, the open-y drop) with
   fixed substeps: the port's single-device step at rtol 2e-6 / atol 1e-9
   (tests/test_sharded.py:415), JAX's sharded step at rtol 5e-5;
@@ -311,7 +311,7 @@ def test_fixed_substep_float64(ranks):
     """Fixed substeps in float64 over half-domain winds (so the blocks'
     states differ): the port's single-device step to rtol 1e-13, where an
     exchange fault would stand out by nine orders; JAX's sharded float64
-    step to rtol 2e-5."""
+    step to rtol 1e-12, each from its own initial state."""
     r = _result(ranks, "fixed_f64")
     assert r["state"].dtype == np.float64
     single = _steps(W.model(sett=W.settings(False, 60.0), dtype=torch.float64,
@@ -321,7 +321,8 @@ def test_fixed_substep_float64(ranks):
         jms = _jax_sharded(_jmodel(sett=_jsettings(False, 60.0),
                                    dtype=jnp.float64,
                                    winds=j_half(10.0, 5.0, 50e3)), (4, 2))
-        _check(r, jms, 2e-5, what="JAX sharded float64")
+        _check(r, jms, 1e-12, atol=1e-16, patol=1e-16,
+               what="JAX sharded float64")
     # the calm half of the domain holds no active particles
     assert int(r["m_n_nan_reset"]) == 0
     assert 0 < int(r["m_n_active"]) < W.NX * W.NY
