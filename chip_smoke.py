@@ -168,9 +168,16 @@ just before and read just after:
     each shared-memory budget; a float64 card run against the CPU's within
     1e-10 (all in a process of its own, ``--float64-child``, so that its
     traces add to no late-process count); the float64 "pallas" flagship's
-    (1, 1) NCCL sharded step (K1, K4, K5) inside "sharded-1x1".  Phase "build" checks the float
-    instances' PTX for float64 and the double instances' for narrowing to
-    float32.
+    (1, 1) NCCL sharded step (K1, K4, K5) inside "sharded-1x1".  Then
+    float64 under every wind (``phase_float64_winds``): the time-cosine
+    sampler bit for bit IEEE division, each emitted double function bit
+    for bit its callable, the traced kind's double instances of K1, K3, K5
+    and K6 and K7's double instances against their plain versions, the
+    float64 pulse's, B01's and the storm's days graphed bit for bit eager
+    and in turns with float32, the card against the CPU (a float64 steady
+    callable's float64 node planes among them), and the (1, 1) NCCL
+    float64 pulse.  Phase "build" checks the float instances' PTX for
+    float64 and the double instances' for narrowing to float32.
 
 ``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7, 9 and 12
 run through it (13 through the drivers).  A replay launches the kernels without their wrappers, whose
@@ -401,17 +408,25 @@ KERNEL_KEYS = {"K1": "advance_kernel<", "K1 simple": "advance_simple_kernel<",
                "K3 f64": "f64::auto_dt_kernel<",
                "K4 f64": "f64::pic_gather_tiled_kernel<",
                "K5 f64": "f64::remesh_kernel<",
-               "K6 f64": "f64::pic_gather_remesh_tiled_kernel<"}
+               "K6 f64": "f64::pic_gather_remesh_tiled_kernel<",
+               "K7 f64": "f64::advance_1d_kernel<",
+               "K1 traced f64": "traced64::advance_kernel<",
+               "K3 traced f64": "traced64::auto_dt_kernel<",
+               "K5 traced f64": "traced64::remesh_kernel<",
+               "K6 traced f64": "traced64::pic_gather_remesh_tiled_kernel<",
+               "K7 traced f64": "traced64::advance_1d_kernel<"}
 
 
 def kernel_named(key: str, name: str) -> bool:
     """Whether the device op ``name`` is a launch of the kernel that
     ``key`` (a KERNEL_KEYS name) names: a key without ``traced::`` names
     none of a traced library's kernels, one without ``f64::`` none of the
-    float64 library's."""
+    float64 library's, one without ``traced64::`` none of a float64 traced
+    library's."""
     return (key in name
             and ("traced::" in name) == key.startswith("traced::")
-            and ("f64::" in name) == key.startswith("f64::"))
+            and ("f64::" in name) == key.startswith("f64::")
+            and ("traced64::" in name) == key.startswith("traced64::"))
 
 
 # kernel id -> [launches a trace held, launches timed] of each timing whose
@@ -592,15 +607,16 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
     one grid, whose node x and node planes are read once a node.  A traced
     wind (``traced_ops`` operations an evaluation) reads the node x and y
     (8 bytes).  ``real``: the bytes of a lane value (8 for the float64
-    instances: the 14 lane planes, the node x and the projection planes
-    twice as wide, the masks, counts and float32 wind planes not)."""
+    instances: the 14 lane planes, the node x and y and the projection
+    planes twice as wide, the masks, counts and float32 wind planes
+    not)."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS_OPS + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
                                   if n_wf > 2 else 0)
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive)
-    node = real * (n_wf == 0) + 4.0 * n_wf + 5.0 * real * proj + 4.0 * (
+    node = real * (n_wf == 0) + 4.0 * n_wf + 5.0 * real * proj + real * (
         traced_ops > 0)
     return bound((14.0 * real + 6.0 + node / layers) * n, ops, real)
 
@@ -617,19 +633,22 @@ WIND1D_OPS = 27
 
 
 def k7_bound(n: int, method: str, adaptive: bool, live, iters,
-             record_bytes: int = 0, traced_ops: int = 0) -> dict:
+             record_bytes: int = 0, traced_ops: int = 0,
+             real: int = 4) -> dict:
     """K7's bound on this run's inputs: 25 bytes in (z, t, dt, active, and
     the node's wind plane or its x) and 25 out a particle, a record's
     bytes once; per live particle one RHS evaluation to start, then per
     substep tried (accepted or rejected) S evaluations (each with a read of
     the record where the wind is one, or the traced wind's ``traced_ops``
-    operations) and the substep's own operations over 3 components."""
+    operations) and the substep's own operations over 3 components.
+    ``real``: the bytes of a lane value (8: the float64 instances, 94 bytes
+    a particle, the operations at the float64 rate)."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS1D_OPS + (WIND1D_OPS if record_bytes else 0) + traced_ops
     ops = (float(live.sum()) + S * it) * rhs \
         + it * k1_substep_ops(method, adaptive, comps=3)
-    return bound(50.0 * n + record_bytes, ops)
+    return bound((11.0 * real + 6.0) * n + record_bytes, ops, real)
 
 
 def remesh_branch_bytes(branch: torch.Tensor, wind_bytes: float,
@@ -675,8 +694,9 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
     planes twice as wide)."""
     (xl, xh), (yl, yh) = normalize_halo(halo)
     cells = (xl + xh + 1) * (yl + yh + 1)
-    wind = (4.0 * n_wf - real) if n_wf else 0.0
-    wind += 4.0 * (traced_ops > 0)
+    plane = real if traced_ops else 4.0   # the traced kind's: the node y
+    wind = (plane * n_wf - real) if n_wf else 0.0
+    wind += real * (traced_ops > 0)
     node = 2.0 + real + wind   # active, boundary and x (or the wind planes)
     nbytes = (5.0 * real + 1.0) * n_src + 3.0 * real * n_out + (
         (12.0 * real + 6.0 + node / layers) * n_out if remesh else 0.0)
@@ -690,8 +710,8 @@ def deposit_bound(n_src: int, n_out: int, halo, remesh: bool = False,
         assert layers == 1 and n_wf <= 2
         need = int(((branch & 1) == 0).sum())
         nbytes = (5.0 * real + 1.0) * n_src + 3.0 * real * n_out \
-            + remesh_branch_bytes(branch, 4.0 * n_wf + 4.0 * (traced_ops > 0),
-                                  real)
+            + remesh_branch_bytes(branch, plane * n_wf + real * (
+                traced_ops > 0), real)
         ops += traced_ops * (need - n_out)
     return bound(nbytes, ops, real)
 
@@ -709,8 +729,9 @@ def remesh_bound(n: int, n_wf: int = 0, layers: int = 1,
     and the deposited state, 12 bytes, at the nodes of the particle set),
     and the wind's operations count only at the nodes that do not
     gather.  ``real``: the bytes of a lane value (8: float64)."""
-    wind = (4.0 * n_wf - real) if n_wf else 0.0
-    wind += 4.0 * (traced_ops > 0)
+    plane = real if traced_ops else 4.0   # the traced kind's: the node y
+    wind = (plane * n_wf - real) if n_wf else 0.0
+    wind += real * (traced_ops > 0)
     ops = 60.0 + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
                                if n_wf > 2 else 0)
     node = 2.0 + real + wind   # active, boundary and x (or the wind planes)
@@ -719,7 +740,7 @@ def remesh_bound(n: int, n_wf: int = 0, layers: int = 1,
         inside = int((branch != 0).sum())
         need = int(((branch & 1) == 0).sum())
         return bound(real + 3.0 * real * inside + remesh_branch_bytes(
-            branch, 4.0 * n_wf + 4.0 * (traced_ops > 0), real),
+            branch, plane * n_wf + real * (traced_ops > 0), real),
             (60.0 + (gridded_wind_ops((n_wf - 4) // 3) if n_wf > 2 else 0))
             * n + traced_ops * need, real)
     return bound((15.0 * real + 6.0 + node / layers) * n, ops * n, real)
@@ -746,7 +767,7 @@ def k3_bound(reset: torch.Tensor, wind, proj: bool = False,
             2 if wind.kind == WindKind.NODE else 0)
     node = real * (wind.kind in (WindKind.HALF_DOMAIN,
                                  WindKind.TIME_COSINE)) \
-        + 4.0 * n_wf + 5.0 * real * proj + 8.0 * traced
+        + 4.0 * n_wf + 5.0 * real * proj + 2.0 * real * traced
     per_reset = 5.0 * real + real * (wind.kind in (WindKind.TIME_COSINE,
                                                    WindKind.GRIDDED,
                                                    WindKind.TRACED)) \
@@ -900,8 +921,8 @@ def phase_build():
     nvcc a source), then both PTX checks at once: the float instances hold
     no float64 line but the cosf argument reduction
     (``unexpected_double_ops``), the double instances no narrowing to
-    float32 but the time-cosine amplitude's and libdevice's double tanh's
-    (``narrowing_summary``).  Logs the
+    float32 but the time-cosine amplitude's, the 1D record's value's and
+    libdevice's double tanh's (``narrowing_summary``).  Logs the
     double instances' registers and spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
@@ -931,9 +952,10 @@ def phase_build():
                  f"{min(e[1] for e in ents)}-{max(e[1] for e in ents)}, "
                  f"{len(spills)} spilling: {spills}; PTX: float64 -> "
                  f"float32 conversions {narrowing['amplitude']} in "
-                 f"{cuda_build.F64_NARROWING_FUNC}, {narrowing['tanh']} "
-                 f"libdevice's double tanh exponent estimates, "
-                 f"{len(narrow)} elsewhere")
+                 f"{cuda_build.F64_NARROWING_FUNC}, {narrowing['record']} in "
+                 f"{cuda_build.F64_NARROWING_FUNCS['record']} (K7's 1D "
+                 f"record), {narrowing['tanh']} libdevice's double tanh "
+                 f"exponent estimates, {len(narrow)} elsewhere")
     for e in ents:
         log("build", f"  f64 {e[0][:96]}: {e[1]} registers, spill "
                      f"stores {e[2]} B, loads {e[3]} B")
@@ -5521,16 +5543,19 @@ DEPOSIT_1D_NODES = 4096
 
 
 def b01_model(dev, U10: float = 10.0, nx: int = 31, Lx: float = 500e3,
-              tols=None) -> WaveGrowth1D:
+              tols=None, dtype=torch.float32) -> WaveGrowth1D:
     """tests/test_model_1d_b01.py's ``_model``: open ends, the log-energy
-    minimum of the 1D minimal windsea, dt = 1e-3, dtmin = 1e-4."""
+    minimum of the 1D minimal windsea, dt = 1e-3, dtmin = 1e-4; the grid
+    and the model in ``dtype``."""
     ws = FR.MinimalWindsea_1d(U10, DT)
     sett = ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
                        timestep=DT, total_time=2 * DAY, dt=1e-3, dtmin=1e-4,
                        force_dtmin=True, **(tols or {}))
-    return WaveGrowth1D(one_d_grid(0.0, Lx, nx, periodic=False, device=dev),
+    return WaveGrowth1D(one_d_grid(0.0, Lx, nx, periodic=False, device=dev,
+                                   dtype=dtype),
                         constant_winds_1d(U10), sett,
-                        config=WaveGrowth1DConfig(periodic_boundary=False))
+                        config=WaveGrowth1DConfig(periodic_boundary=False,
+                                                  dtype=dtype))
 
 
 def dulov_energy(t: float, U10: float) -> float:
@@ -6118,12 +6143,12 @@ def phase_k7(dev, model, state, kerns, winds, results) -> dict:
                 wide=wide_t, pulse_anchor=anchor, gridded_bound=rec_b)
 
 
-def b01_storm_model(dev, advance_mode: str = "auto",
+def b01_storm_model(dev, advance_mode: str = "auto", dtype=torch.float32,
                     **sett_kw) -> WaveGrowth1D:
-    """B01 (``b01_model``) under the storm ``Winds1D(u=storm_u)``, a
-    callable that reads its time (traced at construction on a card);
-    ``sett_kw`` replaces settings."""
-    m = b01_model(dev)
+    """B01 (``b01_model``, in ``dtype``) under the storm
+    ``Winds1D(u=storm_u)``, a callable that reads its time (traced at
+    construction on a card); ``sett_kw`` replaces settings."""
+    m = b01_model(dev, dtype=dtype)
     return WaveGrowth1D(m.grid, Winds1D(u=storm_u),
                         dataclasses.replace(m.settings, **sett_kw),
                         config=m.config, advance_mode=advance_mode)
@@ -8417,39 +8442,46 @@ F64_REPLACES = {
           "inputs, :188; winds cast to it, :62-63)",
     "K6": "picles_tpu/ops/pic_pallas.py:375 (float64: the dtype of its "
           "inputs, :462)",
+    "K7": "the port's own; no pl.pallas_call (picles_tpu/ops/tsit5.py:184-"
+          "280 integrate_to, jitted in float64 under x64 by "
+          "models/wave_growth_1d.py:201-251)",
 }
 F64_FNS = {"K1": advance_cuda, "K2": pic_gather, "K3": auto_dt_cuda,
            "K4": pic_gather_padded, "K5": remesh_cuda,
-           "K6": pic_gather_remesh}
-
-
-def time_cosine_divided(U10: float, V10: float, period: float,
-                        t_off: float = None) -> Winds2D:
-    """``time_cosine_winds``' sampler with its period divided as the JAX
-    package and the kernels divide it: by a 0-dim tensor, an IEEE division
-    on the card too.  ATen multiplies a float32 plane by a host scalar's
-    float32 reciprocal there, which rounds the amplitude one float32 ulp
-    off in some lanes; a float64 advance carries that at 1e-6 of its scale
-    (on the CPU ATen divides)."""
-    def amp(t):
-        t32 = torch.as_tensor(t, dtype=torch.float32)
-        a = torch.cos(2.0 * math.pi * t32 / torch.full(
-            (), period, dtype=torch.float32, device=t32.device))
-        if t_off is not None:
-            a = torch.where(torch.as_tensor(t) > t_off, 0.0, a)
-        return a
-
-    return Winds2D(u=lambda x, y, t: U10 * amp(t) + 0.0 * x,
-                   v=lambda x, y, t: V10 * amp(t) + 0.0 * x)
+           "K6": pic_gather_remesh, "K7": advance_1d}
+# the traced kind's double instances (a float64 callable's library): the
+# TPU kernel each replaces in its float64 branch, the closure called on the
+# lanes' float64 arrays and its value cast to their dtype
+F64_TRACED_REPLACES = {
+    "K1 traced f64": "picles_tpu/ops/advance_pallas.py:78-82 (float64: the "
+                     "closure on the lanes' float64 arrays, cast to them)",
+    "K3 traced f64": "picles_tpu/ops/advance_pallas.py:217-222 (float64)",
+    "K5 traced f64": "picles_tpu/ops/remesh_pallas.py:58-63 (float64)",
+    "K6 traced f64": "picles_tpu/ops/pic_pallas.py:398 (float64: remesh_core "
+                     "inside the fused kernel)",
+    "K7 traced f64": "the port's own; no pl.pallas_call (picles_tpu/ops/"
+                     "tsit5.py:184-280 under x64, u(x, t) read at each stage "
+                     "time on float64 lanes)"}
+TRACED_F64_FNS = {"K1 traced f64": advance_cuda,
+                  "K3 traced f64": auto_dt_cuda,
+                  "K5 traced f64": remesh_cuda,
+                  "K6 traced f64": pic_gather_remesh,
+                  "K7 traced f64": advance_1d}
 
 
 def f64_counters() -> dict:
-    return {f"{k} f64": fn.f64_launches for k, fn in F64_FNS.items()}
+    """The double instances' counts (``f64_launches``) and the float64
+    traced instances' (``traced_f64_launches``)."""
+    return {**{f"{k} f64": fn.f64_launches for k, fn in F64_FNS.items()},
+            **{k: fn.traced_f64_launches
+               for k, fn in TRACED_F64_FNS.items()}}
 
 
 def reset_f64_counters() -> None:
     for fn in F64_FNS.values():
         fn.f64_launches = 0
+    for fn in TRACED_F64_FNS.values():
+        fn.traced_f64_launches = 0
 
 
 def f64_scale_err(tag: str, a, b, rtol: float) -> float:
@@ -8648,15 +8680,14 @@ def f64_kernel_checks(dev, n: int) -> dict:
     adapt = SolverConfig(method="bosh3", adaptive=True, dtmin=1e-4)
     steady = Winds2D(u=lambda x, y, t: 10.0 + 2.0 * torch.sin(y / 3e4),
                      v=lambda x, y, t: 4.0 + 0.0 * x)
-    planes = steady_node_planes(steady, grid.x, grid.y)
+    planes = steady_node_planes(steady, grid.x, grid.y, F64)
     gw, wf, pwl = kernel_winds(window_record(n, dev, 900.0), grid, 1500.0)
     cases = [
         ("constant", constant_winds(10.0, 10.0), None, ()),
         ("half-domain", half_domain_winds(10.0, 5.0, 1e3 * (n - 1)), None,
          ()),
         ("time-cosine", time_cosine_winds(10.0, 5.0, period=6 * 3600.0,
-                                          t_off=1800.0),
-         time_cosine_divided(10.0, 5.0, 6 * 3600.0, t_off=1800.0), ()),
+                                          t_off=1800.0), None, ()),
         ("node", steady._replace(kernel=node_kernel()),
          node_plane_winds(planes[0], planes[1]), tuple(planes.unbind(0))),
         ("gridded", gw, pwl, tuple(wf)),
@@ -8776,7 +8807,7 @@ def f64_row(results, key, f32_fn, f64_fn, plain_fn, b, reps=10,
     turns too; the others' are the events'."""
     f32_ev, ev = f64_turns(f32_fn, f64_fn, reps)
     row = dict(events_ms=ev, f32_events_ms=f32_ev, ms=ev, f32_ms=f32_ev)
-    if key in ("K2", "K4", "K6"):
+    if key.split()[0] in ("K2", "K4", "K6"):
         s1 = kernel_ms(f32_fn, key, reps)
         n1 = kernel_ms(f64_fn, f"{key} f64", reps)
         n2 = kernel_ms(f64_fn, f"{key} f64", reps)
@@ -8884,6 +8915,822 @@ def f64_card_vs_cpu(dev, n: int = F64_CARD_CPU_N) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# float64 under every wind (phase "float64", part 2): the traced kind's
+# double instances of K1, K3, K5, K6, K7's double instance and the float64
+# winds made JAX's
+# ---------------------------------------------------------------------------
+
+# The double instances of the traced kind against their float64 plain
+# versions: K3's estimate runs the same operations in float64 with the same
+# libdevice functions (ATen's double pow alone parts, by an ulp, under
+# nvcc's default FMA contraction, which K3's Hairer pow does not reach on
+# these states), held within F64_K3_RTOL of its scale
+F64_K3_RTOL = 1e-15
+# the 2D pulse on the card against the CPU (3 steps) and the 1D float64 run
+F64_PULSE_CPU_N = 128
+F64_1D_CPU_NODES = 31
+F64_1D_CPU_STEPS = 6
+F64_1D_FIXED_DT = 10.0
+# the global jet's form for the node planes' check (U0 cos(lat) on a float64
+# spherical grid): its float64 values kept by the float64 node planes
+F64_JET_U0 = 20.0
+
+
+def f64_blob_u(x, y, t):
+    """``slopped_blob`` over the box (B01_STORM's storm, x in m)."""
+    return slopped_blob(x, t, **B01_STORM)
+
+
+def f64_traced_callables() -> dict:
+    """The 2D callables traced in float64: the pulse and ``slopped_blob``
+    (held bit for bit on the card), the time-cosine sampler (its float32
+    arithmetic on float32(t): the graph's casts) and ``every_op_winds``
+    (every operation of ``wind_trace.OPS`` in double)."""
+    cos = time_cosine_winds(10.0, 5.0, 6 * 3600.0, t_off=9000.0)
+    return {"pulse": pulse_winds(),
+            "slopped_blob": Winds2D(u=f64_blob_u,
+                                    v=lambda x, y, t: torch.zeros_like(x)),
+            "time_cosine": Winds2D(u=cos.u, v=cos.v),
+            "every op": every_op_winds()}
+
+
+def f64_traced_kernels(dev, winds: dict):
+    """Each 2D callable of ``winds`` and the 1D storm traced on the card in
+    float64 (``traced_kernel(..., dtype=torch.float64)``), and the float32
+    pulse (the float32 instances the double rows are timed against).
+    Returns (name -> descriptor, the storm's descriptor, the float32
+    pulse's)."""
+    kerns = {k: traced_kernel(w, dev, F64) for k, w in winds.items()}
+    storm = traced_kernel_1d(Winds1D(u=storm_u), dev, F64)
+    assert all(k.traced.dtype == F64 for k in (*kerns.values(), storm))
+    return kerns, storm, traced_kernel(pulse_winds(), dev)
+
+
+def f64_traced_build(kerns: dict, storm, pulse32):
+    """The float64 traced libraries (each of ``kerns`` and the storm's)
+    and the float32 pulse's built, all at once (a thread a library, nvcc's
+    processes in parallel; no CUDA call, so it runs beside the phase's
+    checks); each float64 library's double instances hold no narrowing to
+    float32 outside the out-of-line functions (``narrowing_summary``), and
+    ``traced_f32_...`` ones only in a graph that casts (the time-cosine).
+    Returns (the build's wall seconds, the narrowing by name)."""
+    traced = [k.traced for k in kerns.values()] + [storm.traced]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(traced) + 1) as ex:
+        builds = list(ex.map(cuda_build.build_traced,
+                             traced + [pulse32.traced]))[:-1]
+        narrow = list(ex.map(cuda_build.narrowing_summary, traced))
+    wall = time.perf_counter() - t0
+    names = list(kerns) + ["storm 1D"]
+    out = {}
+    for name, tr, nr in zip(names, traced, narrow):
+        assert not nr["other"], f"{name}: narrowing {nr['other'][:4]}"
+        assert (nr["traced"] > 0) == (tr.narrowings > 0), (name, nr)
+        out[name] = {k: v for k, v in nr.items() if k != "other"}
+    assert out["time_cosine"]["casts"] == 2, out
+    ents = [e for b in builds for e in ptxas_entries(b.log)]
+    spills = [e for e in ents if e[2] or e[3]]
+    log("float64", f"{len(traced)} float64 traced libraries built in "
+                   f"{wall:.1f} s (each {[round(b.seconds, 1) for b in builds]}"
+                   f" s); registers {min(e[1] for e in ents)}-"
+                   f"{max(e[1] for e in ents)}, {len(spills)} spilling: "
+                   f"{spills}; narrowing {out}")
+    for e in ents:
+        log("build", f"  traced f64 {e[0][:96]}: {e[1]} registers, spill "
+                     f"stores {e[2]} B, loads {e[3]} B")
+    return wall, out
+
+
+def f64_probe_points(dev, n: int):
+    """``n`` float64 points (x, y, t): t at the pulse's switch times and
+    their float64 neighbours among them, the rest uniform."""
+    rng = np.random.default_rng(47)
+    x = torch.as_tensor(rng.uniform(-1e5, 6e5, n), device=dev)
+    y = torch.as_tensor(rng.uniform(-90.0, 90.0, n), device=dev)
+    ts = rng.uniform(0.0, 3e4, n)
+    sw = np.array(TRACED_SWITCHES)
+    near = np.concatenate([sw, np.nextafter(sw, -1e9), np.nextafter(sw, 1e9)])
+    ts[:near.size] = near
+    ts[near.size:near.size + 4096] = np.repeat(sw, 1024)
+    return x, y, torch.as_tensor(ts, device=dev)
+
+
+def f64_traced_probe_check(dev, winds: dict, kerns: dict, storm, n: int
+                           ) -> dict:
+    """Each emitted double function alone (``picles_traced_probe_f64``,
+    ``picles_traced_probe_1d_f64``) on ``n`` float64 points against its
+    callable run by torch on the card, each value cast to float64 as the
+    kernels cast it: bit for bit for the pulse, ``slopped_blob``, the
+    time-cosine and the 1D storm; ``every_op_winds`` within an ulp (the
+    double pow by a general exponent: libdevice's, compiled here without
+    FMA contraction, parts from ATen's by an ulp in a few lanes), its
+    differing lanes counted.  The plain evaluator bit for bit the callable.
+    Returns name -> (operations, differing lanes)."""
+    x, y, t = f64_probe_points(dev, n)
+    out = {}
+
+    def compare(name, got, want, exact):
+        d = int((bits(got) != bits(want)).sum())
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), name
+        if exact:
+            assert d == 0, f"traced f64 {name}: {d} of {n} points differ"
+        else:
+            scale = float(want.abs().nan_to_num(posinf=0.0).max())
+            err = float((got - want).abs().nan_to_num().max())
+            assert err <= 4 * np.finfo(np.float64).eps * scale, (name, err)
+        return d
+
+    for name, w in winds.items():
+        tr = kerns[name].traced
+        lib = cuda_build.traced_library(tr)
+        u, v = torch.empty_like(x), torch.empty_like(x)
+        with torch.cuda.device(dev):
+            code = lib.picles_traced_probe_f64(
+                x.data_ptr(), y.data_ptr(), t.data_ptr(), u.data_ptr(),
+                v.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check_status(code, "traced f64 probe")
+        want = [torch.broadcast_to(f(x, y, t), x.shape).to(F64).contiguous()
+                for f in (w.u, w.v)]
+        d = 0
+        for c, a, b, e in zip("uv", (u, v), want, tr.evaluate(x, y, t)):
+            d += compare(f"{name} {c}", a, b, name != "every op")
+            assert torch.equal(bits(torch.broadcast_to(e, x.shape).to(F64)
+                                    .contiguous()), bits(b)), (name, c)
+        out[name] = dict(ops=len(tr.ops), differing=d)
+    u = torch.empty_like(x)
+    lib = cuda_build.traced_library_1d(storm.traced)
+    with torch.cuda.device(dev):
+        code = lib.picles_traced_probe_1d_f64(
+            x.data_ptr(), t.data_ptr(), u.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_status(code, "traced 1D f64 probe")
+    want = torch.broadcast_to(storm_u(x, t), x.shape).to(F64).contiguous()
+    out["storm 1D"] = dict(ops=len(storm.traced.ops),
+                           differing=compare("storm 1D", u, want, True))
+    log("float64", f"the emitted double functions on {n} float64 points: "
+                   f"{out} (differing lanes against the callable on the "
+                   f"card; the pulse, slopped_blob, the time-cosine and the "
+                   f"storm bit for bit)")
+    return out
+
+
+def time_cosine_division_check(dev, n: int) -> dict:
+    """``time_cosine_winds``' sampler on ``n`` float32 times up to 10 days
+    bit for bit cos(2 pi t / p) with the period divided as IEEE division,
+    as the JAX package divides it and the kernels' ``cosine_amplitude``
+    does (a division by a 0-dim tensor on the card), where ATen's division
+    by a host scalar, t * (1 / p), parts by a float32 ulp in some lanes
+    (counted).  Returns the counts."""
+    rng = np.random.default_rng(53)
+    t = torch.as_tensor(rng.uniform(0.0, 864000.0, n).astype(np.float32),
+                        device=dev)
+    period = 6 * 3600.0
+    w = time_cosine_winds(1.0, 0.0, period)
+    got = w.u(t, t, t)
+    div = torch.cos(2.0 * math.pi * t / torch.full((), period,
+                                                    device=dev))
+    recip = torch.cos(2.0 * math.pi * t / period)
+    torch.cuda.synchronize()
+    same = int((bits(got) != bits(div)).sum())
+    assert same == 0, f"time_cosine_winds differs from IEEE division on " \
+                      f"{same} of {n} times"
+    parted = int((bits(recip) != bits(div)).sum())
+    log("float64", f"time_cosine_winds' amplitude on {n} float32 times bit "
+                   f"for bit cos(2 pi t / p) by IEEE division; ATen's host "
+                   f"scalar division (t * (1 / p)) parts on {parted}")
+    return dict(times=n, reciprocal_parts=parted)
+
+
+def f64_traced_state(dev, n: int, path: str = "fused", steps: int = 6):
+    """The float64 pulse under ``path`` (``pulse_model``) at n^2 after
+    ``steps`` eager steps (the wind on: its traced double instances):
+    (model, state)."""
+    m = pulse_model(path, n, dev, dtype=F64)
+    assert m.winds.kernel.traced.dtype == F64 and m.graphed
+    return m, eager_steps(m, m.init_state(), steps)
+
+
+def f64_traced_kernel_checks(dev, n: int, winds: dict, kerns: dict,
+                             results: dict,
+                             only=("K1", "K3", "K5", "K6"),
+                             wind_names=("pulse",)) -> dict:
+    """The traced kind's double instances (those of ``only``) at n^2 on
+    the float64 pulse's states against their float64 plain versions (the
+    callable itself): K1 (``f64_k1_check``) on the fused state with its
+    lanes across the pulse's stop, under the winds of ``wind_names`` (the
+    pulse; the card tests add ``slopped_blob`` and the time-cosine), bosh3
+    and tsit5 in fixed substeps of 37.5 s within
+    F64_RTOL of each component's scale (dt, failed and naccept equal) and
+    adaptive by ``assert_controller``; K3 on the default state, every lane
+    and half reset, within F64_K3_RTOL of its scale, the unreset lanes'
+    dt bit for bit; K5 on the fused deposit at the clock (the wind on: a
+    band of rows deposited empty reseeds) and at 7200 s (calm: it goes
+    off) bit for bit its plain version in every field, K6 bit for bit K2 +
+    K5.  Returns the max scaled errors by kernel."""
+    consts, flags = f64_consts(), TermFlags()
+    errs = {}
+    fm, fs = f64_traced_state(dev, n)
+    P = fs.particles
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    act = P.on & fm.active_mask
+    g = fm.grid
+    proj = fm.uniform_proj
+    rng = np.random.default_rng(61)
+    # lanes started from 0 to 12000 s, the switch times among them
+    t0 = torch.as_tensor(rng.uniform(0.0, 1.2e4, (n, n)), device=dev)
+    k = min(1024, n * n // 4)
+    t0.view(-1)[:4 * k] = torch.as_tensor(np.repeat(np.array(
+        TRACED_SWITCHES) - DT / 2, k), device=dev)
+    if "K1" in only:
+        errs["K1"] = 0.0
+        for wname in wind_names:
+            w = winds[wname]._replace(kernel=kerns[wname])
+            for method in ("bosh3", "tsit5"):
+                for adaptive in (False, True):
+                    cfg = SolverConfig(method=method, adaptive=adaptive,
+                                       dtmin=1e-4, force_dtmin=True)
+                    dt = P.dt if adaptive else torch.full_like(P.dt, 37.5)
+                    e, _, _ = f64_k1_check(
+                        f"K1 traced f64 {wname} {method} "
+                        f"{'adaptive' if adaptive else 'fixed'}", w, consts,
+                        flags, cfg, comps, t0, dt, act, g, proj,
+                        plain_winds=winds[wname])
+                    if not adaptive:
+                        errs["K1"] = max(errs["K1"], e)
+    if "K3" in only:
+        dm, ds = f64_traced_state(dev, n, "default", 3)
+        Q = ds.particles
+        qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+        errs["K3"] = 0.0
+        for wname in wind_names:
+            w = winds[wname]._replace(kernel=kerns[wname])
+            for tag, reset in (("all", torch.ones_like(Q.on)),
+                               ("half", half_reset_mask((n, n), dev,
+                                                        seed=62))):
+                k3 = auto_dt_cuda(w, consts, flags, t0, qc, dm.grid.x,
+                                  dm.grid.y, dm.uniform_proj, reset, Q.dt,
+                                  1e-4, DT)
+                aux = RHSParams(x=dm.grid.x, y=dm.grid.y, M=dm.grid.proj,
+                                pc=dm.grid.pc)
+                p = auto_dt_reset(make_rhs(w.u, w.v, consts, flags), t0,
+                                  torch.stack(qc, dim=-1), aux, reset, Q.dt,
+                                  1e-4, DT)
+                errs["K3"] = max(errs["K3"], f64_scale_err(
+                    f"K3 traced f64 {wname} {tag} reset", k3, p,
+                    F64_K3_RTOL))
+                assert torch.equal(bits(k3[~reset]), bits(Q.dt[~reset]))
+        log("K3 traced f64", f"{n}^2: within {F64_K3_RTOL:g} of the scale "
+                             f"(max {errs['K3']:.3e}); unreset dt bit for "
+                             f"bit")
+    if "K5" in only or "K6" in only:
+        core, chans, sact = flagship_deposit_inputs(fm, fs)
+        band = torch.arange(n, device=dev)[:, None] < n // 3
+        chans = tuple(torch.where(band, 0.0, c) for c in chans)
+        rp = fm.remesh_params
+        prp = rp._replace(winds=winds["pulse"])
+        ga = (core[3], core[4], chans, sact, g.stats, fm.config.halo)
+        node, _ = pic_gather(*ga)
+        errs["K5"] = errs["K6"] = 0.0
+        for clock in (fs.time, torch.full((), 7200.0, device=dev,
+                                          dtype=F64)):
+            cc = (*core[:-1], clock)
+            k5 = remesh_cuda(rp, node, *cc)
+            assert_bitwise(f"K5 traced f64 pulse at {float(clock):g} s vs "
+                           f"its plain version", k5,
+                           remesh_core(prp, node, *cc))
+            nd, rm, _ = pic_gather_remesh(*ga, rp, *cc)
+            assert_bitwise(f"K6 traced f64 pulse at {float(clock):g} s vs "
+                           f"K2 + K5", (*nd, *rm), (*node, *k5))
+            br = branch_counts(k5.branch)
+            assert (" reseed 0 " in br) == (float(clock) >= 7200.0) and \
+                (" off 0" in br) != (float(clock) >= 7200.0), br
+            log("K5 traced f64", f"pulse at {float(clock):g} s: {br}; K5 "
+                                 f"bit for bit its plain version, K6 bit "
+                                 f"for bit K2 + K5")
+    for kk, e in errs.items():
+        results[f"{kk} traced f64"]["max_abs_err"] = e
+    return errs
+
+
+def f64_k7_probe(dev, n: int = K7_PROBE_LANES):
+    """K7's probe (``k7_probe``) in float64: the same lanes widened, the
+    node plane the probe's wind computed in float64 at the float64 lanes
+    (a steady callable's float64 values), the record its float32 data.
+    Returns (z, t, dt, active, x, plane, record, the plane's callable)."""
+    z, t, dt, act, x, _, rec = k7_probe(dev, n)
+    x64 = x.double()
+
+    def wind(xx, tt):
+        return 10.0 + 4.0 * torch.sin(xx * (2.0 * np.pi / 200e3))
+
+    plane = steady_node_plane_1d(Winds1D(u=wind), x64, F64)
+    return (z.double().contiguous(), t.double(), dt.double(), act, x64,
+            plane, rec, Winds1D(u=lambda xx, tt: plane))
+
+
+def f64_k7_case(tag: str, model, wind, winds, method: str, adaptive: bool,
+                z, t, dt, act, x) -> dict:
+    """K7's double instance against its float64 plain version
+    (``integrate_to`` over ``particle_equations_1d`` of ``winds``): fixed
+    substeps of K7_FIXED_DT s with lne, cg_x and x within F64_RTOL of their
+    scale, t, dt, failed and naccept equal; adaptive by ``assert_adaptive``
+    and (4096 lanes or more) ``assert_controller``, failed equal.  The
+    launch is not counted."""
+    cfg = SolverConfig(method=method, adaptive=adaptive, dtmin=1e-4,
+                       force_dtmin=True)
+    if not adaptive:
+        dt = torch.full_like(dt, K7_FIXED_DT)
+    before = (advance_1d.f64_launches, advance_1d.traced_f64_launches)
+    k = advance_1d(wind, model.consts, TermFlags(), cfg, DT, z, t, dt, act,
+                   x)
+    advance_1d.f64_launches, advance_1d.traced_f64_launches = before
+    rhs = particle_equations_1d(winds.u, gamma=model.constants.gamma,
+                                params=model.params, constants=model.constants)
+    p = integrate_to(rhs, z, t, t + DT, dt, x, act, cfg)
+    torch.cuda.synchronize()
+    assert k.z.dtype == F64 and torch.equal(k.failed, p.failed), tag
+    if adaptive:
+        err = max(assert_adaptive(f"{tag} {nm}", k.z[:, c], p.z[:, c])
+                  for c, nm in ((0, "lne"), (1, "cg_x")))
+        extra = (assert_controller(tag, k, p, act) if z.shape[0] >= 4096
+                 else f"naccept equal on {int((k.naccept == p.naccept).sum())}"
+                      f" of {z.shape[0]} lanes")
+    else:
+        err = max(f64_scale_err(f"{tag} {nm}", k.z[:, c], p.z[:, c],
+                                F64_RTOL)
+                  for c, nm in ((0, "lne"), (1, "cg_x"), (2, "x")))
+        for nm in ("t", "dt", "failed", "naccept"):
+            assert torch.equal(getattr(k, nm), getattr(p, nm)), \
+                f"{tag}: {nm} differs"
+        extra = "t, dt, failed and naccept equal"
+    log("K7 f64", f"{tag}: max err {err:.3e} of the scale, substeps max "
+                  f"{int(k.naccept.max())}/{int(p.naccept.max())}, failed "
+                  f"{int(k.failed.sum())}; {extra}")
+    return dict(err=err, k=k, p=p, cfg=cfg, rhs=rhs, dt=dt)
+
+
+def f64_k7_checks(dev, storm, results, probe_lanes: int = K7_PROBE_LANES,
+                  b01_steps: int = 24) -> dict:
+    """K7's double instances against their float64 plain versions
+    (``f64_k7_case``): on the float64 probe (``f64_k7_probe``) the node
+    kind, adaptive tsit5 and bosh3; on the float64 B01 state after
+    ``b01_steps`` steps (its own float64 model, K7 graphed) the node,
+    gridded (``k7_record``) and traced (the storm's float64 library)
+    kinds, bosh3 and tsit5, fixed substeps and adaptive.  Returns the
+    cases' errors and the probe's timed cases."""
+    model = b01_model(dev, dtype=F64)
+    st = eager_steps(model, model.init_state(), b01_steps).particles
+    b01 = (st.z.contiguous(), st.t, st.dt, st.on & ~model.boundary_mask,
+           model.grid.x)
+    probe = f64_k7_probe(dev, probe_lanes)
+    rec = k7_record(dev)
+    out, worst, worst_t, timed = {}, 0.0, 0.0, {}
+    for kind in ("node", "gridded", "traced"):
+        wind = {"node": model._node_plane, "gridded": rec,
+                "traced": storm}[kind]
+        winds_ = {"node": Winds1D(u=lambda xx, tt, _p=model._node_plane: _p),
+                  "gridded": rec.as_winds(),
+                  "traced": Winds1D(u=storm_u)}[kind]
+        for method in ("bosh3", "tsit5"):
+            for adaptive in (False, True):
+                tag = (f"K7 f64 B01 {kind} {method} "
+                       f"{'adaptive' if adaptive else 'fixed'}")
+                r = f64_k7_case(tag, model, wind, winds_, method, adaptive,
+                                *b01)
+                if not adaptive:
+                    if kind == "traced":
+                        worst_t = max(worst_t, r["err"])
+                    else:
+                        worst = max(worst, r["err"])
+                out[tag] = r["err"]
+    z, t, dt, act, x, plane, prec, pw = probe
+    for kind, wind, winds_ in (("node", plane, pw),
+                               ("gridded", prec, prec.as_winds()),
+                               ("traced", storm, Winds1D(u=storm_u))):
+        r = f64_k7_case(f"K7 f64 probe {kind} tsit5 adaptive", model, wind,
+                        winds_, "tsit5", True, z, t, dt, act, x)
+        timed[kind] = r
+    results["K7 f64"]["max_abs_err"] = worst
+    results["K7 traced f64"]["max_abs_err"] = worst_t
+    return dict(cases=out, timed=timed, probe=probe, model=model)
+
+
+def f64_k7_rows(k7: dict, storm, results) -> dict:
+    """The K7 double rows on the float64 probe, adaptive tsit5: each in
+    turns with its float32 instance on the same lanes cast to float32
+    (``f64_turns``, CUDA events), beside its float64 plain version and its
+    bound (``k7_bound`` with the float64 lanes' bytes and rate): the node
+    kind ("K7 f64"; the gridded kind beside it, under the probe's record)
+    and the storm ("K7 traced f64" against the float32 storm's library)."""
+    model = k7["model"]
+    z, t, dt, act, x, plane, rec, _ = k7["probe"]
+    m32 = b01_model(z.device)
+    z32, t32, dt32, x32 = (a.float().contiguous() for a in (z, t, dt, x))
+    storm32 = traced_kernel_1d(Winds1D(u=storm_u), z.device)
+    out = {}
+    for key, kind, w64, w32 in (("K7 f64", "node", plane, k7_wind(x32)),
+                                ("K7 f64 gridded", "gridded", rec, rec),
+                                ("K7 traced f64", "traced", storm, storm32)):
+        r = k7["timed"][kind]
+        cfg, rhs = r["cfg"], r["rhs"]
+
+        def launch(w, m, *a):
+            before = (advance_1d.launches, advance_1d.f64_launches,
+                      advance_1d.traced_launches,
+                      advance_1d.traced_f64_launches)
+            res = advance_1d(w, m.consts, TermFlags(), cfg, DT, *a)
+            (advance_1d.launches, advance_1d.f64_launches,
+             advance_1d.traced_launches,
+             advance_1d.traced_f64_launches) = before
+            return res
+
+        f32_ms, ms = f64_turns(
+            lambda: launch(w32, m32, z32, t32, dt32, act, x32),
+            lambda: launch(w64, model, z, t, dt, act, x), 5)
+        plain = cuda_time_ms(lambda: integrate_to(rhs, z, t, t + DT, dt, x,
+                                                  act, cfg), 1)
+        it = r["p"].naccept + r["p"].nreject
+        b = k7_bound(z.shape[0], "tsit5", True, act, it,
+                     record_bytes=rec.u_data.numel() * 4 if kind ==
+                     "gridded" else 0,
+                     traced_ops=len(storm.traced.ops) if kind == "traced"
+                     else 0, real=8)
+        out[key] = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain, **b,
+                        substeps_live_mean=float(
+                            r["p"].naccept[act].double().mean()))
+        log("kernel-time", f"{key}: {ms:.4f} ms, its float32 instance "
+                           f"{f32_ms:.4f} ms in turns ({ms / f32_ms:.2f}x), "
+                           f"plain float64 {plain:.4f} ms, bound "
+                           f"{b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                           f"{out[key]['substeps_live_mean']:.2f} substeps "
+                           f"a live lane")
+    for key in ("K7 f64", "K7 traced f64"):
+        results[key].update({k: out[key][k] for k in (
+            "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by")})
+    results["K7 f64"]["gridded"] = out["K7 f64 gridded"]
+    return out
+
+
+def f64_day_turns(m64, m32, steps: int, reps: int = 2) -> dict:
+    """Each model's day (``steps`` steps through ``Simulation.run``,
+    graphed, no frame stored) in turns, float32, float64, float64,
+    float32: the wall seconds of each and their medians."""
+    for m in (m64, m32):
+        m.step_n_quiet(m.init_state(), 1)   # captured before the turns
+    turns = {"float32": [], "float64": []}
+    for who in ("float32", "float64", "float64", "float32")[:2 * reps]:
+        m = m64 if who == "float64" else m32
+        sim = Simulation.create(m, stop_time=(steps - 1) * DT)
+        sim.run()
+        turns[who].append(sim.run_wall_time)
+    return dict(turns_s=turns, median_s={k: float(np.median(v))
+                                         for k, v in turns.items()})
+
+
+def f64_graphed_day(tag: str, m, steps: int, rows: tuple, results,
+                    trace_steps: int) -> dict:
+    """``steps`` graphed steps of the float64 model ``m`` through
+    ``Simulation.run``, then the same steps eagerly from the seed with the
+    counters set to 0 just before and read just after (``eager_day``: bit
+    for bit the graphed run, no failed or clamped lane summed over the
+    steps, each double instance of ``rows`` once a step), then
+    ``trace_steps`` replays more under a trace (``trace_window``: each
+    counted by name, the host's counters 0); launches added to the rows.
+    Returns the counters, the launches and the trace's stats."""
+    sim = Simulation.create(m, stop_time=(steps - 1) * DT)
+    sim.run()
+    reset_f64_counters()
+    day, _ = eager_day(m, sim.state, steps)
+    c = f64_counters()
+    want = {KERNEL_KEYS[r]: trace_steps for r in rows}
+    reset_f64_counters()
+    stats, got = trace_window(lambda: m.step_n_quiet(sim.state, trace_steps),
+                              trace_steps, want)
+    got = {r: got[KERNEL_KEYS[r]] for r in rows}
+    assert not any(f64_counters().values()), "the host launched kernels"
+    for r in rows:
+        assert c[r] == steps, (tag, c)
+        results[r]["launches"] += c[r] + got[r]
+        results[r]["graph_launches"] = \
+            results[r].get("graph_launches", 0) + got[r]
+    assert day["n_failed"] == 0, (tag, day)
+    assert day.get("n_clamped", 0) == 0, (tag, day)
+    log("float64", f"{tag}: {steps} graphed steps through Simulation.run bit "
+                   f"for bit the eager steps (launches "
+                   f"{({r: c[r] for r in rows})}); counters summed {day}; "
+                   f"{trace_steps} replays by trace {got}, idle share "
+                   f"{stats['idle_share']:.4f}, "
+                   f"{stats['device_ops_per_step']:.1f} device ops a step")
+    return dict(day=day, eager_launches={r: c[r] for r in rows},
+                launches_by_trace=got, idle_share=stats["idle_share"],
+                device_ops_per_step=stats["device_ops_per_step"])
+
+
+def f64_jet_u(x, y, t):
+    """The global jet's form: U0 cos(lat), float64 arithmetic on a float64
+    spherical grid (y in degrees)."""
+    return F64_JET_U0 * torch.cos(torch.deg2rad(y)) + 0.0 * x
+
+
+def f64_spherical_model(n: int, dev, winds):
+    """A float64 spherical grid (per-node projection planes) forced by
+    ``winds`` in the fused flagship's configuration (bosh3, the carried dt,
+    K1 and K6, halo 3)."""
+    grid = spherical_grid_2d(0.0, 360.0 * (n - 1) / n, n, -70.0, 70.0, n,
+                             periodic_boundary=(True, False), device=dev,
+                             dtype=F64)
+    return WaveGrowth2D(grid, winds, settings("bosh3"),
+                        config=WaveGrowth2DConfig(
+                            periodic_boundary=False, dtype=F64, halo=3,
+                            remesh_mode="fused", dt_reset_mode="carry"))
+
+
+F64_CARD_CPU_CASES = ("pulse fused", "jet node planes", "1D node",
+                      "1D gridded", "1D traced")
+
+
+def f64_winds_card_vs_cpu(dev, n2d: int = F64_PULSE_CPU_N,
+                          nx: int = F64_1D_CPU_NODES,
+                          names=F64_CARD_CPU_CASES) -> dict:
+    """The card (the double instances, graphed) against the CPU (the plain
+    versions) for each float64 wind this phase adds, within
+    F64_CARD_CPU_RTOL of each plane's scale (the carried dt within
+    F64_CARD_CPU_DT_RTOL), the counters equal, of ``names``: the traced
+    pulse, fused and default, at n2d^2, F64_STEPS steps; the fused
+    configuration on a float64 spherical grid under the global jet's form
+    (a steady callable in float64 arithmetic: the node planes keep its
+    float64 values; rounded to float32 they part by some 1e-7); the
+    float64 1D model on ``nx``
+    nodes, F64_1D_CPU_STEPS steps under the node kind (B01) and a record,
+    and under the storm (traced) in fixed substeps of F64_1D_FIXED_DT s
+    (adaptive, the controller carries the card's and the CPU's double exp
+    apart by an ulp here and there, which it grows: that gap is logged,
+    with the counters equal).  ``names``: only these cases.  Returns the
+    errors."""
+    out = {}
+    pairs = {
+        "pulse fused": lambda d: pulse_model("fused", n2d, d, dtype=F64),
+        "pulse default": lambda d: pulse_model("default", n2d, d, dtype=F64),
+        "jet node planes": lambda d: f64_spherical_model(
+            n2d, d, Winds2D(u=f64_jet_u,
+                            v=lambda x, y, t: 3.0 + 0.0 * y))}
+    for name, make in pairs.items():
+        if name not in names:
+            continue
+        rtol = F64_CARD_CPU_RTOL
+        mg, mc = make(dev), make("cpu")
+        assert mg.graphed and not mc.graphed
+        if name.startswith("jet"):
+            assert mg.winds.kernel.kind == WindKind.NODE
+            assert mg.node_planes(mg.grid).dtype == F64
+        sg = mg.step_n_quiet(mg.init_state(), F64_STEPS)
+        sc = eager_steps(mc, mc.init_state(), F64_STEPS)
+        mg.release_graph()
+        e = max(f64_scale_err(f"card vs CPU float64 {name} state ch{c}",
+                              sg.state[..., c].cpu(), sc.state[..., c],
+                              rtol) for c in range(3))
+        for f in ("lne", "cgx", "cgy", "px", "py"):
+            e = max(e, f64_scale_err(
+                f"card vs CPU float64 {name} {f}",
+                getattr(sg.particles, f).cpu(), getattr(sc.particles, f),
+                rtol))
+        e_dt = f64_scale_err(f"card vs CPU float64 {name} dt",
+                             sg.particles.dt.cpu(), sc.particles.dt,
+                             max(rtol, F64_CARD_CPU_DT_RTOL))
+        a, b = sg.metrics.as_dict(), sc.metrics.as_dict()
+        assert a == b, f"card vs CPU float64 {name}: {a} vs {b}"
+        out[name] = dict(err=e, dt_err=e_dt)
+    for kind in ("node", "gridded", "traced"):
+        if f"1D {kind}" not in names:
+            continue
+
+        def make1d(d, kind=kind, adaptive=kind != "traced"):
+            m = b01_model(d, nx=nx, dtype=F64)
+            if kind == "node":
+                return m
+            w = (Winds1D(u=storm_u) if kind == "traced"
+                 else k7_record(d).as_winds())
+            sett = m.settings if adaptive else dataclasses.replace(
+                m.settings, adaptive=False, dt=F64_1D_FIXED_DT)
+            return WaveGrowth1D(m.grid, w, sett, config=m.config)
+
+        def gap(mg, mc, tag, rtol):
+            assert mg.graphed and mg.advance_mode == "cuda" \
+                and not mc.graphed
+            sg = mg.step_n_quiet(mg.init_state(), F64_1D_CPU_STEPS)
+            sc = eager_steps(mc, mc.init_state(), F64_1D_CPU_STEPS)
+            mg.release_graph()
+            e = max(f64_scale_err(f"{tag} {nm}", a, b, rtol)
+                    for nm, a, b in (("state", sg.state.cpu(), sc.state),
+                                     ("z", sg.particles.z.cpu(),
+                                      sc.particles.z)))
+            a, b = sg.metrics.as_dict(), sc.metrics.as_dict()
+            smax = (a.pop("substeps_max"), b.pop("substeps_max"))
+            assert a == b and abs(smax[0] - smax[1]) <= 2, (tag, a, b, smax)
+            return e
+
+        tag = f"card vs CPU float64 1D {kind}"
+        out[f"1D {kind}"] = dict(err=gap(make1d(dev), make1d("cpu"), tag,
+                                         F64_CARD_CPU_RTOL))
+        if kind == "traced":
+            out["1D traced adaptive"] = dict(gap=gap(
+                make1d(dev, adaptive=True), make1d("cpu", adaptive=True),
+                f"{tag} adaptive", 1.0))
+    log("float64", f"card (graphed) vs CPU, float64 winds: {out}")
+    return out
+
+
+def phase_float64_winds(dev, traced, build, results, timing) -> None:
+    """Float64 under every wind (phase "float64", after ``phase_float64``'s
+    checks; ``traced`` the callables' descriptors (``f64_traced_kernels``),
+    ``build`` the future of ``f64_traced_build``, started at the phase's
+    start).  (a) ``time_cosine_winds``' sampler divides as IEEE
+    division (``time_cosine_division_check``); the float64 traced
+    libraries' narrowing; each emitted double function alone
+    (``f64_traced_probe_check``).  (b) The traced double instances at
+    FLAG_N^2 against their plain versions (``f64_traced_kernel_checks``).
+    (c) The float64 pulse's main path, the counters set to 0 just before
+    and read just after: the fused day (PULSE_STEPS steps) and the default
+    and "pallas" configurations' F64_STEPS steps (``f64_graphed_day``:
+    graphed through ``Simulation.run``, bit for bit eager, then replays
+    counted by trace), the fused day in turns with its float32 day.  (d) K7's double instances
+    against their plain versions (``f64_k7_checks``); B01's and the storm's
+    float64 days (two model days, ``f64_graphed_day``) in turns with their
+    float32 days.  (e) The rows' times (``f64_traced_rows``,
+    ``f64_k7_rows``).  (f) The card against the CPU
+    (``f64_winds_card_vs_cpu``)."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(part):
+        marks[part] = time.perf_counter() - t0 - sum(marks.values())
+
+    out = dict(time_cosine=time_cosine_division_check(dev, 1 << 20))
+    winds = f64_traced_callables()
+    kerns, storm, _ = traced
+    build_s, narrowing = build.result()
+    mark("waiting for the build")
+    out.update(build_seconds=build_s, narrowing=narrowing)
+    out["probe"] = f64_traced_probe_check(dev, winds, kerns, storm,
+                                          TRACED_PROBE_POINTS)
+    n = FLAG_N
+    out["kernel_errors"] = f64_traced_kernel_checks(dev, n, winds, kerns,
+                                                    results)
+    mark("(a) probes, (b) kernel checks")
+    days = {}
+    for path, rows, steps in (
+            ("fused", ("K1 traced f64", "K6 traced f64"), PULSE_STEPS),
+            ("default", ("K1 traced f64", "K2 f64", "K3 traced f64"),
+             F64_STEPS),
+            ("pallas", ("K1 traced f64", "K2 f64", "K5 traced f64"),
+             F64_STEPS)):
+        m = (pulse_model(path, n, dev, dtype=F64) if path != "pallas" else
+             flagship_model(n, dev, winds=pulse_winds(), remesh_mode="pallas",
+                            dtype=F64))
+        assert m.winds.kernel.traced.dtype == F64 and m.graphed
+        days[path] = f64_graphed_day(f"float64 pulse {path}", m, steps, rows,
+                                     results, min(steps, 12))
+        if path == "fused":
+            m32 = pulse_model("fused", n, dev)
+            days[path]["turns"] = f64_day_turns(m, m32, PULSE_STEPS)
+            m32.release_graph()
+            del m32
+        m.release_graph()
+        del m
+    out["pulse"] = days
+    mark("(c) the pulse's days")
+    k7 = f64_k7_checks(dev, storm, results)
+    one_d = {}
+    for name, rows, make in (
+            ("B01", ("K7 f64",), lambda dt: b01_model(dev, dtype=dt)),
+            ("storm", ("K7 traced f64",),
+             lambda dt: b01_storm_model(dev, dtype=dt))):
+        m64, m32 = make(F64), make(torch.float32)
+        assert m64.graphed and m64.advance_mode == "cuda"
+        one_d[name] = f64_graphed_day(f"float64 1D {name}", m64, B01_STEPS,
+                                      rows, results, K7_TRACED_STEPS)
+        one_d[name]["turns"] = f64_day_turns(m64, m32, B01_STEPS)
+        m64.release_graph()
+        m32.release_graph()
+    out["1d"] = one_d
+    mark("(d) K7 checks, the 1D days")
+    out["rows"] = f64_traced_rows(dev, n, winds, kerns, results)
+    out["k7_rows"] = f64_k7_rows(k7, storm, results)
+    mark("(e) the rows' times")
+    del k7
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = f64_winds_card_vs_cpu(dev)
+    mark("(f) card against CPU")
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = marks
+    timing["float64_winds"] = out
+    log("float64", f"float64 under every wind: done in {out['seconds']:.1f} "
+                   f"s ({marks}); pulse fused day graphed "
+                   f"{days['fused']['turns']['median_s']} s, B01 "
+                   f"{one_d['B01']['turns']['median_s']} s, storm "
+                   f"{one_d['storm']['turns']['median_s']} s (medians in "
+                   f"turns)")
+
+
+def f64_traced_rows(dev, n: int, winds: dict, kerns: dict, results) -> dict:
+    """The traced double rows at n^2 on the float64 pulse's states at 3600
+    s (the wind on): each in turns with the float32 pulse's traced instance
+    on the same values cast to float32 (``f64_turns``, CUDA events; K6 by
+    traces, ``kernel_ms``, its wrapper also sums the clamped count),
+    beside its float64 plain version and its bound (``bound`` with the
+    float64 lanes' bytes: ``k1_bound``, ``k3_bound`` every lane reset,
+    ``remesh_bound`` and ``deposit_bound`` by this state's branches)."""
+    fm, fs = f64_traced_state(dev, n)
+    dm, ds = f64_traced_state(dev, n, "default", 6)
+    assert float(fs.time) == float(ds.time) == 3600.0
+    f32 = {name: pulse_model(name, n, dev) for name in ("fused", "default")}
+    ops = len(kerns["pulse"].traced.ops)
+    out = {}
+
+    def down(xs):
+        return tuple(a.float().contiguous() if a.is_floating_point() else a
+                     for a in xs)
+
+    P = fs.particles
+    adv = P.on & fm.active_mask
+    cf = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    g = fm.grid
+    m32 = f32["fused"]
+    cf32, t32, dt32 = down(cf), *down((P.t, P.dt))
+    p = integrate_to(fm.rhs, torch.stack(cf, -1), P.t, P.t + DT, P.dt,
+                     fm.aux, adv, fm.solver)
+    f64_row(results, "K1 traced",
+            lambda: advance_cuda(m32.winds, m32.consts, m32.flags,
+                                 m32.solver, DT, cf32, t32, dt32, adv,
+                                 m32.grid.x, m32.grid.y, m32.uniform_proj),
+            lambda: advance_cuda(fm.winds, fm.consts, fm.flags, fm.solver,
+                                 DT, cf, P.t, P.dt, adv, g.x, g.y,
+                                 fm.uniform_proj),
+            lambda: integrate_to(fm.rhs, torch.stack(cf, -1), P.t, P.t + DT,
+                                 P.dt, fm.aux, adv, fm.solver),
+            k1_bound(n * n, fm.solver.method, fm.solver.adaptive, adv,
+                     p.naccept + p.nreject, traced_ops=ops, real=8),
+            reps=10, plain_reps=1)
+    Q = ds.particles
+    qc = (Q.lne, Q.cgx, Q.cgy, Q.px, Q.py)
+    reset = torch.ones_like(Q.on)
+    d32 = f32["default"]
+    qc32, qt32, qdt32 = down(qc), *down((Q.t, Q.dt))
+    gd = dm.grid
+    sett = dm.settings
+    kw = dict(abstol=sett.abstol, reltol=sett.reltol, order=dm._rk_order)
+    f64_row(results, "K3 traced",
+            lambda: auto_dt_cuda(d32.winds, d32.consts, d32.flags, qt32, qc32,
+                                 d32.grid.x, d32.grid.y, d32.uniform_proj,
+                                 reset, qdt32, sett.dtmin, DT, **kw),
+            lambda: auto_dt_cuda(dm.winds, dm.consts, dm.flags, Q.t, qc,
+                                 gd.x, gd.y, dm.uniform_proj, reset, Q.dt,
+                                 sett.dtmin, DT, **kw),
+            lambda: auto_dt_reset(dm.rhs, Q.t, torch.stack(qc, -1), dm.aux,
+                                  reset, Q.dt, sett.dtmin, DT, **kw),
+            k3_bound(reset, dm.winds.kernel, real=8), reps=20, plain_reps=2)
+    core, chans, sact = flagship_deposit_inputs(fm, fs)
+    core32 = down(core[:6]) + core[6:9] + down(core[9:])
+    chans32 = down(chans)
+    halo = fm.config.halo
+    node, _ = pic_gather(core[3], core[4], chans, sact, g.stats, halo)
+    node32 = down(node)
+    k5 = remesh_cuda(fm.remesh_params, node, *core)
+    f64_row(results, "K5 traced",
+            lambda: remesh_cuda(m32.remesh_params, node32, *core32),
+            lambda: remesh_cuda(fm.remesh_params, node, *core),
+            lambda: remesh_core(fm.remesh_params, node, *core),
+            remesh_bound(n * n, n_wf=1, traced_ops=ops, branch=k5.branch,
+                         real=8), reps=20, plain_reps=3)
+    a = pic_gather_remesh(core[3], core[4], chans, sact, g.stats, halo,
+                          fm.remesh_params, *core)
+
+    def k6_plain():
+        S, _ = scatter_dense(core[3], core[4], torch.stack(chans, -1), sact,
+                             g.stats, halo)
+        return remesh_core(fm.remesh_params,
+                           tuple(S[..., i] for i in range(3)), *core)
+
+    f64_row(results, "K6 traced",
+            lambda: pic_gather_remesh(core32[3], core32[4], chans32, sact,
+                                      g.stats, halo, m32.remesh_params,
+                                      *core32),
+            lambda: pic_gather_remesh(core[3], core[4], chans, sact, g.stats,
+                                      halo, fm.remesh_params, *core),
+            k6_plain,
+            deposit_bound(n * n, n * n, halo, remesh=True, n_wf=1,
+                          traced_ops=ops, branch=a[1].branch, real=8),
+            reps=20, plain_reps=3)
+    for key in F64_TRACED_REPLACES:
+        if key in results and "ms" in results[key]:
+            out[key] = {k: results[key][k] for k in (
+                "ms", "f32_ms", "plain_ms", "bound_ms", "bound_by")}
+    for m in f32.values():
+        m.release_graph()
+    return out
+
+
 def phase_float64(dev, results, timing) -> None:
     """The double instances of K1-K6 (the float64 library), then the
     float64 main path (phase "float64").
@@ -8904,8 +9751,13 @@ def phase_float64(dev, results, timing) -> None:
     (d) The graphed flagship and default steps, float64 against float32 in
     turns; the double gather under each shared-memory budget
     (``f64_budget_sweep``); the card against the CPU
-    (``f64_card_vs_cpu``)."""
+    (``f64_card_vs_cpu``).  (e) Float64 under every wind
+    (``phase_float64_winds``), whose traced libraries build from the
+    phase's start beside (a)-(d)."""
     t_phase = time.perf_counter()
+    traced = f64_traced_kernels(dev, f64_traced_callables())
+    pool = ThreadPoolExecutor(1)
+    build = pool.submit(f64_traced_build, *traced)
     err = f64_kernel_checks(dev, 256)
     n = FLAG_N
     models = f64_main_models(n, dev)
@@ -9128,6 +9980,8 @@ def phase_float64(dev, results, timing) -> None:
     timing["float64_graphed_ms_per_step"] = steps
     timing["float64_replays"] = graphs
     timing["float64_card_vs_cpu"] = f64_card_vs_cpu(dev)
+    phase_float64_winds(dev, traced, build, results, timing)
+    pool.shutdown()
     timing["float64_phase_seconds"] = time.perf_counter() - t_phase
     log("float64", f"done in {timing['float64_phase_seconds']:.1f} s")
 
@@ -9140,7 +9994,8 @@ def phase_float64_child(path: str) -> None:
     launches.  Writes the double instances' rows, the timing and any short
     traces to ``path``."""
     dev = torch.device("cuda", 0)
-    results = {f"{k} f64": dict(launches=0) for k in F64_REPLACES}
+    results = {key: dict(launches=0) for key in (
+        *(f"{k} f64" for k in F64_REPLACES), *F64_TRACED_REPLACES)}
     timing = {}
     phase_float64(dev, results, timing)
     with open(path, "w") as f:
@@ -9178,7 +10033,9 @@ def phase_sharded_f64(dev, results) -> None:
     (the padded deposit's double instance) and K5, 3 eager steps, the
     counters set to 0 just before and read just after, against the float64
     single-device step at ``assert_states``' bound; the graphed sharded
-    step bit for bit its eager steps."""
+    step bit for bit its eager steps.  Then the float64 pulse likewise
+    (the traced kind's double instances of K1 and K5, which the sharded
+    step takes with no code of its own)."""
     n = FLAG_N
     model = flagship_model(n, dev, dtype=F64, remesh_mode="pallas")
     ref = eager_steps(model, model.init_state(), 3)
@@ -9204,6 +10061,34 @@ def phase_sharded_f64(dev, results) -> None:
                        f"{c['K4 f64']}, K5 {c['K5 f64']} launches) vs the "
                        f"single device max abs err {err:.3e}; the graphed "
                        f"step bit for bit")
+    # the float64 pulse (the traced kind's double instances): K1 traced f64
+    # -> K4 f64 -> the fold -> K5 traced f64
+    model = flagship_model(n, dev, winds=pulse_winds(), remesh_mode="pallas",
+                           dtype=F64)
+    assert model.winds.kernel.traced.dtype == F64
+    ref = eager_steps(model, model.init_state(), 3)
+    sh = ShardedWaveGrowth2D(model, make_mesh((1, 1)))
+    assert sh.graphed
+    reset_counters()
+    reset_f64_counters()
+    ms = eager_steps(sh, sh.init_state(), 3)
+    c = f64_counters()
+    assert not any(all_counters().values())
+    assert c["K1 traced f64"] == c["K4 f64"] == c["K5 traced f64"] == 3, c
+    for k in ("K1 traced f64", "K4 f64", "K5 traced f64"):
+        results[k]["launches"] += c[k]
+    err = assert_states("sharded 1x1 float64 pulse vs single device, 3 "
+                        "steps", ms, ref)
+    assert_state_bitwise("sharded 1x1 float64 pulse graphed vs eager",
+                         sh.step_n_quiet(sh.init_state(), 3), ms)
+    check_state("sharded 1x1 float64 pulse", ms, n_failed=0, n_clamped=0)
+    sh.release_graph()
+    model.release_graph()
+    log("sharded-1x1", f"float64 pulse: 3 eager steps (K1 traced f64 "
+                       f"{c['K1 traced f64']}, K4 {c['K4 f64']}, K5 traced "
+                       f"f64 {c['K5 traced f64']} launches) vs the single "
+                       f"device max abs err {err:.3e}; the graphed step bit "
+                       f"for bit")
 
 
 def main(argv=None) -> int:
@@ -9320,6 +10205,12 @@ def main(argv=None) -> int:
         results[f"{k} f64"] = dict(results[k], name=results[k]["name"] +
                                    "_f64", replaces=rep, simple_ms=None,
                                    launches=0)
+    # the traced kind's double instances: a float64 callable's library
+    for key, rep in F64_TRACED_REPLACES.items():
+        k = key.split()[0]
+        results[key] = dict(results[k], name=results[k]["name"] +
+                            "_traced_f64", replaces=rep, simple_ms=None,
+                            launches=0)
     timing = {}
     traces_1d = phase_1d_traces_process()
     phase_float64_process(results, timing)
@@ -9381,8 +10272,9 @@ def main(argv=None) -> int:
                          *PROJ_REPLACES,
                          *(f"{k} layered" for k in LAYER_KERNELS),
                          *NODE_REPLACES, "K7", *TRACED_REPLACES,
-                         "K7 traced", *(f"{k} f64" for k in F64_REPLACES))]
-    assert len(kernels) == 36
+                         "K7 traced", *(f"{k} f64" for k in F64_REPLACES),
+                         *F64_TRACED_REPLACES)]
+    assert len(kernels) == 42
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

@@ -102,12 +102,14 @@
 // in the plain version.
 //
 // The double instances: the same arithmetic with every lane value, packed
-// parameter and literal a double, the wind planes (gridded, node) read as
-// float32 and widened, and the projection planes, the node x and the clock
-// read as doubles, as JAX's float64 kernel has them.  A lane holds twice
-// the registers, so their launch bounds ask fewer blocks an SM
-// (`K1_MIN_BLOCKS`, `K3_MIN_BLOCKS`); the `_simple` baselines have no
-// double instance.
+// parameter and literal a double, the gridded wind planes read as float32
+// and widened, and the node planes, the projection planes, the node x and
+// y and the clock read as doubles, as JAX's float64 kernel has them; a
+// float64 traced wind's (PICLES_F64 and PICLES_TRACED_WIND) call its
+// emitted double function, as JAX's float64 kernel calls the closure on the
+// lanes' float64 arrays.  A lane holds twice the registers, so their
+// launch bounds ask fewer blocks an SM (`K1_MIN_BLOCKS`, `K3_MIN_BLOCKS`);
+// the `_simple` baselines have no double instance.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -173,13 +175,16 @@ static void unpack_rhs_wind(const T* f, const int* iv, RHSParams<T>& rc,
 // blocks (at most 128), 3 gridded; tsit5 3 (at most 168), 2 adaptive or
 // gridded (at most 255).  ptxas gives bosh3 126 and 128 (adaptive, which
 // spills 4 bytes), gridded 136 and 152; tsit5 162 and 182, gridded 172
-// and 190 (chip_smoke.py phase "build" prints them, root PERF.md §6).
+// and 190 (chip_smoke.py phase "build" prints them, root PERF.md §6); a
+// traced lane holds its node x and y and the callable's temporaries: the
+// gridded kind's bounds.
 constexpr int K1_THREADS = 128;
 template <class T, class M, bool ADAPTIVE, bool GRIDDED>
 constexpr int K1_MIN_BLOCKS =
     std::is_same<T, float>::value
         ? (M::S != 6 ? 6 : (ADAPTIVE ? 5 : 6) - (GRIDDED || TRACED_LIB ? 1 : 0))
-        : (M::S != 6 ? (GRIDDED ? 3 : 4) : (ADAPTIVE || GRIDDED ? 2 : 3));
+        : (M::S != 6 ? (GRIDDED || TRACED_LIB ? 3 : 4)
+                     : (ADAPTIVE || GRIDDED || TRACED_LIB ? 2 : 3));
 
 // The state of one particle in flight: the embedded-RK lane of its 5
 // components (embedded_rk.cuh) and its wind.
@@ -239,7 +244,7 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig<T>& cfg,
   const T t0 = P.t[k];
   L.active = P.act[k] != 0;
   L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? T(0) : P.xn[i];
-  L.yn = TRACED_LIB ? T(cfg.wind.wf[i]) : T(0);
+  L.yn = TRACED_LIB ? cfg.wind.wn[i] : T(0);
   L.t_end = t0 + cfg.DT;
   L.t = t0;
   L.dt = jmax(P.dt[k], cfg.dtmin);
@@ -504,7 +509,7 @@ __device__ __forceinline__ T hairer_estimate(const AutoDtConfig<T>& cfg,
   const T t = t_free ? T(0) : P.t[k];
   const T xn =
       wp.kind == WIND_CONSTANT || gridded || node ? T(0) : P.xn[i];
-  const T yn = traced ? T(wp.wf[i]) : T(0);
+  const T yn = traced ? wp.wn[i] : T(0);
   GriddedWind<T> g;
   if (gridded) g = load_gridded(wp, i);
   T sc[5];
@@ -708,9 +713,10 @@ PICLES_USING_KERNELS
 // ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
 //          the per-node projection planes [5, n] (input; null: the RHS's
-//          uniform scalars) | the n_wf wind planes (inputs, float32: 4 + 3B
-//          gridded, u and v of the node kind, the node y of the traced
-//          kind, none for analytic winds); every other plane real_t
+//          uniform scalars) | the n_wf wind planes (inputs: float32 4 + 3B
+//          gridded, real_t u and v of the node kind, the real_t node y of
+//          the traced kind, none for analytic winds); every other plane
+//          real_t
 // n:       nodes; layers: the particle planes are [layers, n] (layer-major)
 //          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
@@ -719,8 +725,8 @@ PICLES_USING_KERNELS
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // stage count, planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_advance_traced`, the float64 library's `picles_advance_f64`, the
-// same layout.
+// `picles_advance_traced`, the float64 library's `picles_advance_f64`, a
+// float64 traced library's `picles_advance_traced_f64`, the same layout.
 constexpr int K1_PTRS = 19;
 
 extern "C" int PICLES_ENTRY(picles_advance)(const real_t* fparams,
@@ -793,15 +799,16 @@ static void launch_auto_dt(const AutoDtConfig<T>& cfg, long long n,
 // iparams: flags, wind kind, has_t_off, n_wf
 // ptrs:    lne, cgx, cgy, x, y, t, node x, dt, was_reset(u8) (inputs) |
 //          dt (output) | the per-node projection planes [5, n] (input;
-//          null: the uniform scalars) | the n_wf wind planes (inputs,
-//          float32: gridded, node, or the node y of the traced kind)
+//          null: the uniform scalars) | the n_wf wind planes (inputs:
+//          float32 gridded, real_t node, or the real_t node y of the
+//          traced kind)
 // n, layers: as picles_advance's (dt, was_reset and the output are lane
 // planes, the node x and the projection and wind planes shared).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_auto_dt_traced`, the float64 library's `picles_auto_dt_f64`, the
-// same layout.
+// `picles_auto_dt_traced`, the float64 library's `picles_auto_dt_f64`, a
+// float64 traced library's `picles_auto_dt_traced_f64`, the same layout.
 constexpr int K3_PTRS = 11;
 
 extern "C" int PICLES_ENTRY(picles_auto_dt)(const real_t* fparams,

@@ -73,13 +73,27 @@
 // `advance_1d_simple_kernel` (with the traced kind added, in a traced
 // library), the baseline chip_smoke.py and the card tests hold this one to
 // bit for bit; only `advance_1d(..., simple=True)` launches it.
-// Numerics: float32 in the plain version's order (-fmad=false, precise
-// math); the controller amplifies last-ulp differences, so the adaptive
-// loop agrees with its plain version by share of lanes, fixed substeps to
-// a few ulps.
+// Numerics: the lanes' scalar type T in the plain version's order
+// (-fmad=false, precise math); the controller amplifies last-ulp
+// differences, so the adaptive loop agrees with its plain version by share
+// of lanes, fixed substeps to a few ulps.
+//
+// The double instances (T = double, the float64 library PICLES_F64 and a
+// float64 traced wind's, `picles_advance_1d_f64` and
+// `picles_advance_1d_traced_f64`) are the same template for every method,
+// mode and wind kind, as JAX jits its 1D loop under x64: the state, the
+// clock, the controller, the packed parameters and the node x in double;
+// the node kind's plane in double (the callable's values cast to the
+// model's dtype); the gridded record's float32 samples weighed in double
+// and their sum rounded to float32, as map_coordinates returns the
+// record's dtype (rhs.cuh `gridded_u_1d`); the traced kind's emitted
+// double function.  A lane holds about twice the registers
+// (`K7_MIN_BLOCKS`); the `_simple` baseline has no double instance.
 
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "embedded_rk.cuh"
 #include "rhs.cuh"
@@ -88,22 +102,24 @@
 namespace picles {
 PICLES_KERNELS_BEGIN
 
+template <class T>
 struct Advance1DConfig {
-  RHS1DParams rc;
-  RKControl<float> ctl;
-  Gridded1D grid;   // the gridded kind's record (data set per launch)
-  float DT;
+  RHS1DParams<T> rc;
+  RKControl<T> ctl;
+  Gridded1D<T> grid;   // the gridded kind's record (data set per launch)
+  T DT;
   int maxiters;
 };
 
+template <class T>
 struct Advance1DPlanes {
-  const float *z, *t, *dt;
+  const T *z, *t, *dt;
   const unsigned char* act;
-  const float* xn;
-  float *z_o, *t_o, *dt_o;
+  const T* xn;
+  T *z_o, *t_o, *dt_o;
   unsigned char* fail_o;
   int* nacc_o;
-  const float* wind;  // node: the [n] plane; gridded: u_data [nx_w, nt_w]
+  const T* wind;  // node: the [n] plane (the record's u_data: grid.data)
 };
 
 constexpr int K7_THREADS = 128;
@@ -119,27 +135,32 @@ constexpr int K7_RUNTIME = -1;
 // 64 and 70 (tsit5's fixed instance spills 4 bytes at 64 registers with or
 // without a bound, as the previous kernel does); a traced lane its node x
 // and the callable's temporaries (under the storm of chip_smoke.py, 40-56),
-// the gridded kind's bounds.  The generic instances (K7_RUNTIME) take no
-// minimum.
-template <class M, bool ADAPTIVE, int WIND, int FLAGS>
+// the gridded kind's bounds.  double: a lane's state, stages and
+// controller take about twice the registers: the node kind 5 blocks (at
+// most 102) for bosh3, 4 (at most 128) for tsit5; the gridded and traced
+// kinds 4 for bosh3, 3 (at most 168) for tsit5.  The generic instances
+// (K7_RUNTIME) take no minimum.
+template <class T, class M, bool ADAPTIVE, int WIND, int FLAGS>
 constexpr int K7_MIN_BLOCKS =
     FLAGS == K7_RUNTIME ? 1
+    : !std::is_same<T, float>::value
+        ? (WIND == WIND_NODE ? (M::S == 6 ? 4 : 5) : (M::S == 6 ? 3 : 4))
     : WIND == WIND_NODE
         ? (M::S == 6 ? (ADAPTIVE ? 9 : 10) : (ADAPTIVE ? 10 : 12))
         : (M::S == 6 ? (ADAPTIVE ? 7 : 8) : (ADAPTIVE ? 8 : 9));
 
 // One lane's loop: load, the first stage, the substeps, store.  `rhs_of`
 // builds the lane's RHS functor from its node x and node wind value.
-template <class M, bool ADAPTIVE, class RHSOF>
-__device__ __forceinline__ void run_lane_1d(const Advance1DConfig& cfg,
-                                            const Advance1DPlanes& P,
+template <class M, bool ADAPTIVE, class T, class RHSOF>
+__device__ __forceinline__ void run_lane_1d(const Advance1DConfig<T>& cfg,
+                                            const Advance1DPlanes<T>& P,
                                             long long i, bool reads_x,
                                             bool reads_plane,
                                             const RHSOF& rhs_of) {
-  RKLane<float, 3, M::S> L;
+  RKLane<T, 3, M::S> L;
 #pragma unroll
   for (int c = 0; c < 3; ++c) L.z[c] = P.z[3 * i + c];
-  const float t0 = P.t[i];
+  const T t0 = P.t[i];
   L.active = P.act[i] != 0;
   L.t_end = t0 + cfg.DT;
   L.t = t0;
@@ -149,12 +170,12 @@ __device__ __forceinline__ void run_lane_1d(const Advance1DConfig& cfg,
   L.nacc = 0;
   L.iters = 0;
   if (!L.done) {
-    const float xn = reads_x ? P.xn[i] : 0.0f;
-    const float u0 = reads_plane ? P.wind[i] : 0.0f;
+    const T xn = reads_x ? P.xn[i] : T(0);
+    const T u0 = reads_plane ? P.wind[i] : T(0);
     const auto rhs = rhs_of(xn, u0);
     rhs(t0, L.z, L.k[0]);
     while (!L.done && L.iters < cfg.maxiters)
-      rk_substep<M, float, 3, ADAPTIVE>(cfg.ctl, L, rhs);
+      rk_substep<M, T, 3, ADAPTIVE>(cfg.ctl, L, rhs);
   }
   const bool failed = rk_failed(L);
 #pragma unroll
@@ -166,37 +187,41 @@ __device__ __forceinline__ void run_lane_1d(const Advance1DConfig& cfg,
 }
 
 // The wind of kind WIND at the lane's node (x xn, node value u0) at time t.
-template <int WIND>
-__device__ __forceinline__ float wind_1d(const Advance1DConfig& cfg, float xn,
-                                         float u0, float t) {
-  return WIND == WIND_GRIDDED  ? gridded_u_1d(cfg.grid, xn, t)
-         : WIND == WIND_TRACED ? traced_wind_1d(xn, t)
-                               : u0;
+template <int WIND, class T>
+__device__ __forceinline__ T wind_1d(const Advance1DConfig<T>& cfg, T xn,
+                                     T u0, T t) {
+  if constexpr (WIND == WIND_GRIDDED)
+    return gridded_u_1d(cfg.grid, xn, t);
+  else if constexpr (WIND == WIND_TRACED)
+    return traced_wind_1d(xn, t);
+  else
+    return u0;
 }
 
 // K7: one particle per thread.
-template <class M, bool ADAPTIVE, int WIND, int FLAGS>
+template <class T, class M, bool ADAPTIVE, int WIND, int FLAGS>
 __global__ void __launch_bounds__(K7_THREADS,
-                                  (K7_MIN_BLOCKS<M, ADAPTIVE, WIND, FLAGS>))
-advance_1d_kernel(const Advance1DConfig cfg, long long n,
-                  const Advance1DPlanes P) {
+                                  (K7_MIN_BLOCKS<T, M, ADAPTIVE, WIND, FLAGS>))
+advance_1d_kernel(const Advance1DConfig<T> cfg, long long n,
+                  const Advance1DPlanes<T> P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int flags = FLAGS == K7_RUNTIME ? cfg.rc.flags : FLAGS;
   run_lane_1d<M, ADAPTIVE>(
       cfg, P, i, WIND != WIND_NODE, WIND == WIND_NODE,
-      [&](float xn, float u0) {
-        return [&cfg, flags, xn, u0](float t, const float* z, float* out) {
+      [&](T xn, T u0) {
+        return [&cfg, flags, xn, u0](T t, const T* z, T* out) {
           rhs_1d(cfg.rc, flags, z[0], z[1], wind_1d<WIND>(cfg, xn, u0, t),
                  out);
         };
       });
 }
 
+#ifndef PICLES_F64
 // The baseline's RHS: rhs.cuh `rhs_1d` as the previous kernel evaluated
 // it, the reciprocals of r_g and e_T divided and the term flags tested at
-// every evaluation.
-__device__ __forceinline__ void rhs_1d_simple(const RHS1DParams& c,
+// every evaluation; float only.
+__device__ __forceinline__ void rhs_1d_simple(const RHS1DParams<float>& c,
                                               float lne, float cg_x, float u,
                                               float out[3]) {
   const float c_gp = fabsf(cg_x) * (1.0f / c.r_g);
@@ -226,11 +251,11 @@ __device__ __forceinline__ void rhs_1d_simple(const RHS1DParams& c,
 }
 
 // The baseline (`_simple`): the previous kernel, 128 threads a block with
-// no minimum, the same loop over `rhs_1d_simple`.
+// no minimum, the same loop over `rhs_1d_simple`; float only.
 template <class M, bool ADAPTIVE, int WIND>
 __global__ void __launch_bounds__(K7_THREADS)
-advance_1d_simple_kernel(const Advance1DConfig cfg, long long n,
-                         const Advance1DPlanes P) {
+advance_1d_simple_kernel(const Advance1DConfig<float> cfg, long long n,
+                         const Advance1DPlanes<float> P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   run_lane_1d<M, ADAPTIVE>(
@@ -242,28 +267,33 @@ advance_1d_simple_kernel(const Advance1DConfig cfg, long long n,
         };
       });
 }
+#endif  // PICLES_F64
 
-template <class M, bool ADAPTIVE, int WIND>
-static void launch_advance_1d(const Advance1DConfig& cfg, long long n,
-                              const Advance1DPlanes& P, bool simple,
+template <class M, bool ADAPTIVE, int WIND, class T>
+static void launch_advance_1d(const Advance1DConfig<T>& cfg, long long n,
+                              const Advance1DPlanes<T>& P, bool simple,
                               cudaStream_t stream) {
   const unsigned blocks = (unsigned)((n + K7_THREADS - 1) / K7_THREADS);
-  if (simple)
+#ifndef PICLES_F64
+  if (simple) {
     advance_1d_simple_kernel<M, ADAPTIVE, WIND>
         <<<blocks, K7_THREADS, 0, stream>>>(cfg, n, P);
-  else if ((cfg.rc.flags & TERMS_1D) == K7_FLAGS)
-    advance_1d_kernel<M, ADAPTIVE, WIND, K7_FLAGS>
+    return;
+  }
+#endif
+  if ((cfg.rc.flags & TERMS_1D) == K7_FLAGS)
+    advance_1d_kernel<T, M, ADAPTIVE, WIND, K7_FLAGS>
         <<<blocks, K7_THREADS, 0, stream>>>(cfg, n, P);
   else
-    advance_1d_kernel<M, ADAPTIVE, WIND, K7_RUNTIME>
+    advance_1d_kernel<T, M, ADAPTIVE, WIND, K7_RUNTIME>
         <<<blocks, K7_THREADS, 0, stream>>>(cfg, n, P);
 }
 
 // The library's wind kinds: the traced one in a traced library, node and
 // gridded in the kernels' own.
-template <class M, bool ADAPTIVE>
-static void dispatch_wind_1d(const Advance1DConfig& cfg, int kind,
-                             long long n, const Advance1DPlanes& P,
+template <class M, bool ADAPTIVE, class T>
+static void dispatch_wind_1d(const Advance1DConfig<T>& cfg, int kind,
+                             long long n, const Advance1DPlanes<T>& P,
                              bool simple, cudaStream_t stream) {
   if constexpr (TRACED_LIB)
     launch_advance_1d<M, ADAPTIVE, WIND_TRACED>(cfg, n, P, simple, stream);
@@ -273,10 +303,10 @@ static void dispatch_wind_1d(const Advance1DConfig& cfg, int kind,
     launch_advance_1d<M, ADAPTIVE, WIND_NODE>(cfg, n, P, simple, stream);
 }
 
-template <class M>
-static void dispatch_1d(const Advance1DConfig& cfg, bool adaptive, int kind,
-                        long long n, const Advance1DPlanes& P, bool simple,
-                        cudaStream_t stream) {
+template <class M, class T>
+static void dispatch_1d(const Advance1DConfig<T>& cfg, bool adaptive,
+                        int kind, long long n, const Advance1DPlanes<T>& P,
+                        bool simple, cudaStream_t stream) {
   if (adaptive)
     dispatch_wind_1d<M, true>(cfg, kind, n, P, simple, stream);
   else
@@ -285,40 +315,42 @@ static void dispatch_1d(const Advance1DConfig& cfg, bool adaptive, int kind,
 
 // fparams: r_g, C_alpha, C_e, g, p, n, e_T, 2n | DT, abstol, reltol, dtmin,
 //          -1/order | the record's x0, dx, t0, dt (gridded; else unread) |
-//          1/r_g, 1/e_T (float32 quotients)
+//          1/r_g, 1/e_T (quotients in real_t); real_t each (float, or
+//          double in a float64 library)
 // iparams: flags, wind kind (WIND_NODE, WIND_GRIDDED or, in a traced
 //          library, WIND_TRACED), nx_w, nt_w, wrap_x, wrap_t, stages (3:
 //          bosh3, 6: tsit5), adaptive, force_dtmin, maxiters
 // ptrs:    z [n, 3], t, dt, active (u8), node x (inputs) | z [n, 3], t, dt,
 //          failed (u8), naccept (i32) (outputs) | the wind: the node plane
-//          [n], or the record's u_data [nx_w, nt_w] (input; null for the
-//          traced kind)
+//          [n] (real_t), or the record's u_data [nx_w, nt_w] (float32)
+//          (input; null for the traced kind); every other plane real_t
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // kind the library does not hold, another stage count, a missing wind, or
 // an empty record).
-static int advance_1d_entry(const float* f, const int* iv, void** ptrs,
+static int advance_1d_entry(const real_t* f, const int* iv, void** ptrs,
                             long long n, bool simple, void* stream) {
-  Advance1DConfig cfg;
-  cfg.rc = RHS1DParams{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
-                       f[17], f[18], iv[0]};
+  using T = real_t;
+  Advance1DConfig<T> cfg;
+  cfg.rc = RHS1DParams<T>{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
+                          f[17], f[18], iv[0]};
   cfg.DT = f[8];
-  cfg.ctl = RKControl<float>{f[11], f[9], f[10], f[12], iv[8] != 0};
+  cfg.ctl = RKControl<T>{f[11], f[9], f[10], f[12], iv[8] != 0};
   cfg.maxiters = iv[9];
   const int kind = iv[1];
-  Advance1DPlanes P;
-  P.z = (const float*)ptrs[0];
-  P.t = (const float*)ptrs[1];
-  P.dt = (const float*)ptrs[2];
+  Advance1DPlanes<T> P;
+  P.z = (const T*)ptrs[0];
+  P.t = (const T*)ptrs[1];
+  P.dt = (const T*)ptrs[2];
   P.act = (const unsigned char*)ptrs[3];
-  P.xn = (const float*)ptrs[4];
-  P.z_o = (float*)ptrs[5];
-  P.t_o = (float*)ptrs[6];
-  P.dt_o = (float*)ptrs[7];
+  P.xn = (const T*)ptrs[4];
+  P.z_o = (T*)ptrs[5];
+  P.t_o = (T*)ptrs[6];
+  P.dt_o = (T*)ptrs[7];
   P.fail_o = (unsigned char*)ptrs[8];
   P.nacc_o = (int*)ptrs[9];
-  P.wind = (const float*)ptrs[10];
-  cfg.grid = Gridded1D{P.wind, iv[2], iv[3], f[13], f[14], f[15], f[16],
-                       iv[4] != 0, iv[5] != 0};
+  P.wind = (const T*)ptrs[10];
+  cfg.grid = Gridded1D<T>{(const float*)ptrs[10], iv[2], iv[3], f[13],
+                          f[14], f[15], f[16], iv[4] != 0, iv[5] != 0};
   const bool ok =
       TRACED_LIB ? kind == WIND_TRACED
                  : (kind == WIND_NODE && P.wind != nullptr) ||
@@ -339,8 +371,8 @@ static int advance_1d_entry(const float* f, const int* iv, void** ptrs,
 
 #ifdef PICLES_TRACED_WIND_1D
 __global__ void __launch_bounds__(256)
-traced_probe_1d_kernel(long long n, const float* __restrict__ x,
-                       const float* __restrict__ t, float* __restrict__ u) {
+traced_probe_1d_kernel(long long n, const real_t* __restrict__ x,
+                       const real_t* __restrict__ t, real_t* __restrict__ u) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   u[i] = traced_wind_1d(x[i], t[i]);
@@ -354,13 +386,16 @@ using namespace picles;
 PICLES_USING_KERNELS
 
 // K7 (layout above); a traced library's entry point is
-// `picles_advance_1d_traced`, the same layout, its wind the traced kind.
-extern "C" int PICLES_ENTRY(picles_advance_1d)(const float* f, const int* iv,
+// `picles_advance_1d_traced`, the same layout, its wind the traced kind;
+// the float64 libraries' `picles_advance_1d_f64` and
+// `picles_advance_1d_traced_f64`.
+extern "C" int PICLES_ENTRY(picles_advance_1d)(const real_t* f, const int* iv,
                                                void** ptrs, long long n,
                                                void* stream) {
   return advance_1d_entry(f, iv, ptrs, n, false, stream);
 }
 
+#ifndef PICLES_F64
 // The `_simple` baseline (the previous kernel), the same layout and kinds.
 extern "C" int PICLES_ENTRY(picles_advance_1d_simple)(const float* f,
                                                       const int* iv,
@@ -369,13 +404,17 @@ extern "C" int PICLES_ENTRY(picles_advance_1d_simple)(const float* f,
                                                       void* stream) {
   return advance_1d_entry(f, iv, ptrs, n, true, stream);
 }
+#endif
 
 #ifdef PICLES_TRACED_WIND_1D
 // The traced 1D wind alone: u[i] = traced_wind_1d(x[i], t[i]) for i < n,
-// every pointer a float32 array on the card (the check of the emitted
-// function against the callable).  Returns cudaGetLastError().
-extern "C" int picles_traced_probe_1d(const float* x, const float* t,
-                                      float* u, long long n, void* stream) {
+// every pointer a real_t array on the card (the check of the emitted
+// function against the callable; `picles_traced_probe_1d_f64` in a
+// float64 traced library).  Returns cudaGetLastError().
+extern "C" int PICLES_PROBE(picles_traced_probe_1d)(const real_t* x,
+                                                    const real_t* t,
+                                                    real_t* u, long long n,
+                                                    void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + 255) / 256);
   traced_probe_1d_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(n, x, t,

@@ -113,9 +113,11 @@
 // node's own values are needed.  A layer's particle planes are offset as
 // its sources are; the masks, the node x and the wind planes are shared.
 // A traced wind's K6 (PICLES_TRACED_WIND: its library compiles only this
-// entry point of the file, `picles_pic_gather_remesh_traced`) reads the
-// node y plane there too (4 bytes a node) and calls the emitted
-// `traced_wind` at the clock.
+// entry point of the file, `picles_pic_gather_remesh_traced`, or
+// `picles_pic_gather_remesh_traced_f64` of a float64 wind, whose double
+// instance also takes the double budget) reads the node y plane there too
+// (4 bytes a node, 8 in double) and calls the emitted `traced_wind` at the
+// clock.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -855,7 +857,7 @@ extern "C" int PICLES_ENTRY(picles_pic_gather_padded)(
 }
 #endif  // PICLES_TRACED_WIND
 
-#ifdef PICLES_F64
+#if defined(PICLES_F64) && !defined(PICLES_TRACED_WIND)
 // The shared memory a double plan may take, in bytes (the window sums of
 // K2, K4 and K6 in this library; at least one staged row of 32 sources, at
 // most the card's 227 KB a block), for a measurement of the budget's
@@ -874,16 +876,17 @@ extern "C" int picles_gather_budget_f64(int bytes) {
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs) | the n_wf wind planes (inputs, float32: 4 + 3B
-//          gridded, u and v of the node kind, the node y of the traced
-//          kind, none for analytic winds).  The deposit's planes and the
-//          particle planes are [layers, nx, ny]; active, boundary, xn and
-//          the wind planes [nx, ny], shared; every plane but the masks, the
-//          branch and the wind planes real_t.
+//          (outputs) | the n_wf wind planes (inputs: float32 4 + 3B
+//          gridded, real_t u and v of the node kind, the real_t node y of
+//          the traced kind, none for analytic winds).  The deposit's
+//          planes and the particle planes are [layers, nx, ny]; active,
+//          boundary, xn and the wind planes [nx, ny], shared; every plane
+//          but the masks, the branch and the gridded wind planes real_t.
 // cudaErrorInvalidValue for planes that `attach_planes` refuses or a layer
 // count outside [1, MAX_LAYERS].  A traced library's entry point is
 // `picles_pic_gather_remesh_traced`, the float64 library's
-// `picles_pic_gather_remesh_f64`, the same layout.
+// `picles_pic_gather_remesh_f64`, a float64 traced library's
+// `picles_pic_gather_remesh_traced_f64`, the same layout.
 constexpr int K6_PTRS = 28;
 
 extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(

@@ -5,9 +5,9 @@
 // picles_torch/ops/remesh.py remesh_core.  The branch table itself is
 // remesh.cuh `remesh_node`, which K6 (pic_gather.cu) runs too.
 //
-// The same template runs in float64 (the float64 library, PICLES_F64): each
-// plane but the masks, the branch and the float32 wind planes twice the
-// bytes.
+// The same template runs in float64 (the float64 library, PICLES_F64, and a
+// float64 traced wind's, with PICLES_TRACED_WIND too): each plane but the
+// masks, the branch and the float32 gridded wind planes twice the bytes.
 //
 // What bounds it on an H100: memory.  Per node it reads the 3 node planes,
 // 6 particle planes, 3 masks and the node x (43 bytes) and writes 6 planes,
@@ -36,8 +36,8 @@ namespace {
 PICLES_KERNELS_BEGIN
 
 // One node a thread; T the lanes' scalar type (float, or double in the
-// float64 library: every plane but the masks, the branch and the float32
-// wind planes is then double).
+// float64 libraries: every plane but the masks, the branch and the float32
+// gridded wind planes is then double).
 template <class T>
 __global__ void __launch_bounds__(256)
 remesh_kernel(const picles::RemeshParams<T> r, long long n,
@@ -79,18 +79,18 @@ PICLES_USING_KERNELS
 // fparams/iparams: the remesh.cuh layout (unpack_remesh; real_t)
 // ptrs: clock (1 value) | e_n, mx_n, my_n, lne, cgx, cgy, px, py, dt, on(u8),
 //       active(u8), boundary(u8), xn (inputs) | lne, cgx, cgy, px, py, dt,
-//       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs,
-//       float32: 4 + 3B gridded, u and v of the node kind, the node y of
-//       the traced kind, none for analytic winds); every other plane
-//       real_t
+//       on(u8), branch(i32) (outputs) | the n_wf wind planes (inputs:
+//       float32 4 + 3B gridded, real_t u and v of the node kind, the
+//       real_t node y of the traced kind, none for analytic winds); every
+//       other plane real_t
 // n:    nodes; layers: the node state, particle and output planes are
 //       [layers, n] (layer-major), active, boundary, xn and the wind
 //       planes [n], shared
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // planes that `attach_planes` refuses or a layer count outside
 // [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_remesh_traced`, the float64 library's `picles_remesh_f64`, the
-// same layout.
+// `picles_remesh_traced`, the float64 library's `picles_remesh_f64`, a
+// float64 traced library's `picles_remesh_traced_f64`, the same layout.
 extern "C" int PICLES_ENTRY(picles_remesh)(const picles::real_t* fparams,
                                            const int* iparams, void** ptrs,
                                            long long n, long long layers,
@@ -120,9 +120,11 @@ namespace {
 PICLES_KERNELS_BEGIN
 
 __global__ void __launch_bounds__(256)
-traced_probe_kernel(long long n, const float* __restrict__ x,
-                    const float* __restrict__ y, const float* __restrict__ t,
-                    float* __restrict__ u, float* __restrict__ v) {
+traced_probe_kernel(long long n, const picles::real_t* __restrict__ x,
+                    const picles::real_t* __restrict__ y,
+                    const picles::real_t* __restrict__ t,
+                    picles::real_t* __restrict__ u,
+                    picles::real_t* __restrict__ v) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   picles::traced_wind(x[i], y[i], t[i], u[i], v[i]);
@@ -132,11 +134,13 @@ PICLES_KERNELS_END
 }  // namespace
 
 // The traced wind alone: u[i], v[i] = traced_wind(x[i], y[i], t[i]) for
-// i < n, every pointer a float32 array on the card (the check of the
-// emitted function against the callable).  Returns cudaGetLastError().
-extern "C" int picles_traced_probe(const float* x, const float* y,
-                                   const float* t, float* u, float* v,
-                                   long long n, void* stream) {
+// i < n, every pointer a real_t array on the card (the check of the
+// emitted function against the callable; `picles_traced_probe_f64` in a
+// float64 traced library).  Returns cudaGetLastError().
+extern "C" int PICLES_PROBE(picles_traced_probe)(
+    const picles::real_t* x, const picles::real_t* y,
+    const picles::real_t* t, picles::real_t* u, picles::real_t* v,
+    long long n, void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + 255) / 256);
   traced_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(n, x, y, t,

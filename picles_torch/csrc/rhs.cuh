@@ -25,10 +25,13 @@
 // the same bits as the `f` literal), and the build asks ptxas to warn on
 // any double-precision use.  Constants that the JAX package forms in
 // float64 (such as r_g * r_g) arrive precomputed from Python, rounded once
-// to T.  The winds' own values stay what the samplers give, float32: the
-// gridded and node planes are float32 and the double instances widen them
-// where JAX's kernel casts them to the lanes' dtype; the time-cosine
-// amplitude is float32 arithmetic on float32(t) in both packages.
+// to T.  The winds' own values are what the samplers give, cast to T
+// where JAX's kernel casts them to the lanes' dtype: the gridded planes are
+// float32 (the record's) and the double instances widen them; a steady
+// callable's node planes arrive in T (a float64 model's hold the callable's
+// float64 values); the time-cosine amplitude is float32 arithmetic on
+// float32(t) in both packages; a traced callable's emitted function
+// computes each value in the dtype its graph has.
 
 #pragma once
 
@@ -55,17 +58,15 @@ inline bool bad_layers(long long layers) {
 }
 
 // ---------------------------------------------------------------------------
-// The scalar type.  K1-K6 are templates over their lanes' scalar type T,
+// The scalar type.  K1-K7 are templates over their lanes' scalar type T,
 // float or double.  A library compiles one: the kernels' own library and a
-// traced wind's `float`, the float64 library (PICLES_F64,
-// picles_torch/ops/cuda_build.py `library_f64`) `double`, its entry points
-// suffixed `_f64` and its kernels in a namespace `f64`
-// (PICLES_KERNELS_BEGIN below), so a profiler trace tells them apart.  K7
-// (advance_1d.cu) computes in float only.
+// float32 traced wind's `float`, the float64 library (PICLES_F64,
+// picles_torch/ops/cuda_build.py `library_f64`) and a float64 traced
+// wind's (PICLES_F64 and PICLES_TRACED_WIND) `double`, entry points
+// suffixed `_f64` and `_traced_f64` and kernels in a namespace `f64` and
+// `traced64` (PICLES_KERNELS_BEGIN below), so a profiler trace tells them
+// apart.
 // ---------------------------------------------------------------------------
-#if defined(PICLES_F64) && defined(PICLES_TRACED_WIND)
-#error "a traced wind's library compiles float instances only"
-#endif
 #ifdef PICLES_F64
 using real_t = double;
 #else
@@ -100,6 +101,7 @@ PICLES_MATH1(xsqrt, sqrtf, sqrt)
 PICLES_MATH1(xabs, fabsf, fabs)
 PICLES_MATH1(xfloor, floorf, floor)
 PICLES_MATH2(xpow, powf, pow)
+PICLES_MATH2(xfmod, fmodf, fmod)
 PICLES_MATH2(xfmax, fmaxf, fmax)
 PICLES_MATH2(xfmin, fminf, fmin)
 #undef PICLES_MATH1
@@ -165,18 +167,26 @@ enum WindKind : int {
 // read the node x and y and call `traced_wind` at every stage time.  A 1D
 // callable's library (`traced_library_1d`) compiles advance_1d.cu alone
 // with PICLES_TRACED_WIND_1D defined too: K7's traced instances, whose
-// lanes call `traced_wind_1d(xn, t)`.  The kernels' own library compiles no
-// traced code: there `traced_wind` and `traced_wind_1d` are stubs that no
-// kernel calls (every call sits in a branch that `TRACED_LIB` or a
-// template's wind kind folds away), and `attach_planes` and K7's entry
-// point refuse the kind.
+// lanes call `traced_wind_1d(xn, t)`.  A callable traced for a float64
+// model is emitted in double and compiled with PICLES_F64 as well: the
+// double instances of the same kernels (entry points `..._traced_f64`).
+// The kernels' own library compiles no traced code: there `traced_wind`
+// and `traced_wind_1d` are stubs that no kernel calls (every call sits in
+// a branch that `TRACED_LIB` or a template's wind kind folds away), and
+// `attach_planes` and K7's entry point refuse the kind.
 //
-// A traced library's kernels sit in a namespace `traced` inside their
-// file's own (PICLES_KERNELS_BEGIN / _END around a file's kernels,
-// PICLES_USING_KERNELS before its entry points), so a profiler trace tells
-// them from the kernels' own library: picles::traced::advance_kernel<...>
-// against picles::advance_kernel<...>.
-#ifdef PICLES_TRACED_WIND
+// A traced library's kernels sit in a namespace `traced` (`traced64` in
+// double) inside their file's own (PICLES_KERNELS_BEGIN / _END around a
+// file's kernels, PICLES_USING_KERNELS before its entry points), so a
+// profiler trace tells them from the kernels' own library:
+// picles::traced::advance_kernel<...> against picles::advance_kernel<...>.
+#if defined(PICLES_TRACED_WIND) && defined(PICLES_F64)
+constexpr bool TRACED_LIB = true;
+#define PICLES_ENTRY(name) name##_traced_f64
+#define PICLES_KERNELS_BEGIN namespace traced64 {
+#define PICLES_KERNELS_END }
+#define PICLES_USING_KERNELS using namespace traced64;
+#elif defined(PICLES_TRACED_WIND)
 constexpr bool TRACED_LIB = true;
 #define PICLES_ENTRY(name) name##_traced
 #define PICLES_KERNELS_BEGIN namespace traced {
@@ -196,16 +206,23 @@ constexpr bool TRACED_LIB = false;
 constexpr bool TRACED_LIB = false;
 #endif
 #if !defined(PICLES_TRACED_WIND) || defined(PICLES_TRACED_WIND_1D)
-__device__ __forceinline__ void traced_wind(float, float, float, float& u,
-                                            float& v) {
-  u = 0.0f;
-  v = 0.0f;
+__device__ __forceinline__ void traced_wind(real_t, real_t, real_t,
+                                            real_t& u, real_t& v) {
+  u = real_t(0);
+  v = real_t(0);
 }
 #endif
 #ifndef PICLES_TRACED_WIND_1D
-__device__ __forceinline__ float traced_wind_1d(float, float) {
-  return 0.0f;
+__device__ __forceinline__ real_t traced_wind_1d(real_t, real_t) {
+  return real_t(0);
 }
+#endif
+// The traced probe's entry point of a library (the emitted function alone):
+// `picles_traced_probe` and `picles_traced_probe_1d`, `..._f64` in double.
+#ifdef PICLES_F64
+#define PICLES_PROBE(name) name##_f64
+#else
+#define PICLES_PROBE(name) name
 #endif
 
 // Whether the wind's values arrive as planes (gridded, node): the
@@ -226,9 +243,9 @@ struct WindParams {
   float period;        // time-cosine period, float32
   float u0f, v0f;      // U10, V10 as the time-cosine's float32 operands
   int n_break;         // gridded: breakpoints B (4 + 3B planes), else 0
-  const float* wf;     // gridded: plane 0 (a_u) of the launch's planes;
-                       // node: the u plane; traced: the node y plane
-  long long wf_stride; // floats from one plane to the next (gridded, node)
+  const float* wf;     // gridded: plane 0 (a_u) of the launch's planes
+  const T* wn;         // node: the u plane; traced: the node y plane
+  long long wf_stride; // values from one plane to the next (gridded, node)
 };
 
 // Packed wind parameters (picles_torch/ops/advance_cuda.py wind_params), T
@@ -252,11 +269,13 @@ inline void unpack_wind(const T* g, const int* iv, WindParams<T>& w) {
   w.two_pi = (float)g[4]; w.period = (float)g[5];
   w.u0f = (float)g[0]; w.v0f = (float)g[1];
   w.wf = nullptr;
+  w.wn = nullptr;
   w.wf_stride = 0;
 }
 
 // The wind planes of a launch: n_wf pointers, one plane after the other
-// at one stride (the wrapper passes views of one [n_wf, ...] tensor).
+// at one stride (the wrapper passes views of one [n_wf, ...] tensor),
+// float32 (gridded) or T (node, and the traced kind's node y).
 // Returns false (the launch is refused) for a count that is not 4 + 3B
 // (gridded), 2 (node) or 1 (traced), planes that are not evenly spaced, the
 // traced kind in the kernels' library or another kind in a traced one.
@@ -265,13 +284,13 @@ inline bool attach_planes(WindParams<T>& w, int n_wf, void* const* planes) {
   if ((w.kind == WIND_TRACED) != TRACED_LIB) return false;
   if (w.kind == WIND_TRACED) {
     if (n_wf != 1) return false;
-    w.wf = (const float*)planes[0];
+    w.wn = (const T*)planes[0];
     return true;
   }
   if (w.kind == WIND_NODE) {
     if (n_wf != 2) return false;
-    w.wf = (const float*)planes[0];
-    w.wf_stride = (const float*)planes[1] - w.wf;
+    w.wn = (const T*)planes[0];
+    w.wf_stride = (const T*)planes[1] - w.wn;
     return w.wf_stride != 0;
   }
   if (w.kind != WIND_GRIDDED) return n_wf == 0;
@@ -412,20 +431,20 @@ __device__ __forceinline__ void gridded_uv(const GriddedWind<T>& g, T t, T& u,
 }
 
 // A steady wind given as its node planes (forcing/winds.py
-// `node_plane_winds`): the pair (u, v) of node i, whatever the time.
+// `node_plane_winds`, in T): the pair (u, v) of node i, whatever the time.
 template <class T>
 __device__ __forceinline__ void node_uv(const WindParams<T>& w, long long i,
                                         T& u, T& v) {
-  u = T(w.wf[i]);
-  v = T(w.wf[i + w.wf_stride]);
+  u = w.wn[i];
+  v = w.wn[i + w.wf_stride];
 }
 
-// The traced wind (float instances only: PICLES_F64 refuses it) at the node
-// (xn, yn) and time t.
+// The traced wind at the node (xn, yn) and time t: the emitted function of
+// the library's scalar type.
 template <class T>
 __device__ __forceinline__ void traced_uv(T xn, T yn, T t, T& u, T& v) {
-  static_assert(std::is_same<T, float>::value,
-                "the traced wind runs in float instances only");
+  static_assert(std::is_same<T, real_t>::value,
+                "a traced library compiles its own scalar type's instances");
   traced_wind(xn, yn, t, u, v);
 }
 
@@ -437,7 +456,7 @@ __device__ __forceinline__ void wind_uv_node(const WindParams<T>& w,
                                              long long i, T xn, T t, T& u,
                                              T& v) {
   if constexpr (TRACED_LIB)
-    traced_uv(xn, T(w.wf[i]), t, u, v);
+    traced_uv(xn, w.wn[i], t, u, v);
   else if (w.kind == WIND_GRIDDED)
     gridded_uv(load_gridded(w, i), t, u, v);
   else if (w.kind == WIND_NODE)
@@ -571,21 +590,23 @@ __device__ __forceinline__ void rhs_at(const RHSParams<T>& c,
 // ---------------------------------------------------------------------------
 // The 1D model (K7, advance_1d.cu): picles_torch/ops/rhs.py
 // particle_equations_1d and the 1D wind record (forcing/winds.py
-// GriddedWinds1D.u), in the float32 operations PyTorch runs for them on a
-// card: a division by a Python scalar c is a product with 1 / c (ATen's
-// division by a host scalar), c / x is (1 / x) * c (Tensor.__rtruediv__),
-// a division by a 0-dim tensor (winds.py `_div`) and x / y are divisions.
-// The two reciprocals of a host scalar, 1 / r_g and 1 / e_T, depend on the
-// launch only: the host forms them as float32 quotients
-// (ops/advance_cuda.py `k7_reciprocals`), the same bits as the card's IEEE
-// division, so no evaluation divides by a constant, and the term flags
-// arrive as a compile-time constant in K7's compiled instances.
+// GriddedWinds1D.u), in the operations PyTorch runs for them on a card, in
+// the lanes' scalar type T: a division by a Python scalar c is a product
+// with 1 / c (ATen's division by a host scalar, the reciprocal in T), c / x
+// is (1 / x) * c (Tensor.__rtruediv__), a division by a 0-dim tensor
+// (winds.py `_div`) and x / y are divisions.  The two reciprocals of a host
+// scalar, 1 / r_g and 1 / e_T, depend on the launch only: the host forms
+// them as quotients in T (ops/advance_cuda.py `k7_reciprocals`), the same
+// bits as the card's IEEE division, so no evaluation divides by a
+// constant, and the term flags arrive as a compile-time constant in K7's
+// compiled instances.
 // ---------------------------------------------------------------------------
 
+template <class T>
 struct RHS1DParams {
-  float r_g, C_alpha, C_e, g, p, n, e_T;
-  float two_n;             // 2 n, formed in float64
-  float inv_r_g, inv_e_T;  // float32(1) / float32(r_g), / float32(e_T)
+  T r_g, C_alpha, C_e, g, p, n, e_T;
+  T two_n;             // 2 n, formed in float64
+  T inv_r_g, inv_e_T;  // T(1) / T(r_g), / T(e_T)
   int flags;
 };
 
@@ -599,85 +620,100 @@ constexpr int TERMS_1D =
 // dissipation is exp(n lne) (k_p / e_T)^(2n), no direction terms, and
 // dx = cg_x.  `flags`: the term bits, a compile-time constant in K7's
 // compiled instances (each test folds) or c.flags.
-__device__ __forceinline__ void rhs_1d(const RHS1DParams& c, int flags,
-                                       float lne, float cg_x, float u,
-                                       float out[3]) {
-  const float c_gp = fabsf(cg_x) * c.inv_r_g;
-  const float k_p = (1.0f / (4.0f * jmax(c_gp * c_gp, 1e-2f))) * c.g;
-  const float omega_p = (1.0f / (2.0f * jmax(fabsf(c_gp), 0.1f))) * c.g;
-  const float a = fabsf(u) / (2.0f * c_gp);
-  const float alpha = a > 500.0f ? 500.0f : a;
-  const float H_p = 0.5f * (1.0f + tanhf((alpha - 0.85f) * c.p));
-  const float ax = fabsf((alpha - 0.85f) * 10.0f);
-  const float ex = expf(-ax);
-  const float sech = (2.0f * ex) / (1.0f + ex * ex);
-  const float Delta_p = 1.0f - 1.25f * (sech * sech);
+template <class T>
+__device__ __forceinline__ void rhs_1d(const RHS1DParams<T>& c, int flags,
+                                       T lne, T cg_x, T u, T out[3]) {
+  const T c_gp = xabs(cg_x) * c.inv_r_g;
+  const T k_p = (T(1) / (T(4) * jmax(c_gp * c_gp, T(1e-2)))) * c.g;
+  const T omega_p = (T(1) / (T(2) * jmax(xabs(c_gp), T(0.1)))) * c.g;
+  const T a = xabs(u) / (T(2) * c_gp);
+  const T alpha = a > T(500) ? T(500) : a;
+  const T H_p = T(0.5) * (T(1) + xtanh((alpha - T(0.85)) * c.p));
+  const T ax = xabs((alpha - T(0.85)) * T(10));
+  const T ex = xexp(-ax);
+  const T sech = (T(2) * ex) / (T(1) + ex * ex);
+  const T Delta_p = T(1) - T(1.25) * (sech * sech);
 
-  const float I_t = (flags & TERM_INPUT) ? (H_p * c.C_e) * (alpha * alpha)
-                                         : 0.0f;
-  const float D_t = (flags & TERM_DISSIPATION)
-                        ? expf(lne * c.n) * powf(k_p * c.inv_e_T, c.two_n)
-                        : 0.0f;
-  float S_cg_t = 0.0f;
+  const T I_t = (flags & TERM_INPUT) ? (H_p * c.C_e) * (alpha * alpha)
+                                     : T(0);
+  const T D_t = (flags & TERM_DISSIPATION)
+                    ? xexp(lne * c.n) * xpow(k_p * c.inv_e_T, c.two_n)
+                    : T(0);
+  T S_cg_t = T(0);
   if (flags & TERM_PEAK_SHIFT) {
-    const float k_p2 = k_p * k_p;
-    S_cg_t = ((Delta_p * c.C_alpha) * (k_p2 * k_p2)) * expf(lne * 2.0f);
+    const T k_p2 = k_p * k_p;
+    S_cg_t = ((Delta_p * c.C_alpha) * (k_p2 * k_p2)) * xexp(lne * T(2));
   }
   out[0] = (omega_p * c.r_g) * S_cg_t + omega_p * (I_t - D_t);
   out[1] = ((-cg_x * omega_p) * c.r_g) * S_cg_t;
-  out[2] = (flags & TERM_PROPAGATION) ? cg_x : 0.0f;
+  out[2] = (flags & TERM_PROPAGATION) ? cg_x : T(0);
 }
 
-// A 1D wind record u_data [nx, nt] (x0, dx, t0, dt as float32; each axis
+// A 1D wind record u_data [nx, nt] (float32; x0, dx, t0, dt in T; each axis
 // wrapped or clamped), GriddedWinds1D.u's bilinear interpolant.
+template <class T>
 struct Gridded1D {
   const float* data;
   int nx, nt;
-  float x0, dx, t0, dt;
+  T x0, dx, t0, dt;
   bool wrap_x, wrap_t;
 };
 
 // One axis' coordinate, pre-folded by its mode: torch.remainder (fmod, then
 // the divisor added where the signs differ) or torch.clamp to [0, n - 1].
-__device__ __forceinline__ float fold_axis(float c, float c0, float dc, int n,
-                                           bool wrap) {
-  const float i = (c - c0) / dc;
-  const float nf = (float)n;
-  if (!wrap) return jmin(jmax(i, 0.0f), nf - 1.0f);
-  float m = fmodf(i, nf);
-  if (m != 0.0f && ((nf < 0.0f) != (m < 0.0f))) m = m + nf;
+template <class T>
+__device__ __forceinline__ T fold_axis(T c, T c0, T dc, int n, bool wrap) {
+  const T i = (c - c0) / dc;
+  const T nf = T(n);
+  if (!wrap) return jmin(jmax(i, T(0)), nf - T(1));
+  T m = xfmod(i, nf);
+  if (m != T(0) && ((nf < T(0)) != (m < T(0)))) m = m + nf;
   return m;
 }
 
 // winds.py `_linear`: the two (index, weight) pairs of one axis, indices
 // taken modulo n as torch.remainder takes an int64 (always in [0, n)).
-__device__ __forceinline__ void linear_pairs(float c, int n, long long idx[2],
-                                             float w[2]) {
-  const float lower = floorf(c);
-  const float upper = c - lower;
+template <class T>
+__device__ __forceinline__ void linear_pairs(T c, int n, long long idx[2],
+                                             T w[2]) {
+  const T lower = xfloor(c);
+  const T upper = c - lower;
   const long long i = (long long)lower;
   for (int k = 0; k < 2; ++k) {
     long long r = (i + k) % n;
     if (r != 0 && (r < 0) != (n < 0)) r += n;
     idx[k] = r;
   }
-  w[0] = 1.0f - upper;
+  w[0] = T(1) - upper;
   w[1] = upper;
 }
 
+// The record's value of a sum formed in double: map_coordinates returns
+// the record's float32.  Out of line, so the build's check of the double
+// instances (cuda_build.narrowing_summary) passes over it by name.
+static __device__ __noinline__ float record_value_f64(double v) {
+  return (float)v;
+}
+
 // u(x, t): the four terms (wx wt) u[ix, it] summed in GriddedWinds1D.u's
-// order, (x lo, t lo), (x lo, t hi), (x hi, t lo), (x hi, t hi).
-__device__ __forceinline__ float gridded_u_1d(const Gridded1D& g, float x,
-                                              float t) {
+// order, (x lo, t lo), (x lo, t hi), (x hi, t lo), (x hi, t hi), each
+// sample widened to T; in double the sum rounded to float32 (the record's
+// dtype) and widened again, as the JAX model casts the sampler's value to
+// the lanes' dtype.
+template <class T>
+__device__ __forceinline__ T gridded_u_1d(const Gridded1D<T>& g, T x, T t) {
   long long ix[2], it[2];
-  float wx[2], wt[2];
+  T wx[2], wt[2];
   linear_pairs(fold_axis(x, g.x0, g.dx, g.nx, g.wrap_x), g.nx, ix, wx);
   linear_pairs(fold_axis(t, g.t0, g.dt, g.nt, g.wrap_t), g.nt, it, wt);
-  float out = (wx[0] * wt[0]) * g.data[ix[0] * g.nt + it[0]];
-  out = out + (wx[0] * wt[1]) * g.data[ix[0] * g.nt + it[1]];
-  out = out + (wx[1] * wt[0]) * g.data[ix[1] * g.nt + it[0]];
-  out = out + (wx[1] * wt[1]) * g.data[ix[1] * g.nt + it[1]];
-  return out;
+  T out = (wx[0] * wt[0]) * T(g.data[ix[0] * g.nt + it[0]]);
+  out = out + (wx[0] * wt[1]) * T(g.data[ix[0] * g.nt + it[1]]);
+  out = out + (wx[1] * wt[0]) * T(g.data[ix[1] * g.nt + it[0]]);
+  out = out + (wx[1] * wt[1]) * T(g.data[ix[1] * g.nt + it[1]]);
+  if constexpr (std::is_same<T, float>::value)
+    return out;
+  else
+    return T(record_value_f64(out));
 }
 
 }  // namespace picles

@@ -27,9 +27,13 @@ time is traced (``forcing/wind_trace.py``): kind ``TRACED``
 (``traced_kernel``), its operations compiled into a library of the
 kernels' traced instances, the node y passed with every launch, and
 ``TracedWind.winds`` its plain version.  A callable the tracer cannot
-lower (a value read on the host, an indexed captured tensor, a reduction,
-float64; ``wind_trace``'s docstring) raises, naming the operation; it runs
-with ``advance_mode="torch"``.  The samplers compute in float32 with the
+lower (a value read on the host, an indexed captured tensor, a reduction;
+``wind_trace``'s docstring) raises, naming the operation; it runs with
+``advance_mode="torch"``.  A float64 model takes both kinds in float64: its
+node planes are the callable's values cast to float64 (``steady_node_planes``
+with ``dtype``), as JAX casts them to the lanes' dtype, and its traced
+graph is traced on float64 placeholders (``traced_kernel`` with ``dtype``),
+a library of its own.  The analytic samplers compute in float32 with the
 JAX package's operation order.
 
 The 1D model's winds (``Winds1D``: ``u(x, t)``) reach its advance kernel K7
@@ -38,7 +42,11 @@ in three kinds: a steady callable as its one node plane ``[nx]``
 reads its time as its traced graph (``traced_kernel_1d``: kind ``TRACED``,
 ``traced_wind_1d(x, t)`` compiled into a library of K7's traced instances;
 the tracer's refusals raise as in 2D), and a ``GriddedWinds1D`` record as
-itself (``u_data`` and its axes).
+itself (``u_data`` and its axes).  A float64 1D model takes each kind in
+float64: the node plane in float64, the traced graph traced in float64, and
+the record indexed in the coordinates' float64, as JAX's ``GriddedWinds1D``
+under x64 (its samples, interpolated with float64 weights, rounded to the
+record's float32 at the end).
 """
 
 from __future__ import annotations
@@ -123,11 +131,13 @@ def half_domain_winds(U10: float, V10: float, x_split: float,
 def time_cosine_winds(U10: float, V10: float, period: float,
                       t_off: Optional[float] = None) -> Winds2D:
     """Growing/decaying winds: amplitude cos(2 pi t / period) in float32 on
-    float32(t), optionally zeroed after ``t_off`` (the cut-off compares t
-    itself, as the JAX sampler does)."""
+    float32(t), the period divided as the JAX package divides it (``_div``:
+    an IEEE division on a card too, as the kernels' ``cosine_amplitude``),
+    optionally zeroed after ``t_off`` (the cut-off compares t itself, as
+    the JAX sampler does)."""
     def amp(t):
-        a = torch.cos(2.0 * math.pi * torch.as_tensor(t, dtype=torch.float32)
-                      / period)
+        a = torch.cos(_div(2.0 * math.pi * torch.as_tensor(
+            t, dtype=torch.float32), period))
         if t_off is not None:
             a = torch.where(torch.as_tensor(t) > t_off, 0.0, a)
         return a
@@ -160,30 +170,35 @@ class _TimeProbe(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-def _steady_at(x: torch.Tensor, *samplers) -> Optional[list]:
+def _steady_at(x: torch.Tensor, *samplers,
+               dtype: torch.dtype = torch.float32) -> Optional[list]:
     """Each sampler called once with a 0-dim probe time under
-    ``_TimeProbe``: None when any reads the time, else their values as
-    float32 planes shaped like the nodes ``x``."""
+    ``_TimeProbe``: None when any reads the time, else their values cast to
+    the model's ``dtype`` (the lanes', as JAX's kernels cast the closure's
+    value), planes shaped like the nodes ``x``."""
     t = torch.zeros((), dtype=torch.float32, device=x.device)
     with _TimeProbe(t) as probe:
         out = [f(t) for f in samplers]
     if probe.read:
         return None
     return [torch.broadcast_to(torch.as_tensor(c, device=x.device).to(
-        torch.float32), x.shape) for c in out]
+        dtype), x.shape) for c in out]
 
 
-def steady_node_planes(winds: "Winds2D", x: torch.Tensor,
-                       y: torch.Tensor) -> Optional[torch.Tensor]:
-    """The wind's (u, v) at the nodes ``(x, y)`` as one contiguous float32
-    ``[2, *x.shape]`` tensor (the kernels' node planes), or None when the
-    callable reads its time: ``u`` and ``v`` are called once with a 0-dim
-    probe time under ``_TimeProbe``.  A callable in which the time enters no
-    torch operation is steady, whatever host state it reads (the Pallas
-    kernels of the JAX package trace the closure once and bake that state
-    in too)."""
+def steady_node_planes(winds: "Winds2D", x: torch.Tensor, y: torch.Tensor,
+                       dtype: torch.dtype = torch.float32
+                       ) -> Optional[torch.Tensor]:
+    """The wind's (u, v) at the nodes ``(x, y)`` as one contiguous
+    ``[2, *x.shape]`` tensor of the model's ``dtype`` (the kernels' node
+    planes: float32, or float64 in a float64 model, where a callable
+    written in float64 arithmetic keeps its float64 values), or None when
+    the callable reads its time: ``u`` and ``v`` are called once with a
+    0-dim probe time under ``_TimeProbe``.  A callable in which the time
+    enters no torch operation is steady, whatever host state it reads (the
+    Pallas kernels of the JAX package trace the closure once and bake that
+    state in too)."""
     planes = _steady_at(x, lambda t: winds.u(x, y, t),
-                        lambda t: winds.v(x, y, t))
+                        lambda t: winds.v(x, y, t), dtype=dtype)
     return None if planes is None else torch.stack(planes).contiguous()
 
 
@@ -202,14 +217,17 @@ def node_plane_winds(u_plane: torch.Tensor, v_plane: torch.Tensor
                    kernel=node_kernel())
 
 
-def traced_kernel(winds: "Winds2D", device="cpu") -> "WindKernel":
-    """The descriptor of a callable traced on ``device`` (kind ``TRACED``,
-    ``forcing/wind_trace.py``); raises ``NotImplementedError`` for a
-    callable the tracer cannot lower.  Each call traces anew (the model
-    traces once, at construction); the same emitted source loads the same
-    library (``ops/cuda_build.py`` ``traced_library``)."""
+def traced_kernel(winds: "Winds2D", device="cpu",
+                  dtype: torch.dtype = torch.float32) -> "WindKernel":
+    """The descriptor of a callable traced on ``device`` in the model's
+    ``dtype`` (kind ``TRACED``, ``forcing/wind_trace.py``; the dtype is the
+    traced graph's, so the same callable traced for float32 and for float64
+    gets two libraries); raises ``NotImplementedError`` for a callable the
+    tracer cannot lower.  Each call traces anew (the model traces once, at
+    construction); the same emitted source loads the same library
+    (``ops/cuda_build.py`` ``traced_library``)."""
     return WindKernel(WindKind.TRACED, 0.0, 0.0,
-                      traced=trace_winds(winds.u, winds.v, device))
+                      traced=trace_winds(winds.u, winds.v, device, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -595,20 +613,24 @@ class Winds1D(NamedTuple):
         return self.u(x, t)
 
 
-def _f32_on(a, device) -> torch.Tensor:
-    """``a`` as a float32 tensor (a tensor keeps its device)."""
+def _float_on(a, device) -> torch.Tensor:
+    """``a`` as a float tensor: a float32 or float64 tensor as it is, any
+    other value as float32 (a tensor keeps its device), as JAX keeps an
+    array's dtype."""
     if isinstance(a, torch.Tensor):
-        return a.to(torch.float32)
+        return a if a.dtype in (torch.float32, torch.float64) \
+            else a.to(torch.float32)
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
-def traced_kernel_1d(winds: Winds1D, device="cpu") -> WindKernel:
-    """The descriptor of a 1D callable traced on ``device`` (kind
-    ``TRACED``, its ``traced`` graph a 1D sampler, ``trace_winds_1d``),
-    as ``traced_kernel`` is for a ``Winds2D``; raises
+def traced_kernel_1d(winds: Winds1D, device="cpu",
+                     dtype: torch.dtype = torch.float32) -> WindKernel:
+    """The descriptor of a 1D callable traced on ``device`` in the model's
+    ``dtype`` (kind ``TRACED``, its ``traced`` graph a 1D sampler,
+    ``trace_winds_1d``), as ``traced_kernel`` is for a ``Winds2D``; raises
     ``NotImplementedError`` for a callable the tracer cannot lower."""
     return WindKernel(WindKind.TRACED, 0.0, 0.0,
-                      traced=trace_winds_1d(winds.u, device))
+                      traced=trace_winds_1d(winds.u, device, dtype))
 
 
 def constant_winds_1d(U10: float) -> Winds1D:
@@ -617,13 +639,14 @@ def constant_winds_1d(U10: float) -> Winds1D:
                                                   dtype=torch.float32))
 
 
-def steady_node_plane_1d(winds: Winds1D,
-                         x: torch.Tensor) -> Optional[torch.Tensor]:
+def steady_node_plane_1d(winds: Winds1D, x: torch.Tensor,
+                         dtype: torch.dtype = torch.float32
+                         ) -> Optional[torch.Tensor]:
     """The 1D form of ``steady_node_planes``: the wind ``u`` at the nodes
-    ``x`` as one contiguous float32 plane shaped like ``x``, or None when
-    the callable reads its time (``u`` is called once with a 0-dim probe
-    time under ``_TimeProbe``)."""
-    planes = _steady_at(x, lambda t: winds.u(x, t))
+    ``x`` as one contiguous plane of the model's ``dtype`` shaped like
+    ``x``, or None when the callable reads its time (``u`` is called once
+    with a 0-dim probe time under ``_TimeProbe``)."""
+    planes = _steady_at(x, lambda t: winds.u(x, t), dtype=dtype)
     return None if planes is None else planes[0].contiguous()
 
 
@@ -636,7 +659,9 @@ class GriddedWinds1D:
     holds the last frame, "wrap" loops the record).  ``u`` pre-folds each
     axis by its mode, then interpolates as ``map_coordinates(order=1,
     mode="wrap")``, so on a wrapped axis the interval [n - 1, n) runs
-    against sample 0."""
+    against sample 0.  The coordinates keep their dtype (float64 ones index
+    and weigh in float64, as JAX under x64); the sum is rounded to the
+    record's float32, as ``map_coordinates`` returns the input's dtype."""
 
     u_data: torch.Tensor
     x0: float
@@ -656,8 +681,8 @@ class GriddedWinds1D:
     def u(self, x, t):
         nxw, ntw = self.u_data.shape
         dev = self.device
-        xi = _div(_f32_on(x, dev) - self.x0, self.dx)
-        ti = _div(_f32_on(t, dev) - self.t0, self.dt)
+        xi = _div(_float_on(x, dev) - self.x0, self.dx)
+        ti = _div(_float_on(t, dev) - self.t0, self.dt)
         xi = torch.remainder(xi, nxw) if self.mode == "wrap" \
             else torch.clamp(xi, 0.0, nxw - 1.0)
         ti = torch.remainder(ti, ntw) if self.mode_t == "wrap" \
@@ -689,16 +714,17 @@ def idealized_wind_grid_1d(u_func, Lx: float, T: float, dx: float,
 
 def slopped_blob(x, t, U10, V, T, x_scale, t_scale, x0=300e3):
     """A Gaussian wind blob moving at speed V, peaking at time T / 2: 0.5 +
-    U10 exp(-((x - (x0 + t V)) / x_scale)^2) exp(-((t - T/2) / t_scale)^2)."""
-    x = _f32_on(x, None)
+    U10 exp(-((x - (x0 + t V)) / x_scale)^2) exp(-((t - T/2) / t_scale)^2),
+    in the dtype of x and t (float32, or float64 as JAX under x64)."""
+    x = _float_on(x, None)
     if isinstance(t, torch.Tensor):
-        t = t.to(torch.float32)
+        t = _float_on(t, None)
         b = _div(t - T / 2, t_scale)
         b = -(b * b)
     else:
         # a host time stays a Python float, as JAX keeps it until it
         # meets an array
         b = torch.full((), -(((t - T / 2) / t_scale) ** 2),
-                       dtype=torch.float32, device=x.device)
+                       dtype=x.dtype, device=x.device)
     a = _div(x - (x0 + t * V), x_scale)
     return 0.5 + U10 * (torch.exp(-(a * a)) * torch.exp(b))

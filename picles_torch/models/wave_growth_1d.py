@@ -16,21 +16,22 @@ It differs from the 2D model in these ways:
 
 The advance is kernel K7 (``ops/advance_cuda.advance_1d``, the port's own
 kernel: the JAX package runs this loop as a device-side ``lax.while_loop``
-outside Pallas) on a CUDA device, with float32 and any wind the JAX model
-takes: a steady callable (its node plane,
-``forcing.winds.steady_node_plane_1d``, probed once at construction;
-``constant_winds_1d`` is one), a callable that reads its time (traced once
-at construction, ``forcing.winds.traced_kernel_1d``, into a library of
-K7's traced instances built at its first launch; one the tracer cannot
-lower raises, naming the operation and ``advance_mode="torch"``) or a
-``GriddedWinds1D`` record, which the model keeps.  Then every other stage
-of the step (the guards, the sign-merge deposit ``pic.segment_sum``, the
-remesh, the plain Hairer ``auto_dt``, the counters; each evaluates the
-callable itself in torch on the device) is PyTorch on the device that
-never reads it back, and ``graphed`` is true: the drivers (``step_n`` and
-the rest, ``models/drivers.py``) replay a CUDA graph of the step.  On a
-CUDA device a float64 config raises: K7 computes in float32, and the plain
-advance runs there only when the caller asks for it with
+outside Pallas) on a CUDA device, in the model's dtype (float32, or float64
+as JAX jits the loop under x64: K7's double instances) and with any wind
+the JAX model takes: a steady callable (its node plane in the model's
+dtype, ``forcing.winds.steady_node_plane_1d``, probed once at
+construction; ``constant_winds_1d`` is one), a callable that reads its
+time (traced once at construction in the model's dtype,
+``forcing.winds.traced_kernel_1d``, into a library of K7's traced
+instances built at its first launch; one the tracer cannot lower raises,
+naming the operation and ``advance_mode="torch"``) or a ``GriddedWinds1D``
+record, which the model keeps.  Then every other stage of the step (the
+guards, the sign-merge deposit ``pic.segment_sum``, the remesh, the plain
+Hairer ``auto_dt``, the counters; each evaluates the callable itself in
+torch on the device) is PyTorch on the device that never reads it back,
+and ``graphed`` is true: the drivers (``step_n`` and the rest,
+``models/drivers.py``) replay a CUDA graph of the step.  The plain advance
+runs on a card only when the caller asks for it with
 ``advance_mode="torch"`` (a constructor keyword, since the JAX config has
 no mode field).  The plain advance is ``tsit5.integrate_to``, which tests
 on the host whether its loop is done, once an iteration, so the drivers
@@ -93,10 +94,10 @@ def resolve_advance_1d(device, dtype: torch.dtype,
     """The 1D model's advance for tensors on ``device``: "cuda" (kernel K7)
     or "torch" (the plain ``integrate_to``).  "auto" is K7 on a CUDA device
     and the plain advance on the CPU; "torch" is the plain advance on
-    either.  K7 takes float32 and a wind of the node, gridded or traced
-    kind (every wind the model takes: a callable the tracer refuses raises
-    before this); on a CUDA device float64 raises, naming
-    ``advance_mode="torch"``."""
+    either.  K7 takes float32 and float64 (its double instances) and a wind
+    of the node, gridded or traced kind (every wind the model takes: a
+    callable the tracer refuses raises before this); another dtype
+    raises."""
     if advance_mode not in ADVANCE_MODES_1D:
         raise ValueError(f"advance_mode must be one of {ADVANCE_MODES_1D}, "
                          f"got {advance_mode!r}")
@@ -106,9 +107,10 @@ def resolve_advance_1d(device, dtype: torch.dtype,
     if not on_cuda:
         raise ValueError(f'advance_mode="cuda" names kernel K7, but the '
                          f"grid's tensors are on {device}")
-    if dtype != torch.float32:
-        raise ValueError(f"kernel K7 computes in float32, not {dtype}; pass "
-                         f'advance_mode="torch" for the plain advance')
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernel K7 computes in float32 or float64, not "
+                         f'{dtype}; pass advance_mode="torch" for the plain '
+                         f"advance")
     if wind_kind not in (WindKind.NODE, WindKind.GRIDDED, WindKind.TRACED):
         raise ValueError(f"kernel K7 takes a wind of the node, gridded or "
                          f"traced kind, not {wind_kind!r}")
@@ -183,17 +185,22 @@ class WaveGrowth1D(StepDrivers):
         kind = None
         if self.gridded_winds is not None:
             kind = WindKind.GRIDDED
-        elif advance_mode != "torch" and dtype == torch.float32 and \
+        elif advance_mode != "torch" and \
                 torch.device(self.device).type == "cuda":
-            self._node_plane = steady_node_plane_1d(winds, grid.x)
+            self._node_plane = steady_node_plane_1d(winds, grid.x, dtype)
             if self._node_plane is not None:
                 kind = WindKind.NODE
             else:
-                self._traced = traced_kernel_1d(winds, self.device)
+                self._traced = traced_kernel_1d(winds, self.device, dtype)
                 kind = WindKind.TRACED
         self._advance_mode = resolve_advance_1d(self.device, config.dtype,
                                                 kind, advance_mode)
         self._graphed = self._advance_mode == "cuda"
+        if self._graphed and grid.x.dtype != dtype:
+            raise ValueError(
+                f"kernel K7 reads the node x in the model's dtype {dtype}, "
+                f"but the grid's is {grid.x.dtype}: build the grid with "
+                f'dtype={dtype}, or pass advance_mode="torch"')
         self.consts = make_rhs_consts(gamma=self.constants.gamma,
                                       params=self.params,
                                       constants=self.constants)
@@ -241,7 +248,7 @@ class WaveGrowth1D(StepDrivers):
     def graph_keep(self) -> tuple:
         """K7's wind: the node plane, the record, or the traced wind and
         its library (built by the warm-up's launches)."""
-        lib = (kernel_library_1d(self._traced)[0]
+        lib = (kernel_library_1d(self._traced, self.config.dtype)[0]
                if self._traced is not None else None)
         return (self._node_plane, self.gridded_winds, self._traced, lib)
 

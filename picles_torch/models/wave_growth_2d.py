@@ -56,11 +56,14 @@ particle and node plane, of the seeding and of the remesh's windsea
 (``core/fetch_relations.py`` computes in it, as the JAX package does with
 x64 on), and picks the kernels' instances: each of K1-K6 has a float64
 instance (the same CUDA template, ``csrc/rhs.cuh``), which reads the grid's
-planes (node x, projection) in float64, so a float64 model on the kernels
-takes a float64 grid, as JAX builds it under x64.  The winds' own values
-stay float32, as both packages' samplers give them.  A wind callable that
-reads its time (the traced kind) runs in float32 only: a float64 model with
-one is refused at construction on a card, naming the plain modes.
+planes (node x and y, projection) in float64, so a float64 model on the
+kernels takes a float64 grid, as JAX builds it under x64.  The winds take
+the model's dtype as JAX's kernels cast them to the lanes' dtype: a steady
+callable's node planes hold its values cast to float64 (its float64
+arithmetic kept), a callable that reads its time is traced on float64
+placeholders into a double function and a library of its own (the traced
+kind's double instances of K1, K3, K5 and K6), and a gridded record's
+planes stay the record's float32, widened in the kernels.
 
 ``step_core`` takes the grid planes and masks it steps over, a deposit hook
 and a counter-reduction hook, so ``parallel/sharded.py`` runs the same step
@@ -110,7 +113,7 @@ SQRT2 = math.sqrt(2.0)
 ADVANCE_MODES = ("auto", "torch", "cuda")
 # the dtypes a model computes in, each with kernel instances of its own
 KERNEL_DTYPES = (torch.float32, torch.float64)
-# the modes that run no kernel, which a wind without a float64 kernel needs
+# the modes that run no kernel (a float64 model on a float32 grid needs them)
 PLAIN_MODES = ('advance_mode="torch", scatter_mode="dense" and '
                'remesh_mode="xla"')
 SCATTER_MODES = ("auto", "dense", "dense_cuda", "xla")
@@ -314,18 +317,15 @@ class WaveGrowth2D(StepDrivers):
                 and winds.kernel is None:
             # a steady callable runs on the kernels as its node planes, one
             # that reads its time as its traced graph (or raises)
-            planes = steady_node_planes(winds, grid.x, grid.y)
+            planes = steady_node_planes(winds, grid.x, grid.y, dtype)
             if planes is not None:
                 winds = winds._replace(kernel=node_kernel())
                 self._node_planes = (grid, planes)
             else:
-                self._refuse_float64_traced()
                 winds = winds._replace(
-                    kernel=traced_kernel(winds, grid.x.device))
+                    kernel=traced_kernel(winds, grid.x.device, dtype))
             self.winds = winds
         if (self.modes.advance_mode == "cuda" or self._remesh_kernels):
-            if winds.kernel.kind == WindKind.TRACED:
-                self._refuse_float64_traced()
             if grid.x.dtype != dtype:
                 raise ValueError(
                     f"the kernels read the grid's planes in the model's "
@@ -381,15 +381,6 @@ class WaveGrowth2D(StepDrivers):
             clip_dt=(ode_settings.adaptive
                      and config.dt_reset_mode == "carry"))
 
-    def _refuse_float64_traced(self) -> None:
-        """A wind callable that reads its time runs on the kernels as the
-        traced kind, whose emitted function computes in float32 only."""
-        if self.config.dtype == torch.float64:
-            raise ValueError(
-                "a float64 model cannot run a wind callable that reads its "
-                "time on the kernels: the traced kind's emitted function "
-                f"computes in float32; pass {PLAIN_MODES}")
-
     def resolved_config(self) -> WaveGrowth2DConfig:
         """``self.config`` with "auto" modes resolved for the grid's device."""
         return self.modes
@@ -419,18 +410,19 @@ class WaveGrowth2D(StepDrivers):
         on another grid replaces them, and the capture keeps its own
         alive; on a card, a traced wind's library too."""
         kern = self.winds.kernel
-        lib = (kernel_library(kern)[0] if self.device.type == "cuda"
-               and kern is not None and kern.kind == WindKind.TRACED
-               else None)
+        lib = (kernel_library(kern, self.config.dtype)[0]
+               if self.device.type == "cuda" and kern is not None
+               and kern.kind == WindKind.TRACED else None)
         return (self._corners, self._node_planes, self._proj_planes, lib)
 
     def node_planes(self, grid: Grid2D) -> torch.Tensor:
         """A steady callable's (u, v) at ``grid``'s nodes, one contiguous
-        float32 ``[2, nx, ny]`` tensor, formed once and kept for the last
-        grid seen (the model's own, from the construction's probe, or a
-        sharded step's block)."""
+        ``[2, nx, ny]`` tensor of the model's dtype, formed once and kept
+        for the last grid seen (the model's own, from the construction's
+        probe, or a sharded step's block)."""
         if self._node_planes is None or self._node_planes[0] is not grid:
-            planes = steady_node_planes(self.winds, grid.x, grid.y)
+            planes = steady_node_planes(self.winds, grid.x, grid.y,
+                                        self.config.dtype)
             if planes is None:
                 raise ValueError("the winds read their time t on this grid; "
                                  "they were steady on the model's own")

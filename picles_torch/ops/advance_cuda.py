@@ -45,20 +45,24 @@ plain version is ``tsit5.integrate_to`` with ``rhs.particle_equations_1d``
 (for the traced kind over ``TracedWind.winds``), which the 1D model runs on
 the CPU.
 
-K1 and K3 have a float32 and a float64 instance (the same templates,
+K1, K3 and K7 have a float32 and a float64 instance (the same templates,
 ``csrc/rhs.cuh``), chosen by the lanes' dtype: float64 lanes launch the
 float64 library's entry points (``cuda_build.library_f64``), with the
-particle planes, the node x, the projection planes and the packed
-parameters in float64 and the wind planes float32, as the samplers give
-them.  A plane of another dtype raises, naming it: nothing is cast.  A
-traced wind runs in float32 only.
+particle planes, the node x, the projection planes, a steady callable's
+node planes and the packed parameters in float64, and a gridded record's
+planes float32, as the record gives them; a traced wind's own library is
+of its traced dtype (``traced_kernel(..., dtype=)``: a float64 one holds
+the double instances).  A plane of another dtype, or a traced wind of
+another dtype than the lanes', raises, naming it: nothing is cast, and no
+wrapper falls back to a plain version.
 
 ``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
 ``advance_1d.launches`` count kernel launches (not plain-version calls) of
-the float32 instances; ``advance_cuda.traced_launches``,
-``auto_dt_cuda.traced_launches`` and ``advance_1d.traced_launches`` the
-launches of the traced instances; ``advance_cuda.f64_launches`` and
-``auto_dt_cuda.f64_launches`` those of the float64 instances.
+the float32 instances; ``..._cuda.traced_launches`` and
+``advance_1d.traced_launches`` the launches of the float32 traced
+instances; ``..._cuda.f64_launches`` and ``advance_1d.f64_launches`` those
+of the float64 instances, ``..._cuda.traced_f64_launches`` and
+``advance_1d.traced_f64_launches`` those of the float64 traced ones.
 
 K1 runs the tableaux the build compiles into it from ``tsit5.METHODS``
 (``cuda_build.tableaux_header``, the methods of ``cuda_build.K1_METHODS``);
@@ -105,14 +109,15 @@ def flag_bits(flags: TermFlags) -> int:
             + 8 * flags.peak_shift + 16 * flags.direction)
 
 
-def kernel_wind(winds: Winds2D, device="cpu") -> WindKernel:
+def kernel_wind(winds: Winds2D, device="cpu",
+                dtype: torch.dtype = torch.float32) -> WindKernel:
     """The wind's kernel descriptor: its own, or for a callable without one
-    the traced kind's, traced on ``device`` (``forcing.winds.traced_kernel``;
-    the model gives a steady callable the node kind's descriptor instead).
-    Raises ``NotImplementedError`` for a callable the tracer cannot
-    lower."""
+    the traced kind's, traced on ``device`` in the lanes' ``dtype``
+    (``forcing.winds.traced_kernel``; the model gives a steady callable the
+    node kind's descriptor instead).  Raises ``NotImplementedError`` for a
+    callable the tracer cannot lower."""
     if winds.kernel is None:
-        return traced_kernel(winds, device)
+        return traced_kernel(winds, device, dtype)
     return winds.kernel
 
 
@@ -125,20 +130,28 @@ def n_wind_fields(wind: WindKernel) -> int:
     return {WindKind.NODE: 2, WindKind.TRACED: 1}.get(wind.kind, 0)
 
 
+def _traced_dtype(traced, dtype: Optional[torch.dtype]) -> None:
+    """A traced wind's kernels compute in its traced dtype: lanes of
+    another raise."""
+    if dtype is not None and traced.dtype != dtype:
+        raise TypeError(f"the traced wind was traced in {traced.dtype}: its "
+                        f"kernels do not take {dtype} lanes (trace it with "
+                        f"the model's dtype)")
+
+
 def kernel_library(wind: WindKernel, dtype=torch.float32
                    ) -> Tuple[ctypes.CDLL, str]:
     """The loaded library whose entry points run ``wind`` on lanes of
     ``dtype`` and the suffix of their names: a traced wind's own
-    (``cuda_build.traced_library``, built at its first launch; float32
-    only), the float64 library for float64 lanes, else the kernels'
-    library."""
-    from .cuda_build import library, library_f64, traced_library
+    (``cuda_build.traced_library``, built at its first launch; its traced
+    dtype must be ``dtype``), the float64 library for float64 lanes, else
+    the kernels' library."""
+    from .cuda_build import library, library_f64, traced_library, \
+        traced_suffix
 
     if wind.kind == WindKind.TRACED:
-        if dtype != torch.float32:
-            raise TypeError("a traced wind's kernels compute in float32, "
-                            f"not {dtype}")
-        return traced_library(wind.traced), "_traced"
+        _traced_dtype(wind.traced, dtype)
+        return traced_library(wind.traced), traced_suffix(wind.traced)
     if dtype == torch.float64:
         return library_f64(), "_f64"
     return library(), ""
@@ -167,11 +180,13 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
                 like: torch.Tensor, simple: bool = False,
                 yn: Optional[torch.Tensor] = None) -> list:
     """The wind's planes as the kernels read them (rhs.cuh
-    ``attach_planes``): ``n_wind_fields(wind)`` float32 planes (in either
-    instance) shaped like the node plane ``like`` on its device, one after
-    the other in memory, as ``pallas_pwl_fields`` (and
-    ``steady_node_planes``) return them; other planes are refused.  A
-    traced wind's one plane is the node y ``yn`` (``fields`` empty)."""
+    ``attach_planes``): ``n_wind_fields(wind)`` planes shaped like the node
+    plane ``like`` on its device, one after the other in memory, as
+    ``pallas_pwl_fields`` (and ``steady_node_planes``) return them, float32
+    for a gridded record (in either instance) and of ``like``'s dtype (the
+    lanes') for the node kind; other planes are refused.  A traced wind's
+    one plane is the node y ``yn`` (``fields`` empty), of ``like``'s
+    dtype."""
     from .cuda_build import check_planes
 
     if wind.kind == WindKind.TRACED:
@@ -180,7 +195,7 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
                              "kernels read the node y")
         if simple:
             raise ValueError("traced winds have no _simple baseline")
-        check_planes([like, yn], ["xn", "yn"], [torch.float32] * 2)
+        check_planes([like, yn], ["xn", "yn"], [like.dtype] * 2)
         return [yn]
     n = n_wind_fields(wind)
     if len(fields) != n:
@@ -192,7 +207,8 @@ def wind_planes(wind: WindKernel, fields: Sequence[torch.Tensor],
         raise ValueError(f"{wind.kind.name.lower()} winds have no _simple "
                          "baseline")
     names = ["xn"] + [f"wind plane {k}" for k in range(n)]
-    check_planes([like, *fields], names, [like.dtype] + [torch.float32] * n)
+    real = torch.float32 if wind.kind == WindKind.GRIDDED else like.dtype
+    check_planes([like, *fields], names, [like.dtype] + [real] * n)
     step = like.numel() * fields[0].element_size()
     base = fields[0].data_ptr()
     if any(f.data_ptr() != base + k * step for k, f in enumerate(fields)):
@@ -285,10 +301,10 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     if config.method not in K1_METHODS:
         raise ValueError(f"the advance kernel compiles the tableaux of "
                          f"{sorted(K1_METHODS)}, not {config.method!r}")
-    wind = kernel_wind(winds, xn.device)
     method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
     real = _lanes_dtype(comps[0], simple)
+    wind = kernel_wind(winds, xn.device, real)
     dev, L = check_layered(ins[:8], ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                                      "active"], [real] * 7 + [torch.bool],
                            [xn], ["xn"], [real], simple)
@@ -318,13 +334,14 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                 xn.numel(), L, stream)
     check_status(code, "advance")
     if not simple:
-        _count(advance_cuda, wind, real)
+        _count(advance_cuda, wind.kind == WindKind.TRACED, real)
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 
 advance_cuda.launches = 0
 advance_cuda.traced_launches = 0
 advance_cuda.f64_launches = 0
+advance_cuda.traced_f64_launches = 0
 
 
 def _lanes_dtype(lanes: torch.Tensor, simple: bool) -> torch.dtype:
@@ -339,9 +356,12 @@ def _lanes_dtype(lanes: torch.Tensor, simple: bool) -> torch.dtype:
     return real
 
 
-def _count(wrapper, wind: WindKernel, real: torch.dtype) -> None:
-    """Add one to the wrapper's count of the instance that launched."""
-    if wind.kind == WindKind.TRACED:
+def _count(wrapper, traced: bool, real: torch.dtype) -> None:
+    """Add one to the wrapper's count of the instance that launched: a
+    traced wind's or another, of the lanes' dtype ``real``."""
+    if traced and real == torch.float64:
+        wrapper.traced_f64_launches += 1
+    elif traced:
         wrapper.traced_launches += 1
     elif real == torch.float64:
         wrapper.f64_launches += 1
@@ -370,9 +390,9 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     from .cuda_build import (check_layered, check_status, library, packed,
                              pointer_array)
 
-    wind = kernel_wind(winds, xn.device)
     ins = [*comps, t, xn, dt, was_reset]
     real = _lanes_dtype(comps[0], simple)
+    wind = kernel_wind(winds, xn.device, real)
     dev, L = check_layered([*comps, t, dt, was_reset],
                            ["lne", "cgx", "cgy", "x", "y", "t", "dt",
                             "was_reset"], [real] * 7 + [torch.bool],
@@ -399,13 +419,14 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     check_status(code, "auto-dt")
     if simple:
         return _clamp_select(out, was_reset, dt, dtmin, DT)
-    _count(auto_dt_cuda, wind, real)
+    _count(auto_dt_cuda, wind.kind == WindKind.TRACED, real)
     return out
 
 
 auto_dt_cuda.launches = 0
 auto_dt_cuda.traced_launches = 0
 auto_dt_cuda.f64_launches = 0
+auto_dt_cuda.traced_f64_launches = 0
 
 
 class Advance1DResult(NamedTuple):
@@ -419,23 +440,31 @@ class Advance1DResult(NamedTuple):
 Wind1D = Union[torch.Tensor, GriddedWinds1D, WindKernel]
 
 
-def k7_reciprocals(consts: RHSConsts) -> Tuple[float, float]:
-    """1 / r_g and 1 / e_T as K7 takes them: float32 quotients of the
-    float32 constants, the bits the card's IEEE division gives."""
-    one = np.float32(1.0)
-    return (float(one / np.float32(consts.r_g)),
-            float(one / np.float32(consts.e_T)))
+def k7_reciprocals(consts: RHSConsts, dtype: torch.dtype = torch.float32
+                   ) -> Tuple[float, float]:
+    """1 / r_g and 1 / e_T as K7 takes them: quotients in the lanes'
+    ``dtype`` of the constants rounded to it, the bits the card's IEEE
+    division gives (ATen's reciprocal of a host scalar, in float64 for
+    float64 lanes)."""
+    from .cuda_build import REAL_DTYPES
+
+    real = REAL_DTYPES[dtype]
+    one = real(1.0)
+    return (float(one / real(consts.r_g)), float(one / real(consts.e_T)))
 
 
 def k7_params(consts: RHSConsts, flags: TermFlags, config: SolverConfig,
-              DT: float, kind: WindKind, record: Optional[GriddedWinds1D]
+              DT: float, kind: WindKind, record: Optional[GriddedWinds1D],
+              dtype: torch.dtype = torch.float32
               ) -> Tuple[np.ndarray, np.ndarray]:
-    """K7's packed float32 and int32 parameters (the layout of
-    ``advance_1d_entry`` in advance_1d.cu): the 1D RHS constants, the
-    controller, the record's axes (zeros but for a gridded wind) and the
-    host's reciprocals (``k7_reciprocals``); the flags, the wind kind, the
-    record's shape and edge modes, the method's stage count and the
-    controller's switches."""
+    """K7's packed float and int32 parameters (the layout of
+    ``advance_1d_entry`` in advance_1d.cu; the floats in the lanes'
+    ``dtype``): the 1D RHS constants, the controller, the record's axes
+    (zeros but for a gridded wind) and the host's reciprocals
+    (``k7_reciprocals``); the flags, the wind kind, the record's shape and
+    edge modes, the method's stage count and the controller's switches."""
+    from .cuda_build import packed
+
     method = METHODS[config.method]
     if record is None:
         grid, gf = [1, 1, 0, 0], [0.0, 1.0, 0.0, 1.0]
@@ -446,21 +475,27 @@ def k7_params(consts: RHSConsts, flags: TermFlags, config: SolverConfig,
     f = [consts.r_g, consts.C_alpha, consts.C_e, consts.g, consts.p,
          consts.n, consts.e_T, 2.0 * consts.n, DT, config.abstol,
          config.reltol, config.dtmin, -1.0 / method.order, *gf,
-         *k7_reciprocals(consts)]
+         *k7_reciprocals(consts, dtype)]
     i = [flag_bits(flags), int(kind), *grid, len(method.b),
          int(config.adaptive), int(config.force_dtmin), int(config.maxiters)]
-    return np.asarray(f, dtype=np.float32), np.asarray(i, dtype=np.int32)
+    return packed(f, dtype), np.asarray(i, dtype=np.int32)
 
 
-def kernel_library_1d(wind: Wind1D) -> Tuple[ctypes.CDLL, str]:
+def kernel_library_1d(wind: Wind1D, dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[ctypes.CDLL, str]:
     """The loaded library whose ``picles_advance_1d`` entry points run
-    ``wind`` and their names' suffix: a traced 1D wind's own
-    (``cuda_build.traced_library_1d``, built at its first launch), else the
-    kernels' library."""
-    from .cuda_build import library, traced_library_1d
+    ``wind`` on lanes of ``dtype`` and their names' suffix: a traced 1D
+    wind's own (``cuda_build.traced_library_1d``, built at its first
+    launch; of its traced dtype, which ``dtype`` must be if given), the
+    float64 library for float64 lanes, else the kernels' library."""
+    from .cuda_build import library, library_f64, traced_library_1d, \
+        traced_suffix
 
     if isinstance(wind, WindKernel):
-        return traced_library_1d(wind.traced), "_traced"
+        _traced_dtype(wind.traced, dtype)
+        return traced_library_1d(wind.traced), traced_suffix(wind.traced)
+    if dtype == torch.float64:
+        return library_f64(), "_f64"
     return library(), ""
 
 
@@ -470,24 +505,30 @@ def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
                xn: torch.Tensor, *, simple: bool = False) -> Advance1DResult:
     """Advance every active 1D particle over one model step ``DT`` (K7).
 
-    ``z [nx, 3]`` (lne, cg_x, x), ``t``, ``dt`` (float32) and ``active``
-    (bool) ``[nx]``, contiguous on one card, ``xn`` the node x ``[nx]``;
-    ``wind`` the node plane ``[nx]`` (float32), a ``GriddedWinds1D``
-    record on the same card, or a traced 1D wind's descriptor
-    (``traced_kernel_1d``: kind ``TRACED``, the lanes read the node x);
-    ``consts`` those of ``particle_equations_1d`` (``make_rhs_consts``).
-    Inactive lanes pass through with ``failed = False`` and ``naccept =
-    0``; a lane that finishes gets ``t = t + DT``.  CPU tensors are
-    refused: the plain version is ``tsit5.integrate_to`` over
-    ``particle_equations_1d``.  ``simple=True`` launches the previous
-    kernel, the baseline (not counted)."""
+    ``z [nx, 3]`` (lne, cg_x, x), ``t``, ``dt`` (float32 or float64: the
+    lanes' dtype picks the instance) and ``active`` (bool) ``[nx]``,
+    contiguous on one card, ``xn`` the node x ``[nx]`` (the lanes' dtype);
+    ``wind`` the node plane ``[nx]`` (the lanes' dtype), a
+    ``GriddedWinds1D`` record on the same card (float32), or a traced 1D
+    wind's descriptor (``traced_kernel_1d``: kind ``TRACED``, traced in the
+    lanes' dtype; the lanes read the node x); ``consts`` those of
+    ``particle_equations_1d`` (``make_rhs_consts``).  Inactive lanes pass
+    through with ``failed = False`` and ``naccept = 0``; a lane that
+    finishes gets ``t = t + DT``.  CPU tensors are refused: the plain
+    version is ``tsit5.integrate_to`` over ``particle_equations_1d``.
+    ``simple=True`` launches the previous kernel, the baseline (float32
+    only, not counted)."""
     from .cuda_build import (K1_METHODS, check_planes, check_status,
-                             pointer_array)
+                             pointer_array, real_dtype)
 
     if config.method not in K1_METHODS:
         raise ValueError(f"the 1D advance kernel compiles the tableaux of "
                          f"{sorted(K1_METHODS)}, not {config.method!r}")
     f32 = torch.float32
+    real = real_dtype(t)
+    if simple and real != f32:
+        raise ValueError(f"the _simple baseline computes in float32, not "
+                         f"{real}")
     traced = isinstance(wind, WindKernel)
     if traced and (wind.kind != WindKind.TRACED or wind.traced is None
                    or not wind.traced.one_d):
@@ -497,11 +538,12 @@ def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
     node = not traced and not isinstance(wind, GriddedWinds1D)
     dev = check_planes([t, dt, active, xn] + [wind] * node,
                        ["t", "dt", "active", "xn", "the node wind plane"],
-                       [f32, f32, torch.bool, f32, f32])
+                       [real, real, torch.bool, real, real])
     n = t.numel()
-    if t.dim() != 1 or tuple(z.shape) != (n, 3) or z.dtype != f32 \
+    if t.dim() != 1 or tuple(z.shape) != (n, 3) or z.dtype != real \
             or not z.is_contiguous() or z.device != dev:
-        raise ValueError(f"z must be one contiguous float32 [{n}, 3] tensor "
+        name = str(real).replace("torch.", "")
+        raise ValueError(f"z must be one contiguous {name} [{n}, 3] tensor "
                          f"on {dev}, got {z.dtype} {tuple(z.shape)} on "
                          f"{z.device}")
     record = wind if isinstance(wind, GriddedWinds1D) else None
@@ -514,7 +556,7 @@ def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
     kind = (WindKind.TRACED if traced else WindKind.NODE if node
             else WindKind.GRIDDED)
     data = None if traced else wind if node else record.u_data
-    fp, ip = k7_params(consts, flags, config, DT, kind, record)
+    fp, ip = k7_params(consts, flags, config, DT, kind, record, real)
     z_o = torch.empty_like(z)
     t_o, dt_o = torch.empty_like(t), torch.empty_like(dt)
     failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
@@ -523,21 +565,20 @@ def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
                           data])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, sfx = kernel_library_1d(wind)
+        lib, sfx = kernel_library_1d(wind, real)
         entry = "picles_advance_1d" + ("_simple" if simple else "") + sfx
         code = getattr(lib, entry)(fp.ctypes.data, ip.ctypes.data,
                                    ctypes.addressof(ptrs), n, stream)
     check_status(code, "1D advance")
     if not simple:
-        if traced:
-            advance_1d.traced_launches += 1
-        else:
-            advance_1d.launches += 1
+        _count(advance_1d, traced, real)
     return Advance1DResult(z_o, t_o, dt_o, failed, nacc)
 
 
 advance_1d.launches = 0
 advance_1d.traced_launches = 0
+advance_1d.f64_launches = 0
+advance_1d.traced_f64_launches = 0
 
 
 def auto_dt_reset(rhs, t: torch.Tensor, z: torch.Tensor, aux,

@@ -34,15 +34,16 @@ kernels here do not, and deposit as ``pic.scatter_dense`` folds
 (``csrc/pic_gather.cu``).  The count of clamped displacements stays in PyTorch, with the JAX
 package's predicate on the declared halo.  ``pic_gather.launches``,
 ``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
-kernel launches, ``pic_gather_remesh.traced_launches`` those of K6's traced
-instance.
+kernel launches, ``pic_gather_remesh.traced_launches`` and
+``pic_gather_remesh.traced_f64_launches`` those of K6's float32 and float64
+traced instances (a traced wind's library of its traced dtype).
 
 All three share one tiled window sum (``csrc/pic_gather.cu``, its tiling
 compiled in), with a float32 and a float64 instance chosen by the planes'
 dtype (float64: the float64 library's entry points,
-``cuda_build.library_f64``; every plane but the masks and the float32 wind
-planes, and the packed parameters, in float64; a plane of another dtype
-raises, naming it).  ``pic_gather.f64_launches``,
+``cuda_build.library_f64``; every plane but the masks and a gridded
+record's float32 planes, and the packed parameters, in float64; a plane of
+another dtype raises, naming it).  ``pic_gather.f64_launches``,
 ``pic_gather_padded.f64_launches`` and ``pic_gather_remesh.f64_launches``
 count the float64 instances' launches, ``launches`` the float32 ones.  ``simple=True`` launches the previous one-thread-per-node kernel
 instead, the baseline the card checks hold the tiled one to bit for bit; no
@@ -208,9 +209,9 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     if check_core(core, clock, xrel.shape, simple)[0] != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "
                          f"deposit's on {dev}")
-    wind = kernel_wind(p.winds, dev)
+    wind = kernel_wind(p.winds, dev, xrel.dtype)
     planes = wind_planes(wind, wind_fields, xn, simple, yn)
-    rf, ri = remesh_params(p, dev)
+    rf, ri = remesh_params(p, dev, xrel.dtype)
     fp = packed(f + rf, xrel.dtype)
     ip = np.asarray(i + ri, dtype=np.int32)
     node = [torch.empty_like(xrel) for _ in range(3)]
@@ -228,7 +229,9 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                   stream)
     check_status(code, "CIC gather + remesh")
     if not simple:
-        if wind.kind == WindKind.TRACED:
+        if wind.kind == WindKind.TRACED and xrel.dtype == torch.float64:
+            pic_gather_remesh.traced_f64_launches += 1
+        elif wind.kind == WindKind.TRACED:
             pic_gather_remesh.traced_launches += 1
         else:
             _count(pic_gather_remesh, xrel.dtype)
@@ -238,6 +241,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
 pic_gather_remesh.launches = 0
 pic_gather_remesh.traced_launches = 0
 pic_gather_remesh.f64_launches = 0
+pic_gather_remesh.traced_f64_launches = 0
 
 
 def _entry(name: str, dtype: torch.dtype):

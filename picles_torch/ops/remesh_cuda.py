@@ -18,12 +18,15 @@ samples ``forcing.winds.pwl_winds`` (``node_plane_winds``) of them.  A
 traced wind (a callable that reads its time, kind ``TRACED``) runs the
 entry point of its own library (``advance_cuda.kernel_library``), which
 reads the node y plane as well, and its plain version samples
-``TracedWind.winds``.  K5 has a float32 and a float64 instance (the same template), chosen by the
-planes' dtype: float64 planes, clock and node x launch the float64
-library's ``picles_remesh_f64``, the wind planes float32 in either.
+``TracedWind.winds``.  K5 has a float32 and a float64 instance (the same
+template), chosen by the planes' dtype: float64 planes, clock and node x
+launch the float64 library's ``picles_remesh_f64`` (a float64 traced
+wind's library ``picles_remesh_traced_f64``), a gridded record's planes
+float32 in either, a steady callable's node planes in the lanes' dtype.
 ``remesh_cuda.launches`` counts the float32 instance's launches,
 ``remesh_cuda.f64_launches`` the float64 one's,
-``remesh_cuda.traced_launches`` those of the traced instance.
+``remesh_cuda.traced_launches`` and ``remesh_cuda.traced_f64_launches``
+those of the float32 and float64 traced instances.
 """
 
 from __future__ import annotations
@@ -53,12 +56,14 @@ def _seed(d) -> Tuple[int, list]:
     return SEED_FIXED, [float(v) for v in d]
 
 
-def remesh_params(p: RemeshParams, device="cpu") -> Tuple[list, list]:
+def remesh_params(p: RemeshParams, device="cpu",
+                  dtype: torch.dtype = torch.float32) -> Tuple[list, list]:
     """The packed float and int parameters of the branch table (the layout
     of ``unpack_remesh`` in remesh.cuh).  The windsea constants are those of
     ``fetch_relations.get_initial_windsea``, in its order of use; a
-    callable without a descriptor is traced on ``device``."""
-    wf, wi = wind_params(kernel_wind(p.winds, device))
+    callable without a descriptor is traced on ``device`` in the lanes'
+    ``dtype``."""
+    wf, wi = wind_params(kernel_wind(p.winds, device, dtype))
     windsea = [G_GRAVITY, abs(p.timestep), 0.1,
                FR.DULOV_A * FR.DULOV_XI_0X, 1.0 / (1.0 - FR.DULOV_Q_X),
                3.5, -0.33, 0.033, 0.67, 0.31 * G_GRAVITY ** 2, 2.0, math.pi,
@@ -120,9 +125,9 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     check_planes(node, ("e", "m_x", "m_y"), [lne.dtype] * 3)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
     dev, L = check_core(core, clock, node[0].shape)
-    wind = kernel_wind(p.winds, dev)
+    wind = kernel_wind(p.winds, dev, lne.dtype)
     planes = wind_planes(wind, wind_fields, xn, yn=yn)
-    f, i = remesh_params(p, dev)
+    f, i = remesh_params(p, dev, lne.dtype)
     fp = packed(f, lne.dtype)
     ip = np.asarray(i, dtype=np.int32)
     outs = remesh_outputs(lne)
@@ -134,10 +139,11 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
             fp.ctypes.data, ip.ctypes.data, ctypes.addressof(ptrs),
             xn.numel(), L, stream)
     check_status(code, "remesh")
-    _count(remesh_cuda, wind, lne.dtype)
+    _count(remesh_cuda, wind.kind == WindKind.TRACED, lne.dtype)
     return RemeshResult(*outs)
 
 
 remesh_cuda.launches = 0
 remesh_cuda.traced_launches = 0
 remesh_cuda.f64_launches = 0
+remesh_cuda.traced_f64_launches = 0

@@ -14,7 +14,12 @@ traced kind: its emitted function, and K1, K3, K5 and K6 each against its
 plain version; the pulse on a tripolar grid bit for bit the constant
 winds); K7's traced kind (a 1D callable that reads its time: its emitted
 function, K7 against its plain version, the graphed 1D step) and K7 bit
-for bit its ``_simple`` baseline in every kind.  Marked
+for bit its ``_simple`` baseline in every kind; float64 (K1-K6's double
+instances; the traced kind's double instances of K1, K3, K5 and K6 and
+K7's in every kind against their float64 plain versions, the emitted
+double functions, the graphed float64 1D model, the card against the
+CPU; ``time_cosine_winds`` dividing as IEEE division, and a float64
+steady callable's node planes kept in float64).  Marked
 ``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
@@ -1350,8 +1355,10 @@ def test_model_1d_on_card_runs_the_plain_advance_only_when_asked(dev):
     """On the card a wind callable that reads its time runs on K7's traced
     kind, graphed, without being asked (6 graphed steps bit for bit 6
     eager ones, K7 traced once an eager step); a callable the tracer
-    refuses (``float(t)``) and a float64 config raise, naming
-    ``advance_mode="torch"``; with it the plain advance runs eagerly
+    refuses (``float(t)``) raises, naming ``advance_mode="torch"``; a
+    float64 config runs on K7's double instances, graphed (the callable
+    traced in float64); with ``advance_mode="torch"`` the plain advance
+    runs eagerly
     (``graphed`` false, K7 never launched), 6 steps within 1e-4 of the CPU
     run's scale at abstol 1e-7 / reltol 1e-6, ``on`` equal."""
     from picles_torch import (ODESettings, WaveGrowth1D, WaveGrowth1DConfig,
@@ -1380,9 +1387,15 @@ def test_model_1d_on_card_runs_the_plain_advance_only_when_asked(dev):
                     eager.leaves())
     with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
         WaveGrowth1D(grid, Winds1D(u=host), sett, config=open_)
-    with pytest.raises(ValueError, match='advance_mode="torch"'):
-        WaveGrowth1D(grid, Winds1D(u=timed), sett, config=WaveGrowth1DConfig(
-            periodic_boundary=False, dtype=torch.float64))
+    f64 = WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device=dev,
+                                  dtype=torch.float64), Winds1D(u=timed),
+                       sett, config=WaveGrowth1DConfig(
+                           periodic_boundary=False, dtype=torch.float64))
+    assert (f64.advance_mode, f64.graphed) == ("cuda", True)
+    assert f64._traced.traced.dtype == torch.float64
+    before = advance_1d.traced_f64_launches
+    f64.step(f64.init_state())
+    assert advance_1d.traced_f64_launches == before + 1
     mg = WaveGrowth1D(grid, Winds1D(u=timed), sett, config=open_,
                       advance_mode="torch")
     mc = WaveGrowth1D(one_d_grid(0.0, 500e3, 31, device="cpu"),
@@ -1995,16 +2008,26 @@ def test_float64_model_graphed_on_card_matches_cpu(dev):
 
 
 def test_float64_traced_wind_refused_on_card(dev):
-    """On a card a float64 model whose wind callable reads its time is
-    refused at construction, naming the plain modes; with them it runs."""
+    """On a card a float64 model whose wind callable reads its time runs
+    on the traced kind's double instances, graphed ("auto" modes, no
+    construction error; a callable whose dtypes depend on the rank of t
+    is still refused, naming the plain modes): the pulse, fused and
+    default, at 64^2, three graphed steps within 1e-10 of the CPU's plain
+    run, every counter equal (``chip_smoke.f64_winds_card_vs_cpu``); with
+    the plain modes it runs too, eagerly."""
     from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
                               Winds2D, cartesian_box)
 
+    cs = _chip_smoke()
+    out = cs.f64_winds_card_vs_cpu(dev, 64, names=("pulse fused",
+                                                   "pulse default"))
+    assert len(out) == 2 and all(v["err"] <= 1e-10 for v in out.values())
     g = cartesian_box(2e3 * 15, 16, 2e3 * 15, 16, device=dev,
                       dtype=torch.float64, periodic_boundary=(True, True))
-    w = Winds2D(u=lambda x, y, t: 10.0 + 0.0 * x + t / 3600.0,
+    c64 = torch.tensor(2.0, dtype=torch.float64)
+    w = Winds2D(u=lambda x, y, t: x + t.float() * c64,
                 v=lambda x, y, t: torch.zeros_like(x))
-    with pytest.raises(ValueError, match='advance_mode="torch"'):
+    with pytest.raises(NotImplementedError, match='advance_mode="torch"'):
         WaveGrowth2D(g, w, ODESettings(),
                      config=WaveGrowth2DConfig(dtype=torch.float64))
     p = WaveGrowth2D(g, w, ODESettings(), config=WaveGrowth2DConfig(
@@ -2023,3 +2046,105 @@ def test_ptx_checks_of_both_instances(dev):
     assert cuda_build.unexpected_double_ops() == []
     narrowing = cuda_build.narrowing_summary()
     assert narrowing["other"] == [] and narrowing["amplitude"] > 0
+
+
+# ---------------------------------------------------------------------------
+# float64 under every wind: the traced kind's double instances of K1, K3,
+# K5 and K6, K7's double instances, the two faults' repairs
+# ---------------------------------------------------------------------------
+
+
+def test_time_cosine_sampler_divides_as_the_kernels(dev):
+    """``time_cosine_winds``' amplitude on 2^20 float32 times bit for bit
+    cos(2 pi t / p) with the period divided as IEEE division (a 0-dim
+    tensor on the card, as the JAX package and the kernels'
+    ``cosine_amplitude`` divide), where ATen's division by a host scalar
+    parts by an ulp in some lanes (``chip_smoke.time_cosine_division_check``)."""
+    cs = _chip_smoke()
+    out = cs.time_cosine_division_check(dev, 1 << 20)
+    assert out["reciprocal_parts"] > 0
+
+
+def test_float64_node_planes_card_matches_cpu(dev):
+    """A float64 model under a steady callable written in float64
+    arithmetic (the global jet's U0 cos(lat) on a float64 spherical grid:
+    the node kind, its planes in float64; the fused configuration), three
+    graphed steps within 1e-10 of the CPU's plain run, every counter equal;
+    planes rounded to float32 part by some 1e-7."""
+    cs = _chip_smoke()
+    out = cs.f64_winds_card_vs_cpu(dev, 64, names=("jet node planes",))
+    assert out["jet node planes"]["err"] <= 1e-10, out
+
+
+def _f64_traced(dev):
+    cs = _chip_smoke()
+    winds = cs.f64_traced_callables()
+    traced = cs.f64_traced_kernels(dev, winds)
+    cs.f64_traced_build(*traced)
+    return cs, winds, traced[0], traced[1]
+
+
+def test_traced_f64_probe_matches_the_callable(dev):
+    """Each emitted double function alone bit for bit its callable on the
+    card (the pulse, ``slopped_blob``, the time-cosine, the 1D storm;
+    ``every_op_winds`` within an ulp), the libraries' narrowing to float32
+    only in their out-of-line functions."""
+    cs, winds, kerns, storm = _f64_traced(dev)
+    out = cs.f64_traced_probe_check(dev, winds, kerns, storm, 1 << 16)
+    assert all(out[k]["differing"] == 0 for k in ("pulse", "slopped_blob",
+                                                  "time_cosine", "storm 1D"))
+
+
+@pytest.mark.parametrize("kid", ["K1", "K3", "K5", "K6"])
+def test_traced_f64_kernel_matches_plain(dev, kid):
+    """Each traced double instance at 256^2 on the float64 pulse's states
+    against its float64 plain version (``f64_traced_kernel_checks``, under
+    the pulse, ``slopped_blob`` and the time-cosine): K1 fixed substeps
+    within 1e-12 of the scale and adaptive by share of lanes, K3 within
+    1e-15, K5 bit for bit, K6 bit for bit K2 + K5."""
+    cs, winds, kerns, _ = _f64_traced(dev)
+    results = {k: {} for k in cs.F64_TRACED_REPLACES}
+    errs = cs.f64_traced_kernel_checks(
+        dev, 256, winds, kerns, results, only=(kid,),
+        wind_names=("pulse", "slopped_blob", "time_cosine"))
+    assert errs[kid] <= (1e-15 if kid == "K3" else 1e-12), errs
+
+
+def test_advance_1d_f64_matches_plain(dev):
+    """K7's double instances against their float64 plain versions
+    (``f64_k7_checks``): node, gridded and traced kinds on B01's float64
+    state, bosh3 and tsit5, fixed substeps within 1e-12 of the scale and
+    adaptive by share of lanes; the 2^14-lane probe adaptive."""
+    cs, _, _, storm = _f64_traced(dev)
+    results = {"K7 f64": {}, "K7 traced f64": {}}
+    cs.f64_k7_checks(dev, storm, results, probe_lanes=1 << 14,
+                     b01_steps=12)
+    assert results["K7 f64"]["max_abs_err"] <= 1e-12
+    assert results["K7 traced f64"]["max_abs_err"] <= 1e-12
+
+
+def test_graphed_float64_1d_day_equals_eager_steps(dev):
+    """The float64 B01 model and the float64 storm on K7's double
+    instances: 12 graphed steps bit for bit 12 eager steps, K7 f64 (traced
+    f64) once an eager step; against the CPU within 1e-10
+    (``f64_winds_card_vs_cpu``, 31 nodes, 6 steps: node and gridded kinds
+    adaptive, the storm in fixed substeps)."""
+    import picles_torch.ops.advance_cuda as AC
+
+    cs = _chip_smoke()
+    for make, counter in ((lambda: cs.b01_model(dev, dtype=torch.float64),
+                           "f64_launches"),
+                          (lambda: cs.b01_storm_model(
+                              dev, dtype=torch.float64),
+                           "traced_f64_launches")):
+        m = make()
+        assert m.graphed and m.advance_mode == "cuda"
+        before = getattr(AC.advance_1d, counter)
+        eager = cs.eager_steps(m, m.init_state(), 12)
+        assert getattr(AC.advance_1d, counter) == before + 12
+        cs.assert_state_bitwise("float64 1D graphed", m.step_n_quiet(
+            m.init_state(), 12), eager)
+    out = cs.f64_winds_card_vs_cpu(dev, names=("1D node", "1D gridded",
+                                               "1D traced"))
+    assert all(out[k]["err"] <= 1e-10 for k in ("1D node", "1D gridded",
+                                                "1D traced")), out

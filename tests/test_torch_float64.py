@@ -344,23 +344,34 @@ def _card_grid(monkeypatch, dtype):
 
 
 def test_float64_traced_wind_refused_at_construction(monkeypatch):
-    """A float64 model whose wind callable reads its time (the traced kind,
-    float32 only) is refused when it is built on a card, with a ValueError
-    naming the plain modes; a steady callable (the node kind) is not."""
+    """A float64 model whose wind callable reads its time is built on a
+    card as the traced kind in float64 (its graph traced on float64
+    placeholders, the double instances' library), graphed, as a steady
+    callable is built as the node kind with float64 node planes; a
+    callable whose dtypes depend on the rank of t is still refused there,
+    with a NotImplementedError naming the plain modes."""
     grid = _card_grid(monkeypatch, F64)
     pulse = pt.Winds2D(u=lambda x, y, t: 10.0 + 0.0 * x + t / 3600.0,
                        v=lambda x, y, t: 5.0 + 0.0 * y)
     cfg = pt.WaveGrowth2DConfig(dtype=F64)
-    with pytest.raises(ValueError) as e:
-        pt.WaveGrowth2D(grid, pulse, _settings(True, 1e-3), config=cfg)
-    for mode in ('advance_mode="torch"', 'scatter_mode="dense"',
-                 'remesh_mode="xla"'):
-        assert mode in str(e.value)
+    m = pt.WaveGrowth2D(grid, pulse, _settings(True, 1e-3), config=cfg)
+    assert m.resolved_config().advance_mode == "cuda" and m.graphed
+    assert m.winds.kernel.kind == pt.WindKind.TRACED
+    assert m.winds.kernel.traced.dtype == F64
+    assert "double x, double y, double t" in m.winds.kernel.traced.source
+    c64 = torch.tensor(2.0, dtype=F64)
+    ranked = pt.Winds2D(u=lambda x, y, t: x + (t.float() * c64),
+                        v=lambda x, y, t: 5.0 + 0.0 * y)
+    with pytest.raises(NotImplementedError) as e:
+        pt.WaveGrowth2D(grid, ranked, _settings(True, 1e-3), config=cfg)
+    assert "rank of t" in str(e.value)
+    assert 'advance_mode="torch"' in str(e.value)
     steady = pt.Winds2D(u=lambda x, y, t: 10.0 + 0.0 * x,
                         v=lambda x, y, t: 5.0 + 0.0 * y)
     m = pt.WaveGrowth2D(grid, steady, _settings(True, 1e-3), config=cfg)
     assert m.resolved_config().advance_mode == "cuda" and m.graphed
     assert m.winds.kernel.kind == pt.WindKind.NODE
+    assert m.node_planes(grid).dtype == F64
 
 
 def test_float64_kernels_refuse_a_float32_grid(monkeypatch):

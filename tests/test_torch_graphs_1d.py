@@ -106,9 +106,10 @@ def test_model_keeps_the_record_and_its_samples_equal_jax():
 def test_resolution_rule_for_a_card():
     """The rule for a CUDA device, from the probe's result on the CPU: K7
     where it runs, a callable that reads its time as the traced kind (the
-    model traces it: ``traced_kernel_1d``); float64 raises and names the
-    way out, which then resolves to the plain advance; the CPU's advance is
-    the plain one."""
+    model traces it: ``traced_kernel_1d``), in float32 and in float64 (K7's
+    double instances); another dtype raises and names the way out, which
+    then resolves to the plain advance; the CPU's advance is the plain
+    one."""
     x = torch.linspace(0.0, 500e3, 31)
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     f32, f64 = torch.float32, torch.float64
@@ -127,9 +128,12 @@ def test_resolution_rule_for_a_card():
     for mode in ("auto", "cuda"):
         for wk in (WindKind.NODE, WindKind.GRIDDED, kind(moving)):
             assert resolve_advance_1d(cuda, f32, wk, mode) == "cuda"
-        for wk in (WindKind.NODE, WindKind.GRIDDED, WindKind.TRACED, None):
+        for wk in (WindKind.NODE, WindKind.GRIDDED, WindKind.TRACED):
+            assert resolve_advance_1d(cuda, f64, wk, mode) == "cuda"
             with pytest.raises(ValueError, match='advance_mode="torch"'):
-                resolve_advance_1d(cuda, f64, wk, mode)
+                resolve_advance_1d(cuda, torch.float16, wk, mode)
+        with pytest.raises(ValueError, match="node, gridded or traced"):
+            resolve_advance_1d(cuda, f64, None, mode)
     for dtype, wk in ((f32, kind(moving)), (f64, WindKind.NODE),
                       (f64, WindKind.GRIDDED), (f32, WindKind.NODE),
                       (f64, WindKind.TRACED)):

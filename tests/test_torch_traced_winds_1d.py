@@ -223,18 +223,23 @@ def test_emitted_function_built_for_the_host(tmp_path, name):
 
 
 def test_resolution_gives_the_traced_kind_k7_on_a_card_only():
-    """The traced kind resolves to K7 on a CUDA device (auto and cuda), to
-    the plain loop on the CPU and with ``advance_mode="torch"``; float64
-    still raises on a card, naming ``advance_mode="torch"``; on the CPU the
-    model neither probes nor traces, and steps the callable itself."""
+    """The traced kind resolves to K7 on a CUDA device (auto and cuda), in
+    float32 and in float64 (K7's double instances, the callable traced in
+    float64), to the plain loop on the CPU and with
+    ``advance_mode="torch"``; another dtype raises on a card, naming
+    ``advance_mode="torch"``; on the CPU the model neither probes nor
+    traces, and steps the callable itself."""
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     f32 = torch.float32
     kind = traced_kernel_1d(pt.Winds1D(u=blob)).kind
     assert kind == WindKind.TRACED
+    assert traced_kernel_1d(pt.Winds1D(u=blob),
+                            dtype=torch.float64).traced.dtype == torch.float64
     for mode in ("auto", "cuda"):
         assert resolve_advance_1d(cuda, f32, kind, mode) == "cuda"
+        assert resolve_advance_1d(cuda, torch.float64, kind, mode) == "cuda"
         with pytest.raises(ValueError, match='advance_mode="torch"'):
-            resolve_advance_1d(cuda, torch.float64, kind, mode)
+            resolve_advance_1d(cuda, torch.float16, kind, mode)
     assert resolve_advance_1d(cuda, f32, kind, "torch") == "torch"
     assert resolve_advance_1d(cpu, f32, kind) == "torch"
     m = _model(winds=pt.Winds1D(u=blob))
