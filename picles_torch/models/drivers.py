@@ -58,7 +58,22 @@ root ``PERF.md`` §6).  The model keeps one capture, for the leaves'
 shapes, dtypes and device of the last state its drivers were given
 (another layout captures anew); it goes with the model, or with
 ``release_graph()``.  The kernel wrappers' launch counters count the
-host's calls: the warm-up steps and the capture tick them, replays do not.
+host's calls: the warm-up steps and the capture tick them, replays do not;
+the recorder's counter ``drivers.replays`` (``utils.diagnostics.tracer()``)
+counts one a replay, and ``drivers.captures`` one a capture.
+
+Spans (``utils.diagnostics.Tracer``): every capture records
+``drivers.capture`` (the warm-up steps, the capture and the graph's
+instantiation) with ``drivers.warmup`` inside it.  Inside a run that the
+recorder records (a ``Simulation.run`` begun while a profiler records), a
+graphed call records ``drivers.copy_in``, one ``drivers.replay`` a replay
+and ``drivers.clone_out``, and marks the card's timeline five times,
+between launches and outside the graph: ``drivers.copy_in`` before the
+copy in, ``drivers.replay`` with step 0 before the first replay, with step
+1 after it and with step n after the last (one mark where n is 1), and
+``drivers.done`` after the clone out.  No replay is timed alone: a timing
+event costs the card a few microseconds, two a replay about 0.5% of a
+member-day (root ``PERF.md`` §6).
 """
 
 from __future__ import annotations
@@ -66,6 +81,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from ..utils import diagnostics
 
 # eager steps on a side stream before a capture (torch.cuda.graph's
 # recipe): they build the kernels and fill the model's caches, which must
@@ -89,7 +106,8 @@ class StepGraph:
         self.state = ms.clone()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), diagnostics.tracer().span(
+                "drivers.warmup", once=True):
             for _ in range(WARMUP_STEPS):
                 model.step(self.state)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -99,6 +117,15 @@ class StepGraph:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = model.step(self.state)
             self.state.copy_(self.out)
+
+    def replay(self, step=None) -> None:
+        """One replay: ``state`` advances by a step.  Counted
+        (``drivers.replays``) and, inside a recorded run, spanned
+        (``drivers.replay``, ``step`` its index in the drivers' call)."""
+        tr = diagnostics.tracer()
+        with tr.span("drivers.replay", step):
+            self.graph.replay()
+        tr.counts["drivers.replays"] += 1
 
 
 class StepDrivers:
@@ -130,12 +157,19 @@ class StepDrivers:
     def _capture(self, ms) -> StepGraph:
         if self._graph is None or self._graph.layout != layout(ms):
             self.release_graph()
-            self._graph = StepGraph(self, ms)
+            tr = diagnostics.tracer()
+            with tr.span("drivers.capture", once=True):
+                self._graph = StepGraph(self, ms)
+            tr.counts["drivers.captures"] += 1
         return self._graph
 
     def _run(self, ms, n: int, each=None):
         """``n`` steps from ``ms``, ``each(i, state)`` called with the
-        Eulerian state after step i; graphed or in a loop."""
+        Eulerian state after step i; graphed or in a loop.  Ends the
+        recorded run's prologue; a graphed call records its spans and marks
+        (module docstring)."""
+        tr = diagnostics.tracer()
+        tr.end_prologue()
         if not self.graphed or n == 0:
             for i in range(n):
                 ms = self.step(ms)
@@ -143,12 +177,20 @@ class StepDrivers:
                     each(i, ms.state)
             return ms
         g = self._capture(ms)
-        g.state.copy_(ms)
+        tr.mark("drivers.copy_in")
+        with tr.span("drivers.copy_in"):
+            g.state.copy_(ms)
+        tr.mark("drivers.replay", 0)
         for i in range(n):
-            g.graph.replay()
+            g.replay(i)
             if each is not None:
                 each(i, g.state.state)
-        return g.state.clone()
+            if i == 0 or i == n - 1:
+                tr.mark("drivers.replay", i + 1)
+        with tr.span("drivers.clone_out"):
+            out = g.state.clone()
+        tr.mark("drivers.done")
+        return out
 
     def step_n(self, ms, n: int):
         """n steps; returns (final state, stacked Eulerian states

@@ -87,6 +87,7 @@ import torch
 
 from ..forcing.winds import (GriddedWinds1D, WindKernel, WindKind, Winds2D,
                              traced_kernel)
+from ..utils import diagnostics
 from .rhs import RHSConsts, TermFlags
 from .tsit5 import METHODS, SolverConfig, auto_dt
 
@@ -338,10 +339,8 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 
-advance_cuda.launches = 0
-advance_cuda.traced_launches = 0
-advance_cuda.f64_launches = 0
-advance_cuda.traced_f64_launches = 0
+diagnostics.launch_counters(advance_cuda, "launches", "traced_launches",
+                            "f64_launches", "traced_f64_launches")
 
 
 def _lanes_dtype(lanes: torch.Tensor, simple: bool) -> torch.dtype:
@@ -423,10 +422,8 @@ def auto_dt_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     return out
 
 
-auto_dt_cuda.launches = 0
-auto_dt_cuda.traced_launches = 0
-auto_dt_cuda.f64_launches = 0
-auto_dt_cuda.traced_f64_launches = 0
+diagnostics.launch_counters(auto_dt_cuda, "launches", "traced_launches",
+                            "f64_launches", "traced_f64_launches")
 
 
 class Advance1DResult(NamedTuple):
@@ -575,10 +572,8 @@ def advance_1d(wind: Wind1D, consts: RHSConsts, flags: TermFlags,
     return Advance1DResult(z_o, t_o, dt_o, failed, nacc)
 
 
-advance_1d.launches = 0
-advance_1d.traced_launches = 0
-advance_1d.f64_launches = 0
-advance_1d.traced_f64_launches = 0
+diagnostics.launch_counters(advance_1d, "launches", "traced_launches",
+                            "f64_launches", "traced_f64_launches")
 
 
 def auto_dt_reset(rhs, t: torch.Tensor, z: torch.Tensor, aux,

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..grids.base import Boundary, GridStats
+from ..utils import diagnostics
 from .advance_cuda import _lanes_dtype
 from .pic import ScatterStats, halo_bounds, normalize_halo
 from .remesh import RemeshParams, RemeshResult
@@ -141,8 +142,7 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     return tuple(outs), ScatterStats(clamped=clamped)
 
 
-pic_gather.launches = 0
-pic_gather.f64_launches = 0
+diagnostics.launch_counters(pic_gather, "launches", "f64_launches")
 
 
 def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -177,8 +177,7 @@ def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
     return out, ScatterStats(clamped=clamped)
 
 
-pic_gather_padded.launches = 0
-pic_gather_padded.f64_launches = 0
+diagnostics.launch_counters(pic_gather_padded, "launches", "f64_launches")
 
 
 def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
@@ -238,10 +237,8 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
 
 
-pic_gather_remesh.launches = 0
-pic_gather_remesh.traced_launches = 0
-pic_gather_remesh.f64_launches = 0
-pic_gather_remesh.traced_f64_launches = 0
+diagnostics.launch_counters(pic_gather_remesh, "launches", "traced_launches",
+                            "f64_launches", "traced_f64_launches")
 
 
 def _entry(name: str, dtype: torch.dtype):

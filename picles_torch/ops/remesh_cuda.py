@@ -41,6 +41,7 @@ import torch
 from ..core import fetch_relations as FR
 from ..core.constants import G_GRAVITY
 from ..forcing.winds import WindKind
+from ..utils import diagnostics
 from .advance_cuda import (_count, kernel_library, kernel_wind, wind_params,
                            wind_planes)
 from .remesh import RemeshParams, RemeshResult
@@ -143,7 +144,5 @@ def remesh_cuda(p: RemeshParams, node, lne, cgx, cgy, px, py, dt, on,
     return RemeshResult(*outs)
 
 
-remesh_cuda.launches = 0
-remesh_cuda.traced_launches = 0
-remesh_cuda.f64_launches = 0
-remesh_cuda.traced_f64_launches = 0
+diagnostics.launch_counters(remesh_cuda, "launches", "traced_launches",
+                            "f64_launches", "traced_f64_launches")

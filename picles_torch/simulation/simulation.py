@@ -9,7 +9,10 @@ must: at a chunk end that checks a wall-time limit or runs callbacks, at a
 store push, and once at the end of ``run`` (so ``run_wall_time`` is the
 time of the work, not of its enqueueing).  On the card the model's drivers
 replay a CUDA graph of the step (``models/drivers.py``): the first chunk
-captures it, and every chunk, a shorter last one too, replays it.
+captures it, and every chunk, a shorter last one too, replays it.  So a
+model's first ``run_wall_time`` holds the capture, which the port's
+recorder (``utils.diagnostics.tracer()``) shows as the span
+``drivers.capture``.
 
 A sharded model (``parallel/sharded.py``) is driven the same way on every
 rank: each store push gathers the blocks to rank 0, which alone writes the
@@ -25,6 +28,7 @@ import time as _time
 import numpy as np
 import torch
 
+from ..utils import diagnostics
 from .store import CashStore, EmptyStore, StateStore
 
 
@@ -153,7 +157,23 @@ class Simulation:
         store.  Without a store, steps
         run through ``step_n_quiet``, in one chunk unless a wall-time limit
         or callbacks need chunk ends (then 64 steps a chunk).
+
+        Where a profiler records (``utils.diagnostics.tracing()``, checked
+        once a call), the call is one run of the port's recorder
+        (``diagnostics.tracer()``): the span ``sim.run`` around it,
+        ``sim.prologue`` from its entry to its first call into the model's
+        drivers, the drivers' spans (``drivers.copy_in``, one
+        ``drivers.replay`` a replay, ``drivers.clone_out``; ``drivers.capture``
+        where the first chunk captures) and their five marks of the card's
+        timeline a graphed call (``models/drivers.py``), and ``sim.wait``
+        around the final wait for the card, all with the run's id.
         """
+        if not diagnostics.tracing():
+            return self._run(store, cash_store, chunk_size)
+        with diagnostics.tracer().run("sim.run", "sim.prologue"):
+            self._run(store, cash_store, chunk_size)
+
+    def _run(self, store: bool, cash_store: bool, chunk_size: int) -> None:
         t_wall = _time.time()
         if not self.initialized:
             self.initialize()
@@ -204,5 +224,6 @@ class Simulation:
                 print("wall time limit reached")
                 break
 
-        _sync(self.state.state)
+        with diagnostics.tracer().span("sim.wait"):
+            _sync(self.state.state)
         self.run_wall_time += _time.time() - t_wall

@@ -164,7 +164,7 @@ def record_trajectories(model, ms, n_steps: int, saving_step=None):
             t_fine += ts
         if graph is not None:
             # the replay writes the graph's own state: each row is a copy
-            graph.graph.replay()
+            graph.replay()
         else:
             ms = model.step(ms)
         P = ms.particles

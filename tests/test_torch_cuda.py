@@ -19,7 +19,9 @@ instances; the traced kind's double instances of K1, K3, K5 and K6 and
 K7's in every kind against their float64 plain versions, the emitted
 double functions, the graphed float64 1D model, the card against the
 CPU; ``time_cosine_winds`` dividing as IEEE division, and a float64
-steady callable's node planes kept in float64).  Marked
+steady callable's node planes kept in float64); the port's recorder on a
+graphed member-day under a profiler (its replays and marks of the card's
+timeline, no device operation added).  Marked
 ``cuda``: without a CUDA device every test
 here skips but the one that checks the refusal of CPU tensors.  On a
 machine with a card (and no JAX) run them with
@@ -1080,6 +1082,77 @@ def test_graphed_simulation_run_chunks_equal_eager(dev):
     quiet = Simulation.create(model, stop_time=7 * 600.0)
     quiet.run()
     _assert_bitwise(quiet.state.leaves(), ms.leaves())
+
+
+def _profiled_day(model, member, steps, logdir):
+    """One member-day of ``steps`` steps through ``Simulation.run`` under
+    ``profile_trace``; (final state, the trace's device events)."""
+    from picles_torch import Simulation
+    from picles_torch.utils import diagnostics as diag
+
+    sim = Simulation(model=model, dt=600.0, stop_time=(steps - 0.5) * 600.0,
+                     state=member, initialized=True)
+    with diag.profile_trace(logdir) as prof:
+        sim.run()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sim.state, [e for e in prof.events()
+                       if e.device_type == cuda and "spin_kernel" not in
+                       e.name]
+
+
+def test_profiled_graphed_day_records_replays_and_adds_no_device_op(
+        dev, monkeypatch, tmp_path):
+    """The port's recorder on a graphed member-day of 12 steps at 64^2:
+    the capture records ``drivers.capture`` with ``drivers.warmup`` inside;
+    under a profiler the day records 12 ``drivers.replay`` spans and five
+    marks of the card's timeline (before the copy in, before the first
+    replay, after it, after the last, after the clone out), in order on
+    the card; its final state is bit for bit an untraced day's;
+    the profiler's device operations are the same in number with the run
+    tier on and with its predicate replaced to off (12 K1 launches each),
+    and none carries a span's name."""
+    from picles_torch import Simulation
+    from picles_torch.utils import diagnostics as diag
+
+    tr = diag.Tracer()
+    monkeypatch.setattr(diag, "_TRACER", tr)
+    model = _driven_model(dev, "fused")
+    member = model.init_state()
+    steps = 12
+    plain = Simulation(model=model, dt=600.0,
+                       stop_time=(steps - 0.5) * 600.0, state=member,
+                       initialized=True)
+    plain.run()
+    cap, warm = tr.once
+    assert (cap.name, warm.name) == ("drivers.capture", "drivers.warmup")
+    assert warm.parent == cap.id and not tr.runs
+    assert cap.start_ns < warm.start_ns < warm.end_ns < cap.end_ns
+    assert tr.counts == {"drivers.captures": 1, "drivers.replays": steps}
+    on, dev_on = _profiled_day(model, member, steps, str(tmp_path / "on"))
+    _assert_bitwise(on.leaves(), plain.state.leaves())
+    (run,) = tr.runs
+    assert run.profiled
+    replays = [s for s in run.spans if s.name == "drivers.replay"]
+    assert [s.step for s in replays] == list(range(steps))
+    assert len({id(e) for _, _, e in run.marks}) == len(run.marks) == 5
+    marks = tr.snapshot()["runs"][0]["device"]
+    assert [(p["name"], p["step"]) for p in marks] == [
+        ("drivers.copy_in", None), ("drivers.replay", 0),
+        ("drivers.replay", 1), ("drivers.replay", steps),
+        ("drivers.done", None)]
+    for p, q in zip(marks, marks[1:]):
+        assert p["ms"] < q["ms"]
+    monkeypatch.setattr(diag, "tracing", lambda: False)
+    off, dev_off = _profiled_day(model, member, steps, str(tmp_path / "off"))
+    _assert_bitwise(off.leaves(), plain.state.leaves())
+    assert len(tr.runs) == 1
+    k1 = [sum("advance_kernel<" in e.name for e in d)
+          for d in (dev_on, dev_off)]
+    assert k1 == [steps, steps]
+    assert len(dev_on) == len(dev_off)
+    names = {s.name for s in run.spans}
+    assert not any(e.name in names for e in dev_on)
+    assert tr.counts["drivers.replays"] == 3 * steps
 
 
 def test_kernels_on_a_grid_past_the_tpu_vmem_limits(dev):
