@@ -179,6 +179,16 @@ just before and read just after:
     float64 pulse.  Phase "build" checks the float instances' PTX for
     float64 and the double instances' for narrowing to float32.
 
+14. the fused box step (phase "epilogue": the step's glue in the
+    epilogues of K1 and K6, as ``fused_glue`` chooses it) at 1536^2, with
+    no guard firing and with every guard firing (``fire_guards``): K1's
+    epilogue against raw K1 and the step's PyTorch glue up to the deposit
+    (``_advance_glue``), K6's against raw K6, its planes stacked and the
+    glue's branch counts, the fused step against ``_step_glue``; the
+    epilogues' launches counted, each timed beside its raw kernel, what it
+    replaces, its plain version and its bound (rows "K1 epilogue" and "K6
+    epilogue" of the kernels line).
+
 ``Simulation.run`` replays the graph too, so paths 2, 3, 4, 5, 7, 9 and 12
 run through it (13 through the drivers).  A replay launches the kernels without their wrappers, whose
 launch counters tick only when the host calls them: the eager paths count
@@ -255,9 +265,9 @@ from picles_torch.forcing.winds import (GriddedWinds1D, GriddedWinds2D,
                                         steady_node_planes, traced_kernel,
                                         traced_kernel_1d)
 from picles_torch.grids.mask import make_boundaries
-from picles_torch.ops.advance_cuda import (advance_1d, advance_cuda,
-                                           auto_dt_cuda, auto_dt_reset,
-                                           kernel_wind,
+from picles_torch.ops.advance_cuda import (N_COUNTERS, Guards, advance_1d,
+                                           advance_cuda, auto_dt_cuda,
+                                           auto_dt_reset, kernel_wind,
                                            node_projection,
                                            uniform_projection)
 from picles_torch.ops.pic import (normalize_halo, scatter_1d_add,
@@ -265,7 +275,8 @@ from picles_torch.ops.pic import (normalize_halo, scatter_1d_add,
                                   scatter_dense)
 from picles_torch.ops.pic_cuda import (pic_gather, pic_gather_padded,
                                        pic_gather_remesh)
-from picles_torch.ops.remesh import remesh_core
+from picles_torch.ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT,
+                                     remesh_core)
 from picles_torch.ops.remesh_cuda import remesh_cuda
 from picles_torch.ops.rhs import (RHSParams, make_rhs, make_rhs_consts,
                                   particle_equations_1d)
@@ -595,7 +606,8 @@ def gridded_wind_ops(B: int) -> int:
 
 def k1_bound(n: int, method: str, adaptive: bool, live, iters,
              n_wf: int = 0, proj: bool = False, layers: int = 1,
-             traced_ops: int = 0, real: int = 4) -> dict:
+             traced_ops: int = 0, real: int = 4,
+             epilogue: bool = False) -> dict:
     """K1's bound on this run's inputs: 33 bytes in and 33 out a particle,
     the node x (4 bytes, which only an analytic wind reads) or a wind's
     ``n_wf`` planes in (4 bytes each: 4 + 3B gridded, 2 of the node kind)
@@ -609,7 +621,12 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
     (8 bytes).  ``real``: the bytes of a lane value (8 for the float64
     instances: the 14 lane planes, the node x and y and the projection
     planes twice as wide, the masks, counts and float32 wind planes
-    not)."""
+    not).  With its ``epilogue`` (the step's guards: ``Guards``) K1 reads
+    the flags ``on`` in place of the advanced mask and writes the flags,
+    the deposit's mask and the three channels (e, m_x, m_y) in place of
+    ``failed`` and ``naccept`` (76 bytes a lane in float32; the boundary
+    mask, read only where the boundary reseeds, is not counted), and a
+    lane's epilogue costs ``EPILOGUE_OPS`` more."""
     S = len(METHODS[method].b)
     it = float(iters[live].double().sum())
     rhs = RHS_OPS + traced_ops + (gridded_wind_ops((n_wf - 4) // 3)
@@ -618,7 +635,17 @@ def k1_bound(n: int, method: str, adaptive: bool, live, iters,
         + it * k1_substep_ops(method, adaptive)
     node = real * (n_wf == 0) + 4.0 * n_wf + 5.0 * real * proj + real * (
         traced_ops > 0)
-    return bound((14.0 * real + 6.0 + node / layers) * n, ops, real)
+    lane = 14.0 * real + (3.0 * real + 4.0 if epilogue else 6.0)
+    ops += EPILOGUE_OPS * n * epilogue
+    return bound((lane + node / layers) * n, ops, real)
+
+
+# float operations of K1's epilogue a lane (advance.cu guard_lane, no
+# guard firing): the wind's square and its comparison, the NaN and Inf
+# tests of three values, the log-energy clamp, exp, |cg|^2 and its floor,
+# two products, two divisions and two halvings for the channels, and the
+# halo's four comparisons
+EPILOGUE_OPS = 24
 
 
 # float operations of one 1D RHS evaluation (rhs.cuh rhs_1d, every term
@@ -809,10 +836,14 @@ def assert_bitwise(what: str, new, simple) -> None:
 
 
 def settings(solver: str, **tols):
+    """The flagship's ODE settings with ``solver``; ``tols`` replaces any
+    of them (the tolerances, ``force_dtmin``)."""
     ws = FR.MinimalWindsea(10.0, 10.0, DT)
-    return ODESettings(log_energy_minimum=float(ws.lne), saving_step=DT,
-                       timestep=DT, total_time=6 * 24 * 3600.0, dt=1e-3,
-                       dtmin=1e-4, force_dtmin=True, solver=solver, **tols)
+    kw = dict(log_energy_minimum=float(ws.lne), saving_step=DT, timestep=DT,
+              total_time=6 * 24 * 3600.0, dt=1e-3, dtmin=1e-4,
+              force_dtmin=True, solver=solver)
+    kw.update(tols)
+    return ODESettings(**kw)
 
 
 def flagship_model(n: int, device, solver="bosh3", dt_reset_mode="carry",
@@ -1918,6 +1949,342 @@ def phase_remesh_kernel_times(flag, s_flag, results):
                               f", _simple {r['simple_ms']:.4f} ms (in turns)")
                            + f", plain {r['plain_ms']:.4f} ms, bound "
                              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
+# the step's glue in the epilogues of K1 and K6 (the fused path)
+# ---------------------------------------------------------------------------
+
+EPILOGUE_REPLACES = {
+    "K1 epilogue": "picles_tpu/ops/advance_pallas.py:50 and the step's glue "
+                   "after it (picles_tpu/models/wave_growth_2d.py:438-484)",
+    "K6 epilogue": "picles_tpu/ops/pic_pallas.py:375 and the step's stack "
+                   "and branch counts after it "
+                   "(picles_tpu/models/wave_growth_2d.py:595-607)"}
+# the counters' slots each epilogue adds to (csrc/remesh.cuh): K1 the
+# advance's, the guards' and the clamp's counts and substeps_max, K6 the
+# remesh's branches
+K1_SLOTS = (0, 1, 2, 3, 4, 5, 9, 10)
+K6_SLOTS = (6, 7, 8)
+# the epilogues' planes against the PyTorch glue's: within this share of
+# each plane's largest value (the windsea's powers and exp evaluated in
+# the kernel), float32 and float64
+FUSED_RTOL = {torch.float32: 4e-7, torch.float64: 1e-15}
+# the log energy of a lane made to fail: finite, but no substep down to
+# dtmin meets the tolerance from it
+FAIL_LNE = 20.0
+EPILOGUE_STEPS = 4
+
+
+def fire_guards(model, ms, seed: int = 0):
+    """``ms`` with every guard of the step made to fire on some lanes while
+    every plane the step computes stays finite: active lanes switched off
+    (re-lit under the wind) holding NaN lne or an infinite cg_x, which the
+    re-light resets; active inner lanes on holding lne = ``FAIL_LNE``,
+    whose advance fails at dtmin where the solver does not force it (the
+    deposit leaves them out); lanes displaced past the halo; and the
+    log-energy maximum at the median of the lanes' log energy.  Returns
+    (state, that maximum), for the model's settings."""
+    P = ms.particles
+    r = torch.rand((4, *P.lne.shape),
+                   generator=torch.Generator().manual_seed(seed))
+    r = r.to(P.lne.device)
+    act = model.active_mask
+    off = (r[0] < 0.1) & act
+    lne, cgx, px = P.lne.clone(), P.cgx.clone(), P.px.clone()
+    lne[off & (r[1] < 0.3)] = float("nan")
+    cgx[off & (r[1] >= 0.3) & (r[1] < 0.6)] = float("inf")
+    lne[~off & act & ~model.boundary_mask & (r[2] < 0.02)] = FAIL_LNE
+    px[~off & (r[3] < 0.02)] = 5.0
+    lemax = float(P.lne[P.on].median())
+    return dataclasses.replace(ms, particles=dataclasses.replace(
+        P, on=P.on & ~off, lne=lne, cgx=cgx, px=px)), lemax
+
+
+def assert_planes_close(tag: str, pairs, rtol: float, take=None) -> float:
+    """Each (name, new, want) plane finite in both and within ``rtol`` of
+    ``want``, or of ``want``'s largest value over the lanes ``take`` (all
+    where None); returns the largest difference."""
+    err = 0.0
+    for name, a, b in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name}"
+        assert bool(torch.isfinite(a).all()) and bool(
+            torch.isfinite(b).all()), f"{tag}: {name} not finite"
+        top = b.abs().max() if take is None else b.abs()[take].max()
+        err = max(err, assert_close(f"{tag} {name}", a, b, rtol,
+                                    rtol * float(top)))
+    return err
+
+
+def assert_fused_equals_glue(tag: str, f, g, rtol: float) -> float:
+    """The fused step's state ``f`` against the PyTorch glue's ``g`` from
+    one state: bit for bit the counters, the flags, positions, clocks and
+    dt, the model clock and iteration; the log energies, group velocities
+    and node state finite in both and within ``rtol`` of each plane's
+    largest value.  Returns the largest difference of those planes."""
+    for name in ("on", "px", "py", "t", "dt"):
+        a, b = getattr(f.particles, name), getattr(g.particles, name)
+        assert torch.equal(bits(a), bits(b)), f"{tag}: {name} differs"
+    assert torch.equal(bits(f.time), bits(g.time)), f"{tag}: time differs"
+    assert torch.equal(f.iteration, g.iteration), f"{tag}: iteration"
+    for a, b in zip(f.metrics.leaves(), g.metrics.leaves()):
+        assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape \
+            and torch.equal(a, b), \
+            f"{tag}: counters {f.metrics.as_dict()} vs {g.metrics.as_dict()}"
+    return assert_planes_close(tag, [
+        (name, getattr(f.particles, name), getattr(g.particles, name))
+        for name in ("lne", "cgx", "cgy")] + [("state", f.state, g.state)],
+        rtol)
+
+
+def epilogue_model(n: int, dev, **modes):
+    """The flagship box with the fused remesh (the benchmark's box step) at
+    n^2 under a solver that does not force dtmin, so that a lane can fail
+    (``fire_guards``); ``modes`` replaces its modes."""
+    return flagship_model(n, dev, tols=dict(force_dtmin=False),
+                          **{"remesh_mode": "fused", **modes})
+
+
+def k6_epilogue_bound(n: int, halo) -> dict:
+    """K6 with its epilogue on one float32 layer of ``n`` nodes under an
+    analytic wind, one particle a node: per source 5 float planes and the
+    mask (21 bytes), per node the state written (12), the remesh's six
+    planes, three masks and the node x read (31) and its six planes and
+    ``on`` written (25), no branch plane: 89 bytes; operations as
+    ``deposit_bound``'s."""
+    (xl, xh), (yl, yh) = normalize_halo(halo)
+    cells = (xl + xh + 1) * (yl + yh + 1)
+    return bound(89.0 * n, (13.0 + 11.0 * cells + 60.0) * n)
+
+
+def step_ops(fn, tries: int = 5) -> int:
+    """Device ops of one eager step ``fn`` in a torch.profiler trace that
+    holds the step's K1 and K6 launches, taken again with more host idle
+    on both sides (``trace_pad_s``) where a trace lost them, as one late in
+    a process does (``device_ops`` read 0 ops of a fused step there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        pad = trace_pad_s(attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if all(any(kernel_named(KERNEL_KEYS[k], e.name) for e in dev)
+               for k in ("K1", "K6")):
+            return device_op_count(prof)
+        log("epilogue", f"step trace {attempt + 1}: no K1 or K6 launch; "
+                        f"{trace_head_held(dev)}")
+    raise AssertionError(f"none of {tries} traces held the step's K1 and "
+                         f"K6 launches")
+
+
+def phase_epilogue(dev, results, timing) -> None:
+    """K1 and K6 with their epilogues (the fused box step) at FLAG_N^2,
+    each held against what it replaces from the same state, with no guard
+    firing and with every guard firing (``fire_guards``): K1's against raw
+    K1 and the step's PyTorch glue up to the deposit (``_advance_glue``);
+    K6's, on the glue's deposit inputs, against raw K6, the stack of its
+    node planes and the glue's branch counts; the counters, flags and
+    positions bit for bit, the planes within ``FUSED_RTOL``; then the
+    whole fused step against ``_step_glue``.  The epilogues' launches are
+    counted over eager fused steps; each kernel is timed (its trace) in
+    turns with its raw kernel, what it replaces and its plain version by
+    CUDA events, beside its bound; an eager step of each path is counted
+    in device ops and timed."""
+    n = FLAG_N
+    m = epilogue_model(n, dev)
+    g, act, bnd = m.grid, m.active_mask, m.boundary_mask
+    halo, p, proj = m.modes.halo, m.remesh_params, m.projection(g)
+    sett = m.settings
+    rtol = FUSED_RTOL[torch.float32]
+    before = (advance_cuda.epilogue_launches,
+              pic_gather_remesh.epilogue_launches)
+    quiet = eager_steps(m, m.init_state(), EPILOGUE_STEPS)
+    launches = (advance_cuda.epilogue_launches - before[0],
+                pic_gather_remesh.epilogue_launches - before[1])
+    assert launches == (EPILOGUE_STEPS,) * 2, \
+        f"epilogue launches {launches} in {EPILOGUE_STEPS} fused steps"
+    err1 = err_step = 0.0
+    for case in ("quiet", "fired"):
+        ms = quiet
+        if case == "fired":
+            ms, lemax = fire_guards(m, quiet)
+            m.settings = dataclasses.replace(sett, log_energy_maximum=lemax)
+        P = ms.particles
+        wf = m.wind_fields(g, ms.time)
+        a = m._advance_glue(ms, g, act, bnd, wf, proj)
+        core = (a.lne, a.cgx, a.cgy, a.px, a.py, a.dt, a.on, act, bnd, g.x,
+                g.y, ms.time)
+        node, rm, st = pic_gather_remesh(a.px, a.py, a.chans, a.scatter_on,
+                                         g.stats, halo, p, *core,
+                                         wind_fields=wf)
+        want = torch.stack(m._build_metrics(
+            None, adv=a.adv, failed=a.failed, nan_mask=a.nan_mask,
+            inf_mask=a.inf_mask, emax_mask=a.emax_mask, relight=a.relight,
+            gather=(rm.branch & GATHER_BIT) != 0,
+            reseed=(rm.branch & RESEED_BIT) != 0,
+            off=((rm.branch & OFF_BIT) != 0) & a.on, clamped=st.clamped,
+            naccept=a.naccept).leaves()).tolist()
+
+        c1 = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+        k = advance_cuda(m.winds, m.consts, m.flags, m.solver, DT,
+                         (P.lne, P.cgx, P.cgy, P.px, P.py), P.t, P.dt, None,
+                         g.x, g.y, proj, wind_fields=wf,
+                         guards=Guards(P.on, act, bnd, p,
+                                       m.settings.log_energy_maximum, halo,
+                                       c1))
+        tag = f"K1 epilogue {FLAG_N}^2 {case}"
+        for name, x, y in (("x", k.x, a.px), ("y", k.y, a.py), ("t", k.t, a.t),
+                           ("dt", k.dt, a.dt), ("on", k.on, a.on),
+                           ("scatter_on", k.scatter_on, a.scatter_on)):
+            assert torch.equal(bits(x), bits(y)), f"{tag}: {name} differs"
+        # a failed lane keeps its large log energy, which the deposit
+        # leaves out: each plane's scale is that of the deposited lanes
+        err1 = max(err1, assert_planes_close(tag, [
+            ("lne", k.lne, a.lne), ("cgx", k.cgx, a.cgx),
+            ("cgy", k.cgy, a.cgy), ("e", k.e, a.chans[0]),
+            ("m_x", k.m_x, a.chans[1]), ("m_y", k.m_y, a.chans[2])], rtol,
+            a.scatter_on))
+        got = c1.tolist()
+        assert [got[i] for i in K1_SLOTS] == [want[i] for i in K1_SLOTS] \
+            and not any(got[i] for i in K6_SLOTS), \
+            f"{tag}: counters {got}, the glue's {want}"
+
+        c6 = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+        S6, rm6, none = pic_gather_remesh(
+            a.px, a.py, a.chans, a.scatter_on, g.stats, halo, p, *core,
+            wind_fields=wf, counters=c6)
+        tag6 = f"K6 epilogue {FLAG_N}^2 {case}"
+        assert none is None and rm6.branch is None, tag6
+        assert bool(torch.isfinite(S6).all()), f"{tag6}: state not finite"
+        assert torch.equal(bits(S6), bits(torch.stack(node, dim=-1))), \
+            f"{tag6}: node state differs from K6's planes stacked"
+        for fld in rm._fields[:-1]:
+            assert torch.equal(bits(getattr(rm6, fld)),
+                               bits(getattr(rm, fld))), f"{tag6}: {fld}"
+        got = c6.tolist()
+        assert [got[i] for i in K6_SLOTS] == [want[i] for i in K6_SLOTS] \
+            and not any(got[i] for i in K1_SLOTS), \
+            f"{tag6}: counters {got}, the glue's {want}"
+
+        f = m._step_fused(ms, g, act, bnd)
+        gs = m._step_glue(ms, g, act, bnd)
+        err_step = max(err_step, assert_fused_equals_glue(
+            f"fused step {FLAG_N}^2 {case}", f, gs, rtol))
+        c = f.metrics.as_dict()
+        fired = {key: c[key] for key in (
+            "n_failed", "n_nan_reset", "n_inf_reset", "n_emax_clamp",
+            "n_relight", "n_clamped")}
+        assert all((v > 0) == (case == "fired") for v in fired.values()), c
+        if case == "quiet":
+            assert_state_bitwise(f"fused step {FLAG_N}^2 quiet", f, gs)
+        log("epilogue", f"{FLAG_N}^2 {case}: K1's epilogue equals raw K1 + "
+                        f"the PyTorch glue (flags, positions, clocks, "
+                        f"counters bit for bit), K6's equals raw K6 + the "
+                        f"stack and branch counts bit for bit, the fused "
+                        f"step the glue step; counters {c}")
+    m.settings = sett
+    results["K1 epilogue"].update(launches=launches[0], max_abs_err=err1)
+    results["K6 epilogue"].update(launches=launches[1], max_abs_err=0.0)
+    timing["epilogue_step_max_abs_err"] = err_step
+
+    # timing on the quiet state, the benchmark's
+    ms = quiet
+    P = ms.particles
+    wf = m.wind_fields(g, ms.time)
+    comps = (P.lne, P.cgx, P.cgy, P.px, P.py)
+    adv = P.on & act
+
+    def k1_raw():
+        return advance_cuda(m.winds, m.consts, m.flags, m.solver, DT, comps,
+                            P.t, P.dt, adv, g.x, g.y, proj, wind_fields=wf)
+
+    def k1_epi():
+        c = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+        return advance_cuda(m.winds, m.consts, m.flags, m.solver, DT, comps,
+                            P.t, P.dt, None, g.x, g.y, proj, wind_fields=wf,
+                            guards=Guards(P.on, act, bnd, p,
+                                          sett.log_energy_maximum, halo, c))
+
+    plain = epilogue_model(n, dev, advance_mode="torch")
+    r1 = kernel_ms(k1_raw, "K1", 10, row="K1 epilogue")
+    e1 = kernel_ms(k1_epi, "K1", 10, row="K1 epilogue")
+    e2 = kernel_ms(k1_epi, "K1", 10, row="K1 epilogue")
+    r2 = kernel_ms(k1_raw, "K1", 10, row="K1 epilogue")
+    sol = integrate_to(m.rhs, torch.stack(comps, dim=-1), P.t, P.t + DT,
+                       P.dt, m.aux, adv, m.solver)
+    results["K1 epilogue"].update(
+        ms=(e1 + e2) / 2, raw_ms=(r1 + r2) / 2,
+        replaced_ms=cuda_time_ms(
+            lambda: m._advance_glue(ms, g, act, bnd, wf, proj), 10),
+        plain_ms=cuda_time_ms(lambda: plain._advance_glue(
+            ms, plain.grid, plain.active_mask, plain.boundary_mask, (),
+            None), 2),
+        **k1_bound(n * n, m.solver.method, m.solver.adaptive, adv,
+                   sol.naccept + sol.nreject, epilogue=True))
+
+    a = m._advance_glue(ms, g, act, bnd, wf, proj)
+    core = (a.lne, a.cgx, a.cgy, a.px, a.py, a.dt, a.on, act, bnd, g.x, g.y,
+            ms.time)
+
+    def remesh_counts(branch):
+        return [torch.sum(b, dim=(-2, -1)) for b in (
+            (branch & GATHER_BIT) != 0, (branch & RESEED_BIT) != 0,
+            ((branch & OFF_BIT) != 0) & a.on)]
+
+    def k6_raw():
+        return pic_gather_remesh(a.px, a.py, a.chans, a.scatter_on, g.stats,
+                                 halo, p, *core, wind_fields=wf)
+
+    def k6_epi():
+        c = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+        return pic_gather_remesh(a.px, a.py, a.chans, a.scatter_on, g.stats,
+                                 halo, p, *core, wind_fields=wf, counters=c)
+
+    def k6_replaced():
+        nd, rm, _ = k6_raw()
+        return torch.stack(nd, dim=-1), remesh_counts(rm.branch)
+
+    def k6_plain():
+        S, _ = scatter_dense(a.px, a.py, torch.stack(a.chans, -1),
+                             a.scatter_on, g.stats, halo)
+        rm = remesh_core(p, tuple(S[..., i] for i in range(3)), *core)
+        return S, remesh_counts(rm.branch)
+
+    r1 = kernel_ms(k6_raw, "K6", 20, row="K6 epilogue")
+    e1 = kernel_ms(k6_epi, "K6", 20, row="K6 epilogue")
+    e2 = kernel_ms(k6_epi, "K6", 20, row="K6 epilogue")
+    r2 = kernel_ms(k6_raw, "K6", 20, row="K6 epilogue")
+    results["K6 epilogue"].update(
+        ms=(e1 + e2) / 2, raw_ms=(r1 + r2) / 2,
+        replaced_ms=cuda_time_ms(k6_replaced, 10),
+        plain_ms=cuda_time_ms(k6_plain, 5),
+        **k6_epilogue_bound(n * n, halo))
+    for key in EPILOGUE_REPLACES:
+        r = results[key]
+        log("kernel-time", f"{key}: {r['ms']:.4f} ms, raw kernel "
+                           f"{r['raw_ms']:.4f} ms (in turns), replaced "
+                           f"{r['replaced_ms']:.4f} ms, plain "
+                           f"{r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    step = dict(fused_ops=step_ops(lambda: m._step_fused(ms, g, act, bnd)),
+                glue_ops=step_ops(lambda: m._step_glue(ms, g, act, bnd)),
+                fused_ms=cuda_time_ms(lambda: m._step_fused(ms, g, act, bnd),
+                                      10),
+                glue_ms=cuda_time_ms(lambda: m._step_glue(ms, g, act, bnd),
+                                     10))
+    timing["epilogue_step"] = step
+    log("epilogue", f"{FLAG_N}^2 eager step: fused {step['fused_ops']} "
+                    f"device ops, {step['fused_ms']:.4f} ms; PyTorch glue "
+                    f"{step['glue_ops']} ops, {step['glue_ms']:.4f} ms "
+                    f"(device, CUDA events)")
 
 
 # The graphed configurations at full width, with the kernel rows (of the
@@ -10199,6 +10566,13 @@ def main(argv=None) -> int:
         results[f"{k} layered"] = dict(
             results[k], name=results[k]["name"] + "_layered", simple_ms=None,
             launches=0)
+    # K1 and K6 with their epilogues: the step's glue between them (the
+    # fused path)
+    for key, rep in EPILOGUE_REPLACES.items():
+        k = key.split()[0]
+        results[key] = dict(results[k], name=results[k]["name"] +
+                            "_epilogue", replaces=rep, simple_ms=None,
+                            launches=0)
     # the double instances: the same templates in float64, a library of
     # their own
     for k, rep in F64_REPLACES.items():
@@ -10225,6 +10599,8 @@ def main(argv=None) -> int:
     phase_seam(dev, results)
     phase_wide_grid(dev, results)
     phase_layer_kernels(dev, results)
+    # early: its step traces count device ops, which late traces lose
+    phase_epilogue(dev, results, timing)
     flag, s_flag, default, s_def = phase_main_path(dev, results, timing)
     phase_k3_times(default, s_def, results)
     gw = gridded_record(dev)
@@ -10273,8 +10649,8 @@ def main(argv=None) -> int:
                          *(f"{k} layered" for k in LAYER_KERNELS),
                          *NODE_REPLACES, "K7", *TRACED_REPLACES,
                          "K7 traced", *(f"{k} f64" for k in F64_REPLACES),
-                         *F64_TRACED_REPLACES)]
-    assert len(kernels) == 42
+                         *F64_TRACED_REPLACES, *EPILOGUE_REPLACES)]
+    assert len(kernels) == 44
     for k in kernels:
         assert all(f in k for f in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",

@@ -65,7 +65,16 @@
 //   single-layer arithmetic, and nothing shared is copied per layer;
 // - launch bounds from ptxas's registers: 6 blocks of 128 threads an SM, 5
 //   for adaptive tsit5, with no spills; the gridded tsit5 instances, whose
-//   lane holds its plane values too, one block less.
+//   lane holds its plane values too, one block less;
+// - the step's glue in the epilogue (`guard_lane`, the model's fused path):
+//   where the step runs K1 and then K6 (a wind other than gridded), each
+//   lane applies the step's selects, re-light, NaN and Inf guards,
+//   log-energy clamp, deposit mask and channels itself, and each block adds
+//   the step's counts to one int32 row a layer, so the step no longer runs
+//   dozens of PyTorch passes over the planes between the two kernels.  It
+//   runs after the loop, when the stage registers are dead; the re-light
+//   reseeds with remesh.cuh's `windsea`, the fetch relations K5 and K6
+//   reseed with.
 // A lane's substep count depends on its state and a warp runs until its
 // slowest lane is done.  A refill of finished lanes from a per-warp run of
 // particles (the same arithmetic per particle) was measured slower on every
@@ -117,6 +126,7 @@
 #include <type_traits>
 
 #include "embedded_rk.cuh"
+#include "remesh.cuh"
 #include "rhs.cuh"
 #include "tableaux.cuh"
 
@@ -130,6 +140,20 @@ struct Tableau {
   float bt[7];
 };
 
+// The step's guards that K1's epilogue applies (`guard_lane`): the reseed
+// of re-lit and guarded lanes (remesh.cuh's windsea, or fixed values), the
+// re-light's wind floor, the log-energy maximum and the deposit's clamp
+// bounds of the declared halo, each rounded once to T as the step's
+// PyTorch glue rounds its Python scalars.
+template <class T>
+struct GuardConfig {
+  WindseaConsts<T> ws;
+  T seed[3];  // fixed (lne, cgx, cgy) when seed_kind == SEED_FIXED
+  T wind_min_squared, lemax, x_lo, x_hi, y_lo, y_hi;
+  int seed_kind;        // SEED_WINDSEA | SEED_FIXED
+  int boundary_source;  // boundary nodes deposit (open-boundary inflow)
+};
+
 template <class T>
 struct AdvanceConfig {
   RHSParams<T> rc;
@@ -138,6 +162,7 @@ struct AdvanceConfig {
   T DT, abstol, reltol, dtmin, neg_inv_order;
   int maxiters;
   int force_dtmin;
+  GuardConfig<T> guard;  // read by the epilogue only
 };
 
 template <class T>
@@ -199,12 +224,21 @@ struct Lane : RKLane<T, 5, S> {
 template <class T>
 struct AdvancePlanes {
   const T *lne, *cgx, *cgy, *x, *y, *t, *dt;
-  const unsigned char* act;
+  const unsigned char* act;  // the lanes advanced (null with the epilogue)
   const T* xn;
   T *lne_o, *cgx_o, *cgy_o, *x_o, *y_o, *t_o, *dt_o;
-  unsigned char* fail_o;
-  int* nacc_o;
+  unsigned char* fail_o;  // the raw advance's flags and substeps (null with
+  int* nacc_o;            // the epilogue)
   const T* proj;  // per-node m00, m01, m10, m11, pc planes, or null
+  // the epilogue's planes (`guard_lane`), all null without it: the lanes'
+  // flags before the step, the active and boundary nodes (shared by the
+  // layers) in; the flags after the re-light, the deposit's mask, its
+  // channels (E, m_x, m_y) and the step's counters [layers, N_COUNTERS]
+  // out
+  const unsigned char *on, *nact, *bnd;
+  unsigned char *on_o, *sact_o;
+  T *e_o, *mx_o, *my_o;
+  int* counts;
 };
 
 // Node i's projection from the per-node planes (m00, m01, m10, m11, pc, one
@@ -242,7 +276,7 @@ __device__ __forceinline__ void load_lane(const AdvanceConfig<T>& cfg,
   L.z[0] = P.lne[k]; L.z[1] = P.cgx[k]; L.z[2] = P.cgy[k];
   L.z[3] = P.x[k]; L.z[4] = P.y[k];
   const T t0 = P.t[k];
-  L.active = P.act[k] != 0;
+  L.active = P.act ? P.act[k] != 0 : (P.on[k] != 0 && P.nact[i] != 0);
   L.xn = GRIDDED || cfg.wind.kind == WIND_NODE ? T(0) : P.xn[i];
   L.yn = TRACED_LIB ? cfg.wind.wn[i] : T(0);
   L.t_end = t0 + cfg.DT;
@@ -293,23 +327,114 @@ __device__ __forceinline__ void store_lane(const AdvancePlanes<T>& P,
   P.nacc_o[i] = L.nacc;
 }
 
-// K1: one particle per thread; node i of layer blockIdx.y.
+// K1's epilogue, after lane k's (node i's) loop: the step's guards as the
+// PyTorch glue of models/wave_growth_2d.py `_step_glue` computes them, in
+// its order and roundings.  The selects (a lane not advanced keeps its
+// inputs: its state and clock are the loaded ones, its dt is reloaded, as
+// the loop floors it), the off lane's re-light under the wind at its node
+// at t + DT, the NaN and then the Inf guard on (lne, cg_x, cg_y) of the
+// lanes that did not fail, both resetting to the reseed at positions
+// (0, 0), the log-energy clamp, the deposit's mask and channels
+// (transforms.particle_to_node) and its clamp test against the declared
+// halo.  `cnt` gets the lane's counts in `block_counts`' order of K1.
+constexpr int K1_COUNTS = 8;
+template <class T, int S>
+__device__ __forceinline__ void guard_lane(const AdvanceConfig<T>& cfg,
+                                           const AdvancePlanes<T>& P,
+                                           long long i, long long k,
+                                           const Lane<T, S>& L,
+                                           int (&cnt)[K1_COUNTS]) {
+  const GuardConfig<T>& g = cfg.guard;
+  const bool on = P.on[k] != 0, active = P.nact[i] != 0;
+  const bool failed = rk_failed(L);  // never on a lane not advanced
+  T lne = L.z[0], cgx = L.z[1], cgy = L.z[2], px = L.z[3], py = L.z[4];
+  const T t = rk_clock(L, failed);
+  const T dt = L.active ? L.dt : P.dt[k];
+  // the wind at the node at the lane's t + DT (its t_end), where it is read
+  T u = T(0), v = T(0);
+  const bool off = !on && active;
+  if (off) wind_uv_node(cfg.wind, i, L.xn, L.t_end, u, v);
+  const bool relight = off && u * u + v * v >= g.wind_min_squared;
+  const bool guardable = active && !failed;
+  const bool nan_reset =
+      guardable && (lne != lne || cgx != cgx || cgy != cgy);
+  const T inf = inf_of(lne);
+  const bool infinite =
+      xabs(lne) == inf || xabs(cgx) == inf || xabs(cgy) == inf;
+  const bool bad = nan_reset || (guardable && infinite);
+  if (relight || bad) {
+    if (!off) wind_uv_node(cfg.wind, i, L.xn, L.t_end, u, v);
+    if (g.seed_kind == SEED_WINDSEA) {
+      windsea(g.ws, u, v, lne, cgx, cgy);
+    } else {
+      lne = g.seed[0];
+      cgx = g.seed[1];
+      cgy = g.seed[2];
+    }
+    px = T(0);
+    py = T(0);
+  }
+  const bool on_o = on || relight;
+  const bool emax = guardable && !bad && lne > g.lemax;
+  if (emax) lne = g.lemax;
+  const bool sact = (on_o && active && !failed) ||
+                    (on_o && g.boundary_source && P.bnd[i] != 0);
+  // transforms.particle_to_node: E = exp(lne), m = cg E / max(|cg|^2,
+  // 1e-30) / 2 (a division by 2.0 is a product with 0.5 on a card)
+  const T e = xexp(lne);
+  T c2 = cgx * cgx + cgy * cgy;
+  c2 = c2 != c2 ? c2 : xfmax(c2, T(1e-30));
+  P.lne_o[k] = lne;
+  P.cgx_o[k] = cgx;
+  P.cgy_o[k] = cgy;
+  P.x_o[k] = px;
+  P.y_o[k] = py;
+  P.t_o[k] = t;
+  P.dt_o[k] = dt;
+  P.on_o[k] = on_o ? 1 : 0;
+  P.sact_o[k] = sact ? 1 : 0;
+  P.e_o[k] = e;
+  P.mx_o[k] = ((cgx * e) / c2) * T(0.5);
+  P.my_o[k] = ((cgy * e) / c2) * T(0.5);
+  cnt[0] = L.active;
+  cnt[1] = failed;
+  cnt[2] = nan_reset;
+  cnt[3] = bad && !nan_reset;
+  cnt[4] = emax;
+  cnt[5] = relight;
+  cnt[6] = sact && (px < g.x_lo || px > g.x_hi || py < g.y_lo || py > g.y_hi);
+  cnt[7] = L.nacc;
+}
+
+// K1: one particle per thread; node i of layer blockIdx.y.  With the
+// epilogue's planes (P.counts, never on a gridded instance) each lane runs
+// `guard_lane` in place of `store_lane`, and the block adds its counts to
+// its layer's row.
 template <class T, class M, bool ADAPTIVE, bool GRIDDED>
 __global__ void __launch_bounds__(K1_THREADS,
                                   (K1_MIN_BLOCKS<T, M, ADAPTIVE, GRIDDED>))
 advance_kernel(const AdvanceConfig<T> cfg, long long n,
                const AdvancePlanes<T> P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const long long k = (long long)blockIdx.y * n + i;
-  const bool t_free =
-      !TRACED_LIB && !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
-  RHSParams<T> rc = cfg.rc;
-  Lane<T, M::S> L;
-  load_lane<T, M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
-  while (!L.done && L.iters < cfg.maxiters)
-    substep<M, ADAPTIVE, GRIDDED>(cfg, rc, t_free, L);
-  store_lane(P, k, L);
+  const bool guards = !GRIDDED && P.counts != nullptr;
+  int cnt[K1_COUNTS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (i < n) {
+    const bool t_free =
+        !TRACED_LIB && !GRIDDED && cfg.wind.kind != WIND_TIME_COSINE;
+    RHSParams<T> rc = cfg.rc;
+    Lane<T, M::S> L;
+    load_lane<T, M::S, GRIDDED>(cfg, rc, P, n, i, k, L);
+    while (!L.done && L.iters < cfg.maxiters)
+      substep<M, ADAPTIVE, GRIDDED>(cfg, rc, t_free, L);
+    if (guards) guard_lane(cfg, P, i, k, L, cnt);
+    else store_lane(P, k, L);
+  }
+  // the counters: slots 0-5, then n_clamped and the substeps' max
+  if (guards)
+    block_counts<K1_COUNTS, true>(
+        P.counts + (long long)blockIdx.y * N_COUNTERS, cnt,
+        [](int c) { return c < 6 ? c : c + (C_CLAMPED - 6); });
 }
 
 #ifdef PICLES_MAIN_LIB
@@ -650,6 +775,15 @@ static void launch_advance(const AdvanceConfig<T>& cfg, long long n,
   P.dt_o = (T*)p[15]; P.fail_o = (unsigned char*)p[16];
   P.nacc_o = (int*)p[17];
   P.proj = (const T*)p[18];
+  P.on = (const unsigned char*)p[19];
+  P.nact = (const unsigned char*)p[20];
+  P.bnd = (const unsigned char*)p[21];
+  P.on_o = (unsigned char*)p[22];
+  P.sact_o = (unsigned char*)p[23];
+  P.e_o = (T*)p[24];
+  P.mx_o = (T*)p[25];
+  P.my_o = (T*)p[26];
+  P.counts = (int*)p[27];
   const unsigned blocks = (unsigned)((n + K1_THREADS - 1) / K1_THREADS);
   advance_kernel<T, M, ADAPTIVE, GRIDDED>
       <<<dim3(blocks, layers), K1_THREADS, 0, stream>>>(cfg, n, P);
@@ -694,8 +828,18 @@ static int unpack_advance(const T* fparams, const int* iparams,
   for (int s = 0; s < 6; ++s) cfg.tab.b[s] = (float)f[s];
   f += 6;
   for (int s = 0; s < 7; ++s) cfg.tab.bt[s] = (float)f[s];
+  f += 7;
+  GuardConfig<T>& g = cfg.guard;
+  g.ws = WindseaConsts<T>{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7],
+                          f[8], f[9], f[10], f[11], f[12], f[13], f[14]};
+  f += N_WINDSEA_F;
+  for (int c = 0; c < 3; ++c) g.seed[c] = f[c];
+  g.wind_min_squared = f[3]; g.lemax = f[4];
+  g.x_lo = f[5]; g.x_hi = f[6]; g.y_lo = f[7]; g.y_hi = f[8];
   cfg.force_dtmin = iparams[K1_I + 2] != 0;
   cfg.maxiters = iparams[K1_I + 3];
+  g.seed_kind = iparams[K1_I + 4];
+  g.boundary_source = iparams[K1_I + 5];
   return iparams[K1_I];
 }
 
@@ -706,17 +850,25 @@ using namespace picles;
 PICLES_USING_KERNELS
 
 // fparams: RHS (14) | wind (7) | DT, abstol, reltol, dtmin, neg_inv_order |
-//          tableau c[5], a[5][5], b[6], bt[7]  (real_t: float, or double in
-//          the float64 library)
+//          tableau c[5], a[5][5], b[6], bt[7] | the epilogue's: windsea
+//          (15, remesh.cuh's layout), seed (3), wind_min_squared,
+//          log_energy_maximum, x_lo, x_hi, y_lo, y_hi  (real_t: float, or
+//          double in the float64 library)
 // iparams: flags, wind kind, has_t_off, n_wf, stages (3 or 6), adaptive,
-//          force_dtmin, maxiters
-// ptrs:    lne, cgx, cgy, x, y, t, dt, active(u8), node x  (inputs)
+//          force_dtmin, maxiters, seed_kind, boundary_source
+// ptrs:    lane planes unless named: lne, cgx, cgy, x, y, t, dt, active(u8),
+//          node x [n]  (inputs)
 //          lne, cgx, cgy, x, y, t, dt, failed(u8), naccept(i32)  (outputs)
 //          the per-node projection planes [5, n] (input; null: the RHS's
-//          uniform scalars) | the n_wf wind planes (inputs: float32 4 + 3B
-//          gridded, real_t u and v of the node kind, the real_t node y of
-//          the traced kind, none for analytic winds); every other plane
-//          real_t
+//          uniform scalars) |
+//          the epilogue's (all null: the raw advance): on(u8), active(u8)
+//          [n], boundary(u8) [n] (inputs), on(u8), the deposit's mask(u8),
+//          e, m_x, m_y, counters (i32 [layers, N_COUNTERS], zeroed; added
+//          to) (outputs); with them active, failed and naccept are null
+//          and the outputs are the guarded ones |
+//          the n_wf wind planes (inputs: float32 4 + 3B gridded, real_t u
+//          and v of the node kind, the real_t node y of the traced kind,
+//          none for analytic winds); every other plane real_t
 // n:       nodes; layers: the particle planes are [layers, n] (layer-major)
 //          and the node x, projection and wind planes [n], shared
 // Runs the compiled tableau of the stage count (3: bosh3, 6: tsit5: the
@@ -724,10 +876,11 @@ PICLES_USING_KERNELS
 // the `_simple` baseline below reads.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // stage count, planes that `attach_planes` refuses or a layer count outside
-// [1, MAX_LAYERS]).  A traced library's entry point is
-// `picles_advance_traced`, the float64 library's `picles_advance_f64`, a
-// float64 traced library's `picles_advance_traced_f64`, the same layout.
-constexpr int K1_PTRS = 19;
+// [1, MAX_LAYERS], or the epilogue with a gridded wind).  A traced
+// library's entry point is `picles_advance_traced`, the float64 library's
+// `picles_advance_f64`, a float64 traced library's
+// `picles_advance_traced_f64`, the same layout.
+constexpr int K1_PTRS = 28;
 
 extern "C" int PICLES_ENTRY(picles_advance)(const real_t* fparams,
                                             const int* iparams, void** ptrs,
@@ -738,7 +891,8 @@ extern "C" int PICLES_ENTRY(picles_advance)(const real_t* fparams,
   const bool adaptive = iparams[K1_I + 1] != 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (!attach_planes(cfg.wind, iparams[3], ptrs + K1_PTRS) ||
-      bad_layers(layers))
+      bad_layers(layers) ||
+      (ptrs[27] != nullptr && cfg.wind.kind == WIND_GRIDDED))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const unsigned ly = (unsigned)layers;

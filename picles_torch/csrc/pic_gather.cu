@@ -112,6 +112,11 @@
 // it (28 bytes a node at B = 1), not staged with the sources: only the
 // node's own values are needed.  A layer's particle planes are offset as
 // its sources are; the masks, the node x and the wind planes are shared.
+// Where the model's step runs K1's epilogue before it (its fused path), K6
+// writes the node state straight into the model's [..., nx, ny, 3] layout,
+// leaves the branch plane out, and adds the remesh's counts (gathered,
+// reseeded, switched off) to the step's counters, one integer atomic a
+// slot a block (remesh.cuh `block_counts`).
 // A traced wind's K6 (PICLES_TRACED_WIND: its library compiles only this
 // entry point of the file, `picles_pic_gather_remesh_traced`, or
 // `picles_pic_gather_remesh_traced_f64` of a float64 wind, whose double
@@ -455,7 +460,9 @@ struct RemeshPlanes {
   const T* xn;
   T *lne_o, *cgx_o, *cgy_o, *px_o, *py_o, *dt_o;
   unsigned char* on_o;
-  int* br_o;
+  int* br_o;       // null: not written (the model's fused path)
+  T* state_o;      // the node state [layers, nx, ny, 3], or null: the planes
+  int* counts;     // the step's counters [layers, N_COUNTERS], or null
 };
 
 // The node x the remesh's wind reads: none for a gridded or node wind,
@@ -481,10 +488,10 @@ pic_gather_remesh_tiled_kernel(const GatherConfig<T> g, const SumPlan p,
   T acc[R][3];
   window_sum<WX>(g, p, p0, q0, src, lo, smem, smem + p.ux * p.v, acc);
   const int j = q0 + threadIdx.x;
-  if (j >= g.ny) return;
+  int cnt[3] = {0, 0, 0};  // gathered, reseeded, switched off
   // one copy of the branch table, the node's sums picked by selects
 #pragma unroll 1
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R && j < g.ny; ++r) {
     const int i = p0 + R * threadIdx.y + r;
     if (i >= g.nx) break;
     T s0 = acc[0][0], s1 = acc[0][1], s2 = acc[0][2];
@@ -498,12 +505,20 @@ pic_gather_remesh_tiled_kernel(const GatherConfig<T> g, const SumPlan p,
     }
     const long long idx = (long long)i * g.ny + j;  // the node
     const long long k = lo + idx;                    // its layer's particle
-    o0[k] = s0;
-    o1[k] = s1;
-    o2[k] = s2;
+    if (q.state_o) {
+      T* s = q.state_o + 3 * k;
+      s[0] = s0;
+      s[1] = s1;
+      s[2] = s2;
+    } else {
+      o0[k] = s0;
+      o1[k] = s1;
+      o2[k] = s2;
+    }
+    const bool on = q.on[k] != 0;
     const picles::RemeshOut<T> o = picles::remesh_node(
         rp, *q.clock, idx, s0, s1, s2, q.lne[k], q.cgx[k], q.cgy[k], q.px[k],
-        q.py[k], q.dt[k], q.on[k] != 0, q.act[idx] != 0, q.bnd[idx] != 0,
+        q.py[k], q.dt[k], on, q.act[idx] != 0, q.bnd[idx] != 0,
         node_x(rp, q, idx));
     q.lne_o[k] = o.lne;
     q.cgx_o[k] = o.cgx;
@@ -512,8 +527,16 @@ pic_gather_remesh_tiled_kernel(const GatherConfig<T> g, const SumPlan p,
     q.py_o[k] = o.py;
     q.dt_o[k] = o.dt;
     q.on_o[k] = o.on ? 1 : 0;
-    q.br_o[k] = o.branch;
+    if (q.br_o) q.br_o[k] = o.branch;
+    cnt[0] += (o.branch & picles::GATHER_BIT) != 0;
+    cnt[1] += (o.branch & picles::RESEED_BIT) != 0;
+    // on -> off transitions: `on` is the flag before the remesh
+    cnt[2] += (o.branch & picles::OFF_BIT) != 0 && on;
   }
+  if (q.counts)
+    picles::block_counts<3, false>(
+        q.counts + (long long)blockIdx.y * picles::N_COUNTERS, cnt,
+        [](int c) { return picles::C_GATHER + c; });
 }
 
 #ifdef PICLES_MAIN_LIB
@@ -799,6 +822,8 @@ RemeshPlanes<T> remesh_planes(void** ptrs) {
   q.dt_o = (T*)ptrs[25];
   q.on_o = (unsigned char*)ptrs[26];
   q.br_o = (int*)ptrs[27];
+  q.state_o = (T*)ptrs[28];
+  q.counts = (int*)ptrs[29];
   return q;
 }
 
@@ -876,7 +901,11 @@ extern "C" int picles_gather_budget_f64(int bytes) {
 // ptrs:    xrel, yrel, c0, c1, c2, scatter_active(u8) | clock, lne, cgx, cgy,
 //          px, py, dt, on(u8), active(u8), boundary(u8), xn (inputs) |
 //          o0, o1, o2 | lne, cgx, cgy, px, py, dt, on(u8), branch(i32)
-//          (outputs) | the n_wf wind planes (inputs: float32 4 + 3B
+//          (outputs) | the epilogue's (the model's fused path): the node
+//          state [layers, nx, ny, 3] (output; o0, o1 and o2 then null),
+//          the counters (i32 [layers, N_COUNTERS]: n_gather, n_reseed and
+//          n_off added to; the branch may then be null), each null
+//          without it | the n_wf wind planes (inputs: float32 4 + 3B
 //          gridded, real_t u and v of the node kind, the real_t node y of
 //          the traced kind, none for analytic winds).  The deposit's
 //          planes and the particle planes are [layers, nx, ny]; active,
@@ -887,7 +916,7 @@ extern "C" int picles_gather_budget_f64(int bytes) {
 // `picles_pic_gather_remesh_traced`, the float64 library's
 // `picles_pic_gather_remesh_f64`, a float64 traced library's
 // `picles_pic_gather_remesh_traced_f64`, the same layout.
-constexpr int K6_PTRS = 28;
+constexpr int K6_PTRS = 30;
 
 extern "C" int PICLES_ENTRY(picles_pic_gather_remesh)(
     const picles::real_t* fparams, const int* iparams, void** ptrs,

@@ -13,6 +13,11 @@
 // are sampled at the model clock with the K1 samplers (rhs.cuh
 // wind_uv_node: a gridded wind from the node's own planes).
 //
+// K1's epilogue (advance.cu) reseeds its re-lit and guarded lanes with the
+// same `windsea`, so the port holds one copy of the fetch relations; the
+// counters of both epilogues are laid out and reduced here (`N_COUNTERS`,
+// `block_counts`).
+//
 // Numerics: the lanes' scalar type T (float, or double in the float64
 // library), op for op as PyTorch evaluates the plain version on a card.
 // PyTorch computes `c / x` for a Python scalar c as reciprocal(x) * c, and
@@ -35,6 +40,46 @@ namespace picles {
 
 enum : int { GATHER_BIT = 1, RESEED_BIT = 2, OFF_BIT = 4 };
 enum : int { SEED_WINDSEA = 0, SEED_FIXED = 1, SEED_SAME = 2 };
+
+// The step's counters as K1's and K6's epilogues fill them: one int32 row
+// of N_COUNTERS a layer, in picles_torch/models/state.py StepMetrics order
+// (the model reads the row as its StepMetrics).  K1 adds the first six,
+// n_clamped and the max of substeps_max; K6 adds the remesh's three.
+enum : int {
+  C_ACTIVE = 0, C_FAILED, C_NAN_RESET, C_INF_RESET, C_EMAX_CLAMP, C_RELIGHT,
+  C_GATHER, C_RESEED, C_OFF, C_CLAMPED, C_SUBSTEPS_MAX, N_COUNTERS
+};
+
+// Add the block's counts to `row`: value c of every thread to slot
+// slot(c), the last one as a max when MAX_LAST.  Each warp reduces its
+// lanes' values, the block's warps meet in shared memory, and one thread a
+// slot adds (or maxes) the block's total with one integer atomic: integer
+// sums do not depend on their order, so the counters are the same on every
+// run.  Every thread of the block calls it (blocks of whole warps).
+constexpr int COUNT_WARPS_MAX = 32;
+template <int N, bool MAX_LAST, class Slot>
+__device__ __forceinline__ void block_counts(int* row, const int (&v)[N],
+                                             Slot slot) {
+  __shared__ int part[COUNT_WARPS_MAX][N];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int warp = tid >> 5;
+  const int warps = (blockDim.x * blockDim.y) >> 5;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const int r = MAX_LAST && c == N - 1 ? __reduce_max_sync(0xffffffffu, v[c])
+                                         : __reduce_add_sync(0xffffffffu, v[c]);
+    if ((tid & 31) == 0) part[warp][c] = r;
+  }
+  __syncthreads();
+  if (tid < N) {
+    const bool mx = MAX_LAST && tid == N - 1;
+    int s = part[0][tid];
+    for (int w = 1; w < warps; ++w)
+      s = mx ? max(s, part[w][tid]) : s + part[w][tid];
+    if (mx && s > 0) atomicMax(row + slot(tid), s);
+    else if (!mx && s != 0) atomicAdd(row + slot(tid), s);
+  }
+}
 
 // picles_torch/core/fetch_relations.py get_initial_windsea, its constants
 template <class T>

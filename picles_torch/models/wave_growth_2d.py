@@ -10,6 +10,13 @@ One model step ``DT``:
   3. REMESH: per-node gather / reseed / off, then the dt reset;
   4. tick the clock.
 
+Where a step runs K1 and then K6 on a card (``fused_glue``: the fused
+remesh under a wind other than gridded) it is those two launches and the
+clock's tick: the glue between them (the guards of 1., the deposit's mask
+and channels, the counters) runs in the two kernels' epilogues
+(``_step_fused``).  Every other path runs that glue in PyTorch
+(``_step_glue``), the pure-PyTorch twin of the JAX step.
+
 Kernels: the advance runs kernel K1 (``ops/advance_cuda.py``) or its plain
 version ``tsit5.integrate_to``; the deposit kernel K2 (``ops/pic_cuda.py``)
 or ``pic.scatter_dense``; the Hairer dt reset (``dt_reset_mode="auto"``)
@@ -84,7 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -96,9 +103,9 @@ from ..forcing.winds import (GriddedWinds2D, WindKind, Winds2D,
 from ..grids.base import Boundary, Grid2D
 from ..ops import pic
 from ..ops import transforms as TR
-from ..ops.advance_cuda import (advance_cuda, auto_dt_cuda, auto_dt_reset,
-                                kernel_library, node_projection,
-                                uniform_projection)
+from ..ops.advance_cuda import (N_COUNTERS, Guards, advance_cuda,
+                                auto_dt_cuda, auto_dt_reset, kernel_library,
+                                node_projection, uniform_projection)
 from ..ops.pic_cuda import pic_gather_remesh
 from ..ops.remesh import (GATHER_BIT, OFF_BIT, RESEED_BIT, RemeshParams,
                           remesh_core, seed_values, winds_at)
@@ -202,6 +209,31 @@ def resolve_modes(cfg: WaveGrowth2DConfig, device: torch.device
             f"{out.scatter_mode!r} name a CUDA kernel, but the grid's "
             f"tensors are on {device}")
     return out
+
+
+class GluedAdvance(NamedTuple):
+    """The advance and the step's guards in PyTorch (``_advance_glue``):
+    the lanes as the deposit takes them, the deposit's mask and channels
+    (e, m_x, m_y), and the masks the counters sum."""
+
+    lne: torch.Tensor
+    cgx: torch.Tensor
+    cgy: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    on: torch.Tensor            # on | relight
+    scatter_on: torch.Tensor
+    chans: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    adv: torch.Tensor           # on & active: the lanes advanced
+    failed: torch.Tensor
+    nan_mask: torch.Tensor
+    inf_mask: torch.Tensor
+    emax_mask: torch.Tensor
+    relight: torch.Tensor
+    was_reset: torch.Tensor     # relight | nan | inf | emax
+    naccept: torch.Tensor
 
 
 class WaveGrowth2D(StepDrivers):
@@ -568,7 +600,12 @@ class WaveGrowth2D(StepDrivers):
         replaces the deposit (the sharded step's exchange); ``reduce_counts
         (counts, substeps_max) -> (counts, substeps_max)`` reduces the packed
         int32 counters across blocks (SUM, and MAX for ``substeps_max``).
-        Everything else is elementwise and reads only ``grid``."""
+        Everything else is elementwise and reads only ``grid``.
+
+        Where the step runs K1 and then K6 (``fused_glue``) it is those two
+        launches: the glue between them runs in their epilogues
+        (``_step_fused``); everywhere else it runs in PyTorch
+        (``_step_glue``)."""
         cfg = self.modes
         if cfg.remesh_mode == "fused" and scatter_fn is not None:
             raise ValueError(
@@ -576,15 +613,141 @@ class WaveGrowth2D(StepDrivers):
                 "deposit must exchange its halos between the accumulate and "
                 'the remesh. Use remesh_mode="xla" or "pallas" under '
                 "ShardedWaveGrowth2D.")
+        kern = self.winds.kernel
+        if fused_glue(cfg, None if kern is None else kern.kind, scatter_fn):
+            return self._step_fused(ms, grid, active, boundary,
+                                    reduce_counts)
+        return self._step_glue(ms, grid, active, boundary, scatter_fn,
+                               reduce_counts)
+
+    def _step_fused(self, ms: ModelState2D, grid: Grid2D,
+                    active: torch.Tensor, boundary: torch.Tensor,
+                    reduce_counts: Optional[Callable] = None
+                    ) -> ModelState2D:
+        """The step as K1 with its epilogue (the selects, re-light, guards,
+        log-energy clamp, the deposit's mask and channels), K6 with its own
+        (the node state in its ``[..., nx, ny, 3]`` layout) and the clock's
+        tick; both kernels add to one zeroed int32 row of counters a layer,
+        which is the step's ``StepMetrics``.  The same arithmetic as
+        ``_step_glue`` on this path."""
+        P = ms.particles
+        layered = P.lne.dim() > grid.x.dim()
+        counters = torch.zeros(
+            (*P.lne.shape[:1], N_COUNTERS) if layered else (N_COUNTERS,),
+            dtype=torch.int32, device=P.lne.device)
+        wf = self.wind_fields(grid, ms.time)
+        g = advance_cuda(
+            self.winds, self.consts, self.flags, self.solver, self._DT,
+            (P.lne, P.cgx, P.cgy, P.px, P.py), P.t, P.dt, None, grid.x,
+            grid.y, self.projection(grid), wind_fields=wf,
+            guards=Guards(P.on, active, boundary, self.remesh_params,
+                          self.settings.log_energy_maximum, self.modes.halo,
+                          counters))
+        S, rm, _ = pic_gather_remesh(
+            g.x, g.y, (g.e, g.m_x, g.m_y), g.scatter_on, grid.stats,
+            self.modes.halo, self.remesh_params, g.lne, g.cgx, g.cgy, g.x,
+            g.y, g.dt, g.on, active, boundary, grid.x, grid.y, ms.time,
+            wind_fields=wf, counters=counters)
+        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy, px=rm.px,
+                                py=rm.py, t=g.t, dt=rm.dt, on=rm.on)
+        return ModelState2D(state=S, particles=particles,
+                            time=ms.time + self._DT,
+                            iteration=ms.iteration + 1,
+                            metrics=counter_metrics(counters, reduce_counts))
+
+    def _step_glue(self, ms: ModelState2D, grid: Grid2D,
+                   active: torch.Tensor, boundary: torch.Tensor,
+                   scatter_fn: Optional[Callable] = None,
+                   reduce_counts: Optional[Callable] = None) -> ModelState2D:
+        """The step with its glue in PyTorch: the advance (K1 or its plain
+        version) and the guards (``_advance_glue``), the deposit and remesh
+        (kernels or plain versions), the counters' reductions;
+        ``step_core``'s arguments.  The port's pure-PyTorch twin of the JAX
+        step, and the path of every configuration ``fused_glue`` leaves
+        out."""
+        cfg = self.modes
         sett = self.settings
         DT = self._DT
-        P = ms.particles
         aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 
         # a gridded wind's planes of this step, once for every kernel
         kernels = cfg.advance_mode == "cuda" or self._remesh_kernels
         wf = self.wind_fields(grid, ms.time) if kernels else ()
         proj = self.projection(grid) if cfg.advance_mode == "cuda" else None
+        a = self._advance_glue(ms, grid, active, boundary, wf, proj)
+
+        # ---------------- DEPOSIT + REMESH ----------------
+        # the remesh samples the winds at the pre-tick clock time
+        core = (a.lne, a.cgx, a.cgy, a.px, a.py, a.dt, a.on, active, boundary,
+                grid.x, grid.y, ms.time)
+        if cfg.remesh_mode == "fused" and self._remesh_kernels:
+            node, rm, sc_stats = pic_gather_remesh(
+                a.px, a.py, a.chans, a.scatter_on, grid.stats, cfg.halo,
+                self.remesh_params, *core, wind_fields=wf)
+        else:
+            if scatter_fn is None:
+                node, sc_stats = pic.scatter_channels(
+                    a.px, a.py, a.chans, a.scatter_on, grid.stats, cfg.halo,
+                    cfg.scatter_mode)
+            else:
+                node, sc_stats = scatter_fn(a.px, a.py, a.chans,
+                                            a.scatter_on)
+            if self._remesh_kernels:
+                rm = remesh_cuda(self.remesh_params,
+                                 tuple(c.contiguous() for c in node), *core,
+                                 wind_fields=wf)
+            else:
+                rm = remesh_core(self.remesh_params, node, *core)
+        gather = (rm.branch & GATHER_BIT) != 0
+        reseed = (rm.branch & RESEED_BIT) != 0
+
+        # Hairer dt reset for every lane whose state was replaced: the
+        # estimate clamped to [dtmin, DT] where reset, the remesh's dt
+        # elsewhere
+        dt = rm.dt
+        if sett.adaptive and cfg.dt_reset_mode == "auto":
+            was_reset = a.was_reset | gather | reseed
+            comps = (rm.lne, rm.cgx, rm.cgy, rm.px, rm.py)
+            tols = dict(abstol=sett.abstol, reltol=sett.reltol,
+                        order=self._rk_order)
+            if cfg.advance_mode == "cuda":
+                dt = auto_dt_cuda(self.winds, self.consts, self.flags, a.t,
+                                  comps, grid.x, grid.y, proj,
+                                  was_reset, dt, sett.dtmin, DT,
+                                  wind_fields=wf, **tols)
+            else:
+                dt = auto_dt_reset(self.rhs, a.t, torch.stack(comps, dim=-1),
+                                   aux, was_reset, dt, sett.dtmin, DT, **tols)
+
+        metrics = self._build_metrics(
+            reduce_counts, adv=a.adv, failed=a.failed, nan_mask=a.nan_mask,
+            inf_mask=a.inf_mask, emax_mask=a.emax_mask, relight=a.relight,
+            gather=gather, reseed=reseed,
+            # on -> off transitions: `on` is the flag before the remesh
+            off=((rm.branch & OFF_BIT) != 0) & a.on,
+            clamped=sc_stats.clamped, naccept=a.naccept)
+
+        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy, px=rm.px,
+                                py=rm.py, t=a.t, dt=dt, on=rm.on)
+        S = torch.stack(node, dim=-1)
+        return ModelState2D(state=S, particles=particles,
+                            time=ms.time + DT,
+                            iteration=ms.iteration + 1,
+                            metrics=metrics)
+
+    def _advance_glue(self, ms: ModelState2D, grid: Grid2D,
+                      active: torch.Tensor, boundary: torch.Tensor, wf,
+                      proj) -> GluedAdvance:
+        """The first half of ``_step_glue``: the advance (K1 or its plain
+        version) and the PyTorch glue up to the deposit, the selects,
+        re-light, NaN and Inf guards, log-energy clamp, the deposit's mask
+        and channels; ``wf`` and ``proj`` the step's wind and projection
+        planes.  What K1's epilogue computes on the fused path."""
+        cfg = self.modes
+        sett = self.settings
+        DT = self._DT
+        P = ms.particles
+        aux = RHSParams(x=grid.x, y=grid.y, M=grid.proj, pc=grid.pc)
 
         # ---------------- ADVANCE ----------------
         adv = P.on & active
@@ -639,65 +802,12 @@ class WaveGrowth2D(StepDrivers):
 
         bsrc = boundary if self._boundary_source else torch.zeros_like(boundary)
 
-        # ---------------- DEPOSIT + REMESH ----------------
+        # the deposit's mask and channels
         scatter_on = (on & active & ~failed) | (on & bsrc)
         e, mx, my = TR.particle_to_node(lne, cgx, cgy)
-        # the remesh samples the winds at the pre-tick clock time
-        core = (lne, cgx, cgy, px, py, dt, on, active, boundary, grid.x,
-                grid.y, ms.time)
-        if cfg.remesh_mode == "fused" and self._remesh_kernels:
-            node, rm, sc_stats = pic_gather_remesh(
-                px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-                self.remesh_params, *core, wind_fields=wf)
-        else:
-            if scatter_fn is None:
-                node, sc_stats = pic.scatter_channels(
-                    px, py, (e, mx, my), scatter_on, grid.stats, cfg.halo,
-                    cfg.scatter_mode)
-            else:
-                node, sc_stats = scatter_fn(px, py, (e, mx, my), scatter_on)
-            if self._remesh_kernels:
-                rm = remesh_cuda(self.remesh_params,
-                                 tuple(c.contiguous() for c in node), *core,
-                                 wind_fields=wf)
-            else:
-                rm = remesh_core(self.remesh_params, node, *core)
-        gather = (rm.branch & GATHER_BIT) != 0
-        reseed = (rm.branch & RESEED_BIT) != 0
-
-        # Hairer dt reset for every lane whose state was replaced: the
-        # estimate clamped to [dtmin, DT] where reset, the remesh's dt
-        # elsewhere
-        dt = rm.dt
-        if sett.adaptive and cfg.dt_reset_mode == "auto":
-            was_reset = was_reset_adv | gather | reseed
-            comps = (rm.lne, rm.cgx, rm.cgy, rm.px, rm.py)
-            tols = dict(abstol=sett.abstol, reltol=sett.reltol,
-                        order=self._rk_order)
-            if cfg.advance_mode == "cuda":
-                dt = auto_dt_cuda(self.winds, self.consts, self.flags, t,
-                                  comps, grid.x, grid.y, proj,
-                                  was_reset, dt, sett.dtmin, DT,
-                                  wind_fields=wf, **tols)
-            else:
-                dt = auto_dt_reset(self.rhs, t, torch.stack(comps, dim=-1),
-                                   aux, was_reset, dt, sett.dtmin, DT, **tols)
-
-        metrics = self._build_metrics(
-            reduce_counts, adv=adv, failed=failed, nan_mask=nan_mask,
-            inf_mask=inf_mask, emax_mask=emax_mask, relight=relight,
-            gather=gather, reseed=reseed,
-            # on -> off transitions: `on` is the flag before the remesh
-            off=((rm.branch & OFF_BIT) != 0) & on,
-            clamped=sc_stats.clamped, naccept=res.naccept)
-
-        particles = Particles2D(lne=rm.lne, cgx=rm.cgx, cgy=rm.cgy, px=rm.px,
-                                py=rm.py, t=t, dt=dt, on=rm.on)
-        S = torch.stack(node, dim=-1)
-        return ModelState2D(state=S, particles=particles,
-                            time=ms.time + DT,
-                            iteration=ms.iteration + 1,
-                            metrics=metrics)
+        return GluedAdvance(lne, cgx, cgy, px, py, t, dt, on, scatter_on,
+                            (e, mx, my), adv, failed, nan_mask, inf_mask,
+                            emax_mask, relight, was_reset_adv, res.naccept)
 
     @staticmethod
     def _build_metrics(reduce_counts, *, adv, failed, nan_mask, inf_mask,
@@ -717,6 +827,29 @@ class WaveGrowth2D(StepDrivers):
         if reduce_counts is not None:
             counts, smax = reduce_counts(counts, smax)
         return StepMetrics(*counts.unbind(-1), substeps_max=smax)
+
+
+def fused_glue(modes: WaveGrowth2DConfig, wind_kind,
+               scatter_fn: Optional[Callable] = None) -> bool:
+    """Whether a step runs its glue in the epilogues of K1 and K6 (its
+    fused path): exactly where it runs those two kernels, with ``modes``
+    (resolved: a CUDA mode only on a card) advancing on K1 and remeshing
+    with K6 (single device: no ``scatter_fn``), under a wind other than
+    gridded, whose re-light samples the record at each lane's own time."""
+    return (modes.advance_mode == "cuda" and modes.remesh_mode == "fused"
+            and scatter_fn is None and wind_kind != WindKind.GRIDDED)
+
+
+def counter_metrics(counters: torch.Tensor,
+                    reduce_counts: Optional[Callable] = None) -> StepMetrics:
+    """The step's ``StepMetrics`` of its counters' rows (``[N_COUNTERS]``,
+    or ``[L, N_COUNTERS]`` layered): the ten counts in their order, then
+    ``substeps_max``, views of the rows; ``reduce_counts`` as
+    ``step_core``'s."""
+    counts, smax = counters[..., :-1], counters[..., -1]
+    if reduce_counts is not None:
+        counts, smax = reduce_counts(counts, smax)
+    return StepMetrics(*counts.unbind(-1), substeps_max=smax)
 
 
 def triple(d):

@@ -56,6 +56,13 @@ the double instances).  A plane of another dtype, or a traced wind of
 another dtype than the lanes', raises, naming it: nothing is cast, and no
 wrapper falls back to a plain version.
 
+``advance_cuda(..., guards=)`` is K1 with its epilogue, the step's
+PyTorch glue between the advance and the deposit in the kernel (the
+model's fused path: the selects, re-light, NaN and Inf guards, log-energy
+clamp, the deposit's mask and channels, and the step's counters added to
+one int32 row a layer, ``N_COUNTERS``); ``advance_cuda.epilogue_launches``
+counts its launches.
+
 ``advance_cuda.launches``, ``auto_dt_cuda.launches`` and
 ``advance_1d.launches`` count kernel launches (not plain-version calls) of
 the float32 instances; ``..._cuda.traced_launches`` and
@@ -88,6 +95,7 @@ import torch
 from ..forcing.winds import (GriddedWinds1D, WindKernel, WindKind, Winds2D,
                              traced_kernel)
 from ..utils import diagnostics
+from .remesh import RemeshParams
 from .rhs import RHSConsts, TermFlags
 from .tsit5 import METHODS, SolverConfig, auto_dt
 
@@ -102,6 +110,63 @@ class AdvanceResult(NamedTuple):
     dt: torch.Tensor
     failed: torch.Tensor   # bool
     naccept: torch.Tensor  # int32
+
+
+# the step's counters a layer (csrc/remesh.cuh N_COUNTERS): the ten counts
+# of models/state.py StepMetrics, then substeps_max
+N_COUNTERS = 11
+
+
+def check_counters(counters: torch.Tensor, layered: bool, L: int,
+                   dev) -> None:
+    """Raise unless ``counters`` is the step's one contiguous int32 row of
+    ``N_COUNTERS`` on ``dev`` (``[L, N_COUNTERS]`` for ``layered`` lanes),
+    which the epilogues of K1 and K6 add to."""
+    rows = (L, N_COUNTERS) if layered else (N_COUNTERS,)
+    c = counters
+    if tuple(c.shape) != rows or c.dtype != torch.int32 \
+            or not c.is_contiguous() or c.device != dev:
+        raise ValueError(f"the counters must be one contiguous int32 {rows} "
+                         f"tensor on {dev}, got {c.dtype} {tuple(c.shape)} "
+                         f"on {c.device}")
+
+
+class Guards(NamedTuple):
+    """The step's guards that K1's epilogue applies after the advance (the
+    model's fused path, ``csrc/advance.cu`` ``guard_lane``).  ``on`` the
+    lanes' flags before the step (a lane plane), ``active`` and
+    ``boundary`` the node masks (shared by the layers); ``remesh`` gives the
+    reseed (its ``defaults``, ``timestep``), ``wind_min_squared`` and
+    ``boundary_source``; ``halo`` the deposit's declared halo, whose clamp
+    the epilogue tests; ``counters`` int32 ``[N_COUNTERS]`` (``[L,
+    N_COUNTERS]`` for layered lanes), zeroed, which K1 adds its counts
+    to."""
+
+    on: torch.Tensor
+    active: torch.Tensor
+    boundary: torch.Tensor
+    remesh: RemeshParams
+    log_energy_maximum: float
+    halo: object
+    counters: torch.Tensor
+
+
+class GuardedAdvance(NamedTuple):
+    """K1's results with its epilogue: the guarded particle planes, the
+    flags after the re-light, the deposit's mask and its channels."""
+
+    lne: torch.Tensor
+    cgx: torch.Tensor
+    cgy: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    on: torch.Tensor          # bool: on | relight
+    scatter_on: torch.Tensor  # bool: the particles the deposit takes
+    e: torch.Tensor           # transforms.particle_to_node of the state
+    m_x: torch.Tensor
+    m_y: torch.Tensor
 
 
 def flag_bits(flags: TermFlags) -> int:
@@ -281,13 +346,48 @@ def _tableau_params(method) -> list:
     return c + a + b + bt
 
 
+def _guard_params(g: Optional[Guards]) -> Tuple[list, list]:
+    """The epilogue's packed floats and ints (advance.cu
+    ``unpack_advance``), zeros without it."""
+    from .pic import halo_bounds, normalize_halo
+    from .remesh_cuda import seed_params, windsea_params
+
+    if g is None:
+        return [0.0] * 24, [0, 0]
+    kind, seed = seed_params(g.remesh.defaults)
+    (xl, xh), (yl, yh) = normalize_halo(g.halo)
+    f = (windsea_params(g.remesh.timestep) + seed
+         + [g.remesh.wind_min_squared, g.log_energy_maximum,
+            *halo_bounds(xl, xh), *halo_bounds(yl, yh)])
+    return f, [kind, int(g.remesh.boundary_source)]
+
+
+def _guard_planes(g: Guards, like: torch.Tensor, xn: torch.Tensor, L: int,
+                  dev) -> Tuple[list, list]:
+    """The epilogue's planes checked (the lanes' flags like the lanes, the
+    masks like the node x, the counters one row a layer): its inputs and
+    its new output planes (on, the deposit's mask, e, m_x, m_y)."""
+    from .cuda_build import check_layered
+
+    check_layered([like, g.on], ["lne", "on"], [like.dtype, torch.bool],
+                  [xn, g.active, g.boundary], ["xn", "active", "boundary"],
+                  [xn.dtype, torch.bool, torch.bool])
+    check_counters(g.counters, like.dim() > xn.dim(), L, dev)
+    flags = [torch.empty(like.shape, dtype=torch.bool, device=dev)
+             for _ in range(2)]
+    chans = [torch.empty_like(like) for _ in range(3)]
+    return [g.on, g.active, g.boundary], flags + chans
+
+
 def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
                  config: SolverConfig, DT: float,
                  comps: Tuple[torch.Tensor, ...], t: torch.Tensor,
-                 dt: torch.Tensor, active: torch.Tensor, xn: torch.Tensor,
-                 yn: torch.Tensor, proj: Projection, *,
+                 dt: torch.Tensor, active: Optional[torch.Tensor],
+                 xn: torch.Tensor, yn: torch.Tensor, proj: Projection, *,
                  wind_fields: Sequence[torch.Tensor] = (),
-                 simple: bool = False) -> AdvanceResult:
+                 guards: Optional[Guards] = None,
+                 simple: bool = False
+                 ) -> Union[AdvanceResult, GuardedAdvance]:
     """Advance every active particle over one model step ``DT`` (K1).
 
     ``comps`` = (lne, cgx, cgy, x, y), ``t``, ``dt`` and ``active`` (bool)
@@ -295,33 +395,53 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     the 5 uniform projection scalars or the per-node planes
     (``node_projection``); ``wind_fields`` a gridded wind's planes of this
     step.  Inactive lanes pass through with ``failed = False`` and
-    ``naccept = 0``; a lane that finishes gets ``t = t + DT``."""
+    ``naccept = 0``; a lane that finishes gets ``t = t + DT``.
+
+    With ``guards`` (a wind other than gridded; ``active`` None: K1 advances
+    ``guards.on & guards.active``) K1's epilogue applies the step's guards
+    and returns a ``GuardedAdvance``, and adds the step's counts to
+    ``guards.counters``: ``advance_cuda.epilogue_launches`` counts those
+    launches (of every instance)."""
     from .cuda_build import (K1_METHODS, check_layered, check_status,
                              library, packed, pointer_array)
 
     if config.method not in K1_METHODS:
         raise ValueError(f"the advance kernel compiles the tableaux of "
                          f"{sorted(K1_METHODS)}, not {config.method!r}")
+    if (guards is None) == (active is None):
+        raise ValueError("pass the advanced lanes `active`, or `guards` "
+                         "with active=None (K1 then forms on & active)")
     method = METHODS[config.method]
     ins = [*comps, t, dt, active, xn]
     real = _lanes_dtype(comps[0], simple)
     wind = kernel_wind(winds, xn.device, real)
-    dev, L = check_layered(ins[:8], ["lne", "cgx", "cgy", "x", "y", "t", "dt",
-                                     "active"], [real] * 7 + [torch.bool],
+    lanes = ins[:7] + ([active] if guards is None else [guards.on])
+    dev, L = check_layered(lanes, ["lne", "cgx", "cgy", "x", "y", "t", "dt",
+                                   "active"], [real] * 7 + [torch.bool],
                            [xn], ["xn"], [real], simple)
     planes = wind_planes(wind, wind_fields, xn, simple, yn)
     pp = projection_planes(proj, xn, simple)
+    if guards is not None and (simple or wind.kind == WindKind.GRIDDED):
+        raise ValueError("K1's epilogue runs in the kernels' own instances "
+                         "of a wind other than gridded")
     f, i = _rhs_wind_params(consts, flags, wind, pp, proj)
     f += [DT, config.abstol, config.reltol, config.dtmin, -1.0 / method.order]
     f += _tableau_params(method)
     i += [len(method.b), int(config.adaptive), int(config.force_dtmin),
           int(config.maxiters)]
-    fp = packed(f, real)
-    ip = np.asarray(i, dtype=np.int32)
+    gf, gi = _guard_params(guards)
+    fp = packed(f + gf, real)
+    ip = np.asarray(i + gi, dtype=np.int32)
     outs = [torch.empty_like(t) for _ in range(7)]
-    failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
-    nacc = torch.empty(t.shape, dtype=torch.int32, device=dev)
-    ptrs = pointer_array(ins + outs + [failed, nacc, pp] + planes)
+    if guards is None:
+        failed = torch.empty(t.shape, dtype=torch.bool, device=dev)
+        nacc = torch.empty(t.shape, dtype=torch.int32, device=dev)
+        epi = [None] * 9
+    else:
+        failed = nacc = None
+        g_in, g_out = _guard_planes(guards, comps[0], xn, L, dev)
+        epi = g_in + g_out + [guards.counters]
+    ptrs = pointer_array(ins + outs + [failed, nacc, pp] + epi + planes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if simple:
@@ -336,11 +456,15 @@ def advance_cuda(winds: Winds2D, consts: RHSConsts, flags: TermFlags,
     check_status(code, "advance")
     if not simple:
         _count(advance_cuda, wind.kind == WindKind.TRACED, real)
+    if guards is not None:
+        advance_cuda.epilogue_launches += 1
+        return GuardedAdvance(*outs, *g_out)
     return AdvanceResult(*outs, failed=failed, naccept=nacc)
 
 
 diagnostics.launch_counters(advance_cuda, "launches", "traced_launches",
-                            "f64_launches", "traced_f64_launches")
+                            "f64_launches", "traced_f64_launches",
+                            "epilogue_launches")
 
 
 def _lanes_dtype(lanes: torch.Tensor, simple: bool) -> torch.dtype:

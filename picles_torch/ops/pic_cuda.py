@@ -32,7 +32,9 @@ ghosts' offsets to that window once more, which moves the deposit of a
 particle clamped at the wider side's bound by 1e-5 of its weight; the
 kernels here do not, and deposit as ``pic.scatter_dense`` folds
 (``csrc/pic_gather.cu``).  The count of clamped displacements stays in PyTorch, with the JAX
-package's predicate on the declared halo.  ``pic_gather.launches``,
+package's predicate on the declared halo, but where K6 runs its epilogue
+(``counters=``, the model's fused path: K1 then counts them, the same
+predicate in its own epilogue).  ``pic_gather.launches``,
 ``pic_gather_padded.launches`` and ``pic_gather_remesh.launches`` count
 kernel launches, ``pic_gather_remesh.traced_launches`` and
 ``pic_gather_remesh.traced_f64_launches`` those of K6's float32 and float64
@@ -53,7 +55,7 @@ path of the package passes it, and its launches are not counted.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,8 +71,8 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
                    tripolar=False, simple=False):
     """Check the deposit's inputs (``px``/``py``: the axis wraps;
     ``tripolar``: the y axis folds at the north seam, and the window is
-    widened); returns (device, packed float and int parameters, clamped
-    count, a 0-dim tensor or one a layer)."""
+    widened); returns (device, packed float parameters: the halo's bounds,
+    packed int parameters)."""
     from .cuda_build import check_layered
 
     if len(chans) != 3:
@@ -91,11 +93,18 @@ def _deposit_setup(xrel, yrel, chans, active, halo, px=False, py=False,
 
     x_lo, x_hi = halo_bounds(xl, xh)
     y_lo, y_hi = halo_bounds(yl, yh)
-    clamped = torch.sum(((xrel < x_lo) | (xrel > x_hi)
-                         | (yrel < y_lo) | (yrel > y_hi)) & active,
-                        dim=(-2, -1)).to(torch.int32)
     return (dev, [x_lo, x_hi, y_lo, y_hi],
-            [nx, ny, *wx, *wy, int(px), int(py), int(tripolar), L], clamped)
+            [nx, ny, *wx, *wy, int(px), int(py), int(tripolar), L])
+
+
+def _clamped(xrel, yrel, active, bounds) -> torch.Tensor:
+    """The count of the ``active`` particles displaced past the declared
+    halo's ``bounds`` (``_deposit_setup``'s floats), a 0-dim int32 tensor
+    or one a layer: the JAX package's predicate."""
+    x_lo, x_hi, y_lo, y_hi = bounds
+    return torch.sum(((xrel < x_lo) | (xrel > x_hi)
+                      | (yrel < y_lo) | (yrel > y_hi)) & active,
+                     dim=(-2, -1)).to(torch.int32)
 
 
 def _gather_setup(xrel, yrel, chans, active, stats: GridStats, halo,
@@ -124,8 +133,8 @@ def pic_gather(xrel: torch.Tensor, yrel: torch.Tensor,
     (K2)."""
     from .cuda_build import check_status, library, packed, pointer_array
 
-    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, active, stats, halo,
-                                       simple)
+    dev, f, i = _gather_setup(xrel, yrel, chans, active, stats, halo, simple)
+    clamped = _clamped(xrel, yrel, active, f)
     fp = packed(f, xrel.dtype)
     ip = np.asarray(i, dtype=np.int32)
     outs = [torch.empty_like(xrel) for _ in range(3)]
@@ -157,8 +166,9 @@ def pic_gather_padded(xrel: torch.Tensor, yrel: torch.Tensor,
     wraps."""
     from .cuda_build import check_status, library, packed, pointer_array
 
-    dev, f, i, clamped = _deposit_setup(xrel, yrel, chans, active, halo,
-                                        simple=simple)
+    dev, f, i = _deposit_setup(xrel, yrel, chans, active, halo,
+                               simple=simple)
+    clamped = _clamped(xrel, yrel, active, f)
     nx, ny, xl, xh, yl, yh = i[:6]
     fp = packed(f, xrel.dtype)
     ip = np.asarray(i, dtype=np.int32)
@@ -186,6 +196,7 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
                       p: RemeshParams, lne, cgx, cgy, px, py, dt, on, active,
                       boundary, xn, yn, clock, *,
                       wind_fields: Sequence[torch.Tensor] = (),
+                      counters: Optional[torch.Tensor] = None,
                       simple: bool = False
                       ) -> Tuple[Tuple[torch.Tensor, ...], RemeshResult,
                                  ScatterStats]:
@@ -196,16 +207,27 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     ``boundary`` and ``xn`` ``[nx, ny]``; ``wind_fields`` a gridded wind's
     planes of this step or a steady callable's node planes; ``yn`` is sent
     to the kernel for a traced wind only (no analytic wind it compiles
-    varies in y)."""
+    varies in y).
+
+    With ``counters`` (the step's, after K1's epilogue: ``advance_cuda``
+    ``Guards``) K6's epilogue adds n_gather, n_reseed and n_off to them and
+    the call returns (the node state ``[..., nx, ny, 3]``, RemeshResult
+    without its ``branch``, None): the clamped displacements are K1's
+    count.  ``pic_gather_remesh.epilogue_launches`` counts those
+    launches."""
     from ..forcing.winds import WindKind
-    from .advance_cuda import kernel_library, kernel_wind, wind_planes
+    from .advance_cuda import (check_counters, kernel_library, kernel_wind,
+                               wind_planes)
     from .cuda_build import check_status, library, packed, pointer_array
     from .remesh_cuda import check_core, remesh_outputs, remesh_params
 
-    dev, f, i, clamped = _gather_setup(xrel, yrel, chans, scatter_active,
-                                       stats, halo, simple)
+    epilogue = counters is not None
+    dev, f, i = _gather_setup(xrel, yrel, chans, scatter_active, stats, halo,
+                              simple)
+    clamped = None if epilogue else _clamped(xrel, yrel, scatter_active, f)
     core = [lne, cgx, cgy, px, py, dt, on, active, boundary, xn]
-    if check_core(core, clock, xrel.shape, simple)[0] != dev:
+    dev_, L = check_core(core, clock, xrel.shape, simple)
+    if dev_ != dev:
         raise ValueError(f"the particle planes are on {lne.device}, the "
                          f"deposit's on {dev}")
     wind = kernel_wind(p.winds, dev, xrel.dtype)
@@ -213,10 +235,19 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
     rf, ri = remesh_params(p, dev, xrel.dtype)
     fp = packed(f + rf, xrel.dtype)
     ip = np.asarray(i + ri, dtype=np.int32)
-    node = [torch.empty_like(xrel) for _ in range(3)]
     outs = remesh_outputs(lne)
+    if epilogue:
+        if simple:
+            raise ValueError("K6's epilogue has no _simple baseline")
+        check_counters(counters, xrel.dim() > 2, L, dev)
+        state = torch.empty((*xrel.shape, 3), dtype=xrel.dtype, device=dev)
+        node, outs[-1] = [None] * 3, None
+        epi = [state, counters]
+    else:
+        node = [torch.empty_like(xrel) for _ in range(3)]
+        epi = [None, None]
     ptrs = pointer_array([xrel, yrel, *chans, scatter_active, clock, *core,
-                          *node, *outs, *planes])
+                          *node, *outs, *epi, *planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if simple:
@@ -234,11 +265,15 @@ def pic_gather_remesh(xrel: torch.Tensor, yrel: torch.Tensor,
             pic_gather_remesh.traced_launches += 1
         else:
             _count(pic_gather_remesh, xrel.dtype)
+    if epilogue:
+        pic_gather_remesh.epilogue_launches += 1
+        return state, RemeshResult(*outs), None
     return tuple(node), RemeshResult(*outs), ScatterStats(clamped=clamped)
 
 
 diagnostics.launch_counters(pic_gather_remesh, "launches", "traced_launches",
-                            "f64_launches", "traced_f64_launches")
+                            "f64_launches", "traced_f64_launches",
+                            "epilogue_launches")
 
 
 def _entry(name: str, dtype: torch.dtype):

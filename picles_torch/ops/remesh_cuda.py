@@ -51,29 +51,37 @@ CORE_NAMES = ("lne", "cgx", "cgy", "px", "py", "dt", "on", "active",
               "boundary", "xn")
 
 
-def _seed(d) -> Tuple[int, list]:
+def seed_params(d) -> Tuple[int, list]:
+    """A reseed's kind and values (``SEED_WINDSEA`` for None, else
+    ``SEED_FIXED`` and the fixed (lne, cgx, cgy))."""
     if d is None:
         return SEED_WINDSEA, [0.0, 0.0, 0.0]
     return SEED_FIXED, [float(v) for v in d]
 
 
+def windsea_params(timestep: float) -> list:
+    """The windsea's constants (``WindseaConsts`` in remesh.cuh): those of
+    ``fetch_relations.get_initial_windsea`` over ``timestep``, in its order
+    of use."""
+    return [G_GRAVITY, abs(timestep), 0.1,
+            FR.DULOV_A * FR.DULOV_XI_0X, 1.0 / (1.0 - FR.DULOV_Q_X),
+            3.5, -0.33, 0.033, 0.67, 0.31 * G_GRAVITY ** 2, 2.0, math.pi,
+            -4.0, 0.9, 4.0 * math.pi]
+
+
 def remesh_params(p: RemeshParams, device="cpu",
                   dtype: torch.dtype = torch.float32) -> Tuple[list, list]:
     """The packed float and int parameters of the branch table (the layout
-    of ``unpack_remesh`` in remesh.cuh).  The windsea constants are those of
-    ``fetch_relations.get_initial_windsea``, in its order of use; a
-    callable without a descriptor is traced on ``device`` in the lanes'
-    ``dtype``."""
+    of ``unpack_remesh`` in remesh.cuh).  The windsea constants are
+    ``windsea_params``; a callable without a descriptor is traced on
+    ``device`` in the lanes' ``dtype``."""
     wf, wi = wind_params(kernel_wind(p.winds, device, dtype))
-    windsea = [G_GRAVITY, abs(p.timestep), 0.1,
-               FR.DULOV_A * FR.DULOV_XI_0X, 1.0 / (1.0 - FR.DULOV_Q_X),
-               3.5, -0.33, 0.033, 0.67, 0.31 * G_GRAVITY ** 2, 2.0, math.pi,
-               -4.0, 0.9, 4.0 * math.pi]
-    kind, seed = _seed(p.defaults)
+    windsea = windsea_params(p.timestep)
+    kind, seed = seed_params(p.defaults)
     if p.bdefaults == "same":
         bkind, bseed = SEED_SAME, [0.0, 0.0, 0.0]
     else:
-        bkind, bseed = _seed(p.bdefaults)
+        bkind, bseed = seed_params(p.bdefaults)
     f = wf + windsea + seed + bseed + [p.minimal_e, p.minimal_m2,
                                        p.wind_min_squared, p.dtmin,
                                        p.timestep]

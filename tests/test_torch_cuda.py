@@ -2221,3 +2221,128 @@ def test_graphed_float64_1d_day_equals_eager_steps(dev):
                                                "1D traced"))
     assert all(out[k]["err"] <= 1e-10 for k in ("1D node", "1D gridded",
                                                 "1D traced")), out
+
+
+# ---------------------------------------------------------------------------
+# the step's glue in K1's and K6's epilogues (the fused path) against the
+# step's PyTorch glue between raw K1 and K6
+# ---------------------------------------------------------------------------
+
+FUSED_CASES = {
+    "constant": {}, "constant quiet": dict(fire=False),
+    "node": dict(wind="node"), "traced": dict(wind="traced"),
+    "constant f64": dict(dtype=torch.float64),
+    "traced f64": dict(wind="traced", dtype=torch.float64),
+    "layered": dict(layers=2), "tripolar": dict(grid="tripolar"),
+    "open boundary": dict(grid="open"),
+}
+
+
+def _fused_model(dev, wind="constant", dtype=torch.float32, layers=1,
+                 grid="box", n=64, remesh_mode="fused"):
+    """The flagship configuration (bosh3, carried dt, fused remesh) at n^2
+    under ``wind`` ("constant" (10, 10) m/s, "node": a steady callable
+    varying in x, "traced": the pulse, which reads its time), a lane that
+    cannot meet its tolerance at dtmin failing; ``grid`` "box" (periodic,
+    halo ((0,3),(0,3))),
+    "open" (no axis periodic, boundary nodes reseeding as inflow, halo 3)
+    or "tripolar" (the 2n x n grid with its continent, halo 3: K6<7>)."""
+    from picles_torch import (ODESettings, WaveGrowth2D, WaveGrowth2DConfig,
+                              Winds2D, cartesian_box, constant_winds)
+
+    cs = _chip_smoke()
+    periodic = grid != "open"
+    if grid == "tripolar":
+        g = cs.tripolar_grid(dev, 4 * n, 2 * n)
+    else:
+        g = cartesian_box(2e3 * (n - 1), n, 2e3 * (n - 1), n,
+                          periodic_boundary=(periodic, periodic), device=dev,
+                          dtype=dtype)
+    winds = {"constant": constant_winds(10.0, 10.0),
+             "node": Winds2D(u=lambda x, y, t: 8.0 + 4.0 * torch.sin(x / 3e4),
+                             v=lambda x, y, t: 6.0 + 0.0 * y),
+             "traced": cs.pulse_winds()}[wind]
+    cfg = WaveGrowth2DConfig(
+        periodic_boundary=periodic, dt_reset_mode="carry",
+        boundary_type="same" if periodic else "wind_sea",
+        remesh_mode=remesh_mode,
+        halo=((0, 3), (0, 3)) if grid == "box" else 3, layers=layers,
+        dtype=dtype)
+    return WaveGrowth2D(g, winds, ODESettings(timestep=600.0, dt=60.0,
+                                              dtmin=1e-4, force_dtmin=False,
+                                              solver="bosh3"), config=cfg)
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_step_equals_k1_glue_k6(dev, case):
+    """One step of the fused path (K1 and K6 with their epilogues) against
+    today's path from the same state on the same card: raw K1, the step's
+    PyTorch glue, then K6 (``_step_glue``).  The constant, node and traced
+    winds, float32 and float64, two layers, the tripolar K6<7> and an open
+    box whose boundary reseeds as inflow; every guard firing on some lanes,
+    or none (``chip_smoke.fire_guards``: every compared plane stays
+    finite).  The epilogue counters tick on the fused step only."""
+    from picles_torch.ops.advance_cuda import advance_cuda
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+
+    import dataclasses
+
+    cs = _chip_smoke()
+    kw = dict(FUSED_CASES[case])
+    fire = kw.pop("fire", True)
+    m = _fused_model(dev, **kw)
+    ms = m.init_state_layers() if m.config.layers > 1 else m.init_state()
+    if fire:
+        ms, lemax = cs.fire_guards(m, ms)
+        m.settings = dataclasses.replace(m.settings,
+                                         log_energy_maximum=lemax)
+    counts = (advance_cuda.epilogue_launches,
+              pic_gather_remesh.epilogue_launches)
+    f = m.step(ms)
+    assert (advance_cuda.epilogue_launches,
+            pic_gather_remesh.epilogue_launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+    g = m._step_glue(ms, m.grid, m.active_mask, m.boundary_mask)
+    assert pic_gather_remesh.epilogue_launches == counts[1] + 1
+    cs.assert_fused_equals_glue(case, f, g, cs.FUSED_RTOL[m.config.dtype])
+    c = f.metrics.as_dict()
+    if m.config.layers > 1:
+        assert f.metrics.n_active.shape == (m.config.layers,)
+        c = {k: sum(v) for k, v in c.items()}
+    fired = ("n_failed", "n_nan_reset", "n_inf_reset", "n_emax_clamp",
+             "n_relight", "n_clamped")
+    assert c["n_active"] > 0 and c["n_gather"] > 0, c
+    assert all((c[k] > 0) == fire for k in fired), c
+    if not fire:
+        for a, b in zip(f.leaves(), g.leaves()):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_fused_path_engages_only_where_k1_and_k6_run(dev):
+    """A gridded wind, the K5 and the PyTorch remeshes take the PyTorch
+    glue (no epilogue launch) on the card; the constant wind's fused step
+    launches each epilogue once, graphed replays bit for bit the eager
+    steps."""
+    from picles_torch import WaveGrowth2D
+    from picles_torch.ops.advance_cuda import advance_cuda
+    from picles_torch.ops.pic_cuda import pic_gather_remesh
+
+    def epilogues():
+        return (advance_cuda.epilogue_launches,
+                pic_gather_remesh.epilogue_launches)
+
+    n = 64
+    kw, _, _ = _gridded(dev, n, 900.0, 0.0)
+    fm = _fused_model(dev, n=n)
+    gm = WaveGrowth2D(fm.grid, kw, fm.settings, config=fm.config)
+    for m in (gm, _fused_model(dev, remesh_mode="pallas"),
+              _fused_model(dev, remesh_mode="xla")):
+        before, k1 = epilogues(), advance_cuda.launches
+        m.step(m.init_state())
+        assert epilogues() == before and advance_cuda.launches == k1 + 1
+    cs = _chip_smoke()
+    before = epilogues()
+    eager = cs.eager_steps(fm, fm.init_state(), 3)
+    assert epilogues() == (before[0] + 3, before[1] + 3)
+    cs.assert_state_bitwise("fused graphed", fm.step_n_quiet(
+        fm.init_state(), 3), eager)
